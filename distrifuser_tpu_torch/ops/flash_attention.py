@@ -1,0 +1,159 @@
+"""Flash attention: the hand-written Hopper kernel, its wrapper and its plain
+version.
+
+Counterpart of distrifuser_tpu/ops/flash_attention.py (``_flash_kernel``
+launched by ``flash_sdpa``).  The kernel is CUDA C++ for sm_90a in
+``csrc/flash_attention.cu``; its header comment gives the design and what
+bounds it.  It is built with ``nvcc`` at first use, from this package's
+sources, into ``build/kernels/`` beside the package, and bound through a
+plain C entry point loaded with ``ctypes``.
+
+``flash_sdpa`` takes the JAX signature: q ``[B, Lq, C]``, k and v
+``[B, Lk, C]``, ``heads`` heads of ``d = C / heads`` columns, an optional
+``kv_len`` that treats only the first ``kv_len`` KV positions as real.
+On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
+``flash_sdpa_reference``.  Unlike the Pallas kernel, the lengths need not
+be block multiples: the kernel masks ragged query and KV edges itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_NEG_INF = -1e30  # masked-logit convention of the TPU kernel
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+_build_log = ""
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> str:
+    """Compile the kernel if this source has not been built yet, load it,
+    and return the compiler's output (ptxas register and shared-memory
+    report) of the build, or "" when an earlier build was reused."""
+    global _lib, _build_log
+    with _lock:
+        if _lib is not None:
+            return _build_log
+        src = _SRC.read_bytes()
+        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        so = _BUILD_DIR / f"libflash_attention_{tag}.so"
+        if not so.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed building {_SRC.name}:\n{proc.stdout}{proc.stderr}"
+                )
+            os.replace(tmp, so)
+            _build_log = proc.stdout + proc.stderr
+        lib = ctypes.CDLL(str(so))
+        fn = lib.flash_sdpa_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        )
+        _lib = lib
+        return _build_log
+
+
+def flash_sdpa_reference(q, k, v, *, heads: int, kv_len: int = None):
+    """Plain PyTorch flash_sdpa: float32 logits, the -1e30 KV mask, p
+    rounded to V's dtype before the PV product (float32 accumulation), the
+    normalizer applied after it, output in q's dtype."""
+    b, lq, c = q.shape
+    lk = k.shape[1]
+    d = c // heads
+    qh = q.reshape(b, lq, heads, d).transpose(1, 2).float()
+    kh = k.reshape(b, lk, heads, d).transpose(1, 2).float()
+    vh = v.reshape(b, lk, heads, d).transpose(1, 2)
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / d**0.5)
+    if kv_len is not None and kv_len < lk:
+        col = torch.arange(lk, device=q.device)
+        s = s.masked_fill(col >= kv_len, _NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(v.dtype).float(), vh.float())
+    out = (acc / l).to(q.dtype)
+    return out.transpose(1, 2).reshape(b, lq, c)
+
+
+def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None):
+    """SDPA over [B, L, C] with ``heads`` heads: the kernel on the card,
+    the plain version on the CPU.  Counts each kernel launch in
+    ``flash_sdpa.launches``."""
+    if q.device.type == "cpu":
+        return flash_sdpa_reference(q, k, v, heads=heads, kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_sdpa: unsupported device {q.device}")
+    b, lq, c = q.shape
+    lk = k.shape[1]
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_sdpa: {name} on {t.device}, q on {q.device}")
+        if t.dim() != 3 or t.shape[0] != b or t.shape[2] != c or t.shape[1] != lk:
+            raise ValueError(f"flash_sdpa: {name} shape {tuple(t.shape)} does not "
+                             f"match q {tuple(q.shape)} / k {tuple(k.shape)}")
+    if c % heads:
+        raise ValueError(f"flash_sdpa: {c} channels not divisible by {heads} heads")
+    d = c // heads
+    if d % 16 or d > 512:
+        raise ValueError(f"flash_sdpa kernel takes head dims that are multiples "
+                         f"of 16 up to 512, got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"flash_sdpa kernel takes bfloat16, {name} is {t.dtype}")
+        if t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8:
+            raise ValueError(f"flash_sdpa: {name} needs unit channel stride and "
+                             f"16-byte aligned rows, strides {t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_sdpa: {name} data is not 16-byte aligned")
+    kv = lk if kv_len is None else min(kv_len, lk)
+    if lq == 0 or kv <= 0:
+        raise ValueError(f"flash_sdpa: empty attention (Lq={lq}, kv_len={kv})")
+    if _lib is None:
+        build()
+    out = torch.empty((b, lq, c), dtype=q.dtype, device=q.device)
+    rc = _lib.flash_sdpa_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, heads, lq, kv, d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+        1.0 / d**0.5, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_sdpa kernel launch failed: cudaError {rc}")
+    flash_sdpa.launches += 1
+    return out
+
+
+flash_sdpa.launches = 0
