@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.linear import linear
+from ..parallel.compress import asdense
 from .unet import cast_params, layer_norm
 
 
@@ -118,7 +119,7 @@ def clip_text_forward(params, cfg: CLIPTextConfig, input_ids) -> Dict[str, Any]:
         "pooler_output": pooled,
     }
     if "text_projection" in params:
-        out["text_embeds"] = pooled @ params["text_projection"]["kernel"]
+        out["text_embeds"] = pooled @ asdense(params["text_projection"]["kernel"])
     return out
 
 

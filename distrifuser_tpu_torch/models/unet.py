@@ -9,7 +9,9 @@ parallelism) is ROADMAP queue 1 item 7.
 
 Layouts inside the tree: linear kernels ``[in, out]`` as in JAX, conv
 kernels ``[out, in, kh, kw]`` in channels_last memory format (the JAX tree
-holds HWIO; models/weights.py transposes).
+holds HWIO; models/weights.py transposes).  Any kernel may be a
+``QuantizedTensor`` (DistriConfig.weight_quant): its ``dtype`` is the
+compute dtype, and ops/linear.py and ops/conv.py consume it.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..ops.attention import attention, cross_attention
 from ..ops.conv import conv2d
 from ..ops.linear import feed_forward, linear
 from ..ops.normalization import group_norm
+from ..parallel.compress import QuantizedTensor
 
 silu = F.silu
 
@@ -110,6 +113,25 @@ def attention_calls_per_forward(cfg: UNetConfig) -> int:
     """sdpa calls in one UNet evaluation: a self- and a cross-attention for
     every transformer block."""
     return 2 * sum(transformer_blocks_per_level(cfg))
+
+
+def linear_calls(cfg: UNetConfig):
+    """(linears one UNet evaluation runs, cross-attention ``to_kv`` linears
+    ``precompute_text_kv`` runs once per generation).  Per transformer
+    block: self-attention to_q, to_kv, to_out, cross-attention to_q,
+    to_out, the GEGLU projection and the FF output; per transformer, a
+    linear proj_in and proj_out; per resnet, time_emb_proj; and the time
+    (and SDXL add-) embedding MLPs."""
+    blocks = sum(transformer_blocks_per_level(cfg))
+    cross = [b == "CrossAttnDownBlock2D" for b in cfg.down_block_types]
+    cross += [b == "CrossAttnUpBlock2D" for b in cfg.up_block_types]
+    n_down, n_up = len(cfg.down_block_types), len(cfg.up_block_types)
+    transformers = (cfg.layers_per_block * sum(cross[:n_down]) + 1
+                    + (cfg.layers_per_block + 1) * sum(cross[n_down:]))
+    resnets = cfg.layers_per_block * n_down + 2 + (cfg.layers_per_block + 1) * n_up
+    embeds = 2 + (2 if cfg.addition_embed_type == "text_time" else 0)
+    proj = 2 * transformers if cfg.use_linear_projection else 0
+    return 7 * blocks + proj + resnets + embeds, blocks
 
 
 class DenseDispatch:
@@ -396,11 +418,15 @@ def _init_transformer(gen, c, n_layers, cross_dim, use_linear):
 def cast_params(tree, dtype, device=None):
     """Cast every floating tensor of a tree to ``dtype`` (and move it to
     ``device`` if given); conv kernels (4-D) go to channels_last memory
-    format."""
+    format.  A ``QuantizedTensor``'s payload and scale are moved, never
+    cast (an fp8 payload is a floating tensor too): ``dtype`` becomes its
+    compute dtype."""
     if isinstance(tree, dict):
         return {k: cast_params(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [cast_params(v, dtype, device) for v in tree]
+    if isinstance(tree, QuantizedTensor):
+        return tree.to(device, dtype=dtype)
     t = tree.to(device) if device is not None else tree
     t = t.to(dtype) if t.is_floating_point() else t
     if t.dim() == 4:

@@ -6,7 +6,7 @@ launched by ``flash_sdpa``).  The kernel is CUDA C++ for sm_90a in
 ``csrc/flash_attention.cu``; its header comment gives the design and what
 bounds it.  It is built with ``nvcc`` at first use, from this package's
 sources, into ``build/kernels/`` beside the package, and bound through a
-plain C entry point loaded with ``ctypes``.
+plain C entry point loaded with ``ctypes`` (ops/_build.py).
 
 ``flash_sdpa`` takes the JAX signature: q ``[B, Lq, C]``, k and v
 ``[B, Lk, C]``, ``heads`` heads of ``d = C / heads`` columns, an optional
@@ -19,71 +19,30 @@ be block multiples: the kernel masks ragged query and KV edges itself.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
+from ._build import KernelLibrary
+
 _NEG_INF = -1e30  # masked-logit convention of the TPU kernel
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lib = None
-_build_log = ""
-_lock = threading.Lock()
+def _bind(lib) -> None:
+    fn = lib.flash_sdpa_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    )
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+_KERNEL = KernelLibrary("flash_attention.cu", _bind)
 
 
 def build() -> str:
-    """Compile the kernel if this source has not been built yet, load it,
-    and return the compiler's output (ptxas register and shared-memory
-    report) of the build, or "" when an earlier build was reused."""
-    global _lib, _build_log
-    with _lock:
-        if _lib is not None:
-            return _build_log
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = _BUILD_DIR / f"libflash_attention_{tag}.so"
-        if not so.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building {_SRC.name}:\n{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, so)
-            _build_log = proc.stdout + proc.stderr
-        lib = ctypes.CDLL(str(so))
-        fn = lib.flash_sdpa_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-            + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_void_p]
-        )
-        _lib = lib
-        return _build_log
+    """Compile and load ``csrc/flash_attention.cu`` (ops/_build.py); returns
+    the compiler's ptxas report, or "" when an earlier build was reused."""
+    return _KERNEL.build()
 
 
 def flash_sdpa_reference(q, k, v, *, heads: int, kv_len: int = None):
@@ -140,10 +99,8 @@ def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None):
     kv = lk if kv_len is None else min(kv_len, lk)
     if lq == 0 or kv <= 0:
         raise ValueError(f"flash_sdpa: empty attention (Lq={lq}, kv_len={kv})")
-    if _lib is None:
-        build()
     out = torch.empty((b, lq, c), dtype=q.dtype, device=q.device)
-    rc = _lib.flash_sdpa_bf16(
+    rc = _KERNEL.lib.flash_sdpa_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, heads, lq, kv, d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),

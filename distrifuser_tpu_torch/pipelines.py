@@ -10,6 +10,14 @@ a pipeline from in-memory parameter trees: the port's own random init
 ``torch.Generator`` seeded with ``seed`` (its numbers differ from JAX's);
 callers that need identical noise pass ``latents``.  ``from_pretrained``,
 img2img and ``DistriSDPipeline`` are ROADMAP queue 1 items 5 and 6.
+
+Weight quantization happens at load time, as in the JAX package's
+constructor: the UNet under ``DistriConfig.weight_quant`` with the
+execution policy ``quant_compute`` (``"pallas"`` sends every quantized
+linear through the CUDA kernel of ops/quant_matmul.py), the text encoders
+and the VAE under ``weight_quant_aux`` (``_quantize_aux``), which always
+densify at the consumer.  ``set_weight_quant``, ``set_quant_compute`` and
+``weight_report`` are the counterparts of the JAX pipeline's hooks.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import torch
 
 from .models import clip as clip_mod
 from .models import vae as vae_mod
+from .models.weights import params_nbytes, quantize_params, set_quant_compute
+from .parallel.compress import validate_quant_compute, validate_weight_mode
 from .parallel.runner import make_runner
 from .schedulers import BaseScheduler, get_scheduler
 from .utils.config import DistriConfig
@@ -116,6 +126,14 @@ def _batched_generate(cfg, scheduler, prompts, negs, num_images_per_prompt,
     return torch.cat(outs, dim=0)
 
 
+def _quantize_aux(cfg, vae_params, text_encoders):
+    """Load-time quantization of the auxiliary models (VAE, CLIP text
+    encoders) under ``weight_quant_aux``, with the "dequant" policy:
+    returns ``(vae_params, [(config, params), ...])``."""
+    q = lambda p: quantize_params(p, cfg.weight_quant_aux)  # noqa: E731
+    return q(vae_params), [(tc, q(tp)) for tc, tp in text_encoders]
+
+
 class DistriSDXLPipeline:
     """SDXL: two text encoders' penultimate hidden states concatenated,
     pooled embeds of the second, and the 6 micro-conditioning time ids.
@@ -127,11 +145,59 @@ class DistriSDXLPipeline:
         self.distri_config = distri_config
         self.unet_config = unet_config
         self.vae_config = vae_config
-        self.vae_params = vae_params
+        unet_params = quantize_params(unet_params, distri_config.weight_quant,
+                                      compute=distri_config.quant_compute)
+        # text_encoders: list of (CLIPTextConfig, params)
+        self.vae_params, self.text_encoders = _quantize_aux(
+            distri_config, vae_params, text_encoders)
         self.scheduler = scheduler
         self.tokenizers = tokenizers
-        self.text_encoders = text_encoders  # list of (CLIPTextConfig, params)
         self.runner = make_runner(distri_config, unet_config, unet_params, scheduler)
+
+    def set_weight_quant(self, mode: str) -> None:
+        """Quantize the UNet's weights to ``mode`` after construction.  Only
+        the direction from "none" exists: a quantized tree's full-precision
+        values are gone, so a switch away from it raises; rebuild from the
+        dense weights instead."""
+        cfg = self.distri_config
+        validate_weight_mode(mode)
+        if mode == cfg.weight_quant:
+            return
+        if cfg.weight_quant != "none":
+            raise ValueError(
+                f"cannot switch weight_quant {cfg.weight_quant!r} -> {mode!r}: "
+                "the full-precision kernels are gone; rebuild the pipeline "
+                "from the dense weights instead")
+        self.runner.params = quantize_params(self.runner.params, mode,
+                                             compute=cfg.quant_compute)
+        cfg.weight_quant = mode
+
+    def set_quant_compute(self, policy: str) -> None:
+        """Re-tag the UNet's quantized kernels with an execution policy
+        (DistriConfig.quant_compute); payloads and scales are untouched."""
+        cfg = self.distri_config
+        validate_quant_compute(policy, cfg.weight_quant)
+        if policy == cfg.quant_compute:
+            return
+        self.runner.params = set_quant_compute(self.runner.params, policy)
+        cfg.quant_compute = policy
+
+    def weight_report(self) -> dict:
+        """Device bytes of each component's weights (a quantized kernel
+        counts payload and scales) and the active modes."""
+        cfg = self.distri_config
+        parts = {
+            "denoiser": params_nbytes(self.runner.params),
+            "vae": params_nbytes(self.vae_params),
+            "text_encoders": sum(params_nbytes(tp) for _, tp in self.text_encoders),
+        }
+        return {
+            "weight_quant": cfg.weight_quant,
+            "weight_quant_aux": cfg.weight_quant_aux,
+            "quant_compute": cfg.quant_compute,
+            "per_component_nbytes": parts,
+            "total_bytes": sum(parts.values()),
+        }
 
     @torch.inference_mode()
     def __call__(self, prompt, negative_prompt="", num_inference_steps: int = 50,

@@ -16,6 +16,7 @@ from typing import Any
 
 import torch
 
+from ..parallel.compress import validate_quant_compute, validate_weight_mode
 from .env import is_power_of_2, resolve_device
 
 SYNC_MODES = (
@@ -31,11 +32,21 @@ PARALLELISMS = ("patch", "tensor", "naive_patch", "pipefusion")
 
 @dataclasses.dataclass
 class DistriConfig:
-    """Run parameters: image size, CFG, sync mode, dtype and device.
+    """Run parameters: image size, CFG, sync mode, dtype, weight
+    quantization and device.
 
     ``device`` None means the first CUDA card (raises if there is none);
     ``dtype`` None means bf16 on the card and float32 on the CPU, as the
     JAX package defaults to bf16 on the TPU and float32 on the CPU.
+
+    ``weight_quant`` ("none", "int8", "fp8") holds the denoiser's matmul
+    and conv kernels as 1-byte payloads with one float32 scale per output
+    channel (models/weights.py ``quantize_params``; the UNet's ``conv_out``
+    stays dense); ``weight_quant_aux`` does the same for the text encoders
+    and the VAE, which always densify at the consumer.  ``quant_compute``
+    says how the denoiser's quantized linears execute (ops/gemm_routing.py):
+    "off" densifies them, "auto" picks per shape, "dot" forces the library
+    8-bit GEMM and "pallas" the hand-written kernel of ops/quant_matmul.py.
     """
 
     height: int = 1024
@@ -46,6 +57,9 @@ class DistriConfig:
     parallelism: str = "patch"
     dtype: Any = None
     batch_size: int = 1
+    weight_quant: str = "none"
+    weight_quant_aux: str = "none"
+    quant_compute: str = "auto"
     device: Any = None
 
     def __post_init__(self) -> None:
@@ -59,6 +73,15 @@ class DistriConfig:
             raise ValueError("height and width must be multiples of 8")
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
+        validate_weight_mode(self.weight_quant)
+        validate_weight_mode(self.weight_quant_aux)
+        validate_quant_compute(self.quant_compute, self.weight_quant)
+        if self.weight_quant != "none" and self.parallelism == "tensor":
+            raise ValueError(
+                "weight_quant quantizes whole kernels ahead of the mesh split; "
+                "parallelism='tensor' pre-shards its param tree and would "
+                "silently densify the payloads; keep weight_quant='none' there"
+            )
         world = self.world_size
         if not is_power_of_2(world):
             raise ValueError(f"world size must be a power of 2, got {world}")

@@ -39,8 +39,10 @@ def test_port_imports_no_jax(path):
 
 def test_port_has_sources():
     names = {p.name for p in PORT_FILES}
-    assert {"chip_smoke.py", "flash_attention.py", "unet.py", "pipelines.py"} <= names
-    assert (ROOT / "distrifuser_tpu_torch" / "csrc" / "flash_attention.cu").exists()
+    assert {"chip_smoke.py", "flash_attention.py", "quant_matmul.py", "unet.py",
+            "pipelines.py"} <= names
+    for source in ("flash_attention.cu", "quant_matmul.cu"):
+        assert (ROOT / "distrifuser_tpu_torch" / "csrc" / source).exists()
 
 
 def test_config_without_device_raises_without_card():
