@@ -15,7 +15,13 @@ Phases (any failure raises, and the script exits non-zero):
    kernel against its plain PyTorch version on seeded bf16 inputs (max |d|
    <= 2e-2, mean |d| <= 2e-3: a few bf16 roundings of outputs below 1) and
    time the kernel, the plain version and F.scaled_dot_product_attention
-   (a yardstick only; the port never calls it) with CUDA events;
+   (a yardstick only; the port never calls it) with CUDA events over
+   back-to-back calls, and the kernel and SDPA also by their device time
+   under torch.profiler (short kernels are host-bound back to back); each row
+   also names the kernel instance it ran (registers per thread as
+   compiled, shared memory bytes, threads, tile sizes) and the host time
+   of one wrapper call (checks, tensor-map encoding, launch), taken while
+   enqueuing 50 calls that the card has not finished;
 3. quant kernel phase: at every (M, K, N) the quantized main path gives
    the quantized-matmul kernel (derived from the UNet config), and at odd
    shapes, for int8 and fp8, hold the kernel against its plain version on
@@ -58,6 +64,7 @@ PEAK_8BIT_OPS = 1979e12  # H100 SXM dense int8 / fp8 tensor-core peak
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_MAX_ABS, KERNEL_MEAN_ABS = 2e-2, 2e-3
 QUANT_FP8_REL = 2e-3
+HOST_CALLS = 50  # wrapper calls whose host time is taken per flash shape
 TINY_REL_L2 = {"none": 8e-2, "int8": 8e-2, "fp8": 2.5e-1}
 ODD_QUANT_SHAPES = ((33, 72, 50), (64, 64, 48), (128, 256, 130), (17, 2816, 320))
 CHECK_DEVICES = (("cpu", "float32"), ("cuda", "bfloat16"))
@@ -91,6 +98,24 @@ def time_ms(fn, target_ms=200.0, max_iters=50):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20):
+    """Mean device time per call: the CUDA kernels' own time under
+    torch.profiler over ``iters`` calls after one warm-up, without the host
+    gaps that back-to-back timing of a short kernel includes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / iters / 1e3
 
 
 def attention_shapes(ucfg, vcfg, height, width, unet_evals):
@@ -141,15 +166,28 @@ def kernel_phase(shapes):
         if not (max_err <= KERNEL_MAX_ABS and mean_err <= KERNEL_MEAN_ABS):
             raise AssertionError(f"flash_sdpa {name}: max |d| {max_err}, mean |d| "
                                  f"{mean_err} over {KERNEL_MAX_ABS}/{KERNEL_MEAN_ABS}")
-        ms = time_ms(lambda: fa.flash_sdpa(q, k, v, heads=heads))
+
+        def kernel():
+            return fa.flash_sdpa(q, k, v, heads=heads)
+
+        ms = time_ms(kernel)
+        t_host = time.perf_counter()  # enqueue only: the card drains afterwards
+        for _ in range(HOST_CALLS):
+            kernel()
+        host_us = (time.perf_counter() - t_host) / HOST_CALLS * 1e6
+        torch.cuda.synchronize()
         plain_ms = time_ms(lambda: fa.flash_sdpa_reference(q, k, v, heads=heads),
                            max_iters=10)
         qh, kh, vh = (t.unflatten(-1, (heads, d)).transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh)
+
         try:
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            library_ms, library_dev_ms = time_ms(library), device_ms(library)
         except RuntimeError as e:  # no library kernel for this shape
             print(f"library sdpa unavailable at {name}: {e}", file=sys.stderr)
-            library_ms = None
+            library_ms = library_dev_ms = None
         flops = 4.0 * b * heads * lq * lk * d
         nbytes = 2.0 * (2 * b * lq * c + 2 * b * lk * c)  # q, o; k, v
         ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -157,9 +195,12 @@ def kernel_phase(shapes):
             "shape": name, "B": b, "Lq": lq, "Lk": lk, "H": heads, "d": d,
             "launches_per_call": calls, "max_abs_err": max_err,
             "mean_abs_err": mean_err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "library_ms": library_ms,
+            "device_ms": device_ms(kernel),
+            "library_device_ms": library_dev_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "tflops": flops / (ms * 1e-3) / 1e12,
+            "tflops": flops / (ms * 1e-3) / 1e12, "host_us_per_launch": host_us,
+            **fa.variant(d),  # registers per thread, shared memory bytes, tiles
         }
         print(json.dumps(row), flush=True)
         results.append(row)
@@ -521,8 +562,13 @@ def kernel_entry(rows, launches, **fields):
             return None
         return sum(v * r["launches_per_call"] for v, r in zip(vals, rows))
 
+    extra = {}
+    if all("device_ms" in r for r in rows):  # flash: device time under the profiler
+        extra = {"device_ms": per_call("device_ms"),
+                 "library_device_ms": per_call("library_device_ms")}
     return {
         **fields,
+        **extra,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_call("ms"),

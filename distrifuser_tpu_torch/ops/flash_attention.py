@@ -3,14 +3,17 @@ version.
 
 Counterpart of distrifuser_tpu/ops/flash_attention.py (``_flash_kernel``
 launched by ``flash_sdpa``).  The kernel is CUDA C++ for sm_90a in
-``csrc/flash_attention.cu``; its header comment gives the design and what
-bounds it.  It is built with ``nvcc`` at first use, from this package's
-sources, into ``build/kernels/`` beside the package, and bound through a
-plain C entry point loaded with ``ctypes`` (ops/_build.py).
+``csrc/flash_attention.cu`` (TMA tile ring, wgmma for both products,
+softmax and accumulator in registers); its header comment gives the
+design and what bounds it.  It is built with ``nvcc`` at first use, from
+this package's sources, into ``build/kernels/`` beside the package, and
+bound through a plain C entry point loaded with ``ctypes``
+(ops/_build.py).
 
 ``flash_sdpa`` takes the JAX signature: q ``[B, Lq, C]``, k and v
 ``[B, Lk, C]``, ``heads`` heads of ``d = C / heads`` columns, an optional
 ``kv_len`` that treats only the first ``kv_len`` KV positions as real.
+The kernel has an instance for each head dim in ``HEAD_DIMS``.
 On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 ``flash_sdpa_reference``.  Unlike the Pallas kernel, the lengths need not
 be block multiples: the kernel masks ragged query and KV edges itself.
@@ -25,6 +28,9 @@ import torch
 from ._build import KernelLibrary
 
 _NEG_INF = -1e30  # masked-logit convention of the TPU kernel
+# head dims the kernel has an instance for: every d a configuration of the
+# repo gives (SDXL UNet 64, SDXL VAE 512, tiny configs 16 and 32) and 128, 256
+HEAD_DIMS = (16, 32, 64, 128, 256, 512)
 
 
 def _bind(lib) -> None:
@@ -34,6 +40,9 @@ def _bind(lib) -> None:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_void_p]
     )
+    info = lib.flash_sdpa_variant
+    info.restype = ctypes.c_int
+    info.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 5
 
 
 _KERNEL = KernelLibrary("flash_attention.cu", _bind)
@@ -43,6 +52,18 @@ def build() -> str:
     """Compile and load ``csrc/flash_attention.cu`` (ops/_build.py); returns
     the compiler's ptxas report, or "" when an earlier build was reused."""
     return _KERNEL.build()
+
+
+def variant(d: int) -> dict:
+    """What the kernel instance for head dim ``d`` uses on the card:
+    registers per thread (as compiled), dynamic shared memory bytes and
+    threads per block, KV rows per tile, query rows per block."""
+    keys = ("registers", "smem_bytes", "threads", "block_k", "block_q")
+    vals = [ctypes.c_int(0) for _ in keys]
+    rc = _KERNEL.lib.flash_sdpa_variant(d, *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise ValueError(f"flash_sdpa has no kernel instance for d={d} (cudaError {rc})")
+    return {k: v.value for k, v in zip(keys, vals)}
 
 
 def flash_sdpa_reference(q, k, v, *, heads: int, kv_len: int = None):
@@ -85,9 +106,8 @@ def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None):
     if c % heads:
         raise ValueError(f"flash_sdpa: {c} channels not divisible by {heads} heads")
     d = c // heads
-    if d % 16 or d > 512:
-        raise ValueError(f"flash_sdpa kernel takes head dims that are multiples "
-                         f"of 16 up to 512, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_sdpa kernel takes head dims {HEAD_DIMS}, got {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"flash_sdpa kernel takes bfloat16, {name} is {t.dtype}")

@@ -7,7 +7,8 @@ port's dependencies are installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
 Flash attention, in bf16: max |d| <= 2e-2 and mean |d| <= 2e-3 (a few bf16
-roundings of outputs below 1).  Quantized matmul: see its section.
+roundings of outputs below 1); two calls on the same inputs are
+bit-identical (no atomics, a fixed order of sums).  Quantized matmul: see its section.
 """
 
 import pytest
@@ -24,27 +25,40 @@ def _need_card():
         pytest.skip("needs a CUDA card")
 
 
+def _flash_operands(b, lq, lk, heads, d, seed=0):
+    """q [B, Lq, C] and k, v as strided views of one [B, Lk, 2C] tensor, as
+    the fused to_kv projection gives them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = heads * d
+    q = torch.randn(b, lq, c, device="cuda", generator=g).bfloat16()
+    kv = torch.randn(b, lk, 2 * c, device="cuda", generator=g).bfloat16()
+    k, v = kv.chunk(2, dim=-1)
+    return q, k, v
+
+
+def _assert_close(got, want):
+    err = (got.float() - want.float()).abs()
+    assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3, (
+        err.max().item(), err.mean().item())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "b,lq,lk,heads,d",
     [(2, 4096, 4096, 10, 64), (2, 1000, 77, 20, 64), (1, 300, 300, 1, 512),
-     (2, 64, 64, 4, 16)],
-    ids=["unet_self", "text_cross_ragged", "vae_ragged", "tiny"],
+     (2, 64, 64, 4, 16), (1, 256, 256, 1, 32), (2, 1024, 1024, 20, 64),
+     (2, 1000, 1000, 5, 64), (1, 200, 333, 3, 128), (1, 130, 257, 2, 256)],
+    ids=["unet_self", "text_cross_ragged", "vae_ragged", "tiny", "tiny_vae_d32",
+         "unet_self_level2", "self_lq1000", "d128_ragged", "d256_ragged"],
 )
 def test_kernel_matches_reference_on_card(b, lq, lk, heads, d):
     _need_card()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    c = heads * d
-    q = torch.randn(b, lq, c, device="cuda", generator=g).bfloat16()
-    kv = torch.randn(b, lk, 2 * c, device="cuda", generator=g).bfloat16()
-    k, v = kv.chunk(2, dim=-1)  # strided views, as the fused to_kv gives them
+    q, k, v = _flash_operands(b, lq, lk, heads, d)
     before = port_flash.flash_sdpa.launches
     got = port_flash.flash_sdpa(q, k, v, heads=heads)
     torch.cuda.synchronize()
     assert port_flash.flash_sdpa.launches == before + 1
-    want = port_flash.flash_sdpa_reference(q, k, v, heads=heads)
-    err = (got.float() - want.float()).abs()
-    assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+    _assert_close(got, port_flash.flash_sdpa_reference(q, k, v, heads=heads))
 
 
 @pytest.mark.cuda
@@ -59,14 +73,60 @@ def test_kernel_kv_len_mask_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,lq,lk,heads,d,kv_len",
+    [(2, 1000, 1024, 4, 64, 700), (2, 512, 512, 4, 64, 129), (1, 256, 384, 1, 512, 150)],
+    ids=["d64_strided_kv", "d64_one_past_tile", "d512"],
+)
+def test_kernel_kv_len_masks_real_rows_on_card(b, lq, lk, heads, d, kv_len):
+    """Rows of the fused to_kv output between kv_len and Lk hold large
+    values: they must be masked by logit, not read as keys."""
+    _need_card()
+    q, k, v = _flash_operands(b, lq, lk, heads, d, seed=2)
+    k[:, kv_len:] = 300.0
+    v[:, kv_len:] = -300.0
+    got = port_flash.flash_sdpa(q, k, v, heads=heads, kv_len=kv_len)
+    _assert_close(got, port_flash.flash_sdpa_reference(q, k, v, heads=heads,
+                                                       kv_len=kv_len))
+    trunc = port_flash.flash_sdpa_reference(q, k[:, :kv_len], v[:, :kv_len], heads=heads)
+    _assert_close(got, trunc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,heads,d", [(2, 1024, 1024, 20, 64), (1, 300, 300, 1, 512)],
+                         ids=["d64", "d512"])
+def test_kernel_is_deterministic_on_card(b, lq, lk, heads, d):
+    _need_card()
+    q, k, v = _flash_operands(b, lq, lk, heads, d, seed=3)
+    first = port_flash.flash_sdpa(q, k, v, heads=heads)
+    second = port_flash.flash_sdpa(q, k, v, heads=heads)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_kernel_variants_fit_the_card():
+    """Every head dim has an instance whose block fits one SM."""
+    _need_card()
+    for d in port_flash.HEAD_DIMS:
+        info = port_flash.variant(d)
+        assert 0 < info["registers"] <= 255, (d, info)
+        assert info["smem_bytes"] <= 227 * 1024, (d, info)
+
+
+@pytest.mark.cuda
 def test_kernel_wrapper_raises_instead_of_falling_back():
     _need_card()
     q = torch.randn(1, 128, 64, device="cuda")
     with pytest.raises(ValueError, match="bfloat16"):
         port_flash.flash_sdpa(q, q, q, heads=1)  # float32 on the card
     qb = q.bfloat16()
-    with pytest.raises(ValueError, match="multiples of 16"):
+    with pytest.raises(ValueError, match="head dims"):
         port_flash.flash_sdpa(qb[..., :40], qb[..., :40], qb[..., :40], heads=1)
+    q48 = torch.randn(1, 128, 96, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="head dims"):
+        port_flash.flash_sdpa(q48, q48, q48, heads=2)  # d = 48
+    with pytest.raises(ValueError, match="d=48"):
+        port_flash.variant(48)
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,9 @@ def _qkv(seed, b, lq, lk, c):
 
 @pytest.mark.parametrize(
     "b,lq,lk,heads,d",
-    [(2, 128, 256, 2, 64), (1, 128, 128, 1, 512)],
-    ids=["unet_d64", "vae_d512"],
+    [(2, 128, 256, 2, 64), (1, 128, 128, 1, 512), (2, 128, 128, 4, 16),
+     (1, 128, 256, 1, 32)],
+    ids=["unet_d64", "vae_d512", "tiny_unet_d16", "tiny_vae_d32"],
 )
 def test_reference_matches_pallas_interpret(b, lq, lk, heads, d):
     q, k, v = _qkv(0, b, lq, lk, heads * d)
