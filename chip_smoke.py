@@ -24,11 +24,22 @@ Phases (any failure raises, and the script exits non-zero):
    enqueuing 50 calls that the card has not finished;
 3. quant kernel phase: at every (M, K, N) the quantized main path gives
    the quantized-matmul kernel (derived from the UNet config), and at odd
-   shapes, for int8 and fp8, hold the kernel against its plain version on
-   seeded inputs quantized by the port (int8 bit-identical; fp8 max |d| <=
-   2e-3 * max |ref|, below the bf16 rounding its caller applies next),
-   and time the kernel, the plain version and the library GEMM
-   (torch._int_mm / torch._scaled_mm, a yardstick only);
+   shapes, for int8 and fp8, on a seeded bf16 activation: hold the
+   per-token quantization kernel against compress.quantize (payload and
+   scales bit-identical), and the quantized-matmul kernel against its plain
+   version in its fp32 contract form (int8 bit-identical; fp8 max |d| <=
+   2e-3 * max |ref|, below the bf16 rounding its caller applies next) and
+   in the fused form the main path runs (sx and the bf16 cast in the
+   epilogue; int8 bit-identical; fp8 <= 8e-3 * max |ref|, one bf16 ulp),
+   and that form with the bias (int8 bit-identical to the plain version;
+   fp8 bit-identical to the kernel's own output without the bias plus the
+   bias, since the two roundings can turn one ulp into two).  Time each
+   kernel, its plain version and a library call (torch._int_mm /
+   torch._scaled_mm for the product, torch._scaled_mm with row-wise scales
+   and bf16 output for the fp8 fused form; yardsticks only) with CUDA
+   events over back-to-back calls and, at the path's shapes, by device
+   time under torch.profiler; the host time of a fused wrapper call; the
+   instance the shape runs (registers, shared memory, tile);
 4. small-input checks: the tiny SDXL pipeline in bf16 on the card against
    the same pipeline in float32 on the CPU, same weights and latents:
    dense (relative L2 of the latents <= 8e-2; 2.3e-2 measured for bf16 vs
@@ -45,11 +56,22 @@ Phases (any failure raises, and the script exits non-zero):
    Each pipeline makes one untimed call first (kernel loading, algorithm
    choice), then the measured one.
    Every launch count is set to 0 just before each call and read just
-   after it: flash 4*140 + 1 in each, quant_matmul 0 in the dense call and
-   4*533 + 70 in each quantized one (derived from the config).
+   after it: flash 4*140 + 1 in each, quant_matmul and quantize_rows 0 in
+   the dense call and 4*533 + 70 each in each quantized one (derived from
+   the config).
 
 It prints one JSON line per kernel shape, a card line, the kernels line,
-and last the line {"ok": true, "device": {...}}.  It exits non-zero
+and last the line {"ok": true, "device": {...}}.
+
+``--profile`` runs only the warm main path under torch.profiler.
+``--quant_device_times`` runs only the device time of the quantized-matmul
+kernel's fp32 contract form at every path shape, through nothing but
+``quant_matmul(xq, wq, sw)``, ``quantize`` and ``quantize_weight``, so that
+it also runs against an older checkout of the package: run this file from
+that checkout's root as
+``python3 -c "import runpy, sys; sys.argv[1:] = ['--quant_device_times'];
+runpy.run_path('/path/to/chip_smoke.py', run_name='__main__')"``
+to compare two kernels by device time in one call.  It exits non-zero
 without a result when no CUDA card is present or the package is missing.
 """
 
@@ -63,8 +85,10 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_8BIT_OPS = 1979e12  # H100 SXM dense int8 / fp8 tensor-core peak
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_MAX_ABS, KERNEL_MEAN_ABS = 2e-2, 2e-3
-QUANT_FP8_REL = 2e-3
-HOST_CALLS = 50  # wrapper calls whose host time is taken per flash shape
+QUANT_FP8_REL = 2e-3  # fp32 contract form
+QUANT_FP8_FUSED_REL = 8e-3  # bf16 fused form: one bf16 ulp
+QUANT_TARGET_MS = 15.0  # CUDA-event timing window per quant-phase measurement
+HOST_CALLS = 50  # wrapper calls whose host time is taken per kernel shape
 TINY_REL_L2 = {"none": 8e-2, "int8": 8e-2, "fp8": 2.5e-1}
 ODD_QUANT_SHAPES = ((33, 72, 50), (64, 64, 48), (128, 256, 130), (17, 2816, 320))
 CHECK_DEVICES = (("cpu", "float32"), ("cuda", "bfloat16"))
@@ -273,10 +297,34 @@ def _library_gemm(xq, wq):
                                     out_dtype=torch.float32)
 
 
+def _library_fused_fp8(xq, wq, sx, sw):
+    """One library call computing the fp8 fused form without bias,
+    bf16((xq @ wq) * sx[:, None] * sw): torch._scaled_mm with row-wise
+    scales (a yardstick only), on M zero-padded to a multiple of 16."""
+    import torch
+
+    from distrifuser_tpu_torch.ops.linear import pad_rows_for_library
+
+    xp = pad_rows_for_library(xq)
+    sxp = torch.ones((xp.shape[0], 1), dtype=torch.float32, device=xq.device)
+    sxp[:xq.shape[0], 0] = sx
+    swr = sw.reshape(1, -1).contiguous()
+    return lambda: torch._scaled_mm(xp, wq, scale_a=sxp, scale_b=swr,
+                                    out_dtype=torch.bfloat16)
+
+
+def _bound(ops, nbytes):
+    """(bound ms, what bounds it) of ``ops`` 8-bit operations and ``nbytes``
+    bytes of device memory traffic on the card."""
+    ops_ms, bytes_ms = ops / PEAK_8BIT_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
 def quant_kernel_phase(shapes):
     import torch
 
     from distrifuser_tpu_torch.ops import quant_matmul as qm
+    from distrifuser_tpu_torch.ops import quantize as qz
     from distrifuser_tpu_torch.parallel.compress import quantize, quantize_weight
 
     odd = [(f"odd_{m}x{k}x{n}", m, k, n, 0) for m, k, n in ODD_QUANT_SHAPES]
@@ -286,43 +334,134 @@ def quant_kernel_phase(shapes):
             g = torch.Generator(device="cuda").manual_seed(len(results))
             x = torch.randn(m, k, device="cuda", generator=g).bfloat16()
             w = (torch.randn(k, n, device="cuda", generator=g) / k**0.5).bfloat16()
+            bias = torch.randn(n, device="cuda", generator=g).bfloat16()
+            qt = quantize_weight(w, mode)
+            wq, sw = qt.payload, qt.channel_scale()
+            row = {"shape": name, "mode": mode, "M": m, "K": k, "N": n,
+                   "launches_per_call": calls}
+
+            # per-token quantization: bit for bit with compress.quantize
+            xq, sx = qz.quantize_rows(x, mode)
+            want_q, want_s = quantize(x, mode)
+            if not (torch.equal(xq.view(torch.uint8), want_q.view(torch.uint8))
+                    and torch.equal(sx, want_s)):
+                raise AssertionError(f"quantize_rows {mode} {name}: not bit-identical "
+                                     "to compress.quantize")
+            row["quantize_max_abs_err"] = 0.0
+
+            # the fp32 contract form and the fused form against the plain version
+            fused = {"sx": sx, "out_dtype": torch.bfloat16}
+            checks = (("", {}, QUANT_FP8_REL), ("fused_", fused, QUANT_FP8_FUSED_REL))
+            for prefix, kw, fp8_rel in checks:
+                got = qm.quant_matmul(xq, wq, sw, **kw)
+                want = qm.quant_matmul_reference(xq, wq, sw, **kw)
+                ref_max = want.float().abs().max().item()
+                err = (got.float() - want.float()).abs().max().item()
+                row[prefix + "max_abs_err"], row[prefix + "max_abs_ref"] = err, ref_max
+                if mode == "int8" and not torch.equal(got, want):
+                    raise AssertionError(f"quant_matmul int8 {prefix}{name}: not "
+                                         f"bit-identical to the plain version (max |d| {err})")
+                if mode == "fp8" and err > fp8_rel * ref_max:
+                    raise AssertionError(f"quant_matmul fp8 {prefix}{name}: max |d| {err} "
+                                         f"over {fp8_rel} * {ref_max}")
+            # the bias in the epilogue, as linear adds it: int8 bit for bit with
+            # the plain version; fp8 bit for bit with the kernel's own fused
+            # output plus the bias (the plain version rounds twice, so a one-ulp
+            # difference before the bias can become two after it)
+            got_b = qm.quant_matmul(xq, wq, sw, bias=bias, **fused)
+            want_b = (qm.quant_matmul_reference(xq, wq, sw, bias=bias, **fused)
+                      if mode == "int8" else got + bias)
+            if not torch.equal(got_b, want_b):
+                raise AssertionError(f"quant_matmul {mode} fused_bias_{name}: the bias "
+                                     "epilogue is not linear's cast-then-add")
+            torch.cuda.synchronize()
+
+            fns = {
+                "contract": lambda: qm.quant_matmul(xq, wq, sw),
+                "fused": lambda: qm.quant_matmul(xq, wq, sw, sx=sx,
+                                                 out_dtype=torch.bfloat16),
+                "quantize": lambda: qz.quantize_rows(x, mode),
+            }
+            plains = {
+                "contract": lambda: qm.quant_matmul_reference(xq, wq, sw),
+                "fused": lambda: qm.quant_matmul_reference(xq, wq, sw, sx=sx,
+                                                           out_dtype=torch.bfloat16),
+                "quantize": lambda: quantize(x, mode),
+            }
+            libraries = {"contract": _library_gemm(xq, wq),
+                         "fused": _library_fused_fp8(xq, wq, sx, sw) if mode == "fp8"
+                         else None,
+                         "quantize": None}
+            prefixes = {"contract": "", "fused": "fused_", "quantize": "quantize_"}
+            for key, prefix in prefixes.items():
+                row[prefix + "ms"] = time_ms(fns[key], target_ms=QUANT_TARGET_MS)
+                row[prefix + "plain_ms"] = time_ms(plains[key], target_ms=QUANT_TARGET_MS,
+                                                   max_iters=5)
+                row[prefix + "device_ms"] = device_ms(fns[key], iters=10) if calls else None
+                lib = libraries[key]
+                row[prefix + "library_ms"] = row[prefix + "library_device_ms"] = None
+                if lib is not None:
+                    try:
+                        row[prefix + "library_ms"] = time_ms(lib, target_ms=QUANT_TARGET_MS)
+                        if calls:
+                            row[prefix + "library_device_ms"] = device_ms(lib, iters=10)
+                    except RuntimeError as e:  # no library kernel for this shape
+                        print(f"library {key} unavailable at {name}/{mode}: {e}",
+                              file=sys.stderr)
+            t_host = time.perf_counter()  # enqueue only: the card drains afterwards
+            for _ in range(HOST_CALLS):
+                fns["fused"]()
+            row["host_us_per_launch"] = (time.perf_counter() - t_host) / HOST_CALLS * 1e6
+            torch.cuda.synchronize()
+            t_host = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fns["quantize"]()
+            row["quantize_host_us_per_launch"] = (
+                (time.perf_counter() - t_host) / HOST_CALLS * 1e6)
+            torch.cuda.synchronize()
+
+            ops = 2.0 * m * k * n
+            operands = m * k + k * n + 4.0 * n  # xq, wq, sw in
+            bounds = {"": _bound(ops, operands + 4.0 * m * n),  # fp32 out
+                      "fused_": _bound(ops, operands + 4.0 * m + 2.0 * m * n),  # sx; bf16 out
+                      "quantize_": _bound(0.0, 2.0 * m * k + m * k + 4.0 * m)}
+            for prefix, (ms, by) in bounds.items():
+                row[prefix + "bound_ms"], row[prefix + "bound_by"] = ms, by
+            row["fused_tops"] = ops / (row["fused_ms"] * 1e-3) / 1e12
+            row.update(qm.variant(mode))
+            print(json.dumps(row), flush=True)
+            results.append(row)
+            del x, w, bias, xq, sx, qt, wq, sw, want_q, want_s, got, want, got_b, want_b
+            del fns, plains, libraries
+            torch.cuda.empty_cache()
+    return results
+
+
+def quant_device_phase(shapes):
+    """Device time (torch.profiler) of ``quant_matmul(xq, wq, sw)``, the
+    fp32 contract form, at every path shape and mode, on operands made as
+    quant_kernel_phase makes them; one line per shape, then the sum over one
+    pipeline call's launches per mode."""
+    import torch
+
+    from distrifuser_tpu_torch.ops import quant_matmul as qm
+    from distrifuser_tpu_torch.parallel.compress import quantize, quantize_weight
+
+    per_call = {"int8": 0.0, "fp8": 0.0}
+    for i, (name, m, k, n, calls) in enumerate(shapes):
+        for mode in per_call:
+            g = torch.Generator(device="cuda").manual_seed(2 * i + (mode == "fp8"))
+            x = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+            w = (torch.randn(k, n, device="cuda", generator=g) / k**0.5).bfloat16()
             xq, _ = quantize(x, mode)
             qt = quantize_weight(w, mode)
             wq, sw = qt.payload, qt.channel_scale()
-            got = qm.quant_matmul(xq, wq, sw)
-            want = qm.quant_matmul_reference(xq, wq, sw)
-            torch.cuda.synchronize()
-            ref_max = want.abs().max().item()
-            max_err = (got - want).abs().max().item()
-            row = {"shape": name, "mode": mode, "M": m, "K": k, "N": n,
-                   "launches_per_call": calls, "max_abs_err": max_err,
-                   "max_abs_ref": ref_max}
-            if mode == "int8":
-                if not torch.equal(got, want):
-                    raise AssertionError(f"quant_matmul int8 {name}: not bit-identical "
-                                         f"to the plain version (max |d| {max_err})")
-            elif max_err > QUANT_FP8_REL * ref_max:
-                raise AssertionError(f"quant_matmul fp8 {name}: max |d| {max_err} "
-                                     f"over {QUANT_FP8_REL} * {ref_max}")
-            row["ms"] = time_ms(lambda: qm.quant_matmul(xq, wq, sw), target_ms=100)
-            row["plain_ms"] = time_ms(lambda: qm.quant_matmul_reference(xq, wq, sw),
-                                      target_ms=100, max_iters=10)
-            try:
-                row["library_ms"] = time_ms(_library_gemm(xq, wq), target_ms=100)
-            except RuntimeError as e:  # no library kernel for this shape
-                print(f"library gemm unavailable at {name}/{mode}: {e}", file=sys.stderr)
-                row["library_ms"] = None
-            ops = 2.0 * m * k * n
-            nbytes = m * k + k * n + 4.0 * n + 4.0 * m * n  # xq, wq, sw in; fp32 out
-            ops_ms, bytes_ms = ops / PEAK_8BIT_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-            row.update(bound_ms=max(ops_ms, bytes_ms),
-                       bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                       tops=ops / (row["ms"] * 1e-3) / 1e12)
-            print(json.dumps(row), flush=True)
-            results.append(row)
-            del x, w, xq, qt, wq, sw, got, want
-            torch.cuda.empty_cache()
-    return results
+            ms = device_ms(lambda: qm.quant_matmul(xq, wq, sw), iters=10)
+            per_call[mode] += ms * calls
+            print(json.dumps({"phase": "quant_device", "shape": name, "mode": mode, "M": m,
+                              "K": k, "N": n, "launches_per_call": calls,
+                              "device_ms": ms}), flush=True)
+    print(json.dumps({"phase": "quant_device", "device_ms_per_call": per_call}), flush=True)
 
 
 def tiny_check(weight_quant="none"):
@@ -411,6 +550,7 @@ def pipeline_run(pipe, init_s, label, expected):
 
     from distrifuser_tpu_torch.ops import flash_attention as fa
     from distrifuser_tpu_torch.ops import quant_matmul as qm
+    from distrifuser_tpu_torch.ops import quantize as qz
 
     marks, last = [], {}
 
@@ -422,12 +562,14 @@ def pipeline_run(pipe, init_s, label, expected):
     torch.cuda.reset_peak_memory_stats()
     fa.flash_sdpa.launches = 0
     qm.quant_matmul.launches = 0
+    qz.quantize_rows.launches = 0
     t0 = time.perf_counter()
     out = pipe(PROMPT, num_inference_steps=4, seed=0, output_type="np",
                callback=on_step)
     total_s = time.perf_counter() - t0
     launches = {"flash_sdpa": fa.flash_sdpa.launches,
-                "quant_matmul": qm.quant_matmul.launches}
+                "quant_matmul": qm.quant_matmul.launches,
+                "quantize_rows": qz.quantize_rows.launches}
     img = out.images[0]
     if img.shape != (1024, 1024, 3) or not np.isfinite(img).all():
         raise AssertionError(f"{label}: image shape {img.shape}, finite "
@@ -451,6 +593,7 @@ def pipeline_run(pipe, init_s, label, expected):
         "weight_bytes": report["per_component_nbytes"],
         "flash_sdpa_launches": launches["flash_sdpa"],
         "quant_matmul_launches": launches["quant_matmul"],
+        "quantize_rows_launches": launches["quantize_rows"],
         "pixel_mean": float(pixels.mean()),
     }
     return result, last["x"].float().cpu().numpy()
@@ -474,7 +617,8 @@ def pipeline_phase(expected_flash, expected_quant):
         pipe(PROMPT, num_inference_steps=4, seed=0, output_type="np")
         warmup_s = time.perf_counter() - t0
         result, latent = pipeline_run(
-            pipe, init_s, label, {"flash_sdpa": expected_flash, "quant_matmul": n_quant})
+            pipe, init_s, label, {"flash_sdpa": expected_flash, "quant_matmul": n_quant,
+                                  "quantize_rows": n_quant})
         result["warmup_call_s"] = warmup_s
         if dense_latent is None:
             dense_latent = latent
@@ -495,6 +639,8 @@ def _kernel_group(name: str) -> str:
         return "attention (flash_sdpa)"
     if "qmm_kernel" in low:
         return "quantized matmul (quant_matmul)"
+    if "quantize_rows_kernel" in low:
+        return "per-token quantization (quantize_rows)"
     if "conv" in low or "cudnn" in low or "implicit" in low:
         return "convolution"
     if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
@@ -547,35 +693,36 @@ def profile_phase(out_dir, weight_quant):
     }), flush=True)
 
 
-def kernel_entry(rows, launches, **fields):
-    """One entry of the kernels line: per-shape numbers weighted by each
-    shape's launches in one pipeline call."""
-    rows = [r for r in rows if r["launches_per_call"]]
+def kernel_entry(rows, launches, prefix="", **fields):
+    """One entry of the kernels line: per-shape numbers (the row keys that
+    start with ``prefix``) weighted by each shape's launches in one
+    pipeline call, and ``launches``, the count the main path read (left out
+    where it is None: a form the path does not run)."""
+    rows = [{k[len(prefix):]: v for k, v in r.items() if k.startswith(prefix)}
+            | {"launches_per_call": r["launches_per_call"]}
+            for r in rows if r["launches_per_call"]]
     ops_ms = sum(r["bound_ms"] * r["launches_per_call"] for r in rows
                  if r["bound_by"] == "operations")
     bytes_ms = sum(r["bound_ms"] * r["launches_per_call"] for r in rows
                    if r["bound_by"] == "bytes")
 
     def per_call(key):
-        vals = [r[key] for r in rows]
+        vals = [r.get(key) for r in rows]
         if any(v is None for v in vals):
             return None
         return sum(v * r["launches_per_call"] for v, r in zip(vals, rows))
 
-    extra = {}
-    if all("device_ms" in r for r in rows):  # flash: device time under the profiler
-        extra = {"device_ms": per_call("device_ms"),
-                 "library_device_ms": per_call("library_device_ms")}
     return {
         **fields,
-        **extra,
-        "launches": launches,
+        **({} if launches is None else {"launches": launches}),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_call("ms"),
+        "device_ms": per_call("device_ms"),
         "plain_ms": per_call("plain_ms"),
         "bound_ms": ops_ms + bytes_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": per_call("library_ms"),
+        "library_device_ms": per_call("library_device_ms"),
     }
 
 
@@ -586,12 +733,14 @@ def build_kernels():
 
     from distrifuser_tpu_torch.ops import flash_attention as fa
     from distrifuser_tpu_torch.ops import quant_matmul as qm
+    from distrifuser_tpu_torch.ops import quantize as qz
 
     def timed(build):
         t = time.perf_counter()
         return build(), time.perf_counter() - t
 
-    sources = {"flash_attention.cu": fa.build, "quant_matmul.cu": qm.build}
+    sources = {"flash_attention.cu": fa.build, "quant_matmul.cu": qm.build,
+               "quantize_rows.cu": qz.build}
     with ThreadPoolExecutor(len(sources)) as pool:
         done = dict(zip(sources, pool.map(timed, sources.values())))
     for name, (log, seconds) in done.items():
@@ -614,6 +763,9 @@ def main(argv) -> int:
                              "runs use quant_compute='pallas')")
     parser.add_argument("--out_dir", default="build/profile",
                         help="where --profile writes its full kernel table")
+    parser.add_argument("--quant_device_times", action="store_true",
+                        help="only time the quantized-matmul kernel's contract form "
+                             "on the card at every path shape (device time)")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -634,14 +786,21 @@ def main(argv) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    ucfg, vcfg = unet.sdxl_config(), vae.sdxl_vae_config()
+    steps = 4
+    if args.quant_device_times:
+        from distrifuser_tpu_torch.ops import quant_matmul as qm
+
+        qm.build()
+        set_precision_flags()
+        quant_device_phase(quant_shapes(ucfg, 1024, 1024, steps))
+        return 0
     build_kernels()
 
     set_precision_flags()
     if args.profile:
         profile_phase(args.out_dir, args.weight_quant)
         return 0
-    ucfg, vcfg = unet.sdxl_config(), vae.sdxl_vae_config()
-    steps = 4
     shapes = attention_shapes(ucfg, vcfg, 1024, 1024, unet_evals=steps)
     expected_flash = steps * unet.attention_calls_per_forward(ucfg) + 1
     assert sum(s[-1] for s in shapes) == expected_flash, (shapes, expected_flash)
@@ -650,17 +809,21 @@ def main(argv) -> int:
     qshapes = quant_shapes(ucfg, 1024, 1024, steps)
     assert sum(s[-1] for s in qshapes) == expected_quant, (qshapes, expected_quant)
 
+    seconds, t0 = {}, time.perf_counter()
     rows = kernel_phase(shapes)
+    seconds["flash_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     qrows = quant_kernel_phase(qshapes)
+    seconds["quant_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     for weight_quant in ("none", "int8", "fp8"):
         tiny_check(weight_quant)
+    seconds["tiny_checks"], t0 = time.perf_counter() - t0, time.perf_counter()
     runs = {r["run"]: r for r in pipeline_phase(expected_flash, expected_quant)}
+    seconds["pipelines"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
-    quant_fields = {
-        "route": "cuda",
-        "source": "distrifuser_tpu_torch/csrc/quant_matmul.cu",
-        "replaces": "distrifuser_tpu/ops/quant_matmul.py:54",
-    }
+    by_mode = {mode: [r for r in qrows if r["mode"] == mode] for mode in ("int8", "fp8")}
+    per_call = ("(per-shape time x launches per call) at weight_quant='int8'; 'fp8' "
+                "holds the same for fp8")
     kernels = [
         kernel_entry(rows, runs["dense"]["flash_sdpa_launches"],
                      name="flash_sdpa", route="cuda",
@@ -668,14 +831,31 @@ def main(argv) -> int:
                      replaces="distrifuser_tpu/ops/flash_attention.py:41",
                      work="all attention of one 4-step 1024x1024 SDXL pipeline call "
                           "(per-shape time x launches per call)"),
-        kernel_entry([r for r in qrows if r["mode"] == "int8"],
-                     runs["int8"]["quant_matmul_launches"], name="quant_matmul",
-                     **quant_fields,
-                     work="all quantized linears of one 4-step 1024x1024 SDXL "
-                          "pipeline call at weight_quant='int8' (per-shape time x "
-                          "launches per call); 'fp8' holds the same for fp8",
-                     fp8=kernel_entry([r for r in qrows if r["mode"] == "fp8"],
-                                      runs["fp8"]["quant_matmul_launches"])),
+        kernel_entry(by_mode["int8"], runs["int8"]["quant_matmul_launches"], "fused_",
+                     name="quant_matmul", route="cuda",
+                     source="distrifuser_tpu_torch/csrc/quant_matmul.cu",
+                     replaces="distrifuser_tpu/ops/quant_matmul.py:54",
+                     work="all quantized linears of one 4-step 1024x1024 SDXL pipeline "
+                          "call in the fused form the path runs (sx, bf16 cast, bias "
+                          "in the epilogue) " + per_call + "; library: torch._int_mm "
+                          "(the int8 product alone) and, for fp8, torch._scaled_mm "
+                          "with row-wise scales and bf16 output; 'contract' holds the "
+                          "fp32 contract form's per-shape times weighted by the same "
+                          "launches per call, a form the path does not run (library: "
+                          "the product alone)",
+                     fp8=kernel_entry(by_mode["fp8"], runs["fp8"]["quant_matmul_launches"],
+                                      "fused_"),
+                     contract={mode: kernel_entry(by_mode[mode], None) for mode in by_mode}),
+        kernel_entry(by_mode["int8"], runs["int8"]["quantize_rows_launches"], "quantize_",
+                     name="quantize_rows", route="cuda",
+                     source="distrifuser_tpu_torch/csrc/quantize_rows.cu",
+                     replaces="distrifuser_tpu/parallel/compress.py:111",
+                     work="per-token quantization of every quantized linear's "
+                          "activation in one call " + per_call + "; no Pallas kernel: "
+                          "the JAX package leaves quantize to XLA; plain version "
+                          "compress.quantize; no single library call",
+                     fp8=kernel_entry(by_mode["fp8"], runs["fp8"]["quantize_rows_launches"],
+                                      "quantize_")),
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,10 +3,12 @@
 Each kernel module holds one ``KernelLibrary``: its ``build()`` compiles
 ``csrc/<source>`` with ``nvcc`` for sm_90a into a shared library with a
 plain C interface, under ``build/kernels/`` beside the package (listed in
-``.gitignore``), named by a hash of the source and the flags so that an
-edited source is rebuilt.  The library is loaded with ``ctypes`` and handed
-to the module's ``bind`` function, which sets each entry point's argument
-and result types.  Nothing is compiled when a module is imported.
+``.gitignore``), named by a hash of the source, every header under
+``csrc/`` (``*.cuh``, which the sources include) and the flags, so that
+an edited source or header is rebuilt.  The library is loaded with
+``ctypes`` and handed to the module's ``bind`` function, which sets each
+entry point's argument and result types.  Nothing is compiled when a
+module is imported.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -53,8 +57,11 @@ class KernelLibrary:
         with self._lock:
             if self._lib is not None:
                 return self._log
-            src = self.source.read_bytes()
-            tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            digest = hashlib.sha256(self.source.read_bytes())
+            for header in sorted(CSRC.glob("*.cuh")):
+                digest.update(header.name.encode() + header.read_bytes())
+            digest.update(" ".join(NVCC_FLAGS).encode())
+            tag = digest.hexdigest()[:16]
             so = BUILD_DIR / f"lib{self.source.stem}_{tag}.so"
             if not so.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -79,3 +86,10 @@ class KernelLibrary:
         if self._lib is None:
             self.build()
         return self._lib
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on the CUDA device of
+    that index (what a kernel launches on), without building a Stream
+    object."""
+    return torch._C._cuda_getCurrentRawStream(index)

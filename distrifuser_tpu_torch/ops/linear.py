@@ -9,12 +9,15 @@ Counterpart of distrifuser_tpu/ops/linear.py (``_quantized_matmul``,
 A ``QuantizedTensor`` kernel (DistriConfig.weight_quant) goes down the
 route ops/gemm_routing.py picks: ``"dequant"`` densifies it; ``"dot"`` and
 ``"pallas"`` quantize the activation per token (one scale per row over the
-last axis), multiply 8-bit by 8-bit with int32 (int8) or float32 (fp8)
-accumulation, and apply the scales after it: ``"dot"`` through a library
-GEMM, then ``acc * sx * sw``; ``"pallas"`` through the CUDA kernel of
-ops/quant_matmul.py, which applies ``sw`` in its epilogue, then ``* sx``.
+last axis; on the card the kernel of ops/quantize.py), multiply 8-bit by
+8-bit with int32 (int8) or float32 (fp8) accumulation, and apply the
+scales after it: ``"dot"`` through a library GEMM, then ``acc * sx * sw``;
+``"pallas"`` through the kernel of ops/quant_matmul.py in its fused form,
+which applies ``sw``, then ``sx``, the cast and the bias in its epilogue.
 The result is cast to the promoted type of the activation and the compute
-dtype, as in JAX.
+dtype, as in JAX, and the bias is added to the cast result.  On the card
+the "pallas" route is two launches (quantize, fused GEMM); on the CPU both
+run their plain versions, the same operations in the same order.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..parallel.compress import QuantizedTensor, quantize
+from ..parallel.compress import QuantizedTensor
 from .gemm_routing import resolve
 from .quant_matmul import quant_matmul
+from .quantize import quantize_rows
 
 
 def pad_rows_for_library(xq):
@@ -57,33 +61,33 @@ def library_8bit_matmul(xq, wq):
                             out_dtype=torch.float32)[:m]
 
 
-def _quantized_matmul(x, qt: QuantizedTensor):
-    """x [..., K] @ QuantizedTensor [K, N] through the routed path."""
+def _quantized_matmul(x, qt: QuantizedTensor, bias=None):
+    """x [..., K] @ QuantizedTensor [K, N] (+ bias) through the routed path."""
     out_dtype = torch.promote_types(x.dtype, qt.dtype)
-    if qt.ndim != 2:
-        return torch.matmul(x.to(out_dtype), qt.dense().to(out_dtype))
-    k, n = qt.shape
-    m = x.numel() // k
-    route = resolve(qt.mode, m, k, n, qt.compute, platform=x.device.type)
-    if route.impl == "dequant":
-        return torch.matmul(x.to(out_dtype), qt.dense().to(out_dtype))
-    xq, sx = quantize(x, qt.mode, axis=-1)
-    xq = xq.reshape(m, k).contiguous()
+    route = "dequant"
+    if qt.ndim == 2:
+        k, n = qt.shape
+        m = x.numel() // k
+        route = resolve(qt.mode, m, k, n, qt.compute, platform=x.device.type).impl
+    if route == "dequant":
+        y = torch.matmul(x.to(out_dtype), qt.dense().to(out_dtype))
+        return y if bias is None else y + bias
+    xq, sx = quantize_rows(x.reshape(m, k), qt.mode)
     sw = qt.channel_scale()
-    if route.impl == "dot":
-        acc = library_8bit_matmul(xq, qt.payload).reshape(*x.shape[:-1], n)
-        y = acc * sx[..., None] * sw
-    else:  # pallas
-        y = quant_matmul(xq, qt.payload, sw).reshape(*x.shape[:-1], n) * sx[..., None]
-    return y.to(out_dtype)
+    if route == "pallas":
+        y = quant_matmul(xq, qt.payload, sw, sx=sx, out_dtype=out_dtype, bias=bias)
+    else:  # dot
+        y = (library_8bit_matmul(xq, qt.payload) * sx[:, None] * sw).to(out_dtype)
+        if bias is not None:
+            y = y + bias
+    return y.reshape(*x.shape[:-1], n)
 
 
 def linear(p, x):
     kern = p["kernel"]
     if isinstance(kern, QuantizedTensor):
-        y = _quantized_matmul(x, kern)
-    else:
-        y = torch.matmul(x, kern)
+        return _quantized_matmul(x, kern, p.get("bias"))
+    y = torch.matmul(x, kern)
     if "bias" in p:
         y = y + p["bias"]
     return y

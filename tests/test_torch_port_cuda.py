@@ -8,7 +8,8 @@ port's dependencies are installed:
 
 Flash attention, in bf16: max |d| <= 2e-2 and mean |d| <= 2e-3 (a few bf16
 roundings of outputs below 1); two calls on the same inputs are
-bit-identical (no atomics, a fixed order of sums).  Quantized matmul: see its section.
+bit-identical (no atomics, a fixed order of sums).  Quantized matmul and
+per-token quantization: see their section.
 """
 
 import pytest
@@ -17,6 +18,7 @@ import torch
 from distrifuser_tpu_torch.ops import flash_attention as port_flash
 from distrifuser_tpu_torch.ops import linear as port_linear
 from distrifuser_tpu_torch.ops import quant_matmul as port_qmm
+from distrifuser_tpu_torch.ops import quantize as port_quantize
 from distrifuser_tpu_torch.parallel.compress import quantize, quantize_weight
 
 
@@ -131,11 +133,18 @@ def test_kernel_wrapper_raises_instead_of_falling_back():
 
 # ---------------------------------------------------------------------------
 # quantized matmul (csrc/quant_matmul.cu): int8 bit-identical to the plain
-# version; fp8 within 2e-3 * max |ref| (the kernel sums e4m3 products in
-# another order, below the bf16 rounding its caller applies next)
+# version in both forms; fp8 within 2e-3 * max |ref| in the fp32 contract
+# form (the kernel sums e4m3 products in another order, below the bf16
+# rounding its caller applies next) and within 8e-3 * max |ref|, one bf16
+# ulp, in the fused bf16 form.  Per-token quantization
+# (csrc/quantize_rows.cu): bit-identical to compress.quantize on the card.
 # ---------------------------------------------------------------------------
 
 FP8_REL = 2e-3
+FP8_FUSED_REL = 8e-3
+QUANT_SHAPES = [(64, 64, 48, 1), (33, 72, 50, 16), (128, 256, 130, 64), (2, 2816, 1280, 1),
+                (154, 2048, 2560, 1), (8192, 640, 640, 1)]
+QUANT_IDS = ["small", "ragged_k72", "ragged_n130", "temb_m2", "text_kv_m154", "level1"]
 
 
 def _quant_operands(m, k, n, mode, channel_tile=1, seed=0):
@@ -149,12 +158,7 @@ def _quant_operands(m, k, n, mode, channel_tile=1, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
-@pytest.mark.parametrize(
-    "m,k,n,ct",
-    [(64, 64, 48, 1), (33, 72, 50, 16), (128, 256, 130, 64), (2, 2816, 1280, 1),
-     (154, 2048, 2560, 1), (8192, 640, 640, 1)],
-    ids=["small", "ragged_k72", "ragged_n130", "temb_m2", "text_kv_m154", "level1"],
-)
+@pytest.mark.parametrize("m,k,n,ct", QUANT_SHAPES, ids=QUANT_IDS)
 def test_quant_kernel_matches_reference_on_card(mode, m, k, n, ct):
     _need_card()
     xq, wq, sw = _quant_operands(m, k, n, mode, ct)
@@ -174,8 +178,9 @@ def test_quant_kernel_matches_reference_on_card(mode, m, k, n, ct):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
 def test_quant_kernel_misaligned_operand_on_card(mode):
-    """K % 16 == 0 but xq starts one byte past a 16-byte boundary: the
-    kernel must stage byte by byte, not with 16-byte copies."""
+    """K % 16 == 0 but xq starts one byte past a 16-byte boundary, which
+    the tensor-memory accelerator cannot read: the wrapper must hand the
+    kernel an aligned copy."""
     _need_card()
     m, k, n = 40, 64, 48
     xq, wq, sw = _quant_operands(m, k, n, mode)
@@ -222,3 +227,134 @@ def test_quant_wrapper_raises_instead_of_falling_back():
         port_qmm.quant_matmul(xq.cpu(), wq, sw)  # CPU activation, CUDA weight
     with pytest.raises(ValueError, match="column-major"):
         port_qmm.quant_matmul(xq, wq.contiguous(), sw)  # row-major [K, N]
+
+
+def _fused_operands(m, k, n, mode, channel_tile=1, seed=0):
+    """bf16 activation quantized per token (payload and sx), the weight
+    payload, sw and a bf16 bias, as ops/linear.py hands them to the kernel."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+    w = (torch.randn(k, n, device="cuda", generator=g) / k**0.5).bfloat16()
+    bias = torch.randn(n, device="cuda", generator=g).bfloat16()
+    xq, sx = quantize(x, mode)
+    qt = quantize_weight(w, mode, channel_tile=channel_tile)
+    return xq, qt.payload, qt.channel_scale(), sx, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("m,k,n,ct", QUANT_SHAPES, ids=QUANT_IDS)
+def test_quant_kernel_fused_form_on_card(mode, with_bias, m, k, n, ct):
+    """sx, the bf16 cast and the bias in the epilogue: the plain version's
+    operations in the plain version's order.  fp8 with a bias is held bit
+    for bit to the kernel's own output without it plus the bias: the cast
+    and the add round twice, so a one-ulp difference from the plain version
+    before the bias can become two after it."""
+    _need_card()
+    xq, wq, sw, sx, bias = _fused_operands(m, k, n, mode, ct, seed=1)
+    bias = bias if with_bias else None
+    before = port_qmm.quant_matmul.launches
+    got = port_qmm.quant_matmul(xq, wq, sw, sx=sx, out_dtype=torch.bfloat16, bias=bias)
+    torch.cuda.synchronize()
+    assert port_qmm.quant_matmul.launches == before + 1
+    want = port_qmm.quant_matmul_reference(xq, wq, sw, sx=sx, out_dtype=torch.bfloat16,
+                                           bias=bias)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    if mode == "int8":
+        assert torch.equal(got, want)
+    elif with_bias:
+        unbiased = port_qmm.quant_matmul(xq, wq, sw, sx=sx, out_dtype=torch.bfloat16)
+        assert torch.equal(got, unbiased + bias)
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= FP8_FUSED_REL * want.float().abs().max().item(), err
+
+
+def _quantize_inputs(m, k, seed):
+    """bf16 rows: seeded values, an all-zero row, a row whose amax (127)
+    makes the scale about 1 over half-integer values, and a row whose amax
+    (254) makes odd integers land on half-way quotients."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(m, k, device="cuda", generator=g) * 3).bfloat16()
+    x[0] = 0
+    if m > 2:
+        pattern = torch.tensor([127.0, 0.5, -1.5, 2.5, -3.5, 4.5, 0.0, -0.5])
+        x[1] = pattern.repeat(-(-k // 8))[:k].bfloat16()
+        x[2] = (torch.arange(k) % 9 * 2 - 7).float().clamp(-254, 254).bfloat16()
+        x[2, 0] = 254.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("m,k", [(64, 72), (8192, 640), (3, 2816), (154, 2048)],
+                         ids=["ragged_k72", "level1", "halfway_rows_m3", "text_m154"])
+def test_quantize_rows_matches_quantize_on_card(mode, m, k):
+    """The kernel is compress.quantize bit for bit on the card: payload
+    bytes and scales."""
+    _need_card()
+    x = _quantize_inputs(m, k, seed=m + k)
+    before = port_quantize.quantize_rows.launches
+    xq, sx = port_quantize.quantize_rows(x, mode)
+    torch.cuda.synchronize()
+    assert port_quantize.quantize_rows.launches == before + 1
+    want_q, want_s = quantize(x, mode, axis=-1)
+    assert xq.dtype == want_q.dtype and xq.shape == (m, k) and sx.shape == (m,)
+    assert torch.equal(xq.view(torch.uint8), want_q.view(torch.uint8))
+    assert torch.equal(sx, want_s)
+    assert sx[0].item() > 0 and not xq[0].view(torch.uint8).any()  # zero row: zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quant_kernels_are_deterministic_on_card(mode):
+    """Two calls of each kernel on the same inputs are bit-identical (no
+    atomics, a fixed order of sums)."""
+    _need_card()
+    x = _quantize_inputs(2048, 1280, seed=5)
+    q1, s1 = port_quantize.quantize_rows(x, mode)
+    q2, s2 = port_quantize.quantize_rows(x, mode)
+    assert torch.equal(q1.view(torch.uint8), q2.view(torch.uint8)) and torch.equal(s1, s2)
+    _, wq, sw, _, bias = _fused_operands(2048, 1280, 2560, mode, seed=6)
+    for kw in ({}, {"sx": s1, "out_dtype": torch.bfloat16, "bias": bias}):
+        first = port_qmm.quant_matmul(q1, wq, sw, **kw)
+        second = port_qmm.quant_matmul(q1, wq, sw, **kw)
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_quantize_rows_raises_instead_of_falling_back():
+    """The kernel takes one tensor: a CUDA x of a type it has no instance
+    for, or one that is not [M, K] with unit column stride, is refused; a
+    CPU x runs the plain version, a tensor on another device is refused."""
+    _need_card()
+    x = torch.randn(8, 64, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        port_quantize.quantize_rows(x.double(), "int8")
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        port_quantize.quantize_rows(x.half(), "fp8")
+    with pytest.raises(ValueError, match="unit column stride"):
+        port_quantize.quantize_rows(x.t(), "int8")
+    with pytest.raises(ValueError, match="quantizing mode"):
+        port_quantize.quantize_rows(x, "int4")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        port_quantize.quantize_rows(x.to("meta"), "int8")
+    before = port_quantize.quantize_rows.launches
+    q_cpu, _ = port_quantize.quantize_rows(x.cpu(), "int8")
+    assert q_cpu.device.type == "cpu" and port_quantize.quantize_rows.launches == before
+
+
+@pytest.mark.cuda
+def test_quant_fused_wrapper_refusals():
+    """The fused form's extra operands are checked, not converted."""
+    _need_card()
+    xq, wq, sw, sx, bias = _fused_operands(64, 64, 48, "int8")
+    with pytest.raises(ValueError, match="cpu"):
+        port_qmm.quant_matmul(xq, wq, sw, sx=sx.cpu(), out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="sx must be"):
+        port_qmm.quant_matmul(xq, wq, sw, sx=sx[:10], out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bias must be"):
+        port_qmm.quant_matmul(xq, wq, sw, sx=sx, out_dtype=torch.bfloat16, bias=bias.float())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        port_qmm.quant_matmul(xq, wq, sw, sx=sx, out_dtype=torch.float16)

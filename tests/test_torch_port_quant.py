@@ -9,6 +9,12 @@ Tolerances:
 * ``quant_matmul_reference`` against JAX ``quant_matmul`` in interpret
   mode: int8 exactly equal; fp8 within 1e-6 * max |ref| (the same e4m3
   products summed in another order; 1.4e-7 relative measured);
+* its fused form (``sx``, bfloat16 out, bias) against the JAX
+  ``_quantized_matmul`` "pallas" route and ``linear`` in bfloat16, Pallas
+  kernel in interpret mode: int8 bit-identical; fp8 within 8e-3 * max
+  |ref|, one bfloat16 ulp (float32 sums that agree to 1e-6 can round to
+  neighbouring bfloat16 values);
+* ``ops/quantize.quantize_rows`` on the CPU: JAX ``quantize`` bit for bit;
 * ``linear`` on a quantized leaf: the "pallas" and "dot" routes within
   1e-6 * max |y| (int8 measured exact), "dequant" within 1e-5 * max |y|
   (a float32 product of the same dense kernel).
@@ -31,6 +37,7 @@ from distrifuser_tpu_torch.models import unet as port_unet
 from distrifuser_tpu_torch.models import weights as port_weights
 from distrifuser_tpu_torch.ops.gemm_routing import DOT_MIN_M, resolve
 from distrifuser_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_reference
+from distrifuser_tpu_torch.ops.quantize import quantize_rows
 from distrifuser_tpu_torch.parallel import compress as port_compress
 
 # ops/__init__ of the JAX package re-exports ``linear`` the function
@@ -128,6 +135,77 @@ def test_quant_matmul_reference_matches_jax_interpret(mode, m, k, n, ct):
     else:
         np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                    atol=1e-6 * np.abs(want).max())
+
+
+def _bf16_operands(m, k, n, mode, ct, seed):
+    """bfloat16 x [m, k] and a JAX-quantized bfloat16 [k, n] leaf ("pallas"),
+    with the port's copies: the same values, the same payload bytes."""
+    r = np.random.RandomState(seed)
+    xb = jnp.asarray(r.randn(m, k).astype(np.float32), dtype=jnp.bfloat16)
+    wb = jnp.asarray(r.randn(k, n).astype(np.float32), dtype=jnp.bfloat16)
+    bias = jnp.asarray(r.randn(n).astype(np.float32), dtype=jnp.bfloat16)
+    jq = jax_compress.quantize_weight(wb, mode, compute="pallas", channel_tile=ct)
+    pp = port_weights.params_from_jax({"kernel": jax.device_get(jq)})
+    px = torch.from_numpy(np.array(xb.astype(jnp.float32))).bfloat16()
+    pb = torch.from_numpy(np.array(bias.astype(jnp.float32))).bfloat16()
+    return xb, jq, bias, px, pp["kernel"], pb
+
+
+def _assert_bf16_match(got, want, mode):
+    assert got.dtype == torch.bfloat16
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    if mode == "int8":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=8e-3 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m,k,n,ct", MATMUL_SHAPES)
+def test_fused_reference_matches_jax_pallas_route(mode, m, k, n, ct):
+    """The plain fused form on the port's quantized activation equals JAX's
+    "pallas" route (interpret mode) on the same payloads, in bfloat16."""
+    xb, jq, _, px, pq, _ = _bf16_operands(m, k, n, mode, ct, seed=11)
+    want = jax_linear._quantized_matmul(xb, jq)
+    assert want.dtype == jnp.bfloat16
+    pxq, sx = quantize_rows(px, mode)
+    got = quant_matmul_reference(pxq, pq.payload, pq.channel_scale(), sx=sx,
+                                 out_dtype=torch.bfloat16)
+    _assert_bf16_match(got, want, mode)
+    before = quant_matmul.launches
+    same = quant_matmul(pxq, pq.payload, pq.channel_scale(), sx=sx, out_dtype=torch.bfloat16)
+    assert quant_matmul.launches == before and torch.equal(same, got)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m,k,n,ct", MATMUL_SHAPES[:2])
+def test_linear_pallas_route_with_bias_matches_jax_in_bf16(mode, m, k, n, ct):
+    """linear on a "pallas" leaf with a bfloat16 bias (the bias the kernel's
+    epilogue adds on the card) against JAX's linear, on [2, m, k]."""
+    xb, jq, bias, px, pq, pb = _bf16_operands(m, k, n, mode, ct, seed=12)
+    want = jax_linear.linear({"kernel": jq, "bias": bias}, xb)
+    got = port_linear.linear({"kernel": pq, "bias": pb}, px)
+    _assert_bf16_match(got, want, mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_quantize_rows_on_cpu_is_jax_quantize(mode):
+    """On the CPU the kernel's wrapper runs the plain version: JAX's
+    quantize bit for bit, on bfloat16 rows with an all-zero row and a row
+    of half-way quotients, and no launch counted."""
+    x = np.random.RandomState(4).randn(6, 72).astype(np.float32)
+    x[2] = 0.0
+    x[3] = np.tile([127.0, 0.5, -1.5, 2.5], 18)
+    xb = jnp.asarray(x, dtype=jnp.bfloat16)
+    qj, sj = jax_compress.quantize(xb, mode, axis=-1)
+    before = quantize_rows.launches
+    qp, sp = quantize_rows(torch.from_numpy(np.array(xb.astype(jnp.float32))).bfloat16(),
+                           mode)
+    assert quantize_rows.launches == before
+    np.testing.assert_array_equal(_bytes(qp), _bytes(qj))
+    np.testing.assert_array_equal(sp.numpy(), np.asarray(sj))
+    with pytest.raises(ValueError, match="M, K"):
+        quantize_rows(torch.zeros(2, 3, 4), mode)
 
 
 def test_quant_matmul_shape_checks():

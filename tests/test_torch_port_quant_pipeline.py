@@ -124,7 +124,8 @@ def test_quantized_unet_matches_jax(sdxl, mode, route):
                             lambda: _jax_forward(jq, jcfg, inputs))
     port_qts = []
     orig = port_linear._quantized_matmul
-    port_linear._quantized_matmul = lambda x, qt: (port_qts.append(qt), orig(x, qt))[1]
+    port_linear._quantized_matmul = lambda x, qt, bias=None: (
+        port_qts.append(qt), orig(x, qt, bias))[1]
     try:
         _port_forward(pq, pcfg, inputs)
     finally:

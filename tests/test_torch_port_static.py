@@ -39,9 +39,9 @@ def test_port_imports_no_jax(path):
 
 def test_port_has_sources():
     names = {p.name for p in PORT_FILES}
-    assert {"chip_smoke.py", "flash_attention.py", "quant_matmul.py", "unet.py",
-            "pipelines.py"} <= names
-    for source in ("flash_attention.cu", "quant_matmul.cu"):
+    assert {"chip_smoke.py", "flash_attention.py", "quant_matmul.py", "quantize.py",
+            "unet.py", "pipelines.py"} <= names
+    for source in ("flash_attention.cu", "quant_matmul.cu", "quantize_rows.cu", "sm90.cuh"):
         assert (ROOT / "distrifuser_tpu_torch" / "csrc" / source).exists()
 
 
