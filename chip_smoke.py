@@ -21,7 +21,10 @@ Phases (any failure raises, and the script exits non-zero):
    also names the kernel instance it ran (registers per thread as
    compiled, shared memory bytes, threads, tile sizes) and the host time
    of one wrapper call (checks, tensor-map encoding, launch), taken while
-   enqueuing 50 calls that the card has not finished;
+   enqueuing 50 calls that the card has not finished; the same at the
+   shapes one rank of the patch path gives the kernel (phase 6: L/n local
+   queries against all L gathered keys, K and V split from the flattened
+   gathered KV, which must be a view of it at B = 1);
 3. quant kernel phase: at every (M, K, N) the quantized main path gives
    the quantized-matmul kernel (derived from the UNet config), and at odd
    shapes, for int8 and fp8, on a seeded bf16 activation: hold the
@@ -58,12 +61,29 @@ Phases (any failure raises, and the script exits non-zero):
    Every launch count is set to 0 just before each call and read just
    after it: flash 4*140 + 1 in each, quant_matmul and quantize_rows 0 in
    the dense call and 4*533 + 70 each in each quantized one (derived from
-   the config).
+   the config);
+6. patch phase: displaced patch parallelism at world 4 (CFG 2 x sp 2, one
+   prompt: one row and half the image a rank), one spawned process a rank:
+   every rank on this one card in a gloo group whose CUDA payloads are
+   staged through pinned host memory, or one card a rank over NCCL where
+   the machine has four (a line names the transport).  On every rank: the
+   tiny SDXL pipeline at that world, 4 DDIM steps with warmup 1 (2 stale
+   steps), full_sync and corrected_async_gn, bf16 on the card vs float32 on
+   the CPU (relative L2 <= 8e-2, as the dense tiny check); then
+   DistriSDXLPipeline at full SDXL width, corrected_async_gn, warmup 1, 4
+   steps at 1024x1024, once untimed and once measured: a finite image, the
+   same bit for bit on all ranks, 4*140 + 1 flash launches on each rank, 2
+   synchronous and 2 stale steps, with the wall time, step times, peak
+   memory and the stale buffers' elements by layer kind.  The patch image
+   against the single-card dense one (same weights and noise) is printed
+   for information only.
 
 It prints one JSON line per kernel shape, a card line, the kernels line,
 and last the line {"ok": true, "device": {...}}.
 
 ``--profile`` runs only the warm main path under torch.profiler.
+``--patch_only`` runs only the flash kernel at the patch path's shapes and
+the patch phase; with ``--profile`` each rank also profiles one more call.
 ``--quant_device_times`` runs only the device time of the quantized-matmul
 kernel's fp32 contract form at every path shape, through nothing but
 ``quant_matmul(xq, wq, sw)``, ``quantize`` and ``quantize_weight``, so that
@@ -75,8 +95,11 @@ to compare two kernels by device time in one call.  It exits non-zero
 without a result when no CUDA card is present or the package is missing.
 """
 
+import datetime
+import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -94,6 +117,12 @@ ODD_QUANT_SHAPES = ((33, 72, 50), (64, 64, 48), (128, 256, 130), (17, 2816, 320)
 CHECK_DEVICES = (("cpu", "float32"), ("cuda", "bfloat16"))
 TEXT_LEN = 77
 PROMPT = "a photo of an astronaut riding a horse on mars"
+PATCH_WORLD, PATCH_STEPS, PATCH_WARMUP = 4, 4, 1  # CFG 2 x sp 2: 2 sync, 2 stale
+PATCH_MODES = ("full_sync", "corrected_async_gn")
+COLLECTIVES = "collectives (nccl)"
+FLASH_ENTRY = {"name": "flash_sdpa", "route": "cuda",
+               "source": "distrifuser_tpu_torch/csrc/flash_attention.cu",
+               "replaces": "distrifuser_tpu/ops/flash_attention.py:41"}
 
 
 def card_line() -> str:
@@ -166,20 +195,46 @@ def attention_shapes(ucfg, vcfg, height, width, unet_evals):
     return shapes
 
 
+def patch_attention_shapes(shapes, n, batch):
+    """The shapes of ``attention_shapes`` on one rank of the patch path at
+    n patches and ``batch`` rows per rank (1 under the CFG split with one
+    prompt, 2 without it): each UNet attention takes this rank's L/n
+    queries, self-attention against all L gathered keys, cross-attention
+    against the text; the VAE decodes the whole latent on every rank, so
+    its row is unchanged."""
+    out = []
+    for name, b, lq, lk, heads, d, calls in shapes:
+        if name.startswith("unet"):
+            name, b, lq = "patch_" + name, batch, lq // n
+        out.append((name, b, lq, lk, heads, d, calls))
+    return out
+
+
 def kernel_phase(shapes):
     import torch
     import torch.nn.functional as F
 
     from distrifuser_tpu_torch.ops import flash_attention as fa
+    from distrifuser_tpu_torch.ops.attention import _flatten_seq, split_kv
 
     results = []
     for name, b, lq, lk, heads, d, calls in shapes:
         c = heads * d
         g = torch.Generator(device="cuda").manual_seed(len(results))
         q = torch.randn(b, lq, c, device="cuda", generator=g).bfloat16()
+        kv_view = None
         if name.startswith("vae"):  # separate to_q/to_k/to_v projections
             k = torch.randn(b, lk, c, device="cuda", generator=g).bfloat16()
             v = torch.randn(b, lk, c, device="cuda", generator=g).bfloat16()
+        elif name.startswith("patch_unet_self"):
+            # the stale step's gathered KV [n, B, L/n, 2C], flattened to
+            # [B, L, 2C] in patch order and split, as patch_self_attention does
+            gathered = torch.randn(lk // lq, b, lq, 2 * c, device="cuda",
+                                   generator=g).bfloat16()
+            k, v = split_kv(_flatten_seq(gathered))
+            kv_view = k.untyped_storage().data_ptr() == gathered.untyped_storage().data_ptr()
+            if b == 1 and not kv_view:
+                raise AssertionError(f"{name}: the flattened KV is a copy at B = 1")
         else:  # strided views of the fused to_kv output
             k, v = torch.randn(b, lk, 2 * c, device="cuda", generator=g).bfloat16().chunk(2, -1)
         got = fa.flash_sdpa(q, k, v, heads=heads)
@@ -225,6 +280,7 @@ def kernel_phase(shapes):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "tflops": flops / (ms * 1e-3) / 1e12, "host_us_per_launch": host_us,
             **fa.variant(d),  # registers per thread, shared memory bytes, tiles
+            **({} if kv_view is None else {"kv_view_of_gathered": kv_view}),
         }
         print(json.dumps(row), flush=True)
         results.append(row)
@@ -464,10 +520,12 @@ def quant_device_phase(shapes):
     print(json.dumps({"phase": "quant_device", "device_ms_per_call": per_call}), flush=True)
 
 
-def tiny_check(weight_quant="none"):
+def tiny_check(weight_quant="none", steps=3, **fields):
     """Tiny SDXL pipeline: bf16 on the card (kernels) vs float32 on the CPU
     (plain versions), same weights and latents; a quantized check
-    quantizes the same dense weights on each side."""
+    quantizes the same dense weights on each side.  ``fields`` go to both
+    configs (the patch phase passes the sync mode and warmup).  Returns the
+    result line; raises over the limit."""
     import numpy as np
     import torch
 
@@ -491,21 +549,22 @@ def tiny_check(weight_quant="none"):
         dtype = getattr(torch, dtype)
         u, v = (cast_params(t, dtype, device) for t in trees[:2])
         ts = [cast_params(t, dtype, device) for t in trees[2]]
-        cfg = DistriConfig(device=device, height=128, width=128, **quant)
+        cfg = DistriConfig(device=device, height=128, width=128, **quant, **fields)
         pipe = DistriSDXLPipeline.from_params(cfg, ucfg, u, vcfg, v, tcfgs, ts)
-        outs.append(pipe("a lighthouse at dusk", num_inference_steps=3,
+        outs.append(pipe("a lighthouse at dusk", num_inference_steps=steps,
                          latents=latents, output_type="latent").images[0])
     ref, got = outs
     if not np.isfinite(got).all():
         raise AssertionError("tiny pipeline on the card gave non-finite latents")
     rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
     limit = TINY_REL_L2[weight_quant]
-    result = {"phase": "tiny_check", "weight_quant": weight_quant, "rel_l2": rel,
-              "max_abs": float(np.abs(got - ref).max()), "limit_rel_l2": limit}
-    print(json.dumps(result), flush=True)
+    result = {"phase": "tiny_check", "weight_quant": weight_quant, "steps": steps,
+              **fields, "rel_l2": rel, "max_abs": float(np.abs(got - ref).max()),
+              "limit_rel_l2": limit}
     if rel > limit:
-        raise AssertionError(f"tiny pipeline ({weight_quant}) bf16/card vs fp32/cpu "
-                             f"rel L2 {rel} over {limit}")
+        raise AssertionError(f"tiny pipeline ({weight_quant}, {fields}) bf16/card vs "
+                             f"fp32/cpu rel L2 {rel} over {limit}")
+    return result
 
 
 def build_sdxl_trees():
@@ -526,16 +585,16 @@ def build_sdxl_trees():
 
 
 def build_sdxl_pipeline(trees, **quant):
-    """DistriSDXLPipeline at 1024x1024 on the first card (bf16) from
-    ``trees``, quantized at load time under the ``quant`` config fields;
-    returns (pipeline, seconds to build)."""
+    """DistriSDXLPipeline at 1024x1024 on this rank's card (bf16) from
+    ``trees``, with the ``quant`` config fields (weight quantization at load
+    time, sync mode, warmup); returns (pipeline, seconds to build)."""
     import torch
 
     from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
 
     t_init = time.perf_counter()
     ucfg, unet_p, vcfg, vae_p, tcfgs, text_p = trees
-    cfg = DistriConfig(height=1024, width=1024, **quant)  # first CUDA card, bf16
+    cfg = DistriConfig(height=1024, width=1024, **quant)  # this rank's card, bf16
     pipe = DistriSDXLPipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p, tcfgs, text_p)
     torch.cuda.synchronize()
     return pipe, time.perf_counter() - t_init
@@ -595,6 +654,7 @@ def pipeline_run(pipe, init_s, label, expected):
         "quant_matmul_launches": launches["quant_matmul"],
         "quantize_rows_launches": launches["quantize_rows"],
         "pixel_mean": float(pixels.mean()),
+        "image_sha256": hashlib.sha256(img.tobytes()).hexdigest(),
     }
     return result, last["x"].float().cpu().numpy()
 
@@ -602,7 +662,8 @@ def pipeline_run(pipe, init_s, label, expected):
 def pipeline_phase(expected_flash, expected_quant):
     """The main path three times from one set of dense trees: dense, int8
     (UNet and aux models) and fp8 (UNet), the quantized runs through the
-    quantized-matmul kernel.  Returns the result lines."""
+    quantized-matmul kernel.  Returns the result lines and the dense call's
+    final latent."""
     import numpy as np
 
     trees = build_sdxl_trees()
@@ -628,13 +689,139 @@ def pipeline_phase(expected_flash, expected_quant):
         print(json.dumps(result), flush=True)
         results.append(result)
         del pipe
-    return results
+    return results, dense_latent
+
+
+def patch_transport(world):
+    """How ``world`` ranks reach each other: one card a rank over NCCL
+    (gloo for the CPU tensors of the tiny checks) where the machine has as
+    many cards, else every rank on the one card in a gloo group, CUDA
+    payloads staged through pinned host memory (parallel/collectives.py)."""
+    import torch
+
+    if torch.cuda.device_count() >= world:
+        return {"backend": "cpu:gloo,cuda:nccl", "cards": world, "staging": None}
+    return {"backend": "gloo", "cards": 1, "staging": "pinned host memory"}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _patch_rank(rank, world, backend, port, out_dir, expected_flash, profile):
+    """One rank of the patch phase (a spawned process): the tiny card-vs-CPU
+    checks at this world, then the full-width pipeline once untimed and
+    once measured, and with ``profile`` once more under torch.profiler
+    (``profile_call``).  Writes its result line and final latent to
+    out_dir."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distrifuser_tpu_torch.utils.env import set_precision_flags
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    # a collective that waits longer than this fails the phase, not the call
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        set_precision_flags()
+        fields = {"warmup_steps": PATCH_WARMUP}
+        tiny = [tiny_check(steps=PATCH_STEPS, mode=mode, **fields) for mode in PATCH_MODES]
+        t0 = time.perf_counter()
+        trees = build_sdxl_trees()
+        pipe, _ = build_sdxl_pipeline(trees, **fields)
+        init_s = time.perf_counter() - t0
+        del trees
+        t0 = time.perf_counter()
+        pipe(PROMPT, num_inference_steps=PATCH_STEPS, seed=0, output_type="np")
+        warmup_s = time.perf_counter() - t0
+        result, latent = pipeline_run(pipe, init_s, f"patch rank {rank}", {
+            "flash_sdpa": expected_flash, "quant_matmul": 0, "quantize_rows": 0})
+        cfg = pipe.distri_config
+        phases = pipe.runner.phase_counts
+        want = {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1}
+        if phases != want:
+            raise AssertionError(f"rank {rank}: steps by phase {phases}, expected {want}")
+        free, total = torch.cuda.mem_get_info()
+        result.update({
+            "phase": "patch_pipeline", "rank": rank, "world": world,
+            "batch_idx": cfg.batch_idx(), "split_idx": cfg.split_idx(),
+            "n_device_per_batch": cfg.n_device_per_batch, "mode": cfg.mode,
+            "warmup_steps": cfg.warmup_steps, "warmup_call_s": warmup_s,
+            "steps_by_phase": phases,
+            "comm_volume_elements": pipe.runner.comm_volume_report(),
+            "card_used_bytes_all_ranks": total - free, "tiny_checks": tiny,
+        })
+        if profile:
+            result["profile"] = profile_call(
+                lambda: pipe(PROMPT, num_inference_steps=PATCH_STEPS, seed=0,
+                             output_type="np"),
+                os.path.join(out_dir, f"profile_patch_rank{rank}.txt"))
+        np.save(os.path.join(out_dir, f"latent_rank{rank}.npy"), latent)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def patch_phase(expected_flash, dense_latent, out_dir, profile=False):
+    """Displaced patch parallelism at world 4 (CFG 2 x sp 2,
+    corrected_async_gn, warmup 1, 4 steps: 2 synchronous, 2 stale), one
+    process a rank (``patch_transport``): on every rank the tiny checks
+    (bf16 on the card vs float32 on the CPU at the same world, full_sync and
+    corrected_async_gn) and the full-width pipeline, whose image must be the
+    same bit for bit on every rank.  Prints the transport, each rank's line
+    and the patch image against the single-card dense one (information
+    only); returns rank 0's line.  ``profile`` adds each rank's profile of
+    one more call to its line."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    world = PATCH_WORLD
+    transport = patch_transport(world)
+    print(json.dumps({"phase": "patch_transport", "world": world, **transport}),
+          flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(out_dir):  # results of an earlier run
+        os.remove(os.path.join(out_dir, name))
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    mp.spawn(_patch_rank, args=(world, transport["backend"], _free_port(), out_dir,
+                                expected_flash, profile), nprocs=world, join=True)
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for line in ranks[0].pop("tiny_checks"):
+        print(json.dumps({**line, "phase": "patch_tiny_check", "world": world}), flush=True)
+    for line in ranks[1:]:
+        line.pop("tiny_checks")
+    images = {line["image_sha256"] for line in ranks}
+    if len(images) != 1:
+        raise AssertionError(f"the ranks returned different images: {sorted(images)}")
+    for line in ranks:
+        print(json.dumps(line), flush=True)
+    latent = np.load(os.path.join(out_dir, "latent_rank0.npy"))
+    info = {"phase": "patch_vs_dense", "same_image_on_all_ranks": True}
+    if dense_latent is not None:
+        info["latent_rel_l2_vs_single_card_dense"] = float(
+            np.linalg.norm(latent - dense_latent) / np.linalg.norm(dense_latent))
+    print(json.dumps(info), flush=True)
+    return ranks[0]
 
 
 def _kernel_group(name: str) -> str:
     """Coarse family of a device kernel by its name (cuDNN convolution
     kernels are matched before GEMMs, which share the xmma/cutlass names)."""
     low = name.lower()
+    if "nccl" in low:
+        return COLLECTIVES
     if "flash_fwd_kernel" in low:
         return "attention (flash_sdpa)"
     if "qmm_kernel" in low:
@@ -652,45 +839,59 @@ def _kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
-def profile_phase(out_dir, weight_quant):
-    """The main path once warm, then once under torch.profiler: device time
-    by kernel family, the device's busy and idle share of the wall time,
-    and the top kernels (full table written to out_dir)."""
-    import os
-
+def profile_call(fn, table_path):
+    """``fn()`` once under torch.profiler: the wall time, the device's busy
+    time and idle share of it, device time by kernel family and the top
+    kernels (the full table written to ``table_path``).  NCCL kernels run
+    on their own stream beside the compute and spin while they wait for
+    peers: they are reported as ``collective_ms`` and left out of the busy
+    time, and the profiler's device-side ``nccl:*`` ranges, which repeat
+    their kernels' time, are left out altogether."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("nccl:")]
+    groups = {}
+    for e in kernels:
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    collective_ms = groups.get(COLLECTIVES, 0.0)
+    busy_ms = sum(groups.values()) - collective_ms
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    os.makedirs(os.path.dirname(table_path), exist_ok=True)
+    with open(table_path, "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=60))
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms, "collective_ms": collective_ms,
+        "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                         "calls": e.count} for e in top],
+    }
+
+
+def profile_phase(out_dir, weight_quant):
+    """The main path once warm, then once under torch.profiler
+    (``profile_call``)."""
     quant = {}
     if weight_quant != "none":
         quant = {"weight_quant": weight_quant, "quant_compute": "pallas"}
     pipe, _ = build_sdxl_pipeline(build_sdxl_trees(), **quant)
     pipe(PROMPT, num_inference_steps=4, seed=0, output_type="np")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe(PROMPT, num_inference_steps=4, seed=0, output_type="np")
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    groups = {}
-    for e in kernels:
-        g = _kernel_group(e.key)
-        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_sdxl_{weight_quant}.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                          row_limit=60))
-    print(json.dumps({
-        "phase": "profile", "weight_quant": weight_quant, "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-        "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
-                         "calls": e.count} for e in top],
-    }), flush=True)
+    result = profile_call(
+        lambda: pipe(PROMPT, num_inference_steps=4, seed=0, output_type="np"),
+        os.path.join(out_dir, f"profile_sdxl_{weight_quant}.txt"))
+    print(json.dumps({"phase": "profile", "weight_quant": weight_quant, **result}),
+          flush=True)
 
 
 def kernel_entry(rows, launches, prefix="", **fields):
@@ -757,12 +958,16 @@ def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="only profile the warm main path (torch.profiler) "
-                             "and print the device-time breakdown")
+                             "and print the device-time breakdown; with "
+                             "--patch_only, profile each rank's patch call")
     parser.add_argument("--weight_quant", default="none", choices=("none", "int8", "fp8"),
                         help="with --profile: the path to profile (quantized "
                              "runs use quant_compute='pallas')")
     parser.add_argument("--out_dir", default="build/profile",
-                        help="where --profile writes its full kernel table")
+                        help="where --profile writes its full kernel tables and "
+                             "the patch phase its ranks' results")
+    parser.add_argument("--patch_only", action="store_true",
+                        help="only the patch path: its flash shapes and the patch phase")
     parser.add_argument("--quant_device_times", action="store_true",
                         help="only time the quantized-matmul kernel's contract form "
                              "on the card at every path shape (device time)")
@@ -798,7 +1003,7 @@ def main(argv) -> int:
     build_kernels()
 
     set_precision_flags()
-    if args.profile:
+    if args.profile and not args.patch_only:
         profile_phase(args.out_dir, args.weight_quant)
         return 0
     shapes = attention_shapes(ucfg, vcfg, 1024, 1024, unet_evals=steps)
@@ -808,29 +1013,46 @@ def main(argv) -> int:
     expected_quant = steps * per_forward + per_call
     qshapes = quant_shapes(ucfg, 1024, 1024, steps)
     assert sum(s[-1] for s in qshapes) == expected_quant, (qshapes, expected_quant)
+    # one prompt under the CFG split: one row a rank, n = world / 2 patches
+    pshapes = patch_attention_shapes(shapes, n=PATCH_WORLD // 2, batch=1)
 
     seconds, t0 = {}, time.perf_counter()
-    rows = kernel_phase(shapes)
+    if args.patch_only:
+        prows = kernel_phase(pshapes)
+        seconds["flash_kernel_patch_shapes"], t0 = time.perf_counter() - t0, time.perf_counter()
+        patch = patch_phase(expected_flash, None, os.path.join(args.out_dir, "patch"),
+                            profile=args.profile)
+        seconds["patch"] = time.perf_counter() - t0
+        print(json.dumps({"phase": "seconds", **seconds}), flush=True)
+        kernels = [kernel_entry(prows, patch["flash_sdpa_launches"], **FLASH_ENTRY,
+                                work="all attention of one rank's 4-step 1024x1024 "
+                                     "SDXL call at CFG 2 x sp 2")]
+        return finish(kernels)
+    rows = kernel_phase(shapes + [s for s in pshapes if s[0].startswith("patch_")])
+    prows = [r for r in rows if r["shape"].startswith("patch_") or r["shape"] == "vae_mid"]
+    rows = [r for r in rows if not r["shape"].startswith("patch_")]
     seconds["flash_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     qrows = quant_kernel_phase(qshapes)
     seconds["quant_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     for weight_quant in ("none", "int8", "fp8"):
-        tiny_check(weight_quant)
+        print(json.dumps(tiny_check(weight_quant)), flush=True)
     seconds["tiny_checks"], t0 = time.perf_counter() - t0, time.perf_counter()
-    runs = {r["run"]: r for r in pipeline_phase(expected_flash, expected_quant)}
-    seconds["pipelines"] = time.perf_counter() - t0
+    results, dense_latent = pipeline_phase(expected_flash, expected_quant)
+    runs = {r["run"]: r for r in results}
+    seconds["pipelines"], t0 = time.perf_counter() - t0, time.perf_counter()
+    patch = patch_phase(expected_flash, dense_latent, os.path.join(args.out_dir, "patch"))
+    seconds["patch"] = time.perf_counter() - t0
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
     by_mode = {mode: [r for r in qrows if r["mode"] == mode] for mode in ("int8", "fp8")}
     per_call = ("(per-shape time x launches per call) at weight_quant='int8'; 'fp8' "
                 "holds the same for fp8")
     kernels = [
-        kernel_entry(rows, runs["dense"]["flash_sdpa_launches"],
-                     name="flash_sdpa", route="cuda",
-                     source="distrifuser_tpu_torch/csrc/flash_attention.cu",
-                     replaces="distrifuser_tpu/ops/flash_attention.py:41",
+        kernel_entry(rows, runs["dense"]["flash_sdpa_launches"], **FLASH_ENTRY,
                      work="all attention of one 4-step 1024x1024 SDXL pipeline call "
-                          "(per-shape time x launches per call)"),
+                          "(per-shape time x launches per call); 'patch' holds the "
+                          "same for one rank of the patch path at CFG 2 x sp 2",
+                     patch=kernel_entry(prows, patch["flash_sdpa_launches"])),
         kernel_entry(by_mode["int8"], runs["int8"]["quant_matmul_launches"], "fused_",
                      name="quant_matmul", route="cuda",
                      source="distrifuser_tpu_torch/csrc/quant_matmul.cu",
@@ -857,6 +1079,13 @@ def main(argv) -> int:
                      fp8=kernel_entry(by_mode["fp8"], runs["fp8"]["quantize_rows_launches"],
                                       "quantize_")),
     ]
+    return finish(kernels)
+
+
+def finish(kernels) -> int:
+    """The last three lines: the card, the kernels, the result."""
+    import torch
+
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,17 @@
 
 A second package beside the JAX reference: the same module names, PyTorch
 inside, and every Pallas TPU kernel on the ported path replaced by a kernel
-written by hand for sm_90a (``csrc/``).  It runs single-device SDXL
-text-to-image: ``DistriSDXLPipeline`` -> ``DenoiseRunner`` ->
-``unet_forward`` -> VAE ``decode``, with all attention through the flash
-kernel and, under ``DistriConfig(weight_quant="int8" | "fp8",
-quant_compute="pallas")``, every quantized UNet linear through the int8/fp8
-GEMM kernel.  Entry points run on the first CUDA card unless given
-``device="cpu"``; kernels are built with nvcc at first use, never at import.
+written by hand for sm_90a (``csrc/``).  It runs SDXL text-to-image on
+one card or under DistriFusion's displaced patch parallelism on n ranks:
+``DistriSDXLPipeline`` -> ``DenoiseRunner`` -> ``unet_forward`` (dense, or
+``PatchDispatch`` over torch.distributed process groups) -> VAE
+``decode``, with all attention through the flash kernel and, under
+``DistriConfig(weight_quant="int8" | "fp8", quant_compute="pallas")``,
+every quantized UNet linear through the int8/fp8 GEMM kernel.  Several
+ranks need a process group that the caller initialised (torchrun or
+``torch.multiprocessing``).  Entry points run on the card of the rank's
+local rank unless given ``device="cpu"``; kernels are built with nvcc at
+first use, never at import.
 """
 
 from .pipelines import DistriSDXLPipeline, PipelineOutput, SimpleTokenizer

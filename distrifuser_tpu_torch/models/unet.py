@@ -3,9 +3,10 @@
 Counterpart of distrifuser_tpu/models/unet.py.  The UNet is a function of a
 parameter tree (nested dicts and lists of tensors, keyed like the JAX tree
 and so like the diffusers state dict) routed through a dispatch object;
-this port has the single-device ``DenseDispatch``.  Activations are NHWC;
-attention runs on [B, H*W, C] tokens.  ``PatchDispatch`` (displaced patch
-parallelism) is ROADMAP queue 1 item 7.
+``DenseDispatch`` runs one device, ``PatchDispatch`` one rank of displaced
+patch parallelism (row patches, halo convs, distributed GroupNorm,
+stale-KV self-attention).  Activations are NHWC; attention runs on
+[B, H*W, C] tokens.
 
 Layouts inside the tree: linear kernels ``[in, out]`` as in JAX, conv
 kernels ``[out, in, kh, kw]`` in channels_last memory format (the JAX tree
@@ -23,11 +24,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import attention, cross_attention
-from ..ops.conv import conv2d
+from ..ops.attention import attention, cross_attention, patch_self_attention
+from ..ops.conv import conv2d, patch_conv2d, sliced_conv2d
 from ..ops.linear import feed_forward, linear
-from ..ops.normalization import group_norm
+from ..ops.normalization import group_norm, patch_group_norm
 from ..parallel.compress import QuantizedTensor
+from ..parallel.context import PatchContext
 
 silu = F.silu
 
@@ -160,6 +162,38 @@ class DenseDispatch:
 
     def feed_forward(self, p, x, name):
         return feed_forward(p, x)
+
+    def resnet(self, p, x, temb, name, *, groups):
+        return resnet_block(self, p, x, temb, name, groups=groups)
+
+
+class PatchDispatch:
+    """One rank of displaced patch parallelism: the activations are this
+    rank's rows, ``ctx`` holds its process group and stale buffers."""
+
+    def __init__(self, ctx: PatchContext):
+        self.ctx = ctx
+
+    def conv_in(self, p, x, name):
+        # first layer: the whole input, this rank's output rows
+        return sliced_conv2d(p, x, self.ctx)
+
+    def conv(self, p, x, name, *, stride=1):
+        return patch_conv2d(p, x, self.ctx, name, stride=stride)
+
+    def group_norm(self, p, x, name, *, groups, eps=1e-5):
+        return patch_group_norm(p, x, self.ctx, name, groups=groups, eps=eps)
+
+    def self_attn(self, p, x, name, *, heads):
+        return patch_self_attention(p, x, self.ctx, name, heads=heads)
+
+    def cross_attn(self, p, x, name, *, heads, enc):
+        cached = None if self.ctx.text_kv is None else self.ctx.text_kv.get(name)
+        return cross_attention(p, x, heads=heads, encoder_hidden_states=enc,
+                               cached_kv=cached)
+
+    def feed_forward(self, p, x, name):
+        return feed_forward(p, x)  # local over tokens
 
     def resnet(self, p, x, temb, name, *, groups):
         return resnet_block(self, p, x, temb, name, groups=groups)

@@ -10,11 +10,17 @@ the flash kernel (ops/flash_attention.py), which masks ragged lengths such
 as the 77 text tokens itself, so there is no length threshold, routing
 table or fallback; on a CPU tensor it runs the kernel's plain version,
 which also stands for the JAX package's XLA softmax route (``_sdpa_xla``).
-``patch_self_attention`` is ROADMAP queue 1 item 7.
+``patch_self_attention`` is the displaced self-attention of the patch
+path: queries from this rank's rows only, keys and values over the whole
+image, gathered fresh in synchronous steps and, in stale steps, this rank's
+fresh KV in its own slot of the previous step's gathered KV.  The kernel
+then runs at Lq = L/n against Lk = L.
 """
 
 from __future__ import annotations
 
+from ..parallel.collectives import all_gather
+from ..parallel.context import PatchContext
 from .flash_attention import flash_sdpa
 from .linear import linear
 
@@ -36,6 +42,38 @@ def attention(p, x, *, heads: int, encoder_hidden_states=None):
     q = linear(p["to_q"], x)
     k, v = split_kv(linear(p["to_kv"], enc))
     return linear(p["to_out"], sdpa(q, k, v, heads=heads))
+
+
+def patch_self_attention(p, x, ctx: PatchContext, name: str, *, heads: int):
+    """Self-attention of a row patch with one-step-stale peer KV.
+
+    ``x``: this rank's tokens [B, L/n, C].  The layer's buffer is the
+    gathered KV [n, B, L/n, 2C] in patch order."""
+    q = linear(p["to_q"], x)
+    kv = linear(p["to_kv"], x)  # [B, L/n, 2C], fresh
+    if ctx.n == 1:
+        full_kv = kv
+    elif ctx.is_sync:
+        gathered = all_gather(kv, ctx.group)  # [n, B, L/n, 2C]
+        ctx.emit(name, gathered, "attn")
+        full_kv = _flatten_seq(gathered)
+    else:
+        gathered = ctx.stale(name)
+        # fresh own slot, stale peer slots; the buffer is this step's to
+        # change: the refresh below lands in a new one
+        gathered[ctx.split_idx] = kv
+        full_kv = _flatten_seq(gathered)
+        if ctx.refresh:
+            ctx.emit_refresh_gather(name, kv, "attn")
+    k, v = split_kv(full_kv)
+    return linear(p["to_out"], sdpa(q, k, v, heads=heads))
+
+
+def _flatten_seq(gathered):
+    """[n, B, L, C] -> [B, n*L, C] in patch order: a view at B = 1 (the CFG
+    split), one copy at B > 1."""
+    n, b, l, c = gathered.shape
+    return gathered.transpose(0, 1).reshape(b, n * l, c)
 
 
 def cross_attention(p, x, *, heads: int, encoder_hidden_states=None,

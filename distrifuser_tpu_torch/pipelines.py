@@ -1,4 +1,4 @@
-"""User-facing SDXL text-to-image pipeline, single device.
+"""User-facing SDXL text-to-image pipeline, on one device or n ranks.
 
 Counterpart of distrifuser_tpu/pipelines.py (``SimpleTokenizer``,
 ``_tokenize``, ``PipelineOutput``, ``_normalize_prompts``,
@@ -10,6 +10,13 @@ a pipeline from in-memory parameter trees: the port's own random init
 ``torch.Generator`` seeded with ``seed`` (its numbers differ from JAX's);
 callers that need identical noise pass ``latents``.  ``from_pretrained``,
 img2img and ``DistriSDPipeline`` are ROADMAP queue 1 items 5 and 6.
+
+Under displaced patch parallelism every rank builds the same pipeline and
+makes the same call: it draws the same seeded latents, encodes the same
+prompts, denoises its patch (parallel/runner.py), decodes the whole
+latent, as the original DistriFusion does, and returns the same image.
+The sequence-parallel decode of the JAX package (``vae_sp``) is ROADMAP
+queue 1 item 15.
 
 Weight quantization happens at load time, as in the JAX package's
 constructor: the UNet under ``DistriConfig.weight_quant`` with the
@@ -90,12 +97,23 @@ def _normalize_prompts(prompt, negative_prompt):
     return prompts, negs
 
 
+def _wrap_chunk_callback(callback, n_real):
+    """The per-step ``callback(i, t, x)`` of one chunk, shown only the
+    chunk's ``n_real`` real rows (the padded tail rows stripped).  With more
+    images than ``batch_size`` it fires per chunk, its step index restarting
+    in each."""
+    if callback is None:
+        return None
+    return lambda i, t, x: callback(i, t, x[:n_real])
+
+
 def _batched_generate(cfg, scheduler, prompts, negs, num_images_per_prompt,
                       seed, latents, in_channels, run_chunk):
     """Any number of prompts over the fixed ``cfg.batch_size``: each prompt
     repeated ``num_images_per_prompt`` times, the list run in batch_size
     chunks with the tail padded by its last entry (padded outputs dropped).
-    Noise is drawn once for the whole expanded batch."""
+    ``run_chunk(prompts, negs, latents, n_real)`` gets each chunk and its
+    count of real rows.  Noise is drawn once for the whole expanded batch."""
     if not prompts or num_images_per_prompt < 1:
         raise ValueError("need at least one prompt and one image per prompt")
     prompts = [p for p in prompts for _ in range(num_images_per_prompt)]
@@ -121,7 +139,7 @@ def _batched_generate(cfg, scheduler, prompts, negs, num_images_per_prompt,
             cp = cp + [cp[-1]] * pad
             cn = cn + [cn[-1]] * pad
             cl = torch.cat([cl, cl[-1:].expand(pad, *cl.shape[1:])])
-        out = run_chunk(cp, cn, cl)
+        out = run_chunk(cp, cn, cl, bs - pad)
         outs.append(out[:bs - pad])
     return torch.cat(outs, dim=0)
 
@@ -219,12 +237,12 @@ class DistriSDXLPipeline:
         prompts, negs = _normalize_prompts(prompt, negative_prompt)
         self.scheduler.set_timesteps(num_inference_steps)
 
-        def run_chunk(cp, cn, cl):
+        def run_chunk(cp, cn, cl, n_real):
             embeds, added = self._encode(cp, cn)
             return self.runner.generate(
                 cl, embeds, guidance_scale=guidance_scale,
                 num_inference_steps=num_inference_steps, added_cond=added,
-                callback=callback,
+                callback=_wrap_chunk_callback(callback, n_real),
             )
 
         latent = _batched_generate(
@@ -235,14 +253,17 @@ class DistriSDXLPipeline:
 
     def _decode_to_np(self, latent) -> np.ndarray:
         """latent -> float RGB [N, H, W, 3] in [0, 1], decoded in
-        batch_size chunks."""
+        batch_size chunks.  The UNet family decodes ``latent / scaling``
+        with no shift, whatever the VAE config's ``shift_factor``: only the
+        SD3 family re-centres its latents.  (img2img, when it lands, encodes
+        as the JAX package's ``_prepare_init_latents`` does: it subtracts
+        the config's shift for every family.)"""
         bs = self.distri_config.batch_size
         scaling = self.vae_config.scaling_factor
-        shift = self.vae_config.shift_factor
         images = []
         for i in range(0, latent.shape[0], bs):
             img = vae_mod.decode(self.vae_params, self.vae_config,
-                                 latent[i:i + bs] / scaling + shift)
+                                 latent[i:i + bs] / scaling)
             images.append(img.float().cpu().numpy())
         image = np.concatenate(images, axis=0)
         return np.clip(image / 2 + 0.5, 0.0, 1.0)

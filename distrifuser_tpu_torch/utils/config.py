@@ -1,20 +1,33 @@
-"""Run configuration for the PyTorch port.
+"""Run configuration and process groups for the PyTorch port.
 
-Counterpart of distrifuser_tpu/utils/config.py:DistriConfig.  Field names
-and validation follow the JAX package; the mesh gives way to an explicit
-``device``.  This port runs one rank: patch parallelism across ranks
-(process groups, NCCL) is ROADMAP queue 1 item 7, so a process launched
-as one of several ranks (an initialised process group, or torchrun's
-``WORLD_SIZE``) is refused rather than run alone on one card.
+Counterpart of distrifuser_tpu/utils/config.py:DistriConfig.  Field names,
+defaults and validation follow the JAX package; the mesh gives way to an
+explicit ``device`` and to torch.distributed process groups, as in the
+original DistriFusion:
+
+* the rank and the world size are read from the process group that the
+  caller initialised (torchrun, ``torch.multiprocessing.spawn``, a test
+  harness).  The library never picks a backend: NCCL on cards, gloo on the
+  CPU or for ranks that share one card, as the caller chose;
+* under CFG with ``split_batch`` the world splits into two branches of
+  ``n_device_per_batch`` ranks: ``batch_group`` holds the n patch peers of
+  one branch (the JAX ``sp`` axis), ``split_group`` the two ranks that hold
+  the same patch of either branch (the ``cfg`` axis).  Without the split
+  ``batch_group`` is the whole world and there is no ``split_group``.
+  Rank r has ``batch_idx = r // n`` and ``split_idx = r % n``.
+
+Knobs of the JAX package that the port does not run yet are refused with
+the ROADMAP item that will bring them, never ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..parallel.compress import validate_quant_compute, validate_weight_mode
 from .env import is_power_of_2, resolve_device
@@ -28,16 +41,45 @@ SYNC_MODES = (
     "no_sync",
 )
 PARALLELISMS = ("patch", "tensor", "naive_patch", "pipefusion")
+ATTN_IMPLS = ("gather", "ring", "ulysses", "usp")
+COMM_COMPRESS = ("none", "int8", "fp8", "int8_residual")
+
+# process groups already built, keyed by (default group, world, n): every
+# config of a run shares them, and every rank builds them in one order
+_GROUPS: Dict[Tuple[Any, int, int], Tuple[Any, Any]] = {}
+
+
+def _process_groups(world: int, n: int, rank: int):
+    """(batch_group, split_group) of this rank, after the reference's
+    utils.py:84-96.  ``dist.new_group`` is collective over the world: every
+    rank creates every group, in the same order, including the groups it is
+    not in."""
+    key = (dist.group.WORLD, world, n)
+    if key not in _GROUPS:
+        if n == world:
+            _GROUPS[key] = (dist.group.WORLD, None)
+        else:
+            batch = [dist.new_group(list(range(b * n, (b + 1) * n)))
+                     for b in range(world // n)]
+            split = [dist.new_group(list(range(s, world, n))) for s in range(n)]
+            _GROUPS[key] = (batch[rank // n], split[rank % n])
+    return _GROUPS[key]
 
 
 @dataclasses.dataclass
 class DistriConfig:
     """Run parameters: image size, CFG, sync mode, dtype, weight
-    quantization and device.
+    quantization, device and the rank's process groups.
 
-    ``device`` None means the first CUDA card (raises if there is none);
-    ``dtype`` None means bf16 on the card and float32 on the CPU, as the
-    JAX package defaults to bf16 on the TPU and float32 on the CPU.
+    ``device`` None means the CUDA card of this rank's local rank (raises
+    if there is none); ``dtype`` None means bf16 on the card and float32 on
+    the CPU, as the JAX package defaults to bf16 on the TPU and float32 on
+    the CPU.  The card's kernels take bf16 only, so another dtype on a
+    CUDA device is refused.
+
+    ``warmup_steps`` counts the synchronous steps after the first: steps
+    0..warmup_steps run with fresh activations, the rest with one-step-
+    stale peer activations (``mode``), as the reference counts them.
 
     ``weight_quant`` ("none", "int8", "fp8") holds the denoiser's matmul
     and conv kernels as 1-byte payloads with one float32 scale per output
@@ -52,9 +94,15 @@ class DistriConfig:
     height: int = 1024
     width: int = 1024
     do_classifier_free_guidance: bool = True
+    split_batch: bool = True
     warmup_steps: int = 4
     mode: str = "corrected_async_gn"
     parallelism: str = "patch"
+    attn_impl: str = "gather"
+    dp_degree: int = 1
+    comm_batch: bool = False
+    comm_compress: str = "none"
+    refresh_fraction: float = 1.0
     dtype: Any = None
     batch_size: int = 1
     weight_quant: str = "none"
@@ -62,17 +110,57 @@ class DistriConfig:
     quant_compute: str = "auto"
     device: Any = None
 
+    # derived in __post_init__
+    world_size: int = dataclasses.field(init=False, default=1)
+    rank: int = dataclasses.field(init=False, default=0)
+    n_device_per_batch: int = dataclasses.field(init=False, default=1)
+    batch_group: Optional[Any] = dataclasses.field(init=False, default=None, repr=False)
+    split_group: Optional[Any] = dataclasses.field(init=False, default=None, repr=False)
+
     def __post_init__(self) -> None:
+        self._validate()
+        self.world_size, self.rank = _world_and_rank()
+        world = self.world_size
+        if not is_power_of_2(world):
+            raise ValueError(f"world size must be a power of 2, got {world}")
+        if world > 1 and self.parallelism != "patch":
+            raise NotImplementedError(
+                f"parallelism={self.parallelism!r} across {world} ranks: the port "
+                "runs displaced patch parallelism only; naive patch and tensor "
+                "parallelism are ROADMAP queue 1 item 8"
+            )
+        # the rank's card is current before any group talks NCCL
+        self.device = resolve_device(self.device, self.rank)
+        if self.do_classifier_free_guidance and self.split_batch:
+            self.n_device_per_batch = max(world // 2, 1)
+        else:
+            self.n_device_per_batch = world
+        if world > 1:
+            self.batch_group, self.split_group = _process_groups(
+                world, self.n_device_per_batch, self.rank)
+        if self.dtype is None:
+            self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+
+    def _validate(self) -> None:
         if self.mode not in SYNC_MODES:
             raise ValueError(f"mode must be one of {SYNC_MODES}, got {self.mode!r}")
         if self.parallelism not in PARALLELISMS:
             raise ValueError(
                 f"parallelism must be one of {PARALLELISMS}, got {self.parallelism!r}"
             )
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
+        if self.comm_compress not in COMM_COMPRESS:
+            raise ValueError(
+                f"comm_compress must be one of {COMM_COMPRESS}, got {self.comm_compress!r}")
         if self.height % 8 != 0 or self.width % 8 != 0:
             raise ValueError("height and width must be multiples of 8")
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
+        if self.warmup_steps < 0:
+            raise ValueError(f"warmup_steps must be >= 0, got {self.warmup_steps}")
+        if self.dp_degree < 1:
+            raise ValueError(f"dp_degree must be >= 1, got {self.dp_degree}")
         validate_weight_mode(self.weight_quant)
         validate_weight_mode(self.weight_quant_aux)
         validate_quant_compute(self.quant_compute, self.weight_quant)
@@ -82,32 +170,58 @@ class DistriConfig:
                 "parallelism='tensor' pre-shards its param tree and would "
                 "silently densify the payloads; keep weight_quant='none' there"
             )
-        world = self.world_size
-        if not is_power_of_2(world):
-            raise ValueError(f"world size must be a power of 2, got {world}")
-        if world != 1:
+        if self.attn_impl != "gather":
             raise NotImplementedError(
-                f"world size {world}: the PyTorch port runs one rank so far; "
-                "multi-rank displaced patch parallelism is ROADMAP queue 1 "
-                "item 7"
+                f"attn_impl={self.attn_impl!r}: the port gathers the KV; ring "
+                "attention is ROADMAP queue 1 item 11 (ulysses and usp are DiT "
+                "layouts, item 13)"
             )
-        self.device = resolve_device(self.device)
-        if self.dtype is None:
-            self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
-
-    @property
-    def world_size(self) -> int:
-        """Ranks this process belongs to: the initialised process group's
-        size, else torchrun's ``WORLD_SIZE``, else 1."""
-        if torch.distributed.is_available() and torch.distributed.is_initialized():
-            return torch.distributed.get_world_size()
-        return int(os.environ.get("WORLD_SIZE", "1"))
+        if self.dp_degree > 1:
+            raise NotImplementedError(
+                f"dp_degree={self.dp_degree}: independent image groups are "
+                "ROADMAP queue 1 item 17"
+            )
+        knobs = {"comm_batch": (self.comm_batch, False),
+                 "comm_compress": (self.comm_compress, "none"),
+                 "refresh_fraction": (self.refresh_fraction, 1.0)}
+        for name, (value, default) in knobs.items():
+            if value != default:
+                raise NotImplementedError(
+                    f"{name}={value!r}: the comm knobs (batched refresh, refresh "
+                    "compression, PCPP partial refresh) are ROADMAP queue 1 "
+                    f"item 10; leave it at {default!r}"
+                )
+        on_card = self.device is None or torch.device(self.device).type == "cuda"
+        if on_card and self.dtype is not None and self.dtype != torch.bfloat16:
+            raise ValueError(
+                f"dtype {self.dtype} on a CUDA device: the card's kernels "
+                "(flash attention, quantized matmul) have bf16 instances only "
+                "(ROADMAP queue 3 fault 2, fixed by refusing); fp16/fp32 "
+                "instances are ROADMAP queue 2 item 4.  Use bf16 on the card, "
+                "or device='cpu' for float32"
+            )
 
     @property
     def cfg_split(self) -> bool:
-        """CFG branches on separate ranks: never at the one rank this port
-        runs, so the branches fold into the batch."""
-        return False
+        """CFG branches on separate ranks (JAX utils/config.py:438-444)."""
+        return (self.do_classifier_free_guidance and self.split_batch
+                and self.world_size >= 2)
+
+    @property
+    def is_sp(self) -> bool:
+        """Is the image split into row patches across ranks?"""
+        return self.parallelism == "patch" and self.n_device_per_batch > 1
+
+    def batch_idx(self, rank: Optional[int] = None) -> int:
+        """CFG branch of ``rank`` (default this rank): ranks [0, n) hold
+        branch 0 (unconditional), [n, 2n) branch 1, under the split."""
+        rank = self.rank if rank is None else rank
+        return rank // self.n_device_per_batch if self.cfg_split else 0
+
+    def split_idx(self, rank: Optional[int] = None) -> int:
+        """Patch index of ``rank`` (default this rank) within its branch."""
+        rank = self.rank if rank is None else rank
+        return rank % self.n_device_per_batch
 
     @property
     def latent_height(self) -> int:
@@ -116,3 +230,21 @@ class DistriConfig:
     @property
     def latent_width(self) -> int:
         return self.width // 8
+
+
+def _world_and_rank() -> Tuple[int, int]:
+    """(world size, rank) of the initialised default process group; (1, 0)
+    without one.  A process that torchrun started as one of several ranks
+    (``WORLD_SIZE`` > 1) without a process group is refused rather than run
+    alone."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        raise RuntimeError(
+            f"WORLD_SIZE={world} but no process group is initialised: call "
+            "torch.distributed.init_process_group (nccl for one card a rank, "
+            "gloo on the CPU or for ranks that share a card) before building "
+            "a DistriConfig; the library never picks a backend"
+        )
+    return 1, 0

@@ -106,6 +106,36 @@ def test_kernel_is_deterministic_on_card(b, lq, lk, heads, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,b,lq,heads",
+    [(2, 1, 2048, 10), (2, 1, 512, 20), (4, 2, 1024, 10), (4, 2, 256, 20), (4, 1, 16, 4)],
+    ids=["cfg2_sp2_l1", "cfg2_sp2_l2", "sp4_l1", "sp4_l2", "tiny_sp4"],
+)
+def test_kernel_at_patch_shapes_on_card(n, b, lq, heads):
+    """The patch path's self-attention: this rank's L/n queries against the
+    gathered KV [n, B, L/n, 2C] flattened in patch order and split into
+    strided views (a view of the gathered buffer at B = 1), and its
+    cross-attention against the 77 text tokens."""
+    _need_card()
+    from distrifuser_tpu_torch.ops.attention import _flatten_seq, split_kv
+
+    d = 64 if lq > 16 else 16
+    g = torch.Generator(device="cuda").manual_seed(n * lq)
+    q = torch.randn(b, lq, heads * d, device="cuda", generator=g).bfloat16()
+    gathered = torch.randn(n, b, lq, 2 * heads * d, device="cuda", generator=g).bfloat16()
+    k, v = split_kv(_flatten_seq(gathered))
+    assert k.shape == (b, n * lq, heads * d)
+    if b == 1:
+        assert k.untyped_storage().data_ptr() == gathered.untyped_storage().data_ptr()
+    _assert_close(port_flash.flash_sdpa(q, k, v, heads=heads),
+                  port_flash.flash_sdpa_reference(q, k, v, heads=heads))
+    text_k, text_v = torch.randn(b, 77, 2 * heads * d, device="cuda",
+                                 generator=g).bfloat16().chunk(2, dim=-1)
+    _assert_close(port_flash.flash_sdpa(q, text_k, text_v, heads=heads),
+                  port_flash.flash_sdpa_reference(q, text_k, text_v, heads=heads))
+
+
+@pytest.mark.cuda
 def test_kernel_variants_fit_the_card():
     """Every head dim has an instance whose block fits one SM."""
     _need_card()

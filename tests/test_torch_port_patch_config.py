@@ -1,0 +1,132 @@
+"""PyTorch port: the three repaired pipeline and config faults, the config's
+refusals of what is not ported yet, and the device a rank takes.
+
+Repairs, each of a test that failed before it:
+* the per-step callback of a tail chunk sees only the chunk's real rows
+  (``batch_size=2`` with 3 images: [2, ...], then [1, ...]);
+* a CUDA device with a dtype other than bf16 is refused at config time
+  (the card's kernels are bf16 only) instead of failing at the first
+  attention;
+* the UNet family decodes ``latent / scaling`` with no VAE shift.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+from distrifuser_tpu_torch.models import clip, unet, vae
+from distrifuser_tpu_torch.utils import config as config_mod
+from distrifuser_tpu_torch.utils import env
+
+
+def _tiny_pipeline(vcfg=None, **cfg_fields):
+    gen = torch.Generator().manual_seed(0)
+    ucfg = unet.tiny_config(cross_attention_dim=32, sdxl=True)
+    vcfg = vcfg or vae.tiny_vae_config()
+    tcfgs = [clip.tiny_clip_config(hidden=16),
+             clip.CLIPTextConfig(vocab_size=1000, hidden_size=16, num_hidden_layers=2,
+                                 num_attention_heads=4, intermediate_size=32,
+                                 projection_dim=32)]
+    cfg = DistriConfig(device="cpu", height=128, width=128, **cfg_fields)
+    return DistriSDXLPipeline.from_params(
+        cfg, ucfg, unet.init_unet_params(gen, ucfg), vcfg,
+        vae.init_vae_params(torch.Generator().manual_seed(1), vcfg), tcfgs,
+        [clip.init_clip_params(gen, tc) for tc in tcfgs])
+
+
+def test_callback_sees_only_real_rows_of_tail_chunk():
+    pipe = _tiny_pipeline(batch_size=2)
+    seen = []
+    out = pipe("a red boat", num_images_per_prompt=3, num_inference_steps=1,
+               output_type="latent",
+               callback=lambda i, t, x: seen.append((i, tuple(x.shape))))
+    assert seen == [(0, (2, 16, 16, 4)), (0, (1, 16, 16, 4))]
+    assert len(out.images) == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_non_bf16_dtype_refused_on_card(dtype):
+    with pytest.raises(ValueError, match="queue 3 fault 2.*queue 2 item 4"):
+        DistriConfig(device="cuda", dtype=dtype)
+    assert DistriConfig(device="cpu", dtype=dtype).dtype == dtype
+
+
+def test_unet_family_decodes_without_vae_shift():
+    latents = np.random.RandomState(2).randn(1, 16, 16, 4).astype(np.float32)
+    images = []
+    for shift in (0.0, 0.5):
+        vcfg = dataclasses.replace(vae.tiny_vae_config(), shift_factor=shift)
+        pipe = _tiny_pipeline(vcfg)
+        images.append(pipe("a red boat", latents=latents, num_inference_steps=1,
+                           output_type="np").images[0])
+    np.testing.assert_array_equal(images[0], images[1])
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("attn_impl", "ring", "item 11"),
+    ("attn_impl", "usp", "item 11"),
+    ("dp_degree", 2, "item 17"),
+    ("comm_batch", True, "item 10"),
+    ("comm_compress", "int8", "item 10"),
+    ("refresh_fraction", 0.5, "item 10"),
+])
+def test_unported_knobs_refused(field, value, item):
+    with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
+        DistriConfig(device="cpu", **{field: value})
+
+
+@pytest.mark.parametrize("parallelism", ["tensor", "naive_patch"])
+def test_other_parallelisms_refused_across_ranks(monkeypatch, parallelism):
+    monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (2, 0))
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        DistriConfig(device="cpu", parallelism=parallelism)
+
+
+def test_rank_layout_at_world_4(monkeypatch):
+    """World 4: sp 4 without the CFG split, CFG 2 x sp 2 with it (rank r
+    has batch_idx r // n and split_idx r % n)."""
+    monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (4, 3))
+    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r: ("batch", None))
+    cfg = DistriConfig(device="cpu", height=256, width=256, split_batch=False)
+    assert (cfg.n_device_per_batch, cfg.batch_idx(), cfg.split_idx()) == (4, 0, 3)
+    assert not cfg.cfg_split and cfg.is_sp
+    cfg = DistriConfig(device="cpu", height=256, width=256)
+    assert (cfg.n_device_per_batch, cfg.batch_idx(), cfg.split_idx()) == (2, 1, 1)
+    assert cfg.cfg_split and [cfg.batch_idx(r) for r in range(4)] == [0, 0, 1, 1]
+
+
+def test_runner_refuses_rows_that_do_not_split(monkeypatch):
+    """At sp 4 the tiny UNet's latent rows must split into 4 patches that
+    stay whole after its one downsample: 12 rows do not, 16 do."""
+    from distrifuser_tpu_torch.parallel.runner import DenoiseRunner
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+
+    monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (4, 0))
+    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r: ("batch", None))
+    ucfg = unet.tiny_config(cross_attention_dim=32, sdxl=True)
+    for height, ok in ((96, False), (128, True)):
+        cfg = DistriConfig(device="cpu", height=height, width=128, split_batch=False)
+        if ok:
+            DenoiseRunner(cfg, ucfg, {}, get_scheduler("ddim"))
+        else:
+            with pytest.raises(ValueError, match="divisible by n_devices"):
+                DenoiseRunner(cfg, ucfg, {}, get_scheduler("ddim"))
+
+
+@pytest.mark.parametrize("rank,local,cards,want", [
+    (3, None, 1, "cuda:0"), (3, None, 4, "cuda:3"), (5, "1", 4, "cuda:1"),
+    (6, None, 4, "cuda:2")])
+def test_rank_takes_the_card_of_its_local_rank(monkeypatch, rank, local, cards, want):
+    picked = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device", picked.append)
+    if local is None:
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_RANK", local)
+    assert env.resolve_device(None, rank) == torch.device(want)
+    assert picked == [torch.device(want)]

@@ -1,0 +1,143 @@
+"""Rank workers of the multi-rank tests of the PyTorch port (no tests here).
+
+``run_ranks`` spawns ``world`` processes that join one gloo process group
+through a file under the test's temporary directory (so that concurrent
+test workers never compete for a TCP port), run one of the workers below
+and leave their results in files.  A spawned process imports this module
+to find its worker, so the module imports neither jax nor the JAX package
+(tests/test_torch_port_static.py walks it): inputs arrive as files that
+the test wrote, parameter trees already in the port's layout.  Each worker
+runs many cases in one spawn, because a spawn of four ranks costs seconds.
+"""
+
+import os
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def run_ranks(world, worker, tmp_path, *args):
+    """Run ``worker(rank, world, *args)`` on ``world`` gloo ranks; raises if
+    any rank raises."""
+    init = os.path.join(str(tmp_path), f"pg_init_{worker.__name__}_{world}")
+    mp.spawn(_entry, args=(world, init, worker, args), nprocs=world, join=True)
+
+
+def _entry(rank, world, init, worker, args):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    try:
+        worker(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rows(x, rank, world, dim=1):
+    """This rank's contiguous block of ``x`` along ``dim``."""
+    return x.chunk(world, dim=dim)[rank].contiguous()
+
+
+def ops_worker(rank, world, in_path, out_path):
+    """Each patch op on this rank's rows, at n = world (one patch group):
+    a synchronous call on the first input, then a stale call on the second
+    with the buffers of the first.  Saves {case: outputs}."""
+    from distrifuser_tpu_torch.ops.attention import patch_self_attention
+    from distrifuser_tpu_torch.ops.conv import patch_conv2d, sliced_conv2d
+    from distrifuser_tpu_torch.ops.normalization import patch_group_norm
+    from distrifuser_tpu_torch.parallel import collectives
+    from distrifuser_tpu_torch.parallel.context import (PHASE_STALE, PHASE_SYNC,
+                                                        PatchContext)
+    from distrifuser_tpu_torch.parallel.guidance import combine_guidance
+    from distrifuser_tpu_torch.utils.config import SYNC_MODES, DistriConfig
+
+    inp = torch.load(in_path)
+    group = dist.group.WORLD
+    out = {}
+
+    def two_steps(op, x1, x2, mode="corrected_async_gn"):
+        ctx = PatchContext(n=world, mode=mode, phase=PHASE_SYNC, group=group,
+                           split_idx=rank)
+        y1 = op(_rows(x1, rank, world), ctx)
+        s1 = ctx.finish()
+        ctx = PatchContext(n=world, mode=mode, phase=PHASE_STALE, group=group,
+                           split_idx=rank, state_in={k: v.clone() for k, v in s1.items()})
+        y2 = op(_rows(x2, rank, world), ctx)
+        return {"y_sync": y1, "state_sync": s1, "y_stale": y2, "state_stale": ctx.finish()}
+
+    x1, x2 = inp["x1"], inp["x2"]
+    for halo in (1, 2):
+        out[f"halo_exchange_h{halo}"] = collectives.halo_exchange(
+            _rows(x1, rank, world), halo, group)
+    out["gather_rows"] = collectives.gather_rows(_rows(x1, rank, world), group)
+    for stride in (1, 2):
+        ctx = PatchContext(n=world, mode="full_sync", phase=PHASE_SYNC, group=group,
+                           split_idx=rank)
+        out[f"sliced_conv2d_s{stride}"] = sliced_conv2d(inp["conv"], x1, ctx,
+                                                        stride=stride)
+        out[f"patch_conv2d_s{stride}"] = two_steps(
+            lambda x, c, s=stride: patch_conv2d(inp["conv"], x, c, "conv", stride=s),
+            x1, x2)
+    for mode in SYNC_MODES:
+        out[f"patch_group_norm_{mode}"] = two_steps(
+            lambda x, c: patch_group_norm(inp["gn"], x, c, "gn", groups=4),
+            x1, x2, mode)
+    out["patch_self_attention"] = two_steps(
+        lambda x, c: patch_self_attention(inp["attn"], x, c, "attn", heads=2),
+        inp["tokens1"], inp["tokens2"])
+    cfg = DistriConfig(device="cpu", height=8 * world, width=8)
+    branch = inp["branches"][cfg.batch_idx()]
+    out["cfg_combine"] = combine_guidance(cfg, branch, torch.tensor(5.0), branch.shape[0])
+    torch.save(out, f"{out_path}.rank{rank}")
+
+
+def runner_worker(rank, world, in_path, out_path):
+    """The tiny SDXL runner in each case of ``cases`` (config fields):
+    4 DDIM steps from the same inputs.  Saves {case: (latent, comm volume,
+    phase counts)}."""
+    from distrifuser_tpu_torch.models import unet
+    from distrifuser_tpu_torch.parallel.runner import DenoiseRunner
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+    from distrifuser_tpu_torch.utils.config import DistriConfig
+
+    inp = torch.load(in_path)
+    ucfg = unet.tiny_config(cross_attention_dim=32, sdxl=True)
+    out = {}
+    for case in inp["cases"]:
+        cfg = DistriConfig(device="cpu", height=128, width=128, warmup_steps=1,
+                           **case)
+        runner = DenoiseRunner(cfg, ucfg, inp["params"], get_scheduler("ddim"))
+        x = runner.generate(inp["latents"], inp["enc"], added_cond=inp["added"],
+                            num_inference_steps=4, guidance_scale=5.0)
+        out[tuple(sorted(case.items()))] = (x, runner.comm_volume_report(),
+                                            dict(runner.phase_counts))
+    torch.save(out, f"{out_path}.rank{rank}")
+
+
+def pipeline_worker(rank, world, in_path, out_path):
+    """The tiny SDXL pipeline at this world (CFG split, warmup 1): latents
+    after 3 steps with the steps the callback saw and the phase counts, and
+    the image after 2 steps.  Saves them."""
+    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+    from distrifuser_tpu_torch.models import clip, unet, vae
+
+    inp = torch.load(in_path)
+    tcfgs = [clip.tiny_clip_config(hidden=16),
+             clip.CLIPTextConfig(vocab_size=1000, hidden_size=16, num_hidden_layers=2,
+                                 num_attention_heads=4, intermediate_size=32,
+                                 projection_dim=32)]
+    cfg = DistriConfig(device="cpu", height=128, width=128, warmup_steps=1)
+    pipe = DistriSDXLPipeline.from_params(
+        cfg, unet.tiny_config(cross_attention_dim=32, sdxl=True), inp["unet"],
+        vae.tiny_vae_config(), inp["vae"], tcfgs, inp["text"])
+    steps = []
+    latent = pipe(inp["prompt"], latents=inp["latents"], num_inference_steps=3,
+                  output_type="latent",
+                  callback=lambda i, t, x: steps.append(i)).images[0]
+    phases = dict(pipe.runner.phase_counts)
+    image = pipe(inp["prompt"], latents=inp["latents"], num_inference_steps=2,
+                 output_type="np").images[0]
+    torch.save({"latent": latent, "image": image, "steps": steps,
+                "phase_counts": phases},
+               f"{out_path}.rank{rank}")

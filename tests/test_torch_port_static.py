@@ -16,7 +16,7 @@ from distrifuser_tpu_torch.utils.env import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "distrifuser_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_port_ranks.py"
 ]
 FORBIDDEN = ("jax", "jaxlib", "distrifuser_tpu", "tests")
 
@@ -40,7 +40,8 @@ def test_port_imports_no_jax(path):
 def test_port_has_sources():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "flash_attention.py", "quant_matmul.py", "quantize.py",
-            "unet.py", "pipelines.py"} <= names
+            "unet.py", "pipelines.py", "collectives.py", "context.py",
+            "test_torch_port_ranks.py"} <= names
     for source in ("flash_attention.cu", "quant_matmul.cu", "quantize_rows.cu", "sm90.cuh"):
         assert (ROOT / "distrifuser_tpu_torch" / "csrc" / source).exists()
 
@@ -58,8 +59,8 @@ def test_config_cpu_defaults_and_refusals(monkeypatch):
     cfg = DistriConfig(device="cpu")
     assert cfg.device == torch.device("cpu") and cfg.dtype == torch.float32
     assert not cfg.cfg_split and (cfg.latent_height, cfg.latent_width) == (128, 128)
-    monkeypatch.setenv("WORLD_SIZE", "2")  # one of two torchrun ranks
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    monkeypatch.setenv("WORLD_SIZE", "2")  # one of two torchrun ranks, no group
+    with pytest.raises(RuntimeError, match="no process group is initialised"):
         DistriConfig(device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
     with pytest.raises(ValueError, match="mode"):
