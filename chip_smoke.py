@@ -56,34 +56,43 @@ Phases (any failure raises, and the script exits non-zero):
    4 DDIM steps at 1024x1024 -> a finite (1024, 1024, 3) image, three
    times: dense; weight_quant="int8" with weight_quant_aux="int8"; and
    weight_quant="fp8".  The quantized runs use quant_compute="pallas".
-   Each pipeline makes one untimed call first (kernel loading, algorithm
-   choice), then the measured one.
-   Every launch count is set to 0 just before each call and read just
-   after it: flash 4*140 + 1 in each, quant_matmul and quantize_rows 0 in
-   the dense call and 4*533 + 70 each in each quantized one (derived from
-   the config);
-6. patch phase: displaced patch parallelism at world 4 (CFG 2 x sp 2, one
-   prompt: one row and half the image a rank), one spawned process a rank:
-   every rank on this one card in a gloo group whose CUDA payloads are
-   staged through pinned host memory, or one card a rank over NCCL where
-   the machine has four (a line names the transport).  On every rank: the
-   tiny SDXL pipeline at that world, 4 DDIM steps with warmup 1 (2 stale
-   steps), full_sync and corrected_async_gn, bf16 on the card vs float32 on
-   the CPU (relative L2 <= 8e-2, as the dense tiny check); then
-   DistriSDXLPipeline at full SDXL width, corrected_async_gn, warmup 1, 4
-   steps at 1024x1024, once untimed and once measured: a finite image, the
-   same bit for bit on all ranks, 4*140 + 1 flash launches on each rank, 2
-   synchronous and 2 stale steps, with the wall time, step times, peak
-   memory and the stale buffers' elements by layer kind.  The patch image
-   against the single-card dense one (same weights and noise) is printed
-   for information only.
+   Each pipeline runs eagerly (``set_stepwise(True)``: one untimed call,
+   then the measured one), then under CUDA graphs (``prepare`` captures
+   them and is timed, one untimed call, the measured one); the graphed
+   latent and image must equal the eager ones bit for bit, and a
+   "graph_vs_eager" line gives both calls' times and peak memory.
+   Every launch count is set to 0 just before each measured call and read
+   just after it: flash 4*140 + 1 in each, quant_matmul and quantize_rows
+   0 in the dense call and 4*533 + 70 each in each quantized one (derived
+   from the config), graph replays counting the launches they captured;
+6. multi-rank phase, one spawned process a rank: every rank on this one
+   card in a gloo group whose CUDA payloads are staged through pinned host
+   memory, or one card a rank over NCCL where the machine has four (a line
+   names the transport).  Three runs, each with tiny checks at its world
+   (bf16 on the card vs float32 on the CPU, relative L2 <= 8e-2, as the
+   dense tiny check) and one full-width 4-step 1024x1024 SDXL call: the
+   displaced patch path at world 4 (CFG 2 x sp 2, warmup 1: 2 synchronous
+   and 2 stale steps; tiny checks full_sync and corrected_async_gn; one
+   untimed call first), naive patch parallelism at world 4 (CFG 2 x sp 2,
+   ``split_scheme="alternate"``) and tensor parallelism (``tp_layout``:
+   tp 2 at world 2 on one card, tp 4 on four cards).  On every rank: a
+   finite image, the same bit for bit on all ranks, 4*140 + 1 flash
+   launches, the steps by phase, with the wall time, step times, peak
+   memory and the patch path's stale buffers by layer kind.  With ranks
+   sharing the card, ``use_cuda_graph=True`` must be refused and the runs
+   are eager; over NCCL each runs eagerly and under CUDA graphs, the
+   graphed latent bit-identical to the eager one or within 1e-3 relative
+   L2 (the line says which).  The patch image against the single-card
+   dense one (same weights and noise) is printed for information only.
 
 It prints one JSON line per kernel shape, a card line, the kernels line,
 and last the line {"ok": true, "device": {...}}.
 
-``--profile`` runs only the warm main path under torch.profiler.
-``--patch_only`` runs only the flash kernel at the patch path's shapes and
-the patch phase; with ``--profile`` each rank also profiles one more call.
+``--profile`` runs only the warm main path under torch.profiler, eagerly
+and under CUDA graphs, for dense, int8 and fp8 (``--weight_quant`` picks
+one).  ``--patch_only`` runs only the flash kernel at the multi-rank
+shapes and the multi-rank phase; with ``--profile`` each rank also
+profiles one more call of each run in each mode.
 ``--quant_device_times`` runs only the device time of the quantized-matmul
 kernel's fp32 contract form at every path shape, through nothing but
 ``quant_matmul(xq, wq, sw)``, ``quantize`` and ``quantize_weight``, so that
@@ -96,6 +105,7 @@ without a result when no CUDA card is present or the package is missing.
 """
 
 import datetime
+import gc
 import hashlib
 import json
 import math
@@ -119,6 +129,18 @@ TEXT_LEN = 77
 PROMPT = "a photo of an astronaut riding a horse on mars"
 PATCH_WORLD, PATCH_STEPS, PATCH_WARMUP = 4, 4, 1  # CFG 2 x sp 2: 2 sync, 2 stale
 PATCH_MODES = ("full_sync", "corrected_async_gn")
+SPAWN_DEADLINE_S = 420  # one spawn of the multi-rank phase, profiles included
+GRAPH_REL_L2 = 1e-3  # graphed vs eager latent over NCCL, where not bit-identical
+# the multi-rank runs: config fields, tiny checks (extra fields each), steps
+# by phase; tensor parallelism without the CFG split (B = 2 on every rank)
+MULTI_RUNS = {
+    "patch": ({"warmup_steps": PATCH_WARMUP}, [{"mode": m} for m in PATCH_MODES],
+              {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1}),
+    "naive_patch": ({"parallelism": "naive_patch", "split_scheme": "alternate"}, [{}],
+                    {"sync": PATCH_STEPS, "stale": 0}),
+    "tensor": ({"parallelism": "tensor", "split_batch": False}, [{}],
+               {"sync": PATCH_STEPS, "stale": 0}),
+}
 COLLECTIVES = "collectives (nccl)"
 FLASH_ENTRY = {"name": "flash_sdpa", "route": "cuda",
                "source": "distrifuser_tpu_torch/csrc/flash_attention.cu",
@@ -208,6 +230,39 @@ def patch_attention_shapes(shapes, n, batch):
             name, b, lq = "patch_" + name, batch, lq // n
         out.append((name, b, lq, lk, heads, d, calls))
     return out
+
+
+def naive_attention_shapes(shapes, n, batch):
+    """The shapes of ``attention_shapes`` on one rank of naive patch
+    parallelism: the dense UNet on L/n tokens of a slice (``batch`` rows per
+    rank), self-attention at Lq = Lk = L/n; the VAE row unchanged."""
+    out = []
+    for name, b, lq, lk, heads, d, calls in shapes:
+        if name.startswith("unet"):
+            name, b = "naive_" + name, batch
+            lk = lk // n if "self" in name else lk
+            lq //= n
+        out.append((name, b, lq, lk, heads, d, calls))
+    return out
+
+
+def tp_attention_shapes(shapes, n, batch):
+    """The shapes of ``attention_shapes`` on one rank of tensor parallelism
+    at n ranks: every token, this rank's ceil(heads / n) heads (the head
+    count zero-padded to a multiple of n); the VAE row unchanged."""
+    out = []
+    for name, b, lq, lk, heads, d, calls in shapes:
+        if name.startswith("unet"):
+            name, b, heads = f"tp{n}_" + name, batch, -(-heads // n)
+        out.append((name, b, lq, lk, heads, d, calls))
+    return out
+
+
+def tp_layout(cards):
+    """(world, n) of the tensor-parallel run: one card a rank on four
+    cards (tp 4, SDXL's 10 heads padded to 12); two ranks staged through
+    the host on one card (tp 2), to bound the staged all-reduces."""
+    return (4, 4) if cards >= PATCH_WORLD else (2, 2)
 
 
 def kernel_phase(shapes):
@@ -618,6 +673,7 @@ def pipeline_run(pipe, init_s, label, expected):
         marks.append(time.perf_counter())
         last["x"] = x
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.flash_sdpa.launches = 0
     qm.quant_matmul.launches = 0
@@ -649,6 +705,8 @@ def pipeline_run(pipe, init_s, label, expected):
         "first_step_ms_incl_text_encode": (marks[0] - t0) * 1e3,
         "step_ms": steps, "decode_and_copy_ms": (t0 + total_s - marks[-1]) * 1e3,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+        "use_cuda_graph": pipe.distri_config.use_cuda_graph,
         "weight_bytes": report["per_component_nbytes"],
         "flash_sdpa_launches": launches["flash_sdpa"],
         "quant_matmul_launches": launches["quant_matmul"],
@@ -659,11 +717,52 @@ def pipeline_run(pipe, init_s, label, expected):
     return result, last["x"].float().cpu().numpy()
 
 
+def graphed_runs(pipe, init_s, label, expected, steps=4):
+    """The pipeline's warm call eagerly, then under CUDA graphs (captured
+    by ``prepare``, then one untimed call), each measured by
+    ``pipeline_run``; returns (eager line, graphed line, the graphed vs
+    eager comparison, the graphed latent).  The two must give the same
+    latent and image bit for bit (one card), or within GRAPH_REL_L2
+    relative L2 (ranks over NCCL, whose sums may be ordered differently
+    under capture; the line says which held)."""
+    import numpy as np
+
+    pipe.set_stepwise(True)
+    t0 = time.perf_counter()  # a first call loads kernels and picks algorithms
+    pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
+    eager_warmup_s = time.perf_counter() - t0
+    eager, eager_x = pipeline_run(pipe, init_s, label, expected)
+    eager["warmup_call_s"] = eager_warmup_s
+    pipe.set_stepwise(False)
+    t0 = time.perf_counter()
+    pipe.prepare(steps)
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
+    first_s = time.perf_counter() - t0
+    graphed, graphed_x = pipeline_run(pipe, init_s, label + " graphed", expected)
+    graphed.update({"prepare_capture_s": capture_s, "first_graphed_call_s": first_s,
+                    "graphs": sorted(pipe.runner.graphs.graphs)})
+    rel = float(np.linalg.norm(graphed_x - eager_x) / np.linalg.norm(eager_x))
+    same = bool(np.array_equal(graphed_x, eager_x))
+    compare = {"phase": "graph_vs_eager", "run": label,
+               "latent_bit_identical": same,
+               "image_bit_identical": graphed["image_sha256"] == eager["image_sha256"],
+               "latent_rel_l2": rel, "eager_call_s": eager["total_s"],
+               "graphed_call_s": graphed["total_s"], "capture_s": capture_s,
+               "eager_peak_reserved_bytes": eager["max_memory_reserved_bytes"],
+               "graphed_peak_reserved_bytes": graphed["max_memory_reserved_bytes"],
+               "eager_peak_allocated_bytes": eager["max_memory_allocated_bytes"],
+               "graphed_peak_allocated_bytes": graphed["max_memory_allocated_bytes"]}
+    return eager, graphed, compare, graphed_x
+
+
 def pipeline_phase(expected_flash, expected_quant):
     """The main path three times from one set of dense trees: dense, int8
     (UNet and aux models) and fp8 (UNet), the quantized runs through the
-    quantized-matmul kernel.  Returns the result lines and the dense call's
-    final latent."""
+    quantized-matmul kernel; each eagerly and under CUDA graphs, which must
+    agree bit for bit.  Returns the result lines by run and the dense
+    call's final latent."""
     import numpy as np
 
     trees = build_sdxl_trees()
@@ -671,23 +770,23 @@ def pipeline_phase(expected_flash, expected_quant):
             ("int8", {"weight_quant": "int8", "weight_quant_aux": "int8",
                       "quant_compute": "pallas"}, expected_quant),
             ("fp8", {"weight_quant": "fp8", "quant_compute": "pallas"}, expected_quant))
-    results, dense_latent = [], None
+    results, dense_latent = {}, None
     for label, quant, n_quant in runs:
         pipe, init_s = build_sdxl_pipeline(trees, **quant)
-        t0 = time.perf_counter()  # a first call loads kernels and picks algorithms
-        pipe(PROMPT, num_inference_steps=4, seed=0, output_type="np")
-        warmup_s = time.perf_counter() - t0
-        result, latent = pipeline_run(
+        eager, graphed, compare, latent = graphed_runs(
             pipe, init_s, label, {"flash_sdpa": expected_flash, "quant_matmul": n_quant,
                                   "quantize_rows": n_quant})
-        result["warmup_call_s"] = warmup_s
         if dense_latent is None:
             dense_latent = latent
         else:  # information only: quantization moves the image
-            result["latent_rel_l2_vs_dense"] = float(
+            graphed["latent_rel_l2_vs_dense"] = float(
                 np.linalg.norm(latent - dense_latent) / np.linalg.norm(dense_latent))
-        print(json.dumps(result), flush=True)
-        results.append(result)
+        for line in (eager, graphed, compare):
+            print(json.dumps(line), flush=True)
+        if not (compare["latent_bit_identical"] and compare["image_bit_identical"]):
+            raise AssertionError(f"{label}: the graphed call differs from the eager "
+                                 f"one (latent rel L2 {compare['latent_rel_l2']})")
+        results[label] = graphed
         del pipe
     return results, dense_latent
 
@@ -712,12 +811,29 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _patch_rank(rank, world, backend, port, out_dir, expected_flash, profile):
-    """One rank of the patch phase (a spawned process): the tiny card-vs-CPU
-    checks at this world, then the full-width pipeline once untimed and
-    once measured, and with ``profile`` once more under torch.profiler
-    (``profile_call``).  Writes its result line and final latent to
-    out_dir."""
+def _refuses_graphs(ucfg):
+    """Is ``use_cuda_graph=True`` refused when a runner is built on ranks
+    that share the card?"""
+    from distrifuser_tpu_torch import DistriConfig
+    from distrifuser_tpu_torch.parallel.runner import DenoiseRunner
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+
+    cfg = DistriConfig(height=1024, width=1024, warmup_steps=PATCH_WARMUP)
+    try:
+        DenoiseRunner(cfg, ucfg, {}, get_scheduler("ddim"))
+    except ValueError as e:
+        return "share a card" in str(e)
+    return False
+
+
+def _multi_rank(rank, world, backend, port, out_dir, expected_flash, profile, labels):
+    """One rank of the multi-rank phase (a spawned process): for each run of
+    ``labels`` (MULTI_RUNS), the tiny card-vs-CPU checks at this world, then
+    the full-width pipeline: over NCCL eagerly and under CUDA graphs
+    (``graphed_runs``); over gloo staging, where graphs are refused (checked
+    first), eagerly: the patch run once untimed and once measured, the
+    others once.  With ``profile`` each call mode of each run is profiled
+    once more.  Writes its result lines and final latents to out_dir."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -731,89 +847,164 @@ def _patch_rank(rank, world, backend, port, out_dir, expected_flash, profile):
                             timeout=datetime.timedelta(seconds=300))
     try:
         set_precision_flags()
-        fields = {"warmup_steps": PATCH_WARMUP}
-        tiny = [tiny_check(steps=PATCH_STEPS, mode=mode, **fields) for mode in PATCH_MODES]
+        graphs = backend != "gloo"
         t0 = time.perf_counter()
         trees = build_sdxl_trees()
-        pipe, _ = build_sdxl_pipeline(trees, **fields)
-        init_s = time.perf_counter() - t0
-        del trees
-        t0 = time.perf_counter()
-        pipe(PROMPT, num_inference_steps=PATCH_STEPS, seed=0, output_type="np")
-        warmup_s = time.perf_counter() - t0
-        result, latent = pipeline_run(pipe, init_s, f"patch rank {rank}", {
-            "flash_sdpa": expected_flash, "quant_matmul": 0, "quantize_rows": 0})
-        cfg = pipe.distri_config
-        phases = pipe.runner.phase_counts
-        want = {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1}
-        if phases != want:
-            raise AssertionError(f"rank {rank}: steps by phase {phases}, expected {want}")
-        free, total = torch.cuda.mem_get_info()
-        result.update({
-            "phase": "patch_pipeline", "rank": rank, "world": world,
-            "batch_idx": cfg.batch_idx(), "split_idx": cfg.split_idx(),
-            "n_device_per_batch": cfg.n_device_per_batch, "mode": cfg.mode,
-            "warmup_steps": cfg.warmup_steps, "warmup_call_s": warmup_s,
-            "steps_by_phase": phases,
-            "comm_volume_elements": pipe.runner.comm_volume_report(),
-            "card_used_bytes_all_ranks": total - free, "tiny_checks": tiny,
-        })
-        if profile:
-            result["profile"] = profile_call(
-                lambda: pipe(PROMPT, num_inference_steps=PATCH_STEPS, seed=0,
-                             output_type="np"),
-                os.path.join(out_dir, f"profile_patch_rank{rank}.txt"))
-        np.save(os.path.join(out_dir, f"latent_rank{rank}.npy"), latent)
+        trees_s = time.perf_counter() - t0
+        if not graphs and not _refuses_graphs(trees[0]):
+            raise AssertionError(f"rank {rank}: use_cuda_graph=True was not refused "
+                                 "with ranks sharing a card over gloo")
+        out = {}
+        expected = {"flash_sdpa": expected_flash, "quant_matmul": 0, "quantize_rows": 0}
+        for label in labels:
+            fields, tinies, want = MULTI_RUNS[label]
+            tiny = [tiny_check(steps=PATCH_STEPS, use_cuda_graph=False, **fields, **t)
+                    for t in tinies]
+            pipe, init_s = build_sdxl_pipeline(trees, use_cuda_graph=False, **fields)
+            init_s += trees_s
+            name = f"{label} rank {rank}"
+            compare = None
+            if graphs:
+                eager, line, compare, latent = graphed_runs(pipe, init_s, name, expected,
+                                                            steps=PATCH_STEPS)
+                lines = [eager, line]
+            else:
+                warmup_s = None
+                if label == "patch":
+                    t0 = time.perf_counter()
+                    pipe(PROMPT, num_inference_steps=PATCH_STEPS, seed=0, output_type="np")
+                    warmup_s = time.perf_counter() - t0
+                line, latent = pipeline_run(pipe, init_s, name, expected)
+                line["warmup_call_s"] = warmup_s
+                lines = [line]
+            cfg = pipe.distri_config
+            phases = pipe.runner.phase_counts
+            if phases != want:
+                raise AssertionError(f"{name}: steps by phase {phases}, expected {want}")
+            free, total = torch.cuda.mem_get_info()
+            for line in lines:
+                line.update({
+                    "phase": f"{label}_pipeline", "rank": rank, "world": world,
+                    "parallelism": cfg.parallelism, "split_scheme": cfg.split_scheme,
+                    "batch_idx": cfg.batch_idx(), "split_idx": cfg.split_idx(),
+                    "n_device_per_batch": cfg.n_device_per_batch, "mode": cfg.mode,
+                    "warmup_steps": cfg.warmup_steps, "steps_by_phase": phases,
+                    "comm_volume_elements": pipe.runner.comm_volume_report(),
+                    "card_used_bytes_all_ranks": total - free,
+                })
+            if profile:
+                call = lambda: pipe(PROMPT, num_inference_steps=PATCH_STEPS,  # noqa: E731
+                                    seed=0, output_type="np")
+                for line in lines:
+                    pipe.set_stepwise(not line["use_cuda_graph"])
+                    kind = "graphed" if line["use_cuda_graph"] else "eager"
+                    line["profile"] = profile_call(call, os.path.join(
+                        out_dir, f"profile_{label}_{kind}_rank{rank}.txt"))
+            np.save(os.path.join(out_dir, f"latent_{label}_rank{rank}.npy"), latent)
+            out[label] = {"lines": lines, "tiny": tiny, "compare": compare}
+            del pipe
+            torch.cuda.empty_cache()
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(result, f)
+            json.dump(out, f)
     finally:
+        # the graphs hold NCCL work: free them before the process group
+        gc.collect()
+        torch.cuda.synchronize()
         dist.destroy_process_group()
 
 
-def patch_phase(expected_flash, dense_latent, out_dir, profile=False):
-    """Displaced patch parallelism at world 4 (CFG 2 x sp 2,
-    corrected_async_gn, warmup 1, 4 steps: 2 synchronous, 2 stale), one
-    process a rank (``patch_transport``): on every rank the tiny checks
-    (bf16 on the card vs float32 on the CPU at the same world, full_sync and
-    corrected_async_gn) and the full-width pipeline, whose image must be the
-    same bit for bit on every rank.  Prints the transport, each rank's line
-    and the patch image against the single-card dense one (information
-    only); returns rank 0's line.  ``profile`` adds each rank's profile of
-    one more call to its line."""
-    import numpy as np
+def _spawn(world, labels, backend, out_dir, expected_flash, profile):
+    """Run ``labels`` on ``world`` spawned ranks; returns each rank's lines.
+    Ranks that have not all exited within SPAWN_DEADLINE_S are killed and
+    the phase fails."""
     import torch
     import torch.multiprocessing as mp
 
-    world = PATCH_WORLD
-    transport = patch_transport(world)
-    print(json.dumps({"phase": "patch_transport", "world": world, **transport}),
-          flush=True)
     os.makedirs(out_dir, exist_ok=True)
     for name in os.listdir(out_dir):  # results of an earlier run
-        os.remove(os.path.join(out_dir, name))
+        if not os.path.isdir(os.path.join(out_dir, name)):
+            os.remove(os.path.join(out_dir, name))
     torch.cuda.empty_cache()  # the ranks share the card with this process
-    mp.spawn(_patch_rank, args=(world, transport["backend"], _free_port(), out_dir,
-                                expected_flash, profile), nprocs=world, join=True)
+    ctx = mp.spawn(_multi_rank, args=(world, backend, _free_port(), out_dir,
+                                      expected_flash, profile, labels),
+                   nprocs=world, join=False)
+    deadline = time.perf_counter() + SPAWN_DEADLINE_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                done = [os.path.exists(os.path.join(out_dir, f"rank{r}.json"))
+                        for r in range(world)]
+                raise AssertionError(f"{labels} at world {world}: ranks still running "
+                                     f"after {SPAWN_DEADLINE_S} s (results written: "
+                                     f"{done})")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
     ranks = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    for line in ranks[0].pop("tiny_checks"):
-        print(json.dumps({**line, "phase": "patch_tiny_check", "world": world}), flush=True)
-    for line in ranks[1:]:
-        line.pop("tiny_checks")
-    images = {line["image_sha256"] for line in ranks}
-    if len(images) != 1:
-        raise AssertionError(f"the ranks returned different images: {sorted(images)}")
-    for line in ranks:
-        print(json.dumps(line), flush=True)
-    latent = np.load(os.path.join(out_dir, "latent_rank0.npy"))
+    return ranks
+
+
+def patch_phase(expected_flash, dense_latent, out_dir, profile=False):
+    """Displaced patch (CFG 2 x sp 2, corrected_async_gn, warmup 1: 2
+    synchronous and 2 stale steps), naive patch (CFG 2 x sp 2, alternate)
+    and tensor parallelism (``tp_layout``), 4 steps, one process a rank
+    (``patch_transport``): on every rank the tiny checks (bf16 on the card
+    vs float32 on the CPU at the same world) and the full-width pipeline,
+    whose image must be the same bit for bit on every rank; over NCCL also
+    under CUDA graphs.  Prints the transport, each rank's lines, each
+    rank's graphed-vs-eager comparison and the patch image against the
+    single-card dense one (information only); returns rank 0's last line
+    of each run.  ``profile`` adds each rank's profile of one more call."""
+    import numpy as np
+    import torch
+
+    cards = torch.cuda.device_count()
+    tp_world, tp_n = tp_layout(cards)
+    transport = patch_transport(PATCH_WORLD)
+    spawns = [(PATCH_WORLD, ["patch", "naive_patch"])]
+    if tp_world == PATCH_WORLD:
+        spawns[0][1].append("tensor")
+    else:
+        spawns.append((tp_world, ["tensor"]))
+    print(json.dumps({"phase": "patch_transport", "world": PATCH_WORLD, **transport,
+                      "tensor_parallel": {"world": tp_world, "n": tp_n}}), flush=True)
+    results = {}
+    for world, labels in spawns:
+        ranks = _spawn(world, labels, transport["backend"], os.path.join(out_dir, f"w{world}"),
+                       expected_flash, profile)
+        for label in labels:
+            for line in ranks[0][label]["tiny"]:
+                print(json.dumps({**line, "phase": f"{label}_tiny_check", "world": world}),
+                      flush=True)
+            for column in range(len(ranks[0][label]["lines"])):
+                lines = [r[label]["lines"][column] for r in ranks]
+                images = {line["image_sha256"] for line in lines}
+                if len(images) != 1:
+                    raise AssertionError(f"{label}: the ranks returned different images: "
+                                         f"{sorted(images)}")
+                for line in lines:
+                    print(json.dumps(line), flush=True)
+            for r in ranks:
+                if r[label]["compare"] is not None:
+                    compare = r[label]["compare"]
+                    compare["within_limit"] = compare["latent_rel_l2"] <= GRAPH_REL_L2
+                    print(json.dumps(compare), flush=True)
+                    if not (compare["latent_bit_identical"] or compare["within_limit"]):
+                        raise AssertionError(f"{compare['run']}: graphed latent rel L2 "
+                                             f"{compare['latent_rel_l2']} over {GRAPH_REL_L2}")
+            results[label] = ranks[0][label]["lines"][-1]
+    latent = np.load(os.path.join(out_dir, f"w{PATCH_WORLD}", "latent_patch_rank0.npy"))
     info = {"phase": "patch_vs_dense", "same_image_on_all_ranks": True}
     if dense_latent is not None:
         info["latent_rel_l2_vs_single_card_dense"] = float(
             np.linalg.norm(latent - dense_latent) / np.linalg.norm(dense_latent))
     print(json.dumps(info), flush=True)
-    return ranks[0]
+    return results
 
 
 def _kernel_group(name: str) -> str:
@@ -879,19 +1070,26 @@ def profile_call(fn, table_path):
     }
 
 
-def profile_phase(out_dir, weight_quant):
-    """The main path once warm, then once under torch.profiler
-    (``profile_call``)."""
-    quant = {}
-    if weight_quant != "none":
-        quant = {"weight_quant": weight_quant, "quant_compute": "pallas"}
-    pipe, _ = build_sdxl_pipeline(build_sdxl_trees(), **quant)
-    pipe(PROMPT, num_inference_steps=4, seed=0, output_type="np")
-    result = profile_call(
-        lambda: pipe(PROMPT, num_inference_steps=4, seed=0, output_type="np"),
-        os.path.join(out_dir, f"profile_sdxl_{weight_quant}.txt"))
-    print(json.dumps({"phase": "profile", "weight_quant": weight_quant, **result}),
-          flush=True)
+def profile_phase(out_dir, weight_quants):
+    """For each of ``weight_quants``: the main path once warm, eagerly and
+    under CUDA graphs, each then once under torch.profiler
+    (``profile_call``), printed side by side."""
+    trees = build_sdxl_trees()
+    call = lambda pipe: pipe(PROMPT, num_inference_steps=4, seed=0,  # noqa: E731
+                             output_type="np")
+    for weight_quant in weight_quants:
+        quant = {}
+        if weight_quant != "none":
+            quant = {"weight_quant": weight_quant, "quant_compute": "pallas"}
+        pipe, _ = build_sdxl_pipeline(trees, **quant)
+        line = {"phase": "profile", "weight_quant": weight_quant}
+        for kind in ("eager", "graphed"):
+            pipe.set_stepwise(kind == "eager")
+            call(pipe)
+            line[kind] = profile_call(lambda: call(pipe), os.path.join(
+                out_dir, f"profile_sdxl_{weight_quant}_{kind}.txt"))
+        print(json.dumps(line), flush=True)
+        del pipe
 
 
 def kernel_entry(rows, launches, prefix="", **fields):
@@ -957,17 +1155,20 @@ def main(argv) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="only profile the warm main path (torch.profiler) "
-                             "and print the device-time breakdown; with "
-                             "--patch_only, profile each rank's patch call")
-    parser.add_argument("--weight_quant", default="none", choices=("none", "int8", "fp8"),
-                        help="with --profile: the path to profile (quantized "
-                             "runs use quant_compute='pallas')")
+                        help="only profile the warm main path (torch.profiler), "
+                             "eagerly and under CUDA graphs, and print the "
+                             "device-time breakdowns; with --patch_only, profile "
+                             "each rank's calls")
+    parser.add_argument("--weight_quant", default=None, choices=("none", "int8", "fp8"),
+                        help="with --profile: only this path (default: dense, "
+                             "int8 and fp8; quantized runs use "
+                             "quant_compute='pallas')")
     parser.add_argument("--out_dir", default="build/profile",
                         help="where --profile writes its full kernel tables and "
-                             "the patch phase its ranks' results")
+                             "the multi-rank phase its ranks' results")
     parser.add_argument("--patch_only", action="store_true",
-                        help="only the patch path: its flash shapes and the patch phase")
+                        help="only the multi-rank runs (patch, naive patch, tensor "
+                             "parallelism): their flash shapes and the multi-rank phase")
     parser.add_argument("--quant_device_times", action="store_true",
                         help="only time the quantized-matmul kernel's contract form "
                              "on the card at every path shape (device time)")
@@ -1004,7 +1205,8 @@ def main(argv) -> int:
 
     set_precision_flags()
     if args.profile and not args.patch_only:
-        profile_phase(args.out_dir, args.weight_quant)
+        quants = [args.weight_quant] if args.weight_quant else ["none", "int8", "fp8"]
+        profile_phase(args.out_dir, quants)
         return 0
     shapes = attention_shapes(ucfg, vcfg, 1024, 1024, unet_evals=steps)
     expected_flash = steps * unet.attention_calls_per_forward(ucfg) + 1
@@ -1015,33 +1217,48 @@ def main(argv) -> int:
     assert sum(s[-1] for s in qshapes) == expected_quant, (qshapes, expected_quant)
     # one prompt under the CFG split: one row a rank, n = world / 2 patches
     pshapes = patch_attention_shapes(shapes, n=PATCH_WORLD // 2, batch=1)
+    nshapes = naive_attention_shapes(shapes, n=PATCH_WORLD // 2, batch=1)
+    tp_n = tp_layout(torch.cuda.device_count())[1]
+    tshapes = tp_attention_shapes(shapes, n=tp_n, batch=2)
+    multi = [s for s in pshapes + nshapes + tshapes if not s[0].startswith(("unet", "vae"))]
+
+    def multi_entries(rows, multi_runs):
+        vae = [r for r in rows if r["shape"] == "vae_mid"]
+        works = {"patch": "one rank of the patch path at CFG 2 x sp 2",
+                 "naive_patch": "one rank of naive patch parallelism at CFG 2 x sp 2 "
+                                "(alternate)",
+                 "tensor": f"one rank of tensor parallelism at tp {tp_n}"}
+        prefixes = {"patch": "patch_", "naive_patch": "naive_", "tensor": f"tp{tp_n}_"}
+        return {label: kernel_entry([r for r in rows if r["shape"].startswith(
+                    prefixes[label])] + vae, line["flash_sdpa_launches"],
+                    work=works[label] + ", 4-step 1024x1024 call")
+                for label, line in multi_runs.items()}
 
     seconds, t0 = {}, time.perf_counter()
     if args.patch_only:
-        prows = kernel_phase(pshapes)
-        seconds["flash_kernel_patch_shapes"], t0 = time.perf_counter() - t0, time.perf_counter()
-        patch = patch_phase(expected_flash, None, os.path.join(args.out_dir, "patch"),
-                            profile=args.profile)
-        seconds["patch"] = time.perf_counter() - t0
+        rows = kernel_phase(multi + [s for s in shapes if s[0] == "vae_mid"])
+        seconds["flash_kernel_multi_rank_shapes"], t0 = (time.perf_counter() - t0,
+                                                         time.perf_counter())
+        multi_runs = patch_phase(expected_flash, None, os.path.join(args.out_dir, "multi"),
+                                 profile=args.profile)
+        seconds["multi_rank"] = time.perf_counter() - t0
         print(json.dumps({"phase": "seconds", **seconds}), flush=True)
-        kernels = [kernel_entry(prows, patch["flash_sdpa_launches"], **FLASH_ENTRY,
-                                work="all attention of one rank's 4-step 1024x1024 "
-                                     "SDXL call at CFG 2 x sp 2")]
+        subs = multi_entries(rows, multi_runs)
+        kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs}]
         return finish(kernels)
-    rows = kernel_phase(shapes + [s for s in pshapes if s[0].startswith("patch_")])
-    prows = [r for r in rows if r["shape"].startswith("patch_") or r["shape"] == "vae_mid"]
-    rows = [r for r in rows if not r["shape"].startswith("patch_")]
+    rows = kernel_phase(shapes + multi)
+    mrows = rows
+    rows = [r for r in rows if r["shape"].startswith(("unet", "vae"))]
     seconds["flash_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     qrows = quant_kernel_phase(qshapes)
     seconds["quant_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     for weight_quant in ("none", "int8", "fp8"):
         print(json.dumps(tiny_check(weight_quant)), flush=True)
     seconds["tiny_checks"], t0 = time.perf_counter() - t0, time.perf_counter()
-    results, dense_latent = pipeline_phase(expected_flash, expected_quant)
-    runs = {r["run"]: r for r in results}
-    seconds["pipelines"], t0 = time.perf_counter() - t0, time.perf_counter()
-    patch = patch_phase(expected_flash, dense_latent, os.path.join(args.out_dir, "patch"))
-    seconds["patch"] = time.perf_counter() - t0
+    runs, dense_latent = pipeline_phase(expected_flash, expected_quant)
+    seconds["pipelines_eager_and_graphed"], t0 = time.perf_counter() - t0, time.perf_counter()
+    multi_runs = patch_phase(expected_flash, dense_latent, os.path.join(args.out_dir, "multi"))
+    seconds["multi_rank"] = time.perf_counter() - t0
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
     by_mode = {mode: [r for r in qrows if r["mode"] == mode] for mode in ("int8", "fp8")}
@@ -1050,21 +1267,22 @@ def main(argv) -> int:
     kernels = [
         kernel_entry(rows, runs["dense"]["flash_sdpa_launches"], **FLASH_ENTRY,
                      work="all attention of one 4-step 1024x1024 SDXL pipeline call "
-                          "(per-shape time x launches per call); 'patch' holds the "
-                          "same for one rank of the patch path at CFG 2 x sp 2",
-                     patch=kernel_entry(prows, patch["flash_sdpa_launches"])),
+                          "under CUDA graphs (per-shape time x launches per call); "
+                          "'patch', 'naive_patch' and 'tensor' hold the same for one "
+                          "rank of each multi-rank run (eager: its ranks share the card)",
+                     **multi_entries(mrows, multi_runs)),
         kernel_entry(by_mode["int8"], runs["int8"]["quant_matmul_launches"], "fused_",
                      name="quant_matmul", route="cuda",
                      source="distrifuser_tpu_torch/csrc/quant_matmul.cu",
                      replaces="distrifuser_tpu/ops/quant_matmul.py:54",
                      work="all quantized linears of one 4-step 1024x1024 SDXL pipeline "
-                          "call in the fused form the path runs (sx, bf16 cast, bias "
-                          "in the epilogue) " + per_call + "; library: torch._int_mm "
-                          "(the int8 product alone) and, for fp8, torch._scaled_mm "
-                          "with row-wise scales and bf16 output; 'contract' holds the "
-                          "fp32 contract form's per-shape times weighted by the same "
-                          "launches per call, a form the path does not run (library: "
-                          "the product alone)",
+                          "call under CUDA graphs in the fused form the path runs (sx, "
+                          "bf16 cast, bias in the epilogue) " + per_call + "; library: "
+                          "torch._int_mm (the int8 product alone) and, for fp8, "
+                          "torch._scaled_mm with row-wise scales and bf16 output; "
+                          "'contract' holds the fp32 contract form's per-shape times "
+                          "weighted by the same launches per call, a form the path does "
+                          "not run (library: the product alone)",
                      fp8=kernel_entry(by_mode["fp8"], runs["fp8"]["quant_matmul_launches"],
                                       "fused_"),
                      contract={mode: kernel_entry(by_mode[mode], None) for mode in by_mode}),
@@ -1073,9 +1291,9 @@ def main(argv) -> int:
                      source="distrifuser_tpu_torch/csrc/quantize_rows.cu",
                      replaces="distrifuser_tpu/parallel/compress.py:111",
                      work="per-token quantization of every quantized linear's "
-                          "activation in one call " + per_call + "; no Pallas kernel: "
-                          "the JAX package leaves quantize to XLA; plain version "
-                          "compress.quantize; no single library call",
+                          "activation in one call under CUDA graphs " + per_call + "; no "
+                          "Pallas kernel: the JAX package leaves quantize to XLA; plain "
+                          "version compress.quantize; no single library call",
                      fp8=kernel_entry(by_mode["fp8"], runs["fp8"]["quantize_rows_launches"],
                                       "quantize_")),
     ]

@@ -9,6 +9,11 @@ an edited source or header is rebuilt.  The library is loaded with
 ``ctypes`` and handed to the module's ``bind`` function, which sets each
 entry point's argument and result types.  Nothing is compiled when a
 module is imported.
+
+Every kernel wrapper counts its launches in its own ``launches``
+attribute and is listed in ``LAUNCH_COUNTERS`` (``counts_launches``), the
+one list that whoever reads or replays the counts (parallel/graphs.py)
+walks.
 """
 
 from __future__ import annotations
@@ -27,6 +32,16 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+LAUNCH_COUNTERS: list = []
+
+
+def counts_launches(wrapper):
+    """Give a kernel wrapper a ``launches`` count, 0, which it adds one to
+    where it launches its kernel, and list it in ``LAUNCH_COUNTERS``."""
+    wrapper.launches = 0
+    LAUNCH_COUNTERS.append(wrapper)
+    return wrapper
 
 
 def _nvcc() -> str:

@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from ._build import KernelLibrary
+from ._build import KernelLibrary, counts_launches
 
 _NEG_INF = -1e30  # masked-logit convention of the TPU kernel
 # head dims the kernel has an instance for: every d a configuration of the
@@ -87,6 +87,7 @@ def flash_sdpa_reference(q, k, v, *, heads: int, kv_len: int = None):
     return out.transpose(1, 2).reshape(b, lq, c)
 
 
+@counts_launches
 def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None):
     """SDPA over [B, L, C] with ``heads`` heads: the kernel on the card,
     the plain version on the CPU.  Counts each kernel launch in
@@ -131,6 +132,3 @@ def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None):
         raise RuntimeError(f"flash_sdpa kernel launch failed: cudaError {rc}")
     flash_sdpa.launches += 1
     return out
-
-
-flash_sdpa.launches = 0

@@ -44,7 +44,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ._build import KernelLibrary, current_stream
+from ._build import KernelLibrary, counts_launches, current_stream
 
 _PAYLOAD_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -125,6 +125,7 @@ def _padded(t, k):
     return F.pad(t.contiguous().view(torch.uint8), (0, kp - k)).view(t.dtype)
 
 
+@counts_launches
 def quant_matmul(xq, wq, sw, *, sx=None, out_dtype=torch.float32, bias=None):
     """(xq @ wq) * sw with 8-bit MACs, or with ``sx`` the fused form (module
     docstring): the kernel on the card, the plain version on the CPU.
@@ -178,6 +179,3 @@ def quant_matmul(xq, wq, sw, *, sx=None, out_dtype=torch.float32, bias=None):
         raise RuntimeError(f"quant_matmul kernel launch failed: cudaError {rc}")
     quant_matmul.launches += 1
     return out
-
-
-quant_matmul.launches = 0

@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from ..parallel.compress import quantize
-from ._build import KernelLibrary, current_stream
+from ._build import KernelLibrary, counts_launches, current_stream
 
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PAYLOADS = {"int8": (0, torch.int8), "fp8": (1, torch.float8_e4m3fn)}
@@ -47,6 +47,7 @@ def build() -> str:
     return _KERNEL.build()
 
 
+@counts_launches
 def quantize_rows(x, mode: str):
     """Per-row symmetric quantization of x [M, K] to ``mode`` ("int8" or
     "fp8"): the kernel on the card, ``compress.quantize`` on the CPU.
@@ -75,6 +76,3 @@ def quantize_rows(x, mode: str):
         raise RuntimeError(f"quantize_rows kernel launch failed: cudaError {rc}")
     quantize_rows.launches += 1
     return xq, sx
-
-
-quantize_rows.launches = 0

@@ -1,11 +1,11 @@
 """Collectives of the patch path over torch.distributed.
 
 Counterpart of distrifuser_tpu/parallel/collectives.py (``all_gather``,
-``psum_mean``, ``neighbor_perms``, ``exchange_boundary_rows``,
-``halo_exchange``, ``gather_rows``).  Each function takes the process
-group (``None`` for the default one) and, where the patch path overlaps it
-with compute, an ``async_op`` form that returns a ``Pending`` handle whose
-``wait()`` gives the result.
+``psum_mean``, ``psum``, ``neighbor_perms``, ``exchange_boundary_rows``,
+``halo_exchange``, ``gather_rows``, ``gather_cols``).  Each function takes
+the process group (``None`` for the default one) and, where the patch path
+overlaps it with compute, an ``async_op`` form that returns a ``Pending``
+handle whose ``wait()`` gives the result.
 
 The conv halo exchange is a neighbour exchange (``batch_isend_irecv``)
 with zeros at the image border, as the JAX package's non-wrapping
@@ -16,8 +16,11 @@ Ranks that share a card run a gloo group over CUDA tensors: the payload is
 then staged through pinned host memory (copy down, exchange, copy up),
 chosen by the group's backend, not after a failure.  The copy down must
 finish before gloo reads the host buffer, so staging synchronises the
-host with the card's stream at every issue: such a world overlaps nothing.
-Under NCCL ``wait()`` makes the current stream wait for the collective.
+host with the card's stream at every issue: such a world overlaps nothing,
+and no CUDA graph can hold it (``stages_through_host``).  Under NCCL
+``wait()`` makes the current stream wait for the collective, and every
+collective here may be captured in a CUDA graph: on a card the all-gather
+writes one flat output tensor, with no per-rank list to copy out of.
 """
 
 from __future__ import annotations
@@ -42,9 +45,10 @@ class Pending:
         return self._finish()
 
 
-def _staged(t: torch.Tensor, group) -> bool:
-    """Does ``t`` go through the host for this group (gloo on a CUDA tensor)?"""
-    return t.is_cuda and dist.get_backend(group) == "gloo"
+def stages_through_host(device: torch.device, group=None) -> bool:
+    """Do CUDA payloads on ``device`` go through the host in ``group`` (gloo
+    on a card: ranks that share one)?"""
+    return device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
 def _down(t: torch.Tensor) -> torch.Tensor:
@@ -59,11 +63,15 @@ def all_gather(x: torch.Tensor, group=None, *, async_op: bool = False):
     """Gather every rank's ``x`` into a new leading dim ``[n, *x.shape]``,
     in group-rank order."""
     n = dist.get_world_size(group)
-    staged = _staged(x, group)
+    staged = stages_through_host(x.device, group)
     src = _down(x) if staged else x.contiguous()
     out = torch.empty((n, *x.shape), dtype=x.dtype, device=src.device,
                       pin_memory=staged)
-    work = dist.all_gather(list(out.unbind(0)), src, group=group, async_op=True)
+    if src.is_cuda:  # NCCL: one flat output, which a CUDA graph can capture
+        work = dist.all_gather_into_tensor(out.view(-1), src.reshape(-1), group=group,
+                                           async_op=True)
+    else:  # gloo (the CPU, or staged through the host): its list form
+        work = dist.all_gather(list(out.unbind(0)), src, group=group, async_op=True)
 
     def finish():
         return out.to(x.device, non_blocking=True) if staged else out
@@ -75,12 +83,21 @@ def all_gather(x: torch.Tensor, group=None, *, async_op: bool = False):
 def psum_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     """Mean over the group: all-reduce sum, then divide by the group size
     (the reference's all_reduce(SUM) / n, pp/groupnorm.py:79-80)."""
-    staged = _staged(x, group)
+    staged = stages_through_host(x.device, group)
     buf = _down(x) if staged else x.clone()
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     if staged:
         buf = buf.to(x.device)
     return buf / dist.get_world_size(group)
+
+
+def psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum over the group, a new tensor (the reference's all_reduce(SUM),
+    tp/attention.py:159): the reduce of every tensor-parallel partial."""
+    staged = stages_through_host(x.device, group)
+    buf = _down(x) if staged else x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(x.device) if staged else buf
 
 
 def neighbor_peers(group=None):
@@ -99,7 +116,7 @@ def exchange_boundary_rows(bottom: torch.Tensor, top: torch.Tensor, group=None,
     """Send ``bottom`` to the next rank and ``top`` to the previous one;
     returns ``(from_prev, from_next)``: the previous rank's bottom and the
     next rank's top, zeros at the image border."""
-    staged = _staged(bottom, group)
+    staged = stages_through_host(bottom.device, group)
     prev, nxt = neighbor_peers(group)
     dev = bottom.device
     if staged:
@@ -147,3 +164,10 @@ def gather_rows(patch: torch.Tensor, group=None) -> torch.Tensor:
     [B, n*h, W, C] (the per-step output gather)."""
     g = all_gather(patch, group)
     return torch.cat(g.unbind(0), dim=1)
+
+
+def gather_cols(patch: torch.Tensor, group=None) -> torch.Tensor:
+    """Column patches [B, H, w, C] of the group, in patch order, as the
+    whole [B, H, n*w, C] (naive patch parallelism's ``col`` scheme)."""
+    g = all_gather(patch, group)
+    return torch.cat(g.unbind(0), dim=2)

@@ -25,6 +25,14 @@ linear through the CUDA kernel of ops/quant_matmul.py), the text encoders
 and the VAE under ``weight_quant_aux`` (``_quantize_aux``), which always
 densify at the consumer.  ``set_weight_quant``, ``set_quant_compute`` and
 ``weight_report`` are the counterparts of the JAX pipeline's hooks.
+
+Under ``DistriConfig.use_cuda_graph`` the runner captures one CUDA graph
+per UNet phase (parallel/graphs.py): ``prepare(num_inference_steps)``
+captures them ahead of the first call, else the first call does; a call
+at another batch or image size captures anew.  ``set_stepwise(True)``
+runs the eager loop instead (the reference's ``--no_cuda_graph``).  Over
+NCCL, drop the pipeline before ``destroy_process_group``: its graphs hold
+NCCL work until they are freed.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from .models import clip as clip_mod
 from .models import vae as vae_mod
 from .models.weights import params_nbytes, quantize_params, set_quant_compute
 from .parallel.compress import validate_quant_compute, validate_weight_mode
-from .parallel.runner import make_runner
+from .parallel.runner import check_graph_transport, make_runner
 from .schedulers import BaseScheduler, get_scheduler
 from .utils.config import DistriConfig
 
@@ -199,6 +207,35 @@ class DistriSDXLPipeline:
             return
         self.runner.params = set_quant_compute(self.runner.params, policy)
         cfg.quant_compute = policy
+
+    def set_stepwise(self, enabled: bool = True) -> None:
+        """Run the UNet eagerly, step by step (``enabled``), or replay its
+        captured graphs (JAX ``set_stepwise``: the switch is
+        ``use_cuda_graph``).  Graphs already captured are kept."""
+        cfg = self.distri_config
+        previous, cfg.use_cuda_graph = cfg.use_cuda_graph, not enabled
+        try:
+            check_graph_transport(cfg)
+        except ValueError:
+            cfg.use_cuda_graph = previous
+            raise
+
+    @torch.inference_mode()
+    def prepare(self, num_inference_steps: int = 50) -> None:
+        """Capture the UNet's graphs for a call of ``num_inference_steps``
+        steps at ``batch_size`` images ahead of the first call (JAX
+        ``prepare``, the reference's record-and-capture passes); the inputs
+        it captures with are placeholders.  Nothing happens without
+        ``use_cuda_graph``."""
+        cfg = self.distri_config
+        if not cfg.use_compiled_step:
+            return
+        bs = cfg.batch_size
+        embeds, added = self._encode([""] * bs, [""] * bs)
+        latents = torch.zeros(bs, cfg.latent_height, cfg.latent_width,
+                              self.unet_config.in_channels, device=cfg.device)
+        self.runner.prepare(latents, embeds, num_inference_steps=num_inference_steps,
+                            added_cond=added)
 
     def weight_report(self) -> dict:
         """Device bytes of each component's weights (a quantized kernel

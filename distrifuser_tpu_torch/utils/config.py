@@ -17,7 +17,11 @@ original DistriFusion:
   Rank r has ``batch_idx = r // n`` and ``split_idx = r % n``.
 
 Knobs of the JAX package that the port does not run yet are refused with
-the ROADMAP item that will bring them, never ignored.
+the ROADMAP item that will bring them, never ignored.  One knob is carried
+with no effect, as in the JAX package: ``comm_checkpoint``, the
+reference's NCCL flush interval, which a compiled step (a CUDA graph, or
+the JAX package's XLA program) has no queue for; it is still checked to be
+a positive int.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ SYNC_MODES = (
     "no_sync",
 )
 PARALLELISMS = ("patch", "tensor", "naive_patch", "pipefusion")
+SPLIT_SCHEMES = ("row", "col", "alternate")
 ATTN_IMPLS = ("gather", "ring", "ulysses", "usp")
 COMM_COMPRESS = ("none", "int8", "fp8", "int8_residual")
 
@@ -89,6 +94,21 @@ class DistriConfig:
     says how the denoiser's quantized linears execute (ops/gemm_routing.py):
     "off" densifies them, "auto" picks per shape, "dot" forces the library
     8-bit GEMM and "pallas" the hand-written kernel of ops/quant_matmul.py.
+
+    ``use_cuda_graph`` (alias ``use_compiled_step``, the JAX package's name
+    for its compiled step) runs each UNet evaluation from static buffers:
+    on a CUDA device every phase is captured once into a CUDA graph and
+    replayed (parallel/graphs.py), and a failed capture raises; on the CPU
+    the same static-buffer step runs with no capture.  Ranks that share a
+    card (a gloo group staging CUDA payloads through the host) cannot be
+    captured and must pass False.  ``parallelism`` "patch" is displaced
+    patch parallelism, "naive_patch" slices the latent by ``split_scheme``
+    ("row", "col", or "alternate" between them by step parity) and runs
+    the dense UNet on the slice, "tensor" shards heads and channels
+    (models/unet_tp.py).  ``verbose`` prints the per-layer stale-buffer
+    sizes once the first generation has seeded them
+    (``DenoiseRunner.comm_volume_report``); ``comm_checkpoint`` is carried
+    with no effect (module docstring).
     """
 
     height: int = 1024
@@ -96,8 +116,12 @@ class DistriConfig:
     do_classifier_free_guidance: bool = True
     split_batch: bool = True
     warmup_steps: int = 4
+    comm_checkpoint: int = 60
     mode: str = "corrected_async_gn"
+    use_cuda_graph: bool = True
     parallelism: str = "patch"
+    split_scheme: str = "row"
+    verbose: bool = False
     attn_impl: str = "gather"
     dp_degree: int = 1
     comm_batch: bool = False
@@ -123,12 +147,6 @@ class DistriConfig:
         world = self.world_size
         if not is_power_of_2(world):
             raise ValueError(f"world size must be a power of 2, got {world}")
-        if world > 1 and self.parallelism != "patch":
-            raise NotImplementedError(
-                f"parallelism={self.parallelism!r} across {world} ranks: the port "
-                "runs displaced patch parallelism only; naive patch and tensor "
-                "parallelism are ROADMAP queue 1 item 8"
-            )
         # the rank's card is current before any group talks NCCL
         self.device = resolve_device(self.device, self.rank)
         if self.do_classifier_free_guidance and self.split_batch:
@@ -148,6 +166,12 @@ class DistriConfig:
             raise ValueError(
                 f"parallelism must be one of {PARALLELISMS}, got {self.parallelism!r}"
             )
+        if self.split_scheme not in SPLIT_SCHEMES:
+            raise ValueError(
+                f"split_scheme must be one of {SPLIT_SCHEMES}, got {self.split_scheme!r}")
+        if not isinstance(self.comm_checkpoint, int) or self.comm_checkpoint < 1:
+            raise ValueError(
+                f"comm_checkpoint must be a positive int, got {self.comm_checkpoint!r}")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
         if self.comm_compress not in COMM_COMPRESS:
@@ -208,9 +232,17 @@ class DistriConfig:
                 and self.world_size >= 2)
 
     @property
+    def use_compiled_step(self) -> bool:
+        """The JAX package's name for ``use_cuda_graph``: run each UNet
+        evaluation as one captured program (JAX utils/config.py:424-426)."""
+        return self.use_cuda_graph
+
+    @property
     def is_sp(self) -> bool:
-        """Is the image split into row patches across ranks?"""
-        return self.parallelism == "patch" and self.n_device_per_batch > 1
+        """Is the image split into patches across ranks (displaced or
+        naive patch parallelism)?"""
+        return (self.parallelism in ("patch", "naive_patch")
+                and self.n_device_per_batch > 1)
 
     def batch_idx(self, rank: Optional[int] = None) -> int:
         """CFG branch of ``rank`` (default this rank): ranks [0, n) hold

@@ -79,10 +79,34 @@ def test_unported_knobs_refused(field, value, item):
 
 
 @pytest.mark.parametrize("parallelism", ["tensor", "naive_patch"])
-def test_other_parallelisms_refused_across_ranks(monkeypatch, parallelism):
-    monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (2, 0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        DistriConfig(device="cpu", parallelism=parallelism)
+def test_other_parallelisms_dispatch_across_ranks(monkeypatch, parallelism):
+    """At world 2 without the CFG split both parallelisms build, and the
+    runner picks their dispatch: naive patch the dense UNet on this rank's
+    slice (``is_sp``, no patch state), tensor parallelism ``TPDispatch``
+    over this rank's shard of the heads."""
+    from distrifuser_tpu_torch.models.unet import DenseDispatch
+    from distrifuser_tpu_torch.models.unet_tp import TPDispatch
+    from distrifuser_tpu_torch.parallel.runner import make_runner
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+
+    monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (2, 1))
+    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r: ("batch", None))
+    cfg = DistriConfig(device="cpu", height=128, width=128, split_batch=False,
+                       parallelism=parallelism)
+    assert cfg.n_device_per_batch == 2 and cfg.split_idx() == 1
+    ucfg = unet.tiny_config(cross_attention_dim=32, sdxl=True)
+    params = unet.init_unet_params(torch.Generator().manual_seed(0), ucfg)
+    runner = make_runner(cfg, ucfg, params, get_scheduler("ddim"))
+    dispatch = runner.dispatch({})
+    if parallelism == "naive_patch":
+        assert cfg.is_sp and isinstance(dispatch, DenseDispatch)
+        assert runner.params is params and runner._phases(3) == ["row"] * 3
+    else:
+        assert not cfg.is_sp and isinstance(dispatch, TPDispatch)
+        assert (dispatch.n, dispatch.idx, dispatch.group) == (2, 1, "batch")
+        q = runner.params["down_blocks"][1]["attentions"][0]["transformer_blocks"][0]
+        assert q["attn1"]["to_q"]["kernel"].shape == (64, 32)  # 2 of 4 heads
+        assert runner._phases(3) == ["sync"] * 3
 
 
 def test_rank_layout_at_world_4(monkeypatch):

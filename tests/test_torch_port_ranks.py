@@ -30,6 +30,8 @@ def _entry(rank, world, init, worker, args):
                             world_size=world)
     try:
         worker(rank, world, *args)
+        # no rank tears its connections down while a peer still uses them
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 
@@ -93,11 +95,12 @@ def ops_worker(rank, world, in_path, out_path):
 
 
 def runner_worker(rank, world, in_path, out_path):
-    """The tiny SDXL runner in each case of ``cases`` (config fields):
-    4 DDIM steps from the same inputs.  Saves {case: (latent, comm volume,
-    phase counts)}."""
+    """The tiny SDXL runner (``make_runner``: patch, naive patch or tensor
+    parallelism) in each case of ``cases`` (config fields): 4 DDIM steps
+    from the same inputs.  Saves {case: (latent, comm volume, phase
+    counts)}."""
     from distrifuser_tpu_torch.models import unet
-    from distrifuser_tpu_torch.parallel.runner import DenoiseRunner
+    from distrifuser_tpu_torch.parallel.runner import make_runner
     from distrifuser_tpu_torch.schedulers import get_scheduler
     from distrifuser_tpu_torch.utils.config import DistriConfig
 
@@ -107,7 +110,7 @@ def runner_worker(rank, world, in_path, out_path):
     for case in inp["cases"]:
         cfg = DistriConfig(device="cpu", height=128, width=128, warmup_steps=1,
                            **case)
-        runner = DenoiseRunner(cfg, ucfg, inp["params"], get_scheduler("ddim"))
+        runner = make_runner(cfg, ucfg, inp["params"], get_scheduler("ddim"))
         x = runner.generate(inp["latents"], inp["enc"], added_cond=inp["added"],
                             num_inference_steps=4, guidance_scale=5.0)
         out[tuple(sorted(case.items()))] = (x, runner.comm_volume_report(),

@@ -41,7 +41,7 @@ def test_port_has_sources():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "flash_attention.py", "quant_matmul.py", "quantize.py",
             "unet.py", "pipelines.py", "collectives.py", "context.py",
-            "test_torch_port_ranks.py"} <= names
+            "graphs.py", "unet_tp.py", "test_torch_port_ranks.py"} <= names
     for source in ("flash_attention.cu", "quant_matmul.cu", "quantize_rows.cu", "sm90.cuh"):
         assert (ROOT / "distrifuser_tpu_torch" / "csrc" / source).exists()
 
