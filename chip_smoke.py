@@ -10,8 +10,10 @@ Phases (any failure raises, and the script exits non-zero):
 1. print the card's name and power limit (nvidia-smi) and build every
    kernel of the path from this checkout's sources (one nvcc per source,
    sm_90a, started together), with each one's ptxas report;
-2. flash kernel phase: at every shape SDXL 1024x1024 gives the
-   flash-attention kernel (derived from the UNet and VAE configs), hold the
+2. flash kernel phase: at every shape SDXL 1024x1024, SD 1.5 512x512
+   (head dims 40, 80, 160; rows "...@sd15") and SD 2.1 768x768 (rows
+   "...@sd21") give the flash-attention
+   kernel (derived from the UNet and VAE configs), hold the
    kernel against its plain PyTorch version on seeded bf16 inputs (max |d|
    <= 2e-2, mean |d| <= 2e-3: a few bf16 roundings of outputs below 1) and
    time the kernel, the plain version and F.scaled_dot_product_attention
@@ -19,7 +21,8 @@ Phases (any failure raises, and the script exits non-zero):
    back-to-back calls, and the kernel and SDPA also by their device time
    under torch.profiler (short kernels are host-bound back to back); each row
    also names the kernel instance it ran (registers per thread as
-   compiled, shared memory bytes, threads, tile sizes) and the host time
+   compiled, spilled bytes, shared memory bytes, threads, tile sizes) and
+   the host time
    of one wrapper call (checks, tensor-map encoding, launch), taken while
    enqueuing 50 calls that the card has not finished; the same at the
    shapes one rank of the patch path gives the kernel (phase 6: L/n local
@@ -50,7 +53,8 @@ Phases (any failure raises, and the script exits non-zero):
    quant_compute="pallas" (the kernel on the card, its plain version on the
    CPU; <= 8e-2 and <= 2.5e-1, 4.4e-2 and 1.3e-1 measured for bf16 vs
    float32 on a CPU: fp8's 3 mantissa bits round bf16 and float32
-   activations differently);
+   activations differently); and a tiny SD 1.5-shaped pipeline (conv
+   projections, head dims 40 and 80, Euler), <= 8e-2;
 5. main path: DistriSDXLPipeline at full SDXL width (UNet, ViT-L + bigG
    text encoders, SDXL VAE; seeded random bf16 weights), one prompt,
    4 DDIM steps at 1024x1024 -> a finite (1024, 1024, 3) image, three
@@ -65,6 +69,14 @@ Phases (any failure raises, and the script exits non-zero):
    just after it: flash 4*140 + 1 in each, quant_matmul and quantize_rows
    0 in the dense call and 4*533 + 70 each in each quantized one (derived
    from the config), graph replays counting the launches they captured;
+5b. the SD family: DistriSDPipeline at SD 1.5's full width (UNet
+   320/640/1280/1280 with 8 heads, ViT-L, SD VAE; seeded random bf16
+   weights), 512x512, 4 DDIM steps, eagerly and under CUDA graphs as
+   above (bit-identical; flash 4*32 + 1 = 129 a call, the eager call's
+   launches by head dim 40/80/160/512 equal to the config's 40/40/48/1),
+   then one eager call each with Euler and DPM++ 2M; SD 2.1 (OpenCLIP
+   ViT-H, 5/10/20/20 heads of 64, v-prediction) at 768x768 under CUDA
+   graphs, one call after ``prepare``;
 6. multi-rank phase, one spawned process a rank: every rank on this one
    card in a gloo group whose CUDA payloads are staged through pinned host
    memory, or one card a rank over NCCL where the machine has four (a line
@@ -74,10 +86,13 @@ Phases (any failure raises, and the script exits non-zero):
    displaced patch path at world 4 (CFG 2 x sp 2, warmup 1: 2 synchronous
    and 2 stale steps; tiny checks full_sync and corrected_async_gn; one
    untimed call first), naive patch parallelism at world 4 (CFG 2 x sp 2,
-   ``split_scheme="alternate"``) and tensor parallelism (``tp_layout``:
-   tp 2 at world 2 on one card, tp 4 on four cards).  On every rank: a
-   finite image, the same bit for bit on all ranks, 4*140 + 1 flash
-   launches, the steps by phase, with the wall time, step times, peak
+   ``split_scheme="alternate"``), tensor parallelism (``tp_layout``:
+   tp 2 at world 2 on one card, tp 4 on four cards) and SD 1.5's
+   displaced patch path at 512x512 (world 4, CFG 2 x sp 2, ``stale_gn``,
+   the reference's SD example mode, warmup 1; tiny check with the SD
+   1.5-shaped tiny pipeline).  On every rank: a finite image, the same
+   bit for bit on all ranks, 4*140 + 1 flash launches (SD 1.5: 129), the
+   steps by phase, with the wall time, step times, peak
    memory and the patch path's stale buffers by layer kind.  With ranks
    sharing the card, ``use_cuda_graph=True`` must be refused and the runs
    are eager; over NCCL each runs eagerly and under CUDA graphs, the
@@ -89,8 +104,8 @@ It prints one JSON line per kernel shape, a card line, the kernels line,
 and last the line {"ok": true, "device": {...}}.
 
 ``--profile`` runs only the warm main path under torch.profiler, eagerly
-and under CUDA graphs, for dense, int8 and fp8 (``--weight_quant`` picks
-one).  ``--patch_only`` runs only the flash kernel at the multi-rank
+and under CUDA graphs, for SDXL dense, int8 and fp8 (``--weight_quant``
+picks one) and SD 1.5 dense at 512x512.  ``--patch_only`` runs only the flash kernel at the multi-rank
 shapes and the multi-rank phase; with ``--profile`` each rank also
 profiles one more call of each run in each mode.
 ``--quant_device_times`` runs only the device time of the quantized-matmul
@@ -110,6 +125,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -129,17 +145,27 @@ TEXT_LEN = 77
 PROMPT = "a photo of an astronaut riding a horse on mars"
 PATCH_WORLD, PATCH_STEPS, PATCH_WARMUP = 4, 4, 1  # CFG 2 x sp 2: 2 sync, 2 stale
 PATCH_MODES = ("full_sync", "corrected_async_gn")
+# image size of each model family's pipeline runs; SD 1.x and SD 2.x rows of
+# the kernel phase carry the suffix "@sd15" or "@sd21" after their shape name
+SIZES = {"sdxl": 1024, "sd15": 512, "sd21": 768}
+SD15, SD21 = "@sd15", "@sd21"
+SD15_HEAD_DIMS = (40, 80, 160)
 SPAWN_DEADLINE_S = 420  # one spawn of the multi-rank phase, profiles included
 GRAPH_REL_L2 = 1e-3  # graphed vs eager latent over NCCL, where not bit-identical
 # the multi-rank runs: config fields, tiny checks (extra fields each), steps
 # by phase; tensor parallelism without the CFG split (B = 2 on every rank)
+# and the model family (SD 1.5's patch run is the reference's sd_example
+# mode, stale_gn)
 MULTI_RUNS = {
     "patch": ({"warmup_steps": PATCH_WARMUP}, [{"mode": m} for m in PATCH_MODES],
-              {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1}),
+              {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1}, "sdxl"),
     "naive_patch": ({"parallelism": "naive_patch", "split_scheme": "alternate"}, [{}],
-                    {"sync": PATCH_STEPS, "stale": 0}),
+                    {"sync": PATCH_STEPS, "stale": 0}, "sdxl"),
     "tensor": ({"parallelism": "tensor", "split_batch": False}, [{}],
-               {"sync": PATCH_STEPS, "stale": 0}),
+               {"sync": PATCH_STEPS, "stale": 0}, "sdxl"),
+    "sd15_patch": ({"mode": "stale_gn", "warmup_steps": PATCH_WARMUP}, [{}],
+                   {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1},
+                   "sd15"),
 }
 COLLECTIVES = "collectives (nccl)"
 FLASH_ENTRY = {"name": "flash_sdpa", "route": "cuda",
@@ -175,29 +201,35 @@ def time_ms(fn, target_ms=200.0, max_iters=50):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, iters=20, attempts=3):
     """Mean device time per call: the CUDA kernels' own time under
     torch.profiler over ``iters`` calls after one warm-up, without the host
-    gaps that back-to-back timing of a short kernel includes."""
+    gaps that back-to-back timing of a short kernel includes.  A session
+    that recorded no device time is taken again; None if every one of
+    ``attempts`` sessions came back empty (not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total_us / iters / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / iters / 1e3
+    return None
 
 
-def attention_shapes(ucfg, vcfg, height, width, unet_evals):
+def attention_shapes(ucfg, vcfg, height, width, unet_evals, suffix=""):
     """Every (B, Lq, Lk, heads, d) the main path gives the kernel, with its
     launch count for one pipeline call: per UNet level a self- and a
     cross-attention for each transformer block (CFG folds B to 2), and the
-    VAE's single-head mid attention at the latent resolution (B = 1)."""
+    VAE's single-head mid attention at the latent resolution (B = 1).
+    ``suffix`` marks another model family's rows."""
     from distrifuser_tpu_torch.models.unet import transformer_blocks_per_level
 
     blocks = transformer_blocks_per_level(ucfg)
@@ -209,12 +241,21 @@ def attention_shapes(ucfg, vcfg, height, width, unet_evals):
         tokens = (lh >> lvl) * (lw >> lvl)
         heads = ucfg.num_attention_heads[lvl]
         d = ucfg.block_out_channels[lvl] // heads
-        shapes.append((f"unet_self_l{lvl}", 2, tokens, tokens, heads, d, count * unet_evals))
-        shapes.append((f"unet_cross_l{lvl}", 2, tokens, TEXT_LEN, heads, d,
+        shapes.append((f"unet_self_l{lvl}{suffix}", 2, tokens, tokens, heads, d,
+                       count * unet_evals))
+        shapes.append((f"unet_cross_l{lvl}{suffix}", 2, tokens, TEXT_LEN, heads, d,
                        count * unet_evals))
     top = vcfg.block_out_channels[-1]
-    shapes.append(("vae_mid", 1, lh * lw, lh * lw, 1, top, 1))
+    shapes.append((f"vae_mid{suffix}", 1, lh * lw, lh * lw, 1, top, 1))
     return shapes
+
+
+def family(name: str) -> str:
+    """The model family of a kernel-phase row by its shape name."""
+    for fam, suffix in (("sd15", SD15), ("sd21", SD21)):
+        if name.endswith(suffix):
+            return fam
+    return "sdxl"
 
 
 def patch_attention_shapes(shapes, n, batch):
@@ -265,7 +306,7 @@ def tp_layout(cards):
     return (4, 4) if cards >= PATCH_WORLD else (2, 2)
 
 
-def kernel_phase(shapes):
+def kernel_phase(shapes, spills):
     import torch
     import torch.nn.functional as F
 
@@ -335,6 +376,7 @@ def kernel_phase(shapes):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "tflops": flops / (ms * 1e-3) / 1e12, "host_us_per_launch": host_us,
             **fa.variant(d),  # registers per thread, shared memory bytes, tiles
+            "spill_store_bytes": spills.get(d),
             **({} if kv_view is None else {"kv_view_of_gathered": kv_view}),
         }
         print(json.dumps(row), flush=True)
@@ -568,32 +610,53 @@ def quant_device_phase(shapes):
             qt = quantize_weight(w, mode)
             wq, sw = qt.payload, qt.channel_scale()
             ms = device_ms(lambda: qm.quant_matmul(xq, wq, sw), iters=10)
-            per_call[mode] += ms * calls
+            per_call[mode] = (None if ms is None or per_call[mode] is None
+                              else per_call[mode] + ms * calls)
             print(json.dumps({"phase": "quant_device", "shape": name, "mode": mode, "M": m,
                               "K": k, "N": n, "launches_per_call": calls,
                               "device_ms": ms}), flush=True)
     print(json.dumps({"phase": "quant_device", "device_ms_per_call": per_call}), flush=True)
 
 
-def tiny_check(weight_quant="none", steps=3, **fields):
-    """Tiny SDXL pipeline: bf16 on the card (kernels) vs float32 on the CPU
-    (plain versions), same weights and latents; a quantized check
-    quantizes the same dense weights on each side.  ``fields`` go to both
-    configs (the patch phase passes the sync mode and warmup).  Returns the
-    result line; raises over the limit."""
+def tiny_sd15_config():
+    """SD 1.5's block structure (conv projections, no added conditioning)
+    at narrow widths whose head dims are SD 1.5's 40 and 80."""
+    from distrifuser_tpu_torch.models import unet
+
+    return unet.UNetConfig(
+        block_out_channels=(80, 80, 160, 160),
+        down_block_types=("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",),
+        up_block_types=("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3,
+        layers_per_block=1, transformer_layers_per_block=(1, 1, 1, 1),
+        num_attention_heads=(2, 2, 2, 2), cross_attention_dim=32, norm_num_groups=8,
+        use_linear_projection=False, addition_embed_type=None,
+        projection_class_embeddings_input_dim=0)
+
+
+def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", **fields):
+    """Tiny pipeline of ``model`` ("sdxl": the SDXL block structure; "sd15":
+    ``tiny_sd15_config``, its head dims 40 and 80): bf16 on the card
+    (kernels) vs float32 on the CPU (plain versions), same weights and
+    latents; a quantized check quantizes the same dense weights on each
+    side.  ``fields`` go to both configs (the patch phase passes the sync
+    mode and warmup).  Returns the result line; raises over the limit."""
     import numpy as np
     import torch
 
-    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+    from distrifuser_tpu_torch import DistriConfig, DistriSDPipeline, DistriSDXLPipeline
     from distrifuser_tpu_torch.models import clip, unet, vae
     from distrifuser_tpu_torch.models.unet import cast_params
 
     gen = torch.Generator().manual_seed(0)
-    ucfg, vcfg = unet.tiny_config(cross_attention_dim=32, sdxl=True), vae.tiny_vae_config()
-    tcfgs = [clip.tiny_clip_config(hidden=16),
-             clip.CLIPTextConfig(vocab_size=1000, hidden_size=16, num_hidden_layers=2,
-                                 num_attention_heads=4, intermediate_size=32,
-                                 projection_dim=32)]
+    vcfg = vae.tiny_vae_config()
+    if model == "sd15":
+        cls, ucfg, tcfgs = DistriSDPipeline, tiny_sd15_config(), [clip.tiny_clip_config()]
+    else:
+        cls, ucfg = DistriSDXLPipeline, unet.tiny_config(cross_attention_dim=32, sdxl=True)
+        tcfgs = [clip.tiny_clip_config(hidden=16),
+                 clip.CLIPTextConfig(vocab_size=1000, hidden_size=16, num_hidden_layers=2,
+                                     num_attention_heads=4, intermediate_size=32,
+                                     projection_dim=32)]
     trees = (unet.init_unet_params(gen, ucfg), vae.init_vae_params(gen, vcfg),
              [clip.init_clip_params(gen, tc) for tc in tcfgs])
     latents = np.random.RandomState(0).randn(1, 16, 16, 4).astype(np.float32)
@@ -605,7 +668,7 @@ def tiny_check(weight_quant="none", steps=3, **fields):
         u, v = (cast_params(t, dtype, device) for t in trees[:2])
         ts = [cast_params(t, dtype, device) for t in trees[2]]
         cfg = DistriConfig(device=device, height=128, width=128, **quant, **fields)
-        pipe = DistriSDXLPipeline.from_params(cfg, ucfg, u, vcfg, v, tcfgs, ts)
+        pipe = cls.from_params(cfg, ucfg, u, vcfg, v, tcfgs, ts, scheduler=scheduler)
         outs.append(pipe("a lighthouse at dusk", num_inference_steps=steps,
                          latents=latents, output_type="latent").images[0])
     ref, got = outs
@@ -613,52 +676,77 @@ def tiny_check(weight_quant="none", steps=3, **fields):
         raise AssertionError("tiny pipeline on the card gave non-finite latents")
     rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
     limit = TINY_REL_L2[weight_quant]
-    result = {"phase": "tiny_check", "weight_quant": weight_quant, "steps": steps,
-              **fields, "rel_l2": rel, "max_abs": float(np.abs(got - ref).max()),
-              "limit_rel_l2": limit}
+    result = {"phase": "tiny_check", "model": model, "scheduler": scheduler,
+              "weight_quant": weight_quant, "steps": steps, **fields, "rel_l2": rel,
+              "max_abs": float(np.abs(got - ref).max()), "limit_rel_l2": limit}
     if rel > limit:
         raise AssertionError(f"tiny pipeline ({weight_quant}, {fields}) bf16/card vs "
                              f"fp32/cpu rel L2 {rel} over {limit}")
     return result
 
 
-def build_sdxl_trees():
-    """Full-width SDXL configs and seeded random bf16 parameter trees on the
-    first card: (unet config, unet tree, vae config, vae tree, text
-    configs, text trees)."""
+def model_configs(model):
+    """(UNet config, VAE config, text encoder configs) of a model family at
+    its published widths: SDXL-base, SD 1.5 or SD 2.1."""
+    from distrifuser_tpu_torch.models import clip, unet, vae
+
+    if model == "sd15":
+        return unet.sd15_config(), vae.sd_vae_config(), [clip.clip_vit_l_config()]
+    if model == "sd21":
+        return unet.sd21_config(), vae.sd_vae_config(), [clip.open_clip_vith_config()]
+    return (unet.sdxl_config(), vae.sdxl_vae_config(),
+            [clip.clip_vit_l_config(), clip.open_clip_bigg_config()])
+
+
+def build_trees(model="sdxl"):
+    """Full-width configs of ``model`` and seeded random bf16 parameter
+    trees on this rank's card: (unet config, unet tree, vae config, vae
+    tree, text configs, text trees)."""
     import torch
 
     from distrifuser_tpu_torch.models import clip, unet, vae
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    ucfg, vcfg = unet.sdxl_config(), vae.sdxl_vae_config()
-    tcfgs = [clip.clip_vit_l_config(), clip.open_clip_bigg_config()]
+    ucfg, vcfg, tcfgs = model_configs(model)
     dtype = torch.bfloat16
     return (ucfg, unet.init_unet_params(gen, ucfg, dtype), vcfg,
             vae.init_vae_params(gen, vcfg, dtype), tcfgs,
             [clip.init_clip_params(gen, tc, dtype) for tc in tcfgs])
 
 
-def build_sdxl_pipeline(trees, **quant):
-    """DistriSDXLPipeline at 1024x1024 on this rank's card (bf16) from
-    ``trees``, with the ``quant`` config fields (weight quantization at load
-    time, sync mode, warmup); returns (pipeline, seconds to build)."""
+def build_pipeline(trees, model="sdxl", scheduler="ddim", **quant):
+    """The pipeline of ``model`` (DistriSDXLPipeline at 1024x1024,
+    DistriSDPipeline at 512x512 for SD 1.5 and 768x768 for SD 2.1, with
+    v-prediction) on this rank's card (bf16) from ``trees``, with the
+    ``quant`` config fields (weight quantization at load time, sync mode,
+    warmup); returns (pipeline, seconds to build)."""
     import torch
 
-    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+    from distrifuser_tpu_torch import DistriConfig, DistriSDPipeline, DistriSDXLPipeline
+    from distrifuser_tpu_torch.schedulers import get_scheduler
 
     t_init = time.perf_counter()
     ucfg, unet_p, vcfg, vae_p, tcfgs, text_p = trees
-    cfg = DistriConfig(height=1024, width=1024, **quant)  # this rank's card, bf16
-    pipe = DistriSDXLPipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p, tcfgs, text_p)
+    size = SIZES[model]
+    cfg = DistriConfig(height=size, width=size, **quant)  # this rank's card, bf16
+    cls = DistriSDXLPipeline if model == "sdxl" else DistriSDPipeline
+    if model == "sd21":
+        scheduler = get_scheduler(scheduler, prediction_type="v_prediction")
+    pipe = cls.from_params(cfg, ucfg, unet_p, vcfg, vae_p, tcfgs, text_p,
+                           scheduler=scheduler)
     torch.cuda.synchronize()
     return pipe, time.perf_counter() - t_init
 
 
-def pipeline_run(pipe, init_s, label, expected):
-    """One 4-step 1024x1024 call with every launch count set to 0 just
-    before it and read just after it; checks the image and the counts
-    against ``expected`` and returns (result line, final latent)."""
+MODEL_NAMES = {"sdxl": "SDXL-base widths", "sd15": "SD 1.5 widths",
+               "sd21": "SD 2.1 widths (v-prediction)"}
+
+
+def pipeline_run(pipe, init_s, label, expected, model="sdxl"):
+    """One 4-step call at the pipeline's size with every launch count set
+    to 0 just before it and read just after it; checks the image and the
+    counts against ``expected`` and returns (result line, final latent).
+    An eager call also reports the flash launches by head dim."""
     import numpy as np
     import torch
 
@@ -676,6 +764,7 @@ def pipeline_run(pipe, init_s, label, expected):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.flash_sdpa.launches = 0
+    fa.flash_sdpa.launches_by_head_dim.clear()
     qm.quant_matmul.launches = 0
     qz.quantize_rows.launches = 0
     t0 = time.perf_counter()
@@ -685,8 +774,10 @@ def pipeline_run(pipe, init_s, label, expected):
     launches = {"flash_sdpa": fa.flash_sdpa.launches,
                 "quant_matmul": qm.quant_matmul.launches,
                 "quantize_rows": qz.quantize_rows.launches}
+    by_head_dim = dict(sorted(fa.flash_sdpa.launches_by_head_dim.items()))
     img = out.images[0]
-    if img.shape != (1024, 1024, 3) or not np.isfinite(img).all():
+    cfg = pipe.distri_config
+    if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all():
         raise AssertionError(f"{label}: image shape {img.shape}, finite "
                              f"{np.isfinite(img).all()}")
     if launches != expected:
@@ -696,11 +787,12 @@ def pipeline_run(pipe, init_s, label, expected):
     report = pipe.weight_report()
     result = {
         "phase": "pipeline", "run": label,
-        "model": "SDXL-base widths, random bf16 weights",
+        "model": MODEL_NAMES[model] + ", random bf16 weights",
+        "scheduler": type(pipe.scheduler).__name__,
         "weight_quant": report["weight_quant"],
         "weight_quant_aux": report["weight_quant_aux"],
         "quant_compute": report["quant_compute"],
-        "height": 1024, "width": 1024, "steps": 4, "prompts": 1,
+        "height": cfg.height, "width": cfg.width, "steps": 4, "prompts": 1,
         "init_s": init_s, "total_s": total_s,
         "first_step_ms_incl_text_encode": (marks[0] - t0) * 1e3,
         "step_ms": steps, "decode_and_copy_ms": (t0 + total_s - marks[-1]) * 1e3,
@@ -709,6 +801,7 @@ def pipeline_run(pipe, init_s, label, expected):
         "use_cuda_graph": pipe.distri_config.use_cuda_graph,
         "weight_bytes": report["per_component_nbytes"],
         "flash_sdpa_launches": launches["flash_sdpa"],
+        **({} if cfg.use_cuda_graph else {"flash_sdpa_launches_by_head_dim": by_head_dim}),
         "quant_matmul_launches": launches["quant_matmul"],
         "quantize_rows_launches": launches["quantize_rows"],
         "pixel_mean": float(pixels.mean()),
@@ -717,7 +810,7 @@ def pipeline_run(pipe, init_s, label, expected):
     return result, last["x"].float().cpu().numpy()
 
 
-def graphed_runs(pipe, init_s, label, expected, steps=4):
+def graphed_runs(pipe, init_s, label, expected, steps=4, model="sdxl"):
     """The pipeline's warm call eagerly, then under CUDA graphs (captured
     by ``prepare``, then one untimed call), each measured by
     ``pipeline_run``; returns (eager line, graphed line, the graphed vs
@@ -731,7 +824,7 @@ def graphed_runs(pipe, init_s, label, expected, steps=4):
     t0 = time.perf_counter()  # a first call loads kernels and picks algorithms
     pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
     eager_warmup_s = time.perf_counter() - t0
-    eager, eager_x = pipeline_run(pipe, init_s, label, expected)
+    eager, eager_x = pipeline_run(pipe, init_s, label, expected, model)
     eager["warmup_call_s"] = eager_warmup_s
     pipe.set_stepwise(False)
     t0 = time.perf_counter()
@@ -740,7 +833,7 @@ def graphed_runs(pipe, init_s, label, expected, steps=4):
     t0 = time.perf_counter()
     pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
     first_s = time.perf_counter() - t0
-    graphed, graphed_x = pipeline_run(pipe, init_s, label + " graphed", expected)
+    graphed, graphed_x = pipeline_run(pipe, init_s, label + " graphed", expected, model)
     graphed.update({"prepare_capture_s": capture_s, "first_graphed_call_s": first_s,
                     "graphs": sorted(pipe.runner.graphs.graphs)})
     rel = float(np.linalg.norm(graphed_x - eager_x) / np.linalg.norm(eager_x))
@@ -765,14 +858,14 @@ def pipeline_phase(expected_flash, expected_quant):
     call's final latent."""
     import numpy as np
 
-    trees = build_sdxl_trees()
+    trees = build_trees()
     runs = (("dense", {}, 0),
             ("int8", {"weight_quant": "int8", "weight_quant_aux": "int8",
                       "quant_compute": "pallas"}, expected_quant),
             ("fp8", {"weight_quant": "fp8", "quant_compute": "pallas"}, expected_quant))
     results, dense_latent = {}, None
     for label, quant, n_quant in runs:
-        pipe, init_s = build_sdxl_pipeline(trees, **quant)
+        pipe, init_s = build_pipeline(trees, **quant)
         eager, graphed, compare, latent = graphed_runs(
             pipe, init_s, label, {"flash_sdpa": expected_flash, "quant_matmul": n_quant,
                                   "quantize_rows": n_quant})
@@ -789,6 +882,60 @@ def pipeline_phase(expected_flash, expected_quant):
         results[label] = graphed
         del pipe
     return results, dense_latent
+
+
+def expected_flash_launches(model, steps=4):
+    """Flash launches of one ``steps``-step call of ``model``: the UNet's
+    attentions at every step, the VAE's mid attention once."""
+    from distrifuser_tpu_torch.models import unet
+
+    return steps * unet.attention_calls_per_forward(model_configs(model)[0]) + 1
+
+
+def sd_pipeline_phase(by_head_dim):
+    """The SD family's main path: SD 1.5 at 512x512 (DDIM) eagerly and under
+    CUDA graphs, which must agree bit for bit, with the eager call's flash
+    launches by head dim equal to ``by_head_dim``; one eager call each
+    with Euler and DPM++ 2M; SD 2.1 at 768x768 (OpenCLIP ViT-H,
+    v-prediction) under graphs, captured by ``prepare``, one call.  Returns
+    the result lines by run."""
+    expected = {"flash_sdpa": expected_flash_launches("sd15"), "quant_matmul": 0,
+                "quantize_rows": 0}
+    trees = build_trees("sd15")
+    pipe, init_s = build_pipeline(trees, "sd15")
+    eager, graphed, compare, _ = graphed_runs(pipe, init_s, "sd15", expected, model="sd15")
+    for line in (eager, graphed, compare):
+        print(json.dumps(line), flush=True)
+    if not (compare["latent_bit_identical"] and compare["image_bit_identical"]):
+        raise AssertionError(f"sd15: the graphed call differs from the eager one "
+                             f"(latent rel L2 {compare['latent_rel_l2']})")
+    if eager["flash_sdpa_launches_by_head_dim"] != by_head_dim:
+        raise AssertionError(f"sd15: flash launches by head dim "
+                             f"{eager['flash_sdpa_launches_by_head_dim']}, expected "
+                             f"{by_head_dim}")
+    results = {"sd15": graphed, "sd15_eager": eager}
+    del pipe
+    for scheduler in ("euler", "dpm-solver"):
+        pipe, init_s = build_pipeline(trees, "sd15", scheduler=scheduler,
+                                      use_cuda_graph=False)
+        line, _ = pipeline_run(pipe, init_s, f"sd15 {scheduler}", expected, "sd15")
+        print(json.dumps(line), flush=True)
+        results[f"sd15_{scheduler}"] = line
+        del pipe
+    del trees
+    trees = build_trees("sd21")
+    pipe, init_s = build_pipeline(trees, "sd21")
+    t0 = time.perf_counter()
+    pipe.prepare(4)
+    capture_s = time.perf_counter() - t0
+    line, _ = pipeline_run(pipe, init_s, "sd21 graphed",
+                           {**expected, "flash_sdpa": expected_flash_launches("sd21")},
+                           "sd21")
+    line["prepare_capture_s"] = capture_s
+    print(json.dumps(line), flush=True)
+    results["sd21"] = line
+    del pipe, trees
+    return results
 
 
 def patch_transport(world):
@@ -826,7 +973,7 @@ def _refuses_graphs(ucfg):
     return False
 
 
-def _multi_rank(rank, world, backend, port, out_dir, expected_flash, profile, labels):
+def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
     """One rank of the multi-rank phase (a spawned process): for each run of
     ``labels`` (MULTI_RUNS), the tiny card-vs-CPU checks at this world, then
     the full-width pipeline: over NCCL eagerly and under CUDA graphs
@@ -848,33 +995,36 @@ def _multi_rank(rank, world, backend, port, out_dir, expected_flash, profile, la
     try:
         set_precision_flags()
         graphs = backend != "gloo"
-        t0 = time.perf_counter()
-        trees = build_sdxl_trees()
-        trees_s = time.perf_counter() - t0
-        if not graphs and not _refuses_graphs(trees[0]):
+        if not graphs and not _refuses_graphs(model_configs(MULTI_RUNS[labels[0]][3])[0]):
             raise AssertionError(f"rank {rank}: use_cuda_graph=True was not refused "
                                  "with ranks sharing a card over gloo")
-        out = {}
-        expected = {"flash_sdpa": expected_flash, "quant_matmul": 0, "quantize_rows": 0}
+        out, trees = {}, {}
         for label in labels:
-            fields, tinies, want = MULTI_RUNS[label]
-            tiny = [tiny_check(steps=PATCH_STEPS, use_cuda_graph=False, **fields, **t)
-                    for t in tinies]
-            pipe, init_s = build_sdxl_pipeline(trees, use_cuda_graph=False, **fields)
+            fields, tinies, want, model = MULTI_RUNS[label]
+            t0 = time.perf_counter()
+            if model not in trees:
+                trees = {model: build_trees(model)}  # one family's trees at a time
+            trees_s = time.perf_counter() - t0
+            expected = {"flash_sdpa": expected_flash_launches(model, PATCH_STEPS),
+                        "quant_matmul": 0, "quantize_rows": 0}
+            tiny = [tiny_check(steps=PATCH_STEPS, model=model, use_cuda_graph=False,
+                               **fields, **t) for t in tinies]
+            pipe, init_s = build_pipeline(trees[model], model, use_cuda_graph=False,
+                                          **fields)
             init_s += trees_s
             name = f"{label} rank {rank}"
             compare = None
             if graphs:
                 eager, line, compare, latent = graphed_runs(pipe, init_s, name, expected,
-                                                            steps=PATCH_STEPS)
+                                                            steps=PATCH_STEPS, model=model)
                 lines = [eager, line]
             else:
                 warmup_s = None
-                if label == "patch":
+                if label in ("patch", "sd15_patch"):
                     t0 = time.perf_counter()
                     pipe(PROMPT, num_inference_steps=PATCH_STEPS, seed=0, output_type="np")
                     warmup_s = time.perf_counter() - t0
-                line, latent = pipeline_run(pipe, init_s, name, expected)
+                line, latent = pipeline_run(pipe, init_s, name, expected, model)
                 line["warmup_call_s"] = warmup_s
                 lines = [line]
             cfg = pipe.distri_config
@@ -913,7 +1063,7 @@ def _multi_rank(rank, world, backend, port, out_dir, expected_flash, profile, la
         dist.destroy_process_group()
 
 
-def _spawn(world, labels, backend, out_dir, expected_flash, profile):
+def _spawn(world, labels, backend, out_dir, profile):
     """Run ``labels`` on ``world`` spawned ranks; returns each rank's lines.
     Ranks that have not all exited within SPAWN_DEADLINE_S are killed and
     the phase fails."""
@@ -926,7 +1076,7 @@ def _spawn(world, labels, backend, out_dir, expected_flash, profile):
             os.remove(os.path.join(out_dir, name))
     torch.cuda.empty_cache()  # the ranks share the card with this process
     ctx = mp.spawn(_multi_rank, args=(world, backend, _free_port(), out_dir,
-                                      expected_flash, profile, labels),
+                                      profile, labels),
                    nprocs=world, join=False)
     deadline = time.perf_counter() + SPAWN_DEADLINE_S
     try:
@@ -949,17 +1099,19 @@ def _spawn(world, labels, backend, out_dir, expected_flash, profile):
     return ranks
 
 
-def patch_phase(expected_flash, dense_latent, out_dir, profile=False):
+def patch_phase(dense_latent, out_dir, profile=False):
     """Displaced patch (CFG 2 x sp 2, corrected_async_gn, warmup 1: 2
     synchronous and 2 stale steps), naive patch (CFG 2 x sp 2, alternate)
-    and tensor parallelism (``tp_layout``), 4 steps, one process a rank
-    (``patch_transport``): on every rank the tiny checks (bf16 on the card
-    vs float32 on the CPU at the same world) and the full-width pipeline,
-    whose image must be the same bit for bit on every rank; over NCCL also
-    under CUDA graphs.  Prints the transport, each rank's lines, each
-    rank's graphed-vs-eager comparison and the patch image against the
-    single-card dense one (information only); returns rank 0's last line
-    of each run.  ``profile`` adds each rank's profile of one more call."""
+    and tensor parallelism (``tp_layout``) of SDXL, and SD 1.5's displaced
+    patch at 512x512 (CFG 2 x sp 2, stale_gn, warmup 1), 4 steps, one
+    process a rank (``patch_transport``): on every rank the tiny checks
+    (bf16 on the card vs float32 on the CPU at the same world) and the
+    full-width pipeline, whose image must be the same bit for bit on every
+    rank; over NCCL also under CUDA graphs.  Prints the transport, each
+    rank's lines, each rank's graphed-vs-eager comparison and the patch
+    image against the single-card dense one (information only); returns
+    rank 0's lines of each run (eager, then graphed over NCCL).
+    ``profile`` adds each rank's profile of one more call."""
     import numpy as np
     import torch
 
@@ -971,12 +1123,13 @@ def patch_phase(expected_flash, dense_latent, out_dir, profile=False):
         spawns[0][1].append("tensor")
     else:
         spawns.append((tp_world, ["tensor"]))
+    spawns[0][1].append("sd15_patch")
     print(json.dumps({"phase": "patch_transport", "world": PATCH_WORLD, **transport,
                       "tensor_parallel": {"world": tp_world, "n": tp_n}}), flush=True)
     results = {}
     for world, labels in spawns:
         ranks = _spawn(world, labels, transport["backend"], os.path.join(out_dir, f"w{world}"),
-                       expected_flash, profile)
+                       profile)
         for label in labels:
             for line in ranks[0][label]["tiny"]:
                 print(json.dumps({**line, "phase": f"{label}_tiny_check", "world": world}),
@@ -997,7 +1150,7 @@ def patch_phase(expected_flash, dense_latent, out_dir, profile=False):
                     if not (compare["latent_bit_identical"] or compare["within_limit"]):
                         raise AssertionError(f"{compare['run']}: graphed latent rel L2 "
                                              f"{compare['latent_rel_l2']} over {GRAPH_REL_L2}")
-            results[label] = ranks[0][label]["lines"][-1]
+            results[label] = ranks[0][label]["lines"]
     latent = np.load(os.path.join(out_dir, f"w{PATCH_WORLD}", "latent_patch_rank0.npy"))
     info = {"phase": "patch_vs_dense", "same_image_on_all_ranks": True}
     if dense_latent is not None:
@@ -1070,24 +1223,26 @@ def profile_call(fn, table_path):
     }
 
 
-def profile_phase(out_dir, weight_quants):
-    """For each of ``weight_quants``: the main path once warm, eagerly and
-    under CUDA graphs, each then once under torch.profiler
+def profile_phase(out_dir, runs):
+    """For each (model, weight_quant) of ``runs``: the main path once warm,
+    eagerly and under CUDA graphs, each then once under torch.profiler
     (``profile_call``), printed side by side."""
-    trees = build_sdxl_trees()
     call = lambda pipe: pipe(PROMPT, num_inference_steps=4, seed=0,  # noqa: E731
                              output_type="np")
-    for weight_quant in weight_quants:
+    trees = {}
+    for model, weight_quant in runs:
         quant = {}
         if weight_quant != "none":
             quant = {"weight_quant": weight_quant, "quant_compute": "pallas"}
-        pipe, _ = build_sdxl_pipeline(trees, **quant)
-        line = {"phase": "profile", "weight_quant": weight_quant}
+        if model not in trees:
+            trees = {model: build_trees(model)}
+        pipe, _ = build_pipeline(trees[model], model, **quant)
+        line = {"phase": "profile", "model": model, "weight_quant": weight_quant}
         for kind in ("eager", "graphed"):
             pipe.set_stepwise(kind == "eager")
             call(pipe)
             line[kind] = profile_call(lambda: call(pipe), os.path.join(
-                out_dir, f"profile_sdxl_{weight_quant}_{kind}.txt"))
+                out_dir, f"profile_{model}_{weight_quant}_{kind}.txt"))
         print(json.dumps(line), flush=True)
         del pipe
 
@@ -1127,7 +1282,9 @@ def kernel_entry(rows, launches, prefix="", **fields):
 
 def build_kernels():
     """Build every kernel of the path, one nvcc per source, all started
-    together; print each build's ptxas register and shared-memory report."""
+    together; print each build's ptxas register and shared-memory report.
+    Returns the spill store bytes of each flash instance by head dim
+    (empty where an earlier build was reused)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from distrifuser_tpu_torch.ops import flash_attention as fa
@@ -1142,12 +1299,23 @@ def build_kernels():
                "quantize_rows.cu": qz.build}
     with ThreadPoolExecutor(len(sources)) as pool:
         done = dict(zip(sources, pool.map(timed, sources.values())))
+    spills = {}
     for name, (log, seconds) in done.items():
         print(f"built {name} in {seconds:.1f} s", flush=True)
+        head_dim = None
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill")) or \
                     "error" in line.lower():
                 print(f"  ptxas: {line.strip()}", flush=True)
+            # a flash instance's entry (Config<D, ...>), then its spill line
+            entry = re.search(r"flash_fwd_kernel.*?ConfigILi(\d+)E", line)
+            if entry:
+                head_dim = int(entry.group(1))
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            if spill and head_dim is not None:
+                spills[head_dim] = int(spill.group(1))
+                head_dim = None
+    return spills
 
 
 def main(argv) -> int:
@@ -1156,13 +1324,13 @@ def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="only profile the warm main path (torch.profiler), "
-                             "eagerly and under CUDA graphs, and print the "
-                             "device-time breakdowns; with --patch_only, profile "
-                             "each rank's calls")
+                             "eagerly and under CUDA graphs (SDXL and SD 1.5 dense), "
+                             "and print the device-time breakdowns; with "
+                             "--patch_only, profile each rank's calls")
     parser.add_argument("--weight_quant", default=None, choices=("none", "int8", "fp8"),
-                        help="with --profile: only this path (default: dense, "
-                             "int8 and fp8; quantized runs use "
-                             "quant_compute='pallas')")
+                        help="with --profile: only this SDXL path (default: "
+                             "dense, int8 and fp8; quantized runs use "
+                             "quant_compute='pallas'), beside SD 1.5 dense")
     parser.add_argument("--out_dir", default="build/profile",
                         help="where --profile writes its full kernel tables and "
                              "the multi-rank phase its ranks' results")
@@ -1201,12 +1369,12 @@ def main(argv) -> int:
         set_precision_flags()
         quant_device_phase(quant_shapes(ucfg, 1024, 1024, steps))
         return 0
-    build_kernels()
+    spills = build_kernels()
 
     set_precision_flags()
     if args.profile and not args.patch_only:
         quants = [args.weight_quant] if args.weight_quant else ["none", "int8", "fp8"]
-        profile_phase(args.out_dir, quants)
+        profile_phase(args.out_dir, [("sdxl", q) for q in quants] + [("sd15", "none")])
         return 0
     shapes = attention_shapes(ucfg, vcfg, 1024, 1024, unet_evals=steps)
     expected_flash = steps * unet.attention_calls_per_forward(ucfg) + 1
@@ -1221,43 +1389,89 @@ def main(argv) -> int:
     tp_n = tp_layout(torch.cuda.device_count())[1]
     tshapes = tp_attention_shapes(shapes, n=tp_n, batch=2)
     multi = [s for s in pshapes + nshapes + tshapes if not s[0].startswith(("unet", "vae"))]
+    # SD 1.5 at 512x512 ("@sd15" rows): its dense call and one patch rank
+    ucfg15, vcfg15, _ = model_configs("sd15")
+    size15 = SIZES["sd15"]
+    shapes15 = attention_shapes(ucfg15, vcfg15, size15, size15, steps, suffix=SD15)
+    assert sum(s[-1] for s in shapes15) == expected_flash_launches("sd15"), shapes15
+    by_head_dim15 = {}
+    for s in shapes15:
+        by_head_dim15[s[5]] = by_head_dim15.get(s[5], 0) + s[6]
+    multi += [s for s in patch_attention_shapes(shapes15, n=PATCH_WORLD // 2, batch=1)
+              if s[0].startswith("patch_")]
+    vae_rows = [s for s in shapes + shapes15 if s[0].startswith("vae_mid")]
+    # SD 2.1 at 768x768 ("@sd21" rows): its dense call
+    ucfg21, vcfg21, _ = model_configs("sd21")
+    size21 = SIZES["sd21"]
+    shapes21 = attention_shapes(ucfg21, vcfg21, size21, size21, steps, suffix=SD21)
+    assert sum(s[-1] for s in shapes21) == expected_flash_launches("sd21"), shapes21
+
+    def rows_of(rows, prefixes, fam):
+        return [r for r in rows if r["shape"].startswith(prefixes)
+                and family(r["shape"]) == fam]
 
     def multi_entries(rows, multi_runs):
-        vae = [r for r in rows if r["shape"] == "vae_mid"]
         works = {"patch": "one rank of the patch path at CFG 2 x sp 2",
                  "naive_patch": "one rank of naive patch parallelism at CFG 2 x sp 2 "
                                 "(alternate)",
-                 "tensor": f"one rank of tensor parallelism at tp {tp_n}"}
-        prefixes = {"patch": "patch_", "naive_patch": "naive_", "tensor": f"tp{tp_n}_"}
-        return {label: kernel_entry([r for r in rows if r["shape"].startswith(
-                    prefixes[label])] + vae, line["flash_sdpa_launches"],
-                    work=works[label] + ", 4-step 1024x1024 call")
-                for label, line in multi_runs.items()}
+                 "tensor": f"one rank of tensor parallelism at tp {tp_n}",
+                 "sd15_patch": "one rank of SD 1.5's patch path at CFG 2 x sp 2 "
+                               "(stale_gn)"}
+        prefixes = {"patch": "patch_", "naive_patch": "naive_", "tensor": f"tp{tp_n}_",
+                    "sd15_patch": "patch_"}
+        out = {}
+        for label, lines in multi_runs.items():
+            fam = MULTI_RUNS[label][3]
+            size = SIZES[fam]
+            out[label] = kernel_entry(
+                rows_of(rows, prefixes[label], fam) + rows_of(rows, "vae_mid", fam),
+                lines[-1]["flash_sdpa_launches"],
+                work=works[label] + f", 4-step {size}x{size} call")
+        return out
+
+    def instance_entries(rows, by_head_dim, work):
+        """One entry per SD 1.5 instance: its rows, the launches counted
+        by head dim in the main path's eager call."""
+        by_head_dim = {int(d): n for d, n in by_head_dim.items()}
+        return [kernel_entry([r for r in rows if r["d"] == d], by_head_dim.get(d, 0),
+                             **{**FLASH_ENTRY, "name": f"flash_sdpa[d={d}]"},
+                             work=f"the d = {d} instance: " + work)
+                for d in SD15_HEAD_DIMS]
 
     seconds, t0 = {}, time.perf_counter()
     if args.patch_only:
-        rows = kernel_phase(multi + [s for s in shapes if s[0] == "vae_mid"])
+        rows = kernel_phase(multi + vae_rows, spills)
         seconds["flash_kernel_multi_rank_shapes"], t0 = (time.perf_counter() - t0,
                                                          time.perf_counter())
-        multi_runs = patch_phase(expected_flash, None, os.path.join(args.out_dir, "multi"),
+        multi_runs = patch_phase(None, os.path.join(args.out_dir, "multi"),
                                  profile=args.profile)
         seconds["multi_rank"] = time.perf_counter() - t0
         print(json.dumps({"phase": "seconds", **seconds}), flush=True)
         subs = multi_entries(rows, multi_runs)
-        kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs}]
+        kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs},
+                   *instance_entries(rows_of(rows, "patch_", "sd15"),
+                                     multi_runs["sd15_patch"][0]
+                                     ["flash_sdpa_launches_by_head_dim"],
+                                     "one rank of SD 1.5's patch path at CFG 2 x sp 2 "
+                                     "(stale_gn), 4-step 512x512 call, eager")]
         return finish(kernels)
-    rows = kernel_phase(shapes + multi)
+    rows = kernel_phase(shapes + shapes15 + shapes21 + multi, spills)
     mrows = rows
-    rows = [r for r in rows if r["shape"].startswith(("unet", "vae"))]
+    rows = rows_of(mrows, ("unet", "vae"), "sdxl")
+    rows15 = rows_of(mrows, ("unet", "vae"), "sd15")
+    rows21 = rows_of(mrows, ("unet", "vae"), "sd21")
     seconds["flash_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     qrows = quant_kernel_phase(qshapes)
     seconds["quant_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     for weight_quant in ("none", "int8", "fp8"):
         print(json.dumps(tiny_check(weight_quant)), flush=True)
+    print(json.dumps(tiny_check(model="sd15", scheduler="euler")), flush=True)
     seconds["tiny_checks"], t0 = time.perf_counter() - t0, time.perf_counter()
     runs, dense_latent = pipeline_phase(expected_flash, expected_quant)
     seconds["pipelines_eager_and_graphed"], t0 = time.perf_counter() - t0, time.perf_counter()
-    multi_runs = patch_phase(expected_flash, dense_latent, os.path.join(args.out_dir, "multi"))
+    sd_runs = sd_pipeline_phase(by_head_dim15)
+    seconds["sd_pipelines"], t0 = time.perf_counter() - t0, time.perf_counter()
+    multi_runs = patch_phase(dense_latent, os.path.join(args.out_dir, "multi"))
     seconds["multi_rank"] = time.perf_counter() - t0
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
@@ -1268,9 +1482,17 @@ def main(argv) -> int:
         kernel_entry(rows, runs["dense"]["flash_sdpa_launches"], **FLASH_ENTRY,
                      work="all attention of one 4-step 1024x1024 SDXL pipeline call "
                           "under CUDA graphs (per-shape time x launches per call); "
-                          "'patch', 'naive_patch' and 'tensor' hold the same for one "
-                          "rank of each multi-rank run (eager: its ranks share the card)",
-                     **multi_entries(mrows, multi_runs)),
+                          "'patch', 'naive_patch', 'tensor' and 'sd15_patch' hold the "
+                          "same for one rank of each multi-rank run (eager: its ranks "
+                          "share the card); 'sd15' for one 4-step 512x512 SD 1.5 call "
+                          "and 'sd21' for one 4-step 768x768 SD 2.1 call, each under "
+                          "CUDA graphs",
+                     **multi_entries(mrows, multi_runs),
+                     sd15=kernel_entry(rows15, sd_runs["sd15"]["flash_sdpa_launches"]),
+                     sd21=kernel_entry(rows21, sd_runs["sd21"]["flash_sdpa_launches"])),
+        *instance_entries(rows15, sd_runs["sd15_eager"]["flash_sdpa_launches_by_head_dim"],
+                          "all its attention in one 4-step 512x512 SD 1.5 call (launches "
+                          "counted in the eager call; the graphed one launches as many)"),
         kernel_entry(by_mode["int8"], runs["int8"]["quant_matmul_launches"], "fused_",
                      name="quant_matmul", route="cuda",
                      source="distrifuser_tpu_torch/csrc/quant_matmul.cu",

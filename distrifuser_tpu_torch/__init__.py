@@ -2,20 +2,25 @@
 
 A second package beside the JAX reference: the same module names, PyTorch
 inside, and every Pallas TPU kernel on the ported path replaced by a kernel
-written by hand for sm_90a (``csrc/``).  It runs SDXL text-to-image on
-one card or under DistriFusion's displaced patch parallelism on n ranks:
-``DistriSDXLPipeline`` -> ``DenoiseRunner`` -> ``unet_forward`` (dense, or
-``PatchDispatch`` over torch.distributed process groups) -> VAE
+written by hand for sm_90a (``csrc/``).  It runs text-to-image for SDXL
+(``DistriSDXLPipeline``) and SD 1.x / 2.x (``DistriSDPipeline``) on one
+card or under DistriFusion's displaced patch parallelism on n ranks:
+pipeline -> ``DenoiseRunner`` (DDIM, Euler or DPM++ 2M) -> ``unet_forward``
+(dense, or ``PatchDispatch`` over torch.distributed process groups) -> VAE
 ``decode``, with all attention through the flash kernel and, under
 ``DistriConfig(weight_quant="int8" | "fp8", quant_compute="pallas")``,
-every quantized UNet linear through the int8/fp8 GEMM kernel.  Several
-ranks need a process group that the caller initialised (torchrun or
-``torch.multiprocessing``).  Entry points run on the card of the rank's
-local rank unless given ``device="cpu"``; kernels are built with nvcc at
-first use, never at import.
+every quantized UNet linear through the int8/fp8 GEMM kernel.  Pipelines
+come from in-memory trees (``from_params``) or a local diffusers snapshot
+(``from_pretrained``, read by the pure-Python safetensors reader and CLIP
+tokenizer of ``native/``).  Several ranks need a process group that the
+caller initialised (torchrun or ``torch.multiprocessing``).  Entry points
+run on the card of the rank's local rank unless given ``device="cpu"``;
+kernels are built with nvcc at first use, never at import.
 """
 
-from .pipelines import DistriSDXLPipeline, PipelineOutput, SimpleTokenizer
+from .pipelines import (DistriSDPipeline, DistriSDXLPipeline, PipelineOutput,
+                        SimpleTokenizer)
 from .utils.config import DistriConfig
 
-__all__ = ["DistriConfig", "DistriSDXLPipeline", "PipelineOutput", "SimpleTokenizer"]
+__all__ = ["DistriConfig", "DistriSDPipeline", "DistriSDXLPipeline", "PipelineOutput",
+           "SimpleTokenizer"]

@@ -11,19 +11,21 @@
 // log2(e) folded into the scale (exp2(s * scale * log2e - m2)).
 //
 // What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s): the UNet's
-// self-attention (d = 64, L = 1024 or 4096) and the VAE's mid attention
-// (d = 512, L = 16384) do 4 L^2 d operations on 4 L d bf16 values, hundreds
-// of operations per byte, so they are bound by operations; the
+// self-attention (SDXL d = 64, L = 1024 or 4096; SD 1.5 d = 40, 80, 160 at
+// L = 4096, 1024, 256) and the VAE's mid attention (d = 512, L = 4096 or
+// 16384) do 4 L^2 d operations on 4 L d bf16 values, hundreds of operations
+// per byte at the large L, so they are bound by operations; the
 // cross-attention over 77 text tokens reads and writes q and o once per
 // query row with only 77 keys, so it is bound by bytes.
 //
 // Design.  One block per (tile of BQ = 64 * NQ query rows, batch * head).
 // Its threads are NQ * NC consumer warpgroups followed by one producer
 // warp.
-// * Tiles arrive through TMA (cp.async.bulk.tensor, 3-D maps (C, L, B) with
-//   the view's own row and batch strides, so heads and the k / v halves of
-//   the fused to_kv output are read in place) into a ring of STAGES K/V
-//   stages in shared memory.  The producer's lane 0 fills a stage as soon
+// * Tiles arrive through TMA (cp.async.bulk.tensor; Q through a 4-D map
+//   (d, H, L, B), K and V through 3-D maps (H * d, L, B), each with the
+//   view's own row and batch strides, so heads and the k / v halves of the
+//   fused to_kv output are read in place) into a ring of STAGES K/V stages
+//   in shared memory.  The producer's lane 0 fills a stage as soon
 //   as the consumers have released it ("empty" mbarrier, one arrival per
 //   consumer thread) and the hardware signals its "full" mbarrier when the
 //   bytes have landed, so loads run ahead of the math.  TMA was taken over
@@ -37,7 +39,8 @@
 //   reports (host_us_per_launch).
 // * Both products run on the tensor cores through wgmma.mma_async.
 //   S = Q K^T reads Q and K from shared memory (both K-major, d contiguous,
-//   in 128-, 64- or 32-byte swizzled blocks of 64, 32 or 16 columns).
+//   in 128-, 64- or 32-byte swizzled blocks of 64, 32 or 16 columns, the
+//   widest that divides the head dim: 16 for d = 80, 32 for d = 160).
 //   O += P V takes P from registers as the A operand: the fp32 fragment of
 //   S, packed to bf16 pairs, already has the A-register layout.  V is the
 //   MN-major B operand (transpose bit set), read from the same layout K has.
@@ -58,7 +61,21 @@
 //   operations of the products but hands nothing between them through
 //   shared memory; Q (64 KB) and two stages of 32-row K and V tiles
 //   (128 KB) fit in 227 KB.  BQ is chosen per head dim, not per shape; the
-//   grid is not persistent.
+//   grid is not persistent.  SD 1.x's head dims: d = 40 runs as d = 64
+//   does, on 48 columns; d = 80 (BK = 128) and 160 (BK = 64, O 64 x 160 in
+//   80 registers a thread) two blocks to an SM.
+// * d = 40 is not a multiple of wgmma's k16: its tiles are 48 columns wide,
+//   and only Q's 8 pad columns must be zero.  Q's 4-D map has the real d as
+//   its head extent, so Q's pad columns, past the head or before it, load
+//   as zeros (TMA's out-of-bounds fill), once per block.  K's and V's 3-D
+//   maps span the whole row, so their pad columns are a neighbouring head's
+//   (finite values; zeros past either end of the row): against Q's zeros
+//   they add nothing to Q.K^T, and the O columns they feed are not stored.
+//   A head starts at byte 80h, so every odd head's 32-byte box rows would
+//   straddle two 32-byte sectors: such a head loads Q, K and V from 8
+//   columns earlier (k_shift, v_shift, from the pointers' alignment), its
+//   pad in front, and O is stored shifted back.  The scale is 1/sqrt(40),
+//   the real head dim's, as the wrapper passes it.
 // * Ragged edges: the Q map's row extent is Lq and the K/V maps' is
 //   kv_len, so rows past them load as zeros; query rows >= Lq are not
 //   stored; KV columns >= kv_len in the last tile get the -1e30 logit, and
@@ -172,6 +189,21 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D += A . B, A [64 x 16] bf16 from registers, B [16 x 48] MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D += A . B, A [64 x 16] bf16 from registers, B [16 x 64] MN-major in shared memory
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t db) {
@@ -185,6 +217,24 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D += A . B, A [64 x 16] bf16 from registers, B [16 x 80] MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -207,6 +257,31 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D += A . B, A [64 x 16] bf16 from registers, B [16 x 160] MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -257,9 +332,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
                                          uint64_t db) {
   if constexpr (N == 16) wgmma_rs_n16(d, a, db);
   else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 48) wgmma_rs_n48(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, db);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
-  else wgmma_rs_n256(d, a, db);
+  else if constexpr (N == 160) wgmma_rs_n160(d, a, db);
+  else {
+    static_assert(N == 256, "no wgmma_rs shape");
+    wgmma_rs_n256(d, a, db);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -268,27 +349,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 
 // D: head dim; BK: KV rows per tile; NQ: 64-row query groups per block; NC:
 // warpgroups that split O's columns for one query group; STAGES: K/V ring
-// depth; MINB: blocks per SM the registers are budgeted for.
+// depth; MINB: blocks per SM the registers are budgeted for.  A head's DP
+// columns in shared memory are D rounded up to wgmma's k16; Q's pad columns
+// load as zeros (they lie outside its map's head extent), K's and V's as a
+// neighbouring head's columns, and no pad column is stored.
 template <int D_, int BK_, int NQ_, int NC_, int STAGES_, int MINB_>
 struct Config {
   static constexpr int D = D_, BK = BK_, NQ = NQ_, NC = NC_, STAGES = STAGES_;
   static constexpr int MINB = MINB_;
-  static constexpr int CW = D < 64 ? D : 64;  // columns per swizzled block
+  static constexpr int DP = (D + 15) / 16 * 16;
+  // columns per swizzled block: the widest of 64, 32, 16 that divides DP
+  static constexpr int CW = DP % 64 == 0 ? 64 : (DP % 32 == 0 ? 32 : 16);
   static constexpr int SW = CW * 2;           // its row, in bytes: 32, 64, 128
   static constexpr int SWIZZLE = SW == 128 ? 1 : (SW == 64 ? 2 : 3);
-  static constexpr int NCB = D / CW;          // column blocks per row
+  static constexpr int NCB = DP / CW;         // column blocks per row
   static constexpr int BQ = 64 * NQ;
-  static constexpr int DN = D / NC;           // O columns per warpgroup
+  static constexpr int DN = DP / NC;          // O columns per warpgroup
   static constexpr int NWG = NQ * NC;
   static constexpr int THREADS = NWG * 128 + 32;
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;  // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int BAR_OFFSET = Q_BYTES + STAGES * STAGE_BYTES;
   // +1024: the dynamic window is aligned up to the 1024-byte swizzle atom
   static constexpr int SMEM = 1024 + BAR_OFFSET + (2 * STAGES + 1) * 8;
-  static_assert(D % 16 == 0 && CW % 16 == 0 && D % CW == 0, "head dim");
-  static_assert(DN % CW == 0, "column split");
+  static_assert(D % 8 == 0, "head dim: a 16-byte head stride");
+  static_assert(DP % CW == 0 && DN % CW == 0, "column split");
   static_assert(BK % 16 == 0 && BK <= 256 && BQ <= 256, "tile");
 };
 
@@ -298,7 +384,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map,
                  __nv_bfloat16* __restrict__ o, long long o_bs, long long o_rs,
-                 int heads, int lq, int kv_len, float scale_log2) {
+                 int heads, int lq, int kv_len, int k_align, int v_align,
+                 float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle-atom aligned
@@ -313,6 +400,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int b = bh / heads;
   const int h = bh % heads;
   const int q0 = blockIdx.x * C::BQ;
+  // a padded head (DP > D) whose K / V columns start 16 bytes past a 32-byte
+  // boundary loads from 8 columns earlier: its rows then lie on whole
+  // sectors; Q shifts with K, and O is stored shifted back by V's shift
+  int k_shift = 0, v_shift = 0;
+  if constexpr (C::DP != C::D) {
+    k_shift = (k_align + h * C::D * 2) % 32 / 2;
+    v_shift = (v_align + h * C::D * 2) % 32 / 2;
+  }
   const int n_tiles = (kv_len + C::BK - 1) / C::BK;
 
   if (threadIdx.x == 0) {
@@ -330,7 +425,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == C::NWG * 128) {
       mbar_expect_tx(q_bar, C::Q_BYTES);
       for (int cb = 0; cb < C::NCB; ++cb) {
-        tma_load_3d(q_s + cb * C::BQ * C::SW, &q_map, q_bar, h * C::D + cb * C::CW,
+        tma_load_4d(q_s + cb * C::BQ * C::SW, &q_map, q_bar, cb * C::CW - k_shift, h,
                     q0, b);
       }
       for (int t = 0; t < n_tiles; ++t) {
@@ -340,11 +435,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         const uint32_t k_dst = kv_s + s * C::STAGE_BYTES;
         const uint32_t v_dst = k_dst + C::KV_BYTES;
         for (int cb = 0; cb < C::NCB; ++cb) {
-          const int col = h * C::D + cb * C::CW;
-          tma_load_3d(k_dst + cb * C::BK * C::SW, &k_map, full_bar(s), col,
-                      t * C::BK, b);
-          tma_load_3d(v_dst + cb * C::BK * C::SW, &v_map, full_bar(s), col,
-                      t * C::BK, b);
+          const int col = cb * C::CW;
+          tma_load_3d(k_dst + cb * C::BK * C::SW, &k_map, full_bar(s),
+                      h * C::D + col - k_shift, t * C::BK, b);
+          tma_load_3d(v_dst + cb * C::BK * C::SW, &v_map, full_bar(s),
+                      h * C::D + col - v_shift, t * C::BK, b);
         }
       }
     }
@@ -375,12 +470,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     const uint32_t v_tile = k_tile + C::KV_BYTES;
     mbar_wait(full_bar(s), (t / C::STAGES) & 1);
 
-    // S = Q K^T over the full head dim, 16 columns of d per wgmma
+    // S = Q K^T over the (padded) head dim, 16 columns of d per wgmma
     float sc[C::BK / 2];
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < C::D / 16; ++kk) {
+    for (int kk = 0; kk < C::DP / 16; ++kk) {
       const int cb = kk / (C::CW / 16);
       const uint32_t koff = (kk % (C::CW / 16)) * 32;
       const uint64_t da = make_desc(q_rows + cb * C::BQ * C::SW + koff, 16, kSbo,
@@ -467,14 +562,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_arrive(empty_bar(s));
   }
 
-  // out = acc / l, bf16; query rows >= lq are not stored
+  // out = acc / l, bf16; query rows >= lq and pad columns are not stored
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const int r0 = q0 + rg * 64 + warp * 16 + lane / 4;
-  __nv_bfloat16* ob = o + b * o_bs + h * C::D + cs * C::DN + c0;
+  // O column cs * DN + 8j + c0 holds head column cs * DN + 8j + c0 - v_shift
+  __nv_bfloat16* ob = o + b * o_bs + h * C::D + cs * C::DN + c0 - v_shift;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
@@ -483,6 +579,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     __nv_bfloat16* orow = ob + r * o_rs;
 #pragma unroll
     for (int j = 0; j < C::DN / 8; ++j) {
+      const int col = cs * C::DN + 8 * j - v_shift;
+      if (col < 0 || col >= C::D) continue;
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * half] / l, acc[4 * j + 2 * half + 1] / l);
     }
@@ -493,26 +591,36 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 // host side
 // ---------------------------------------------------------------------------
 
-// 3-D map (C, rows, B) over a bf16 [B, L, C] view with row stride `rs` and
-// batch stride `bs` elements; boxes of `box_cols` x `box_rows` x 1.
-bool encode_map(CUtensorMap* map, const void* ptr, int channels, int rows, int batch,
-                long long rs, long long bs, int box_cols, int box_rows) {
+// A map over a bf16 [B, L, H * d] view with row stride `rs` and batch stride
+// `bs` elements, boxes of `box_cols` columns x `box_rows` rows: per head (Q:
+// 4-D (d, H, rows, B), a box past column d of its head reads zeros) or over
+// the whole row (K, V: 3-D (H * d, rows, B)).
+bool encode_map(CUtensorMap* map, const void* ptr, bool per_head, int d, int heads,
+                int rows, int batch, long long rs, long long bs, int box_cols,
+                int box_rows) {
   const EncodeTiled encode = encode_fn();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(channels),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(rs) * 2,
-                                 static_cast<cuuint64_t>(bs) * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint64_t c = static_cast<cuuint64_t>(d), h = static_cast<cuuint64_t>(heads),
+                   r = static_cast<cuuint64_t>(rows), n = static_cast<cuuint64_t>(batch);
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(rs) * 2,
+                   batch_bytes = static_cast<cuuint64_t>(bs) * 2;
+  const cuuint32_t bc = static_cast<cuuint32_t>(box_cols),
+                   br = static_cast<cuuint32_t>(box_rows);
+  const cuuint64_t dims4[4] = {c, h, r, n};
+  const cuuint64_t strides4[3] = {c * 2, row_bytes, batch_bytes};
+  const cuuint32_t box4[4] = {bc, 1, br, 1};
+  const cuuint64_t dims3[3] = {h * c, r, n};
+  const cuuint64_t strides3[2] = {row_bytes, batch_bytes};
+  const cuuint32_t box3[3] = {bc, br, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle =
       box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                      : (box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                        : CU_TENSOR_MAP_SWIZZLE_32B);
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, per_head ? 4 : 3,
+                const_cast<void*>(ptr), per_head ? dims4 : dims3,
+                per_head ? strides4 : strides3, per_head ? box4 : box3, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -525,17 +633,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return attr;
-  const int c = heads * C::D;
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_map(&q_map, q, c, lq, b, q_rs, q_bs, C::CW, C::BQ) ||
-      !encode_map(&k_map, k, c, kv_len, b, k_rs, k_bs, C::CW, C::BK) ||
-      !encode_map(&v_map, v, c, kv_len, b, v_rs, v_bs, C::CW, C::BK)) {
+  if (!encode_map(&q_map, q, true, C::D, heads, lq, b, q_rs, q_bs, C::CW, C::BQ) ||
+      !encode_map(&k_map, k, false, C::D, heads, kv_len, b, k_rs, k_bs, C::CW, C::BK) ||
+      !encode_map(&v_map, v, false, C::D, heads, kv_len, b, v_rs, v_bs, C::CW, C::BK)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid((lq + C::BQ - 1) / C::BQ, b * heads);
   flash_fwd_kernel<C><<<grid, C::THREADS, C::SMEM, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), o_bs, o_rs, heads, lq,
-      kv_len, scale * kLog2e);
+      kv_len, static_cast<int>(reinterpret_cast<uintptr_t>(k) % 32),
+      static_cast<int>(reinterpret_cast<uintptr_t>(v) % 32), scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -545,14 +653,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
 #define FLASH_VARIANTS(X)    \
   X(16, 128, 1, 1, 2, 3)     \
   X(32, 128, 1, 1, 2, 3)     \
+  X(40, 128, 1, 1, 2, 3)     \
   X(64, 128, 1, 1, 2, 3)     \
+  X(80, 128, 1, 1, 2, 2)     \
   X(128, 64, 1, 1, 2, 2)     \
+  X(160, 64, 1, 1, 2, 2)     \
   X(256, 64, 1, 1, 2, 1)     \
   X(512, 32, 1, 2, 2, 1)
 
 // Plain C entry point (bound with ctypes).  Pointers are bf16 device
-// pointers; strides are in elements; d is one of 16, 32, 64, 128, 256, 512,
-// rows and pointers 16-byte aligned (checked by the Python wrapper).
+// pointers; strides are in elements; d is one of 16, 32, 40, 64, 80, 128,
+// 160, 256, 512, rows and pointers 16-byte aligned (checked by the Python
+// wrapper).
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_sdpa_bf16(const void* q, const void* k, const void* v,
                                void* o, int b, int heads, int lq, int kv_len,

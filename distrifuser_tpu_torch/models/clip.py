@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from ..ops.linear import linear
 from ..parallel.compress import asdense
-from .unet import cast_params, layer_norm
+from .unet import cast_params, layer_norm, load_config_source
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +47,39 @@ def open_clip_bigg_config() -> CLIPTextConfig:
         intermediate_size=5120,
         hidden_act="gelu",
         projection_dim=1280,
+    )
+
+
+def open_clip_vith_config() -> CLIPTextConfig:
+    """OpenCLIP ViT-H/14 text tower as SD 2.x snapshots ship it: 23 layers
+    (the penultimate-layer truncation), GeLU MLPs, final hidden state."""
+    return CLIPTextConfig(
+        hidden_size=1024,
+        num_hidden_layers=23,
+        num_attention_heads=16,
+        intermediate_size=4096,
+        hidden_act="gelu",
+    )
+
+
+def clip_config_from_json(source) -> CLIPTextConfig:
+    """A CLIPTextConfig from a transformers `text_encoder/config.json`
+    (path or dict).  ``projection_dim`` is kept only for a
+    CLIPTextModelWithProjection (SDXL's text_encoder_2): plain
+    CLIPTextModel snapshots carry the field too, with no text_projection
+    weights to apply it."""
+    cfg = load_config_source(source)
+    with_projection = "CLIPTextModelWithProjection" in (cfg.get("architectures") or [])
+    return CLIPTextConfig(
+        vocab_size=cfg.get("vocab_size", 49408),
+        hidden_size=cfg.get("hidden_size", 768),
+        num_hidden_layers=cfg.get("num_hidden_layers", 12),
+        num_attention_heads=cfg.get("num_attention_heads", 12),
+        intermediate_size=cfg.get("intermediate_size", 3072),
+        max_position_embeddings=cfg.get("max_position_embeddings", 77),
+        hidden_act=cfg.get("hidden_act", "quick_gelu"),
+        eos_token_id=cfg.get("eos_token_id", 49407),
+        projection_dim=cfg.get("projection_dim") if with_projection else None,
     )
 
 

@@ -18,7 +18,9 @@ compute dtype, and ops/linear.py and ops/conv.py consume it.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -74,6 +76,151 @@ class UNetConfig:
 def sdxl_config() -> UNetConfig:
     """SDXL-base UNet (stabilityai/stable-diffusion-xl-base-1.0)."""
     return UNetConfig()
+
+
+_SD_DOWN_BLOCKS = ("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",)
+_SD_UP_BLOCKS = ("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3
+
+
+def sd15_config() -> UNetConfig:
+    """SD 1.4/1.5 UNet (runwayml/stable-diffusion-v1-5 and compatible): 8
+    heads at every level, so head dims 40, 80 and 160; conv projections
+    in and out of each transformer."""
+    return UNetConfig(
+        block_out_channels=(320, 640, 1280, 1280),
+        down_block_types=_SD_DOWN_BLOCKS,
+        up_block_types=_SD_UP_BLOCKS,
+        transformer_layers_per_block=(1, 1, 1, 1),
+        num_attention_heads=(8, 8, 8, 8),
+        cross_attention_dim=768,
+        use_linear_projection=False,
+        addition_embed_type=None,
+        projection_class_embeddings_input_dim=0,
+    )
+
+
+def sd21_config() -> UNetConfig:
+    """SD 2.0/2.1 UNet (stabilityai/stable-diffusion-2-1 and compatible):
+    SD1.x block structure, OpenCLIP ViT-H conditioning (1024), uniform
+    64-dim heads, linear transformer projections."""
+    return UNetConfig(
+        block_out_channels=(320, 640, 1280, 1280),
+        down_block_types=_SD_DOWN_BLOCKS,
+        up_block_types=_SD_UP_BLOCKS,
+        transformer_layers_per_block=(1, 1, 1, 1),
+        num_attention_heads=(5, 10, 20, 20),
+        cross_attention_dim=1024,
+        use_linear_projection=True,
+        addition_embed_type=None,
+        projection_class_embeddings_input_dim=0,
+    )
+
+
+_SUPPORTED_DOWN_BLOCKS = {"DownBlock2D", "CrossAttnDownBlock2D"}
+_SUPPORTED_UP_BLOCKS = {"UpBlock2D", "CrossAttnUpBlock2D"}
+
+
+def load_config_source(source) -> Dict[str, Any]:
+    """A config source as a dict: a json file path (str/PathLike) or an
+    already-parsed mapping.  Shared by the unet/clip/vae config loaders."""
+    if isinstance(source, (str, bytes, os.PathLike)):
+        with open(source) as f:
+            return json.load(f)
+    return dict(source)
+
+
+def unet_config_from_json(source) -> UNetConfig:
+    """A UNetConfig from a diffusers `unet/config.json` (path or dict), as
+    diffusers' ``from_pretrained`` builds the architecture from that file:
+    every SD-family snapshot (1.4/1.5, 2.0/2.1 base and v, SDXL-base) loads
+    with its own architecture instead of a preset.
+
+    Diffusers quirks reproduced here:
+    * `attention_head_dim` in these configs historically means *number of
+      heads* per block when `num_attention_heads` is absent (SD1.5's 8,
+      SD2.1's [5,10,20,20], SDXL's [5,10,20]) — diffusers carries the same
+      naming bug forward for backwards compatibility.
+    * scalar fields broadcast over blocks (`transformer_layers_per_block: 1`).
+    * flag fields appear as scalars or per-block lists; a list of falses
+      (diffusers' re-saved form) means disabled, same as `false`.
+    """
+    cfg = load_config_source(source)
+
+    def per_block(value, default):
+        v = cfg.get(value, default)
+        if isinstance(v, (list, tuple)):
+            return tuple(v)
+        return (v,) * len(blocks)
+
+    blocks = tuple(cfg["block_out_channels"])
+    down = tuple(cfg["down_block_types"])
+    up = tuple(cfg["up_block_types"])
+    unsupported = (set(down) - _SUPPORTED_DOWN_BLOCKS) | (
+        set(up) - _SUPPORTED_UP_BLOCKS
+    )
+
+    def enabled(v):
+        # scalar-or-per-block-list flag; [false, false, ...] means disabled
+        return any(v) if isinstance(v, (list, tuple)) else bool(v)
+
+    # key-present-with-null is valid diffusers and means "no mid block" —
+    # unsupported here just like any nonstandard type
+    mid = cfg["mid_block_type"] if "mid_block_type" in cfg else "UNetMidBlock2DCrossAttn"
+    mid_bad = "null (no mid block)" if mid is None else mid
+    for key, bad in (
+        ("block types", unsupported),
+        ("class_embed_type", cfg.get("class_embed_type")),
+        ("encoder_hid_dim", cfg.get("encoder_hid_dim")),
+        ("dual_cross_attention", enabled(cfg.get("dual_cross_attention"))),
+        ("only_cross_attention", enabled(cfg.get("only_cross_attention"))),
+        # LCM-distilled guidance embedding: weights would be silently dropped
+        ("time_cond_proj_dim", cfg.get("time_cond_proj_dim")),
+        ("class_embeddings_concat", cfg.get("class_embeddings_concat")),
+        ("mid_block_type", None if mid == "UNetMidBlock2DCrossAttn" else mid_bad),
+    ):
+        if bad:
+            raise NotImplementedError(
+                f"unsupported UNet config: {key}={bad!r} (supported: the "
+                "SD1.x/SD2.x/SDXL UNet2DConditionModel family)"
+            )
+    add_type = cfg.get("addition_embed_type")
+    if add_type not in (None, "text_time"):
+        raise NotImplementedError(
+            f"unsupported addition_embed_type {add_type!r}"
+        )
+    # diffusers defaults attention_head_dim=8 (meaning 8 heads, see above)
+    heads = cfg.get("num_attention_heads") or cfg.get("attention_head_dim", 8)
+    if not isinstance(heads, (list, tuple)):
+        heads = (heads,) * len(blocks)
+    cross = cfg.get("cross_attention_dim", 1280)
+    if isinstance(cross, (list, tuple)):
+        uniq = set(cross)
+        if len(uniq) != 1:
+            raise NotImplementedError(
+                f"per-block cross_attention_dim {cross!r} unsupported"
+            )
+        cross = cross[0]
+    return UNetConfig(
+        in_channels=cfg.get("in_channels", 4),
+        out_channels=cfg.get("out_channels", 4),
+        block_out_channels=blocks,
+        down_block_types=down,
+        up_block_types=up,
+        layers_per_block=cfg.get("layers_per_block", 2),
+        transformer_layers_per_block=per_block("transformer_layers_per_block", 1),
+        num_attention_heads=tuple(heads),
+        cross_attention_dim=cross,
+        norm_num_groups=cfg.get("norm_num_groups", 32),
+        use_linear_projection=cfg.get("use_linear_projection", False),
+        addition_embed_type=add_type,
+        addition_time_embed_dim=cfg.get("addition_time_embed_dim", 256) or 256,
+        projection_class_embeddings_input_dim=cfg.get(
+            "projection_class_embeddings_input_dim", 0
+        )
+        or 0,
+        flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
+        freq_shift=cfg.get("freq_shift", 0),
+    )
 
 
 def tiny_config(cross_attention_dim: int = 32, sdxl: bool = False) -> UNetConfig:

@@ -20,7 +20,7 @@ from ..ops.attention import sdpa
 from ..ops.conv import conv2d
 from ..ops.linear import linear
 from ..ops.normalization import group_norm
-from .unet import cast_params, upsample_nearest_2x
+from .unet import cast_params, load_config_source, upsample_nearest_2x
 
 silu = F.silu
 
@@ -39,6 +39,28 @@ class VAEConfig:
 
 def sdxl_vae_config() -> VAEConfig:
     return VAEConfig()
+
+
+def sd_vae_config() -> VAEConfig:
+    """The SD 1.x / 2.x VAE: SDXL's topology, latent scaling 0.18215."""
+    return VAEConfig(scaling_factor=0.18215)
+
+
+def vae_config_from_json(source) -> VAEConfig:
+    """A VAEConfig from a diffusers `vae/config.json` (path or dict), with
+    the snapshot's own scaling factor (0.18215 SD, 0.13025 SDXL) and
+    channel layout."""
+    cfg = load_config_source(source)
+    return VAEConfig(
+        in_channels=cfg.get("in_channels", 3),
+        out_channels=cfg.get("out_channels", 3),
+        latent_channels=cfg.get("latent_channels", 4),
+        block_out_channels=tuple(cfg.get("block_out_channels", (128, 256, 512, 512))),
+        layers_per_block=cfg.get("layers_per_block", 2),
+        norm_num_groups=cfg.get("norm_num_groups", 32),
+        scaling_factor=cfg.get("scaling_factor", 0.18215),
+        shift_factor=cfg.get("shift_factor") or 0.0,
+    )
 
 
 def tiny_vae_config() -> VAEConfig:

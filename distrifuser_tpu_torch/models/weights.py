@@ -17,6 +17,17 @@ that differ are transposed on the way:
 The leaves keep their dtype and land on the CPU; ``models.unet.cast_params``
 casts and moves a converted tree.
 
+``convert_unet_state_dict``, ``convert_vae_state_dict`` and
+``convert_clip_state_dict`` are the counterparts of the JAX package's
+converters of the same names: a diffusers or transformers state dict (the
+tensors ``native.safetensors`` reads) straight to the port's tree, equal
+to ``params_from_jax`` of the JAX converters' output.  Diffusers names are
+normalised the same way (``to_out.0`` -> ``to_out``, ``ff.net.0.proj`` ->
+``ff.net_0.proj``, ``ff.net.2`` -> ``ff.net_2``, norm ``weight`` ->
+``scale``), conv kernels stay OIHW, in channels_last, linear kernels go
+from ``[out, in]`` to ``[in, out]``, and the UNet's attention ``to_k`` and
+``to_v`` fuse into one ``to_kv`` kernel.
+
 The rest is the counterpart of the quantized-tree functions of
 distrifuser_tpu/models/weights.py (``quantize_params``,
 ``set_quant_compute``, ``dequantize_params``, ``params_nbytes``).  The
@@ -83,11 +94,126 @@ def params_from_jax(tree):
         t = _to_tensor(node)
         if key == "kernel" and t.dim() == 4:
             t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
-        if t.dim() == 4:
-            return t.contiguous(memory_format=torch.channels_last)
-        return t.contiguous()
+        return _layout(t)
 
     return convert(tree, None)
+
+
+def _layout(t: torch.Tensor) -> torch.Tensor:
+    """A leaf in the port's memory layout: 4-D in channels_last, else
+    contiguous."""
+    if t.dim() == 4:
+        return t.contiguous(memory_format=torch.channels_last)
+    return t.contiguous()
+
+
+def _rename(parts):
+    """Diffusers' ``net.0`` / ``net.2`` and ``to_out.0`` as the tree's
+    ``net_0`` / ``net_2`` and ``to_out``."""
+    out, i = [], 0
+    while i < len(parts):
+        p = parts[i]
+        if p == "net" and i + 1 < len(parts) and parts[i + 1] in ("0", "2"):
+            out.append(f"net_{parts[i + 1]}")
+            i += 2
+        elif p == "to_out" and i + 1 < len(parts) and parts[i + 1] == "0":
+            out.append("to_out")
+            i += 2
+        else:
+            out.append(p)
+            i += 1
+    return out
+
+
+def _convert_leaf(parts, value: torch.Tensor):
+    """(tree path, tensor) of one state-dict entry: an embedding ``weight``
+    becomes its parent key ("__direct__"), a 4-D ``weight`` a conv kernel
+    (OIHW, as stored), a 2-D one a linear kernel ``[in, out]``, any other a
+    norm ``scale``."""
+    leaf = parts[-1]
+    if leaf == "weight":
+        if "embedding" in parts[-2]:
+            return parts[:-1] + ["__direct__"], value
+        if value.dim() == 4:
+            return parts[:-1] + ["kernel"], value
+        if value.dim() == 2:
+            return parts[:-1] + ["kernel"], value.t()
+        return parts[:-1] + ["scale"], value
+    return parts, value
+
+
+def _listify(tree):
+    """Dicts whose keys are all digits as lists."""
+    if not isinstance(tree, dict):
+        return tree
+    tree = {k: _listify(v) for k, v in tree.items()}
+    if tree and all(k.isdigit() for k in tree):
+        return [tree[str(i)] for i in range(len(tree))]
+    return tree
+
+
+def _fuse_kv(tree):
+    """``to_k`` and ``to_v`` fused into ``to_kv`` ([k | v] columns)
+    wherever a node holds both beside ``to_q`` (UNet attention)."""
+    if isinstance(tree, list):
+        return [_fuse_kv(v) for v in tree]
+    if not isinstance(tree, dict):
+        return tree
+    tree = {k: _fuse_kv(v) for k, v in tree.items()}
+    if "to_k" in tree and "to_v" in tree and "to_q" in tree and "group_norm" not in tree:
+        k, v = tree.pop("to_k"), tree.pop("to_v")
+        fused = {"kernel": torch.cat([k["kernel"], v["kernel"]], dim=1)}
+        if "bias" in k:
+            fused["bias"] = torch.cat([k["bias"], v["bias"]])
+        tree["to_kv"] = fused
+    return tree
+
+
+def _convert(sd, dtype, *, skip=(), fuse_kv=False):
+    tree: dict = {}
+    for key, val in sd.items():
+        if any(s in key for s in skip):
+            continue
+        parts, v = _convert_leaf(_rename(key.split(".")), val)
+        if parts[-1] == "__direct__":
+            parts = parts[:-1]
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    tree = _listify(tree)
+    if fuse_kv:
+        tree = _fuse_kv(tree)
+    return _map_leaves(lambda t: _layout(t.to(dtype)), tree)
+
+
+def convert_unet_state_dict(sd, dtype=torch.float32):
+    """A diffusers UNet2DConditionModel state dict as the port's UNet tree."""
+    return _convert(sd, dtype, skip=("position_ids",), fuse_kv=True)
+
+
+def convert_vae_state_dict(sd, dtype=torch.float32):
+    """A diffusers AutoencoderKL state dict as the port's VAE tree; the
+    mid attention's older names (query, key, value, proj_attn) are
+    renamed, and its to_k / to_v stay apart."""
+    renames = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out"}
+    sd = {".".join(renames.get(p, p) for p in k.split(".")): v for k, v in sd.items()}
+    return _convert(sd, dtype)
+
+
+def convert_clip_state_dict(sd, dtype=torch.float32):
+    """A transformers CLIPTextModel(WithProjection) state dict as the
+    port's CLIP tree."""
+    out = {}
+    for k, v in sd.items():
+        if k.endswith("position_ids"):
+            continue
+        k = k.replace("text_model.", "")
+        k = k.replace("embeddings.token_embedding", "token_embedding")
+        k = k.replace("embeddings.position_embedding", "position_embedding")
+        k = k.replace("encoder.layers", "layers")
+        out[k] = v
+    return _convert(out, dtype)
 
 
 def _map_leaves(fn, node):

@@ -21,6 +21,7 @@ be block multiples: the kernel masks ragged query and KV edges itself.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -29,8 +30,9 @@ from ._build import KernelLibrary, counts_launches
 
 _NEG_INF = -1e30  # masked-logit convention of the TPU kernel
 # head dims the kernel has an instance for: every d a configuration of the
-# repo gives (SDXL UNet 64, SDXL VAE 512, tiny configs 16 and 32) and 128, 256
-HEAD_DIMS = (16, 32, 64, 128, 256, 512)
+# repo gives (SDXL and SD 2.x UNet 64, SD 1.x UNet 40, 80 and 160, the VAE
+# 512, tiny configs 16 and 32) and 128, 256
+HEAD_DIMS = (16, 32, 40, 64, 80, 128, 160, 256, 512)
 
 
 def _bind(lib) -> None:
@@ -91,7 +93,9 @@ def flash_sdpa_reference(q, k, v, *, heads: int, kv_len: int = None):
 def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None):
     """SDPA over [B, L, C] with ``heads`` heads: the kernel on the card,
     the plain version on the CPU.  Counts each kernel launch in
-    ``flash_sdpa.launches``."""
+    ``flash_sdpa.launches`` and, by head dim (the instance launched), in
+    ``flash_sdpa.launches_by_head_dim``; graph replays add to the first
+    only (parallel/graphs.py)."""
     if q.device.type == "cpu":
         return flash_sdpa_reference(q, k, v, heads=heads, kv_len=kv_len)
     if q.device.type != "cuda":
@@ -131,4 +135,8 @@ def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None):
     if rc != 0:
         raise RuntimeError(f"flash_sdpa kernel launch failed: cudaError {rc}")
     flash_sdpa.launches += 1
+    flash_sdpa.launches_by_head_dim[d] += 1
     return out
+
+
+flash_sdpa.launches_by_head_dim = collections.Counter()

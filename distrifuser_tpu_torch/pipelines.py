@@ -1,15 +1,23 @@
-"""User-facing SDXL text-to-image pipeline, on one device or n ranks.
+"""User-facing text-to-image pipelines, SDXL and SD 1.x/2.x, on one device
+or n ranks.
 
 Counterpart of distrifuser_tpu/pipelines.py (``SimpleTokenizer``,
-``_tokenize``, ``PipelineOutput``, ``_normalize_prompts``,
-``_batched_generate``, ``_DistriPipelineBase.__call__`` and
-``DistriSDXLPipeline.from_params`` / ``_encode``).  ``from_params`` builds
-a pipeline from in-memory parameter trees: the port's own random init
-(models/*.init_*_params) or JAX trees through
-``models.weights.params_from_jax``.  Initial noise comes from a
-``torch.Generator`` seeded with ``seed`` (its numbers differ from JAX's);
-callers that need identical noise pass ``latents``.  ``from_pretrained``,
-img2img and ``DistriSDPipeline`` are ROADMAP queue 1 items 5 and 6.
+``_tokenizer_or_fallback``, ``_config_from_snapshot``,
+``_scheduler_from_snapshot``, ``_check_scheduler_family``, ``_tokenize``,
+``PipelineOutput``, ``_normalize_prompts``, ``_batched_generate``,
+``_DistriPipelineBase``, ``DistriSDXLPipeline`` and ``DistriSDPipeline``
+with their ``from_pretrained``, ``from_params`` and ``_encode``).
+``from_params`` builds a pipeline from in-memory parameter trees: the
+port's own random init (models/*.init_*_params) or JAX trees through
+``models.weights.params_from_jax``.  ``from_pretrained`` loads a local
+diffusers snapshot (``unet/``, ``vae/``, ``text_encoder/`` and, for SDXL,
+``text_encoder_2/``, each with its ``config.json`` and safetensors shards;
+``tokenizer*/`` vocab files; ``scheduler/scheduler_config.json``) through
+the pure-Python reader and tokenizer of ``native/``.  Initial noise comes
+from a ``torch.Generator`` seeded with ``seed`` (its numbers differ from
+JAX's); callers that need identical noise pass ``latents``.  img2img
+(VAE ``encode``), SDXL micro-conditioning and the refiner handoff are
+ROADMAP queue 1 items 5 and 6.
 
 Under displaced patch parallelism every rank builds the same pipeline and
 makes the same call: it draws the same seeded latents, encodes the same
@@ -38,15 +46,22 @@ NCCL work until they are freed.
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import zlib
-from typing import Any, List
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
 from .models import clip as clip_mod
+from .models import unet as unet_mod
 from .models import vae as vae_mod
-from .models.weights import params_nbytes, quantize_params, set_quant_compute
+from .models.weights import (convert_clip_state_dict, convert_unet_state_dict,
+                             convert_vae_state_dict, params_nbytes, quantize_params,
+                             set_quant_compute)
+from .native.bpe import CLIPTokenizer
+from .native.safetensors import load_sharded_safetensors
 from .parallel.compress import validate_quant_compute, validate_weight_mode
 from .parallel.runner import check_graph_transport, make_runner
 from .schedulers import BaseScheduler, get_scheduler
@@ -74,6 +89,59 @@ class SimpleTokenizer:
             toks.append(self.eos)
             ids[i, : len(toks)] = toks
         return ids
+
+
+def _tokenizer_or_fallback(path: str):
+    """The CLIP BPE tokenizer of a snapshot's tokenizer directory, else the
+    hash-based SimpleTokenizer with a loud warning: on a real snapshot a
+    tokenizer that did not load would silently change every image."""
+    try:
+        return CLIPTokenizer(path)
+    except (OSError, ValueError, KeyError) as e:
+        print(
+            f"WARNING: failed to load CLIP tokenizer from {path!r} "
+            f"({type(e).__name__}: {e}); falling back to the hash-based "
+            "SimpleTokenizer. Generated images will NOT match real-prompt "
+            "outputs.",
+            file=sys.stderr, flush=True,
+        )
+        return SimpleTokenizer()
+
+
+def _config_from_snapshot(root: str, subdir: str, loader, fallback):
+    """A model config from the snapshot's ``<subdir>/config.json``, as
+    diffusers builds the architecture; the named preset for a bare weight
+    dump without config files."""
+    path = os.path.join(root, subdir, "config.json")
+    return loader(path) if os.path.exists(path) else fallback()
+
+
+def _scheduler_from_snapshot(root: str, name) -> BaseScheduler:
+    """The scheduler ``name`` with the snapshot's
+    ``scheduler/scheduler_config.json`` (prediction type, betas, train
+    steps): how SD 2.x's v-prediction arrives."""
+    if isinstance(name, BaseScheduler):
+        return name
+    kwargs = {}
+    cfg_path = os.path.join(root, "scheduler", "scheduler_config.json")
+    if os.path.exists(cfg_path):
+        sc = unet_mod.load_config_source(cfg_path)
+        for k in ("num_train_timesteps", "beta_start", "beta_end",
+                  "beta_schedule", "steps_offset", "prediction_type"):
+            if k in sc:
+                kwargs[k] = sc[k]
+    return get_scheduler(name, **kwargs)
+
+
+def _check_scheduler_family(scheduler: BaseScheduler, family: str) -> None:
+    """Refuse a rectified-flow sampler on a family that predicts epsilon or
+    v over a beta schedule: the two would run together without an error
+    and give garbage images."""
+    if scheduler.prediction_type == "flow":
+        raise ValueError(
+            f"a rectified-flow scheduler on {family}: this family predicts "
+            "epsilon/v over a beta schedule, not a rectified-flow velocity; "
+            "use ddim / euler / dpm-solver")
 
 
 def _tokenize(tok, texts: List[str]) -> np.ndarray:
@@ -160,14 +228,15 @@ def _quantize_aux(cfg, vae_params, text_encoders):
     return q(vae_params), [(tc, q(tp)) for tc, tp in text_encoders]
 
 
-class DistriSDXLPipeline:
-    """SDXL: two text encoders' penultimate hidden states concatenated,
-    pooled embeds of the second, and the 6 micro-conditioning time ids.
-    ``__call__`` is the counterpart of the JAX ``_DistriPipelineBase``'s."""
+class _DistriPipelineBase:
+    """What the families share: load-time quantization, the runner, the
+    graph hooks and ``__call__``; each family defines ``_encode`` (its
+    text-encoding recipe) and ``from_pretrained``."""
 
     def __init__(self, distri_config: DistriConfig, unet_config, unet_params,
                  vae_config, vae_params, scheduler: BaseScheduler, tokenizers,
                  text_encoders):
+        _check_scheduler_family(scheduler, type(self).__name__)
         self.distri_config = distri_config
         self.unet_config = unet_config
         self.vae_config = vae_config
@@ -266,8 +335,8 @@ class DistriSDXLPipeline:
         if kwargs:
             raise NotImplementedError(
                 f"unsupported arguments in the PyTorch port: {sorted(kwargs)} "
-                "(img2img, refiner handoff and micro-conditioning are ROADMAP "
-                "queue 1 item 6)"
+                "(img2img through VAE encode is ROADMAP queue 1 item 5; SDXL "
+                "micro-conditioning and the refiner handoff are item 6)"
             )
         if not cfg.do_classifier_free_guidance:
             guidance_scale = 1.0
@@ -328,11 +397,72 @@ class DistriSDXLPipeline:
     def from_params(cls, distri_config, unet_config, unet_params, vae_config,
                     vae_params, text_configs, text_params, scheduler="ddim",
                     tokenizers=None):
+        """A pipeline from in-memory trees (the port's layout); ``scheduler``
+        a name or a scheduler; hash tokenizers unless ``tokenizers``."""
         sched = (scheduler if isinstance(scheduler, BaseScheduler)
                  else get_scheduler(scheduler))
         toks = tokenizers or [SimpleTokenizer(tc.vocab_size) for tc in text_configs]
         return cls(distri_config, unet_config, unet_params, vae_config, vae_params,
                    sched, toks, list(zip(text_configs, text_params)))
+
+    @classmethod
+    def _from_snapshot(cls, distri_config, root, scheduler, dtype, variant,
+                       unet_preset, vae_preset, encoders):
+        """A pipeline from a local diffusers snapshot: each component's
+        config from its ``config.json`` (else the preset), its weights from
+        its safetensors shards (``variant`` picks e.g. the fp16 files),
+        cast to ``dtype`` (default: the config's) on the config's device;
+        ``encoders`` are (text encoder dir, tokenizer dir, preset config)
+        per text encoder."""
+        if not os.path.isdir(root):
+            raise FileNotFoundError(
+                f"{root!r} is not a local model directory: from_pretrained reads "
+                "a diffusers snapshot (unet/, vae/, text_encoder/, tokenizer/, "
+                "...) from disk and downloads nothing")
+        dtype = dtype or distri_config.dtype
+
+        def load(subdir, convert):
+            sd = load_sharded_safetensors(os.path.join(root, subdir), variant=variant,
+                                          skip=("position_ids",))
+            return unet_mod.cast_params(convert(sd, dtype), dtype, distri_config.device)
+
+        ucfg = _config_from_snapshot(root, "unet", unet_mod.unet_config_from_json,
+                                     unet_preset)
+        vcfg = _config_from_snapshot(root, "vae", vae_mod.vae_config_from_json,
+                                     vae_preset)
+        text_encoders, tokenizers = [], []
+        for enc_dir, tok_dir, preset in encoders:
+            tcfg = _config_from_snapshot(root, enc_dir, clip_mod.clip_config_from_json,
+                                         preset)
+            text_encoders.append((tcfg, load(enc_dir, convert_clip_state_dict)))
+            tokenizers.append(_tokenizer_or_fallback(os.path.join(root, tok_dir)))
+        return cls(distri_config, ucfg, load("unet", convert_unet_state_dict), vcfg,
+                   load("vae", convert_vae_state_dict),
+                   _scheduler_from_snapshot(root, scheduler), tokenizers, text_encoders)
+
+    def _encode(self, prompts, negs):
+        """(branch-major text embeddings [n_branches, B, L, C], added
+        conditioning or None) of one chunk of prompts."""
+        raise NotImplementedError
+
+
+class DistriSDXLPipeline(_DistriPipelineBase):
+    """SDXL: two text encoders' penultimate hidden states concatenated,
+    pooled embeds of the second, and the 6 micro-conditioning time ids."""
+
+    @classmethod
+    def from_pretrained(cls, distri_config: DistriConfig,
+                        pretrained_model_name_or_path: str, scheduler="ddim",
+                        dtype=None, variant: Optional[str] = None
+                        ) -> "DistriSDXLPipeline":
+        """An SDXL pipeline from a local diffusers snapshot directory
+        (unet/, vae/, text_encoder/, text_encoder_2/, tokenizer/,
+        tokenizer_2/, scheduler/)."""
+        return cls._from_snapshot(
+            distri_config, pretrained_model_name_or_path, scheduler, dtype, variant,
+            unet_mod.sdxl_config, vae_mod.sdxl_vae_config,
+            [("text_encoder", "tokenizer", clip_mod.clip_vit_l_config),
+             ("text_encoder_2", "tokenizer_2", clip_mod.open_clip_bigg_config)])
 
     def _encode(self, prompts, negs):
         cfg = self.distri_config
@@ -358,3 +488,27 @@ class DistriSDXLPipeline:
         time_ids = torch.tensor(ids, dtype=torch.float32, device=emb.device)
         time_ids = time_ids.expand(n_br, b, 6)
         return emb, {"text_embeds": pooled, "time_ids": time_ids}
+
+
+class DistriSDPipeline(_DistriPipelineBase):
+    """SD 1.x / 2.x: one text encoder's final hidden state, no added
+    conditioning."""
+
+    @classmethod
+    def from_pretrained(cls, distri_config: DistriConfig,
+                        pretrained_model_name_or_path: str, scheduler="ddim",
+                        dtype=None, variant: Optional[str] = None
+                        ) -> "DistriSDPipeline":
+        """An SD 1.x / 2.x pipeline from a local diffusers snapshot
+        directory (unet/, vae/, text_encoder/, tokenizer/, scheduler/)."""
+        return cls._from_snapshot(
+            distri_config, pretrained_model_name_or_path, scheduler, dtype, variant,
+            unet_mod.sd15_config, vae_mod.sd_vae_config,
+            [("text_encoder", "tokenizer", clip_mod.clip_vit_l_config)])
+
+    def _encode(self, prompts, negs):
+        cfg = self.distri_config
+        texts = negs + prompts if cfg.do_classifier_free_guidance else prompts
+        n_br = 2 if cfg.do_classifier_free_guidance else 1
+        emb = self._clip(0, _tokenize(self.tokenizers[0], texts))["last_hidden_state"]
+        return emb.reshape(n_br, len(prompts), *emb.shape[1:]), None

@@ -1,3 +1,5 @@
-from .scheduling import BaseScheduler, DDIMScheduler, get_scheduler
+from .scheduling import (BaseScheduler, DDIMScheduler, DPMSolverMultistepScheduler,
+                         EulerDiscreteScheduler, get_scheduler)
 
-__all__ = ["BaseScheduler", "DDIMScheduler", "get_scheduler"]
+__all__ = ["BaseScheduler", "DDIMScheduler", "DPMSolverMultistepScheduler",
+           "EulerDiscreteScheduler", "get_scheduler"]

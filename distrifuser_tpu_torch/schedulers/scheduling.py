@@ -1,12 +1,19 @@
-"""DDIM for the PyTorch port.
+"""DDIM, Euler and DPM-Solver++ (2M) for the PyTorch port.
 
 Counterpart of distrifuser_tpu/schedulers/scheduling.py (``BaseScheduler``,
-``DDIMScheduler``, ``get_scheduler``).  Numerics follow diffusers 0.24 with
-the SD/SDXL defaults: scaled_linear betas in [0.00085, 0.012], 1000 train
-steps, epsilon or v prediction, "leading" spacing, steps_offset=1.  The
-coefficient tables are computed in numpy at ``set_timesteps`` and held as
-float32 tensors, so ``step`` runs the same float32 arithmetic as the JAX
-version.  Euler, DPM++ 2M and flow-Euler are ROADMAP queue 1 item 2.
+``DDIMScheduler``, ``EulerDiscreteScheduler``,
+``DPMSolverMultistepScheduler``, ``get_scheduler``): the reference CLI's
+``--scheduler {ddim,euler,dpm-solver}``.  Numerics follow diffusers 0.24
+with the SD/SDXL defaults: scaled_linear betas in [0.00085, 0.012], 1000
+train steps, epsilon or v prediction, "leading" spacing, steps_offset=1.
+The coefficient tables are computed in numpy at ``set_timesteps`` and held
+as float32 tensors, so ``step`` runs the same float32 arithmetic as the
+JAX version.  DPM++ 2M carries the previous step's x0 and lambda in the
+state ``init_state`` returns.  The schedulers run eagerly, outside any
+captured UNet graph: Euler's ``scale_model_input`` is applied to the
+latent before it is copied into the graph's static input.  The
+rectified-flow sampler ("flow-euler", the SD3 family) is ROADMAP queue 1
+item 14.
 """
 
 from __future__ import annotations
@@ -110,13 +117,89 @@ class DDIMScheduler(BaseScheduler):
         return x_prev.to(sample.dtype), state
 
 
-SCHEDULERS = {"ddim": DDIMScheduler}
+class EulerDiscreteScheduler(BaseScheduler):
+    """diffusers EulerDiscreteScheduler (no churn): the latent lives in
+    sigma space, x = x0 + sigma * eps."""
+
+    def set_timesteps(self, n: int):
+        self.num_inference_steps = n
+        ts = _leading_timesteps(self.num_train_timesteps, n, self.steps_offset)
+        ac = self._alphas_cumprod
+        sigmas = (((1.0 - ac) / ac) ** 0.5)[ts]
+        self._timesteps = torch.from_numpy(ts.copy())
+        self._sigmas = torch.tensor(np.append(sigmas, 0.0), dtype=torch.float32)
+        self._init_noise_sigma = float((sigmas.max() ** 2 + 1) ** 0.5)
+        return self
+
+    @property
+    def init_noise_sigma(self) -> float:
+        return self._init_noise_sigma
+
+    def scale_model_input(self, sample, step_index):
+        sigma = self._sigmas[step_index]
+        return (sample / torch.sqrt(sigma**2 + 1.0)).to(sample.dtype)
+
+    def step(self, sample, model_output, step_index, state):
+        sigma, sigma_next = self._sigmas[step_index], self._sigmas[step_index + 1]
+        x = sample.float()
+        ac_t = 1.0 / (sigma**2 + 1.0)  # alpha_cumprod of this sigma
+        eps = self._to_epsilon(x * torch.sqrt(ac_t), model_output.float(), ac_t)
+        x_next = x + (sigma_next - sigma) * eps
+        return x_next.to(sample.dtype), state
+
+
+class DPMSolverMultistepScheduler(BaseScheduler):
+    """DPM-Solver++ 2M (diffusers algorithm_type="dpmsolver++",
+    solver_order=2, lower_order_final): first order at the first step,
+    which has no history, and at the last, where sigma reaches 0."""
+
+    def set_timesteps(self, n: int):
+        self.num_inference_steps = n
+        ts = _leading_timesteps(self.num_train_timesteps, n, self.steps_offset)
+        ac = self._alphas_cumprod
+        alpha = np.sqrt(ac[ts])
+        sigma = np.sqrt(1.0 - ac[ts])
+        lam = np.log(alpha) - np.log(sigma)
+        # past the last step: sigma 0, lambda +inf, and the update returns x0
+        self._timesteps = torch.from_numpy(ts.copy())
+        self._alpha = torch.tensor(np.append(alpha, 1.0), dtype=torch.float32)
+        self._sigma = torch.tensor(np.append(sigma, 0.0), dtype=torch.float32)
+        self._lambda = torch.tensor(np.append(lam, np.inf), dtype=torch.float32)
+        return self
+
+    def init_state(self, latent_shape) -> Dict[str, Any]:
+        """The previous step's x0 and lambda; None before the first step."""
+        return {"x0_prev": None, "lambda_prev": None}
+
+    def step(self, sample, model_output, step_index, state):
+        i = step_index
+        a_t, s_t, lam_t = self._alpha[i], self._sigma[i], self._lambda[i]
+        a_n, s_n, lam_n = self._alpha[i + 1], self._sigma[i + 1], self._lambda[i + 1]
+        x = sample.float()
+        eps = self._to_epsilon(sample, model_output.float(), a_t**2)
+        x0 = (x - s_t * eps) / a_t
+        h = lam_n - lam_t
+        d = x0
+        if state["x0_prev"] is not None and i < self.num_inference_steps - 1:
+            r = torch.clamp((lam_t - state["lambda_prev"]) / torch.clamp(h, min=1e-12),
+                            min=1e-12)
+            d = (1.0 + 1.0 / (2.0 * r)) * x0 - (1.0 / (2.0 * r)) * state["x0_prev"]
+        # x_next = (s_n / s_t) x - a_n (e^-h - 1) D; at the last step s_n = 0
+        # and h = inf, so it is a_n D = D
+        x_next = (s_n / s_t) * x - a_n * torch.expm1(-h) * d
+        return x_next.to(sample.dtype), {"x0_prev": x0, "lambda_prev": lam_t}
+
+
+SCHEDULERS = {"ddim": DDIMScheduler, "euler": EulerDiscreteScheduler,
+              "dpm-solver": DPMSolverMultistepScheduler}
 
 
 def get_scheduler(name: str, **kwargs) -> BaseScheduler:
-    if name not in SCHEDULERS:
+    """The scheduler of a CLI name (the reference's run_sdxl.py choices)."""
+    if name == "flow-euler":
         raise ValueError(
-            f"scheduler must be one of {sorted(SCHEDULERS)} in the PyTorch port "
-            f"(others are ROADMAP queue 1 item 2), got {name!r}"
-        )
+            "'flow-euler' is the rectified-flow sampler of the SD3 family, "
+            "ROADMAP queue 1 item 14, not yet in the PyTorch port")
+    if name not in SCHEDULERS:
+        raise ValueError(f"scheduler must be one of {sorted(SCHEDULERS)}, got {name!r}")
     return SCHEDULERS[name](**kwargs)

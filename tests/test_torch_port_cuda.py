@@ -49,9 +49,15 @@ def _assert_close(got, want):
     "b,lq,lk,heads,d",
     [(2, 4096, 4096, 10, 64), (2, 1000, 77, 20, 64), (1, 300, 300, 1, 512),
      (2, 64, 64, 4, 16), (1, 256, 256, 1, 32), (2, 1024, 1024, 20, 64),
-     (2, 1000, 1000, 5, 64), (1, 200, 333, 3, 128), (1, 130, 257, 2, 256)],
+     (2, 1000, 1000, 5, 64), (1, 200, 333, 3, 128), (1, 130, 257, 2, 256),
+     (2, 4096, 4096, 8, 40), (2, 4096, 77, 8, 40), (2, 1024, 1024, 8, 80),
+     (2, 1024, 77, 8, 80), (2, 256, 256, 8, 160), (2, 64, 77, 8, 160),
+     (1, 100, 333, 3, 40), (1, 77, 200, 5, 80), (1, 130, 70, 3, 160)],
     ids=["unet_self", "text_cross_ragged", "vae_ragged", "tiny", "tiny_vae_d32",
-         "unet_self_level2", "self_lq1000", "d128_ragged", "d256_ragged"],
+         "unet_self_level2", "self_lq1000", "d128_ragged", "d256_ragged",
+         "sd15_self_d40", "sd15_cross_d40", "sd15_self_d80", "sd15_cross_d80",
+         "sd15_self_d160", "sd15_mid_cross_d160", "d40_ragged", "d80_ragged",
+         "d160_ragged"],
 )
 def test_kernel_matches_reference_on_card(b, lq, lk, heads, d):
     _need_card()
@@ -77,8 +83,9 @@ def test_kernel_kv_len_mask_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "b,lq,lk,heads,d,kv_len",
-    [(2, 1000, 1024, 4, 64, 700), (2, 512, 512, 4, 64, 129), (1, 256, 384, 1, 512, 150)],
-    ids=["d64_strided_kv", "d64_one_past_tile", "d512"],
+    [(2, 1000, 1024, 4, 64, 700), (2, 512, 512, 4, 64, 129), (1, 256, 384, 1, 512, 150),
+     (2, 300, 384, 8, 40, 150), (1, 200, 300, 2, 160, 65)],
+    ids=["d64_strided_kv", "d64_one_past_tile", "d512", "d40", "d160"],
 )
 def test_kernel_kv_len_masks_real_rows_on_card(b, lq, lk, heads, d, kv_len):
     """Rows of the fused to_kv output between kv_len and Lk hold large
@@ -136,6 +143,46 @@ def test_kernel_at_patch_shapes_on_card(n, b, lq, heads):
 
 
 @pytest.mark.cuda
+def test_kernel_d40_pad_columns_read_zeros_on_card():
+    """d = 40 runs on 48 columns: q's 8 past each head must load as zeros,
+    not as the next head's first 8, here 300 in q, k and v (read as q's pad
+    columns they would swamp the logits); k's and v's pad columns, a
+    neighbouring head's, must add nothing."""
+    _need_card()
+    q, k, v = _flash_operands(2, 256, 256, 8, 40, seed=4)
+    for t in (q, k, v):
+        t.unflatten(-1, (8, 40))[..., :8] = 300.0
+    _assert_close(port_flash.flash_sdpa(q, k, v, heads=8),
+                  port_flash.flash_sdpa_reference(q, k, v, heads=8))
+
+
+@pytest.mark.cuda
+def test_kernel_d40_shifted_heads_on_card():
+    """A d = 40 head whose K columns start off a 32-byte boundary (every odd
+    head) loads from 8 columns earlier: its Q pad columns are then the 8
+    before the head and must load as zeros, not as the previous head's
+    last 8, here 300 in q (k and v plain)."""
+    _need_card()
+    q, k, v = _flash_operands(2, 256, 256, 8, 40, seed=6)
+    q.unflatten(-1, (8, 40))[..., -8:] = 300.0
+    _assert_close(port_flash.flash_sdpa(q, k, v, heads=8),
+                  port_flash.flash_sdpa_reference(q, k, v, heads=8))
+
+
+@pytest.mark.cuda
+def test_kernel_d40_separate_kv_on_card():
+    """d = 40 with k and v separate tensors of exactly [B, Lk, C], as the VAE
+    gives them: the last head's k and v pad columns lie past the last row
+    of the allocation and must load as zeros, not be read."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(2, 200, 120, device="cuda", generator=g).bfloat16()
+               for _ in range(3))
+    _assert_close(port_flash.flash_sdpa(q, k, v, heads=3),
+                  port_flash.flash_sdpa_reference(q, k, v, heads=3))
+
+
+@pytest.mark.cuda
 def test_kernel_variants_fit_the_card():
     """Every head dim has an instance whose block fits one SM."""
     _need_card()
@@ -153,7 +200,7 @@ def test_kernel_wrapper_raises_instead_of_falling_back():
         port_flash.flash_sdpa(q, q, q, heads=1)  # float32 on the card
     qb = q.bfloat16()
     with pytest.raises(ValueError, match="head dims"):
-        port_flash.flash_sdpa(qb[..., :40], qb[..., :40], qb[..., :40], heads=1)
+        port_flash.flash_sdpa(qb[..., :24], qb[..., :24], qb[..., :24], heads=1)
     q48 = torch.randn(1, 128, 96, device="cuda").bfloat16()
     with pytest.raises(ValueError, match="head dims"):
         port_flash.flash_sdpa(q48, q48, q48, heads=2)  # d = 48
@@ -388,3 +435,78 @@ def test_quant_fused_wrapper_refusals():
         port_qmm.quant_matmul(xq, wq, sw, sx=sx, out_dtype=torch.bfloat16, bias=bias.float())
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         port_qmm.quant_matmul(xq, wq, sw, sx=sx, out_dtype=torch.float16)
+
+
+# ---------------------------------------------------------------------------
+# the tiny SD pipeline: bf16 on the card against float32 on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _tiny_sd_pipeline(device, dtype, scheduler, **fields):
+    """An SD 1.5-shaped tiny pipeline (conv projections, head dims 40 and
+    80, so the new instances run) from seeded weights, on ``device``."""
+    from distrifuser_tpu_torch import DistriConfig, DistriSDPipeline
+    from distrifuser_tpu_torch.models import clip, unet, vae
+    from distrifuser_tpu_torch.models.unet import cast_params
+
+    ucfg = unet.UNetConfig(
+        block_out_channels=(80, 80, 160, 160),
+        down_block_types=("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",),
+        up_block_types=("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3,
+        layers_per_block=1, transformer_layers_per_block=(1, 1, 1, 1),
+        num_attention_heads=(2, 2, 2, 2), cross_attention_dim=32, norm_num_groups=8,
+        use_linear_projection=False, addition_embed_type=None,
+        projection_class_embeddings_input_dim=0)
+    vcfg, tcfg = vae.tiny_vae_config(), clip.tiny_clip_config(hidden=32)
+    gen = torch.Generator().manual_seed(0)
+    u, v, t = (cast_params(x, dtype, device) for x in (
+        unet.init_unet_params(gen, ucfg), vae.init_vae_params(gen, vcfg),
+        clip.init_clip_params(gen, tcfg)))
+    cfg = DistriConfig(device=device, height=128, width=128, **fields)
+    return DistriSDPipeline.from_params(cfg, ucfg, u, vcfg, v, [tcfg], [t],
+                                        scheduler=scheduler)
+
+
+def _tiny_sd_latents(pipe):
+    import numpy as np
+
+    latents = np.random.RandomState(0).randn(1, 16, 16, 4).astype(np.float32)
+    return pipe("a lighthouse", num_inference_steps=3, latents=latents,
+                output_type="latent").images[0]
+
+
+@pytest.mark.cuda
+def test_tiny_sd_pipeline_on_card_matches_cpu():
+    """The tiny SD 1.5-shaped pipeline in bf16 on the card against float32
+    on the CPU, same weights and latents (Euler): relative L2 of the
+    latents <= 8e-2, the bound of chip_smoke.py's tiny checks, and 20
+    flash launches per UNet evaluation."""
+    _need_card()
+    import numpy as np
+
+    from distrifuser_tpu_torch.models import unet
+
+    ref = _tiny_sd_latents(_tiny_sd_pipeline("cpu", torch.float32, "euler"))
+    pipe = _tiny_sd_pipeline("cuda", torch.bfloat16, "euler")
+    port_flash.flash_sdpa.launches = 0
+    got = _tiny_sd_latents(pipe)
+    assert port_flash.flash_sdpa.launches == 3 * unet.attention_calls_per_forward(
+        pipe.unet_config)
+    assert np.isfinite(got).all()
+    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 8e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler", ["euler", "dpm-solver"])
+def test_tiny_sd_graphed_equals_eager_on_card(scheduler):
+    """Under CUDA graphs the scheduler runs outside the captured UNet step:
+    Euler's scaled input goes into the graph's static input at every step,
+    nothing of it is captured, so the graphed latents equal the eager ones
+    bit for bit."""
+    _need_card()
+    import numpy as np
+
+    graphed = _tiny_sd_latents(_tiny_sd_pipeline("cuda", torch.bfloat16, scheduler))
+    eager = _tiny_sd_latents(_tiny_sd_pipeline("cuda", torch.bfloat16, scheduler,
+                                               use_cuda_graph=False))
+    np.testing.assert_array_equal(graphed, eager)

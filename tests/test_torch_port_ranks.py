@@ -144,3 +144,26 @@ def pipeline_worker(rank, world, in_path, out_path):
     torch.save({"latent": latent, "image": image, "steps": steps,
                 "phase_counts": phases},
                f"{out_path}.rank{rank}")
+
+
+def sd_pipeline_worker(rank, world, in_path, out_path):
+    """The tiny SD pipeline at this world in each case of ``cases`` (config
+    fields), from the UNet, VAE and text configs' fields and trees in the
+    input: latents after 3 steps with the phase counts.  Saves {case:
+    (latent, phase counts)}."""
+    from distrifuser_tpu_torch import DistriConfig, DistriSDPipeline
+    from distrifuser_tpu_torch.models import clip, unet, vae
+
+    inp = torch.load(in_path)
+    out = {}
+    for case in inp["cases"]:
+        cfg = DistriConfig(device="cpu", height=128, width=128, **case)
+        pipe = DistriSDPipeline.from_params(
+            cfg, unet.UNetConfig(**inp["unet_config"]), inp["unet"],
+            vae.VAEConfig(**inp["vae_config"]), inp["vae"],
+            [clip.CLIPTextConfig(**inp["text_config"])], [inp["text"]],
+            scheduler=inp["scheduler"])
+        latent = pipe(inp["prompt"], latents=inp["latents"], num_inference_steps=3,
+                      output_type="latent").images[0]
+        out[tuple(sorted(case.items()))] = (latent, dict(pipe.runner.phase_counts))
+    torch.save(out, f"{out_path}.rank{rank}")

@@ -1,8 +1,9 @@
 """PyTorch port: import hygiene and device resolution.
 
 The port and ``chip_smoke.py`` must import neither ``jax`` nor the JAX
-package (an AST walk over every source), and the port must refuse to run
-quietly on the CPU when no card is present.
+package, nor ``safetensors``, ``regex`` or ``transformers`` (an AST walk
+over every source, imports inside functions included), and the port must
+refuse to run quietly on the CPU when no card is present.
 """
 
 import ast
@@ -18,7 +19,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "distrifuser_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_port_ranks.py"
 ]
-FORBIDDEN = ("jax", "jaxlib", "distrifuser_tpu", "tests")
+# the JAX package, and packages the machine with the card does not have
+# (the port reads safetensors and tokenizes in pure Python)
+FORBIDDEN = ("jax", "jaxlib", "distrifuser_tpu", "tests", "safetensors", "regex",
+             "transformers")
 
 
 def _imported_roots(path):
@@ -41,7 +45,8 @@ def test_port_has_sources():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "flash_attention.py", "quant_matmul.py", "quantize.py",
             "unet.py", "pipelines.py", "collectives.py", "context.py",
-            "graphs.py", "unet_tp.py", "test_torch_port_ranks.py"} <= names
+            "graphs.py", "unet_tp.py", "test_torch_port_ranks.py", "safetensors.py",
+            "bpe.py"} <= names
     for source in ("flash_attention.cu", "quant_matmul.cu", "quantize_rows.cu", "sm90.cuh"):
         assert (ROOT / "distrifuser_tpu_torch" / "csrc" / source).exists()
 
