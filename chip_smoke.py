@@ -68,15 +68,33 @@ Phases (any failure raises, and the script exits non-zero):
    Every launch count is set to 0 just before each measured call and read
    just after it: flash 4*140 + 1 in each, quant_matmul and quantize_rows
    0 in the dense call and 4*533 + 70 each in each quantized one (derived
-   from the config), graph replays counting the launches they captured;
+   from the config), graph replays counting the launches they captured.
+   On the dense pipeline, eagerly and graphed: img2img from a seeded
+   1024x1024 image at strength 0.5 of 4 steps (steps 2 and 3 run; flash
+   2*140 + 1 for the VAE encoder + 1 for the decoder; graphed equal to
+   eager bit for bit), and the handoff, a call to ``denoising_end=0.5``
+   then one from ``denoising_start=0.5``, equal to one full call bit for
+   bit; then a refiner-layout UNet (SDXL's widths, 5 time ids) resumes the
+   base latent to a finite image that ``aesthetic_score`` changes;
+5a. the row-tiled decode: on the card against the CPU at the tiny size,
+   then a 2048x2048 SDXL latent decoded in 5 tiles of 64 rows and whole
+   (flash at (1, 65536, 65536, 1, 512), a row of the kernel phase), each
+   timed with its peak memory;
 5b. the SD family: DistriSDPipeline at SD 1.5's full width (UNet
    320/640/1280/1280 with 8 heads, ViT-L, SD VAE; seeded random bf16
    weights), 512x512, 4 DDIM steps, eagerly and under CUDA graphs as
    above (bit-identical; flash 4*32 + 1 = 129 a call, the eager call's
    launches by head dim 40/80/160/512 equal to the config's 40/40/48/1),
-   then one eager call each with Euler and DPM++ 2M; SD 2.1 (OpenCLIP
-   ViT-H, 5/10/20/20 heads of 64, v-prediction) at 768x768 under CUDA
-   graphs, one call after ``prepare``;
+   then one eager call each with Euler and DPM++ 2M; SD 1.5 with
+   weight_quant int8 and fp8 (quant_compute="pallas"), one graphed call
+   each, whose quantized linears run at the "@sd15" rows of the quant
+   kernel phase (4*136 + 16 launches of each quant kernel); SD 2.1
+   (OpenCLIP ViT-H, 5/10/20/20 heads of 64, v-prediction) at 768x768
+   under CUDA graphs, one call after ``prepare``;
+5c. the command-line scripts, in this process: ``run_sdxl --mode
+   benchmark`` at 1024x1024 with random weights (1 untimed, 3 timed 4-step
+   calls to latents) prints its trimmed-mean latency, and ``sd_example``
+   runs img2img from an image written to a temporary directory;
 6. multi-rank phase, one spawned process a rank: every rank on this one
    card in a gloo group whose CUDA payloads are staged through pinned host
    memory, or one card a rank over NCCL where the machine has four (a line
@@ -90,7 +108,9 @@ Phases (any failure raises, and the script exits non-zero):
    tp 2 at world 2 on one card, tp 4 on four cards) and SD 1.5's
    displaced patch path at 512x512 (world 4, CFG 2 x sp 2, ``stale_gn``,
    the reference's SD example mode, warmup 1; tiny check with the SD
-   1.5-shaped tiny pipeline).  On every rank: a finite image, the same
+   1.5-shaped tiny pipeline).  The patch run also runs one img2img call
+   at strength 0.75 of 4 steps: steps 1-3, {sync: 2, stale: 1}, the same
+   image on every rank.  On every rank: a finite image, the same
    bit for bit on all ranks, 4*140 + 1 flash launches (SD 1.5: 129), the
    steps by phase, with the wall time, step times, peak
    memory and the patch path's stale buffers by layer kind.  With ranks
@@ -100,8 +120,11 @@ Phases (any failure raises, and the script exits non-zero):
    L2 (the line says which).  The patch image against the single-card
    dense one (same weights and noise) is printed for information only.
 
-It prints one JSON line per kernel shape, a card line, the kernels line,
-and last the line {"ok": true, "device": {...}}.
+Every phase's call reads the launch counts it set to 0 just before it.
+It prints one JSON line per kernel shape, a card line, the kernels line
+(each kernel's main-path numbers, and the same for every other path:
+img2img, the handoff, the refiner, the 2048x2048 decodes, the CLI calls,
+SD 1.5's quantized calls), and last the line {"ok": true, "device": {...}}.
 
 ``--profile`` runs only the warm main path under torch.profiler, eagerly
 and under CUDA graphs, for SDXL dense, int8 and fp8 (``--weight_quant``
@@ -167,6 +190,12 @@ MULTI_RUNS = {
                    {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1},
                    "sd15"),
 }
+# img2img at 1024x1024: strength 0.5 of 4 steps runs steps 2 and 3; the
+# multi-rank run's 0.75 runs steps 1-3 (2 synchronous, 1 stale at warmup 1)
+I2I_STEPS, I2I_STRENGTH, PATCH_I2I_STRENGTH = 4, 0.5, 0.75
+HANDOFF_AT = 0.5  # denoising_end of the base call, denoising_start of the next
+REFINER_PROJ = 1280 + 5 * 256  # pooled bigG + 5 time ids of 256: the refiner layout
+DECODE_SIZE, DECODE_TILE = 2048, 64  # the row-tiled decode above 1024 px
 COLLECTIVES = "collectives (nccl)"
 FLASH_ENTRY = {"name": "flash_sdpa", "route": "cuda",
                "source": "distrifuser_tpu_torch/csrc/flash_attention.cu",
@@ -319,7 +348,7 @@ def kernel_phase(shapes, spills):
         g = torch.Generator(device="cuda").manual_seed(len(results))
         q = torch.randn(b, lq, c, device="cuda", generator=g).bfloat16()
         kv_view = None
-        if name.startswith("vae"):  # separate to_q/to_k/to_v projections
+        if "vae" in name:  # separate to_q/to_k/to_v projections
             k = torch.randn(b, lk, c, device="cuda", generator=g).bfloat16()
             v = torch.randn(b, lk, c, device="cuda", generator=g).bfloat16()
         elif name.startswith("patch_unet_self"):
@@ -333,8 +362,15 @@ def kernel_phase(shapes, spills):
                 raise AssertionError(f"{name}: the flattened KV is a copy at B = 1")
         else:  # strided views of the fused to_kv output
             k, v = torch.randn(b, lk, 2 * c, device="cuda", generator=g).bfloat16().chunk(2, -1)
+        def plain():
+            """The plain version, over query chunks of at most 2^31 logits
+            (query rows are independent)."""
+            rows = max(1, (1 << 31) // (b * heads * lk))
+            return torch.cat([fa.flash_sdpa_reference(q[:, i:i + rows], k, v, heads=heads)
+                              for i in range(0, lq, rows)], dim=1)
+
         got = fa.flash_sdpa(q, k, v, heads=heads)
-        want = fa.flash_sdpa_reference(q, k, v, heads=heads)
+        want = plain()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
         max_err, mean_err = err.max().item(), err.mean().item()
@@ -351,8 +387,7 @@ def kernel_phase(shapes, spills):
             kernel()
         host_us = (time.perf_counter() - t_host) / HOST_CALLS * 1e6
         torch.cuda.synchronize()
-        plain_ms = time_ms(lambda: fa.flash_sdpa_reference(q, k, v, heads=heads),
-                           max_iters=10)
+        plain_ms = time_ms(plain, max_iters=10)
         qh, kh, vh = (t.unflatten(-1, (heads, d)).transpose(1, 2) for t in (q, k, v))
 
         def library():
@@ -386,14 +421,15 @@ def kernel_phase(shapes, spills):
     return results
 
 
-def quant_shapes(ucfg, height, width, steps, batch=2):
+def quant_shapes(ucfg, height, width, steps, batch=2, suffix=""):
     """Every (name, M, K, N, launches per pipeline call) the quantized main
     path gives the quantized-matmul kernel: per UNet level with transformer
     blocks (tokens x batch rows; CFG folds the batch to 2) the attention
     to_q / to_out and the linear proj_in / proj_out, the self-attention
     to_kv, the GEGLU projection and the FF output, once per step; the
     cross-attention to_kv on the text tokens, once per call; and the time
-    and add embeddings and each resnet's time_emb_proj on ``batch`` rows."""
+    and add embeddings and each resnet's time_emb_proj on ``batch`` rows.
+    ``suffix`` marks another model family's rows."""
     from distrifuser_tpu_torch.models.unet import transformer_blocks_per_level
 
     blocks = transformer_blocks_per_level(ucfg)
@@ -432,7 +468,7 @@ def quant_shapes(ucfg, height, width, steps, batch=2):
     for lvl, count in enumerate(resnets):
         c = ucfg.block_out_channels[lvl]
         shapes.append((f"time_emb_proj_{c}", batch, temb, c, count * steps))
-    return shapes
+    return [(name + suffix, *rest) for name, *rest in shapes]
 
 
 def _library_gemm(xq, wq):
@@ -742,6 +778,59 @@ MODEL_NAMES = {"sdxl": "SDXL-base widths", "sd15": "SD 1.5 widths",
                "sd21": "SD 2.1 widths (v-prediction)"}
 
 
+def reset_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from distrifuser_tpu_torch.ops import flash_attention as fa
+    from distrifuser_tpu_torch.ops import quant_matmul as qm
+    from distrifuser_tpu_torch.ops import quantize as qz
+
+    fa.flash_sdpa.launches = 0
+    fa.flash_sdpa.launches_by_head_dim.clear()
+    qm.quant_matmul.launches = 0
+    qz.quantize_rows.launches = 0
+
+
+def read_counts():
+    from distrifuser_tpu_torch.ops import flash_attention as fa
+    from distrifuser_tpu_torch.ops import quant_matmul as qm
+    from distrifuser_tpu_torch.ops import quantize as qz
+
+    return {"flash_sdpa": fa.flash_sdpa.launches,
+            "quant_matmul": qm.quant_matmul.launches,
+            "quantize_rows": qz.quantize_rows.launches}
+
+
+def counted_call(fn, label, flash_expected):
+    """``fn()`` with every launch count set to 0 just before it and read
+    just after it, the card synchronised around it: (result, seconds,
+    launches); raises unless the flash kernel launched ``flash_expected``
+    times."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    if launches["flash_sdpa"] != flash_expected:
+        raise AssertionError(f"{label}: {launches['flash_sdpa']} flash launches, "
+                             f"expected {flash_expected}")
+    return out, seconds, launches
+
+
+def init_image(size, seed=0):
+    """A seeded uint8 RGB image [size, size, 3] (img2img's input)."""
+    import numpy as np
+
+    return np.random.RandomState(seed).randint(0, 256, (size, size, 3), dtype=np.uint8)
+
+
+def image_digest(img):
+    return hashlib.sha256(img.tobytes()).hexdigest()
+
+
 def pipeline_run(pipe, init_s, label, expected, model="sdxl"):
     """One 4-step call at the pipeline's size with every launch count set
     to 0 just before it and read just after it; checks the image and the
@@ -751,8 +840,6 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl"):
     import torch
 
     from distrifuser_tpu_torch.ops import flash_attention as fa
-    from distrifuser_tpu_torch.ops import quant_matmul as qm
-    from distrifuser_tpu_torch.ops import quantize as qz
 
     marks, last = [], {}
 
@@ -763,17 +850,12 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl"):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_sdpa.launches = 0
-    fa.flash_sdpa.launches_by_head_dim.clear()
-    qm.quant_matmul.launches = 0
-    qz.quantize_rows.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = pipe(PROMPT, num_inference_steps=4, seed=0, output_type="np",
                callback=on_step)
     total_s = time.perf_counter() - t0
-    launches = {"flash_sdpa": fa.flash_sdpa.launches,
-                "quant_matmul": qm.quant_matmul.launches,
-                "quantize_rows": qz.quantize_rows.launches}
+    launches = read_counts()
     by_head_dim = dict(sorted(fa.flash_sdpa.launches_by_head_dim.items()))
     img = out.images[0]
     cfg = pipe.distri_config
@@ -805,7 +887,7 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl"):
         "quant_matmul_launches": launches["quant_matmul"],
         "quantize_rows_launches": launches["quantize_rows"],
         "pixel_mean": float(pixels.mean()),
-        "image_sha256": hashlib.sha256(img.tobytes()).hexdigest(),
+        "image_sha256": image_digest(img),
     }
     return result, last["x"].float().cpu().numpy()
 
@@ -850,15 +932,15 @@ def graphed_runs(pipe, init_s, label, expected, steps=4, model="sdxl"):
     return eager, graphed, compare, graphed_x
 
 
-def pipeline_phase(expected_flash, expected_quant):
+def pipeline_phase(trees, expected_flash, expected_quant):
     """The main path three times from one set of dense trees: dense, int8
     (UNet and aux models) and fp8 (UNet), the quantized runs through the
     quantized-matmul kernel; each eagerly and under CUDA graphs, which must
-    agree bit for bit.  Returns the result lines by run and the dense
-    call's final latent."""
+    agree bit for bit; on the dense pipeline also img2img, the handoff and
+    the refiner (``img2img_handoff_phase``).  Returns the result lines by
+    run and the dense call's final latent."""
     import numpy as np
 
-    trees = build_trees()
     runs = (("dense", {}, 0),
             ("int8", {"weight_quant": "int8", "weight_quant_aux": "int8",
                       "quant_compute": "pallas"}, expected_quant),
@@ -880,8 +962,239 @@ def pipeline_phase(expected_flash, expected_quant):
             raise AssertionError(f"{label}: the graphed call differs from the eager "
                                  f"one (latent rel L2 {compare['latent_rel_l2']})")
         results[label] = graphed
+        if label == "dense":
+            results.update(img2img_handoff_phase(pipe, trees))
         del pipe
     return results, dense_latent
+
+
+def img2img_handoff_phase(pipe, trees):
+    """On the dense SDXL pipeline at 1024x1024, eagerly and under CUDA
+    graphs: img2img at strength 0.5 of 4 steps (steps 2 and 3 run: 2 x 140
+    flash launches, the encoder's 1 and the decoder's 1), graphed equal to
+    eager bit for bit; the handoff, a call to ``denoising_end=0.5`` and one
+    from ``denoising_start=0.5``, equal to one full call bit for bit in each
+    mode; then a refiner-layout UNet (SDXL's widths with the 5-id add
+    embedding, its own seeded weights) resumes the graphed base latent, and
+    ``aesthetic_score`` changes its image.  Returns the graphed lines."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+    from distrifuser_tpu_torch.models import unet
+
+    ucfg, _, vcfg, vae_p, tcfgs, text_p = trees
+    per_step = unet.attention_calls_per_forward(ucfg)
+    image = init_image(1024)
+    results, outs = {}, {}
+    for mode in ("eager", "graphed"):
+        pipe.set_stepwise(mode == "eager")
+
+        def i2i(output_type):
+            return pipe(PROMPT, image=image, strength=I2I_STRENGTH,
+                        num_inference_steps=I2I_STEPS, seed=0,
+                        output_type=output_type).images[0]
+
+        i2i("np")  # a first call picks cuDNN algorithms for the encoder
+        img, secs, launches = counted_call(lambda: i2i("np"), f"img2img {mode}",
+                                           2 * per_step + 2)
+        steps_run = dict(pipe.runner.phase_counts)
+        if steps_run != {"sync": 2, "stale": 0}:
+            raise AssertionError(f"img2img {mode}: steps by phase {steps_run}")
+        if img.shape != (1024, 1024, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"img2img {mode}: image {img.shape}")
+        outs[mode] = (img, i2i("latent"))
+        line = {"phase": "img2img", "run": mode, "height": 1024, "width": 1024,
+                "steps": I2I_STEPS, "strength": I2I_STRENGTH, "steps_by_phase": steps_run,
+                "total_s": secs, "flash_sdpa_launches": launches["flash_sdpa"],
+                "pixel_mean": float((img * 255).round().mean()),
+                "image_sha256": image_digest(img)}
+        print(json.dumps(line), flush=True)
+        results[f"img2img_{mode}"] = line
+    same = {"image_bit_identical": bool(np.array_equal(outs["eager"][0], outs["graphed"][0])),
+            "latent_bit_identical": bool(np.array_equal(outs["eager"][1], outs["graphed"][1]))}
+    print(json.dumps({"phase": "graph_vs_eager", "run": "img2img", **same}), flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"img2img: graphed differs from eager {same}")
+
+    kw = dict(num_inference_steps=4, seed=0, output_type="latent")
+    for mode in ("eager", "graphed"):
+        pipe.set_stepwise(mode == "eager")
+        full = pipe(PROMPT, **kw).images[0]
+
+        def split():
+            first = pipe(PROMPT, denoising_end=HANDOFF_AT, **kw).images[0]
+            return first, pipe(PROMPT, latents=first[None], denoising_start=HANDOFF_AT,
+                               **kw).images[0]
+
+        (mid, resumed), secs, launches = counted_call(split, f"handoff {mode}", 4 * per_step)
+        line = {"phase": "handoff", "run": mode, "height": 1024, "width": 1024, "steps": 4,
+                "at": HANDOFF_AT, "total_s": secs,
+                "flash_sdpa_launches": launches["flash_sdpa"],
+                "split_equals_full_bit_for_bit": bool(np.array_equal(resumed, full)),
+                "latent_sha256": image_digest(resumed)}
+        print(json.dumps(line), flush=True)
+        if not line["split_equals_full_bit_for_bit"]:
+            raise AssertionError(f"handoff {mode}: the split differs from the full call")
+        results[f"handoff_{mode}"] = line
+
+    rcfg = dataclasses.replace(ucfg, projection_class_embeddings_input_dim=REFINER_PROJ)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    refiner = DistriSDXLPipeline.from_params(
+        DistriConfig(height=1024, width=1024), rcfg,
+        unet.init_unet_params(gen, rcfg, torch.bfloat16), vcfg, vae_p, tcfgs, text_p)
+    init_s = time.perf_counter() - t0
+
+    def resume(**micro):
+        return refiner(PROMPT, latents=mid[None], denoising_start=HANDOFF_AT,
+                       num_inference_steps=4, seed=0, output_type="np", **micro).images[0]
+
+    resume()  # captures the refiner's graph
+    img, secs, launches = counted_call(resume, "refiner", 2 * per_step + 1)
+    scored = resume(aesthetic_score=3.0)
+    line = {"phase": "refiner", "unet": "sdxl_config widths, 5 time ids "
+            f"(projection_class_embeddings_input_dim {REFINER_PROJ}), random bf16 weights",
+            "time_ids": int(refiner._encode([PROMPT], [""])[1]["time_ids"].shape[-1]),
+            "init_s": init_s, "total_s": secs, "flash_sdpa_launches": launches["flash_sdpa"],
+            "finite": bool(np.isfinite(img).all()),
+            "aesthetic_score_changes_image": bool(np.abs(scored - img).max() > 0),
+            "image_sha256": image_digest(img)}
+    print(json.dumps(line), flush=True)
+    if not (line["finite"] and line["aesthetic_score_changes_image"] and line["time_ids"] == 5):
+        raise AssertionError(f"refiner: {line}")
+    results["refiner"] = line
+    del refiner
+    torch.cuda.empty_cache()
+    return results
+
+
+def tiled_decode_phase(trees):
+    """The row-tiled decode: on the card (bf16) against the same code on the
+    CPU (float32) at the tiny size (tile 16 of a (1, 32, 8, 4) latent,
+    relative L2 <= 8e-2); then a 2048x2048 SDXL latent (1, 256, 256, 4)
+    decoded in tiles of 64 rows (5 tiles, a flash launch each) and whole
+    (one launch at (1, 65536, 65536, 1, 512)), each timed after one untimed
+    call, with its peak memory above what was allocated before it; and the
+    2048x2048 pipeline's decoder choice (tiles of 64).  Returns the lines."""
+    import numpy as np
+    import torch
+
+    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+    from distrifuser_tpu_torch.models import vae
+    from distrifuser_tpu_torch.models.unet import cast_params
+
+    tcfg = vae.tiny_vae_config()
+    tparams = vae.init_vae_params(torch.Generator().manual_seed(0), tcfg)
+    lat = torch.from_numpy(np.random.RandomState(0).randn(1, 32, 8, 4).astype(np.float32))
+    ref = vae.decode(tparams, tcfg, lat, tile=16).numpy()
+    got = vae.decode(cast_params(tparams, torch.bfloat16, "cuda"), tcfg,
+                     lat.cuda().bfloat16(), tile=16).float().cpu().numpy()
+    rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    tiny = {"phase": "tiled_decode_tiny_check", "latent": [1, 32, 8, 4], "tile": 16,
+            "rel_l2": rel, "max_abs": float(np.abs(got - ref).max()),
+            "limit_rel_l2": TINY_REL_L2["none"]}
+    print(json.dumps(tiny), flush=True)
+    if not (np.isfinite(got).all() and rel <= TINY_REL_L2["none"]):
+        raise AssertionError(f"tiled decode bf16/card vs fp32/cpu: {tiny}")
+
+    ucfg, unet_p, vcfg, vae_p, tcfgs, text_p = trees
+    pipe = DistriSDXLPipeline.from_params(DistriConfig(height=DECODE_SIZE, width=DECODE_SIZE),
+                                          ucfg, unet_p, vcfg, vae_p, tcfgs, text_p)
+    if pipe.vae_decode_tile != DECODE_TILE:
+        raise AssertionError(f"the {DECODE_SIZE}x{DECODE_SIZE} pipeline decodes with "
+                             f"tile {pipe.vae_decode_tile}, expected {DECODE_TILE}")
+    del pipe
+    lh = DECODE_SIZE // 8
+    latent = torch.randn(1, lh, lh, 4, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0)).bfloat16()
+    lines, images = {}, {}
+    for name, tile, launches_want in (("tiled", DECODE_TILE, 5), ("whole", 0, 1)):
+        decode = lambda: vae.decode(vae_p, vcfg, latent, tile=tile)  # noqa: E731
+        decode()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        img, secs, launches = counted_call(decode, f"decode {name}", launches_want)
+        line = {"phase": "decode_2048", "run": name, "latent": [1, lh, lh, 4],
+                "tile": tile, "ms": secs * 1e3,
+                "peak_allocated_above_base_bytes": torch.cuda.max_memory_allocated() - base,
+                "flash_sdpa_launches": launches["flash_sdpa"],
+                "finite": bool(torch.isfinite(img).all())}
+        if tuple(img.shape) != (1, DECODE_SIZE, DECODE_SIZE, 3) or not line["finite"]:
+            raise AssertionError(f"decode {name}: {tuple(img.shape)}, {line}")
+        images[name] = img.float().cpu().numpy()[0]
+        lines[name] = line
+        del img
+        torch.cuda.empty_cache()
+    # information only: tiling bounds the mid attention to a tile
+    diff = np.abs(np.clip(images["tiled"] / 2 + 0.5, 0, 1)
+                  - np.clip(images["whole"] / 2 + 0.5, 0, 1))
+    lines["tiled"]["median_abs_vs_whole"] = float(np.median(diff))
+    for line in lines.values():
+        print(json.dumps(line), flush=True)
+    return lines
+
+
+def cli_phase():
+    """The command-line scripts in this process on the card, with random
+    weights: ``run_sdxl --mode benchmark`` at 1024x1024 (1 untimed and 3
+    timed 4-step calls to latents, 4 x 560 flash launches) must print its
+    trimmed-mean latency line; ``sd_example`` img2img at SD 1.5's 512x512
+    from an image written to a temporary directory (strength 0.5 of 4
+    steps: 2 x 32 flash launches, the encoder's and the decoder's) must
+    save its image.  Returns the lines."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from distrifuser_tpu_torch.cli import run_sdxl, sd_example
+    from distrifuser_tpu_torch.models import unet
+
+    lines = {}
+    argv = ["--random_weights", "--image_size", "1024", "--mode", "benchmark",
+            "--warmup_times", "1", "--test_times", "3", "--num_inference_steps", "4",
+            "--output_type", "latent"]
+    out = io.StringIO()
+    per_call = 4 * unet.attention_calls_per_forward(unet.sdxl_config())
+    with contextlib.redirect_stdout(out):
+        rc, secs, launches = counted_call(lambda: run_sdxl.main(argv), "cli run_sdxl",
+                                          4 * per_call)
+    latency = [ln for ln in out.getvalue().splitlines() if ln.startswith("Latency: ")]
+    line = {"phase": "cli", "run": "run_sdxl", "argv": " ".join(argv), "rc": rc,
+            "printed": latency, "total_s": secs, "flash_sdpa_launches": launches["flash_sdpa"]}
+    print(json.dumps(line), flush=True)
+    if rc != 0 or len(latency) != 1 or float(latency[0].split()[1]) <= 0:
+        raise AssertionError(f"run_sdxl benchmark: {line}")
+    lines["run_sdxl"] = line
+
+    tmp = tempfile.mkdtemp()
+    try:
+        from PIL import Image
+
+        path, out_path = os.path.join(tmp, "init.png"), os.path.join(tmp, "out.png")
+        Image.fromarray(init_image(SIZES["sd15"])).save(path)
+        argv = ["--random_weights", "--init_image", path, "--strength", "0.5",
+                "--num_inference_steps", "4", "--output_path", out_path]
+        per_step = unet.attention_calls_per_forward(unet.sd15_config())
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, secs, launches = counted_call(lambda: sd_example.main(argv),
+                                              "cli sd_example", 2 * per_step + 2)
+        line = {"phase": "cli", "run": "sd_example img2img", "rc": rc, "total_s": secs,
+                "flash_sdpa_launches": launches["flash_sdpa"],
+                "saved_size": Image.open(out_path).size if os.path.exists(out_path) else None}
+        print(json.dumps(line), flush=True)
+        if rc != 0 or line["saved_size"] != (SIZES["sd15"], SIZES["sd15"]):
+            raise AssertionError(f"sd_example img2img: {line}")
+        lines["sd_example"] = line
+    finally:
+        shutil.rmtree(tmp)
+    return lines
 
 
 def expected_flash_launches(model, steps=4):
@@ -892,11 +1205,14 @@ def expected_flash_launches(model, steps=4):
     return steps * unet.attention_calls_per_forward(model_configs(model)[0]) + 1
 
 
-def sd_pipeline_phase(by_head_dim):
+def sd_pipeline_phase(by_head_dim, expected_quant15):
     """The SD family's main path: SD 1.5 at 512x512 (DDIM) eagerly and under
     CUDA graphs, which must agree bit for bit, with the eager call's flash
     launches by head dim equal to ``by_head_dim``; one eager call each
-    with Euler and DPM++ 2M; SD 2.1 at 768x768 (OpenCLIP ViT-H,
+    with Euler and DPM++ 2M; SD 1.5 with weight_quant int8 and fp8 under
+    quant_compute="pallas", one call each under graphs captured by
+    ``prepare`` (``expected_quant15`` launches of the quantized-matmul and
+    quantization kernels a call); SD 2.1 at 768x768 (OpenCLIP ViT-H,
     v-prediction) under graphs, captured by ``prepare``, one call.  Returns
     the result lines by run."""
     expected = {"flash_sdpa": expected_flash_launches("sd15"), "quant_matmul": 0,
@@ -921,6 +1237,19 @@ def sd_pipeline_phase(by_head_dim):
         line, _ = pipeline_run(pipe, init_s, f"sd15 {scheduler}", expected, "sd15")
         print(json.dumps(line), flush=True)
         results[f"sd15_{scheduler}"] = line
+        del pipe
+    for mode in ("int8", "fp8"):
+        pipe, init_s = build_pipeline(trees, "sd15", weight_quant=mode,
+                                      quant_compute="pallas")
+        t0 = time.perf_counter()
+        pipe.prepare(4)
+        capture_s = time.perf_counter() - t0
+        line, _ = pipeline_run(pipe, init_s, f"sd15 {mode} graphed",
+                               {**expected, "quant_matmul": expected_quant15,
+                                "quantize_rows": expected_quant15}, "sd15")
+        line["prepare_capture_s"] = capture_s
+        print(json.dumps(line), flush=True)
+        results[f"sd15_{mode}"] = line
         del pipe
     del trees
     trees = build_trees("sd21")
@@ -1052,6 +1381,8 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
                         out_dir, f"profile_{label}_{kind}_rank{rank}.txt"))
             np.save(os.path.join(out_dir, f"latent_{label}_rank{rank}.npy"), latent)
             out[label] = {"lines": lines, "tiny": tiny, "compare": compare}
+            if label == "patch":
+                out[label]["img2img"] = _multi_rank_img2img(pipe, name, model)
             del pipe
             torch.cuda.empty_cache()
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -1061,6 +1392,30 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
         gc.collect()
         torch.cuda.synchronize()
         dist.destroy_process_group()
+
+
+def _multi_rank_img2img(pipe, name, model):
+    """One img2img call of a multi-rank pipeline at strength 0.75 of 4
+    steps: steps 1-3 run, 2 synchronous (counted from the first step that
+    runs) and 1 stale at warmup 1 (3 x 140 flash launches, the encoder's
+    and the decoder's).  Returns its line."""
+    import numpy as np
+
+    from distrifuser_tpu_torch.models import unet
+
+    per_step = unet.attention_calls_per_forward(model_configs(model)[0])
+    image = init_image(SIZES[model])
+    out, secs, launches = counted_call(
+        lambda: pipe(PROMPT, image=image, strength=PATCH_I2I_STRENGTH,
+                     num_inference_steps=PATCH_STEPS, seed=0, output_type="np").images[0],
+        f"{name} img2img", 3 * per_step + 2)
+    phases = dict(pipe.runner.phase_counts)
+    if phases != {"sync": 2, "stale": 1} or not np.isfinite(out).all():
+        raise AssertionError(f"{name} img2img: steps by phase {phases}")
+    return {"phase": "patch_img2img", "run": name, "strength": PATCH_I2I_STRENGTH,
+            "steps": PATCH_STEPS, "steps_by_phase": phases, "total_s": secs,
+            "use_cuda_graph": pipe.distri_config.use_cuda_graph,
+            "flash_sdpa_launches": launches["flash_sdpa"], "image_sha256": image_digest(out)}
 
 
 def _spawn(world, labels, backend, out_dir, profile):
@@ -1142,6 +1497,14 @@ def patch_phase(dense_latent, out_dir, profile=False):
                                          f"{sorted(images)}")
                 for line in lines:
                     print(json.dumps(line), flush=True)
+            if "img2img" in ranks[0][label]:
+                lines = [r[label]["img2img"] for r in ranks]
+                if len({line["image_sha256"] for line in lines}) != 1:
+                    raise AssertionError(f"{label} img2img: the ranks returned different "
+                                         "images")
+                for line in lines:
+                    print(json.dumps(line), flush=True)
+                results[label + "_img2img"] = lines[0]
             for r in ranks:
                 if r[label]["compare"] is not None:
                     compare = r[label]["compare"]
@@ -1280,6 +1643,23 @@ def kernel_entry(rows, launches, prefix="", **fields):
     }
 
 
+def path_entry(rows, weights, launches, **fields):
+    """``kernel_entry`` of another call of the path: each row whose shape
+    name starts with a prefix of ``weights`` ((prefix, factor) pairs, the
+    first match wins) counts its launches per call times the factor;
+    raises unless those add up to ``launches``, the count that call read."""
+    picked = []
+    for r in rows:
+        factor = next((f for prefix, f in weights if r["shape"].startswith(prefix)), 0)
+        if factor:
+            picked.append({**r, "launches_per_call": r["launches_per_call"] * factor})
+    want = sum(r["launches_per_call"] for r in picked)
+    if want != launches:
+        raise AssertionError(f"{fields.get('work')}: {launches} launches read, the "
+                             f"shapes account for {want}")
+    return kernel_entry(picked, launches, **fields)
+
+
 def build_kernels():
     """Build every kernel of the path, one nvcc per source, all started
     together; print each build's ptxas register and shared-memory report.
@@ -1399,7 +1779,13 @@ def main(argv) -> int:
         by_head_dim15[s[5]] = by_head_dim15.get(s[5], 0) + s[6]
     multi += [s for s in patch_attention_shapes(shapes15, n=PATCH_WORLD // 2, batch=1)
               if s[0].startswith("patch_")]
-    vae_rows = [s for s in shapes + shapes15 if s[0].startswith("vae_mid")]
+    # img2img's VAE encoder: its mid attention at the decoder's shape, once
+    # a call; the whole-latent decode of a 2048x2048 latent, once
+    enc_rows = [("i2i_vae_encoder_mid" + row[0][len("vae_mid"):], *row[1:])
+                for row in shapes + shapes15 if row[0].startswith("vae_mid")]
+    decode_rows = [("decode2048_vae_mid_whole", 1, (DECODE_SIZE // 8) ** 2,
+                    (DECODE_SIZE // 8) ** 2, 1, vcfg.block_out_channels[-1], 1)]
+    vae_rows = [s for s in shapes + shapes15 if s[0].startswith("vae_mid")] + enc_rows
     # SD 2.1 at 768x768 ("@sd21" rows): its dense call
     ucfg21, vcfg21, _ = model_configs("sd21")
     size21 = SIZES["sd21"]
@@ -1412,6 +1798,8 @@ def main(argv) -> int:
 
     def multi_entries(rows, multi_runs):
         works = {"patch": "one rank of the patch path at CFG 2 x sp 2",
+                 "patch_img2img": "one rank of the patch path's img2img call at CFG 2 x "
+                                  "sp 2 (strength 0.75 of 4 steps: steps 1-3)",
                  "naive_patch": "one rank of naive patch parallelism at CFG 2 x sp 2 "
                                 "(alternate)",
                  "tensor": f"one rank of tensor parallelism at tp {tp_n}",
@@ -1421,6 +1809,12 @@ def main(argv) -> int:
                     "sd15_patch": "patch_"}
         out = {}
         for label, lines in multi_runs.items():
+            if label == "patch_img2img":
+                out[label] = path_entry(
+                    rows_of(rows, ("patch_unet", "vae_mid", "i2i_vae_encoder_mid"), "sdxl"),
+                    [("patch_unet", 0.75), ("vae_mid", 1), ("i2i_vae_encoder_mid", 1)],
+                    lines["flash_sdpa_launches"], work=works[label])
+                continue
             fam = MULTI_RUNS[label][3]
             size = SIZES[fam]
             out[label] = kernel_entry(
@@ -1455,27 +1849,73 @@ def main(argv) -> int:
                                      "one rank of SD 1.5's patch path at CFG 2 x sp 2 "
                                      "(stale_gn), 4-step 512x512 call, eager")]
         return finish(kernels)
-    rows = kernel_phase(shapes + shapes15 + shapes21 + multi, spills)
+    rows = kernel_phase(shapes + shapes15 + shapes21 + multi + enc_rows + decode_rows,
+                        spills)
     mrows = rows
     rows = rows_of(mrows, ("unet", "vae"), "sdxl")
     rows15 = rows_of(mrows, ("unet", "vae"), "sd15")
     rows21 = rows_of(mrows, ("unet", "vae"), "sd21")
     seconds["flash_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
-    qrows = quant_kernel_phase(qshapes)
+    qshapes15 = quant_shapes(ucfg15, size15, size15, steps, suffix=SD15)
+    per_forward15, per_call15 = unet.linear_calls(ucfg15)
+    expected_quant15 = steps * per_forward15 + per_call15
+    assert sum(s[-1] for s in qshapes15) == expected_quant15, (qshapes15, expected_quant15)
+    qrows = quant_kernel_phase(qshapes + qshapes15)
     seconds["quant_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     for weight_quant in ("none", "int8", "fp8"):
         print(json.dumps(tiny_check(weight_quant)), flush=True)
     print(json.dumps(tiny_check(model="sd15", scheduler="euler")), flush=True)
     seconds["tiny_checks"], t0 = time.perf_counter() - t0, time.perf_counter()
-    runs, dense_latent = pipeline_phase(expected_flash, expected_quant)
-    seconds["pipelines_eager_and_graphed"], t0 = time.perf_counter() - t0, time.perf_counter()
-    sd_runs = sd_pipeline_phase(by_head_dim15)
+    trees = build_trees()
+    runs, dense_latent = pipeline_phase(trees, expected_flash, expected_quant)
+    seconds["pipelines_eager_and_graphed_img2img_handoff"], t0 = (time.perf_counter() - t0,
+                                                                  time.perf_counter())
+    decodes = tiled_decode_phase(trees)
+    del trees
+    seconds["tiled_decode"], t0 = time.perf_counter() - t0, time.perf_counter()
+    sd_runs = sd_pipeline_phase(by_head_dim15, expected_quant15)
     seconds["sd_pipelines"], t0 = time.perf_counter() - t0, time.perf_counter()
+    cli = cli_phase()
+    seconds["cli"], t0 = time.perf_counter() - t0, time.perf_counter()
     multi_runs = patch_phase(dense_latent, os.path.join(args.out_dir, "multi"))
     seconds["multi_rank"] = time.perf_counter() - t0
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
-    by_mode = {mode: [r for r in qrows if r["mode"] == mode] for mode in ("int8", "fp8")}
+    by_mode = {mode: [r for r in qrows if r["mode"] == mode and family(r["shape"]) == "sdxl"]
+               for mode in ("int8", "fp8")}
+    by_mode15 = {mode: [r for r in qrows if r["mode"] == mode and family(r["shape"]) == "sd15"]
+                 for mode in ("int8", "fp8")}
+    xl_rows = rows_of(mrows, ("unet", "vae", "i2i", "decode2048"), "sdxl")
+    paths = {
+        "img2img": path_entry(xl_rows, [("unet", 0.5), ("vae_mid", 1),
+                                        ("i2i_vae_encoder_mid", 1)],
+                              runs["img2img_graphed"]["flash_sdpa_launches"],
+                              work="one graphed 1024x1024 SDXL img2img call, strength 0.5 "
+                                   "of 4 steps: 2 UNet steps, the encoder and the decoder"),
+        "handoff": path_entry(xl_rows, [("unet", 1)],
+                              runs["handoff_graphed"]["flash_sdpa_launches"],
+                              work="the graphed handoff at 0.5: a call to step 2 and one "
+                                   "from step 2 to latents, 1024x1024"),
+        "refiner": path_entry(xl_rows, [("unet", 0.5), ("vae_mid", 1)],
+                              runs["refiner"]["flash_sdpa_launches"],
+                              work="one refiner-layout call from step 2 of 4 to an image"),
+        "decode_2048_tiled": path_entry(xl_rows, [("vae_mid", 5)],
+                                        decodes["tiled"]["flash_sdpa_launches"],
+                                        work="the row-tiled decode of a 2048x2048 latent: "
+                                             "5 tiles of 64 rows"),
+        "decode_2048_whole": path_entry(xl_rows, [("decode2048", 1)],
+                                        decodes["whole"]["flash_sdpa_launches"],
+                                        work="the whole-latent decode of a 2048x2048 latent"),
+        "cli_run_sdxl": path_entry(xl_rows, [("unet", 4)],
+                                   cli["run_sdxl"]["flash_sdpa_launches"],
+                                   work="run_sdxl --mode benchmark: 4 graphed 4-step "
+                                        "1024x1024 calls to latents"),
+        "cli_sd_example": path_entry(
+            rows15 + rows_of(mrows, "i2i", "sd15"),
+            [("unet", 0.5), ("i2i_vae_encoder_mid", 1), ("vae_mid", 1)],
+            cli["sd_example"]["flash_sdpa_launches"],
+            work="sd_example img2img at 512x512, strength 0.5 of 4 steps"),
+    }
     per_call = ("(per-shape time x launches per call) at weight_quant='int8'; 'fp8' "
                 "holds the same for fp8")
     kernels = [
@@ -1489,7 +1929,8 @@ def main(argv) -> int:
                           "CUDA graphs",
                      **multi_entries(mrows, multi_runs),
                      sd15=kernel_entry(rows15, sd_runs["sd15"]["flash_sdpa_launches"]),
-                     sd21=kernel_entry(rows21, sd_runs["sd21"]["flash_sdpa_launches"])),
+                     sd21=kernel_entry(rows21, sd_runs["sd21"]["flash_sdpa_launches"]),
+                     **paths),
         *instance_entries(rows15, sd_runs["sd15_eager"]["flash_sdpa_launches_by_head_dim"],
                           "all its attention in one 4-step 512x512 SD 1.5 call (launches "
                           "counted in the eager call; the graphed one launches as many)"),
@@ -1507,7 +1948,12 @@ def main(argv) -> int:
                           "not run (library: the product alone)",
                      fp8=kernel_entry(by_mode["fp8"], runs["fp8"]["quant_matmul_launches"],
                                       "fused_"),
-                     contract={mode: kernel_entry(by_mode[mode], None) for mode in by_mode}),
+                     contract={mode: kernel_entry(by_mode[mode], None) for mode in by_mode},
+                     **{f"sd15_{mode}": kernel_entry(
+                         by_mode15[mode], sd_runs[f"sd15_{mode}"]["quant_matmul_launches"],
+                         "fused_", work=f"one graphed 4-step 512x512 SD 1.5 call at {mode}",
+                         contract=kernel_entry(by_mode15[mode], None))
+                        for mode in by_mode15}),
         kernel_entry(by_mode["int8"], runs["int8"]["quantize_rows_launches"], "quantize_",
                      name="quantize_rows", route="cuda",
                      source="distrifuser_tpu_torch/csrc/quantize_rows.cu",
@@ -1517,7 +1963,11 @@ def main(argv) -> int:
                           "Pallas kernel: the JAX package leaves quantize to XLA; plain "
                           "version compress.quantize; no single library call",
                      fp8=kernel_entry(by_mode["fp8"], runs["fp8"]["quantize_rows_launches"],
-                                      "quantize_")),
+                                      "quantize_"),
+                     **{f"sd15_{mode}": kernel_entry(
+                         by_mode15[mode], sd_runs[f"sd15_{mode}"]["quantize_rows_launches"],
+                         "quantize_", work=f"one graphed 4-step 512x512 SD 1.5 call at {mode}")
+                        for mode in by_mode15}),
     ]
     return finish(kernels)
 

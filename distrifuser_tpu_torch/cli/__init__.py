@@ -1,0 +1,8 @@
+"""Command-line scripts of the port: the counterparts of scripts/sdxl_example.py,
+scripts/sd_example.py and scripts/run_sdxl.py.
+
+    python -m distrifuser_tpu_torch.cli.sdxl_example --random_weights
+    python -m distrifuser_tpu_torch.cli.sd_example --model_path /path/to/sd-v1-5
+    torchrun --nproc_per_node 4 -m distrifuser_tpu_torch.cli.run_sdxl \\
+        --random_weights --mode benchmark --output_type latent
+"""

@@ -1,0 +1,291 @@
+"""What the port's command-line scripts share: the flag surface, the config
+built from it, the pipeline loaders, img2img input and image output.
+
+Counterpart of scripts/common.py (``add_distri_args``, ``config_from_args``,
+``img2img_kwargs``, ``save_images``, ``load_sdxl_pipeline``,
+``load_sd_pipeline``, ``FAMILY_DEFAULTS``, ``is_main_process``), with one
+flag more, ``--device`` (default: this rank's CUDA card; ``cpu`` runs the
+plain path).  Every other flag does what the JAX script's flag does or is
+refused, before any model loads, with the ROADMAP item that brings it:
+
+* ``--attn_impl`` other than gather, ``--dp_degree`` above 1, the comm
+  knobs (``--comm_batch``, ``--comm_compress``, ``--refresh_fraction``)
+  and a float32 ``--dtype`` on the card go through ``DistriConfig``'s own
+  refusals; ``--parallelism pipefusion`` through the runner's, ``--scheduler
+  flow-euler`` through ``get_scheduler``'s;
+* ``--ulysses_degree`` and ``--pipe_patches`` belong to the DiT layouts
+  (usp attention, the PipeFusion stage ring), ROADMAP queue 1 item 13;
+* ``--hybrid_loop`` has nothing to change: the port's loop is always the
+  host's, one UNet graph per phase, which is what the flag picks in the
+  JAX package (same numerics).
+
+Several ranks run under ``torchrun``: ``init_distributed`` joins the
+process group it describes (gloo on the CPU or for ranks that share a
+card, NCCL for the cards' tensors where every rank has its own).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+# per-family protocol defaults: SD runs the reference's sd_example point
+FAMILY_DEFAULTS = {
+    "sdxl": {},
+    "sd": {"image_size": [512, 512], "guidance_scale": 7.5, "sync_mode": "stale_gn"},
+}
+
+WEIGHTLESS_WARNING = (
+    "generated with the hash-based SimpleTokenizer fallback (no CLIP vocab files "
+    "were loadable): latency characteristics are valid, image content is NOT "
+    "comparable to real-prompt outputs")
+
+
+def add_distri_args(parser: argparse.ArgumentParser) -> None:
+    """The JAX scripts' flag surface (the reference's run_sdxl.py flags and
+    their extensions) plus ``--device``."""
+    parser.add_argument("--model_path", type=str, default=None,
+                        help="local diffusers snapshot dir (unet/, vae/, text_encoder*/)")
+    parser.add_argument("--random_weights", action="store_true",
+                        help="run with seeded random weights at the published widths")
+    parser.add_argument("--tiny_model", action="store_true",
+                        help="with --random_weights: the tiny test architecture "
+                        "(CPU-scale smoke runs)")
+    parser.add_argument("--prompt", type=str,
+                        default="Astronaut in a jungle, cold color palette, "
+                        "muted colors, detailed, 8k")
+    parser.add_argument("--output_path", type=str, default="output.png")
+    parser.add_argument("--num_inference_steps", type=int, default=50)
+    parser.add_argument("--image_size", type=int, nargs="*", default=[1024, 1024])
+    parser.add_argument("--guidance_scale", type=float, default=5.0)
+    parser.add_argument("--scheduler", type=str, default="ddim",
+                        choices=["ddim", "euler", "dpm-solver", "flow-euler"],
+                        help="flow-euler (SD3) is refused: ROADMAP queue 1 item 14")
+    parser.add_argument("--seed", type=int, default=1234)
+    parser.add_argument("--no_split_batch", action="store_true",
+                        help="disable CFG batch splitting")
+    parser.add_argument("--warmup_steps", type=int, default=4)
+    parser.add_argument("--sync_mode", type=str, default="corrected_async_gn",
+                        choices=["separate_gn", "stale_gn", "corrected_async_gn",
+                                 "sync_gn", "full_sync", "no_sync"])
+    parser.add_argument("--parallelism", type=str, default="patch",
+                        choices=["patch", "tensor", "naive_patch", "pipefusion"],
+                        help="pipefusion is a DiT strategy (refused for the UNet)")
+    parser.add_argument("--pipe_patches", type=int, default=None,
+                        help="PipeFusion's token chunks in flight; refused: "
+                        "ROADMAP queue 1 item 13")
+    parser.add_argument("--no_cuda_graph", action="store_true",
+                        help="run the UNet eagerly instead of replaying its CUDA graphs")
+    parser.add_argument("--split_scheme", type=str, default="row",
+                        choices=["row", "col", "alternate"])
+    parser.add_argument("--output_type", type=str, default="pil",
+                        choices=["latent", "pil"])
+    parser.add_argument("--batch_size", type=int, default=1,
+                        help="images per UNet batch (longer lists run in chunks)")
+    parser.add_argument("--dp_degree", type=int, default=1,
+                        help="independent image groups; above 1 refused: "
+                        "ROADMAP queue 1 item 17")
+    parser.add_argument("--attn_impl", type=str, default="gather",
+                        choices=["gather", "ring", "ulysses", "usp"],
+                        help="patch attention layout; ring is ROADMAP queue 1 "
+                        "item 11, ulysses and usp item 13")
+    parser.add_argument("--ulysses_degree", type=int, default=1,
+                        help="with --attn_impl usp; refused: ROADMAP queue 1 item 13")
+    parser.add_argument("--comm_batch", action="store_true",
+                        help="batched stale refresh; refused: ROADMAP queue 1 item 10")
+    parser.add_argument("--comm_compress", type=str, default="none",
+                        choices=["none", "int8", "fp8", "int8_residual"],
+                        help="refresh compression; refused: ROADMAP queue 1 item 10")
+    parser.add_argument("--refresh_fraction", type=float, default=1.0,
+                        help="PCPP partial refresh; refused: ROADMAP queue 1 item 10")
+    parser.add_argument("--weight_quant", type=str, default="none",
+                        choices=["none", "int8", "fp8"],
+                        help="hold the UNet's matmul and conv kernels as int8/fp8 "
+                        "payloads with per-channel scales (quant_compute 'auto', as "
+                        "in the JAX scripts)")
+    parser.add_argument("--weight_quant_aux", type=str, default="none",
+                        choices=["none", "int8", "fp8"],
+                        help="the same for the text encoders and the VAE")
+    parser.add_argument("--no_vae_sp", action="store_true",
+                        help="with the image in patches, decode above 1024 px in row "
+                        "tiles too (by default the JAX package decodes sequence-"
+                        "parallel there, the port the whole latent: the same image)")
+    parser.add_argument("--dtype", type=str, default=None,
+                        choices=["bfloat16", "float32"],
+                        help="compute dtype (default: bf16 on the card, float32 on "
+                        "the CPU; the card's kernels are bf16 only)")
+    parser.add_argument("--hybrid_loop", action="store_true",
+                        help="the JAX package's per-step warm-up loop; the port's "
+                        "loop always runs step by step (no effect)")
+    parser.add_argument("--num_images_per_prompt", type=int, default=1)
+    parser.add_argument("--init_image", type=str, default=None,
+                        help="img2img: path to the init image (png/jpg), sized to "
+                        "the configured height x width")
+    parser.add_argument("--strength", type=float, default=0.8,
+                        help="img2img noise strength (with --init_image)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda, cuda:N or cpu (default: the CUDA card of this "
+                        "rank's LOCAL_RANK)")
+
+
+def init_distributed(device) -> None:
+    """Join the process group torchrun describes (``WORLD_SIZE`` > 1): gloo
+    on the CPU or where ranks outnumber the cards, else gloo for CPU
+    tensors and NCCL for the cards'."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1 or dist.is_initialized():
+        return
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    if on_cpu or torch.cuda.device_count() < world:
+        backend = "gloo"
+    else:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        backend = "cpu:gloo,cuda:nccl"
+    dist.init_process_group(backend)
+
+
+def finish_distributed() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def image_size(args):
+    size = args.image_size
+    if isinstance(size, int):
+        return size, size
+    if len(size) == 1:
+        return size[0], size[0]
+    return tuple(size)
+
+
+def config_from_args(args, error):
+    """The run's ``DistriConfig``; ``error(message)`` (``parser.error``)
+    refuses a flag the port does not run."""
+    from ..utils.config import DistriConfig
+
+    if args.pipe_patches is not None or args.ulysses_degree != 1:
+        error("--pipe_patches and --ulysses_degree belong to the DiT layouts "
+              "(PipeFusion, usp attention), ROADMAP queue 1 item 13")
+    h, w = image_size(args)
+    try:
+        return DistriConfig(
+            height=h, width=w,
+            # guidance_scale <= 1 disables CFG entirely, as in the reference
+            do_classifier_free_guidance=args.guidance_scale > 1,
+            split_batch=not args.no_split_batch, warmup_steps=args.warmup_steps,
+            mode=args.sync_mode, use_cuda_graph=not args.no_cuda_graph,
+            parallelism=args.parallelism, split_scheme=args.split_scheme,
+            batch_size=args.batch_size, dp_degree=args.dp_degree,
+            attn_impl=args.attn_impl, comm_batch=args.comm_batch,
+            comm_compress=args.comm_compress, refresh_fraction=args.refresh_fraction,
+            weight_quant=args.weight_quant, weight_quant_aux=args.weight_quant_aux,
+            vae_sp=not args.no_vae_sp, device=args.device,
+            dtype=None if args.dtype is None else getattr(torch, args.dtype))
+    except (ValueError, NotImplementedError) as e:
+        error(str(e))
+
+
+def img2img_kwargs(args) -> dict:
+    """``--init_image`` / ``--strength`` as the pipeline's img2img keywords
+    ({} without an image), the image read before any model loads."""
+    if args.init_image is None:
+        return {}
+    from PIL import Image
+
+    return {"image": np.asarray(Image.open(args.init_image).convert("RGB")),
+            "strength": args.strength}
+
+
+def is_main_process() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def save_images(output, args) -> None:
+    """Save the PIL images on rank 0 (several get an ``_i`` suffix); a run
+    with the hash tokenizer leaves a warning file beside them."""
+    if not is_main_process() or args.output_type != "pil":
+        return
+    root, ext = os.path.splitext(args.output_path)
+    for i, im in enumerate(output.images):
+        path = args.output_path if len(output.images) == 1 else f"{root}_{i}{ext}"
+        im.save(path)
+        print(f"saved {path}")
+    if output.weightless_tokenizer:
+        warn_path = f"{root}.WEIGHTLESS_TOKENIZER.txt"
+        with open(warn_path, "w") as f:
+            f.write(WEIGHTLESS_WARNING + "\n")
+        print(f"WARNING: {WEIGHTLESS_WARNING} (marker: {warn_path})")
+
+
+def _configs(family: str, tiny: bool):
+    """(UNet, VAE, text encoder configs) of a family's random-weight run."""
+    from ..models import clip, unet, vae
+
+    if family == "sdxl":
+        if tiny:
+            return (unet.tiny_config(sdxl=True), vae.tiny_vae_config(),
+                    [clip.tiny_clip_config(hidden=16),
+                     clip.CLIPTextConfig(vocab_size=1000, hidden_size=16,
+                                         num_hidden_layers=2, num_attention_heads=4,
+                                         intermediate_size=32, projection_dim=32)])
+        return (unet.sdxl_config(), vae.sdxl_vae_config(),
+                [clip.clip_vit_l_config(), clip.open_clip_bigg_config()])
+    if tiny:
+        return unet.tiny_config(), vae.tiny_vae_config(), [clip.tiny_clip_config(hidden=32)]
+    return unet.sd15_config(), vae.sd_vae_config(), [clip.clip_vit_l_config()]
+
+
+def load_pipeline(family: str, args, cfg, error):
+    """The family's pipeline ("sdxl" or "sd") from ``--model_path`` or, with
+    ``--random_weights``, seeded random trees on the config's device."""
+    from ..models import clip, unet, vae
+    from ..pipelines import DistriSDPipeline, DistriSDXLPipeline
+    from ..schedulers import get_scheduler
+
+    cls = DistriSDXLPipeline if family == "sdxl" else DistriSDPipeline
+    try:
+        get_scheduler(args.scheduler)
+        if args.model_path:
+            return cls.from_pretrained(cfg, args.model_path, scheduler=args.scheduler)
+        if not args.random_weights:
+            error("pass --model_path <local diffusers snapshot> or --random_weights")
+        ucfg, vcfg, tcfgs = _configs(family, args.tiny_model)
+        gen = torch.Generator(device=cfg.device).manual_seed(0)
+        return cls.from_params(
+            cfg, ucfg, unet.init_unet_params(gen, ucfg, cfg.dtype), vcfg,
+            vae.init_vae_params(gen, vcfg, cfg.dtype), tcfgs,
+            [clip.init_clip_params(gen, tc, cfg.dtype) for tc in tcfgs],
+            scheduler=args.scheduler)
+    except (ValueError, NotImplementedError) as e:
+        error(str(e))
+
+
+def generation_kwargs(args, i2i) -> dict:
+    """The pipeline call of one generation (the seed apart)."""
+    return dict(prompt=args.prompt, num_inference_steps=args.num_inference_steps,
+                guidance_scale=args.guidance_scale, output_type=args.output_type,
+                num_images_per_prompt=args.num_images_per_prompt, **i2i)
+
+
+def run_example(family: str, argv=None) -> int:
+    """One generation of ``family`` from the command line, saved on rank 0
+    (the example scripts)."""
+    parser = argparse.ArgumentParser()
+    add_distri_args(parser)
+    parser.set_defaults(**FAMILY_DEFAULTS[family])
+    args = parser.parse_args(argv)
+    i2i = img2img_kwargs(args)  # a bad path fails before the model loads
+    init_distributed(args.device)
+    try:
+        cfg = config_from_args(args, parser.error)
+        pipeline = load_pipeline(family, args, cfg, parser.error)
+        save_images(pipeline(seed=args.seed, **generation_kwargs(args, i2i)), args)
+        del pipeline  # graphs holding NCCL work go before the process group
+    finally:
+        finish_distributed()
+    return 0

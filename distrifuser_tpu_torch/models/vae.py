@@ -1,11 +1,16 @@
-"""AutoencoderKL decoder (the SD/SDXL VAE) in PyTorch.
+"""AutoencoderKL (the SD/SDXL VAE) in PyTorch: decoder and encoder.
 
-Counterpart of distrifuser_tpu/models/vae.py.  ``decode`` is the JAX
-package's ``decode_sp`` at n == 1, where every sequence-parallel helper
-(``_conv_sp``, ``_group_norm_sp``, ``_vae_attention_sp``) is its dense op:
-the single-head mid-block attention goes through ``sdpa`` and so through
-the flash kernel (d = 512).  The row-tiled decode, the n > 1 ring and the
-encoder are ROADMAP queue 1 items 5 and 15.
+Counterpart of distrifuser_tpu/models/vae.py.  ``decode`` and ``encode``
+are the JAX package's ``decode_sp`` and ``encode_sp`` at n == 1, where
+every sequence-parallel helper (``_conv_sp``, ``_group_norm_sp``,
+``_vae_attention_sp``, ``_downsample_sp``) is its dense op: the
+single-head mid-block attention of either half goes through ``sdpa`` and
+so through the flash kernel (d = 512).  ``decode(..., tile=N)`` is the
+row-tiled decode (``_decode_tiled``): latent row tiles of one shape,
+linearly blended over their overlap, which bounds the mid attention to a
+tile (one image decodes above 1024 px as the JAX package decodes it on one
+device).  The n > 1 ring (``decode_sp``, ``encode_sp``) is ROADMAP queue 1
+item 15.
 """
 
 from __future__ import annotations
@@ -86,9 +91,12 @@ def _vae_attention(p, x, groups):
     return x + linear(p["to_out"], out).reshape(b, h, w, c)
 
 
-def decode(params, cfg: VAEConfig, latents):
+def decode(params, cfg: VAEConfig, latents, *, tile: int = 0):
     """Latent [B, h, w, 4] (already divided by scaling_factor) -> image
-    [B, 8h, 8w, 3] in [-1, 1]."""
+    [B, 8h, 8w, 3] in [-1, 1].  ``tile``: latent rows per tile (0: the
+    whole latent at once)."""
+    if tile and latents.shape[1] > tile:
+        return _decode_tiled(params, cfg, latents, tile)
     p = params["decoder"]
     groups = cfg.norm_num_groups
     x = conv2d(params["post_quant_conv"],
@@ -106,9 +114,69 @@ def decode(params, cfg: VAEConfig, latents):
     return conv2d(p["conv_out"], x)
 
 
+def _decode_tiled(params, cfg: VAEConfig, latents, tile: int, overlap: int = 8):
+    """Row-tiled decode: tiles of ``tile`` latent rows, each overlapping
+    the one before by ``min(overlap, tile // 2)`` rows, decoded whole and
+    blended linearly over the shared pixel rows (the diffusers
+    ``enable_tiling`` analog).  Every tile has one shape, the last one
+    aligned to the bottom edge."""
+    h = latents.shape[1]
+    scale = 1 << (len(cfg.block_out_channels) - 1)  # latent row -> pixel rows
+    overlap = min(overlap, tile // 2)
+    stride = tile - overlap
+    starts = list(range(0, h - tile, stride)) + [h - tile]
+    pieces = [decode(params, cfg, latents[:, s:s + tile]) for s in starts]
+    rows = []
+    for i, s in enumerate(starts):
+        piece = pieces[i]
+        if i > 0:
+            ov = (starts[i - 1] + tile - s) * scale  # pixel rows shared with the last tile
+            blend = torch.linspace(0.0, 1.0, ov, device=piece.device)[None, :, None, None]
+            piece = piece.clone()
+            piece[:, :ov] = pieces[i - 1][:, -ov:] * (1 - blend) + piece[:, :ov] * blend
+        keep = (starts[i + 1] - s) * scale if i + 1 < len(starts) else tile * scale
+        rows.append(piece[:, :keep])
+    return torch.cat(rows, dim=1)
+
+
+def _downsample(p, x):
+    """diffusers' VAE downsample: pad one zero row at the bottom and one
+    zero column at the right, then a 3x3 stride-2 conv without padding
+    (not a symmetric ``padding=1``)."""
+    return conv2d(p["conv"], F.pad(x, (0, 0, 0, 1, 0, 1)), stride=2, padding=0)
+
+
+def encode(params, cfg: VAEConfig, images, *, generator=None):
+    """Image [B, H, W, 3] in [-1, 1] -> latent [B, H/8, W/8, 4] (multiply
+    by scaling_factor for the diffusion space): the mean of the posterior,
+    or with ``generator`` (a ``torch.Generator`` on the images' device) a
+    sample mean + std * noise."""
+    p = params["encoder"]
+    groups = cfg.norm_num_groups
+    x = conv2d(p["conv_in"], images.to(p["conv_in"]["kernel"].dtype))
+    for down in p["down_blocks"]:
+        for rp in down["resnets"]:
+            x = _vae_resnet(rp, x, groups)
+        if "downsamplers" in down:
+            x = _downsample(down["downsamplers"][0], x)
+    x = _vae_resnet(p["mid_block"]["resnets"][0], x, groups)
+    x = _vae_attention(p["mid_block"]["attentions"][0], x, groups)
+    x = _vae_resnet(p["mid_block"]["resnets"][1], x, groups)
+    x = silu(group_norm(p["conv_norm_out"], x, groups=groups, eps=1e-6))
+    x = conv2d(p["conv_out"], x)
+    mean, logvar = conv2d(params["quant_conv"], x).chunk(2, dim=-1)
+    if generator is None:
+        return mean
+    std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+    noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                        dtype=mean.dtype)
+    return mean + std * noise
+
+
 def init_vae_params(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):
-    """Random decoder tree (plus post_quant_conv) on ``gen``'s device,
-    structured like the decoder half of the JAX init_vae_params tree."""
+    """Random VAE tree on ``gen``'s device, structured like the JAX
+    init_vae_params tree: decoder and post_quant_conv (drawn first),
+    encoder and quant_conv."""
     dev = gen.device
 
     def conv(kh, kw, cin, cout):
@@ -130,6 +198,11 @@ def init_vae_params(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):
         return {"kernel": torch.randn((c, c), generator=gen, device=dev) / c**0.5,
                 "bias": torch.zeros(c, device=dev)}
 
+    def mid(c):
+        return {"resnets": [resnet(c, c), resnet(c, c)],
+                "attentions": [{"group_norm": norm(c), "to_q": lin(c), "to_k": lin(c),
+                                "to_v": lin(c), "to_out": lin(c)}]}
+
     rev = list(reversed(cfg.block_out_channels))
     top = rev[0]
     up_blocks = []
@@ -143,11 +216,7 @@ def init_vae_params(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):
         c_prev = c
     decoder = {
         "conv_in": conv(3, 3, cfg.latent_channels, top),
-        "mid_block": {
-            "resnets": [resnet(top, top), resnet(top, top)],
-            "attentions": [{"group_norm": norm(top), "to_q": lin(top),
-                            "to_k": lin(top), "to_v": lin(top), "to_out": lin(top)}],
-        },
+        "mid_block": mid(top),
         "up_blocks": up_blocks,
         "conv_norm_out": norm(rev[-1]),
         "conv_out": conv(3, 3, rev[-1], cfg.out_channels),
@@ -156,4 +225,22 @@ def init_vae_params(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):
         "decoder": decoder,
         "post_quant_conv": conv(1, 1, cfg.latent_channels, cfg.latent_channels),
     }
+    # encoder: channels ascending, a downsample after every block but the last
+    chs = cfg.block_out_channels
+    down_blocks, c_prev = [], chs[0]
+    for i, c in enumerate(chs):
+        block = {"resnets": [resnet(c_prev if j == 0 else c, c)
+                             for j in range(cfg.layers_per_block)]}
+        if i < len(chs) - 1:
+            block["downsamplers"] = [{"conv": conv(3, 3, c, c)}]
+        down_blocks.append(block)
+        c_prev = c
+    params["encoder"] = {
+        "conv_in": conv(3, 3, cfg.in_channels, chs[0]),
+        "down_blocks": down_blocks,
+        "mid_block": mid(chs[-1]),
+        "conv_norm_out": norm(chs[-1]),
+        "conv_out": conv(3, 3, chs[-1], 2 * cfg.latent_channels),
+    }
+    params["quant_conv"] = conv(1, 1, 2 * cfg.latent_channels, 2 * cfg.latent_channels)
     return cast_params(params, dtype)

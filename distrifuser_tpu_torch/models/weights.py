@@ -1,7 +1,7 @@
 """Parameter trees: from the JAX package into the port, and quantized.
 
-``params_from_jax`` takes a UNet, CLIP or VAE tree as the JAX package
-builds it, with numpy leaves (what ``jax.device_get`` returns), and gives
+``params_from_jax`` takes a UNet, CLIP or VAE tree (the VAE's encoder
+and decoder) as the JAX package builds it, with numpy leaves (what ``jax.device_get`` returns), and gives
 the port's tree: the same keys and nesting, tensors for leaves.  Layouts
 that differ are transposed on the way:
 
@@ -193,9 +193,10 @@ def convert_unet_state_dict(sd, dtype=torch.float32):
 
 
 def convert_vae_state_dict(sd, dtype=torch.float32):
-    """A diffusers AutoencoderKL state dict as the port's VAE tree; the
-    mid attention's older names (query, key, value, proj_attn) are
-    renamed, and its to_k / to_v stay apart."""
+    """A diffusers AutoencoderKL state dict as the port's VAE tree (encoder,
+    decoder, quant_conv and post_quant_conv); the mid attentions' older
+    names (query, key, value, proj_attn) are renamed, and their to_k / to_v
+    stay apart."""
     renames = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out"}
     sd = {".".join(renames.get(p, p) for p in k.split(".")): v for k, v in sd.items()}
     return _convert(sd, dtype)

@@ -160,25 +160,24 @@ class DenoiseRunner:
         gather = gather_rows if scheme == ROW else gather_cols
         return gather(y, cfg.batch_group)
 
-    def _sync_steps(self, num_inference_steps: int) -> int:
-        """How many leading steps run synchronously: all of them unless the
-        image is in displaced patches, else steps 0..warmup_steps (the
-        reference counts ``counter <= warmup_steps`` as synchronous)."""
-        cfg = self.cfg
-        if cfg.parallelism != "patch" or not cfg.is_sp or cfg.mode == "full_sync":
-            return num_inference_steps
-        return min(cfg.warmup_steps + 1, num_inference_steps)
-
-    def _phases(self, num_inference_steps: int) -> List[str]:
-        """The UNet evaluation of each step: PHASE_SYNC or PHASE_STALE, or
-        ROW or COL under naive patch parallelism; one graph each."""
+    def _phases(self, end: int, start: int = 0) -> List[str]:
+        """The UNet evaluation of each of the steps ``start..end-1``:
+        PHASE_SYNC or PHASE_STALE, or ROW or COL under naive patch
+        parallelism (``alternate`` by the absolute step's parity); one graph
+        each.  Under displaced patch parallelism the synchronous steps are
+        counted from ``start``: the first ``warmup_steps + 1`` steps that
+        run (the reference counts ``counter <= warmup_steps`` as
+        synchronous), so a run that starts mid-schedule (img2img, the
+        second stage of a handoff) seeds its own stale buffers."""
         cfg = self.cfg
         if cfg.parallelism == "naive_patch" and cfg.is_sp:
             scheme = {"row": [ROW], "col": [COL], "alternate": [ROW, COL]}[cfg.split_scheme]
-            return [scheme[i % len(scheme)] for i in range(num_inference_steps)]
-        n_sync = self._sync_steps(num_inference_steps)
-        return [PHASE_SYNC if i < n_sync else PHASE_STALE
-                for i in range(num_inference_steps)]
+            return [scheme[i % len(scheme)] for i in range(start, end)]
+        n_sync = end - start
+        if cfg.parallelism == "patch" and cfg.is_sp and cfg.mode != "full_sync":
+            n_sync = min(cfg.warmup_steps + 1, n_sync)
+        return [PHASE_SYNC if i < start + n_sync else PHASE_STALE
+                for i in range(start, end)]
 
     def _inputs(self, latents, prompt_embeds, added_cond, guidance_scale):
         """The generation's tensors on this rank's device: (latent float32,
@@ -209,15 +208,16 @@ class DenoiseRunner:
             x_in = torch.cat([x_in, x_in], dim=0)
         return x_in
 
-    def _begin_graphs(self, x, my_enc, my_added, text_kv, phases) -> None:
+    def _begin_graphs(self, x, my_enc, my_added, text_kv, phases, start=0) -> None:
         """Capture (on a card) the graphs of ``phases`` for this
         generation's shape, if not yet captured, and load its
-        conditioning into their static inputs."""
+        conditioning into their static inputs; ``start`` is the first
+        step that runs."""
         check_graph_transport(self.cfg)
-        t0 = self.scheduler.timesteps()[0].to(x.device)
+        t0 = self.scheduler.timesteps()[start].to(x.device)
         stateful = [PHASE_STALE] if PHASE_STALE in phases else []
         self.graphs.begin(
-            tuple(x.shape), self._model_input(x, 0), t0, my_enc, my_added, text_kv,
+            tuple(x.shape), self._model_input(x, start), t0, my_enc, my_added, text_kv,
             list(dict.fromkeys(phases)), stateful, self._evaluate)
 
     def _evaluate(self, phase, inputs, state):
@@ -243,29 +243,42 @@ class DenoiseRunner:
     @torch.inference_mode()
     def generate(self, latents, prompt_embeds, *, guidance_scale: float = 5.0,
                  num_inference_steps: int = 50,
-                 added_cond: Optional[Dict[str, Any]] = None, callback=None):
-        """Run the loop.  ``latents``: [B, H/8, W/8, C] initial noise already
-        scaled by ``scheduler.init_noise_sigma``; ``prompt_embeds``:
-        [n_branches, B, L, C], branch 0 unconditional; every rank passes the
-        same.  ``callback(i, t, x)`` runs after every step.  Returns the
-        denoised latent, float32, the same on every rank.  Under
-        ``verbose`` the runner's first generate prints the stale buffers'
-        sizes (``comm_volume_report``), as the reference prints them when
-        it creates them."""
+                 added_cond: Optional[Dict[str, Any]] = None,
+                 start_step: int = 0, end_step: Optional[int] = None, callback=None):
+        """Run the loop over steps ``start_step..end_step-1`` of the
+        ``num_inference_steps``-step schedule (``end_step`` None: to the
+        end).  ``latents``: [B, H/8, W/8, C] initial noise already scaled by
+        ``scheduler.init_noise_sigma`` or, with ``start_step > 0``, a latent
+        at that schedule point (img2img: ``scheduler.add_noise``; a handoff:
+        the first stage's output); ``prompt_embeds``: [n_branches, B, L, C],
+        branch 0 unconditional; every rank passes the same.  The
+        scheduler's state (DPM++ 2M's history) starts fresh at
+        ``start_step``.  ``callback(i, t, x)`` runs after every step with
+        the absolute step index.  Returns the latent after ``end_step``,
+        float32, the same on every rank.  Under ``verbose`` the runner's
+        first generate prints the stale buffers' sizes
+        (``comm_volume_report``), as the reference prints them when it
+        creates them."""
         cfg, sched = self.cfg, self.scheduler
+        end = num_inference_steps if end_step is None else end_step
+        if not 0 <= start_step < num_inference_steps:
+            raise ValueError(f"start_step {start_step} outside [0, {num_inference_steps})")
+        if not start_step < end <= num_inference_steps:
+            raise ValueError(f"end_step {end_step} outside ({start_step}, "
+                             f"{num_inference_steps}]")
         sched.set_timesteps(num_inference_steps)
         x, my_enc, my_added, text_kv, gs = self._inputs(latents, prompt_embeds,
                                                         added_cond, guidance_scale)
-        phases = self._phases(num_inference_steps)
+        phases = self._phases(end, start_step)
         graphed = cfg.use_compiled_step
         if graphed:
-            self._begin_graphs(x, my_enc, my_added, text_kv, phases)
+            self._begin_graphs(x, my_enc, my_added, text_kv, phases, start_step)
         timesteps = sched.timesteps().to(x.device)
         batch = x.shape[0]
         sstate = sched.init_state(x.shape)
         self.phase_counts = {PHASE_SYNC: 0, PHASE_STALE: 0}
         state = None
-        for i, phase in enumerate(phases):
+        for i, phase in enumerate(phases, start=start_step):
             x_in = self._model_input(x, i)
             if graphed:
                 graph = self.graphs[phase]

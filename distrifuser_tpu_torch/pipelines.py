@@ -1,12 +1,14 @@
-"""User-facing text-to-image pipelines, SDXL and SD 1.x/2.x, on one device
-or n ranks.
+"""User-facing pipelines, SDXL and SD 1.x/2.x, on one device or n ranks:
+text-to-image, img2img and the base/refiner handoff.
 
 Counterpart of distrifuser_tpu/pipelines.py (``SimpleTokenizer``,
 ``_tokenizer_or_fallback``, ``_config_from_snapshot``,
-``_scheduler_from_snapshot``, ``_check_scheduler_family``, ``_tokenize``,
-``PipelineOutput``, ``_normalize_prompts``, ``_batched_generate``,
-``_DistriPipelineBase``, ``DistriSDXLPipeline`` and ``DistriSDPipeline``
-with their ``from_pretrained``, ``from_params`` and ``_encode``).
+``_scheduler_from_snapshot``, ``_prepare_init_latents``,
+``_check_scheduler_family``, ``_tokenize``, ``PipelineOutput``,
+``_normalize_prompts``, ``_batched_generate``, the decoder choice of
+``_build_decoder``, ``_DistriPipelineBase``, ``DistriSDXLPipeline`` and
+``DistriSDPipeline`` with their ``from_pretrained``, ``from_params`` and
+``_encode``).
 ``from_params`` builds a pipeline from in-memory parameter trees: the
 port's own random init (models/*.init_*_params) or JAX trees through
 ``models.weights.params_from_jax``.  ``from_pretrained`` loads a local
@@ -15,16 +17,28 @@ diffusers snapshot (``unet/``, ``vae/``, ``text_encoder/`` and, for SDXL,
 ``tokenizer*/`` vocab files; ``scheduler/scheduler_config.json``) through
 the pure-Python reader and tokenizer of ``native/``.  Initial noise comes
 from a ``torch.Generator`` seeded with ``seed`` (its numbers differ from
-JAX's); callers that need identical noise pass ``latents``.  img2img
-(VAE ``encode``), SDXL micro-conditioning and the refiner handoff are
-ROADMAP queue 1 items 5 and 6.
+JAX's); callers that need identical noise pass ``latents``.
+
+``__call__`` takes the JAX pipeline's keywords: ``image`` and ``strength``
+(img2img: the image VAE-encoded, noised to the strength's schedule point
+by ``scheduler.add_noise`` and denoised from there), ``denoising_end`` and
+``denoising_start`` (a run stopped at a fraction of the schedule hands its
+latent to a second call, e.g. a refiner's, that resumes at the same
+fraction; both round to the same step index, so matched fractions neither
+skip nor repeat a step), and SDXL's micro-conditioning (``original_size``,
+``crops_coords_top_left``, ``target_size``, ``aesthetic_score`` and their
+``negative_*`` forms), which ``DistriSDXLPipeline._encode`` turns into 6
+time ids for a base UNet or 5 for a refiner-style one; the SD family
+accepts and ignores them.  Any other keyword is refused.
 
 Under displaced patch parallelism every rank builds the same pipeline and
 makes the same call: it draws the same seeded latents, encodes the same
 prompts, denoises its patch (parallel/runner.py), decodes the whole
 latent, as the original DistriFusion does, and returns the same image.
-The sequence-parallel decode of the JAX package (``vae_sp``) is ROADMAP
-queue 1 item 15.
+Where the JAX package decodes sequence-parallel (``vae_sp``; exact, so the
+same image) the port decodes the whole latent; the ring is ROADMAP queue 1
+item 15.  Otherwise an image above 1024 px decodes in row tiles of 64
+latent rows, as the JAX package decodes it (``vae.decode(..., tile=)``).
 
 Weight quantization happens at load time, as in the JAX package's
 constructor: the UNet under ``DistriConfig.weight_quant`` with the
@@ -133,6 +147,72 @@ def _scheduler_from_snapshot(root: str, name) -> BaseScheduler:
     return get_scheduler(name, **kwargs)
 
 
+def _prepare_init_latents(cfg, scheduler, vae_params, vae_config, image, strength,
+                          num_inference_steps, n_prompts, num_images_per_prompt, seed,
+                          noise=None):
+    """The img2img entry of both families: (latents, start_step).  The
+    image, uint8 in [0, 255] or float in [0, 1], [H, W, 3] or one per
+    prompt, is VAE-encoded (its ``shift_factor`` subtracted, then scaled),
+    tiled over the prompts and repeated ``num_images_per_prompt`` times
+    (prompt-major, as ``_batched_generate`` expands the prompts) and noised
+    to step ``start_step`` of the schedule, where ``init_timestep =
+    min(max(int(steps * strength), 1), steps)`` steps remain: at least one
+    always runs.  The noise comes from a ``torch.Generator`` seeded with
+    ``seed`` unless ``noise`` is given."""
+    if not 0.0 < strength <= 1.0:
+        raise ValueError(f"strength must be in (0, 1], got {strength}")
+    init_timestep = min(max(int(num_inference_steps * strength), 1), num_inference_steps)
+    start_step = num_inference_steps - init_timestep
+    arr = np.asarray(image)
+    arr = (arr.astype(np.float32) / 255.0 if arr.dtype == np.uint8
+           else arr.astype(np.float32))
+    if arr.ndim == 3:
+        arr = arr[None]
+    if arr.min() < 0.0 or arr.max() > 1.0:
+        raise ValueError("init image must be uint8 [0,255] or float [0,1] "
+                         f"(got range [{arr.min():.3f}, {arr.max():.3f}])")
+    n_img = arr.shape[0]
+    if n_img not in (1, n_prompts):
+        raise ValueError(f"{n_img} init images for {n_prompts} prompts")
+    images = torch.from_numpy(arr * 2.0 - 1.0).to(cfg.device)  # the VAE's [-1, 1]
+    init = vae_mod.encode(vae_params, vae_config, images)
+    init = (init - vae_config.shift_factor) * vae_config.scaling_factor
+    if tuple(init.shape[1:3]) != (cfg.latent_height, cfg.latent_width):
+        raise ValueError(f"init image encodes to {tuple(init.shape[1:3])}, the config "
+                         f"wants {(cfg.latent_height, cfg.latent_width)}")
+    if n_img == 1 and n_prompts > 1:
+        init = init.repeat(n_prompts, 1, 1, 1)
+    init = init.repeat_interleave(num_images_per_prompt, dim=0)
+    if noise is None:
+        noise = torch.randn(init.shape, generator=torch.Generator().manual_seed(seed))
+    else:
+        noise = torch.from_numpy(np.array(noise, np.float32))
+        if noise.shape != init.shape:
+            raise ValueError(f"noise of shape {tuple(noise.shape)}, expected "
+                             f"{tuple(init.shape)}")
+    return scheduler.add_noise(init, noise.to(init.device), start_step), start_step
+
+
+def _handoff_steps(num_inference_steps, denoising_start, denoising_end):
+    """(start_step, end_step) of ``denoising_start`` / ``denoising_end``
+    fractions: each rounds to the nearest step index, so that a run that
+    ends at a fraction and one that starts at it neither skip nor repeat a
+    step."""
+    start_step, end_step = 0, None
+    for name, frac in (("denoising_start", denoising_start),
+                       ("denoising_end", denoising_end)):
+        if frac is not None and not 0.0 < frac < 1.0:
+            raise ValueError(f"{name} must be in (0, 1), got {frac}")
+    if denoising_end is not None:
+        end_step = int(round(num_inference_steps * denoising_end))
+        if end_step < 1:
+            raise ValueError(f"denoising_end={denoising_end} rounds to zero steps at "
+                             f"num_inference_steps={num_inference_steps}")
+    if denoising_start is not None:
+        start_step = int(round(num_inference_steps * denoising_start))
+    return start_step, end_step
+
+
 def _check_scheduler_family(scheduler: BaseScheduler, family: str) -> None:
     """Refuse a rectified-flow sampler on a family that predicts epsilon or
     v over a beta schedule: the two would run together without an error
@@ -201,7 +281,8 @@ def _batched_generate(cfg, scheduler, prompts, negs, num_images_per_prompt,
         gen = torch.Generator().manual_seed(seed)
         latents = torch.randn(lat_shape, generator=gen) * scheduler.init_noise_sigma
     else:
-        latents = torch.as_tensor(np.asarray(latents, np.float32))
+        latents = (latents.float() if isinstance(latents, torch.Tensor)
+                   else torch.as_tensor(np.asarray(latents, np.float32)))
         if tuple(latents.shape) != lat_shape:
             raise ValueError(f"latents of shape {tuple(latents.shape)}, "
                              f"expected {lat_shape}")
@@ -222,8 +303,9 @@ def _batched_generate(cfg, scheduler, prompts, negs, num_images_per_prompt,
 
 def _quantize_aux(cfg, vae_params, text_encoders):
     """Load-time quantization of the auxiliary models (VAE, CLIP text
-    encoders) under ``weight_quant_aux``, with the "dequant" policy:
-    returns ``(vae_params, [(config, params), ...])``."""
+    encoders) under ``weight_quant_aux``, with the "dequant" policy, the
+    VAE's encoder and decoder alike: returns ``(vae_params, [(config,
+    params), ...])``."""
     q = lambda p: quantize_params(p, cfg.weight_quant_aux)  # noqa: E731
     return q(vae_params), [(tc, q(tp)) for tc, tp in text_encoders]
 
@@ -248,6 +330,13 @@ class _DistriPipelineBase:
         self.scheduler = scheduler
         self.tokenizers = tokenizers
         self.runner = make_runner(distri_config, unet_config, unet_params, scheduler)
+        cfg = distri_config
+        # the JAX package's _build_decoder: where it decodes sequence-
+        # parallel (exact) the port decodes the whole latent; otherwise a
+        # latent above 128 rows decodes in row tiles of 64
+        parallel = (cfg.is_sp and cfg.vae_sp
+                    and cfg.latent_height % cfg.n_device_per_batch == 0)
+        self.vae_decode_tile = 64 if not parallel and cfg.latent_height > 128 else 0
 
     def set_weight_quant(self, mode: str) -> None:
         """Quantize the UNet's weights to ``mode`` after construction.  Only
@@ -327,27 +416,55 @@ class _DistriPipelineBase:
     def __call__(self, prompt, negative_prompt="", num_inference_steps: int = 50,
                  guidance_scale: float = 5.0, seed: int = 0,
                  output_type: str = "pil", latents=None,
-                 num_images_per_prompt: int = 1, callback=None,
-                 **kwargs) -> PipelineOutput:
+                 num_images_per_prompt: int = 1, image=None, strength: float = 0.8,
+                 denoising_start: Optional[float] = None,
+                 denoising_end: Optional[float] = None, original_size=None,
+                 crops_coords_top_left=(0, 0), target_size=None,
+                 aesthetic_score: float = 6.0, negative_original_size=None,
+                 negative_crops_coords_top_left=None, negative_target_size=None,
+                 negative_aesthetic_score: float = 2.5, callback=None,
+                 _noise=None, **kwargs) -> PipelineOutput:
+        """Generate images (module docstring for the keywords).  ``_noise``
+        replaces img2img's seeded noise draw (tests pass the JAX package's
+        own)."""
         cfg = self.distri_config
         if "height" in kwargs or "width" in kwargs:
             raise ValueError("height and width are fixed in DistriConfig")
         if kwargs:
-            raise NotImplementedError(
-                f"unsupported arguments in the PyTorch port: {sorted(kwargs)} "
-                "(img2img through VAE encode is ROADMAP queue 1 item 5; SDXL "
-                "micro-conditioning and the refiner handoff are item 6)"
-            )
+            raise TypeError(f"unexpected keyword arguments: {sorted(kwargs)}")
         if not cfg.do_classifier_free_guidance:
             guidance_scale = 1.0
         prompts, negs = _normalize_prompts(prompt, negative_prompt)
         self.scheduler.set_timesteps(num_inference_steps)
+        start_step, end_step = _handoff_steps(num_inference_steps, denoising_start,
+                                              denoising_end)
+        if denoising_start is not None and (image is not None or latents is None):
+            raise ValueError("denoising_start resumes the mid-trajectory latents of an "
+                             "earlier stage: pass them as latents (and no image; "
+                             "img2img is image + strength)")
+        if image is not None:
+            if latents is not None:
+                raise ValueError("pass either image or latents, not both")
+            latents, start_step = _prepare_init_latents(
+                cfg, self.scheduler, self.vae_params, self.vae_config, image, strength,
+                num_inference_steps, len(prompts), num_images_per_prompt, seed, _noise)
+        micro_cond = {
+            "original_size": original_size,
+            "crops_coords_top_left": crops_coords_top_left,
+            "target_size": target_size,
+            "aesthetic_score": aesthetic_score,
+            "negative_original_size": negative_original_size,
+            "negative_crops_coords_top_left": negative_crops_coords_top_left,
+            "negative_target_size": negative_target_size,
+            "negative_aesthetic_score": negative_aesthetic_score,
+        }
 
         def run_chunk(cp, cn, cl, n_real):
-            embeds, added = self._encode(cp, cn)
+            embeds, added = self._encode(cp, cn, micro_cond)
             return self.runner.generate(
                 cl, embeds, guidance_scale=guidance_scale,
                 num_inference_steps=num_inference_steps, added_cond=added,
+                start_step=start_step, end_step=end_step,
                 callback=_wrap_chunk_callback(callback, n_real),
             )
 
@@ -359,17 +476,18 @@ class _DistriPipelineBase:
 
     def _decode_to_np(self, latent) -> np.ndarray:
         """latent -> float RGB [N, H, W, 3] in [0, 1], decoded in
-        batch_size chunks.  The UNet family decodes ``latent / scaling``
-        with no shift, whatever the VAE config's ``shift_factor``: only the
-        SD3 family re-centres its latents.  (img2img, when it lands, encodes
-        as the JAX package's ``_prepare_init_latents`` does: it subtracts
-        the config's shift for every family.)"""
+        batch_size chunks, whole or in ``vae_decode_tile`` rows.  The UNet
+        family decodes ``latent / scaling`` with no shift, whatever the VAE
+        config's ``shift_factor``: only the SD3 family re-centres its
+        latents.  (img2img encodes as the JAX package's
+        ``_prepare_init_latents`` does: it subtracts the config's shift for
+        every family.)"""
         bs = self.distri_config.batch_size
         scaling = self.vae_config.scaling_factor
         images = []
         for i in range(0, latent.shape[0], bs):
             img = vae_mod.decode(self.vae_params, self.vae_config,
-                                 latent[i:i + bs] / scaling)
+                                 latent[i:i + bs] / scaling, tile=self.vae_decode_tile)
             images.append(img.float().cpu().numpy())
         image = np.concatenate(images, axis=0)
         return np.clip(image / 2 + 0.5, 0.0, 1.0)
@@ -440,15 +558,50 @@ class _DistriPipelineBase:
                    load("vae", convert_vae_state_dict),
                    _scheduler_from_snapshot(root, scheduler), tokenizers, text_encoders)
 
-    def _encode(self, prompts, negs):
+    def _encode(self, prompts, negs, micro_cond=None):
         """(branch-major text embeddings [n_branches, B, L, C], added
-        conditioning or None) of one chunk of prompts."""
+        conditioning or None) of one chunk of prompts; ``micro_cond`` holds
+        ``__call__``'s micro-conditioning keywords."""
         raise NotImplementedError
+
+
+def _time_ids(cfg, n_ids: int, n_branches: int, mc) -> List[List[float]]:
+    """SDXL's micro-conditioning time ids, one list per CFG branch
+    (unconditional first): 6 for a base UNet (original size, crop
+    top-left, target size) or 5 for a refiner-style one (original size,
+    crop top-left, aesthetic score); sizes default to the generated size,
+    crops to (0, 0).  The base layout's unconditional branch reuses the
+    positive ids unless both ``negative_original_size`` and
+    ``negative_target_size`` are given (then its crops default to (0, 0));
+    the refiner layout always builds it, with ``negative_aesthetic_score``
+    (default 2.5)."""
+    o_sz = mc.get("original_size") or (cfg.height, cfg.width)
+    crops = mc.get("crops_coords_top_left") or (0, 0)
+    t_sz = mc.get("target_size") or (cfg.height, cfg.width)
+
+    def ids(size, crop, target, score):
+        if n_ids == 5:
+            return [size[0], size[1], crop[0], crop[1], score]
+        return [size[0], size[1], crop[0], crop[1], target[0], target[1]]
+
+    pos = ids(o_sz, crops, t_sz, mc.get("aesthetic_score", 6.0))
+    if n_branches == 1:
+        return [pos]
+    both_neg_sizes = (mc.get("negative_original_size") is not None
+                      and mc.get("negative_target_size") is not None)
+    if n_ids == 6 and not both_neg_sizes:
+        return [pos, pos]
+    neg = ids(mc.get("negative_original_size") or o_sz,
+              mc.get("negative_crops_coords_top_left") or (0, 0),
+              mc.get("negative_target_size") or t_sz,
+              mc.get("negative_aesthetic_score", 2.5))
+    return [neg, pos]
 
 
 class DistriSDXLPipeline(_DistriPipelineBase):
     """SDXL: two text encoders' penultimate hidden states concatenated,
-    pooled embeds of the second, and the 6 micro-conditioning time ids."""
+    pooled embeds of the second, and the micro-conditioning time ids (6
+    for SDXL-base, 5 for a refiner-style add embedding)."""
 
     @classmethod
     def from_pretrained(cls, distri_config: DistriConfig,
@@ -464,7 +617,7 @@ class DistriSDXLPipeline(_DistriPipelineBase):
             [("text_encoder", "tokenizer", clip_mod.clip_vit_l_config),
              ("text_encoder_2", "tokenizer_2", clip_mod.open_clip_bigg_config)])
 
-    def _encode(self, prompts, negs):
+    def _encode(self, prompts, negs, micro_cond=None):
         cfg = self.distri_config
         texts = negs + prompts if cfg.do_classifier_free_guidance else prompts
         n_br = 2 if cfg.do_classifier_free_guidance else 1
@@ -474,25 +627,26 @@ class DistriSDXLPipeline(_DistriPipelineBase):
         emb = torch.cat([out1["hidden_states"][-2], out2["hidden_states"][-2]], dim=-1)
         emb = emb.reshape(n_br, b, *emb.shape[1:])
         pooled = out2["text_embeds"].reshape(n_br, b, -1)
-        # 6 time ids for the SDXL-base add-embedding width: original size,
-        # crop top-left, target size; diffusers' defaults (the generated
-        # size, no crop), the same for both CFG branches
+        # the count of time ids from the add-embedding width: 6 (SDXL-base)
+        # or 5 (refiner-style)
         ucfg = self.unet_config
         extra = ucfg.projection_class_embeddings_input_dim - pooled.shape[-1]
-        if extra != 6 * ucfg.addition_time_embed_dim:
+        n_ids, rest = divmod(extra, ucfg.addition_time_embed_dim)
+        if n_ids not in (5, 6) or rest:
             raise ValueError(
-                f"add-embedding expects {extra / ucfg.addition_time_embed_dim} "
-                "time ids; the port supports the SDXL-base layout (6)"
-            )
-        ids = [cfg.height, cfg.width, 0, 0, cfg.height, cfg.width]
+                f"cannot derive time ids: the add embedding takes {extra} values "
+                f"beyond the pooled {pooled.shape[-1]}, {ucfg.addition_time_embed_dim} "
+                "a time id; only the SDXL-base (6) and refiner-style (5) layouts "
+                "exist")
+        ids = _time_ids(cfg, n_ids, n_br, micro_cond or {})
         time_ids = torch.tensor(ids, dtype=torch.float32, device=emb.device)
-        time_ids = time_ids.expand(n_br, b, 6)
+        time_ids = time_ids[:, None].expand(n_br, b, n_ids)
         return emb, {"text_embeds": pooled, "time_ids": time_ids}
 
 
 class DistriSDPipeline(_DistriPipelineBase):
     """SD 1.x / 2.x: one text encoder's final hidden state, no added
-    conditioning."""
+    conditioning (the micro-conditioning keywords are ignored)."""
 
     @classmethod
     def from_pretrained(cls, distri_config: DistriConfig,
@@ -506,7 +660,9 @@ class DistriSDPipeline(_DistriPipelineBase):
             unet_mod.sd15_config, vae_mod.sd_vae_config,
             [("text_encoder", "tokenizer", clip_mod.clip_vit_l_config)])
 
-    def _encode(self, prompts, negs):
+    def _encode(self, prompts, negs, micro_cond=None):
+        # SD 1.x / 2.x has no micro-conditioning: the keywords are accepted
+        # for the shared __call__ and ignored, as in the JAX package
         cfg = self.distri_config
         texts = negs + prompts if cfg.do_classifier_free_guidance else prompts
         n_br = 2 if cfg.do_classifier_free_guidance else 1

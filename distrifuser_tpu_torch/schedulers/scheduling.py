@@ -9,7 +9,10 @@ train steps, epsilon or v prediction, "leading" spacing, steps_offset=1.
 The coefficient tables are computed in numpy at ``set_timesteps`` and held
 as float32 tensors, so ``step`` runs the same float32 arithmetic as the
 JAX version.  DPM++ 2M carries the previous step's x0 and lambda in the
-state ``init_state`` returns.  The schedulers run eagerly, outside any
+state ``init_state`` returns.  ``add_noise`` is the img2img entry: a clean
+latent noised to the schedule point of a step, in alphas_cumprod space
+(DDIM, DPM++ 2M) or in Euler's sigma space, ``x0 + sigma * eps``, which is
+not scaled again by ``init_noise_sigma``.  The schedulers run eagerly, outside any
 captured UNet graph: Euler's ``scale_model_input`` is applied to the
 latent before it is copied into the graph's static input.  The
 rectified-flow sampler ("flow-euler", the SD3 family) is ROADMAP queue 1
@@ -86,6 +89,16 @@ class BaseScheduler:
         assert self.num_inference_steps is not None, "call set_timesteps first"
         return self._timesteps
 
+    def add_noise(self, original, noise, step_index):
+        """``original`` noised to the schedule point ``step_index``:
+        sqrt(ac_t) x0 + sqrt(1 - ac_t) eps at t = timesteps()[step_index]
+        (diffusers ``add_noise``), computed in float32."""
+        t = int(self.timesteps()[step_index])
+        ac = torch.tensor(self._alphas_cumprod[t], dtype=torch.float32,
+                          device=original.device)
+        out = torch.sqrt(ac) * original.float() + torch.sqrt(1.0 - ac) * noise.float()
+        return out.to(original.dtype)
+
     def step(self, sample, model_output, step_index, state):
         raise NotImplementedError
 
@@ -138,6 +151,11 @@ class EulerDiscreteScheduler(BaseScheduler):
     def scale_model_input(self, sample, step_index):
         sigma = self._sigmas[step_index]
         return (sample / torch.sqrt(sigma**2 + 1.0)).to(sample.dtype)
+
+    def add_noise(self, original, noise, step_index):
+        """Euler's sigma-space latent x = x0 + sigma * eps."""
+        sigma = self._sigmas[step_index].to(original.device)
+        return (original.float() + sigma * noise.float()).to(original.dtype)
 
     def step(self, sample, model_output, step_index, state):
         sigma, sigma_next = self._sigmas[step_index], self._sigmas[step_index + 1]

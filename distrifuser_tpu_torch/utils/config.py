@@ -109,6 +109,13 @@ class DistriConfig:
     sizes once the first generation has seeded them
     (``DenoiseRunner.comm_volume_report``); ``comm_checkpoint`` is carried
     with no effect (module docstring).
+
+    ``vae_sp`` picks the decode where the image is in patches and the
+    latent rows divide among them: the JAX package then decodes sequence-
+    parallel, which is exact, and the port decodes the whole latent on
+    every rank (the same image; the ring is ROADMAP queue 1 item 15).  In
+    every other case a latent taller than 128 rows (an image above 1024
+    px) decodes in row tiles of 64, as the JAX package does.
     """
 
     height: int = 1024
@@ -132,6 +139,7 @@ class DistriConfig:
     weight_quant: str = "none"
     weight_quant_aux: str = "none"
     quant_compute: str = "auto"
+    vae_sp: bool = True
     device: Any = None
 
     # derived in __post_init__

@@ -117,8 +117,12 @@ def test_quantized_unet_matches_jax(sdxl, mode, route):
         np.testing.assert_allclose(got, want, rtol=DENSE_GATE, atol=DENSE_GATE)
         return
     assert np.abs(got - want).max() <= WHOLE_FORWARD[mode]
+    _check_per_linear(jq, jcfg, pq, pcfg, inputs, mode, route)
 
-    # per linear, on the activations of the JAX forward
+
+def _check_per_linear(jq, jcfg, pq, pcfg, inputs, mode, route):
+    """Every quantized linear of a port forward, given the activation the
+    JAX forward gave it: int8 bit for bit, fp8 within 1e-6 * max |y|."""
     with jax.disable_jit():
         jax_calls = _record(jax_linear, np.asarray,
                             lambda: _jax_forward(jq, jcfg, inputs))
@@ -231,3 +235,4 @@ def test_pipeline_quant_compute_hooks(jax_trees):
     dense.set_weight_quant("fp8")
     assert dense.weight_report()["weight_quant"] == "fp8"
     assert dense.runner.params["conv_in"]["kernel"].mode == "fp8"
+

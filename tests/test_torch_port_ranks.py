@@ -149,8 +149,9 @@ def pipeline_worker(rank, world, in_path, out_path):
 def sd_pipeline_worker(rank, world, in_path, out_path):
     """The tiny SD pipeline at this world in each case of ``cases`` (config
     fields), from the UNet, VAE and text configs' fields and trees in the
-    input: latents after 3 steps with the phase counts.  Saves {case:
-    (latent, phase counts)}."""
+    input: latents after 3 steps from the input latents, or after the
+    input's ``call`` keywords (img2img) where it has them, with the phase
+    counts.  Saves {case: (latent, phase counts)}."""
     from distrifuser_tpu_torch import DistriConfig, DistriSDPipeline
     from distrifuser_tpu_torch.models import clip, unet, vae
 
@@ -163,7 +164,7 @@ def sd_pipeline_worker(rank, world, in_path, out_path):
             vae.VAEConfig(**inp["vae_config"]), inp["vae"],
             [clip.CLIPTextConfig(**inp["text_config"])], [inp["text"]],
             scheduler=inp["scheduler"])
-        latent = pipe(inp["prompt"], latents=inp["latents"], num_inference_steps=3,
-                      output_type="latent").images[0]
+        call = inp.get("call") or {"latents": inp["latents"], "num_inference_steps": 3}
+        latent = pipe(inp["prompt"], output_type="latent", **call).images[0]
         out[tuple(sorted(case.items()))] = (latent, dict(pipe.runner.phase_counts))
     torch.save(out, f"{out_path}.rank{rank}")

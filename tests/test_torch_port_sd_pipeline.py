@@ -99,10 +99,18 @@ def test_sd_encode_has_no_added_conditioning(trees):
 
 
 def test_sd_refuses_img2img_and_micro_conditioning(trees):
+    """img2img, the handoff and the micro-conditioning keywords are part of
+    the call now (the SD family ignores the micro-conditioning, as the JAX
+    package does); a keyword the JAX pipeline does not take is still
+    refused, and the image size is still the config's."""
     pipe = _port(trees, "ddim")
-    for kwargs in ({"image": np.zeros((32, 32, 3))}, {"original_size": (64, 64)},
-                   {"denoising_end": 0.5}):
-        with pytest.raises(NotImplementedError, match="item 5.*item 6"):
+    kw = dict(num_inference_steps=2, output_type="latent")
+    plain = pipe(PROMPT, latents=_latents(), **kw).images[0]
+    micro = pipe(PROMPT, latents=_latents(), original_size=(64, 64), aesthetic_score=1.0,
+                 **kw).images[0]
+    np.testing.assert_array_equal(plain, micro)
+    for kwargs in ({"guidance_rescale": 0.7}, {"strenght": 0.5}):
+        with pytest.raises(TypeError, match="unexpected keyword arguments"):
             pipe(PROMPT, num_inference_steps=1, **kwargs)
     with pytest.raises(ValueError, match="fixed in DistriConfig"):
         pipe(PROMPT, num_inference_steps=1, height=64)

@@ -46,7 +46,7 @@ def test_port_has_sources():
     assert {"chip_smoke.py", "flash_attention.py", "quant_matmul.py", "quantize.py",
             "unet.py", "pipelines.py", "collectives.py", "context.py",
             "graphs.py", "unet_tp.py", "test_torch_port_ranks.py", "safetensors.py",
-            "bpe.py"} <= names
+            "bpe.py", "common.py", "run_sdxl.py", "sd_example.py", "sdxl_example.py"} <= names
     for source in ("flash_attention.cu", "quant_matmul.cu", "quantize_rows.cu", "sm90.cuh"):
         assert (ROOT / "distrifuser_tpu_torch" / "csrc" / source).exists()
 
