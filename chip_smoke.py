@@ -27,7 +27,12 @@ Phases (any failure raises, and the script exits non-zero):
    enqueuing 50 calls that the card has not finished; the same at the
    shapes one rank of the patch path gives the kernel (phase 6: L/n local
    queries against all L gathered keys, K and V split from the flattened
-   gathered KV, which must be a view of it at B = 1);
+   gathered KV, which must be a view of it at B = 1); and the kernel's
+   log-sum-exp instances (``return_lse=True``) at the ring attention's chunk
+   shapes ("ring_hop_l1", "ring_hop_l2": L/2 queries against one rank's L/2
+   keys), out and lse against the plain version (lse max |d| <= 1e-3), timed
+   beside ``aten._scaled_dot_product_flash_attention``, the one PyTorch call
+   that also returns the log-sum-exp;
 3. quant kernel phase: at every (M, K, N) the quantized main path gives
    the quantized-matmul kernel (derived from the UNet config), and at odd
    shapes, for int8 and fp8, on a seeded bf16 activation: hold the
@@ -45,7 +50,10 @@ Phases (any failure raises, and the script exits non-zero):
    and bf16 output for the fp8 fused form; yardsticks only) with CUDA
    events over back-to-back calls and, at the path's shapes, by device
    time under torch.profiler; the host time of a fused wrapper call; the
-   instance the shape runs (registers, shared memory, tile);
+   instance the shape runs (registers, shared memory, tile); and the
+   per-token quantization kernel at every stale-refresh payload the
+   comm-knob runs of phase 6 quantize (float32 KV and halo rows,
+   "refresh_<run>_<rows>x<cols>"), bit for bit with compress.quantize;
 4. small-input checks: the tiny SDXL pipeline in bf16 on the card against
    the same pipeline in float32 on the CPU, same weights and latents:
    dense (relative L2 of the latents <= 8e-2; 2.3e-2 measured for bf16 vs
@@ -54,7 +62,9 @@ Phases (any failure raises, and the script exits non-zero):
    CPU; <= 8e-2 and <= 2.5e-1, 4.4e-2 and 1.3e-1 measured for bf16 vs
    float32 on a CPU: fp8's 3 mantissa bits round bf16 and float32
    activations differently); and a tiny SD 1.5-shaped pipeline (conv
-   projections, head dims 40 and 80, Euler), <= 8e-2;
+   projections, head dims 40 and 80, Euler), <= 8e-2; and the step cache
+   at the tiny size on the card (interval 2, depth 1, 6 steps), graphed
+   (a "shallow" graph) equal to eager bit for bit;
 5. main path: DistriSDXLPipeline at full SDXL width (UNet, ViT-L + bigG
    text encoders, SDXL VAE; seeded random bf16 weights), one prompt,
    4 DDIM steps at 1024x1024 -> a finite (1024, 1024, 3) image, three
@@ -108,7 +118,15 @@ Phases (any failure raises, and the script exits non-zero):
    tp 2 at world 2 on one card, tp 4 on four cards) and SD 1.5's
    displaced patch path at 512x512 (world 4, CFG 2 x sp 2, ``stale_gn``,
    the reference's SD example mode, warmup 1; tiny check with the SD
-   1.5-shaped tiny pipeline).  The patch run also runs one img2img call
+   1.5-shaped tiny pipeline); and three comm-knob runs of the patch path
+   at world 4 (CFG 2 x sp 2, warmup 1): ``ring`` (attn_impl="ring"),
+   ``compress_pcpp`` (int8, refresh_fraction 0.5, 6 steps) and
+   ``stepcache_batch`` (step cache interval 2 depth 1, comm_batch, fp8),
+   each with tiny checks (int8_residual and fp8 too) and its flash,
+   log-sum-exp and quantize_rows launches against the counts derived from
+   the UNet config (``knob_expected``), its per-phase comm bytes and
+   ``comm_plan``, its step times by evaluation and its latent against the
+   plain patch run of as many steps (information only).  The patch run also runs one img2img call
    at strength 0.75 of 4 steps: steps 1-3, {sync: 2, stale: 1}, the same
    image on every rank.  On every rank: a finite image, the same
    bit for bit on all ranks, 4*140 + 1 flash launches (SD 1.5: 129), the
@@ -129,7 +147,8 @@ SD 1.5's quantized calls), and last the line {"ok": true, "device": {...}}.
 ``--profile`` runs only the warm main path under torch.profiler, eagerly
 and under CUDA graphs, for SDXL dense, int8 and fp8 (``--weight_quant``
 picks one) and SD 1.5 dense at 512x512.  ``--patch_only`` runs only the flash kernel at the multi-rank
-shapes and the multi-rank phase; with ``--profile`` each rank also
+shapes (the log-sum-exp rows too), the refresh quantization rows and the
+multi-rank phase; with ``--profile`` each rank also
 profiles one more call of each run in each mode.
 ``--quant_device_times`` runs only the device time of the quantized-matmul
 kernel's fp32 contract form at every path shape, through nothing but
@@ -179,17 +198,35 @@ GRAPH_REL_L2 = 1e-3  # graphed vs eager latent over NCCL, where not bit-identica
 # by phase; tensor parallelism without the CFG split (B = 2 on every rank)
 # and the model family (SD 1.5's patch run is the reference's sd_example
 # mode, stale_gn)
+# and the steps of its call; the comm-knob runs (``KNOB_RUNS``) are the
+# displaced patch path at CFG 2 x sp 2 with the JAX package's knobs
 MULTI_RUNS = {
     "patch": ({"warmup_steps": PATCH_WARMUP}, [{"mode": m} for m in PATCH_MODES],
-              {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1}, "sdxl"),
+              {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1}, "sdxl",
+              PATCH_STEPS),
+    "ring": ({"warmup_steps": PATCH_WARMUP, "attn_impl": "ring"},
+             [{}, {"mode": "full_sync"}], {"sync": 2, "stale": 2}, "sdxl", PATCH_STEPS),
+    "compress_pcpp": ({"warmup_steps": PATCH_WARMUP, "comm_compress": "int8",
+                       "refresh_fraction": 0.5},
+                      [{}, {"comm_compress": "int8_residual"}],
+                      {"sync": 2, "stale": 4}, "sdxl", 6),
+    "stepcache_batch": ({"warmup_steps": PATCH_WARMUP, "step_cache_interval": 2,
+                         "step_cache_depth": 1, "comm_batch": True, "comm_compress": "fp8"},
+                        [{}, {"comm_compress": "int8_residual"}],
+                        {"sync": 2, "stale": 1, "shallow": 1}, "sdxl", PATCH_STEPS),
     "naive_patch": ({"parallelism": "naive_patch", "split_scheme": "alternate"}, [{}],
-                    {"sync": PATCH_STEPS, "stale": 0}, "sdxl"),
+                    {"sync": PATCH_STEPS, "stale": 0}, "sdxl", PATCH_STEPS),
     "tensor": ({"parallelism": "tensor", "split_batch": False}, [{}],
-               {"sync": PATCH_STEPS, "stale": 0}, "sdxl"),
+               {"sync": PATCH_STEPS, "stale": 0}, "sdxl", PATCH_STEPS),
     "sd15_patch": ({"mode": "stale_gn", "warmup_steps": PATCH_WARMUP}, [{}],
                    {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1},
-                   "sd15"),
+                   "sd15", PATCH_STEPS),
 }
+KNOB_RUNS = ("ring", "compress_pcpp", "stepcache_batch")
+# the ring attention's chunk shapes at CFG 2 x sp 2 (B = 1, L / 2 queries
+# against one rank's L / 2 keys), as the flash kernel's log-sum-exp
+# instances see them: SDXL's level 1 and level 2 (mid) self-attention
+RING_HOPS = (("ring_hop_l1", 1, 2048, 2048, 10, 64), ("ring_hop_l2", 1, 512, 512, 20, 64))
 # img2img at 1024x1024: strength 0.5 of 4 steps runs steps 2 and 3; the
 # multi-rank run's 0.75 runs steps 1-3 (2 synchronous, 1 stale at warmup 1)
 I2I_STEPS, I2I_STRENGTH, PATCH_I2I_STRENGTH = 4, 0.5, 0.75
@@ -333,6 +370,254 @@ def tp_layout(cards):
     cards (tp 4, SDXL's 10 heads padded to 12); two ranks staged through
     the host on one card (tp 2), to bound the staged all-reduces."""
     return (4, 4) if cards >= PATCH_WORLD else (2, 2)
+
+
+def refresh_layers(ucfg, shallow_depth=0):
+    """(self-attention layers, 3x3 halo convs) one evaluation of the patch
+    path refreshes in a stale step: the whole UNet, or with
+    ``shallow_depth`` K the shallow part a shallow step of the step cache
+    runs (down blocks before L - K without the last one's downsampler, up
+    blocks from K on, conv_out)."""
+    levels, lpb = len(ucfg.block_out_channels), ucfg.layers_per_block
+    cut = levels - shallow_depth
+    attn = halos = 0
+    for i, btype in enumerate(ucfg.down_block_types):
+        if i >= cut:
+            break
+        halos += 2 * lpb
+        if btype == "CrossAttnDownBlock2D":
+            attn += lpb * ucfg.transformer_layers_per_block[i]
+        if i < levels - 1 and not (shallow_depth and i == cut - 1):
+            halos += 1
+    if not shallow_depth:
+        halos += 4
+        attn += ucfg.transformer_layers_per_block[-1]
+    for i, btype in enumerate(ucfg.up_block_types):
+        if i < shallow_depth:
+            continue
+        halos += 2 * (lpb + 1)
+        if btype == "CrossAttnUpBlock2D":
+            attn += (lpb + 1) * ucfg.transformer_layers_per_block[levels - 1 - i]
+        if i < levels - 1:
+            halos += 1
+    return attn, halos + 1  # conv_out
+
+
+def refresh_payloads(ucfg, height, width, n, batch, fraction=1.0, shallow_depth=0):
+    """The payloads one stale evaluation of the patch path quantizes under
+    ``comm_compress`` (one ``quantize_rows`` launch each): per
+    self-attention layer its KV rows [batch * L/n / k, 2C], per 3x3 halo
+    conv its top and bottom rows [batch * W / k, C] (halo 1), k = 1 /
+    ``fraction``; the shallow part only with ``shallow_depth``.  Returns
+    {(rows, cols): count}."""
+    levels, lpb = len(ucfg.block_out_channels), ucfg.layers_per_block
+    boc, k = ucfg.block_out_channels, round(1 / fraction)
+    lh, lw = height // 8, width // 8
+    cut = levels - shallow_depth
+    out = {}
+
+    def add(rows, cols, count=1):
+        out[(rows, cols)] = out.get((rows, cols), 0) + count
+
+    def halo(level, ch):
+        add(batch * (lw >> level) // k, ch, 2)
+
+    def attn(level, count):
+        if count:
+            add(batch * (lh >> level) * (lw >> level) // n // k, 2 * boc[level], count)
+
+    for i, btype in enumerate(ucfg.down_block_types):
+        if i >= cut:
+            break
+        for j in range(lpb):
+            halo(i, boc[max(i - 1, 0)] if j == 0 else boc[i])
+            halo(i, boc[i])
+        if btype == "CrossAttnDownBlock2D":
+            attn(i, lpb * ucfg.transformer_layers_per_block[i])
+        if i < levels - 1 and not (shallow_depth and i == cut - 1):
+            halo(i, boc[i])
+    if not shallow_depth:
+        for _ in range(4):
+            halo(levels - 1, boc[-1])
+        attn(levels - 1, ucfg.transformer_layers_per_block[-1])
+    rev = list(reversed(boc))
+    for i, btype in enumerate(ucfg.up_block_types):
+        level = levels - 1 - i
+        out_ch, in_ch = rev[i], rev[min(i + 1, levels - 1)]
+        prev_out = rev[max(i - 1, 0)]
+        if i < shallow_depth:
+            continue
+        for j in range(lpb + 1):
+            res_in = prev_out if j == 0 else out_ch
+            skip = in_ch if j == lpb else out_ch
+            halo(level, res_in + skip)
+            halo(level, out_ch)
+        if btype == "CrossAttnUpBlock2D":
+            attn(level, (lpb + 1) * ucfg.transformer_layers_per_block[level])
+        if i < levels - 1:
+            halo(level - 1, out_ch)
+    halo(0, boc[0])  # conv_out
+    return out
+
+
+def knob_expected(label, ucfg):
+    """The launches one call of a comm-knob run makes on one rank at CFG 2 x
+    sp 2: flash (a ring self-attention launches the log-sum-exp instance
+    once per chunk, n = 2; a shallow step runs only the shallow levels'
+    attention), its log-sum-exp instances, and quantize_rows (one per
+    compressed KV refresh, two per halo refresh, in every stale or shallow
+    step)."""
+    from distrifuser_tpu_torch.models import unet
+    from distrifuser_tpu_torch.parallel.stepcache import phase_step_counts
+
+    fields, _, _, _, steps = MULTI_RUNS[label]
+    n = 2
+    counts = phase_step_counts(steps, fields["warmup_steps"],
+                               fields.get("step_cache_interval", 1))
+    attn, halos = refresh_layers(ucfg)
+    depth = fields.get("step_cache_depth", 0)
+    attn_s, halos_s = refresh_layers(ucfg, depth) if depth else (0, 0)
+    full_steps = counts["sync"] + counts["stale"]
+    ring = fields.get("attn_impl") == "ring"
+    per_full = unet.attention_calls_per_forward(ucfg) + (n - 1) * attn * ring
+    flash = full_steps * per_full + counts["shallow"] * 2 * attn_s + 1
+    quant = 0
+    if fields.get("comm_compress", "none") != "none":
+        quant = counts["stale"] * (attn + 2 * halos) + counts["shallow"] * (attn_s + 2 * halos_s)
+    return {"flash_sdpa": flash, "quant_matmul": 0, "quantize_rows": quant,
+            "flash_sdpa_lse": full_steps * n * attn if ring else 0}
+
+
+def refresh_quant_shapes(ucfg, height, width):
+    """The rows of the refresh-quantization phase: every (rows, cols)
+    payload the compress_pcpp run (int8, fraction 0.5) and the
+    stepcache_batch run (fp8, full rows, its stale and shallow steps)
+    quantize, with their launches per call."""
+    from distrifuser_tpu_torch.parallel.stepcache import phase_step_counts
+
+    rows = []
+    for label, mode in (("compress_pcpp", "int8"), ("stepcache_batch", "fp8")):
+        fields, _, _, _, steps = MULTI_RUNS[label]
+        counts = phase_step_counts(steps, fields["warmup_steps"],
+                                   fields.get("step_cache_interval", 1))
+        frac = fields.get("refresh_fraction", 1.0)
+        calls = {}
+        for depth, times in ((0, counts["stale"]),
+                             (fields.get("step_cache_depth", 0), counts["shallow"])):
+            if not times:
+                continue
+            for shape, c in refresh_payloads(ucfg, height, width, 2, 1, frac, depth).items():
+                calls[shape] = calls.get(shape, 0) + c * times
+        for (m, k), c in sorted(calls.items()):
+            rows.append((f"refresh_{label}_{m}x{k}", mode, m, k, c))
+    return rows
+
+
+def refresh_quant_phase(shapes):
+    """quantize_rows at the refresh payloads (float32 rows, as the context
+    quantizes them): bit for bit with compress.quantize, timed by CUDA
+    events and device time beside the plain version; bound by bytes (float32
+    in, one byte and a float32 scale per row out).  No library call
+    computes it."""
+    import torch
+
+    from distrifuser_tpu_torch.ops import quantize as qz
+    from distrifuser_tpu_torch.parallel.compress import quantize
+
+    results = []
+    for name, mode, m, k, calls in shapes:
+        g = torch.Generator(device="cuda").manual_seed(len(results))
+        x = torch.randn(m, k, device="cuda", generator=g)
+        xq, sx = qz.quantize_rows(x, mode)
+        want_q, want_s = quantize(x, mode)
+        if not (torch.equal(xq.view(torch.uint8), want_q.view(torch.uint8))
+                and torch.equal(sx, want_s)):
+            raise AssertionError(f"quantize_rows {mode} {name}: not bit-identical to "
+                                 "compress.quantize")
+        bound, by = _bound(0.0, 4.0 * m * k + m * k + 4.0 * m)
+        row = {"shape": name, "mode": mode, "M": m, "K": k, "launches_per_call": calls,
+               "quantize_max_abs_err": 0.0,
+               "quantize_ms": time_ms(lambda: qz.quantize_rows(x, mode),
+                                      target_ms=QUANT_TARGET_MS),
+               "quantize_device_ms": device_ms(lambda: qz.quantize_rows(x, mode), iters=20,
+                                               attempts=5),
+               "quantize_plain_ms": time_ms(lambda: quantize(x, mode),
+                                            target_ms=QUANT_TARGET_MS, max_iters=5),
+               "quantize_library_ms": None, "quantize_library_device_ms": None,
+               "quantize_bound_ms": bound, "quantize_bound_by": by}
+        print(json.dumps(row), flush=True)
+        results.append(row)
+    return results
+
+
+def lse_kernel_phase():
+    """The flash kernel's log-sum-exp instances at the ring's chunk shapes
+    (``RING_HOPS``): out (float32) and lse against the plain version
+    (out max |d| <= 2e-2, mean <= 2e-3; lse max |d| <= 1e-3), timed by CUDA
+    events and device time beside the plain version and
+    ``aten._scaled_dot_product_flash_attention``, the one PyTorch call
+    that also returns the log-sum-exp."""
+    import torch
+
+    from distrifuser_tpu_torch.models import unet
+    from distrifuser_tpu_torch.ops import flash_attention as fa
+    from distrifuser_tpu_torch.parallel.stepcache import phase_step_counts
+
+    ucfg = unet.sdxl_config()
+    blocks = unet.transformer_blocks_per_level(ucfg)
+    fields, _, _, _, steps = MULTI_RUNS["ring"]
+    counts = phase_step_counts(steps, fields["warmup_steps"], 1)
+    full_steps = counts["sync"] + counts["stale"]
+    results = []
+    for name, b, lq, lk, heads, d in RING_HOPS:
+        level = int(name[-1])
+        calls = full_steps * 2 * blocks[level]  # two chunks a layer at sp 2
+        c = heads * d
+        g = torch.Generator(device="cuda").manual_seed(100 + len(results))
+        q = torch.randn(b, lq, c, device="cuda", generator=g).bfloat16()
+        k, v = torch.randn(b, lk, 2 * c, device="cuda", generator=g).bfloat16().chunk(2, -1)
+        out, lse = fa.flash_sdpa(q, k, v, heads=heads, return_lse=True)
+        want, want_lse = fa.flash_sdpa_reference(q, k, v, heads=heads, return_lse=True)
+        torch.cuda.synchronize()
+        err = (out - want).abs()
+        lse_err = (lse - want_lse).abs().max().item()
+        max_err, mean_err = err.max().item(), err.mean().item()
+        if not (max_err <= KERNEL_MAX_ABS and mean_err <= KERNEL_MEAN_ABS and lse_err <= 1e-3):
+            raise AssertionError(f"flash_sdpa lse {name}: max |d| {max_err}, mean |d| "
+                                 f"{mean_err}, lse max |d| {lse_err}")
+
+        def kernel():
+            return fa.flash_sdpa(q, k, v, heads=heads, return_lse=True)
+
+        qh, kh, vh = (t.unflatten(-1, (heads, d)).transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh)
+
+        try:
+            library_ms, library_dev_ms = time_ms(library), device_ms(library)
+        except RuntimeError as e:  # no library kernel for this layout
+            print(f"library flash attention unavailable at {name}: {e}", file=sys.stderr)
+            library_ms = library_dev_ms = None
+        flops = 4.0 * b * heads * lq * lk * d
+        nbytes = 2.0 * (b * lq * c + 2 * b * lk * c) + 4.0 * (b * lq * c + b * heads * lq)
+        ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        ms = time_ms(kernel)
+        row = {"shape": name, "B": b, "Lq": lq, "Lk": lk, "H": heads, "d": d,
+               "return_lse": True, "launches_per_call": calls, "max_abs_err": max_err,
+               "mean_abs_err": mean_err, "lse_max_abs_err": lse_err, "ms": ms,
+               "device_ms": device_ms(kernel),
+               "plain_ms": time_ms(lambda: fa.flash_sdpa_reference(
+                   q, k, v, heads=heads, return_lse=True), max_iters=10),
+               "library_ms": library_ms, "library_device_ms": library_dev_ms,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "tflops": flops / (ms * 1e-3) / 1e12, **fa.variant(d, lse=True)}
+        print(json.dumps(row), flush=True)
+        results.append(row)
+        del q, k, v, out, lse, want, want_lse, err
+        torch.cuda.empty_cache()
+    return results
 
 
 def kernel_phase(shapes, spills):
@@ -711,7 +996,8 @@ def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", **f
     if not np.isfinite(got).all():
         raise AssertionError("tiny pipeline on the card gave non-finite latents")
     rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
-    limit = TINY_REL_L2[weight_quant]
+    limit = TINY_REL_L2["fp8" if "fp8" in (weight_quant, fields.get("comm_compress"))
+                        else weight_quant]
     result = {"phase": "tiny_check", "model": model, "scheduler": scheduler,
               "weight_quant": weight_quant, "steps": steps, **fields, "rel_l2": rel,
               "max_abs": float(np.abs(got - ref).max()), "limit_rel_l2": limit}
@@ -719,6 +1005,48 @@ def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", **f
         raise AssertionError(f"tiny pipeline ({weight_quant}, {fields}) bf16/card vs "
                              f"fp32/cpu rel L2 {rel} over {limit}")
     return result
+
+
+def stepcache_graph_check():
+    """The step cache on one card at the tiny SDXL size: interval 2, depth 1,
+    warmup 1, 6 DDIM steps (2 synchronous, then shallow, full, shallow,
+    full), eagerly and under CUDA graphs, where a "shallow" graph resumes
+    from the deep feature the full graph keeps and passes the buffers it
+    skips through; the two latents must be equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+    from distrifuser_tpu_torch.models import clip, unet, vae
+    from distrifuser_tpu_torch.models.unet import cast_params
+
+    gen = torch.Generator().manual_seed(0)
+    ucfg, vcfg = unet.tiny_config(cross_attention_dim=32, sdxl=True), vae.tiny_vae_config()
+    tcfgs = [clip.tiny_clip_config(hidden=16),
+             clip.CLIPTextConfig(vocab_size=1000, hidden_size=16, num_hidden_layers=2,
+                                 num_attention_heads=4, intermediate_size=32,
+                                 projection_dim=32)]
+    trees = [cast_params(t, torch.bfloat16, "cuda")
+             for t in (unet.init_unet_params(gen, ucfg), vae.init_vae_params(gen, vcfg))]
+    texts = [cast_params(clip.init_clip_params(gen, tc), torch.bfloat16, "cuda")
+             for tc in tcfgs]
+    cfg = DistriConfig(height=128, width=128, warmup_steps=1, step_cache_interval=2,
+                       step_cache_depth=1)
+    pipe = DistriSDXLPipeline.from_params(cfg, ucfg, trees[0], vcfg, trees[1], tcfgs, texts)
+    latents = np.random.RandomState(0).randn(1, 16, 16, 4).astype(np.float32)
+    outs = {}
+    for mode in ("eager", "graphed"):
+        pipe.set_stepwise(mode == "eager")
+        outs[mode] = pipe("a lighthouse at dusk", num_inference_steps=6, latents=latents,
+                          output_type="latent").images[0]
+    phases = dict(pipe.runner.phase_counts)
+    line = {"phase": "stepcache_graph_check", "steps_by_phase": phases,
+            "graphs": sorted(pipe.runner.graphs.graphs),
+            "bit_identical": bool(np.array_equal(outs["eager"], outs["graphed"]))}
+    if phases != {"sync": 4, "stale": 0, "shallow": 2} or not line["bit_identical"] \
+            or not np.isfinite(outs["graphed"]).all():
+        raise AssertionError(f"step cache on the card: {line}")
+    return line
 
 
 def model_configs(model):
@@ -784,7 +1112,7 @@ def reset_counts():
     from distrifuser_tpu_torch.ops import quant_matmul as qm
     from distrifuser_tpu_torch.ops import quantize as qz
 
-    fa.flash_sdpa.launches = 0
+    fa.flash_sdpa.launches = fa.flash_sdpa.lse_launches = 0
     fa.flash_sdpa.launches_by_head_dim.clear()
     qm.quant_matmul.launches = 0
     qz.quantize_rows.launches = 0
@@ -796,6 +1124,7 @@ def read_counts():
     from distrifuser_tpu_torch.ops import quantize as qz
 
     return {"flash_sdpa": fa.flash_sdpa.launches,
+            "flash_sdpa_lse": fa.flash_sdpa.lse_launches,
             "quant_matmul": qm.quant_matmul.launches,
             "quantize_rows": qz.quantize_rows.launches}
 
@@ -831,11 +1160,12 @@ def image_digest(img):
     return hashlib.sha256(img.tobytes()).hexdigest()
 
 
-def pipeline_run(pipe, init_s, label, expected, model="sdxl"):
-    """One 4-step call at the pipeline's size with every launch count set
-    to 0 just before it and read just after it; checks the image and the
-    counts against ``expected`` and returns (result line, final latent).
-    An eager call also reports the flash launches by head dim."""
+def pipeline_run(pipe, init_s, label, expected, model="sdxl", num_steps=4):
+    """One ``num_steps``-step call at the pipeline's size with every launch
+    count set to 0 just before it and read just after it; checks the image
+    and the counts against ``expected`` (its keys; the log-sum-exp launches
+    must be 0 unless it names them) and returns (result line, final
+    latent).  An eager call also reports the flash launches by head dim."""
     import numpy as np
     import torch
 
@@ -852,7 +1182,7 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl"):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    out = pipe(PROMPT, num_inference_steps=4, seed=0, output_type="np",
+    out = pipe(PROMPT, num_inference_steps=num_steps, seed=0, output_type="np",
                callback=on_step)
     total_s = time.perf_counter() - t0
     launches = read_counts()
@@ -862,7 +1192,7 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl"):
     if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all():
         raise AssertionError(f"{label}: image shape {img.shape}, finite "
                              f"{np.isfinite(img).all()}")
-    if launches != expected:
+    if launches != {"flash_sdpa_lse": 0, **expected}:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
     pixels = (img * 255).round().astype(np.uint8)
     steps = [(marks[i] - marks[i - 1]) * 1e3 for i in range(1, len(marks))]
@@ -874,7 +1204,7 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl"):
         "weight_quant": report["weight_quant"],
         "weight_quant_aux": report["weight_quant_aux"],
         "quant_compute": report["quant_compute"],
-        "height": cfg.height, "width": cfg.width, "steps": 4, "prompts": 1,
+        "height": cfg.height, "width": cfg.width, "steps": num_steps, "prompts": 1,
         "init_s": init_s, "total_s": total_s,
         "first_step_ms_incl_text_encode": (marks[0] - t0) * 1e3,
         "step_ms": steps, "decode_and_copy_ms": (t0 + total_s - marks[-1]) * 1e3,
@@ -883,6 +1213,7 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl"):
         "use_cuda_graph": pipe.distri_config.use_cuda_graph,
         "weight_bytes": report["per_component_nbytes"],
         "flash_sdpa_launches": launches["flash_sdpa"],
+        "flash_sdpa_lse_launches": launches["flash_sdpa_lse"],
         **({} if cfg.use_cuda_graph else {"flash_sdpa_launches_by_head_dim": by_head_dim}),
         "quant_matmul_launches": launches["quant_matmul"],
         "quantize_rows_launches": launches["quantize_rows"],
@@ -906,7 +1237,7 @@ def graphed_runs(pipe, init_s, label, expected, steps=4, model="sdxl"):
     t0 = time.perf_counter()  # a first call loads kernels and picks algorithms
     pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
     eager_warmup_s = time.perf_counter() - t0
-    eager, eager_x = pipeline_run(pipe, init_s, label, expected, model)
+    eager, eager_x = pipeline_run(pipe, init_s, label, expected, model, steps)
     eager["warmup_call_s"] = eager_warmup_s
     pipe.set_stepwise(False)
     t0 = time.perf_counter()
@@ -915,7 +1246,8 @@ def graphed_runs(pipe, init_s, label, expected, steps=4, model="sdxl"):
     t0 = time.perf_counter()
     pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
     first_s = time.perf_counter() - t0
-    graphed, graphed_x = pipeline_run(pipe, init_s, label + " graphed", expected, model)
+    graphed, graphed_x = pipeline_run(pipe, init_s, label + " graphed", expected, model,
+                                      steps)
     graphed.update({"prepare_capture_s": capture_s, "first_graphed_call_s": first_s,
                     "graphs": sorted(pipe.runner.graphs.graphs)})
     rel = float(np.linalg.norm(graphed_x - eager_x) / np.linalg.norm(eager_x))
@@ -1329,15 +1661,18 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
                                  "with ranks sharing a card over gloo")
         out, trees = {}, {}
         for label in labels:
-            fields, tinies, want, model = MULTI_RUNS[label]
+            fields, tinies, want, model, steps = MULTI_RUNS[label]
             t0 = time.perf_counter()
             if model not in trees:
                 trees = {model: build_trees(model)}  # one family's trees at a time
             trees_s = time.perf_counter() - t0
-            expected = {"flash_sdpa": expected_flash_launches(model, PATCH_STEPS),
-                        "quant_matmul": 0, "quantize_rows": 0}
-            tiny = [tiny_check(steps=PATCH_STEPS, model=model, use_cuda_graph=False,
-                               **fields, **t) for t in tinies]
+            if label in KNOB_RUNS:
+                expected = knob_expected(label, trees[model][0])
+            else:
+                expected = {"flash_sdpa": expected_flash_launches(model, steps),
+                            "quant_matmul": 0, "quantize_rows": 0}
+            tiny = [tiny_check(steps=steps, model=model, use_cuda_graph=False,
+                               **{**fields, **t}) for t in tinies]
             pipe, init_s = build_pipeline(trees[model], model, use_cuda_graph=False,
                                           **fields)
             init_s += trees_s
@@ -1345,15 +1680,15 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
             compare = None
             if graphs:
                 eager, line, compare, latent = graphed_runs(pipe, init_s, name, expected,
-                                                            steps=PATCH_STEPS, model=model)
+                                                            steps=steps, model=model)
                 lines = [eager, line]
             else:
                 warmup_s = None
-                if label in ("patch", "sd15_patch"):
+                if label in ("patch", "sd15_patch") + KNOB_RUNS:
                     t0 = time.perf_counter()
-                    pipe(PROMPT, num_inference_steps=PATCH_STEPS, seed=0, output_type="np")
+                    pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
                     warmup_s = time.perf_counter() - t0
-                line, latent = pipeline_run(pipe, init_s, name, expected, model)
+                line, latent = pipeline_run(pipe, init_s, name, expected, model, steps)
                 line["warmup_call_s"] = warmup_s
                 lines = [line]
             cfg = pipe.distri_config
@@ -1371,6 +1706,8 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
                     "comm_volume_elements": pipe.runner.comm_volume_report(),
                     "card_used_bytes_all_ranks": total - free,
                 })
+                if label in KNOB_RUNS or label == "patch":
+                    line.update(knob_line(pipe, line, latent, label, out_dir, rank, steps))
             if profile:
                 call = lambda: pipe(PROMPT, num_inference_steps=PATCH_STEPS,  # noqa: E731
                                     seed=0, output_type="np")
@@ -1380,6 +1717,12 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
                     line["profile"] = profile_call(call, os.path.join(
                         out_dir, f"profile_{label}_{kind}_rank{rank}.txt"))
             np.save(os.path.join(out_dir, f"latent_{label}_rank{rank}.npy"), latent)
+            if label == "patch":  # the plain path at compress_pcpp's step count
+                six = MULTI_RUNS["compress_pcpp"][4]
+                x6 = pipe(PROMPT, num_inference_steps=six, seed=0,
+                          output_type="latent").images[0]
+                np.save(os.path.join(out_dir, f"latent_patch{six}_rank{rank}.npy"),
+                        np.asarray(x6, np.float32))
             out[label] = {"lines": lines, "tiny": tiny, "compare": compare}
             if label == "patch":
                 out[label]["img2img"] = _multi_rank_img2img(pipe, name, model)
@@ -1392,6 +1735,30 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
         gc.collect()
         torch.cuda.synchronize()
         dist.destroy_process_group()
+
+
+def knob_line(pipe, line, latent, label, out_dir, rank, steps):
+    """What a displaced-patch run adds to its pipeline line: the per-phase
+    comm report and ``comm_plan`` (bytes a step of each phase exchanges, and
+    the call's total), the measured step times grouped by the evaluation
+    each step ran, the steps by phase, and the latent's relative L2 against
+    the plain patch run of as many steps (information only)."""
+    import numpy as np
+
+    rep = pipe.runner.comm_volume_report(per_phase=True)
+    plan = pipe.comm_plan(steps)
+    phases = pipe.runner._phases(steps)
+    step_ms = {}
+    for phase, ms in zip(phases[1:], line["step_ms"]):  # step_ms[i] ends step i + 1
+        step_ms.setdefault(phase, []).append(ms)
+    extra = {"comm_bytes_per_step": rep["bytes"], "comm_elements_per_step": rep["phases"],
+             "comm_plan": plan, "step_ms_by_phase": step_ms, "evaluations": phases}
+    plain = os.path.join(out_dir, f"latent_patch{'' if steps == 4 else steps}_rank{rank}.npy")
+    if label != "patch" and os.path.exists(plain):
+        ref = np.load(plain).reshape(latent.shape)
+        extra["latent_rel_l2_vs_plain_patch"] = float(
+            np.linalg.norm(latent - ref) / np.linalg.norm(ref))
+    return extra
 
 
 def _multi_rank_img2img(pipe, name, model):
@@ -1473,7 +1840,7 @@ def patch_phase(dense_latent, out_dir, profile=False):
     cards = torch.cuda.device_count()
     tp_world, tp_n = tp_layout(cards)
     transport = patch_transport(PATCH_WORLD)
-    spawns = [(PATCH_WORLD, ["patch", "naive_patch"])]
+    spawns = [(PATCH_WORLD, ["patch", *KNOB_RUNS, "naive_patch"])]
     if tp_world == PATCH_WORLD:
         spawns[0][1].append("tensor")
     else:
@@ -1715,8 +2082,9 @@ def main(argv) -> int:
                         help="where --profile writes its full kernel tables and "
                              "the multi-rank phase its ranks' results")
     parser.add_argument("--patch_only", action="store_true",
-                        help="only the multi-rank runs (patch, naive patch, tensor "
-                             "parallelism): their flash shapes and the multi-rank phase")
+                        help="only the multi-rank runs (patch, the comm-knob runs, "
+                             "naive patch, tensor parallelism): their flash and "
+                             "refresh-quantization shapes and the multi-rank phase")
     parser.add_argument("--quant_device_times", action="store_true",
                         help="only time the quantized-matmul kernel's contract form "
                              "on the card at every path shape (device time)")
@@ -1809,6 +2177,9 @@ def main(argv) -> int:
                     "sd15_patch": "patch_"}
         out = {}
         for label, lines in multi_runs.items():
+            if label in KNOB_RUNS:
+                out[label] = knob_entry(rows, label, lines)
+                continue
             if label == "patch_img2img":
                 out[label] = path_entry(
                     rows_of(rows, ("patch_unet", "vae_mid", "i2i_vae_encoder_mid"), "sdxl"),
@@ -1823,6 +2194,25 @@ def main(argv) -> int:
                 work=works[label] + f", 4-step {size}x{size} call")
         return out
 
+    def knob_entry(rows, label, lines):
+        """The flash kernel in one call of a comm-knob run on one rank: the
+        ring's chunks at the log-sum-exp rows, every other attention at the
+        patch rows (a shallow step runs level 1's only)."""
+        fields, _, counts, _, steps = MULTI_RUNS[label]
+        full = counts["sync"] + counts["stale"]
+        if label == "ring":
+            weights = [("ring_hop", 1), ("patch_unet_cross", full / 4), ("vae_mid", 1)]
+        elif "shallow" in counts:
+            weights = [("patch_unet_self_l1", (full + counts["shallow"]) / 4),
+                       ("patch_unet_cross_l1", (full + counts["shallow"]) / 4),
+                       ("patch_unet", full / 4), ("vae_mid", 1)]
+        else:
+            weights = [("patch_unet", full / 4), ("vae_mid", 1)]
+        picked = rows_of(rows, ("ring_hop", "patch_unet", "vae_mid"), "sdxl")
+        return path_entry(picked, weights, lines[-1]["flash_sdpa_launches"],
+                          work=f"one rank of the {label} run ({fields}) at CFG 2 x sp 2, "
+                               f"{steps}-step 1024x1024 call")
+
     def instance_entries(rows, by_head_dim, work):
         """One entry per SD 1.5 instance: its rows, the launches counted
         by head dim in the main path's eager call."""
@@ -1832,9 +2222,29 @@ def main(argv) -> int:
                              work=f"the d = {d} instance: " + work)
                 for d in SD15_HEAD_DIMS]
 
+    def knob_kernels(lse_rows, refresh_rows, multi_runs):
+        """The kernels line's entries for the comm-knob runs: the flash
+        kernel's log-sum-exp instances (the ring run's chunks) and
+        quantize_rows at the refresh payloads (compress_pcpp, int8;
+        stepcache_batch, fp8)."""
+        ring = multi_runs["ring"][-1]
+        lse = kernel_entry(lse_rows, ring["flash_sdpa_lse_launches"],
+                           **{**FLASH_ENTRY, "name": "flash_sdpa[lse]"},
+                           work="the log-sum-exp instances (float32 out and lse) in one "
+                                "rank's 4-step 1024x1024 ring call at CFG 2 x sp 2; "
+                                "library: aten._scaled_dot_product_flash_attention")
+        refresh = {label: kernel_entry(
+            [r for r in refresh_rows if r["shape"].startswith(f"refresh_{label}_")],
+            multi_runs[label][-1]["quantize_rows_launches"], "quantize_",
+            work=f"the refresh payloads of one rank's {label} call "
+                 f"({MULTI_RUNS[label][0]}), float32 rows; no library call")
+            for label in ("compress_pcpp", "stepcache_batch")}
+        return lse, refresh
+
     seconds, t0 = {}, time.perf_counter()
     if args.patch_only:
-        rows = kernel_phase(multi + vae_rows, spills)
+        rows = kernel_phase(multi + vae_rows, spills) + lse_kernel_phase()
+        refresh_rows = refresh_quant_phase(refresh_quant_shapes(ucfg, 1024, 1024))
         seconds["flash_kernel_multi_rank_shapes"], t0 = (time.perf_counter() - t0,
                                                          time.perf_counter())
         multi_runs = patch_phase(None, os.path.join(args.out_dir, "multi"),
@@ -1842,7 +2252,12 @@ def main(argv) -> int:
         seconds["multi_rank"] = time.perf_counter() - t0
         print(json.dumps({"phase": "seconds", **seconds}), flush=True)
         subs = multi_entries(rows, multi_runs)
-        kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs},
+        lse, refresh = knob_kernels(rows_of(rows, "ring_hop", "sdxl"), refresh_rows,
+                                    multi_runs)
+        kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs}, lse,
+                   {**refresh.pop("compress_pcpp"), "name": "quantize_rows",
+                    "route": "cuda", "source": "distrifuser_tpu_torch/csrc/quantize_rows.cu",
+                    "replaces": "distrifuser_tpu/parallel/compress.py:111", **refresh},
                    *instance_entries(rows_of(rows, "patch_", "sd15"),
                                      multi_runs["sd15_patch"][0]
                                      ["flash_sdpa_launches_by_head_dim"],
@@ -1850,7 +2265,7 @@ def main(argv) -> int:
                                      "(stale_gn), 4-step 512x512 call, eager")]
         return finish(kernels)
     rows = kernel_phase(shapes + shapes15 + shapes21 + multi + enc_rows + decode_rows,
-                        spills)
+                        spills) + lse_kernel_phase()
     mrows = rows
     rows = rows_of(mrows, ("unet", "vae"), "sdxl")
     rows15 = rows_of(mrows, ("unet", "vae"), "sd15")
@@ -1861,10 +2276,12 @@ def main(argv) -> int:
     expected_quant15 = steps * per_forward15 + per_call15
     assert sum(s[-1] for s in qshapes15) == expected_quant15, (qshapes15, expected_quant15)
     qrows = quant_kernel_phase(qshapes + qshapes15)
+    refresh_rows = refresh_quant_phase(refresh_quant_shapes(ucfg, 1024, 1024))
     seconds["quant_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     for weight_quant in ("none", "int8", "fp8"):
         print(json.dumps(tiny_check(weight_quant)), flush=True)
     print(json.dumps(tiny_check(model="sd15", scheduler="euler")), flush=True)
+    print(json.dumps(stepcache_graph_check()), flush=True)
     seconds["tiny_checks"], t0 = time.perf_counter() - t0, time.perf_counter()
     trees = build_trees()
     runs, dense_latent = pipeline_phase(trees, expected_flash, expected_quant)
@@ -1918,6 +2335,7 @@ def main(argv) -> int:
     }
     per_call = ("(per-shape time x launches per call) at weight_quant='int8'; 'fp8' "
                 "holds the same for fp8")
+    lse, refresh = knob_kernels(rows_of(mrows, "ring_hop", "sdxl"), refresh_rows, multi_runs)
     kernels = [
         kernel_entry(rows, runs["dense"]["flash_sdpa_launches"], **FLASH_ENTRY,
                      work="all attention of one 4-step 1024x1024 SDXL pipeline call "
@@ -1967,7 +2385,9 @@ def main(argv) -> int:
                      **{f"sd15_{mode}": kernel_entry(
                          by_mode15[mode], sd_runs[f"sd15_{mode}"]["quantize_rows_launches"],
                          "quantize_", work=f"one graphed 4-step 512x512 SD 1.5 call at {mode}")
-                        for mode in by_mode15}),
+                        for mode in by_mode15},
+                     **refresh),
+        lse,
     ]
     return finish(kernels)
 

@@ -8,10 +8,11 @@ flag more, ``--device`` (default: this rank's CUDA card; ``cpu`` runs the
 plain path).  Every other flag does what the JAX script's flag does or is
 refused, before any model loads, with the ROADMAP item that brings it:
 
-* ``--attn_impl`` other than gather, ``--dp_degree`` above 1, the comm
-  knobs (``--comm_batch``, ``--comm_compress``, ``--refresh_fraction``)
-  and a float32 ``--dtype`` on the card go through ``DistriConfig``'s own
-  refusals; ``--parallelism pipefusion`` through the runner's, ``--scheduler
+* the comm knobs (``--attn_impl ring``, ``--comm_batch``,
+  ``--comm_compress``, ``--refresh_fraction``) pass through to
+  ``DistriConfig``, which validates them as the JAX package does;
+  ``--attn_impl`` ulysses or usp, ``--dp_degree`` above 1 and a float32
+  ``--dtype`` on the card go through ``DistriConfig``'s own refusals; ``--parallelism pipefusion`` through the runner's, ``--scheduler
   flow-euler`` through ``get_scheduler``'s;
 * ``--ulysses_degree`` and ``--pipe_patches`` belong to the DiT layouts
   (usp attention, the PipeFusion stage ring), ROADMAP queue 1 item 13;
@@ -91,17 +92,23 @@ def add_distri_args(parser: argparse.ArgumentParser) -> None:
                         "ROADMAP queue 1 item 17")
     parser.add_argument("--attn_impl", type=str, default="gather",
                         choices=["gather", "ring", "ulysses", "usp"],
-                        help="patch attention layout; ring is ROADMAP queue 1 "
-                        "item 11, ulysses and usp item 13")
+                        help="patch attention layout (ring: each rank holds its own "
+                        "KV chunk and the peers' stream around; ulysses and usp are "
+                        "the DiT layouts, refused: ROADMAP queue 1 item 13)")
     parser.add_argument("--ulysses_degree", type=int, default=1,
                         help="with --attn_impl usp; refused: ROADMAP queue 1 item 13")
     parser.add_argument("--comm_batch", action="store_true",
-                        help="batched stale refresh; refused: ROADMAP queue 1 item 10")
+                        help="exchange every stale refresh of a step in one flat "
+                        "all-gather per dtype and one flat halo pair")
     parser.add_argument("--comm_compress", type=str, default="none",
                         choices=["none", "int8", "fp8", "int8_residual"],
-                        help="refresh compression; refused: ROADMAP queue 1 item 10")
+                        help="quantize the stale-refresh halo and KV payloads on the "
+                        "wire (int8/fp8 with a float32 scale per row; int8_residual "
+                        "codes the delta against the previous value)")
     parser.add_argument("--refresh_fraction", type=float, default=1.0,
-                        help="PCPP partial refresh; refused: ROADMAP queue 1 item 10")
+                        help="PCPP partial refresh: each stale step refreshes this "
+                        "fraction (1/k) of every KV slab and conv halo, rotating the "
+                        "strided row group by step; 1.0 is the exact protocol")
     parser.add_argument("--weight_quant", type=str, default="none",
                         choices=["none", "int8", "fp8"],
                         help="hold the UNet's matmul and conv kernels as int8/fp8 "

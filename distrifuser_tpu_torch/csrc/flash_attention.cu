@@ -81,6 +81,13 @@
 //   stored; KV columns >= kv_len in the last tile get the -1e30 logit, and
 //   tiles wholly past kv_len are not visited.  Rows of K and V between
 //   kv_len and Lk are never read.
+// * Log-sum-exp output (the LSE instances, one more per head dim): for the
+//   ring attention's merge of chunk partials, the kernel also writes the
+//   natural-log log-sum-exp of every query row's logits, ln 2 * (m + log2 l)
+//   from the base-2 max and normalizer it already holds, float32 [B, H, Lq],
+//   and writes O = acc / l in float32 instead of bf16, so the merge rounds
+//   nothing.  The lane that holds column 0 of a row stores its LSE.  The
+//   main loop is the same code; only the epilogue differs.
 // * Set-up: cudaFuncSetAttribute runs once per template instance (a
 //   function-local static), not per launch.  A refused launch, or a tensor
 //   map the driver will not encode, returns its error code; nothing falls
@@ -97,6 +104,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask logit
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -378,14 +386,16 @@ struct Config {
   static_assert(BK % 16 == 0 && BK <= 256 && BQ <= 256, "tile");
 };
 
-template <class C>
+// LSE: O in float32 and the rows' log-sum-exp into lse [B, H, Lq]; else O
+// in bf16 and lse unused.
+template <class C, bool LSE>
 __global__ void __launch_bounds__(C::THREADS, C::MINB)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map,
-                 __nv_bfloat16* __restrict__ o, long long o_bs, long long o_rs,
-                 int heads, int lq, int kv_len, int k_align, int v_align,
-                 float scale_log2) {
+                 void* __restrict__ o, long long o_bs, long long o_rs,
+                 float* __restrict__ lse, int heads, int lq, int kv_len,
+                 int k_align, int v_align, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle-atom aligned
@@ -570,19 +580,28 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   const int r0 = q0 + rg * 64 + warp * 16 + lane / 4;
   // O column cs * DN + 8j + c0 holds head column cs * DN + 8j + c0 - v_shift
-  __nv_bfloat16* ob = o + b * o_bs + h * C::D + cs * C::DN + c0 - v_shift;
+  const long long o_off = b * o_bs + h * C::D + cs * C::DN + c0 - v_shift;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
     if (r >= lq) continue;
     const float l = half ? l1 : l0;
-    __nv_bfloat16* orow = ob + r * o_rs;
+    if constexpr (LSE) {
+      if (cs == 0 && c0 == 0) lse[static_cast<long long>(bh) * lq + r] = (
+          (half ? m1 : m0) + log2f(l)) * kLn2;
+    }
 #pragma unroll
     for (int j = 0; j < C::DN / 8; ++j) {
       const int col = cs * C::DN + 8 * j - v_shift;
       if (col < 0 || col >= C::D) continue;
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
-          acc[4 * j + 2 * half] / l, acc[4 * j + 2 * half + 1] / l);
+      const float lo = acc[4 * j + 2 * half] / l, hi = acc[4 * j + 2 * half + 1] / l;
+      if constexpr (LSE) {
+        float* orow = static_cast<float*>(o) + o_off + r * o_rs;
+        *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(lo, hi);
+      } else {
+        __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(o) + o_off + r * o_rs;
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(lo, hi);
+      }
     }
   }
 }
@@ -625,13 +644,13 @@ bool encode_map(CUtensorMap* map, const void* ptr, bool per_head, int d, int hea
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <class C>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
-                   int heads, int lq, int kv_len, long long q_bs, long long q_rs,
+template <class C, bool LSE>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int b, int heads, int lq, int kv_len, long long q_bs, long long q_rs,
                    long long k_bs, long long k_rs, long long v_bs, long long v_rs,
                    long long o_bs, long long o_rs, float scale, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      flash_fwd_kernel<C, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return attr;
   CUtensorMap q_map, k_map, v_map;
   if (!encode_map(&q_map, q, true, C::D, heads, lq, b, q_rs, q_bs, C::CW, C::BQ) ||
@@ -640,9 +659,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
     return cudaErrorInvalidValue;
   }
   const dim3 grid((lq + C::BQ - 1) / C::BQ, b * heads);
-  flash_fwd_kernel<C><<<grid, C::THREADS, C::SMEM, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), o_bs, o_rs, heads, lq,
-      kv_len, static_cast<int>(reinterpret_cast<uintptr_t>(k) % 32),
+  flash_fwd_kernel<C, LSE><<<grid, C::THREADS, C::SMEM, stream>>>(
+      q_map, k_map, v_map, o, o_bs, o_rs, lse, heads, lq, kv_len,
+      static_cast<int>(reinterpret_cast<uintptr_t>(k) % 32),
       static_cast<int>(reinterpret_cast<uintptr_t>(v) % 32), scale * kLog2e);
   return cudaGetLastError();
 }
@@ -661,25 +680,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
   X(256, 64, 1, 1, 2, 1)     \
   X(512, 32, 1, 2, 2, 1)
 
-// Plain C entry point (bound with ctypes).  Pointers are bf16 device
-// pointers; strides are in elements; d is one of 16, 32, 40, 64, 80, 128,
-// 160, 256, 512, rows and pointers 16-byte aligned (checked by the Python
-// wrapper).
-// Returns the launch's cudaError_t (0 on success).
-extern "C" int flash_sdpa_bf16(const void* q, const void* k, const void* v,
-                               void* o, int b, int heads, int lq, int kv_len,
-                               int d, long long q_bs, long long q_rs,
-                               long long k_bs, long long k_rs, long long v_bs,
-                               long long v_rs, long long o_bs, long long o_rs,
-                               float scale, void* stream) {
+namespace {
+
+template <bool LSE>
+int flash_entry(const void* q, const void* k, const void* v, void* o, float* lse,
+                int b, int heads, int lq, int kv_len, int d, long long q_bs,
+                long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+                long long v_rs, long long o_bs, long long o_rs, float scale,
+                void* stream) {
   if (lq <= 0 || kv_len <= 0 || b <= 0 || heads <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_LAUNCH(...)                                                         \
-  static_cast<int>(launch<Config<__VA_ARGS__>>(q, k, v, o, b, heads, lq, kv_len, \
-                                               q_bs, q_rs, k_bs, k_rs, v_bs,     \
-                                               v_rs, o_bs, o_rs, scale, s))
+#define FLASH_LAUNCH(...)                                                            \
+  static_cast<int>(launch<Config<__VA_ARGS__>, LSE>(q, k, v, o, lse, b, heads, lq,  \
+                                                    kv_len, q_bs, q_rs, k_bs, k_rs, \
+                                                    v_bs, v_rs, o_bs, o_rs, scale, s))
   switch (d) {
 #define FLASH_CASE(D, ...) \
   case D: return FLASH_LAUNCH(D, __VA_ARGS__);
@@ -690,19 +706,49 @@ extern "C" int flash_sdpa_bf16(const void* q, const void* k, const void* v,
 #undef FLASH_LAUNCH
 }
 
-// The variant that head dim d runs: registers per thread (as compiled),
-// dynamic shared memory bytes and threads per block, KV rows per tile and
-// query rows per block.  Returns a cudaError_t (invalid value for an
-// unsupported d).
-extern "C" int flash_sdpa_variant(int d, int* registers, int* smem_bytes, int* threads,
-                                  int* block_k, int* block_q) {
+}  // namespace
+
+// Plain C entry points (bound with ctypes).  q, k, v are bf16 device
+// pointers; strides are in elements; d is one of 16, 32, 40, 64, 80, 128,
+// 160, 256, 512, rows and pointers 16-byte aligned (checked by the Python
+// wrapper).  flash_sdpa_bf16 writes O in bf16; flash_sdpa_bf16_lse writes O
+// in float32 and the rows' log-sum-exp into lse, float32 [B, H, Lq]
+// contiguous.  Each returns the launch's cudaError_t (0 on success).
+extern "C" int flash_sdpa_bf16(const void* q, const void* k, const void* v,
+                               void* o, int b, int heads, int lq, int kv_len,
+                               int d, long long q_bs, long long q_rs,
+                               long long k_bs, long long k_rs, long long v_bs,
+                               long long v_rs, long long o_bs, long long o_rs,
+                               float scale, void* stream) {
+  return flash_entry<false>(q, k, v, o, nullptr, b, heads, lq, kv_len, d, q_bs, q_rs,
+                            k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale, stream);
+}
+
+extern "C" int flash_sdpa_bf16_lse(const void* q, const void* k, const void* v,
+                                   void* o, void* lse, int b, int heads, int lq,
+                                   int kv_len, int d, long long q_bs, long long q_rs,
+                                   long long k_bs, long long k_rs, long long v_bs,
+                                   long long v_rs, long long o_bs, long long o_rs,
+                                   float scale, void* stream) {
+  return flash_entry<true>(q, k, v, o, static_cast<float*>(lse), b, heads, lq, kv_len,
+                           d, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale,
+                           stream);
+}
+
+// The variant that head dim d runs (its LSE instance if lse is nonzero):
+// registers per thread (as compiled), dynamic shared memory bytes and
+// threads per block, KV rows per tile and query rows per block.  Returns a
+// cudaError_t (invalid value for an unsupported d).
+extern "C" int flash_sdpa_variant(int d, int lse, int* registers, int* smem_bytes,
+                                  int* threads, int* block_k, int* block_q) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaErrorInvalidValue;
   switch (d) {
 #define FLASH_CASE(D, ...)                                         \
   case D: {                                                        \
     using C = Config<D, __VA_ARGS__>;                              \
-    err = cudaFuncGetAttributes(&attr, flash_fwd_kernel<C>);       \
+    err = lse ? cudaFuncGetAttributes(&attr, flash_fwd_kernel<C, true>)   \
+              : cudaFuncGetAttributes(&attr, flash_fwd_kernel<C, false>); \
     *smem_bytes = C::SMEM;                                         \
     *threads = C::THREADS;                                         \
     *block_k = C::BK;                                              \

@@ -30,6 +30,7 @@ from ..ops.attention import attention, cross_attention, patch_self_attention
 from ..ops.conv import conv2d, patch_conv2d, sliced_conv2d
 from ..ops.linear import feed_forward, linear
 from ..ops.normalization import group_norm, patch_group_norm
+from ..ops.ring_attention import ring_self_attention
 from ..parallel.compress import QuantizedTensor
 from ..parallel.context import PatchContext
 
@@ -332,6 +333,8 @@ class PatchDispatch:
         return patch_group_norm(p, x, self.ctx, name, groups=groups, eps=eps)
 
     def self_attn(self, p, x, name, *, heads):
+        if self.ctx.attn_impl == "ring":
+            return ring_self_attention(p, x, self.ctx, name, heads=heads)
         return patch_self_attention(p, x, self.ctx, name, heads=heads)
 
     def cross_attn(self, p, x, name, *, heads, enc):
@@ -418,9 +421,30 @@ def upsample_nearest_2x(x):
 
 def unet_forward(params, cfg: UNetConfig, sample, timesteps,
                  encoder_hidden_states, *, dispatch=None,
-                 added_cond: Optional[Dict[str, Any]] = None):
-    """Full UNet forward: ``sample`` [B, H, W, C] NHWC latent -> [B, H, W, C]."""
+                 added_cond: Optional[Dict[str, Any]] = None,
+                 cache_depth: int = 0, deep_cache=None):
+    """Full UNet forward: ``sample`` [B, H, W, C] NHWC latent -> [B, H, W, C]
+    (this rank's rows under ``PatchDispatch``).
+
+    The step cache (parallel/stepcache.py): with ``cache_depth`` K > 0 the
+    deepest K levels (down blocks L-K..L-1, the mid block, up blocks
+    0..K-1) are the deep subtree and the result is ``(out, deep)``:
+
+    * ``deep_cache`` None (a full step): everything runs, and ``deep`` is
+      the feature entering up block K (after up block K-1's upsampler);
+    * ``deep_cache`` given (a shallow step): only down blocks 0..L-K-1
+      run, without block L-K-1's downsampler (it feeds the deep subtree
+      only), then up blocks K..L-1 resume from ``deep_cache``; ``deep`` is
+      None.  The shallow layers push exactly the skips the shallow up
+      blocks pop.
+    """
     d = dispatch or DenseDispatch()
+    n_levels = len(cfg.block_out_channels)
+    if cache_depth and not 1 <= cache_depth < n_levels:
+        raise ValueError(f"cache_depth must be in [1, {n_levels - 1}] for a "
+                         f"{n_levels}-level UNet, got {cache_depth}")
+    cut = n_levels - cache_depth  # the first deep down block
+    shallow = cache_depth > 0 and deep_cache is not None
     dtype = params["conv_in"]["kernel"].dtype
     b = sample.shape[0]
     timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -451,6 +475,8 @@ def unet_forward(params, cfg: UNetConfig, sample, timesteps,
     x = d.conv_in(params["conv_in"], sample.to(dtype), "conv_in")
     skips = [x]
     for i, btype in enumerate(cfg.down_block_types):
+        if shallow and i >= cut:
+            break
         bp = params["down_blocks"][i]
         for j in range(cfg.layers_per_block):
             x = d.resnet(bp["resnets"][j], x, temb, f"down_blocks.{i}.resnets.{j}",
@@ -463,21 +489,30 @@ def unet_forward(params, cfg: UNetConfig, sample, timesteps,
                     norm_groups=groups,
                 )
             skips.append(x)
-        if i < len(cfg.down_block_types) - 1:
+        if i < len(cfg.down_block_types) - 1 and not (shallow and i == cut - 1):
             x = d.conv(bp["downsamplers"][0]["conv"], x,
                        f"down_blocks.{i}.downsamplers.0.conv", stride=2)
             skips.append(x)
 
-    mp = params["mid_block"]
-    x = d.resnet(mp["resnets"][0], x, temb, "mid_block.resnets.0", groups=groups)
-    x = transformer_2d(
-        d, mp["attentions"][0], x, enc, "mid_block.attentions.0",
-        heads=cfg.heads_for_block(n_blocks - 1),
-        use_linear_projection=cfg.use_linear_projection, norm_groups=groups,
-    )
-    x = d.resnet(mp["resnets"][1], x, temb, "mid_block.resnets.1", groups=groups)
+    if not shallow:
+        mp = params["mid_block"]
+        x = d.resnet(mp["resnets"][0], x, temb, "mid_block.resnets.0", groups=groups)
+        x = transformer_2d(
+            d, mp["attentions"][0], x, enc, "mid_block.attentions.0",
+            heads=cfg.heads_for_block(n_blocks - 1),
+            use_linear_projection=cfg.use_linear_projection, norm_groups=groups,
+        )
+        x = d.resnet(mp["resnets"][1], x, temb, "mid_block.resnets.1", groups=groups)
 
+    deep_out = None
     for i, btype in enumerate(cfg.up_block_types):
+        if shallow and i < cache_depth:
+            continue
+        if cache_depth and i == cache_depth:
+            if shallow:
+                x = deep_cache
+            else:
+                deep_out = x
         bp = params["up_blocks"][i]
         for j in range(cfg.layers_per_block + 1):
             x = torch.cat([x, skips.pop()], dim=-1)
@@ -497,7 +532,10 @@ def unet_forward(params, cfg: UNetConfig, sample, timesteps,
 
     assert not skips
     x = d.group_norm(params["conv_norm_out"], x, "conv_norm_out", groups=groups)
-    return d.conv(params["conv_out"], silu(x), "conv_out")
+    x = d.conv(params["conv_out"], silu(x), "conv_out")
+    if cache_depth:
+        return x, deep_out
+    return x
 
 
 def precompute_text_kv(params, encoder_hidden_states):

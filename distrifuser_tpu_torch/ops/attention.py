@@ -14,7 +14,8 @@ which also stands for the JAX package's XLA softmax route (``_sdpa_xla``).
 path: queries from this rank's rows only, keys and values over the whole
 image, gathered fresh in synchronous steps and, in stale steps, this rank's
 fresh KV in its own slot of the previous step's gathered KV.  The kernel
-then runs at Lq = L/n against Lk = L.
+then runs at Lq = L/n against Lk = L.  ``attn_impl="ring"`` replaces it by
+ops/ring_attention.py ``ring_self_attention``.
 """
 
 from __future__ import annotations
@@ -59,6 +60,10 @@ def patch_self_attention(p, x, ctx: PatchContext, name: str, *, heads: int):
         full_kv = _flatten_seq(gathered)
     else:
         gathered = ctx.stale(name)
+        if ctx.refresh_reads_stale("attn"):
+            # residual coding and the partial refresh read this buffer as
+            # the previous step left it
+            gathered = gathered.clone()
         # fresh own slot, stale peer slots; the buffer is this step's to
         # change: the refresh below lands in a new one
         gathered[ctx.split_idx] = kv

@@ -13,7 +13,11 @@ bound through a plain C entry point loaded with ``ctypes``
 ``flash_sdpa`` takes the JAX signature: q ``[B, Lq, C]``, k and v
 ``[B, Lk, C]``, ``heads`` heads of ``d = C / heads`` columns, an optional
 ``kv_len`` that treats only the first ``kv_len`` KV positions as real.
-The kernel has an instance for each head dim in ``HEAD_DIMS``.
+The kernel has an instance for each head dim in ``HEAD_DIMS``, and a second
+one with a log-sum-exp output: ``return_lse=True`` returns ``(out, lse)``,
+the output in float32 and ``lse [B, H, Lq]`` the natural-log log-sum-exp of
+each query row's scaled logits, float32, which ring attention
+(ops/ring_attention.py) merges chunk partials by.
 On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 ``flash_sdpa_reference``.  Unlike the Pallas kernel, the lengths need not
 be block multiples: the kernel masks ragged query and KV edges itself.
@@ -36,15 +40,16 @@ HEAD_DIMS = (16, 32, 40, 64, 80, 128, 160, 256, 512)
 
 
 def _bind(lib) -> None:
-    fn = lib.flash_sdpa_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-        + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_void_p]
-    )
+    for name, pointers in (("flash_sdpa_bf16", 4), ("flash_sdpa_bf16_lse", 5)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        )
     info = lib.flash_sdpa_variant
     info.restype = ctypes.c_int
-    info.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 5
+    info.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 5
 
 
 _KERNEL = KernelLibrary("flash_attention.cu", _bind)
@@ -56,22 +61,25 @@ def build() -> str:
     return _KERNEL.build()
 
 
-def variant(d: int) -> dict:
-    """What the kernel instance for head dim ``d`` uses on the card:
-    registers per thread (as compiled), dynamic shared memory bytes and
-    threads per block, KV rows per tile, query rows per block."""
+def variant(d: int, lse: bool = False) -> dict:
+    """What the kernel instance for head dim ``d`` (its log-sum-exp one with
+    ``lse``) uses on the card: registers per thread (as compiled), dynamic
+    shared memory bytes and threads per block, KV rows per tile, query rows
+    per block."""
     keys = ("registers", "smem_bytes", "threads", "block_k", "block_q")
     vals = [ctypes.c_int(0) for _ in keys]
-    rc = _KERNEL.lib.flash_sdpa_variant(d, *(ctypes.byref(v) for v in vals))
+    rc = _KERNEL.lib.flash_sdpa_variant(d, int(lse), *(ctypes.byref(v) for v in vals))
     if rc != 0:
         raise ValueError(f"flash_sdpa has no kernel instance for d={d} (cudaError {rc})")
     return {k: v.value for k, v in zip(keys, vals)}
 
 
-def flash_sdpa_reference(q, k, v, *, heads: int, kv_len: int = None):
+def flash_sdpa_reference(q, k, v, *, heads: int, kv_len: int = None,
+                         return_lse: bool = False):
     """Plain PyTorch flash_sdpa: float32 logits, the -1e30 KV mask, p
     rounded to V's dtype before the PV product (float32 accumulation), the
-    normalizer applied after it, output in q's dtype."""
+    normalizer applied after it, output in q's dtype; with ``return_lse``
+    ``(out float32, lse [B, H, Lq] float32)``, lse = max + log(sum)."""
     b, lq, c = q.shape
     lk = k.shape[1]
     d = c // heads
@@ -82,22 +90,29 @@ def flash_sdpa_reference(q, k, v, *, heads: int, kv_len: int = None):
     if kv_len is not None and kv_len < lk:
         col = torch.arange(lk, device=q.device)
         s = s.masked_fill(col >= kv_len, _NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.matmul(p.to(v.dtype).float(), vh.float())
-    out = (acc / l).to(q.dtype)
-    return out.transpose(1, 2).reshape(b, lq, c)
+    out = acc / l
+    if return_lse:
+        lse = (m + torch.log(l)).squeeze(-1)
+        return out.transpose(1, 2).reshape(b, lq, c), lse
+    return out.to(q.dtype).transpose(1, 2).reshape(b, lq, c)
 
 
 @counts_launches
-def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None):
+def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None, return_lse: bool = False):
     """SDPA over [B, L, C] with ``heads`` heads: the kernel on the card,
-    the plain version on the CPU.  Counts each kernel launch in
+    the plain version on the CPU; ``return_lse`` gives ``(out float32,
+    lse [B, H, Lq] float32)``.  Counts each kernel launch in
     ``flash_sdpa.launches`` and, by head dim (the instance launched), in
-    ``flash_sdpa.launches_by_head_dim``; graph replays add to the first
-    only (parallel/graphs.py)."""
+    ``flash_sdpa.launches_by_head_dim``, a log-sum-exp instance's also in
+    ``flash_sdpa.lse_launches``; graph replays add to those two, not by
+    head dim (parallel/graphs.py)."""
     if q.device.type == "cpu":
-        return flash_sdpa_reference(q, k, v, heads=heads, kv_len=kv_len)
+        return flash_sdpa_reference(q, k, v, heads=heads, kv_len=kv_len,
+                                    return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_sdpa: unsupported device {q.device}")
     b, lq, c = q.shape
@@ -124,19 +139,28 @@ def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None):
     kv = lk if kv_len is None else min(kv_len, lk)
     if lq == 0 or kv <= 0:
         raise ValueError(f"flash_sdpa: empty attention (Lq={lq}, kv_len={kv})")
-    out = torch.empty((b, lq, c), dtype=q.dtype, device=q.device)
-    rc = _KERNEL.lib.flash_sdpa_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if return_lse:
+        out = torch.empty((b, lq, c), dtype=torch.float32, device=q.device)
+        lse = torch.empty((b, heads, lq), dtype=torch.float32, device=q.device)
+        entry, ptrs = _KERNEL.lib.flash_sdpa_bf16_lse, (out.data_ptr(), lse.data_ptr())
+    else:
+        out = torch.empty((b, lq, c), dtype=q.dtype, device=q.device)
+        entry, ptrs = _KERNEL.lib.flash_sdpa_bf16, (out.data_ptr(),)
+    rc = entry(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs,
         b, heads, lq, kv, d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        1.0 / d**0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / d**0.5, stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_sdpa kernel launch failed: cudaError {rc}")
     flash_sdpa.launches += 1
     flash_sdpa.launches_by_head_dim[d] += 1
-    return out
+    flash_sdpa.lse_launches += return_lse
+    return (out, lse) if return_lse else out
 
 
 flash_sdpa.launches_by_head_dim = collections.Counter()
+flash_sdpa.lse_launches = 0

@@ -13,8 +13,10 @@ design and what bounds it.  It is built with ``nvcc`` at first use into
 
 ``quantize_rows(x, mode)`` takes x [M, K] (bfloat16 or float32 on the
 card, unit column stride) and returns ``(xq [M, K], sx [M])``: int8 (or
-float8_e4m3fn for "fp8") row-major, the A operand of ops/quant_matmul.py,
-and float32.  On a CUDA tensor it launches the kernel or raises; on a CPU
+float8_e4m3fn for "fp8") row-major and float32.  Its callers: the A
+operand of ops/quant_matmul.py, and the compressed stale-refresh payloads
+of the patch path (parallel/context.py, float32 rows of KV or halo
+channels).  On a CUDA tensor it launches the kernel or raises; on a CPU
 tensor it runs ``quantize``.
 """
 

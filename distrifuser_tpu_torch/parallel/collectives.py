@@ -2,10 +2,18 @@
 
 Counterpart of distrifuser_tpu/parallel/collectives.py (``all_gather``,
 ``psum_mean``, ``psum``, ``neighbor_perms``, ``exchange_boundary_rows``,
-``halo_exchange``, ``gather_rows``, ``gather_cols``).  Each function takes
-the process group (``None`` for the default one) and, where the patch path
-overlaps it with compute, an ``async_op`` form that returns a ``Pending``
-handle whose ``wait()`` gives the result.
+``halo_exchange``, ``gather_rows``, ``gather_cols``, ``ring_perm`` and
+``ring_shift``).  Each function takes the process group (``None`` for the
+default one) and, where the patch path overlaps it with compute, an
+``async_op`` form that returns a ``Pending`` handle whose ``wait()`` gives
+the result.  ``batched_all_gather`` and ``batched_halo_exchange`` are the
+flat exchanges of the batched refresh (``PatchContext.flush``): one
+collective per dtype for every layer of a step.
+
+The ring hop of ring attention (``ring_shift``) sends this rank's chunk to
+the next rank of the patch group and receives the previous rank's, both
+wrapping, as one ``batch_isend_irecv`` pair.  One-byte payloads (int8, and
+float8_e4m3fn, which gloo does not carry) travel as uint8 views.
 
 The conv halo exchange is a neighbour exchange (``batch_isend_irecv``)
 with zeros at the image border, as the JAX package's non-wrapping
@@ -51,6 +59,11 @@ def stages_through_host(device: torch.device, group=None) -> bool:
     return device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """The tensor a collective moves: a float8 payload as its uint8 view."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
 def _down(t: torch.Tensor) -> torch.Tensor:
     """A pinned host copy of the CUDA tensor ``t``, complete on return."""
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -64,8 +77,8 @@ def all_gather(x: torch.Tensor, group=None, *, async_op: bool = False):
     in group-rank order."""
     n = dist.get_world_size(group)
     staged = stages_through_host(x.device, group)
-    src = _down(x) if staged else x.contiguous()
-    out = torch.empty((n, *x.shape), dtype=x.dtype, device=src.device,
+    src = _wire(_down(x) if staged else x.contiguous())
+    out = torch.empty((n, *x.shape), dtype=src.dtype, device=src.device,
                       pin_memory=staged)
     if src.is_cuda:  # NCCL: one flat output, which a CUDA graph can capture
         work = dist.all_gather_into_tensor(out.view(-1), src.reshape(-1), group=group,
@@ -74,7 +87,8 @@ def all_gather(x: torch.Tensor, group=None, *, async_op: bool = False):
         work = dist.all_gather(list(out.unbind(0)), src, group=group, async_op=True)
 
     def finish():
-        return out.to(x.device, non_blocking=True) if staged else out
+        res = out.view(x.dtype)
+        return res.to(x.device, non_blocking=True) if staged else res
 
     pending = Pending([work], finish)
     return pending if async_op else pending.wait()
@@ -118,11 +132,12 @@ def exchange_boundary_rows(bottom: torch.Tensor, top: torch.Tensor, group=None,
     next rank's top, zeros at the image border."""
     staged = stages_through_host(bottom.device, group)
     prev, nxt = neighbor_peers(group)
-    dev = bottom.device
+    dev, dtype = bottom.device, bottom.dtype
     if staged:
         bottom, top = _down(bottom), _down(top)
     else:
         bottom, top = bottom.contiguous(), top.contiguous()
+    bottom, top = _wire(bottom), _wire(top)
     from_prev, from_next = torch.zeros_like(bottom), torch.zeros_like(top)
     ops = []
     if nxt is not None:
@@ -136,12 +151,108 @@ def exchange_boundary_rows(bottom: torch.Tensor, top: torch.Tensor, group=None,
     def finish():
         # the sent slabs stay referenced until the exchange is done
         del ops[:]
+        got = from_prev.view(dtype), from_next.view(dtype)
         if staged:
-            return (from_prev.to(dev, non_blocking=True),
-                    from_next.to(dev, non_blocking=True))
-        return from_prev, from_next
+            return tuple(t.to(dev, non_blocking=True) for t in got)
+        return got
 
     pending = Pending(works, finish)
+    return pending if async_op else pending.wait()
+
+
+def ring_perm(group=None):
+    """(previous, next) global ranks of this rank on the wrapping ring of
+    ``group``: the ring hop sends to the next and receives from the
+    previous (JAX ``ring_perm``)."""
+    group = dist.group.WORLD if group is None else group
+    idx, n = dist.get_rank(group), dist.get_world_size(group)
+    return (dist.get_global_rank(group, (idx - 1) % n),
+            dist.get_global_rank(group, (idx + 1) % n))
+
+
+def ring_shift(x: torch.Tensor, group=None, *, async_op: bool = False):
+    """One ring hop: send ``x`` to the next rank of ``group`` and return the
+    previous rank's ``x`` (a new tensor), wrapping around."""
+    staged = stages_through_host(x.device, group)
+    prev, nxt = ring_perm(group)
+    src = _wire(_down(x) if staged else x.contiguous())
+    recv = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, nxt, group),
+           dist.P2POp(dist.irecv, recv, prev, group)]
+    works = dist.batch_isend_irecv(ops)
+
+    def finish():
+        del ops[:]  # the sent chunk stays referenced until the hop is done
+        got = recv.view(x.dtype)
+        return got.to(x.device, non_blocking=True) if staged else got
+
+    pending = Pending(works, finish)
+    return pending if async_op else pending.wait()
+
+
+def _by_dtype(items):
+    """``items`` (tuples whose second entry is a tensor) grouped by that
+    tensor's dtype, in first-seen order."""
+    groups = {}
+    for item in items:
+        groups.setdefault(item[1].dtype, []).append(item)
+    return list(groups.values())
+
+
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([_wire(t).reshape(-1) for t in tensors])
+
+
+def batched_all_gather(parts, group=None, *, async_op: bool = False):
+    """All-gather of many tensors, one flat collective per dtype: ``parts``
+    is a list of ``(key, tensor)``; the result maps each key to its
+    ``[n, *tensor.shape]``, as ``all_gather`` of that tensor alone gives."""
+    issued = []
+    for items in _by_dtype(parts):
+        flat = _flat([t for _, t in items])
+        issued.append((items, all_gather(flat, group, async_op=True)))
+
+    def finish():
+        out = {}
+        for items, pending in issued:
+            gathered = pending.wait()  # [n, total]
+            off = 0
+            for key, t in items:
+                size = t.numel()
+                piece = gathered[:, off:off + size].reshape(gathered.shape[0], *t.shape)
+                out[key] = piece.view(t.dtype)
+                off += size
+        return out
+
+    pending = Pending([], finish)
+    return pending if async_op else pending.wait()
+
+
+def batched_halo_exchange(parts, group=None, *, async_op: bool = False):
+    """Boundary-row exchange of many layers, one flat neighbour pair per
+    dtype: ``parts`` is a list of ``(key, top, bottom)``; the result maps
+    each key to ``(from_prev, from_next)``, as ``exchange_boundary_rows``
+    of that pair alone gives."""
+    issued = []
+    for items in _by_dtype(parts):
+        bottoms = _flat([b for _, _, b in items])
+        tops = _flat([t for _, t, _ in items])
+        issued.append((items, exchange_boundary_rows(bottoms, tops, group,
+                                                     async_op=True)))
+
+    def finish():
+        out = {}
+        for items, pending in issued:
+            from_prev, from_next = pending.wait()
+            off = 0
+            for key, top, _ in items:
+                size = top.numel()
+                out[key] = tuple(t[off:off + size].view(top.dtype).reshape(top.shape)
+                                 for t in (from_prev, from_next))
+                off += size
+        return out
+
+    pending = Pending([], finish)
     return pending if async_op else pending.wait()
 
 

@@ -1,8 +1,15 @@
-"""Weight quantization: int8 / fp8 payloads with per-channel-tile scales.
+"""Quantization of weights and of the stale-refresh payloads, and the
+PCPP partial-refresh row selection.
 
-Counterpart of the quantization parts of distrifuser_tpu/parallel/compress.py
-(``quantize``, ``dequantize``, ``QuantizedTensor``, ``quantize_weight``,
-``asdense`` and the mode validation).  The arithmetic is the JAX package's,
+Counterpart of distrifuser_tpu/parallel/compress.py: ``quantize``,
+``dequantize``, ``QuantizedTensor``, ``quantize_weight``, ``asdense`` and
+the mode validation for the weights; ``COMPRESS_MODES``,
+``COMPRESS_KINDS``, ``validate_mode``, ``refresh_period``,
+``validate_refresh_fraction``, ``take_every_kth``, ``scatter_every_kth``
+and ``wire_nbytes`` for the refresh exchanges of the displaced patch path
+(parallel/context.py).  ``refresh_gather_seq`` serves only the DiT and
+MMDiT sequence-parallel paths and comes with them (ROADMAP queue 1 items 13
+and 14).  The arithmetic is the JAX package's,
 so the same float32 input gives bit-identical payloads and scales: int8 is
 ``clip(round(x / s), -127, 127)`` with ``s = max(amax, 1e-12) / 127``
 (``torch.round`` rounds half to even, as ``jnp.round`` does), fp8 is the
@@ -19,15 +26,29 @@ channels on one axis and the reduction on another:
 * a conv kernel is OIHW; the reduction runs over dim 1 (input channels) and
   the scale is ``[O, kh, kw]`` (JAX's HWIO scale ``[kh, kw, O]`` permuted).
 
-``channel_tile`` groups that many output channels per scale in both.  The
-comm-compress parts of the JAX module (refresh exchanges) are ROADMAP
-queue 1 item 10.
+``channel_tile`` groups that many output channels per scale in both.
+
+A refresh payload (a KV row, a halo row's channel vector) quantizes over
+its last axis, one float32 scale per row: on the card through the kernel
+of ops/quantize.py, whose plain version is ``quantize``.  "int8_residual"
+quantizes the delta against the previous reconstruction with the int8
+arithmetic.  The PCPP row groups index with a rotation ``r`` that may be a
+device tensor (``index_select`` / ``index_copy``), so that one captured
+CUDA graph serves every rotation.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Sequence
+
 import torch
 
+COMPRESS_MODES = ("none", "int8", "fp8", "int8_residual")
+# the buffer kinds whose stale refresh compresses and thins; GroupNorm
+# moments ("gn") are tiny and their var = E[x^2] - E[x]^2 cancellation
+# amplifies payload error, "stepcache" and "local" never touch the wire
+COMPRESS_KINDS = ("attn", "conv2d")
 WEIGHT_QUANT_MODES = ("none", "int8", "fp8")
 QUANT_COMPUTE_MODES = ("off", "auto", "dot", "pallas")
 LEAF_COMPUTE_POLICIES = ("dequant", "auto", "dot", "pallas")
@@ -50,8 +71,9 @@ def quantize(x, mode: str, axis: int = -1):
     """Per-tile symmetric quantization over one reduction axis: returns
     ``(payload, scale)``, the payload int8 (or float8_e4m3fn for "fp8") of
     x's shape, the scale float32 of x's shape without ``axis``."""
-    if mode not in ("int8", "fp8"):
+    if mode not in ("int8", "fp8", "int8_residual"):
         raise ValueError(f"not a quantizing mode: {mode!r}")
+    mode = payload_mode(mode)
     xf = x.float()
     amax = xf.abs().amax(dim=axis)
     limit = _INT8_MAX if mode == "int8" else _FP8_MAX
@@ -62,6 +84,97 @@ def quantize(x, mode: str, axis: int = -1):
 def dequantize(payload, scale, dtype, axis: int = -1):
     """Inverse of ``quantize`` (up to the per-tile rounding error)."""
     return (payload.float() * scale.unsqueeze(axis)).to(dtype)
+
+
+def payload_mode(mode: str) -> str:
+    """The payload arithmetic of a compression mode: "int8_residual" codes
+    its delta as "int8" does."""
+    return "int8" if mode == "int8_residual" else mode
+
+
+def fp8_supported() -> bool:
+    """Does this torch have the e4m3 payload dtype?"""
+    return hasattr(torch, "float8_e4m3fn")
+
+
+def validate_mode(mode: str) -> None:
+    """Config-time validation of a refresh-compression mode."""
+    if mode not in COMPRESS_MODES:
+        raise ValueError(
+            f"comm_compress must be one of {COMPRESS_MODES}, got {mode!r}"
+        )
+    if mode == "fp8" and not fp8_supported():
+        raise ValueError("comm_compress='fp8' needs torch.float8_e4m3fn, which "
+                         "this torch lacks; use 'int8' or 'int8_residual'")
+
+
+def refresh_period(fraction: float) -> int:
+    """``1 / fraction`` as the integer rotation period of the partial
+    refresh (1: every row refreshes every stale step)."""
+    return int(round(1.0 / float(fraction)))
+
+
+def validate_refresh_fraction(fraction: float) -> None:
+    """Config-time validation of a PCPP fraction: ``1/k`` for an integer
+    ``k >= 1``, so that each stale step refreshes exactly one of k disjoint
+    strided row groups."""
+    f = float(fraction)
+    if not 0.0 < f <= 1.0:
+        raise ValueError(f"refresh_fraction must be in (0, 1], got {fraction!r}")
+    k = round(1.0 / f)
+    if k < 1 or abs(k * f - 1.0) > 1e-6:
+        raise ValueError(
+            "refresh_fraction must be 1/k for an integer k (1, 0.5, 0.25, "
+            "...): each stale step refreshes one of k strided row groups "
+            f"exactly — got {fraction!r}"
+        )
+
+
+def _rotation(r, device):
+    """The rotation index as a one-element int64 tensor on ``device``."""
+    if isinstance(r, torch.Tensor):
+        return r.reshape(1).to(device=device, dtype=torch.long)
+    return torch.tensor([int(r)], device=device)
+
+
+def take_every_kth(x, k: int, r, *, groups: int = 1):
+    """Rows ``{r, r+k, r+2k, ...}`` along axis -2 of each of ``groups``
+    equal contiguous segments: ``[..., L/k, C]``.  ``r`` is an int or a
+    device tensor (one graph serves every rotation).  ``groups > 1`` is the
+    layout whose axis -2 concatenates per-rank chunks: the stride applies
+    within each chunk."""
+    lead, rows, c = x.shape[:-2], x.shape[-2], x.shape[-1]
+    if rows % (groups * k):
+        raise ValueError(
+            f"partial refresh needs the row count ({rows}) divisible by "
+            f"groups*k ({groups}*{k}) — pick a refresh_fraction whose "
+            "period divides every refreshed row dimension"
+        )
+    xg = x.reshape(*lead, groups, rows // (groups * k), k, c)
+    sub = xg.index_select(xg.dim() - 2, _rotation(r, x.device))
+    return sub.reshape(*lead, rows // k, c)
+
+
+def scatter_every_kth(prev, rows, k: int, r, *, groups: int = 1):
+    """Inverse of ``take_every_kth``: a new tensor, ``prev`` [..., L, C]
+    with ``rows`` [..., L/k, C] written into the strided positions (same
+    ``groups`` convention), in prev's dtype."""
+    lead, n_rows, c = prev.shape[:-2], prev.shape[-2], prev.shape[-1]
+    pg = prev.reshape(*lead, groups, n_rows // (groups * k), k, c).clone()
+    up = rows.reshape(*lead, groups, n_rows // (groups * k), 1, c).to(prev.dtype)
+    pg.index_copy_(pg.dim() - 2, _rotation(r, prev.device), up)
+    return pg.reshape(prev.shape)
+
+
+def wire_nbytes(shape: Sequence[int], itemsize: int, mode: str) -> int:
+    """Bytes one exchange of a ``shape``-shaped tensor puts on the wire:
+    the raw payload for "none", else one byte per element plus one float32
+    scale per row (last-axis vector)."""
+    n = int(math.prod(shape))
+    if mode == "none":
+        return n * itemsize
+    tiles = int(math.prod(shape[:-1])) if len(shape) else 1
+    return n + tiles * 4
 
 
 def validate_weight_mode(mode: str) -> None:

@@ -4,23 +4,30 @@ Counterpart of the JAX package's compiled step (``use_compiled_step``,
 distrifuser_tpu/parallel/runner.py:625-638 and :1342-1372) and of the
 reference's per-phase capture (pipelines.py:131-165).  The runner keeps
 one ``StepGraph`` per UNet evaluation it runs, keyed by the evaluation's
-phase ("sync", "stale", "row", "col") and the shape of the generation
-(batch, latent height, latent width):
+phase ("sync", "stale", "shallow", "row", "col") and the shape of the
+generation (batch, latent height, latent width):
 
 * dense at one rank, the synchronous patch path (``full_sync``) and
   tensor parallelism: one graph;
 * the displaced patch path: a sync graph and a stale graph;
+* under the step cache, a "shallow" graph besides: the steady phase's
+  body (stale, or sync where every step is synchronous) without the deep
+  subtree, so the key is (phase, shallow);
 * naive patch parallelism: a row graph and a column graph (``alternate``
   runs both).
 
 Every graph of one shape reads the same ``StepInputs``: the UNet input
-``x_in``, the timestep as a device tensor, the text embeddings, the added
-conditioning and the text KV.  The runner copies the generation's values
-into them once per generation and ``x_in`` and ``t`` before every replay;
-the scheduler step and the CFG combine run outside the graph, as the
+``x_in``, the timestep and the step index as device tensors, the text
+embeddings, the added conditioning and the text KV.  The runner copies the
+generation's values into them once per generation and ``x_in``, ``t`` and
+the step before every replay, from device tensors: the partial refresh's
+rotation ``step % k`` is computed and applied on the card
+(``index_select`` / ``index_copy_``), so one graph serves every rotation.
+The scheduler step and the CFG combine run outside the graph, as the
 reference captures the UNet alone.
 
-The stale phase reads the previous step's per-layer buffers.  Eagerly a
+The stale (and shallow) phase reads the previous step's per-layer
+buffers.  Eagerly a
 stale step hands out new ``state_out`` tensors; under a graph those are
 the graph's own outputs, rewritten by its next replay.  The stale graph
 therefore reads a static ``state_in`` set, and after every replay its
@@ -35,7 +42,10 @@ eager code.
 Before any capture every phase runs once eagerly, on a side stream, in
 step order: that builds the kernels, runs their once-per-process
 ``cudaFuncSetAttribute``, and creates every NCCL communicator, the
-point-to-point ones included.  All graphs of a runner share one memory
+point-to-point ones included (the halo pairs, the ring hops and the
+batched flush alike).  A shallow step passes the buffers of the layers it
+skips through unchanged: its outputs then are its own static inputs, which
+the copy-back after a replay skips.  All graphs of a runner share one memory
 pool.  A capture that fails raises and leaves no graph of that shape
 behind, so the next generation captures again; a graph that was never
 captured refuses to replay on the card; nothing retries eagerly.  The
@@ -58,13 +68,19 @@ import torch
 from ..ops._build import LAUNCH_COUNTERS
 
 
-def _counts() -> Dict[Callable, int]:
-    return {fn: fn.launches for fn in LAUNCH_COUNTERS}
+# the counts a kernel wrapper keeps: every launch, and the flash wrapper's
+# launches of its log-sum-exp instances
+_COUNTS = ("launches", "lse_launches")
 
 
-def _restore(counts: Dict[Callable, int]) -> None:
-    for fn, n in counts.items():
-        fn.launches = n
+def _counts() -> Dict[Tuple[Callable, str], int]:
+    return {(fn, attr): getattr(fn, attr) for fn in LAUNCH_COUNTERS for attr in _COUNTS
+            if hasattr(fn, attr)}
+
+
+def _restore(counts: Dict[Tuple[Callable, str], int]) -> None:
+    for (fn, attr), n in counts.items():
+        setattr(fn, attr, n)
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -106,9 +122,10 @@ def _signature(tree) -> Tuple:
 class StepInputs:
     """The static inputs of the graphs of one generation shape."""
 
-    def __init__(self, x_in, t, enc, added, text_kv):
+    def __init__(self, x_in, t, enc, added, text_kv, step=0):
         self.x_in = x_in.clone()
         self.t = torch.as_tensor(t, device=x_in.device).clone()
+        self.step = torch.as_tensor(step, device=x_in.device).clone()
         self.enc, self.added, self.text_kv = _clone(enc), _clone(added), _clone(text_kv)
 
     def matches(self, enc, added, text_kv) -> bool:
@@ -120,9 +137,10 @@ class StepInputs:
     def set_generation(self, enc, added, text_kv) -> None:
         copy_tree([self.enc, self.added, self.text_kv], [enc, added, text_kv])
 
-    def set_step(self, x_in, t) -> None:
+    def set_step(self, x_in, t, step=0) -> None:
         self.x_in.copy_(x_in)
         self.t.copy_(t)
+        self.step.copy_(step)
 
 
 class StepGraph:
@@ -146,7 +164,10 @@ class StepGraph:
         self.out: Optional[torch.Tensor] = None
         self.state_out = None
         self.graph = None
+        # launches each kernel wrapper made during the capture, and every
+        # count a replay adds (the log-sum-exp launches too)
         self.launches: Dict[Callable, int] = {}
+        self.counts: Dict[Tuple[Callable, str], int] = {}
 
     def load_state(self, state) -> None:
         """Make ``state_in`` hold ``state`` (allocated at the first load)."""
@@ -174,7 +195,9 @@ class StepGraph:
         finally:
             after = _counts()
             _restore(before)
-        self.launches = {fn: n - before.get(fn, 0) for fn, n in after.items()}
+        self.counts = {key: n - before.get(key, 0) for key, n in after.items()}
+        self.launches = {fn: n for (fn, attr), n in self.counts.items()
+                         if attr == "launches"}
         self.graph = graph
 
     def replay(self, step_fn: Callable):
@@ -185,8 +208,8 @@ class StepGraph:
         raises."""
         if self.graph is not None:
             self.graph.replay()
-            for fn, n in self.launches.items():
-                fn.launches += n
+            for (fn, attr), n in self.counts.items():
+                setattr(fn, attr, getattr(fn, attr) + n)
         elif self.device.type == "cuda":
             raise RuntimeError(
                 f"the {self.phase!r} step graph was never captured; a CUDA "
@@ -220,7 +243,7 @@ class StepGraphs:
 
     def begin(self, key, x_in, t, enc, added, text_kv,
               phases: Sequence[str], stateful: Sequence[str],
-              step_fn: Callable) -> None:
+              step_fn: Callable, step=0) -> None:
         """Get the graphs of ``phases`` (in step order) ready for a
         generation of shape ``key`` and load its conditioning.
         ``step_fn(phase, inputs, state_in)`` is the eager evaluation; the
@@ -230,7 +253,7 @@ class StepGraphs:
         if key != self.key or not self.inputs.matches(enc, added, text_kv):
             self.clear()
             self.key = key
-            self.inputs = StepInputs(x_in, t, enc, added, text_kv)
+            self.inputs = StepInputs(x_in, t, enc, added, text_kv, step)
         self.inputs.set_generation(enc, added, text_kv)
         graphs = dict(self.graphs)
         missing = [p for p in phases if p not in graphs]

@@ -31,12 +31,21 @@ evaluation runs eagerly or, under ``use_compiled_step`` (the config's
   runs its branch and the guided output gathers them over the
   ``split_group``.
 
-The stepwise carry API is ROADMAP queue 1 item 11.
+The displaced path runs the JAX package's comm knobs (parallel/context.py:
+refresh compression, PCPP partial refresh, the batched flush) and ring
+attention (``attn_impl="ring"``).  Under the step cache
+(parallel/stepcache.py) the steps after the warmup run the shallow-first
+cadence: ``_phases`` lists a "shallow" evaluation for each shallow step,
+which resumes from the deep feature the last full step kept.  The
+explicit-carry API (``stepwise_carry_init`` / ``stepwise_carry_step`` /
+``stepwise_carry_latent`` / ``stepwise_carry_signature``) runs the same
+per-step evaluations one step at a time on a carry the caller holds, so
+carries interleaved step by step give the latents of contiguous runs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -48,8 +57,14 @@ from .collectives import gather_cols, gather_rows, stages_through_host
 from .context import PHASE_STALE, PHASE_SYNC, PatchContext
 from .graphs import StepGraphs
 from .guidance import branch_select, combine_guidance
+from .stepcache import STEPCACHE_KEY, is_shallow_at
 
 ROW, COL = "row", "col"  # the UNet evaluations of naive patch parallelism
+# a shallow step of the step cache: the steady phase's body (stale, or sync
+# where every step is synchronous) without the deep subtree
+PHASE_SHALLOW = "shallow"
+# buffer kinds that never touch the wire: the deep cache, residual own rows
+WIRE_FREE = ("stepcache", "local")
 
 
 def _check_geometry(cfg: DistriConfig, ucfg: UNetConfig) -> None:
@@ -93,16 +108,26 @@ class DenoiseRunner:
 
     ``dispatch`` builds the dispatch of a dense evaluation from the text
     KV (tensor parallelism passes its own).  After ``generate``,
-    ``phase_counts`` holds how many steps ran in each phase and
-    ``comm_volume_report()`` the elements of this rank's per-layer
-    buffers.  Replacing ``params`` drops the captured graphs."""
+    ``phase_counts`` holds how many steps ran in each phase ("shallow" too
+    under the step cache) and ``comm_volume_report()`` the elements of this
+    rank's per-layer buffers.  Replacing ``params`` drops the captured
+    graphs."""
 
     def __init__(self, distri_config: DistriConfig, unet_config: UNetConfig,
                  params, scheduler: BaseScheduler, dispatch=None):
         if distri_config.parallelism == "pipefusion":
             raise ValueError(
-                "pipefusion is a DiT strategy; the UNet's heterogeneous stages "
-                "cannot pipeline — use parallelism='patch' here"
+                "pipefusion is a DiT strategy (ROADMAP queue 1 item 13); the "
+                "UNet's heterogeneous stages cannot pipeline — use "
+                "parallelism='patch' here"
+            )
+        n_levels = len(unet_config.block_out_channels)
+        if distri_config.step_cache_enabled and not (
+                1 <= distri_config.step_cache_depth < n_levels):
+            raise ValueError(
+                f"step_cache_depth={distri_config.step_cache_depth} must be in "
+                f"[1, {n_levels - 1}] for this {n_levels}-level UNet (at least "
+                "one level must stay shallow)"
             )
         _check_geometry(distri_config, unet_config)
         check_graph_transport(distri_config)
@@ -113,9 +138,15 @@ class DenoiseRunner:
         self.graphs = StepGraphs(distri_config.device)
         self.params = params
         self.phase_counts: Dict[str, int] = {}
+        # what the evaluations of each phase exchanged, by buffer: (kind,
+        # elements, wire bytes), for comm_volume_report
+        self._kinds: Dict[str, str] = {}
+        self._phase_buffers: Dict[str, Dict[str, Tuple[str, int, int]]] = {}
+        # the synchronous step's buffers by name: comm_volume_report's
         self._buffer_kinds: Dict[str, str] = {}
         self._buffer_numel: Dict[str, int] = {}
         self._buffers_reported = False
+        self._schedule: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     @property
     def params(self):
@@ -126,27 +157,83 @@ class DenoiseRunner:
         self._params = tree
         self.graphs.clear()  # the graphs read the old tree's addresses
 
-    def _unet_local(self, x_in, t, my_enc, my_added, text_kv, phase, state):
-        """One UNet evaluation on this rank, ``phase`` one of
-        ``_phases``: (the whole output of this rank's branch batch, the
-        next step's buffers)."""
+    @property
+    def _cache_depth(self) -> int:
+        cfg = self.cfg
+        return cfg.step_cache_depth if cfg.step_cache_enabled else 0
+
+    def _unet_local(self, x_in, t, my_enc, my_added, text_kv, phase, state, step=None):
+        """One UNet evaluation on this rank, ``phase`` one of ``_phases``
+        (``step`` the absolute step index, which a partial refresh rotates
+        by): (the whole output of this rank's branch batch, the next step's
+        buffers)."""
         cfg = self.cfg
         if cfg.parallelism == "naive_patch" and cfg.is_sp:
             return self._naive_patch_unet(x_in, t, my_enc, my_added, text_kv, phase), state
+        cd = self._cache_depth
+        shallow = phase == PHASE_SHALLOW
         if not cfg.is_sp:
-            out = unet_forward(self.params, self.ucfg, x_in, t, my_enc,
-                               dispatch=self.dispatch(text_kv), added_cond=my_added)
+            if not cd:
+                out = unet_forward(self.params, self.ucfg, x_in, t, my_enc,
+                                   dispatch=self.dispatch(text_kv), added_cond=my_added)
+                self._record(phase, state, {}, {}, set())
+                return out, state
+            out, deep = unet_forward(
+                self.params, self.ucfg, x_in, t, my_enc, dispatch=self.dispatch(text_kv),
+                added_cond=my_added, cache_depth=cd,
+                deep_cache=state[STEPCACHE_KEY] if shallow else None)
+            if deep is not None:
+                state = {STEPCACHE_KEY: deep}
+            self._record(phase, state, {STEPCACHE_KEY: "stepcache"}, {},
+                         {STEPCACHE_KEY} if shallow else set())
             return out, state
-        ctx = PatchContext(n=cfg.n_device_per_batch, mode=cfg.mode, phase=phase,
+        if shallow:  # the steady phase's body, without the deep subtree
+            one_phase = cfg.mode == "full_sync"
+            ctx_phase = PHASE_SYNC if one_phase else PHASE_STALE
+        else:
+            ctx_phase = phase
+        ctx = PatchContext(n=cfg.n_device_per_batch, mode=cfg.mode, phase=ctx_phase,
                            group=cfg.batch_group, split_idx=cfg.split_idx(),
+                           attn_impl=cfg.attn_impl, batch_comm=cfg.comm_batch,
+                           compress=cfg.comm_compress,
+                           refresh_fraction=cfg.refresh_fraction, step=step,
                            state_in=state, text_kv=text_kv)
-        out_local = unet_forward(self.params, self.ucfg, x_in, t, my_enc,
-                                 dispatch=PatchDispatch(ctx), added_cond=my_added)
+        dispatch = PatchDispatch(ctx)
+        if cd:
+            out_local, deep = unet_forward(
+                self.params, self.ucfg, x_in, t, my_enc, dispatch=dispatch,
+                added_cond=my_added, cache_depth=cd,
+                deep_cache=ctx.stale(STEPCACHE_KEY) if shallow else None)
+            if deep is not None:  # a full step refreshes the cache
+                ctx.emit(STEPCACHE_KEY, deep, "stepcache")
+        else:
+            out_local = unet_forward(self.params, self.ucfg, x_in, t, my_enc,
+                                     dispatch=dispatch, added_cond=my_added)
+        ctx.flush()
+        if cd:  # the layers a shallow step skips pass their buffers on
+            ctx.carry_unconsumed()
         state = ctx.finish()
-        if phase == PHASE_SYNC:
-            self._buffer_kinds = dict(ctx.kinds)
-            self._buffer_numel = {k: v.numel() for k, v in state.items()}
+        self._record(phase, state, ctx.kinds, ctx.wire, ctx.carried)
         return gather_rows(out_local, cfg.batch_group), state
+
+    def _record(self, phase, state, kinds, wire, carried) -> None:
+        """Keep, for ``comm_volume_report``, what an evaluation of ``phase``
+        freshly exchanged: each buffer of ``state`` it did not carry, with
+        its kind, elements and wire bytes (the bytes its exchange put on
+        the wire, 0 for the wire-free kinds, else the buffer's bytes)."""
+        self._kinds.update(kinds)
+        fresh = {}
+        for name, buf in (state or {}).items():
+            if name in carried:
+                continue
+            kind = self._kinds.get(name, "other")
+            numel = buf.numel()
+            default = 0 if kind in WIRE_FREE else numel * buf.element_size()
+            fresh[name] = (kind, numel, wire.get(name, default))
+        self._phase_buffers[phase] = fresh
+        if phase == PHASE_SYNC and self.cfg.is_sp:
+            self._buffer_kinds = {name: entry[0] for name, entry in fresh.items()}
+            self._buffer_numel = {name: entry[1] for name, entry in fresh.items()}
 
     def _naive_patch_unet(self, x_in, t, my_enc, my_added, text_kv, scheme):
         """Naive patch parallelism (JAX ``_naive_patch_unet``): this rank's
@@ -160,29 +247,44 @@ class DenoiseRunner:
         gather = gather_rows if scheme == ROW else gather_cols
         return gather(y, cfg.batch_group)
 
+    def _stepwise_phase(self, i: int, start_step: int, end_step: int) -> Tuple[str, bool]:
+        """(phase, shallow) of step ``i`` of a run over ``start_step..
+        end_step-1`` (JAX ``_stepwise_phase``): the synchronous steps are
+        the first ``warmup_steps + 1`` that run (every step where the patch
+        path has one phase: full_sync, one rank, no patches), and under the
+        step cache the steps after them follow the shallow-first cadence."""
+        cfg = self.cfg
+        sc = cfg.step_cache_enabled
+        one_phase = (cfg.parallelism != "patch" or cfg.mode == "full_sync"
+                     or not cfg.is_sp)
+        n_sync = (end_step - start_step if one_phase and not sc
+                  else min(cfg.warmup_steps + 1, end_step - start_step))
+        phase = PHASE_SYNC if one_phase or i < start_step + n_sync else PHASE_STALE
+        shallow = sc and is_shallow_at(i, start_step + n_sync, cfg.step_cache_interval)
+        return phase, shallow
+
     def _phases(self, end: int, start: int = 0) -> List[str]:
         """The UNet evaluation of each of the steps ``start..end-1``:
-        PHASE_SYNC or PHASE_STALE, or ROW or COL under naive patch
-        parallelism (``alternate`` by the absolute step's parity); one graph
-        each.  Under displaced patch parallelism the synchronous steps are
-        counted from ``start``: the first ``warmup_steps + 1`` steps that
-        run (the reference counts ``counter <= warmup_steps`` as
+        PHASE_SYNC, PHASE_STALE or PHASE_SHALLOW, or ROW or COL under naive
+        patch parallelism (``alternate`` by the absolute step's parity); one
+        graph each.  Under displaced patch parallelism the synchronous steps
+        are counted from ``start``: the first ``warmup_steps + 1`` steps
+        that run (the reference counts ``counter <= warmup_steps`` as
         synchronous), so a run that starts mid-schedule (img2img, the
         second stage of a handoff) seeds its own stale buffers."""
         cfg = self.cfg
         if cfg.parallelism == "naive_patch" and cfg.is_sp:
             scheme = {"row": [ROW], "col": [COL], "alternate": [ROW, COL]}[cfg.split_scheme]
             return [scheme[i % len(scheme)] for i in range(start, end)]
-        n_sync = end - start
-        if cfg.parallelism == "patch" and cfg.is_sp and cfg.mode != "full_sync":
-            n_sync = min(cfg.warmup_steps + 1, n_sync)
-        return [PHASE_SYNC if i < start + n_sync else PHASE_STALE
-                for i in range(start, end)]
+        keys = []
+        for i in range(start, end):
+            phase, shallow = self._stepwise_phase(i, start, end)
+            keys.append(PHASE_SHALLOW if shallow else phase)
+        return keys
 
-    def _inputs(self, latents, prompt_embeds, added_cond, guidance_scale):
-        """The generation's tensors on this rank's device: (latent float32,
-        this rank's embeddings, added conditioning, text KV, guidance
-        scale)."""
+    def _conditioning(self, prompt_embeds, added_cond):
+        """(this rank's embeddings, added conditioning, text KV) on this
+        rank's device."""
         cfg = self.cfg
         dev = cfg.device
         prompt_embeds = torch.as_tensor(prompt_embeds).to(dev, cfg.dtype)
@@ -198,9 +300,28 @@ class DenoiseRunner:
         # at every step, as the reference's TP attention does (no cache)
         text_kv = ({} if cfg.parallelism == "tensor"
                    else precompute_text_kv(self.params, my_enc))
+        return my_enc, my_added, text_kv
+
+    def _inputs(self, latents, prompt_embeds, added_cond, guidance_scale):
+        """The generation's tensors on this rank's device: (latent float32,
+        this rank's embeddings, added conditioning, text KV, guidance
+        scale)."""
+        dev = self.cfg.device
+        my_enc, my_added, text_kv = self._conditioning(prompt_embeds, added_cond)
         gs = torch.tensor(guidance_scale, dtype=torch.float32, device=dev)
         x = torch.as_tensor(latents).to(dev, torch.float32)
         return x, my_enc, my_added, text_kv, gs
+
+    def _step_tensors(self, num_steps: int):
+        """(timesteps, step indices) of the ``num_steps`` schedule on the
+        device, made once: a step copies its entries into a graph's inputs
+        with no host-to-device copy."""
+        if num_steps not in self._schedule:
+            dev = self.cfg.device
+            self._schedule[num_steps] = (
+                self.scheduler.timesteps().to(dev),
+                torch.arange(num_steps, device=dev))
+        return self._schedule[num_steps]
 
     def _model_input(self, x, i):
         x_in = self.scheduler.scale_model_input(x, i)
@@ -214,16 +335,39 @@ class DenoiseRunner:
         conditioning into their static inputs; ``start`` is the first
         step that runs."""
         check_graph_transport(self.cfg)
-        t0 = self.scheduler.timesteps()[start].to(x.device)
-        stateful = [PHASE_STALE] if PHASE_STALE in phases else []
+        n = self.scheduler.num_inference_steps
+        timesteps, steps = self._step_tensors(n)
+        stateful = [p for p in (PHASE_STALE, PHASE_SHALLOW) if p in phases]
         self.graphs.begin(
-            tuple(x.shape), self._model_input(x, start), t0, my_enc, my_added, text_kv,
-            list(dict.fromkeys(phases)), stateful, self._evaluate)
+            tuple(x.shape), self._model_input(x, start), timesteps[start], my_enc,
+            my_added, text_kv, list(dict.fromkeys(phases)), stateful, self._evaluate,
+            step=steps[start])
 
     def _evaluate(self, phase, inputs, state):
         """``_unet_local`` on a graph's static inputs."""
         return self._unet_local(inputs.x_in, inputs.t, inputs.enc, inputs.added,
-                                inputs.text_kv, phase, state)
+                                inputs.text_kv, phase, state, step=inputs.step)
+
+    def _advance(self, x, i, phase, state, sstate, cond, gs, graphed):
+        """Step ``i`` of the current schedule: the UNet evaluation ``phase``
+        (a graph replay when ``graphed``), the guidance and the scheduler
+        step.  Returns ``(x, buffers, scheduler state)``; a replay's buffers
+        are the graph's own."""
+        my_enc, my_added, text_kv = cond
+        timesteps, steps = self._step_tensors(self.scheduler.num_inference_steps)
+        x_in = self._model_input(x, i)
+        if graphed:
+            graph = self.graphs[phase]
+            graph.inputs.set_step(x_in, timesteps[i], steps[i])
+            if graph.stateful:
+                graph.load_state(state)
+            out, state = graph.replay(self._evaluate)
+        else:
+            out, state = self._unet_local(x_in, timesteps[i], my_enc, my_added,
+                                          text_kv, phase, state, step=steps[i])
+        guided = combine_guidance(self.cfg, out, gs, x.shape[0])
+        x, sstate = self.scheduler.step(x, guided.float(), i, sstate)
+        return x, state, sstate
 
     @torch.inference_mode()
     def prepare(self, latents, prompt_embeds, *, num_inference_steps: int = 50,
@@ -239,6 +383,15 @@ class DenoiseRunner:
                                                        added_cond, 1.0)
         self._begin_graphs(x, my_enc, my_added, text_kv,
                            self._phases(num_inference_steps))
+
+    def _count(self, phase) -> None:
+        key = phase if phase in (PHASE_STALE, PHASE_SHALLOW) else PHASE_SYNC
+        self.phase_counts[key] += 1
+
+    def _reset_counts(self) -> None:
+        self.phase_counts = {PHASE_SYNC: 0, PHASE_STALE: 0}
+        if self.cfg.step_cache_enabled:
+            self.phase_counts[PHASE_SHALLOW] = 0
 
     @torch.inference_mode()
     def generate(self, latents, prompt_embeds, *, guidance_scale: float = 5.0,
@@ -273,25 +426,13 @@ class DenoiseRunner:
         graphed = cfg.use_compiled_step
         if graphed:
             self._begin_graphs(x, my_enc, my_added, text_kv, phases, start_step)
-        timesteps = sched.timesteps().to(x.device)
-        batch = x.shape[0]
         sstate = sched.init_state(x.shape)
-        self.phase_counts = {PHASE_SYNC: 0, PHASE_STALE: 0}
+        self._reset_counts()
         state = None
+        cond = (my_enc, my_added, text_kv)
         for i, phase in enumerate(phases, start=start_step):
-            x_in = self._model_input(x, i)
-            if graphed:
-                graph = self.graphs[phase]
-                graph.inputs.set_step(x_in, timesteps[i])
-                if graph.stateful:
-                    graph.load_state(state)
-                out, state = graph.replay(self._evaluate)
-            else:
-                out, state = self._unet_local(x_in, timesteps[i], my_enc, my_added,
-                                              text_kv, phase, state)
-            guided = combine_guidance(cfg, out, gs, batch)
-            x, sstate = sched.step(x, guided.float(), i, sstate)
-            self.phase_counts[PHASE_STALE if phase == PHASE_STALE else PHASE_SYNC] += 1
+            x, state, sstate = self._advance(x, i, phase, state, sstate, cond, gs, graphed)
+            self._count(phase)
             if callback is not None:
                 callback(i, sched.timesteps()[i], x)
         if cfg.verbose and not self._buffers_reported:
@@ -299,14 +440,78 @@ class DenoiseRunner:
             self.comm_volume_report()
         return x
 
-    def comm_volume_report(self) -> Dict[str, int]:
+    # -- the explicit-carry stepwise API ----------------------------------
+
+    def stepwise_carry_init(self, latents, num_steps: int):
+        """Start a denoise whose carry the caller holds: ``(x, buffers,
+        scheduler state)``, what one step of ``generate`` hands to the
+        next.  Carries advance one step at a time (``stepwise_carry_step``)
+        and may interleave: each step runs the evaluation a contiguous run
+        of that step runs."""
+        self.scheduler.set_timesteps(num_steps)
+        x = torch.as_tensor(latents).to(self.cfg.device, torch.float32)
+        return x, None, self.scheduler.init_state(x.shape)
+
+    @torch.inference_mode()
+    def stepwise_carry_step(self, carry, i: int, enc, added, gs, num_steps: int):
+        """Advance ``carry`` by exactly step ``i`` of a ``num_steps`` run and
+        return the new carry; ``enc`` [n_branches, B, L, C] and ``added`` as
+        ``generate`` takes them, ``gs`` the guidance scale.  The carry's
+        buffers are consumed (a stale step writes into them).  Under
+        ``use_cuda_graph`` the step replays the run's graphs and the new
+        carry owns copies of the graph's buffers."""
+        x, state, sstate = carry
+        sched = self.scheduler
+        if sched.num_inference_steps != num_steps:
+            sched.set_timesteps(num_steps)
+        phase, shallow = self._stepwise_phase(i, 0, num_steps)
+        key = PHASE_SHALLOW if shallow else phase
+        if self.cfg.parallelism == "naive_patch" and self.cfg.is_sp:
+            key = self._phases(i + 1, i)[0]
+        cond = self._conditioning(enc, added)
+        gs = torch.as_tensor(gs, dtype=torch.float32).to(self.cfg.device)
+        graphed = self.cfg.use_compiled_step
+        if graphed:
+            self._begin_graphs(x, *cond, self._phases(num_steps), i)
+        x, state, sstate = self._advance(x, i, key, state, sstate, cond, gs, graphed)
+        if graphed and state is not None:
+            state = {k: v.clone() for k, v in state.items()}
+        return x, state, sstate
+
+    def stepwise_carry_latent(self, carry):
+        """The carry's current latent [B, H/8, W/8, C] (not consumed)."""
+        return carry[0]
+
+    def stepwise_carry_signature(self, carry, i: int, num_steps: int):
+        """Which evaluation advancing ``carry`` by step ``i`` runs: carries
+        of one signature run the same per-step evaluation (graph)."""
+        phase, shallow = self._stepwise_phase(i, 0, num_steps)
+        return ("unet", phase, carry[1] is not None, shallow, num_steps)
+
+    # -- observability ----------------------------------------------------
+
+    def comm_volume_report(self, *, per_phase: bool = False):
         """Elements of this rank's per-layer stale buffers by layer kind
-        ("conv2d" halos, "attn" gathered KV, "gn" gathered moments), as the
-        JAX package's ``comm_volume_report`` counts them; read from the
-        buffers the last ``generate`` seeded.  Empty when the image is not
-        in displaced patches.  Under ``verbose`` it also prints them, as
-        the JAX package does."""
-        if not self.cfg.is_sp or self.cfg.parallelism != "patch":
+        ("conv2d" halos, "attn" KV, "gn" gathered moments, "stepcache" the
+        deep feature, "local" residual own rows), as the JAX package's
+        ``comm_volume_report`` counts them; read from the buffers the last
+        ``generate`` seeded.  Empty when the image is not in displaced
+        patches.  Under ``verbose`` it also prints them, as the JAX package
+        does.
+
+        ``per_phase=True`` gives ``{"phases": {phase: {kind: elements}},
+        "bytes": {phase: {kind: wire bytes}}, "refresh_fraction": f}`` for
+        the phases the configuration runs ("sync", "stale" where the patch
+        path has two phases, "shallow" under the step cache), each counting
+        only what one step of that phase freshly exchanges: buffers carried
+        through are left out, the bytes are those on the wire (a compressed
+        payload's 8-bit elements and float32 scales, a partial refresh's
+        rows) and the "stepcache" and "local" kinds count none.  A phase
+        that has not run raises, naming it."""
+        cfg = self.cfg
+        if per_phase:
+            return self._comm_volume_per_phase()
+        if not cfg.is_sp or cfg.parallelism != "patch":
             return {}
         if not self._buffer_numel:
             raise RuntimeError("comm_volume_report reads the buffers of the last "
@@ -315,13 +520,36 @@ class DenoiseRunner:
         for name, numel in self._buffer_numel.items():
             kind = self._buffer_kinds[name]
             report[kind] = report.get(kind, 0) + numel
-        if self.cfg.verbose:
+        if cfg.verbose:
             total = sum(report.values())
             print(f"Stale-state buffers: {total / 1e6:.3f}M elements over "
                   f"{len(self._buffer_numel)} tensors per device.")
             for kind, numel in sorted(report.items()):
                 print(f"  {kind}: {numel / 1e6:.3f}M elements")
         return report
+
+    def _comm_volume_per_phase(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        if cfg.parallelism != "patch":
+            return {"phases": {}, "bytes": {}}
+        one_phase = cfg.mode == "full_sync" or not cfg.is_sp
+        wanted = [PHASE_SYNC] + ([] if one_phase else [PHASE_STALE])
+        if cfg.step_cache_enabled:
+            wanted.append(PHASE_SHALLOW)
+        phases: Dict[str, Dict[str, int]] = {}
+        nbytes: Dict[str, Dict[str, int]] = {}
+        for phase in wanted:
+            if phase not in self._phase_buffers:
+                raise RuntimeError(
+                    f"comm_volume_report(per_phase=True): no {phase!r} step has "
+                    "run yet; it reads the buffers of the last generate(), whose "
+                    f"schedule must reach a {phase!r} step")
+            phases[phase], nbytes[phase] = {}, {}
+            for kind, numel, wire in self._phase_buffers[phase].values():
+                phases[phase][kind] = phases[phase].get(kind, 0) + numel
+                nbytes[phase][kind] = nbytes[phase].get(kind, 0) + wire
+        return {"phases": phases, "bytes": nbytes,
+                "refresh_fraction": cfg.refresh_fraction}
 
 
 def make_runner(distri_config: DistriConfig, unet_config: UNetConfig, params,

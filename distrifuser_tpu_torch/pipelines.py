@@ -78,6 +78,7 @@ from .native.bpe import CLIPTokenizer
 from .native.safetensors import load_sharded_safetensors
 from .parallel.compress import validate_quant_compute, validate_weight_mode
 from .parallel.runner import check_graph_transport, make_runner
+from .parallel.stepcache import phase_step_counts, shallow_step_count
 from .schedulers import BaseScheduler, get_scheduler
 from .utils.config import DistriConfig
 
@@ -394,6 +395,46 @@ class _DistriPipelineBase:
                               self.unet_config.in_channels, device=cfg.device)
         self.runner.prepare(latents, embeds, num_inference_steps=num_inference_steps,
                             added_cond=added)
+
+    def step_cache_plan(self, num_inference_steps: int) -> dict:
+        """How the step cache's cadence plays out over a run of
+        ``num_inference_steps`` steps (JAX ``step_cache_plan``)."""
+        cfg = self.distri_config
+        shallow = (shallow_step_count(num_inference_steps, cfg.warmup_steps,
+                                      cfg.step_cache_interval)
+                   if cfg.step_cache_enabled else 0)
+        return {"enabled": cfg.step_cache_enabled,
+                "interval": cfg.step_cache_interval,
+                "depth": cfg.step_cache_depth,
+                "total_steps": num_inference_steps,
+                "shallow_steps": shallow}
+
+    def comm_plan(self, num_inference_steps: int) -> dict:
+        """What one generation of ``num_inference_steps`` steps puts on the
+        wire (JAX ``comm_plan``): the bytes a step of each phase exchanges
+        (``comm_volume_report(per_phase=True)``, read from the runner's last
+        generate) times the phase's step count, per rank.  A configuration
+        with no patch buffers to price (tensor or naive patch parallelism)
+        raises."""
+        cfg = self.distri_config
+        counts = phase_step_counts(
+            num_inference_steps, cfg.warmup_steps,
+            cfg.step_cache_interval if cfg.step_cache_enabled else 1)
+        rep = self.runner.comm_volume_report(per_phase=True)
+        per_step = {ph: sum(kinds.values()) for ph, kinds in rep["bytes"].items()}
+        if not per_step:
+            raise ValueError(
+                f"{type(self.runner).__name__} under parallelism="
+                f"{cfg.parallelism!r} has no byte-modeled comm report: "
+                "comm_plan cannot price its traffic")
+        if "stale" not in per_step:  # one-phase configurations
+            per_step["stale"] = per_step.get("sync", 0)
+        total = sum(per_step.get(ph, 0) * n for ph, n in counts.items())
+        return {"comm_compress": cfg.comm_compress,
+                "refresh_fraction": cfg.refresh_fraction,
+                "steps": counts,
+                "bytes_per_step": per_step,
+                "total_bytes": int(total)}
 
     def weight_report(self) -> dict:
         """Device bytes of each component's weights (a quantized kernel

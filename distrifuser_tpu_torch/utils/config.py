@@ -17,7 +17,12 @@ original DistriFusion:
   Rank r has ``batch_idx = r // n`` and ``split_idx = r % n``.
 
 Knobs of the JAX package that the port does not run yet are refused with
-the ROADMAP item that will bring them, never ignored.  One knob is carried
+the ROADMAP item that will bring them, never ignored: ``attn_impl``
+"ulysses" and "usp" (the DiT layouts, item 13) and ``dp_degree`` above 1
+(item 17).  The comm knobs of the displaced patch path (``comm_batch``,
+``comm_compress``, ``refresh_fraction``, the step cache and
+``attn_impl="ring"``) are validated as the JAX package validates them.
+One knob is carried
 with no effect, as in the JAX package: ``comm_checkpoint``, the
 reference's NCCL flush interval, which a compiled step (a CUDA graph, or
 the JAX package's XLA program) has no queue for; it is still checked to be
@@ -33,7 +38,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from ..parallel.compress import validate_quant_compute, validate_weight_mode
+from ..parallel.compress import (validate_mode, validate_quant_compute,
+                                 validate_refresh_fraction, validate_weight_mode)
 from .env import is_power_of_2, resolve_device
 
 SYNC_MODES = (
@@ -47,7 +53,22 @@ SYNC_MODES = (
 PARALLELISMS = ("patch", "tensor", "naive_patch", "pipefusion")
 SPLIT_SCHEMES = ("row", "col", "alternate")
 ATTN_IMPLS = ("gather", "ring", "ulysses", "usp")
-COMM_COMPRESS = ("none", "int8", "fp8", "int8_residual")
+
+
+def validate_step_cache_knobs(interval: int, depth: int) -> None:
+    """The step-cache pairing rule (JAX utils/config.py:62): both knobs on,
+    or both off."""
+    if interval < 1:
+        raise ValueError(f"step_cache_interval must be >= 1, got {interval}")
+    if depth < 0:
+        raise ValueError(f"step_cache_depth must be >= 0, got {depth}")
+    if (interval > 1) != (depth > 0):
+        raise ValueError(
+            "step-cache needs BOTH knobs: step_cache_interval >= 2 picks "
+            "the full/shallow cadence and step_cache_depth >= 1 picks how "
+            f"deep the shallow steps cut (got interval={interval}, "
+            f"depth={depth})"
+        )
 
 # process groups already built, keyed by (default group, world, n): every
 # config of a run shares them, and every rank builds them in one order
@@ -110,6 +131,19 @@ class DistriConfig:
     (``DenoiseRunner.comm_volume_report``); ``comm_checkpoint`` is carried
     with no effect (module docstring).
 
+    The comm knobs of the displaced patch path (parallelism "patch"), as in
+    the JAX package: ``comm_compress`` ("int8", "fp8", "int8_residual")
+    sends the stale refreshes of halos and KV as 8-bit payloads with one
+    float32 scale per row (GroupNorm moments and synchronous exchanges stay
+    exact); ``refresh_fraction`` 1/k refreshes one of k strided row groups
+    per stale step (PCPP); ``comm_batch`` exchanges every refresh of a step
+    in one flat all-gather per dtype and one flat halo pair; the step cache
+    (``step_cache_interval`` I >= 2 with ``step_cache_depth`` K >= 1) runs
+    the whole UNet once every I steps after the warmup and only its shallow
+    levels in between (parallel/stepcache.py); ``attn_impl="ring"`` streams
+    the peers' KV chunks around the patch group instead of gathering them
+    (ops/ring_attention.py).
+
     ``vae_sp`` picks the decode where the image is in patches and the
     latent rows divide among them: the JAX package then decodes sequence-
     parallel, which is exact, and the port decodes the whole latent on
@@ -134,6 +168,8 @@ class DistriConfig:
     comm_batch: bool = False
     comm_compress: str = "none"
     refresh_fraction: float = 1.0
+    step_cache_interval: int = 1
+    step_cache_depth: int = 0
     dtype: Any = None
     batch_size: int = 1
     weight_quant: str = "none"
@@ -182,9 +218,6 @@ class DistriConfig:
                 f"comm_checkpoint must be a positive int, got {self.comm_checkpoint!r}")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
-        if self.comm_compress not in COMM_COMPRESS:
-            raise ValueError(
-                f"comm_compress must be one of {COMM_COMPRESS}, got {self.comm_compress!r}")
         if self.height % 8 != 0 or self.width % 8 != 0:
             raise ValueError("height and width must be multiples of 8")
         if self.batch_size < 1:
@@ -202,27 +235,48 @@ class DistriConfig:
                 "parallelism='tensor' pre-shards its param tree and would "
                 "silently densify the payloads; keep weight_quant='none' there"
             )
-        if self.attn_impl != "gather":
+        validate_mode(self.comm_compress)
+        if (self.comm_compress != "none"
+                and self.parallelism not in ("patch", "pipefusion")):
+            raise ValueError(
+                "comm_compress targets the displaced-patch refresh exchanges "
+                "(parallelism='patch') or the PipeFusion inter-stage hops; "
+                f"{self.parallelism!r} has no stale refresh traffic to compress"
+            )
+        validate_refresh_fraction(self.refresh_fraction)
+        if self.refresh_fraction < 1.0:
+            if self.parallelism != "patch":
+                raise ValueError(
+                    "refresh_fraction < 1 (PCPP partial refresh) rides the "
+                    "displaced-patch stale-refresh exchanges "
+                    f"(parallelism='patch'); {self.parallelism!r} has no "
+                    "per-step refresh traffic to thin"
+                )
+            if self.comm_batch:
+                raise ValueError(
+                    "refresh_fraction < 1 and comm_batch are mutually "
+                    "exclusive: the flat batched exchange defers whole-buffer "
+                    "records; use the per-layer path for partial refresh"
+                )
+        validate_step_cache_knobs(self.step_cache_interval, self.step_cache_depth)
+        if self.step_cache_enabled and self.parallelism not in ("patch", "pipefusion"):
+            raise ValueError(
+                "step-cache rides the displaced-patch buffers "
+                "(parallelism='patch') or the PipeFusion per-stage carry; "
+                f"{self.parallelism!r} has no cross-step activation carry to "
+                "keep the deep cache in"
+            )
+        if self.attn_impl in ("ulysses", "usp"):
             raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r}: the port gathers the KV; ring "
-                "attention is ROADMAP queue 1 item 11 (ulysses and usp are DiT "
-                "layouts, item 13)"
+                f"attn_impl={self.attn_impl!r}: ulysses and usp are the DiT "
+                "layouts, ROADMAP queue 1 item 13; the UNet's patch path takes "
+                "'gather' or 'ring'"
             )
         if self.dp_degree > 1:
             raise NotImplementedError(
                 f"dp_degree={self.dp_degree}: independent image groups are "
                 "ROADMAP queue 1 item 17"
             )
-        knobs = {"comm_batch": (self.comm_batch, False),
-                 "comm_compress": (self.comm_compress, "none"),
-                 "refresh_fraction": (self.refresh_fraction, 1.0)}
-        for name, (value, default) in knobs.items():
-            if value != default:
-                raise NotImplementedError(
-                    f"{name}={value!r}: the comm knobs (batched refresh, refresh "
-                    "compression, PCPP partial refresh) are ROADMAP queue 1 "
-                    f"item 10; leave it at {default!r}"
-                )
         on_card = self.device is None or torch.device(self.device).type == "cuda"
         if on_card and self.dtype is not None and self.dtype != torch.bfloat16:
             raise ValueError(
@@ -244,6 +298,11 @@ class DistriConfig:
         """The JAX package's name for ``use_cuda_graph``: run each UNet
         evaluation as one captured program (JAX utils/config.py:424-426)."""
         return self.use_cuda_graph
+
+    @property
+    def step_cache_enabled(self) -> bool:
+        """Is the temporal step-cache cadence on (parallel/stepcache.py)?"""
+        return self.step_cache_interval > 1 and self.step_cache_depth > 0
 
     @property
     def is_sp(self) -> bool:

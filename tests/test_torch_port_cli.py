@@ -81,14 +81,28 @@ def test_config_from_flags():
     assert (cfg.height, cfg.width) == (768, 512)
 
 
+@pytest.mark.parametrize("flags", [
+    ["--attn_impl", "ring"],
+    ["--comm_compress", "int8"],
+    ["--comm_compress", "int8_residual", "--refresh_fraction", "0.5"],
+    ["--comm_batch", "--comm_compress", "fp8"],
+])
+def test_comm_knob_flags_pass_through_as_in_the_jax_scripts(flags):
+    parser = argparse.ArgumentParser()
+    jax_common.add_distri_args(parser)
+    want = jax_common.config_from_args(parser.parse_args(flags))
+    got = _config(["--device", "cpu"] + flags)
+    for name in ("attn_impl", "comm_batch", "comm_compress", "refresh_fraction"):
+        assert getattr(got, name) == getattr(want, name), name
+
+
 @pytest.mark.parametrize("flags, message", [
     (["--dump_hlo", "x.hlo"], "no HLO"),
-    (["--attn_impl", "ring"], "item 11"),
     (["--attn_impl", "usp", "--ulysses_degree", "2"], "item 13"),
+    (["--attn_impl", "ulysses"], "item 13"),
     (["--pipe_patches", "4"], "item 13"),
-    (["--comm_compress", "int8"], "item 10"),
-    (["--comm_batch"], "item 10"),
-    (["--refresh_fraction", "0.5"], "item 10"),
+    (["--refresh_fraction", "0.3"], "1/k"),
+    (["--comm_batch", "--refresh_fraction", "0.5"], "mutually exclusive"),
     (["--dp_degree", "2"], "item 17"),
     (["--scheduler", "flow-euler"], "item 14"),
     (["--parallelism", "pipefusion"], "DiT strategy"),

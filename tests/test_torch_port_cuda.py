@@ -8,8 +8,9 @@ port's dependencies are installed:
 
 Flash attention, in bf16: max |d| <= 2e-2 and mean |d| <= 2e-3 (a few bf16
 roundings of outputs below 1); two calls on the same inputs are
-bit-identical (no atomics, a fixed order of sums).  Quantized matmul and
-per-token quantization: see their section.
+bit-identical (no atomics, a fixed order of sums).  The log-sum-exp
+instances: the same bound on their float32 output, lse within 1e-3.
+Quantized matmul and per-token quantization: see their section.
 """
 
 import pytest
@@ -67,6 +68,36 @@ def test_kernel_matches_reference_on_card(b, lq, lk, heads, d):
     torch.cuda.synchronize()
     assert port_flash.flash_sdpa.launches == before + 1
     _assert_close(got, port_flash.flash_sdpa_reference(q, k, v, heads=heads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,heads,d", [
+    (1, 2048, 2048, 10, 64), (1, 512, 512, 20, 64), (2, 100, 333, 3, 40),
+    (1, 77, 200, 5, 80), (1, 130, 70, 3, 160), (2, 64, 64, 4, 16),
+    (1, 256, 256, 1, 32), (1, 200, 333, 3, 128), (1, 130, 257, 2, 256),
+    (1, 300, 300, 1, 512)],
+    ids=["ring_l1", "ring_l2", "d40", "d80", "d160", "d16", "d32", "d128", "d256",
+         "d512"])
+def test_lse_kernel_matches_reference_on_card(b, lq, lk, heads, d):
+    """The log-sum-exp instances (``return_lse=True``): the float32 output
+    and lse [B, H, Lq] against the plain version, every head dim; the
+    output agrees with the bf16 instance's."""
+    _need_card()
+    q, k, v = _flash_operands(b, lq, lk, heads, d, seed=3)
+    out, lse = port_flash.flash_sdpa(q, k, v, heads=heads, return_lse=True)
+    want, want_lse = port_flash.flash_sdpa_reference(q, k, v, heads=heads,
+                                                     return_lse=True)
+    assert out.dtype == lse.dtype == torch.float32
+    assert tuple(lse.shape) == (b, heads, lq)
+    _assert_close(out, want)
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    _assert_close(out.bfloat16(), port_flash.flash_sdpa(q, k, v, heads=heads))
+    masked, masked_lse = port_flash.flash_sdpa(q, k, v, heads=heads, kv_len=lk // 2 + 1,
+                                               return_lse=True)
+    want, want_lse = port_flash.flash_sdpa_reference(q, k, v, heads=heads,
+                                                     kv_len=lk // 2 + 1, return_lse=True)
+    _assert_close(masked, want)
+    assert (masked_lse - want_lse).abs().max().item() <= 1e-3
 
 
 @pytest.mark.cuda
@@ -187,9 +218,10 @@ def test_kernel_variants_fit_the_card():
     """Every head dim has an instance whose block fits one SM."""
     _need_card()
     for d in port_flash.HEAD_DIMS:
-        info = port_flash.variant(d)
-        assert 0 < info["registers"] <= 255, (d, info)
-        assert info["smem_bytes"] <= 227 * 1024, (d, info)
+        for lse in (False, True):
+            info = port_flash.variant(d, lse=lse)
+            assert 0 < info["registers"] <= 255, (d, lse, info)
+            assert info["smem_bytes"] <= 227 * 1024, (d, lse, info)
 
 
 @pytest.mark.cuda

@@ -66,16 +66,26 @@ def test_unet_family_decodes_without_vae_shift():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("attn_impl", "ring", "item 11"),
-    ("attn_impl", "usp", "item 11"),
+    ("attn_impl", "usp", "item 13"),
+    ("attn_impl", "ulysses", "item 13"),
     ("dp_degree", 2, "item 17"),
-    ("comm_batch", True, "item 10"),
-    ("comm_compress", "int8", "item 10"),
-    ("refresh_fraction", 0.5, "item 10"),
 ])
 def test_unported_knobs_refused(field, value, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
         DistriConfig(device="cpu", **{field: value})
+
+
+@pytest.mark.parametrize("fields", [
+    {"attn_impl": "ring"},
+    {"comm_batch": True},
+    {"comm_compress": "int8"},
+    {"refresh_fraction": 0.5},
+    {"step_cache_interval": 2, "step_cache_depth": 1},
+])
+def test_ported_comm_knobs_accepted(fields):
+    cfg = DistriConfig(device="cpu", **fields)
+    for name, value in fields.items():
+        assert getattr(cfg, name) == value
 
 
 @pytest.mark.parametrize("parallelism", ["tensor", "naive_patch"])

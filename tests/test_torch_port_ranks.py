@@ -168,3 +168,145 @@ def sd_pipeline_worker(rank, world, in_path, out_path):
         latent = pipe(inp["prompt"], output_type="latent", **call).images[0]
         out[tuple(sorted(case.items()))] = (latent, dict(pipe.runner.phase_counts))
     torch.save(out, f"{out_path}.rank{rank}")
+
+
+def _tiny_runner_inputs(inp):
+    return inp["latents"], inp["enc"], inp["added"]
+
+
+def knobs_worker(rank, world, in_path, out_path):
+    """The tiny SDXL runner in each case of ``cases`` (config fields over
+    ``base``) for ``steps`` DDIM steps: saves {case: (latent, per-phase comm
+    report, phase counts, comm plan)}."""
+    torch.save(_knob_runs(torch.load(in_path)), f"{out_path}.rank{rank}")
+
+
+def _knob_runs(inp):
+    from types import SimpleNamespace
+
+    from distrifuser_tpu_torch.models import unet
+    from distrifuser_tpu_torch.parallel.runner import make_runner
+    from distrifuser_tpu_torch.pipelines import DistriSDXLPipeline
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+    from distrifuser_tpu_torch.utils.config import DistriConfig
+
+    ucfg = unet.tiny_config(cross_attention_dim=32, sdxl=inp.get("sdxl", True))
+    latents, enc, added = _tiny_runner_inputs(inp)
+    out = {}
+    for case in inp["cases"]:
+        cfg = DistriConfig(device="cpu", height=128, width=128,
+                           **{**inp["base"], **case})
+        runner = make_runner(cfg, ucfg, inp["params"], get_scheduler("ddim"))
+        x = runner.generate(latents, enc, added_cond=added,
+                            num_inference_steps=inp["steps"], guidance_scale=5.0)
+        rep = runner.comm_volume_report(per_phase=True)
+        plan = DistriSDXLPipeline.comm_plan(
+            SimpleNamespace(distri_config=cfg, runner=runner), inp["steps"])
+        out[tuple(sorted(case.items()))] = (x, rep, dict(runner.phase_counts), plan)
+    return out
+
+
+def refresh_worker(rank, world, in_path, out_path):
+    """One stale step's refresh emissions, on identical inputs, in each
+    case of ``cases`` (context fields): a KV gather ("attn"), a halo pair
+    ("conv") and GroupNorm moments ("gn") from this rank's slice of the
+    input and its buffers, then the context's ``finish``.  Saves {case:
+    (buffers, wire bytes, kinds)}."""
+    from distrifuser_tpu_torch.parallel.context import PHASE_STALE, PatchContext
+
+    inp = torch.load(in_path)
+    out = {}
+    for case in inp["cases"]:
+        state = {k: v[rank].clone() for k, v in inp["state"].items()}
+        ctx = PatchContext(n=world, mode="corrected_async_gn", phase=PHASE_STALE,
+                           group=dist.group.WORLD, split_idx=rank, state_in=state,
+                           step=inp["step"], **dict(case))
+        ctx.emit_refresh_gather("attn", inp["kv"][rank], "attn")
+        ctx.emit_refresh_halos("conv", inp["x"][rank], 1)
+        ctx.emit_refresh_gather("gn", inp["moments"][rank], "gn")
+        got = ctx.finish()
+        out[case] = ({k: v.clone() for k, v in got.items()}, dict(ctx.wire),
+                     dict(ctx.kinds))
+    torch.save(out, f"{out_path}.rank{rank}")
+
+
+def ring_worker(rank, world, in_path, out_path):
+    """Ring attention at n = world: ``ring_self_attention`` synchronous on
+    the first tokens, stale on the second with the first step's buffer,
+    beside ``patch_self_attention`` on the same inputs, and ``ring_pass`` on
+    the given chunks; then the runs of ``knobs_worker`` in ``runner`` when
+    the input has one.  Saves the outputs and buffers."""
+    from distrifuser_tpu_torch.ops.attention import patch_self_attention
+    from distrifuser_tpu_torch.ops.ring_attention import ring_pass, ring_self_attention
+    from distrifuser_tpu_torch.parallel.context import (PHASE_STALE, PHASE_SYNC,
+                                                        PatchContext)
+
+    inp = torch.load(in_path)
+    group = dist.group.WORLD
+    out = {}
+    for impl, fn in (("ring", ring_self_attention), ("gather", patch_self_attention)):
+        for mode in ("full_sync", "corrected_async_gn"):
+            ctx = PatchContext(n=world, mode=mode, phase=PHASE_SYNC, group=group,
+                               split_idx=rank, attn_impl=impl)
+            y1 = fn(inp["attn"], _rows(inp["tokens1"], rank, world), ctx, "attn",
+                    heads=inp["heads"])
+            s1 = ctx.finish()
+            ctx = PatchContext(n=world, mode=mode, phase=PHASE_STALE, group=group,
+                               split_idx=rank, attn_impl=impl,
+                               state_in={k: v.clone() for k, v in s1.items()})
+            y2 = fn(inp["attn"], _rows(inp["tokens2"], rank, world), ctx, "attn",
+                    heads=inp["heads"])
+            out[(impl, mode)] = {"y_sync": y1, "state_sync": s1, "y_stale": y2,
+                                 "state_stale": ctx.finish()}
+    out["ring_pass"] = ring_pass(inp["q"][rank], inp["kv"][rank], inp["kv"][rank],
+                                 world, group, heads=inp["heads"])
+    out["ring_pass_static"] = ring_pass(inp["q"][rank], inp["kv"][rank], inp["kv"][rank],
+                                        world, group, heads=inp["heads"],
+                                        kv_static=inp["kv_static"])
+    if "runner" in inp:
+        out["runner"] = _knob_runs(inp["runner"])
+    torch.save(out, f"{out_path}.rank{rank}")
+
+
+def stepwise_worker(rank, world, in_path, out_path):
+    """The explicit-carry API on the tiny SDXL runner in each case of
+    ``cases``: two carries (latents A and B) stepped interleaved, the same
+    two stepped one after the other, and ``generate`` of each.  Saves {case:
+    {"interleaved": (A, B), "contiguous": (A, B), "generate": (A, B),
+    "signatures": [...]}}."""
+    from distrifuser_tpu_torch.models import unet
+    from distrifuser_tpu_torch.parallel.runner import make_runner
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+    from distrifuser_tpu_torch.utils.config import DistriConfig
+
+    inp = torch.load(in_path)
+    ucfg = unet.tiny_config(cross_attention_dim=32, sdxl=True)
+    steps, enc, added = inp["steps"], inp["enc"], inp["added"]
+    out = {}
+    for case in inp["cases"]:
+        cfg = DistriConfig(device="cpu", height=128, width=128,
+                           **{**inp["base"], **case})
+        runner = make_runner(cfg, ucfg, inp["params"], get_scheduler("ddim"))
+
+        def run(carry, i):
+            return runner.stepwise_carry_step(carry, i, enc, added, 5.0, steps)
+
+        carries = [runner.stepwise_carry_init(lat, steps) for lat in inp["latents"]]
+        signatures = [runner.stepwise_carry_signature(carries[0], i, steps)
+                      for i in range(steps)]
+        for i in range(steps):
+            carries = [run(c, i) for c in carries]
+        interleaved = [runner.stepwise_carry_latent(c) for c in carries]
+        contiguous = []
+        for lat in inp["latents"]:
+            carry = runner.stepwise_carry_init(lat, steps)
+            for i in range(steps):
+                carry = run(carry, i)
+            contiguous.append(runner.stepwise_carry_latent(carry))
+        generated = [runner.generate(lat, enc, added_cond=added, guidance_scale=5.0,
+                                     num_inference_steps=steps)
+                     for lat in inp["latents"]]
+        out[tuple(sorted(case.items()))] = {
+            "interleaved": interleaved, "contiguous": contiguous,
+            "generate": generated, "signatures": signatures}
+    torch.save(out, f"{out_path}.rank{rank}")
