@@ -367,6 +367,11 @@ class _DistriPipelineBase:
         self.runner.params = set_quant_compute(self.runner.params, policy)
         cfg.quant_compute = policy
 
+    def set_progress_bar_config(self, **kwargs) -> None:
+        """Accepted and ignored, as in the JAX package: the reference's
+        scripts call it to silence the progress bar, which the port does
+        not draw."""
+
     def set_stepwise(self, enabled: bool = True) -> None:
         """Run the UNet eagerly, step by step (``enabled``), or replay its
         captured graphs (JAX ``set_stepwise``: the switch is

@@ -18,15 +18,19 @@ original DistriFusion:
 
 Knobs of the JAX package that the port does not run yet are refused with
 the ROADMAP item that will bring them, never ignored: ``attn_impl``
-"ulysses" and "usp" (the DiT layouts, item 13) and ``dp_degree`` above 1
-(item 17).  The comm knobs of the displaced patch path (``comm_batch``,
+"ulysses" and "usp", ``ulysses_degree`` above 1 and ``pipe_patches`` (the
+DiT layouts, item 13) and ``dp_degree`` above 1 (item 17); at their
+defaults they do nothing.  The comm knobs of the displaced patch path (``comm_batch``,
 ``comm_compress``, ``refresh_fraction``, the step cache and
 ``attn_impl="ring"``) are validated as the JAX package validates them.
-One knob is carried
-with no effect, as in the JAX package: ``comm_checkpoint``, the
-reference's NCCL flush interval, which a compiled step (a CUDA graph, or
-the JAX package's XLA program) has no queue for; it is still checked to be
-a positive int.
+Two knobs are carried
+with no effect: ``comm_checkpoint``, the reference's NCCL flush interval,
+which a compiled step (a CUDA graph, or the JAX package's XLA program) has
+no queue for, still checked to be a positive int; and ``hybrid_loop``, the
+JAX package's per-step warm-up loop in front of one compiled stale loop,
+where the port always runs step by step with one graph per phase (the same
+numerics), still refused with the step cache as the JAX package refuses
+it.
 """
 
 from __future__ import annotations
@@ -164,12 +168,15 @@ class DistriConfig:
     split_scheme: str = "row"
     verbose: bool = False
     attn_impl: str = "gather"
+    ulysses_degree: int = 1
     dp_degree: int = 1
     comm_batch: bool = False
     comm_compress: str = "none"
     refresh_fraction: float = 1.0
     step_cache_interval: int = 1
     step_cache_depth: int = 0
+    hybrid_loop: bool = False
+    pipe_patches: Optional[int] = None
     dtype: Any = None
     batch_size: int = 1
     weight_quant: str = "none"
@@ -226,6 +233,10 @@ class DistriConfig:
             raise ValueError(f"warmup_steps must be >= 0, got {self.warmup_steps}")
         if self.dp_degree < 1:
             raise ValueError(f"dp_degree must be >= 1, got {self.dp_degree}")
+        if self.ulysses_degree < 1:
+            raise ValueError(f"ulysses_degree must be >= 1, got {self.ulysses_degree}")
+        if self.pipe_patches is not None and self.pipe_patches < 1:
+            raise ValueError(f"pipe_patches must be >= 1, got {self.pipe_patches}")
         validate_weight_mode(self.weight_quant)
         validate_weight_mode(self.weight_quant_aux)
         validate_quant_compute(self.quant_compute, self.weight_quant)
@@ -266,11 +277,24 @@ class DistriConfig:
                 f"{self.parallelism!r} has no cross-step activation carry to "
                 "keep the deep cache in"
             )
+        if self.step_cache_enabled and self.hybrid_loop:
+            raise ValueError(
+                "step-cache and hybrid_loop are mutually exclusive: the cadence "
+                "adds a second (shallow) body to the steady-state loop, which "
+                "defeats hybrid's one-body rationale; use the full loop with "
+                "the step cache"
+            )
         if self.attn_impl in ("ulysses", "usp"):
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r}: ulysses and usp are the DiT "
                 "layouts, ROADMAP queue 1 item 13; the UNet's patch path takes "
                 "'gather' or 'ring'"
+            )
+        if self.ulysses_degree > 1 or self.pipe_patches is not None:
+            raise NotImplementedError(
+                f"ulysses_degree={self.ulysses_degree}, pipe_patches="
+                f"{self.pipe_patches}: the usp head split and the PipeFusion "
+                "patch stream are the DiT layouts, ROADMAP queue 1 item 13"
             )
         if self.dp_degree > 1:
             raise NotImplementedError(
