@@ -51,9 +51,17 @@ Phases (any failure raises, and the script exits non-zero):
    events over back-to-back calls and, at the path's shapes, by device
    time under torch.profiler; the host time of a fused wrapper call; the
    instance the shape runs (registers, shared memory, tile); and the
-   per-token quantization kernel at every stale-refresh payload the
-   comm-knob runs of phase 6 quantize (float32 KV and halo rows,
-   "refresh_<run>_<rows>x<cols>"), bit for bit with compress.quantize;
+   refresh codec, both its kernels (quantize_rows encodes, dequantize_rows
+   decodes into the next step's buffer), at every stale-refresh payload the
+   comm-knob runs of phase 6 code, fed as the patch context feeds them
+   (bf16 KV [1, L/2, 2C] and halo slabs read in place from their
+   activation, the rotation a device scalar; decoded from both ranks'
+   payloads or a halo's two arrived halves, keeping the rows a partial
+   refresh skips): compress_pcpp's payloads one launch each
+   ("refresh_compress_pcpp_<kind>_<shape>", int8, k = 2), stepcache_batch's
+   step tables in one grouped launch each ("refresh_stepcache_batch_<phase>
+   _table", fp8; also with the residual base), bit for bit with their plain
+   versions, timed beside them;
 4. small-input checks: the tiny SDXL pipeline in bf16 on the card against
    the same pipeline in float32 on the CPU, same weights and latents:
    dense (relative L2 of the latents <= 8e-2; 2.3e-2 measured for bf16 vs
@@ -123,8 +131,10 @@ Phases (any failure raises, and the script exits non-zero):
    ``compress_pcpp`` (int8, refresh_fraction 0.5, 6 steps) and
    ``stepcache_batch`` (step cache interval 2 depth 1, comm_batch, fp8),
    each with tiny checks (int8_residual and fp8 too) and its flash,
-   log-sum-exp and quantize_rows launches against the counts derived from
-   the UNet config (``knob_expected``), its per-phase comm bytes and
+   log-sum-exp and codec launches against the counts derived from the UNet
+   config (``knob_expected``: one quantize_rows and one dequantize_rows a
+   compressed payload in every stale step, or one of each a flush under
+   comm_batch), its per-phase comm bytes and
    ``comm_plan``, its step times by evaluation and its latent against the
    plain patch run of as many steps (information only).  The patch run also runs one img2img call
    at strength 0.75 of 4 steps: steps 1-3, {sync: 2, stale: 1}, the same
@@ -149,11 +159,15 @@ and under CUDA graphs, for SDXL dense, int8 and fp8 (``--weight_quant``
 picks one) and SD 1.5 dense at 512x512.  ``--patch_only`` runs only the flash kernel at the multi-rank
 shapes (the log-sum-exp rows too), the refresh quantization rows and the
 multi-rank phase; with ``--profile`` each rank also
-profiles one more call of each run in each mode.
+profiles one more call of each run in each mode, with the device
+activities (kernel launches, NCCL's and memory copies included) of each
+step by the evaluation it ran (``launches_by_phase``).
 ``--quant_device_times`` runs only the device time of the quantized-matmul
-kernel's fp32 contract form at every path shape, through nothing but
-``quant_matmul(xq, wq, sw)``, ``quantize`` and ``quantize_weight``, so that
-it also runs against an older checkout of the package: run this file from
+kernel's fp32 contract form and of the per-token quantization kernel at
+every SDXL and SD 1.5 path shape, through nothing but
+``quant_matmul(xq, wq, sw)``, ``quantize_rows(x, mode)``, ``quantize`` and
+``quantize_weight``, so that it also runs against an older checkout of the
+package (PR 5's or later): run this file from
 that checkout's root as
 ``python3 -c "import runpy, sys; sys.argv[1:] = ['--quant_device_times'];
 runpy.run_path('/path/to/chip_smoke.py', run_name='__main__')"``
@@ -192,6 +206,7 @@ PATCH_MODES = ("full_sync", "corrected_async_gn")
 SIZES = {"sdxl": 1024, "sd15": 512, "sd21": 768}
 SD15, SD21 = "@sd15", "@sd21"
 SD15_HEAD_DIMS = (40, 80, 160)
+CODEC_TABLE = 192  # segments a refresh-codec launch takes (ops/quantize.py CAPACITY)
 SPAWN_DEADLINE_S = 420  # one spawn of the multi-rank phase, profiles included
 GRAPH_REL_L2 = 1e-3  # graphed vs eager latent over NCCL, where not bit-identical
 # the multi-rank runs: config fields, tiny checks (extra fields each), steps
@@ -234,6 +249,12 @@ HANDOFF_AT = 0.5  # denoising_end of the base call, denoising_start of the next
 REFINER_PROJ = 1280 + 5 * 256  # pooled bigG + 5 time ids of 256: the refiner layout
 DECODE_SIZE, DECODE_TILE = 2048, 64  # the row-tiled decode above 1024 px
 COLLECTIVES = "collectives (nccl)"
+QUANT_ENTRY = {"name": "quantize_rows", "route": "cuda",
+               "source": "distrifuser_tpu_torch/csrc/quantize_rows.cu",
+               "replaces": "distrifuser_tpu/parallel/compress.py:111"}
+DEQUANT_ENTRY = {"name": "dequantize_rows", "route": "cuda",
+                 "source": "distrifuser_tpu_torch/csrc/dequantize_rows.cu",
+                 "replaces": "distrifuser_tpu/parallel/compress.py:142"}
 FLASH_ENTRY = {"name": "flash_sdpa", "route": "cuda",
                "source": "distrifuser_tpu_torch/csrc/flash_attention.cu",
                "replaces": "distrifuser_tpu/ops/flash_attention.py:41"}
@@ -403,28 +424,28 @@ def refresh_layers(ucfg, shallow_depth=0):
     return attn, halos + 1  # conv_out
 
 
-def refresh_payloads(ucfg, height, width, n, batch, fraction=1.0, shallow_depth=0):
-    """The payloads one stale evaluation of the patch path quantizes under
-    ``comm_compress`` (one ``quantize_rows`` launch each): per
-    self-attention layer its KV rows [batch * L/n / k, 2C], per 3x3 halo
-    conv its top and bottom rows [batch * W / k, C] (halo 1), k = 1 /
-    ``fraction``; the shallow part only with ``shallow_depth``.  Returns
-    {(rows, cols): count}."""
+def refresh_sources(ucfg, height, width, n, batch, shallow_depth=0):
+    """The payloads one stale evaluation of the patch path codes under
+    ``comm_compress``, one codec segment each: per self-attention layer
+    its KV [batch, L/n, 2C] ("kv"), per 3x3 halo conv its input activation
+    [batch, h/n, W, C] ("halo": the two boundary slabs, halo 1, read in
+    place); the shallow part only with ``shallow_depth``.  Returns
+    {(kind, shape): count}."""
     levels, lpb = len(ucfg.block_out_channels), ucfg.layers_per_block
-    boc, k = ucfg.block_out_channels, round(1 / fraction)
+    boc = ucfg.block_out_channels
     lh, lw = height // 8, width // 8
     cut = levels - shallow_depth
     out = {}
 
-    def add(rows, cols, count=1):
-        out[(rows, cols)] = out.get((rows, cols), 0) + count
+    def add(key, count=1):
+        out[key] = out.get(key, 0) + count
 
     def halo(level, ch):
-        add(batch * (lw >> level) // k, ch, 2)
+        add(("halo", (batch, (lh >> level) // n, lw >> level, ch)))
 
     def attn(level, count):
         if count:
-            add(batch * (lh >> level) * (lw >> level) // n // k, 2 * boc[level], count)
+            add(("kv", (batch, (lh >> level) * (lw >> level) // n, 2 * boc[level])), count)
 
     for i, btype in enumerate(ucfg.down_block_types):
         if i >= cut:
@@ -464,9 +485,10 @@ def knob_expected(label, ucfg):
     """The launches one call of a comm-knob run makes on one rank at CFG 2 x
     sp 2: flash (a ring self-attention launches the log-sum-exp instance
     once per chunk, n = 2; a shallow step runs only the shallow levels'
-    attention), its log-sum-exp instances, and quantize_rows (one per
-    compressed KV refresh, two per halo refresh, in every stale or shallow
-    step)."""
+    attention), its log-sum-exp instances, and the refresh codec's encode
+    (quantize_rows) and decode (dequantize_rows) kernels in every stale or
+    shallow step: one launch of each per compressed KV or halo payload, or
+    under ``comm_batch`` one of each per flush (per CODEC_TABLE segments)."""
     from distrifuser_tpu_torch.models import unet
     from distrifuser_tpu_torch.parallel.stepcache import phase_step_counts
 
@@ -477,76 +499,172 @@ def knob_expected(label, ucfg):
     attn, halos = refresh_layers(ucfg)
     depth = fields.get("step_cache_depth", 0)
     attn_s, halos_s = refresh_layers(ucfg, depth) if depth else (0, 0)
+    for d, want in [(0, attn + halos)] + ([(depth, attn_s + halos_s)] if depth else []):
+        got = sum(refresh_sources(ucfg, 1024, 1024, n, 1, d).values())
+        assert got == want, (label, d, got, want)
     full_steps = counts["sync"] + counts["stale"]
     ring = fields.get("attn_impl") == "ring"
     per_full = unet.attention_calls_per_forward(ucfg) + (n - 1) * attn * ring
     flash = full_steps * per_full + counts["shallow"] * 2 * attn_s + 1
-    quant = 0
+    codec = 0
     if fields.get("comm_compress", "none") != "none":
-        quant = counts["stale"] * (attn + 2 * halos) + counts["shallow"] * (attn_s + 2 * halos_s)
-    return {"flash_sdpa": flash, "quant_matmul": 0, "quantize_rows": quant,
-            "flash_sdpa_lse": full_steps * n * attn if ring else 0}
+        per_step = ((lambda p: -(-p // CODEC_TABLE)) if fields.get("comm_batch")
+                    else (lambda p: p))
+        codec = counts["stale"] * per_step(attn + halos)
+        if counts["shallow"]:
+            codec += counts["shallow"] * per_step(attn_s + halos_s)
+    return {"flash_sdpa": flash, "quant_matmul": 0, "quantize_rows": codec,
+            "dequantize_rows": codec, "flash_sdpa_lse": full_steps * n * attn if ring else 0}
 
 
-def refresh_quant_shapes(ucfg, height, width):
-    """The rows of the refresh-quantization phase: every (rows, cols)
-    payload the compress_pcpp run (int8, fraction 0.5) and the
-    stepcache_batch run (fp8, full rows, its stale and shallow steps)
-    quantize, with their launches per call."""
+def refresh_codec_rows(ucfg, height, width):
+    """The rows of the refresh-codec phase, with their launches per call of
+    one rank: every compress_pcpp payload (int8, k = 2, one encode and one
+    decode launch each in every stale step) by source shape, and the
+    stepcache_batch flush tables (fp8, every payload of a step in one
+    grouped launch of each kernel): the stale step's and the shallow
+    step's."""
     from distrifuser_tpu_torch.parallel.stepcache import phase_step_counts
 
     rows = []
-    for label, mode in (("compress_pcpp", "int8"), ("stepcache_batch", "fp8")):
-        fields, _, _, _, steps = MULTI_RUNS[label]
-        counts = phase_step_counts(steps, fields["warmup_steps"],
-                                   fields.get("step_cache_interval", 1))
-        frac = fields.get("refresh_fraction", 1.0)
-        calls = {}
-        for depth, times in ((0, counts["stale"]),
-                             (fields.get("step_cache_depth", 0), counts["shallow"])):
-            if not times:
-                continue
-            for shape, c in refresh_payloads(ucfg, height, width, 2, 1, frac, depth).items():
-                calls[shape] = calls.get(shape, 0) + c * times
-        for (m, k), c in sorted(calls.items()):
-            rows.append((f"refresh_{label}_{m}x{k}", mode, m, k, c))
+    fields, _, _, _, steps = MULTI_RUNS["compress_pcpp"]
+    counts = phase_step_counts(steps, fields["warmup_steps"], 1)
+    k = round(1 / fields["refresh_fraction"])
+    for (kind, shape), c in sorted(refresh_sources(ucfg, height, width, 2, 1).items()):
+        rows.append({"shape": f"refresh_compress_pcpp_{kind}_{'x'.join(map(str, shape))}",
+                     "mode": "int8", "k": k, "sources": [(kind, shape)],
+                     "launches_per_call": c * counts["stale"]})
+    fields, _, _, _, steps = MULTI_RUNS["stepcache_batch"]
+    counts = phase_step_counts(steps, fields["warmup_steps"], fields["step_cache_interval"])
+    for phase, depth in (("stale", 0), ("shallow", fields["step_cache_depth"])):
+        sources = [key for key, c in sorted(refresh_sources(ucfg, height, width, 2, 1,
+                                                            depth).items())
+                   for _ in range(c)]
+        rows.append({"shape": f"refresh_stepcache_batch_{phase}_table", "mode": "fp8",
+                     "k": 1, "sources": sources,
+                     "launches_per_call": counts[phase] * -(-len(sources) // CODEC_TABLE)})
     return rows
 
 
-def refresh_quant_phase(shapes):
-    """quantize_rows at the refresh payloads (float32 rows, as the context
-    quantizes them): bit for bit with compress.quantize, timed by CUDA
-    events and device time beside the plain version; bound by bytes (float32
-    in, one byte and a float32 scale per row out).  No library call
-    computes it."""
+def _codec_segments(sources, k, residual, seed):
+    """Encode and decode segments of the refresh codec as the patch context
+    builds them for ``sources`` (``refresh_sources`` keys): bf16 sources
+    read in place (a KV [B, L/n, 2C]; a halo's two boundary slabs of its
+    [B, h/n, W, C] activation), the rotation r = 1 a device scalar when
+    k > 1, the residual base (the previous slot or the own rows) when
+    ``residual``; decoded as the peers' payloads arrive (KV: both ranks'
+    payloads, gathered; halo: the two halves, each in its own buffer) into
+    a new buffer beside a seeded previous one."""
     import torch
 
     from distrifuser_tpu_torch.ops import quantize as qz
-    from distrifuser_tpu_torch.parallel.compress import quantize
+    from distrifuser_tpu_torch.parallel.context import _halo_slabs
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    every = (k, torch.tensor(1, device="cuda")) if k > 1 else None
+
+    def rows(*shape):
+        x = torch.randn(*shape, device="cuda", generator=g).bfloat16()
+        x.view(-1, shape[-1])[0] = 0
+        return x
+
+    enc, prevs = [], []
+    for kind, shape in sources:
+        x = rows(*shape) if kind == "kv" else _halo_slabs(rows(*shape), 1)
+        base = rows(*x.shape) if residual else None
+        enc.append(qz.EncodeSeg(x, base, every))
+        prevs.append(rows(2, *shape) if kind == "kv" else rows(*x.shape))
+
+    def decode_segs(coded):
+        segs = []
+        for (kind, _), (q, s), prev in zip(sources, coded, prevs):
+            if kind == "kv":  # [n, ...]: both ranks' payloads
+                q, s = torch.stack([q, q]), torch.stack([s, s])
+            else:  # from the previous rank (its bottom) and the next (its top)
+                q, s = [q[1].clone(), q[0].clone()], [s[1].clone(), s[0].clone()]
+            segs.append(qz.DecodeSeg(q, s, prev if residual else None,
+                                     prev if every is not None else None, every))
+        return segs
+
+    return enc, decode_segs
+
+
+def _codec_bytes(sources, k, residual):
+    """(encode, decode) bytes the codec must move for ``sources``: the
+    encoder reads the selected source rows (bf16) and the base and writes
+    one byte an element and a float32 scale a row; the decoder reads the
+    payloads and scales of both parts, the base, the previous buffer's kept
+    rows, and writes the whole buffer of both parts (bf16)."""
+    enc = dec = 0.0
+    for kind, shape in sources:
+        cols = shape[-1]
+        full = math.prod(shape[:-1]) * (1 if kind == "kv" else 2 / shape[1])  # rows a rank
+        sel = full / k
+        enc += sel * cols * (2 + (2 if residual else 0) + 1) + 4 * sel
+        parts = 2 if kind == "kv" else 1  # a KV buffer holds both ranks' rows
+        dec += parts * (sel * cols * (1 + (2 if residual else 0)) + 4 * sel
+                        + 2 * (full - sel) * cols + 2 * full * cols)
+    return enc, dec
+
+
+def refresh_codec_phase(rows):
+    """Both codec kernels at the knob runs' refresh payloads
+    (``refresh_codec_rows``), fed as the context feeds them
+    (``_codec_segments``): the encoder and the decoder bit for bit with
+    their plain versions (quantize_rows_reference, dequantize_rows_reference),
+    per payload (compress_pcpp) and as one grouped launch over a step's
+    table (stepcache_batch, whose tables are also checked with the residual
+    base), then timed by CUDA events and device time beside the plain
+    version; bound by bytes.  No library call computes either."""
+    import torch
+
+    from distrifuser_tpu_torch.ops import quantize as qz
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8),
+                                                  b.contiguous().view(torch.uint8))
 
     results = []
-    for name, mode, m, k, calls in shapes:
-        g = torch.Generator(device="cuda").manual_seed(len(results))
-        x = torch.randn(m, k, device="cuda", generator=g)
-        xq, sx = qz.quantize_rows(x, mode)
-        want_q, want_s = quantize(x, mode)
-        if not (torch.equal(xq.view(torch.uint8), want_q.view(torch.uint8))
-                and torch.equal(sx, want_s)):
-            raise AssertionError(f"quantize_rows {mode} {name}: not bit-identical to "
-                                 "compress.quantize")
-        bound, by = _bound(0.0, 4.0 * m * k + m * k + 4.0 * m)
-        row = {"shape": name, "mode": mode, "M": m, "K": k, "launches_per_call": calls,
-               "quantize_max_abs_err": 0.0,
-               "quantize_ms": time_ms(lambda: qz.quantize_rows(x, mode),
-                                      target_ms=QUANT_TARGET_MS),
-               "quantize_device_ms": device_ms(lambda: qz.quantize_rows(x, mode), iters=20,
-                                               attempts=5),
-               "quantize_plain_ms": time_ms(lambda: quantize(x, mode),
-                                            target_ms=QUANT_TARGET_MS, max_iters=5),
-               "quantize_library_ms": None, "quantize_library_device_ms": None,
-               "quantize_bound_ms": bound, "quantize_bound_by": by}
-        print(json.dumps(row), flush=True)
-        results.append(row)
+    for i, row in enumerate(rows):
+        mode, k, sources = row["mode"], row["k"], row["sources"]
+        checks = [False, True] if len(sources) > 1 else [False]
+        for residual in checks:
+            enc, decode_segs = _codec_segments(sources, k, residual, seed=i)
+            payload = "int8" if residual else mode
+            coded = qz.quantize_rows_grouped(enc, payload)
+            for seg, (q, s) in zip(enc, coded):
+                wq, ws = qz.quantize_rows_reference(seg, payload)
+                if not (same(q, wq) and same(s, ws)):
+                    raise AssertionError(f"quantize_rows {row['shape']} residual={residual} "
+                                         f"{tuple(seg.x.shape)}: not bit-identical")
+            dec = decode_segs(coded)
+            for seg, buf in zip(dec, qz.dequantize_rows_grouped(dec, torch.bfloat16)):
+                if not same(buf, qz.dequantize_rows_reference(seg, torch.bfloat16)):
+                    raise AssertionError(f"dequantize_rows {row['shape']} residual="
+                                         f"{residual}: not bit-identical")
+        enc, decode_segs = _codec_segments(sources, k, False, seed=i)
+        dec = decode_segs(qz.quantize_rows_grouped(enc, mode))
+        fns = {"quantize_": lambda: qz.quantize_rows_grouped(enc, mode),
+               "dequantize_": lambda: qz.dequantize_rows_grouped(dec, torch.bfloat16)}
+        plains = {"quantize_": lambda: [qz.quantize_rows_reference(e, mode) for e in enc],
+                  "dequantize_": lambda: [qz.dequantize_rows_reference(d, torch.bfloat16)
+                                          for d in dec]}
+        nbytes = dict(zip(fns, _codec_bytes(sources, k, False)))
+        line = {"shape": row["shape"], "mode": mode, "k": k, "segments": len(sources),
+                "launches_per_call": row["launches_per_call"]}
+        for prefix, fn in fns.items():
+            bound, by = _bound(0.0, nbytes[prefix])
+            line.update({prefix + "max_abs_err": 0.0,
+                         prefix + "ms": time_ms(fn, target_ms=QUANT_TARGET_MS),
+                         prefix + "device_ms": device_ms(fn, iters=20, attempts=5),
+                         prefix + "plain_ms": time_ms(plains[prefix], target_ms=QUANT_TARGET_MS,
+                                                      max_iters=5),
+                         prefix + "library_ms": None, prefix + "library_device_ms": None,
+                         prefix + "bound_ms": bound, prefix + "bound_by": by})
+        print(json.dumps(line), flush=True)
+        results.append(line)
+        del enc, dec, fns, plains
+        torch.cuda.empty_cache()
     return results
 
 
@@ -913,30 +1031,38 @@ def quant_kernel_phase(shapes):
 
 def quant_device_phase(shapes):
     """Device time (torch.profiler) of ``quant_matmul(xq, wq, sw)``, the
-    fp32 contract form, at every path shape and mode, on operands made as
-    quant_kernel_phase makes them; one line per shape, then the sum over one
-    pipeline call's launches per mode."""
+    fp32 contract form, and of ``quantize_rows(x, mode)``, the per-token
+    quantization of the bf16 activation, at every path shape and mode, on
+    operands made as quant_kernel_phase makes them; one line per shape,
+    then the sums over one pipeline call's launches per model family and
+    mode."""
     import torch
 
     from distrifuser_tpu_torch.ops import quant_matmul as qm
+    from distrifuser_tpu_torch.ops import quantize as qz
     from distrifuser_tpu_torch.parallel.compress import quantize, quantize_weight
 
-    per_call = {"int8": 0.0, "fp8": 0.0}
+    per_call = {}
     for i, (name, m, k, n, calls) in enumerate(shapes):
-        for mode in per_call:
+        for mode in ("int8", "fp8"):
             g = torch.Generator(device="cuda").manual_seed(2 * i + (mode == "fp8"))
             x = torch.randn(m, k, device="cuda", generator=g).bfloat16()
             w = (torch.randn(k, n, device="cuda", generator=g) / k**0.5).bfloat16()
             xq, _ = quantize(x, mode)
             qt = quantize_weight(w, mode)
             wq, sw = qt.payload, qt.channel_scale()
-            ms = device_ms(lambda: qm.quant_matmul(xq, wq, sw), iters=10)
-            per_call[mode] = (None if ms is None or per_call[mode] is None
-                              else per_call[mode] + ms * calls)
+            times = {"device_ms": device_ms(lambda: qm.quant_matmul(xq, wq, sw), iters=10),
+                     "quantize_device_ms": device_ms(lambda: qz.quantize_rows(x, mode),
+                                                     iters=10)}
+            for key, ms in times.items():
+                slot = (family(name), mode, key)
+                prev = per_call.get(slot, 0.0)
+                per_call[slot] = None if ms is None or prev is None else prev + ms * calls
             print(json.dumps({"phase": "quant_device", "shape": name, "mode": mode, "M": m,
-                              "K": k, "N": n, "launches_per_call": calls,
-                              "device_ms": ms}), flush=True)
-    print(json.dumps({"phase": "quant_device", "device_ms_per_call": per_call}), flush=True)
+                              "K": k, "N": n, "launches_per_call": calls, **times}),
+                  flush=True)
+    print(json.dumps({"phase": "quant_device", "device_ms_per_call": {
+        f"{fam}/{mode}/{key}": ms for (fam, mode, key), ms in per_call.items()}}), flush=True)
 
 
 def tiny_sd15_config():
@@ -1115,7 +1241,9 @@ def reset_counts():
     fa.flash_sdpa.launches = fa.flash_sdpa.lse_launches = 0
     fa.flash_sdpa.launches_by_head_dim.clear()
     qm.quant_matmul.launches = 0
-    qz.quantize_rows.launches = 0
+    for fn in (qz.quantize_rows, qz.quantize_rows_grouped, qz.dequantize_rows,
+               qz.dequantize_rows_grouped):
+        fn.launches = 0
 
 
 def read_counts():
@@ -1126,7 +1254,9 @@ def read_counts():
     return {"flash_sdpa": fa.flash_sdpa.launches,
             "flash_sdpa_lse": fa.flash_sdpa.lse_launches,
             "quant_matmul": qm.quant_matmul.launches,
-            "quantize_rows": qz.quantize_rows.launches}
+            "quantize_rows": qz.quantize_rows.launches + qz.quantize_rows_grouped.launches,
+            "dequantize_rows": (qz.dequantize_rows.launches
+                                + qz.dequantize_rows_grouped.launches)}
 
 
 def counted_call(fn, label, flash_expected):
@@ -1192,7 +1322,7 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl", num_steps=4):
     if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all():
         raise AssertionError(f"{label}: image shape {img.shape}, finite "
                              f"{np.isfinite(img).all()}")
-    if launches != {"flash_sdpa_lse": 0, **expected}:
+    if launches != {"flash_sdpa_lse": 0, "dequantize_rows": 0, **expected}:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
     pixels = (img * 255).round().astype(np.uint8)
     steps = [(marks[i] - marks[i - 1]) * 1e3 for i in range(1, len(marks))]
@@ -1217,6 +1347,7 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl", num_steps=4):
         **({} if cfg.use_cuda_graph else {"flash_sdpa_launches_by_head_dim": by_head_dim}),
         "quant_matmul_launches": launches["quant_matmul"],
         "quantize_rows_launches": launches["quantize_rows"],
+        "dequantize_rows_launches": launches["dequantize_rows"],
         "pixel_mean": float(pixels.mean()),
         "image_sha256": image_digest(img),
     }
@@ -1709,13 +1840,14 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
                 if label in KNOB_RUNS or label == "patch":
                     line.update(knob_line(pipe, line, latent, label, out_dir, rank, steps))
             if profile:
-                call = lambda: pipe(PROMPT, num_inference_steps=PATCH_STEPS,  # noqa: E731
-                                    seed=0, output_type="np")
+                call = lambda cb: pipe(PROMPT, num_inference_steps=steps,  # noqa: E731
+                                       seed=0, output_type="np", callback=cb)
                 for line in lines:
                     pipe.set_stepwise(not line["use_cuda_graph"])
                     kind = "graphed" if line["use_cuda_graph"] else "eager"
                     line["profile"] = profile_call(call, os.path.join(
-                        out_dir, f"profile_{label}_{kind}_rank{rank}.txt"))
+                        out_dir, f"profile_{label}_{kind}_rank{rank}.txt"),
+                        phases=pipe.runner._phases(steps))
             np.save(os.path.join(out_dir, f"latent_{label}_rank{rank}.npy"), latent)
             if label == "patch":  # the plain path at compress_pcpp's step count
                 six = MULTI_RUNS["compress_pcpp"][4]
@@ -1900,6 +2032,8 @@ def _kernel_group(name: str) -> str:
         return "attention (flash_sdpa)"
     if "qmm_kernel" in low:
         return "quantized matmul (quant_matmul)"
+    if "dequantize_rows_kernel" in low:  # before its substring quantize_rows_kernel
+        return "refresh decode (dequantize_rows)"
     if "quantize_rows_kernel" in low:
         return "per-token quantization (quantize_rows)"
     if "conv" in low or "cudnn" in low or "implicit" in low:
@@ -1913,21 +2047,35 @@ def _kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
-def profile_call(fn, table_path):
+def profile_call(fn, table_path, phases=None):
     """``fn()`` once under torch.profiler: the wall time, the device's busy
     time and idle share of it, device time by kernel family and the top
     kernels (the full table written to ``table_path``).  NCCL kernels run
     on their own stream beside the compute and spin while they wait for
     peers: they are reported as ``collective_ms`` and left out of the busy
     time, and the profiler's device-side ``nccl:*`` ranges, which repeat
-    their kernels' time, are left out altogether."""
+    their kernels' time, are left out altogether.  With ``phases`` (the
+    evaluation each step runs) ``fn`` takes a step callback, which
+    synchronises the card and marks the step's end in the trace: the
+    device activities (kernels, NCCL's included, and memory copies) that
+    start between two marks are one step's, counted by the evaluation of
+    that step (``launches_by_phase``, steps 1 on; step 0 shares its window
+    with the text encoders)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def on_step(i, t, x):
+        torch.cuda.synchronize()
+        with record_function("chip_smoke_step_end"):
+            pass
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        if phases is None:
+            fn()
+        else:
+            fn(on_step)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -1944,7 +2092,18 @@ def profile_call(fn, table_path):
     with open(table_path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60))
+    by_step = {}
+    if phases is not None:
+        events = prof.events()
+        marks = sorted(e.time_range.start for e in events if e.name == "chip_smoke_step_end")
+        starts = [e.time_range.start for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("nccl:")]
+        for i in range(1, min(len(marks), len(phases))):
+            n = sum(1 for t in starts if marks[i - 1] < t <= marks[i])
+            by_step.setdefault(phases[i], []).append(n)
     return {
+        **({"launches_by_phase": by_step} if phases is not None else {}),
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms, "collective_ms": collective_ms,
         "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
@@ -2043,7 +2202,7 @@ def build_kernels():
         return build(), time.perf_counter() - t
 
     sources = {"flash_attention.cu": fa.build, "quant_matmul.cu": qm.build,
-               "quantize_rows.cu": qz.build}
+               "quantize_rows.cu": qz.build, "dequantize_rows.cu": qz.build_decode}
     with ThreadPoolExecutor(len(sources)) as pool:
         done = dict(zip(sources, pool.map(timed, sources.values())))
     spills = {}
@@ -2115,7 +2274,10 @@ def main(argv) -> int:
 
         qm.build()
         set_precision_flags()
-        quant_device_phase(quant_shapes(ucfg, 1024, 1024, steps))
+        ucfg15 = model_configs("sd15")[0]
+        quant_device_phase(quant_shapes(ucfg, 1024, 1024, steps)
+                           + quant_shapes(ucfg15, SIZES["sd15"], SIZES["sd15"], steps,
+                                          suffix=SD15))
         return 0
     spills = build_kernels()
 
@@ -2224,27 +2386,40 @@ def main(argv) -> int:
 
     def knob_kernels(lse_rows, refresh_rows, multi_runs):
         """The kernels line's entries for the comm-knob runs: the flash
-        kernel's log-sum-exp instances (the ring run's chunks) and
-        quantize_rows at the refresh payloads (compress_pcpp, int8;
-        stepcache_batch, fp8)."""
+        kernel's log-sum-exp instances (the ring run's chunks), and the
+        refresh codec's encoder (quantize_rows) and decoder
+        (dequantize_rows) at the refresh payloads (compress_pcpp, int8, one
+        launch a payload; stepcache_batch, fp8, one a flush); raises unless
+        the rows' launches add up to the counts the runs read."""
         ring = multi_runs["ring"][-1]
         lse = kernel_entry(lse_rows, ring["flash_sdpa_lse_launches"],
                            **{**FLASH_ENTRY, "name": "flash_sdpa[lse]"},
                            work="the log-sum-exp instances (float32 out and lse) in one "
                                 "rank's 4-step 1024x1024 ring call at CFG 2 x sp 2; "
                                 "library: aten._scaled_dot_product_flash_attention")
-        refresh = {label: kernel_entry(
-            [r for r in refresh_rows if r["shape"].startswith(f"refresh_{label}_")],
-            multi_runs[label][-1]["quantize_rows_launches"], "quantize_",
-            work=f"the refresh payloads of one rank's {label} call "
-                 f"({MULTI_RUNS[label][0]}), float32 rows; no library call")
-            for label in ("compress_pcpp", "stepcache_batch")}
-        return lse, refresh
+
+        def codec(label, prefix):
+            picked = [r for r in refresh_rows if r["shape"].startswith(f"refresh_{label}_")]
+            launches = multi_runs[label][-1][prefix + "rows_launches"]
+            if sum(r["launches_per_call"] for r in picked) != launches:
+                raise AssertionError(f"{label}: {launches} {prefix}rows launches read, the "
+                                     "payload rows account for "
+                                     f"{sum(r['launches_per_call'] for r in picked)}")
+            return kernel_entry(picked, launches, prefix,
+                                work=f"the refresh payloads of one rank's {label} call "
+                                     f"({MULTI_RUNS[label][0]}), bf16 sources; no library "
+                                     "call")
+
+        labels = ("compress_pcpp", "stepcache_batch")
+        quant = {label: codec(label, "quantize_") for label in labels}
+        dequant = {label: codec(label, "dequantize_") for label in labels}
+        dequant = {**dequant.pop("compress_pcpp"), **DEQUANT_ENTRY, **dequant}
+        return lse, quant, dequant
 
     seconds, t0 = {}, time.perf_counter()
     if args.patch_only:
         rows = kernel_phase(multi + vae_rows, spills) + lse_kernel_phase()
-        refresh_rows = refresh_quant_phase(refresh_quant_shapes(ucfg, 1024, 1024))
+        refresh_rows = refresh_codec_phase(refresh_codec_rows(ucfg, 1024, 1024))
         seconds["flash_kernel_multi_rank_shapes"], t0 = (time.perf_counter() - t0,
                                                          time.perf_counter())
         multi_runs = patch_phase(None, os.path.join(args.out_dir, "multi"),
@@ -2252,12 +2427,10 @@ def main(argv) -> int:
         seconds["multi_rank"] = time.perf_counter() - t0
         print(json.dumps({"phase": "seconds", **seconds}), flush=True)
         subs = multi_entries(rows, multi_runs)
-        lse, refresh = knob_kernels(rows_of(rows, "ring_hop", "sdxl"), refresh_rows,
-                                    multi_runs)
+        lse, refresh, dequant = knob_kernels(rows_of(rows, "ring_hop", "sdxl"), refresh_rows,
+                                             multi_runs)
         kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs}, lse,
-                   {**refresh.pop("compress_pcpp"), "name": "quantize_rows",
-                    "route": "cuda", "source": "distrifuser_tpu_torch/csrc/quantize_rows.cu",
-                    "replaces": "distrifuser_tpu/parallel/compress.py:111", **refresh},
+                   {**refresh.pop("compress_pcpp"), **QUANT_ENTRY, **refresh}, dequant,
                    *instance_entries(rows_of(rows, "patch_", "sd15"),
                                      multi_runs["sd15_patch"][0]
                                      ["flash_sdpa_launches_by_head_dim"],
@@ -2276,7 +2449,7 @@ def main(argv) -> int:
     expected_quant15 = steps * per_forward15 + per_call15
     assert sum(s[-1] for s in qshapes15) == expected_quant15, (qshapes15, expected_quant15)
     qrows = quant_kernel_phase(qshapes + qshapes15)
-    refresh_rows = refresh_quant_phase(refresh_quant_shapes(ucfg, 1024, 1024))
+    refresh_rows = refresh_codec_phase(refresh_codec_rows(ucfg, 1024, 1024))
     seconds["quant_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     for weight_quant in ("none", "int8", "fp8"):
         print(json.dumps(tiny_check(weight_quant)), flush=True)
@@ -2335,7 +2508,8 @@ def main(argv) -> int:
     }
     per_call = ("(per-shape time x launches per call) at weight_quant='int8'; 'fp8' "
                 "holds the same for fp8")
-    lse, refresh = knob_kernels(rows_of(mrows, "ring_hop", "sdxl"), refresh_rows, multi_runs)
+    lse, refresh, dequant = knob_kernels(rows_of(mrows, "ring_hop", "sdxl"), refresh_rows,
+                                         multi_runs)
     kernels = [
         kernel_entry(rows, runs["dense"]["flash_sdpa_launches"], **FLASH_ENTRY,
                      work="all attention of one 4-step 1024x1024 SDXL pipeline call "
@@ -2373,9 +2547,7 @@ def main(argv) -> int:
                          contract=kernel_entry(by_mode15[mode], None))
                         for mode in by_mode15}),
         kernel_entry(by_mode["int8"], runs["int8"]["quantize_rows_launches"], "quantize_",
-                     name="quantize_rows", route="cuda",
-                     source="distrifuser_tpu_torch/csrc/quantize_rows.cu",
-                     replaces="distrifuser_tpu/parallel/compress.py:111",
+                     **QUANT_ENTRY,
                      work="per-token quantization of every quantized linear's "
                           "activation in one call under CUDA graphs " + per_call + "; no "
                           "Pallas kernel: the JAX package leaves quantize to XLA; plain "
@@ -2387,6 +2559,7 @@ def main(argv) -> int:
                          "quantize_", work=f"one graphed 4-step 512x512 SD 1.5 call at {mode}")
                         for mode in by_mode15},
                      **refresh),
+        dequant,
         lse,
     ]
     return finish(kernels)

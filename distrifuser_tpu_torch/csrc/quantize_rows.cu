@@ -1,38 +1,75 @@
-// Per-token activation quantization in one pass over the activation, for
-// Hopper (sm_90a): for each row of x [M, K],
+// Per-row quantization for Hopper (sm_90a): the encoder of the quantized
+// linears' activations and of the patch path's compressed refresh payloads.
+// For each selected row x of a segment, with an optional residual base b,
 //
-//   amax = max |x|
-//   s    = max(amax, 1e-12) * (1 / LIMIT)           LIMIT = 127 or 448
-//   xq   = clip(round_half_even(x / s), +-127) as int8, or
-//          (x / s) cast to e4m3 (round to nearest even)
+//   d    = x - b                                (fp32; d = x without a base)
+//   amax = max |d|
+//   s    = max(amax, 1e-12) * (1 / LIMIT)       LIMIT = 127 or 448
+//   q    = clip(round_half_even(d / s), +-127) as int8, or
+//          (d / s) cast to e4m3 (round to nearest even, saturating)
 //
-// and writes xq [M, K] (8-bit, row-major: the A operand of
-// csrc/quant_matmul.cu) and s [M] in fp32.  No Pallas counterpart: the JAX
-// package leaves this to XLA, which fuses it into the ops around it
-// (distrifuser_tpu/parallel/compress.py quantize); the port's plain version
-// is parallel/compress.py quantize, run eagerly as about nine launches with
-// an fp32 copy of the activation.
+// and writes the payload row q (8-bit) and its fp32 scale s.  No Pallas
+// counterpart: the JAX package leaves this to XLA, which fuses it into the
+// ops around it (distrifuser_tpu/parallel/compress.py quantize, and the
+// residual subtraction and take_every_kth of its refresh path).  The port's
+// plain version is ops/quantize.py's composition of parallel/compress.py
+// (x.float(), minus base.float(), take_every_kth, quantize), run eagerly as
+// ten or more launches with an fp32 copy of the activation.
 //
 // Bit for bit with that plain version on the card:
+// * the residual is one correctly rounded fp32 subtraction (__fsub_rn) of
+//   the widened operands, as src.float() - base.float();
 // * the scale is amax times the fp32 reciprocal of LIMIT, because that is
 //   how PyTorch's CUDA division by a Python scalar computes
 //   clamp(amax) / LIMIT;
-// * x / s is a correctly rounded division (__fdiv_rn; this file is never
+// * d / s is a correctly rounded division (__fdiv_rn; this file is never
 //   built with --use_fast_math), as PyTorch's tensor-by-tensor division is;
 // * rounding is half to even (rintf), as torch.round's;
 // * the e4m3 cast is cvt.rn.satfinite: round to nearest even, as
-//   PyTorch's software cast; the two differ only past 464, and |x / s| <=
+//   PyTorch's software cast; the two differ only past 464, and |d / s| <=
 //   448 up to one rounding here.
 //
-// Design: one warp per row, eight rows per 256-thread block.  Pass 1 reads
-// the row in 16-byte vectors and reduces |x| to the row max with
-// __shfl_xor_sync; pass 2 reads the row again (an L1/L2 hit: a row is at
-// most 10 KB at K = 5120) and writes the payload in 8- or 4-byte vectors.
-// Rows whose K or alignment does not allow vectors take scalar loads.
+// What one launch covers: a table of segments, passed by value as the
+// kernel's parameter (up to kCapacity segments, about 30 KB: CUDA 12.1
+// allows 32,764 bytes of parameters on sm_70 and later; the Python wrapper
+// splits a longer table into several launches).  A CUDA graph bakes the
+// table into its kernel node, so a graphed step copies nothing from the
+// host.  A segment is one payload:
+// * its source rows are addressed through a part index and three row
+//   indices with element strides, so a halo x[:, :halo] (and its partner
+//   x[:, h - halo:] as the second part) of a [B, h, W, C] activation is
+//   read in place; the columns are contiguous;
+// * it may select rows r, r + k, ... of each part (the partial refresh,
+//   take_every_kth; the per-rank chunks of a layout with groups > 1 are
+//   whole multiples of k, so the selection is the same on the flattened
+//   rows); r is read from a device scalar when given, so one captured graph
+//   serves every rotation;
+// * its payload and scale rows land at any byte offset a part (the flat
+//   send buffer of a batched flush, one byte buffer for every payload and
+//   scale of a step).
 //
-// What bounds it: bytes.  It reads x once from device memory (2 bytes per
-// element in bf16) and writes 1 byte per element plus 4 per row; no
-// operation count comes near the card's rate.
+// Design: 256-thread blocks; each block serves one segment, and a team of
+// 32 to 256 threads serves one row (the team grows with the row: about two
+// 16-byte vectors a thread, so a warp for 320 bf16 columns, eight warps
+// from 2048).  The row is read from device memory once: each thread holds
+// its (at most four) 16-byte vectors in registers, as fp32 differences,
+// while the team reduces |d| to the row max (warp shuffles, then shared
+// memory across the team's warps), then divides and stores 8- or 4-byte
+// payload vectors from those registers.  Registers rather than a shared
+// memory stage (cp.async or a bulk copy): a row is at most 16 KB (8192 bf16
+// or 4096 fp32 columns take this path) and a team's threads hold it
+// outright, so the only device-memory traffic is the one read and the
+// writes, and the many rows in flight on an SM hide the load latency.
+// Wider rows, and rows whose strides or alignment rule out 16-byte vectors,
+// take a two-pass loop that reads the row again (an L1/L2 hit).  Each
+// block finds its segment by a binary search over the segments' first
+// blocks.
+//
+// What bounds it: bytes or the division.  It reads x (2 or 4 bytes an
+// element) and the base once, and writes 1 byte an element and 4 a row;
+// the correctly rounded division is an instruction sequence of about ten
+// operations an element, which at 5-8 M elements a launch is of the order
+// of the byte time (PERF.md says which bound the measured times meet).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libquantize_rows.so quantize_rows.cu
@@ -44,18 +81,64 @@
 
 namespace {
 
-enum InType { kInF32 = 0, kInBF16 = 1 };
-enum Payload { kInt8 = 0, kFp8 = 1 };
-
-constexpr int kRowsPerBlock = 8;
+constexpr int kThreads = 256;
+constexpr int kMaxVecs = 4;  // 16-byte vectors a thread holds in registers
+constexpr int kCapacity = 192;  // segments a launch's table holds
 constexpr float kScaleFloor = 1e-12f;  // an all-zero row: exact zeros
+
+// QuantSpec.flags
+constexpr int kSrcBF16 = 1;
+constexpr int kHasBase = 2;
+
+// One segment as the host describes it (ops/quantize.py mirrors this layout
+// with ctypes).  Strides are in elements of the source type unless named
+// bytes; parts are the outermost index, rows within a part are flattened
+// over dims[1..3] (dims[3] fastest).
+struct QuantSpec {
+  const void* src;         // row (0, 0, 0, 0) of the source
+  const void* base;        // residual base rows, same type as src, or null
+  void* q;                 // payload row 0 of part 0; rows of K bytes
+  void* s;                 // fp32 scale of row 0 of part 0
+  const long long* rot;    // device rotation r, or null (then rot_const)
+  long long src_stride[4]; // part, then the three row indices
+  int dims[4];             // parts, then the three row sizes
+  long long base_part;     // between the base's parts
+  long long base_ld;       // between the base's rows
+  long long q_part;        // bytes between payload parts
+  long long s_part;        // bytes between scale parts
+  int K;                   // columns
+  int every;               // k of the partial refresh (1: every row)
+  int rot_const;
+  int flags;
+};
+
+struct QuantSeg {
+  QuantSpec p;
+  int rows;           // payload rows of the segment (all parts)
+  int rows_per_part;  // payload rows of a part
+  int block0;         // the segment's first block
+  int team;           // threads a row
+  int vec;            // 16-byte vectors everywhere
+};
+
+template <int CAP>
+struct QuantTable {
+  int n;
+  QuantSeg seg[CAP];
+};
+
+static_assert(sizeof(QuantTable<kCapacity>) <= 32764,
+              "a launch's segment table must fit the kernel parameter space");
+#if defined(CUDART_VERSION) && CUDART_VERSION < 12010
+#error "the segment table is a large kernel parameter: CUDA 12.1 or later"
+#endif
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <bool kFp8>
-__device__ __forceinline__ uint8_t quantize_one(float x, float s) {
-  const float v = __fdiv_rn(x, s);
+__device__ __forceinline__ uint8_t quantize_one(float d, float s) {
+  const float v = __fdiv_rn(d, s);
   if constexpr (kFp8) {
     return static_cast<uint8_t>(__nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3));
   } else {
@@ -64,86 +147,280 @@ __device__ __forceinline__ uint8_t quantize_one(float x, float s) {
   }
 }
 
-// V: elements per 16-byte load (1: scalar loads)
-template <typename InT, bool kFp8, int V>
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
-quantize_rows_kernel(const InT* __restrict__ x, long long ldx, uint8_t* __restrict__ q,
-                     float* __restrict__ scale, int M, int K) {
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const InT* xr = x + row * ldx;
-  uint8_t* qr = q + static_cast<long long>(row) * K;
-  struct alignas(V * sizeof(InT)) Vec {
-    InT v[V];
-  };
-  struct alignas(V) Out {
-    uint8_t v[V];
-  };
-  const int n_vec = K / V;
-
-  float amax = 0.f;
-  for (int c = lane; c < n_vec; c += 32) {
-    const Vec in = reinterpret_cast<const Vec*>(xr)[c];
-#pragma unroll
-    for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(widen(in.v[e])));
+template <int CAP>
+__device__ __forceinline__ int find_segment(const QuantTable<CAP>& t, int block) {
+  int lo = 0, hi = t.n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.seg[mid].block0 <= block) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
   }
+  return lo;
+}
+
+// The max of v over the calling thread's team (team is block-uniform; every
+// thread of the block calls this once).
+__device__ __forceinline__ float team_max(float v, int team, float* red) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   }
-  const float s = fmaxf(amax, kScaleFloor) * (1.0f / (kFp8 ? 448.0f : 127.0f));
-  if (lane == 0) scale[row] = s;
+  if (team > 32) {
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+    const int warps = team >> 5;
+    const int first = (threadIdx.x / team) * warps;
+    v = red[first];
+    for (int w = 1; w < warps; ++w) v = fmaxf(v, red[first + w]);
+  }
+  return v;
+}
 
-  for (int c = lane; c < n_vec; c += 32) {
-    const Vec in = reinterpret_cast<const Vec*>(xr)[c];
-    Out o;
+template <typename T, int V>
+struct alignas(V * sizeof(T)) InVec {
+  T v[V];
+};
+
+template <int V>
+struct alignas(V) OutVec {
+  uint8_t v[V];
+};
+
+// One row per team.  V: elements a vector (1: scalar accesses); kRegs: the
+// row is held in registers (one read), else read twice.
+template <typename T, bool kFp8, int V, bool kRegs>
+__device__ __forceinline__ void encode_rows(const QuantSeg& seg, int r, float* red) {
+  const QuantSpec& p = seg.p;
+  const int team = seg.team;
+  const int lane = threadIdx.x % team;
+  const int i = (blockIdx.x - seg.block0) * (kThreads / team) + threadIdx.x / team;
+  const bool active = i < seg.rows;
+  const int nvec = p.K / V;
+
+  const T* xr = nullptr;
+  const T* br = nullptr;
+  uint8_t* qr = nullptr;
+  float* sr = nullptr;
+  if (active) {
+    const int part = i / seg.rows_per_part;
+    const int li = i - part * seg.rows_per_part;
+    const long long j = static_cast<long long>(li) * p.every + r;  // row within the part
+    const long long c = j % p.dims[3];
+    const long long t = j / p.dims[3];
+    const long long b = t % p.dims[2];
+    const long long a = t / p.dims[2];
+    xr = static_cast<const T*>(p.src) + part * p.src_stride[0] + a * p.src_stride[1] +
+         b * p.src_stride[2] + c * p.src_stride[3];
+    if (p.flags & kHasBase) {
+      br = static_cast<const T*>(p.base) + part * p.base_part + j * p.base_ld;
+    }
+    qr = static_cast<uint8_t*>(p.q) + part * p.q_part + static_cast<long long>(li) * p.K;
+    sr = reinterpret_cast<float*>(static_cast<char*>(p.s) + part * p.s_part) + li;
+  }
+
+  using In = InVec<T, V>;
+  float amax = 0.f;
+  if constexpr (kRegs) {
+    float d[kMaxVecs][V];
 #pragma unroll
-    for (int e = 0; e < V; ++e) o.v[e] = quantize_one<kFp8>(widen(in.v[e]), s);
-    reinterpret_cast<Out*>(qr)[c] = o;
+    for (int m = 0; m < kMaxVecs; ++m) {
+      const int c = lane + m * team;
+      if (active && c < nvec) {
+        const In x = reinterpret_cast<const In*>(xr)[c];
+        In b;
+        if (br != nullptr) b = reinterpret_cast<const In*>(br)[c];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          d[m][e] = br != nullptr ? __fsub_rn(widen(x.v[e]), widen(b.v[e])) : widen(x.v[e]);
+          amax = fmaxf(amax, fabsf(d[m][e]));
+        }
+      }
+    }
+    amax = team_max(amax, team, red);
+    const float s = fmaxf(amax, kScaleFloor) * (1.0f / (kFp8 ? 448.0f : 127.0f));
+    if (!active) return;
+    if (lane == 0) *sr = s;
+#pragma unroll
+    for (int m = 0; m < kMaxVecs; ++m) {
+      const int c = lane + m * team;
+      if (c < nvec) {
+        OutVec<V> o;
+#pragma unroll
+        for (int e = 0; e < V; ++e) o.v[e] = quantize_one<kFp8>(d[m][e], s);
+        reinterpret_cast<OutVec<V>*>(qr)[c] = o;
+      }
+    }
+  } else {
+    if (active) {
+      for (int c = lane; c < nvec; c += team) {
+        const In x = reinterpret_cast<const In*>(xr)[c];
+        In b;
+        if (br != nullptr) b = reinterpret_cast<const In*>(br)[c];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float d = br != nullptr ? __fsub_rn(widen(x.v[e]), widen(b.v[e]))
+                                        : widen(x.v[e]);
+          amax = fmaxf(amax, fabsf(d));
+        }
+      }
+    }
+    amax = team_max(amax, team, red);
+    const float s = fmaxf(amax, kScaleFloor) * (1.0f / (kFp8 ? 448.0f : 127.0f));
+    if (!active) return;
+    if (lane == 0) *sr = s;
+    for (int c = lane; c < nvec; c += team) {
+      const In x = reinterpret_cast<const In*>(xr)[c];
+      In b;
+      if (br != nullptr) b = reinterpret_cast<const In*>(br)[c];
+      OutVec<V> o;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float d = br != nullptr ? __fsub_rn(widen(x.v[e]), widen(b.v[e]))
+                                      : widen(x.v[e]);
+        o.v[e] = quantize_one<kFp8>(d, s);
+      }
+      reinterpret_cast<OutVec<V>*>(qr)[c] = o;
+    }
   }
 }
 
-template <typename InT, bool kFp8>
-cudaError_t launch(const void* x, long long ldx, void* q, float* scale, int M, int K,
-                   cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(InT);
-  const InT* xp = static_cast<const InT*>(x);
-  uint8_t* qp = static_cast<uint8_t*>(q);
-  const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock);
-  const bool vec = K % V == 0 && ldx % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(q) % V == 0;
-  if (vec) {
-    quantize_rows_kernel<InT, kFp8, V>
-        <<<grid, kRowsPerBlock * 32, 0, stream>>>(xp, ldx, qp, scale, M, K);
+template <typename T, bool kFp8>
+__device__ __forceinline__ void encode_segment(const QuantSeg& seg, int r, float* red) {
+  constexpr int V = 16 / sizeof(T);
+  if (!seg.vec) {
+    encode_rows<T, kFp8, 1, false>(seg, r, red);
+  } else if (seg.p.K / V <= kMaxVecs * seg.team) {
+    encode_rows<T, kFp8, V, true>(seg, r, red);
   } else {
-    quantize_rows_kernel<InT, kFp8, 1>
-        <<<grid, kRowsPerBlock * 32, 0, stream>>>(xp, ldx, qp, scale, M, K);
+    encode_rows<T, kFp8, V, false>(seg, r, red);
+  }
+}
+
+template <int CAP, bool kFp8>
+__global__ void __launch_bounds__(kThreads)
+quantize_rows_kernel(const __grid_constant__ QuantTable<CAP> t) {
+  __shared__ float red[kThreads / 32];
+  const QuantSeg& seg = t.seg[find_segment(t, blockIdx.x)];
+  int r = seg.p.rot_const;
+  if (seg.p.rot != nullptr) {
+    const long long k = seg.p.every;
+    r = static_cast<int>(((*seg.p.rot % k) + k) % k);
+  }
+  if (seg.p.flags & kSrcBF16) {
+    encode_segment<__nv_bfloat16, kFp8>(seg, r, red);
+  } else {
+    encode_segment<float, kFp8>(seg, r, red);
+  }
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) == 0;
+}
+
+// Fills the derived fields of one segment; false if the spec is malformed.
+bool plan(const QuantSpec& p, QuantSeg* seg, int block0) {
+  if (p.src == nullptr || p.q == nullptr || p.s == nullptr || p.K <= 0 || p.every < 1) {
+    return false;
+  }
+  if (((p.flags & kHasBase) != 0) != (p.base != nullptr)) return false;
+  if (p.rot == nullptr && (p.rot_const < 0 || p.rot_const >= p.every)) return false;
+  long long full = 1;
+  for (int d = 0; d < 4; ++d) {
+    if (p.dims[d] <= 0) return false;
+    if (d > 0) full *= p.dims[d];
+  }
+  if (full % p.every != 0 || full / p.every * p.dims[0] > 0x7fffffffLL) return false;
+  const int esize = (p.flags & kSrcBF16) ? 2 : 4;
+  const int V = 16 / esize;
+  bool vec = p.K % V == 0 && aligned(p.src, 16) && aligned(p.q, V) && p.q_part % V == 0;
+  for (int d = 0; d < 4; ++d) vec = vec && p.src_stride[d] % V == 0;
+  if (p.base != nullptr) {
+    vec = vec && aligned(p.base, 16) && p.base_part % V == 0 && p.base_ld % V == 0;
+  }
+  const int nvec = vec ? p.K / V : p.K;
+  int team = 32;
+  while (team < kThreads && team * 2 <= nvec) team *= 2;
+  seg->p = p;
+  seg->rows_per_part = static_cast<int>(full / p.every);
+  seg->rows = seg->rows_per_part * p.dims[0];
+  seg->block0 = block0;
+  seg->team = team;
+  seg->vec = vec ? 1 : 0;
+  return true;
+}
+
+int blocks_of(const QuantSeg& seg) {
+  const int per_block = kThreads / seg.team;
+  return (seg.rows + per_block - 1) / per_block;
+}
+
+template <int CAP>
+cudaError_t launch(const QuantSpec* specs, int n, int payload, cudaStream_t stream) {
+  QuantTable<CAP> t;
+  t.n = n;
+  long long blocks = 0;
+  for (int i = 0; i < n; ++i) {
+    if (!plan(specs[i], &t.seg[i], static_cast<int>(blocks))) return cudaErrorInvalidValue;
+    blocks += blocks_of(t.seg[i]);
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  }
+  if (payload == 1) {
+    quantize_rows_kernel<CAP, true><<<static_cast<int>(blocks), kThreads, 0, stream>>>(t);
+  } else {
+    quantize_rows_kernel<CAP, false><<<static_cast<int>(blocks), kThreads, 0, stream>>>(t);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  x: [M, K] with unit column
-// stride and row stride ldx elements, fp32 (in_type 0) or bf16 (1); q:
-// [M, K] row-major int8 (payload 0) or e4m3 (1) bytes; scale: fp32 [M].
-// Returns the launch's cudaError_t (0 on success).
-extern "C" int quantize_rows(const void* x, long long ldx, void* q, float* scale, int M,
-                             int K, int in_type, int payload, void* stream) {
-  if (M <= 0 || K <= 0 || ldx < K) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_type == kInBF16 && payload == kInt8) {
-    return static_cast<int>(launch<__nv_bfloat16, false>(x, ldx, q, scale, M, K, s));
+// Plain C entry points (bound with ctypes).
+//
+// quantize_rows_grouped: one launch over n segments (1 <= n <= capacity),
+// payload 0 int8 or 1 e4m3.  Returns the launch's cudaError_t (0 on
+// success); cudaErrorInvalidValue for a malformed table, before launching.
+extern "C" int quantize_rows_grouped(const void* specs, int n, int payload, void* stream) {
+  if (specs == nullptr || n < 1 || n > kCapacity || (payload != 0 && payload != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (in_type == kInBF16 && payload == kFp8) {
-    return static_cast<int>(launch<__nv_bfloat16, true>(x, ldx, q, scale, M, K, s));
+  const QuantSpec* s = static_cast<const QuantSpec*>(specs);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n == 1) return static_cast<int>(launch<1>(s, n, payload, st));
+  if (n <= 16) return static_cast<int>(launch<16>(s, n, payload, st));
+  return static_cast<int>(launch<kCapacity>(s, n, payload, st));
+}
+
+// The segments one launch takes, and the size of a segment's description
+// (the wrapper checks its ctypes mirror against it).
+extern "C" int quantize_rows_capacity(void) { return kCapacity; }
+extern "C" int quantize_rows_spec_bytes(void) { return static_cast<int>(sizeof(QuantSpec)); }
+
+// The compiled instance of a table capacity (1, 16 or the full one) and
+// payload: registers a thread, local (spilled) bytes a thread, the table's
+// parameter bytes.  Returns a cudaError_t.
+extern "C" int quantize_rows_variant(int capacity, int payload, int* registers,
+                                     int* local_bytes, int* param_bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t err;
+  const bool fp8 = payload == 1;
+  if (capacity == 1) {
+    err = fp8 ? cudaFuncGetAttributes(&attr, quantize_rows_kernel<1, true>)
+              : cudaFuncGetAttributes(&attr, quantize_rows_kernel<1, false>);
+    *param_bytes = static_cast<int>(sizeof(QuantTable<1>));
+  } else if (capacity == 16) {
+    err = fp8 ? cudaFuncGetAttributes(&attr, quantize_rows_kernel<16, true>)
+              : cudaFuncGetAttributes(&attr, quantize_rows_kernel<16, false>);
+    *param_bytes = static_cast<int>(sizeof(QuantTable<16>));
+  } else {
+    err = fp8 ? cudaFuncGetAttributes(&attr, quantize_rows_kernel<kCapacity, true>)
+              : cudaFuncGetAttributes(&attr, quantize_rows_kernel<kCapacity, false>);
+    *param_bytes = static_cast<int>(sizeof(QuantTable<kCapacity>));
   }
-  if (in_type == kInF32 && payload == kInt8) {
-    return static_cast<int>(launch<float, false>(x, ldx, q, scale, M, K, s));
-  }
-  if (in_type == kInF32 && payload == kFp8) {
-    return static_cast<int>(launch<float, true>(x, ldx, q, scale, M, K, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *registers = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }

@@ -137,6 +137,17 @@ def _rotation(r, device):
     return torch.tensor([int(r)], device=device)
 
 
+def check_every_kth(rows: int, k: int, groups: int = 1) -> None:
+    """Raise unless ``rows`` splits into ``groups`` chunks whose row counts
+    the partial refresh's period ``k`` divides."""
+    if rows % (groups * k):
+        raise ValueError(
+            f"partial refresh needs the row count ({rows}) divisible by "
+            f"groups*k ({groups}*{k}) — pick a refresh_fraction whose "
+            "period divides every refreshed row dimension"
+        )
+
+
 def take_every_kth(x, k: int, r, *, groups: int = 1):
     """Rows ``{r, r+k, r+2k, ...}`` along axis -2 of each of ``groups``
     equal contiguous segments: ``[..., L/k, C]``.  ``r`` is an int or a
@@ -144,12 +155,7 @@ def take_every_kth(x, k: int, r, *, groups: int = 1):
     layout whose axis -2 concatenates per-rank chunks: the stride applies
     within each chunk."""
     lead, rows, c = x.shape[:-2], x.shape[-2], x.shape[-1]
-    if rows % (groups * k):
-        raise ValueError(
-            f"partial refresh needs the row count ({rows}) divisible by "
-            f"groups*k ({groups}*{k}) — pick a refresh_fraction whose "
-            "period divides every refreshed row dimension"
-        )
+    check_every_kth(rows, k, groups)
     xg = x.reshape(*lead, groups, rows // (groups * k), k, c)
     sub = xg.index_select(xg.dim() - 2, _rotation(r, x.device))
     return sub.reshape(*lead, rows // k, c)

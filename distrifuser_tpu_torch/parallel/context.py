@@ -25,17 +25,25 @@ The comm knobs act on the stale refreshes of halos ("conv2d") and KV
 exchange stay exact:
 
 * ``compress`` sends int8 / fp8 payloads with one float32 scale per row
-  (the kernel of ops/quantize.py on the card) and dequantizes on arrival;
-  "int8_residual" codes the delta against the previous reconstruction the
-  buffers already hold, closed-loop, so the error does not accumulate.  A
-  halo's sender keeps its own previous rows for that (``OWN_SUFFIX``, kind
-  "local", free on the wire);
+  and dequantizes on arrival; "int8_residual" codes the delta against the
+  previous reconstruction the buffers already hold, closed-loop, so the
+  error does not accumulate.  A halo's sender keeps its own previous rows
+  for that (``OWN_SUFFIX``, kind "local", free on the wire).  The codec of
+  ops/quantize.py does all of it: one ``quantize_rows_grouped`` encodes a
+  payload straight from the activation (the residual base and the partial
+  refresh's rows folded in, a halo's two boundary slabs read in place) into
+  one flat byte buffer of payloads then scales, which one collective
+  moves; one ``dequantize_rows_grouped`` decodes it into the next step's
+  new buffer (the kept rows of a partial refresh, the residual base, both
+  halves of a halo and the sender's own rows of residual halo coding);
 * ``refresh_fraction`` 1/k refreshes only rows {r, r+k, ...} of every
   payload, ``r = step % k`` (KV token rows, halo columns); ``step`` may be
   a device tensor, so one captured graph serves every rotation;
 * ``batch_comm`` defers every refresh of the step to ``flush``: one flat
-  all-gather per dtype and one flat halo pair, bit for bit the values the
-  per-layer exchanges give.
+  all-gather per dtype and one flat halo pair for the exact payloads, and
+  for the compressed ones one encode launch, one flat all-gather, one flat
+  halo pair and one decode launch for the whole step, bit for bit the
+  values the per-layer exchanges give.
 
 Three per-context dicts replace the JAX package's process-wide registries
 and are read by the runner's ``comm_volume_report``: ``kinds`` (what each
@@ -47,30 +55,73 @@ passed through untouched, ``carry_unconsumed``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Set
+import math
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 import torch
 
-from ..ops.quantize import quantize_rows
+from ..ops.quantize import (DecodeSeg, EncodeSeg, dequantize_rows_grouped, payload_shape,
+                            quantize_rows_grouped)
 from . import collectives
-from .compress import (COMPRESS_KINDS, dequantize, payload_mode, refresh_period,
-                       scatter_every_kth, take_every_kth, wire_nbytes)
+from .compress import (COMPRESS_KINDS, payload_mode, refresh_period, scatter_every_kth,
+                       take_every_kth, wire_nbytes)
 
 PHASE_SYNC = "sync"
 PHASE_STALE = "stale"
 # the sender-side own boundary rows that "int8_residual" halos code against
 OWN_SUFFIX = "#own"
+_PAYLOAD_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
-def _quantize(x: torch.Tensor, mode: str):
-    """Per-row quantization of a refresh payload over its last axis:
-    ``(payload, float32 scale of x.shape[:-1])``."""
-    q, s = quantize_rows(x.reshape(-1, x.shape[-1]), payload_mode(mode))
-    return q.reshape(x.shape), s.reshape(x.shape[:-1])
+@dataclasses.dataclass
+class _Coded:
+    """One compressed refresh: what the encoder reads (``enc``: the source
+    rows, the residual base, the partial refresh's rotation) and what the
+    decoder adds to (``base``), keeps rows of (``prev``) and, for a residual
+    halo, reconstructs the sender's own rows from (``own``)."""
+
+    name: str
+    halo: bool  # a halo pair (two parts) or one all-gathered payload
+    enc: EncodeSeg
+    shape: Tuple[int, ...]  # the payload of one part
+    base: Optional[torch.Tensor]
+    prev: Optional[torch.Tensor]
+    own: Optional[torch.Tensor]
+    dtype: torch.dtype
 
 
-def _dequant(q, s):
-    return dequantize(q, s, torch.float32)
+def _layout(shapes):
+    """Byte offsets of each payload and scale block in a flat buffer that
+    holds every payload, then (4-byte aligned) every float32 scale; and its
+    size."""
+    q_off, off = [], 0
+    for shape in shapes:
+        q_off.append(off)
+        off += math.prod(shape)
+    off = -(-off // 4) * 4
+    s_off = []
+    for shape in shapes:
+        s_off.append(off)
+        off += 4 * math.prod(shape[:-1])
+    return list(zip(q_off, s_off)), off
+
+
+def _views(buf, offsets, shape, dtype):
+    """The payload [..., *shape] and scale [..., *shape[:-1]] views of one
+    payload in the flat byte buffer ``buf`` [..., total]."""
+    q_off, s_off = offsets
+    n = math.prod(shape)
+    q = buf[..., q_off:q_off + n].view(dtype).unflatten(-1, shape)
+    s = buf[..., s_off:s_off + 4 * (n // shape[-1])].view(torch.float32)
+    return q, s.unflatten(-1, shape[:-1])
+
+
+def _halo_slabs(x, halo: int):
+    """``x[:, :halo]`` and ``x[:, h - halo:]`` of x [B, h, W, C] as the two
+    parts of one strided view [2, B, halo, W, C]: no copy."""
+    return x.as_strided((2, x.shape[0], halo, *x.shape[2:]),
+                        (x.stride(1) * (x.shape[1] - halo), *x.stride()),
+                        x.storage_offset())
 
 
 @dataclasses.dataclass
@@ -98,10 +149,13 @@ class PatchContext:
     carried: Set[str] = dataclasses.field(default_factory=set)
     text_kv: Optional[Dict[str, torch.Tensor]] = None
     _emitted: Set[str] = dataclasses.field(default_factory=set)
-    _pending: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    _def_gather: Dict[str, Dict] = dataclasses.field(default_factory=dict)
-    _def_halo: Dict[str, Dict] = dataclasses.field(default_factory=dict)
-    _batches: List[Any] = dataclasses.field(default_factory=list)
+    # issued exchanges, each finishing into {buffer name: next buffer}
+    _pending: List[collectives.Pending] = dataclasses.field(default_factory=list)
+    # what batch_comm defers to flush: exact gathers and halo pairs, and
+    # compressed refreshes
+    _def_gather: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    _def_halo: Dict[str, Tuple] = dataclasses.field(default_factory=dict)
+    _def_coded: List[_Coded] = dataclasses.field(default_factory=list)
 
     @property
     def is_sync(self) -> bool:
@@ -161,13 +215,99 @@ class PatchContext:
         return self.refresh and (self._compress_for(kind) == "int8_residual"
                                  or self._partial_for(kind) is not None)
 
-    def _take(self, name: str, x, k: int, r):
-        """``take_every_kth`` of layer ``name``'s payload; a row count the
-        period does not divide names the layer."""
+    def _payload_shape(self, name: str, shape, partial):
+        """The payload shape of layer ``name``'s rows of ``shape`` (thinned by
+        a partial refresh); a row count the period does not divide names
+        the layer."""
         try:
-            return take_every_kth(x, k, r)
+            return payload_shape(shape, partial)
         except ValueError as e:
             raise ValueError(f"layer {name!r}: {e}") from None
+
+    def _take(self, name: str, x, k: int, r):
+        """``take_every_kth`` of layer ``name``'s exact payload."""
+        self._payload_shape(name, x.shape, (k, r))
+        return take_every_kth(x, k, r)
+
+    # -- the compressed refreshes: one encode and one decode launch --------
+
+    def _gather_coded(self, name: str, local, mode: str, partial) -> _Coded:
+        """A compressed gather refresh of ``local`` (against this rank's
+        previous slot under residual coding), its wire bytes registered (n x
+        the local payload)."""
+        residual = mode == "int8_residual"
+        prev = self.stale(name) if residual or partial is not None else None  # [n, *local]
+        shape = self._payload_shape(name, local.shape, partial)
+        self.wire[name] = self.n * wire_nbytes(shape, local.element_size(), mode)
+        enc = EncodeSeg(local, prev[self.split_idx] if residual else None, partial)
+        return _Coded(name, False, enc, shape, prev if residual else None,
+                      prev if partial is not None else None, None, local.dtype)
+
+    def _halo_coded(self, name: str, x, halo: int, mode: str, partial) -> _Coded:
+        """A compressed halo refresh of the boundary rows of ``x``, its wire
+        bytes registered.  Under residual coding the sender's own-rows carry
+        is refreshed with the reconstruction (previous rows plus the
+        decoded delta), never the raw rows: it must equal the base every
+        receiver adds to, or the coding goes open-loop."""
+        residual = mode == "int8_residual"
+        slabs = _halo_slabs(x, halo)  # [2, B, halo, W, C]: top, bottom
+        shape = self._payload_shape(name, slabs.shape[1:], partial)
+        self.wire[name] = 2 * wire_nbytes(shape, x.element_size(), mode)
+        own = prev = None
+        if residual:
+            own = self.stale(name + OWN_SUFFIX)  # my previous [top, bottom]
+            self._claim(name + OWN_SUFFIX, "local")
+            self.wire[name + OWN_SUFFIX] = 0
+        if residual or partial is not None:
+            prev = self.stale(name)  # [2, B, halo, W, C]: what the receivers hold
+        return _Coded(name, True, EncodeSeg(slabs, own, partial), shape,
+                      prev if residual else None, prev if partial is not None else None,
+                      own, x.dtype)
+
+    def _issue_coded(self, recs: List[_Coded]) -> collectives.Pending:
+        """Encode ``recs`` in one launch into a flat send buffer (gathers) and
+        a flat pair (halos: top payloads, bottom payloads), issue one
+        all-gather and one halo exchange, and decode everything that arrives
+        in one launch when the step ends."""
+        mode = payload_mode(self.compress)
+        pdt = _PAYLOAD_DTYPES[mode]
+        gathers = [r for r in recs if not r.halo]
+        halos = [r for r in recs if r.halo]
+        device = recs[0].enc.x.device
+        g_off, g_total = _layout([r.shape for r in gathers])
+        h_off, h_total = _layout([r.shape for r in halos])
+        g_buf = torch.empty((g_total,), dtype=torch.uint8, device=device) if gathers else None
+        h_buf = torch.empty((2, h_total), dtype=torch.uint8, device=device) if halos else None
+        g_out = [_views(g_buf, o, r.shape, pdt) for r, o in zip(gathers, g_off)]
+        h_out = [_views(h_buf, o, r.shape, pdt) for r, o in zip(halos, h_off)]
+        quantize_rows_grouped([r.enc._replace(out=out) for r, out in
+                               zip(gathers + halos, g_out + h_out)], mode)
+        pg = collectives.all_gather(g_buf, self.group, async_op=True) if gathers else None
+        ph = (collectives.exchange_boundary_rows(h_buf[1], h_buf[0], self.group,
+                                                 async_op=True) if halos else None)
+
+        def finish():
+            names, segs = [], []
+            if gathers:
+                got = pg.wait()  # [n, g_total]
+                for r, o in zip(gathers, g_off):
+                    q, s = _views(got, o, r.shape, pdt)
+                    names.append(r.name)
+                    segs.append(DecodeSeg(q, s, r.base, r.prev, r.enc.every))
+            if halos:
+                arrived = ph.wait()  # (from previous, from next)
+                for r, o, (own_q, own_s) in zip(halos, h_off, h_out):
+                    q, s = zip(*(_views(b, o, r.shape, pdt) for b in arrived))
+                    names.append(r.name)
+                    segs.append(DecodeSeg(list(q), list(s), r.base, r.prev, r.enc.every))
+                    if r.own is not None:
+                        names.append(r.name + OWN_SUFFIX)
+                        segs.append(DecodeSeg(own_q, own_s, r.own,
+                                              r.own if r.enc.every is not None else None,
+                                              r.enc.every))
+            return dict(zip(names, dequantize_rows_grouped(segs, recs[0].dtype)))
+
+        return collectives.Pending([], finish)
 
     # -- gathered refreshes (KV, GroupNorm moments) -----------------------
 
@@ -177,75 +317,37 @@ class PatchContext:
         compressed, partial or deferred to ``flush`` as the knobs say."""
         self._claim(name, kind)
         mode = self._compress_for(kind)
-        if self.batch_comm:  # DistriConfig keeps partial refresh out of here
-            self._def_gather[name] = self._gather_record(name, local, mode)
+        partial = None if self.batch_comm else self._partial_for(kind)
+        # (DistriConfig keeps partial refresh out of batch_comm)
+        if mode is not None:
+            rec = self._gather_coded(name, local, mode, partial)
+            if self.batch_comm:
+                self._def_coded.append(rec)
+            else:
+                self._pending.append(self._issue_coded([rec]))
             return
-        partial = self._partial_for(kind)
-        if partial is not None:
-            self._partial_refresh_gather(name, local, mode, partial)
-            return
-        if mode is None:
+        if self.batch_comm:
             self.wire[name] = self.n * wire_nbytes(local.shape, local.element_size(), "none")
-            self._pending[name] = collectives.all_gather(local, self.group, async_op=True)
+            self._def_gather[name] = local
             return
-        rec = self._gather_record(name, local, mode)
-        gq = collectives.all_gather(rec["q"], self.group, async_op=True)
-        gs = collectives.all_gather(rec["s"], self.group, async_op=True)
-        self._pending[name] = collectives.Pending(
-            [], lambda: self._gather_value(rec, gq.wait(), gs.wait()))
+        if partial is not None:
+            self._partial_refresh_gather(name, local, partial)
+            return
+        self.wire[name] = self.n * wire_nbytes(local.shape, local.element_size(), "none")
+        pending = collectives.all_gather(local, self.group, async_op=True)
+        self._pending.append(collectives.Pending([], lambda: {name: pending.wait()}))
 
-    def _gather_record(self, name: str, local, mode: Optional[str]) -> Dict:
-        """What one gather refresh sends: the raw tensor, or its payload and
-        scales (against this rank's previous slot under residual coding),
-        with its wire bytes registered (n x the local payload)."""
-        self.wire[name] = self.n * wire_nbytes(local.shape, local.element_size(),
-                                               mode or "none")
-        if mode is None:
-            return {"raw": local}
-        src = local.float()
-        prev = None
-        if mode == "int8_residual":
-            prev = self.stale(name)  # the same reconstruction on every peer
-            src = src - prev[self.split_idx].float()
-        q, s = _quantize(src, mode)
-        return {"q": q, "s": s, "prev": prev, "dtype": local.dtype}
-
-    @staticmethod
-    def _gather_value(rec, gq, gs):
-        new = _dequant(gq, gs)
-        if rec["prev"] is not None:
-            new = rec["prev"].float() + new
-        return new.to(rec["dtype"])
-
-    def _partial_refresh_gather(self, name: str, local, mode: Optional[str],
-                                partial) -> None:
-        """PCPP gather refresh: gather only rows {r, r+k, ...} of every
-        rank's chunk and write them into the previous buffer; the other rows
-        keep their previous reconstruction."""
+    def _partial_refresh_gather(self, name: str, local, partial) -> None:
+        """Exact PCPP gather refresh: gather only rows {r, r+k, ...} of
+        every rank's chunk and write them into the previous buffer; the
+        other rows keep their previous values."""
         k, r = partial
         prev = self.stale(name)  # [n, B, L/n, C]
         sub = self._take(name, local, k, r)
-        self.wire[name] = self.n * wire_nbytes(sub.shape, local.element_size(),
-                                               mode or "none")
-        if mode is None:
-            g = collectives.all_gather(sub, self.group, async_op=True)
-            self._pending[name] = collectives.Pending(
-                [], lambda: scatter_every_kth(prev, g.wait(), k, r))
-            return
-        src = sub.float()
-        if mode == "int8_residual":
-            src = src - take_every_kth(prev[self.split_idx], k, r).float()
-        q, s = _quantize(src, mode)
-        gq = collectives.all_gather(q, self.group, async_op=True)
-        gs = collectives.all_gather(s, self.group, async_op=True)
-
-        def finish():
-            new = _dequant(gq.wait(), gs.wait())
-            if mode == "int8_residual":
-                new = take_every_kth(prev, k, r).float() + new
-            return scatter_every_kth(prev, new.to(local.dtype), k, r)
-
-        self._pending[name] = collectives.Pending([], finish)
+        self.wire[name] = self.n * wire_nbytes(sub.shape, local.element_size(), "none")
+        g = collectives.all_gather(sub, self.group, async_op=True)
+        self._pending.append(collectives.Pending(
+            [], lambda: {name: scatter_every_kth(prev, g.wait(), k, r)}))
 
     # -- halo refreshes ---------------------------------------------------
 
@@ -258,104 +360,41 @@ class PatchContext:
         mode, partial = self._compress_for("conv2d"), self._partial_for("conv2d")
         if halo == 0 or self.n == 1:
             mode = partial = None  # nothing real moves
+        if mode is not None:
+            rec = self._halo_coded(name, x, halo, mode, partial)
+            if self.batch_comm:
+                self._def_coded.append(rec)
+            else:
+                self._pending.append(self._issue_coded([rec]))
+            return
         top, bottom = x[:, :halo], x[:, x.shape[1] - halo:]
-        if self.batch_comm:
-            self._def_halo[name] = self._halo_record(name, top, bottom, mode)
-            return
         if partial is not None:
-            self._partial_refresh_halos(name, top, bottom, mode, partial)
+            self._partial_refresh_halos(name, top, bottom, partial)
             return
-        if mode is None:
-            self.wire[name] = 2 * wire_nbytes(top.shape, x.element_size(), "none")
-            pending = collectives.halo_exchange(x, halo, self.group, async_op=True)
-            self._pending[name] = collectives.Pending(
-                [], lambda: torch.stack(pending.wait()))
+        self.wire[name] = 2 * wire_nbytes(top.shape, x.element_size(), "none")
+        if self.batch_comm:
+            self._def_halo[name] = (top, bottom)
             return
-        rec = self._halo_record(name, top, bottom, mode)
-        pq = collectives.exchange_boundary_rows(rec["q"][1], rec["q"][0], self.group,
-                                                async_op=True)
-        ps = collectives.exchange_boundary_rows(rec["s"][1], rec["s"][0], self.group,
-                                                async_op=True)
-        self._pending[name] = collectives.Pending(
-            [], lambda: self._halo_value(rec, pq.wait(), ps.wait()))
+        pending = collectives.halo_exchange(x, halo, self.group, async_op=True)
+        self._pending.append(collectives.Pending(
+            [], lambda: {name: torch.stack(pending.wait())}))
 
-    def _halo_record(self, name: str, top, bottom, mode: Optional[str]) -> Dict:
-        """What one halo refresh sends (both boundary rows), with its wire
-        bytes registered.  Under residual coding the sender's own-rows carry
-        is refreshed with the reconstruction (previous rows plus the
-        dequantized delta), never the raw rows: it must equal the base every
-        receiver adds to, or the coding goes open-loop."""
-        self.wire[name] = 2 * wire_nbytes(top.shape, top.element_size(), mode or "none")
-        if mode is None:
-            return {"raw": (top, bottom)}
-        t, b = top.float(), bottom.float()
-        prev = None
-        if mode == "int8_residual":
-            own = self.stale(name + OWN_SUFFIX)  # my previous [top, bottom]
-            t, b = t - own[0].float(), b - own[1].float()
-            prev = self.stale(name)  # what the receivers hold
-        qt, st = _quantize(t, mode)
-        qb, sb = _quantize(b, mode)
-        if mode == "int8_residual":
-            self._emit_own_halos(name, (own[0].float() + _dequant(qt, st)).to(top.dtype),
-                                 (own[1].float() + _dequant(qb, sb)).to(top.dtype))
-        return {"q": (qt, qb), "s": (st, sb), "prev": prev, "dtype": top.dtype}
-
-    @staticmethod
-    def _halo_value(rec, q, s):
-        """The [2, B, halo, W, C] buffer from the exchanged payloads and
-        scales ``(from_prev, from_next)`` of one compressed halo record."""
-        halves = [_dequant(qi, si) for qi, si in zip(q, s)]
-        if rec["prev"] is not None:
-            halves = [rec["prev"][i].float() + h for i, h in enumerate(halves)]
-        return torch.stack(halves).to(rec["dtype"])
-
-    def _partial_refresh_halos(self, name: str, top, bottom, mode: Optional[str],
-                               partial) -> None:
-        """PCPP halo refresh: exchange only columns {r, r+k, ...} of the
-        boundary rows (axis -2 of [B, halo, W, C]) and write them into the
-        previous halos; residual coding keeps the own-rows carry in step by
-        writing the same reconstructed columns into it."""
+    def _partial_refresh_halos(self, name: str, top, bottom, partial) -> None:
+        """Exact PCPP halo refresh: exchange only columns {r, r+k, ...} of
+        the boundary rows (axis -2 of [B, halo, W, C]) and write them into
+        the previous halos."""
         k, r = partial
         prev = self.stale(name)  # [2, B, halo, W, C]
         sub_t, sub_b = self._take(name, top, k, r), self._take(name, bottom, k, r)
-        self.wire[name] = 2 * wire_nbytes(sub_t.shape, top.element_size(), mode or "none")
-        if mode is None:
-            pending = collectives.exchange_boundary_rows(sub_b, sub_t, self.group,
-                                                         async_op=True)
-            self._pending[name] = collectives.Pending([], lambda: torch.stack(
-                [scatter_every_kth(prev[i], h, k, r)
-                 for i, h in enumerate(pending.wait())]))
-            return
-        t, b = sub_t.float(), sub_b.float()
-        if mode == "int8_residual":
-            own = self.stale(name + OWN_SUFFIX)
-            own_t, own_b = (take_every_kth(o, k, r).float() for o in (own[0], own[1]))
-            t, b = t - own_t, b - own_b
-        qt, st = _quantize(t, mode)
-        qb, sb = _quantize(b, mode)
-        if mode == "int8_residual":
-            self._emit_own_halos(
-                name,
-                scatter_every_kth(own[0], (own_t + _dequant(qt, st)).to(top.dtype), k, r),
-                scatter_every_kth(own[1], (own_b + _dequant(qb, sb)).to(top.dtype), k, r))
-        pq = collectives.exchange_boundary_rows(qb, qt, self.group, async_op=True)
-        ps = collectives.exchange_boundary_rows(sb, st, self.group, async_op=True)
-
-        def finish():
-            halves = [_dequant(qi, si) for qi, si in zip(pq.wait(), ps.wait())]
-            if mode == "int8_residual":
-                halves = [take_every_kth(prev[i], k, r).float() + h
-                          for i, h in enumerate(halves)]
-            return torch.stack([scatter_every_kth(prev[i], h.to(top.dtype), k, r)
-                                for i, h in enumerate(halves)])
-
-        self._pending[name] = collectives.Pending([], finish)
+        self.wire[name] = 2 * wire_nbytes(sub_t.shape, top.element_size(), "none")
+        pending = collectives.exchange_boundary_rows(sub_b, sub_t, self.group,
+                                                     async_op=True)
+        self._pending.append(collectives.Pending([], lambda: {name: torch.stack(
+            [scatter_every_kth(prev[i], h, k, r) for i, h in enumerate(pending.wait())])}))
 
     def _emit_own_halos(self, name: str, top, bottom) -> None:
-        """Refresh the sender's own-rows carry of residual halo coding:
-        kind "local", 0 bytes on the wire; nothing outside
-        ``int8_residual``."""
+        """Seed the sender's own-rows carry of residual halo coding: kind
+        "local", 0 bytes on the wire; nothing outside ``int8_residual``."""
         if self.compress != "int8_residual":
             return
         own = name + OWN_SUFFIX
@@ -376,51 +415,25 @@ class PatchContext:
 
     def flush(self) -> None:
         """Issue the refreshes ``batch_comm`` deferred: one flat all-gather
-        per dtype over every layer's KV / moment payloads (a compressed
-        layer's 8-bit payload and its float32 scales in their dtypes'
-        batches) and one flat halo pair per dtype; ``finish`` splits them
-        back into the per-layer buffers.  Nothing to do without deferred
-        refreshes."""
+        per dtype over every layer's exact KV / moment payloads and one flat
+        halo pair per dtype, and the compressed ones through one encode
+        launch, one flat all-gather and one flat halo pair; ``finish``
+        splits them back into the per-layer buffers (the compressed ones in
+        one decode launch).  Nothing to do without deferred refreshes."""
         if self._def_gather:
-            self._batches.append(self._flush_gathers(dict(self._def_gather)))
+            parts = list(self._def_gather.items())
+            pending = collectives.batched_all_gather(parts, self.group, async_op=True)
+            self._pending.append(pending)
             self._def_gather.clear()
         if self._def_halo:
-            self._batches.append(self._flush_halos(dict(self._def_halo)))
+            parts = [(name, top, bottom) for name, (top, bottom) in self._def_halo.items()]
+            pending = collectives.batched_halo_exchange(parts, self.group, async_op=True)
+            self._pending.append(collectives.Pending([], lambda: {
+                name: torch.stack(pair) for name, pair in pending.wait().items()}))
             self._def_halo.clear()
-
-    def _flush_gathers(self, recs: Dict[str, Dict]):
-        parts = []
-        for name, rec in recs.items():
-            if "raw" in rec:
-                parts.append(((name, "raw"), rec["raw"]))
-            else:
-                parts += [((name, "q"), rec["q"]), ((name, "s"), rec["s"])]
-        pending = collectives.batched_all_gather(parts, self.group, async_op=True)
-
-        def finish():
-            got = pending.wait()
-            return {name: got[(name, "raw")] if "raw" in rec
-                    else self._gather_value(rec, got[(name, "q")], got[(name, "s")])
-                    for name, rec in recs.items()}
-
-        return collectives.Pending([], finish)
-
-    def _flush_halos(self, recs: Dict[str, Dict]):
-        parts = []
-        for name, rec in recs.items():
-            if "raw" in rec:
-                parts.append(((name, "raw"), *rec["raw"]))
-            else:
-                parts += [((name, "q"), *rec["q"]), ((name, "s"), *rec["s"])]
-        pending = collectives.batched_halo_exchange(parts, self.group, async_op=True)
-
-        def finish():
-            got = pending.wait()
-            return {name: torch.stack(got[(name, "raw")]) if "raw" in rec
-                    else self._halo_value(rec, got[(name, "q")], got[(name, "s")])
-                    for name, rec in recs.items()}
-
-        return collectives.Pending([], finish)
+        if self._def_coded:
+            self._pending.append(self._issue_coded(self._def_coded))
+            self._def_coded = []
 
     def carry_unconsumed(self) -> None:
         """Pass every buffer of ``state_in`` this step did not emit through
@@ -428,7 +441,7 @@ class PatchContext:
         ``carried``: a shallow step of the step cache skips whole layers,
         and their buffers and the deep cache ride along.  Call after
         ``flush``."""
-        assert not self._def_gather and not self._def_halo, (
+        assert not (self._def_gather or self._def_halo or self._def_coded), (
             "carry_unconsumed must run after flush()")
         if self.state_in is None:
             return
@@ -442,12 +455,9 @@ class PatchContext:
         ``state_out``, or the unchanged ``state_in`` when the step emitted
         nothing (a ``no_sync`` stale step)."""
         self.flush()
-        for name, pending in self._pending.items():
-            self.state_out[name] = pending.wait()
-        for pending in self._batches:
+        for pending in self._pending:
             self.state_out.update(pending.wait())
         self._pending.clear()
-        self._batches.clear()
         if not self.state_out and self.state_in is not None:
             return self.state_in
         return self.state_out

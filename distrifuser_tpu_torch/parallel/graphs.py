@@ -164,8 +164,8 @@ class StepGraph:
         self.out: Optional[torch.Tensor] = None
         self.state_out = None
         self.graph = None
-        # launches each kernel wrapper made during the capture, and every
-        # count a replay adds (the log-sum-exp launches too)
+        # launches of each kernel wrapper that launched during the capture,
+        # and every count a replay adds (the log-sum-exp launches too)
         self.launches: Dict[Callable, int] = {}
         self.counts: Dict[Tuple[Callable, str], int] = {}
 
@@ -197,7 +197,7 @@ class StepGraph:
             _restore(before)
         self.counts = {key: n - before.get(key, 0) for key, n in after.items()}
         self.launches = {fn: n for (fn, attr), n in self.counts.items()
-                         if attr == "launches"}
+                         if attr == "launches" and n}
         self.graph = graph
 
     def replay(self, step_fn: Callable):

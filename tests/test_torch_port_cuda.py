@@ -542,3 +542,208 @@ def test_tiny_sd_graphed_equals_eager_on_card(scheduler):
     eager = _tiny_sd_latents(_tiny_sd_pipeline("cuda", torch.bfloat16, scheduler,
                                                use_cuda_graph=False))
     np.testing.assert_array_equal(graphed, eager)
+
+
+# -- the refresh codec: quantize_rows (encode) and dequantize_rows (decode) --
+#
+# Both kernels are their plain versions (quantize_rows_reference,
+# dequantize_rows_reference: the compositions of parallel/compress.py run on
+# the card) bit for bit: payload bytes, scales and decoded buffers.
+
+
+def _linear_shapes(ucfg, size):
+    """Every (M, K) the quantized linears of a 4-step ``size``^2 call give
+    the encoder: per UNet level with transformer blocks M = 2 x tokens
+    (CFG folded) at K = C and 4C, the text KV (154 x cross dim), and the
+    time and added embeddings on 2 rows."""
+    from distrifuser_tpu_torch.models.unet import transformer_blocks_per_level
+
+    lat = size // 8
+    shapes = {(154, ucfg.cross_attention_dim), (2, ucfg.block_out_channels[0]),
+              (2, ucfg.time_embed_dim)}
+    if ucfg.addition_embed_type == "text_time":
+        shapes.add((2, ucfg.projection_class_embeddings_input_dim))
+    for lvl, blocks in enumerate(transformer_blocks_per_level(ucfg)):
+        if blocks:
+            c, m = ucfg.block_out_channels[lvl], 2 * (lat >> lvl) ** 2
+            shapes |= {(m, c), (m, 4 * c)}
+    return sorted(shapes)
+
+
+def _refresh_segments(dtype, k, residual, seed=0):
+    """One rank's refresh payloads of an SDXL 1024^2 stale step at CFG 2 x
+    sp 2 (a superset of every shape compress_pcpp and stepcache_batch
+    code): KV [1, L/2, 2C] at levels 1 and 2, and the halo slabs of
+    [1, 64 >> l, 128 >> l, C] activations at every level for every halo
+    channel count, with the residual base and the rotation r = 1 (a device
+    scalar) where asked."""
+    from distrifuser_tpu_torch.parallel.context import _halo_slabs
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    every = (k, torch.tensor(1, device="cuda")) if k > 1 else None
+    segs = []
+
+    def rows(*shape):
+        x = (torch.randn(*shape, device="cuda", generator=g) * 3).to(dtype)
+        x.view(-1, shape[-1])[0] = 0
+        return x
+
+    for tokens, c in ((2048, 1280), (512, 2560)):
+        x = rows(1, tokens, c)
+        segs.append(port_quantize.EncodeSeg(x, rows(1, tokens, c) if residual else None,
+                                            every))
+    for lvl in range(3):
+        for c in (320, 640, 960, 1280, 1920, 2560):
+            x = rows(1, 64 >> lvl, 128 >> lvl, c)
+            base = rows(2, 1, 1, 128 >> lvl, c) if residual else None
+            segs.append(port_quantize.EncodeSeg(_halo_slabs(x, 1), base, every))
+    return segs
+
+
+def _same(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _decode_seg(enc_seg, q, s, dtype, seed):
+    """The receiving side of an encoded segment: its payload decoded into a
+    new buffer of the source's shape, against a seeded previous buffer."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    prev = torch.randn(enc_seg.x.shape, device="cuda", generator=g).to(dtype)
+    return port_quantize.DecodeSeg(q, s, prev if enc_seg.base is not None else None,
+                                   prev if enc_seg.every is not None else None,
+                                   enc_seg.every)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("model", ["sdxl", "sd15"])
+def test_codec_at_linear_shapes_on_card(mode, model):
+    """At every quantized-linear (M, K) of SDXL 1024^2 and SD 1.5 512^2:
+    the encoder is compress.quantize bit for bit and the decoder the plain
+    dequantize-and-cast bit for bit."""
+    _need_card()
+    from distrifuser_tpu_torch.models import unet
+
+    ucfg, size = (unet.sdxl_config(), 1024) if model == "sdxl" else (unet.sd15_config(), 512)
+    for i, (m, k) in enumerate(_linear_shapes(ucfg, size)):
+        x = _quantize_inputs(m, k, seed=i)
+        xq, sx = port_quantize.quantize_rows(x, mode)
+        want_q, want_s = quantize(x, mode)
+        assert _same(xq, want_q) and _same(sx, want_s), (m, k)
+        seg = port_quantize.DecodeSeg(xq, sx)
+        got = port_quantize.dequantize_rows(xq, sx, torch.bfloat16)
+        assert _same(got, port_quantize.dequantize_rows_reference(seg, torch.bfloat16)), (m, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8", "int8_residual"])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_codec_at_refresh_payloads_on_card(mode, k, dtype):
+    """At every refresh payload of the knob runs, bf16 and float32 sources,
+    with the residual base and the rotation: each segment alone and the
+    whole step's table in one grouped launch equal the plain versions bit
+    for bit, encode and decode (the decode keeping the other rows of a
+    partial refresh and adding the base)."""
+    _need_card()
+    payload = "int8" if mode == "int8_residual" else mode
+    segs = _refresh_segments(dtype, k, mode == "int8_residual", seed=k)
+    want = [port_quantize.quantize_rows_reference(seg, payload) for seg in segs]
+    before = port_quantize.quantize_rows_grouped.launches
+    grouped = port_quantize.quantize_rows_grouped(segs, payload)
+    assert port_quantize.quantize_rows_grouped.launches == before + 1
+    for seg, (q, s), (wq, ws) in zip(segs, grouped, want):
+        assert _same(q, wq) and _same(s, ws), tuple(seg.x.shape)
+        (q1, s1), = port_quantize.quantize_rows_grouped([seg], payload)
+        assert _same(q1, wq) and _same(s1, ws), tuple(seg.x.shape)
+    dsegs = [_decode_seg(seg, q, s, dtype, seed=i) for i, (seg, (q, s)) in
+             enumerate(zip(segs, grouped))]
+    before = port_quantize.dequantize_rows_grouped.launches
+    bufs = port_quantize.dequantize_rows_grouped(dsegs, dtype)
+    assert port_quantize.dequantize_rows_grouped.launches == before + 1
+    for seg, buf in zip(dsegs, bufs):
+        assert _same(buf, port_quantize.dequantize_rows_reference(seg, dtype))
+
+
+@pytest.mark.cuda
+def test_codec_tables_split_into_launches_on_card():
+    """A table longer than CAPACITY segments runs in as many launches as it
+    takes, every segment bit for bit the plain version; the halves of a
+    halo exchange in two separate receive buffers decode as two parts."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cap = port_quantize.CAPACITY
+    segs = [port_quantize.EncodeSeg(
+        torch.randn(1 + i % 5, 8 * (1 + i % 7), device="cuda", generator=g).bfloat16(),
+        None, (2, i % 2) if i % 5 % 2 == 1 else None) for i in range(2 * cap + 3)]
+    # rows 1 + i % 5 is even where every is set: k = 2 divides them
+    before = port_quantize.quantize_rows_grouped.launches
+    got = port_quantize.quantize_rows_grouped(segs, "fp8")
+    assert port_quantize.quantize_rows_grouped.launches == before + 3
+    for seg, (q, s) in zip(segs, got):
+        wq, ws = port_quantize.quantize_rows_reference(seg, "fp8")
+        assert _same(q, wq) and _same(s, ws)
+    dsegs = [port_quantize.DecodeSeg(q, s) for q, s in got]
+    before = port_quantize.dequantize_rows_grouped.launches
+    bufs = port_quantize.dequantize_rows_grouped(dsegs, torch.bfloat16)
+    assert port_quantize.dequantize_rows_grouped.launches == before + 3
+    for seg, buf in zip(dsegs, bufs):
+        assert _same(buf, port_quantize.dequantize_rows_reference(seg, torch.bfloat16))
+    q0, s0 = got[1]
+    q1, s1 = q0.clone(), s0.clone()
+    prev = torch.randn(2, *q0.shape, device="cuda", generator=g).bfloat16()
+    seg = port_quantize.DecodeSeg([q0, q1], [s0, s1], prev)
+    assert _same(port_quantize.dequantize_rows([q0, q1], [s0, s1], torch.bfloat16, base=prev),
+                 port_quantize.dequantize_rows_reference(seg, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_codec_rotation_changes_between_graph_replays_on_card():
+    """One captured graph of an encode and a decode with the rotation r a
+    device scalar: after r changes between two replays, each replay equals
+    the plain versions at that r."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    r = torch.zeros((), dtype=torch.int64, device="cuda")
+    x = torch.randn(1, 512, 2560, device="cuda", generator=g).bfloat16()
+    base = torch.randn(1, 512, 2560, device="cuda", generator=g).bfloat16()
+    prev = torch.randn(1, 512, 2560, device="cuda", generator=g).bfloat16()
+
+    def step():
+        (q, s), = port_quantize.quantize_rows_grouped(
+            [port_quantize.EncodeSeg(x, base, (4, r))], "int8")
+        return q, s, port_quantize.dequantize_rows(q, s, torch.bfloat16, base=prev,
+                                                   prev=prev, every=(4, r))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q, s, out = step()
+    for rot in (1, 3):
+        r.fill_(rot)
+        graph.replay()
+        torch.cuda.synchronize()
+        wq, ws = port_quantize.quantize_rows_reference(
+            port_quantize.EncodeSeg(x, base, (4, rot)), "int8")
+        want = port_quantize.dequantize_rows_reference(
+            port_quantize.DecodeSeg(wq, ws, prev, prev, (4, rot)), torch.bfloat16)
+        assert _same(q, wq) and _same(s, ws) and _same(out, want), rot
+
+
+@pytest.mark.cuda
+def test_codec_kernel_instances_fit_the_card():
+    """Registers and spills of every instance (ptxas, read back through
+    cudaFuncGetAttributes): no spills, and the full table within the 32,764
+    bytes of kernel parameters."""
+    _need_card()
+    for kind in ("quantize", "dequantize"):
+        for table in (1, 16, port_quantize.CAPACITY):
+            for mode in ("int8", "fp8"):
+                v = port_quantize.variant(kind, table, mode)
+                print(kind, table, mode, v)
+                assert v["spill_bytes"] == 0 and v["param_bytes"] <= 32764, (kind, table, v)
