@@ -171,8 +171,14 @@ package (PR 5's or later): run this file from
 that checkout's root as
 ``python3 -c "import runpy, sys; sys.argv[1:] = ['--quant_device_times'];
 runpy.run_path('/path/to/chip_smoke.py', run_name='__main__')"``
-to compare two kernels by device time in one call.  It exits non-zero
-without a result when no CUDA card is present or the package is missing.
+to compare two kernels by device time in one call.  ``--step_launches``
+(four cards) runs only the patch, compress_pcpp and stepcache_batch
+pipelines under CUDA graphs and prints each graphed step's time and the
+device activities it ran, by evaluation; it also runs against an older
+checkout (PR 10's or later): copy this file into that checkout's root and
+run it there (its ranks are spawned processes, which import the script by
+its file).  Both exit non-zero without a
+result when no CUDA card is present or the package is missing.
 """
 
 import datetime
@@ -1917,6 +1923,84 @@ def _multi_rank_img2img(pipe, name, model):
             "flash_sdpa_launches": launches["flash_sdpa"], "image_sha256": image_digest(out)}
 
 
+STEP_LAUNCH_RUNS = ("patch", "compress_pcpp", "stepcache_batch")
+
+
+def _step_launch_rank(rank, world, port, out_dir):
+    """One rank of ``--step_launches`` (a spawned process, one card a rank
+    over NCCL): for each run of STEP_LAUNCH_RUNS the full-width SDXL
+    pipeline under CUDA graphs, captured and called once, then one call
+    whose steps the callback times (the card synchronised at every step)
+    and one profiled call (``profile_call`` with the step marks: the device
+    activities of each step by its evaluation).  Uses only what the
+    package's PR 10 already had, so that an older checkout runs it too."""
+    import torch
+    import torch.distributed as dist
+
+    from distrifuser_tpu_torch.utils.env import set_precision_flags
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        set_precision_flags()
+        trees = build_trees("sdxl")
+        out = {}
+        for label in STEP_LAUNCH_RUNS:
+            fields, _, _, model, steps = MULTI_RUNS[label]
+            pipe, _ = build_pipeline(trees, model, use_cuda_graph=True, **fields)
+            pipe.prepare(steps)
+            pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
+            phases = pipe.runner._phases(steps)
+            marks = []
+
+            def timed(i, t, x):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+            pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np", callback=timed)
+            step_ms = {}
+            for i in range(1, len(marks)):
+                step_ms.setdefault(phases[i], []).append((marks[i] - marks[i - 1]) * 1e3)
+            prof = profile_call(
+                lambda cb: pipe(PROMPT, num_inference_steps=steps, seed=0,  # noqa: B023
+                                output_type="np", callback=cb),
+                os.path.join(out_dir, f"steps_{label}_rank{rank}.txt"), phases=phases)
+            out[label] = {"phase": "step_launches", "run": label, "rank": rank,
+                          "fields": fields, "steps": steps, "step_ms_by_phase": step_ms,
+                          "launches_by_phase": prof["launches_by_phase"],
+                          "wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
+                          "collective_ms": prof["collective_ms"]}
+            del pipe
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+def step_launch_phase(out_dir):
+    """``--step_launches``: on four cards, the graphed steps of the exact
+    patch run and the two codec runs (step ms and device activities a
+    step, by evaluation); one line per run and rank.  Runs against an
+    older checkout as ``--quant_device_times`` does."""
+    import torch
+    import torch.multiprocessing as mp
+
+    if torch.cuda.device_count() < PATCH_WORLD:
+        raise AssertionError(f"--step_launches needs {PATCH_WORLD} cards")
+    os.makedirs(out_dir, exist_ok=True)
+    mp.spawn(_step_launch_rank, args=(PATCH_WORLD, _free_port(), out_dir),
+             nprocs=PATCH_WORLD, join=True)
+    for r in range(PATCH_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            for line in json.load(f).values():
+                print(json.dumps(line), flush=True)
+
+
 def _spawn(world, labels, backend, out_dir, profile):
     """Run ``labels`` on ``world`` spawned ranks; returns each rank's lines.
     Ranks that have not all exited within SPAWN_DEADLINE_S are killed and
@@ -2244,6 +2328,10 @@ def main(argv) -> int:
                         help="only the multi-rank runs (patch, the comm-knob runs, "
                              "naive patch, tensor parallelism): their flash and "
                              "refresh-quantization shapes and the multi-rank phase")
+    parser.add_argument("--step_launches", action="store_true",
+                        help="only the graphed step times and device activities a "
+                             "step of the patch, compress_pcpp and stepcache_batch "
+                             "runs on four cards (runs against an older checkout)")
     parser.add_argument("--quant_device_times", action="store_true",
                         help="only time the quantized-matmul kernel's contract form "
                              "on the card at every path shape (device time)")
@@ -2269,6 +2357,9 @@ def main(argv) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     ucfg, vcfg = unet.sdxl_config(), vae.sdxl_vae_config()
     steps = 4
+    if args.step_launches:
+        step_launch_phase(os.path.join(args.out_dir, "step_launches"))
+        return 0
     if args.quant_device_times:
         from distrifuser_tpu_torch.ops import quant_matmul as qm
 

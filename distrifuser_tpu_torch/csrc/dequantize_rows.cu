@@ -56,10 +56,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "refresh_codec.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCapacity = 192;  // segments a launch's table holds
+using codec::aligned;
+using codec::find_segment;
+using codec::kCapacity;
+using codec::kThreads;
+using codec::widen;
 
 // DequantSpec.flags
 constexpr int kOutBF16 = 1;
@@ -103,12 +108,7 @@ struct DequantTable {
 
 static_assert(sizeof(DequantTable<kCapacity>) <= 32764,
               "a launch's segment table must fit the kernel parameter space");
-#if defined(CUDART_VERSION) && CUDART_VERSION < 12010
-#error "the segment table is a large kernel parameter: CUDA 12.1 or later"
-#endif
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T narrow(float v);
@@ -126,20 +126,6 @@ __device__ __forceinline__ float payload_value(uint8_t b) {
   } else {
     return static_cast<float>(static_cast<int8_t>(b));
   }
-}
-
-template <int CAP>
-__device__ __forceinline__ int find_segment(const DequantTable<CAP>& t, int block) {
-  int lo = 0, hi = t.n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (t.seg[mid].block0 <= block) {
-      lo = mid;
-    } else {
-      hi = mid - 1;
-    }
-  }
-  return lo;
 }
 
 template <typename T, int V>
@@ -160,18 +146,18 @@ __device__ __forceinline__ void decode_rows(const DequantSeg& seg, int r) {
   const int lane = threadIdx.x % team;
   const int o = (blockIdx.x - seg.block0) * (kThreads / team) + threadIdx.x / team;
   if (o >= p.parts * p.full_rows) return;
-  const int part = o / p.full_rows;
+  const int part = p.parts > 1 ? o / p.full_rows : 0;
   const int j = o - part * p.full_rows;
   const int nvec = p.K / V;
   using Out = Vec<T, V>;
   Out* out = reinterpret_cast<Out*>(static_cast<T*>(p.out) + static_cast<long long>(o) * p.K);
-  if (j % p.every != r) {  // a row the partial refresh keeps
+  if (p.every > 1 && j % p.every != r) {  // a row the partial refresh keeps
     const Out* prev = reinterpret_cast<const Out*>(
         static_cast<const T*>(p.prev) + part * p.prev_part + j * p.prev_ld);
     for (int c = lane; c < nvec; c += team) out[c] = prev[c];
     return;
   }
-  const int li = j / p.every;
+  const int li = p.every > 1 ? j / p.every : j;
   const Bytes<V>* q = reinterpret_cast<const Bytes<V>*>(
       static_cast<const uint8_t*>(p.q) + part * p.q_part + static_cast<long long>(li) * p.K);
   const float s = *reinterpret_cast<const float*>(
@@ -201,8 +187,8 @@ dequantize_rows_kernel(const __grid_constant__ DequantTable<CAP> t) {
   const DequantSeg& seg = t.seg[find_segment(t, blockIdx.x)];
   int r = seg.p.rot_const;
   if (seg.p.rot != nullptr) {
-    const long long k = seg.p.every;
-    r = static_cast<int>(((*seg.p.rot % k) + k) % k);
+    const int k = seg.p.every;
+    r = ((static_cast<int>(*seg.p.rot % k)) + k) % k;
   }
   if (seg.p.flags & kOutBF16) {
     if (seg.vec) {
@@ -217,10 +203,6 @@ dequantize_rows_kernel(const __grid_constant__ DequantTable<CAP> t) {
       decode_rows<float, kFp8, 1>(seg, r);
     }
   }
-}
-
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) == 0;
 }
 
 bool plan(const DequantSpec& p, DequantSeg* seg, int block0) {

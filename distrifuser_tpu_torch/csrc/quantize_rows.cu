@@ -24,10 +24,12 @@
 //   clamp(amax) / LIMIT;
 // * d / s is a correctly rounded division (__fdiv_rn; this file is never
 //   built with --use_fast_math), as PyTorch's tensor-by-tensor division is;
-// * rounding is half to even (rintf), as torch.round's;
-// * the e4m3 cast is cvt.rn.satfinite: round to nearest even, as
-//   PyTorch's software cast; the two differ only past 464, and |d / s| <=
-//   448 up to one rounding here.
+// * rounding is half to even, as torch.round's: the quotient, clipped to
+//   +-127, plus 1.5 * 2^23 in fp32 (one addition in place of rintf and a
+//   float-to-int conversion, which runs at a quarter of the fp32 rate);
+// * the e4m3 cast is cvt.rn.satfinite (two values an instruction): round
+//   to nearest even, as PyTorch's software cast; the two differ only past
+//   464, and |d / s| <= 448 up to one rounding here.
 //
 // What one launch covers: a table of segments, passed by value as the
 // kernel's parameter (up to kCapacity segments, about 30 KB: CUDA 12.1
@@ -49,13 +51,19 @@
 //   scale of a step).
 //
 // Design: 256-thread blocks; each block serves one segment, and a team of
-// 32 to 256 threads serves one row (the team grows with the row: about two
-// 16-byte vectors a thread, so a warp for 320 bf16 columns, eight warps
-// from 2048).  The row is read from device memory once: each thread holds
-// its (at most four) 16-byte vectors in registers, as fp32 differences,
-// while the team reduces |d| to the row max (warp shuffles, then shared
-// memory across the team's warps), then divides and stores 8- or 4-byte
-// payload vectors from those registers.  Registers rather than a shared
+// 8 to 256 threads serves one row: 8 lanes, doubled while a thread would
+// hold more than four 16-byte vectors of the row, or while the segment's
+// rows fill fewer than two waves of blocks on the card's 132 SMs (the
+// 154-row text KV at K = 2048 runs eight warps a row, SD 1.5's 320
+// columns half a warp, a 16-row refresh payload as many as its columns
+// allow).  The row is read from device
+// memory once: each thread holds its (at most four) raw 16-byte vectors,
+// and the base's, in registers while the team reduces |d| to the row max
+// (warp shuffles, then shared memory across the team's warps), then
+// divides and stores 8- or 4-byte payload vectors from those registers.
+// Rows one stride apart within a part (a contiguous activation, a KV, a
+// halo slab at B = 1) are addressed by one multiply; only other layouts
+// pay the division of the row index into its three indices.  Registers rather than a shared
 // memory stage (cp.async or a bulk copy): a row is at most 16 KB (8192 bf16
 // or 4096 fp32 columns take this path) and a team's threads hold it
 // outright, so the only device-memory traffic is the one read and the
@@ -79,11 +87,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "refresh_codec.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using codec::aligned;
+using codec::find_segment;
+using codec::kCapacity;
+using codec::kThreads;
+using codec::widen;
+
 constexpr int kMaxVecs = 4;  // 16-byte vectors a thread holds in registers
-constexpr int kCapacity = 192;  // segments a launch's table holds
 constexpr float kScaleFloor = 1e-12f;  // an all-zero row: exact zeros
 
 // QuantSpec.flags
@@ -114,11 +128,13 @@ struct QuantSpec {
 
 struct QuantSeg {
   QuantSpec p;
+  long long src_ld;   // between source rows, where they are one stride apart
   int rows;           // payload rows of the segment (all parts)
   int rows_per_part;  // payload rows of a part
   int block0;         // the segment's first block
   int team;           // threads a row
   int vec;            // 16-byte vectors everywhere
+  int flat;           // source rows one stride (src_ld) apart within a part
 };
 
 template <int CAP>
@@ -129,43 +145,14 @@ struct QuantTable {
 
 static_assert(sizeof(QuantTable<kCapacity>) <= 32764,
               "a launch's segment table must fit the kernel parameter space");
-#if defined(CUDART_VERSION) && CUDART_VERSION < 12010
-#error "the segment table is a large kernel parameter: CUDA 12.1 or later"
-#endif
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <bool kFp8>
-__device__ __forceinline__ uint8_t quantize_one(float d, float s) {
-  const float v = __fdiv_rn(d, s);
-  if constexpr (kFp8) {
-    return static_cast<uint8_t>(__nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3));
-  } else {
-    const float r = fminf(fmaxf(rintf(v), -127.f), 127.f);
-    return static_cast<uint8_t>(static_cast<int8_t>(r));
-  }
-}
-
-template <int CAP>
-__device__ __forceinline__ int find_segment(const QuantTable<CAP>& t, int block) {
-  int lo = 0, hi = t.n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (t.seg[mid].block0 <= block) {
-      lo = mid;
-    } else {
-      hi = mid - 1;
-    }
-  }
-  return lo;
-}
 
 // The max of v over the calling thread's team (team is block-uniform; every
-// thread of the block calls this once).
+// thread of the block calls this once).  A team of 8 or 16 lanes reduces
+// within its part of the warp.
 __device__ __forceinline__ float team_max(float v, int team, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = (team < 32 ? team : 32) >> 1; off > 0; off >>= 1) {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   }
   if (team > 32) {
@@ -189,9 +176,56 @@ struct alignas(V) OutVec {
   uint8_t v[V];
 };
 
+// The payload bytes of V differences d over the row's scale s.  int8:
+// clip(d / s) to +-127, then the float addition of 1.5 * 2^23 rounds it to
+// the nearest integer, ties to even, as rintf does, and leaves that integer
+// in the low mantissa bits (two's complement in the low byte for negative
+// ones); clipping before rounding is the same as after, the bounds being
+// integers.  fp8: the e4m3 conversion two at a time (cvt.rn.satfinite
+// .e4m3x2: the first value in the low byte), each as the one-value form
+// rounds it.
+template <bool kFp8, int V>
+__device__ __forceinline__ void encode_vec(const float (&d)[V], float s, OutVec<V>& o) {
+  float v[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) v[e] = __fdiv_rn(d[e], s);
+  if constexpr (kFp8) {
+    if constexpr (V % 2 == 0) {
+#pragma unroll
+      for (int e = 0; e < V; e += 2) {
+        const __nv_fp8x2_storage_t two = __nv_cvt_float2_to_fp8x2(
+            make_float2(v[e], v[e + 1]), __NV_SATFINITE, __NV_E4M3);
+        o.v[e] = static_cast<uint8_t>(two & 0xffu);
+        o.v[e + 1] = static_cast<uint8_t>(two >> 8);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        o.v[e] = static_cast<uint8_t>(__nv_cvt_float_to_fp8(v[e], __NV_SATFINITE, __NV_E4M3));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float c = fminf(fmaxf(v[e], -127.f), 127.f);
+      o.v[e] = static_cast<uint8_t>(__float_as_uint(__fadd_rn(c, 12582912.0f)) & 0xffu);
+    }
+  }
+}
+
+template <bool kBase, typename T>
+__device__ __forceinline__ float diff(T x, T b) {
+  if constexpr (kBase) {
+    return __fsub_rn(widen(x), widen(b));
+  } else {
+    return widen(x);
+  }
+}
+
 // One row per team.  V: elements a vector (1: scalar accesses); kRegs: the
-// row is held in registers (one read), else read twice.
-template <typename T, bool kFp8, int V, bool kRegs>
+// row's raw vectors are held in registers (one read), else read twice;
+// kBase: a residual base is subtracted.
+template <typename T, bool kFp8, int V, bool kRegs, bool kBase>
 __device__ __forceinline__ void encode_rows(const QuantSeg& seg, int r, float* red) {
   const QuantSpec& p = seg.p;
   const int team = seg.team;
@@ -205,16 +239,23 @@ __device__ __forceinline__ void encode_rows(const QuantSeg& seg, int r, float* r
   uint8_t* qr = nullptr;
   float* sr = nullptr;
   if (active) {
-    const int part = i / seg.rows_per_part;
-    const int li = i - part * seg.rows_per_part;
-    const long long j = static_cast<long long>(li) * p.every + r;  // row within the part
-    const long long c = j % p.dims[3];
-    const long long t = j / p.dims[3];
-    const long long b = t % p.dims[2];
-    const long long a = t / p.dims[2];
-    xr = static_cast<const T*>(p.src) + part * p.src_stride[0] + a * p.src_stride[1] +
-         b * p.src_stride[2] + c * p.src_stride[3];
-    if (p.flags & kHasBase) {
+    int part = 0, li = i;
+    if (p.dims[0] > 1) {
+      part = i / seg.rows_per_part;
+      li = i - part * seg.rows_per_part;
+    }
+    const int j = li * p.every + r;  // the row within the part
+    long long off = part * p.src_stride[0];
+    if (seg.flat) {
+      off += j * seg.src_ld;
+    } else {
+      const int c = j % p.dims[3];
+      const int t = j / p.dims[3];
+      off += (t / p.dims[2]) * p.src_stride[1] + (t % p.dims[2]) * p.src_stride[2] +
+             c * p.src_stride[3];
+    }
+    xr = static_cast<const T*>(p.src) + off;
+    if constexpr (kBase) {
       br = static_cast<const T*>(p.base) + part * p.base_part + j * p.base_ld;
     }
     qr = static_cast<uint8_t*>(p.q) + part * p.q_part + static_cast<long long>(li) * p.K;
@@ -224,18 +265,17 @@ __device__ __forceinline__ void encode_rows(const QuantSeg& seg, int r, float* r
   using In = InVec<T, V>;
   float amax = 0.f;
   if constexpr (kRegs) {
-    float d[kMaxVecs][V];
+    In xs[kMaxVecs];
+    In bs[kBase ? kMaxVecs : 1];
 #pragma unroll
     for (int m = 0; m < kMaxVecs; ++m) {
       const int c = lane + m * team;
       if (active && c < nvec) {
-        const In x = reinterpret_cast<const In*>(xr)[c];
-        In b;
-        if (br != nullptr) b = reinterpret_cast<const In*>(br)[c];
+        xs[m] = reinterpret_cast<const In*>(xr)[c];
+        if constexpr (kBase) bs[m] = reinterpret_cast<const In*>(br)[c];
 #pragma unroll
         for (int e = 0; e < V; ++e) {
-          d[m][e] = br != nullptr ? __fsub_rn(widen(x.v[e]), widen(b.v[e])) : widen(x.v[e]);
-          amax = fmaxf(amax, fabsf(d[m][e]));
+          amax = fmaxf(amax, fabsf(diff<kBase>(xs[m].v[e], bs[kBase ? m : 0].v[e])));
         }
       }
     }
@@ -247,9 +287,11 @@ __device__ __forceinline__ void encode_rows(const QuantSeg& seg, int r, float* r
     for (int m = 0; m < kMaxVecs; ++m) {
       const int c = lane + m * team;
       if (c < nvec) {
-        OutVec<V> o;
+        float d[V];
 #pragma unroll
-        for (int e = 0; e < V; ++e) o.v[e] = quantize_one<kFp8>(d[m][e], s);
+        for (int e = 0; e < V; ++e) d[e] = diff<kBase>(xs[m].v[e], bs[kBase ? m : 0].v[e]);
+        OutVec<V> o;
+        encode_vec<kFp8, V>(d, s, o);
         reinterpret_cast<OutVec<V>*>(qr)[c] = o;
       }
     }
@@ -258,13 +300,9 @@ __device__ __forceinline__ void encode_rows(const QuantSeg& seg, int r, float* r
       for (int c = lane; c < nvec; c += team) {
         const In x = reinterpret_cast<const In*>(xr)[c];
         In b;
-        if (br != nullptr) b = reinterpret_cast<const In*>(br)[c];
+        if constexpr (kBase) b = reinterpret_cast<const In*>(br)[c];
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          const float d = br != nullptr ? __fsub_rn(widen(x.v[e]), widen(b.v[e]))
-                                        : widen(x.v[e]);
-          amax = fmaxf(amax, fabsf(d));
-        }
+        for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(diff<kBase>(x.v[e], b.v[e])));
       }
     }
     amax = team_max(amax, team, red);
@@ -274,50 +312,51 @@ __device__ __forceinline__ void encode_rows(const QuantSeg& seg, int r, float* r
     for (int c = lane; c < nvec; c += team) {
       const In x = reinterpret_cast<const In*>(xr)[c];
       In b;
-      if (br != nullptr) b = reinterpret_cast<const In*>(br)[c];
-      OutVec<V> o;
+      if constexpr (kBase) b = reinterpret_cast<const In*>(br)[c];
+      float d[V];
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const float d = br != nullptr ? __fsub_rn(widen(x.v[e]), widen(b.v[e]))
-                                      : widen(x.v[e]);
-        o.v[e] = quantize_one<kFp8>(d, s);
-      }
+      for (int e = 0; e < V; ++e) d[e] = diff<kBase>(x.v[e], b.v[e]);
+      OutVec<V> o;
+      encode_vec<kFp8, V>(d, s, o);
       reinterpret_cast<OutVec<V>*>(qr)[c] = o;
     }
   }
 }
 
-template <typename T, bool kFp8>
-__device__ __forceinline__ void encode_segment(const QuantSeg& seg, int r, float* red) {
-  constexpr int V = 16 / sizeof(T);
-  if (!seg.vec) {
-    encode_rows<T, kFp8, 1, false>(seg, r, red);
-  } else if (seg.p.K / V <= kMaxVecs * seg.team) {
-    encode_rows<T, kFp8, V, true>(seg, r, red);
-  } else {
-    encode_rows<T, kFp8, V, false>(seg, r, red);
-  }
-}
-
-template <int CAP, bool kFp8>
+// One instance per table capacity, payload, source type and base: every
+// segment of a launch shares the last two (the wrapper groups a mixed
+// table), so that each instance holds only its own path's registers.
+template <int CAP, bool kFp8, typename T, bool kBase>
 __global__ void __launch_bounds__(kThreads)
 quantize_rows_kernel(const __grid_constant__ QuantTable<CAP> t) {
   __shared__ float red[kThreads / 32];
   const QuantSeg& seg = t.seg[find_segment(t, blockIdx.x)];
   int r = seg.p.rot_const;
   if (seg.p.rot != nullptr) {
-    const long long k = seg.p.every;
-    r = static_cast<int>(((*seg.p.rot % k) + k) % k);
+    const int k = seg.p.every;
+    r = ((static_cast<int>(*seg.p.rot % k)) + k) % k;
   }
-  if (seg.p.flags & kSrcBF16) {
-    encode_segment<__nv_bfloat16, kFp8>(seg, r, red);
+  constexpr int V = 16 / sizeof(T);
+  if (!seg.vec) {
+    encode_rows<T, kFp8, 1, false, kBase>(seg, r, red);
+  } else if (seg.p.K / V <= kMaxVecs * seg.team) {
+    encode_rows<T, kFp8, V, true, kBase>(seg, r, red);
   } else {
-    encode_segment<float, kFp8>(seg, r, red);
+    encode_rows<T, kFp8, V, false, kBase>(seg, r, red);
   }
 }
 
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) == 0;
+// Threads a row: 8 lanes, doubled while a thread would hold more than
+// kMaxVecs vectors, or while the rows fill fewer than two waves of blocks
+// over the card's 132 SMs and every thread would still hold a vector.
+int team_size(int nvec, int rows) {
+  int team = 8;
+  while (team < kThreads &&
+         (nvec > kMaxVecs * team ||
+          (static_cast<long long>(rows) * team < 2LL * 132 * kThreads && nvec >= 2 * team))) {
+    team *= 2;
+  }
+  return team;
 }
 
 // Fills the derived fields of one segment; false if the spec is malformed.
@@ -340,15 +379,31 @@ bool plan(const QuantSpec& p, QuantSeg* seg, int block0) {
   if (p.base != nullptr) {
     vec = vec && aligned(p.base, 16) && p.base_part % V == 0 && p.base_ld % V == 0;
   }
+  // rows one stride apart within a part: every row index with more than
+  // one value steps by the inner index's span
+  long long ld = 0, span = 0;
+  bool flat = true, seen = false;
+  for (int d = 3; d >= 1; --d) {
+    if (p.dims[d] == 1) continue;
+    if (!seen) {
+      ld = span = p.src_stride[d];
+      seen = true;
+    } else if (p.src_stride[d] != span) {
+      flat = false;
+    }
+    span *= p.dims[d];
+  }
   const int nvec = vec ? p.K / V : p.K;
-  int team = 32;
-  while (team < kThreads && team * 2 <= nvec) team *= 2;
+  const int rows = static_cast<int>(full / p.every) * p.dims[0];
+  int team = team_size(nvec, rows);
   seg->p = p;
+  seg->src_ld = ld;
   seg->rows_per_part = static_cast<int>(full / p.every);
-  seg->rows = seg->rows_per_part * p.dims[0];
+  seg->rows = rows;
   seg->block0 = block0;
   seg->team = team;
   seg->vec = vec ? 1 : 0;
+  seg->flat = flat ? 1 : 0;
   return true;
 }
 
@@ -357,22 +412,44 @@ int blocks_of(const QuantSeg& seg) {
   return (seg.rows + per_block - 1) / per_block;
 }
 
+// The kernel instance of a capacity, payload and the segments' flags.
+template <int CAP, bool kFp8>
+const void* instance_of(int flags) {
+  switch (flags) {
+    case kSrcBF16 | kHasBase:
+      return reinterpret_cast<const void*>(quantize_rows_kernel<CAP, kFp8, __nv_bfloat16, true>);
+    case kSrcBF16:
+      return reinterpret_cast<const void*>(quantize_rows_kernel<CAP, kFp8, __nv_bfloat16, false>);
+    case kHasBase:
+      return reinterpret_cast<const void*>(quantize_rows_kernel<CAP, kFp8, float, true>);
+    case 0:
+      return reinterpret_cast<const void*>(quantize_rows_kernel<CAP, kFp8, float, false>);
+    default:
+      return nullptr;
+  }
+}
+
+template <int CAP>
+const void* instance(int payload, int flags) {
+  return payload == 1 ? instance_of<CAP, true>(flags) : instance_of<CAP, false>(flags);
+}
+
 template <int CAP>
 cudaError_t launch(const QuantSpec* specs, int n, int payload, cudaStream_t stream) {
   QuantTable<CAP> t;
   t.n = n;
   long long blocks = 0;
   for (int i = 0; i < n; ++i) {
+    if (specs[i].flags != specs[0].flags) return cudaErrorInvalidValue;
     if (!plan(specs[i], &t.seg[i], static_cast<int>(blocks))) return cudaErrorInvalidValue;
     blocks += blocks_of(t.seg[i]);
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   }
-  if (payload == 1) {
-    quantize_rows_kernel<CAP, true><<<static_cast<int>(blocks), kThreads, 0, stream>>>(t);
-  } else {
-    quantize_rows_kernel<CAP, false><<<static_cast<int>(blocks), kThreads, 0, stream>>>(t);
-  }
-  return cudaGetLastError();
+  const void* fn = instance<CAP>(payload, specs[0].flags);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  void* args[] = {&t};
+  return cudaLaunchKernel(fn, dim3(static_cast<unsigned>(blocks)), dim3(kThreads), args, 0,
+                          stream);
 }
 
 }  // namespace
@@ -398,29 +475,32 @@ extern "C" int quantize_rows_grouped(const void* specs, int n, int payload, void
 extern "C" int quantize_rows_capacity(void) { return kCapacity; }
 extern "C" int quantize_rows_spec_bytes(void) { return static_cast<int>(sizeof(QuantSpec)); }
 
-// The compiled instance of a table capacity (1, 16 or the full one) and
-// payload: registers a thread, local (spilled) bytes a thread, the table's
+// The compiled instances of a table capacity (1, 16 or the full one) and
+// payload, over the four source types and bases: the most registers a
+// thread and local (spilled) bytes a thread of any, and the table's
 // parameter bytes.  Returns a cudaError_t.
 extern "C" int quantize_rows_variant(int capacity, int payload, int* registers,
                                      int* local_bytes, int* param_bytes) {
-  cudaFuncAttributes attr;
-  cudaError_t err;
-  const bool fp8 = payload == 1;
-  if (capacity == 1) {
-    err = fp8 ? cudaFuncGetAttributes(&attr, quantize_rows_kernel<1, true>)
-              : cudaFuncGetAttributes(&attr, quantize_rows_kernel<1, false>);
-    *param_bytes = static_cast<int>(sizeof(QuantTable<1>));
-  } else if (capacity == 16) {
-    err = fp8 ? cudaFuncGetAttributes(&attr, quantize_rows_kernel<16, true>)
-              : cudaFuncGetAttributes(&attr, quantize_rows_kernel<16, false>);
-    *param_bytes = static_cast<int>(sizeof(QuantTable<16>));
-  } else {
-    err = fp8 ? cudaFuncGetAttributes(&attr, quantize_rows_kernel<kCapacity, true>)
-              : cudaFuncGetAttributes(&attr, quantize_rows_kernel<kCapacity, false>);
-    *param_bytes = static_cast<int>(sizeof(QuantTable<kCapacity>));
+  *registers = *local_bytes = 0;
+  const int every_flags[] = {0, kSrcBF16, kHasBase, kSrcBF16 | kHasBase};
+  for (int flags : every_flags) {
+    const void* fn;
+    if (capacity == 1) {
+      fn = instance<1>(payload, flags);
+      *param_bytes = static_cast<int>(sizeof(QuantTable<1>));
+    } else if (capacity == 16) {
+      fn = instance<16>(payload, flags);
+      *param_bytes = static_cast<int>(sizeof(QuantTable<16>));
+    } else {
+      fn = instance<kCapacity>(payload, flags);
+      *param_bytes = static_cast<int>(sizeof(QuantTable<kCapacity>));
+    }
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *registers = attr.numRegs > *registers ? attr.numRegs : *registers;
+    const int local = static_cast<int>(attr.localSizeBytes);
+    *local_bytes = local > *local_bytes ? local : *local_bytes;
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *registers = attr.numRegs;
-  *local_bytes = static_cast<int>(attr.localSizeBytes);
   return 0;
 }

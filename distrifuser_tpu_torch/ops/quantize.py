@@ -18,25 +18,26 @@ bounds them:
   package's ``dequantize``, also left to XLA.
 
 Each launch takes a table of segments passed by value (one payload each;
-``CAPACITY`` of them, a longer table is split into several launches).
+``CAPACITY`` of them, a longer table is split into several launches; the
+encoder has one instance per source type and residual base, so a table
+that mixes them runs one launch of each).
 The entry points:
 
-* ``quantize_rows(x, mode, *, base=None, every=None, groups=1, out=None)``:
-  the rows of x [M, K] (bfloat16 or float32 on the card, unit column
-  stride), minus ``base`` [M, K] where given, only rows ``r, r + k, ...``
-  of each of ``groups`` chunks where ``every = (k, r)`` is given;
-  returns ``(q [M / k, K], s [M / k])``, written into ``out = (q, s)``
-  where given.  The A operand of ops/quant_matmul.py (ops/linear.py) and
-  a contiguous refresh payload;
+* ``quantize_rows(x, mode, *, base=None, every=None, groups=1)``: the
+  rows of x [M, K] (bfloat16 or float32 on the card, unit column stride),
+  minus ``base`` [M, K] where given, only rows ``r, r + k, ...`` of each
+  of ``groups`` chunks where ``every = (k, r)`` is given; returns
+  ``(q [M / k, K], s [M / k])``.  The A operand of ops/quant_matmul.py
+  (ops/linear.py);
 * ``quantize_rows_grouped(segments, mode)``: one launch over a list of
   ``EncodeSeg``, whose ``x`` may be any [P?, d1?, d2?, d3, K] view with a
   unit column stride (a halo's two boundary slabs of a [B, h, W, C]
   activation read in place, the outermost dim of a 5-D x being the part
   whose payload and scale rows may lie at any offset, as the flat send
-  buffer of a batched flush holds them); returns each segment's
-  ``(q, s)``;
+  buffer of a flush holds them: ``out = (q, s)``); returns each
+  segment's ``(q, s)``.  Every compressed refresh of the patch path;
 * ``dequantize_rows(q, s, dtype, *, base=None, prev=None, every=None,
-  groups=1, out=None)``: the buffer [..., L, K] of ``dtype`` whose rows are
+  groups=1)``: a new buffer [..., L, K] of ``dtype`` whose rows are
   ``cast(base + q * s)`` (``q * s`` without a base), and with ``every = (k,
   r)`` only rows ``r, r + k, ...`` of each chunk, the others ``prev``'s.
   ``q`` [P, ..., L / k, K] and ``s`` [P, ..., L / k] are tensors (a 2-D q
@@ -77,7 +78,7 @@ _PAYLOAD_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _SRC_BF16, _HAS_BASE = 1, 2  # QuantSpec.flags
 _OUT_BF16 = 1  # DequantSpec.flags
 _LL, _INT, _PTR = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-CAPACITY = 192  # segments one launch's table holds (kCapacity of both sources)
+CAPACITY = 192  # segments one launch's table holds (csrc/refresh_codec.cuh kCapacity)
 
 
 class _QuantSpec(ctypes.Structure):
@@ -170,7 +171,6 @@ class DecodeSeg(NamedTuple):
     prev: Optional[torch.Tensor] = None
     every: Optional[Tuple[int, Any]] = None
     groups: int = 1
-    out: Optional[torch.Tensor] = None
 
 
 def payload_shape(shape: Sequence[int], every=None, groups: int = 1) -> Tuple[int, ...]:
@@ -216,19 +216,14 @@ def _decode_one(q, s, dtype, base, prev, every, groups):
 
 
 def dequantize_rows_reference(seg: DecodeSeg, dtype):
-    """The plain version of one decode segment (on any device): returns the
-    buffer, written into ``seg.out`` where given."""
+    """The plain version of one decode segment (on any device): returns a
+    new buffer."""
     if isinstance(seg.q, (list, tuple)):
         part = lambda t, i: None if t is None else t[i]  # noqa: E731
-        got = torch.stack([_decode_one(qi, si, dtype, part(seg.base, i), part(seg.prev, i),
-                                       seg.every, seg.groups)
-                           for i, (qi, si) in enumerate(zip(seg.q, seg.s))])
-    else:
-        got = _decode_one(seg.q, seg.s, dtype, seg.base, seg.prev, seg.every, seg.groups)
-    if seg.out is None:
-        return got
-    seg.out.copy_(got)
-    return seg.out
+        return torch.stack([_decode_one(qi, si, dtype, part(seg.base, i), part(seg.prev, i),
+                                        seg.every, seg.groups)
+                            for i, (qi, si) in enumerate(zip(seg.q, seg.s))])
+    return _decode_one(seg.q, seg.s, dtype, seg.base, seg.prev, seg.every, seg.groups)
 
 
 # -- the kernels' segment tables --------------------------------------------
@@ -379,16 +374,13 @@ def _decode_spec(seg: DecodeSeg, dtype, keep: List) -> Tuple[_DequantSpec, torch
         raise ValueError(f"{who}: q and s need contiguous rows within a part, got strides "
                          f"{q0.stride()} and {s0.stride()}")
     device = q0.device
-    part_full = payload_shape(q0.shape, None)
+    part_full = tuple(q0.shape)
     if seg.every is not None:
         k = int(seg.every[0])
         part_full = (*q0.shape[:-2], q0.shape[-2] * k, q0.shape[-1])
         check_every_kth(part_full[-2], k, seg.groups)
     out_shape = (parts, *part_full) if listed or seg.q.dim() >= 3 else part_full
-    out = seg.out if seg.out is not None else torch.empty(out_shape, dtype=dtype,
-                                                          device=device)
-    if tuple(out.shape) != out_shape or out.dtype != dtype or not out.is_contiguous():
-        raise ValueError(f"{who}: out must be a contiguous {dtype} {out_shape}")
+    out = torch.empty(out_shape, dtype=dtype, device=device)
     spec = _DequantSpec()
     spec.q, spec.s, spec.out = q0.data_ptr(), s0.data_ptr(), out.data_ptr()
     spec.q_part, spec.s_part = q_part, s_part
@@ -414,19 +406,24 @@ def _decode_spec(seg: DecodeSeg, dtype, keep: List) -> Tuple[_DequantSpec, torch
 
 
 def _launch(lib, prefix: str, spec_type, specs, payload: int, device) -> int:
-    """Launch ``specs`` in tables of at most the kernel's capacity; returns
-    the launches made."""
+    """Launch ``specs`` in tables of at most the kernel's capacity, one
+    group of tables per kernel instance (the specs' flags: source or output
+    type, base); returns the launches made."""
     fn = getattr(lib, prefix + "_grouped")
     stream = current_stream(device.index if device.index is not None
                             else torch.cuda.current_device())
+    by_flags = {}
+    for spec in specs:
+        by_flags.setdefault(spec.flags, []).append(spec)
     launches = 0
-    for start in range(0, len(specs), CAPACITY):
-        chunk = specs[start:start + CAPACITY]
-        table = (spec_type * len(chunk))(*chunk)
-        rc = fn(ctypes.addressof(table), len(chunk), payload, stream)
-        if rc != 0:
-            raise RuntimeError(f"{prefix} kernel launch failed: cudaError {rc}")
-        launches += 1
+    for group in by_flags.values():
+        for start in range(0, len(group), CAPACITY):
+            chunk = group[start:start + CAPACITY]
+            table = (spec_type * len(chunk))(*chunk)
+            rc = fn(ctypes.addressof(table), len(chunk), payload, stream)
+            if rc != 0:
+                raise RuntimeError(f"{prefix} kernel launch failed: cudaError {rc}")
+            launches += 1
     return launches
 
 
@@ -473,7 +470,7 @@ def _decode(segs: Sequence[DecodeSeg], dtype):
 
 
 @counts_launches
-def quantize_rows(x, mode: str, *, base=None, every=None, groups: int = 1, out=None):
+def quantize_rows(x, mode: str, *, base=None, every=None, groups: int = 1):
     """Per-row symmetric quantization of x [M, K] to ``mode`` ("int8" or
     "fp8"), minus ``base`` and thinned by ``every`` where given (module
     docstring): the kernel on the card, the plain version on the CPU.
@@ -484,7 +481,7 @@ def quantize_rows(x, mode: str, *, base=None, every=None, groups: int = 1, out=N
                          "wider row layouts go through quantize_rows_grouped")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"quantize_rows: x on {x.device}; the kernel takes a CUDA tensor")
-    (got,), launches = _encode([EncodeSeg(x, base, every, groups, out)], mode)
+    (got,), launches = _encode([EncodeSeg(x, base, every, groups)], mode)
     quantize_rows.launches += launches
     return got
 
@@ -500,12 +497,11 @@ def quantize_rows_grouped(segments: Sequence[EncodeSeg], mode: str):
 
 
 @counts_launches
-def dequantize_rows(q, s, dtype, *, base=None, prev=None, every=None, groups: int = 1,
-                    out=None):
+def dequantize_rows(q, s, dtype, *, base=None, prev=None, every=None, groups: int = 1):
     """The ``dtype`` buffer decoded from payload ``q`` and scales ``s``
     (module docstring): the kernel on the card, the plain version on the
     CPU.  Counts each kernel launch in ``dequantize_rows.launches``."""
-    (got,), launches = _decode([DecodeSeg(q, s, base, prev, every, groups, out)], dtype)
+    (got,), launches = _decode([DecodeSeg(q, s, base, prev, every, groups)], dtype)
     dequantize_rows.launches += launches
     return got
 

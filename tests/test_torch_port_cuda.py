@@ -669,8 +669,9 @@ def test_codec_at_refresh_payloads_on_card(mode, k, dtype):
 @pytest.mark.cuda
 def test_codec_tables_split_into_launches_on_card():
     """A table longer than CAPACITY segments runs in as many launches as it
-    takes, every segment bit for bit the plain version; the halves of a
-    halo exchange in two separate receive buffers decode as two parts."""
+    takes, and a table mixing bfloat16 and float32 sources in one launch per
+    type, every segment bit for bit the plain version; the halves of a halo
+    exchange in two separate receive buffers decode as two parts."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(3)
     cap = port_quantize.CAPACITY
@@ -690,6 +691,14 @@ def test_codec_tables_split_into_launches_on_card():
     assert port_quantize.dequantize_rows_grouped.launches == before + 3
     for seg, buf in zip(dsegs, bufs):
         assert _same(buf, port_quantize.dequantize_rows_reference(seg, torch.bfloat16))
+    # a table mixing source types runs one launch per kernel instance
+    mixed = [port_quantize.EncodeSeg(seg.x.float() if i % 2 else seg.x, None, seg.every)
+             for i, seg in enumerate(segs[:10])]
+    before = port_quantize.quantize_rows_grouped.launches
+    for seg, (q, s) in zip(mixed, port_quantize.quantize_rows_grouped(mixed, "int8")):
+        wq, ws = port_quantize.quantize_rows_reference(seg, "int8")
+        assert _same(q, wq) and _same(s, ws)
+    assert port_quantize.quantize_rows_grouped.launches == before + 2
     q0, s0 = got[1]
     q1, s1 = q0.clone(), s0.clone()
     prev = torch.randn(2, *q0.shape, device="cuda", generator=g).bfloat16()
