@@ -167,7 +167,7 @@ kernel's fp32 contract form and of the per-token quantization kernel at
 every SDXL and SD 1.5 path shape, through nothing but
 ``quant_matmul(xq, wq, sw)``, ``quantize_rows(x, mode)``, ``quantize`` and
 ``quantize_weight``, so that it also runs against an older checkout of the
-package (PR 5's or later): run this file from
+package that has ``quantize_rows(x, mode)``: run this file from
 that checkout's root as
 ``python3 -c "import runpy, sys; sys.argv[1:] = ['--quant_device_times'];
 runpy.run_path('/path/to/chip_smoke.py', run_name='__main__')"``
@@ -175,7 +175,8 @@ to compare two kernels by device time in one call.  ``--step_launches``
 (four cards) runs only the patch, compress_pcpp and stepcache_batch
 pipelines under CUDA graphs and prints each graphed step's time and the
 device activities it ran, by evaluation; it also runs against an older
-checkout (PR 10's or later): copy this file into that checkout's root and
+checkout whose ``DistriConfig`` takes the comm knobs: copy this file into
+that checkout's root and
 run it there (its ranks are spawned processes, which import the script by
 its file).  Both exit non-zero without a
 result when no CUDA card is present or the package is missing.
@@ -1933,7 +1934,8 @@ def _step_launch_rank(rank, world, port, out_dir):
     whose steps the callback times (the card synchronised at every step)
     and one profiled call (``profile_call`` with the step marks: the device
     activities of each step by its evaluation).  Uses only what the
-    package's PR 10 already had, so that an older checkout runs it too."""
+    package had before the refresh codec, so that an older checkout runs it
+    too."""
     import torch
     import torch.distributed as dist
 
