@@ -164,21 +164,18 @@ activities (kernel launches, NCCL's and memory copies included) of each
 step by the evaluation it ran (``launches_by_phase``).
 ``--quant_device_times`` runs only the device time of the quantized-matmul
 kernel's fp32 contract form and of the per-token quantization kernel at
-every SDXL and SD 1.5 path shape, through nothing but
-``quant_matmul(xq, wq, sw)``, ``quantize_rows(x, mode)``, ``quantize`` and
-``quantize_weight``, so that it also runs against an older checkout of the
-package that has ``quantize_rows(x, mode)``: run this file from
-that checkout's root as
+every SDXL and SD 1.5 path shape, the latter also with a cold L2 (a 256 MB
+write before each call), through nothing but ``quant_matmul(xq, wq, sw)``,
+``quantize_rows(x, mode)``, ``quantize`` and ``quantize_weight``, so that
+it also runs against an older checkout of the package that has
+``quantize_rows(x, mode)``: run this file from that checkout's root as
 ``python3 -c "import runpy, sys; sys.argv[1:] = ['--quant_device_times'];
 runpy.run_path('/path/to/chip_smoke.py', run_name='__main__')"``
-to compare two kernels by device time in one call.  ``--step_launches``
-(four cards) runs only the patch, compress_pcpp and stepcache_batch
-pipelines under CUDA graphs and prints each graphed step's time and the
-device activities it ran, by evaluation; it also runs against an older
-checkout whose ``DistriConfig`` takes the comm knobs: copy this file into
-that checkout's root and
-run it there (its ranks are spawned processes, which import the script by
-its file).  Both exit non-zero without a
+to compare two kernels by device time in one call.  With
+``--encoder_source PATH`` it times the per-token quantization built from
+another source (a variant of csrc/quantize_rows.cu with the same entry
+points, beside a copy of csrc/refresh_codec.cuh) and reports whether its
+payloads still equal the plain version's.  It exits non-zero without a
 result when no CUDA card is present or the package is missing.
 """
 
@@ -1036,19 +1033,52 @@ def quant_kernel_phase(shapes):
     return results
 
 
-def quant_device_phase(shapes):
+def cold_device_ms(fn, kernel, flush, iters=10):
+    """Mean device time per call of the kernels whose name holds
+    ``kernel``, each call made after ``flush`` (a buffer several times
+    the L2) is overwritten, so that the call reads its inputs from device
+    memory; None if the profiler recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+    return total_us / iters / 1e3 if total_us > 0 else None
+
+
+def quant_device_phase(shapes, encoder_source=None):
     """Device time (torch.profiler) of ``quant_matmul(xq, wq, sw)``, the
     fp32 contract form, and of ``quantize_rows(x, mode)``, the per-token
-    quantization of the bf16 activation, at every path shape and mode, on
-    operands made as quant_kernel_phase makes them; one line per shape,
-    then the sums over one pipeline call's launches per model family and
-    mode."""
+    quantization of the bf16 activation (warm, and with a cold L2), at
+    every path shape and mode, on operands made as quant_kernel_phase makes
+    them; one line per shape, then the sums over one pipeline call's
+    launches per model family and mode.  ``encoder_source``: time the
+    quantization kernel built from that source instead, and report whether
+    its payloads and scales equal the plain version's."""
     import torch
 
     from distrifuser_tpu_torch.ops import quant_matmul as qm
     from distrifuser_tpu_torch.ops import quantize as qz
     from distrifuser_tpu_torch.parallel.compress import quantize, quantize_weight
 
+    if encoder_source is not None:
+        from distrifuser_tpu_torch.ops._build import KernelLibrary
+
+        variant = KernelLibrary(os.path.abspath(encoder_source),
+                                qz._binder("quantize_rows", qz._QuantSpec))
+        report = [line.strip() for line in variant.build().splitlines()
+                  if "registers" in line or "spill" in line]
+        print(json.dumps({"phase": "quant_device", "encoder_source": encoder_source,
+                          "ptxas": report}), flush=True)
+        qz._ENCODE._lib = variant.lib
+    flush = torch.empty(2**26, dtype=torch.float32, device="cuda")  # 256 MB
     per_call = {}
     for i, (name, m, k, n, calls) in enumerate(shapes):
         for mode in ("int8", "fp8"):
@@ -1060,14 +1090,23 @@ def quant_device_phase(shapes):
             wq, sw = qt.payload, qt.channel_scale()
             times = {"device_ms": device_ms(lambda: qm.quant_matmul(xq, wq, sw), iters=10),
                      "quantize_device_ms": device_ms(lambda: qz.quantize_rows(x, mode),
-                                                     iters=10)}
+                                                     iters=10),
+                     "quantize_cold_device_ms": cold_device_ms(
+                         lambda: qz.quantize_rows(x, mode), "quantize_rows", flush)}
+            extra = {}
+            if encoder_source is not None:
+                got_q, got_s = qz.quantize_rows(x, mode)
+                want_q, want_s = quantize(x, mode)
+                extra["matches_plain"] = bool(
+                    torch.equal(got_q.view(torch.uint8), want_q.view(torch.uint8))
+                    and torch.equal(got_s, want_s))
             for key, ms in times.items():
                 slot = (family(name), mode, key)
                 prev = per_call.get(slot, 0.0)
                 per_call[slot] = None if ms is None or prev is None else prev + ms * calls
             print(json.dumps({"phase": "quant_device", "shape": name, "mode": mode, "M": m,
-                              "K": k, "N": n, "launches_per_call": calls, **times}),
-                  flush=True)
+                              "K": k, "N": n, "launches_per_call": calls, **times,
+                              **extra}), flush=True)
     print(json.dumps({"phase": "quant_device", "device_ms_per_call": {
         f"{fam}/{mode}/{key}": ms for (fam, mode, key), ms in per_call.items()}}), flush=True)
 
@@ -1248,8 +1287,7 @@ def reset_counts():
     fa.flash_sdpa.launches = fa.flash_sdpa.lse_launches = 0
     fa.flash_sdpa.launches_by_head_dim.clear()
     qm.quant_matmul.launches = 0
-    for fn in (qz.quantize_rows, qz.quantize_rows_grouped, qz.dequantize_rows,
-               qz.dequantize_rows_grouped):
+    for fn in (qz.quantize_rows, qz.quantize_rows_grouped, qz.dequantize_rows_grouped):
         fn.launches = 0
 
 
@@ -1262,8 +1300,7 @@ def read_counts():
             "flash_sdpa_lse": fa.flash_sdpa.lse_launches,
             "quant_matmul": qm.quant_matmul.launches,
             "quantize_rows": qz.quantize_rows.launches + qz.quantize_rows_grouped.launches,
-            "dequantize_rows": (qz.dequantize_rows.launches
-                                + qz.dequantize_rows_grouped.launches)}
+            "dequantize_rows": qz.dequantize_rows_grouped.launches}
 
 
 def counted_call(fn, label, flash_expected):
@@ -1924,85 +1961,6 @@ def _multi_rank_img2img(pipe, name, model):
             "flash_sdpa_launches": launches["flash_sdpa"], "image_sha256": image_digest(out)}
 
 
-STEP_LAUNCH_RUNS = ("patch", "compress_pcpp", "stepcache_batch")
-
-
-def _step_launch_rank(rank, world, port, out_dir):
-    """One rank of ``--step_launches`` (a spawned process, one card a rank
-    over NCCL): for each run of STEP_LAUNCH_RUNS the full-width SDXL
-    pipeline under CUDA graphs, captured and called once, then one call
-    whose steps the callback times (the card synchronised at every step)
-    and one profiled call (``profile_call`` with the step marks: the device
-    activities of each step by its evaluation).  Uses only what the
-    package had before the refresh codec, so that an older checkout runs it
-    too."""
-    import torch
-    import torch.distributed as dist
-
-    from distrifuser_tpu_torch.utils.env import set_precision_flags
-
-    torch.cuda.set_device(rank % torch.cuda.device_count())
-    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=300))
-    try:
-        set_precision_flags()
-        trees = build_trees("sdxl")
-        out = {}
-        for label in STEP_LAUNCH_RUNS:
-            fields, _, _, model, steps = MULTI_RUNS[label]
-            pipe, _ = build_pipeline(trees, model, use_cuda_graph=True, **fields)
-            pipe.prepare(steps)
-            pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
-            phases = pipe.runner._phases(steps)
-            marks = []
-
-            def timed(i, t, x):
-                torch.cuda.synchronize()
-                marks.append(time.perf_counter())
-
-            pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np", callback=timed)
-            step_ms = {}
-            for i in range(1, len(marks)):
-                step_ms.setdefault(phases[i], []).append((marks[i] - marks[i - 1]) * 1e3)
-            prof = profile_call(
-                lambda cb: pipe(PROMPT, num_inference_steps=steps, seed=0,  # noqa: B023
-                                output_type="np", callback=cb),
-                os.path.join(out_dir, f"steps_{label}_rank{rank}.txt"), phases=phases)
-            out[label] = {"phase": "step_launches", "run": label, "rank": rank,
-                          "fields": fields, "steps": steps, "step_ms_by_phase": step_ms,
-                          "launches_by_phase": prof["launches_by_phase"],
-                          "wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
-                          "collective_ms": prof["collective_ms"]}
-            del pipe
-            torch.cuda.empty_cache()
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(out, f)
-    finally:
-        gc.collect()
-        torch.cuda.synchronize()
-        dist.destroy_process_group()
-
-
-def step_launch_phase(out_dir):
-    """``--step_launches``: on four cards, the graphed steps of the exact
-    patch run and the two codec runs (step ms and device activities a
-    step, by evaluation); one line per run and rank.  Runs against an
-    older checkout as ``--quant_device_times`` does."""
-    import torch
-    import torch.multiprocessing as mp
-
-    if torch.cuda.device_count() < PATCH_WORLD:
-        raise AssertionError(f"--step_launches needs {PATCH_WORLD} cards")
-    os.makedirs(out_dir, exist_ok=True)
-    mp.spawn(_step_launch_rank, args=(PATCH_WORLD, _free_port(), out_dir),
-             nprocs=PATCH_WORLD, join=True)
-    for r in range(PATCH_WORLD):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            for line in json.load(f).values():
-                print(json.dumps(line), flush=True)
-
-
 def _spawn(world, labels, backend, out_dir, profile):
     """Run ``labels`` on ``world`` spawned ranks; returns each rank's lines.
     Ranks that have not all exited within SPAWN_DEADLINE_S are killed and
@@ -2330,13 +2288,14 @@ def main(argv) -> int:
                         help="only the multi-rank runs (patch, the comm-knob runs, "
                              "naive patch, tensor parallelism): their flash and "
                              "refresh-quantization shapes and the multi-rank phase")
-    parser.add_argument("--step_launches", action="store_true",
-                        help="only the graphed step times and device activities a "
-                             "step of the patch, compress_pcpp and stepcache_batch "
-                             "runs on four cards (runs against an older checkout)")
     parser.add_argument("--quant_device_times", action="store_true",
                         help="only time the quantized-matmul kernel's contract form "
-                             "on the card at every path shape (device time)")
+                             "and the per-token quantization on the card at every "
+                             "path shape (device time)")
+    parser.add_argument("--encoder_source", default=None,
+                        help="with --quant_device_times: build the per-token "
+                             "quantization from this variant of "
+                             "csrc/quantize_rows.cu instead")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -2359,9 +2318,6 @@ def main(argv) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     ucfg, vcfg = unet.sdxl_config(), vae.sdxl_vae_config()
     steps = 4
-    if args.step_launches:
-        step_launch_phase(os.path.join(args.out_dir, "step_launches"))
-        return 0
     if args.quant_device_times:
         from distrifuser_tpu_torch.ops import quant_matmul as qm
 
@@ -2370,7 +2326,7 @@ def main(argv) -> int:
         ucfg15 = model_configs("sd15")[0]
         quant_device_phase(quant_shapes(ucfg, 1024, 1024, steps)
                            + quant_shapes(ucfg15, SIZES["sd15"], SIZES["sd15"], steps,
-                                          suffix=SD15))
+                                          suffix=SD15), args.encoder_source)
         return 0
     spills = build_kernels()
 

@@ -50,34 +50,34 @@
 //   send buffer of a batched flush, one byte buffer for every payload and
 //   scale of a step).
 //
-// Design: 256-thread blocks; each block serves one segment, and a team of
-// 8 to 256 threads serves one row: 8 lanes, doubled while a thread would
-// hold more than four 16-byte vectors of the row, or while the segment's
-// rows fill fewer than two waves of blocks on the card's 132 SMs (the
-// 154-row text KV at K = 2048 runs eight warps a row, SD 1.5's 320
-// columns half a warp, a 16-row refresh payload as many as its columns
-// allow).  The row is read from device
-// memory once: each thread holds its (at most four) raw 16-byte vectors,
-// and the base's, in registers while the team reduces |d| to the row max
-// (warp shuffles, then shared memory across the team's warps), then
-// divides and stores 8- or 4-byte payload vectors from those registers.
-// Rows one stride apart within a part (a contiguous activation, a KV, a
-// halo slab at B = 1) are addressed by one multiply; only other layouts
-// pay the division of the row index into its three indices.  Registers rather than a shared
-// memory stage (cp.async or a bulk copy): a row is at most 16 KB (8192 bf16
-// or 4096 fp32 columns take this path) and a team's threads hold it
-// outright, so the only device-memory traffic is the one read and the
-// writes, and the many rows in flight on an SM hide the load latency.
-// Wider rows, and rows whose strides or alignment rule out 16-byte vectors,
+// Design: a warp serves one row at a time, and each warp walks several
+// rows of its segment (its block's share, one warp-count apart).  A row
+// (and its base row) is staged in the warp's slice of shared memory by
+// 16-byte cp.async copies (cp.async.cg: through L2, not L1), double-
+// buffered: the copies of the warp's next row are issued before it reduces
+// and encodes the current one, so a row's load overlaps the previous row's
+// arithmetic.  Each lane copies, and later reads back, the same vectors of
+// the row, so a lane waits only for its own copies (cp.async.wait_group)
+// and no barrier is needed; the row max is a warp shuffle.  The row is read
+// from device memory once; the encode pass reads it from shared memory and
+// stores 8- or 4-byte payload vectors.  A launch's block has 1 to 8 warps:
+// as many as the table's rows fill across the card's SMs, fewer where 8
+// warps' stages would not fit the 227 KB a block may take; each warp walks
+// enough rows that the grid is about one wave of resident blocks.  Rows one
+// stride apart within a part (a contiguous activation, a KV, a halo slab
+// at B = 1) are addressed by one multiply; only other layouts pay the
+// division of the row index into its three indices.  Rows whose strides or
+// alignment rule out 16-byte vectors, or too wide for one warp's stages,
 // take a two-pass loop that reads the row again (an L1/L2 hit).  Each
 // block finds its segment by a binary search over the segments' first
 // blocks.
 //
-// What bounds it: bytes or the division.  It reads x (2 or 4 bytes an
-// element) and the base once, and writes 1 byte an element and 4 a row;
-// the correctly rounded division is an instruction sequence of about ten
-// operations an element, which at 5-8 M elements a launch is of the order
-// of the byte time (PERF.md says which bound the measured times meet).
+// What bounds it: bytes, with the division close behind.  It reads x (2
+// or 4 bytes an element) and the base once, and writes 1 byte an element
+// and 4 a row; the correctly rounded division is an instruction sequence
+// of about ten operations (one a reciprocal on the quarter-rate unit) an
+// element (PERF.md gives the probes: the division replaced by a
+// multiplication, and a cold L2).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libquantize_rows.so quantize_rows.cu
@@ -97,8 +97,14 @@ using codec::kCapacity;
 using codec::kThreads;
 using codec::widen;
 
-constexpr int kMaxVecs = 4;  // 16-byte vectors a thread holds in registers
-constexpr float kScaleFloor = 1e-12f;  // an all-zero row: exact zeros
+constexpr int kMaxWarps = kThreads / 32;  // warps a block
+constexpr int kStages = 2;                // row buffers a warp cycles through
+constexpr int kMinDepth = 1;              // rows a warp walks, at least
+constexpr int kBlockSmem = 227 * 1024;    // shared memory a block may take
+constexpr int kSmSmem = 228 * 1024;       // shared memory of an SM
+constexpr int kSmThreads = 2048;          // resident threads an SM
+constexpr int kSmBlocks = 32;             // resident blocks an SM
+constexpr float kScaleFloor = 1e-12f;     // an all-zero row: exact zeros
 
 // QuantSpec.flags
 constexpr int kSrcBF16 = 1;
@@ -128,13 +134,14 @@ struct QuantSpec {
 
 struct QuantSeg {
   QuantSpec p;
-  long long src_ld;   // between source rows, where they are one stride apart
-  int rows;           // payload rows of the segment (all parts)
-  int rows_per_part;  // payload rows of a part
-  int block0;         // the segment's first block
-  int team;           // threads a row
-  int vec;            // 16-byte vectors everywhere
-  int flat;           // source rows one stride (src_ld) apart within a part
+  long long src_ld;    // between source rows, where they are one stride apart
+  int rows;            // payload rows of the segment (all parts)
+  int rows_per_part;   // payload rows of a part
+  int block0;          // the segment's first block
+  int rows_per_block;  // the rows a block walks
+  unsigned vec : 1;     // 16-byte vectors everywhere
+  unsigned staged : 1;  // rows staged in shared memory (vec, and they fit)
+  unsigned flat : 1;    // source rows one stride (src_ld) apart within a part
 };
 
 template <int CAP>
@@ -146,23 +153,24 @@ struct QuantTable {
 static_assert(sizeof(QuantTable<kCapacity>) <= 32764,
               "a launch's segment table must fit the kernel parameter space");
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-// The max of v over the calling thread's team (team is block-uniform; every
-// thread of the block calls this once).  A team of 8 or 16 lanes reduces
-// within its part of the warp.
-__device__ __forceinline__ float team_max(float v, int team, float* red) {
-  for (int off = (team < 32 ? team : 32) >> 1; off > 0; off >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  }
-  if (team > 32) {
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-    __syncthreads();
-    const int warps = team >> 5;
-    const int first = (threadIdx.x / team) * warps;
-    v = red[first];
-    for (int w = 1; w < warps; ++w) v = fmaxf(v, red[first + w]);
-  }
+// Waits until at most N of this thread's newest copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
@@ -222,23 +230,16 @@ __device__ __forceinline__ float diff(T x, T b) {
   }
 }
 
-// One row per team.  V: elements a vector (1: scalar accesses); kRegs: the
-// row's raw vectors are held in registers (one read), else read twice;
-// kBase: a residual base is subtracted.
-template <typename T, bool kFp8, int V, bool kRegs, bool kBase>
-__device__ __forceinline__ void encode_rows(const QuantSeg& seg, int r, float* red) {
-  const QuantSpec& p = seg.p;
-  const int team = seg.team;
-  const int lane = threadIdx.x % team;
-  const int i = (blockIdx.x - seg.block0) * (kThreads / team) + threadIdx.x / team;
-  const bool active = i < seg.rows;
-  const int nvec = p.K / V;
+// Where payload row i of a segment (r: the rotation) reads and writes.
+template <typename T, bool kBase>
+struct RowAt {
+  const T* x;
+  const T* b;
+  uint8_t* q;
+  float* s;
 
-  const T* xr = nullptr;
-  const T* br = nullptr;
-  uint8_t* qr = nullptr;
-  float* sr = nullptr;
-  if (active) {
+  __device__ __forceinline__ RowAt(const QuantSeg& seg, int i, int r) {
+    const QuantSpec& p = seg.p;
     int part = 0, li = i;
     if (p.dims[0] > 1) {
       part = i / seg.rows_per_part;
@@ -254,71 +255,110 @@ __device__ __forceinline__ void encode_rows(const QuantSeg& seg, int r, float* r
       off += (t / p.dims[2]) * p.src_stride[1] + (t % p.dims[2]) * p.src_stride[2] +
              c * p.src_stride[3];
     }
-    xr = static_cast<const T*>(p.src) + off;
-    if constexpr (kBase) {
-      br = static_cast<const T*>(p.base) + part * p.base_part + j * p.base_ld;
-    }
-    qr = static_cast<uint8_t*>(p.q) + part * p.q_part + static_cast<long long>(li) * p.K;
-    sr = reinterpret_cast<float*>(static_cast<char*>(p.s) + part * p.s_part) + li;
+    x = static_cast<const T*>(p.src) + off;
+    b = kBase ? static_cast<const T*>(p.base) + part * p.base_part + j * p.base_ld : nullptr;
+    q = static_cast<uint8_t*>(p.q) + part * p.q_part + static_cast<long long>(li) * p.K;
+    s = reinterpret_cast<float*>(static_cast<char*>(p.s) + part * p.s_part) + li;
   }
+};
 
+// The rows of this block, a warp each, staged in shared memory: `stage` is
+// the block's dynamic shared memory, kStages row buffers (x, then the
+// base's row) a warp.
+template <typename T, bool kFp8, bool kBase>
+__device__ __forceinline__ void encode_staged(const QuantSeg& seg, int r, unsigned char* stage) {
+  constexpr int V = 16 / sizeof(T);
   using In = InVec<T, V>;
-  float amax = 0.f;
-  if constexpr (kRegs) {
-    In xs[kMaxVecs];
-    In bs[kBase ? kMaxVecs : 1];
-#pragma unroll
-    for (int m = 0; m < kMaxVecs; ++m) {
-      const int c = lane + m * team;
-      if (active && c < nvec) {
-        xs[m] = reinterpret_cast<const In*>(xr)[c];
-        if constexpr (kBase) bs[m] = reinterpret_cast<const In*>(br)[c];
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          amax = fmaxf(amax, fabsf(diff<kBase>(xs[m].v[e], bs[kBase ? m : 0].v[e])));
-        }
-      }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int first = (blockIdx.x - seg.block0) * seg.rows_per_block;
+  const int last = min(first + seg.rows_per_block, seg.rows);
+  const int nvec = seg.p.K / V;
+  const int row_vecs = kBase ? 2 * nvec : nvec;
+  In* mine = reinterpret_cast<In*>(stage) + warp * kStages * row_vecs;
+
+  // copies this lane's vectors of row i (and of its base row) into buffer
+  // `buf`, one commit group
+  auto issue = [&](int i, int buf) {
+    const RowAt<T, kBase> at(seg, i, r);
+    In* dst = mine + buf * row_vecs;
+    for (int c = lane; c < nvec; c += 32) {
+      cp_async16(dst + c, reinterpret_cast<const In*>(at.x) + c);
+      if constexpr (kBase) cp_async16(dst + nvec + c, reinterpret_cast<const In*>(at.b) + c);
     }
-    amax = team_max(amax, team, red);
-    const float s = fmaxf(amax, kScaleFloor) * (1.0f / (kFp8 ? 448.0f : 127.0f));
-    if (!active) return;
-    if (lane == 0) *sr = s;
-#pragma unroll
-    for (int m = 0; m < kMaxVecs; ++m) {
-      const int c = lane + m * team;
-      if (c < nvec) {
-        float d[V];
-#pragma unroll
-        for (int e = 0; e < V; ++e) d[e] = diff<kBase>(xs[m].v[e], bs[kBase ? m : 0].v[e]);
-        OutVec<V> o;
-        encode_vec<kFp8, V>(d, s, o);
-        reinterpret_cast<OutVec<V>*>(qr)[c] = o;
-      }
+    cp_async_commit();
+  };
+
+  int i = first + warp;
+  if (i < last) issue(i, 0);
+  for (int buf = 0; i < last; i += warps, buf ^= 1) {
+    if (i + warps < last) {
+      issue(i + warps, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-  } else {
-    if (active) {
-      for (int c = lane; c < nvec; c += team) {
-        const In x = reinterpret_cast<const In*>(xr)[c];
-        In b;
-        if constexpr (kBase) b = reinterpret_cast<const In*>(br)[c];
-#pragma unroll
-        for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(diff<kBase>(x.v[e], b.v[e])));
-      }
-    }
-    amax = team_max(amax, team, red);
-    const float s = fmaxf(amax, kScaleFloor) * (1.0f / (kFp8 ? 448.0f : 127.0f));
-    if (!active) return;
-    if (lane == 0) *sr = s;
-    for (int c = lane; c < nvec; c += team) {
-      const In x = reinterpret_cast<const In*>(xr)[c];
+    const In* xs = mine + buf * row_vecs;
+    float amax = 0.f;
+    for (int c = lane; c < nvec; c += 32) {
+      const In x = xs[c];
       In b;
-      if constexpr (kBase) b = reinterpret_cast<const In*>(br)[c];
+      if constexpr (kBase) b = xs[nvec + c];
+#pragma unroll
+      for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(diff<kBase>(x.v[e], b.v[e])));
+    }
+    amax = warp_max(amax);
+    const float s = fmaxf(amax, kScaleFloor) * (1.0f / (kFp8 ? 448.0f : 127.0f));
+    const RowAt<T, kBase> at(seg, i, r);
+    if (lane == 0) *at.s = s;
+    for (int c = lane; c < nvec; c += 32) {
+      const In x = xs[c];
+      In b;
+      if constexpr (kBase) b = xs[nvec + c];
       float d[V];
 #pragma unroll
       for (int e = 0; e < V; ++e) d[e] = diff<kBase>(x.v[e], b.v[e]);
       OutVec<V> o;
       encode_vec<kFp8, V>(d, s, o);
-      reinterpret_cast<OutVec<V>*>(qr)[c] = o;
+      reinterpret_cast<OutVec<V>*>(at.q)[c] = o;
+    }
+  }
+}
+
+// The rows of this block, a warp each, read twice from device memory (the
+// second read an L1/L2 hit): rows that are not staged.  V: elements a
+// vector (1: scalar accesses).
+template <typename T, bool kFp8, int V, bool kBase>
+__device__ __forceinline__ void encode_twopass(const QuantSeg& seg, int r) {
+  using In = InVec<T, V>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int first = (blockIdx.x - seg.block0) * seg.rows_per_block;
+  const int last = min(first + seg.rows_per_block, seg.rows);
+  const int nvec = seg.p.K / V;
+  for (int i = first + warp; i < last; i += warps) {
+    const RowAt<T, kBase> at(seg, i, r);
+    const In* xr = reinterpret_cast<const In*>(at.x);
+    const In* br = reinterpret_cast<const In*>(at.b);
+    float amax = 0.f;
+    for (int c = lane; c < nvec; c += 32) {
+      const In x = xr[c];
+      In b;
+      if constexpr (kBase) b = br[c];
+#pragma unroll
+      for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(diff<kBase>(x.v[e], b.v[e])));
+    }
+    amax = warp_max(amax);
+    const float s = fmaxf(amax, kScaleFloor) * (1.0f / (kFp8 ? 448.0f : 127.0f));
+    if (lane == 0) *at.s = s;
+    for (int c = lane; c < nvec; c += 32) {
+      const In x = xr[c];
+      In b;
+      if constexpr (kBase) b = br[c];
+      float d[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) d[e] = diff<kBase>(x.v[e], b.v[e]);
+      OutVec<V> o;
+      encode_vec<kFp8, V>(d, s, o);
+      reinterpret_cast<OutVec<V>*>(at.q)[c] = o;
     }
   }
 }
@@ -329,38 +369,31 @@ __device__ __forceinline__ void encode_rows(const QuantSeg& seg, int r, float* r
 template <int CAP, bool kFp8, typename T, bool kBase>
 __global__ void __launch_bounds__(kThreads)
 quantize_rows_kernel(const __grid_constant__ QuantTable<CAP> t) {
-  __shared__ float red[kThreads / 32];
+  extern __shared__ __align__(16) unsigned char stage[];
   const QuantSeg& seg = t.seg[find_segment(t, blockIdx.x)];
   int r = seg.p.rot_const;
   if (seg.p.rot != nullptr) {
     const int k = seg.p.every;
     r = ((static_cast<int>(*seg.p.rot % k)) + k) % k;
   }
-  constexpr int V = 16 / sizeof(T);
-  if (!seg.vec) {
-    encode_rows<T, kFp8, 1, false, kBase>(seg, r, red);
-  } else if (seg.p.K / V <= kMaxVecs * seg.team) {
-    encode_rows<T, kFp8, V, true, kBase>(seg, r, red);
+  if (seg.staged) {
+    encode_staged<T, kFp8, kBase>(seg, r, stage);
+  } else if (seg.vec) {
+    encode_twopass<T, kFp8, 16 / sizeof(T), kBase>(seg, r);
   } else {
-    encode_rows<T, kFp8, V, false, kBase>(seg, r, red);
+    encode_twopass<T, kFp8, 1, kBase>(seg, r);
   }
 }
 
-// Threads a row: 8 lanes, doubled while a thread would hold more than
-// kMaxVecs vectors, or while the rows fill fewer than two waves of blocks
-// over the card's 132 SMs and every thread would still hold a vector.
-int team_size(int nvec, int rows) {
-  int team = 8;
-  while (team < kThreads &&
-         (nvec > kMaxVecs * team ||
-          (static_cast<long long>(rows) * team < 2LL * 132 * kThreads && nvec >= 2 * team))) {
-    team *= 2;
-  }
-  return team;
+// Bytes of one warp's stages for a segment's rows.
+long long stage_bytes(const QuantSpec& p) {
+  const int esize = (p.flags & kSrcBF16) ? 2 : 4;
+  return static_cast<long long>(kStages) * p.K * esize * ((p.flags & kHasBase) ? 2 : 1);
 }
 
-// Fills the derived fields of one segment; false if the spec is malformed.
-bool plan(const QuantSpec& p, QuantSeg* seg, int block0) {
+// Fills the derived fields of one segment but its blocks; false if the spec
+// is malformed.
+bool plan(const QuantSpec& p, QuantSeg* seg) {
   if (p.src == nullptr || p.q == nullptr || p.s == nullptr || p.K <= 0 || p.every < 1) {
     return false;
   }
@@ -393,23 +426,14 @@ bool plan(const QuantSpec& p, QuantSeg* seg, int block0) {
     }
     span *= p.dims[d];
   }
-  const int nvec = vec ? p.K / V : p.K;
-  const int rows = static_cast<int>(full / p.every) * p.dims[0];
-  int team = team_size(nvec, rows);
   seg->p = p;
   seg->src_ld = ld;
   seg->rows_per_part = static_cast<int>(full / p.every);
-  seg->rows = rows;
-  seg->block0 = block0;
-  seg->team = team;
-  seg->vec = vec ? 1 : 0;
-  seg->flat = flat ? 1 : 0;
+  seg->rows = seg->rows_per_part * p.dims[0];
+  seg->vec = vec ? 1u : 0u;
+  seg->staged = vec && stage_bytes(p) <= kBlockSmem ? 1u : 0u;
+  seg->flat = flat ? 1u : 0u;
   return true;
-}
-
-int blocks_of(const QuantSeg& seg) {
-  const int per_block = kThreads / seg.team;
-  return (seg.rows + per_block - 1) / per_block;
 }
 
 // The kernel instance of a capacity, payload and the segments' flags.
@@ -434,22 +458,57 @@ const void* instance(int payload, int flags) {
   return payload == 1 ? instance_of<CAP, true>(flags) : instance_of<CAP, false>(flags);
 }
 
+// Plans and launches one table.  The block's warps: as many as the rows
+// fill over the SMs (at most 8), fewer where their stages would not fit a
+// block's shared memory; each warp walks enough rows (at least kMinDepth)
+// that the grid is about one wave of resident blocks.
 template <int CAP>
 cudaError_t launch(const QuantSpec* specs, int n, int payload, cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return err;
   QuantTable<CAP> t;
   t.n = n;
-  long long blocks = 0;
+  long long rows = 0, stage = 0;
   for (int i = 0; i < n; ++i) {
     if (specs[i].flags != specs[0].flags) return cudaErrorInvalidValue;
-    if (!plan(specs[i], &t.seg[i], static_cast<int>(blocks))) return cudaErrorInvalidValue;
-    blocks += blocks_of(t.seg[i]);
+    if (!plan(specs[i], &t.seg[i])) return cudaErrorInvalidValue;
+    rows += t.seg[i].rows;
+    if (t.seg[i].staged) stage = stage > stage_bytes(specs[i]) ? stage : stage_bytes(specs[i]);
+  }
+  long long warps = (rows + sms - 1) / sms;
+  warps = warps < 1 ? 1 : (warps > kMaxWarps ? kMaxWarps : warps);
+  while (warps > 1 && warps * stage > kBlockSmem) --warps;
+  const int smem = static_cast<int>(warps * stage);
+  long long per_sm = kSmThreads / (32 * warps);
+  per_sm = per_sm < kSmBlocks ? per_sm : kSmBlocks;
+  if (smem > 0) {
+    const long long fit = kSmSmem / (smem + 1024);  // 1 KB an SM keeps a block
+    per_sm = per_sm < fit ? per_sm : fit;
+  }
+  const long long resident = per_sm * sms;
+  long long depth = (rows + warps * resident - 1) / (warps * resident);
+  depth = depth < kMinDepth ? kMinDepth : depth;
+  long long blocks = 0;
+  for (int i = 0; i < n; ++i) {
+    t.seg[i].block0 = static_cast<int>(blocks);
+    t.seg[i].rows_per_block = static_cast<int>(warps * depth);
+    blocks += (t.seg[i].rows + warps * depth - 1) / (warps * depth);
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   }
   const void* fn = instance<CAP>(payload, specs[0].flags);
   if (fn == nullptr) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
   void* args[] = {&t};
-  return cudaLaunchKernel(fn, dim3(static_cast<unsigned>(blocks)), dim3(kThreads), args, 0,
-                          stream);
+  return cudaLaunchKernel(fn, dim3(static_cast<unsigned>(blocks)),
+                          dim3(static_cast<unsigned>(32 * warps)), args,
+                          static_cast<size_t>(smem), stream);
 }
 
 }  // namespace

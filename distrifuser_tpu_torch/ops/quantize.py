@@ -23,28 +23,28 @@ encoder has one instance per source type and residual base, so a table
 that mixes them runs one launch of each).
 The entry points:
 
-* ``quantize_rows(x, mode, *, base=None, every=None, groups=1)``: the
-  rows of x [M, K] (bfloat16 or float32 on the card, unit column stride),
-  minus ``base`` [M, K] where given, only rows ``r, r + k, ...`` of each
-  of ``groups`` chunks where ``every = (k, r)`` is given; returns
-  ``(q [M / k, K], s [M / k])``.  The A operand of ops/quant_matmul.py
-  (ops/linear.py);
+* ``quantize_rows(x, mode)``: the rows of x [M, K] (bfloat16 or float32
+  on the card, unit column stride); returns ``(q [M, K], s [M])``.  The A
+  operand of ops/quant_matmul.py (ops/linear.py);
 * ``quantize_rows_grouped(segments, mode)``: one launch over a list of
-  ``EncodeSeg``, whose ``x`` may be any [P?, d1?, d2?, d3, K] view with a
-  unit column stride (a halo's two boundary slabs of a [B, h, W, C]
-  activation read in place, the outermost dim of a 5-D x being the part
-  whose payload and scale rows may lie at any offset, as the flat send
-  buffer of a flush holds them: ``out = (q, s)``); returns each
-  segment's ``(q, s)``.  Every compressed refresh of the patch path;
-* ``dequantize_rows(q, s, dtype, *, base=None, prev=None, every=None,
-  groups=1)``: a new buffer [..., L, K] of ``dtype`` whose rows are
-  ``cast(base + q * s)`` (``q * s`` without a base), and with ``every = (k,
-  r)`` only rows ``r, r + k, ...`` of each chunk, the others ``prev``'s.
-  ``q`` [P, ..., L / k, K] and ``s`` [P, ..., L / k] are tensors (a 2-D q
-  is one part) or sequences of P parts (the two halves of a halo
-  exchange, each in its own receive buffer), stacked on a new leading dim;
+  ``EncodeSeg``: the rows of ``x`` minus ``base`` where given, only rows
+  ``r, r + k, ...`` where ``every = (k, r)`` is given (a layout of
+  several chunks, each a whole multiple of k rows, selects the same rows
+  flattened).  ``x`` may be any [P?, d1?, d2?, d3, K] view with a unit
+  column stride (a halo's two boundary slabs of a [B, h, W, C] activation
+  read in place, the outermost dim of a 5-D x being the part whose
+  payload and scale rows may lie at any offset, as the flat send buffer
+  of a flush holds them: ``out = (q, s)``); returns each segment's ``(q
+  [..., L / k, K], s [..., L / k])``.  Every compressed refresh of the
+  patch path;
 * ``dequantize_rows_grouped(segments, dtype)``: one launch over a list of
-  ``DecodeSeg``; returns each segment's buffer.
+  ``DecodeSeg``; returns for each a new buffer [..., L, K] of ``dtype``
+  whose rows are ``cast(base + q * s)`` (``q * s`` without a base), and
+  with ``every = (k, r)`` only rows ``r, r + k, ...``, the others
+  ``prev``'s.  ``q`` [P, ..., L / k, K] and ``s`` [P, ..., L / k] are
+  tensors (a 2-D q is one part) or sequences of P parts (the two halves of
+  a halo exchange, each in its own receive buffer), stacked on a new
+  leading dim.
 
 ``every``'s ``r`` is an int or a one-element device tensor (``step % k``
 under CUDA graphs, read by the kernel: one graph serves every rotation).
@@ -157,30 +157,29 @@ class EncodeSeg(NamedTuple):
     x: torch.Tensor
     base: Optional[torch.Tensor] = None
     every: Optional[Tuple[int, Any]] = None
-    groups: int = 1
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 class DecodeSeg(NamedTuple):
-    """One payload of ``dequantize_rows_grouped``: as ``dequantize_rows``'s
-    arguments."""
+    """One payload of ``dequantize_rows_grouped``: payload ``q`` and scales
+    ``s``, the residual ``base`` and, under ``every`` = (k, r), ``prev``,
+    the buffer whose other rows are kept (module docstring)."""
 
     q: Any
     s: Any
     base: Optional[torch.Tensor] = None
     prev: Optional[torch.Tensor] = None
     every: Optional[Tuple[int, Any]] = None
-    groups: int = 1
 
 
-def payload_shape(shape: Sequence[int], every=None, groups: int = 1) -> Tuple[int, ...]:
+def payload_shape(shape: Sequence[int], every=None) -> Tuple[int, ...]:
     """The payload shape of source rows of ``shape``: axis -2 thinned by the
-    partial refresh's k (raises where k does not divide each chunk)."""
+    partial refresh's k (raises where k does not divide it)."""
     shape = tuple(shape)
     if every is None:
         return shape
     k = int(every[0])
-    check_every_kth(shape[-2], k, groups)
+    check_every_kth(shape[-2], k)
     return (*shape[:-2], shape[-2] // k, shape[-1])
 
 
@@ -194,7 +193,7 @@ def quantize_rows_reference(seg: EncodeSeg, mode: str):
     if seg.base is not None:
         src = src - seg.base.float()
     if seg.every is not None:
-        src = take_every_kth(src, seg.every[0], seg.every[1], groups=seg.groups)
+        src = take_every_kth(src, seg.every[0], seg.every[1])
     q, s = quantize(src, mode)
     if seg.out is None:
         return q, s
@@ -203,7 +202,7 @@ def quantize_rows_reference(seg: EncodeSeg, mode: str):
     return seg.out
 
 
-def _decode_one(q, s, dtype, base, prev, every, groups):
+def _decode_one(q, s, dtype, base, prev, every):
     new = dequantize(q, s, torch.float32)
     if every is None:
         if base is not None:
@@ -211,8 +210,8 @@ def _decode_one(q, s, dtype, base, prev, every, groups):
         return new.to(dtype)
     k, r = every
     if base is not None:
-        new = take_every_kth(base, k, r, groups=groups).float() + new
-    return scatter_every_kth(prev, new.to(dtype), k, r, groups=groups)
+        new = take_every_kth(base, k, r).float() + new
+    return scatter_every_kth(prev, new.to(dtype), k, r)
 
 
 def dequantize_rows_reference(seg: DecodeSeg, dtype):
@@ -221,9 +220,9 @@ def dequantize_rows_reference(seg: DecodeSeg, dtype):
     if isinstance(seg.q, (list, tuple)):
         part = lambda t, i: None if t is None else t[i]  # noqa: E731
         return torch.stack([_decode_one(qi, si, dtype, part(seg.base, i), part(seg.prev, i),
-                                        seg.every, seg.groups)
+                                        seg.every)
                             for i, (qi, si) in enumerate(zip(seg.q, seg.s))])
-    return _decode_one(seg.q, seg.s, dtype, seg.base, seg.prev, seg.every, seg.groups)
+    return _decode_one(seg.q, seg.s, dtype, seg.base, seg.prev, seg.every)
 
 
 # -- the kernels' segment tables --------------------------------------------
@@ -295,7 +294,7 @@ def _encode_spec(seg: EncodeSeg, dtype, keep: List) -> Tuple[_QuantSpec, Tuple]:
     if not 2 <= x.dim() <= 5 or x.shape[-1] == 0 or x.numel() == 0 or x.stride(-1) != 1:
         raise ValueError(f"{who}: x needs rows and a unit column stride, shape "
                          f"{tuple(x.shape)}, strides {x.stride()}")
-    pshape = payload_shape(x.shape, seg.every, seg.groups)
+    pshape = payload_shape(x.shape, seg.every)
     if seg.out is None:
         q = torch.empty(pshape, dtype=dtype, device=x.device)
         s = torch.empty(pshape[:-1], dtype=torch.float32, device=x.device)
@@ -378,7 +377,7 @@ def _decode_spec(seg: DecodeSeg, dtype, keep: List) -> Tuple[_DequantSpec, torch
     if seg.every is not None:
         k = int(seg.every[0])
         part_full = (*q0.shape[:-2], q0.shape[-2] * k, q0.shape[-1])
-        check_every_kth(part_full[-2], k, seg.groups)
+        check_every_kth(part_full[-2], k)
     out_shape = (parts, *part_full) if listed or seg.q.dim() >= 3 else part_full
     out = torch.empty(out_shape, dtype=dtype, device=device)
     spec = _DequantSpec()
@@ -470,18 +469,16 @@ def _decode(segs: Sequence[DecodeSeg], dtype):
 
 
 @counts_launches
-def quantize_rows(x, mode: str, *, base=None, every=None, groups: int = 1):
+def quantize_rows(x, mode: str):
     """Per-row symmetric quantization of x [M, K] to ``mode`` ("int8" or
-    "fp8"), minus ``base`` and thinned by ``every`` where given (module
-    docstring): the kernel on the card, the plain version on the CPU.
-    Returns ``(q, s)``.  Counts each kernel launch in
-    ``quantize_rows.launches``."""
+    "fp8"): the kernel on the card, the plain version on the CPU.  Returns
+    ``(q, s)``.  Counts each kernel launch in ``quantize_rows.launches``."""
     if x.dim() != 2:
         raise ValueError(f"quantize_rows takes x [M, K], got shape {tuple(x.shape)}; "
                          "wider row layouts go through quantize_rows_grouped")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"quantize_rows: x on {x.device}; the kernel takes a CUDA tensor")
-    (got,), launches = _encode([EncodeSeg(x, base, every, groups)], mode)
+    (got,), launches = _encode([EncodeSeg(x)], mode)
     quantize_rows.launches += launches
     return got
 
@@ -497,19 +494,10 @@ def quantize_rows_grouped(segments: Sequence[EncodeSeg], mode: str):
 
 
 @counts_launches
-def dequantize_rows(q, s, dtype, *, base=None, prev=None, every=None, groups: int = 1):
-    """The ``dtype`` buffer decoded from payload ``q`` and scales ``s``
-    (module docstring): the kernel on the card, the plain version on the
-    CPU.  Counts each kernel launch in ``dequantize_rows.launches``."""
-    (got,), launches = _decode([DecodeSeg(q, s, base, prev, every, groups)], dtype)
-    dequantize_rows.launches += launches
-    return got
-
-
-@counts_launches
 def dequantize_rows_grouped(segments: Sequence[DecodeSeg], dtype):
-    """``dequantize_rows`` of every segment, in one launch per
-    ``CAPACITY`` segments on the card; returns each segment's buffer.
+    """The ``dtype`` buffer decoded from each segment (module docstring):
+    the kernel on the card, in one launch per ``CAPACITY`` segments, the
+    plain version on the CPU; returns each segment's buffer.
     Counts each launch in ``dequantize_rows_grouped.launches``."""
     got, launches = _decode(list(segments), dtype)
     dequantize_rows_grouped.launches += launches

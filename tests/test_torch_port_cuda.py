@@ -632,7 +632,7 @@ def test_codec_at_linear_shapes_on_card(mode, model):
         want_q, want_s = quantize(x, mode)
         assert _same(xq, want_q) and _same(sx, want_s), (m, k)
         seg = port_quantize.DecodeSeg(xq, sx)
-        got = port_quantize.dequantize_rows(xq, sx, torch.bfloat16)
+        got, = port_quantize.dequantize_rows_grouped([seg], torch.bfloat16)
         assert _same(got, port_quantize.dequantize_rows_reference(seg, torch.bfloat16)), (m, k)
 
 
@@ -703,8 +703,31 @@ def test_codec_tables_split_into_launches_on_card():
     q1, s1 = q0.clone(), s0.clone()
     prev = torch.randn(2, *q0.shape, device="cuda", generator=g).bfloat16()
     seg = port_quantize.DecodeSeg([q0, q1], [s0, s1], prev)
-    assert _same(port_quantize.dequantize_rows([q0, q1], [s0, s1], torch.bfloat16, base=prev),
+    assert _same(port_quantize.dequantize_rows_grouped([seg], torch.bfloat16)[0],
                  port_quantize.dequantize_rows_reference(seg, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_codec_unstaged_rows_on_card(dtype):
+    """Rows the encoder does not stage in shared memory: a column count
+    that rules out 16-byte vectors (scalar two-pass loop) and rows with a
+    base too wide for one warp's stages (vector two-pass loop), beside
+    staged rows in one table; each bit for bit the plain version."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    every = (2, torch.tensor(1, device="cuda"))
+
+    def rows(*shape):
+        return (torch.randn(*shape, device="cuda", generator=g) * 3).to(dtype)
+
+    segs = [port_quantize.EncodeSeg(rows(6, 13)),
+            port_quantize.EncodeSeg(rows(4, 30000), rows(4, 30000), every),
+            port_quantize.EncodeSeg(rows(64, 640), rows(64, 640), every)]
+    for mode in ("int8", "fp8"):
+        for seg, (q, s) in zip(segs, port_quantize.quantize_rows_grouped(segs, mode)):
+            wq, ws = port_quantize.quantize_rows_reference(seg, mode)
+            assert _same(q, wq) and _same(s, ws), (mode, tuple(seg.x.shape))
 
 
 @pytest.mark.cuda
@@ -722,8 +745,9 @@ def test_codec_rotation_changes_between_graph_replays_on_card():
     def step():
         (q, s), = port_quantize.quantize_rows_grouped(
             [port_quantize.EncodeSeg(x, base, (4, r))], "int8")
-        return q, s, port_quantize.dequantize_rows(q, s, torch.bfloat16, base=prev,
-                                                   prev=prev, every=(4, r))
+        out, = port_quantize.dequantize_rows_grouped(
+            [port_quantize.DecodeSeg(q, s, prev, prev, (4, r))], torch.bfloat16)
+        return q, s, out
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())

@@ -6,7 +6,9 @@ decode entries) on the CPU, where they run their plain versions.
   ``quantize``; ``dequantize``, the residual add, ``scatter_every_kth``,
   ``torch.stack``) bit for bit: payload bytes, scales and output buffers,
   for int8, fp8 and int8_residual, k in {1, 2, 4} with the rotation as an
-  int and as a 0-d tensor, groups 1 and 2, float32 and bfloat16 sources,
+  int and as a 0-d tensor, groups 1 and 2 in the unfused composition (the
+  fused entries select the same rows on the flattened layout), float32 and
+  bfloat16 sources,
   halo slabs read in place from a [B, h, W, C] activation, and a row of
   zeros.
 * The grouped entries equal the per-segment ones, into a flat buffer of
@@ -115,28 +117,30 @@ def test_gather_codec_equals_unfused(mode, k, r_tensor, groups, dtype):
     for i, local in enumerate(locals_):
         base = prev[i] if residual else None
         want_q, want_s = _old_encode(local, base, every, groups, mode)
-        (q, s), = qz.quantize_rows_grouped([qz.EncodeSeg(local, base, every, groups)],
+        (q, s), = qz.quantize_rows_grouped([qz.EncodeSeg(local, base, every)],
                                            payload_mode(mode))
         _assert_same(q, want_q)
         _assert_same(s, want_s)
         # the contiguous rows as [M, K]: each batch row's chunk is a group
-        q2, s2 = qz.quantize_rows(local.reshape(-1, C), payload_mode(mode),
-                                  base=None if base is None else base.reshape(-1, C),
-                                  every=every, groups=groups * B)
+        flat = None if base is None else base.reshape(-1, C)
+        (q2, s2), = qz.quantize_rows_grouped(
+            [qz.EncodeSeg(local.reshape(-1, C), flat, every)], payload_mode(mode))
         _assert_same(q2, want_q.reshape(-1, C))
         _assert_same(s2, want_s.reshape(-1))
+        if base is None and every is None:  # the quantized linears' entry
+            q3, s3 = qz.quantize_rows(local.reshape(-1, C), payload_mode(mode))
+            _assert_same(q3, q2)
+            _assert_same(s3, s2)
         coded.append((q, s))
     gq, gs = torch.stack([c[0] for c in coded]), torch.stack([c[1] for c in coded])
     want = _old_decode(gq, gs, dtype, prev, residual, every, groups)
-    got = qz.dequantize_rows(gq, gs, dtype, base=prev if residual else None,
-                             prev=prev if every is not None else None, every=every,
-                             groups=groups)
+    base, kept = prev if residual else None, prev if every is not None else None
+    got, = qz.dequantize_rows_grouped([qz.DecodeSeg(gq, gs, base, kept, every)], dtype)
     _assert_same(got, want)
     # the two ranks' payloads as parts of a list decode to the same buffer
-    got_parts = qz.dequantize_rows([c[0] for c in coded], [c[1] for c in coded], dtype,
-                                   base=prev if residual else None,
-                                   prev=prev if every is not None else None, every=every,
-                                   groups=groups)
+    got_parts, = qz.dequantize_rows_grouped(
+        [qz.DecodeSeg([c[0] for c in coded], [c[1] for c in coded], base, kept, every)],
+        dtype)
     _assert_same(got_parts, want)
 
 
@@ -209,8 +213,7 @@ def test_grouped_entries_equal_per_segment(mode):
                             every=(2, torch.tensor(1)))
     grouped = qz.dequantize_rows_grouped(dsegs, torch.bfloat16)
     for got_buf, seg in zip(grouped, dsegs):
-        _assert_same(got_buf, qz.dequantize_rows(*seg[:2], torch.bfloat16, base=seg.base,
-                                                 prev=seg.prev, every=seg.every))
+        _assert_same(got_buf, qz.dequantize_rows_grouped([seg], torch.bfloat16)[0])
 
 
 def test_codec_shape_errors_name_the_layer():
@@ -265,13 +268,13 @@ def test_codec_agrees_with_jax(mode):
     for (k, groups), (jq, js, jbuf) in zip(_JAX_CASES, got_jax):
         every = (k, r % k) if k > 1 else None
         (q, s), = qz.quantize_rows_grouped(
-            [qz.EncodeSeg(x, prev if residual else None, every, groups)], payload_mode(mode))
+            [qz.EncodeSeg(x, prev if residual else None, every)], payload_mode(mode))
         np.testing.assert_array_equal(_bytes(q).numpy(), np.asarray(jq).view(np.uint8))
         js = np.asarray(js)
         assert np.abs(s.numpy() - js).max() <= JAX_TOL * np.abs(js).max()
-        buf = qz.dequantize_rows(q, s, torch.float32, base=prev if residual else None,
-                                 prev=prev if every is not None else None, every=every,
-                                 groups=groups)
+        buf, = qz.dequantize_rows_grouped(
+            [qz.DecodeSeg(q, s, prev if residual else None,
+                          prev if every is not None else None, every)], torch.float32)
         jbuf = np.asarray(jbuf)
         assert np.abs(buf.numpy() - jbuf).max() <= JAX_TOL * np.abs(jbuf).max()
 
