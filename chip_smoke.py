@@ -165,7 +165,7 @@ step by the evaluation it ran (``launches_by_phase``).
 ``--quant_device_times`` runs only the device time of the quantized-matmul
 kernel's fp32 contract form and of the per-token quantization kernel at
 every SDXL and SD 1.5 path shape, the latter also with a cold L2 (a 256 MB
-write before each call), through nothing but ``quant_matmul(xq, wq, sw)``,
+read before each call), through nothing but ``quant_matmul(xq, wq, sw)``,
 ``quantize_rows(x, mode)``, ``quantize`` and ``quantize_weight``, so that
 it also runs against an older checkout of the package that has
 ``quantize_rows(x, mode)``: run this file from that checkout's root as
@@ -1036,8 +1036,8 @@ def quant_kernel_phase(shapes):
 def cold_device_ms(fn, kernel, flush, iters=10):
     """Mean device time per call of the kernels whose name holds
     ``kernel``, each call made after ``flush`` (a buffer several times
-    the L2) is overwritten, so that the call reads its inputs from device
-    memory; None if the profiler recorded none."""
+    the L2) is read, so that the call reads its inputs from device memory
+    and evicts only clean lines; None if the profiler recorded none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1045,7 +1045,7 @@ def cold_device_ms(fn, kernel, flush, iters=10):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            flush.zero_()
+            flush.sum()
             fn()
         torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in prof.key_averages()
@@ -2076,9 +2076,9 @@ def _kernel_group(name: str) -> str:
         return "attention (flash_sdpa)"
     if "qmm_kernel" in low:
         return "quantized matmul (quant_matmul)"
-    if "dequantize_rows_kernel" in low:  # before its substring quantize_rows_kernel
+    if "dequantize_rows" in low:  # before its substring quantize_rows
         return "refresh decode (dequantize_rows)"
-    if "quantize_rows_kernel" in low:
+    if "quantize_rows" in low:  # the staged and the narrow kernels
         return "per-token quantization (quantize_rows)"
     if "conv" in low or "cudnn" in low or "implicit" in low:
         return "convolution"

@@ -22,8 +22,12 @@
 // * the scale is amax times the fp32 reciprocal of LIMIT, because that is
 //   how PyTorch's CUDA division by a Python scalar computes
 //   clamp(amax) / LIMIT;
-// * d / s is a correctly rounded division (__fdiv_rn; this file is never
-//   built with --use_fast_math), as PyTorch's tensor-by-tensor division is;
+// * d / s is the correctly rounded quotient, as PyTorch's tensor-by-tensor
+//   division gives it, computed without a division: from the row's
+//   correctly rounded reciprocal y = 1 / s, q0 = d * y and two
+//   corrections q += (d - s * q) * y, each parenthesis one fused
+//   multiply-add; the second rounds correctly by Markstein's theorem
+//   (quotient(); this file is never built with --use_fast_math);
 // * rounding is half to even, as torch.round's: the quotient, clipped to
 //   +-127, plus 1.5 * 2^23 in fp32 (one addition in place of rintf and a
 //   float-to-int conversion, which runs at a quarter of the fp32 rate);
@@ -50,34 +54,41 @@
 //   send buffer of a batched flush, one byte buffer for every payload and
 //   scale of a step).
 //
-// Design: a warp serves one row at a time, and each warp walks several
-// rows of its segment (its block's share, one warp-count apart).  A row
-// (and its base row) is staged in the warp's slice of shared memory by
-// 16-byte cp.async copies (cp.async.cg: through L2, not L1), double-
-// buffered: the copies of the warp's next row are issued before it reduces
-// and encodes the current one, so a row's load overlaps the previous row's
-// arithmetic.  Each lane copies, and later reads back, the same vectors of
-// the row, so a lane waits only for its own copies (cp.async.wait_group)
-// and no barrier is needed; the row max is a warp shuffle.  The row is read
-// from device memory once; the encode pass reads it from shared memory and
-// stores 8- or 4-byte payload vectors.  A launch's block has 1 to 8 warps:
-// as many as the table's rows fill across the card's SMs, fewer where 8
-// warps' stages would not fit the 227 KB a block may take; each warp walks
-// enough rows that the grid is about one wave of resident blocks.  Rows one
-// stride apart within a part (a contiguous activation, a KV, a halo slab
-// at B = 1) are addressed by one multiply; only other layouts pay the
-// division of the row index into its three indices.  Rows whose strides or
-// alignment rule out 16-byte vectors, or too wide for one warp's stages,
-// take a two-pass loop that reads the row again (an L1/L2 hit).  Each
-// block finds its segment by a binary search over the segments' first
-// blocks.
+// Design, the staged path: a warp serves one row at a time, and each warp
+// walks several rows of its segment (its block's share, one warp-count
+// apart).  A row (and its base row) is staged in the warp's slice of
+// shared memory by 16-byte cp.async copies (cp.async.cg: through L2, not
+// L1), double-buffered: the copies of the warp's next row are issued
+// before it reduces and encodes the current one, so a row's load overlaps
+// the previous row's arithmetic.  Each lane copies, and later reads back,
+// the same vectors of the row, so a lane waits only for its own copies
+// (cp.async.wait_group) and no barrier is needed; the row max is a warp
+// shuffle.  The row is read from device memory once; the encode pass reads
+// it from shared memory and stores 8- or 4-byte payload vectors.  A
+// launch's block has 1 to 8 warps: as many as the table's rows fill across
+// the card's SMs, fewer where 8 warps' stages would not fit the 227 KB a
+// block may take; each warp walks enough rows that the grid is about one
+// wave of resident blocks (the 154-row text KV runs two warps a block on
+// 77 SMs).  The narrow path: a launch of at least 4096 rows of at most 640
+// bf16 (320 fp32) columns without a base, the quantized linears at SDXL's
+// and SD 1.5's first level, would leave most lanes of a warp idle; there a
+// team of 8 or 16 lanes serves a row, each lane holding its (at most five)
+// 16-byte vectors in registers, two or four rows a warp.  Rows one stride
+// apart within a part (a contiguous activation, a KV, a halo slab at B =
+// 1) are addressed by one multiply; only other layouts pay the division of
+// the row index into its three indices.  Rows whose strides or alignment
+// rule out 16-byte vectors, or too wide for one warp's stages, take a
+// two-pass loop that reads the row again (an L1/L2 hit).  Each block finds
+// its segment by a binary search over the segments' first blocks.
 //
-// What bounds it: bytes, with the division close behind.  It reads x (2
-// or 4 bytes an element) and the base once, and writes 1 byte an element
-// and 4 a row; the correctly rounded division is an instruction sequence
-// of about ten operations (one a reciprocal on the quarter-rate unit) an
-// element (PERF.md gives the probes: the division replaced by a
-// multiplication, and a cold L2).
+// What bounds it: bytes, then the arithmetic a launch's latency cannot
+// hide.  It reads x (2 or 4 bytes an element) and the base once, and
+// writes 1 byte an element and 4 a row; the quotient costs five fp32
+// operations an element (a __fdiv_rn sequence, with its reciprocal on the
+// quarter-rate unit and its branch, cost a third of the kernel's time),
+// and most launches are a few microseconds long, so the launch's ramp and
+// tail count (PERF.md gives the probes: the quotient replaced by the
+// product d * y alone, and a cold L2).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libquantize_rows.so quantize_rows.cu
@@ -99,11 +110,13 @@ using codec::widen;
 
 constexpr int kMaxWarps = kThreads / 32;  // warps a block
 constexpr int kStages = 2;                // row buffers a warp cycles through
-constexpr int kMinDepth = 1;              // rows a warp walks, at least
+constexpr int kNarrowVecs = 5;            // 16-byte vectors a lane holds on the narrow path
+constexpr int kNarrowRows = 4096;         // rows a launch takes the narrow path from
 constexpr int kBlockSmem = 227 * 1024;    // shared memory a block may take
 constexpr int kSmSmem = 228 * 1024;       // shared memory of an SM
 constexpr int kSmThreads = 2048;          // resident threads an SM
 constexpr int kSmBlocks = 32;             // resident blocks an SM
+constexpr float kMagic = 12582912.0f;     // 1.5 * 2^23: x + kMagic rounds x to an integer
 constexpr float kScaleFloor = 1e-12f;     // an all-zero row: exact zeros
 
 // QuantSpec.flags
@@ -139,6 +152,7 @@ struct QuantSeg {
   int rows_per_part;   // payload rows of a part
   int block0;          // the segment's first block
   int rows_per_block;  // the rows a block walks
+  int team;            // lanes a row on the narrow path: 8 or 16
   unsigned vec : 1;     // 16-byte vectors everywhere
   unsigned staged : 1;  // rows staged in shared memory (vec, and they fit)
   unsigned flat : 1;    // source rows one stride (src_ld) apart within a part
@@ -168,9 +182,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+// The max of v over the calling lane's team of `team` (8, 16 or 32) lanes;
+// every lane of the warp calls this.
+__device__ __forceinline__ float team_max(float v, int team) {
+  for (int off = team >> 1; off > 0; off >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
   return v;
 }
 
@@ -184,19 +201,43 @@ struct alignas(V) OutVec {
   uint8_t v[V];
 };
 
-// The payload bytes of V differences d over the row's scale s.  int8:
-// clip(d / s) to +-127, then the float addition of 1.5 * 2^23 rounds it to
-// the nearest integer, ties to even, as rintf does, and leaves that integer
-// in the low mantissa bits (two's complement in the low byte for negative
+// The correctly rounded quotient a / s without a division: y is the
+// correctly rounded 1 / s, q0 = a * y is within 1.5 units in the last place
+// of a / s, the first correction q1 = q0 + (a - s * q0) * y (each
+// parenthesis one fused multiply-add) makes it faithful, and by
+// Markstein's theorem the second, from the exact remainder a - s * q1,
+// rounds it correctly.  Where an intermediate would underflow, |a / s| is
+// below 2^-54 and every payload is zero either way; a zero a keeps its
+// sign (the corrections would turn -0 into +0).  The caller divides
+// instead where y is 0 (an infinite scale).
+__device__ __forceinline__ float quotient(float a, float s, float y) {
+  const float q0 = __fmul_rn(a, y);
+  const float q1 = __fmaf_rn(__fmaf_rn(-s, q0, a), y, q0);
+  const float q2 = __fmaf_rn(__fmaf_rn(-s, q1, a), y, q1);
+  return a == 0.f ? a : q2;
+}
+
+// The payload bytes of V differences d over the row's scale s (y: the
+// correctly rounded 1 / s, 0 when s is infinite).  The quotient is the
+// correctly rounded d / s, as PyTorch's division gives it.  int8:
+// clip(q) to +-127, then the float addition of 1.5 * 2^23 rounds it to the
+// nearest integer, ties to even, as rintf does, and leaves that integer in
+// the low mantissa bits (two's complement in the low byte for negative
 // ones); clipping before rounding is the same as after, the bounds being
 // integers.  fp8: the e4m3 conversion two at a time (cvt.rn.satfinite
 // .e4m3x2: the first value in the low byte), each as the one-value form
 // rounds it.
 template <bool kFp8, int V>
-__device__ __forceinline__ void encode_vec(const float (&d)[V], float s, OutVec<V>& o) {
+__device__ __forceinline__ void encode_vec(const float (&d)[V], float s, float y,
+                                           OutVec<V>& o) {
   float v[V];
+  if (y != 0.f) {
 #pragma unroll
-  for (int e = 0; e < V; ++e) v[e] = __fdiv_rn(d[e], s);
+    for (int e = 0; e < V; ++e) v[e] = quotient(d[e], s, y);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = __fdiv_rn(d[e], s);
+  }
   if constexpr (kFp8) {
     if constexpr (V % 2 == 0) {
 #pragma unroll
@@ -216,7 +257,7 @@ __device__ __forceinline__ void encode_vec(const float (&d)[V], float s, OutVec<
 #pragma unroll
     for (int e = 0; e < V; ++e) {
       const float c = fminf(fmaxf(v[e], -127.f), 127.f);
-      o.v[e] = static_cast<uint8_t>(__float_as_uint(__fadd_rn(c, 12582912.0f)) & 0xffu);
+      o.v[e] = static_cast<uint8_t>(__float_as_uint(__fadd_rn(c, kMagic)) & 0xffu);
     }
   }
 }
@@ -306,10 +347,11 @@ __device__ __forceinline__ void encode_staged(const QuantSeg& seg, int r, unsign
 #pragma unroll
       for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(diff<kBase>(x.v[e], b.v[e])));
     }
-    amax = warp_max(amax);
+    amax = team_max(amax, 32);
     const float s = fmaxf(amax, kScaleFloor) * (1.0f / (kFp8 ? 448.0f : 127.0f));
     const RowAt<T, kBase> at(seg, i, r);
     if (lane == 0) *at.s = s;
+    const float y = __frcp_rn(s);
     for (int c = lane; c < nvec; c += 32) {
       const In x = xs[c];
       In b;
@@ -318,7 +360,7 @@ __device__ __forceinline__ void encode_staged(const QuantSeg& seg, int r, unsign
 #pragma unroll
       for (int e = 0; e < V; ++e) d[e] = diff<kBase>(x.v[e], b.v[e]);
       OutVec<V> o;
-      encode_vec<kFp8, V>(d, s, o);
+      encode_vec<kFp8, V>(d, s, y, o);
       reinterpret_cast<OutVec<V>*>(at.q)[c] = o;
     }
   }
@@ -346,9 +388,10 @@ __device__ __forceinline__ void encode_twopass(const QuantSeg& seg, int r) {
 #pragma unroll
       for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(diff<kBase>(x.v[e], b.v[e])));
     }
-    amax = warp_max(amax);
+    amax = team_max(amax, 32);
     const float s = fmaxf(amax, kScaleFloor) * (1.0f / (kFp8 ? 448.0f : 127.0f));
     if (lane == 0) *at.s = s;
+    const float y = __frcp_rn(s);
     for (int c = lane; c < nvec; c += 32) {
       const In x = xr[c];
       In b;
@@ -357,10 +400,66 @@ __device__ __forceinline__ void encode_twopass(const QuantSeg& seg, int r) {
 #pragma unroll
       for (int e = 0; e < V; ++e) d[e] = diff<kBase>(x.v[e], b.v[e]);
       OutVec<V> o;
-      encode_vec<kFp8, V>(d, s, o);
+      encode_vec<kFp8, V>(d, s, y, o);
       reinterpret_cast<OutVec<V>*>(at.q)[c] = o;
     }
   }
+}
+
+// The rows of this block on the narrow path, a team of 8 or 16 lanes each
+// (no base): each lane holds its at most kNarrowVecs vectors of the row in
+// registers between the row max and the encoding.  A row of 40 or 80
+// vectors (320 or 640 bf16 columns) leaves most of a warp idle in the
+// staged path; here a warp serves two or four rows at once.
+template <typename T, bool kFp8>
+__device__ __forceinline__ void encode_narrow(const QuantSeg& seg, int r) {
+  constexpr int V = 16 / sizeof(T);
+  using In = InVec<T, V>;
+  const int team = seg.team, lane = threadIdx.x % team;
+  const int i = (blockIdx.x - seg.block0) * seg.rows_per_block + threadIdx.x / team;
+  const bool active = i < seg.rows;
+  const int nvec = seg.p.K / V;
+  In xs[kNarrowVecs];
+  float amax = 0.f;
+  const RowAt<T, false> at(seg, active ? i : 0, r);
+#pragma unroll
+  for (int m = 0; m < kNarrowVecs; ++m) {
+    const int c = lane + m * team;
+    if (active && c < nvec) {
+      xs[m] = reinterpret_cast<const In*>(at.x)[c];
+#pragma unroll
+      for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(widen(xs[m].v[e])));
+    }
+  }
+  amax = team_max(amax, team);
+  if (!active) return;
+  const float s = fmaxf(amax, kScaleFloor) * (1.0f / (kFp8 ? 448.0f : 127.0f));
+  if (lane == 0) *at.s = s;
+  const float y = __frcp_rn(s);
+#pragma unroll
+  for (int m = 0; m < kNarrowVecs; ++m) {
+    const int c = lane + m * team;
+    if (c < nvec) {
+      float d[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) d[e] = widen(xs[m].v[e]);
+      OutVec<V> o;
+      encode_vec<kFp8, V>(d, s, y, o);
+      reinterpret_cast<OutVec<V>*>(at.q)[c] = o;
+    }
+  }
+}
+
+template <int CAP, bool kFp8, typename T>
+__global__ void __launch_bounds__(kThreads)
+quantize_rows_narrow_kernel(const __grid_constant__ QuantTable<CAP> t) {
+  const QuantSeg& seg = t.seg[find_segment(t, blockIdx.x)];
+  int r = seg.p.rot_const;
+  if (seg.p.rot != nullptr) {
+    const int k = seg.p.every;
+    r = ((static_cast<int>(*seg.p.rot % k)) + k) % k;
+  }
+  encode_narrow<T, kFp8>(seg, r);
 }
 
 // One instance per table capacity, payload, source type and base: every
@@ -458,10 +557,26 @@ const void* instance(int payload, int flags) {
   return payload == 1 ? instance_of<CAP, true>(flags) : instance_of<CAP, false>(flags);
 }
 
-// Plans and launches one table.  The block's warps: as many as the rows
-// fill over the SMs (at most 8), fewer where their stages would not fit a
-// block's shared memory; each warp walks enough rows (at least kMinDepth)
-// that the grid is about one wave of resident blocks.
+// The narrow path's instance of a capacity, payload and source type.
+template <int CAP>
+const void* narrow_instance(int payload, int flags) {
+  const bool bf16 = (flags & kSrcBF16) != 0;
+  if (payload == 1) {
+    return bf16 ? reinterpret_cast<const void*>(quantize_rows_narrow_kernel<CAP, true, __nv_bfloat16>)
+                : reinterpret_cast<const void*>(quantize_rows_narrow_kernel<CAP, true, float>);
+  }
+  return bf16 ? reinterpret_cast<const void*>(quantize_rows_narrow_kernel<CAP, false, __nv_bfloat16>)
+              : reinterpret_cast<const void*>(quantize_rows_narrow_kernel<CAP, false, float>);
+}
+
+// Plans and launches one table.  The narrow path where every segment's
+// rows are 16-byte vectors, without a base, of at most 16 * kNarrowVecs
+// vectors, and the table has at least kNarrowRows rows: 256-thread blocks,
+// a team of 8 lanes a row (16 above 8 * kNarrowVecs vectors).  Else the staged
+// path: the block's warps, as many as the rows fill over the SMs (at most
+// 8), fewer where their stages would not fit a block's shared memory; each
+// warp walks enough rows that the grid is about one wave of resident
+// blocks.
 template <int CAP>
 cudaError_t launch(const QuantSpec* specs, int n, int payload, cudaStream_t stream) {
   int device = 0, sms = 0;
@@ -472,34 +587,44 @@ cudaError_t launch(const QuantSpec* specs, int n, int payload, cudaStream_t stre
   if (err != cudaSuccess) return err;
   QuantTable<CAP> t;
   t.n = n;
+  const int V = 16 / ((specs[0].flags & kSrcBF16) ? 2 : 4);
   long long rows = 0, stage = 0;
+  bool narrow = (specs[0].flags & kHasBase) == 0;
   for (int i = 0; i < n; ++i) {
     if (specs[i].flags != specs[0].flags) return cudaErrorInvalidValue;
     if (!plan(specs[i], &t.seg[i])) return cudaErrorInvalidValue;
     rows += t.seg[i].rows;
     if (t.seg[i].staged) stage = stage > stage_bytes(specs[i]) ? stage : stage_bytes(specs[i]);
+    narrow = narrow && t.seg[i].vec && specs[i].K <= 16 * kNarrowVecs * V;
   }
-  long long warps = (rows + sms - 1) / sms;
-  warps = warps < 1 ? 1 : (warps > kMaxWarps ? kMaxWarps : warps);
-  while (warps > 1 && warps * stage > kBlockSmem) --warps;
-  const int smem = static_cast<int>(warps * stage);
-  long long per_sm = kSmThreads / (32 * warps);
-  per_sm = per_sm < kSmBlocks ? per_sm : kSmBlocks;
-  if (smem > 0) {
-    const long long fit = kSmSmem / (smem + 1024);  // 1 KB an SM keeps a block
-    per_sm = per_sm < fit ? per_sm : fit;
+  narrow = narrow && rows >= kNarrowRows;
+  long long warps = kMaxWarps, depth = 1;
+  int smem = 0;
+  if (!narrow) {
+    warps = (rows + sms - 1) / sms;
+    warps = warps < 1 ? 1 : (warps > kMaxWarps ? kMaxWarps : warps);
+    while (warps > 1 && warps * stage > kBlockSmem) --warps;
+    smem = static_cast<int>(warps * stage);
+    long long per_sm = kSmThreads / (32 * warps);
+    per_sm = per_sm < kSmBlocks ? per_sm : kSmBlocks;
+    if (smem > 0) {
+      const long long fit = kSmSmem / (smem + 1024);  // 1 KB an SM keeps a block
+      per_sm = per_sm < fit ? per_sm : fit;
+    }
+    const long long resident = per_sm * sms;
+    depth = (rows + warps * resident - 1) / (warps * resident);
   }
-  const long long resident = per_sm * sms;
-  long long depth = (rows + warps * resident - 1) / (warps * resident);
-  depth = depth < kMinDepth ? kMinDepth : depth;
   long long blocks = 0;
   for (int i = 0; i < n; ++i) {
-    t.seg[i].block0 = static_cast<int>(blocks);
-    t.seg[i].rows_per_block = static_cast<int>(warps * depth);
-    blocks += (t.seg[i].rows + warps * depth - 1) / (warps * depth);
+    QuantSeg& seg = t.seg[i];
+    seg.team = specs[i].K <= kNarrowVecs * 8 * V ? 8 : 16;
+    seg.block0 = static_cast<int>(blocks);
+    seg.rows_per_block = static_cast<int>(narrow ? kThreads / seg.team : warps * depth);
+    blocks += (seg.rows + seg.rows_per_block - 1) / seg.rows_per_block;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   }
-  const void* fn = instance<CAP>(payload, specs[0].flags);
+  const void* fn = narrow ? narrow_instance<CAP>(payload, specs[0].flags)
+                          : instance<CAP>(payload, specs[0].flags);
   if (fn == nullptr) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -535,9 +660,9 @@ extern "C" int quantize_rows_capacity(void) { return kCapacity; }
 extern "C" int quantize_rows_spec_bytes(void) { return static_cast<int>(sizeof(QuantSpec)); }
 
 // The compiled instances of a table capacity (1, 16 or the full one) and
-// payload, over the four source types and bases: the most registers a
-// thread and local (spilled) bytes a thread of any, and the table's
-// parameter bytes.  Returns a cudaError_t.
+// payload, over the four source types and bases and the narrow path's two
+// source types: the most registers a thread and local (spilled) bytes a
+// thread of any, and the table's parameter bytes.  Returns a cudaError_t.
 extern "C" int quantize_rows_variant(int capacity, int payload, int* registers,
                                      int* local_bytes, int* param_bytes) {
   *registers = *local_bytes = 0;
@@ -554,12 +679,18 @@ extern "C" int quantize_rows_variant(int capacity, int payload, int* registers,
       fn = instance<kCapacity>(payload, flags);
       *param_bytes = static_cast<int>(sizeof(QuantTable<kCapacity>));
     }
-    cudaFuncAttributes attr;
-    const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    *registers = attr.numRegs > *registers ? attr.numRegs : *registers;
-    const int local = static_cast<int>(attr.localSizeBytes);
-    *local_bytes = local > *local_bytes ? local : *local_bytes;
+    const void* narrow = capacity == 1    ? narrow_instance<1>(payload, flags)
+                         : capacity == 16 ? narrow_instance<16>(payload, flags)
+                                          : narrow_instance<kCapacity>(payload, flags);
+    const void* both[] = {fn, narrow};
+    for (const void* f : both) {
+      cudaFuncAttributes attr;
+      const cudaError_t err = cudaFuncGetAttributes(&attr, f);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      *registers = attr.numRegs > *registers ? attr.numRegs : *registers;
+      const int local = static_cast<int>(attr.localSizeBytes);
+      *local_bytes = local > *local_bytes ? local : *local_bytes;
+    }
   }
   return 0;
 }

@@ -731,6 +731,32 @@ def test_codec_unstaged_rows_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quantize_rows_near_rounding_boundaries_on_card(mode):
+    """Quotients on and within a few units in the last place of every
+    rounding boundary of the payload (the half-integers for int8, the
+    midpoints between e4m3 values for fp8), both signs, in float32 rows
+    whose max makes the scale about 1: payload bytes and scales equal the
+    plain version's."""
+    _need_card()
+    limit = 127.0 if mode == "int8" else 448.0
+    if mode == "int8":
+        bounds = torch.arange(-126.5, 127.0, 1.0, dtype=torch.float64)
+    else:
+        values = torch.arange(0, 127, dtype=torch.uint8).view(torch.float8_e4m3fn).double()
+        mids = (values[1:] + values[:-1]) / 2
+        bounds = torch.cat([mids, -mids])
+    steps = torch.arange(-6, 7, dtype=torch.float64) * 2.0**-23
+    q = (bounds[:, None] * (1 + steps[None, :])).flatten()
+    q = torch.cat([q, torch.tensor([limit, 0.0, -0.0], dtype=torch.float64)])
+    q = torch.cat([q, q.new_zeros(-len(q) % 8)]).float()
+    rows = torch.stack([q, q.flip(0), q * 0.999, q * 1.001]).cuda()
+    xq, sx = port_quantize.quantize_rows(rows, mode)
+    want_q, want_s = quantize(rows, mode)
+    assert _same(xq, want_q) and _same(sx, want_s)
+
+
+@pytest.mark.cuda
 def test_codec_rotation_changes_between_graph_replays_on_card():
     """One captured graph of an encode and a decode with the rotation r a
     device scalar: after r changes between two replays, each replay equals

@@ -190,7 +190,6 @@ def test_every_kernel_wrapper_counts_its_launches():
                                            quant_matmul.quant_matmul,
                                            quantize.quantize_rows,
                                            quantize.quantize_rows_grouped,
-                                           quantize.dequantize_rows,
                                            quantize.dequantize_rows_grouped}
     assert all(fn.launches >= 0 for fn in _build.LAUNCH_COUNTERS)
 
