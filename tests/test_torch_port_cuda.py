@@ -731,6 +731,32 @@ def test_codec_unstaged_rows_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_codec_narrow_path_layouts_on_card(dtype):
+    """Tables the encoder's narrow path takes (at least 4096 rows of at
+    most 640 bf16 or 320 float32 columns, no base) in layouts the quantized
+    linears do not give it: several segments, a partial refresh with a
+    device rotation, a halo's two slabs read in place; each segment bit for
+    bit the plain version."""
+    _need_card()
+    from distrifuser_tpu_torch.parallel.context import _halo_slabs
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def rows(*shape):
+        return (torch.randn(*shape, device="cuda", generator=g) * 3).to(dtype)
+
+    segs = [port_quantize.EncodeSeg(rows(2, 4096, 320), None,
+                                    (2, torch.tensor(1, device="cuda"))),
+            port_quantize.EncodeSeg(_halo_slabs(rows(2, 64, 32, 320), 1)),
+            port_quantize.EncodeSeg(rows(3000, 160))]
+    for mode in ("int8", "fp8"):
+        for seg, (q, s) in zip(segs, port_quantize.quantize_rows_grouped(segs, mode)):
+            wq, ws = port_quantize.quantize_rows_reference(seg, mode)
+            assert _same(q, wq) and _same(s, ws), (mode, tuple(seg.x.shape))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
 def test_quantize_rows_near_rounding_boundaries_on_card(mode):
     """Quotients on and within a few units in the last place of every
