@@ -30,9 +30,15 @@ Phases (any failure raises, and the script exits non-zero):
    gathered KV, which must be a view of it at B = 1); and the kernel's
    log-sum-exp instances (``return_lse=True``) at the ring attention's chunk
    shapes ("ring_hop_l1", "ring_hop_l2": L/2 queries against one rank's L/2
-   keys), out and lse against the plain version (lse max |d| <= 1e-3), timed
-   beside ``aten._scaled_dot_product_flash_attention``, the one PyTorch call
-   that also returns the log-sum-exp;
+   keys, d = 64) and at the sequence-parallel decode's ("vae_ring_*": the VAE
+   mid attention's L/n queries against one rank's L/n keys, d = 512; the
+   1024x1024 and 512x512 decodes at sp 2, the 2048x2048 one at sp 2 and
+   sp 4), out and lse against the plain version (lse max |d| <= 1e-3), each
+   with the instance's registers and spilled bytes, timed beside the one
+   PyTorch call that also returns the log-sum-exp:
+   ``aten._scaled_dot_product_flash_attention`` (d <= 256) or
+   ``aten._scaled_dot_product_efficient_attention`` with
+   ``compute_log_sumexp`` (d = 512);
 3. quant kernel phase: at every (M, K, N) the quantized main path gives
    the quantized-matmul kernel (derived from the UNet config), and at odd
    shapes, for int8 and fp8, on a seeded bf16 activation: hold the
@@ -84,7 +90,7 @@ Phases (any failure raises, and the script exits non-zero):
    latent and image must equal the eager ones bit for bit, and a
    "graph_vs_eager" line gives both calls' times and peak memory.
    Every launch count is set to 0 just before each measured call and read
-   just after it: flash 4*140 + 1 in each, quant_matmul and quantize_rows
+   just after it: flash 4*140 + 1 in each (the decode whole on one card), quant_matmul and quantize_rows
    0 in the dense call and 4*533 + 70 each in each quantized one (derived
    from the config), graph replays counting the launches they captured.
    On the dense pipeline, eagerly and graphed: img2img from a seeded
@@ -97,7 +103,8 @@ Phases (any failure raises, and the script exits non-zero):
 5a. the row-tiled decode: on the card against the CPU at the tiny size,
    then a 2048x2048 SDXL latent decoded in 5 tiles of 64 rows and whole
    (flash at (1, 65536, 65536, 1, 512), a row of the kernel phase), each
-   timed with its peak memory;
+   timed with its peak memory (four ranks decode it sequence-parallel in
+   phase 6, "decode_sp");
 5b. the SD family: DistriSDPipeline at SD 1.5's full width (UNet
    320/640/1280/1280 with 8 heads, ViT-L, SD VAE; seeded random bf16
    weights), 512x512, 4 DDIM steps, eagerly and under CUDA graphs as
@@ -138,8 +145,22 @@ Phases (any failure raises, and the script exits non-zero):
    ``comm_plan``, its step times by evaluation and its latent against the
    plain patch run of as many steps (information only).  The patch run also runs one img2img call
    at strength 0.75 of 4 steps: steps 1-3, {sync: 2, stale: 1}, the same
-   image on every rank.  On every rank: a finite image, the same
-   bit for bit on all ranks, 4*140 + 1 flash launches (SD 1.5: 129), the
+   image on every rank.  ``dp``: data parallelism at world 4, two image
+   groups of sp 2 (``dp_degree=2``, ``batch_size=2``, ``split_batch=False``),
+   two prompts, a tiny check of two prompts too: both images on every
+   rank.  ``decode_sp``: the tiny VAE's sequence-parallel decode on the
+   card against the CPU at world 4 (relative L2 <= 8e-2), then a 2048x2048
+   SDXL latent decoded sequence-parallel at sp 4 and at CFG 2 x sp 2 through
+   ``pipelines.decode_latents``, each rank's ms and peak memory and d = 512
+   launches (n log-sum-exp, 0 plain), rank 0 also decoding it whole in bf16
+   and in float32: each image no further from the float32 one than the bf16
+   whole decode, times 1.05 (relative L2; its distance to the bf16 whole
+   decode printed beside it).  The pipelines of the
+   image-in-patches runs decode sequence-parallel: 2 log-sum-exp launches
+   of the d = 512 instance a call, none of the plain one (derived from the
+   config, ``decode_launches``).  On every rank: a finite image, the same
+   bit for bit on all ranks, 4*140 + 2 flash launches (SD 1.5: 130;
+   tensor parallelism, which decodes whole: 4*140 + 1), the
    steps by phase, with the wall time, step times, peak
    memory and the patch path's stale buffers by layer kind.  With ranks
    sharing the card, ``use_cuda_graph=True`` must be refused and the runs
@@ -161,7 +182,12 @@ shapes (the log-sum-exp rows too), the refresh quantization rows and the
 multi-rank phase; with ``--profile`` each rank also
 profiles one more call of each run in each mode, with the device
 activities (kernel launches, NCCL's and memory copies included) of each
-step by the evaluation it ran (``launches_by_phase``).
+step by the evaluation it ran (``launches_by_phase``) and an "overlap"
+line per run, rank and mode: for each stale step its NCCL kernels' own
+device time, the share of it that lies under the rank's compute kernels
+and the exposed NCCL time (``stale_step_overlap``).  ``--runs a,b``
+(with ``--patch_only``) runs only those multi-rank runs, without the
+kernel rows and the kernels line.
 ``--quant_device_times`` runs only the device time of the quantized-matmul
 kernel's fp32 contract form and of the per-token quantization kernel at
 every SDXL and SD 1.5 path shape, the latter also with a cold L2 (a 256 MB
@@ -211,7 +237,7 @@ SIZES = {"sdxl": 1024, "sd15": 512, "sd21": 768}
 SD15, SD21 = "@sd15", "@sd21"
 SD15_HEAD_DIMS = (40, 80, 160)
 CODEC_TABLE = 192  # segments a refresh-codec launch takes (ops/quantize.py CAPACITY)
-SPAWN_DEADLINE_S = 420  # one spawn of the multi-rank phase, profiles included
+SPAWN_DEADLINE_S = 720  # one spawn of the multi-rank phase, profiles included
 GRAPH_REL_L2 = 1e-3  # graphed vs eager latent over NCCL, where not bit-identical
 # the multi-rank runs: config fields, tiny checks (extra fields each), steps
 # by phase; tensor parallelism without the CFG split (B = 2 on every rank)
@@ -240,12 +266,35 @@ MULTI_RUNS = {
     "sd15_patch": ({"mode": "stale_gn", "warmup_steps": PATCH_WARMUP}, [{}],
                    {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1},
                    "sd15", PATCH_STEPS),
+    # two image groups of sp 2 (the displaced path, CFG folded), one prompt
+    # each; its tiny check takes two prompts too
+    "dp": ({"dp_degree": 2, "batch_size": 2, "split_batch": False,
+            "warmup_steps": PATCH_WARMUP}, [{"prompts": 2}],
+           {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1}, "sdxl",
+           PATCH_STEPS),
 }
 KNOB_RUNS = ("ring", "compress_pcpp", "stepcache_batch")
 # the ring attention's chunk shapes at CFG 2 x sp 2 (B = 1, L / 2 queries
 # against one rank's L / 2 keys), as the flash kernel's log-sum-exp
 # instances see them: SDXL's level 1 and level 2 (mid) self-attention
 RING_HOPS = (("ring_hop_l1", 1, 2048, 2048, 10, 64), ("ring_hop_l2", 1, 512, 512, 20, 64))
+# the sequence-parallel decode's ring (models/vae.py decode_sp), as the d = 512
+# log-sum-exp instance sees it: one rank's L/n queries against one rank's L/n
+# keys of the VAE mid attention, n launches a decode; (name, B, Lq, Lk, H, d,
+# launches a decode): the multi-rank runs' 1024x1024 SDXL and 512x512 SD 1.5
+# decodes at sp 2, and the 2048x2048 decode at sp 2 and sp 4
+VAE_RING_HOPS = (("vae_ring_1024_sp2", 1, 8192, 8192, 1, 512, 2),
+                 ("vae_ring_512_sp2" + SD15, 1, 2048, 2048, 1, 512, 2),
+                 ("vae_ring_2048_sp2", 1, 32768, 32768, 1, 512, 2),
+                 ("vae_ring_2048_sp4", 1, 16384, 16384, 1, 512, 4))
+# the 2048x2048 sequence-parallel decode at world 4: sp 4, and CFG 2 x sp 2
+DECODE_SP_LAYOUTS = (("sp4", {"split_batch": False}), ("cfg2_sp2", {}))
+# the bf16 sequence-parallel decode's relative L2 against a float32 whole
+# decode may exceed the bf16 whole decode's by this factor at most
+DECODE_SP_NOISE_MARGIN = 1.05
+PROMPT2 = "a watercolor of a lighthouse on a cliff at dawn"
+# the prompts of each multi-rank run's calls (default: PROMPT)
+RUN_PROMPTS = {"dp": [PROMPT, PROMPT2]}
 # img2img at 1024x1024: strength 0.5 of 4 steps runs steps 2 and 3; the
 # multi-rank run's 0.75 runs steps 1-3 (2 synchronous, 1 stale at warmup 1)
 I2I_STEPS, I2I_STRENGTH, PATCH_I2I_STRENGTH = 4, 0.5, 0.75
@@ -354,8 +403,8 @@ def patch_attention_shapes(shapes, n, batch):
     n patches and ``batch`` rows per rank (1 under the CFG split with one
     prompt, 2 without it): each UNet attention takes this rank's L/n
     queries, self-attention against all L gathered keys, cross-attention
-    against the text; the VAE decodes the whole latent on every rank, so
-    its row is unchanged."""
+    against the text; the VAE row is left as it is (the sequence-parallel
+    decode's are ``VAE_RING_HOPS``)."""
     out = []
     for name, b, lq, lk, heads, d, calls in shapes:
         if name.startswith("unet"):
@@ -485,11 +534,39 @@ def refresh_sources(ucfg, height, width, n, batch, shallow_depth=0):
     return out
 
 
+def decode_launches(fields, model):
+    """(plain, log-sum-exp) flash launches of one decode of a multi-rank
+    run at PATCH_WORLD with config ``fields``: n of the d = 512 log-sum-exp
+    instance where the pipeline decodes sequence-parallel over n ranks
+    (``decoder_choice``: the image in patches, ``vae_sp`` on, the latent
+    rows divide), else one of the plain instance (a whole decode)."""
+    group = PATCH_WORLD // fields.get("dp_degree", 1)
+    n = group // 2 if fields.get("split_batch", True) else group
+    sp = (fields.get("parallelism", "patch") in ("patch", "naive_patch") and n > 1
+          and fields.get("vae_sp", True) and (SIZES[model] // 8) % n == 0)
+    return (0, n) if sp else (1, 0)
+
+
+def multi_expected(label, ucfg):
+    """The launches one call of the multi-rank run ``label`` makes on one
+    rank: the comm-knob runs' (``knob_expected``), else the UNet's
+    attentions at every step and the decode's (``decode_launches``)."""
+    fields, _, _, model, steps = MULTI_RUNS[label]
+    if label in KNOB_RUNS:
+        return knob_expected(label, ucfg)
+    plain, lse = decode_launches(fields, model)
+    from distrifuser_tpu_torch.models import unet
+
+    return {"flash_sdpa": steps * unet.attention_calls_per_forward(ucfg) + plain + lse,
+            "flash_sdpa_lse": lse, "quant_matmul": 0, "quantize_rows": 0}
+
+
 def knob_expected(label, ucfg):
     """The launches one call of a comm-knob run makes on one rank at CFG 2 x
     sp 2: flash (a ring self-attention launches the log-sum-exp instance
     once per chunk, n = 2; a shallow step runs only the shallow levels'
-    attention), its log-sum-exp instances, and the refresh codec's encode
+    attention; the decode ``decode_launches``), its log-sum-exp instances,
+    and the refresh codec's encode
     (quantize_rows) and decode (dequantize_rows) kernels in every stale or
     shallow step: one launch of each per compressed KV or halo payload, or
     under ``comm_batch`` one of each per flush (per CODEC_TABLE segments)."""
@@ -509,7 +586,8 @@ def knob_expected(label, ucfg):
     full_steps = counts["sync"] + counts["stale"]
     ring = fields.get("attn_impl") == "ring"
     per_full = unet.attention_calls_per_forward(ucfg) + (n - 1) * attn * ring
-    flash = full_steps * per_full + counts["shallow"] * 2 * attn_s + 1
+    plain, lse = decode_launches(fields, "sdxl")
+    flash = full_steps * per_full + counts["shallow"] * 2 * attn_s + plain + lse
     codec = 0
     if fields.get("comm_compress", "none") != "none":
         per_step = ((lambda p: -(-p // CODEC_TABLE)) if fields.get("comm_batch")
@@ -518,7 +596,8 @@ def knob_expected(label, ucfg):
         if counts["shallow"]:
             codec += counts["shallow"] * per_step(attn_s + halos_s)
     return {"flash_sdpa": flash, "quant_matmul": 0, "quantize_rows": codec,
-            "dequantize_rows": codec, "flash_sdpa_lse": full_steps * n * attn if ring else 0}
+            "dequantize_rows": codec,
+            "flash_sdpa_lse": (full_steps * n * attn if ring else 0) + lse}
 
 
 def refresh_codec_rows(ucfg, height, width):
@@ -672,13 +751,17 @@ def refresh_codec_phase(rows):
     return results
 
 
-def lse_kernel_phase():
+def lse_kernel_phase(spills):
     """The flash kernel's log-sum-exp instances at the ring's chunk shapes
-    (``RING_HOPS``): out (float32) and lse against the plain version
-    (out max |d| <= 2e-2, mean <= 2e-3; lse max |d| <= 1e-3), timed by CUDA
-    events and device time beside the plain version and
-    ``aten._scaled_dot_product_flash_attention``, the one PyTorch call
-    that also returns the log-sum-exp."""
+    (``RING_HOPS``, d = 64) and the sequence-parallel decode's
+    (``VAE_RING_HOPS``, d = 512): out (float32) and lse against the plain
+    version (out max |d| <= 2e-2, mean <= 2e-3; lse max |d| <= 1e-3), timed
+    by CUDA events and device time beside the plain version and the one
+    PyTorch call that also returns the log-sum-exp at the head dim:
+    ``aten._scaled_dot_product_flash_attention`` up to d = 256,
+    ``aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp`` above; each row names the instance's registers
+    and spilled bytes."""
     import torch
 
     from distrifuser_tpu_torch.models import unet
@@ -690,16 +773,24 @@ def lse_kernel_phase():
     fields, _, _, _, steps = MULTI_RUNS["ring"]
     counts = phase_step_counts(steps, fields["warmup_steps"], 1)
     full_steps = counts["sync"] + counts["stale"]
+    hops = [(*hop, full_steps * 2 * blocks[int(hop[0][-1])])  # two chunks a layer at sp 2
+            for hop in RING_HOPS] + list(VAE_RING_HOPS)
     results = []
-    for name, b, lq, lk, heads, d in RING_HOPS:
-        level = int(name[-1])
-        calls = full_steps * 2 * blocks[level]  # two chunks a layer at sp 2
+    for name, b, lq, lk, heads, d, calls in hops:
         c = heads * d
         g = torch.Generator(device="cuda").manual_seed(100 + len(results))
         q = torch.randn(b, lq, c, device="cuda", generator=g).bfloat16()
         k, v = torch.randn(b, lk, 2 * c, device="cuda", generator=g).bfloat16().chunk(2, -1)
+        rows = max(1, (1 << 28) // (b * heads * lk))  # query rows a plain chunk
+
+        def plain():
+            """The plain version, over query chunks of at most 2^28 logits."""
+            parts = [fa.flash_sdpa_reference(q[:, i:i + rows], k, v, heads=heads,
+                                             return_lse=True) for i in range(0, lq, rows)]
+            return torch.cat([o for o, _ in parts], 1), torch.cat([s for _, s in parts], 2)
+
         out, lse = fa.flash_sdpa(q, k, v, heads=heads, return_lse=True)
-        want, want_lse = fa.flash_sdpa_reference(q, k, v, heads=heads, return_lse=True)
+        want, want_lse = plain()
         torch.cuda.synchronize()
         err = (out - want).abs()
         lse_err = (lse - want_lse).abs().max().item()
@@ -712,15 +803,24 @@ def lse_kernel_phase():
             return fa.flash_sdpa(q, k, v, heads=heads, return_lse=True)
 
         qh, kh, vh = (t.unflatten(-1, (heads, d)).transpose(1, 2) for t in (q, k, v))
+        if d <= 256:
+            library_name = "aten._scaled_dot_product_flash_attention"
 
-        def library():
-            return torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh)
+            def library():
+                return torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh)
+        else:
+            library_name = "aten._scaled_dot_product_efficient_attention"
+
+            def library():
+                return torch.ops.aten._scaled_dot_product_efficient_attention(
+                    qh, kh, vh, None, True)
 
         try:
             library_ms, library_dev_ms = time_ms(library), device_ms(library)
         except RuntimeError as e:  # no library kernel for this layout
             print(f"library flash attention unavailable at {name}: {e}", file=sys.stderr)
             library_ms = library_dev_ms = None
+            library_name = f"none ({str(e).splitlines()[0][:160]})"
         flops = 4.0 * b * heads * lq * lk * d
         nbytes = 2.0 * (b * lq * c + 2 * b * lk * c) + 4.0 * (b * lq * c + b * heads * lq)
         ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -729,12 +829,13 @@ def lse_kernel_phase():
                "return_lse": True, "launches_per_call": calls, "max_abs_err": max_err,
                "mean_abs_err": mean_err, "lse_max_abs_err": lse_err, "ms": ms,
                "device_ms": device_ms(kernel),
-               "plain_ms": time_ms(lambda: fa.flash_sdpa_reference(
-                   q, k, v, heads=heads, return_lse=True), max_iters=10),
+               "plain_ms": time_ms(plain, max_iters=10),
+               "library": library_name,
                "library_ms": library_ms, "library_device_ms": library_dev_ms,
                "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-               "tflops": flops / (ms * 1e-3) / 1e12, **fa.variant(d, lse=True)}
+               "tflops": flops / (ms * 1e-3) / 1e12, **fa.variant(d, lse=True),
+               "spill_store_bytes": spills.get((d, True))}
         print(json.dumps(row), flush=True)
         results.append(row)
         del q, k, v, out, lse, want, want_lse, err
@@ -818,7 +919,7 @@ def kernel_phase(shapes, spills):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "tflops": flops / (ms * 1e-3) / 1e12, "host_us_per_launch": host_us,
             **fa.variant(d),  # registers per thread, shared memory bytes, tiles
-            "spill_store_bytes": spills.get(d),
+            "spill_store_bytes": spills.get((d, False)),
             **({} if kv_view is None else {"kv_view_of_gathered": kv_view}),
         }
         print(json.dumps(row), flush=True)
@@ -1126,13 +1227,15 @@ def tiny_sd15_config():
         projection_class_embeddings_input_dim=0)
 
 
-def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", **fields):
+def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", prompts=1,
+               **fields):
     """Tiny pipeline of ``model`` ("sdxl": the SDXL block structure; "sd15":
     ``tiny_sd15_config``, its head dims 40 and 80): bf16 on the card
     (kernels) vs float32 on the CPU (plain versions), same weights and
-    latents; a quantized check quantizes the same dense weights on each
-    side.  ``fields`` go to both configs (the patch phase passes the sync
-    mode and warmup).  Returns the result line; raises over the limit."""
+    latents, ``prompts`` prompts (1 or 2); a quantized check quantizes the
+    same dense weights on each side.  ``fields`` go to both configs (the
+    patch phase passes the sync mode and warmup).  Returns the result line;
+    raises over the limit."""
     import numpy as np
     import torch
 
@@ -1152,7 +1255,8 @@ def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", **f
                                      projection_dim=32)]
     trees = (unet.init_unet_params(gen, ucfg), vae.init_vae_params(gen, vcfg),
              [clip.init_clip_params(gen, tc) for tc in tcfgs])
-    latents = np.random.RandomState(0).randn(1, 16, 16, 4).astype(np.float32)
+    latents = np.random.RandomState(0).randn(prompts, 16, 16, 4).astype(np.float32)
+    texts = ["a lighthouse at dusk", "a red boat on a lake"][:prompts]
     quant = {} if weight_quant == "none" else {"weight_quant": weight_quant,
                                                 "quant_compute": "pallas"}
     outs = []
@@ -1162,8 +1266,8 @@ def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", **f
         ts = [cast_params(t, dtype, device) for t in trees[2]]
         cfg = DistriConfig(device=device, height=128, width=128, **quant, **fields)
         pipe = cls.from_params(cfg, ucfg, u, vcfg, v, tcfgs, ts, scheduler=scheduler)
-        outs.append(pipe("a lighthouse at dusk", num_inference_steps=steps,
-                         latents=latents, output_type="latent").images[0])
+        outs.append(np.stack(pipe(texts, num_inference_steps=steps, latents=latents,
+                                  output_type="latent").images))
     ref, got = outs
     if not np.isfinite(got).all():
         raise AssertionError("tiny pipeline on the card gave non-finite latents")
@@ -1171,7 +1275,8 @@ def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", **f
     limit = TINY_REL_L2["fp8" if "fp8" in (weight_quant, fields.get("comm_compress"))
                         else weight_quant]
     result = {"phase": "tiny_check", "model": model, "scheduler": scheduler,
-              "weight_quant": weight_quant, "steps": steps, **fields, "rel_l2": rel,
+              "weight_quant": weight_quant, "steps": steps, "prompts": prompts, **fields,
+              "rel_l2": rel,
               "max_abs": float(np.abs(got - ref).max()), "limit_rel_l2": limit}
     if rel > limit:
         raise AssertionError(f"tiny pipeline ({weight_quant}, {fields}) bf16/card vs "
@@ -1286,6 +1391,7 @@ def reset_counts():
 
     fa.flash_sdpa.launches = fa.flash_sdpa.lse_launches = 0
     fa.flash_sdpa.launches_by_head_dim.clear()
+    fa.flash_sdpa.lse_launches_by_head_dim.clear()
     qm.quant_matmul.launches = 0
     for fn in (qz.quantize_rows, qz.quantize_rows_grouped, qz.dequantize_rows_grouped):
         fn.launches = 0
@@ -1334,12 +1440,15 @@ def image_digest(img):
     return hashlib.sha256(img.tobytes()).hexdigest()
 
 
-def pipeline_run(pipe, init_s, label, expected, model="sdxl", num_steps=4):
-    """One ``num_steps``-step call at the pipeline's size with every launch
-    count set to 0 just before it and read just after it; checks the image
-    and the counts against ``expected`` (its keys; the log-sum-exp launches
-    must be 0 unless it names them) and returns (result line, final
-    latent).  An eager call also reports the flash launches by head dim."""
+def pipeline_run(pipe, init_s, label, expected, model="sdxl", num_steps=4, prompts=None):
+    """One ``num_steps``-step call at the pipeline's size of ``prompts``
+    (default: PROMPT alone) with every launch count set to 0 just before it
+    and read just after it; checks the images and the counts against
+    ``expected`` (its keys; the log-sum-exp launches must be 0 unless it
+    names them) and returns (result line, final latents).  An eager call
+    also reports the flash launches by head dim; every call those of the
+    d = 512 instances (the VAE's, never graphed): its plain and its
+    log-sum-exp one."""
     import numpy as np
     import torch
 
@@ -1352,20 +1461,26 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl", num_steps=4):
         marks.append(time.perf_counter())
         last["x"] = x
 
+    prompts = prompts or [PROMPT]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    out = pipe(PROMPT, num_inference_steps=num_steps, seed=0, output_type="np",
+    out = pipe(prompts, num_inference_steps=num_steps, seed=0, output_type="np",
                callback=on_step)
     total_s = time.perf_counter() - t0
     launches = read_counts()
     by_head_dim = dict(sorted(fa.flash_sdpa.launches_by_head_dim.items()))
-    img = out.images[0]
+    lse512 = fa.flash_sdpa.lse_launches_by_head_dim[512]
+    d512 = {"plain": fa.flash_sdpa.launches_by_head_dim[512] - lse512, "lse": lse512}
     cfg = pipe.distri_config
-    if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all():
-        raise AssertionError(f"{label}: image shape {img.shape}, finite "
-                             f"{np.isfinite(img).all()}")
+    for img in out.images:
+        if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"{label}: image shape {img.shape}, finite "
+                                 f"{np.isfinite(img).all()}")
+    if len(out.images) != len(prompts):
+        raise AssertionError(f"{label}: {len(out.images)} images for {len(prompts)} prompts")
+    img = np.concatenate(out.images)
     if launches != {"flash_sdpa_lse": 0, "dequantize_rows": 0, **expected}:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
     pixels = (img * 255).round().astype(np.uint8)
@@ -1378,7 +1493,8 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl", num_steps=4):
         "weight_quant": report["weight_quant"],
         "weight_quant_aux": report["weight_quant_aux"],
         "quant_compute": report["quant_compute"],
-        "height": cfg.height, "width": cfg.width, "steps": num_steps, "prompts": 1,
+        "height": cfg.height, "width": cfg.width, "steps": num_steps,
+        "prompts": len(prompts),
         "init_s": init_s, "total_s": total_s,
         "first_step_ms_incl_text_encode": (marks[0] - t0) * 1e3,
         "step_ms": steps, "decode_and_copy_ms": (t0 + total_s - marks[-1]) * 1e3,
@@ -1389,16 +1505,19 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl", num_steps=4):
         "flash_sdpa_launches": launches["flash_sdpa"],
         "flash_sdpa_lse_launches": launches["flash_sdpa_lse"],
         **({} if cfg.use_cuda_graph else {"flash_sdpa_launches_by_head_dim": by_head_dim}),
+        "flash_sdpa_d512_launches": d512,
         "quant_matmul_launches": launches["quant_matmul"],
         "quantize_rows_launches": launches["quantize_rows"],
         "dequantize_rows_launches": launches["dequantize_rows"],
         "pixel_mean": float(pixels.mean()),
         "image_sha256": image_digest(img),
+        **({} if len(prompts) == 1 else
+           {"image_sha256_each": [image_digest(im) for im in out.images]}),
     }
     return result, last["x"].float().cpu().numpy()
 
 
-def graphed_runs(pipe, init_s, label, expected, steps=4, model="sdxl"):
+def graphed_runs(pipe, init_s, label, expected, steps=4, model="sdxl", prompts=None):
     """The pipeline's warm call eagerly, then under CUDA graphs (captured
     by ``prepare``, then one untimed call), each measured by
     ``pipeline_run``; returns (eager line, graphed line, the graphed vs
@@ -1408,21 +1527,22 @@ def graphed_runs(pipe, init_s, label, expected, steps=4, model="sdxl"):
     under capture; the line says which held)."""
     import numpy as np
 
+    prompts = prompts or [PROMPT]
     pipe.set_stepwise(True)
     t0 = time.perf_counter()  # a first call loads kernels and picks algorithms
-    pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
+    pipe(prompts, num_inference_steps=steps, seed=0, output_type="np")
     eager_warmup_s = time.perf_counter() - t0
-    eager, eager_x = pipeline_run(pipe, init_s, label, expected, model, steps)
+    eager, eager_x = pipeline_run(pipe, init_s, label, expected, model, steps, prompts)
     eager["warmup_call_s"] = eager_warmup_s
     pipe.set_stepwise(False)
     t0 = time.perf_counter()
     pipe.prepare(steps)
     capture_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
+    pipe(prompts, num_inference_steps=steps, seed=0, output_type="np")
     first_s = time.perf_counter() - t0
     graphed, graphed_x = pipeline_run(pipe, init_s, label + " graphed", expected, model,
-                                      steps)
+                                      steps, prompts)
     graphed.update({"prepare_capture_s": capture_s, "first_graphed_call_s": first_s,
                     "graphs": sorted(pipe.runner.graphs.graphs)})
     rel = float(np.linalg.norm(graphed_x - eager_x) / np.linalg.norm(eager_x))
@@ -1831,21 +1951,24 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
     try:
         set_precision_flags()
         graphs = backend != "gloo"
-        if not graphs and not _refuses_graphs(model_configs(MULTI_RUNS[labels[0]][3])[0]):
+        first = next((label for label in labels if label in MULTI_RUNS), "patch")
+        if not graphs and not _refuses_graphs(model_configs(MULTI_RUNS[first][3])[0]):
             raise AssertionError(f"rank {rank}: use_cuda_graph=True was not refused "
                                  "with ranks sharing a card over gloo")
         out, trees = {}, {}
         for label in labels:
+            if label == "decode_sp":
+                trees = {}  # the decode needs the VAE alone
+                torch.cuda.empty_cache()
+                out[label] = _decode_sp_runs(rank, world)
+                continue
             fields, tinies, want, model, steps = MULTI_RUNS[label]
             t0 = time.perf_counter()
             if model not in trees:
                 trees = {model: build_trees(model)}  # one family's trees at a time
             trees_s = time.perf_counter() - t0
-            if label in KNOB_RUNS:
-                expected = knob_expected(label, trees[model][0])
-            else:
-                expected = {"flash_sdpa": expected_flash_launches(model, steps),
-                            "quant_matmul": 0, "quantize_rows": 0}
+            expected = multi_expected(label, trees[model][0])
+            prompts = RUN_PROMPTS.get(label, [PROMPT])
             tiny = [tiny_check(steps=steps, model=model, use_cuda_graph=False,
                                **{**fields, **t}) for t in tinies]
             pipe, init_s = build_pipeline(trees[model], model, use_cuda_graph=False,
@@ -1855,27 +1978,37 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
             compare = None
             if graphs:
                 eager, line, compare, latent = graphed_runs(pipe, init_s, name, expected,
-                                                            steps=steps, model=model)
+                                                            steps=steps, model=model,
+                                                            prompts=prompts)
                 lines = [eager, line]
             else:
                 warmup_s = None
-                if label in ("patch", "sd15_patch") + KNOB_RUNS:
+                if label in ("patch", "sd15_patch", "dp") + KNOB_RUNS:
                     t0 = time.perf_counter()
-                    pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
+                    pipe(prompts, num_inference_steps=steps, seed=0, output_type="np")
                     warmup_s = time.perf_counter() - t0
-                line, latent = pipeline_run(pipe, init_s, name, expected, model, steps)
+                line, latent = pipeline_run(pipe, init_s, name, expected, model, steps,
+                                            prompts)
                 line["warmup_call_s"] = warmup_s
                 lines = [line]
             cfg = pipe.distri_config
             phases = pipe.runner.phase_counts
             if phases != want:
                 raise AssertionError(f"{name}: steps by phase {phases}, expected {want}")
+            plain, lse = decode_launches(fields, model)
+            for line in lines:  # the decode's launches by d = 512 instance
+                if line["flash_sdpa_d512_launches"] != {"plain": plain, "lse": lse}:
+                    raise AssertionError(f"{name}: d = 512 launches "
+                                         f"{line['flash_sdpa_d512_launches']}, expected "
+                                         f"{plain} plain and {lse} log-sum-exp")
             free, total = torch.cuda.mem_get_info()
             for line in lines:
                 line.update({
                     "phase": f"{label}_pipeline", "rank": rank, "world": world,
                     "parallelism": cfg.parallelism, "split_scheme": cfg.split_scheme,
                     "batch_idx": cfg.batch_idx(), "split_idx": cfg.split_idx(),
+                    "dp_degree": cfg.dp_degree, "dp_idx": cfg.dp_idx(),
+                    "vae_decode_parallel": pipe.vae_decode_parallel,
                     "n_device_per_batch": cfg.n_device_per_batch, "mode": cfg.mode,
                     "warmup_steps": cfg.warmup_steps, "steps_by_phase": phases,
                     "comm_volume_elements": pipe.runner.comm_volume_report(),
@@ -1884,7 +2017,7 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
                 if label in KNOB_RUNS or label == "patch":
                     line.update(knob_line(pipe, line, latent, label, out_dir, rank, steps))
             if profile:
-                call = lambda cb: pipe(PROMPT, num_inference_steps=steps,  # noqa: E731
+                call = lambda cb: pipe(prompts, num_inference_steps=steps,  # noqa: E731
                                        seed=0, output_type="np", callback=cb)
                 for line in lines:
                     pipe.set_stepwise(not line["use_cuda_graph"])
@@ -1911,6 +2044,138 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
         gc.collect()
         torch.cuda.synchronize()
         dist.destroy_process_group()
+
+
+def _decode_sp_runs(rank, world):
+    """One rank of the sequence-parallel decode at ``world`` ranks
+    (``pipelines.decode_latents``, which the pipelines call): the tiny VAE
+    at sp ``world`` on the card (bf16) against the CPU (float32) at this
+    world (relative L2 <= 8e-2); then a seeded 2048x2048 SDXL latent (1,
+    256, 256, 4) through the SDXL VAE (seeded random bf16 weights) in each
+    layout of DECODE_SP_LAYOUTS: one untimed call, then the measured one,
+    with this rank's ms, its peak memory above what was allocated before
+    the call, and the d = 512 launches by instance (n log-sum-exp, 0
+    plain).  Rank 0 also decodes the latent whole, timed the same way, and
+    in float32 (``fp32_reference_decode``): each layout's image may be no
+    further from the float32 decode than the bf16 whole decode is, times
+    DECODE_SP_NOISE_MARGIN (relative L2); its distance to the bf16 whole
+    decode is reported beside it.  Returns the rank's result as the
+    pipeline runs give it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distrifuser_tpu_torch import DistriConfig
+    from distrifuser_tpu_torch.models import vae
+    from distrifuser_tpu_torch.models.unet import cast_params
+    from distrifuser_tpu_torch.ops import flash_attention as fa
+    from distrifuser_tpu_torch.pipelines import decode_latents, decoder_choice
+
+    tcfg = vae.tiny_vae_config()
+    tparams = vae.init_vae_params(torch.Generator().manual_seed(0), tcfg)
+    lat = torch.from_numpy(np.random.RandomState(0).randn(1, 16, 12, 4).astype(np.float32))
+    outs = []
+    for device, dtype in CHECK_DEVICES:
+        dtype = getattr(torch, dtype)
+        cfg = DistriConfig(device=device, height=8 * 16, width=8 * 12, split_batch=False,
+                           use_cuda_graph=False)
+        outs.append(decode_latents(cfg, tcfg, cast_params(tparams, dtype, device),
+                                   lat.to(device, dtype)).float().cpu().numpy())
+    ref, got = outs
+    rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    tiny = {"phase": "decode_sp_tiny_check", "n": cfg.n_device_per_batch,
+            "latent": [1, 16, 12, 4], "rel_l2": rel, "max_abs": float(np.abs(got - ref).max()),
+            "limit_rel_l2": TINY_REL_L2["none"]}
+    if not (np.isfinite(got).all() and rel <= TINY_REL_L2["none"]):
+        raise AssertionError(f"decode_sp bf16/card vs fp32/cpu: {tiny}")
+
+    vcfg = vae.sdxl_vae_config()
+    params = vae.init_vae_params(torch.Generator(device="cuda").manual_seed(0), vcfg,
+                                 torch.bfloat16)
+    lh = DECODE_SIZE // 8
+    latent = torch.randn(1, lh, lh, 4, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0)).bfloat16()
+
+    def measured(decode, together=True):
+        """(image, ms, peak bytes above the base, d = 512 launches) of a
+        second call of ``decode``; ``together``: every rank starts it at
+        once (a collective decode)."""
+        decode()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        if together:
+            dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        img = decode()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        lse = fa.flash_sdpa.lse_launches_by_head_dim[512]
+        return (img.float().cpu().numpy(), ms, torch.cuda.max_memory_allocated() - base,
+                {"plain": fa.flash_sdpa.launches_by_head_dim[512] - lse, "lse": lse})
+
+    whole = ref = None
+    if rank == 0:  # the others wait for it in their first collective
+        ref = fp32_reference_decode(params, vcfg, latent)
+        torch.cuda.empty_cache()
+        whole = measured(lambda: vae.decode(params, vcfg, latent), together=False)
+    lines = []
+    for name, fields in DECODE_SP_LAYOUTS:
+        cfg = DistriConfig(height=DECODE_SIZE, width=DECODE_SIZE, use_cuda_graph=False,
+                           **fields)
+        if decoder_choice(cfg) != (True, 0):
+            raise AssertionError(f"decode_sp {name}: decoder {decoder_choice(cfg)}")
+        n = cfg.n_device_per_batch
+        img, ms, peak, d512 = measured(lambda: decode_latents(cfg, vcfg, params, latent))
+        if d512 != {"plain": 0, "lse": n} or img.shape != (1, DECODE_SIZE, DECODE_SIZE, 3):
+            raise AssertionError(f"decode_sp {name} rank {rank}: d = 512 launches {d512}, "
+                                 f"image {img.shape}")
+        line = {"phase": "decode_sp_2048", "run": name, "rank": rank, "world": world,
+                "n": n, "batch_idx": cfg.batch_idx(), "split_idx": cfg.split_idx(),
+                "latent": [1, lh, lh, 4], "ms": ms, "peak_allocated_above_base_bytes": peak,
+                "flash_sdpa_d512_launches": d512, "finite": bool(np.isfinite(img).all()),
+                "image_sha256": image_digest(img)}
+        if whole is not None:
+            rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
+            line.update({"rel_l2_vs_whole": rel(img, whole[0]),
+                         "rel_l2_vs_fp32_whole": rel(img, ref),
+                         "whole_rel_l2_vs_fp32_whole": rel(whole[0], ref),
+                         "limit_rel_l2_vs_fp32_whole": rel(whole[0], ref) * DECODE_SP_NOISE_MARGIN,
+                         "whole_ms": whole[1], "whole_peak_allocated_above_base_bytes":
+                         whole[2], "whole_d512_launches": whole[3]})
+            if not (line["finite"] and line["rel_l2_vs_fp32_whole"]
+                    <= line["limit_rel_l2_vs_fp32_whole"]):
+                raise AssertionError(f"decode_sp {name}: {line}")
+        lines.append(line)
+        del img
+        torch.cuda.empty_cache()
+    return {"lines": lines, "tiny": [tiny], "compare": None}
+
+
+def fp32_reference_decode(params, vcfg, latent):
+    """The whole decode of ``latent`` in float32 on the card (TF32 off), its
+    mid attention through the flash kernel's plain version in query chunks
+    (the kernel has bf16 instances only): the reference that the bf16
+    decodes are held to.  Returns the image as a float32 numpy array."""
+    import torch
+
+    from distrifuser_tpu_torch.models import vae
+    from distrifuser_tpu_torch.models.unet import cast_params
+    from distrifuser_tpu_torch.ops import flash_attention as fa
+
+    def plain_sdpa(q, k, v, *, heads):
+        rows = max(1, (1 << 28) // k.shape[1])
+        return torch.cat([fa.flash_sdpa_reference(q[:, i:i + rows], k, v, heads=heads)
+                          for i in range(0, q.shape[1], rows)], dim=1)
+
+    kernel_sdpa, vae.sdpa = vae.sdpa, plain_sdpa
+    try:
+        return vae.decode(cast_params(params, torch.float32, "cuda"), vcfg,
+                          latent.float()).cpu().numpy()
+    finally:
+        vae.sdpa = kernel_sdpa
 
 
 def knob_line(pipe, line, latent, label, out_dir, rank, steps):
@@ -1940,8 +2205,9 @@ def knob_line(pipe, line, latent, label, out_dir, rank, steps):
 def _multi_rank_img2img(pipe, name, model):
     """One img2img call of a multi-rank pipeline at strength 0.75 of 4
     steps: steps 1-3 run, 2 synchronous (counted from the first step that
-    runs) and 1 stale at warmup 1 (3 x 140 flash launches, the encoder's
-    and the decoder's).  Returns its line."""
+    runs) and 1 stale at warmup 1 (3 x 140 flash launches, the encoder's,
+    whole, and the decoder's: n log-sum-exp launches at sp n).  Returns
+    its line."""
     import numpy as np
 
     from distrifuser_tpu_torch.models import unet
@@ -1951,7 +2217,8 @@ def _multi_rank_img2img(pipe, name, model):
     out, secs, launches = counted_call(
         lambda: pipe(PROMPT, image=image, strength=PATCH_I2I_STRENGTH,
                      num_inference_steps=PATCH_STEPS, seed=0, output_type="np").images[0],
-        f"{name} img2img", 3 * per_step + 2)
+        f"{name} img2img", 3 * per_step + 1 + sum(decode_launches(MULTI_RUNS["patch"][0],
+                                                                  model)))
     phases = dict(pipe.runner.phase_counts)
     if phases != {"sync": 2, "stale": 1} or not np.isfinite(out).all():
         raise AssertionError(f"{name} img2img: steps by phase {phases}")
@@ -1997,7 +2264,7 @@ def _spawn(world, labels, backend, out_dir, profile):
     return ranks
 
 
-def patch_phase(dense_latent, out_dir, profile=False):
+def patch_phase(dense_latent, out_dir, profile=False, runs=None):
     """Displaced patch (CFG 2 x sp 2, corrected_async_gn, warmup 1: 2
     synchronous and 2 stale steps), naive patch (CFG 2 x sp 2, alternate)
     and tensor parallelism (``tp_layout``) of SDXL, and SD 1.5's displaced
@@ -2009,7 +2276,9 @@ def patch_phase(dense_latent, out_dir, profile=False):
     rank's lines, each rank's graphed-vs-eager comparison and the patch
     image against the single-card dense one (information only); returns
     rank 0's lines of each run (eager, then graphed over NCCL).
-    ``profile`` adds each rank's profile of one more call."""
+    ``profile`` adds each rank's profile of one more call.  ``runs`` (labels
+    of MULTI_RUNS and "decode_sp") runs only those, in one spawn at
+    PATCH_WORLD."""
     import numpy as np
     import torch
 
@@ -2021,7 +2290,9 @@ def patch_phase(dense_latent, out_dir, profile=False):
         spawns[0][1].append("tensor")
     else:
         spawns.append((tp_world, ["tensor"]))
-    spawns[0][1].append("sd15_patch")
+    spawns[0][1].extend(["sd15_patch", "dp", "decode_sp"])
+    if runs:
+        spawns = [(PATCH_WORLD, list(runs))]
     print(json.dumps({"phase": "patch_transport", "world": PATCH_WORLD, **transport,
                       "tensor_parallel": {"world": tp_world, "n": tp_n}}), flush=True)
     results = {}
@@ -2039,7 +2310,13 @@ def patch_phase(dense_latent, out_dir, profile=False):
                     raise AssertionError(f"{label}: the ranks returned different images: "
                                          f"{sorted(images)}")
                 for line in lines:
+                    overlap = line.get("profile", {}).pop("overlap", None)
                     print(json.dumps(line), flush=True)
+                    if overlap:
+                        print(json.dumps({"phase": "overlap", "run": label,
+                                          "rank": line["rank"],
+                                          "use_cuda_graph": line["use_cuda_graph"],
+                                          "stale_steps": overlap}), flush=True)
             if "img2img" in ranks[0][label]:
                 lines = [r[label]["img2img"] for r in ranks]
                 if len({line["image_sha256"] for line in lines}) != 1:
@@ -2057,6 +2334,8 @@ def patch_phase(dense_latent, out_dir, profile=False):
                         raise AssertionError(f"{compare['run']}: graphed latent rel L2 "
                                              f"{compare['latent_rel_l2']} over {GRAPH_REL_L2}")
             results[label] = ranks[0][label]["lines"]
+    if "patch" not in results:
+        return results
     latent = np.load(os.path.join(out_dir, f"w{PATCH_WORLD}", "latent_patch_rank0.npy"))
     info = {"phase": "patch_vs_dense", "same_image_on_all_ranks": True}
     if dense_latent is not None:
@@ -2091,6 +2370,73 @@ def _kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
+def _merge(intervals):
+    """The union of (start, end) intervals, as sorted disjoint intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(a, b, union):
+    """How much of [a, b] lies under the disjoint sorted intervals ``union``."""
+    return sum(max(0.0, min(b, y) - max(a, x)) for x, y in union if x < b and y > a)
+
+
+def stale_step_overlap(events, marks, phases, details_path):
+    """For each stale step of a profiled call (the device activities that
+    start between its two step marks): each NCCL kernel's own device time
+    and the share of its interval that lies under the rank's compute
+    kernels (every other kernel; memory copies left out), and the exposed
+    NCCL time, the time NCCL kernels run with no compute kernel beside
+    them.  NCCL kernels spin while they wait for their peers, so their own
+    time includes that wait.  The per-kernel list goes to
+    ``details_path``; returns each step's sums and, by kernel name, the
+    count, ms and covered share."""
+    import torch
+
+    kernels = [(e.time_range.start, e.time_range.end, e.name) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("nccl:")]
+    steps, details = [], []
+    for i in range(1, min(len(marks), len(phases))):
+        if phases[i] != "stale":
+            continue
+        lo, hi = marks[i - 1], marks[i]
+        step = [k for k in kernels if lo < k[0] <= hi]
+        nccl = [k for k in step if "nccl" in k[2].lower()]
+        compute = _merge([(a, b) for a, b, name in step if "nccl" not in name.lower()
+                          and not name.startswith(("Memcpy", "Memset"))])
+        by_name, own_us, covered_us = {}, 0.0, 0.0
+        for a, b, name in nccl:
+            cov = _covered(a, b, compute)
+            details.append({"step": i, "name": name, "ms": (b - a) / 1e3,
+                            "covered_share": cov / (b - a) if b > a else 1.0})
+            agg = by_name.setdefault(name[:60], {"count": 0, "ms": 0.0, "covered_ms": 0.0})
+            agg["count"] += 1
+            agg["ms"] += (b - a) / 1e3
+            agg["covered_ms"] += cov / 1e3
+            own_us += b - a
+            covered_us += cov
+        exposed_us = sum(y - x - _covered(x, y, compute)
+                         for x, y in _merge([(a, b) for a, b, _ in nccl]))
+        steps.append({
+            "step": i, "step_ms": (hi - lo) / 1e3, "nccl_kernels": len(nccl),
+            "nccl_ms": own_us / 1e3,
+            "nccl_covered_share": covered_us / own_us if own_us else None,
+            "exposed_nccl_ms": exposed_us / 1e3,
+            "compute_ms": sum(y - x for x, y in compute) / 1e3,
+            "by_kernel": {name: {"count": v["count"], "ms": v["ms"],
+                                 "covered_share": v["covered_ms"] / v["ms"] if v["ms"] else None}
+                          for name, v in by_name.items()}})
+    with open(details_path, "w") as f:
+        json.dump(details, f)
+    return steps
+
+
 def profile_call(fn, table_path, phases=None):
     """``fn()`` once under torch.profiler: the wall time, the device's busy
     time and idle share of it, device time by kernel family and the top
@@ -2104,7 +2450,8 @@ def profile_call(fn, table_path, phases=None):
     device activities (kernels, NCCL's included, and memory copies) that
     start between two marks are one step's, counted by the evaluation of
     that step (``launches_by_phase``, steps 1 on; step 0 shares its window
-    with the text encoders)."""
+    with the text encoders), and each stale step's NCCL overlap
+    (``stale_step_overlap``, ``overlap``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2146,8 +2493,9 @@ def profile_call(fn, table_path, phases=None):
         for i in range(1, min(len(marks), len(phases))):
             n = sum(1 for t in starts if marks[i - 1] < t <= marks[i])
             by_step.setdefault(phases[i], []).append(n)
+        overlap = stale_step_overlap(events, marks, phases, table_path + ".overlap.json")
     return {
-        **({"launches_by_phase": by_step} if phases is not None else {}),
+        **({"launches_by_phase": by_step, "overlap": overlap} if phases is not None else {}),
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms, "collective_ms": collective_ms,
         "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
@@ -2233,8 +2581,8 @@ def path_entry(rows, weights, launches, **fields):
 def build_kernels():
     """Build every kernel of the path, one nvcc per source, all started
     together; print each build's ptxas register and shared-memory report.
-    Returns the spill store bytes of each flash instance by head dim
-    (empty where an earlier build was reused)."""
+    Returns the spill store bytes of each flash instance by (head dim,
+    log-sum-exp?) (empty where an earlier build was reused)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from distrifuser_tpu_torch.ops import flash_attention as fa
@@ -2257,10 +2605,10 @@ def build_kernels():
             if any(k in line for k in ("Compiling entry", "registers", "spill")) or \
                     "error" in line.lower():
                 print(f"  ptxas: {line.strip()}", flush=True)
-            # a flash instance's entry (Config<D, ...>), then its spill line
-            entry = re.search(r"flash_fwd_kernel.*?ConfigILi(\d+)E", line)
+            # a flash instance's entry (Config<D, ...>, LSE), then its spill line
+            entry = re.search(r"flash_fwd_kernel.*?ConfigILi(\d+)E.*?Lb([01])E", line)
             if entry:
-                head_dim = int(entry.group(1))
+                head_dim = (int(entry.group(1)), entry.group(2) == "1")
             spill = re.search(r"(\d+) bytes spill stores", line)
             if spill and head_dim is not None:
                 spills[head_dim] = int(spill.group(1))
@@ -2288,6 +2636,10 @@ def main(argv) -> int:
                         help="only the multi-rank runs (patch, the comm-knob runs, "
                              "naive patch, tensor parallelism): their flash and "
                              "refresh-quantization shapes and the multi-rank phase")
+    parser.add_argument("--runs", default=None,
+                        help="with --patch_only: only these multi-rank runs, comma-"
+                             "separated (MULTI_RUNS labels, decode_sp), in one spawn, "
+                             "without the kernel rows and the kernels line")
     parser.add_argument("--quant_device_times", action="store_true",
                         help="only time the quantized-matmul kernel's contract form "
                              "and the per-token quantization on the card at every "
@@ -2348,6 +2700,11 @@ def main(argv) -> int:
     tp_n = tp_layout(torch.cuda.device_count())[1]
     tshapes = tp_attention_shapes(shapes, n=tp_n, batch=2)
     multi = [s for s in pshapes + nshapes + tshapes if not s[0].startswith(("unet", "vae"))]
+    # the dp run: each image group sp 2 with the CFG folded (B = 2, one image)
+    dp_n = PATCH_WORLD // MULTI_RUNS["dp"][0]["dp_degree"]
+    multi += [("dp_" + s[0][len("patch_"):], *s[1:])
+              for s in patch_attention_shapes(shapes, n=dp_n, batch=2)
+              if s[0].startswith("patch_")]
     # SD 1.5 at 512x512 ("@sd15" rows): its dense call and one patch rank
     ucfg15, vcfg15, _ = model_configs("sd15")
     size15 = SIZES["sd15"]
@@ -2383,27 +2740,63 @@ def main(argv) -> int:
                                 "(alternate)",
                  "tensor": f"one rank of tensor parallelism at tp {tp_n}",
                  "sd15_patch": "one rank of SD 1.5's patch path at CFG 2 x sp 2 "
-                               "(stale_gn)"}
+                               "(stale_gn)",
+                 "dp": "one rank of the dp run (2 image groups of sp 2, CFG folded), "
+                       "two prompts"}
         prefixes = {"patch": "patch_", "naive_patch": "naive_", "tensor": f"tp{tp_n}_",
-                    "sd15_patch": "patch_"}
+                    "sd15_patch": "patch_", "dp": "dp_"}
         out = {}
         for label, lines in multi_runs.items():
+            if label == "decode_sp":  # the d = 512 entry's paths
+                continue
             if label in KNOB_RUNS:
                 out[label] = knob_entry(rows, label, lines)
                 continue
             if label == "patch_img2img":
                 out[label] = path_entry(
-                    rows_of(rows, ("patch_unet", "vae_mid", "i2i_vae_encoder_mid"), "sdxl"),
-                    [("patch_unet", 0.75), ("vae_mid", 1), ("i2i_vae_encoder_mid", 1)],
+                    rows_of(rows, ("patch_unet", "i2i_vae_encoder_mid", "vae_ring_1024"),
+                            "sdxl"),
+                    [("patch_unet", 0.75), ("i2i_vae_encoder_mid", 1),
+                     ("vae_ring_1024_sp2", 1)],
                     lines["flash_sdpa_launches"], work=works[label])
                 continue
             fam = MULTI_RUNS[label][3]
             size = SIZES[fam]
             out[label] = kernel_entry(
-                rows_of(rows, prefixes[label], fam) + rows_of(rows, "vae_mid", fam),
+                rows_of(rows, prefixes[label], fam) + decode_rows_of(rows, label),
                 lines[-1]["flash_sdpa_launches"],
                 work=works[label] + f", 4-step {size}x{size} call")
         return out
+
+    def decode_rows_of(rows, label):
+        """The row of the decode of a multi-rank run: the decode ring's at
+        sp n (``decode_launches``), else the whole decode's mid attention."""
+        fields, _, _, model, _ = MULTI_RUNS[label]
+        lse = decode_launches(fields, model)[1]
+        return rows_of(rows, f"vae_ring_{SIZES[model]}_sp{lse}" if lse else "vae_mid", model)
+
+    def d512_entry(rows, multi_runs):
+        """The d = 512 log-sum-exp instance: the sequence-parallel decode's
+        ring in one rank's 1024x1024 patch call (CFG 2 x sp 2), and its
+        paths: the 2048x2048 decode at sp 4 and sp 2, SD 1.5's 512x512
+        patch call."""
+        launches = lambda line: line["flash_sdpa_d512_launches"]["lse"]  # noqa: E731
+        decodes = {line["run"]: line for line in multi_runs["decode_sp"]}
+        paths = {f"decode_2048_{name}": kernel_entry(
+            rows_of(rows, f"vae_ring_2048_sp{line['n']}", "sdxl"), launches(line),
+            work=f"one rank's sequence-parallel decode of a 2048x2048 latent ({name})")
+            for name, line in decodes.items()}
+        return kernel_entry(
+            rows_of(rows, "vae_ring_1024_sp2", "sdxl"), launches(multi_runs["patch"][-1]),
+            **{**FLASH_ENTRY, "name": "flash_sdpa[lse, d=512]"},
+            work="the d = 512 log-sum-exp instance (float32 out and lse): the "
+                 "sequence-parallel decode's ring in one rank's 4-step 1024x1024 patch "
+                 "call at CFG 2 x sp 2; library: aten._scaled_dot_product_efficient_"
+                 "attention with compute_log_sumexp",
+            **paths, sd15_patch=kernel_entry(
+                rows_of(rows, "vae_ring_512_sp2", "sd15"),
+                launches(multi_runs["sd15_patch"][-1]),
+                work="one rank's decode in SD 1.5's 512x512 patch call"))
 
     def knob_entry(rows, label, lines):
         """The flash kernel in one call of a comm-knob run on one rank: the
@@ -2411,15 +2804,16 @@ def main(argv) -> int:
         patch rows (a shallow step runs level 1's only)."""
         fields, _, counts, _, steps = MULTI_RUNS[label]
         full = counts["sync"] + counts["stale"]
+        decode = ("vae_ring_1024_sp2", 1)
         if label == "ring":
-            weights = [("ring_hop", 1), ("patch_unet_cross", full / 4), ("vae_mid", 1)]
+            weights = [("ring_hop", 1), ("patch_unet_cross", full / 4), decode]
         elif "shallow" in counts:
             weights = [("patch_unet_self_l1", (full + counts["shallow"]) / 4),
                        ("patch_unet_cross_l1", (full + counts["shallow"]) / 4),
-                       ("patch_unet", full / 4), ("vae_mid", 1)]
+                       ("patch_unet", full / 4), decode]
         else:
-            weights = [("patch_unet", full / 4), ("vae_mid", 1)]
-        picked = rows_of(rows, ("ring_hop", "patch_unet", "vae_mid"), "sdxl")
+            weights = [("patch_unet", full / 4), decode]
+        picked = rows_of(rows, ("ring_hop", "patch_unet", "vae_ring_1024"), "sdxl")
         return path_entry(picked, weights, lines[-1]["flash_sdpa_launches"],
                           work=f"one rank of the {label} run ({fields}) at CFG 2 x sp 2, "
                                f"{steps}-step 1024x1024 call")
@@ -2441,10 +2835,12 @@ def main(argv) -> int:
         launch a payload; stepcache_batch, fp8, one a flush); raises unless
         the rows' launches add up to the counts the runs read."""
         ring = multi_runs["ring"][-1]
-        lse = kernel_entry(lse_rows, ring["flash_sdpa_lse_launches"],
+        lse = kernel_entry(lse_rows, ring["flash_sdpa_lse_launches"]
+                           - ring["flash_sdpa_d512_launches"]["lse"],
                            **{**FLASH_ENTRY, "name": "flash_sdpa[lse]"},
                            work="the log-sum-exp instances (float32 out and lse) in one "
-                                "rank's 4-step 1024x1024 ring call at CFG 2 x sp 2; "
+                                "rank's 4-step 1024x1024 ring call at CFG 2 x sp 2 (the "
+                                "decode's d = 512 ones apart); "
                                 "library: aten._scaled_dot_product_flash_attention")
 
         def codec(label, prefix):
@@ -2466,8 +2862,14 @@ def main(argv) -> int:
         return lse, quant, dequant
 
     seconds, t0 = {}, time.perf_counter()
+    if args.patch_only and args.runs:
+        patch_phase(None, os.path.join(args.out_dir, "multi"), profile=args.profile,
+                    runs=args.runs.split(","))
+        print(json.dumps({"phase": "seconds", "multi_rank": time.perf_counter() - t0}),
+              flush=True)
+        return finish(None)
     if args.patch_only:
-        rows = kernel_phase(multi + vae_rows, spills) + lse_kernel_phase()
+        rows = kernel_phase(multi + vae_rows, spills) + lse_kernel_phase(spills)
         refresh_rows = refresh_codec_phase(refresh_codec_rows(ucfg, 1024, 1024))
         seconds["flash_kernel_multi_rank_shapes"], t0 = (time.perf_counter() - t0,
                                                          time.perf_counter())
@@ -2479,6 +2881,7 @@ def main(argv) -> int:
         lse, refresh, dequant = knob_kernels(rows_of(rows, "ring_hop", "sdxl"), refresh_rows,
                                              multi_runs)
         kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs}, lse,
+                   d512_entry(rows, multi_runs),
                    {**refresh.pop("compress_pcpp"), **QUANT_ENTRY, **refresh}, dequant,
                    *instance_entries(rows_of(rows, "patch_", "sd15"),
                                      multi_runs["sd15_patch"][0]
@@ -2487,11 +2890,11 @@ def main(argv) -> int:
                                      "(stale_gn), 4-step 512x512 call, eager")]
         return finish(kernels)
     rows = kernel_phase(shapes + shapes15 + shapes21 + multi + enc_rows + decode_rows,
-                        spills) + lse_kernel_phase()
+                        spills) + lse_kernel_phase(spills)
     mrows = rows
-    rows = rows_of(mrows, ("unet", "vae"), "sdxl")
-    rows15 = rows_of(mrows, ("unet", "vae"), "sd15")
-    rows21 = rows_of(mrows, ("unet", "vae"), "sd21")
+    rows = rows_of(mrows, ("unet", "vae_mid"), "sdxl")
+    rows15 = rows_of(mrows, ("unet", "vae_mid"), "sd15")
+    rows21 = rows_of(mrows, ("unet", "vae_mid"), "sd21")
     seconds["flash_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     qshapes15 = quant_shapes(ucfg15, size15, size15, steps, suffix=SD15)
     per_forward15, per_call15 = unet.linear_calls(ucfg15)
@@ -2524,7 +2927,7 @@ def main(argv) -> int:
                for mode in ("int8", "fp8")}
     by_mode15 = {mode: [r for r in qrows if r["mode"] == mode and family(r["shape"]) == "sd15"]
                  for mode in ("int8", "fp8")}
-    xl_rows = rows_of(mrows, ("unet", "vae", "i2i", "decode2048"), "sdxl")
+    xl_rows = rows_of(mrows, ("unet", "vae_mid", "i2i", "decode2048"), "sdxl")
     paths = {
         "img2img": path_entry(xl_rows, [("unet", 0.5), ("vae_mid", 1),
                                         ("i2i_vae_encoder_mid", 1)],
@@ -2610,16 +3013,19 @@ def main(argv) -> int:
                      **refresh),
         dequant,
         lse,
+        d512_entry(mrows, multi_runs),
     ]
     return finish(kernels)
 
 
 def finish(kernels) -> int:
-    """The last three lines: the card, the kernels, the result."""
+    """The last three lines: the card, the kernels (None: no kernels line),
+    the result."""
     import torch
 
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

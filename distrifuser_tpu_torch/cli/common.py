@@ -11,8 +11,9 @@ refused, before any model loads, with the ROADMAP item that brings it:
 * the comm knobs (``--attn_impl ring``, ``--comm_batch``,
   ``--comm_compress``, ``--refresh_fraction``) pass through to
   ``DistriConfig``, which validates them as the JAX package does;
-  ``--attn_impl`` ulysses or usp, ``--dp_degree`` above 1 and a float32
-  ``--dtype`` on the card go through ``DistriConfig``'s own refusals; ``--parallelism pipefusion`` through the runner's, ``--scheduler
+  ``--dp_degree`` too; ``--attn_impl`` ulysses or usp and a float32
+  ``--dtype`` on the card go through ``DistriConfig``'s own refusals,
+  ``--parallelism pipefusion`` through the runner's, ``--scheduler
   flow-euler`` through ``get_scheduler``'s;
 * ``--ulysses_degree`` and ``--pipe_patches`` belong to the DiT layouts
   (usp attention, the PipeFusion stage ring), ROADMAP queue 1 item 13;
@@ -88,8 +89,8 @@ def add_distri_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--batch_size", type=int, default=1,
                         help="images per UNet batch (longer lists run in chunks)")
     parser.add_argument("--dp_degree", type=int, default=1,
-                        help="independent image groups; above 1 refused: "
-                        "ROADMAP queue 1 item 17")
+                        help="data-parallel image groups: each runs its share of "
+                        "the batch on world / dp_degree ranks")
     parser.add_argument("--attn_impl", type=str, default="gather",
                         choices=["gather", "ring", "ulysses", "usp"],
                         help="patch attention layout (ring: each rank holds its own "
@@ -118,9 +119,9 @@ def add_distri_args(parser: argparse.ArgumentParser) -> None:
                         choices=["none", "int8", "fp8"],
                         help="the same for the text encoders and the VAE")
     parser.add_argument("--no_vae_sp", action="store_true",
-                        help="with the image in patches, decode above 1024 px in row "
-                        "tiles too (by default the JAX package decodes sequence-"
-                        "parallel there, the port the whole latent: the same image)")
+                        help="disable the sequence-parallel VAE decode (with the "
+                        "image in patches, decode whole, or in row tiles above 1024 "
+                        "px, on every rank instead: the same image)")
     parser.add_argument("--dtype", type=str, default=None,
                         choices=["bfloat16", "float32"],
                         help="compute dtype (default: bf16 on the card, float32 on "

@@ -1,16 +1,29 @@
-"""AutoencoderKL (the SD/SDXL VAE) in PyTorch: decoder and encoder.
+"""AutoencoderKL (the SD/SDXL VAE) in PyTorch: decoder and encoder, whole
+or sequence-parallel.
 
-Counterpart of distrifuser_tpu/models/vae.py.  ``decode`` and ``encode``
-are the JAX package's ``decode_sp`` and ``encode_sp`` at n == 1, where
-every sequence-parallel helper (``_conv_sp``, ``_group_norm_sp``,
-``_vae_attention_sp``, ``_downsample_sp``) is its dense op: the
-single-head mid-block attention of either half goes through ``sdpa`` and
-so through the flash kernel (d = 512).  ``decode(..., tile=N)`` is the
-row-tiled decode (``_decode_tiled``): latent row tiles of one shape,
-linearly blended over their overlap, which bounds the mid attention to a
-tile (one image decodes above 1024 px as the JAX package decodes it on one
-device).  The n > 1 ring (``decode_sp``, ``encode_sp``) is ROADMAP queue 1
-item 15.
+Counterpart of distrifuser_tpu/models/vae.py.  One topology serves both
+modes, as in the JAX package: ``decode`` and ``encode`` are ``decode_sp``
+and ``encode_sp`` at n == 1, where every sequence-parallel helper is its
+dense op, so the single-head mid-block attention goes through ``sdpa`` and
+the flash kernel (d = 512).  At n > 1 the latent (or image) is a row patch
+of a process group of n ranks and nothing is stale:
+
+* ``_conv_sp``: a 3x3 conv with fresh halos, exchanged synchronously with
+  the neighbours (``collectives.halo_exchange``: zeros at the image
+  border), then a conv that pads only the width; a 1x1 conv stays local;
+* ``_group_norm_sp``: the float32 moments averaged over the group and the
+  biased variance, clamped at 0 (torch nn.GroupNorm semantics: no Bessel
+  factor, unlike the UNet's ``patch_group_norm``);
+* ``_vae_attention``: the exact ring (ops/ring_attention.py
+  ``ring_pass``) over the fused [B, L/n, 2 * 512] KV: one log-sum-exp flash
+  launch at the whole local Lq a chunk, n a layer, no query chunking (the
+  kernel holds no logits);
+* ``_downsample``: diffusers' pad-then-stride-2 downsample, its one-row
+  halo from the next rank (the last rank's is the zero pad).
+
+``decode(..., tile=N)`` is the row-tiled decode (``_decode_tiled``):
+latent row tiles of one shape, linearly blended over their overlap, which
+bounds the mid attention to a tile.
 """
 
 from __future__ import annotations
@@ -19,12 +32,15 @@ import dataclasses
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops.attention import sdpa
 from ..ops.conv import conv2d
 from ..ops.linear import linear
-from ..ops.normalization import group_norm
+from ..ops.normalization import _affine, _local_moments, group_norm
+from ..ops.ring_attention import ring_pass
+from ..parallel.collectives import halo_exchange, psum_mean
 from .unet import cast_params, load_config_source, upsample_nearest_2x
 
 silu = F.silu
@@ -73,22 +89,77 @@ def tiny_vae_config() -> VAEConfig:
                      norm_num_groups=8, scaling_factor=0.18215)
 
 
-def _vae_resnet(p, x, groups):
-    h = conv2d(p["conv1"], silu(group_norm(p["norm1"], x, groups=groups, eps=1e-6)))
-    h = conv2d(p["conv2"], silu(group_norm(p["norm2"], h, groups=groups, eps=1e-6)))
+def _conv_sp(p, x, n: int, group):
+    """A conv on the row patch x [B, h/n, W, C] with fresh halos: exactly
+    the whole-image conv's rows of this patch.  A 1x1 conv stays local."""
+    kh, kw = p["kernel"].shape[2:]
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    if ph == 0 or n == 1:
+        return conv2d(p, x)
+    top, bottom = halo_exchange(x, ph, group)
+    return conv2d(p, torch.cat([top, x, bottom], dim=1), padding=(0, pw))
+
+
+def _group_norm_sp(p, x, n: int, group, *, groups: int, eps: float):
+    """Exact GroupNorm of a row patch: float32 moments averaged over the
+    group (equal patches), biased variance clamped at 0 (E[x^2] - E[x]^2
+    can go slightly negative by cancellation)."""
+    if n == 1:
+        return group_norm(p, x, groups=groups, eps=eps)
+    b, h, w, c = x.shape
+    m = psum_mean(_local_moments(x, groups), group)  # [2, B, G]
+    mean, var = m[0], (m[1] - m[0].square()).clamp_min(0.0)
+    xg = x.reshape(b, h * w, groups, c // groups).float()
+    y = (xg - mean[:, None, :, None]) * torch.rsqrt(var[:, None, :, None] + eps)
+    return _affine(p, y.reshape(b, h, w, c).to(x.dtype))
+
+
+def _vae_resnet(p, x, n: int, group, groups: int):
+    h = _conv_sp(p["conv1"], silu(_group_norm_sp(p["norm1"], x, n, group, groups=groups,
+                                                 eps=1e-6)), n, group)
+    h = _conv_sp(p["conv2"], silu(_group_norm_sp(p["norm2"], h, n, group, groups=groups,
+                                                 eps=1e-6)), n, group)
     if "conv_shortcut" in p:
-        x = conv2d(p["conv_shortcut"], x)
+        x = conv2d(p["conv_shortcut"], x)  # 1x1: local
     return x + h
 
 
-def _vae_attention(p, x, groups):
+def _vae_attention(p, x, n: int, group, groups: int):
+    """The mid-block attention over every token of the image: dense at
+    n == 1, else the exact ring over the group's row patches."""
     b, h, w, c = x.shape
-    hs = group_norm(p["group_norm"], x, groups=groups, eps=1e-6).reshape(b, h * w, c)
+    hs = _group_norm_sp(p["group_norm"], x, n, group, groups=groups,
+                        eps=1e-6).reshape(b, h * w, c)
     q = linear(p["to_q"], hs)
-    k = linear(p["to_k"], hs)
-    v = linear(p["to_v"], hs)
-    out = sdpa(q, k, v, heads=1)
+    if n == 1:
+        out = sdpa(q, linear(p["to_k"], hs), linear(p["to_v"], hs), heads=1)
+    else:
+        kv = torch.cat([linear(p["to_k"], hs), linear(p["to_v"], hs)], dim=-1)
+        out = ring_pass(q, kv, kv, n, group, heads=1).to(x.dtype)
     return x + linear(p["to_out"], out).reshape(b, h, w, c)
+
+
+def decode_sp(params, cfg: VAEConfig, latents, n: int, group=None):
+    """Sequence-parallel decode: this rank's latent rows [B, h/n, w, 4]
+    (already divided by scaling_factor; rank i of ``group`` holds the i-th
+    row patch) -> its pixel rows [B, 8h/n, 8w, 3] in [-1, 1].  Exact: the
+    patches gathered in group order (``collectives.gather_rows``) are the
+    whole decode."""
+    p = params["decoder"]
+    groups = cfg.norm_num_groups
+    x = conv2d(params["post_quant_conv"],
+               latents.to(params["post_quant_conv"]["kernel"].dtype))
+    x = _conv_sp(p["conv_in"], x, n, group)
+    x = _vae_resnet(p["mid_block"]["resnets"][0], x, n, group, groups)
+    x = _vae_attention(p["mid_block"]["attentions"][0], x, n, group, groups)
+    x = _vae_resnet(p["mid_block"]["resnets"][1], x, n, group, groups)
+    for up in p["up_blocks"]:
+        for rp in up["resnets"]:
+            x = _vae_resnet(rp, x, n, group, groups)
+        if "upsamplers" in up:  # local rows
+            x = _conv_sp(up["upsamplers"][0]["conv"], upsample_nearest_2x(x), n, group)
+    x = silu(_group_norm_sp(p["conv_norm_out"], x, n, group, groups=groups, eps=1e-6))
+    return _conv_sp(p["conv_out"], x, n, group)
 
 
 def decode(params, cfg: VAEConfig, latents, *, tile: int = 0):
@@ -97,21 +168,7 @@ def decode(params, cfg: VAEConfig, latents, *, tile: int = 0):
     whole latent at once)."""
     if tile and latents.shape[1] > tile:
         return _decode_tiled(params, cfg, latents, tile)
-    p = params["decoder"]
-    groups = cfg.norm_num_groups
-    x = conv2d(params["post_quant_conv"],
-               latents.to(params["post_quant_conv"]["kernel"].dtype))
-    x = conv2d(p["conv_in"], x)
-    x = _vae_resnet(p["mid_block"]["resnets"][0], x, groups)
-    x = _vae_attention(p["mid_block"]["attentions"][0], x, groups)
-    x = _vae_resnet(p["mid_block"]["resnets"][1], x, groups)
-    for up in p["up_blocks"]:
-        for rp in up["resnets"]:
-            x = _vae_resnet(rp, x, groups)
-        if "upsamplers" in up:
-            x = conv2d(up["upsamplers"][0]["conv"], upsample_nearest_2x(x))
-    x = silu(group_norm(p["conv_norm_out"], x, groups=groups, eps=1e-6))
-    return conv2d(p["conv_out"], x)
+    return decode_sp(params, cfg, latents, 1)
 
 
 def _decode_tiled(params, cfg: VAEConfig, latents, tile: int, overlap: int = 8):
@@ -139,11 +196,66 @@ def _decode_tiled(params, cfg: VAEConfig, latents, tile: int, overlap: int = 8):
     return torch.cat(rows, dim=1)
 
 
-def _downsample(p, x):
-    """diffusers' VAE downsample: pad one zero row at the bottom and one
-    zero column at the right, then a 3x3 stride-2 conv without padding
-    (not a symmetric ``padding=1``)."""
-    return conv2d(p["conv"], F.pad(x, (0, 0, 0, 1, 0, 1)), stride=2, padding=0)
+def _downsample(p, x, n: int = 1, group=None):
+    """diffusers' VAE downsample on a row patch: one zero column at the
+    right and one row below (the next rank's top row; zeros on the last
+    rank), then a 3x3 stride-2 conv without padding (not a symmetric
+    ``padding=1``).  A patch's rows are even, so no output window reaches
+    further than that one row."""
+    if n == 1:
+        x = F.pad(x, (0, 0, 0, 1, 0, 1))
+    else:
+        _, below = halo_exchange(x, 1, group)
+        x = F.pad(torch.cat([x, below], dim=1), (0, 0, 0, 1))
+    return conv2d(p["conv"], x, stride=2, padding=0)
+
+
+def _rank_generator(generator: torch.Generator, rank: int) -> torch.Generator:
+    """A generator of its own for ``rank``, seeded from one draw of
+    ``generator`` (every rank draws the same) mixed with the rank: the
+    counterpart of ``jax.random.fold_in(rng, axis_index)``."""
+    base = torch.randint(0, 1 << 62, (1,), generator=generator,
+                         device=generator.device).item()
+    gen = torch.Generator(device=generator.device)
+    return gen.manual_seed((base * 1000003 + rank) % (1 << 63))
+
+
+def encode_sp(params, cfg: VAEConfig, images, n: int, group=None, *, generator=None):
+    """Sequence-parallel encode: this rank's image rows [B, H/n, W, 3] in
+    [-1, 1] -> its latent rows [B, H/(8n), W/8, 4] (multiply by
+    scaling_factor for the diffusion space).  Without ``generator`` the
+    mean of the posterior, exactly the whole encode's rows; with it (a
+    ``torch.Generator`` on the images' device, in the same state on every
+    rank) mean + std * noise, each rank drawing from a generator of its own
+    (``_rank_generator``) at n > 1: statistically equivalent to the whole
+    encode's sample, not the same draw.  Local rows must stay even at every
+    downsample (H divisible by 8n)."""
+    p = params["encoder"]
+    groups = cfg.norm_num_groups
+    n_down = sum(1 for d in p["down_blocks"] if "downsamplers" in d)
+    if images.shape[1] % (1 << n_down):
+        raise ValueError(f"local rows {images.shape[1]} not divisible by 2^{n_down}: an "
+                         f"{n}-way encode needs an image height divisible by {n << n_down}")
+    if generator is not None and n > 1:
+        generator = _rank_generator(generator, dist.get_rank(group))
+    x = _conv_sp(p["conv_in"], images.to(p["conv_in"]["kernel"].dtype), n, group)
+    for down in p["down_blocks"]:
+        for rp in down["resnets"]:
+            x = _vae_resnet(rp, x, n, group, groups)
+        if "downsamplers" in down:
+            x = _downsample(down["downsamplers"][0], x, n, group)
+    x = _vae_resnet(p["mid_block"]["resnets"][0], x, n, group, groups)
+    x = _vae_attention(p["mid_block"]["attentions"][0], x, n, group, groups)
+    x = _vae_resnet(p["mid_block"]["resnets"][1], x, n, group, groups)
+    x = silu(_group_norm_sp(p["conv_norm_out"], x, n, group, groups=groups, eps=1e-6))
+    x = _conv_sp(p["conv_out"], x, n, group)
+    mean, logvar = conv2d(params["quant_conv"], x).chunk(2, dim=-1)  # 1x1: local
+    if generator is None:
+        return mean
+    std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+    noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                        dtype=mean.dtype)
+    return mean + std * noise
 
 
 def encode(params, cfg: VAEConfig, images, *, generator=None):
@@ -151,26 +263,7 @@ def encode(params, cfg: VAEConfig, images, *, generator=None):
     by scaling_factor for the diffusion space): the mean of the posterior,
     or with ``generator`` (a ``torch.Generator`` on the images' device) a
     sample mean + std * noise."""
-    p = params["encoder"]
-    groups = cfg.norm_num_groups
-    x = conv2d(p["conv_in"], images.to(p["conv_in"]["kernel"].dtype))
-    for down in p["down_blocks"]:
-        for rp in down["resnets"]:
-            x = _vae_resnet(rp, x, groups)
-        if "downsamplers" in down:
-            x = _downsample(down["downsamplers"][0], x)
-    x = _vae_resnet(p["mid_block"]["resnets"][0], x, groups)
-    x = _vae_attention(p["mid_block"]["attentions"][0], x, groups)
-    x = _vae_resnet(p["mid_block"]["resnets"][1], x, groups)
-    x = silu(group_norm(p["conv_norm_out"], x, groups=groups, eps=1e-6))
-    x = conv2d(p["conv_out"], x)
-    mean, logvar = conv2d(params["quant_conv"], x).chunk(2, dim=-1)
-    if generator is None:
-        return mean
-    std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
-    noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                        dtype=mean.dtype)
-    return mean + std * noise
+    return encode_sp(params, cfg, images, 1, generator=generator)
 
 
 def init_vae_params(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):

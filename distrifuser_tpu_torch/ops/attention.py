@@ -20,7 +20,6 @@ ops/ring_attention.py ``ring_self_attention``.
 
 from __future__ import annotations
 
-from ..parallel.collectives import all_gather
 from ..parallel.context import PatchContext
 from .flash_attention import flash_sdpa
 from .linear import linear
@@ -55,9 +54,7 @@ def patch_self_attention(p, x, ctx: PatchContext, name: str, *, heads: int):
     if ctx.n == 1:
         full_kv = kv
     elif ctx.is_sync:
-        gathered = all_gather(kv, ctx.group)  # [n, B, L/n, 2C]
-        ctx.emit(name, gathered, "attn")
-        full_kv = _flatten_seq(gathered)
+        full_kv = _flatten_seq(ctx.emit_sync_gather(name, kv, "attn"))  # [n, B, L/n, 2C]
     else:
         gathered = ctx.stale(name)
         if ctx.refresh_reads_stale("attn"):

@@ -108,8 +108,9 @@ def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None, return_lse: bool = Fa
     lse [B, H, Lq] float32)``.  Counts each kernel launch in
     ``flash_sdpa.launches`` and, by head dim (the instance launched), in
     ``flash_sdpa.launches_by_head_dim``, a log-sum-exp instance's also in
-    ``flash_sdpa.lse_launches``; graph replays add to those two, not by
-    head dim (parallel/graphs.py)."""
+    ``flash_sdpa.lse_launches`` and ``flash_sdpa.lse_launches_by_head_dim``;
+    graph replays add to ``launches`` and ``lse_launches``, not by head dim
+    (parallel/graphs.py)."""
     if q.device.type == "cpu":
         return flash_sdpa_reference(q, k, v, heads=heads, kv_len=kv_len,
                                     return_lse=return_lse)
@@ -158,9 +159,12 @@ def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None, return_lse: bool = Fa
         raise RuntimeError(f"flash_sdpa kernel launch failed: cudaError {rc}")
     flash_sdpa.launches += 1
     flash_sdpa.launches_by_head_dim[d] += 1
-    flash_sdpa.lse_launches += return_lse
+    if return_lse:
+        flash_sdpa.lse_launches += 1
+        flash_sdpa.lse_launches_by_head_dim[d] += 1
     return (out, lse) if return_lse else out
 
 
 flash_sdpa.launches_by_head_dim = collections.Counter()
 flash_sdpa.lse_launches = 0
+flash_sdpa.lse_launches_by_head_dim = collections.Counter()

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.collectives import all_gather, psum_mean
+from ..parallel.collectives import psum_mean
 from ..parallel.context import PatchContext
 
 
@@ -73,9 +73,8 @@ def patch_group_norm(p, x, ctx: PatchContext, name: str, *, groups: int,
     if ctx.mode in ("stale_gn", "corrected_async_gn"):
         m = _local_moments(x, groups)  # [2, B, G]
         if ctx.is_sync:
-            gathered = all_gather(m, ctx.group)  # [n, 2, B, G]
+            gathered = ctx.emit_sync_gather(name, m, "gn")  # [n, 2, B, G]
             full = gathered.mean(dim=0)
-            ctx.emit(name, gathered, "gn")
         else:
             gathered = ctx.stale(name)
             own_stale = gathered[ctx.split_idx]

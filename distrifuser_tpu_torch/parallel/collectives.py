@@ -3,8 +3,9 @@
 Counterpart of distrifuser_tpu/parallel/collectives.py (``all_gather``,
 ``psum_mean``, ``psum``, ``neighbor_perms``, ``exchange_boundary_rows``,
 ``halo_exchange``, ``gather_rows``, ``gather_cols``, ``ring_perm`` and
-``ring_shift``).  Each function takes the process group (``None`` for the
-default one) and, where the patch path overlaps it with compute, an
+``ring_shift``; ``gather_batch`` gathers the image groups' outputs under
+data parallelism).  Each function takes the process group (``None`` for
+the default one) and, where the patch path overlaps it with compute, an
 ``async_op`` form that returns a ``Pending`` handle whose ``wait()`` gives
 the result.  ``batched_all_gather`` and ``batched_halo_exchange`` are the
 flat exchanges of the batched refresh (``PatchContext.flush``): one
@@ -38,18 +39,24 @@ from typing import Callable, List
 import torch
 import torch.distributed as dist
 
+from . import overlap
+
 
 class Pending:
     """An issued collective: ``wait()`` waits for its works, copies a staged
-    result back to the card and returns the finished value."""
+    result back to the card and returns the finished value.  ``op`` names
+    the collective for parallel/overlap.py's record (None for a handle that
+    only wraps others)."""
 
-    def __init__(self, works: List, finish: Callable[[], object]):
+    def __init__(self, works: List, finish: Callable[[], object], op: str = None):
         self._works = works
         self._finish = finish
+        self._record = overlap.issued(op) if op is not None else None
 
     def wait(self):
         for work in self._works:
             work.wait()
+        overlap.waited(self._record)
         return self._finish()
 
 
@@ -90,7 +97,7 @@ def all_gather(x: torch.Tensor, group=None, *, async_op: bool = False):
         res = out.view(x.dtype)
         return res.to(x.device, non_blocking=True) if staged else res
 
-    pending = Pending([work], finish)
+    pending = Pending([work], finish, "all_gather")
     return pending if async_op else pending.wait()
 
 
@@ -99,7 +106,8 @@ def psum_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     (the reference's all_reduce(SUM) / n, pp/groupnorm.py:79-80)."""
     staged = stages_through_host(x.device, group)
     buf = _down(x) if staged else x.clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    Pending([dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group, async_op=True)],
+            lambda: None, "all_reduce").wait()
     if staged:
         buf = buf.to(x.device)
     return buf / dist.get_world_size(group)
@@ -110,7 +118,8 @@ def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     tp/attention.py:159): the reduce of every tensor-parallel partial."""
     staged = stages_through_host(x.device, group)
     buf = _down(x) if staged else x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    Pending([dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group, async_op=True)],
+            lambda: None, "all_reduce").wait()
     return buf.to(x.device) if staged else buf
 
 
@@ -156,7 +165,7 @@ def exchange_boundary_rows(bottom: torch.Tensor, top: torch.Tensor, group=None,
             return tuple(t.to(dev, non_blocking=True) for t in got)
         return got
 
-    pending = Pending(works, finish)
+    pending = Pending(works, finish, "halo")
     return pending if async_op else pending.wait()
 
 
@@ -186,7 +195,7 @@ def ring_shift(x: torch.Tensor, group=None, *, async_op: bool = False):
         got = recv.view(x.dtype)
         return got.to(x.device, non_blocking=True) if staged else got
 
-    pending = Pending(works, finish)
+    pending = Pending(works, finish, "ring_shift")
     return pending if async_op else pending.wait()
 
 
@@ -275,6 +284,12 @@ def gather_rows(patch: torch.Tensor, group=None) -> torch.Tensor:
     [B, n*h, W, C] (the per-step output gather)."""
     g = all_gather(patch, group)
     return torch.cat(g.unbind(0), dim=1)
+
+
+def gather_batch(part: torch.Tensor, group=None) -> torch.Tensor:
+    """The batch shares [b, ...] of the group, in group-rank order, as the
+    whole [n*b, ...] (the image groups' outputs under data parallelism)."""
+    return all_gather(part, group).flatten(0, 1)
 
 
 def gather_cols(patch: torch.Tensor, group=None) -> torch.Tensor:

@@ -62,7 +62,7 @@ import torch
 
 from ..ops.quantize import (DecodeSeg, EncodeSeg, dequantize_rows_grouped, payload_shape,
                             quantize_rows_grouped)
-from . import collectives
+from . import collectives, overlap
 from .compress import (COMPRESS_KINDS, payload_mode, refresh_period, scatter_every_kth,
                        take_every_kth, wire_nbytes)
 
@@ -156,6 +156,9 @@ class PatchContext:
     _def_gather: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     _def_halo: Dict[str, Tuple] = dataclasses.field(default_factory=dict)
     _def_coded: List[_Coded] = dataclasses.field(default_factory=list)
+
+    def __post_init__(self) -> None:
+        overlap.begin(self.phase)
 
     @property
     def is_sync(self) -> bool:
@@ -316,6 +319,10 @@ class PatchContext:
         result ``[n, *local.shape]`` becomes this layer's next buffer —
         compressed, partial or deferred to ``flush`` as the knobs say."""
         self._claim(name, kind)
+        with overlap.buffers([name], [kind]):
+            self._refresh_gather(name, local, kind)
+
+    def _refresh_gather(self, name: str, local: torch.Tensor, kind: str) -> None:
         mode = self._compress_for(kind)
         partial = None if self.batch_comm else self._partial_for(kind)
         # (DistriConfig keeps partial refresh out of batch_comm)
@@ -357,6 +364,10 @@ class PatchContext:
         becomes this layer's next buffer — compressed, partial or deferred
         as the knobs say."""
         self._claim(name, "conv2d")
+        with overlap.buffers([name], ["conv2d"]):
+            self._refresh_halos(name, x, halo)
+
+    def _refresh_halos(self, name: str, x: torch.Tensor, halo: int) -> None:
         mode, partial = self._compress_for("conv2d"), self._partial_for("conv2d")
         if halo == 0 or self.n == 1:
             mode = partial = None  # nothing real moves
@@ -405,11 +416,21 @@ class PatchContext:
         """Exchange fresh halos (blocking, exact), record them as this
         layer's buffer, seed the own-rows carry of residual coding, and
         return ``(from_prev, from_next)`` for the conv."""
-        top, bottom = collectives.halo_exchange(x, halo, self.group)
+        with overlap.buffers([name], ["conv2d"]):
+            top, bottom = collectives.halo_exchange(x, halo, self.group)
         self.emit(name, torch.stack([top, bottom]), "conv2d")
         if self._compress_for("conv2d") is not None and halo and self.n > 1:
             self._emit_own_halos(name, x[:, :halo], x[:, x.shape[1] - halo:])
         return top, bottom
+
+    def emit_sync_gather(self, name: str, local: torch.Tensor, kind: str) -> torch.Tensor:
+        """All-gather ``local`` over the patch group (blocking, exact), record
+        the ``[n, *local.shape]`` result as this layer's buffer and return
+        it."""
+        with overlap.buffers([name], [kind]):
+            gathered = collectives.all_gather(local, self.group)
+        self.emit(name, gathered, kind)
+        return gathered
 
     # -- the end of the step ----------------------------------------------
 
@@ -420,20 +441,33 @@ class PatchContext:
         launch, one flat all-gather and one flat halo pair; ``finish``
         splits them back into the per-layer buffers (the compressed ones in
         one decode launch).  Nothing to do without deferred refreshes."""
+        if not (self._def_gather or self._def_halo or self._def_coded):
+            return
+        previous = overlap.enter(overlap.FLUSH)
         if self._def_gather:
             parts = list(self._def_gather.items())
-            pending = collectives.batched_all_gather(parts, self.group, async_op=True)
+            with self._labelled(self._def_gather):
+                pending = collectives.batched_all_gather(parts, self.group, async_op=True)
             self._pending.append(pending)
             self._def_gather.clear()
         if self._def_halo:
             parts = [(name, top, bottom) for name, (top, bottom) in self._def_halo.items()]
-            pending = collectives.batched_halo_exchange(parts, self.group, async_op=True)
+            with self._labelled(self._def_halo):
+                pending = collectives.batched_halo_exchange(parts, self.group, async_op=True)
             self._pending.append(collectives.Pending([], lambda: {
                 name: torch.stack(pair) for name, pair in pending.wait().items()}))
             self._def_halo.clear()
         if self._def_coded:
-            self._pending.append(self._issue_coded(self._def_coded))
+            with self._labelled([r.name for r in self._def_coded]):
+                self._pending.append(self._issue_coded(self._def_coded))
             self._def_coded = []
+        overlap.enter(previous)
+
+    def _labelled(self, names):
+        """parallel/overlap.py's label of a batched exchange of these
+        layers' buffers."""
+        names = list(names)
+        return overlap.buffers(names, [self.kinds[name] for name in names])
 
     def carry_unconsumed(self) -> None:
         """Pass every buffer of ``state_in`` this step did not emit through
@@ -454,10 +488,12 @@ class PatchContext:
         """Drain the step's refreshes and return the next step's buffers:
         ``state_out``, or the unchanged ``state_in`` when the step emitted
         nothing (a ``no_sync`` stale step)."""
+        overlap.enter(overlap.FINISH)
         self.flush()
         for pending in self._pending:
             self.state_out.update(pending.wait())
         self._pending.clear()
+        overlap.enter(overlap.AFTER)
         if not self.state_out and self.state_in is not None:
             return self.state_in
         return self.state_out

@@ -29,7 +29,13 @@ evaluation runs eagerly or, under ``use_compiled_step`` (the config's
   shard of the heads and channels (models/unet_tp.py);
 * the CFG branches fold into the batch, or under ``cfg_split`` each rank
   runs its branch and the guided output gathers them over the
-  ``split_group``.
+  ``split_group``;
+* under data parallelism (``dp_degree`` > 1) every rank holds the whole
+  batch, but its image group evaluates the UNet on its share only (rows
+  ``dp_idx * B/dp ..``, as the JAX package splits the batch over its
+  ``dp`` axis); the guided outputs gather over the ``dp_group`` before
+  the scheduler step, so the scheduler, the callback and the result see
+  the whole batch in order on every rank.
 
 The displaced path runs the JAX package's comm knobs (parallel/context.py:
 refresh compression, PCPP partial refresh, the batched flush) and ring
@@ -53,7 +59,7 @@ from ..models.unet import (DenseDispatch, PatchDispatch, UNetConfig,
                            precompute_text_kv, unet_forward)
 from ..schedulers import BaseScheduler
 from ..utils.config import DistriConfig
-from .collectives import gather_cols, gather_rows, stages_through_host
+from .collectives import gather_batch, gather_cols, gather_rows, stages_through_host
 from .context import PHASE_STALE, PHASE_SYNC, PatchContext
 from .graphs import StepGraphs
 from .guidance import branch_select, combine_guidance
@@ -295,12 +301,26 @@ class DenoiseRunner:
                 added["text_embeds"] = added["text_embeds"].to(cfg.dtype)
             if "time_ids" in added:
                 added["time_ids"] = added["time_ids"].float()
+        # this image group's images of the branch-major [n_br, B, ...] inputs
+        prompt_embeds = self._my_images(prompt_embeds, dim=1)
+        if added is not None:
+            added = {k: self._my_images(v, dim=1) for k, v in added.items()}
         my_enc, my_added, _ = branch_select(cfg, prompt_embeds, added)
         # tensor parallelism recomputes the text KV with its sharded kernels
         # at every step, as the reference's TP attention does (no cache)
         text_kv = ({} if cfg.parallelism == "tensor"
                    else precompute_text_kv(self.params, my_enc))
         return my_enc, my_added, text_kv
+
+    def _my_images(self, t, dim: int = 0):
+        """This image group's share of the batch dim ``dim`` of ``t``: all of
+        it at dp_degree 1."""
+        dp = self.cfg.dp_degree
+        if dp == 1:
+            return t
+        if t.shape[dim] % dp:
+            raise ValueError(f"batch_size {t.shape[dim]} not divisible by dp_degree {dp}")
+        return t.chunk(dp, dim=dim)[self.cfg.dp_idx()]
 
     def _inputs(self, latents, prompt_embeds, added_cond, guidance_scale):
         """The generation's tensors on this rank's device: (latent float32,
@@ -324,7 +344,9 @@ class DenoiseRunner:
         return self._schedule[num_steps]
 
     def _model_input(self, x, i):
-        x_in = self.scheduler.scale_model_input(x, i)
+        """The UNet's input at step ``i``: this image group's latents,
+        scaled, the CFG branches folded into the batch unless split."""
+        x_in = self.scheduler.scale_model_input(self._my_images(x), i)
         if self.cfg.do_classifier_free_guidance and not self.cfg.cfg_split:
             x_in = torch.cat([x_in, x_in], dim=0)
         return x_in
@@ -365,7 +387,9 @@ class DenoiseRunner:
         else:
             out, state = self._unet_local(x_in, timesteps[i], my_enc, my_added,
                                           text_kv, phase, state, step=steps[i])
-        guided = combine_guidance(self.cfg, out, gs, x.shape[0])
+        guided = combine_guidance(self.cfg, out, gs, x.shape[0] // self.cfg.dp_degree)
+        if self.cfg.dp_degree > 1:  # every image group's, in batch order
+            guided = gather_batch(guided, self.cfg.dp_group)
         x, sstate = self.scheduler.step(x, guided.float(), i, sstate)
         return x, state, sstate
 

@@ -33,12 +33,16 @@ accepts and ignores them.  Any other keyword is refused.
 
 Under displaced patch parallelism every rank builds the same pipeline and
 makes the same call: it draws the same seeded latents, encodes the same
-prompts, denoises its patch (parallel/runner.py), decodes the whole
-latent, as the original DistriFusion does, and returns the same image.
-Where the JAX package decodes sequence-parallel (``vae_sp``; exact, so the
-same image) the port decodes the whole latent; the ring is ROADMAP queue 1
-item 15.  Otherwise an image above 1024 px decodes in row tiles of 64
-latent rows, as the JAX package decodes it (``vae.decode(..., tile=)``).
+prompts, denoises its patch (parallel/runner.py) and returns the same
+image.  The decoder is the JAX package's ``_build_decoder`` choice
+(``decoder_choice``): where the image is in patches (displaced or naive)
+and the latent rows divide among them, each patch group decodes its rows
+sequence-parallel (models/vae.py ``decode_sp``: exact, so the same image
+as the whole decode) and gathers them (``vae_sp=False`` turns this off);
+otherwise an image above 1024 px decodes in row tiles of 64 latent rows
+(``vae.decode(..., tile=)``) and a smaller one whole.  Under data
+parallelism (``dp_degree``) each image group denoises and decodes its
+share of the batch and every rank returns the whole batch, in order.
 
 Weight quantization happens at load time, as in the JAX package's
 constructor: the UNet under ``DistriConfig.weight_quant`` with the
@@ -76,6 +80,7 @@ from .models.weights import (convert_clip_state_dict, convert_unet_state_dict,
                              set_quant_compute)
 from .native.bpe import CLIPTokenizer
 from .native.safetensors import load_sharded_safetensors
+from .parallel.collectives import gather_batch, gather_rows
 from .parallel.compress import validate_quant_compute, validate_weight_mode
 from .parallel.runner import check_graph_transport, make_runner
 from .parallel.stepcache import phase_step_counts, shallow_step_count
@@ -302,6 +307,35 @@ def _batched_generate(cfg, scheduler, prompts, negs, num_images_per_prompt,
     return torch.cat(outs, dim=0)
 
 
+def decoder_choice(cfg: DistriConfig):
+    """(sequence-parallel?, latent rows per tile) of the decode, as the JAX
+    package's ``_build_decoder`` picks it: sequence-parallel over the patch
+    group where the image is in patches, ``vae_sp`` is on and the latent
+    rows divide among them; else row tiles of 64 above 128 latent rows
+    (1024 px), else whole (tile 0)."""
+    parallel = (cfg.is_sp and cfg.vae_sp
+                and cfg.latent_height % cfg.n_device_per_batch == 0)
+    return parallel, 64 if not parallel and cfg.latent_height > 128 else 0
+
+
+def decode_latents(cfg: DistriConfig, vae_config, vae_params, latents):
+    """Latents [batch_size, h, w, 4] (already divided by the scaling) ->
+    images [batch_size, 8h, 8w, 3] on every rank, by ``decoder_choice``:
+    sequence-parallel (this rank's rows of its image group's share through
+    models/vae.py ``decode_sp``, the rows gathered over the patch group and
+    the shares over the image groups), else whole or in row tiles on every
+    rank.  Nothing in it waits for the host but its collectives."""
+    parallel, tile = decoder_choice(cfg)
+    if not parallel:
+        return vae_mod.decode(vae_params, vae_config, latents, tile=tile)
+    n = cfg.n_device_per_batch
+    mine = latents.chunk(cfg.dp_degree)[cfg.dp_idx()]
+    rows = mine.chunk(n, dim=1)[cfg.split_idx()].contiguous()
+    image = gather_rows(vae_mod.decode_sp(vae_params, vae_config, rows, n, cfg.batch_group),
+                        cfg.batch_group)
+    return gather_batch(image, cfg.dp_group) if cfg.dp_degree > 1 else image
+
+
 def _quantize_aux(cfg, vae_params, text_encoders):
     """Load-time quantization of the auxiliary models (VAE, CLIP text
     encoders) under ``weight_quant_aux``, with the "dequant" policy, the
@@ -331,13 +365,7 @@ class _DistriPipelineBase:
         self.scheduler = scheduler
         self.tokenizers = tokenizers
         self.runner = make_runner(distri_config, unet_config, unet_params, scheduler)
-        cfg = distri_config
-        # the JAX package's _build_decoder: where it decodes sequence-
-        # parallel (exact) the port decodes the whole latent; otherwise a
-        # latent above 128 rows decodes in row tiles of 64
-        parallel = (cfg.is_sp and cfg.vae_sp
-                    and cfg.latent_height % cfg.n_device_per_batch == 0)
-        self.vae_decode_tile = 64 if not parallel and cfg.latent_height > 128 else 0
+        self.vae_decode_parallel, self.vae_decode_tile = decoder_choice(distri_config)
 
     def set_weight_quant(self, mode: str) -> None:
         """Quantize the UNet's weights to ``mode`` after construction.  Only
@@ -522,18 +550,23 @@ class _DistriPipelineBase:
 
     def _decode_to_np(self, latent) -> np.ndarray:
         """latent -> float RGB [N, H, W, 3] in [0, 1], decoded in
-        batch_size chunks, whole or in ``vae_decode_tile`` rows.  The UNet
-        family decodes ``latent / scaling`` with no shift, whatever the VAE
-        config's ``shift_factor``: only the SD3 family re-centres its
-        latents.  (img2img encodes as the JAX package's
-        ``_prepare_init_latents`` does: it subtracts the config's shift for
-        every family.)"""
+        batch_size chunks (``decode_latents``; the tail chunk padded with its
+        last latent, the padded images dropped, as the JAX package's
+        ``_decode_chunked``).  The UNet family decodes ``latent / scaling``
+        with no shift, whatever the VAE config's ``shift_factor``: only the
+        SD3 family re-centres its latents.  (img2img encodes as the JAX
+        package's ``_prepare_init_latents`` does: it subtracts the config's
+        shift for every family.)"""
         bs = self.distri_config.batch_size
         scaling = self.vae_config.scaling_factor
         images = []
         for i in range(0, latent.shape[0], bs):
-            img = vae_mod.decode(self.vae_params, self.vae_config,
-                                 latent[i:i + bs] / scaling, tile=self.vae_decode_tile)
+            chunk = latent[i:i + bs]
+            real = chunk.shape[0]
+            if real < bs:
+                chunk = torch.cat([chunk, chunk[-1:].expand(bs - real, *chunk.shape[1:])])
+            img = decode_latents(self.distri_config, self.vae_config, self.vae_params,
+                                 chunk / scaling)[:real]
             images.append(img.float().cpu().numpy())
         image = np.concatenate(images, axis=0)
         return np.clip(image / 2 + 0.5, 0.0, 1.0)

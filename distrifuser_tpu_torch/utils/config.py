@@ -9,18 +9,23 @@ original DistriFusion:
   caller initialised (torchrun, ``torch.multiprocessing.spawn``, a test
   harness).  The library never picks a backend: NCCL on cards, gloo on the
   CPU or for ranks that share one card, as the caller chose;
-* under CFG with ``split_batch`` the world splits into two branches of
-  ``n_device_per_batch`` ranks: ``batch_group`` holds the n patch peers of
-  one branch (the JAX ``sp`` axis), ``split_group`` the two ranks that hold
-  the same patch of either branch (the ``cfg`` axis).  Without the split
-  ``batch_group`` is the whole world and there is no ``split_group``.
-  Rank r has ``batch_idx = r // n`` and ``split_idx = r % n``.
+* the world splits into ``dp_degree`` image groups of ``group_size =
+  world / dp_degree`` consecutive ranks, each running its share of the
+  batch on its own (the JAX ``dp`` axis).  Within an image group, under
+  CFG with ``split_batch``, two branches of ``n_device_per_batch`` ranks:
+  ``batch_group`` holds the n patch peers of one branch (the JAX ``sp``
+  axis), ``split_group`` the two ranks that hold the same patch of either
+  branch (the ``cfg`` axis); without the split ``batch_group`` is the
+  whole image group and there is no ``split_group``.  ``dp_group`` holds
+  the ranks at the same place of every image group, which gather the
+  groups' images.  Rank r has ``dp_idx = r // group_size``, ``batch_idx =
+  (r % group_size) // n`` and ``split_idx = r % n``, the JAX mesh's
+  ``reshape(dp, cfg, n)`` order.
 
 Knobs of the JAX package that the port does not run yet are refused with
 the ROADMAP item that will bring them, never ignored: ``attn_impl``
 "ulysses" and "usp", ``ulysses_degree`` above 1 and ``pipe_patches`` (the
-DiT layouts, item 13) and ``dp_degree`` above 1 (item 17); at their
-defaults they do nothing.  The comm knobs of the displaced patch path (``comm_batch``,
+DiT layouts, item 13); at their defaults they do nothing.  The comm knobs of the displaced patch path (``comm_batch``,
 ``comm_compress``, ``refresh_fraction``, the step cache and
 ``attn_impl="ring"``) are validated as the JAX package validates them.
 Two knobs are carried
@@ -74,25 +79,36 @@ def validate_step_cache_knobs(interval: int, depth: int) -> None:
             f"depth={depth})"
         )
 
-# process groups already built, keyed by (default group, world, n): every
-# config of a run shares them, and every rank builds them in one order
-_GROUPS: Dict[Tuple[Any, int, int], Tuple[Any, Any]] = {}
+# process groups already built, keyed by (default group, world, dp, n):
+# every config of a run shares them, and every rank builds them in one order
+_GROUPS: Dict[Tuple[Any, int, int, int], Tuple[Any, Any, Any]] = {}
 
 
-def _process_groups(world: int, n: int, rank: int):
-    """(batch_group, split_group) of this rank, after the reference's
-    utils.py:84-96.  ``dist.new_group`` is collective over the world: every
-    rank creates every group, in the same order, including the groups it is
-    not in."""
-    key = (dist.group.WORLD, world, n)
+def _process_groups(world: int, n: int, rank: int, dp: int = 1):
+    """(batch_group, split_group, dp_group) of this rank, after the
+    reference's utils.py:84-96 within each of the ``dp`` image groups of
+    world / dp consecutive ranks; ``split_group`` is None without the CFG
+    split (n is the image group), ``dp_group`` None at dp 1.
+    ``dist.new_group`` is collective over the world: every rank creates
+    every group, in the same order, including the groups it is not in."""
+    key = (dist.group.WORLD, world, dp, n)
     if key not in _GROUPS:
+        size = world // dp  # ranks of an image group
         if n == world:
-            _GROUPS[key] = (dist.group.WORLD, None)
+            batch = [dist.group.WORLD]
         else:
             batch = [dist.new_group(list(range(b * n, (b + 1) * n)))
                      for b in range(world // n)]
-            split = [dist.new_group(list(range(s, world, n))) for s in range(n)]
-            _GROUPS[key] = (batch[rank // n], split[rank % n])
+        split = [None] * (world // n)
+        if n < size:  # two branches an image group
+            split = [dist.new_group([g * size + s, g * size + s + n])
+                     for g in range(dp) for s in range(n)]
+        dp_groups = [None] * size
+        if dp > 1:
+            dp_groups = [dist.new_group(list(range(p, world, size))) for p in range(size)]
+        image, place = rank // size, rank % size
+        _GROUPS[key] = (batch[rank // n], split[image * n + place % n] if n < size else None,
+                        dp_groups[place])
     return _GROUPS[key]
 
 
@@ -149,11 +165,15 @@ class DistriConfig:
     (ops/ring_attention.py).
 
     ``vae_sp`` picks the decode where the image is in patches and the
-    latent rows divide among them: the JAX package then decodes sequence-
-    parallel, which is exact, and the port decodes the whole latent on
-    every rank (the same image; the ring is ROADMAP queue 1 item 15).  In
-    every other case a latent taller than 128 rows (an image above 1024
-    px) decodes in row tiles of 64, as the JAX package does.
+    latent rows divide among them: then each patch group decodes its rows
+    sequence-parallel (models/vae.py ``decode_sp``, exact, so the same
+    image as the whole decode), as the JAX package does.  In every other
+    case a latent taller than 128 rows (an image above 1024 px) decodes in
+    row tiles of 64, as the JAX package does.
+
+    ``dp_degree`` splits the world into independent image groups, each
+    running ``batch_size / dp_degree`` of the images (cfg x sp ranks each);
+    every rank returns the whole batch, in order.
     """
 
     height: int = 1024
@@ -191,6 +211,7 @@ class DistriConfig:
     n_device_per_batch: int = dataclasses.field(init=False, default=1)
     batch_group: Optional[Any] = dataclasses.field(init=False, default=None, repr=False)
     split_group: Optional[Any] = dataclasses.field(init=False, default=None, repr=False)
+    dp_group: Optional[Any] = dataclasses.field(init=False, default=None, repr=False)
 
     def __post_init__(self) -> None:
         self._validate()
@@ -198,15 +219,23 @@ class DistriConfig:
         world = self.world_size
         if not is_power_of_2(world):
             raise ValueError(f"world size must be a power of 2, got {world}")
+        if world % self.dp_degree != 0:
+            raise ValueError(
+                f"dp_degree {self.dp_degree} must divide world size {world}")
+        if self.batch_size % self.dp_degree != 0:
+            raise ValueError(
+                f"batch_size {self.batch_size} must be divisible by dp_degree "
+                f"{self.dp_degree}")
         # the rank's card is current before any group talks NCCL
         self.device = resolve_device(self.device, self.rank)
+        group = self.group_size
         if self.do_classifier_free_guidance and self.split_batch:
-            self.n_device_per_batch = max(world // 2, 1)
+            self.n_device_per_batch = max(group // 2, 1)
         else:
-            self.n_device_per_batch = world
+            self.n_device_per_batch = group
         if world > 1:
-            self.batch_group, self.split_group = _process_groups(
-                world, self.n_device_per_batch, self.rank)
+            self.batch_group, self.split_group, self.dp_group = _process_groups(
+                world, self.n_device_per_batch, self.rank, self.dp_degree)
         if self.dtype is None:
             self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
 
@@ -296,11 +325,6 @@ class DistriConfig:
                 f"{self.pipe_patches}: the usp head split and the PipeFusion "
                 "patch stream are the DiT layouts, ROADMAP queue 1 item 13"
             )
-        if self.dp_degree > 1:
-            raise NotImplementedError(
-                f"dp_degree={self.dp_degree}: independent image groups are "
-                "ROADMAP queue 1 item 17"
-            )
         on_card = self.device is None or torch.device(self.device).type == "cuda"
         if on_card and self.dtype is not None and self.dtype != torch.bfloat16:
             raise ValueError(
@@ -312,10 +336,15 @@ class DistriConfig:
             )
 
     @property
+    def group_size(self) -> int:
+        """Ranks an image group (world / dp_degree)."""
+        return self.world_size // self.dp_degree
+
+    @property
     def cfg_split(self) -> bool:
         """CFG branches on separate ranks (JAX utils/config.py:438-444)."""
         return (self.do_classifier_free_guidance and self.split_batch
-                and self.world_size >= 2)
+                and self.group_size >= 2)
 
     @property
     def use_compiled_step(self) -> bool:
@@ -336,15 +365,23 @@ class DistriConfig:
                 and self.n_device_per_batch > 1)
 
     def batch_idx(self, rank: Optional[int] = None) -> int:
-        """CFG branch of ``rank`` (default this rank): ranks [0, n) hold
-        branch 0 (unconditional), [n, 2n) branch 1, under the split."""
+        """CFG branch of ``rank`` (default this rank): ranks [0, n) of an
+        image group hold branch 0 (unconditional), [n, 2n) branch 1, under
+        the split."""
         rank = self.rank if rank is None else rank
-        return rank // self.n_device_per_batch if self.cfg_split else 0
+        if not self.cfg_split:
+            return 0
+        return (rank % self.group_size) // self.n_device_per_batch
 
     def split_idx(self, rank: Optional[int] = None) -> int:
         """Patch index of ``rank`` (default this rank) within its branch."""
         rank = self.rank if rank is None else rank
         return rank % self.n_device_per_batch
+
+    def dp_idx(self, rank: Optional[int] = None) -> int:
+        """Image group of ``rank`` (default this rank)."""
+        rank = self.rank if rank is None else rank
+        return rank // self.group_size
 
     @property
     def latent_height(self) -> int:

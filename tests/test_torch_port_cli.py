@@ -103,7 +103,7 @@ def test_comm_knob_flags_pass_through_as_in_the_jax_scripts(flags):
     (["--pipe_patches", "4"], "item 13"),
     (["--refresh_fraction", "0.3"], "1/k"),
     (["--comm_batch", "--refresh_fraction", "0.5"], "mutually exclusive"),
-    (["--dp_degree", "2"], "item 17"),
+    (["--dp_degree", "2"], "must divide world size 1"),
     (["--scheduler", "flow-euler"], "item 14"),
     (["--parallelism", "pipefusion"], "DiT strategy"),
     (["--device", "cpu"], "--random_weights"),

@@ -119,7 +119,7 @@ def test_graphs_refused_where_ranks_share_a_card(monkeypatch, backend, refused):
     the host, so ``use_cuda_graph=True`` is refused when the runner is
     built; under NCCL, or with ``use_cuda_graph=False``, it builds."""
     monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (2, 0))
-    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r: ("batch", None))
+    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r, dp: ("batch", None, None))
     monkeypatch.setattr(torch.distributed, "get_backend", lambda group=None: backend)
     ucfg = unet.tiny_config(cross_attention_dim=32, sdxl=True)
     for use_cuda_graph in (True, False):
@@ -137,7 +137,7 @@ def test_verbose_prints_the_stale_buffer_report(monkeypatch, capsys):
     """``verbose`` prints ``comm_volume_report``'s element counts by layer
     kind in the JAX package's words; without it nothing is printed."""
     monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (2, 0))
-    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r: ("batch", None))
+    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r, dp: ("batch", None, None))
     ucfg = unet.tiny_config(cross_attention_dim=32, sdxl=True)
     for verbose in (False, True):
         cfg = DistriConfig(device="cpu", height=128, width=128, split_batch=False,

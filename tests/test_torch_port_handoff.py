@@ -187,7 +187,7 @@ def test_phases_count_from_the_first_step_run(monkeypatch, fields, start, end, w
     from distrifuser_tpu_torch.schedulers import get_scheduler
 
     monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (2, 0))
-    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r: ("batch", None))
+    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r, dp: ("batch", None, None))
     cfg = DistriConfig(device="cpu", height=128, width=128, split_batch=False, **fields)
     ucfg = unet.tiny_config(cross_attention_dim=32, sdxl=True)
     runner = runner_mod.make_runner(cfg, ucfg, unet.init_unet_params(

@@ -262,12 +262,12 @@ def _world(monkeypatch, world):
     """A DistriConfig at ``world`` ranks without process groups (the
     decoder choice reads only the geometry)."""
     monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (world, 0))
-    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r: ("batch", None))
+    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r, dp: ("batch", None, None))
 
 
 @pytest.mark.parametrize("world, fields, tile", [
     (1, {}, 64),  # one device above 1024 px: tiles of 64
-    (2, {"split_batch": False}, 0),  # sp 2 with vae_sp: JAX decodes sp, the port whole
+    (2, {"split_batch": False}, 0),  # sp 2 with vae_sp: both decode sequence-parallel
     (2, {"split_batch": False, "vae_sp": False}, 64),
     (2, {"split_batch": False, "parallelism": "tensor"}, 64),  # not in patches
 ])
@@ -286,13 +286,16 @@ def test_decoder_choice_follows_jax(devices8, monkeypatch, world, fields, tile):
         cfg, tiny_sd_config(port_unet, False), _conv(trees[3]), port_vae.tiny_vae_config(),
         _conv(trees[4]), [port_clip.tiny_clip_config(hidden=32)], [_conv(trees[5])])
     assert pipe.vae_decode_tile == tile and jax_parallel == (tile == 0)
+    assert pipe.vae_decode_parallel == jax_parallel
+    if jax_parallel:
+        # decoded by the patch group's ranks: test_torch_port_vae_sp.py
+        # holds the pipeline's sequence-parallel decode at 2 gloo ranks
+        return
     # the 1152-px image (144 latent rows) decodes as the JAX package's one
-    # device decodes it: tiled, or whole where the JAX package is exact
+    # device decodes it, in tiles
     lat = np.random.RandomState(3).randn(1, 144, 8, 4).astype(np.float32)
     decode = _build_decoder(JaxDistriConfig(devices=devices8[:1], height=1152, width=64),
                             vcfg)[0]
-    if tile == 0:
-        decode = jax.jit(lambda p, x: jax_vae.decode(p, vcfg, x))
     want = np.clip(np.asarray(_decode_chunked(decode, trees[4], jnp.asarray(lat), 1,
                                               vcfg.scaling_factor)) / 2 + 0.5, 0, 1)
     got = pipe._decode_to_np(torch.from_numpy(lat))

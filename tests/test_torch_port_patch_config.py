@@ -68,7 +68,7 @@ def test_unet_family_decodes_without_vae_shift():
 @pytest.mark.parametrize("field,value,item", [
     ("attn_impl", "usp", "item 13"),
     ("attn_impl", "ulysses", "item 13"),
-    ("dp_degree", 2, "item 17"),
+    ("pipe_patches", 4, "item 13"),
 ])
 def test_unported_knobs_refused(field, value, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
@@ -100,7 +100,7 @@ def test_other_parallelisms_dispatch_across_ranks(monkeypatch, parallelism):
     from distrifuser_tpu_torch.schedulers import get_scheduler
 
     monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (2, 1))
-    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r: ("batch", None))
+    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r, dp: ("batch", None, None))
     cfg = DistriConfig(device="cpu", height=128, width=128, split_batch=False,
                        parallelism=parallelism)
     assert cfg.n_device_per_batch == 2 and cfg.split_idx() == 1
@@ -123,7 +123,7 @@ def test_rank_layout_at_world_4(monkeypatch):
     """World 4: sp 4 without the CFG split, CFG 2 x sp 2 with it (rank r
     has batch_idx r // n and split_idx r % n)."""
     monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (4, 3))
-    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r: ("batch", None))
+    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r, dp: ("batch", None, None))
     cfg = DistriConfig(device="cpu", height=256, width=256, split_batch=False)
     assert (cfg.n_device_per_batch, cfg.batch_idx(), cfg.split_idx()) == (4, 0, 3)
     assert not cfg.cfg_split and cfg.is_sp
@@ -139,7 +139,7 @@ def test_runner_refuses_rows_that_do_not_split(monkeypatch):
     from distrifuser_tpu_torch.schedulers import get_scheduler
 
     monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (4, 0))
-    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r: ("batch", None))
+    monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r, dp: ("batch", None, None))
     ucfg = unet.tiny_config(cross_attention_dim=32, sdxl=True)
     for height, ok in ((96, False), (128, True)):
         cfg = DistriConfig(device="cpu", height=height, width=128, split_batch=False)

@@ -17,11 +17,19 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def run_ranks(world, worker, tmp_path, *args):
+def run_ranks(world, worker, tmp_path, *args, join=True):
     """Run ``worker(rank, world, *args)`` on ``world`` gloo ranks; raises if
-    any rank raises."""
+    any rank raises.  With ``join=False`` returns at once a function that
+    waits for the ranks (and raises as above), so the caller can work
+    meanwhile."""
     init = os.path.join(str(tmp_path), f"pg_init_{worker.__name__}_{world}")
-    mp.spawn(_entry, args=(world, init, worker, args), nprocs=world, join=True)
+    ctx = mp.spawn(_entry, args=(world, init, worker, args), nprocs=world, join=join)
+
+    def wait():
+        while not ctx.join():
+            pass
+
+    return None if join else wait
 
 
 def _entry(rank, world, init, worker, args):
@@ -34,6 +42,19 @@ def _entry(rank, world, init, worker, args):
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def jax_layout(tree):
+    """A float32 parameter tree of the port as the JAX package holds it:
+    numpy leaves, 4-D kernels HWIO (the inverse of ``params_from_jax``).
+    Seeding a tree with the port's init and carrying it across this way is
+    much cheaper than the JAX package's op-by-op init on the CPU."""
+    if isinstance(tree, dict):
+        return {k: jax_layout(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [jax_layout(v) for v in tree]
+    t = tree.detach()
+    return (t.permute(2, 3, 1, 0) if t.dim() == 4 else t).contiguous().numpy()
 
 
 def _rows(x, rank, world, dim=1):
@@ -309,4 +330,109 @@ def stepwise_worker(rank, world, in_path, out_path):
         out[tuple(sorted(case.items()))] = {
             "interleaved": interleaved, "contiguous": contiguous,
             "generate": generated, "signatures": signatures}
+    torch.save(out, f"{out_path}.rank{rank}")
+
+
+def _tiny_sd_pipeline(cfg, vae_params):
+    """The tiny SD pipeline (seeded port UNet and CLIP, the given tiny VAE)."""
+    from distrifuser_tpu_torch import DistriSDPipeline
+    from distrifuser_tpu_torch.models import clip, unet, vae
+
+    ucfg, tcfg = unet.tiny_config(cross_attention_dim=32), clip.tiny_clip_config(hidden=32)
+    return DistriSDPipeline.from_params(
+        cfg, ucfg, unet.init_unet_params(torch.Generator().manual_seed(0), ucfg),
+        vae.tiny_vae_config(), vae_params, [tcfg],
+        [clip.init_clip_params(torch.Generator().manual_seed(1), tcfg)])
+
+
+def vae_sp_worker(rank, world, in_path, out_path):
+    """The sequence-parallel VAE at n = world over the default group:
+    ``decode_sp`` of this rank's rows of the latents and ``encode_sp`` (the
+    mean, and a sample from a seeded generator) of its rows of the images,
+    each gathered in rank order; then the tiny SD pipeline's decode
+    (``_decode_to_np``) of the latents in each case of ``cases`` (config
+    fields) with its decoder choice.  Saves them."""
+    from distrifuser_tpu_torch import DistriConfig
+    from distrifuser_tpu_torch.models import vae
+    from distrifuser_tpu_torch.parallel.collectives import gather_rows
+
+    inp = torch.load(in_path)
+    vcfg, params, group = vae.tiny_vae_config(), inp["vae"], dist.group.WORLD
+    lat, img = inp["lat"], inp["img"]
+    out = {
+        "decode": gather_rows(vae.decode_sp(params, vcfg, _rows(lat, rank, world), world,
+                                            group), group),
+        "encode": gather_rows(vae.encode_sp(params, vcfg, _rows(img, rank, world), world,
+                                            group), group),
+        "sample": gather_rows(vae.encode_sp(params, vcfg, _rows(img, rank, world), world,
+                                            group, generator=torch.Generator().manual_seed(7)),
+                              group),
+    }
+    for case in inp["cases"]:
+        cfg = DistriConfig(device="cpu", height=8 * lat.shape[1], width=8 * lat.shape[2],
+                           use_cuda_graph=False, **case)
+        pipe = _tiny_sd_pipeline(cfg, params)
+        out[tuple(sorted(case.items()))] = (pipe.vae_decode_parallel, pipe.vae_decode_tile,
+                                            torch.from_numpy(pipe._decode_to_np(lat)))
+    torch.save(out, f"{out_path}.rank{rank}")
+
+
+def dp_worker(rank, world, in_path, out_path):
+    """The tiny SD runner (4 DDIM steps, warmup 1) in each case of ``runs``:
+    (config fields, the images it takes: a list of indices into the input's
+    latents and embeddings), with the latent shapes its callback saw; then
+    the tiny SD pipeline in each case of ``pipelines``: (config fields,
+    prompts, the images' indices), to latents and to images.  Saves {case
+    index: results}."""
+    from distrifuser_tpu_torch.models import unet
+    from distrifuser_tpu_torch.parallel.runner import make_runner
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+    from distrifuser_tpu_torch.utils.config import DistriConfig
+
+    inp = torch.load(in_path)
+    ucfg = unet.tiny_config(cross_attention_dim=32)
+    out = {}
+    for i, (fields, images) in enumerate(inp["runs"]):
+        cfg = DistriConfig(device="cpu", height=128, width=128, warmup_steps=1, **fields)
+        runner = make_runner(cfg, ucfg, inp["params"], get_scheduler("ddim"))
+        seen = []
+        x = runner.generate(inp["latents"][images], inp["enc"][:, images],
+                            num_inference_steps=4, guidance_scale=5.0,
+                            callback=lambda i, t, x: seen.append(tuple(x.shape)))
+        out[("run", i)] = (x, seen, dict(runner.phase_counts))
+    for i, (fields, prompts, images) in enumerate(inp["pipelines"]):
+        cfg = DistriConfig(device="cpu", height=128, width=128, warmup_steps=1,
+                           use_cuda_graph=False, **fields)
+        pipe = _tiny_sd_pipeline(cfg, inp["vae"])
+        kw = dict(latents=inp["latents"][images], num_inference_steps=3)
+        out[("pipeline", i)] = tuple(
+            torch.stack([torch.from_numpy(im) for im in pipe(prompts, output_type=kind,
+                                                              **kw).images])
+            for kind in ("latent", "np"))
+    torch.save(out, f"{out_path}.rank{rank}")
+
+
+def overlap_worker(rank, world, in_path, out_path):
+    """The tiny SD runner (4 DDIM steps, warmup 1: two synchronous and two
+    stale evaluations) in each case of ``cases`` (config fields) with every
+    evaluation's collectives recorded (parallel/overlap.py).  Saves {case:
+    [(phase, [collective as a dict, ...]), ...]}."""
+    from distrifuser_tpu_torch.models import unet
+    from distrifuser_tpu_torch.parallel import overlap
+    from distrifuser_tpu_torch.parallel.runner import make_runner
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+    from distrifuser_tpu_torch.utils.config import DistriConfig
+
+    inp = torch.load(in_path)
+    ucfg = unet.tiny_config(cross_attention_dim=32)
+    out = {}
+    for case in inp["cases"]:
+        cfg = DistriConfig(device="cpu", height=128, width=128, warmup_steps=1,
+                           use_cuda_graph=False, **case)
+        runner = make_runner(cfg, ucfg, inp["params"], get_scheduler("ddim"))
+        with overlap.record() as evaluations:
+            runner.generate(inp["latents"], inp["enc"], num_inference_steps=4,
+                            guidance_scale=5.0)
+        out[tuple(sorted(case.items()))] = [
+            (e.phase, [c.as_dict() for c in e.collectives]) for e in evaluations]
     torch.save(out, f"{out_path}.rank{rank}")

@@ -46,7 +46,7 @@ def test_stepwise_phase_and_signature_match_jax(devices8, monkeypatch, world):
     ucfg = jax_unet.tiny_config(cross_attention_dim=32, sdxl=True)
     if world > 1:
         monkeypatch.setattr(config_mod, "_world_and_rank", lambda: (world, 0))
-        monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r: (None, None))
+        monkeypatch.setattr(config_mod, "_process_groups", lambda w, n, r, dp: (None, None, None))
     for mode, warmup, (interval, depth) in itertools.product(
             ("full_sync", "stale_gn"), (0, 1, 3), ((1, 0), (2, 1), (3, 1))):
         fields = dict(height=128, width=128, split_batch=False, mode=mode,
