@@ -38,7 +38,11 @@ Phases (any failure raises, and the script exits non-zero):
    PyTorch call that also returns the log-sum-exp:
    ``aten._scaled_dot_product_flash_attention`` (d <= 256) or
    ``aten._scaled_dot_product_efficient_attention`` with
-   ``compute_log_sumexp`` (d = 512);
+   ``compute_log_sumexp`` (d = 512); and PixArt-α's self-attention at
+   d = 72 (rows "...@pixart": the dense 1024x1024 call (2, 4096, 4096, 16,
+   72), one rank of the "dit" run (1, 2048, 4096, 16, 72, its K and V views
+   of the gathered KV), a 512x512 call (2, 1024, 1024, 16, 72), and the
+   "dit_ring" run's log-sum-exp chunks (1, 2048, 2048, 16, 72));
 3. quant kernel phase: at every (M, K, N) the quantized main path gives
    the quantized-matmul kernel (derived from the UNet config), and at odd
    shapes, for int8 and fp8, on a seeded bf16 activation: hold the
@@ -67,7 +71,9 @@ Phases (any failure raises, and the script exits non-zero):
    ("refresh_compress_pcpp_<kind>_<shape>", int8, k = 2), stepcache_batch's
    step tables in one grouped launch each ("refresh_stepcache_batch_<phase>
    _table", fp8; also with the residual base), bit for bit with their plain
-   versions, timed beside them;
+   versions, timed beside them; the quant rows also cover PixArt-α's DiT
+   linears and T5-XXL's (M, K, N) ("...@pixart"; T5's with no launches:
+   the text encoder follows ``weight_quant_aux``, which densifies);
 4. small-input checks: the tiny SDXL pipeline in bf16 on the card against
    the same pipeline in float32 on the CPU, same weights and latents:
    dense (relative L2 of the latents <= 8e-2; 2.3e-2 measured for bf16 vs
@@ -76,7 +82,9 @@ Phases (any failure raises, and the script exits non-zero):
    CPU; <= 8e-2 and <= 2.5e-1, 4.4e-2 and 1.3e-1 measured for bf16 vs
    float32 on a CPU: fp8's 3 mantissa bits round bf16 and float32
    activations differently); and a tiny SD 1.5-shaped pipeline (conv
-   projections, head dims 40 and 80, Euler), <= 8e-2; and the step cache
+   projections, head dims 40 and 80, Euler), <= 8e-2; a tiny PixArt
+   pipeline (a 2-block DiT of 2 heads of d = 72, the tiny T5, DPM-solver),
+   <= 8e-2; and the step cache
    at the tiny size on the card (interval 2, depth 1, 6 steps), graphed
    (a "shallow" graph) equal to eager bit for bit;
 5. main path: DistriSDXLPipeline at full SDXL width (UNet, ViT-L + bigG
@@ -116,7 +124,14 @@ Phases (any failure raises, and the script exits non-zero):
    kernel phase (4*136 + 16 launches of each quant kernel); SD 2.1
    (OpenCLIP ViT-H, 5/10/20/20 heads of 64, v-prediction) at 768x768
    under CUDA graphs, one call after ``prepare``;
-5c. the command-line scripts, in this process: ``run_sdxl --mode
+5c. PixArt-α: DistriPixArtPipeline at 1024x1024 with the DiT of
+   ``pixart_config()`` (28 blocks of 1152, 16 heads of d = 72) and
+   T5-v1.1-XXL whole (24 layers of 4096, about 4.8 B parameters), the SD
+   VAE, seeded random bf16 weights; 4 DPM-solver steps to an image, eagerly
+   and then under CUDA graphs, bit for bit (flash 4*28 + 1 a call: d = 72
+   112 times, the whole decode's d = 512 once), with each call's time and
+   peak memory and the parameter counts;
+5d. the command-line scripts, in this process: ``run_sdxl --mode
    benchmark`` at 1024x1024 with random weights (1 untimed, 3 timed 4-step
    calls to latents) prints its trimmed-mean latency, and ``sd_example``
    runs img2img from an image written to a temporary directory;
@@ -148,7 +163,13 @@ Phases (any failure raises, and the script exits non-zero):
    image on every rank.  ``dp``: data parallelism at world 4, two image
    groups of sp 2 (``dp_degree=2``, ``batch_size=2``, ``split_batch=False``),
    two prompts, a tiny check of two prompts too: both images on every
-   rank.  ``decode_sp``: the tiny VAE's sequence-parallel decode on the
+   rank.  ``dit`` and ``dit_ring``: DistriPixArtPipeline at world 4 (CFG 2 x
+   sp 2, warmup 1: 2 synchronous and 2 stale steps, DPM-solver) through
+   ``DiTDenoiseRunner``'s "gather" and "ring" layouts, the DiT whole, T5-XXL
+   at full width cut to ``SPAWN_T5_LAYERS`` layers (four copies share the
+   card; the line says how many), with tiny checks (full_sync too for
+   "dit"), flash 4*28 (ring: 2*4*28 log-sum-exp) + 2 a call and the runner's
+   ``comm_report``.  ``decode_sp``: the tiny VAE's sequence-parallel decode on the
    card against the CPU at world 4 (relative L2 <= 8e-2), then a 2048x2048
    SDXL latent decoded sequence-parallel at sp 4 and at CFG 2 x sp 2 through
    ``pipelines.decode_latents``, each rank's ms and peak memory and d = 512
@@ -177,7 +198,7 @@ SD 1.5's quantized calls), and last the line {"ok": true, "device": {...}}.
 
 ``--profile`` runs only the warm main path under torch.profiler, eagerly
 and under CUDA graphs, for SDXL dense, int8 and fp8 (``--weight_quant``
-picks one) and SD 1.5 dense at 512x512.  ``--patch_only`` runs only the flash kernel at the multi-rank
+picks one), SD 1.5 dense at 512x512 and PixArt-α dense at 1024x1024.  ``--patch_only`` runs only the flash kernel at the multi-rank
 shapes (the log-sum-exp rows too), the refresh quantization rows and the
 multi-rank phase; with ``--profile`` each rank also
 profiles one more call of each run in each mode, with the device
@@ -188,6 +209,10 @@ device time, the share of it that lies under the rank's compute kernels
 and the exposed NCCL time (``stale_step_overlap``).  ``--runs a,b``
 (with ``--patch_only``) runs only those multi-rank runs, without the
 kernel rows and the kernels line.
+``--flash_variants "D:BK,NQ,NC,STAGES,MINB[,DP];..."`` builds those
+variants of the flash kernel's instances (``flash_variant_phase``) and
+times each beside the checkout's own and SDPA at PixArt's shapes, by
+device time in one process.
 ``--quant_device_times`` runs only the device time of the quantized-matmul
 kernel's fp32 contract form and of the per-token quantization kernel at
 every SDXL and SD 1.5 path shape, the latter also with a cold L2 (a 256 MB
@@ -233,8 +258,8 @@ PATCH_WORLD, PATCH_STEPS, PATCH_WARMUP = 4, 4, 1  # CFG 2 x sp 2: 2 sync, 2 stal
 PATCH_MODES = ("full_sync", "corrected_async_gn")
 # image size of each model family's pipeline runs; SD 1.x and SD 2.x rows of
 # the kernel phase carry the suffix "@sd15" or "@sd21" after their shape name
-SIZES = {"sdxl": 1024, "sd15": 512, "sd21": 768}
-SD15, SD21 = "@sd15", "@sd21"
+SIZES = {"sdxl": 1024, "sd15": 512, "sd21": 768, "pixart": 1024}
+SD15, SD21, PIXART = "@sd15", "@sd21", "@pixart"
 SD15_HEAD_DIMS = (40, 80, 160)
 CODEC_TABLE = 192  # segments a refresh-codec launch takes (ops/quantize.py CAPACITY)
 SPAWN_DEADLINE_S = 720  # one spawn of the multi-rank phase, profiles included
@@ -272,7 +297,30 @@ MULTI_RUNS = {
             "warmup_steps": PATCH_WARMUP}, [{"prompts": 2}],
            {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1}, "sdxl",
            PATCH_STEPS),
+    # PixArt-α's DiT under displaced patch parallelism (parallel/dit_sp.py),
+    # its two layouts, DPM-solver as the pipeline's default
+    "dit": ({"warmup_steps": PATCH_WARMUP}, [{}, {"mode": "full_sync"}],
+            {"sync": 2, "stale": 2}, "pixart", PATCH_STEPS),
+    "dit_ring": ({"warmup_steps": PATCH_WARMUP, "attn_impl": "ring"}, [{}],
+                 {"sync": 2, "stale": 2}, "pixart", PATCH_STEPS),
 }
+DIT_RUNS = ("dit", "dit_ring")
+# T5-XXL layers of the multi-rank PixArt runs (full width; four ranks on one
+# card each hold a copy); the single-card PixArt call runs all 24
+SPAWN_T5_LAYERS = 6
+# PixArt-α's self-attention (16 heads of d = 72, 28 blocks) as the flash
+# kernel sees it, with its launches in one 4-step call: the dense 1024x1024
+# call (CFG folded, B = 2), one rank of the "dit" run at CFG 2 x sp 2 (2048
+# queries against the gathered 4096 keys) and a dense 512x512 call
+PIXART_STEPS, PIXART_DEPTH = 4, 28
+PIXART_SHAPES = (
+    ("dit_self" + PIXART, 2, 4096, 4096, 16, 72, PIXART_STEPS * PIXART_DEPTH),
+    ("patch_dit_self" + PIXART, 1, 2048, 4096, 16, 72, PIXART_STEPS * PIXART_DEPTH),
+    ("dit512_self" + PIXART, 2, 1024, 1024, 16, 72, PIXART_STEPS * PIXART_DEPTH))
+# the "dit_ring" run's chunks: one rank's 2048 queries against one rank's 2048
+# keys, the own chunk and one hop a block and step at sp 2
+PIXART_RING_HOPS = (("dit_ring_hop" + PIXART, 1, 2048, 2048, 16, 72,
+                     2 * PIXART_STEPS * PIXART_DEPTH),)
 KNOB_RUNS = ("ring", "compress_pcpp", "stepcache_batch")
 # the ring attention's chunk shapes at CFG 2 x sp 2 (B = 1, L / 2 queries
 # against one rank's L / 2 keys), as the flash kernel's log-sum-exp
@@ -311,6 +359,7 @@ DEQUANT_ENTRY = {"name": "dequantize_rows", "route": "cuda",
 FLASH_ENTRY = {"name": "flash_sdpa", "route": "cuda",
                "source": "distrifuser_tpu_torch/csrc/flash_attention.cu",
                "replaces": "distrifuser_tpu/ops/flash_attention.py:41"}
+TINY_PIXART_HEADS = 2  # the tiny DiT's 144 columns as 2 heads of PixArt's d = 72
 
 
 def card_line() -> str:
@@ -392,7 +441,7 @@ def attention_shapes(ucfg, vcfg, height, width, unet_evals, suffix=""):
 
 def family(name: str) -> str:
     """The model family of a kernel-phase row by its shape name."""
-    for fam, suffix in (("sd15", SD15), ("sd21", SD21)):
+    for fam, suffix in (("sd15", SD15), ("sd21", SD21), ("pixart", PIXART)):
         if name.endswith(suffix):
             return fam
     return "sdxl"
@@ -549,12 +598,18 @@ def decode_launches(fields, model):
 
 def multi_expected(label, ucfg):
     """The launches one call of the multi-rank run ``label`` makes on one
-    rank: the comm-knob runs' (``knob_expected``), else the UNet's
-    attentions at every step and the decode's (``decode_launches``)."""
+    rank: the comm-knob runs' (``knob_expected``), the DiT's self-attention
+    at every block and step (ring: the own chunk and one hop, log-sum-exp),
+    else the UNet's attentions at every step; and the decode's
+    (``decode_launches``)."""
     fields, _, _, model, steps = MULTI_RUNS[label]
     if label in KNOB_RUNS:
         return knob_expected(label, ucfg)
     plain, lse = decode_launches(fields, model)
+    if label in DIT_RUNS:  # ucfg: the DiT's; a ring block launches 2 chunks at sp 2
+        ring = 2 * steps * ucfg.depth if fields.get("attn_impl") == "ring" else 0
+        return {"flash_sdpa": (ring or steps * ucfg.depth) + plain + lse,
+                "flash_sdpa_lse": ring + lse, "quant_matmul": 0, "quantize_rows": 0}
     from distrifuser_tpu_torch.models import unet
 
     return {"flash_sdpa": steps * unet.attention_calls_per_forward(ucfg) + plain + lse,
@@ -751,10 +806,11 @@ def refresh_codec_phase(rows):
     return results
 
 
-def lse_kernel_phase(spills):
+def lse_kernel_phase(spills, extra=()):
     """The flash kernel's log-sum-exp instances at the ring's chunk shapes
-    (``RING_HOPS``, d = 64) and the sequence-parallel decode's
-    (``VAE_RING_HOPS``, d = 512): out (float32) and lse against the plain
+    (``RING_HOPS``, d = 64), the sequence-parallel decode's
+    (``VAE_RING_HOPS``, d = 512) and ``extra`` (PixArt's ring,
+    ``PIXART_RING_HOPS``, d = 72): out (float32) and lse against the plain
     version (out max |d| <= 2e-2, mean <= 2e-3; lse max |d| <= 1e-3), timed
     by CUDA events and device time beside the plain version and the one
     PyTorch call that also returns the log-sum-exp at the head dim:
@@ -774,7 +830,7 @@ def lse_kernel_phase(spills):
     counts = phase_step_counts(steps, fields["warmup_steps"], 1)
     full_steps = counts["sync"] + counts["stale"]
     hops = [(*hop, full_steps * 2 * blocks[int(hop[0][-1])])  # two chunks a layer at sp 2
-            for hop in RING_HOPS] + list(VAE_RING_HOPS)
+            for hop in RING_HOPS] + list(VAE_RING_HOPS) + list(extra)
     results = []
     for name, b, lq, lk, heads, d, calls in hops:
         c = heads * d
@@ -843,6 +899,97 @@ def lse_kernel_phase(spills):
     return results
 
 
+def flash_variant_phase(specs, out_dir):
+    """``--flash_variants``: for each spec "D:BK,NQ,NC,STAGES,MINB[,DP]", a
+    copy of csrc/flash_attention.cu whose instance for head dim D is X(D,
+    spec) (csrc/sm90.cuh beside it), built under ``out_dir`` with nvcc in
+    parallel and swapped into ops/flash_attention.py's library around its
+    calls; the checkout's own source first, as "current".  At PixArt's
+    shapes (``PIXART_SHAPES``; ``PIXART_RING_HOPS`` through the
+    log-sum-exp instance) each is held against the plain version (the
+    kernel phase's limits) and timed by device time beside SDPA (the flash
+    library call with the log-sum-exp for the ring's chunk), in one
+    process on one card.  Prints each build's ptxas lines for the head dim
+    and one row per (variant, shape)."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    import torch.nn.functional as F
+
+    from distrifuser_tpu_torch.ops import _build
+    from distrifuser_tpu_torch.ops import flash_attention as fa
+
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    libs = {"current": fa._KERNEL}
+    for spec in specs:
+        d, args = spec.split(":")
+        variant_text, n = re.subn(rf"X\({d}, [^)]*\)", f"X({d}, {', '.join(args.split(','))})",
+                                  text, count=1)
+        if n != 1:
+            raise ValueError(f"flash variant {spec}: no instance for d = {d}")
+        vdir = os.path.abspath(os.path.join(out_dir, f"d{d}_" + args.replace(",", "_")))
+        os.makedirs(vdir, exist_ok=True)
+        with open(os.path.join(vdir, "flash_attention.cu"), "w") as f:
+            f.write(variant_text)
+        shutil.copy(_build.CSRC / "sm90.cuh", vdir)
+        libs[spec] = _build.KernelLibrary(os.path.join(vdir, "flash_attention.cu"), fa._bind)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        logs = dict(zip(libs, pool.map(lambda lib: lib.build(), libs.values())))
+    heads_dims = {spec.split(":")[0] for spec in specs}
+    for label, log in logs.items():
+        keep = False
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                keep = any(f"ConfigILi{d}E" in line for d in heads_dims)
+            if keep and ("registers" in line or "spill" in line or "Compiling" in line):
+                print(f"  ptxas {label}: {line.strip()}", flush=True)
+    rows = []
+    for name, b, lq, lk, heads, d, calls in list(PIXART_SHAPES) + list(PIXART_RING_HOPS):
+        lse = name.startswith("dit_ring")
+        c = heads * d
+        g = torch.Generator(device="cuda").manual_seed(7)
+        q = torch.randn(b, lq, c, device="cuda", generator=g).bfloat16()
+        k, v = torch.randn(b, lk, 2 * c, device="cuda", generator=g).bfloat16().chunk(2, -1)
+        want = fa.flash_sdpa_reference(q, k, v, heads=heads, return_lse=lse)
+        qh, kh, vh = (t.unflatten(-1, (heads, d)).transpose(1, 2) for t in (q, k, v))
+        if lse:
+            library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
+                qh, kh, vh)
+        else:
+            library = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
+        library_ms = device_ms(library)
+        flops = 4.0 * b * heads * lq * lk * d
+        for label, lib in libs.items():
+            saved = fa._KERNEL._lib
+            fa._KERNEL._lib = lib.lib
+            try:
+                def kernel():
+                    return fa.flash_sdpa(q, k, v, heads=heads, return_lse=lse)
+
+                got = kernel()
+                out, ref = (got[0], want[0]) if lse else (got, want)
+                err = (out.float() - ref.float()).abs()
+                lse_err = (got[1] - want[1]).abs().max().item() if lse else 0.0
+                if not (err.max().item() <= KERNEL_MAX_ABS
+                        and err.mean().item() <= KERNEL_MEAN_ABS and lse_err <= 1e-3):
+                    raise AssertionError(f"flash variant {label} at {name}: max |d| "
+                                         f"{err.max().item()}, lse {lse_err}")
+                dev = device_ms(kernel)
+                row = {"phase": "flash_variant", "variant": label, "shape": name, "B": b,
+                       "Lq": lq, "Lk": lk, "H": heads, "d": d, "return_lse": lse,
+                       "max_abs_err": err.max().item(), "device_ms": dev,
+                       "library_device_ms": library_ms,
+                       "vs_library": None if not (dev and library_ms) else dev / library_ms,
+                       "tflops": None if not dev else flops / (dev * 1e-3) / 1e12,
+                       **fa.variant(d, lse=lse)}
+            finally:
+                fa._KERNEL._lib = saved
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
 def kernel_phase(shapes, spills):
     import torch
     import torch.nn.functional as F
@@ -859,7 +1006,7 @@ def kernel_phase(shapes, spills):
         if "vae" in name:  # separate to_q/to_k/to_v projections
             k = torch.randn(b, lk, c, device="cuda", generator=g).bfloat16()
             v = torch.randn(b, lk, c, device="cuda", generator=g).bfloat16()
-        elif name.startswith("patch_unet_self"):
+        elif name.startswith(("patch_unet_self", "patch_dit_self")):
             # the stale step's gathered KV [n, B, L/n, 2C], flattened to
             # [B, L, 2C] in patch order and split, as patch_self_attention does
             gathered = torch.randn(lk // lq, b, lq, 2 * c, device="cuda",
@@ -977,6 +1124,32 @@ def quant_shapes(ucfg, height, width, steps, batch=2, suffix=""):
         c = ucfg.block_out_channels[lvl]
         shapes.append((f"time_emb_proj_{c}", batch, temb, c, count * steps))
     return [(name + suffix, *rest) for name, *rest in shapes]
+
+
+def pixart_quant_shapes(steps=PIXART_STEPS, batch=2, caption=120):
+    """The (name, M, K, N, launches per call) of PixArt-α's quantized linears
+    in a ``steps``-step 1024x1024 call at weight_quant int8 or fp8 (CFG
+    folded: M = 2 x 4096 tokens): per block and step the attention q / out
+    and cross q / out, the self-attention kv, the MLP's two; the caption
+    path once a call; the patch embedding and the timestep and adaLN
+    linears once a step (M = 1; final_out stays dense); and T5-XXL's
+    linears at 2 x 120 tokens with no launches: the text encoder follows
+    ``weight_quant_aux``, which densifies at the consumer."""
+    from distrifuser_tpu_torch.models import dit, t5
+
+    d, t = dit.pixart_config(), t5.t5_v1_1_xxl_config()
+    h, m, mt = d.hidden_size, batch * d.num_tokens, batch * caption
+    per_step = steps * d.depth
+    shapes = [("dit_q_out", m, h, h, 4 * per_step), ("dit_self_kv", m, h, 2 * h, per_step),
+              ("dit_mlp_fc1", m, h, d.mlp_ratio * h, per_step),
+              ("dit_mlp_fc2", m, d.mlp_ratio * h, h, per_step),
+              ("dit_cross_kv", mt, h, 2 * h, d.depth), ("dit_cap_fc1", mt, d.caption_dim, h, 1),
+              ("dit_cap_fc2", mt, h, h, 1), ("dit_proj_in", m, d.token_dim, h, steps),
+              ("dit_t_fc1", 1, d.frequency_embedding_size, h, steps),
+              ("dit_t_fc2", 1, h, h, steps), ("dit_adaln", 1, h, 6 * h, steps),
+              ("t5_qkvo", mt, t.d_model, t.inner_dim, 0), ("t5_wi", mt, t.d_model, t.d_ff, 0),
+              ("t5_wo", mt, t.d_ff, t.d_model, 0)]
+    return [(name + PIXART, *rest) for name, *rest in shapes]
 
 
 def _library_gemm(xq, wq):
@@ -1245,6 +1418,8 @@ def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", pro
 
     gen = torch.Generator().manual_seed(0)
     vcfg = vae.tiny_vae_config()
+    if model == "pixart":
+        return _tiny_pixart_check(steps, scheduler, prompts, **fields)
     if model == "sd15":
         cls, ucfg, tcfgs = DistriSDPipeline, tiny_sd15_config(), [clip.tiny_clip_config()]
     else:
@@ -1281,6 +1456,46 @@ def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", pro
     if rel > limit:
         raise AssertionError(f"tiny pipeline ({weight_quant}, {fields}) bf16/card vs "
                              f"fp32/cpu rel L2 {rel} over {limit}")
+    return result
+
+
+def _tiny_pixart_check(steps, scheduler, prompts, **fields):
+    """``tiny_check`` of the tiny PixArt pipeline: a 2-block DiT of 2 heads of
+    PixArt's d = 72, the tiny T5, the tiny VAE, bf16 on the card vs float32
+    on the CPU from the same weights and latents, relative L2 <= 8e-2."""
+    import numpy as np
+    import torch
+
+    from distrifuser_tpu_torch import DistriConfig, DistriPixArtPipeline
+    from distrifuser_tpu_torch.models import dit, t5, vae
+    from distrifuser_tpu_torch.models.unet import cast_params
+
+    gen = torch.Generator().manual_seed(0)
+    dcfg = dit.DiTConfig(sample_size=16, hidden_size=72 * TINY_PIXART_HEADS, depth=2,
+                         num_heads=TINY_PIXART_HEADS, mlp_ratio=2, caption_dim=32)
+    tcfg, vcfg = t5.tiny_t5_config(), vae.tiny_vae_config()
+    trees = (dit.init_dit_params(gen, dcfg), vae.init_vae_params(gen, vcfg),
+             t5.init_t5_params(gen, tcfg))
+    latents = np.random.RandomState(0).randn(prompts, 16, 16, 4).astype(np.float32)
+    texts = ["a lighthouse at dusk", "a red boat on a lake"][:prompts]
+    outs = []
+    for device, dtype in CHECK_DEVICES:
+        d, v, t = (cast_params(tree, getattr(torch, dtype), device) for tree in trees)
+        cfg = DistriConfig(device=device, height=128, width=128, batch_size=prompts,
+                           **fields)
+        pipe = DistriPixArtPipeline.from_params(cfg, dcfg, d, vcfg, v, t5_config=tcfg,
+                                                t5_params=t, scheduler=scheduler)
+        outs.append(np.stack(pipe(texts, num_inference_steps=steps, latents=latents,
+                                  output_type="latent").images))
+    ref, got = outs
+    rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    result = {"phase": "tiny_check", "model": "pixart", "scheduler": scheduler,
+              "weight_quant": "none", "steps": steps, "prompts": prompts, **fields,
+              "head_dim": 72, "rel_l2": rel, "max_abs": float(np.abs(got - ref).max()),
+              "limit_rel_l2": TINY_REL_L2["none"]}
+    if not np.isfinite(got).all() or rel > TINY_REL_L2["none"]:
+        raise AssertionError(f"tiny PixArt pipeline ({fields}) bf16/card vs fp32/cpu: "
+                             f"{result}")
     return result
 
 
@@ -1327,10 +1542,13 @@ def stepcache_graph_check():
 
 
 def model_configs(model):
-    """(UNet config, VAE config, text encoder configs) of a model family at
-    its published widths: SDXL-base, SD 1.5 or SD 2.1."""
-    from distrifuser_tpu_torch.models import clip, unet, vae
+    """(denoiser config, VAE config, text encoder configs) of a model family
+    at its published widths: SDXL-base, SD 1.5, SD 2.1 or PixArt-α (the
+    DiT-XL/2 and T5-v1.1-XXL)."""
+    from distrifuser_tpu_torch.models import clip, dit, t5, unet, vae
 
+    if model == "pixart":
+        return dit.pixart_config(), vae.sd_vae_config(), [t5.t5_v1_1_xxl_config()]
     if model == "sd15":
         return unet.sd15_config(), vae.sd_vae_config(), [clip.clip_vit_l_config()]
     if model == "sd21":
@@ -1339,17 +1557,25 @@ def model_configs(model):
             [clip.clip_vit_l_config(), clip.open_clip_bigg_config()])
 
 
-def build_trees(model="sdxl"):
+def build_trees(model="sdxl", t5_layers=None):
     """Full-width configs of ``model`` and seeded random bf16 parameter
-    trees on this rank's card: (unet config, unet tree, vae config, vae
-    tree, text configs, text trees)."""
+    trees on this rank's card: (denoiser config, denoiser tree, vae config,
+    vae tree, text configs, text trees); PixArt's T5 cut to ``t5_layers``
+    layers where given (full width)."""
+    import dataclasses
+
     import torch
 
-    from distrifuser_tpu_torch.models import clip, unet, vae
+    from distrifuser_tpu_torch.models import clip, dit, t5, unet, vae
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     ucfg, vcfg, tcfgs = model_configs(model)
     dtype = torch.bfloat16
+    if model == "pixart":
+        tcfg = dataclasses.replace(tcfgs[0], num_layers=t5_layers or tcfgs[0].num_layers)
+        return (ucfg, dit.init_dit_params(gen, ucfg, dtype), vcfg,
+                vae.init_vae_params(gen, vcfg, dtype), [tcfg],
+                [t5.init_t5_params(gen, tcfg, dtype)])
     return (ucfg, unet.init_unet_params(gen, ucfg, dtype), vcfg,
             vae.init_vae_params(gen, vcfg, dtype), tcfgs,
             [clip.init_clip_params(gen, tc, dtype) for tc in tcfgs])
@@ -1358,18 +1584,26 @@ def build_trees(model="sdxl"):
 def build_pipeline(trees, model="sdxl", scheduler="ddim", **quant):
     """The pipeline of ``model`` (DistriSDXLPipeline at 1024x1024,
     DistriSDPipeline at 512x512 for SD 1.5 and 768x768 for SD 2.1, with
-    v-prediction) on this rank's card (bf16) from ``trees``, with the
+    v-prediction, DistriPixArtPipeline at 1024x1024 with DPM-solver) on this
+    rank's card (bf16) from ``trees``, with the
     ``quant`` config fields (weight quantization at load time, sync mode,
     warmup); returns (pipeline, seconds to build)."""
     import torch
 
-    from distrifuser_tpu_torch import DistriConfig, DistriSDPipeline, DistriSDXLPipeline
+    from distrifuser_tpu_torch import (DistriConfig, DistriPixArtPipeline, DistriSDPipeline,
+                                       DistriSDXLPipeline)
     from distrifuser_tpu_torch.schedulers import get_scheduler
 
     t_init = time.perf_counter()
     ucfg, unet_p, vcfg, vae_p, tcfgs, text_p = trees
     size = SIZES[model]
     cfg = DistriConfig(height=size, width=size, **quant)  # this rank's card, bf16
+    if model == "pixart":  # DPM-solver, the PixArt pipeline's default
+        pipe = DistriPixArtPipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p,
+                                                t5_config=tcfgs[0], t5_params=text_p[0],
+                                                scheduler="dpm-solver")
+        torch.cuda.synchronize()
+        return pipe, time.perf_counter() - t_init
     cls = DistriSDXLPipeline if model == "sdxl" else DistriSDPipeline
     if model == "sd21":
         scheduler = get_scheduler(scheduler, prediction_type="v_prediction")
@@ -1380,7 +1614,8 @@ def build_pipeline(trees, model="sdxl", scheduler="ddim", **quant):
 
 
 MODEL_NAMES = {"sdxl": "SDXL-base widths", "sd15": "SD 1.5 widths",
-               "sd21": "SD 2.1 widths (v-prediction)"}
+               "sd21": "SD 2.1 widths (v-prediction)",
+               "pixart": "PixArt-α widths (DiT-XL/2, T5-v1.1-XXL, SD VAE)"}
 
 
 def reset_counts():
@@ -1593,6 +1828,56 @@ def pipeline_phase(trees, expected_flash, expected_quant):
             results.update(img2img_handoff_phase(pipe, trees))
         del pipe
     return results, dense_latent
+
+
+def pixart_phase():
+    """PixArt-α at 1024x1024 on one card: the DiT of ``pixart_config()`` (28
+    blocks of 1152, 16 heads of d = 72) and T5-v1.1-XXL whole (24 layers of
+    4096, about 4.8 B parameters) with the SD VAE, seeded random bf16
+    weights; one prompt, 4 DPM-solver steps to an image, eagerly and then
+    under CUDA graphs (``graphed_runs``), which must agree bit for bit; the
+    flash kernel 4 x 28 + 1 times a call (the eager call's launches by head
+    dim: d = 72 112 times, the whole decode's d = 512 once).  Prints the
+    lines and returns (eager line, graphed line)."""
+    import torch
+
+    t0 = time.perf_counter()
+    trees = build_trees("pixart")
+    trees_s = time.perf_counter() - t0
+    pipe, init_s = build_pipeline(trees, "pixart")
+    per_call = PIXART_STEPS * trees[0].depth
+    eager, graphed, compare, _ = graphed_runs(
+        pipe, init_s + trees_s, "pixart",
+        {"flash_sdpa": per_call + 1, "quant_matmul": 0, "quantize_rows": 0},
+        steps=PIXART_STEPS, model="pixart")
+    count = lambda tree: sum(t.numel() for t in _tensors(tree))  # noqa: E731
+    params = {"dit": count(trees[1]), "t5": count(trees[5][0]), "vae": count(trees[3])}
+    for line in (eager, graphed):
+        line.update({"parameters": params, "t5_layers": trees[4][0].num_layers,
+                     "dit_depth": trees[0].depth, "head_dim": trees[0].head_dim})
+        print(json.dumps(line), flush=True)
+    print(json.dumps(compare), flush=True)
+    if eager["flash_sdpa_launches_by_head_dim"] != {72: per_call, 512: 1}:
+        raise AssertionError(f"pixart: flash launches by head dim "
+                             f"{eager['flash_sdpa_launches_by_head_dim']}")
+    if not (compare["latent_bit_identical"] and compare["image_bit_identical"]):
+        raise AssertionError(f"pixart: the graphed call differs from the eager one "
+                             f"(latent rel L2 {compare['latent_rel_l2']})")
+    del pipe, trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    return eager, graphed
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
 
 
 def img2img_handoff_phase(pipe, trees):
@@ -1914,16 +2199,18 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _refuses_graphs(ucfg):
-    """Is ``use_cuda_graph=True`` refused when a runner is built on ranks
-    that share the card?"""
+def _refuses_graphs(model):
+    """Is ``use_cuda_graph=True`` refused when a runner of ``model`` (the
+    UNet's or the DiT's) is built on ranks that share the card?"""
     from distrifuser_tpu_torch import DistriConfig
+    from distrifuser_tpu_torch.parallel.dit_sp import DiTDenoiseRunner
     from distrifuser_tpu_torch.parallel.runner import DenoiseRunner
     from distrifuser_tpu_torch.schedulers import get_scheduler
 
-    cfg = DistriConfig(height=1024, width=1024, warmup_steps=PATCH_WARMUP)
+    cfg = DistriConfig(height=SIZES[model], width=SIZES[model], warmup_steps=PATCH_WARMUP)
+    runner = DiTDenoiseRunner if model == "pixart" else DenoiseRunner
     try:
-        DenoiseRunner(cfg, ucfg, {}, get_scheduler("ddim"))
+        runner(cfg, model_configs(model)[0], {}, get_scheduler("ddim"))
     except ValueError as e:
         return "share a card" in str(e)
     return False
@@ -1952,7 +2239,7 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
         set_precision_flags()
         graphs = backend != "gloo"
         first = next((label for label in labels if label in MULTI_RUNS), "patch")
-        if not graphs and not _refuses_graphs(model_configs(MULTI_RUNS[first][3])[0]):
+        if not graphs and not _refuses_graphs(MULTI_RUNS[first][3]):
             raise AssertionError(f"rank {rank}: use_cuda_graph=True was not refused "
                                  "with ranks sharing a card over gloo")
         out, trees = {}, {}
@@ -1964,8 +2251,8 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
                 continue
             fields, tinies, want, model, steps = MULTI_RUNS[label]
             t0 = time.perf_counter()
-            if model not in trees:
-                trees = {model: build_trees(model)}  # one family's trees at a time
+            if model not in trees:  # one family's trees at a time
+                trees = {model: build_trees(model, t5_layers=SPAWN_T5_LAYERS)}
             trees_s = time.perf_counter() - t0
             expected = multi_expected(label, trees[model][0])
             prompts = RUN_PROMPTS.get(label, [PROMPT])
@@ -2011,9 +2298,12 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
                     "vae_decode_parallel": pipe.vae_decode_parallel,
                     "n_device_per_batch": cfg.n_device_per_batch, "mode": cfg.mode,
                     "warmup_steps": cfg.warmup_steps, "steps_by_phase": phases,
-                    "comm_volume_elements": pipe.runner.comm_volume_report(),
                     "card_used_bytes_all_ranks": total - free,
                 })
+                if label in DIT_RUNS:
+                    line.update(dit_line(pipe, line, steps, trees[model]))
+                else:
+                    line["comm_volume_elements"] = pipe.runner.comm_volume_report()
                 if label in KNOB_RUNS or label == "patch":
                     line.update(knob_line(pipe, line, latent, label, out_dir, rank, steps))
             if profile:
@@ -2178,6 +2468,15 @@ def fp32_reference_decode(params, vcfg, latent):
         vae.sdpa = kernel_sdpa
 
 
+def step_ms_by_phase(phases, line):
+    """A pipeline line's measured step times grouped by the evaluation each
+    step ran (``phases``: one a step; step_ms[i] ends step i + 1)."""
+    step_ms = {}
+    for phase, ms in zip(phases[1:], line["step_ms"]):
+        step_ms.setdefault(phase, []).append(ms)
+    return step_ms
+
+
 def knob_line(pipe, line, latent, label, out_dir, rank, steps):
     """What a displaced-patch run adds to its pipeline line: the per-phase
     comm report and ``comm_plan`` (bytes a step of each phase exchanges, and
@@ -2189,17 +2488,28 @@ def knob_line(pipe, line, latent, label, out_dir, rank, steps):
     rep = pipe.runner.comm_volume_report(per_phase=True)
     plan = pipe.comm_plan(steps)
     phases = pipe.runner._phases(steps)
-    step_ms = {}
-    for phase, ms in zip(phases[1:], line["step_ms"]):  # step_ms[i] ends step i + 1
-        step_ms.setdefault(phase, []).append(ms)
     extra = {"comm_bytes_per_step": rep["bytes"], "comm_elements_per_step": rep["phases"],
-             "comm_plan": plan, "step_ms_by_phase": step_ms, "evaluations": phases}
+             "comm_plan": plan, "step_ms_by_phase": step_ms_by_phase(phases, line),
+             "evaluations": phases}
     plain = os.path.join(out_dir, f"latent_patch{'' if steps == 4 else steps}_rank{rank}.npy")
     if label != "patch" and os.path.exists(plain):
         ref = np.load(plain).reshape(latent.shape)
         extra["latent_rel_l2_vs_plain_patch"] = float(
             np.linalg.norm(latent - ref) / np.linalg.norm(ref))
     return extra
+
+
+def dit_line(pipe, line, steps, trees):
+    """What a PixArt multi-rank run adds to its pipeline line: the DiT
+    runner's ``comm_report`` (elements and bytes of one step), its
+    ``attn_impl``, the measured step times by phase and the model's cut (the
+    T5 at ``SPAWN_T5_LAYERS`` layers of full width, the DiT whole)."""
+    phases = pipe.runner._phases(steps)
+    return {"comm_report": pipe.runner.comm_report(1),
+            "attn_impl": pipe.distri_config.attn_impl,
+            "step_ms_by_phase": step_ms_by_phase(phases, line),
+            "evaluations": phases, "t5_layers": trees[4][0].num_layers,
+            "dit_depth": trees[0].depth}
 
 
 def _multi_rank_img2img(pipe, name, model):
@@ -2290,7 +2600,7 @@ def patch_phase(dense_latent, out_dir, profile=False, runs=None):
         spawns[0][1].append("tensor")
     else:
         spawns.append((tp_world, ["tensor"]))
-    spawns[0][1].extend(["sd15_patch", "dp", "decode_sp"])
+    spawns[0][1].extend(["sd15_patch", "dp", *DIT_RUNS, "decode_sp"])
     if runs:
         spawns = [(PATCH_WORLD, list(runs))]
     print(json.dumps({"phase": "patch_transport", "world": PATCH_WORLD, **transport,
@@ -2622,7 +2932,8 @@ def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="only profile the warm main path (torch.profiler), "
-                             "eagerly and under CUDA graphs (SDXL and SD 1.5 dense), "
+                             "eagerly and under CUDA graphs (SDXL, SD 1.5 and PixArt-α "
+                             "dense), "
                              "and print the device-time breakdowns; with "
                              "--patch_only, profile each rank's calls")
     parser.add_argument("--weight_quant", default=None, choices=("none", "int8", "fp8"),
@@ -2644,6 +2955,11 @@ def main(argv) -> int:
                         help="only time the quantized-matmul kernel's contract form "
                              "and the per-token quantization on the card at every "
                              "path shape (device time)")
+    parser.add_argument("--flash_variants", default=None,
+                        help="only build these variants of the flash kernel's instances, "
+                             "';'-separated 'D:BK,NQ,NC,STAGES,MINB[,DP]' (e.g. "
+                             "'72:64,1,1,2,3;72:128,1,1,2,2,96'), and time each beside "
+                             "the checkout's own at PixArt's shapes (device time)")
     parser.add_argument("--encoder_source", default=None,
                         help="with --quant_device_times: build the per-token "
                              "quantization from this variant of "
@@ -2680,12 +2996,18 @@ def main(argv) -> int:
                            + quant_shapes(ucfg15, SIZES["sd15"], SIZES["sd15"], steps,
                                           suffix=SD15), args.encoder_source)
         return 0
+    if args.flash_variants:
+        set_precision_flags()
+        flash_variant_phase(args.flash_variants.split(";"),
+                            os.path.join(args.out_dir, "flash_variants"))
+        return 0
     spills = build_kernels()
 
     set_precision_flags()
     if args.profile and not args.patch_only:
         quants = [args.weight_quant] if args.weight_quant else ["none", "int8", "fp8"]
-        profile_phase(args.out_dir, [("sdxl", q) for q in quants] + [("sd15", "none")])
+        profile_phase(args.out_dir, [("sdxl", q) for q in quants]
+                      + [("sd15", "none"), ("pixart", "none")])
         return 0
     shapes = attention_shapes(ucfg, vcfg, 1024, 1024, unet_evals=steps)
     expected_flash = steps * unet.attention_calls_per_forward(ucfg) + 1
@@ -2747,7 +3069,7 @@ def main(argv) -> int:
                     "sd15_patch": "patch_", "dp": "dp_"}
         out = {}
         for label, lines in multi_runs.items():
-            if label == "decode_sp":  # the d = 512 entry's paths
+            if label == "decode_sp" or label in DIT_RUNS:  # the d = 512 and 72 entries'
                 continue
             if label in KNOB_RUNS:
                 out[label] = knob_entry(rows, label, lines)
@@ -2797,6 +3119,40 @@ def main(argv) -> int:
                 rows_of(rows, "vae_ring_512_sp2", "sd15"),
                 launches(multi_runs["sd15_patch"][-1]),
                 work="one rank's decode in SD 1.5's 512x512 patch call"))
+
+    def d72_entries(rows, multi_runs, pixart=None):
+        """The d = 72 instances (PixArt-α's DiT): the plain one in the dense
+        1024x1024 call of the main path (``pixart``: its eager line, launches
+        by head dim; without it, one rank of the "dit" run) with one rank of
+        the "dit" run as a path, and the log-sum-exp one in one rank of the
+        "dit_ring" run; the decodes' d = 512 launches left out."""
+        d512 = lambda line: line["flash_sdpa_d512_launches"]["lse"]  # noqa: E731
+        dit, ring = multi_runs["dit"][-1], multi_runs["dit_ring"][-1]
+        rank = path_entry(rows_of(rows, "patch_dit_self", "pixart"), [("patch_dit_self", 1)],
+                          dit["flash_sdpa_launches"] - d512(dit),
+                          work="one rank of the dit run (gather layout) at CFG 2 x sp 2, "
+                               "4-step 1024x1024 PixArt call")
+        plain_work = ("the d = 72 instance (PixArt-α's self-attention, 16 heads): ")
+        if pixart is None:
+            plain = {**rank, **FLASH_ENTRY, "name": "flash_sdpa[d=72]",
+                     "work": plain_work + rank["work"]}
+        else:
+            plain = path_entry(
+                rows_of(rows, "dit_self", "pixart"), [("dit_self", 1)],
+                pixart["flash_sdpa_launches_by_head_dim"][72],
+                **{**FLASH_ENTRY, "name": "flash_sdpa[d=72]"},
+                work=plain_work + "all of it in one dense 4-step 1024x1024 PixArt call "
+                                  "(eager launches by head dim; the graphed call launches as "
+                                  "many); library: F.scaled_dot_product_attention",
+                dit=rank)
+        lse = path_entry(rows_of(rows, "dit_ring_hop", "pixart"), [("dit_ring_hop", 1)],
+                         ring["flash_sdpa_lse_launches"] - d512(ring),
+                           **{**FLASH_ENTRY, "name": "flash_sdpa[lse, d=72]"},
+                           work="the d = 72 log-sum-exp instance (float32 out and lse): "
+                                "the ring's chunks in one rank of the dit_ring run at CFG 2 x "
+                                "sp 2, 4-step 1024x1024 PixArt call; library: aten._scaled_"
+                                "dot_product_flash_attention")
+        return [plain, lse]
 
     def knob_entry(rows, label, lines):
         """The flash kernel in one call of a comm-knob run on one rank: the
@@ -2869,7 +3225,8 @@ def main(argv) -> int:
               flush=True)
         return finish(None)
     if args.patch_only:
-        rows = kernel_phase(multi + vae_rows, spills) + lse_kernel_phase(spills)
+        rows = (kernel_phase(multi + vae_rows + list(PIXART_SHAPES[1:2]), spills)
+                + lse_kernel_phase(spills, PIXART_RING_HOPS))
         refresh_rows = refresh_codec_phase(refresh_codec_rows(ucfg, 1024, 1024))
         seconds["flash_kernel_multi_rank_shapes"], t0 = (time.perf_counter() - t0,
                                                          time.perf_counter())
@@ -2887,10 +3244,12 @@ def main(argv) -> int:
                                      multi_runs["sd15_patch"][0]
                                      ["flash_sdpa_launches_by_head_dim"],
                                      "one rank of SD 1.5's patch path at CFG 2 x sp 2 "
-                                     "(stale_gn), 4-step 512x512 call, eager")]
+                                     "(stale_gn), 4-step 512x512 call, eager"),
+                   *d72_entries(rows, multi_runs)]
         return finish(kernels)
-    rows = kernel_phase(shapes + shapes15 + shapes21 + multi + enc_rows + decode_rows,
-                        spills) + lse_kernel_phase(spills)
+    rows = kernel_phase(shapes + shapes15 + shapes21 + multi + enc_rows + decode_rows
+                        + list(PIXART_SHAPES), spills) + lse_kernel_phase(spills,
+                                                                           PIXART_RING_HOPS)
     mrows = rows
     rows = rows_of(mrows, ("unet", "vae_mid"), "sdxl")
     rows15 = rows_of(mrows, ("unet", "vae_mid"), "sd15")
@@ -2900,12 +3259,13 @@ def main(argv) -> int:
     per_forward15, per_call15 = unet.linear_calls(ucfg15)
     expected_quant15 = steps * per_forward15 + per_call15
     assert sum(s[-1] for s in qshapes15) == expected_quant15, (qshapes15, expected_quant15)
-    qrows = quant_kernel_phase(qshapes + qshapes15)
+    qrows = quant_kernel_phase(qshapes + qshapes15 + pixart_quant_shapes())
     refresh_rows = refresh_codec_phase(refresh_codec_rows(ucfg, 1024, 1024))
     seconds["quant_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     for weight_quant in ("none", "int8", "fp8"):
         print(json.dumps(tiny_check(weight_quant)), flush=True)
     print(json.dumps(tiny_check(model="sd15", scheduler="euler")), flush=True)
+    print(json.dumps(tiny_check(model="pixart", scheduler="dpm-solver")), flush=True)
     print(json.dumps(stepcache_graph_check()), flush=True)
     seconds["tiny_checks"], t0 = time.perf_counter() - t0, time.perf_counter()
     trees = build_trees()
@@ -2917,6 +3277,8 @@ def main(argv) -> int:
     seconds["tiled_decode"], t0 = time.perf_counter() - t0, time.perf_counter()
     sd_runs = sd_pipeline_phase(by_head_dim15, expected_quant15)
     seconds["sd_pipelines"], t0 = time.perf_counter() - t0, time.perf_counter()
+    pixart = pixart_phase()
+    seconds["pixart"], t0 = time.perf_counter() - t0, time.perf_counter()
     cli = cli_phase()
     seconds["cli"], t0 = time.perf_counter() - t0, time.perf_counter()
     multi_runs = patch_phase(dense_latent, os.path.join(args.out_dir, "multi"))
@@ -3014,6 +3376,7 @@ def main(argv) -> int:
         dequant,
         lse,
         d512_entry(mrows, multi_runs),
+        *d72_entries(mrows, multi_runs, pixart[0]),
     ]
     return finish(kernels)
 

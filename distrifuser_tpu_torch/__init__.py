@@ -3,8 +3,10 @@
 A second package beside the JAX reference: the same module names, PyTorch
 inside, and every Pallas TPU kernel on the ported path replaced by a kernel
 written by hand for sm_90a (``csrc/``).  It runs text-to-image for SDXL
-(``DistriSDXLPipeline``) and SD 1.x / 2.x (``DistriSDPipeline``) on one
-card or under DistriFusion's displaced patch parallelism on n ranks:
+(``DistriSDXLPipeline``), SD 1.x / 2.x (``DistriSDPipeline``) and PixArt-α
+(``DistriPixArtPipeline``: T5 -> ``DiTDenoiseRunner`` over the DiT of
+models/dit.py, "gather" or "ring" layout -> VAE) on one card or under
+DistriFusion's displaced patch parallelism on n ranks; for the UNet:
 pipeline -> ``DenoiseRunner`` (DDIM, Euler or DPM++ 2M) -> ``unet_forward``
 (dense, or ``PatchDispatch`` over torch.distributed process groups) -> VAE
 ``decode``, with all attention through the flash kernel and, under
@@ -18,9 +20,9 @@ run on the card of the rank's local rank unless given ``device="cpu"``;
 kernels are built with nvcc at first use, never at import.
 """
 
-from .pipelines import (DistriSDPipeline, DistriSDXLPipeline, PipelineOutput,
-                        SimpleTokenizer)
+from .pipelines import (DistriPixArtPipeline, DistriSDPipeline, DistriSDXLPipeline,
+                        PipelineOutput, SimpleTokenizer)
 from .utils.config import DistriConfig
 
-__all__ = ["DistriConfig", "DistriSDPipeline", "DistriSDXLPipeline", "PipelineOutput",
-           "SimpleTokenizer"]
+__all__ = ["DistriConfig", "DistriPixArtPipeline", "DistriSDPipeline",
+           "DistriSDXLPipeline", "PipelineOutput", "SimpleTokenizer"]

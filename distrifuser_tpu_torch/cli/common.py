@@ -16,7 +16,8 @@ refused, before any model loads, with the ROADMAP item that brings it:
   ``--parallelism pipefusion`` through the runner's, ``--scheduler
   flow-euler`` through ``get_scheduler``'s;
 * ``--ulysses_degree`` and ``--pipe_patches`` belong to the DiT layouts
-  (usp attention, the PipeFusion stage ring), ROADMAP queue 1 item 13;
+  (usp attention, ROADMAP queue 1 item 13c; the PipeFusion stage ring,
+  item 13d);
 * ``--hybrid_loop`` has nothing to change: the port's loop is always the
   host's, one UNet graph per phase, which is what the flag picks in the
   JAX package (same numerics).
@@ -79,7 +80,7 @@ def add_distri_args(parser: argparse.ArgumentParser) -> None:
                         help="pipefusion is a DiT strategy (refused for the UNet)")
     parser.add_argument("--pipe_patches", type=int, default=None,
                         help="PipeFusion's token chunks in flight; refused: "
-                        "ROADMAP queue 1 item 13")
+                        "ROADMAP queue 1 item 13d")
     parser.add_argument("--no_cuda_graph", action="store_true",
                         help="run the UNet eagerly instead of replaying its CUDA graphs")
     parser.add_argument("--split_scheme", type=str, default="row",
@@ -95,9 +96,9 @@ def add_distri_args(parser: argparse.ArgumentParser) -> None:
                         choices=["gather", "ring", "ulysses", "usp"],
                         help="patch attention layout (ring: each rank holds its own "
                         "KV chunk and the peers' stream around; ulysses and usp are "
-                        "the DiT layouts, refused: ROADMAP queue 1 item 13)")
+                        "the DiT's head-sharded layouts, refused: ROADMAP queue 1 item 13c)")
     parser.add_argument("--ulysses_degree", type=int, default=1,
-                        help="with --attn_impl usp; refused: ROADMAP queue 1 item 13")
+                        help="with --attn_impl usp; refused: ROADMAP queue 1 item 13c")
     parser.add_argument("--comm_batch", action="store_true",
                         help="exchange every stale refresh of a step in one flat "
                         "all-gather per dtype and one flat halo pair")
@@ -178,7 +179,7 @@ def config_from_args(args, error):
 
     if args.pipe_patches is not None or args.ulysses_degree != 1:
         error("--pipe_patches and --ulysses_degree belong to the DiT layouts "
-              "(PipeFusion, usp attention), ROADMAP queue 1 item 13")
+              "(PipeFusion, ROADMAP queue 1 item 13d; usp attention, item 13c)")
     h, w = image_size(args)
     try:
         return DistriConfig(

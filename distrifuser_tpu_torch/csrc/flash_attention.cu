@@ -76,6 +76,18 @@
 //   columns earlier (k_shift, v_shift, from the pointers' alignment), its
 //   pad in front, and O is stored shifted back.  The scale is 1/sqrt(40),
 //   the real head dim's, as the wrapper passes it.
+// * d = 72 (PixArt-α's DiT: 16 heads of 72) runs by the same scheme on 96
+//   columns in three 32-column (64-byte swizzled) boxes, O 64 x 96 in 48
+//   registers a thread (164 in all), BK = 128, and two warpgroups of 64
+//   query rows sharing each K/V tile (BQ = 128, one block to an SM).  At
+//   PixArt's shapes that is 1.55x faster a launch than d = 80's layout (80
+//   columns in five 16-column, 32-byte boxes, one warpgroup, two blocks to
+//   an SM), though it multiplies 20% more columns: the 96-column boxes
+//   gave 1.3x, the second warpgroup 1.17x (chip_smoke.py
+//   --flash_variants).  A head starts at byte 144h, and 144 = 16 mod 32 as
+//   80 is, so every odd head loads from 8 columns earlier, inside its 24
+//   pad columns.  The last head's K / V pad lies past H * d, outside the
+//   3-D maps' extent, and loads as zeros.
 // * Ragged edges: the Q map's row extent is Lq and the K/V maps' is
 //   kv_len, so rows past them load as zeros; query rows >= Lq are not
 //   stored; KV columns >= kv_len in the last tile get the -1e30 logit, and
@@ -246,6 +258,25 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D += A . B, A [64 x 16] bf16 from registers, B [16 x 96] MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D += A . B, A [64 x 16] bf16 from registers, B [16 x 128] MN-major in shared memory
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                              uint64_t db) {
@@ -343,6 +374,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else if constexpr (N == 48) wgmma_rs_n48(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else if constexpr (N == 80) wgmma_rs_n80(d, a, db);
+  else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   else if constexpr (N == 160) wgmma_rs_n160(d, a, db);
   else {
@@ -357,15 +389,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 
 // D: head dim; BK: KV rows per tile; NQ: 64-row query groups per block; NC:
 // warpgroups that split O's columns for one query group; STAGES: K/V ring
-// depth; MINB: blocks per SM the registers are budgeted for.  A head's DP
-// columns in shared memory are D rounded up to wgmma's k16; Q's pad columns
-// load as zeros (they lie outside its map's head extent), K's and V's as a
-// neighbouring head's columns, and no pad column is stored.
-template <int D_, int BK_, int NQ_, int NC_, int STAGES_, int MINB_>
+// depth; MINB: blocks per SM the registers are budgeted for; DP_: the
+// padded width, if not D rounded up to wgmma's k16.  A head's DP columns in
+// shared memory load Q's pad columns as zeros (they lie outside its map's
+// head extent), K's and V's as a neighbouring head's columns, and no pad
+// column is stored.
+template <int D_, int BK_, int NQ_, int NC_, int STAGES_, int MINB_, int DP_ = 0>
 struct Config {
   static constexpr int D = D_, BK = BK_, NQ = NQ_, NC = NC_, STAGES = STAGES_;
   static constexpr int MINB = MINB_;
-  static constexpr int DP = (D + 15) / 16 * 16;
+  static constexpr int DP = DP_ ? DP_ : (D + 15) / 16 * 16;
   // columns per swizzled block: the widest of 64, 32, 16 that divides DP
   static constexpr int CW = DP % 64 == 0 ? 64 : (DP % 32 == 0 ? 32 : 16);
   static constexpr int SW = CW * 2;           // its row, in bytes: 32, 64, 128
@@ -382,6 +415,7 @@ struct Config {
   // +1024: the dynamic window is aligned up to the 1024-byte swizzle atom
   static constexpr int SMEM = 1024 + BAR_OFFSET + (2 * STAGES + 1) * 8;
   static_assert(D % 8 == 0, "head dim: a 16-byte head stride");
+  static_assert(DP >= D + (DP > D ? 8 : 0), "pad: room for an odd head's 8-column shift");
   static_assert(DP % CW == 0 && DN % CW == 0, "column split");
   static_assert(BK % 16 == 0 && BK <= 256 && BQ <= 256, "tile");
 };
@@ -668,12 +702,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 }  // namespace
 
-// One instance per head dim: X(D, BK, NQ, NC, STAGES, MINB).
+// One instance per head dim: X(D, BK, NQ, NC, STAGES, MINB[, DP]).
 #define FLASH_VARIANTS(X)    \
   X(16, 128, 1, 1, 2, 3)     \
   X(32, 128, 1, 1, 2, 3)     \
   X(40, 128, 1, 1, 2, 3)     \
   X(64, 128, 1, 1, 2, 3)     \
+  X(72, 128, 2, 1, 2, 1, 96) \
   X(80, 128, 1, 1, 2, 2)     \
   X(128, 64, 1, 1, 2, 2)     \
   X(160, 64, 1, 1, 2, 2)     \
@@ -709,8 +744,8 @@ int flash_entry(const void* q, const void* k, const void* v, void* o, float* lse
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  q, k, v are bf16 device
-// pointers; strides are in elements; d is one of 16, 32, 40, 64, 80, 128,
-// 160, 256, 512, rows and pointers 16-byte aligned (checked by the Python
+// pointers; strides are in elements; d is one of 16, 32, 40, 64, 72, 80,
+// 128, 160, 256, 512, rows and pointers 16-byte aligned (checked by the Python
 // wrapper).  flash_sdpa_bf16 writes O in bf16; flash_sdpa_bf16_lse writes O
 // in float32 and the rows' log-sum-exp into lse, float32 [B, H, Lq]
 // contiguous.  Each returns the launch's cudaError_t (0 on success).

@@ -14,11 +14,15 @@ that differ are transposed on the way:
   from ``[kh, kw, O]`` to ``[O, kh, kw]``, a linear payload is held
   column-major, fp8 payloads are reinterpreted byte for byte.
 
+The DiT's ``blocks`` and T5's ``layers``, stacked on a leading axis in the
+JAX tree, become lists of per-layer trees (a stacked quantized leaf splits
+into one ``QuantizedTensor`` a layer, the JAX package's per-layer scales).
 The leaves keep their dtype and land on the CPU; ``models.unet.cast_params``
 casts and moves a converted tree.
 
-``convert_unet_state_dict``, ``convert_vae_state_dict`` and
-``convert_clip_state_dict`` are the counterparts of the JAX package's
+``convert_unet_state_dict``, ``convert_vae_state_dict``,
+``convert_clip_state_dict``, ``convert_t5_state_dict`` and
+``convert_pixart_state_dict`` are the counterparts of the JAX package's
 converters of the same names: a diffusers or transformers state dict (the
 tensors ``native.safetensors`` reads) straight to the port's tree, equal
 to ``params_from_jax`` of the JAX converters' output.  Diffusers names are
@@ -81,12 +85,41 @@ def _quantized_from_jax(node) -> QuantizedTensor:
                            node.compute, node.channel_tile)
 
 
+# the keys under which the JAX package stacks uniform layers on a leading
+# axis (the DiT's blocks, T5's layers): the port holds them as lists
+_STACKED = frozenset({"blocks", "layers"})
+
+
+class _JaxQuantizedSlice:
+    """One layer's slice of a stacked JAX ``QuantizedTensor`` leaf."""
+
+    def __init__(self, node, i):
+        self.payload, self.scale = node.payload[i], node.scale[i]
+        self.compute, self.channel_tile, self.dtype = node.compute, node.channel_tile, node.dtype
+
+
+def _unstack(node):
+    """A dict of leaves stacked on a leading [depth] axis as a list of
+    ``depth`` dicts."""
+    if isinstance(node, dict):
+        per_key = {k: _unstack(v) for k, v in node.items()}
+        depth = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(depth)]
+    if _is_jax_quantized(node):
+        return [_JaxQuantizedSlice(node, i) for i in range(np.shape(node.payload)[0])]
+    return list(np.asarray(node))
+
+
 def params_from_jax(tree):
-    """The port's parameter tree for a JAX parameter tree with numpy leaves."""
+    """The port's parameter tree for a JAX parameter tree with numpy leaves;
+    layers stacked on a leading axis (``blocks``, ``layers`` as dicts)
+    become lists."""
 
     def convert(node, key):
         if isinstance(node, dict):
-            return {k: convert(v, k) for k, v in node.items()}
+            return {k: ([convert(layer, None) for layer in _unstack(v)]
+                        if k in _STACKED and isinstance(v, dict) else convert(v, k))
+                    for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [convert(v, key) for v in node]
         if _is_jax_quantized(node):
@@ -215,6 +248,101 @@ def convert_clip_state_dict(sd, dtype=torch.float32):
         k = k.replace("encoder.layers", "layers")
         out[k] = v
     return _convert(out, dtype)
+
+
+def _lin(sd, key, dtype):
+    """A linear layer of a state dict: kernel ``[in, out]``, bias if any."""
+    out = {"kernel": sd[f"{key}.weight"].t()}
+    if f"{key}.bias" in sd:
+        out["bias"] = sd[f"{key}.bias"]
+    return _map_leaves(lambda t: _layout(t.to(dtype)), out)
+
+
+def _fused(sd, key_k, key_v, dtype):
+    """``to_k`` and ``to_v`` as one ``[in, 2 out]`` kernel ([k | v])."""
+    k, v = _lin(sd, key_k, dtype), _lin(sd, key_v, dtype)
+    out = {"kernel": torch.cat([k["kernel"], v["kernel"]], dim=1)}
+    if "bias" in k:
+        out["bias"] = torch.cat([k["bias"], v["bias"]])
+    return out
+
+
+def convert_t5_state_dict(sd, dtype=torch.float32):
+    """A transformers T5EncoderModel state dict as the port's T5 tree:
+    kernels ``[in, out]``, block 0's relative-attention table as the one
+    shared ``relative_attention_bias``, the layers as a list."""
+    n_layers = 1 + max(int(k.split(".")[2]) for k in sd if k.startswith("encoder.block."))
+    gated = "encoder.block.0.layer.1.DenseReluDense.wi_0.weight" in sd
+    leaf = lambda k: _layout(sd[k].to(dtype))  # noqa: E731
+    layers = []
+    for i in range(n_layers):
+        a, f = f"encoder.block.{i}.layer.0", f"encoder.block.{i}.layer.1"
+        names = ("wi_0", "wi_1", "wo") if gated else ("wi", "wo")
+        layers.append({
+            "attn": {n: _lin(sd, f"{a}.SelfAttention.{n}", dtype) for n in "qkvo"},
+            "attn_norm": leaf(f"{a}.layer_norm.weight"),
+            "ff": {n: _lin(sd, f"{f}.DenseReluDense.{n}", dtype) for n in names},
+            "ff_norm": leaf(f"{f}.layer_norm.weight"),
+        })
+    return {
+        "shared": leaf("shared.weight"),
+        "relative_attention_bias": leaf(
+            "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"),
+        "layers": layers,
+        "final_norm": leaf("encoder.final_layer_norm.weight"),
+    }
+
+
+def convert_pixart_state_dict(sd, *, patch_size: int = 2, eps_channels: int = 4,
+                              dtype=torch.float32):
+    """A diffusers PixArtTransformer2DModel state dict as the port's DiT
+    tree: the ps x ps patch-embed conv ``pos_embed.proj`` becomes the
+    ``proj_in`` linear over patchify's (p, q, c) token order; each block's
+    ``to_k`` / ``to_v`` fuse into ``attn_kv`` / ``cross_kv``; ``proj_out``'s
+    learned-sigma rows are dropped (the epsilon channels of its (p, q, c)
+    layout kept); the 1024-class resolution and aspect embedders come along
+    where the checkpoint has them."""
+    lin = lambda key: _lin(sd, key, dtype)  # noqa: E731
+    n_blocks = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("transformer_blocks."))
+    blocks = []
+    for i in range(n_blocks):
+        b = f"transformer_blocks.{i}"
+        blocks.append({
+            "scale_shift_table": _layout(sd[f"{b}.scale_shift_table"].to(dtype)),
+            "attn_q": lin(f"{b}.attn1.to_q"),
+            "attn_kv": _fused(sd, f"{b}.attn1.to_k", f"{b}.attn1.to_v", dtype),
+            "attn_out": lin(f"{b}.attn1.to_out.0"),
+            "cross_q": lin(f"{b}.attn2.to_q"),
+            "cross_kv": _fused(sd, f"{b}.attn2.to_k", f"{b}.attn2.to_v", dtype),
+            "cross_out": lin(f"{b}.attn2.to_out.0"),
+            "mlp_fc1": lin(f"{b}.ff.net.0.proj"),
+            "mlp_fc2": lin(f"{b}.ff.net.2"),
+        })
+    ps = patch_size
+    pw = sd["pos_embed.proj.weight"]  # conv [hidden, C, ps, ps]
+    hidden = pw.shape[0]
+    ow, ob = sd["proj_out.weight"], sd["proj_out.bias"]  # [ps*ps*2C, hidden]
+    out2 = ow.shape[0] // (ps * ps)
+    ow = ow.reshape(ps, ps, out2, hidden)[:, :, :eps_channels]
+    ob = ob.reshape(ps, ps, out2)[:, :, :eps_channels]
+    tree = {
+        "proj_in": {"kernel": pw.permute(2, 3, 1, 0).reshape(-1, hidden),
+                    "bias": sd["pos_embed.proj.bias"]},
+        "t_fc1": lin("adaln_single.emb.timestep_embedder.linear_1"),
+        "t_fc2": lin("adaln_single.emb.timestep_embedder.linear_2"),
+        "adaln": lin("adaln_single.linear"),
+        "cap_fc1": lin("caption_projection.linear_1"),
+        "cap_fc2": lin("caption_projection.linear_2"),
+        "final_table": sd["scale_shift_table"],
+        "final_out": {"kernel": ow.reshape(ps * ps * eps_channels, hidden).t(),
+                      "bias": ob.reshape(-1)},
+        "blocks": blocks,
+    }
+    for name in ("resolution_embedder", "aspect_ratio_embedder"):
+        k1 = f"adaln_single.emb.{name}.linear_1"
+        if f"{k1}.weight" in sd:
+            tree[name] = {"fc1": lin(k1), "fc2": lin(f"adaln_single.emb.{name}.linear_2")}
+    return _map_leaves(lambda t: _layout(t.to(dtype)), tree)
 
 
 def _map_leaves(fn, node):

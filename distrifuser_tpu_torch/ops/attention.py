@@ -50,25 +50,33 @@ def patch_self_attention(p, x, ctx: PatchContext, name: str, *, heads: int):
     ``x``: this rank's tokens [B, L/n, C].  The layer's buffer is the
     gathered KV [n, B, L/n, 2C] in patch order."""
     q = linear(p["to_q"], x)
-    kv = linear(p["to_kv"], x)  # [B, L/n, 2C], fresh
-    if ctx.n == 1:
-        full_kv = kv
-    elif ctx.is_sync:
-        full_kv = _flatten_seq(ctx.emit_sync_gather(name, kv, "attn"))  # [n, B, L/n, 2C]
-    else:
-        gathered = ctx.stale(name)
-        if ctx.refresh_reads_stale("attn"):
-            # residual coding and the partial refresh read this buffer as
-            # the previous step left it
-            gathered = gathered.clone()
-        # fresh own slot, stale peer slots; the buffer is this step's to
-        # change: the refresh below lands in a new one
-        gathered[ctx.split_idx] = kv
-        full_kv = _flatten_seq(gathered)
-        if ctx.refresh:
-            ctx.emit_refresh_gather(name, kv, "attn")
-    k, v = split_kv(full_kv)
+    k, v = split_kv(displaced_kv(linear(p["to_kv"], x), ctx, name))
     return linear(p["to_out"], sdpa(q, k, v, heads=heads))
+
+
+def displaced_kv(kv, ctx: PatchContext, name: str):
+    """The KV [B, L, 2C] that this rank's fresh KV ``kv`` [B, L/n, 2C]
+    attends with under displaced patch parallelism (the UNet's
+    self-attention and the DiT's blocks alike): every rank's fresh KV,
+    gathered, in a synchronous step; in a stale step the layer's buffer
+    (the gathered KV [n, B, L/n, 2C] of the previous step) with this
+    rank's slot fresh, its refresh issued for the next step."""
+    if ctx.n == 1:
+        return kv
+    if ctx.is_sync:
+        return _flatten_seq(ctx.emit_sync_gather(name, kv, "attn"))  # [n, B, L/n, 2C]
+    gathered = ctx.stale(name)
+    if ctx.refresh_reads_stale("attn"):
+        # residual coding and the partial refresh read this buffer as the
+        # previous step left it
+        gathered = gathered.clone()
+    # fresh own slot, stale peer slots; the buffer is this step's to
+    # change: the refresh below lands in a new one
+    gathered[ctx.split_idx] = kv
+    full_kv = _flatten_seq(gathered)
+    if ctx.refresh:
+        ctx.emit_refresh_gather(name, kv, "attn")
+    return full_kv
 
 
 def _flatten_seq(gathered):

@@ -34,9 +34,9 @@ from ._build import KernelLibrary, counts_launches
 
 _NEG_INF = -1e30  # masked-logit convention of the TPU kernel
 # head dims the kernel has an instance for: every d a configuration of the
-# repo gives (SDXL and SD 2.x UNet 64, SD 1.x UNet 40, 80 and 160, the VAE
-# 512, tiny configs 16 and 32) and 128, 256
-HEAD_DIMS = (16, 32, 40, 64, 80, 128, 160, 256, 512)
+# repo gives (SDXL and SD 2.x UNet 64, SD 1.x UNet 40, 80 and 160, PixArt-α's
+# DiT 72, the VAE 512, tiny configs 16 and 32) and 128, 256
+HEAD_DIMS = (16, 32, 40, 64, 72, 80, 128, 160, 256, 512)
 
 
 def _bind(lib) -> None:

@@ -82,14 +82,20 @@ def ring_self_attention(p, x, ctx: PatchContext, name: str, *, heads: int):
     layer's buffer this rank's own chunk [B, L/n, 2C] instead of the
     gathered [n, B, L/n, 2C]."""
     q = linear(p["to_q"], x)
-    kv_local = linear(p["to_kv"], x)  # fresh own chunk
+    return linear(p["to_out"], ring_attend(q, linear(p["to_kv"], x), ctx, name,
+                                           heads=heads))
+
+
+def ring_attend(q, kv_local, ctx: PatchContext, name: str, *, heads: int):
+    """Attention of this rank's ``q`` [B, L/n, C] over its fresh own chunk
+    ``kv_local`` [B, L/n, 2C] and the peers' chunks around the ring (the
+    fresh ones in a synchronous step, the previous step's in a stale one),
+    in q's dtype; the layer's next buffer is this step's own chunk (the
+    UNet's self-attention and the DiT's blocks alike)."""
     if ctx.n == 1:
         k, v = split_kv(kv_local)
-        return linear(p["to_out"], sdpa(q, k, v, heads=heads))
-    # what rotates: the fresh chunks in a synchronous step, the previous
-    # step's in a stale one
+        return sdpa(q, k, v, heads=heads)
     rotating = kv_local if ctx.is_sync else ctx.stale(name)
     if ctx.refresh:  # the next step's buffer: this step's own chunk
         ctx.emit(name, kv_local, "attn")
-    out = ring_pass(q, kv_local, rotating, ctx.n, ctx.group, heads=heads)
-    return linear(p["to_out"], out.to(x.dtype))
+    return ring_pass(q, kv_local, rotating, ctx.n, ctx.group, heads=heads).to(q.dtype)

@@ -109,7 +109,65 @@ def check_graph_transport(cfg: DistriConfig) -> None:
         )
 
 
-class DenoiseRunner:
+class StepLoop:
+    """What the denoising loops of the model families share (the UNet's
+    ``DenoiseRunner``, the DiT's ``DiTDenoiseRunner`` of parallel/dit_sp.py):
+    a parameter tree whose replacement drops the captured graphs, this image
+    group's share of the batch, a step's model input, the schedule's device
+    tensors and the guided scheduler step.  Needs ``cfg``, ``scheduler``,
+    ``graphs`` and ``_schedule`` on the instance."""
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, tree) -> None:
+        self._params = tree
+        self.graphs.clear()  # the graphs read the old tree's addresses
+
+    def _my_images(self, t, dim: int = 0):
+        """This image group's share of the batch dim ``dim`` of ``t``: all of
+        it at dp_degree 1."""
+        dp = self.cfg.dp_degree
+        if dp == 1:
+            return t
+        if t.shape[dim] % dp:
+            raise ValueError(f"batch_size {t.shape[dim]} not divisible by dp_degree {dp}")
+        return t.chunk(dp, dim=dim)[self.cfg.dp_idx()]
+
+    def _step_tensors(self, num_steps: int):
+        """(timesteps, step indices) of the ``num_steps`` schedule on the
+        device, made once: a step copies its entries into a graph's inputs
+        with no host-to-device copy."""
+        if num_steps not in self._schedule:
+            dev = self.cfg.device
+            self._schedule[num_steps] = (
+                self.scheduler.timesteps().to(dev),
+                torch.arange(num_steps, device=dev))
+        return self._schedule[num_steps]
+
+    def _model_input(self, x, i):
+        """The model's input at step ``i``: this image group's latents (or
+        tokens), scaled, the CFG branches folded into the batch unless
+        split."""
+        x_in = self.scheduler.scale_model_input(self._my_images(x), i)
+        if self.cfg.do_classifier_free_guidance and not self.cfg.cfg_split:
+            x_in = torch.cat([x_in, x_in], dim=0)
+        return x_in
+
+    def _guided_step(self, x, out, i, sstate, gs):
+        """The CFG combine of the model's output ``out`` (this image
+        group's; under data parallelism every group's gathered in batch
+        order), then the scheduler's step ``i`` in float32: (x, scheduler
+        state)."""
+        guided = combine_guidance(self.cfg, out, gs, x.shape[0] // self.cfg.dp_degree)
+        if self.cfg.dp_degree > 1:
+            guided = gather_batch(guided, self.cfg.dp_group)
+        return self.scheduler.step(x, guided.float(), i, sstate)
+
+
+class DenoiseRunner(StepLoop):
     """Runs the denoising loop for one (config, UNet, scheduler).
 
     ``dispatch`` builds the dispatch of a dense evaluation from the text
@@ -123,7 +181,7 @@ class DenoiseRunner:
                  params, scheduler: BaseScheduler, dispatch=None):
         if distri_config.parallelism == "pipefusion":
             raise ValueError(
-                "pipefusion is a DiT strategy (ROADMAP queue 1 item 13); the "
+                "pipefusion is a DiT strategy (ROADMAP queue 1 item 13d); the "
                 "UNet's heterogeneous stages cannot pipeline — use "
                 "parallelism='patch' here"
             )
@@ -153,15 +211,6 @@ class DenoiseRunner:
         self._buffer_numel: Dict[str, int] = {}
         self._buffers_reported = False
         self._schedule: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-
-    @property
-    def params(self):
-        return self._params
-
-    @params.setter
-    def params(self, tree) -> None:
-        self._params = tree
-        self.graphs.clear()  # the graphs read the old tree's addresses
 
     @property
     def _cache_depth(self) -> int:
@@ -312,16 +361,6 @@ class DenoiseRunner:
                    else precompute_text_kv(self.params, my_enc))
         return my_enc, my_added, text_kv
 
-    def _my_images(self, t, dim: int = 0):
-        """This image group's share of the batch dim ``dim`` of ``t``: all of
-        it at dp_degree 1."""
-        dp = self.cfg.dp_degree
-        if dp == 1:
-            return t
-        if t.shape[dim] % dp:
-            raise ValueError(f"batch_size {t.shape[dim]} not divisible by dp_degree {dp}")
-        return t.chunk(dp, dim=dim)[self.cfg.dp_idx()]
-
     def _inputs(self, latents, prompt_embeds, added_cond, guidance_scale):
         """The generation's tensors on this rank's device: (latent float32,
         this rank's embeddings, added conditioning, text KV, guidance
@@ -331,25 +370,6 @@ class DenoiseRunner:
         gs = torch.tensor(guidance_scale, dtype=torch.float32, device=dev)
         x = torch.as_tensor(latents).to(dev, torch.float32)
         return x, my_enc, my_added, text_kv, gs
-
-    def _step_tensors(self, num_steps: int):
-        """(timesteps, step indices) of the ``num_steps`` schedule on the
-        device, made once: a step copies its entries into a graph's inputs
-        with no host-to-device copy."""
-        if num_steps not in self._schedule:
-            dev = self.cfg.device
-            self._schedule[num_steps] = (
-                self.scheduler.timesteps().to(dev),
-                torch.arange(num_steps, device=dev))
-        return self._schedule[num_steps]
-
-    def _model_input(self, x, i):
-        """The UNet's input at step ``i``: this image group's latents,
-        scaled, the CFG branches folded into the batch unless split."""
-        x_in = self.scheduler.scale_model_input(self._my_images(x), i)
-        if self.cfg.do_classifier_free_guidance and not self.cfg.cfg_split:
-            x_in = torch.cat([x_in, x_in], dim=0)
-        return x_in
 
     def _begin_graphs(self, x, my_enc, my_added, text_kv, phases, start=0) -> None:
         """Capture (on a card) the graphs of ``phases`` for this
@@ -387,10 +407,7 @@ class DenoiseRunner:
         else:
             out, state = self._unet_local(x_in, timesteps[i], my_enc, my_added,
                                           text_kv, phase, state, step=steps[i])
-        guided = combine_guidance(self.cfg, out, gs, x.shape[0] // self.cfg.dp_degree)
-        if self.cfg.dp_degree > 1:  # every image group's, in batch order
-            guided = gather_batch(guided, self.cfg.dp_group)
-        x, sstate = self.scheduler.step(x, guided.float(), i, sstate)
+        x, sstate = self._guided_step(x, out, i, sstate, gs)
         return x, state, sstate
 
     @torch.inference_mode()

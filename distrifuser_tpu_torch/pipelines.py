@@ -73,12 +73,16 @@ import numpy as np
 import torch
 
 from .models import clip as clip_mod
+from .models import dit as dit_mod
+from .models import t5 as t5_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
-from .models.weights import (convert_clip_state_dict, convert_unet_state_dict,
+from .models.weights import (convert_clip_state_dict, convert_pixart_state_dict,
+                             convert_t5_state_dict, convert_unet_state_dict,
                              convert_vae_state_dict, params_nbytes, quantize_params,
                              set_quant_compute)
 from .native.bpe import CLIPTokenizer
+from .native.unigram import UnigramTokenizer
 from .native.safetensors import load_sharded_safetensors
 from .parallel.collectives import gather_batch, gather_rows
 from .parallel.compress import validate_quant_compute, validate_weight_mode
@@ -345,7 +349,115 @@ def _quantize_aux(cfg, vae_params, text_encoders):
     return q(vae_params), [(tc, q(tp)) for tc, tp in text_encoders]
 
 
-class _DistriPipelineBase:
+class _GenerationMixin:
+    """What every pipeline family shares (JAX ``_GenerationMixin``): the
+    weight-quantization hooks, the graph switch, the weight report and the
+    decode and output tail of ``__call__``.  Needs ``distri_config``,
+    ``runner``, ``vae_config``, ``vae_params``, ``text_encoders`` and
+    ``tokenizers`` on the instance."""
+
+    def set_weight_quant(self, mode: str) -> None:
+        """Quantize the denoiser's weights to ``mode`` after construction.  Only
+        the direction from "none" exists: a quantized tree's full-precision
+        values are gone, so a switch away from it raises; rebuild from the
+        dense weights instead."""
+        cfg = self.distri_config
+        validate_weight_mode(mode)
+        if mode == cfg.weight_quant:
+            return
+        if cfg.weight_quant != "none":
+            raise ValueError(
+                f"cannot switch weight_quant {cfg.weight_quant!r} -> {mode!r}: "
+                "the full-precision kernels are gone; rebuild the pipeline "
+                "from the dense weights instead")
+        self.runner.params = quantize_params(self.runner.params, mode,
+                                             compute=cfg.quant_compute)
+        cfg.weight_quant = mode
+
+    def set_quant_compute(self, policy: str) -> None:
+        """Re-tag the denoiser's quantized kernels with an execution policy
+        (DistriConfig.quant_compute); payloads and scales are untouched."""
+        cfg = self.distri_config
+        validate_quant_compute(policy, cfg.weight_quant)
+        if policy == cfg.quant_compute:
+            return
+        self.runner.params = set_quant_compute(self.runner.params, policy)
+        cfg.quant_compute = policy
+
+    def set_progress_bar_config(self, **kwargs) -> None:
+        """Accepted and ignored, as in the JAX package: the reference's
+        scripts call it to silence the progress bar, which the port does
+        not draw."""
+
+    def set_stepwise(self, enabled: bool = True) -> None:
+        """Run the denoiser eagerly, step by step (``enabled``), or replay its
+        captured graphs (JAX ``set_stepwise``: the switch is
+        ``use_cuda_graph``).  Graphs already captured are kept."""
+        cfg = self.distri_config
+        previous, cfg.use_cuda_graph = cfg.use_cuda_graph, not enabled
+        try:
+            check_graph_transport(cfg)
+        except ValueError:
+            cfg.use_cuda_graph = previous
+            raise
+
+    def weight_report(self) -> dict:
+        """Device bytes of each component's weights (a quantized kernel
+        counts payload and scales) and the active modes."""
+        cfg = self.distri_config
+        parts = {
+            "denoiser": params_nbytes(self.runner.params),
+            "vae": params_nbytes(self.vae_params),
+            "text_encoders": sum(params_nbytes(tp) for _, tp in self.text_encoders),
+        }
+        return {
+            "weight_quant": cfg.weight_quant,
+            "weight_quant_aux": cfg.weight_quant_aux,
+            "quant_compute": cfg.quant_compute,
+            "per_component_nbytes": parts,
+            "total_bytes": sum(parts.values()),
+        }
+
+    def _decode_to_np(self, latent) -> np.ndarray:
+        """latent -> float RGB [N, H, W, 3] in [0, 1], decoded in
+        batch_size chunks (``decode_latents``; the tail chunk padded with its
+        last latent, the padded images dropped, as the JAX package's
+        ``_decode_chunked``).  The UNet family decodes ``latent / scaling``
+        with no shift, whatever the VAE config's ``shift_factor``: only the
+        SD3 family re-centres its latents.  (img2img encodes as the JAX
+        package's ``_prepare_init_latents`` does: it subtracts the config's
+        shift for every family.)"""
+        bs = self.distri_config.batch_size
+        scaling = self.vae_config.scaling_factor
+        images = []
+        for i in range(0, latent.shape[0], bs):
+            chunk = latent[i:i + bs]
+            real = chunk.shape[0]
+            if real < bs:
+                chunk = torch.cat([chunk, chunk[-1:].expand(bs - real, *chunk.shape[1:])])
+            img = decode_latents(self.distri_config, self.vae_config, self.vae_params,
+                                 chunk / scaling)[:real]
+            images.append(img.float().cpu().numpy())
+        image = np.concatenate(images, axis=0)
+        return np.clip(image / 2 + 0.5, 0.0, 1.0)
+
+    def _finalize(self, latent, output_type) -> PipelineOutput:
+        weightless = any(isinstance(t, SimpleTokenizer) for t in self.tokenizers)
+        if output_type == "latent":
+            images = list(latent.float().cpu().numpy())
+        elif output_type == "np":
+            images = list(self._decode_to_np(latent))
+        elif output_type == "pil":
+            from PIL import Image
+
+            images = [Image.fromarray((im * 255).round().astype(np.uint8))
+                      for im in self._decode_to_np(latent)]
+        else:
+            raise ValueError(f"output_type must be latent, np or pil, got {output_type!r}")
+        return PipelineOutput(images=images, weightless_tokenizer=weightless)
+
+
+class _DistriPipelineBase(_GenerationMixin):
     """What the families share: load-time quantization, the runner, the
     graph hooks and ``__call__``; each family defines ``_encode`` (its
     text-encoding recipe) and ``from_pretrained``."""
@@ -366,51 +478,6 @@ class _DistriPipelineBase:
         self.tokenizers = tokenizers
         self.runner = make_runner(distri_config, unet_config, unet_params, scheduler)
         self.vae_decode_parallel, self.vae_decode_tile = decoder_choice(distri_config)
-
-    def set_weight_quant(self, mode: str) -> None:
-        """Quantize the UNet's weights to ``mode`` after construction.  Only
-        the direction from "none" exists: a quantized tree's full-precision
-        values are gone, so a switch away from it raises; rebuild from the
-        dense weights instead."""
-        cfg = self.distri_config
-        validate_weight_mode(mode)
-        if mode == cfg.weight_quant:
-            return
-        if cfg.weight_quant != "none":
-            raise ValueError(
-                f"cannot switch weight_quant {cfg.weight_quant!r} -> {mode!r}: "
-                "the full-precision kernels are gone; rebuild the pipeline "
-                "from the dense weights instead")
-        self.runner.params = quantize_params(self.runner.params, mode,
-                                             compute=cfg.quant_compute)
-        cfg.weight_quant = mode
-
-    def set_quant_compute(self, policy: str) -> None:
-        """Re-tag the UNet's quantized kernels with an execution policy
-        (DistriConfig.quant_compute); payloads and scales are untouched."""
-        cfg = self.distri_config
-        validate_quant_compute(policy, cfg.weight_quant)
-        if policy == cfg.quant_compute:
-            return
-        self.runner.params = set_quant_compute(self.runner.params, policy)
-        cfg.quant_compute = policy
-
-    def set_progress_bar_config(self, **kwargs) -> None:
-        """Accepted and ignored, as in the JAX package: the reference's
-        scripts call it to silence the progress bar, which the port does
-        not draw."""
-
-    def set_stepwise(self, enabled: bool = True) -> None:
-        """Run the UNet eagerly, step by step (``enabled``), or replay its
-        captured graphs (JAX ``set_stepwise``: the switch is
-        ``use_cuda_graph``).  Graphs already captured are kept."""
-        cfg = self.distri_config
-        previous, cfg.use_cuda_graph = cfg.use_cuda_graph, not enabled
-        try:
-            check_graph_transport(cfg)
-        except ValueError:
-            cfg.use_cuda_graph = previous
-            raise
 
     @torch.inference_mode()
     def prepare(self, num_inference_steps: int = 50) -> None:
@@ -468,23 +535,6 @@ class _DistriPipelineBase:
                 "steps": counts,
                 "bytes_per_step": per_step,
                 "total_bytes": int(total)}
-
-    def weight_report(self) -> dict:
-        """Device bytes of each component's weights (a quantized kernel
-        counts payload and scales) and the active modes."""
-        cfg = self.distri_config
-        parts = {
-            "denoiser": params_nbytes(self.runner.params),
-            "vae": params_nbytes(self.vae_params),
-            "text_encoders": sum(params_nbytes(tp) for _, tp in self.text_encoders),
-        }
-        return {
-            "weight_quant": cfg.weight_quant,
-            "weight_quant_aux": cfg.weight_quant_aux,
-            "quant_compute": cfg.quant_compute,
-            "per_component_nbytes": parts,
-            "total_bytes": sum(parts.values()),
-        }
 
     @torch.inference_mode()
     def __call__(self, prompt, negative_prompt="", num_inference_steps: int = 50,
@@ -547,44 +597,6 @@ class _DistriPipelineBase:
             latents, self.unet_config.in_channels, run_chunk,
         )
         return self._finalize(latent, output_type)
-
-    def _decode_to_np(self, latent) -> np.ndarray:
-        """latent -> float RGB [N, H, W, 3] in [0, 1], decoded in
-        batch_size chunks (``decode_latents``; the tail chunk padded with its
-        last latent, the padded images dropped, as the JAX package's
-        ``_decode_chunked``).  The UNet family decodes ``latent / scaling``
-        with no shift, whatever the VAE config's ``shift_factor``: only the
-        SD3 family re-centres its latents.  (img2img encodes as the JAX
-        package's ``_prepare_init_latents`` does: it subtracts the config's
-        shift for every family.)"""
-        bs = self.distri_config.batch_size
-        scaling = self.vae_config.scaling_factor
-        images = []
-        for i in range(0, latent.shape[0], bs):
-            chunk = latent[i:i + bs]
-            real = chunk.shape[0]
-            if real < bs:
-                chunk = torch.cat([chunk, chunk[-1:].expand(bs - real, *chunk.shape[1:])])
-            img = decode_latents(self.distri_config, self.vae_config, self.vae_params,
-                                 chunk / scaling)[:real]
-            images.append(img.float().cpu().numpy())
-        image = np.concatenate(images, axis=0)
-        return np.clip(image / 2 + 0.5, 0.0, 1.0)
-
-    def _finalize(self, latent, output_type) -> PipelineOutput:
-        weightless = any(isinstance(t, SimpleTokenizer) for t in self.tokenizers)
-        if output_type == "latent":
-            images = list(latent.float().cpu().numpy())
-        elif output_type == "np":
-            images = list(self._decode_to_np(latent))
-        elif output_type == "pil":
-            from PIL import Image
-
-            images = [Image.fromarray((im * 255).round().astype(np.uint8))
-                      for im in self._decode_to_np(latent)]
-        else:
-            raise ValueError(f"output_type must be latent, np or pil, got {output_type!r}")
-        return PipelineOutput(images=images, weightless_tokenizer=weightless)
 
     def _clip(self, which: int, ids):
         ccfg, cparams = self.text_encoders[which]
@@ -747,3 +759,197 @@ class DistriSDPipeline(_DistriPipelineBase):
         n_br = 2 if cfg.do_classifier_free_guidance else 1
         emb = self._clip(0, _tokenize(self.tokenizers[0], texts))["last_hidden_state"]
         return emb.reshape(n_br, len(prompts), *emb.shape[1:]), None
+
+
+# ---------------------------------------------------------------------------
+# PixArt-α: T5 text encoder, DiT, KL VAE
+# ---------------------------------------------------------------------------
+
+
+def _t5_tokenizer_or_fallback(path: str, vocab_size: int):
+    """The Unigram tokenizer of a snapshot's ``tokenizer/tokenizer.json``,
+    else the hash-based SimpleTokenizer (T5's ids: EOS 1, BOS 0) with a
+    loud warning."""
+    try:
+        return UnigramTokenizer(path)
+    except (OSError, ValueError, KeyError) as e:
+        print(
+            f"WARNING: failed to load T5 tokenizer from {path!r} "
+            f"({type(e).__name__}: {e}); falling back to the hash-based "
+            "SimpleTokenizer. Generated images will NOT match real-prompt "
+            "outputs.",
+            file=sys.stderr, flush=True,
+        )
+        return SimpleTokenizer(vocab_size=vocab_size, eos=1, bos=0)
+
+
+class DistriPixArtPipeline(_GenerationMixin):
+    """PixArt-α: T5 text encoder, PixArt's DiT driven by the displaced-patch
+    DiT runner (parallel/dit_sp.py), KL VAE (JAX ``DistriPixArtPipeline``).
+
+    Padded caption tokens are masked out of the cross-attention; the
+    1024-class micro-conditioning on (resolution, aspect) is folded into
+    the timestep embedding's bias before any quantization
+    (``fold_size_condition``, exact).  ``weight_quant`` quantizes the DiT
+    with ``quant_compute``; the T5 encoder and the VAE follow
+    ``weight_quant_aux``.  ``parallelism="pipefusion"`` is ROADMAP queue 1
+    item 13d and raises."""
+
+    # PixArt-α trains with 120 caption tokens
+    max_token_length = 120
+
+    def __init__(self, distri_config: DistriConfig, dit_config, dit_params, vae_config,
+                 vae_params, scheduler: BaseScheduler, tokenizer, t5_config, t5_params):
+        from .parallel.dit_sp import DiTDenoiseRunner
+
+        _check_scheduler_family(scheduler, type(self).__name__)
+        cfg = distri_config
+        self.distri_config = cfg
+        self.dit_config = dit_config
+        self.vae_config = vae_config
+        encoders = [] if t5_params is None else [(t5_config, t5_params)]
+        self.vae_params, self.text_encoders = _quantize_aux(cfg, vae_params, encoders)
+        self.scheduler = scheduler
+        self.tokenizer = tokenizer
+        self.tokenizers = [tokenizer]
+        self.t5_config = t5_config
+        # fold the size conditioning before quantizing: it edits a bias the
+        # quantizer must see in its final form
+        dit_params = dit_mod.fold_size_condition(dit_params, dit_config,
+                                                 float(cfg.height), float(cfg.width))
+        dit_params = quantize_params(dit_params, cfg.weight_quant,
+                                     compute=cfg.quant_compute)
+        self.runner = DiTDenoiseRunner(cfg, dit_config, dit_params, scheduler)
+        self.vae_decode_parallel, self.vae_decode_tile = decoder_choice(cfg)
+
+    @classmethod
+    def from_params(cls, distri_config, dit_config, dit_params, vae_config, vae_params,
+                    t5_config=None, t5_params=None, scheduler="ddim", tokenizer=None):
+        """A pipeline from in-memory trees; without ``t5_params`` the caption
+        states are seeded pseudo-embeddings (``_encode``)."""
+        sched = (scheduler if isinstance(scheduler, BaseScheduler)
+                 else get_scheduler(scheduler))
+        tok = tokenizer or SimpleTokenizer(
+            vocab_size=t5_config.vocab_size if t5_config else 32128, eos=1, bos=0)
+        return cls(distri_config, dit_config, dit_params, vae_config, vae_params, sched,
+                   tok, t5_config, t5_params)
+
+    @classmethod
+    def from_pretrained(cls, distri_config: DistriConfig,
+                        pretrained_model_name_or_path: str, scheduler="dpm-solver",
+                        dtype=None, variant: Optional[str] = None
+                        ) -> "DistriPixArtPipeline":
+        """A PixArt pipeline from a local snapshot directory (transformer/,
+        vae/, text_encoder/ (T5), tokenizer/, scheduler/), each config from
+        its ``config.json`` (else the preset), the weights cast to ``dtype``
+        (default: the config's) on the config's device."""
+        root = pretrained_model_name_or_path
+        if not os.path.isdir(root):
+            raise FileNotFoundError(
+                f"{root!r} is not a local model directory: from_pretrained reads a "
+                "PixArt snapshot (transformer/, vae/, text_encoder/, tokenizer/) from "
+                "disk and downloads nothing")
+        dtype = dtype or distri_config.dtype
+
+        def load(subdir, convert):
+            sd = load_sharded_safetensors(os.path.join(root, subdir), variant=variant)
+            return unet_mod.cast_params(convert(sd), dtype, distri_config.device)
+
+        dcfg = _config_from_snapshot(root, "transformer", dit_mod.dit_config_from_json,
+                                     dit_mod.pixart_config)
+        vcfg = _config_from_snapshot(root, "vae", vae_mod.vae_config_from_json,
+                                     vae_mod.sd_vae_config)
+        t5cfg = _config_from_snapshot(root, "text_encoder", t5_mod.t5_config_from_json,
+                                      t5_mod.t5_v1_1_xxl_config)
+        dit_params = load("transformer", lambda sd: convert_pixart_state_dict(
+            sd, patch_size=dcfg.patch_size, eps_channels=dcfg.out_channels, dtype=dtype))
+        vae_params = load("vae", lambda sd: convert_vae_state_dict(sd, dtype))
+        t5_params = load("text_encoder", lambda sd: convert_t5_state_dict(sd, dtype))
+        tok = _t5_tokenizer_or_fallback(os.path.join(root, "tokenizer"), t5cfg.vocab_size)
+        return cls(distri_config, dcfg, dit_params, vcfg, vae_params,
+                   _scheduler_from_snapshot(root, scheduler), tok, t5cfg, t5_params)
+
+    @torch.inference_mode()
+    def prepare(self, num_inference_steps: int = 20) -> None:
+        """Capture the DiT's graphs for a call of ``num_inference_steps``
+        steps at ``batch_size`` images ahead of the first call, from
+        placeholder inputs; nothing happens without ``use_cuda_graph``."""
+        cfg = self.distri_config
+        if not cfg.use_compiled_step:
+            return
+        bs = cfg.batch_size
+        emb, mask = self._encode([""] * bs, [""] * bs)
+        latents = torch.zeros(bs, cfg.latent_height, cfg.latent_width,
+                              self.dit_config.in_channels, device=cfg.device)
+        self.runner.prepare(latents, emb, num_inference_steps=num_inference_steps,
+                            cap_mask=mask)
+
+    def _encode(self, prompts, negs):
+        """(caption states [n_branches, B, 120, caption_dim], caption mask
+        [n_branches, B, 120]) of one chunk, branch 0 unconditional."""
+        cfg = self.distri_config
+        texts = negs + prompts if cfg.do_classifier_free_guidance else prompts
+        n_br = 2 if cfg.do_classifier_free_guidance else 1
+        tok, n = self.tokenizer, self.max_token_length
+        if isinstance(tok, SimpleTokenizer):
+            ids = tok(texts, n)
+            # the real tokens and the first (sentinel) EOS are attended, as a
+            # T5 attention mask; the EOS padding after it is not
+            mask = (ids != tok.eos).astype(np.float32)
+            mask[np.arange(len(ids)), np.argmax(ids == tok.eos, axis=1)] = 1.0
+        else:
+            # explicit max_length: a T5 tokenizer's model_max_length is 512,
+            # the pipeline's contract 120 caption tokens
+            out = tok(texts, padding="max_length", max_length=n, truncation=True,
+                      return_tensors="np")
+            ids = np.asarray(out["input_ids"])
+            mask = np.asarray(out["attention_mask"], np.float32)
+        dev = cfg.device
+        if not self.text_encoders:
+            # weight-free smoke path: pseudo-embeddings seeded by each row's
+            # id sum, every token attended.  Drawn from a torch.Generator,
+            # whose numbers differ from the JAX package's jax.random draws:
+            # this path tests the pipeline's plumbing, not the encoder
+            emb = torch.stack([
+                torch.randn(ids.shape[1], self.dit_config.caption_dim,
+                            generator=torch.Generator().manual_seed(int(s) % (2**31)))
+                for s in ids.sum(axis=1)]).to(dev)
+            mask = np.ones(ids.shape, np.float32)
+        else:
+            t5cfg, t5p = self.text_encoders[0]
+            emb = t5_mod.t5_encode(t5p, t5cfg, torch.from_numpy(ids).to(dev),
+                                   torch.from_numpy(mask).to(dev))
+        b = len(prompts)
+        mask = torch.from_numpy(mask).to(dev)
+        return emb.reshape(n_br, b, *emb.shape[1:]), mask.reshape(n_br, b, -1)
+
+    @torch.inference_mode()
+    def __call__(self, prompt, negative_prompt="", num_inference_steps: int = 20,
+                 guidance_scale: float = 4.5, seed: int = 0, output_type: str = "pil",
+                 latents=None, num_images_per_prompt: int = 1, callback=None,
+                 **kwargs) -> PipelineOutput:
+        """Generate images: ``prompt`` a string or a list, ``latents`` the
+        initial noise [N, H/8, W/8, 4] (else drawn from a torch.Generator
+        seeded with ``seed``), ``callback(i, t, latents)`` after every step;
+        ``output_type`` "latent", "np" or "pil"."""
+        cfg = self.distri_config
+        if "height" in kwargs or "width" in kwargs:
+            raise ValueError("height and width are fixed in DistriConfig")
+        if kwargs:
+            raise TypeError(f"unexpected keyword arguments: {sorted(kwargs)}")
+        if not cfg.do_classifier_free_guidance:
+            guidance_scale = 1.0
+        prompts, negs = _normalize_prompts(prompt, negative_prompt)
+        self.scheduler.set_timesteps(num_inference_steps)
+
+        def run_chunk(cp, cn, cl, n_real):
+            emb, mask = self._encode(cp, cn)
+            return self.runner.generate(
+                cl, emb, guidance_scale=guidance_scale,
+                num_inference_steps=num_inference_steps, cap_mask=mask,
+                callback=_wrap_chunk_callback(callback, n_real))
+
+        latent = _batched_generate(cfg, self.scheduler, prompts, negs,
+                                   num_images_per_prompt, seed, latents,
+                                   self.dit_config.in_channels, run_chunk)
+        return self._finalize(latent, output_type)

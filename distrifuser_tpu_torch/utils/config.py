@@ -24,8 +24,9 @@ original DistriFusion:
 
 Knobs of the JAX package that the port does not run yet are refused with
 the ROADMAP item that will bring them, never ignored: ``attn_impl``
-"ulysses" and "usp", ``ulysses_degree`` above 1 and ``pipe_patches`` (the
-DiT layouts, item 13); at their defaults they do nothing.  The comm knobs of the displaced patch path (``comm_batch``,
+"ulysses" and "usp" and ``ulysses_degree`` above 1 (the DiT's head-sharded
+layouts, item 13c) and ``pipe_patches`` (PipeFusion, item 13d); at their
+defaults they do nothing.  The comm knobs of the displaced patch path (``comm_batch``,
 ``comm_compress``, ``refresh_fraction``, the step cache and
 ``attn_impl="ring"``) are validated as the JAX package validates them.
 Two knobs are carried
@@ -313,17 +314,16 @@ class DistriConfig:
                 "defeats hybrid's one-body rationale; use the full loop with "
                 "the step cache"
             )
-        if self.attn_impl in ("ulysses", "usp"):
+        if self.attn_impl in ("ulysses", "usp") or self.ulysses_degree > 1:
             raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r}: ulysses and usp are the DiT "
-                "layouts, ROADMAP queue 1 item 13; the UNet's patch path takes "
-                "'gather' or 'ring'"
+                f"attn_impl={self.attn_impl!r}, ulysses_degree={self.ulysses_degree}: "
+                "ulysses and usp (the DiT's head-sharded layouts) are ROADMAP queue 1 "
+                "item 13c; the DiT and the UNet take attn_impl 'gather' or 'ring'"
             )
-        if self.ulysses_degree > 1 or self.pipe_patches is not None:
+        if self.pipe_patches is not None:
             raise NotImplementedError(
-                f"ulysses_degree={self.ulysses_degree}, pipe_patches="
-                f"{self.pipe_patches}: the usp head split and the PipeFusion "
-                "patch stream are the DiT layouts, ROADMAP queue 1 item 13"
+                f"pipe_patches={self.pipe_patches}: PipeFusion's patch stream over "
+                "the DiT's blocks is ROADMAP queue 1 item 13d"
             )
         on_card = self.device is None or torch.device(self.device).type == "cuda"
         if on_card and self.dtype is not None and self.dtype != torch.bfloat16:

@@ -75,9 +75,10 @@ def test_kernel_matches_reference_on_card(b, lq, lk, heads, d):
     (1, 2048, 2048, 10, 64), (1, 512, 512, 20, 64), (2, 100, 333, 3, 40),
     (1, 77, 200, 5, 80), (1, 130, 70, 3, 160), (2, 64, 64, 4, 16),
     (1, 256, 256, 1, 32), (1, 200, 333, 3, 128), (1, 130, 257, 2, 256),
-    (1, 300, 300, 1, 512)],
+    (1, 300, 300, 1, 512), (1, 2048, 2048, 16, 72), (1, 100, 333, 3, 72),
+    (2, 130, 257, 1, 72)],
     ids=["ring_l1", "ring_l2", "d40", "d80", "d160", "d16", "d32", "d128", "d256",
-         "d512"])
+         "d512", "pixart_ring_d72", "d72_ragged_h3", "d72_ragged_h1"])
 def test_lse_kernel_matches_reference_on_card(b, lq, lk, heads, d):
     """The log-sum-exp instances (``return_lse=True``): the float32 output
     and lse [B, H, Lq] against the plain version, every head dim; the
@@ -208,6 +209,63 @@ def test_kernel_d40_separate_kv_on_card():
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(5)
     q, k, v = (torch.randn(2, 200, 120, device="cuda", generator=g).bfloat16()
+               for _ in range(3))
+    _assert_close(port_flash.flash_sdpa(q, k, v, heads=3),
+                  port_flash.flash_sdpa_reference(q, k, v, heads=3))
+
+
+# PixArt-α's DiT: 16 heads of d = 72 (72 -> 96 columns, the d = 40 scheme)
+D72_SHAPES = [(2, 4096, 4096, 16, 72), (1, 2048, 4096, 16, 72), (2, 1024, 1024, 16, 72),
+              (1, 100, 333, 3, 72), (1, 130, 257, 1, 72), (2, 77, 64, 16, 72)]
+D72_IDS = ["pixart_1024_dense", "pixart_1024_cfg2_sp2_rank", "pixart_512_dense",
+           "ragged_h3", "ragged_h1", "short_kv"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,heads,d", D72_SHAPES, ids=D72_IDS)
+def test_kernel_d72_on_card(b, lq, lk, heads, d):
+    """The d = 72 instance at PixArt's shapes and ragged ones (Lq and Lk off
+    the tiles, one head, three heads), with and without a kv_len mask that
+    hides large rows of the fused KV."""
+    _need_card()
+    q, k, v = _flash_operands(b, lq, lk, heads, d, seed=7)
+    _assert_close(port_flash.flash_sdpa(q, k, v, heads=heads),
+                  port_flash.flash_sdpa_reference(q, k, v, heads=heads))
+    kv_len = lk // 2 + 3
+    k[:, kv_len:] = 300.0
+    v[:, kv_len:] = -300.0
+    _assert_close(port_flash.flash_sdpa(q, k, v, heads=heads, kv_len=kv_len),
+                  port_flash.flash_sdpa_reference(q, k[:, :kv_len], v[:, :kv_len],
+                                                  heads=heads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", range(16))
+def test_kernel_d72_every_head_on_card(head):
+    """Each of PixArt's 16 heads alone: every other head's q, k and v hold
+    300, so a box that read a neighbour's columns as Q's pad (an odd head
+    loads from 8 columns earlier, every head up to 24 past its end) would
+    swamp the logits; K's and V's pad columns, a neighbour's, must add
+    nothing."""
+    _need_card()
+    q, k, v = _flash_operands(1, 256, 320, 16, 72, seed=8 + head)
+    for t in (q, k, v):
+        heads = t.unflatten(-1, (16, 72))
+        keep = heads[..., head, :].clone()
+        heads.fill_(300.0)
+        heads[..., head, :] = keep
+    got = port_flash.flash_sdpa(q, k, v, heads=16).unflatten(-1, (16, 72))[..., head, :]
+    want = port_flash.flash_sdpa_reference(q, k, v, heads=16).unflatten(-1, (16, 72))
+    _assert_close(got, want[..., head, :])
+
+
+@pytest.mark.cuda
+def test_kernel_d72_separate_kv_on_card():
+    """d = 72 with k and v separate tensors of exactly [B, Lk, C]: the last
+    head's pad columns lie past the allocation and must load as zeros."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn(2, 200, 3 * 72, device="cuda", generator=g).bfloat16()
                for _ in range(3))
     _assert_close(port_flash.flash_sdpa(q, k, v, heads=3),
                   port_flash.flash_sdpa_reference(q, k, v, heads=3))

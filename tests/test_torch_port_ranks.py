@@ -436,3 +436,36 @@ def overlap_worker(rank, world, in_path, out_path):
         out[tuple(sorted(case.items()))] = [
             (e.phase, [c.as_dict() for c in e.collectives]) for e in evaluations]
     torch.save(out, f"{out_path}.rank{rank}")
+
+
+def dit_worker(rank, world, in_path, out_path):
+    """The tiny DiT runner (parallel/dit_sp.py) in each case of ``cases``
+    (config fields over ``base``): 4 steps from the same latents, caption
+    states and mask, with the latent shapes its callback saw; then each case
+    of ``graphed`` with ``use_cuda_graph=True``.  Saves {case index, or
+    ("graphed", index): (latent, comm_report(1), comm_report(2), phase
+    counts, callback shapes)}."""
+    from distrifuser_tpu_torch.models import dit
+    from distrifuser_tpu_torch.parallel.dit_sp import DiTDenoiseRunner
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+    from distrifuser_tpu_torch.utils.config import DistriConfig
+
+    inp = torch.load(in_path)
+    dcfg = dit.tiny_dit_config(depth=2)
+    out = {}
+    runs = [(i, case, {}) for i, case in enumerate(inp["cases"])]
+    runs += [(("graphed", i), case, {"use_cuda_graph": True})
+             for i, case in enumerate(inp.get("graphed", []))]
+    for i, case, extra in runs:
+        fields = {**inp["base"], **case, **extra}
+        batch = fields.get("batch_size", 1)
+        cfg = DistriConfig(device="cpu", height=128, width=128, **fields)
+        runner = DiTDenoiseRunner(cfg, dcfg, inp["params"], get_scheduler(inp["scheduler"]))
+        seen = []
+        x = runner.generate(inp["latents"][:batch], inp["enc"][:, :batch],
+                            guidance_scale=4.5, num_inference_steps=inp["steps"],
+                            cap_mask=inp["mask"][:, :batch],
+                            callback=lambda i, t, x: seen.append(tuple(x.shape)))
+        out[i] = (x, runner.comm_report(1), runner.comm_report(2),
+                  dict(runner.phase_counts), seen)
+    torch.save(out, f"{out_path}.rank{rank}")
