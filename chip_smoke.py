@@ -34,11 +34,12 @@ Phases (any failure raises, and the script exits non-zero):
    mid attention's L/n queries against one rank's L/n keys, d = 512; the
    1024x1024 and 512x512 decodes at sp 2, the 2048x2048 one at sp 2 and
    sp 4), out and lse against the plain version (lse max |d| <= 1e-3), each
-   with the instance's registers and spilled bytes, timed beside the one
-   PyTorch call that also returns the log-sum-exp:
-   ``aten._scaled_dot_product_flash_attention`` (d <= 256) or
-   ``aten._scaled_dot_product_efficient_attention`` with
-   ``compute_log_sumexp`` (d = 512); and PixArt-α's self-attention at
+   with the instance's registers and spilled bytes, timed beside the fastest
+   of the PyTorch calls that also return the log-sum-exp:
+   ``aten._scaled_dot_product_efficient_attention`` and, up to d = 256,
+   ``aten._scaled_dot_product_cudnn_attention`` (both with
+   ``compute_log_sumexp``) and ``aten._scaled_dot_product_flash_attention``;
+   and PixArt-α's self-attention at
    d = 72 (rows "...@pixart": the dense 1024x1024 call (2, 4096, 4096, 16,
    72), one rank of the "dit" run (1, 2048, 4096, 16, 72, its K and V views
    of the gathered KV), a 512x512 call (2, 1024, 1024, 16, 72), and the
@@ -209,10 +210,6 @@ device time, the share of it that lies under the rank's compute kernels
 and the exposed NCCL time (``stale_step_overlap``).  ``--runs a,b``
 (with ``--patch_only``) runs only those multi-rank runs, without the
 kernel rows and the kernels line.
-``--flash_variants "D:BK,NQ,NC,STAGES,MINB[,DP];..."`` builds those
-variants of the flash kernel's instances (``flash_variant_phase``) and
-times each beside the checkout's own and SDPA at PixArt's shapes, by
-device time in one process.
 ``--quant_device_times`` runs only the device time of the quantized-matmul
 kernel's fp32 contract form and of the per-token quantization kernel at
 every SDXL and SD 1.5 path shape, the latter also with a cold L2 (a 256 MB
@@ -812,12 +809,13 @@ def lse_kernel_phase(spills, extra=()):
     (``VAE_RING_HOPS``, d = 512) and ``extra`` (PixArt's ring,
     ``PIXART_RING_HOPS``, d = 72): out (float32) and lse against the plain
     version (out max |d| <= 2e-2, mean <= 2e-3; lse max |d| <= 1e-3), timed
-    by CUDA events and device time beside the plain version and the one
-    PyTorch call that also returns the log-sum-exp at the head dim:
-    ``aten._scaled_dot_product_flash_attention`` up to d = 256,
-    ``aten._scaled_dot_product_efficient_attention`` with
-    ``compute_log_sumexp`` above; each row names the instance's registers
-    and spilled bytes."""
+    by CUDA events and device time beside the plain version and the fastest
+    (by device time) of the PyTorch calls that also return the log-sum-exp
+    at the head dim: ``aten._scaled_dot_product_efficient_attention`` and
+    ``aten._scaled_dot_product_cudnn_attention`` with ``compute_log_sumexp``
+    and ``aten._scaled_dot_product_flash_attention``, the last two up to
+    d = 256 (every candidate's times in ``library_candidates``); each row
+    names the instance's registers and spilled bytes."""
     import torch
 
     from distrifuser_tpu_torch.models import unet
@@ -859,24 +857,29 @@ def lse_kernel_phase(spills, extra=()):
             return fa.flash_sdpa(q, k, v, heads=heads, return_lse=True)
 
         qh, kh, vh = (t.unflatten(-1, (heads, d)).transpose(1, 2) for t in (q, k, v))
+        aten = torch.ops.aten
+        candidates = {
+            "aten._scaled_dot_product_efficient_attention":
+                lambda: aten._scaled_dot_product_efficient_attention(qh, kh, vh, None, True),
+        }
         if d <= 256:
-            library_name = "aten._scaled_dot_product_flash_attention"
-
-            def library():
-                return torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh)
+            candidates.update({
+                "aten._scaled_dot_product_flash_attention":
+                    lambda: aten._scaled_dot_product_flash_attention(qh, kh, vh),
+                "aten._scaled_dot_product_cudnn_attention":
+                    lambda: aten._scaled_dot_product_cudnn_attention(qh, kh, vh, None, True)})
+        library_times = {}
+        for library_name, library in candidates.items():
+            try:
+                library_times[library_name] = (time_ms(library), device_ms(library))
+            except RuntimeError as e:  # no library kernel for this layout
+                print(f"{library_name} unavailable at {name}: {e}", file=sys.stderr)
+        if library_times:  # the faster call by device time (events where unmeasured)
+            library_name = min(library_times, key=lambda n: library_times[n][1]
+                               or library_times[n][0])
+            library_ms, library_dev_ms = library_times[library_name]
         else:
-            library_name = "aten._scaled_dot_product_efficient_attention"
-
-            def library():
-                return torch.ops.aten._scaled_dot_product_efficient_attention(
-                    qh, kh, vh, None, True)
-
-        try:
-            library_ms, library_dev_ms = time_ms(library), device_ms(library)
-        except RuntimeError as e:  # no library kernel for this layout
-            print(f"library flash attention unavailable at {name}: {e}", file=sys.stderr)
-            library_ms = library_dev_ms = None
-            library_name = f"none ({str(e).splitlines()[0][:160]})"
+            library_name, library_ms, library_dev_ms = "none", None, None
         flops = 4.0 * b * heads * lq * lk * d
         nbytes = 2.0 * (b * lq * c + 2 * b * lk * c) + 4.0 * (b * lq * c + b * heads * lq)
         ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -888,6 +891,8 @@ def lse_kernel_phase(spills, extra=()):
                "plain_ms": time_ms(plain, max_iters=10),
                "library": library_name,
                "library_ms": library_ms, "library_device_ms": library_dev_ms,
+               "library_candidates": {n: {"ms": t[0], "device_ms": t[1]}
+                                      for n, t in library_times.items()},
                "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                "tflops": flops / (ms * 1e-3) / 1e12, **fa.variant(d, lse=True),
@@ -897,97 +902,6 @@ def lse_kernel_phase(spills, extra=()):
         del q, k, v, out, lse, want, want_lse, err
         torch.cuda.empty_cache()
     return results
-
-
-def flash_variant_phase(specs, out_dir):
-    """``--flash_variants``: for each spec "D:BK,NQ,NC,STAGES,MINB[,DP]", a
-    copy of csrc/flash_attention.cu whose instance for head dim D is X(D,
-    spec) (csrc/sm90.cuh beside it), built under ``out_dir`` with nvcc in
-    parallel and swapped into ops/flash_attention.py's library around its
-    calls; the checkout's own source first, as "current".  At PixArt's
-    shapes (``PIXART_SHAPES``; ``PIXART_RING_HOPS`` through the
-    log-sum-exp instance) each is held against the plain version (the
-    kernel phase's limits) and timed by device time beside SDPA (the flash
-    library call with the log-sum-exp for the ring's chunk), in one
-    process on one card.  Prints each build's ptxas lines for the head dim
-    and one row per (variant, shape)."""
-    import shutil
-    from concurrent.futures import ThreadPoolExecutor
-
-    import torch
-    import torch.nn.functional as F
-
-    from distrifuser_tpu_torch.ops import _build
-    from distrifuser_tpu_torch.ops import flash_attention as fa
-
-    text = (_build.CSRC / "flash_attention.cu").read_text()
-    libs = {"current": fa._KERNEL}
-    for spec in specs:
-        d, args = spec.split(":")
-        variant_text, n = re.subn(rf"X\({d}, [^)]*\)", f"X({d}, {', '.join(args.split(','))})",
-                                  text, count=1)
-        if n != 1:
-            raise ValueError(f"flash variant {spec}: no instance for d = {d}")
-        vdir = os.path.abspath(os.path.join(out_dir, f"d{d}_" + args.replace(",", "_")))
-        os.makedirs(vdir, exist_ok=True)
-        with open(os.path.join(vdir, "flash_attention.cu"), "w") as f:
-            f.write(variant_text)
-        shutil.copy(_build.CSRC / "sm90.cuh", vdir)
-        libs[spec] = _build.KernelLibrary(os.path.join(vdir, "flash_attention.cu"), fa._bind)
-    with ThreadPoolExecutor(len(libs)) as pool:
-        logs = dict(zip(libs, pool.map(lambda lib: lib.build(), libs.values())))
-    heads_dims = {spec.split(":")[0] for spec in specs}
-    for label, log in logs.items():
-        keep = False
-        for line in log.splitlines():
-            if "Compiling entry" in line:
-                keep = any(f"ConfigILi{d}E" in line for d in heads_dims)
-            if keep and ("registers" in line or "spill" in line or "Compiling" in line):
-                print(f"  ptxas {label}: {line.strip()}", flush=True)
-    rows = []
-    for name, b, lq, lk, heads, d, calls in list(PIXART_SHAPES) + list(PIXART_RING_HOPS):
-        lse = name.startswith("dit_ring")
-        c = heads * d
-        g = torch.Generator(device="cuda").manual_seed(7)
-        q = torch.randn(b, lq, c, device="cuda", generator=g).bfloat16()
-        k, v = torch.randn(b, lk, 2 * c, device="cuda", generator=g).bfloat16().chunk(2, -1)
-        want = fa.flash_sdpa_reference(q, k, v, heads=heads, return_lse=lse)
-        qh, kh, vh = (t.unflatten(-1, (heads, d)).transpose(1, 2) for t in (q, k, v))
-        if lse:
-            library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
-                qh, kh, vh)
-        else:
-            library = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
-        library_ms = device_ms(library)
-        flops = 4.0 * b * heads * lq * lk * d
-        for label, lib in libs.items():
-            saved = fa._KERNEL._lib
-            fa._KERNEL._lib = lib.lib
-            try:
-                def kernel():
-                    return fa.flash_sdpa(q, k, v, heads=heads, return_lse=lse)
-
-                got = kernel()
-                out, ref = (got[0], want[0]) if lse else (got, want)
-                err = (out.float() - ref.float()).abs()
-                lse_err = (got[1] - want[1]).abs().max().item() if lse else 0.0
-                if not (err.max().item() <= KERNEL_MAX_ABS
-                        and err.mean().item() <= KERNEL_MEAN_ABS and lse_err <= 1e-3):
-                    raise AssertionError(f"flash variant {label} at {name}: max |d| "
-                                         f"{err.max().item()}, lse {lse_err}")
-                dev = device_ms(kernel)
-                row = {"phase": "flash_variant", "variant": label, "shape": name, "B": b,
-                       "Lq": lq, "Lk": lk, "H": heads, "d": d, "return_lse": lse,
-                       "max_abs_err": err.max().item(), "device_ms": dev,
-                       "library_device_ms": library_ms,
-                       "vs_library": None if not (dev and library_ms) else dev / library_ms,
-                       "tflops": None if not dev else flops / (dev * 1e-3) / 1e12,
-                       **fa.variant(d, lse=lse)}
-            finally:
-                fa._KERNEL._lib = saved
-            print(json.dumps(row), flush=True)
-            rows.append(row)
-    return rows
 
 
 def kernel_phase(shapes, spills):
@@ -1841,6 +1755,8 @@ def pixart_phase():
     lines and returns (eager line, graphed line)."""
     import torch
 
+    from distrifuser_tpu_torch.parallel import graphs
+
     t0 = time.perf_counter()
     trees = build_trees("pixart")
     trees_s = time.perf_counter() - t0
@@ -1850,7 +1766,7 @@ def pixart_phase():
         pipe, init_s + trees_s, "pixart",
         {"flash_sdpa": per_call + 1, "quant_matmul": 0, "quantize_rows": 0},
         steps=PIXART_STEPS, model="pixart")
-    count = lambda tree: sum(t.numel() for t in _tensors(tree))  # noqa: E731
+    count = lambda tree: sum(t.numel() for t in graphs._leaves(tree))  # noqa: E731
     params = {"dit": count(trees[1]), "t5": count(trees[5][0]), "vae": count(trees[3])}
     for line in (eager, graphed):
         line.update({"parameters": params, "t5_layers": trees[4][0].num_layers,
@@ -1867,17 +1783,6 @@ def pixart_phase():
     gc.collect()
     torch.cuda.empty_cache()
     return eager, graphed
-
-
-def _tensors(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _tensors(v)
-    else:
-        yield tree
 
 
 def img2img_handoff_phase(pipe, trees):
@@ -2955,11 +2860,6 @@ def main(argv) -> int:
                         help="only time the quantized-matmul kernel's contract form "
                              "and the per-token quantization on the card at every "
                              "path shape (device time)")
-    parser.add_argument("--flash_variants", default=None,
-                        help="only build these variants of the flash kernel's instances, "
-                             "';'-separated 'D:BK,NQ,NC,STAGES,MINB[,DP]' (e.g. "
-                             "'72:64,1,1,2,3;72:128,1,1,2,2,96'), and time each beside "
-                             "the checkout's own at PixArt's shapes (device time)")
     parser.add_argument("--encoder_source", default=None,
                         help="with --quant_device_times: build the per-token "
                              "quantization from this variant of "
@@ -2995,11 +2895,6 @@ def main(argv) -> int:
         quant_device_phase(quant_shapes(ucfg, 1024, 1024, steps)
                            + quant_shapes(ucfg15, SIZES["sd15"], SIZES["sd15"], steps,
                                           suffix=SD15), args.encoder_source)
-        return 0
-    if args.flash_variants:
-        set_precision_flags()
-        flash_variant_phase(args.flash_variants.split(";"),
-                            os.path.join(args.out_dir, "flash_variants"))
         return 0
     spills = build_kernels()
 
@@ -3150,8 +3045,9 @@ def main(argv) -> int:
                            **{**FLASH_ENTRY, "name": "flash_sdpa[lse, d=72]"},
                            work="the d = 72 log-sum-exp instance (float32 out and lse): "
                                 "the ring's chunks in one rank of the dit_ring run at CFG 2 x "
-                                "sp 2, 4-step 1024x1024 PixArt call; library: aten._scaled_"
-                                "dot_product_flash_attention")
+                                "sp 2, 4-step 1024x1024 PixArt call; library: the fastest of "
+                                "aten's efficient, flash and cuDNN attention with the "
+                                "log-sum-exp")
         return [plain, lse]
 
     def knob_entry(rows, label, lines):
@@ -3196,8 +3092,9 @@ def main(argv) -> int:
                            **{**FLASH_ENTRY, "name": "flash_sdpa[lse]"},
                            work="the log-sum-exp instances (float32 out and lse) in one "
                                 "rank's 4-step 1024x1024 ring call at CFG 2 x sp 2 (the "
-                                "decode's d = 512 ones apart); "
-                                "library: aten._scaled_dot_product_flash_attention")
+                                "decode's d = 512 ones apart); library: the fastest of "
+                                "aten's efficient, flash and cuDNN attention with the "
+                                "log-sum-exp")
 
         def codec(label, prefix):
             picked = [r for r in refresh_rows if r["shape"].startswith(f"refresh_{label}_")]
