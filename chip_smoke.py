@@ -43,7 +43,16 @@ Phases (any failure raises, and the script exits non-zero):
    d = 72 (rows "...@pixart": the dense 1024x1024 call (2, 4096, 4096, 16,
    72), one rank of the "dit" run (1, 2048, 4096, 16, 72, its K and V views
    of the gathered KV), a 512x512 call (2, 1024, 1024, 16, 72), and the
-   "dit_ring" run's log-sum-exp chunks (1, 2048, 2048, 16, 72));
+   "dit_ring" run's log-sum-exp chunks (1, 2048, 2048, 16, 72)); and SD3's
+   joint attention at d = 64 (rows "...@sd3", ``sd3_attention_shapes``:
+   the dense 1024x1024 call (2, 4250, 4250, 24, 64) over 154 context and
+   4096 image tokens, 96 launches a call; one rank of the "sd3" run (1,
+   2202, 4250, 24, 64): 154 context and 2048 image queries against every
+   key; the SD3 VAE's mid attention; SD3.5-medium's image-only dual
+   attention (2, 4096, 4096, 24, 64), 13 an evaluation; and the
+   "sd3_ring" run's log-sum-exp chunks (1, 2202, 2048, 24, 64), the own
+   chunk and one hop, and (1, 2202, 154, 24, 64), the static context
+   block), the first path where query and KV lengths are both ragged;
 3. quant kernel phase: at every (M, K, N) the quantized main path gives
    the quantized-matmul kernel (derived from the UNet config), and at odd
    shapes, for int8 and fp8, on a seeded bf16 activation: hold the
@@ -74,7 +83,11 @@ Phases (any failure raises, and the script exits non-zero):
    _table", fp8; also with the residual base), bit for bit with their plain
    versions, timed beside them; the quant rows also cover PixArt-α's DiT
    linears and T5-XXL's (M, K, N) ("...@pixart"; T5's with no launches:
-   the text encoder follows ``weight_quant_aux``, which densifies);
+   the text encoder follows ``weight_quant_aux``, which densifies) and
+   SD3-medium's MMDiT linears at 1024x1024 with CFG folded ("...@sd3",
+   ``sd3_quant_shapes``: M = 2 x 4096 image and 2 x 154 context rows
+   through both streams' qkv, out and MLP linears, the modulations at
+   M = 2; 985 launches a quantized 4-step call);
 4. small-input checks: the tiny SDXL pipeline in bf16 on the card against
    the same pipeline in float32 on the CPU, same weights and latents:
    dense (relative L2 of the latents <= 8e-2; 2.3e-2 measured for bf16 vs
@@ -85,7 +98,12 @@ Phases (any failure raises, and the script exits non-zero):
    activations differently); and a tiny SD 1.5-shaped pipeline (conv
    projections, head dims 40 and 80, Euler), <= 8e-2; a tiny PixArt
    pipeline (a 2-block DiT of 2 heads of d = 72, the tiny T5, DPM-solver),
-   <= 8e-2; and the step cache
+   <= 8e-2; tiny SD3 pipelines (a 2-block MMDiT of 2 heads of d = 64, the
+   tiny CLIPs and T5, 84 context beside 256 image tokens, flow-euler),
+   dense and with weight_quant int8 under quant_compute="pallas", and an
+   SD3.5-medium-shaped one (q/k norms, 3 blocks, the first 2 dual), <=
+   8e-2, each with its flash and quant launches derived from the config
+   (``_tiny_sd3_check``); and the step cache
    at the tiny size on the card (interval 2, depth 1, 6 steps), graphed
    (a "shallow" graph) equal to eager bit for bit;
 5. main path: DistriSDXLPipeline at full SDXL width (UNet, ViT-L + bigG
@@ -132,7 +150,19 @@ Phases (any failure raises, and the script exits non-zero):
    and then under CUDA graphs, bit for bit (flash 4*28 + 1 a call: d = 72
    112 times, the whole decode's d = 512 once), with each call's time and
    peak memory and the parameter counts;
-5d. the command-line scripts, in this process: ``run_sdxl --mode
+5d. SD3: DistriSD3Pipeline at 1024x1024 with the MMDiT of ``sd3_config()``
+   (24 joint blocks of 1536, 24 heads of d = 64), CLIP-L (768
+   projection), OpenCLIP-bigG and T5-v1.1-XXL whole, the SD3 VAE built by
+   ``vae_config_from_json`` from its published config (16 latent
+   channels, scaling 1.5305, shift 0.0609), seeded random bf16 weights;
+   4 flow-euler steps to an image, eagerly and then under CUDA graphs, bit
+   for bit (flash 4*24 + 1 = 97 a call: d = 64 96 times, the whole
+   decode's d = 512 once; a "graph_vs_eager" line), and one evaluation of
+   the SD3.5-medium transformer geometry from its published config.json
+   (24 blocks, q/k RMSNorm, dual attention in blocks 0-12, a 384-token
+   position grid): a finite velocity, flash 24 + 13 launches
+   ("sd35m_geometry");
+5e. the command-line scripts, in this process: ``run_sdxl --mode
    benchmark`` at 1024x1024 with random weights (1 untimed, 3 timed 4-step
    calls to latents) prints its trimmed-mean latency, and ``sd_example``
    runs img2img from an image written to a temporary directory;
@@ -170,7 +200,13 @@ Phases (any failure raises, and the script exits non-zero):
    at full width cut to ``SPAWN_T5_LAYERS`` layers (four copies share the
    card; the line says how many), with tiny checks (full_sync too for
    "dit"), flash 4*28 (ring: 2*4*28 log-sum-exp) + 2 a call and the runner's
-   ``comm_report``.  ``decode_sp``: the tiny VAE's sequence-parallel decode on the
+   ``comm_report``.  ``sd3`` and ``sd3_ring``: DistriSD3Pipeline at world 4
+   (CFG 2 x sp 2, warmup 1, flow-euler) through ``MMDiTDenoiseRunner``'s
+   "gather" and "ring" layouts, the MMDiT whole, T5-XXL at full width cut
+   to ``SPAWN_T5_LAYERS`` layers, with tiny checks (full_sync too for
+   "sd3"), flash 4*24 (ring: 3*4*24 log-sum-exp: the own chunk, the static
+   context block, one hop) + 2 a call, the runner's ``comm_report`` and
+   ``comm_plan``.  ``decode_sp``: the tiny VAE's sequence-parallel decode on the
    card against the CPU at world 4 (relative L2 <= 8e-2), then a 2048x2048
    SDXL latent decoded sequence-parallel at sp 4 and at CFG 2 x sp 2 through
    ``pipelines.decode_latents``, each rank's ms and peak memory and d = 512
@@ -199,7 +235,8 @@ SD 1.5's quantized calls), and last the line {"ok": true, "device": {...}}.
 
 ``--profile`` runs only the warm main path under torch.profiler, eagerly
 and under CUDA graphs, for SDXL dense, int8 and fp8 (``--weight_quant``
-picks one), SD 1.5 dense at 512x512 and PixArt-α dense at 1024x1024.  ``--patch_only`` runs only the flash kernel at the multi-rank
+picks one), SD 1.5 dense at 512x512 and PixArt-α and SD3-medium dense at
+1024x1024.  ``--patch_only`` runs only the flash kernel at the multi-rank
 shapes (the log-sum-exp rows too), the refresh quantization rows and the
 multi-rank phase; with ``--profile`` each rank also
 profiles one more call of each run in each mode, with the device
@@ -255,8 +292,8 @@ PATCH_WORLD, PATCH_STEPS, PATCH_WARMUP = 4, 4, 1  # CFG 2 x sp 2: 2 sync, 2 stal
 PATCH_MODES = ("full_sync", "corrected_async_gn")
 # image size of each model family's pipeline runs; SD 1.x and SD 2.x rows of
 # the kernel phase carry the suffix "@sd15" or "@sd21" after their shape name
-SIZES = {"sdxl": 1024, "sd15": 512, "sd21": 768, "pixart": 1024}
-SD15, SD21, PIXART = "@sd15", "@sd21", "@pixart"
+SIZES = {"sdxl": 1024, "sd15": 512, "sd21": 768, "pixart": 1024, "sd3": 1024}
+SD15, SD21, PIXART, SD3 = "@sd15", "@sd21", "@pixart", "@sd3"
 SD15_HEAD_DIMS = (40, 80, 160)
 CODEC_TABLE = 192  # segments a refresh-codec launch takes (ops/quantize.py CAPACITY)
 SPAWN_DEADLINE_S = 720  # one spawn of the multi-rank phase, profiles included
@@ -300,8 +337,15 @@ MULTI_RUNS = {
             {"sync": 2, "stale": 2}, "pixart", PATCH_STEPS),
     "dit_ring": ({"warmup_steps": PATCH_WARMUP, "attn_impl": "ring"}, [{}],
                  {"sync": 2, "stale": 2}, "pixart", PATCH_STEPS),
+    # SD3-medium's MMDiT under displaced patch parallelism
+    # (parallel/mmdit_sp.py), its two layouts, flow-euler
+    "sd3": ({"warmup_steps": PATCH_WARMUP}, [{}, {"mode": "full_sync"}],
+            {"sync": 2, "stale": 2}, "sd3", PATCH_STEPS),
+    "sd3_ring": ({"warmup_steps": PATCH_WARMUP, "attn_impl": "ring"}, [{}],
+                 {"sync": 2, "stale": 2}, "sd3", PATCH_STEPS),
 }
 DIT_RUNS = ("dit", "dit_ring")
+SD3_RUNS = ("sd3", "sd3_ring")
 # T5-XXL layers of the multi-rank PixArt runs (full width; four ranks on one
 # card each hold a copy); the single-card PixArt call runs all 24
 SPAWN_T5_LAYERS = 6
@@ -357,6 +401,21 @@ FLASH_ENTRY = {"name": "flash_sdpa", "route": "cuda",
                "source": "distrifuser_tpu_torch/csrc/flash_attention.cu",
                "replaces": "distrifuser_tpu/ops/flash_attention.py:41"}
 TINY_PIXART_HEADS = 2  # the tiny DiT's 144 columns as 2 heads of PixArt's d = 72
+# SD3 at 1024x1024: each joint attention runs over the 154 context tokens
+# (77 CLIP + max_t5_tokens 77) and the 4096 image tokens, 4 flow-euler steps
+SD3_STEPS, SD3_CONTEXT, SD3_T5_TOKENS = 4, 154, 77
+TINY_SD3_HEADS, TINY_SD3_T5_TOKENS = 2, 7  # the tiny MMDiT: 2 heads of SD3's d = 64
+# the published stabilityai/stable-diffusion-3-medium vae/config.json (the
+# fields vae_config_from_json reads)
+SD3_VAE_JSON = {"in_channels": 3, "out_channels": 3, "latent_channels": 16,
+                "block_out_channels": [128, 256, 512, 512], "layers_per_block": 2,
+                "norm_num_groups": 32, "scaling_factor": 1.5305, "shift_factor": 0.0609}
+# the published stabilityai/stable-diffusion-3.5-medium transformer/config.json
+SD35M_JSON = {"sample_size": 128, "patch_size": 2, "in_channels": 16, "out_channels": 16,
+              "num_layers": 24, "attention_head_dim": 64, "num_attention_heads": 24,
+              "joint_attention_dim": 4096, "caption_projection_dim": 1536,
+              "pooled_projection_dim": 2048, "pos_embed_max_size": 384,
+              "qk_norm": "rms_norm", "dual_attention_layers": list(range(13))}
 
 
 def card_line() -> str:
@@ -438,7 +497,7 @@ def attention_shapes(ucfg, vcfg, height, width, unet_evals, suffix=""):
 
 def family(name: str) -> str:
     """The model family of a kernel-phase row by its shape name."""
-    for fam, suffix in (("sd15", SD15), ("sd21", SD21), ("pixart", PIXART)):
+    for fam, suffix in (("sd15", SD15), ("sd21", SD21), ("pixart", PIXART), ("sd3", SD3)):
         if name.endswith(suffix):
             return fam
     return "sdxl"
@@ -490,6 +549,32 @@ def tp_layout(cards):
     cards (tp 4, SDXL's 10 heads padded to 12); two ranks staged through
     the host on one card (tp 2), to bound the staged all-reduces."""
     return (4, 4) if cards >= PATCH_WORLD else (2, 2)
+
+
+def sd3_attention_shapes(steps=SD3_STEPS, n=PATCH_WORLD // 2):
+    """The flash kernel's shapes on SD3's path with their launches, derived
+    from the configs: the joint attention of the dense 1024x1024 call (CFG
+    folded, B = 2: 154 context + 4096 image tokens against as many), one
+    "sd3" rank at CFG 2 x sp 2 (154 + 4096/n queries against every key),
+    the SD3 VAE's mid attention (one decode), and SD3.5-medium's image-only
+    dual attention (launches of one evaluation: its 13 dual blocks); and
+    the "sd3_ring" rank's log-sum-exp chunks: the 154 + 4096/n queries
+    against one rank's 4096/n image keys (the own chunk and one hop a block
+    and step) and against the 154 context keys (the static block)."""
+    from distrifuser_tpu_torch.models import mmdit, vae
+
+    m, m35 = mmdit.sd3_config(), mmdit.mmdit_config_from_json(SD35M_JSON)
+    lx, lc, heads, d = m.num_tokens, SD3_CONTEXT, m.num_heads, m.head_dim
+    calls, latent = steps * m.depth, m.sample_size ** 2
+    top = vae.vae_config_from_json(SD3_VAE_JSON).block_out_channels[-1]
+    plain = [("mmdit_joint" + SD3, 2, lc + lx, lc + lx, heads, d, calls),
+             ("patch_mmdit_joint" + SD3, 1, lc + lx // n, lc + lx, heads, d, calls),
+             ("vae_mid" + SD3, 1, latent, latent, 1, top, 1),
+             ("mmdit35m_dual" + SD3, 2, lx, lx, m35.num_heads, m35.head_dim,
+              m35.dual_attention_blocks)]
+    lse = [("sd3_ring_chunk" + SD3, 1, lc + lx // n, lx // n, heads, d, 2 * calls),
+           ("sd3_ring_static" + SD3, 1, lc + lx // n, lc, heads, d, calls)]
+    return plain, lse
 
 
 def refresh_layers(ucfg, shallow_depth=0):
@@ -596,15 +681,19 @@ def decode_launches(fields, model):
 def multi_expected(label, ucfg):
     """The launches one call of the multi-rank run ``label`` makes on one
     rank: the comm-knob runs' (``knob_expected``), the DiT's self-attention
-    at every block and step (ring: the own chunk and one hop, log-sum-exp),
-    else the UNet's attentions at every step; and the decode's
+    or the MMDiT's joint attention at every block and step (ring: the own
+    chunk, the MMDiT's static context block and one hop, log-sum-exp), else
+    the UNet's attentions at every step; and the decode's
     (``decode_launches``)."""
     fields, _, _, model, steps = MULTI_RUNS[label]
     if label in KNOB_RUNS:
         return knob_expected(label, ucfg)
     plain, lse = decode_launches(fields, model)
-    if label in DIT_RUNS:  # ucfg: the DiT's; a ring block launches 2 chunks at sp 2
-        ring = 2 * steps * ucfg.depth if fields.get("attn_impl") == "ring" else 0
+    if label in DIT_RUNS + SD3_RUNS:  # ucfg: the DiT's or the MMDiT's
+        # a ring block launches 2 chunks at sp 2, and the MMDiT's one more for
+        # the static context block
+        chunks = 2 + (label in SD3_RUNS)
+        ring = chunks * steps * ucfg.depth if fields.get("attn_impl") == "ring" else 0
         return {"flash_sdpa": (ring or steps * ucfg.depth) + plain + lse,
                 "flash_sdpa_lse": ring + lse, "quant_matmul": 0, "quantize_rows": 0}
     from distrifuser_tpu_torch.models import unet
@@ -807,7 +896,8 @@ def lse_kernel_phase(spills, extra=()):
     """The flash kernel's log-sum-exp instances at the ring's chunk shapes
     (``RING_HOPS``, d = 64), the sequence-parallel decode's
     (``VAE_RING_HOPS``, d = 512) and ``extra`` (PixArt's ring,
-    ``PIXART_RING_HOPS``, d = 72): out (float32) and lse against the plain
+    ``PIXART_RING_HOPS``, d = 72; SD3's, ``sd3_attention_shapes``, d = 64):
+    out (float32) and lse against the plain
     version (out max |d| <= 2e-2, mean <= 2e-3; lse max |d| <= 1e-3), timed
     by CUDA events and device time beside the plain version and the fastest
     (by device time) of the PyTorch calls that also return the log-sum-exp
@@ -917,7 +1007,9 @@ def kernel_phase(shapes, spills):
         g = torch.Generator(device="cuda").manual_seed(len(results))
         q = torch.randn(b, lq, c, device="cuda", generator=g).bfloat16()
         kv_view = None
-        if "vae" in name:  # separate to_q/to_k/to_v projections
+        if "vae" in name or name.startswith(("mmdit_joint", "patch_mmdit")):
+            # separate to_q/to_k/to_v projections; the MMDiT's joint K and V
+            # are concatenations (context rows, then image rows)
             k = torch.randn(b, lk, c, device="cuda", generator=g).bfloat16()
             v = torch.randn(b, lk, c, device="cuda", generator=g).bfloat16()
         elif name.startswith(("patch_unet_self", "patch_dit_self")):
@@ -1064,6 +1156,34 @@ def pixart_quant_shapes(steps=PIXART_STEPS, batch=2, caption=120):
               ("t5_qkvo", mt, t.d_model, t.inner_dim, 0), ("t5_wi", mt, t.d_model, t.d_ff, 0),
               ("t5_wo", mt, t.d_ff, t.d_model, 0)]
     return [(name + PIXART, *rest) for name, *rest in shapes]
+
+
+def sd3_quant_shapes(steps=SD3_STEPS, batch=2):
+    """The (name, M, K, N, launches per call) of SD3-medium's quantized
+    linears in a ``steps``-step 1024x1024 call at weight_quant int8 or fp8
+    (CFG folded: M = 2 x 4096 image rows, 2 x 154 context rows): per block
+    and step both streams' fused qkv, attention out and MLP, and both
+    modulations at M = 2; once a step the patch embedding, the timestep
+    MLP (M = 1), the pooled-text MLP and the final modulation (M = 2); the
+    context embedding once a call (final_out stays dense)."""
+    from distrifuser_tpu_torch.models import mmdit
+
+    m = mmdit.sd3_config()
+    h, f = m.hidden_size, m.mlp_ratio * m.hidden_size
+    mx, mc, per_step = batch * m.num_tokens, batch * SD3_CONTEXT, steps * m.depth
+    shapes = [("mmdit_x_qkv", mx, h, 3 * h, per_step), ("mmdit_c_qkv", mc, h, 3 * h, per_step),
+              ("mmdit_x_out", mx, h, h, per_step), ("mmdit_c_out", mc, h, h, per_step),
+              ("mmdit_x_fc1", mx, h, f, per_step), ("mmdit_x_fc2", mx, f, h, per_step),
+              ("mmdit_c_fc1", mc, h, f, per_step), ("mmdit_c_fc2", mc, f, h, per_step),
+              ("mmdit_mod", batch, h, 6 * h, 2 * per_step),
+              ("mmdit_proj_in", mx, m.token_dim, h, steps),
+              ("mmdit_ctx_in", mc, m.joint_attention_dim, h, 1),
+              ("mmdit_t_fc1", 1, m.frequency_embedding_size, h, steps),
+              ("mmdit_t_fc2", 1, h, h, steps),
+              ("mmdit_pool_fc1", batch, m.pooled_projection_dim, h, steps),
+              ("mmdit_pool_fc2", batch, h, h, steps),
+              ("mmdit_final_mod", batch, h, 2 * h, steps)]
+    return [(name + SD3, *rest) for name, *rest in shapes]
 
 
 def _library_gemm(xq, wq):
@@ -1334,6 +1454,9 @@ def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", pro
     vcfg = vae.tiny_vae_config()
     if model == "pixart":
         return _tiny_pixart_check(steps, scheduler, prompts, **fields)
+    if model in ("sd3", "sd35m"):
+        return _tiny_sd3_check(steps, prompts, weight_quant, sd35=model == "sd35m",
+                               **fields)
     if model == "sd15":
         cls, ucfg, tcfgs = DistriSDPipeline, tiny_sd15_config(), [clip.tiny_clip_config()]
     else:
@@ -1413,6 +1536,83 @@ def _tiny_pixart_check(steps, scheduler, prompts, **fields):
     return result
 
 
+def _tiny_sd3_check(steps, prompts, weight_quant="none", sd35=False, **fields):
+    """``tiny_check`` of a tiny SD3 pipeline: a 2-block MMDiT of 2 heads of
+    SD3's d = 64 (``sd35``: SD3.5-medium's shape, 3 blocks with q/k norms,
+    the first 2 dual), the tiny CLIPs and T5 (7 T5 tokens: 84 context
+    tokens beside 256 image tokens, neither a tile multiple), the tiny VAE
+    with a latent shift; flow-euler, bf16 on the card vs float32 on the CPU
+    from the same weights and latents, relative L2 within TINY_REL_L2.  On
+    one card the launches are checked against the config: flash at every
+    joint and dual attention, and under ``weight_quant`` both quant kernels
+    at every MMDiT linear but final_out (10 a block, 3 a dual block, 6 a
+    step, the context embedding once)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distrifuser_tpu_torch import DistriConfig, DistriSD3Pipeline
+    from distrifuser_tpu_torch.models import clip, mmdit, t5, vae
+    from distrifuser_tpu_torch.models.unet import cast_params
+
+    gen = torch.Generator().manual_seed(0)
+    mcfg = mmdit.MMDiTConfig(sample_size=32, in_channels=4, out_channels=4,
+                             hidden_size=64 * TINY_SD3_HEADS, depth=3 if sd35 else 2,
+                             num_heads=TINY_SD3_HEADS, mlp_ratio=2, joint_attention_dim=32,
+                             pooled_projection_dim=24, pos_embed_max_size=64, qk_norm=sd35,
+                             dual_attention_blocks=2 if sd35 else 0)
+    tcfgs = [clip.tiny_clip_config(hidden=16),
+             clip.CLIPTextConfig(vocab_size=1000, hidden_size=16, num_hidden_layers=2,
+                                 num_attention_heads=4, intermediate_size=32,
+                                 projection_dim=8)]
+    t5cfg = t5.tiny_t5_config()
+    vcfg = dataclasses.replace(vae.tiny_vae_config(), shift_factor=0.1)
+    trees = (mmdit.init_mmdit_params(gen, mcfg), vae.init_vae_params(gen, vcfg),
+             [clip.init_clip_params(gen, tc) for tc in tcfgs], t5.init_t5_params(gen, t5cfg))
+    latents = np.random.RandomState(0).randn(prompts, 32, 32, 4).astype(np.float32)
+    texts = ["a lighthouse at dusk", "a red boat on a lake"][:prompts]
+    quant = {} if weight_quant == "none" else {"weight_quant": weight_quant,
+                                                "quant_compute": "pallas"}
+    outs = []
+    for device, dtype in CHECK_DEVICES:
+        dtype = getattr(torch, dtype)
+        m, v, t = (cast_params(tree, dtype, device)
+                   for tree in (trees[0], trees[1], trees[3]))
+        cs = [cast_params(tree, dtype, device) for tree in trees[2]]
+        cfg = DistriConfig(device=device, height=256, width=256, batch_size=prompts,
+                           **quant, **fields)
+        pipe = DistriSD3Pipeline.from_params(cfg, mcfg, m, vcfg, v, tcfgs, cs,
+                                             t5_config=t5cfg, t5_params=t,
+                                             max_t5_tokens=TINY_SD3_T5_TOKENS)
+        reset_counts()
+        outs.append(np.stack(pipe(texts, num_inference_steps=steps, latents=latents,
+                                  output_type="latent").images))
+        launches = read_counts()
+    ref, got = outs
+    rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    limit = TINY_REL_L2[weight_quant]
+    result = {"phase": "tiny_check", "model": "sd35m" if sd35 else "sd3",
+              "scheduler": "flow-euler", "weight_quant": weight_quant, "steps": steps,
+              "prompts": prompts, **fields, "head_dim": 64,
+              "joint_tokens": 77 + TINY_SD3_T5_TOKENS + mcfg.num_tokens,
+              "flash_sdpa_launches": launches["flash_sdpa"],
+              "quant_matmul_launches": launches["quant_matmul"], "rel_l2": rel,
+              "max_abs": float(np.abs(got - ref).max()), "limit_rel_l2": limit}
+    if not dist.is_initialized():  # one card: the counts the config gives
+        attn = steps * (mcfg.depth + mcfg.dual_attention_blocks)
+        linears = 0 if weight_quant == "none" else (
+            steps * (10 * mcfg.depth + 3 * mcfg.dual_attention_blocks + 6) + 1)
+        want = {"flash_sdpa": attn, "quant_matmul": linears, "quantize_rows": linears}
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"tiny SD3 pipeline launches {launches}, expected {want}")
+    if not np.isfinite(got).all() or rel > limit:
+        raise AssertionError(f"tiny SD3 pipeline ({weight_quant}, {fields}) bf16/card vs "
+                             f"fp32/cpu: {result}")
+    return result
+
+
 def stepcache_graph_check():
     """The step cache on one card at the tiny SDXL size: interval 2, depth 1,
     warmup 1, 6 DDIM steps (2 synchronous, then shallow, full, shallow,
@@ -1457,12 +1657,19 @@ def stepcache_graph_check():
 
 def model_configs(model):
     """(denoiser config, VAE config, text encoder configs) of a model family
-    at its published widths: SDXL-base, SD 1.5, SD 2.1 or PixArt-α (the
-    DiT-XL/2 and T5-v1.1-XXL)."""
-    from distrifuser_tpu_torch.models import clip, dit, t5, unet, vae
+    at its published widths: SDXL-base, SD 1.5, SD 2.1, PixArt-α (the
+    DiT-XL/2 and T5-v1.1-XXL) or SD3-medium (the MMDiT, the SD3 VAE from its
+    published config.json, CLIP-L, OpenCLIP-bigG and T5-v1.1-XXL)."""
+    import dataclasses
+
+    from distrifuser_tpu_torch.models import clip, dit, mmdit, t5, unet, vae
 
     if model == "pixart":
         return dit.pixart_config(), vae.sd_vae_config(), [t5.t5_v1_1_xxl_config()]
+    if model == "sd3":  # CLIP-L with its 768 projection, bigG, T5-XXL
+        return (mmdit.sd3_config(), vae.vae_config_from_json(SD3_VAE_JSON),
+                [dataclasses.replace(clip.clip_vit_l_config(), projection_dim=768),
+                 clip.open_clip_bigg_config(), t5.t5_v1_1_xxl_config()])
     if model == "sd15":
         return unet.sd15_config(), vae.sd_vae_config(), [clip.clip_vit_l_config()]
     if model == "sd21":
@@ -1474,13 +1681,13 @@ def model_configs(model):
 def build_trees(model="sdxl", t5_layers=None):
     """Full-width configs of ``model`` and seeded random bf16 parameter
     trees on this rank's card: (denoiser config, denoiser tree, vae config,
-    vae tree, text configs, text trees); PixArt's T5 cut to ``t5_layers``
-    layers where given (full width)."""
+    vae tree, text configs, text trees); PixArt's and SD3's T5 cut to
+    ``t5_layers`` layers where given (full width)."""
     import dataclasses
 
     import torch
 
-    from distrifuser_tpu_torch.models import clip, dit, t5, unet, vae
+    from distrifuser_tpu_torch.models import clip, dit, mmdit, t5, unet, vae
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     ucfg, vcfg, tcfgs = model_configs(model)
@@ -1490,6 +1697,12 @@ def build_trees(model="sdxl", t5_layers=None):
         return (ucfg, dit.init_dit_params(gen, ucfg, dtype), vcfg,
                 vae.init_vae_params(gen, vcfg, dtype), [tcfg],
                 [t5.init_t5_params(gen, tcfg, dtype)])
+    if model == "sd3":
+        tcfg = dataclasses.replace(tcfgs[2], num_layers=t5_layers or tcfgs[2].num_layers)
+        return (ucfg, mmdit.init_mmdit_params(gen, ucfg, dtype), vcfg,
+                vae.init_vae_params(gen, vcfg, dtype), [*tcfgs[:2], tcfg],
+                [clip.init_clip_params(gen, tc, dtype) for tc in tcfgs[:2]]
+                + [t5.init_t5_params(gen, tcfg, dtype)])
     return (ucfg, unet.init_unet_params(gen, ucfg, dtype), vcfg,
             vae.init_vae_params(gen, vcfg, dtype), tcfgs,
             [clip.init_clip_params(gen, tc, dtype) for tc in tcfgs])
@@ -1498,14 +1711,15 @@ def build_trees(model="sdxl", t5_layers=None):
 def build_pipeline(trees, model="sdxl", scheduler="ddim", **quant):
     """The pipeline of ``model`` (DistriSDXLPipeline at 1024x1024,
     DistriSDPipeline at 512x512 for SD 1.5 and 768x768 for SD 2.1, with
-    v-prediction, DistriPixArtPipeline at 1024x1024 with DPM-solver) on this
+    v-prediction, DistriPixArtPipeline at 1024x1024 with DPM-solver,
+    DistriSD3Pipeline at 1024x1024 with flow-euler and 77 T5 tokens) on this
     rank's card (bf16) from ``trees``, with the
     ``quant`` config fields (weight quantization at load time, sync mode,
     warmup); returns (pipeline, seconds to build)."""
     import torch
 
-    from distrifuser_tpu_torch import (DistriConfig, DistriPixArtPipeline, DistriSDPipeline,
-                                       DistriSDXLPipeline)
+    from distrifuser_tpu_torch import (DistriConfig, DistriPixArtPipeline, DistriSD3Pipeline,
+                                       DistriSDPipeline, DistriSDXLPipeline)
     from distrifuser_tpu_torch.schedulers import get_scheduler
 
     t_init = time.perf_counter()
@@ -1516,6 +1730,13 @@ def build_pipeline(trees, model="sdxl", scheduler="ddim", **quant):
         pipe = DistriPixArtPipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p,
                                                 t5_config=tcfgs[0], t5_params=text_p[0],
                                                 scheduler="dpm-solver")
+        torch.cuda.synchronize()
+        return pipe, time.perf_counter() - t_init
+    if model == "sd3":
+        pipe = DistriSD3Pipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p, tcfgs[:2],
+                                             text_p[:2], t5_config=tcfgs[2],
+                                             t5_params=text_p[2], scheduler="flow-euler",
+                                             max_t5_tokens=SD3_T5_TOKENS)
         torch.cuda.synchronize()
         return pipe, time.perf_counter() - t_init
     cls = DistriSDXLPipeline if model == "sdxl" else DistriSDPipeline
@@ -1529,7 +1750,9 @@ def build_pipeline(trees, model="sdxl", scheduler="ddim", **quant):
 
 MODEL_NAMES = {"sdxl": "SDXL-base widths", "sd15": "SD 1.5 widths",
                "sd21": "SD 2.1 widths (v-prediction)",
-               "pixart": "PixArt-α widths (DiT-XL/2, T5-v1.1-XXL, SD VAE)"}
+               "pixart": "PixArt-α widths (DiT-XL/2, T5-v1.1-XXL, SD VAE)",
+               "sd3": "SD3-medium widths (MMDiT, CLIP-L, OpenCLIP-bigG, T5-v1.1-XXL, "
+                      "SD3 VAE)"}
 
 
 def reset_counts():
@@ -1755,8 +1978,6 @@ def pixart_phase():
     lines and returns (eager line, graphed line)."""
     import torch
 
-    from distrifuser_tpu_torch.parallel import graphs
-
     t0 = time.perf_counter()
     trees = build_trees("pixart")
     trees_s = time.perf_counter() - t0
@@ -1766,8 +1987,8 @@ def pixart_phase():
         pipe, init_s + trees_s, "pixart",
         {"flash_sdpa": per_call + 1, "quant_matmul": 0, "quantize_rows": 0},
         steps=PIXART_STEPS, model="pixart")
-    count = lambda tree: sum(t.numel() for t in graphs._leaves(tree))  # noqa: E731
-    params = {"dit": count(trees[1]), "t5": count(trees[5][0]), "vae": count(trees[3])}
+    params = {"dit": _param_count(trees[1]), "t5": _param_count(trees[5][0]),
+              "vae": _param_count(trees[3])}
     for line in (eager, graphed):
         line.update({"parameters": params, "t5_layers": trees[4][0].num_layers,
                      "dit_depth": trees[0].depth, "head_dim": trees[0].head_dim})
@@ -1783,6 +2004,103 @@ def pixart_phase():
     gc.collect()
     torch.cuda.empty_cache()
     return eager, graphed
+
+
+def _param_count(tree):
+    from distrifuser_tpu_torch.parallel import graphs
+
+    return sum(t.numel() for t in graphs._leaves(tree))
+
+
+def sd3_phase():
+    """SD3-medium at 1024x1024 on one card: the MMDiT of ``sd3_config()``
+    (24 joint blocks of 1536, 24 heads of d = 64, about 2.0 B parameters),
+    CLIP-L, OpenCLIP-bigG and T5-v1.1-XXL whole, the SD3 VAE, seeded random
+    bf16 weights; one prompt, 4 flow-euler steps to an image, eagerly and
+    then under CUDA graphs (``graphed_runs``), which must agree bit for bit;
+    the flash kernel 4 x 24 + 1 times a call (the eager call's launches by
+    head dim: d = 64 96 times, the whole decode's d = 512 once).  Prints the
+    lines and returns (eager line, graphed line)."""
+    import torch
+
+    t0 = time.perf_counter()
+    trees = build_trees("sd3")
+    trees_s = time.perf_counter() - t0
+    pipe, init_s = build_pipeline(trees, "sd3")
+    per_call = SD3_STEPS * trees[0].depth
+    eager, graphed, compare, _ = graphed_runs(
+        pipe, init_s + trees_s, "sd3",
+        {"flash_sdpa": per_call + 1, "quant_matmul": 0, "quantize_rows": 0},
+        steps=SD3_STEPS, model="sd3")
+    params = {"mmdit": _param_count(trees[1]), "clip_l": _param_count(trees[5][0]),
+              "clip_bigg": _param_count(trees[5][1]), "t5": _param_count(trees[5][2]),
+              "vae": _param_count(trees[3])}
+    for line in (eager, graphed):
+        line.update({"parameters": params, "t5_layers": trees[4][2].num_layers,
+                     "mmdit_depth": trees[0].depth, "head_dim": trees[0].head_dim,
+                     "joint_tokens": SD3_CONTEXT + trees[0].num_tokens,
+                     "vae_shift_factor": trees[2].shift_factor})
+        print(json.dumps(line), flush=True)
+    print(json.dumps(compare), flush=True)
+    if eager["flash_sdpa_launches_by_head_dim"] != {64: per_call, 512: 1}:
+        raise AssertionError(f"sd3: flash launches by head dim "
+                             f"{eager['flash_sdpa_launches_by_head_dim']}")
+    if not (compare["latent_bit_identical"] and compare["image_bit_identical"]):
+        raise AssertionError(f"sd3: the graphed call differs from the eager one "
+                             f"(latent rel L2 {compare['latent_rel_l2']})")
+    del pipe, trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    return eager, graphed
+
+
+def sd35m_phase():
+    """One evaluation of the SD3.5-medium transformer geometry at 1024x1024
+    (``mmdit_config_from_json`` of its published config.json: 24 blocks of
+    24 heads of 64, q/k RMSNorm, dual attention in blocks 0-12, the
+    384-token position grid), seeded random bf16 weights, CFG folded (B =
+    2), 154 context tokens, the first flow-euler timestep: a finite
+    velocity, with the flash kernel 24 + 13 times (d = 64), counted from 0
+    just before the measured call (one untimed call first).  Returns its
+    line."""
+    import torch
+
+    from distrifuser_tpu_torch.models import mmdit
+    from distrifuser_tpu_torch.ops import flash_attention as fa
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+
+    mcfg = mmdit.mmdit_config_from_json(SD35M_JSON)
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    params = mmdit.init_mmdit_params(gen, mcfg, torch.bfloat16)
+    x = torch.randn(2, mcfg.sample_size, mcfg.sample_size, mcfg.in_channels, device="cuda",
+                    generator=gen)
+    enc = torch.randn(2, SD3_CONTEXT, mcfg.joint_attention_dim, device="cuda", generator=gen)
+    pooled = torch.randn(2, mcfg.pooled_projection_dim, device="cuda", generator=gen)
+    t = get_scheduler("flow-euler").set_timesteps(SD3_STEPS).timesteps()[0].cuda()
+    launches = mcfg.depth + mcfg.dual_attention_blocks
+
+    def evaluate():
+        with torch.inference_mode():
+            return mmdit.mmdit_forward(params, mcfg, x, t, enc, pooled)
+
+    evaluate()
+    torch.cuda.reset_peak_memory_stats()
+    out, secs, counts = counted_call(evaluate, "sd35m", launches)
+    by_head_dim = dict(fa.flash_sdpa.launches_by_head_dim)
+    line = {"phase": "sd35m_geometry", "config": SD35M_JSON,
+            "dual_attention_blocks": mcfg.dual_attention_blocks, "qk_norm": mcfg.qk_norm,
+            "shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
+            "ms": secs * 1e3, "flash_sdpa_launches": counts["flash_sdpa"],
+            "flash_sdpa_launches_by_head_dim": by_head_dim,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "parameters": _param_count(params)}
+    print(json.dumps(line), flush=True)
+    if not line["finite"] or by_head_dim != {64: launches}:
+        raise AssertionError(f"sd35m geometry: {line}")
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
 
 
 def img2img_handoff_phase(pipe, trees):
@@ -2106,16 +2424,20 @@ def _free_port():
 
 def _refuses_graphs(model):
     """Is ``use_cuda_graph=True`` refused when a runner of ``model`` (the
-    UNet's or the DiT's) is built on ranks that share the card?"""
+    UNet's, the DiT's or the MMDiT's) is built on ranks that share the
+    card?"""
     from distrifuser_tpu_torch import DistriConfig
     from distrifuser_tpu_torch.parallel.dit_sp import DiTDenoiseRunner
+    from distrifuser_tpu_torch.parallel.mmdit_sp import MMDiTDenoiseRunner
     from distrifuser_tpu_torch.parallel.runner import DenoiseRunner
     from distrifuser_tpu_torch.schedulers import get_scheduler
 
     cfg = DistriConfig(height=SIZES[model], width=SIZES[model], warmup_steps=PATCH_WARMUP)
-    runner = DiTDenoiseRunner if model == "pixart" else DenoiseRunner
+    runner = {"pixart": DiTDenoiseRunner, "sd3": MMDiTDenoiseRunner}.get(model,
+                                                                         DenoiseRunner)
     try:
-        runner(cfg, model_configs(model)[0], {}, get_scheduler("ddim"))
+        runner(cfg, model_configs(model)[0], {},
+               get_scheduler("flow-euler" if model == "sd3" else "ddim"))
     except ValueError as e:
         return "share a card" in str(e)
     return False
@@ -2205,8 +2527,8 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
                     "warmup_steps": cfg.warmup_steps, "steps_by_phase": phases,
                     "card_used_bytes_all_ranks": total - free,
                 })
-                if label in DIT_RUNS:
-                    line.update(dit_line(pipe, line, steps, trees[model]))
+                if label in DIT_RUNS + SD3_RUNS:
+                    line.update(transformer_line(pipe, line, steps, trees[model]))
                 else:
                     line["comm_volume_elements"] = pipe.runner.comm_volume_report()
                 if label in KNOB_RUNS or label == "patch":
@@ -2404,17 +2726,18 @@ def knob_line(pipe, line, latent, label, out_dir, rank, steps):
     return extra
 
 
-def dit_line(pipe, line, steps, trees):
-    """What a PixArt multi-rank run adds to its pipeline line: the DiT
-    runner's ``comm_report`` (elements and bytes of one step), its
-    ``attn_impl``, the measured step times by phase and the model's cut (the
-    T5 at ``SPAWN_T5_LAYERS`` layers of full width, the DiT whole)."""
+def transformer_line(pipe, line, steps, trees):
+    """What a PixArt or SD3 multi-rank run adds to its pipeline line: the
+    DiT or MMDiT runner's ``comm_report`` (elements and bytes of one step),
+    its ``attn_impl``, the measured step times by phase, ``comm_plan`` and
+    the model's cut (the T5 at ``SPAWN_T5_LAYERS`` layers of full width, the
+    transformer whole)."""
     phases = pipe.runner._phases(steps)
-    return {"comm_report": pipe.runner.comm_report(1),
+    return {"comm_report": pipe.runner.comm_report(1), "comm_plan": pipe.comm_plan(steps),
             "attn_impl": pipe.distri_config.attn_impl,
             "step_ms_by_phase": step_ms_by_phase(phases, line),
-            "evaluations": phases, "t5_layers": trees[4][0].num_layers,
-            "dit_depth": trees[0].depth}
+            "evaluations": phases, "t5_layers": trees[4][-1].num_layers,
+            "transformer_depth": trees[0].depth}
 
 
 def _multi_rank_img2img(pipe, name, model):
@@ -2505,7 +2828,7 @@ def patch_phase(dense_latent, out_dir, profile=False, runs=None):
         spawns[0][1].append("tensor")
     else:
         spawns.append((tp_world, ["tensor"]))
-    spawns[0][1].extend(["sd15_patch", "dp", *DIT_RUNS, "decode_sp"])
+    spawns[0][1].extend(["sd15_patch", "dp", *DIT_RUNS, *SD3_RUNS, "decode_sp"])
     if runs:
         spawns = [(PATCH_WORLD, list(runs))]
     print(json.dumps({"phase": "patch_transport", "world": PATCH_WORLD, **transport,
@@ -2902,7 +3225,7 @@ def main(argv) -> int:
     if args.profile and not args.patch_only:
         quants = [args.weight_quant] if args.weight_quant else ["none", "int8", "fp8"]
         profile_phase(args.out_dir, [("sdxl", q) for q in quants]
-                      + [("sd15", "none"), ("pixart", "none")])
+                      + [("sd15", "none"), ("pixart", "none"), ("sd3", "none")])
         return 0
     shapes = attention_shapes(ucfg, vcfg, 1024, 1024, unet_evals=steps)
     expected_flash = steps * unet.attention_calls_per_forward(ucfg) + 1
@@ -2944,6 +3267,9 @@ def main(argv) -> int:
     size21 = SIZES["sd21"]
     shapes21 = attention_shapes(ucfg21, vcfg21, size21, size21, steps, suffix=SD21)
     assert sum(s[-1] for s in shapes21) == expected_flash_launches("sd21"), shapes21
+    # SD3 ("@sd3" rows): its dense call, one "sd3" rank, SD3.5-medium's dual
+    # attention; the "sd3_ring" rank's log-sum-exp chunks
+    shapes3, hops3 = sd3_attention_shapes(steps)
 
     def rows_of(rows, prefixes, fam):
         return [r for r in rows if r["shape"].startswith(prefixes)
@@ -2964,7 +3290,8 @@ def main(argv) -> int:
                     "sd15_patch": "patch_", "dp": "dp_"}
         out = {}
         for label, lines in multi_runs.items():
-            if label == "decode_sp" or label in DIT_RUNS:  # the d = 512 and 72 entries'
+            # the d = 512 and 72 entries', and the SD3 runs' (``sd3_entries``)
+            if label == "decode_sp" or label in DIT_RUNS + SD3_RUNS:
                 continue
             if label in KNOB_RUNS:
                 out[label] = knob_entry(rows, label, lines)
@@ -3050,6 +3377,45 @@ def main(argv) -> int:
                                 "log-sum-exp")
         return [plain, lse]
 
+    def sd3_entries(rows, multi_runs, sd3=None, sd35m=None):
+        """SD3's d = 64 launches as paths of the flash entry: the dense
+        1024x1024 call of the main path (``sd3``: its graphed line; the
+        decode's d = 512 launch at the SD3 VAE's mid attention), one
+        evaluation of the SD3.5-medium geometry (``sd35m``), one rank of the
+        "sd3" run (gather, CFG 2 x sp 2; its decode's d = 512 ring); and the
+        "sd3_ring" rank's log-sum-exp chunks, a path of the log-sum-exp
+        entry."""
+        decode = rows_of(rows, "vae_ring_1024_sp2", "sdxl")
+        gather, ring = multi_runs["sd3"][-1], multi_runs["sd3_ring"][-1]
+        plain = {"sd3_patch": path_entry(
+            rows_of(rows, "patch_mmdit_joint", "sd3") + decode,
+            [("patch_mmdit_joint", 1), ("vae_ring_1024_sp2", 1)],
+            gather["flash_sdpa_launches"],
+            work="one rank of the sd3 run (gather layout) at CFG 2 x sp 2, 4-step "
+                 "1024x1024 SD3-medium call: the joint attention at 154 + 2048 queries "
+                 "against 4250 keys, and the decode's ring")}
+        if sd3 is not None:
+            plain["sd3"] = path_entry(
+                rows_of(rows, ("mmdit_joint", "vae_mid"), "sd3"),
+                [("mmdit_joint", 1), ("vae_mid", 1)], sd3["flash_sdpa_launches"],
+                work="one graphed 4-step 1024x1024 SD3-medium call: the joint attention "
+                     "(2, 4250, 4250, 24, 64) in 24 blocks a step and the whole decode")
+        if sd35m is not None:
+            plain["sd35m"] = path_entry(
+                rows_of(rows, ("mmdit_joint", "mmdit35m_dual"), "sd3"),
+                [("mmdit_joint", 1 / SD3_STEPS), ("mmdit35m_dual", 1)],
+                sd35m["flash_sdpa_launches"],
+                work="one evaluation of the SD3.5-medium geometry at 1024x1024: 24 joint "
+                     "attentions and 13 image-only dual attentions (2, 4096, 4096, 24, 64)")
+        lse = path_entry(
+            rows_of(rows, "sd3_ring", "sd3") + decode,
+            [("sd3_ring", 1), ("vae_ring_1024_sp2", 1)], ring["flash_sdpa_lse_launches"],
+            work="one rank of the sd3_ring run at CFG 2 x sp 2, 4-step 1024x1024 "
+                 "SD3-medium call: per block and step the own chunk and one hop (154 + "
+                 "2048 queries against 2048 keys) and the static context block (against "
+                 "154 keys), and the decode's ring")
+        return plain, {"sd3_ring": lse}
+
     def knob_entry(rows, label, lines):
         """The flash kernel in one call of a comm-knob run on one rank: the
         ring's chunks at the log-sum-exp rows, every other attention at the
@@ -3122,8 +3488,9 @@ def main(argv) -> int:
               flush=True)
         return finish(None)
     if args.patch_only:
-        rows = (kernel_phase(multi + vae_rows + list(PIXART_SHAPES[1:2]), spills)
-                + lse_kernel_phase(spills, PIXART_RING_HOPS))
+        rows = (kernel_phase(multi + vae_rows + list(PIXART_SHAPES[1:2]) + shapes3[1:2],
+                             spills)
+                + lse_kernel_phase(spills, PIXART_RING_HOPS + tuple(hops3)))
         refresh_rows = refresh_codec_phase(refresh_codec_rows(ucfg, 1024, 1024))
         seconds["flash_kernel_multi_rank_shapes"], t0 = (time.perf_counter() - t0,
                                                          time.perf_counter())
@@ -3134,7 +3501,9 @@ def main(argv) -> int:
         subs = multi_entries(rows, multi_runs)
         lse, refresh, dequant = knob_kernels(rows_of(rows, "ring_hop", "sdxl"), refresh_rows,
                                              multi_runs)
-        kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs}, lse,
+        sd3_plain, sd3_lse = sd3_entries(rows, multi_runs)
+        kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs, **sd3_plain},
+                   {**lse, **sd3_lse},
                    d512_entry(rows, multi_runs),
                    {**refresh.pop("compress_pcpp"), **QUANT_ENTRY, **refresh}, dequant,
                    *instance_entries(rows_of(rows, "patch_", "sd15"),
@@ -3145,8 +3514,8 @@ def main(argv) -> int:
                    *d72_entries(rows, multi_runs)]
         return finish(kernels)
     rows = kernel_phase(shapes + shapes15 + shapes21 + multi + enc_rows + decode_rows
-                        + list(PIXART_SHAPES), spills) + lse_kernel_phase(spills,
-                                                                           PIXART_RING_HOPS)
+                        + list(PIXART_SHAPES) + shapes3, spills) + lse_kernel_phase(
+                            spills, PIXART_RING_HOPS + tuple(hops3))
     mrows = rows
     rows = rows_of(mrows, ("unet", "vae_mid"), "sdxl")
     rows15 = rows_of(mrows, ("unet", "vae_mid"), "sd15")
@@ -3156,13 +3525,16 @@ def main(argv) -> int:
     per_forward15, per_call15 = unet.linear_calls(ucfg15)
     expected_quant15 = steps * per_forward15 + per_call15
     assert sum(s[-1] for s in qshapes15) == expected_quant15, (qshapes15, expected_quant15)
-    qrows = quant_kernel_phase(qshapes + qshapes15 + pixart_quant_shapes())
+    qrows = quant_kernel_phase(qshapes + qshapes15 + pixart_quant_shapes()
+                               + sd3_quant_shapes())
     refresh_rows = refresh_codec_phase(refresh_codec_rows(ucfg, 1024, 1024))
     seconds["quant_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     for weight_quant in ("none", "int8", "fp8"):
         print(json.dumps(tiny_check(weight_quant)), flush=True)
     print(json.dumps(tiny_check(model="sd15", scheduler="euler")), flush=True)
     print(json.dumps(tiny_check(model="pixart", scheduler="dpm-solver")), flush=True)
+    for model, weight_quant in (("sd3", "none"), ("sd3", "int8"), ("sd35m", "none")):
+        print(json.dumps(tiny_check(weight_quant, model=model)), flush=True)
     print(json.dumps(stepcache_graph_check()), flush=True)
     seconds["tiny_checks"], t0 = time.perf_counter() - t0, time.perf_counter()
     trees = build_trees()
@@ -3176,6 +3548,9 @@ def main(argv) -> int:
     seconds["sd_pipelines"], t0 = time.perf_counter() - t0, time.perf_counter()
     pixart = pixart_phase()
     seconds["pixart"], t0 = time.perf_counter() - t0, time.perf_counter()
+    sd3 = sd3_phase()
+    sd35m = sd35m_phase()
+    seconds["sd3_and_sd35m_geometry"], t0 = time.perf_counter() - t0, time.perf_counter()
     cli = cli_phase()
     seconds["cli"], t0 = time.perf_counter() - t0, time.perf_counter()
     multi_runs = patch_phase(dense_latent, os.path.join(args.out_dir, "multi"))
@@ -3221,6 +3596,7 @@ def main(argv) -> int:
                 "holds the same for fp8")
     lse, refresh, dequant = knob_kernels(rows_of(mrows, "ring_hop", "sdxl"), refresh_rows,
                                          multi_runs)
+    sd3_plain, sd3_lse = sd3_entries(mrows, multi_runs, sd3[1], sd35m)
     kernels = [
         kernel_entry(rows, runs["dense"]["flash_sdpa_launches"], **FLASH_ENTRY,
                      work="all attention of one 4-step 1024x1024 SDXL pipeline call "
@@ -3233,7 +3609,7 @@ def main(argv) -> int:
                      **multi_entries(mrows, multi_runs),
                      sd15=kernel_entry(rows15, sd_runs["sd15"]["flash_sdpa_launches"]),
                      sd21=kernel_entry(rows21, sd_runs["sd21"]["flash_sdpa_launches"]),
-                     **paths),
+                     **paths, **sd3_plain),
         *instance_entries(rows15, sd_runs["sd15_eager"]["flash_sdpa_launches_by_head_dim"],
                           "all its attention in one 4-step 512x512 SD 1.5 call (launches "
                           "counted in the eager call; the graphed one launches as many)"),
@@ -3271,7 +3647,7 @@ def main(argv) -> int:
                         for mode in by_mode15},
                      **refresh),
         dequant,
-        lse,
+        {**lse, **sd3_lse},
         d512_entry(mrows, multi_runs),
         *d72_entries(mrows, multi_runs, pixart[0]),
     ]

@@ -3,9 +3,11 @@
 A second package beside the JAX reference: the same module names, PyTorch
 inside, and every Pallas TPU kernel on the ported path replaced by a kernel
 written by hand for sm_90a (``csrc/``).  It runs text-to-image for SDXL
-(``DistriSDXLPipeline``), SD 1.x / 2.x (``DistriSDPipeline``) and PixArt-α
+(``DistriSDXLPipeline``), SD 1.x / 2.x (``DistriSDPipeline``), PixArt-α
 (``DistriPixArtPipeline``: T5 -> ``DiTDenoiseRunner`` over the DiT of
-models/dit.py, "gather" or "ring" layout -> VAE) on one card or under
+models/dit.py, "gather" or "ring" layout -> VAE) and SD3
+(``DistriSD3Pipeline``: CLIP-L, bigG and T5 -> ``MMDiTDenoiseRunner`` over
+the MMDiT of models/mmdit.py, rectified-flow Euler -> VAE) on one card or under
 DistriFusion's displaced patch parallelism on n ranks; for the UNet:
 pipeline -> ``DenoiseRunner`` (DDIM, Euler or DPM++ 2M) -> ``unet_forward``
 (dense, or ``PatchDispatch`` over torch.distributed process groups) -> VAE
@@ -20,9 +22,9 @@ run on the card of the rank's local rank unless given ``device="cpu"``;
 kernels are built with nvcc at first use, never at import.
 """
 
-from .pipelines import (DistriPixArtPipeline, DistriSDPipeline, DistriSDXLPipeline,
-                        PipelineOutput, SimpleTokenizer)
+from .pipelines import (DistriPixArtPipeline, DistriSD3Pipeline, DistriSDPipeline,
+                        DistriSDXLPipeline, PipelineOutput, SimpleTokenizer)
 from .utils.config import DistriConfig
 
-__all__ = ["DistriConfig", "DistriPixArtPipeline", "DistriSDPipeline",
-           "DistriSDXLPipeline", "PipelineOutput", "SimpleTokenizer"]
+__all__ = ["DistriConfig", "DistriPixArtPipeline", "DistriSD3Pipeline",
+           "DistriSDPipeline", "DistriSDXLPipeline", "PipelineOutput", "SimpleTokenizer"]

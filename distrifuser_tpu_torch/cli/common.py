@@ -3,7 +3,8 @@ built from it, the pipeline loaders, img2img input and image output.
 
 Counterpart of scripts/common.py (``add_distri_args``, ``config_from_args``,
 ``img2img_kwargs``, ``save_images``, ``load_sdxl_pipeline``,
-``load_sd_pipeline``, ``FAMILY_DEFAULTS``, ``is_main_process``), with one
+``load_sd_pipeline``, ``load_sd3_pipeline``, ``FAMILY_DEFAULTS``,
+``check_family_scheduler``, ``is_main_process``), with one
 flag more, ``--device`` (default: this rank's CUDA card; ``cpu`` runs the
 plain path).  Every other flag does what the JAX script's flag does or is
 refused, before any model loads, with the ROADMAP item that brings it:
@@ -13,8 +14,9 @@ refused, before any model loads, with the ROADMAP item that brings it:
   ``DistriConfig``, which validates them as the JAX package does;
   ``--dp_degree`` too; ``--attn_impl`` ulysses or usp and a float32
   ``--dtype`` on the card go through ``DistriConfig``'s own refusals,
-  ``--parallelism pipefusion`` through the runner's, ``--scheduler
-  flow-euler`` through ``get_scheduler``'s;
+  ``--parallelism pipefusion`` through the runner's, a sampler of the
+  other family (``--scheduler flow-euler`` on the UNet, anything else on
+  SD3) through ``check_family_scheduler`` and the pipelines' own check;
 * ``--ulysses_degree`` and ``--pipe_patches`` belong to the DiT layouts
   (usp attention, ROADMAP queue 1 item 13c; the PipeFusion stage ring,
   item 13d);
@@ -36,10 +38,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-# per-family protocol defaults: SD runs the reference's sd_example point
+# per-family protocol defaults: SD runs the reference's sd_example point,
+# SD3 its published flow-euler / guidance 7 / 28-step point
 FAMILY_DEFAULTS = {
     "sdxl": {},
     "sd": {"image_size": [512, 512], "guidance_scale": 7.5, "sync_mode": "stale_gn"},
+    "sd3": {"scheduler": "flow-euler", "guidance_scale": 7.0, "num_inference_steps": 28},
 }
 
 WEIGHTLESS_WARNING = (
@@ -67,7 +71,8 @@ def add_distri_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--guidance_scale", type=float, default=5.0)
     parser.add_argument("--scheduler", type=str, default="ddim",
                         choices=["ddim", "euler", "dpm-solver", "flow-euler"],
-                        help="flow-euler (SD3) is refused: ROADMAP queue 1 item 14")
+                        help="flow-euler is the SD3 family's rectified-flow sampler, "
+                        "and the only one it takes")
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--no_split_batch", action="store_true",
                         help="disable CFG batch splitting")
@@ -231,6 +236,49 @@ def save_images(output, args) -> None:
         print(f"WARNING: {WEIGHTLESS_WARNING} (marker: {warn_path})")
 
 
+def check_family_scheduler(family: str, scheduler: str, error) -> None:
+    """Refuse a sampler that does not fit the family before any model
+    loads (the pipelines check too): SD3 takes flow-euler only."""
+    if family == "sd3" and scheduler != "flow-euler":
+        error("SD3 is a rectified-flow model: only --scheduler flow-euler applies")
+
+
+def load_sd3_pipeline(args, cfg, error):
+    """The SD3 pipeline from ``--model_path`` or, with ``--random_weights``,
+    seeded random trees on the config's device: the tiny test stack, or
+    SD3-medium's widths (the MMDiT at the config's latent size, CLIP-L with
+    its 768 projection, bigG, the SD3 VAE; no T5, as the JAX script's)."""
+    import dataclasses
+
+    from ..models import clip, mmdit, vae
+    from ..pipelines import DistriSD3Pipeline
+
+    try:
+        if args.model_path:
+            return DistriSD3Pipeline.from_pretrained(cfg, args.model_path,
+                                                     scheduler=args.scheduler)
+        if not args.random_weights:
+            error("pass --model_path <local diffusers snapshot> or --random_weights")
+        if args.tiny_model:
+            mcfg, vcfg = mmdit.tiny_mmdit_config(), vae.tiny_vae_config()
+            tcfgs = [clip.tiny_clip_config(hidden=16),
+                     clip.CLIPTextConfig(vocab_size=1000, hidden_size=16,
+                                         num_hidden_layers=2, num_attention_heads=4,
+                                         intermediate_size=32, projection_dim=8)]
+        else:
+            mcfg, vcfg = mmdit.sd3_config(cfg.latent_height), vae.sd3_vae_config()
+            tcfgs = [dataclasses.replace(clip.clip_vit_l_config(), projection_dim=768),
+                     clip.open_clip_bigg_config()]
+        gen = torch.Generator(device=cfg.device).manual_seed(0)
+        return DistriSD3Pipeline.from_params(
+            cfg, mcfg, mmdit.init_mmdit_params(gen, mcfg, cfg.dtype), vcfg,
+            vae.init_vae_params(gen, vcfg, cfg.dtype), tcfgs,
+            [clip.init_clip_params(gen, tc, cfg.dtype) for tc in tcfgs],
+            scheduler=args.scheduler)
+    except (ValueError, NotImplementedError) as e:
+        error(str(e))
+
+
 def _configs(family: str, tiny: bool):
     """(UNet, VAE, text encoder configs) of a family's random-weight run."""
     from ..models import clip, unet, vae
@@ -250,12 +298,15 @@ def _configs(family: str, tiny: bool):
 
 
 def load_pipeline(family: str, args, cfg, error):
-    """The family's pipeline ("sdxl" or "sd") from ``--model_path`` or, with
-    ``--random_weights``, seeded random trees on the config's device."""
+    """The family's pipeline ("sdxl", "sd" or "sd3") from ``--model_path``
+    or, with ``--random_weights``, seeded random trees on the config's
+    device."""
     from ..models import clip, unet, vae
     from ..pipelines import DistriSDPipeline, DistriSDXLPipeline
     from ..schedulers import get_scheduler
 
+    if family == "sd3":
+        return load_sd3_pipeline(args, cfg, error)
     cls = DistriSDXLPipeline if family == "sdxl" else DistriSDPipeline
     try:
         get_scheduler(args.scheduler)
@@ -281,13 +332,21 @@ def generation_kwargs(args, i2i) -> dict:
                 num_images_per_prompt=args.num_images_per_prompt, **i2i)
 
 
-def run_example(family: str, argv=None) -> int:
-    """One generation of ``family`` from the command line, saved on rank 0
-    (the example scripts)."""
+def family_parser(family: str, **defaults) -> argparse.ArgumentParser:
+    """The example scripts' flags with ``family``'s defaults (and
+    ``defaults``)."""
     parser = argparse.ArgumentParser()
     add_distri_args(parser)
-    parser.set_defaults(**FAMILY_DEFAULTS[family])
+    parser.set_defaults(**FAMILY_DEFAULTS[family], **defaults)
+    return parser
+
+
+def run_example(family: str, argv=None, parser=None) -> int:
+    """One generation of ``family`` from the command line, saved on rank 0
+    (the example scripts); ``parser`` defaults to ``family_parser``."""
+    parser = parser or family_parser(family)
     args = parser.parse_args(argv)
+    check_family_scheduler(family, args.scheduler, parser.error)
     i2i = img2img_kwargs(args)  # a bad path fails before the model loads
     init_distributed(args.device)
     try:

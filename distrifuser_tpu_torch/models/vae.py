@@ -67,6 +67,13 @@ def sd_vae_config() -> VAEConfig:
     return VAEConfig(scaling_factor=0.18215)
 
 
+def sd3_vae_config() -> VAEConfig:
+    """The SD3 VAE (stabilityai/stable-diffusion-3-medium's vae/config.json):
+    SDXL's topology with a 16-channel latent, scaling 1.5305 and the latent
+    shift 0.0609 that the SD3 pipeline adds back at decode."""
+    return VAEConfig(latent_channels=16, scaling_factor=1.5305, shift_factor=0.0609)
+
+
 def vae_config_from_json(source) -> VAEConfig:
     """A VAEConfig from a diffusers `vae/config.json` (path or dict), with
     the snapshot's own scaling factor (0.18215 SD, 0.13025 SDXL) and

@@ -14,15 +14,16 @@ that differ are transposed on the way:
   from ``[kh, kw, O]`` to ``[O, kh, kw]``, a linear payload is held
   column-major, fp8 payloads are reinterpreted byte for byte.
 
-The DiT's ``blocks`` and T5's ``layers``, stacked on a leading axis in the
+The DiT's and the MMDiT's ``blocks``, the MMDiT's ``blocks_dual`` and T5's
+``layers``, stacked on a leading axis in the
 JAX tree, become lists of per-layer trees (a stacked quantized leaf splits
 into one ``QuantizedTensor`` a layer, the JAX package's per-layer scales).
 The leaves keep their dtype and land on the CPU; ``models.unet.cast_params``
 casts and moves a converted tree.
 
 ``convert_unet_state_dict``, ``convert_vae_state_dict``,
-``convert_clip_state_dict``, ``convert_t5_state_dict`` and
-``convert_pixart_state_dict`` are the counterparts of the JAX package's
+``convert_clip_state_dict``, ``convert_t5_state_dict``,
+``convert_pixart_state_dict`` and ``convert_mmdit_state_dict`` are the counterparts of the JAX package's
 converters of the same names: a diffusers or transformers state dict (the
 tensors ``native.safetensors`` reads) straight to the port's tree, equal
 to ``params_from_jax`` of the JAX converters' output.  Diffusers names are
@@ -86,8 +87,9 @@ def _quantized_from_jax(node) -> QuantizedTensor:
 
 
 # the keys under which the JAX package stacks uniform layers on a leading
-# axis (the DiT's blocks, T5's layers): the port holds them as lists
-_STACKED = frozenset({"blocks", "layers"})
+# axis (the DiT's and the MMDiT's blocks, the MMDiT's dual-attention
+# prefix, T5's layers): the port holds them as lists
+_STACKED = frozenset({"blocks", "blocks_dual", "layers"})
 
 
 class _JaxQuantizedSlice:
@@ -342,6 +344,121 @@ def convert_pixart_state_dict(sd, *, patch_size: int = 2, eps_channels: int = 4,
         k1 = f"adaln_single.emb.{name}.linear_1"
         if f"{k1}.weight" in sd:
             tree[name] = {"fc1": lin(k1), "fc2": lin(f"adaln_single.emb.{name}.linear_2")}
+    return _map_leaves(lambda t: _layout(t.to(dtype)), tree)
+
+
+def convert_mmdit_state_dict(sd, dtype=torch.float32):
+    """A diffusers SD3Transformer2DModel state dict as the port's MMDiT tree
+    (models/mmdit.py), mapped as the JAX converter maps it:
+
+    * ``pos_embed.proj`` (the ps x ps patch-embed conv) becomes the
+      ``proj_in`` linear over patchify's (p, q, c) token order; the fixed
+      ``pos_embed.pos_embed`` table is computed instead
+      (``pos_embed_cropped``);
+    * a block's q, k and v (``attn.to_{q,k,v}``, ``attn.add_{q,k,v}_proj``)
+      fuse into ``x_qkv`` / ``c_qkv`` [h, 3h];
+    * AdaLayerNormZero's 6 chunks are already (shift, scale, gate) x
+      (attention, MLP); AdaLayerNormContinuous's 2 (the last block's
+      ``norm1_context`` and ``norm_out``) are (scale, shift) and are swapped;
+    * the last block's context stream (``context_pre_only``: no context
+      queries, attention output or MLP) is zero-filled: the q third of
+      ``c_qkv``, ``c_out``, ``c_fc*`` and the gate and MLP chunks of
+      ``c_mod``, so the discarded context passes through unchanged; its
+      absent ``norm_added_q`` is ones;
+    * SD3.5-medium's dual attention (``attn2`` on a contiguous prefix of
+      blocks): AdaLayerNormZeroX's 9 chunks split into ``x_mod`` (the first
+      6) and ``blocks_dual``'s ``x_mod2`` (the last 3), ``attn2.to_{q,k,v}``
+      fuse into ``x2_qkv``."""
+    get = lambda k: sd[k]  # noqa: E731
+    lin = lambda key: _lin(sd, key, dtype)  # noqa: E731
+
+    def fused3(kq, kk, kv):
+        parts = [_lin(sd, k, dtype) for k in (kq, kk, kv)]
+        out = {"kernel": torch.cat([p["kernel"] for p in parts], dim=1)}
+        if "bias" in parts[0]:
+            out["bias"] = torch.cat([p["bias"] for p in parts])
+        return out
+
+    def swap_scale_shift(m):
+        """AdaLayerNormContinuous's (scale, shift) as (shift, scale)."""
+        w, b = m["kernel"], m["bias"]
+        h = w.shape[1] // 2
+        return {"kernel": torch.cat([w[:, h:], w[:, :h]], dim=1),
+                "bias": torch.cat([b[h:], b[:h]])}
+
+    def zero_lin(d_in, d_out):
+        return {"kernel": torch.zeros(d_in, d_out, dtype=dtype),
+                "bias": torch.zeros(d_out, dtype=dtype)}
+
+    n_blocks = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("transformer_blocks."))
+    dual_idx = [i for i in range(n_blocks) if f"transformer_blocks.{i}.attn2.to_q.weight" in sd]
+    if dual_idx != list(range(len(dual_idx))):
+        raise ValueError(f"dual-attention blocks at {dual_idx}: only the published "
+                         "contiguous-prefix layout is implemented")
+    blocks, blocks_dual = [], []
+    for i in range(n_blocks):
+        b = f"transformer_blocks.{i}"
+        hidden = get(f"{b}.attn.to_q.weight").shape[0]
+        if f"{b}.attn.to_add_out.weight" not in sd:  # context_pre_only
+            kv = fused3(f"{b}.attn.add_k_proj", f"{b}.attn.add_k_proj",
+                        f"{b}.attn.add_v_proj")
+            kv["kernel"][:, :hidden] = 0
+            kv["bias"][:hidden] = 0
+            cont = swap_scale_shift(lin(f"{b}.norm1_context.linear"))
+            zeros = zero_lin(hidden, 4 * hidden)  # the gate and the three MLP chunks
+            c_mod = {"kernel": torch.cat([cont["kernel"], zeros["kernel"]], dim=1),
+                     "bias": torch.cat([cont["bias"], zeros["bias"]])}
+            mlp = get(f"{b}.ff.net.0.proj.weight").shape[0]
+            context = {"c_qkv": kv, "c_mod": c_mod, "c_out": zero_lin(hidden, hidden),
+                       "c_fc1": zero_lin(hidden, mlp), "c_fc2": zero_lin(mlp, hidden)}
+        else:
+            context = {"c_qkv": fused3(f"{b}.attn.add_q_proj", f"{b}.attn.add_k_proj",
+                                       f"{b}.attn.add_v_proj"),
+                       "c_mod": lin(f"{b}.norm1_context.linear"),
+                       "c_out": lin(f"{b}.attn.to_add_out"),
+                       "c_fc1": lin(f"{b}.ff_context.net.0.proj"),
+                       "c_fc2": lin(f"{b}.ff_context.net.2")}
+        x_mod = lin(f"{b}.norm1.linear")
+        if i < len(dual_idx):
+            dual = {"x_mod2": {"kernel": x_mod["kernel"][:, 6 * hidden:],
+                               "bias": x_mod["bias"][6 * hidden:]},
+                    "x2_qkv": fused3(f"{b}.attn2.to_q", f"{b}.attn2.to_k",
+                                     f"{b}.attn2.to_v"),
+                    "x2_out": lin(f"{b}.attn2.to_out.0")}
+            if f"{b}.attn2.norm_q.weight" in sd:
+                dual["x2_qnorm"] = get(f"{b}.attn2.norm_q.weight")
+                dual["x2_knorm"] = get(f"{b}.attn2.norm_k.weight")
+            blocks_dual.append(dual)
+            x_mod = {"kernel": x_mod["kernel"][:, :6 * hidden],
+                     "bias": x_mod["bias"][:6 * hidden]}
+        block = {"x_mod": x_mod,
+                 "x_qkv": fused3(f"{b}.attn.to_q", f"{b}.attn.to_k", f"{b}.attn.to_v"),
+                 "x_out": lin(f"{b}.attn.to_out.0"),
+                 "x_fc1": lin(f"{b}.ff.net.0.proj"), "x_fc2": lin(f"{b}.ff.net.2"),
+                 **context}
+        if f"{b}.attn.norm_q.weight" in sd:  # SD3.5's qk_norm
+            block["x_qnorm"] = get(f"{b}.attn.norm_q.weight")
+            block["x_knorm"] = get(f"{b}.attn.norm_k.weight")
+            block["c_knorm"] = get(f"{b}.attn.norm_added_k.weight")
+            block["c_qnorm"] = (get(f"{b}.attn.norm_added_q.weight")
+                                if f"{b}.attn.norm_added_q.weight" in sd
+                                else torch.ones_like(block["x_qnorm"]))
+        blocks.append(block)
+    pw = sd["pos_embed.proj.weight"]  # conv [hidden, C, ps, ps]
+    tree = {
+        "proj_in": {"kernel": pw.permute(2, 3, 1, 0).reshape(-1, pw.shape[0]),
+                    "bias": sd["pos_embed.proj.bias"]},
+        "ctx_in": lin("context_embedder"),
+        "t_fc1": lin("time_text_embed.timestep_embedder.linear_1"),
+        "t_fc2": lin("time_text_embed.timestep_embedder.linear_2"),
+        "pool_fc1": lin("time_text_embed.text_embedder.linear_1"),
+        "pool_fc2": lin("time_text_embed.text_embedder.linear_2"),
+        "final_mod": swap_scale_shift(lin("norm_out.linear")),
+        "final_out": lin("proj_out"),
+        "blocks": blocks,
+    }
+    if blocks_dual:
+        tree["blocks_dual"] = blocks_dual
     return _map_leaves(lambda t: _layout(t.to(dtype)), tree)
 
 

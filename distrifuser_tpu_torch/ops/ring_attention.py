@@ -86,16 +86,21 @@ def ring_self_attention(p, x, ctx: PatchContext, name: str, *, heads: int):
                                            heads=heads))
 
 
-def ring_attend(q, kv_local, ctx: PatchContext, name: str, *, heads: int):
-    """Attention of this rank's ``q`` [B, L/n, C] over its fresh own chunk
-    ``kv_local`` [B, L/n, 2C] and the peers' chunks around the ring (the
-    fresh ones in a synchronous step, the previous step's in a stale one),
-    in q's dtype; the layer's next buffer is this step's own chunk (the
-    UNet's self-attention and the DiT's blocks alike)."""
+def ring_attend(q, kv_local, ctx: PatchContext, name: str, *, heads: int,
+                kv_static=None):
+    """Attention of this rank's ``q`` [B, Lq, C] over its fresh own chunk
+    ``kv_local`` [B, L/n, 2C], the optional non-rotating ``kv_static``
+    block (the MMDiT's replicated context KV) and the peers' chunks around
+    the ring (the fresh ones in a synchronous step, the previous step's in a
+    stale one), in q's dtype; the layer's next buffer is this step's own
+    chunk (the UNet's self-attention, the DiT's and the MMDiT's blocks
+    alike)."""
     if ctx.n == 1:
-        k, v = split_kv(kv_local)
+        kv = kv_local if kv_static is None else torch.cat([kv_static, kv_local], dim=1)
+        k, v = split_kv(kv)
         return sdpa(q, k, v, heads=heads)
     rotating = kv_local if ctx.is_sync else ctx.stale(name)
     if ctx.refresh:  # the next step's buffer: this step's own chunk
         ctx.emit(name, kv_local, "attn")
-    return ring_pass(q, kv_local, rotating, ctx.n, ctx.group, heads=heads).to(q.dtype)
+    return ring_pass(q, kv_local, rotating, ctx.n, ctx.group, heads=heads,
+                     kv_static=kv_static).to(q.dtype)

@@ -34,9 +34,10 @@ and mask once per generation, and the stale graph's buffers are copied
 back after each replay.
 
 The knobs of later work raise ``NotImplementedError`` naming their ROADMAP
-item: the DiT's step cache, ``comm_compress`` and ``refresh_fraction`` < 1
-(item 13b'), ulysses and usp (13c, refused by ``DistriConfig``) and
-PipeFusion (13d).  What the JAX runner refuses (``comm_batch``, a token
+item: the step cache, ``comm_compress`` and ``refresh_fraction`` < 1 (item
+13b', the comm knobs of both transformer runners: this one and the MMDiT's
+of parallel/mmdit_sp.py, ``refuse_transformer_knobs``), ulysses and usp
+(13c, refused by ``DistriConfig``) and PipeFusion (13d).  What the JAX runner refuses (``comm_batch``, a token
 count the patch count does not divide, an image size other than the
 config's) the port refuses with the same exception type.
 """
@@ -94,14 +95,22 @@ def check_dit_config(cfg: DistriConfig, dcfg: DiTConfig) -> None:
     if cfg.parallelism != "patch":
         raise ValueError(f"the DiT runs displaced patch parallelism (parallelism="
                          f"'patch'), not {cfg.parallelism!r}")
-    for on, knob in ((cfg.step_cache_enabled, "the DiT step cache (step_cache_interval/"
-                      "step_cache_depth)"),
+    refuse_transformer_knobs(cfg, "DiT")
+
+
+def refuse_transformer_knobs(cfg: DistriConfig, model: str) -> None:
+    """The comm knobs that neither transformer runner (the DiT's, the
+    MMDiT's) runs yet raise ``NotImplementedError`` naming ROADMAP item
+    13b'."""
+    for on, knob in ((cfg.step_cache_enabled, f"the {model} step cache "
+                      "(step_cache_interval/step_cache_depth)"),
                      (cfg.comm_compress != "none", f"comm_compress={cfg.comm_compress!r}"),
                      (cfg.refresh_fraction < 1.0,
                       f"refresh_fraction={cfg.refresh_fraction}")):
         if on:
             raise NotImplementedError(
-                f"{knob} on the DiT is ROADMAP queue 1 item 13b' (the DiT's step "
+                f"{knob} on the {model} is ROADMAP queue 1 item 13b' (the comm knobs "
+                "of both transformer runners, the DiT's and the MMDiT's: the step "
                 "cache, refresh compression and partial refresh)")
 
 

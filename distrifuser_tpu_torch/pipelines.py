@@ -74,11 +74,13 @@ import torch
 
 from .models import clip as clip_mod
 from .models import dit as dit_mod
+from .models import mmdit as mmdit_mod
 from .models import t5 as t5_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
-from .models.weights import (convert_clip_state_dict, convert_pixart_state_dict,
-                             convert_t5_state_dict, convert_unet_state_dict,
+from .models.weights import (convert_clip_state_dict, convert_mmdit_state_dict,
+                             convert_pixart_state_dict, convert_t5_state_dict,
+                             convert_unet_state_dict,
                              convert_vae_state_dict, params_nbytes, quantize_params,
                              set_quant_compute)
 from .native.bpe import CLIPTokenizer
@@ -88,7 +90,7 @@ from .parallel.collectives import gather_batch, gather_rows
 from .parallel.compress import validate_quant_compute, validate_weight_mode
 from .parallel.runner import check_graph_transport, make_runner
 from .parallel.stepcache import phase_step_counts, shallow_step_count
-from .schedulers import BaseScheduler, get_scheduler
+from .schedulers import BaseScheduler, FlowMatchEulerScheduler, get_scheduler
 from .utils.config import DistriConfig
 
 
@@ -223,15 +225,21 @@ def _handoff_steps(num_inference_steps, denoising_start, denoising_end):
     return start_step, end_step
 
 
-def _check_scheduler_family(scheduler: BaseScheduler, family: str) -> None:
-    """Refuse a rectified-flow sampler on a family that predicts epsilon or
-    v over a beta schedule: the two would run together without an error
-    and give garbage images."""
-    if scheduler.prediction_type == "flow":
+def _check_scheduler_family(scheduler: BaseScheduler, family: str, flow: bool = False) -> None:
+    """Refuse a sampler of the wrong kind at construction: a rectified-flow
+    family (``flow``, SD3) takes the flow sampler only, the others predict
+    epsilon or v over a beta schedule and refuse it.  Crossed, the two would
+    run together without an error and give garbage images."""
+    is_flow = scheduler.prediction_type == "flow"
+    if flow and not is_flow:
         raise ValueError(
-            f"a rectified-flow scheduler on {family}: this family predicts "
-            "epsilon/v over a beta schedule, not a rectified-flow velocity; "
-            "use ddim / euler / dpm-solver")
+            f"{family} is a rectified-flow model family: the scheduler must be "
+            f"FlowMatchEulerScheduler ('flow-euler'), got {type(scheduler).__name__}")
+    if is_flow and not flow:
+        raise ValueError(
+            f"'flow-euler' on {family}: this family predicts epsilon/v over a beta "
+            "schedule, not a rectified-flow velocity; use ddim / euler / dpm-solver "
+            "('flow-euler' is for DistriSD3Pipeline)")
 
 
 def _tokenize(tok, texts: List[str]) -> np.ndarray:
@@ -356,6 +364,10 @@ class _GenerationMixin:
     ``runner``, ``vae_config``, ``vae_params``, ``text_encoders`` and
     ``tokenizers`` on the instance."""
 
+    # the SD3 family's latent re-centring at decode (VAEConfig.shift_factor),
+    # set by DistriSD3Pipeline; 0 for the other families
+    _vae_shift: float = 0.0
+
     def set_weight_quant(self, mode: str) -> None:
         """Quantize the denoiser's weights to ``mode`` after construction.  Only
         the direction from "none" exists: a quantized tree's full-precision
@@ -383,6 +395,53 @@ class _GenerationMixin:
             return
         self.runner.params = set_quant_compute(self.runner.params, policy)
         cfg.quant_compute = policy
+
+    def step_cache_plan(self, num_inference_steps: int) -> dict:
+        """How the step cache's cadence plays out over a run of
+        ``num_inference_steps`` steps (JAX ``step_cache_plan``)."""
+        cfg = self.distri_config
+        shallow = (shallow_step_count(num_inference_steps, cfg.warmup_steps,
+                                      cfg.step_cache_interval)
+                   if cfg.step_cache_enabled else 0)
+        return {"enabled": cfg.step_cache_enabled,
+                "interval": cfg.step_cache_interval,
+                "depth": cfg.step_cache_depth,
+                "total_steps": num_inference_steps,
+                "shallow_steps": shallow}
+
+    def comm_plan(self, num_inference_steps: int) -> dict:
+        """What one generation of ``num_inference_steps`` steps puts on the
+        wire (JAX ``comm_plan``), per rank: the bytes a step of each phase
+        exchanges times the phase's step count.  The UNet runner's come from
+        ``comm_volume_report(per_phase=True)`` (read from its last
+        generate), the transformer runners' from their closed-form
+        ``comm_report``.  A configuration with no byte model (tensor or
+        naive patch parallelism) raises."""
+        cfg = self.distri_config
+        counts = phase_step_counts(
+            num_inference_steps, cfg.warmup_steps,
+            cfg.step_cache_interval if cfg.step_cache_enabled else 1)
+        runner = self.runner
+        if hasattr(runner, "comm_volume_report"):  # the UNet families
+            rep = runner.comm_volume_report(per_phase=True)
+            per_step = {ph: sum(kinds.values()) for ph, kinds in rep["bytes"].items()}
+            if per_step and "stale" not in per_step:  # one-phase configurations
+                per_step["stale"] = per_step.get("sync", 0)
+        else:  # the DiT's and the MMDiT's closed forms
+            rep = runner.comm_report()
+            per_step = {"sync": rep["sync_step_collective_bytes"],
+                        "stale": rep["per_step_collective_bytes"]}
+        if not per_step:
+            raise ValueError(
+                f"{type(runner).__name__} under parallelism="
+                f"{cfg.parallelism!r} has no byte-modeled comm report: "
+                "comm_plan cannot price its traffic")
+        total = sum(per_step.get(ph, 0) * n for ph, n in counts.items())
+        return {"comm_compress": cfg.comm_compress,
+                "refresh_fraction": cfg.refresh_fraction,
+                "steps": counts,
+                "bytes_per_step": per_step,
+                "total_bytes": int(total)}
 
     def set_progress_bar_config(self, **kwargs) -> None:
         """Accepted and ignored, as in the JAX package: the reference's
@@ -422,11 +481,11 @@ class _GenerationMixin:
         """latent -> float RGB [N, H, W, 3] in [0, 1], decoded in
         batch_size chunks (``decode_latents``; the tail chunk padded with its
         last latent, the padded images dropped, as the JAX package's
-        ``_decode_chunked``).  The UNet family decodes ``latent / scaling``
-        with no shift, whatever the VAE config's ``shift_factor``: only the
-        SD3 family re-centres its latents.  (img2img encodes as the JAX
-        package's ``_prepare_init_latents`` does: it subtracts the config's
-        shift for every family.)"""
+        ``_decode_chunked``) from ``latent / scaling + _vae_shift``: the
+        shift is 0 for the UNet and DiT families, whatever the VAE config's
+        ``shift_factor``; only the SD3 family re-centres its latents by it.
+        (img2img encodes as the JAX package's ``_prepare_init_latents``
+        does: it subtracts the config's shift for every family.)"""
         bs = self.distri_config.batch_size
         scaling = self.vae_config.scaling_factor
         images = []
@@ -436,7 +495,7 @@ class _GenerationMixin:
             if real < bs:
                 chunk = torch.cat([chunk, chunk[-1:].expand(bs - real, *chunk.shape[1:])])
             img = decode_latents(self.distri_config, self.vae_config, self.vae_params,
-                                 chunk / scaling)[:real]
+                                 chunk / scaling + self._vae_shift)[:real]
             images.append(img.float().cpu().numpy())
         image = np.concatenate(images, axis=0)
         return np.clip(image / 2 + 0.5, 0.0, 1.0)
@@ -495,46 +554,6 @@ class _DistriPipelineBase(_GenerationMixin):
                               self.unet_config.in_channels, device=cfg.device)
         self.runner.prepare(latents, embeds, num_inference_steps=num_inference_steps,
                             added_cond=added)
-
-    def step_cache_plan(self, num_inference_steps: int) -> dict:
-        """How the step cache's cadence plays out over a run of
-        ``num_inference_steps`` steps (JAX ``step_cache_plan``)."""
-        cfg = self.distri_config
-        shallow = (shallow_step_count(num_inference_steps, cfg.warmup_steps,
-                                      cfg.step_cache_interval)
-                   if cfg.step_cache_enabled else 0)
-        return {"enabled": cfg.step_cache_enabled,
-                "interval": cfg.step_cache_interval,
-                "depth": cfg.step_cache_depth,
-                "total_steps": num_inference_steps,
-                "shallow_steps": shallow}
-
-    def comm_plan(self, num_inference_steps: int) -> dict:
-        """What one generation of ``num_inference_steps`` steps puts on the
-        wire (JAX ``comm_plan``): the bytes a step of each phase exchanges
-        (``comm_volume_report(per_phase=True)``, read from the runner's last
-        generate) times the phase's step count, per rank.  A configuration
-        with no patch buffers to price (tensor or naive patch parallelism)
-        raises."""
-        cfg = self.distri_config
-        counts = phase_step_counts(
-            num_inference_steps, cfg.warmup_steps,
-            cfg.step_cache_interval if cfg.step_cache_enabled else 1)
-        rep = self.runner.comm_volume_report(per_phase=True)
-        per_step = {ph: sum(kinds.values()) for ph, kinds in rep["bytes"].items()}
-        if not per_step:
-            raise ValueError(
-                f"{type(self.runner).__name__} under parallelism="
-                f"{cfg.parallelism!r} has no byte-modeled comm report: "
-                "comm_plan cannot price its traffic")
-        if "stale" not in per_step:  # one-phase configurations
-            per_step["stale"] = per_step.get("sync", 0)
-        total = sum(per_step.get(ph, 0) * n for ph, n in counts.items())
-        return {"comm_compress": cfg.comm_compress,
-                "refresh_fraction": cfg.refresh_fraction,
-                "steps": counts,
-                "bytes_per_step": per_step,
-                "total_bytes": int(total)}
 
     @torch.inference_mode()
     def __call__(self, prompt, negative_prompt="", num_inference_steps: int = 50,
@@ -783,6 +802,22 @@ def _t5_tokenizer_or_fallback(path: str, vocab_size: int):
         return SimpleTokenizer(vocab_size=vocab_size, eos=1, bos=0)
 
 
+def _t5_tokenize(tok, texts: List[str], n: int):
+    """(ids [N, n], attention mask [N, n] float32) of ``texts`` for a T5
+    encoder: with the hash SimpleTokenizer the real tokens and the first
+    (sentinel) EOS are attended, the EOS padding after it is not; a real
+    tokenizer pads and truncates to ``n`` explicitly (its model_max_length
+    is 512, the pipelines' contract ``n`` tokens)."""
+    if isinstance(tok, SimpleTokenizer):
+        ids = tok(texts, n)
+        mask = (ids != tok.eos).astype(np.float32)
+        mask[np.arange(len(ids)), np.argmax(ids == tok.eos, axis=1)] = 1.0
+        return ids, mask
+    out = tok(texts, padding="max_length", max_length=n, truncation=True,
+              return_tensors="np")
+    return np.asarray(out["input_ids"]), np.asarray(out["attention_mask"], np.float32)
+
+
 class DistriPixArtPipeline(_GenerationMixin):
     """PixArt-α: T5 text encoder, PixArt's DiT driven by the displaced-patch
     DiT runner (parallel/dit_sp.py), KL VAE (JAX ``DistriPixArtPipeline``).
@@ -890,20 +925,7 @@ class DistriPixArtPipeline(_GenerationMixin):
         cfg = self.distri_config
         texts = negs + prompts if cfg.do_classifier_free_guidance else prompts
         n_br = 2 if cfg.do_classifier_free_guidance else 1
-        tok, n = self.tokenizer, self.max_token_length
-        if isinstance(tok, SimpleTokenizer):
-            ids = tok(texts, n)
-            # the real tokens and the first (sentinel) EOS are attended, as a
-            # T5 attention mask; the EOS padding after it is not
-            mask = (ids != tok.eos).astype(np.float32)
-            mask[np.arange(len(ids)), np.argmax(ids == tok.eos, axis=1)] = 1.0
-        else:
-            # explicit max_length: a T5 tokenizer's model_max_length is 512,
-            # the pipeline's contract 120 caption tokens
-            out = tok(texts, padding="max_length", max_length=n, truncation=True,
-                      return_tensors="np")
-            ids = np.asarray(out["input_ids"])
-            mask = np.asarray(out["attention_mask"], np.float32)
+        ids, mask = _t5_tokenize(self.tokenizer, texts, self.max_token_length)
         dev = cfg.device
         if not self.text_encoders:
             # weight-free smoke path: pseudo-embeddings seeded by each row's
@@ -952,4 +974,225 @@ class DistriPixArtPipeline(_GenerationMixin):
         latent = _batched_generate(cfg, self.scheduler, prompts, negs,
                                    num_images_per_prompt, seed, latents,
                                    self.dit_config.in_channels, run_chunk)
+        return self._finalize(latent, output_type)
+
+
+# ---------------------------------------------------------------------------
+# SD3: CLIP-L, OpenCLIP-bigG and T5 text encoders, the MMDiT, the SD3 VAE
+# ---------------------------------------------------------------------------
+
+
+class DistriSD3Pipeline(_GenerationMixin):
+    """SD3-class pipeline (JAX ``DistriSD3Pipeline``): the MMDiT driven by
+    the displaced-patch MMDiT runner (parallel/mmdit_sp.py), rectified-flow
+    Euler sampling (``FlowMatchEulerScheduler``, the only sampler it
+    takes), the SD3 VAE with its latent shift added back at decode.
+
+    The text conditioning is the published SD3 recipe: both CLIPs'
+    penultimate hidden states concatenated on features and zero-padded to
+    ``joint_attention_dim``; T5's states (or zeros without a T5: SD3 may
+    drop it) appended along the tokens; the pooled vector the concat of
+    both CLIPs' projected embeddings.  ``weight_quant`` quantizes the MMDiT
+    with ``quant_compute``; the text encoders (T5 too) and the VAE follow
+    ``weight_quant_aux``."""
+
+    def __init__(self, distri_config: DistriConfig, mmdit_config, mmdit_params, vae_config,
+                 vae_params, scheduler: BaseScheduler, tokenizers, text_encoders,
+                 t5_config=None, t5_params=None, max_t5_tokens: int = 77):
+        from .parallel.mmdit_sp import MMDiTDenoiseRunner
+
+        _check_scheduler_family(scheduler, "DistriSD3Pipeline (SD3-class MMDiT)",
+                                flow=True)
+        cfg = distri_config
+        self.distri_config = cfg
+        self.mmdit_config = mmdit_config
+        self.vae_config = vae_config
+        self._vae_shift = vae_config.shift_factor
+        encoders = list(text_encoders) + ([] if t5_params is None
+                                          else [(t5_config, t5_params)])
+        self.vae_params, self.text_encoders = _quantize_aux(cfg, vae_params, encoders)
+        self.t5 = (t5_config, self.text_encoders[2][1] if t5_params is not None else None)
+        self.scheduler = scheduler
+        self.tokenizers = tokenizers  # [CLIP-L, bigG, T5 or None]
+        self.max_t5_tokens = max_t5_tokens
+        clips = self.text_encoders[:2]
+        pooled_dim = sum(tc.projection_dim or tc.hidden_size for tc, _ in clips)
+        if pooled_dim != mmdit_config.pooled_projection_dim:
+            raise ValueError(f"CLIP projected widths sum to {pooled_dim}, but the "
+                             f"transformer expects pooled_projection_dim="
+                             f"{mmdit_config.pooled_projection_dim}")
+        clip_dim = sum(tc.hidden_size for tc, _ in clips)
+        if clip_dim > mmdit_config.joint_attention_dim:
+            raise ValueError(f"CLIP hidden widths sum to {clip_dim} > joint_attention_dim "
+                             f"{mmdit_config.joint_attention_dim}")
+        mmdit_params = quantize_params(mmdit_params, cfg.weight_quant,
+                                       compute=cfg.quant_compute)
+        self.runner = MMDiTDenoiseRunner(cfg, mmdit_config, mmdit_params, scheduler)
+        self.vae_decode_parallel, self.vae_decode_tile = decoder_choice(cfg)
+
+    @classmethod
+    def from_params(cls, distri_config, mmdit_config, mmdit_params, vae_config, vae_params,
+                    clip_configs, clip_params, t5_config=None, t5_params=None,
+                    scheduler="flow-euler", tokenizers=None, max_t5_tokens: int = 77):
+        """A pipeline from in-memory trees (two CLIPs, an optional T5);
+        ``scheduler`` a name or a scheduler; hash tokenizers unless
+        ``tokenizers``."""
+        sched = (scheduler if isinstance(scheduler, BaseScheduler)
+                 else get_scheduler(scheduler))
+        toks = tokenizers or [SimpleTokenizer(tc.vocab_size) for tc in clip_configs] + [
+            SimpleTokenizer(t5_config.vocab_size, eos=1, bos=0) if t5_config else None]
+        return cls(distri_config, mmdit_config, mmdit_params, vae_config, vae_params, sched,
+                   toks, list(zip(clip_configs, clip_params)), t5_config, t5_params,
+                   max_t5_tokens=max_t5_tokens)
+
+    @classmethod
+    def from_pretrained(cls, distri_config: DistriConfig,
+                        pretrained_model_name_or_path: str, scheduler="flow-euler",
+                        dtype=None, variant: Optional[str] = None,
+                        max_t5_tokens: int = 77) -> "DistriSD3Pipeline":
+        """An SD3 pipeline from a local snapshot directory (transformer/,
+        vae/, text_encoder/, text_encoder_2/, tokenizer/, tokenizer_2/, and
+        optionally text_encoder_3/ with tokenizer_3/: without it the T5
+        states are zeros, as the published pipeline allows), each config
+        from its ``config.json`` (else the SD3-medium preset), the weights
+        cast to ``dtype`` (default: the config's) on the config's device.
+        The flow ``shift`` comes from ``scheduler/scheduler_config.json``
+        (default 3.0); ``scheduler`` must be "flow-euler" or a flow
+        scheduler."""
+        root = pretrained_model_name_or_path
+        if not os.path.isdir(root):
+            raise FileNotFoundError(
+                f"{root!r} is not a local model directory: from_pretrained reads an SD3 "
+                "snapshot (transformer/, vae/, text_encoder*/, tokenizer*/) from disk "
+                "and downloads nothing")
+        if isinstance(scheduler, BaseScheduler):
+            sched = scheduler  # family-checked by __init__
+        elif scheduler != "flow-euler":
+            raise ValueError(f"scheduler={scheduler!r}: SD3-class MMDiTs are "
+                             "rectified-flow models; only 'flow-euler' (or a "
+                             "FlowMatchEulerScheduler) is valid")
+        else:
+            sc_path = os.path.join(root, "scheduler", "scheduler_config.json")
+            shift = (unet_mod.load_config_source(sc_path).get("shift", 3.0)
+                     if os.path.exists(sc_path) else 3.0)
+            sched = FlowMatchEulerScheduler(shift=shift)
+        dtype = dtype or distri_config.dtype
+
+        def load(subdir, convert):
+            sd = load_sharded_safetensors(os.path.join(root, subdir), variant=variant,
+                                          skip=("position_ids",))
+            return unet_mod.cast_params(convert(sd), dtype, distri_config.device)
+
+        mcfg = _config_from_snapshot(root, "transformer", mmdit_mod.mmdit_config_from_json,
+                                     mmdit_mod.sd3_config)
+        vcfg = _config_from_snapshot(root, "vae", vae_mod.vae_config_from_json,
+                                     vae_mod.sd3_vae_config)
+        clips, toks = [], []
+        for sub, tok_sub, preset in (
+                ("text_encoder", "tokenizer",
+                 lambda: dataclasses.replace(clip_mod.clip_vit_l_config(),
+                                             projection_dim=768)),
+                ("text_encoder_2", "tokenizer_2", clip_mod.open_clip_bigg_config)):
+            ccfg = _config_from_snapshot(root, sub, clip_mod.clip_config_from_json, preset)
+            clips.append((ccfg, load(sub, lambda sd: convert_clip_state_dict(sd, dtype))))
+            toks.append(_tokenizer_or_fallback(os.path.join(root, tok_sub)))
+        t5cfg = t5p = None
+        if os.path.isdir(os.path.join(root, "text_encoder_3")):
+            t5cfg = _config_from_snapshot(root, "text_encoder_3", t5_mod.t5_config_from_json,
+                                          t5_mod.t5_v1_1_xxl_config)
+            t5p = load("text_encoder_3", lambda sd: convert_t5_state_dict(sd, dtype))
+            toks.append(_t5_tokenizer_or_fallback(os.path.join(root, "tokenizer_3"),
+                                                  t5cfg.vocab_size))
+        else:
+            toks.append(None)
+        return cls(distri_config, mcfg,
+                   load("transformer", lambda sd: convert_mmdit_state_dict(sd, dtype)),
+                   vcfg, load("vae", lambda sd: convert_vae_state_dict(sd, dtype)), sched,
+                   toks, clips, t5cfg, t5p, max_t5_tokens=max_t5_tokens)
+
+    @torch.inference_mode()
+    def prepare(self, num_inference_steps: int = 28) -> None:
+        """Capture the MMDiT's graphs for a call of ``num_inference_steps``
+        steps at ``batch_size`` images ahead of the first call, from
+        placeholder inputs; nothing happens without ``use_cuda_graph``."""
+        cfg = self.distri_config
+        if not cfg.use_compiled_step:
+            return
+        bs = cfg.batch_size
+        enc, pooled = self._encode([""] * bs, [""] * bs)
+        latents = torch.zeros(bs, cfg.latent_height, cfg.latent_width,
+                              self.mmdit_config.in_channels, device=cfg.device)
+        self.runner.prepare(latents, enc, pooled, num_inference_steps=num_inference_steps)
+
+    def _encode(self, prompts, negs):
+        """(text states [n_branches, B, 77 + max_t5_tokens,
+        joint_attention_dim], pooled [n_branches, B, P]) of one chunk,
+        branch 0 unconditional."""
+        cfg, mcfg = self.distri_config, self.mmdit_config
+        texts = negs + prompts if cfg.do_classifier_free_guidance else prompts
+        n_br = 2 if cfg.do_classifier_free_guidance else 1
+        states, pooleds = [], []
+        for which in range(2):
+            ccfg, cparams = self.text_encoders[which]
+            ids = torch.from_numpy(_tokenize(self.tokenizers[which], texts))
+            out = clip_mod.clip_text_forward(cparams, ccfg, ids)
+            states.append(out["hidden_states"][-2])
+            pooleds.append(out.get("text_embeds", out["pooler_output"]))
+        clip_emb = torch.cat(states, dim=-1)
+        clip_emb = torch.nn.functional.pad(
+            clip_emb, (0, mcfg.joint_attention_dim - clip_emb.shape[-1]))
+        pooled = torch.cat(pooleds, dim=-1)
+        t5cfg, t5p = self.t5
+        if t5p is None:
+            t5_emb = clip_emb.new_zeros(clip_emb.shape[0], self.max_t5_tokens,
+                                        mcfg.joint_attention_dim)
+        else:
+            ids, mask = _t5_tokenize(self.tokenizers[2], texts, self.max_t5_tokens)
+            dev = t5p["shared"].device
+            t5_emb = t5_mod.t5_encode(t5p, t5cfg, torch.from_numpy(ids).to(dev),
+                                      torch.from_numpy(mask).to(dev))
+        enc = torch.cat([clip_emb, t5_emb.to(clip_emb.dtype)], dim=1)
+        b = len(prompts)
+        return enc.reshape(n_br, b, *enc.shape[1:]), pooled.reshape(n_br, b, -1)
+
+    @torch.inference_mode()
+    def __call__(self, prompt, negative_prompt="", num_inference_steps: int = 28,
+                 guidance_scale: float = 7.0, seed: int = 0, output_type: str = "pil",
+                 latents=None, num_images_per_prompt: int = 1, image=None,
+                 strength: float = 0.8, callback=None, _noise=None,
+                 **kwargs) -> PipelineOutput:
+        """Generate images: ``prompt`` a string or a list, ``latents`` the
+        initial noise [N, H/8, W/8, 16] (else drawn from a torch.Generator
+        seeded with ``seed``); img2img with ``image`` and ``strength``, the
+        encoded image moved to the strength's sigma by the flow
+        ``add_noise`` (``_noise`` replaces its seeded noise draw: tests pass
+        the JAX package's own); ``callback(i, t, latents)`` after every
+        step; ``output_type`` "latent", "np" or "pil"."""
+        cfg = self.distri_config
+        if "height" in kwargs or "width" in kwargs:
+            raise ValueError("height and width are fixed in DistriConfig")
+        if kwargs:
+            raise TypeError(f"unexpected keyword arguments: {sorted(kwargs)}")
+        if not cfg.do_classifier_free_guidance:
+            guidance_scale = 1.0
+        prompts, negs = _normalize_prompts(prompt, negative_prompt)
+        self.scheduler.set_timesteps(num_inference_steps)
+        start_step = 0
+        if image is not None:
+            if latents is not None:
+                raise ValueError("pass either image or latents, not both")
+            latents, start_step = _prepare_init_latents(
+                cfg, self.scheduler, self.vae_params, self.vae_config, image, strength,
+                num_inference_steps, len(prompts), num_images_per_prompt, seed, _noise)
+
+        def run_chunk(cp, cn, cl, n_real):
+            enc, pooled = self._encode(cp, cn)
+            return self.runner.generate(
+                cl, enc, pooled, guidance_scale=guidance_scale,
+                num_inference_steps=num_inference_steps, start_step=start_step,
+                callback=_wrap_chunk_callback(callback, n_real))
+
+        latent = _batched_generate(cfg, self.scheduler, prompts, negs,
+                                   num_images_per_prompt, seed, latents,
+                                   self.mmdit_config.in_channels, run_chunk)
         return self._finalize(latent, output_type)

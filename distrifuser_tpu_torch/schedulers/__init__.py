@@ -1,5 +1,5 @@
 from .scheduling import (BaseScheduler, DDIMScheduler, DPMSolverMultistepScheduler,
-                         EulerDiscreteScheduler, get_scheduler)
+                         EulerDiscreteScheduler, FlowMatchEulerScheduler, get_scheduler)
 
 __all__ = ["BaseScheduler", "DDIMScheduler", "DPMSolverMultistepScheduler",
-           "EulerDiscreteScheduler", "get_scheduler"]
+           "EulerDiscreteScheduler", "FlowMatchEulerScheduler", "get_scheduler"]

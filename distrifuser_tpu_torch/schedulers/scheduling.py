@@ -1,9 +1,11 @@
-"""DDIM, Euler and DPM-Solver++ (2M) for the PyTorch port.
+"""DDIM, Euler, DPM-Solver++ (2M) and the rectified-flow Euler sampler for
+the PyTorch port.
 
-Counterpart of distrifuser_tpu/schedulers/scheduling.py (``BaseScheduler``,
-``DDIMScheduler``, ``EulerDiscreteScheduler``,
-``DPMSolverMultistepScheduler``, ``get_scheduler``): the reference CLI's
-``--scheduler {ddim,euler,dpm-solver}``.  Numerics follow diffusers 0.24
+Counterpart of distrifuser_tpu/schedulers/scheduling.py (``_per_row``,
+``BaseScheduler``, ``DDIMScheduler``, ``EulerDiscreteScheduler``,
+``DPMSolverMultistepScheduler``, ``FlowMatchEulerScheduler``,
+``get_scheduler``): the reference CLI's ``--scheduler {ddim,euler,
+dpm-solver}`` and the SD3 family's ``flow-euler``.  Numerics follow diffusers 0.24
 with the SD/SDXL defaults: scaled_linear betas in [0.00085, 0.012], 1000
 train steps, epsilon or v prediction, "leading" spacing, steps_offset=1.
 The coefficient tables are computed in numpy at ``set_timesteps`` and held
@@ -14,9 +16,10 @@ latent noised to the schedule point of a step, in alphas_cumprod space
 (DDIM, DPM++ 2M) or in Euler's sigma space, ``x0 + sigma * eps``, which is
 not scaled again by ``init_noise_sigma``.  The schedulers run eagerly, outside any
 captured UNet graph: Euler's ``scale_model_input`` is applied to the
-latent before it is copied into the graph's static input.  The
-rectified-flow sampler ("flow-euler", the SD3 family) is ROADMAP queue 1
-item 14.
+latent before it is copied into the graph's static input.
+``FlowMatchEulerScheduler`` ("flow-euler") integrates a rectified-flow
+velocity over shifted sigmas (the SD3 family, ``prediction_type ==
+"flow"``); its ``add_noise`` is the flow interpolant.
 """
 
 from __future__ import annotations
@@ -26,6 +29,16 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+
+def _per_row(coef, ref):
+    """A coefficient shaped against a batch-major sample: a scalar as it
+    is, a ``[B]`` vector as ``[B, 1, ..., 1]`` so that row j takes its own
+    coefficient."""
+    coef = torch.as_tensor(coef)
+    if coef.dim() == 0:
+        return coef
+    return coef.reshape(coef.shape + (1,) * (ref.dim() - 1))
 
 
 def _make_alphas_cumprod(
@@ -208,16 +221,54 @@ class DPMSolverMultistepScheduler(BaseScheduler):
         return x_next.to(sample.dtype), {"x0_prev": x0, "lambda_prev": lam_t}
 
 
+@dataclasses.dataclass
+class FlowMatchEulerScheduler(BaseScheduler):
+    """Euler sampler of rectified-flow models (the SD3 family): x_t = (1 -
+    sigma) x0 + sigma noise, the model predicts the velocity noise - x0,
+    and a step integrates dx = v dsigma from 1 towards 0 over the shifted
+    grid sigma' = shift s / (1 + (shift - 1) s) (SD3-medium: shift 3).  The
+    model's "timestep" is sigma * num_train_timesteps.  No beta tables and
+    an empty state."""
+
+    shift: float = 3.0
+
+    def __post_init__(self):
+        # one prediction convention; the inherited default is epsilon
+        self.prediction_type = "flow"
+        self.num_inference_steps = None
+
+    def set_timesteps(self, n: int):
+        self.num_inference_steps = n
+        lin = np.linspace(1.0, 1.0 / n, n)
+        sig = self.shift * lin / (1.0 + (self.shift - 1.0) * lin)
+        self._sigmas = torch.tensor(np.append(sig, 0.0), dtype=torch.float32)
+        self._timesteps = torch.tensor(sig * self.num_train_timesteps,
+                                       dtype=torch.float32)
+        return self
+
+    def add_noise(self, original, noise, step_index):
+        """The flow interpolant (1 - sigma) x0 + sigma noise at the step's
+        sigma (img2img's entry; per row for a ``[B]`` step vector)."""
+        s = _per_row(self._sigmas[step_index], original).to(original.device)
+        out = (1.0 - s) * original.float() + s * noise.float()
+        return out.to(original.dtype)
+
+    def step(self, sample, model_output, step_index, state):
+        """One Euler step of the velocity ``model_output``, in float32."""
+        s = _per_row(self._sigmas[step_index], sample).to(sample.device)
+        s_next = _per_row(self._sigmas[step_index + 1], sample).to(sample.device)
+        x = sample.float() + (s_next - s) * model_output.float()
+        return x.to(sample.dtype), state
+
+
 SCHEDULERS = {"ddim": DDIMScheduler, "euler": EulerDiscreteScheduler,
-              "dpm-solver": DPMSolverMultistepScheduler}
+              "dpm-solver": DPMSolverMultistepScheduler,
+              "flow-euler": FlowMatchEulerScheduler}
 
 
 def get_scheduler(name: str, **kwargs) -> BaseScheduler:
-    """The scheduler of a CLI name (the reference's run_sdxl.py choices)."""
-    if name == "flow-euler":
-        raise ValueError(
-            "'flow-euler' is the rectified-flow sampler of the SD3 family, "
-            "ROADMAP queue 1 item 14, not yet in the PyTorch port")
+    """The scheduler of a CLI name (the reference's run_sdxl.py choices and
+    the SD3 family's "flow-euler")."""
     if name not in SCHEDULERS:
         raise ValueError(f"scheduler must be one of {sorted(SCHEDULERS)}, got {name!r}")
     return SCHEDULERS[name](**kwargs)

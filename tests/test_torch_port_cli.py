@@ -104,7 +104,7 @@ def test_comm_knob_flags_pass_through_as_in_the_jax_scripts(flags):
     (["--refresh_fraction", "0.3"], "1/k"),
     (["--comm_batch", "--refresh_fraction", "0.5"], "mutually exclusive"),
     (["--dp_degree", "2"], "must divide world size 1"),
-    (["--scheduler", "flow-euler"], "item 14"),
+    (["--scheduler", "flow-euler"], "'flow-euler' on DistriSDXLPipeline"),
     (["--parallelism", "pipefusion"], "DiT strategy"),
     (["--device", "cpu"], "--random_weights"),
 ])

@@ -469,3 +469,40 @@ def dit_worker(rank, world, in_path, out_path):
         out[i] = (x, runner.comm_report(1), runner.comm_report(2),
                   dict(runner.phase_counts), seen)
     torch.save(out, f"{out_path}.rank{rank}")
+
+
+def mmdit_worker(rank, world, in_path, out_path):
+    """The tiny MMDiT runner (parallel/mmdit_sp.py) in each case of ``cases``
+    (config fields over ``base``; a case's "model" names its MMDiT in
+    ``models``, config fields and tree): 4 flow-euler steps from the same
+    latents, text states and pooled vectors, with the latent shapes its
+    callback saw; then each case of ``graphed`` with ``use_cuda_graph=True``.
+    Saves {case index, or ("graphed", index): (latent, comm_report(1),
+    comm_report(2), phase counts, callback shapes)}."""
+    import dataclasses
+
+    from distrifuser_tpu_torch.models import mmdit
+    from distrifuser_tpu_torch.parallel.mmdit_sp import MMDiTDenoiseRunner
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+    from distrifuser_tpu_torch.utils.config import DistriConfig
+
+    inp = torch.load(in_path)
+    out = {}
+    runs = [(i, case, {}) for i, case in enumerate(inp["cases"])]
+    runs += [(("graphed", i), case, {"use_cuda_graph": True})
+             for i, case in enumerate(inp.get("graphed", []))]
+    for i, case, extra in runs:
+        fields = {**inp["base"], **case, **extra}
+        fields_model, params = inp["models"][fields.pop("model", "plain")]
+        mcfg = dataclasses.replace(mmdit.tiny_mmdit_config(), **fields_model)
+        batch = fields.get("batch_size", 1)
+        cfg = DistriConfig(device="cpu", height=256, width=256, **fields)
+        runner = MMDiTDenoiseRunner(cfg, mcfg, params, get_scheduler("flow-euler"))
+        seen = []
+        x = runner.generate(inp["latents"][:batch], inp["enc"][:, :batch],
+                            inp["pooled"][:, :batch], guidance_scale=7.0,
+                            num_inference_steps=inp["steps"],
+                            callback=lambda i, t, x: seen.append(tuple(x.shape)))
+        out[i] = (x, runner.comm_report(1), runner.comm_report(2),
+                  dict(runner.phase_counts), seen)
+    torch.save(out, f"{out_path}.rank{rank}")

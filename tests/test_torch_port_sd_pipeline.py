@@ -130,7 +130,7 @@ def test_sd_prepare_and_stepwise(trees):
 
 
 def test_sd_from_params_refuses_flow_euler(trees):
-    with pytest.raises(ValueError, match="item 14"):
+    with pytest.raises(ValueError, match="'flow-euler' on DistriSDPipeline"):
         _port(trees, "flow-euler")
 
 
