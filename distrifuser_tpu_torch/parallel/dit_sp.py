@@ -49,7 +49,7 @@ from typing import Any, Dict, List
 import torch
 
 from ..models import dit as dit_mod
-from ..models.dit import DiTConfig
+from ..models.dit import DiTConfig, unpatchify
 from ..ops.attention import displaced_kv
 from ..ops.ring_attention import ring_attend
 from ..schedulers import BaseScheduler
@@ -114,31 +114,166 @@ def refuse_transformer_knobs(cfg: DistriConfig, model: str) -> None:
                 "cache, refresh compression and partial refresh)")
 
 
-class DiTDenoiseRunner(StepLoop):
-    """The denoising loop of one (config, DiT, scheduler) on this rank.
+class TransformerRunner(StepLoop):
+    """The denoising loop both transformer runners share (the DiT's below,
+    the MMDiT's of parallel/mmdit_sp.py): one model evaluation a step, the
+    first ``warmup_steps + 1`` steps that run synchronous and the rest stale,
+    each phase one CUDA graph under ``use_cuda_graph``, and ``comm_report``
+    closed-form from the attention layers that exchange image KV.
 
-    After ``generate``, ``phase_counts`` holds how many steps ran in each
-    phase.  Replacing ``params`` drops the captured graphs."""
+    A subclass gives ``_local(x_in, t, cond, phase, state)``, one
+    evaluation on this rank's token rows from its conditioning ``cond`` (the
+    graphs' static ``enc``, ``added`` and ``text_kv``, None where unused),
+    ``_inputs`` building the tokens and ``cond`` from its call's arguments,
+    and ``n_attn``.  After ``generate``, ``phase_counts`` holds how many
+    steps ran in each phase.  Replacing ``params`` drops the captured
+    graphs."""
 
-    def __init__(self, distri_config: DistriConfig, dit_config: DiTConfig, params,
+    def __init__(self, distri_config: DistriConfig, model_config, params,
                  scheduler: BaseScheduler):
-        check_dit_config(distri_config, dit_config)
         check_graph_transport(distri_config)
         self.cfg = distri_config
-        self.dcfg = dit_config
+        self.mcfg = model_config
         self.scheduler = scheduler
         self.graphs = StepGraphs(distri_config.device)
         self.params = params
         self.phase_counts: Dict[str, int] = {}
         self._schedule: Dict[int, Any] = {}
 
-    # -- one evaluation -----------------------------------------------------
+    @property
+    def n_attn(self) -> int:
+        """Attention layers a step whose image KV crosses patches."""
+        raise NotImplementedError
 
-    def _dit_local(self, x_in, t, cap_bias, cap_kv: List[torch.Tensor], phase, state):
+    def _evaluate(self, phase, inputs, state):
+        """``_local`` on a graph's static inputs."""
+        return self._local(inputs.x_in, inputs.t, (inputs.enc, inputs.added, inputs.text_kv),
+                           phase, state)
+
+    def _phases(self, end: int, start: int = 0) -> List[str]:
+        """The evaluation of each step of ``start .. end - 1``: the first
+        ``warmup_steps + 1`` run synchronous (counted from ``start``), the
+        rest stale; every step synchronous under ``full_sync`` or without
+        patches."""
+        cfg = self.cfg
+        n_exec = end - start
+        if cfg.mode == "full_sync" or not cfg.is_sp:
+            return [PHASE_SYNC] * n_exec
+        n_sync = min(cfg.warmup_steps + 1, n_exec)
+        return [PHASE_SYNC] * n_sync + [PHASE_STALE] * (n_exec - n_sync)
+
+    def _begin_graphs(self, x, cond, phases, start=0) -> None:
+        check_graph_transport(self.cfg)
+        timesteps, steps = self._step_tensors(self.scheduler.num_inference_steps)
+        stateful = [PHASE_STALE] if PHASE_STALE in phases else []
+        self.graphs.begin(tuple(x.shape), self._model_input(x, start), timesteps[start],
+                          *cond, list(dict.fromkeys(phases)), stateful, self._evaluate,
+                          step=steps[start])
+
+    def _prepare(self, num_inference_steps: int, *inputs) -> None:
+        """``prepare`` of the subclass: capture, ahead of the first call, the
+        graphs a generation of these shapes and ``num_inference_steps``
+        steps replays from ``_inputs(*inputs)``; the input values do not
+        matter.  Nothing to do without ``use_cuda_graph``."""
+        if not self.cfg.use_compiled_step:
+            return
+        self.scheduler.set_timesteps(num_inference_steps)
+        x, cond = self._inputs(*inputs)
+        self._begin_graphs(x, cond, self._phases(num_inference_steps))
+
+    def _generate(self, inputs, guidance_scale: float, num_inference_steps: int,
+                  start_step: int = 0, end_step=None, callback=None):
+        """Steps ``start_step .. end_step - 1`` of the schedule from
+        ``_inputs(*inputs)``, ``callback(i, t, latents)`` after each: the
+        latent float32 [B, H/8, W/8, C], the same on every rank."""
+        cfg, mcfg, sched = self.cfg, self.mcfg, self.scheduler
+        end = num_inference_steps if end_step is None else end_step
+        if not 0 <= start_step < end <= num_inference_steps:
+            raise ValueError(f"steps {start_step}..{end} outside a schedule of "
+                             f"{num_inference_steps}")
+        sched.set_timesteps(num_inference_steps)
+        x, cond = self._inputs(*inputs)
+        gs = torch.tensor(guidance_scale, dtype=torch.float32, device=cfg.device)
+        phases = self._phases(end, start_step)
+        graphed = cfg.use_compiled_step
+        if graphed:
+            self._begin_graphs(x, cond, phases, start_step)
+        timesteps, steps = self._step_tensors(num_inference_steps)
+        sstate = sched.init_state(x.shape)
+        self.phase_counts = {PHASE_SYNC: 0, PHASE_STALE: 0}
+        state = None
+        for i, phase in enumerate(phases, start=start_step):
+            x_in = self._model_input(x, i)
+            if graphed:
+                graph = self.graphs[phase]
+                graph.inputs.set_step(x_in, timesteps[i], steps[i])
+                if graph.stateful:
+                    graph.load_state(state)
+                out, state = graph.replay(self._evaluate)
+            else:
+                out, state = self._local(x_in, timesteps[i], cond, phase, state)
+            x, sstate = self._guided_step(x, out, i, sstate, gs)
+            self.phase_counts[phase] += 1
+            if callback is not None:
+                callback(i, sched.timesteps()[i], unpatchify(mcfg, x, mcfg.in_channels))
+        return unpatchify(mcfg, x, mcfg.in_channels)
+
+    def comm_report(self, batch_size: int = 1) -> Dict[str, Any]:
+        """This rank's stale-state elements and per-step collective volumes
+        of the configured layout, closed-form from the architecture, as the
+        JAX runners' ``comm_report`` gives them (the same keys and numbers;
+        the knobs of item 13b' are refused, so compressed and partial
+        refreshes never appear)."""
+        cfg, mcfg = self.cfg, self.mcfg
+        if not cfg.is_sp:
+            return {"layout": cfg.attn_impl, "kv_state_elems": 0,
+                    "per_step_collective_elems": 0, "per_step_collective_bytes": 0,
+                    "sync_step_collective_bytes": 0}
+        n = cfg.n_device_per_batch
+        b = batch_size * (1 if cfg.cfg_split or not cfg.do_classifier_free_guidance else 2)
+        n_tok, hid, n_attn = mcfg.num_tokens, mcfg.hidden_size, self.n_attn
+        chunk = n_tok // n
+        out_gather = b * n_tok * mcfg.patch_size ** 2 * mcfg.out_channels
+        if cfg.attn_impl == "gather":
+            state = n_attn * 2 * b * n_tok * hid
+            per_step = n_attn * 2 * b * n_tok * hid + out_gather
+        else:  # ring: (n - 1) hops of the own 2C chunk a layer, in the step
+            state = n_attn * b * chunk * 2 * hid
+            per_step = n_attn * (n - 1) * b * chunk * 2 * hid + out_gather
+        itemsize = cfg.dtype.itemsize
+        if cfg.attn_impl == "gather":
+            refresh = n_attn * n * 2 * b * chunk * hid * itemsize
+            stale_bytes = refresh + out_gather * itemsize
+        else:
+            stale_bytes = per_step * itemsize
+        return {"layout": cfg.attn_impl, "kv_state_elems": state,
+                "per_step_collective_elems": per_step,
+                "comm_compress": cfg.comm_compress,
+                "refresh_fraction": cfg.refresh_fraction,
+                "sync_step_collective_bytes": per_step * itemsize,
+                "per_step_collective_bytes": stale_bytes,
+                "full_refresh_per_step_collective_bytes": stale_bytes}
+
+
+class DiTDenoiseRunner(TransformerRunner):
+    """The denoising loop of one (config, DiT, scheduler) on this rank."""
+
+    def __init__(self, distri_config: DistriConfig, dit_config: DiTConfig, params,
+                 scheduler: BaseScheduler):
+        check_dit_config(distri_config, dit_config)
+        super().__init__(distri_config, dit_config, params, scheduler)
+
+    @property
+    def n_attn(self) -> int:
+        return self.mcfg.depth
+
+    def _local(self, x_in, t, cond, phase, state):
         """One DiT evaluation on this rank's token rows of ``x_in`` [Bl, N,
-        D] (scaled, the CFG branches folded): (the whole epsilon [Bl, N,
-        D_out], the next step's buffers)."""
-        cfg, dcfg, params = self.cfg, self.dcfg, self.params
+        D] (scaled, the CFG branches folded) from ``cond`` = (caption bias,
+        None, the blocks' caption KV): (the whole epsilon [Bl, N, D_out],
+        the next step's buffers)."""
+        cfg, dcfg, params = self.cfg, self.mcfg, self.params
+        cap_bias, _, cap_kv = cond
         dtype = params["proj_in"]["kernel"].dtype
         n = cfg.n_device_per_batch if cfg.is_sp else 1
         chunk = dcfg.num_tokens // n
@@ -168,51 +303,21 @@ class DiTDenoiseRunner(StepLoop):
         state = ctx.finish()
         return gather_rows(eps_rows, cfg.batch_group), state
 
-    def _evaluate(self, phase, inputs, state):
-        """``_dit_local`` on a graph's static inputs (``enc`` holds the
-        caption bias, ``text_kv`` the blocks' caption KV)."""
-        return self._dit_local(inputs.x_in, inputs.t, inputs.enc, inputs.text_kv,
-                               phase, state)
-
-    # -- the loop -----------------------------------------------------------
-
-    def _phases(self, num_steps: int) -> List[str]:
-        """Each step's evaluation: the first ``warmup_steps + 1`` synchronous,
-        the rest stale; every step synchronous under ``full_sync`` or without
-        patches."""
-        cfg = self.cfg
-        if cfg.mode == "full_sync" or not cfg.is_sp:
-            return [PHASE_SYNC] * num_steps
-        n_sync = min(cfg.warmup_steps + 1, num_steps)
-        return [PHASE_SYNC] * n_sync + [PHASE_STALE] * (num_steps - n_sync)
-
-    def _conditioning(self, enc, cap_mask):
-        """(this rank's caption bias [Bl, 1, 1, Lt], the blocks' caption KV)
-        from branch-major ``enc`` [n_br, B, Lt, caption_dim] and
-        ``cap_mask`` [n_br, B, Lt] (None: every token real)."""
+    def _inputs(self, latents, enc, cap_mask):
+        """(the latent's tokens float32 [B, N, D], (this rank's caption bias
+        [Bl, 1, 1, Lt], None, the blocks' caption KV)) from branch-major
+        ``enc`` [n_br, B, Lt, caption_dim] and ``cap_mask`` [n_br, B, Lt]
+        (None: every token real)."""
         cfg = self.cfg
         dev = cfg.device
+        x = dit_mod.patchify(self.mcfg, torch.as_tensor(latents).to(dev, torch.float32))
         enc = torch.as_tensor(enc).to(dev)
         mask = (torch.ones(enc.shape[:3], device=dev) if cap_mask is None
                 else torch.as_tensor(cap_mask).to(dev).float())
         my_enc, _, _ = branch_select(cfg, self._my_images(enc, dim=1))
         my_mask, _, _ = branch_select(cfg, self._my_images(mask, dim=1))
-        cap_kv = dit_mod.precompute_caption_kv(self.params, self.dcfg, my_enc)
-        return dit_mod.caption_mask_bias(my_mask), cap_kv
-
-    def _begin_graphs(self, x, cap_bias, cap_kv, phases) -> None:
-        check_graph_transport(self.cfg)
-        timesteps, steps = self._step_tensors(self.scheduler.num_inference_steps)
-        stateful = [PHASE_STALE] if PHASE_STALE in phases else []
-        self.graphs.begin(tuple(x.shape), self._model_input(x, 0), timesteps[0], cap_bias,
-                          None, cap_kv, list(dict.fromkeys(phases)), stateful,
-                          self._evaluate, step=steps[0])
-
-    def _inputs(self, latents, enc, cap_mask):
-        """(the latent's tokens float32 [B, N, D], caption bias, caption KV)."""
-        dev = self.cfg.device
-        x = dit_mod.patchify(self.dcfg, torch.as_tensor(latents).to(dev, torch.float32))
-        return x, *self._conditioning(enc, cap_mask)
+        cap_kv = dit_mod.precompute_caption_kv(self.params, self.mcfg, my_enc)
+        return x, (dit_mod.caption_mask_bias(my_mask), None, cap_kv)
 
     @torch.inference_mode()
     def prepare(self, latents, enc, *, num_inference_steps: int = 20,
@@ -220,11 +325,7 @@ class DiTDenoiseRunner(StepLoop):
         """Capture, ahead of the first call, the graphs a generation of these
         shapes and ``num_inference_steps`` steps replays; the input values do
         not matter.  Nothing to do without ``use_cuda_graph``."""
-        if not self.cfg.use_compiled_step:
-            return
-        self.scheduler.set_timesteps(num_inference_steps)
-        x, cap_bias, cap_kv = self._inputs(latents, enc, cap_mask)
-        self._begin_graphs(x, cap_bias, cap_kv, self._phases(num_inference_steps))
+        self._prepare(num_inference_steps, latents, enc, cap_mask)
 
     @torch.inference_mode()
     def generate(self, latents, enc, guidance_scale: float = 5.0,
@@ -235,68 +336,5 @@ class DiTDenoiseRunner(StepLoop):
         caption token; None attends to all); every rank passes the same.
         ``callback(i, t, latents)`` runs after every step.  Returns the
         latent float32 [B, H/8, W/8, C], the same on every rank."""
-        cfg, dcfg, sched = self.cfg, self.dcfg, self.scheduler
-        sched.set_timesteps(num_inference_steps)
-        x, cap_bias, cap_kv = self._inputs(latents, enc, cap_mask)
-        gs = torch.tensor(guidance_scale, dtype=torch.float32, device=cfg.device)
-        phases = self._phases(num_inference_steps)
-        graphed = cfg.use_compiled_step
-        if graphed:
-            self._begin_graphs(x, cap_bias, cap_kv, phases)
-        timesteps, steps = self._step_tensors(num_inference_steps)
-        sstate = sched.init_state(x.shape)
-        self.phase_counts = {PHASE_SYNC: 0, PHASE_STALE: 0}
-        state = None
-        for i, phase in enumerate(phases):
-            x_in = self._model_input(x, i)
-            if graphed:
-                graph = self.graphs[phase]
-                graph.inputs.set_step(x_in, timesteps[i], steps[i])
-                if graph.stateful:
-                    graph.load_state(state)
-                eps, state = graph.replay(self._evaluate)
-            else:
-                eps, state = self._dit_local(x_in, timesteps[i], cap_bias, cap_kv, phase,
-                                             state)
-            x, sstate = self._guided_step(x, eps, i, sstate, gs)
-            self.phase_counts[phase] += 1
-            if callback is not None:
-                callback(i, sched.timesteps()[i],
-                         dit_mod.unpatchify(dcfg, x, dcfg.in_channels))
-        return dit_mod.unpatchify(dcfg, x, dcfg.in_channels)
-
-    def comm_report(self, batch_size: int = 1) -> Dict[str, Any]:
-        """This rank's stale-state elements and per-step collective volumes
-        of the configured layout, closed-form from the architecture, as the
-        JAX runner's ``comm_report`` gives them (the same keys and numbers;
-        the knobs of item 13b' are refused, so compressed and partial
-        refreshes never appear)."""
-        cfg, dcfg = self.cfg, self.dcfg
-        if not cfg.is_sp:
-            return {"layout": cfg.attn_impl, "kv_state_elems": 0,
-                    "per_step_collective_elems": 0, "per_step_collective_bytes": 0,
-                    "sync_step_collective_bytes": 0}
-        n = cfg.n_device_per_batch
-        b = batch_size * (1 if cfg.cfg_split or not cfg.do_classifier_free_guidance else 2)
-        n_tok, hid, depth = dcfg.num_tokens, dcfg.hidden_size, dcfg.depth
-        chunk = n_tok // n
-        eps_gather = b * n_tok * dcfg.patch_size ** 2 * dcfg.out_channels
-        if cfg.attn_impl == "gather":
-            state = depth * 2 * b * n_tok * hid
-            per_step = depth * 2 * b * n_tok * hid + eps_gather
-        else:  # ring: (n - 1) hops of the own 2C chunk a block, in the step
-            state = depth * b * chunk * 2 * hid
-            per_step = depth * (n - 1) * b * chunk * 2 * hid + eps_gather
-        itemsize = cfg.dtype.itemsize
-        if cfg.attn_impl == "gather":
-            refresh = depth * n * 2 * b * chunk * hid * itemsize
-            stale_bytes = refresh + eps_gather * itemsize
-        else:
-            stale_bytes = per_step * itemsize
-        return {"layout": cfg.attn_impl, "kv_state_elems": state,
-                "per_step_collective_elems": per_step,
-                "comm_compress": cfg.comm_compress,
-                "refresh_fraction": cfg.refresh_fraction,
-                "sync_step_collective_bytes": per_step * itemsize,
-                "per_step_collective_bytes": stale_bytes,
-                "full_refresh_per_step_collective_bytes": stale_bytes}
+        return self._generate((latents, enc, cap_mask), guidance_scale,
+                              num_inference_steps, callback=callback)

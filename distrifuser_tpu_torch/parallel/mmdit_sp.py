@@ -28,8 +28,9 @@ same way, in buffers of their own (``blocks_dual.<i>`` beside
 into the whole velocity; the CFG branches fold into the batch or split over
 ranks (parallel/guidance.py); under ``dp_degree`` each image group
 evaluates its share of the batch and the guided outputs gather before the
-replicated float32 scheduler step, as the DiT runner does (parallel/
-dit_sp.py, whose ``StepLoop`` and ``StepGraphs`` this runner shares).
+replicated float32 scheduler step, as the DiT runner does: both runners'
+loop, graphs and ``comm_report`` are parallel/dit_sp.py's
+``TransformerRunner``.
 
 Under ``use_cuda_graph`` each phase's evaluation is captured once and
 replayed (parallel/graphs.py): the token input, timestep and step are
@@ -48,12 +49,10 @@ parallel/dit_sp.py ``refuse_transformer_knobs``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
-
 import torch
 
 from ..models import mmdit as mm
-from ..models.dit import patchify, unpatchify
+from ..models.dit import patchify
 from ..models.mmdit import MMDiTConfig
 from ..ops.attention import displaced_kv
 from ..ops.ring_attention import ring_attend
@@ -61,11 +60,9 @@ from ..schedulers import BaseScheduler
 from ..utils.config import DistriConfig
 from .collectives import gather_rows
 from .compress import refresh_period
-from .context import PHASE_STALE, PHASE_SYNC, PatchContext
-from .dit_sp import refuse_transformer_knobs
-from .graphs import StepGraphs
+from .context import PatchContext
+from .dit_sp import TransformerRunner, refuse_transformer_knobs
 from .guidance import branch_select
-from .runner import StepLoop, check_graph_transport
 
 
 def check_mmdit_config(cfg: DistriConfig, mcfg: MMDiTConfig) -> None:
@@ -117,32 +114,25 @@ def check_mmdit_config(cfg: DistriConfig, mcfg: MMDiTConfig) -> None:
     refuse_transformer_knobs(cfg, "MMDiT")
 
 
-class MMDiTDenoiseRunner(StepLoop):
-    """The denoising loop of one (config, MMDiT, scheduler) on this rank.
-
-    After ``generate``, ``phase_counts`` holds how many steps ran in each
-    phase.  Replacing ``params`` drops the captured graphs."""
+class MMDiTDenoiseRunner(TransformerRunner):
+    """The denoising loop of one (config, MMDiT, scheduler) on this rank."""
 
     def __init__(self, distri_config: DistriConfig, mmdit_config: MMDiTConfig, params,
                  scheduler: BaseScheduler):
         check_mmdit_config(distri_config, mmdit_config)
-        check_graph_transport(distri_config)
-        self.cfg = distri_config
-        self.mcfg = mmdit_config
-        self.scheduler = scheduler
-        self.graphs = StepGraphs(distri_config.device)
-        self.params = params
-        self.phase_counts: Dict[str, int] = {}
-        self._schedule: Dict[int, Any] = {}
+        super().__init__(distri_config, mmdit_config, params, scheduler)
 
-    # -- one evaluation -----------------------------------------------------
+    @property
+    def n_attn(self) -> int:
+        return self.mcfg.depth + self.mcfg.dual_attention_blocks
 
-    def _mmdit_local(self, x_in, t, ctx0, pooled, phase, state):
+    def _local(self, x_in, t, cond, phase, state):
         """One MMDiT evaluation on this rank's token rows of ``x_in`` [Bl, N,
-        D] (scaled, the CFG branches folded), from the projected context
-        ``ctx0`` [Bl, Lc, hidden] and the pooled text [Bl, P]: (the whole
+        D] (scaled, the CFG branches folded) from ``cond`` = (the projected
+        context [Bl, Lc, hidden], the pooled text [Bl, P], None): (the whole
         velocity [Bl, N, D_out], the next step's buffers)."""
         cfg, mcfg, params = self.cfg, self.mcfg, self.params
+        ctx0, pooled, _ = cond
         dtype = params["proj_in"]["kernel"].dtype
         n = cfg.n_device_per_batch if cfg.is_sp else 1
         chunk = mcfg.num_tokens // n
@@ -188,56 +178,25 @@ class MMDiTDenoiseRunner(StepLoop):
             hooks["kv2_assemble"] = lambda kv2: displaced_kv(kv2, ctx, name2)
         return hooks
 
-    def _evaluate(self, phase, inputs, state):
-        """``_mmdit_local`` on a graph's static inputs (``enc`` holds the
-        projected context, ``added`` the pooled text)."""
-        return self._mmdit_local(inputs.x_in, inputs.t, inputs.enc, inputs.added, phase,
-                                 state)
-
-    # -- the loop -----------------------------------------------------------
-
-    def _phases(self, end: int, start: int = 0) -> List[str]:
-        """The evaluation of each step of ``start .. end - 1``: the first
-        ``warmup_steps + 1`` run synchronous (counted from ``start``), the
-        rest stale; every step synchronous under ``full_sync`` or without
-        patches."""
-        cfg = self.cfg
-        n_exec = end - start
-        if cfg.mode == "full_sync" or not cfg.is_sp:
-            return [PHASE_SYNC] * n_exec
-        n_sync = min(cfg.warmup_steps + 1, n_exec)
-        return [PHASE_SYNC] * n_sync + [PHASE_STALE] * (n_exec - n_sync)
-
     def _inputs(self, latents, enc, pooled):
-        """(the latent's tokens float32 [B, N, D], this rank's projected
-        context [Bl, Lc, hidden], its pooled text [Bl, P]) from branch-major
-        ``enc`` [n_br, B, Lc, joint_dim] and ``pooled`` [n_br, B, P]."""
+        """(the latent's tokens float32 [B, N, D], (this rank's projected
+        context [Bl, Lc, hidden], its pooled text [Bl, P], None)) from
+        branch-major ``enc`` [n_br, B, Lc, joint_dim] and ``pooled`` [n_br,
+        B, P]."""
         cfg = self.cfg
         dev = cfg.device
         x = patchify(self.mcfg, torch.as_tensor(latents).to(dev, torch.float32))
         enc, pooled = (torch.as_tensor(t).to(dev) for t in (enc, pooled))
         my_enc, _, _ = branch_select(cfg, self._my_images(enc, dim=1))
         my_pooled, _, _ = branch_select(cfg, self._my_images(pooled, dim=1))
-        return x, mm.context_in(self.params, my_enc), my_pooled
-
-    def _begin_graphs(self, x, ctx0, pooled, phases, start=0) -> None:
-        check_graph_transport(self.cfg)
-        timesteps, steps = self._step_tensors(self.scheduler.num_inference_steps)
-        stateful = [PHASE_STALE] if PHASE_STALE in phases else []
-        self.graphs.begin(tuple(x.shape), self._model_input(x, start), timesteps[start],
-                          ctx0, pooled, None, list(dict.fromkeys(phases)), stateful,
-                          self._evaluate, step=steps[start])
+        return x, (mm.context_in(self.params, my_enc), my_pooled, None)
 
     @torch.inference_mode()
     def prepare(self, latents, enc, pooled, *, num_inference_steps: int = 20) -> None:
         """Capture, ahead of the first call, the graphs a generation of these
         shapes and ``num_inference_steps`` steps replays; the input values do
         not matter.  Nothing to do without ``use_cuda_graph``."""
-        if not self.cfg.use_compiled_step:
-            return
-        self.scheduler.set_timesteps(num_inference_steps)
-        x, ctx0, my_pooled = self._inputs(latents, enc, pooled)
-        self._begin_graphs(x, ctx0, my_pooled, self._phases(num_inference_steps))
+        self._prepare(num_inference_steps, latents, enc, pooled)
 
     @torch.inference_mode()
     def generate(self, latents, enc, pooled, guidance_scale: float = 5.0,
@@ -250,72 +209,5 @@ class MMDiTDenoiseRunner(StepLoop):
         unconditional; every rank passes the same.  Steps ``start_step ..
         end_step - 1`` run; ``callback(i, t, latents)`` after each.  Returns
         the latent float32 [B, H/8, W/8, C], the same on every rank."""
-        cfg, mcfg, sched = self.cfg, self.mcfg, self.scheduler
-        end = num_inference_steps if end_step is None else end_step
-        if not 0 <= start_step < end <= num_inference_steps:
-            raise ValueError(f"steps {start_step}..{end} outside a schedule of "
-                             f"{num_inference_steps}")
-        sched.set_timesteps(num_inference_steps)
-        x, ctx0, my_pooled = self._inputs(latents, enc, pooled)
-        gs = torch.tensor(guidance_scale, dtype=torch.float32, device=cfg.device)
-        phases = self._phases(end, start_step)
-        graphed = cfg.use_compiled_step
-        if graphed:
-            self._begin_graphs(x, ctx0, my_pooled, phases, start_step)
-        timesteps, steps = self._step_tensors(num_inference_steps)
-        sstate = sched.init_state(x.shape)
-        self.phase_counts = {PHASE_SYNC: 0, PHASE_STALE: 0}
-        state = None
-        for i, phase in enumerate(phases, start=start_step):
-            x_in = self._model_input(x, i)
-            if graphed:
-                graph = self.graphs[phase]
-                graph.inputs.set_step(x_in, timesteps[i], steps[i])
-                if graph.stateful:
-                    graph.load_state(state)
-                out, state = graph.replay(self._evaluate)
-            else:
-                out, state = self._mmdit_local(x_in, timesteps[i], ctx0, my_pooled, phase,
-                                               state)
-            x, sstate = self._guided_step(x, out, i, sstate, gs)
-            self.phase_counts[phase] += 1
-            if callback is not None:
-                callback(i, sched.timesteps()[i], unpatchify(mcfg, x, mcfg.out_channels))
-        return unpatchify(mcfg, x, mcfg.out_channels)
-
-    def comm_report(self, batch_size: int = 1) -> Dict[str, Any]:
-        """This rank's stale-state elements and per-step collective volumes
-        of the configured layout, closed-form from the architecture, as the
-        JAX runner's ``comm_report`` gives them (the same keys and numbers;
-        a dual block carries and exchanges a second image KV; the knobs of
-        item 13b' are refused, so compressed and partial refreshes never
-        appear)."""
-        cfg, mcfg = self.cfg, self.mcfg
-        if not cfg.is_sp:
-            return {"layout": cfg.attn_impl, "kv_state_elems": 0,
-                    "per_step_collective_elems": 0, "per_step_collective_bytes": 0,
-                    "sync_step_collective_bytes": 0}
-        n = cfg.n_device_per_batch
-        b = batch_size * (1 if cfg.cfg_split or not cfg.do_classifier_free_guidance else 2)
-        n_tok, hid = mcfg.num_tokens, mcfg.hidden_size
-        n_attn = mcfg.depth + mcfg.dual_attention_blocks
-        chunk = n_tok // n
-        out_gather = b * n_tok * mcfg.patch_size ** 2 * mcfg.out_channels
-        if cfg.attn_impl == "ring":  # (n - 1) hops of the own 2C chunk a block
-            state = n_attn * b * chunk * 2 * hid
-            per_step = n_attn * (n - 1) * b * chunk * 2 * hid + out_gather
-        else:
-            state = n_attn * 2 * b * n_tok * hid
-            per_step = n_attn * 2 * b * n_tok * hid + out_gather
-        itemsize = cfg.dtype.itemsize
-        if cfg.attn_impl == "gather":
-            stale_bytes = n_attn * n * 2 * b * chunk * hid * itemsize + out_gather * itemsize
-        else:
-            stale_bytes = per_step * itemsize
-        return {"layout": cfg.attn_impl, "kv_state_elems": state,
-                "per_step_collective_elems": per_step,
-                "comm_compress": cfg.comm_compress,
-                "refresh_fraction": cfg.refresh_fraction,
-                "sync_step_collective_bytes": per_step * itemsize,
-                "per_step_collective_bytes": stale_bytes,
-                "full_refresh_per_step_collective_bytes": stale_bytes}
+        return self._generate((latents, enc, pooled), guidance_scale, num_inference_steps,
+                              start_step, end_step, callback)

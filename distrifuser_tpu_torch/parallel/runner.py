@@ -111,7 +111,8 @@ def check_graph_transport(cfg: DistriConfig) -> None:
 
 class StepLoop:
     """What the denoising loops of the model families share (the UNet's
-    ``DenoiseRunner``, the DiT's ``DiTDenoiseRunner`` of parallel/dit_sp.py):
+    ``DenoiseRunner``, the transformers' ``TransformerRunner`` of
+    parallel/dit_sp.py):
     a parameter tree whose replacement drops the captured graphs, this image
     group's share of the batch, a step's model input, the schedule's device
     tensors and the guided scheduler step.  Needs ``cfg``, ``scheduler``,

@@ -63,13 +63,22 @@ def test_dpm_solver_last_step_returns_x0():
     torch.testing.assert_close(out, (x - sg * eps) / a, rtol=1e-6, atol=1e-6)
 
 
-def test_flow_euler_is_refused_naming_its_item():
+def test_flow_euler_is_the_flow_sampler_and_unknown_names_are_refused():
     """"flow-euler" is the SD3 family's sampler (tests/test_torch_port_sd3.py
     holds it to the JAX one); an unknown name is refused with the list of
     names."""
     assert get_scheduler("flow-euler").prediction_type == "flow"
     with pytest.raises(ValueError, match="must be one of"):
         get_scheduler("pndm")
+
+
+def test_flow_euler_is_refused_naming_its_item():
+    """"flow-euler" is refused off the SD3 family, by every epsilon/v
+    family, naming the pipeline it is for."""
+    for family in ("DistriSDXLPipeline", "DistriSDPipeline", "DistriPixArtPipeline"):
+        with pytest.raises(ValueError,
+                           match=f"'flow-euler' on {family}.*DistriSD3Pipeline"):
+            _check_scheduler_family(get_scheduler("flow-euler"), family)
 
 
 def test_flow_scheduler_refused_on_sd_family():

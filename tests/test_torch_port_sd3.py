@@ -27,19 +27,26 @@ counterpart in the port, on the CPU in float32, at the tiny sizes
 * ``from_pretrained`` over a snapshot the test writes (safetensors shards,
   config.json files, the scheduler's flow shift, no T5) gives the JAX
   ``from_pretrained``'s latent on it;
-* ``cli/sd3_example.py``: its flags, defaults and refusals.
+* ``cli/sd3_example.py``: its flags, defaults and refusals;
+* ``chip_smoke.py``'s relative check of the flash kernel's "@sd3" rows:
+  a sound result passes it and one without the last KV tile fails it, at
+  the rows' key lengths and statistics.
 
 The multi-rank runner is tests/test_torch_port_mmdit_sp.py.
 """
 
 import dataclasses
+import importlib.util
 import json
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from safetensors.numpy import save_file
 
 from distrifuser_tpu import DistriConfig as JaxDistriConfig
@@ -59,6 +66,7 @@ from distrifuser_tpu_torch.models import t5 as port_t5
 from distrifuser_tpu_torch.models import vae as port_vae
 from distrifuser_tpu_torch.models import weights as port_weights
 from distrifuser_tpu_torch.models.weights import params_from_jax
+from distrifuser_tpu_torch.ops import flash_attention as port_fa
 from distrifuser_tpu_torch.parallel.compress import QuantizedTensor
 from distrifuser_tpu_torch.schedulers import FlowMatchEulerScheduler, get_scheduler
 from test_mmdit_weights import synth_sd
@@ -579,3 +587,41 @@ def test_sd3_example_refusals(capsys, flags, message):
         sd3_example.main(TINY + flags)
     assert e.value.code == 2
     assert message in capsys.readouterr().err
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("lk, block_k, d", [
+    (4250, 128, 64),  # the dense joint call: 26 ragged keys
+    (154, 128, 64),  # the ring's static context block: 26 ragged keys
+    (4096, 64, 64),  # SD3.5-medium's dual attention, a tile of 64
+    (2048, 128, 64),  # the ring's chunk
+    (16384, 32, 512),  # the SD3 VAE's mid attention
+])
+def test_sd3_flash_check_sees_a_dropped_key_tile(lk, block_k, d):
+    """chip_smoke.py holds the "@sd3" flash rows in units of the plain
+    result's scale: bf16 q, k, v drawn N(0, 1) as the card's rows are, a
+    sound result (float32 SDPA rounded to bf16) passes, and the plain result
+    without the last KV tile fails the limits, which the absolute ones of the
+    other rows (2e-2 / 2e-3) would let through at 4250 keys."""
+    smoke = _chip_smoke()
+    heads = 2 if d == 64 else 1
+    rng = np.random.default_rng(lk)
+    q, k, v = (torch.tensor(rng.standard_normal((1, n, heads * d)),
+                            dtype=torch.float32).bfloat16() for n in (64, lk, lk))
+    want = port_fa.flash_sdpa_reference(q, k, v, heads=heads)
+    qh, kh, vh = (t.float().unflatten(-1, (heads, d)).transpose(1, 2) for t in (q, k, v))
+    sound = F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2).flatten(2).bfloat16()
+    keep = lk - smoke.tail_keys(lk, block_k)
+    cut = port_fa.flash_sdpa_reference(q, k[:, :keep], v[:, :keep], heads=heads)
+    readings = smoke.relative_check("sound", sound, want, cut)
+    assert readings["tail_cut_rel_mean_err"] > 2 * smoke.SD3_REL_MEAN
+    limits = re.escape(f"over {smoke.SD3_REL_MAX}/{smoke.SD3_REL_MEAN}")
+    with pytest.raises(AssertionError, match=limits):
+        smoke.relative_check("tail dropped", cut, want, cut)
