@@ -52,7 +52,11 @@ Phases (any failure raises, and the script exits non-zero):
    attention (2, 4096, 4096, 24, 64), 13 an evaluation; and the
    "sd3_ring" run's log-sum-exp chunks (1, 2202, 2048, 24, 64), the own
    chunk and one hop, and (1, 2202, 154, 24, 64), the static context
-   block), the first path where query and KV lengths are both ragged:
+   block), the first path where query and KV lengths are both ragged;
+   and the DiT's head-sharded layouts at d = 72 (one rank of the
+   "dit_ulysses" run (1, 4096, 4096, 8, 72): 8 heads of every token, q, k
+   and v views of the all-to-all's receive buffer [B, L, 3C]; and the
+   "dit_usp" run's log-sum-exp chunks (2, 2048, 2048, 8, 72)):
    each "@sd3" row is held besides in units of the plain result's own
    scale (max |d| / mean |want| <= 0.5, mean |d| / mean |want| <= 1.5e-2,
    about 10x a sound kernel's readings), and the plain result without the
@@ -87,7 +91,12 @@ Phases (any failure raises, and the script exits non-zero):
    ("refresh_compress_pcpp_<kind>_<shape>", int8, k = 2), stepcache_batch's
    step tables in one grouped launch each ("refresh_stepcache_batch_<phase>
    _table", fp8; also with the residual base), bit for bit with their plain
-   versions, timed beside them; the quant rows also cover PixArt-α's DiT
+   versions, timed beside them; the transformer knob runs' KV payloads
+   ("refresh_dit_knobs_kv2_1x2048x2304", "refresh_sd3_knobs_kv2_1x2048x3072":
+   one rank's fused KV of a block at CFG 2 x sp 2, int8, k = 2, one float32
+   scale per row of k and one per row of v, the halves read in place as the
+   two parts of one segment and decoded as two segments of one launch; also
+   with the residual base); the quant rows also cover PixArt-α's DiT
    linears and T5-XXL's (M, K, N) ("...@pixart"; T5's with no launches:
    the text encoder follows ``weight_quant_aux``, which densifies) and
    SD3-medium's MMDiT linears at 1024x1024 with CFG folded ("...@sd3",
@@ -212,7 +221,22 @@ Phases (any failure raises, and the script exits non-zero):
    to ``SPAWN_T5_LAYERS`` layers, with tiny checks (full_sync too for
    "sd3"), flash 4*24 (ring: 3*4*24 log-sum-exp: the own chunk, the static
    context block, one hop) + 2 a call, the runner's ``comm_report`` and
-   ``comm_plan``.  ``decode_sp``: the tiny VAE's sequence-parallel decode on the
+   ``comm_plan``.  The transformer runners' comm knobs and the DiT's
+   head-sharded layouts, each run with its tiny checks and its flash,
+   log-sum-exp, codec and all-to-all counts derived from the config
+   (``transformer_expected``), its ``comm_report``, ``comm_plan``, refresh
+   bytes by phase and step times by evaluation: ``dit_knobs`` and
+   ``sd3_knobs`` (CFG 2 x sp 2, warmup 1, int8 refreshes with
+   ``refresh_fraction=0.5``, the step cache at interval 2 and depth 14 of
+   28 / 12 of 24, 6 steps: 2 synchronous, 2 stale, 2 shallow; flash 142 and
+   122 a rank, one encode and one decode launch a refreshed block: 84 and
+   72; tiny checks at depth 1, int8_residual and fp8 too, and for SD3 an
+   SD3.5-medium-shaped one with its dual prefix), ``dit_ulysses`` (CFG 2 x
+   sp 2, 4 steps: flash 114, 224 all-to-alls a rank; tiny check full_sync
+   too) and ``dit_usp`` (sp 4 with the CFG branches folded,
+   ``ulysses_degree=2``: 228 log-sum-exp launches, 224 all-to-alls; tiny
+   checks at ``ulysses_degree`` 1 and 4, the latter on a 4-head tiny DiT).
+   ``decode_sp``: the tiny VAE's sequence-parallel decode on the
    card against the CPU at world 4 (relative L2 <= 8e-2), then a 2048x2048
    SDXL latent decoded sequence-parallel at sp 4 and at CFG 2 x sp 2 through
    ``pipelines.decode_latents``, each rank's ms and peak memory and d = 512
@@ -248,9 +272,9 @@ multi-rank phase; with ``--profile`` each rank also
 profiles one more call of each run in each mode, with the device
 activities (kernel launches, NCCL's and memory copies included) of each
 step by the evaluation it ran (``launches_by_phase``) and an "overlap"
-line per run, rank and mode: for each stale step its NCCL kernels' own
-device time, the share of it that lies under the rank's compute kernels
-and the exposed NCCL time (``stale_step_overlap``).  ``--runs a,b``
+line per run, rank and mode: for each stale and shallow step its NCCL
+kernels' own device time, the share of it that lies under the rank's
+compute kernels and the exposed NCCL time (``stale_step_overlap``).  ``--runs a,b``
 (with ``--patch_only``) runs only those multi-rank runs, without the
 kernel rows and the kernels line.
 ``--quant_device_times`` runs only the device time of the quantized-matmul
@@ -355,9 +379,38 @@ MULTI_RUNS = {
             {"sync": 2, "stale": 2}, "sd3", PATCH_STEPS),
     "sd3_ring": ({"warmup_steps": PATCH_WARMUP, "attn_impl": "ring"}, [{}],
                  {"sync": 2, "stale": 2}, "sd3", PATCH_STEPS),
+    # the transformer runners' comm knobs (the gather refresh int8 with one
+    # scale per k and per v row, every other token row a stale step; the step
+    # cache at interval 2 cutting half the blocks) and the DiT's head-sharded
+    # layouts; the tiny checks cut at their own depth ("heads": the tiny
+    # DiT's head count, "model": the tiny MMDiT's shape)
+    "dit_knobs": ({"warmup_steps": PATCH_WARMUP, "comm_compress": "int8",
+                   "refresh_fraction": 0.5, "step_cache_interval": 2,
+                   "step_cache_depth": 14},
+                  [{"step_cache_depth": 1},
+                   {"step_cache_depth": 1, "comm_compress": "int8_residual"},
+                   {"step_cache_depth": 1, "comm_compress": "fp8", "refresh_fraction": 1.0}],
+                  {"sync": 2, "stale": 2, "shallow": 2}, "pixart", 6),
+    "sd3_knobs": ({"warmup_steps": PATCH_WARMUP, "comm_compress": "int8",
+                   "refresh_fraction": 0.5, "step_cache_interval": 2,
+                   "step_cache_depth": 12},
+                  [{"step_cache_depth": 1},
+                   {"step_cache_depth": 1, "comm_compress": "int8_residual"},
+                   {"step_cache_depth": 1, "comm_compress": "fp8", "refresh_fraction": 1.0},
+                   {"step_cache_depth": 1, "model": "sd35m"}],
+                  {"sync": 2, "stale": 2, "shallow": 2}, "sd3", 6),
+    "dit_ulysses": ({"warmup_steps": PATCH_WARMUP, "attn_impl": "ulysses"},
+                    [{}, {"mode": "full_sync"}], {"sync": 2, "stale": 2}, "pixart",
+                    PATCH_STEPS),
+    "dit_usp": ({"warmup_steps": PATCH_WARMUP, "attn_impl": "usp", "ulysses_degree": 2,
+                 "split_batch": False},
+                [{}, {"ulysses_degree": 1}, {"ulysses_degree": 4, "heads": 4}],
+                {"sync": 2, "stale": 2}, "pixart", PATCH_STEPS),
 }
-DIT_RUNS = ("dit", "dit_ring")
-SD3_RUNS = ("sd3", "sd3_ring")
+DIT_RUNS = ("dit", "dit_ring", "dit_knobs", "dit_ulysses", "dit_usp")
+SD3_RUNS = ("sd3", "sd3_ring", "sd3_knobs")
+# the transformer runs whose stale refreshes go through the refresh codec
+TRANSFORMER_KNOB_RUNS = ("dit_knobs", "sd3_knobs")
 # T5-XXL layers of the multi-rank PixArt runs (full width; four ranks on one
 # card each hold a copy); the single-card PixArt call runs all 24
 SPAWN_T5_LAYERS = 6
@@ -366,14 +419,22 @@ SPAWN_T5_LAYERS = 6
 # call (CFG folded, B = 2), one rank of the "dit" run at CFG 2 x sp 2 (2048
 # queries against the gathered 4096 keys) and a dense 512x512 call
 PIXART_STEPS, PIXART_DEPTH = 4, 28
+# (the dense call's row first, then the multi-rank rows PIXART_SHAPES[1:3]:
+# one "dit" rank's and one "dit_ulysses" rank's); "dit_ulysses" at CFG 2 x sp 2: each rank's 8 heads
+# of every token, q, k and v views of the all-to-all's receive buffer
 PIXART_SHAPES = (
     ("dit_self" + PIXART, 2, 4096, 4096, 16, 72, PIXART_STEPS * PIXART_DEPTH),
     ("patch_dit_self" + PIXART, 1, 2048, 4096, 16, 72, PIXART_STEPS * PIXART_DEPTH),
+    ("dit_ulysses_self" + PIXART, 1, 4096, 4096, 8, 72, PIXART_STEPS * PIXART_DEPTH),
     ("dit512_self" + PIXART, 2, 1024, 1024, 16, 72, PIXART_STEPS * PIXART_DEPTH))
 # the "dit_ring" run's chunks: one rank's 2048 queries against one rank's 2048
-# keys, the own chunk and one hop a block and step at sp 2
+# keys, the own chunk and one hop a block and step at sp 2; the "dit_usp"
+# run's at sp 4, ulysses_degree 2 (CFG folded): a pair's 2048 tokens on 8
+# heads against the same of each of the ring's two assemblies
 PIXART_RING_HOPS = (("dit_ring_hop" + PIXART, 1, 2048, 2048, 16, 72,
-                     2 * PIXART_STEPS * PIXART_DEPTH),)
+                     2 * PIXART_STEPS * PIXART_DEPTH),
+                    ("dit_usp_chunk" + PIXART, 2, 2048, 2048, 8, 72,
+                     2 * PIXART_STEPS * PIXART_DEPTH))
 KNOB_RUNS = ("ring", "compress_pcpp", "stepcache_batch")
 # the ring attention's chunk shapes at CFG 2 x sp 2 (B = 1, L / 2 queries
 # against one rank's L / 2 keys), as the flash kernel's log-sum-exp
@@ -704,18 +765,48 @@ def multi_expected(label, ucfg):
     fields, _, _, model, steps = MULTI_RUNS[label]
     if label in KNOB_RUNS:
         return knob_expected(label, ucfg)
-    plain, lse = decode_launches(fields, model)
     if label in DIT_RUNS + SD3_RUNS:  # ucfg: the DiT's or the MMDiT's
-        # a ring block launches 2 chunks at sp 2, and the MMDiT's one more for
-        # the static context block
-        chunks = 2 + (label in SD3_RUNS)
-        ring = chunks * steps * ucfg.depth if fields.get("attn_impl") == "ring" else 0
-        return {"flash_sdpa": (ring or steps * ucfg.depth) + plain + lse,
-                "flash_sdpa_lse": ring + lse, "quant_matmul": 0, "quantize_rows": 0}
+        return transformer_expected(label, ucfg)
+    plain, lse = decode_launches(fields, model)
     from distrifuser_tpu_torch.models import unet
 
     return {"flash_sdpa": steps * unet.attention_calls_per_forward(ucfg) + plain + lse,
             "flash_sdpa_lse": lse, "quant_matmul": 0, "quantize_rows": 0}
+
+
+def transformer_expected(label, mcfg):
+    """The launches one call of the transformer run ``label`` (DIT_RUNS,
+    SD3_RUNS) makes on one rank, from the DiT's or MMDiT's config ``mcfg``:
+    one attention a block and evaluated step (a shallow step of the step
+    cache runs the first depth - step_cache_depth blocks, and the dual
+    prefix), each the plain flash instance once ("gather", "ulysses") or
+    the log-sum-exp one once a chunk ("ring": the own chunk, the MMDiT's
+    static context block and one hop a peer; "usp": the own assembly and
+    one hop a peer of the ring group); the refresh codec's encoder and
+    decoder once a compressed payload in every stale and shallow step; two
+    all-to-alls an attention under ulysses, and under usp with
+    ``ulysses_degree`` > 1; and the decode's (``decode_launches``)."""
+    from distrifuser_tpu_torch.parallel.stepcache import phase_step_counts
+
+    fields, _, _, model, steps = MULTI_RUNS[label]
+    counts = phase_step_counts(steps, fields["warmup_steps"],
+                               fields.get("step_cache_interval", 1))
+    dual = getattr(mcfg, "dual_attention_blocks", 0)
+    per_full = mcfg.depth + dual
+    per_shallow = mcfg.depth - fields.get("step_cache_depth", 0) + dual
+    attn = (counts["sync"] + counts["stale"]) * per_full + counts["shallow"] * per_shallow
+    refreshed = counts["stale"] * per_full + counts["shallow"] * per_shallow
+    n = PATCH_WORLD // fields.get("dp_degree", 1)
+    n = n // 2 if fields.get("split_batch", True) else n
+    impl = fields.get("attn_impl", "gather")
+    u = fields.get("ulysses_degree", 1)
+    chunks = {"ring": n + (model == "sd3"), "usp": n // u}.get(impl, 0)
+    plain, lse = decode_launches(fields, model)
+    codec = refreshed if fields.get("comm_compress", "none") != "none" else 0
+    a2a = 2 * attn if impl == "ulysses" or (impl == "usp" and u > 1) else 0
+    return {"flash_sdpa": attn * max(chunks, 1) + plain + lse,
+            "flash_sdpa_lse": attn * chunks + lse, "quant_matmul": 0,
+            "quantize_rows": codec, "dequantize_rows": codec, "all_to_all": a2a}
 
 
 def knob_expected(label, ucfg):
@@ -783,12 +874,41 @@ def refresh_codec_rows(ucfg, height, width):
         rows.append({"shape": f"refresh_stepcache_batch_{phase}_table", "mode": "fp8",
                      "k": 1, "sources": sources,
                      "launches_per_call": counts[phase] * -(-len(sources) // CODEC_TABLE)})
+    return rows + transformer_codec_rows()
+
+
+def transformer_codec_rows():
+    """The refresh-codec rows of the transformer knob runs
+    (TRANSFORMER_KNOB_RUNS, int8, k = 2): one rank's fused KV [1, N/2,
+    2·hidden] of a block at CFG 2 x sp 2, coded with one scale per row of k
+    and one per row of v ("kv2": the two column halves read in place as the
+    parts of one segment, decoded as two segments of one launch), one
+    launch of each kernel a block in every stale step and a block before
+    the cut in every shallow one; also checked with the residual base."""
+    from distrifuser_tpu_torch.parallel.stepcache import phase_step_counts
+
+    rows = []
+    for label in TRANSFORMER_KNOB_RUNS:
+        fields, _, _, model, steps = MULTI_RUNS[label]
+        mcfg = model_configs(model)[0]
+        counts = phase_step_counts(steps, fields["warmup_steps"],
+                                   fields["step_cache_interval"])
+        shape = (1, mcfg.num_tokens // 2, 2 * mcfg.hidden_size)
+        payloads = (counts["stale"] * mcfg.depth
+                    + counts["shallow"] * (mcfg.depth - fields["step_cache_depth"]))
+        rows.append({"shape": f"refresh_{label}_kv2_{'x'.join(map(str, shape))}",
+                     "mode": fields["comm_compress"],
+                     "k": round(1 / fields["refresh_fraction"]),
+                     "sources": [("kv2", shape)], "launches_per_call": payloads,
+                     "residual_check": True})
     return rows
 
 
 def _codec_segments(sources, k, residual, seed):
     """Encode and decode segments of the refresh codec as the patch context
-    builds them for ``sources`` (``refresh_sources`` keys): bf16 sources
+    builds them for ``sources`` (``refresh_sources`` keys, or "kv2": a
+    transformer's fused KV [B, L/n, 2C] whose k and v halves are the two
+    parts of one segment, decoded as two segments): bf16 sources
     read in place (a KV [B, L/n, 2C]; a halo's two boundary slabs of its
     [B, h/n, W, C] activation), the rotation r = 1 a device scalar when
     k > 1, the residual base (the previous slot or the own rows) when
@@ -798,7 +918,7 @@ def _codec_segments(sources, k, residual, seed):
     import torch
 
     from distrifuser_tpu_torch.ops import quantize as qz
-    from distrifuser_tpu_torch.parallel.context import _halo_slabs
+    from distrifuser_tpu_torch.parallel.context import _half, _halo_slabs, _halves
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     every = (k, torch.tensor(1, device="cuda")) if k > 1 else None
@@ -810,14 +930,25 @@ def _codec_segments(sources, k, residual, seed):
 
     enc, prevs = [], []
     for kind, shape in sources:
-        x = rows(*shape) if kind == "kv" else _halo_slabs(rows(*shape), 1)
-        base = rows(*x.shape) if residual else None
+        if kind == "kv2":  # the k and v halves as the parts of one view
+            x = _halves(rows(*shape), 2)
+            base = _halves(rows(*shape), 2) if residual else None
+        else:
+            x = rows(*shape) if kind == "kv" else _halo_slabs(rows(*shape), 1)
+            base = rows(*x.shape) if residual else None
         enc.append(qz.EncodeSeg(x, base, every))
-        prevs.append(rows(2, *shape) if kind == "kv" else rows(*x.shape))
+        prevs.append(rows(2, *shape) if kind in ("kv", "kv2") else rows(*x.shape))
 
     def decode_segs(coded):
         segs = []
         for (kind, _), (q, s), prev in zip(sources, coded, prevs):
+            if kind == "kv2":  # both ranks' payloads, each half into its buffer
+                q, s = torch.stack([q, q]), torch.stack([s, s])
+                segs += [qz.DecodeSeg(q[:, h], s[:, h],
+                                      _half(prev, h, 2) if residual else None,
+                                      _half(prev, h, 2) if every is not None else None,
+                                      every) for h in range(2)]
+                continue
             if kind == "kv":  # [n, ...]: both ranks' payloads
                 q, s = torch.stack([q, q]), torch.stack([s, s])
             else:  # from the previous rank (its bottom) and the next (its top)
@@ -837,11 +968,11 @@ def _codec_bytes(sources, k, residual):
     rows, and writes the whole buffer of both parts (bf16)."""
     enc = dec = 0.0
     for kind, shape in sources:
-        cols = shape[-1]
-        full = math.prod(shape[:-1]) * (1 if kind == "kv" else 2 / shape[1])  # rows a rank
+        cols = shape[-1] // (2 if kind == "kv2" else 1)  # kv2: a row a half
+        full = math.prod(shape[:-1]) * {"kv": 1, "kv2": 2}.get(kind, 2 / shape[1])
         sel = full / k
         enc += sel * cols * (2 + (2 if residual else 0) + 1) + 4 * sel
-        parts = 2 if kind == "kv" else 1  # a KV buffer holds both ranks' rows
+        parts = 2 if kind in ("kv", "kv2") else 1  # a KV buffer holds both ranks' rows
         dec += parts * (sel * cols * (1 + (2 if residual else 0)) + 4 * sel
                         + 2 * (full - sel) * cols + 2 * full * cols)
     return enc, dec
@@ -867,7 +998,7 @@ def refresh_codec_phase(rows):
     results = []
     for i, row in enumerate(rows):
         mode, k, sources = row["mode"], row["k"], row["sources"]
-        checks = [False, True] if len(sources) > 1 else [False]
+        checks = [False, True] if len(sources) > 1 or row.get("residual_check") else [False]
         for residual in checks:
             enc, decode_segs = _codec_segments(sources, k, residual, seed=i)
             payload = "int8" if residual else mode
@@ -1079,8 +1210,14 @@ def kernel_phase(shapes, spills):
             kv_view = k.untyped_storage().data_ptr() == gathered.untyped_storage().data_ptr()
             if b == 1 and not kv_view:
                 raise AssertionError(f"{name}: the flattened KV is a copy at B = 1")
+        elif name.startswith("dit_ulysses_self"):
+            # q, k and v of every rank's rows, this rank's heads: views of the
+            # all-to-all's receive buffer [B, L, 3C] (ops/ulysses.py)
+            q, k, v = torch.randn(b, lq, 3 * c, device="cuda",
+                                  generator=g).bfloat16().chunk(3, -1)
         else:  # strided views of the fused to_kv output
             k, v = torch.randn(b, lk, 2 * c, device="cuda", generator=g).bfloat16().chunk(2, -1)
+
         def plain():
             """The plain version, over query chunks of at most 2^31 logits
             (query rows are independent)."""
@@ -1563,10 +1700,11 @@ def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", pro
     return result
 
 
-def _tiny_pixart_check(steps, scheduler, prompts, **fields):
-    """``tiny_check`` of the tiny PixArt pipeline: a 2-block DiT of 2 heads of
-    PixArt's d = 72, the tiny T5, the tiny VAE, bf16 on the card vs float32
-    on the CPU from the same weights and latents, relative L2 <= 8e-2."""
+def _tiny_pixart_check(steps, scheduler, prompts, heads=TINY_PIXART_HEADS, **fields):
+    """``tiny_check`` of the tiny PixArt pipeline: a 2-block DiT of ``heads``
+    heads of PixArt's d = 72, the tiny T5, the tiny VAE, bf16 on the card vs
+    float32 on the CPU from the same weights and latents, relative L2 within
+    TINY_REL_L2 (fp8's with fp8 refresh payloads)."""
     import numpy as np
     import torch
 
@@ -1575,8 +1713,8 @@ def _tiny_pixart_check(steps, scheduler, prompts, **fields):
     from distrifuser_tpu_torch.models.unet import cast_params
 
     gen = torch.Generator().manual_seed(0)
-    dcfg = dit.DiTConfig(sample_size=16, hidden_size=72 * TINY_PIXART_HEADS, depth=2,
-                         num_heads=TINY_PIXART_HEADS, mlp_ratio=2, caption_dim=32)
+    dcfg = dit.DiTConfig(sample_size=16, hidden_size=72 * heads, depth=2,
+                         num_heads=heads, mlp_ratio=2, caption_dim=32)
     tcfg, vcfg = t5.tiny_t5_config(), vae.tiny_vae_config()
     trees = (dit.init_dit_params(gen, dcfg), vae.init_vae_params(gen, vcfg),
              t5.init_t5_params(gen, tcfg))
@@ -1593,11 +1731,12 @@ def _tiny_pixart_check(steps, scheduler, prompts, **fields):
                                   output_type="latent").images))
     ref, got = outs
     rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    limit = TINY_REL_L2["fp8" if fields.get("comm_compress") == "fp8" else "none"]
     result = {"phase": "tiny_check", "model": "pixart", "scheduler": scheduler,
               "weight_quant": "none", "steps": steps, "prompts": prompts, **fields,
-              "head_dim": 72, "rel_l2": rel, "max_abs": float(np.abs(got - ref).max()),
-              "limit_rel_l2": TINY_REL_L2["none"]}
-    if not np.isfinite(got).all() or rel > TINY_REL_L2["none"]:
+              "heads": heads, "head_dim": 72, "rel_l2": rel,
+              "max_abs": float(np.abs(got - ref).max()), "limit_rel_l2": limit}
+    if not np.isfinite(got).all() or rel > limit:
         raise AssertionError(f"tiny PixArt pipeline ({fields}) bf16/card vs fp32/cpu: "
                              f"{result}")
     return result
@@ -1659,7 +1798,8 @@ def _tiny_sd3_check(steps, prompts, weight_quant="none", sd35=False, **fields):
         launches = read_counts()
     ref, got = outs
     rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
-    limit = TINY_REL_L2[weight_quant]
+    limit = TINY_REL_L2["fp8" if "fp8" in (weight_quant, fields.get("comm_compress"))
+                        else weight_quant]
     result = {"phase": "tiny_check", "model": "sd35m" if sd35 else "sd3",
               "scheduler": "flow-euler", "weight_quant": weight_quant, "steps": steps,
               "prompts": prompts, **fields, "head_dim": 64,
@@ -1823,16 +1963,18 @@ MODEL_NAMES = {"sdxl": "SDXL-base widths", "sd15": "SD 1.5 widths",
 
 
 def reset_counts():
-    """Every kernel wrapper's launch count set to 0."""
+    """Every kernel wrapper's launch count set to 0, and the all-to-alls'."""
     from distrifuser_tpu_torch.ops import flash_attention as fa
     from distrifuser_tpu_torch.ops import quant_matmul as qm
     from distrifuser_tpu_torch.ops import quantize as qz
+    from distrifuser_tpu_torch.parallel.collectives import all_to_all
 
     fa.flash_sdpa.launches = fa.flash_sdpa.lse_launches = 0
     fa.flash_sdpa.launches_by_head_dim.clear()
     fa.flash_sdpa.lse_launches_by_head_dim.clear()
     qm.quant_matmul.launches = 0
-    for fn in (qz.quantize_rows, qz.quantize_rows_grouped, qz.dequantize_rows_grouped):
+    for fn in (qz.quantize_rows, qz.quantize_rows_grouped, qz.dequantize_rows_grouped,
+               all_to_all):
         fn.launches = 0
 
 
@@ -1840,12 +1982,14 @@ def read_counts():
     from distrifuser_tpu_torch.ops import flash_attention as fa
     from distrifuser_tpu_torch.ops import quant_matmul as qm
     from distrifuser_tpu_torch.ops import quantize as qz
+    from distrifuser_tpu_torch.parallel.collectives import all_to_all
 
     return {"flash_sdpa": fa.flash_sdpa.launches,
             "flash_sdpa_lse": fa.flash_sdpa.lse_launches,
             "quant_matmul": qm.quant_matmul.launches,
             "quantize_rows": qz.quantize_rows.launches + qz.quantize_rows_grouped.launches,
-            "dequantize_rows": qz.dequantize_rows_grouped.launches}
+            "dequantize_rows": qz.dequantize_rows_grouped.launches,
+            "all_to_all": all_to_all.launches}
 
 
 def counted_call(fn, label, flash_expected):
@@ -1920,7 +2064,7 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl", num_steps=4, promp
     if len(out.images) != len(prompts):
         raise AssertionError(f"{label}: {len(out.images)} images for {len(prompts)} prompts")
     img = np.concatenate(out.images)
-    if launches != {"flash_sdpa_lse": 0, "dequantize_rows": 0, **expected}:
+    if launches != {"flash_sdpa_lse": 0, "dequantize_rows": 0, "all_to_all": 0, **expected}:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
     pixels = (img * 255).round().astype(np.uint8)
     steps = [(marks[i] - marks[i - 1]) * 1e3 for i in range(1, len(marks))]
@@ -1948,6 +2092,7 @@ def pipeline_run(pipe, init_s, label, expected, model="sdxl", num_steps=4, promp
         "quant_matmul_launches": launches["quant_matmul"],
         "quantize_rows_launches": launches["quantize_rows"],
         "dequantize_rows_launches": launches["dequantize_rows"],
+        "all_to_all_calls": launches["all_to_all"],
         "pixel_mean": float(pixels.mean()),
         "image_sha256": image_digest(img),
         **({} if len(prompts) == 1 else
@@ -2550,8 +2695,8 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
             trees_s = time.perf_counter() - t0
             expected = multi_expected(label, trees[model][0])
             prompts = RUN_PROMPTS.get(label, [PROMPT])
-            tiny = [tiny_check(steps=steps, model=model, use_cuda_graph=False,
-                               **{**fields, **t}) for t in tinies]
+            tiny = [tiny_check(steps=steps, use_cuda_graph=False,
+                               **{"model": model, **fields, **t}) for t in tinies]
             pipe, init_s = build_pipeline(trees[model], model, use_cuda_graph=False,
                                           **fields)
             init_s += trees_s
@@ -2801,6 +2946,8 @@ def transformer_line(pipe, line, steps, trees):
     transformer whole)."""
     phases = pipe.runner._phases(steps)
     return {"comm_report": pipe.runner.comm_report(1), "comm_plan": pipe.comm_plan(steps),
+            "refresh_wire_bytes_by_phase": {ph: sum(wire.values()) for ph, wire
+                                            in pipe.runner.refresh_wire.items()},
             "attn_impl": pipe.distri_config.attn_impl,
             "step_ms_by_phase": step_ms_by_phase(phases, line),
             "evaluations": phases, "t5_layers": trees[4][-1].num_layers,
@@ -2992,8 +3139,9 @@ def _covered(a, b, union):
 
 
 def stale_step_overlap(events, marks, phases, details_path):
-    """For each stale step of a profiled call (the device activities that
-    start between its two step marks): each NCCL kernel's own device time
+    """For each stale and shallow step of a profiled call (the device
+    activities that start between its two step marks): each NCCL kernel's
+    own device time
     and the share of its interval that lies under the rank's compute
     kernels (every other kernel; memory copies left out), and the exposed
     NCCL time, the time NCCL kernels run with no compute kernel beside
@@ -3008,7 +3156,7 @@ def stale_step_overlap(events, marks, phases, details_path):
                and not e.name.startswith("nccl:")]
     steps, details = [], []
     for i in range(1, min(len(marks), len(phases))):
-        if phases[i] != "stale":
+        if phases[i] not in ("stale", "shallow"):
             continue
         lo, hi = marks[i - 1], marks[i]
         step = [k for k in kernels if lo < k[0] <= hi]
@@ -3029,7 +3177,8 @@ def stale_step_overlap(events, marks, phases, details_path):
         exposed_us = sum(y - x - _covered(x, y, compute)
                          for x, y in _merge([(a, b) for a, b, _ in nccl]))
         steps.append({
-            "step": i, "step_ms": (hi - lo) / 1e3, "nccl_kernels": len(nccl),
+            "step": i, "phase": phases[i], "step_ms": (hi - lo) / 1e3,
+            "nccl_kernels": len(nccl),
             "nccl_ms": own_us / 1e3,
             "nccl_covered_share": covered_us / own_us if own_us else None,
             "exposed_nccl_ms": exposed_us / 1e3,
@@ -3442,6 +3591,30 @@ def main(argv) -> int:
                                 "sp 2, 4-step 1024x1024 PixArt call; library: the fastest of "
                                 "aten's efficient, flash and cuDNN attention with the "
                                 "log-sum-exp")
+        knobs, ulysses = multi_runs["dit_knobs"][-1], multi_runs["dit_ulysses"][-1]
+        usp = multi_runs["dit_usp"][-1]
+        per_call = PIXART_STEPS * PIXART_DEPTH  # a row's launches in a 4-step call
+        knob_attn = transformer_expected("dit_knobs", model_configs("pixart")[0])
+        plain["dit_knobs"] = path_entry(
+            rows_of(rows, "patch_dit_self", "pixart"),
+            [("patch_dit_self", (knob_attn["flash_sdpa"] - sum(
+                decode_launches(MULTI_RUNS["dit_knobs"][0], "pixart"))) / per_call)],
+            knobs["flash_sdpa_launches"] - d512(knobs),
+            work="one rank of the dit_knobs run (int8 refresh of every other row, the step "
+                 "cache at interval 2 and depth 14) at CFG 2 x sp 2, 6-step 1024x1024 "
+                 "PixArt call: 28 blocks in each of 4 full steps, 14 in each of 2 shallow")
+        plain["dit_ulysses"] = path_entry(
+            rows_of(rows, "dit_ulysses_self", "pixart"), [("dit_ulysses_self", 1)],
+            ulysses["flash_sdpa_launches"] - d512(ulysses),
+            work="one rank of the dit_ulysses run at CFG 2 x sp 2, 4-step 1024x1024 "
+                 "PixArt call: 8 heads of every token a block, q, k and v views of the "
+                 "all-to-all's receive buffer")
+        lse["dit_usp"] = path_entry(
+            rows_of(rows, "dit_usp_chunk", "pixart"), [("dit_usp_chunk", 1)],
+            usp["flash_sdpa_lse_launches"] - d512(usp),
+            work="one rank of the dit_usp run at sp 4 (CFG folded), ulysses_degree 2, "
+                 "4-step 1024x1024 PixArt call: per block and step a pair's 2048 tokens "
+                 "on 8 heads against the own assembly and one hop")
         return [plain, lse]
 
     def sd3_entries(rows, multi_runs, sd3=None, sd35m=None):
@@ -3461,6 +3634,18 @@ def main(argv) -> int:
             work="one rank of the sd3 run (gather layout) at CFG 2 x sp 2, 4-step "
                  "1024x1024 SD3-medium call: the joint attention at 154 + 2048 queries "
                  "against 4250 keys, and the decode's ring")}
+        knobs = multi_runs["sd3_knobs"][-1]
+        knob_attn = transformer_expected("sd3_knobs", model_configs("sd3")[0])
+        plain["sd3_knobs"] = path_entry(
+            rows_of(rows, "patch_mmdit_joint", "sd3") + decode,
+            [("patch_mmdit_joint", (knob_attn["flash_sdpa"] - sum(
+                decode_launches(MULTI_RUNS["sd3_knobs"][0], "sd3"))) / (SD3_STEPS * 24)),
+             ("vae_ring_1024_sp2", 1)],
+            knobs["flash_sdpa_launches"],
+            work="one rank of the sd3_knobs run (int8 refresh of every other row, the step "
+                 "cache at interval 2 and depth 12) at CFG 2 x sp 2, 6-step 1024x1024 "
+                 "SD3-medium call: 24 blocks in each of 4 full steps, 12 in each of 2 "
+                 "shallow, and the decode's ring")
         if sd3 is not None:
             plain["sd3"] = path_entry(
                 rows_of(rows, ("mmdit_joint", "vae_mid"), "sd3"),
@@ -3541,7 +3726,7 @@ def main(argv) -> int:
                                      f"({MULTI_RUNS[label][0]}), bf16 sources; no library "
                                      "call")
 
-        labels = ("compress_pcpp", "stepcache_batch")
+        labels = ("compress_pcpp", "stepcache_batch", *TRANSFORMER_KNOB_RUNS)
         quant = {label: codec(label, "quantize_") for label in labels}
         dequant = {label: codec(label, "dequantize_") for label in labels}
         dequant = {**dequant.pop("compress_pcpp"), **DEQUANT_ENTRY, **dequant}
@@ -3555,7 +3740,7 @@ def main(argv) -> int:
               flush=True)
         return finish(None)
     if args.patch_only:
-        rows = (kernel_phase(multi + vae_rows + list(PIXART_SHAPES[1:2]) + shapes3[1:2],
+        rows = (kernel_phase(multi + vae_rows + list(PIXART_SHAPES[1:3]) + shapes3[1:2],
                              spills)
                 + lse_kernel_phase(spills, PIXART_RING_HOPS + tuple(hops3)))
         refresh_rows = refresh_codec_phase(refresh_codec_rows(ucfg, 1024, 1024))

@@ -9,17 +9,18 @@ flag more, ``--device`` (default: this rank's CUDA card; ``cpu`` runs the
 plain path).  Every other flag does what the JAX script's flag does or is
 refused, before any model loads, with the ROADMAP item that brings it:
 
-* the comm knobs (``--attn_impl ring``, ``--comm_batch``,
-  ``--comm_compress``, ``--refresh_fraction``) pass through to
-  ``DistriConfig``, which validates them as the JAX package does;
-  ``--dp_degree`` too; ``--attn_impl`` ulysses or usp and a float32
-  ``--dtype`` on the card go through ``DistriConfig``'s own refusals,
-  ``--parallelism pipefusion`` through the runner's, a sampler of the
-  other family (``--scheduler flow-euler`` on the UNet, anything else on
-  SD3) through ``check_family_scheduler`` and the pipelines' own check;
-* ``--ulysses_degree`` and ``--pipe_patches`` belong to the DiT layouts
-  (usp attention, ROADMAP queue 1 item 13c; the PipeFusion stage ring,
-  item 13d);
+* the comm knobs (``--attn_impl`` ring, ulysses or usp with
+  ``--ulysses_degree``, ``--comm_batch``, ``--comm_compress``,
+  ``--refresh_fraction``) pass through to ``DistriConfig``, which
+  validates them as the JAX package does, and the runners refuse what the
+  JAX runners refuse (ulysses and usp outside the DiT); ``--dp_degree``
+  too; a float32 ``--dtype`` on the card goes through ``DistriConfig``'s
+  own refusal, ``--parallelism pipefusion`` through the runner's, a
+  sampler of the other family (``--scheduler flow-euler`` on the UNet,
+  anything else on SD3) through ``check_family_scheduler`` and the
+  pipelines' own check;
+* ``--pipe_patches`` belongs to the PipeFusion stage ring over the DiT's
+  blocks (ROADMAP queue 1 item 13d);
 * ``--hybrid_loop`` has nothing to change: the port's loop is always the
   host's, one UNet graph per phase, which is what the flag picks in the
   JAX package (same numerics).
@@ -100,10 +101,11 @@ def add_distri_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--attn_impl", type=str, default="gather",
                         choices=["gather", "ring", "ulysses", "usp"],
                         help="patch attention layout (ring: each rank holds its own "
-                        "KV chunk and the peers' stream around; ulysses and usp are "
-                        "the DiT's head-sharded layouts, refused: ROADMAP queue 1 item 13c)")
+                        "KV chunk and the peers' stream around; ulysses and usp: the "
+                        "DiT's exact head-sharded layouts)")
     parser.add_argument("--ulysses_degree", type=int, default=1,
-                        help="with --attn_impl usp; refused: ROADMAP queue 1 item 13c")
+                        help="with --attn_impl usp: factor the patch group into "
+                        "ulysses_degree (head-sharding all-to-all) x ring")
     parser.add_argument("--comm_batch", action="store_true",
                         help="exchange every stale refresh of a step in one flat "
                         "all-gather per dtype and one flat halo pair")
@@ -182,9 +184,9 @@ def config_from_args(args, error):
     refuses a flag the port does not run."""
     from ..utils.config import DistriConfig
 
-    if args.pipe_patches is not None or args.ulysses_degree != 1:
-        error("--pipe_patches and --ulysses_degree belong to the DiT layouts "
-              "(PipeFusion, ROADMAP queue 1 item 13d; usp attention, item 13c)")
+    if args.pipe_patches is not None:
+        error("--pipe_patches belongs to PipeFusion's stage ring over the DiT's "
+              "blocks, ROADMAP queue 1 item 13d")
     h, w = image_size(args)
     try:
         return DistriConfig(
@@ -195,7 +197,8 @@ def config_from_args(args, error):
             mode=args.sync_mode, use_cuda_graph=not args.no_cuda_graph,
             parallelism=args.parallelism, split_scheme=args.split_scheme,
             batch_size=args.batch_size, dp_degree=args.dp_degree,
-            attn_impl=args.attn_impl, comm_batch=args.comm_batch,
+            attn_impl=args.attn_impl, ulysses_degree=args.ulysses_degree,
+            comm_batch=args.comm_batch,
             comm_compress=args.comm_compress, refresh_fraction=args.refresh_fraction,
             weight_quant=args.weight_quant, weight_quant_aux=args.weight_quant_aux,
             vae_sp=not args.no_vae_sp, device=args.device,

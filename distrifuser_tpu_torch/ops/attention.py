@@ -54,13 +54,15 @@ def patch_self_attention(p, x, ctx: PatchContext, name: str, *, heads: int):
     return linear(p["to_out"], sdpa(q, k, v, heads=heads))
 
 
-def displaced_kv(kv, ctx: PatchContext, name: str):
+def displaced_kv(kv, ctx: PatchContext, name: str, halves: int = 1):
     """The KV [B, L, 2C] that this rank's fresh KV ``kv`` [B, L/n, 2C]
     attends with under displaced patch parallelism (the UNet's
-    self-attention and the DiT's blocks alike): every rank's fresh KV,
-    gathered, in a synchronous step; in a stale step the layer's buffer
-    (the gathered KV [n, B, L/n, 2C] of the previous step) with this
-    rank's slot fresh, its refresh issued for the next step."""
+    self-attention and the DiT's and MMDiT's blocks alike): every rank's
+    fresh KV, gathered, in a synchronous step; in a stale step the layer's
+    buffer (the gathered KV [n, B, L/n, 2C] of the previous step) with this
+    rank's slot fresh, its refresh issued for the next step.  A compressed
+    refresh scales each row of 2C as one (``halves`` 1, the UNet's) or its
+    k and v halves apart (2, the transformers')."""
     if ctx.n == 1:
         return kv
     if ctx.is_sync:
@@ -75,7 +77,7 @@ def displaced_kv(kv, ctx: PatchContext, name: str):
     gathered[ctx.split_idx] = kv
     full_kv = _flatten_seq(gathered)
     if ctx.refresh:
-        ctx.emit_refresh_gather(name, kv, "attn")
+        ctx.emit_refresh_gather(name, kv, "attn", halves)
     return full_kv
 
 

@@ -4,12 +4,14 @@ Counterpart of distrifuser_tpu/parallel/collectives.py (``all_gather``,
 ``psum_mean``, ``psum``, ``neighbor_perms``, ``exchange_boundary_rows``,
 ``halo_exchange``, ``gather_rows``, ``gather_cols``, ``ring_perm`` and
 ``ring_shift``; ``gather_batch`` gathers the image groups' outputs under
-data parallelism).  Each function takes the process group (``None`` for
-the default one) and, where the patch path overlaps it with compute, an
-``async_op`` form that returns a ``Pending`` handle whose ``wait()`` gives
-the result.  ``batched_all_gather`` and ``batched_halo_exchange`` are the
-flat exchanges of the batched refresh (``PatchContext.flush``): one
-collective per dtype for every layer of a step.
+data parallelism; ``all_to_all`` is the JAX package's tiled
+``lax.all_to_all`` of the DiT's head-sharded layouts).  Each function takes
+the process group (``None`` for the default one) and, where the patch path
+overlaps it with compute, an ``async_op`` form that returns a ``Pending``
+handle whose ``wait()`` gives the result.  ``batched_all_gather`` and
+``batched_halo_exchange`` are the flat exchanges of the batched refresh
+(``PatchContext.flush``): one collective per dtype for every layer of a
+step.
 
 The ring hop of ring attention (``ring_shift``) sends this rank's chunk to
 the next rank of the patch group and receives the previous rank's, both
@@ -99,6 +101,31 @@ def all_gather(x: torch.Tensor, group=None, *, async_op: bool = False):
 
     pending = Pending([work], finish, "all_gather")
     return pending if async_op else pending.wait()
+
+
+def all_to_all(x: torch.Tensor, group=None, *, async_op: bool = False):
+    """Send slab i of ``x`` [n, ...] to rank i of ``group`` and return
+    [n, ...] whose slab i is what rank i sent this rank, in group-rank
+    order (one ``all_to_all_single``).  Counts each call in
+    ``all_to_all.launches``, which graph replays add to as the kernel
+    wrappers' counts (parallel/graphs.py)."""
+    n = dist.get_world_size(group)
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all: {x.shape[0]} slabs for a group of {n} ranks")
+    staged = stages_through_host(x.device, group)
+    src = _down(x) if staged else x.contiguous()
+    out = torch.empty(src.shape, dtype=src.dtype, device=src.device, pin_memory=staged)
+    work = dist.all_to_all_single(out, src, group=group, async_op=True)
+    all_to_all.launches += 1
+
+    def finish():
+        return out.to(x.device, non_blocking=True) if staged else out
+
+    pending = Pending([work], finish, "all_to_all")
+    return pending if async_op else pending.wait()
+
+
+all_to_all.launches = 0
 
 
 def psum_mean(x: torch.Tensor, group=None) -> torch.Tensor:

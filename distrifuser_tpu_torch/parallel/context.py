@@ -88,6 +88,7 @@ class _Coded:
     prev: Optional[torch.Tensor]
     own: Optional[torch.Tensor]
     dtype: torch.dtype
+    halves: int = 1  # column halves of a row, each scaled on its own
 
 
 def _layout(shapes):
@@ -114,6 +115,23 @@ def _views(buf, offsets, shape, dtype):
     q = buf[..., q_off:q_off + n].view(dtype).unflatten(-1, shape)
     s = buf[..., s_off:s_off + 4 * (n // shape[-1])].view(torch.float32)
     return q, s.unflatten(-1, shape[:-1])
+
+
+def _halves(t, halves: int):
+    """The ``halves`` column halves of t [..., halves * C] as the parts of
+    one view [halves, 1, ..., C] (None stays None): no copy."""
+    if t is None:
+        return None
+    return t.unflatten(-1, (halves, t.shape[-1] // halves)).movedim(-2, 0).unsqueeze(1)
+
+
+def _half(t, h: int, halves: int):
+    """Column half ``h`` of t [n, ..., halves * C] as [n, 1, ..., C] (None
+    stays None): a view."""
+    if t is None:
+        return None
+    c = t.shape[-1] // halves
+    return t[..., h * c:(h + 1) * c].unsqueeze(1)
 
 
 def _halo_slabs(x, halo: int):
@@ -234,17 +252,22 @@ class PatchContext:
 
     # -- the compressed refreshes: one encode and one decode launch --------
 
-    def _gather_coded(self, name: str, local, mode: str, partial) -> _Coded:
+    def _gather_coded(self, name: str, local, mode: str, partial, halves: int) -> _Coded:
         """A compressed gather refresh of ``local`` (against this rank's
         previous slot under residual coding), its wire bytes registered (n x
-        the local payload)."""
+        the local payload).  With ``halves`` = 2 each row's two column
+        halves (a fused KV row's k and v) are coded as rows of their own,
+        read in place: the payload is [2, 1, *local[:-1], C / 2]."""
         residual = mode == "int8_residual"
         prev = self.stale(name) if residual or partial is not None else None  # [n, *local]
+        own = prev[self.split_idx] if residual else None
+        if halves > 1:
+            local, own = _halves(local, halves), _halves(own, halves)
         shape = self._payload_shape(name, local.shape, partial)
         self.wire[name] = self.n * wire_nbytes(shape, local.element_size(), mode)
-        enc = EncodeSeg(local, prev[self.split_idx] if residual else None, partial)
-        return _Coded(name, False, enc, shape, prev if residual else None,
-                      prev if partial is not None else None, None, local.dtype)
+        return _Coded(name, False, EncodeSeg(local, own, partial), shape,
+                      prev if residual else None, prev if partial is not None else None,
+                      None, local.dtype, halves)
 
     def _halo_coded(self, name: str, x, halo: int, mode: str, partial) -> _Coded:
         """A compressed halo refresh of the boundary rows of ``x``, its wire
@@ -295,8 +318,14 @@ class PatchContext:
                 got = pg.wait()  # [n, g_total]
                 for r, o in zip(gathers, g_off):
                     q, s = _views(got, o, r.shape, pdt)
-                    names.append(r.name)
-                    segs.append(DecodeSeg(q, s, r.base, r.prev, r.enc.every))
+                    if r.halves == 1:
+                        names.append(r.name)
+                        segs.append(DecodeSeg(q, s, r.base, r.prev, r.enc.every))
+                        continue
+                    for h in range(r.halves):  # each half into a buffer of its own
+                        names.append((r.name, h))
+                        segs.append(DecodeSeg(q[:, h], s[:, h], _half(r.base, h, r.halves),
+                                              _half(r.prev, h, r.halves), r.enc.every))
             if halos:
                 arrived = ph.wait()  # (from previous, from next)
                 for r, o, (own_q, own_s) in zip(halos, h_off, h_out):
@@ -308,26 +337,41 @@ class PatchContext:
                         segs.append(DecodeSeg(own_q, own_s, r.own,
                                               r.own if r.enc.every is not None else None,
                                               r.enc.every))
-            return dict(zip(names, dequantize_rows_grouped(segs, recs[0].dtype)))
+            done, halves = {}, {}
+            for name, buf in zip(names, dequantize_rows_grouped(segs, recs[0].dtype)):
+                if isinstance(name, tuple):
+                    halves.setdefault(name[0], []).append(buf.squeeze(1))
+                else:
+                    done[name] = buf
+            # the decoder writes whole rows of a new buffer: the halves join
+            # into the fused rows in one more pass
+            done.update({name: torch.cat(parts, dim=-1) for name, parts in halves.items()})
+            return done
 
         return collectives.Pending([], finish)
 
     # -- gathered refreshes (KV, GroupNorm moments) -----------------------
 
-    def emit_refresh_gather(self, name: str, local: torch.Tensor, kind: str) -> None:
+    def emit_refresh_gather(self, name: str, local: torch.Tensor, kind: str,
+                            halves: int = 1) -> None:
         """Start the all-gather of ``local`` over the patch group; its
         result ``[n, *local.shape]`` becomes this layer's next buffer —
-        compressed, partial or deferred to ``flush`` as the knobs say."""
+        compressed, partial or deferred to ``flush`` as the knobs say.
+        ``halves`` = 2 gives a compressed payload one scale per column half
+        of a row (the transformers' fused KV: one per k row and one per v
+        row, as the JAX package codes ``stack([k, v])``); 1 one scale per
+        row (the UNet's)."""
         self._claim(name, kind)
         with overlap.buffers([name], [kind]):
-            self._refresh_gather(name, local, kind)
+            self._refresh_gather(name, local, kind, halves)
 
-    def _refresh_gather(self, name: str, local: torch.Tensor, kind: str) -> None:
+    def _refresh_gather(self, name: str, local: torch.Tensor, kind: str,
+                        halves: int) -> None:
         mode = self._compress_for(kind)
         partial = None if self.batch_comm else self._partial_for(kind)
         # (DistriConfig keeps partial refresh out of batch_comm)
         if mode is not None:
-            rec = self._gather_coded(name, local, mode, partial)
+            rec = self._gather_coded(name, local, mode, partial, halves)
             if self.batch_comm:
                 self._def_coded.append(rec)
             else:

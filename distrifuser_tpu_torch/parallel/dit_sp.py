@@ -1,44 +1,56 @@
 """Displaced patch parallelism for the DiT: DistriFusion's method on
 PixArt-α's transformer, one rank of it (or one device).
 
-Counterpart of distrifuser_tpu/parallel/dit_sp.py (``DiTDenoiseRunner``
-with ``attn_impl`` "gather" and "ring", its ``comm_report`` and
-``generate``).  LayerNorm, the MLP and the caption cross-attention act per
-token, so the self-attention is the only op that crosses patches: each
-rank holds a contiguous range of N/n tokens (a horizontal band of the
-image) and exchanges only the blocks' self-attention KV.
+Counterpart of distrifuser_tpu/parallel/dit_sp.py (``DiTDenoiseRunner``,
+its ``comm_report`` and ``generate``).  LayerNorm, the MLP and the caption
+cross-attention act per token, so the self-attention is the only op that
+crosses patches: each rank holds a contiguous range of N/n tokens (a
+horizontal band of the image) and exchanges only the blocks'
+self-attention KV, in one of four layouts (``attn_impl``):
 
-* Synchronous steps (the first ``warmup_steps + 1``, or every step under
-  ``full_sync`` or without patches): "gather" all-gathers every block's
-  fresh KV over the patch group and attends over it, exactly; "ring"
-  streams the peers' fresh chunks through ops/ring_attention.py.
-* Stale steps: "gather" attends over the previous step's gathered KV with
-  this rank's slot overwritten fresh and issues the all-gather of its
-  fresh KV asynchronously, which the next step consumes
-  (ops/attention.py ``displaced_kv``); "ring" rotates each peer's
-  previous-step chunk from the block's buffer, and the next buffer is the
-  own fresh chunk, so it has no refresh collective.  ``no_sync`` keeps the
-  warmup's buffers for good.  The buffers are a dict keyed by block
-  (``blocks.<i>``) that parallel/context.py's ``PatchContext`` hands from
-  step to step, as the UNet runner's.
-* After the blocks, ``final_layer``'s rows all-gather over the patch group
-  into the whole epsilon; the CFG branches fold into the batch or split
-  over ranks (parallel/guidance.py); under ``dp_degree`` each image group
-  evaluates its share of the batch and the guided outputs gather before
-  the replicated float32 scheduler step, as the UNet runner does.
+* "gather": synchronous steps (the first ``warmup_steps + 1``, or every
+  step under ``full_sync`` or without patches) all-gather every block's
+  fresh KV over the patch group and attend over it, exactly; stale steps
+  attend over the previous step's gathered KV with this rank's slot
+  overwritten fresh and issue the all-gather of its fresh KV
+  asynchronously, which the next step consumes (ops/attention.py
+  ``displaced_kv``).  The stale refresh takes the comm knobs: int8 / fp8
+  payloads with one float32 scale per row of k and one per row of v
+  (``comm_compress``, "int8_residual" coding the delta against the
+  previous buffer) and one of k strided row groups a step
+  (``refresh_fraction`` 1/k, rotating by the absolute step);
+* "ring": the peers' chunks stream through ops/ring_attention.py, fresh in
+  a synchronous step, the previous step's from the block's buffer in a
+  stale one, and the next buffer is the own fresh chunk, so it has no
+  refresh collective;
+* "ulysses" and "usp": exact and stateless head sharding by all-to-all
+  over the patch group, "usp" with an exact ring over the second factor of
+  the group (ops/ulysses.py); their stale steps compute what the
+  synchronous ones do.
 
-Under ``use_cuda_graph`` each phase's evaluation is captured once and
-replayed (parallel/graphs.py): the token input, timestep and step are
-copied into the graph's static inputs before each replay, the caption KV
-and mask once per generation, and the stale graph's buffers are copied
-back after each replay.
+``no_sync`` keeps the warmup's buffers for good.  The buffers are a dict
+keyed by block (``blocks.<i>``) that parallel/context.py's
+``PatchContext`` hands from step to step, as the UNet runner's.  Under the
+step cache (parallel/stepcache.py) a full step also keeps the residual
+that the deepest ``step_cache_depth`` blocks added to the image rows
+(``STEPCACHE_KEY``), and a shallow step runs only the blocks before the cut
+and adds it; the skipped blocks' buffers ride through untouched.  After
+the blocks, ``final_layer``'s rows all-gather over the patch group into
+the whole epsilon; the CFG branches fold into the batch or split over
+ranks (parallel/guidance.py); under ``dp_degree`` each image group
+evaluates its share of the batch and the guided outputs gather before the
+replicated float32 scheduler step, as the UNet runner does.
 
-The knobs of later work raise ``NotImplementedError`` naming their ROADMAP
-item: the step cache, ``comm_compress`` and ``refresh_fraction`` < 1 (item
-13b', the comm knobs of both transformer runners: this one and the MMDiT's
-of parallel/mmdit_sp.py, ``refuse_transformer_knobs``), ulysses and usp
-(13c, refused by ``DistriConfig``) and PipeFusion (13d).  What the JAX runner refuses (``comm_batch``, a token
-count the patch count does not divide, an image size other than the
+Under ``use_cuda_graph`` each phase's evaluation ("sync", "stale",
+"shallow") is captured once and replayed (parallel/graphs.py): the token
+input, timestep and step are copied into the graph's static inputs before
+each replay, the caption KV and mask once per generation, and the buffers
+of a phase that reads them are copied back after each replay.
+
+PipeFusion (``parallelism="pipefusion"``, ROADMAP queue 1 item 13d) raises
+``NotImplementedError`` naming its item.  What the JAX runner refuses
+(``comm_batch``, a knob of the gather refresh in another layout, head or
+token counts the groups do not divide, an image size other than the
 config's) the port refuses with the same exception type.
 """
 
@@ -52,34 +64,57 @@ from ..models import dit as dit_mod
 from ..models.dit import DiTConfig, unpatchify
 from ..ops.attention import displaced_kv
 from ..ops.ring_attention import ring_attend
+from ..ops.ulysses import ulysses_attend, usp_attend
 from ..schedulers import BaseScheduler
 from ..utils.config import DistriConfig
 from .collectives import gather_rows
+from .compress import refresh_period, wire_nbytes
 from .context import PHASE_STALE, PHASE_SYNC, PatchContext
 from .graphs import StepGraphs
 from .guidance import branch_select
-from .runner import StepLoop, check_graph_transport
+from .runner import PHASE_SHALLOW, StepLoop, check_graph_transport
+from .stepcache import STEPCACHE_KEY
 
 
-def check_dit_config(cfg: DistriConfig, dcfg: DiTConfig) -> None:
-    """The JAX runner's refusals (ValueError), then the knobs of later
-    ROADMAP items (NotImplementedError)."""
+def check_refresh_knobs(cfg: DistriConfig, num_tokens: int, what: str) -> None:
+    """The refusals both transformer runners share (ValueError, the JAX
+    runners' own): ``comm_batch``, and ``comm_compress`` and
+    ``refresh_fraction`` < 1 outside "gather" or on a token chunk that the
+    period does not divide; ``what`` names the refreshed KV."""
     if cfg.comm_batch:
         raise ValueError("comm_batch applies to the UNet's per-layer halo/moment "
-                         "exchanges; the DiT path has one collective kind already")
+                         f"exchanges; the {what} path has one collective kind already")
     if cfg.comm_compress != "none" and cfg.attn_impl != "gather":
         raise ValueError(
             f"comm_compress compresses the displaced KV refresh gathers of "
             f"attn_impl='gather'; {cfg.attn_impl!r} has no refresh collective to "
-            "compress (ring carries the local chunk)")
+            "compress (ring carries the local chunk; ulysses/usp are exact and "
+            "stateless)")
     if cfg.refresh_fraction < 1.0 and cfg.attn_impl != "gather":
         raise ValueError(
             "refresh_fraction < 1 (PCPP) thins the displaced KV refresh gathers of "
             f"attn_impl='gather'; {cfg.attn_impl!r} has no refresh collective to thin")
     n = cfg.n_device_per_batch
-    if dcfg.num_tokens % n:
-        raise ValueError(f"token count {dcfg.num_tokens} must be divisible by the sp "
+    k = refresh_period(cfg.refresh_fraction)
+    if k > 1 and num_tokens % n == 0 and (num_tokens // n) % k:
+        raise ValueError(f"refresh_fraction=1/{k} needs the per-device token chunk "
+                         f"({num_tokens // n}) divisible by {k}")
+    if num_tokens % n:
+        raise ValueError(f"token count {num_tokens} must be divisible by the sp "
                          f"degree {n}")
+
+
+def check_dit_config(cfg: DistriConfig, dcfg: DiTConfig) -> None:
+    """The JAX runner's refusals (ValueError), then PipeFusion, ROADMAP
+    item 13d (NotImplementedError)."""
+    n = cfg.n_device_per_batch
+    if cfg.attn_impl == "ulysses" and dcfg.num_heads % n:
+        raise ValueError(f"ulysses needs num_heads ({dcfg.num_heads}) divisible by the "
+                         f"sp degree ({n})")
+    if cfg.attn_impl == "usp" and dcfg.num_heads % cfg.ulysses_degree:
+        raise ValueError(f"usp needs num_heads ({dcfg.num_heads}) divisible by "
+                         f"ulysses_degree ({cfg.ulysses_degree})")
+    check_refresh_knobs(cfg, dcfg.num_tokens, "DiT")
     if cfg.step_cache_enabled and not 1 <= cfg.step_cache_depth < dcfg.depth:
         raise ValueError(
             f"step_cache_depth={cfg.step_cache_depth} must be in [1, {dcfg.depth - 1}] "
@@ -95,39 +130,25 @@ def check_dit_config(cfg: DistriConfig, dcfg: DiTConfig) -> None:
     if cfg.parallelism != "patch":
         raise ValueError(f"the DiT runs displaced patch parallelism (parallelism="
                          f"'patch'), not {cfg.parallelism!r}")
-    refuse_transformer_knobs(cfg, "DiT")
-
-
-def refuse_transformer_knobs(cfg: DistriConfig, model: str) -> None:
-    """The comm knobs that neither transformer runner (the DiT's, the
-    MMDiT's) runs yet raise ``NotImplementedError`` naming ROADMAP item
-    13b'."""
-    for on, knob in ((cfg.step_cache_enabled, f"the {model} step cache "
-                      "(step_cache_interval/step_cache_depth)"),
-                     (cfg.comm_compress != "none", f"comm_compress={cfg.comm_compress!r}"),
-                     (cfg.refresh_fraction < 1.0,
-                      f"refresh_fraction={cfg.refresh_fraction}")):
-        if on:
-            raise NotImplementedError(
-                f"{knob} on the {model} is ROADMAP queue 1 item 13b' (the comm knobs "
-                "of both transformer runners, the DiT's and the MMDiT's: the step "
-                "cache, refresh compression and partial refresh)")
 
 
 class TransformerRunner(StepLoop):
     """The denoising loop both transformer runners share (the DiT's below,
     the MMDiT's of parallel/mmdit_sp.py): one model evaluation a step, the
-    first ``warmup_steps + 1`` steps that run synchronous and the rest stale,
-    each phase one CUDA graph under ``use_cuda_graph``, and ``comm_report``
+    first ``warmup_steps + 1`` steps that run synchronous and the rest stale
+    (or shallow, under the step cache's cadence), each phase one CUDA graph
+    under ``use_cuda_graph``, the step cache's cut, and ``comm_report``
     closed-form from the attention layers that exchange image KV.
 
-    A subclass gives ``_local(x_in, t, cond, phase, state)``, one
+    A subclass gives ``_local(x_in, t, cond, phase, state, step)``, one
     evaluation on this rank's token rows from its conditioning ``cond`` (the
-    graphs' static ``enc``, ``added`` and ``text_kv``, None where unused),
-    ``_inputs`` building the tokens and ``cond`` from its call's arguments,
-    and ``n_attn``.  After ``generate``, ``phase_counts`` holds how many
-    steps ran in each phase.  Replacing ``params`` drops the captured
-    graphs."""
+    graphs' static ``enc``, ``added`` and ``text_kv``, None where unused)
+    at the absolute step index ``step``, ``_inputs`` building the tokens and
+    ``cond`` from its call's arguments, ``n_attn`` and ``n_attn_shallow``.
+    After ``generate``, ``phase_counts`` holds how many steps ran in each
+    phase and ``refresh_wire`` the bytes each phase's last evaluation put on
+    the wire by buffer (its stale refreshes).  Replacing ``params`` drops
+    the captured graphs."""
 
     def __init__(self, distri_config: DistriConfig, model_config, params,
                  scheduler: BaseScheduler):
@@ -138,6 +159,7 @@ class TransformerRunner(StepLoop):
         self.graphs = StepGraphs(distri_config.device)
         self.params = params
         self.phase_counts: Dict[str, int] = {}
+        self.refresh_wire: Dict[str, Dict[str, int]] = {}
         self._schedule: Dict[int, Any] = {}
 
     @property
@@ -145,30 +167,92 @@ class TransformerRunner(StepLoop):
         """Attention layers a step whose image KV crosses patches."""
         raise NotImplementedError
 
+    @property
+    def n_attn_shallow(self) -> int:
+        """The same of a shallow step of the step cache."""
+        raise NotImplementedError
+
+    @property
+    def d_keep(self) -> int:
+        """Blocks a shallow step runs (every block without the cache)."""
+        cfg = self.cfg
+        return self.mcfg.depth - (cfg.step_cache_depth if cfg.step_cache_enabled else 0)
+
+    def _context(self, phase, state, step) -> PatchContext:
+        """The patch context of one evaluation of ``phase``: a shallow step
+        runs the steady phase's body (stale, or sync where every step is
+        synchronous)."""
+        cfg = self.cfg
+        n = cfg.n_device_per_batch if cfg.is_sp else 1
+        if phase == PHASE_SHALLOW:
+            phase = PHASE_SYNC if cfg.mode == "full_sync" or n == 1 else PHASE_STALE
+        return PatchContext(n=n, mode=cfg.mode, phase=phase, group=cfg.batch_group,
+                            split_idx=cfg.split_idx() if n > 1 else 0,
+                            attn_impl=cfg.attn_impl, compress=cfg.comm_compress,
+                            refresh_fraction=cfg.refresh_fraction, step=step,
+                            state_in=state)
+
+    def _run_blocks(self, ctx: PatchContext, phase, h, block):
+        """``h`` [Bl, N/n, hidden] through ``block(i, h) -> h`` for every
+        block, or under a shallow step the first ``d_keep`` plus the deep
+        residual the last full step kept; a full step under the step cache
+        keeps ``h_final - h_after_block(d_keep - 1)``, and every step passes
+        on the buffers it did not refresh."""
+        sc = self.cfg.step_cache_enabled
+        shallow = phase == PHASE_SHALLOW
+        h_mid = None
+        for i in range(self.d_keep if shallow else self.mcfg.depth):
+            h = block(i, h)
+            if i == self.d_keep - 1:
+                h_mid = h
+        if shallow:
+            h = h + ctx.stale(STEPCACHE_KEY)
+        elif sc:
+            ctx.emit(STEPCACHE_KEY, h - h_mid, "stepcache")
+        if sc:
+            ctx.carry_unconsumed()
+        return h
+
+    def _finish(self, ctx: PatchContext, phase, out_rows):
+        """The end of an evaluation: the step's buffers, its refreshes'
+        wire bytes recorded, and the rows gathered into the whole output."""
+        state = ctx.finish()
+        self.refresh_wire[phase] = dict(ctx.wire)
+        if ctx.n == 1:
+            return out_rows, state
+        return gather_rows(out_rows, self.cfg.batch_group), state
+
     def _evaluate(self, phase, inputs, state):
         """``_local`` on a graph's static inputs."""
         return self._local(inputs.x_in, inputs.t, (inputs.enc, inputs.added, inputs.text_kv),
-                           phase, state)
+                           phase, state, inputs.step)
 
     def _phases(self, end: int, start: int = 0) -> List[str]:
         """The evaluation of each step of ``start .. end - 1``: the first
         ``warmup_steps + 1`` run synchronous (counted from ``start``), the
-        rest stale; every step synchronous under ``full_sync`` or without
-        patches."""
-        cfg = self.cfg
-        n_exec = end - start
-        if cfg.mode == "full_sync" or not cfg.is_sp:
-            return [PHASE_SYNC] * n_exec
-        n_sync = min(cfg.warmup_steps + 1, n_exec)
-        return [PHASE_SYNC] * n_sync + [PHASE_STALE] * (n_exec - n_sync)
+        rest stale, every step synchronous under ``full_sync`` or without
+        patches; under the step cache the steps after the warmup follow the
+        shallow-first cadence."""
+        keys = []
+        for i in range(start, end):
+            phase, shallow = self._stepwise_phase(i, start, end)
+            keys.append(PHASE_SHALLOW if shallow else phase)
+        return keys
+
+    def _reads_state(self, phase) -> bool:
+        """Does an evaluation of ``phase`` read the previous step's buffers?
+        A shallow one reads the deep residual; a stale one the KV of
+        "gather" and "ring" (ulysses and usp keep none)."""
+        return phase == PHASE_SHALLOW or (phase == PHASE_STALE
+                                          and self.cfg.attn_impl in ("gather", "ring"))
 
     def _begin_graphs(self, x, cond, phases, start=0) -> None:
         check_graph_transport(self.cfg)
         timesteps, steps = self._step_tensors(self.scheduler.num_inference_steps)
-        stateful = [PHASE_STALE] if PHASE_STALE in phases else []
+        unique = list(dict.fromkeys(phases))
         self.graphs.begin(tuple(x.shape), self._model_input(x, start), timesteps[start],
-                          *cond, list(dict.fromkeys(phases)), stateful, self._evaluate,
-                          step=steps[start])
+                          *cond, unique, [p for p in unique if self._reads_state(p)],
+                          self._evaluate, step=steps[start])
 
     def _prepare(self, num_inference_steps: int, *inputs) -> None:
         """``prepare`` of the subclass: capture, ahead of the first call, the
@@ -201,6 +285,8 @@ class TransformerRunner(StepLoop):
         timesteps, steps = self._step_tensors(num_inference_steps)
         sstate = sched.init_state(x.shape)
         self.phase_counts = {PHASE_SYNC: 0, PHASE_STALE: 0}
+        if cfg.step_cache_enabled:
+            self.phase_counts[PHASE_SHALLOW] = 0
         state = None
         for i, phase in enumerate(phases, start=start_step):
             x_in = self._model_input(x, i)
@@ -211,7 +297,7 @@ class TransformerRunner(StepLoop):
                     graph.load_state(state)
                 out, state = graph.replay(self._evaluate)
             else:
-                out, state = self._local(x_in, timesteps[i], cond, phase, state)
+                out, state = self._local(x_in, timesteps[i], cond, phase, state, steps[i])
             x, sstate = self._guided_step(x, out, i, sstate, gs)
             self.phase_counts[phase] += 1
             if callback is not None:
@@ -221,14 +307,22 @@ class TransformerRunner(StepLoop):
     def comm_report(self, batch_size: int = 1) -> Dict[str, Any]:
         """This rank's stale-state elements and per-step collective volumes
         of the configured layout, closed-form from the architecture, as the
-        JAX runners' ``comm_report`` gives them (the same keys and numbers;
-        the knobs of item 13b' are refused, so compressed and partial
-        refreshes never appear)."""
+        JAX runners' ``comm_report`` gives them (the same keys and numbers):
+        the stale refresh's wire bytes with its compression and partial
+        refresh, and under the step cache a shallow step's elements."""
         cfg, mcfg = self.cfg, self.mcfg
+        step_cache = None
+        if cfg.step_cache_enabled:
+            step_cache = {"interval": cfg.step_cache_interval,
+                          "depth": cfg.step_cache_depth,
+                          "shallow_per_step_collective_elems": 0}
         if not cfg.is_sp:
-            return {"layout": cfg.attn_impl, "kv_state_elems": 0,
-                    "per_step_collective_elems": 0, "per_step_collective_bytes": 0,
-                    "sync_step_collective_bytes": 0}
+            report = {"layout": cfg.attn_impl, "kv_state_elems": 0,
+                      "per_step_collective_elems": 0, "per_step_collective_bytes": 0,
+                      "sync_step_collective_bytes": 0}
+            if step_cache:
+                report["step_cache"] = step_cache
+            return report
         n = cfg.n_device_per_batch
         b = batch_size * (1 if cfg.cfg_split or not cfg.do_classifier_free_guidance else 2)
         n_tok, hid, n_attn = mcfg.num_tokens, mcfg.hidden_size, self.n_attn
@@ -237,22 +331,41 @@ class TransformerRunner(StepLoop):
         if cfg.attn_impl == "gather":
             state = n_attn * 2 * b * n_tok * hid
             per_step = n_attn * 2 * b * n_tok * hid + out_gather
-        else:  # ring: (n - 1) hops of the own 2C chunk a layer, in the step
+        elif cfg.attn_impl == "ring":  # (n - 1) hops of the own 2C chunk a layer
             state = n_attn * b * chunk * 2 * hid
             per_step = n_attn * (n - 1) * b * chunk * 2 * hid + out_gather
+        elif cfg.attn_impl == "ulysses":  # q, k, v out and the output back
+            state = 0
+            per_step = n_attn * b * chunk * hid * 4 + out_gather
+        else:  # usp: the all-to-alls over sp_u, (r - 1) ring hops over sp_r
+            u = cfg.ulysses_degree
+            r = n // u
+            state = 0
+            a2a = n_attn * b * chunk * hid * 4 if u > 1 else 0
+            per_step = (a2a + n_attn * (r - 1) * b * (chunk * u) * 2 * hid // u
+                        + out_gather)
         itemsize = cfg.dtype.itemsize
+        report = {"layout": cfg.attn_impl, "kv_state_elems": int(state),
+                  "per_step_collective_elems": int(per_step),
+                  "comm_compress": cfg.comm_compress,
+                  "refresh_fraction": cfg.refresh_fraction,
+                  "sync_step_collective_bytes": int(per_step) * itemsize}
         if cfg.attn_impl == "gather":
-            refresh = n_attn * n * 2 * b * chunk * hid * itemsize
-            stale_bytes = refresh + out_gather * itemsize
+            k = refresh_period(cfg.refresh_fraction)
+            refresh = n_attn * n * wire_nbytes((2, b, chunk // k, hid), itemsize,
+                                               cfg.comm_compress)
+            full = n_attn * n * wire_nbytes((2, b, chunk, hid), itemsize, cfg.comm_compress)
+            report["per_step_collective_bytes"] = int(refresh + out_gather * itemsize)
+            report["full_refresh_per_step_collective_bytes"] = int(
+                full + out_gather * itemsize)
         else:
-            stale_bytes = per_step * itemsize
-        return {"layout": cfg.attn_impl, "kv_state_elems": state,
-                "per_step_collective_elems": per_step,
-                "comm_compress": cfg.comm_compress,
-                "refresh_fraction": cfg.refresh_fraction,
-                "sync_step_collective_bytes": per_step * itemsize,
-                "per_step_collective_bytes": stale_bytes,
-                "full_refresh_per_step_collective_bytes": stale_bytes}
+            report["per_step_collective_bytes"] = int(per_step) * itemsize
+            report["full_refresh_per_step_collective_bytes"] = int(per_step) * itemsize
+        if step_cache:
+            step_cache["shallow_per_step_collective_elems"] = int(
+                (per_step - out_gather) * self.n_attn_shallow // n_attn + out_gather)
+            report["step_cache"] = step_cache
+        return report
 
 
 class DiTDenoiseRunner(TransformerRunner):
@@ -267,41 +380,50 @@ class DiTDenoiseRunner(TransformerRunner):
     def n_attn(self) -> int:
         return self.mcfg.depth
 
-    def _local(self, x_in, t, cond, phase, state):
+    @property
+    def n_attn_shallow(self) -> int:
+        return self.d_keep
+
+    def _attn_hooks(self, ctx: PatchContext, name: str):
+        """Block ``name``'s self-attention under the configured layout (at
+        more than one rank)."""
+        cfg, heads = self.cfg, self.mcfg.num_heads
+        if cfg.attn_impl == "ring":
+            return {"attn_core": lambda q, kv: ring_attend(q, kv, ctx, name, heads=heads)}
+        if cfg.attn_impl == "ulysses":
+            return {"attn_core": lambda q, kv: ulysses_attend(q, kv, cfg.batch_group,
+                                                              heads=heads)}
+        if cfg.attn_impl == "usp":
+            u = cfg.ulysses_degree
+            return {"attn_core": lambda q, kv: usp_attend(
+                q, kv, cfg.sp_u_group, cfg.sp_r_group, u, ctx.n // u, heads=heads)}
+        return {"kv_assemble": lambda kv: displaced_kv(kv, ctx, name, halves=2)}
+
+    def _local(self, x_in, t, cond, phase, state, step=None):
         """One DiT evaluation on this rank's token rows of ``x_in`` [Bl, N,
         D] (scaled, the CFG branches folded) from ``cond`` = (caption bias,
-        None, the blocks' caption KV): (the whole epsilon [Bl, N, D_out],
+        None, the blocks' caption KV) at the absolute step ``step`` (which
+        a partial refresh rotates by): (the whole epsilon [Bl, N, D_out],
         the next step's buffers)."""
-        cfg, dcfg, params = self.cfg, self.mcfg, self.params
+        dcfg, params = self.mcfg, self.params
         cap_bias, _, cap_kv = cond
         dtype = params["proj_in"]["kernel"].dtype
-        n = cfg.n_device_per_batch if cfg.is_sp else 1
-        chunk = dcfg.num_tokens // n
-        offset = (cfg.split_idx() if n > 1 else 0) * chunk
+        ctx = self._context(phase, state, step)
+        chunk = dcfg.num_tokens // ctx.n
+        offset = ctx.split_idx * chunk
         rows = x_in[:, offset:offset + chunk].to(dtype)
         pos = dit_mod.pos_embed_table(dcfg, dtype, x_in.device)[offset:offset + chunk]
         h = dit_mod.embed_tokens(params, dcfg, rows, pos)
         temb = dit_mod.t_embed(params, dcfg, t)
         c6 = dit_mod.adaln_table(params, dcfg, temb)
-        if n == 1:
-            for bp, kv in zip(params["blocks"], cap_kv):
-                h, _ = dit_mod.dit_block(bp, dcfg, h, c6, kv, cap_bias=cap_bias)
-            return dit_mod.final_layer(params, dcfg, h, temb), state
-        ctx = PatchContext(n=n, mode=cfg.mode, phase=phase, group=cfg.batch_group,
-                           split_idx=cfg.split_idx(), attn_impl=cfg.attn_impl,
-                           state_in=state)
-        heads = dcfg.num_heads
-        for i, (bp, kv) in enumerate(zip(params["blocks"], cap_kv)):
-            name = f"blocks.{i}"
-            if cfg.attn_impl == "ring":
-                hook = {"attn_core": lambda q, kv_, name=name: ring_attend(
-                    q, kv_, ctx, name, heads=heads)}
-            else:
-                hook = {"kv_assemble": lambda kv_, name=name: displaced_kv(kv_, ctx, name)}
-            h, _ = dit_mod.dit_block(bp, dcfg, h, c6, kv, cap_bias=cap_bias, **hook)
-        eps_rows = dit_mod.final_layer(params, dcfg, h, temb)
-        state = ctx.finish()
-        return gather_rows(eps_rows, cfg.batch_group), state
+
+        def block(i, h):
+            hooks = self._attn_hooks(ctx, f"blocks.{i}") if ctx.n > 1 else {}
+            return dit_mod.dit_block(params["blocks"][i], dcfg, h, c6, cap_kv[i],
+                                     cap_bias=cap_bias, **hooks)[0]
+
+        h = self._run_blocks(ctx, phase, h, block)
+        return self._finish(ctx, phase, dit_mod.final_layer(params, dcfg, h, temb))
 
     def _inputs(self, latents, enc, cap_mask):
         """(the latent's tokens float32 [B, N, D], (this rank's caption bias

@@ -49,10 +49,11 @@ the copy-back after a replay skips.  All graphs of a runner share one memory
 pool.  A capture that fails raises and leaves no graph of that shape
 behind, so the next generation captures again; a graph that was never
 captured refuses to replay on the card; nothing retries eagerly.  The
-kernel wrappers (``ops._build.LAUNCH_COUNTERS``) count launches only
-while they run: each graph records the launches it captured (the warm-up
-and the capture itself count nothing) and adds them at every replay, so a
-graphed call counts what an eager call counts.
+kernel wrappers (``ops._build.LAUNCH_COUNTERS``) and the all-to-all
+(parallel/collectives.py) count launches only while they run: each graph
+records the launches it captured (the warm-up and the capture itself count
+nothing) and adds them at every replay, so a graphed call counts what an
+eager call counts.
 
 On the CPU nothing is captured: a replay runs the same static-buffer step
 eagerly and copies its results into the static outputs, so the CPU tests
@@ -66,16 +67,17 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops._build import LAUNCH_COUNTERS
+from .collectives import all_to_all
 
 
 # the counts a kernel wrapper keeps: every launch, and the flash wrapper's
-# launches of its log-sum-exp instances
+# launches of its log-sum-exp instances; the all-to-all's calls likewise
 _COUNTS = ("launches", "lse_launches")
 
 
 def _counts() -> Dict[Tuple[Callable, str], int]:
-    return {(fn, attr): getattr(fn, attr) for fn in LAUNCH_COUNTERS for attr in _COUNTS
-            if hasattr(fn, attr)}
+    return {(fn, attr): getattr(fn, attr) for fn in [*LAUNCH_COUNTERS, all_to_all]
+            for attr in _COUNTS if hasattr(fn, attr)}
 
 
 def _restore(counts: Dict[Tuple[Callable, str], int]) -> None:

@@ -39,12 +39,18 @@ context and the pooled text once per generation, and the stale graph's
 buffers are copied back after each replay.  The conditioning vector is
 computed inside the evaluation from the timestep and the pooled text.
 
-Refusals, with the JAX runner's exception types: ulysses and usp are
-undefined for joint attention's two-origin queries and ``comm_batch`` has
-nothing to batch (``ValueError``; ``DistriConfig`` refuses ulysses and usp
-first, naming the DiT's item 13c); the step cache, ``comm_compress`` and
-``refresh_fraction`` < 1 are ROADMAP item 13b' (``NotImplementedError``,
-parallel/dit_sp.py ``refuse_transformer_knobs``).
+The comm knobs are the DiT runner's: the gather layout's stale refresh
+compressed (one float32 scale per row of k and one per row of v) and
+partial, for the joint blocks' image KV and the dual blocks' second KV
+alike; the step cache cuts past the dual-attention prefix
+(``step_cache_depth`` in [1, depth - max(dual_attention_blocks, 1)]), so
+a shallow step runs the whole dual prefix and the joint blocks up to the
+cut, and the dual blocks' second KV refreshes on every step.
+
+Refusals, with the JAX runner's exception types (``ValueError``): ulysses
+and usp are undefined for joint attention's two-origin queries,
+``comm_batch`` has nothing to batch, and the gather refresh's knobs apply
+to "gather" only.
 """
 
 from __future__ import annotations
@@ -58,16 +64,13 @@ from ..ops.attention import displaced_kv
 from ..ops.ring_attention import ring_attend
 from ..schedulers import BaseScheduler
 from ..utils.config import DistriConfig
-from .collectives import gather_rows
-from .compress import refresh_period
 from .context import PatchContext
-from .dit_sp import TransformerRunner, refuse_transformer_knobs
+from .dit_sp import TransformerRunner, check_refresh_knobs
 from .guidance import branch_select
 
 
 def check_mmdit_config(cfg: DistriConfig, mcfg: MMDiTConfig) -> None:
-    """The JAX runner's refusals (ValueError), then the knobs of ROADMAP
-    item 13b' (NotImplementedError)."""
+    """The JAX runner's refusals (ValueError)."""
     if cfg.attn_impl not in ("gather", "ring"):
         raise ValueError(
             f"attn_impl={cfg.attn_impl!r}: the MMDiT runner implements 'gather' "
@@ -75,27 +78,7 @@ def check_mmdit_config(cfg: DistriConfig, mcfg: MMDiTConfig) -> None:
             "context KV rides the ring as a non-rotating static block); the "
             "head-sharding ulysses/usp layouts are not defined for joint "
             "attention's two-origin queries")
-    if cfg.comm_batch:
-        raise ValueError("comm_batch applies to the UNet's per-layer halo/moment "
-                         "exchanges; the MMDiT path has one collective kind already")
-    if cfg.comm_compress != "none" and cfg.attn_impl != "gather":
-        raise ValueError(
-            "comm_compress compresses the displaced image-KV refresh gathers of "
-            "attn_impl='gather'; 'ring' carries only the local chunk and has no "
-            "refresh collective to compress")
-    if cfg.refresh_fraction < 1.0 and cfg.attn_impl != "gather":
-        raise ValueError(
-            "refresh_fraction < 1 (PCPP) thins the displaced image-KV refresh gathers "
-            "of attn_impl='gather'; 'ring' carries only the local chunk and has no "
-            "refresh collective to thin")
-    n = cfg.n_device_per_batch
-    k = refresh_period(cfg.refresh_fraction)
-    if k > 1 and mcfg.num_tokens % n == 0 and (mcfg.num_tokens // n) % k:
-        raise ValueError(f"refresh_fraction=1/{k} needs the per-device token chunk "
-                         f"({mcfg.num_tokens // n}) divisible by {k}")
-    if mcfg.num_tokens % n:
-        raise ValueError(f"token count {mcfg.num_tokens} must be divisible by the sp "
-                         f"degree {n}")
+    check_refresh_knobs(cfg, mcfg.num_tokens, "MMDiT")
     if cfg.step_cache_enabled:
         max_k = mcfg.depth - max(mcfg.dual_attention_blocks, 1)
         if not 1 <= cfg.step_cache_depth <= max_k:
@@ -111,7 +94,6 @@ def check_mmdit_config(cfg: DistriConfig, mcfg: MMDiTConfig) -> None:
     if cfg.parallelism != "patch":
         raise ValueError(f"the MMDiT runs displaced patch parallelism (parallelism="
                          f"'patch'), not {cfg.parallelism!r}")
-    refuse_transformer_knobs(cfg, "MMDiT")
 
 
 class MMDiTDenoiseRunner(TransformerRunner):
@@ -126,36 +108,37 @@ class MMDiTDenoiseRunner(TransformerRunner):
     def n_attn(self) -> int:
         return self.mcfg.depth + self.mcfg.dual_attention_blocks
 
-    def _local(self, x_in, t, cond, phase, state):
+    @property
+    def n_attn_shallow(self) -> int:
+        return self.d_keep + self.mcfg.dual_attention_blocks
+
+    def _local(self, x_in, t, cond, phase, state, step=None):
         """One MMDiT evaluation on this rank's token rows of ``x_in`` [Bl, N,
         D] (scaled, the CFG branches folded) from ``cond`` = (the projected
-        context [Bl, Lc, hidden], the pooled text [Bl, P], None): (the whole
-        velocity [Bl, N, D_out], the next step's buffers)."""
-        cfg, mcfg, params = self.cfg, self.mcfg, self.params
+        context [Bl, Lc, hidden], the pooled text [Bl, P], None) at the
+        absolute step ``step`` (which a partial refresh rotates by): (the
+        whole velocity [Bl, N, D_out], the next step's buffers)."""
+        mcfg, params = self.mcfg, self.params
         ctx0, pooled, _ = cond
         dtype = params["proj_in"]["kernel"].dtype
-        n = cfg.n_device_per_batch if cfg.is_sp else 1
-        chunk = mcfg.num_tokens // n
-        offset = (cfg.split_idx() if n > 1 else 0) * chunk
+        ctx = self._context(phase, state, step)
+        chunk = mcfg.num_tokens // ctx.n
+        offset = ctx.split_idx * chunk
         rows = x_in[:, offset:offset + chunk].to(dtype)
         pos = mm.pos_embed_cropped(mcfg, dtype, x_in.device)[offset:offset + chunk]
-        h, hc = mm.embed_tokens(params, rows, pos), ctx0
         vec = mm.cond_vec(params, mcfg, t, pooled)
         duals = params.get("blocks_dual", [])
-        ctx = None
-        if n > 1:
-            ctx = PatchContext(n=n, mode=cfg.mode, phase=phase, group=cfg.batch_group,
-                               split_idx=cfg.split_idx(), attn_impl=cfg.attn_impl,
-                               state_in=state)
-        for i, bp in enumerate(params["blocks"]):
+        context = [ctx0]  # the context stream, which the blocks carry on
+
+        def block(i, h):
             dual = duals[i] if i < len(duals) else None
-            hooks = {} if ctx is None else self._hooks(ctx, i, dual is not None)
-            h, hc = mm.mmdit_block(bp, mcfg, h, hc, vec, dual_p=dual, **hooks)[:2]
-        out_rows = mm.final_layer(params, mcfg, h, vec)
-        if ctx is None:
-            return out_rows, state
-        state = ctx.finish()
-        return gather_rows(out_rows, cfg.batch_group), state
+            hooks = self._hooks(ctx, i, dual is not None) if ctx.n > 1 else {}
+            h, context[0] = mm.mmdit_block(params["blocks"][i], mcfg, h, context[0], vec,
+                                           dual_p=dual, **hooks)[:2]
+            return h
+
+        h = self._run_blocks(ctx, phase, mm.embed_tokens(params, rows, pos), block)
+        return self._finish(ctx, phase, mm.final_layer(params, mcfg, h, vec))
 
     def _hooks(self, ctx: PatchContext, i: int, dual: bool):
         """The displaced-patch hooks of block ``i`` (and its dual attention):
@@ -173,9 +156,9 @@ class MMDiTDenoiseRunner(TransformerRunner):
                 hooks["attn2_core"] = lambda q2, kv2: ring_attend(q2, kv2, ctx, name2,
                                                                   heads=heads)
             return hooks
-        hooks = {"kv_assemble": lambda kv: displaced_kv(kv, ctx, name)}
+        hooks = {"kv_assemble": lambda kv: displaced_kv(kv, ctx, name, halves=2)}
         if dual:
-            hooks["kv2_assemble"] = lambda kv2: displaced_kv(kv2, ctx, name2)
+            hooks["kv2_assemble"] = lambda kv2: displaced_kv(kv2, ctx, name2, halves=2)
         return hooks
 
     def _inputs(self, latents, enc, pooled):

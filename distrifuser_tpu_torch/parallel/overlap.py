@@ -47,7 +47,7 @@ class Collective:
     """One issued collective: what it was, which buffers it writes, and the
     stages of its issue and of its wait (None if never waited)."""
 
-    op: str  # "all_gather", "halo", "ring_shift" or "all_reduce"
+    op: str  # "all_gather", "halo", "ring_shift", "all_to_all" or "all_reduce"
     names: Tuple[str, ...]
     kinds: Tuple[str, ...]
     issued: str

@@ -157,6 +157,23 @@ class StepLoop:
             x_in = torch.cat([x_in, x_in], dim=0)
         return x_in
 
+    def _stepwise_phase(self, i: int, start_step: int, end_step: int) -> Tuple[str, bool]:
+        """(phase, shallow) of step ``i`` of a run over ``start_step..
+        end_step-1`` (JAX ``_stepwise_phase``): the synchronous steps are
+        the first ``warmup_steps + 1`` that run (every step where the patch
+        path has one phase: full_sync, one rank, no patches), and under the
+        step cache the steps after them follow the shallow-first cadence
+        (the UNet's runner and the transformers' alike)."""
+        cfg = self.cfg
+        sc = cfg.step_cache_enabled
+        one_phase = (cfg.parallelism != "patch" or cfg.mode == "full_sync"
+                     or not cfg.is_sp)
+        n_sync = (end_step - start_step if one_phase and not sc
+                  else min(cfg.warmup_steps + 1, end_step - start_step))
+        phase = PHASE_SYNC if one_phase or i < start_step + n_sync else PHASE_STALE
+        shallow = sc and is_shallow_at(i, start_step + n_sync, cfg.step_cache_interval)
+        return phase, shallow
+
     def _guided_step(self, x, out, i, sstate, gs):
         """The CFG combine of the model's output ``out`` (this image
         group's; under data parallelism every group's gathered in batch
@@ -185,6 +202,13 @@ class DenoiseRunner(StepLoop):
                 "pipefusion is a DiT strategy (ROADMAP queue 1 item 13d); the "
                 "UNet's heterogeneous stages cannot pipeline — use "
                 "parallelism='patch' here"
+            )
+        if distri_config.attn_impl in ("ulysses", "usp"):
+            raise ValueError(
+                f"attn_impl={distri_config.attn_impl!r} is a DiT strategy "
+                "(parallel/dit_sp.py): head counts vary per UNet level, so "
+                "the all-to-all head shard does not apply — use 'gather' or "
+                "'ring' here"
             )
         n_levels = len(unet_config.block_out_channels)
         if distri_config.step_cache_enabled and not (
@@ -302,22 +326,6 @@ class DenoiseRunner(StepLoop):
                          dispatch=self.dispatch(text_kv), added_cond=my_added)
         gather = gather_rows if scheme == ROW else gather_cols
         return gather(y, cfg.batch_group)
-
-    def _stepwise_phase(self, i: int, start_step: int, end_step: int) -> Tuple[str, bool]:
-        """(phase, shallow) of step ``i`` of a run over ``start_step..
-        end_step-1`` (JAX ``_stepwise_phase``): the synchronous steps are
-        the first ``warmup_steps + 1`` that run (every step where the patch
-        path has one phase: full_sync, one rank, no patches), and under the
-        step cache the steps after them follow the shallow-first cadence."""
-        cfg = self.cfg
-        sc = cfg.step_cache_enabled
-        one_phase = (cfg.parallelism != "patch" or cfg.mode == "full_sync"
-                     or not cfg.is_sp)
-        n_sync = (end_step - start_step if one_phase and not sc
-                  else min(cfg.warmup_steps + 1, end_step - start_step))
-        phase = PHASE_SYNC if one_phase or i < start_step + n_sync else PHASE_STALE
-        shallow = sc and is_shallow_at(i, start_step + n_sync, cfg.step_cache_interval)
-        return phase, shallow
 
     def _phases(self, end: int, start: int = 0) -> List[str]:
         """The UNet evaluation of each of the steps ``start..end-1``:

@@ -427,10 +427,15 @@ class _GenerationMixin:
             per_step = {ph: sum(kinds.values()) for ph, kinds in rep["bytes"].items()}
             if per_step and "stale" not in per_step:  # one-phase configurations
                 per_step["stale"] = per_step.get("sync", 0)
-        else:  # the DiT's and the MMDiT's closed forms
+        else:  # the DiT's and the MMDiT's closed forms, a shallow step's
+            # bytes scaled from the elements it exchanges
             rep = runner.comm_report()
             per_step = {"sync": rep["sync_step_collective_bytes"],
                         "stale": rep["per_step_collective_bytes"]}
+            elems = rep["per_step_collective_elems"]
+            if "step_cache" in rep and elems:
+                per_step["shallow"] = (per_step["stale"] * rep["step_cache"][
+                    "shallow_per_step_collective_elems"] // elems)
         if not per_step:
             raise ValueError(
                 f"{type(runner).__name__} under parallelism="

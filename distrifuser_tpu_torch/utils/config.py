@@ -22,13 +22,19 @@ original DistriFusion:
   (r % group_size) // n`` and ``split_idx = r % n``, the JAX mesh's
   ``reshape(dp, cfg, n)`` order.
 
-Knobs of the JAX package that the port does not run yet are refused with
-the ROADMAP item that will bring them, never ignored: ``attn_impl``
-"ulysses" and "usp" and ``ulysses_degree`` above 1 (the DiT's head-sharded
-layouts, item 13c) and ``pipe_patches`` (PipeFusion, item 13d); at their
-defaults they do nothing.  The comm knobs of the displaced patch path (``comm_batch``,
-``comm_compress``, ``refresh_fraction``, the step cache and
-``attn_impl="ring"``) are validated as the JAX package validates them.
+Under ``attn_impl="usp"`` each patch group of n ranks is factored as
+``ulysses_degree`` x r (the JAX ``usp_mesh``): the rank at patch index
+``u_idx * r + r_idx`` holds ``sp_u_group`` (the ``ulysses_degree`` ranks of
+its ``r_idx``, the head-sharding all-to-all) and ``sp_r_group`` (the r
+ranks of its ``u_idx``, the ring); a group of one rank is None.
+
+The one knob of the JAX package that the port does not run yet is refused
+with the ROADMAP item that will bring it, never ignored: ``pipe_patches``
+(PipeFusion, item 13d); at its default it does nothing.  The comm knobs of
+the displaced patch path (``comm_batch``, ``comm_compress``,
+``refresh_fraction``, the step cache, ``attn_impl`` "ring", "ulysses" and
+"usp" and ``ulysses_degree``) are validated as the JAX package validates
+them.
 Two knobs are carried
 with no effect: ``comm_checkpoint``, the reference's NCCL flush interval,
 which a compiled step (a CUDA graph, or the JAX package's XLA program) has
@@ -80,9 +86,10 @@ def validate_step_cache_knobs(interval: int, depth: int) -> None:
             f"depth={depth})"
         )
 
-# process groups already built, keyed by (default group, world, dp, n):
-# every config of a run shares them, and every rank builds them in one order
-_GROUPS: Dict[Tuple[Any, int, int, int], Tuple[Any, Any, Any]] = {}
+# process groups already built, keyed by (default group, world, dp, n) and
+# ("usp", default group, world, n, ulysses_degree): every config of a run
+# shares them, and every rank builds them in one order
+_GROUPS: Dict[Tuple[Any, ...], Tuple[Any, ...]] = {}
 
 
 def _process_groups(world: int, n: int, rank: int, dp: int = 1):
@@ -111,6 +118,28 @@ def _process_groups(world: int, n: int, rank: int, dp: int = 1):
         _GROUPS[key] = (batch[rank // n], split[image * n + place % n] if n < size else None,
                         dp_groups[place])
     return _GROUPS[key]
+
+
+def _usp_groups(world: int, n: int, rank: int, u: int, batch_group):
+    """(sp_u_group, sp_r_group) of this rank: each patch group of n
+    consecutive ranks factored as u x r, r = n / u, patch index ``u_idx * r
+    + r_idx`` (JAX ``usp_mesh``).  ``sp_u_group`` holds the u ranks of this
+    rank's ``r_idx``, ``sp_r_group`` the r ranks of its ``u_idx``; a group
+    of one rank is None, one of the whole patch group is ``batch_group``.
+    Every rank creates every group, in one order."""
+    r = n // u
+    if u == 1 or r == 1:
+        return (batch_group, None) if r == 1 else (None, batch_group)
+    key = ("usp", dist.group.WORLD, world, n, u)
+    if key not in _GROUPS:
+        u_groups = [dist.new_group([g + ui * r + ri for ui in range(u)])
+                    for g in range(0, world, n) for ri in range(r)]
+        r_groups = [dist.new_group([g + ui * r + ri for ri in range(r)])
+                    for g in range(0, world, n) for ui in range(u)]
+        _GROUPS[key] = (u_groups, r_groups)
+    u_groups, r_groups = _GROUPS[key]
+    g, s = rank // n, rank % n
+    return u_groups[g * r + s % r], r_groups[g * u + s // r]
 
 
 @dataclasses.dataclass
@@ -163,7 +192,12 @@ class DistriConfig:
     the whole UNet once every I steps after the warmup and only its shallow
     levels in between (parallel/stepcache.py); ``attn_impl="ring"`` streams
     the peers' KV chunks around the patch group instead of gathering them
-    (ops/ring_attention.py).
+    (ops/ring_attention.py).  The DiT's exact head-sharded layouts:
+    ``attn_impl="ulysses"`` re-shards each block's q, k and v from token
+    rows to heads by an all-to-all over the patch group and back after the
+    attention; ``"usp"`` factors the patch group as ``ulysses_degree`` x r,
+    the all-to-all over the first factor and an exact ring over the second
+    (ops/ulysses.py).
 
     ``vae_sp`` picks the decode where the image is in patches and the
     latent rows divide among them: then each patch group decodes its rows
@@ -213,6 +247,8 @@ class DistriConfig:
     batch_group: Optional[Any] = dataclasses.field(init=False, default=None, repr=False)
     split_group: Optional[Any] = dataclasses.field(init=False, default=None, repr=False)
     dp_group: Optional[Any] = dataclasses.field(init=False, default=None, repr=False)
+    sp_u_group: Optional[Any] = dataclasses.field(init=False, default=None, repr=False)
+    sp_r_group: Optional[Any] = dataclasses.field(init=False, default=None, repr=False)
 
     def __post_init__(self) -> None:
         self._validate()
@@ -234,9 +270,16 @@ class DistriConfig:
             self.n_device_per_batch = max(group // 2, 1)
         else:
             self.n_device_per_batch = group
+        n = self.n_device_per_batch
+        if self.attn_impl == "usp" and n % self.ulysses_degree:
+            raise ValueError(f"ulysses_degree {self.ulysses_degree} must divide the sp "
+                             f"degree {n}")
         if world > 1:
             self.batch_group, self.split_group, self.dp_group = _process_groups(
-                world, self.n_device_per_batch, self.rank, self.dp_degree)
+                world, n, self.rank, self.dp_degree)
+            if self.attn_impl == "usp":
+                self.sp_u_group, self.sp_r_group = _usp_groups(
+                    world, n, self.rank, self.ulysses_degree, self.batch_group)
         if self.dtype is None:
             self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
 
@@ -254,7 +297,9 @@ class DistriConfig:
             raise ValueError(
                 f"comm_checkpoint must be a positive int, got {self.comm_checkpoint!r}")
         if self.attn_impl not in ATTN_IMPLS:
-            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
+            raise ValueError(
+                "attn_impl must be 'gather', 'ring', 'ulysses', or 'usp' "
+                f"(ulysses/usp: DiT only), got {self.attn_impl!r}")
         if self.height % 8 != 0 or self.width % 8 != 0:
             raise ValueError("height and width must be multiples of 8")
         if self.batch_size < 1:
@@ -314,11 +359,10 @@ class DistriConfig:
                 "defeats hybrid's one-body rationale; use the full loop with "
                 "the step cache"
             )
-        if self.attn_impl in ("ulysses", "usp") or self.ulysses_degree > 1:
-            raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r}, ulysses_degree={self.ulysses_degree}: "
-                "ulysses and usp (the DiT's head-sharded layouts) are ROADMAP queue 1 "
-                "item 13c; the DiT and the UNet take attn_impl 'gather' or 'ring'"
+        if self.ulysses_degree > 1 and self.attn_impl != "usp":
+            raise ValueError(
+                "ulysses_degree applies to attn_impl='usp' only (pure "
+                "head-sharding is attn_impl='ulysses')"
             )
         if self.pipe_patches is not None:
             raise NotImplementedError(

@@ -20,9 +20,9 @@ rank, its ``comm_report`` equal to the JAX one's key for key at batch 1 and
 2, its phase counts and the callback's latent shapes as expected; each
 world's first two cases also with ``use_cuda_graph=True`` (on the CPU the
 static-buffer step without a capture), bit for bit with eager.  The
-refusals (the JAX runner's ValueErrors, the knobs of ROADMAP item 13b' as
-NotImplementedError) run in this process, and ``start_step`` against the
-steps it skips.
+refusals (the JAX runner's ValueErrors) run in this process, and
+``start_step`` against the steps it skips.  The comm knobs are held in
+tests/test_torch_port_transformer_knobs.py.
 """
 
 import dataclasses
@@ -148,9 +148,9 @@ def _cfg(**fields):
     ({"height": 512, "width": 512}, ValueError, "sample_size"),
     ({"parallelism": "tensor"}, ValueError, "parallelism"),
     ({"step_cache_interval": 2, "step_cache_depth": 2}, ValueError, "step_cache_depth"),
-    ({"comm_compress": "int8"}, NotImplementedError, "item 13b'"),
-    ({"refresh_fraction": 0.5}, NotImplementedError, "item 13b'"),
-    ({"step_cache_interval": 2, "step_cache_depth": 1}, NotImplementedError, "item 13b'"),
+    ({"attn_impl": "ring", "comm_compress": "fp8"}, ValueError, "comm_compress"),
+    ({"refresh_fraction": 1 / 3}, ValueError, "divisible by 3"),
+    ({"step_cache_interval": 2, "step_cache_depth": 3}, ValueError, "step_cache_depth"),
 ])
 def test_runner_refusals(fields, exc, match):
     mcfg = dataclasses.replace(port_mm.tiny_mmdit_config(), depth=2)
@@ -160,13 +160,10 @@ def test_runner_refusals(fields, exc, match):
 
 @pytest.mark.parametrize("attn_impl", ["ulysses", "usp"])
 def test_head_sharded_layouts_refused(devices8, attn_impl):
-    """ulysses and usp: ``DistriConfig`` refuses them first (the DiT's item
-    13c); the runner itself refuses them as undefined for joint attention
-    with the JAX runner's ValueError."""
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        _cfg(attn_impl=attn_impl)
-    cfg = _cfg()
-    cfg.attn_impl = attn_impl
+    """ulysses and usp: ``DistriConfig`` accepts them (the DiT runs them);
+    the MMDiT runner refuses them as undefined for joint attention with
+    the JAX runner's ValueError."""
+    cfg = _cfg(attn_impl=attn_impl)
     mcfg = port_mm.tiny_mmdit_config()
     with pytest.raises(ValueError, match="joint"):
         MMDiTDenoiseRunner(cfg, mcfg, {}, get_scheduler("flow-euler"))

@@ -66,11 +66,16 @@ def test_unet_family_decodes_without_vae_shift():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("attn_impl", "usp", "item 13"),
-    ("attn_impl", "ulysses", "item 13"),
-    ("pipe_patches", 4, "item 13"),
+    ("attn_impl", "usp", None),
+    ("attn_impl", "ulysses", None),
+    ("pipe_patches", 4, "item 13d"),
 ])
 def test_unported_knobs_refused(field, value, item):
+    """PipeFusion's ``pipe_patches`` is refused naming ROADMAP item 13d;
+    the DiT's head-sharded layouts, ported since, are accepted."""
+    if item is None:
+        assert getattr(DistriConfig(device="cpu", **{field: value}), field) == value
+        return
     with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
         DistriConfig(device="cpu", **{field: value})
 
@@ -180,8 +185,8 @@ def test_rank_takes_the_card_of_its_local_rank(monkeypatch, rank, local, cards, 
 ])
 def test_jax_config_keywords_accepted_or_refused_alike(fields):
     """Each keyword is accepted or refused as the JAX package's DistriConfig
-    accepts or refuses it; the port refuses a non-default ``ulysses_degree``
-    or ``pipe_patches`` as not ported yet (queue 1 item 13), and carries
+    accepts or refuses it, with the same exception type; the port refuses
+    ``pipe_patches`` as not ported yet (queue 1 item 13d), and carries
     ``hybrid_loop`` with no effect."""
     from distrifuser_tpu.utils.config import DistriConfig as JaxDistriConfig
 
@@ -197,9 +202,8 @@ def test_jax_config_keywords_accepted_or_refused_alike(fields):
         return
     with pytest.raises((ValueError, NotImplementedError)) as got:
         DistriConfig(device="cpu", **fields)
-    unported = fields.get("ulysses_degree", 1) > 1 or (fields.get("pipe_patches") or 0) > 0
-    if unported:
-        assert got.type is NotImplementedError and "queue 1 item 13" in str(got.value)
+    if (fields.get("pipe_patches") or 0) > 0:
+        assert got.type is NotImplementedError and "queue 1 item 13d" in str(got.value)
     else:
         assert got.type is jax_error
     if fields.get("hybrid_loop") and "step_cache_interval" in fields:

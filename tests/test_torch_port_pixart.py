@@ -616,7 +616,8 @@ def test_dit_example_cli(tmp_path, capsys):
     for argv, msg in ((["--parallelism", "tensor"], "UNet strategy"),
                       (["--init_image", "x.png"], "text2img-only"),
                       (["--parallelism", "pipefusion"], "item 13d"),
-                      (["--attn_impl", "usp"], "item 13c")):
+                      (["--attn_impl", "usp", "--ulysses_degree", "2"],
+                       "must divide the sp degree")):
         with pytest.raises(SystemExit):
             dit_example.main(base + argv)
         assert msg in capsys.readouterr().err, argv

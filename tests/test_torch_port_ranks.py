@@ -440,12 +440,14 @@ def overlap_worker(rank, world, in_path, out_path):
 
 def dit_worker(rank, world, in_path, out_path):
     """The tiny DiT runner (parallel/dit_sp.py) in each case of ``cases``
-    (config fields over ``base``): 4 steps from the same latents, caption
-    states and mask, with the latent shapes its callback saw; then each case
+    (config fields over ``base``): ``steps`` steps from the same latents,
+    caption states and mask, with the latent shapes its callback saw; then each case
     of ``graphed`` with ``use_cuda_graph=True``.  Saves {case index, or
     ("graphed", index): (latent, comm_report(1), comm_report(2), phase
-    counts, callback shapes)}."""
+    counts, callback shapes), and ("extra", either): its
+    ``_transformer_extras``}."""
     from distrifuser_tpu_torch.models import dit
+    from distrifuser_tpu_torch.parallel.collectives import all_to_all
     from distrifuser_tpu_torch.parallel.dit_sp import DiTDenoiseRunner
     from distrifuser_tpu_torch.schedulers import get_scheduler
     from distrifuser_tpu_torch.utils.config import DistriConfig
@@ -461,27 +463,45 @@ def dit_worker(rank, world, in_path, out_path):
         batch = fields.get("batch_size", 1)
         cfg = DistriConfig(device="cpu", height=128, width=128, **fields)
         runner = DiTDenoiseRunner(cfg, dcfg, inp["params"], get_scheduler(inp["scheduler"]))
-        seen = []
+        seen, a2a = [], all_to_all.launches
         x = runner.generate(inp["latents"][:batch], inp["enc"][:, :batch],
                             guidance_scale=4.5, num_inference_steps=inp["steps"],
                             cap_mask=inp["mask"][:, :batch],
                             callback=lambda i, t, x: seen.append(tuple(x.shape)))
         out[i] = (x, runner.comm_report(1), runner.comm_report(2),
                   dict(runner.phase_counts), seen)
+        out["extra", i] = _transformer_extras(runner, inp["steps"], a2a)
     torch.save(out, f"{out_path}.rank{rank}")
+
+
+def _transformer_extras(runner, steps, a2a_before):
+    """What a transformer runner's case saves besides its latent: the
+    pipelines' ``comm_plan`` of its config at 1 and 2 images, the bytes
+    each phase's refreshes put on the wire by buffer, and the all-to-alls
+    its run issued."""
+    import types
+
+    from distrifuser_tpu_torch.parallel.collectives import all_to_all
+    from distrifuser_tpu_torch.pipelines import DistriPixArtPipeline
+
+    stub = types.SimpleNamespace(distri_config=runner.cfg, runner=runner)
+    return {"plan": DistriPixArtPipeline.comm_plan(stub, steps),
+            "wire": runner.refresh_wire, "a2a": all_to_all.launches - a2a_before}
 
 
 def mmdit_worker(rank, world, in_path, out_path):
     """The tiny MMDiT runner (parallel/mmdit_sp.py) in each case of ``cases``
     (config fields over ``base``; a case's "model" names its MMDiT in
-    ``models``, config fields and tree): 4 flow-euler steps from the same
-    latents, text states and pooled vectors, with the latent shapes its
+    ``models``, config fields and tree): ``steps`` flow-euler steps from the
+    same latents, text states and pooled vectors, with the latent shapes its
     callback saw; then each case of ``graphed`` with ``use_cuda_graph=True``.
     Saves {case index, or ("graphed", index): (latent, comm_report(1),
-    comm_report(2), phase counts, callback shapes)}."""
+    comm_report(2), phase counts, callback shapes), and ("extra", either):
+    its ``_transformer_extras``}."""
     import dataclasses
 
     from distrifuser_tpu_torch.models import mmdit
+    from distrifuser_tpu_torch.parallel.collectives import all_to_all
     from distrifuser_tpu_torch.parallel.mmdit_sp import MMDiTDenoiseRunner
     from distrifuser_tpu_torch.schedulers import get_scheduler
     from distrifuser_tpu_torch.utils.config import DistriConfig
@@ -498,11 +518,12 @@ def mmdit_worker(rank, world, in_path, out_path):
         batch = fields.get("batch_size", 1)
         cfg = DistriConfig(device="cpu", height=256, width=256, **fields)
         runner = MMDiTDenoiseRunner(cfg, mcfg, params, get_scheduler("flow-euler"))
-        seen = []
+        seen, a2a = [], all_to_all.launches
         x = runner.generate(inp["latents"][:batch], inp["enc"][:, :batch],
                             inp["pooled"][:, :batch], guidance_scale=7.0,
                             num_inference_steps=inp["steps"],
                             callback=lambda i, t, x: seen.append(tuple(x.shape)))
         out[i] = (x, runner.comm_report(1), runner.comm_report(2),
                   dict(runner.phase_counts), seen)
+        out["extra", i] = _transformer_extras(runner, inp["steps"], a2a)
     torch.save(out, f"{out_path}.rank{rank}")

@@ -578,8 +578,8 @@ def test_sd3_example_runs(capsys):
 
 @pytest.mark.parametrize("flags, message", [
     (["--scheduler", "ddim"], "flow-euler"),
-    (["--attn_impl", "ulysses"], "item 13"),
-    (["--comm_compress", "int8"], "item 13b'"),
+    (["--attn_impl", "ulysses"], "joint attention"),
+    (["--attn_impl", "ring", "--comm_compress", "int8"], "comm_compress"),
     (["--parallelism", "tensor"], "parallelism"),
 ])
 def test_sd3_example_refusals(capsys, flags, message):

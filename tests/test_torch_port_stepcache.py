@@ -64,7 +64,7 @@ def test_cadence_functions_match_jax():
 
 
 # every combination of the knobs' values that changes what is refused;
-# the port refuses ulysses / usp (ROADMAP item 13) and dp_degree > 1 itself
+# (ulysses and usp, which both configs accept at one device, below)
 CONFIG_GRID = {
     "parallelism": ["patch", "naive_patch", "tensor"],
     "comm_compress": ["none", "int8", "int8_residual", "int4"],
@@ -97,8 +97,9 @@ def test_config_refusals_match_jax(devices8):
         seen.add(want)
     assert seen == {"ok", "ValueError"}
     for impl in ("ulysses", "usp"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-            DistriConfig(device="cpu", attn_impl=impl)
+        fields = {"attn_impl": impl, "height": 128, "width": 128}
+        assert _outcome(lambda: DistriConfig(device="cpu", **fields)) == _outcome(
+            lambda: JaxDistriConfig(devices=devices8[:1], **fields)) == "ok"
 
 
 def _unet_inputs(sdxl):
