@@ -56,7 +56,13 @@ Phases (any failure raises, and the script exits non-zero):
    and the DiT's head-sharded layouts at d = 72 (one rank of the
    "dit_ulysses" run (1, 4096, 4096, 8, 72): 8 heads of every token, q, k
    and v views of the all-to-all's receive buffer [B, L, 3C]; and the
-   "dit_usp" run's log-sum-exp chunks (2, 2048, 2048, 8, 72)):
+   "dit_usp" run's log-sum-exp chunks (2, 2048, 2048, 8, 72)); and
+   PipeFusion's chunk passes at d = 72 (rows "pipefusion_chunk@pixart"
+   (2, 1024, 4096, 16, 72), CFG folded, and "pipefusion_chunk_cfg@pixart"
+   (1, 1024, 4096, 16, 72), CFG split: a chunk's queries against a
+   block's whole cache, K and V strided views of its fused [B, 4096, 2C]
+   rows; and "pipefusion_warm_cfg@pixart" (1, 4096, 4096, 16, 72), the
+   CFG-split run's mega-patch passes):
    each "@sd3" row is held besides in units of the plain result's own
    scale (max |d| / mean |want| <= 0.5, mean |d| / mean |want| <= 1.5e-2,
    about 10x a sound kernel's readings), and the plain result without the
@@ -96,7 +102,11 @@ Phases (any failure raises, and the script exits non-zero):
    one rank's fused KV of a block at CFG 2 x sp 2, int8, k = 2, one float32
    scale per row of k and one per row of v, the halves read in place as the
    two parts of one segment and decoded as two segments of one launch; also
-   with the residual base); the quant rows also cover PixArt-α's DiT
+   with the residual base); PipeFusion's hop ("hop_pipefusion_*": one chunk
+   [2, 1024, 1152] with one float32 scale per token row: int8 and fp8 from
+   bf16, decoded to bf16; the residual code from a float32 chunk against a
+   float32 predictor, decoded onto it in float32), bit for bit; the quant
+   rows also cover PixArt-α's DiT
    linears and T5-XXL's (M, K, N) ("...@pixart"; T5's with no launches:
    the text encoder follows ``weight_quant_aux``, which densifies) and
    SD3-medium's MMDiT linears at 1024x1024 with CFG folded ("...@sd3",
@@ -118,7 +128,8 @@ Phases (any failure raises, and the script exits non-zero):
    dense and with weight_quant int8 under quant_compute="pallas", and an
    SD3.5-medium-shaped one (q/k norms, 3 blocks, the first 2 dual), <=
    8e-2, each with its flash and quant launches derived from the config
-   (``_tiny_sd3_check``); and the step cache
+   (``_tiny_sd3_check``); the tiny PixArt pipeline under PipeFusion at one
+   card (4 chunks, graphed on both sides), <= 8e-2; and the step cache
    at the tiny size on the card (interval 2, depth 1, 6 steps), graphed
    (a "shallow" graph) equal to eager bit for bit;
 5. main path: DistriSDXLPipeline at full SDXL width (UNet, ViT-L + bigG
@@ -164,7 +175,13 @@ Phases (any failure raises, and the script exits non-zero):
    VAE, seeded random bf16 weights; 4 DPM-solver steps to an image, eagerly
    and then under CUDA graphs, bit for bit (flash 4*28 + 1 a call: d = 72
    112 times, the whole decode's d = 512 once), with each call's time and
-   peak memory and the parameter counts;
+   peak memory and the parameter counts; then PipeFusion from the same
+   trees at one card (``parallelism="pipefusion"``, 4 chunks of 1024
+   tokens, warmup 1): ``prepare`` captures its tick bodies, one untimed
+   call, the graphed call (flash 2*28 + 8*28 + 1 = 281: 2 mega-patch passes,
+   8 chunk passes, the decode; no step callback, each tick body's device
+   ms by CUDA events), the same ticks replayed uncaptured, bit for bit;
+   its latent against the dense call's (relative L2, information only);
 5d. SD3: DistriSD3Pipeline at 1024x1024 with the MMDiT of ``sd3_config()``
    (24 joint blocks of 1536, 24 heads of d = 64), CLIP-L (768
    projection), OpenCLIP-bigG and T5-v1.1-XXL whole, the SD3 VAE built by
@@ -236,6 +253,22 @@ Phases (any failure raises, and the script exits non-zero):
    too) and ``dit_usp`` (sp 4 with the CFG branches folded,
    ``ulysses_degree=2``: 228 log-sum-exp launches, 224 all-to-alls; tiny
    checks at ``ulysses_degree`` 1 and 4, the latter on a 4-head tiny DiT).
+   ``pipefusion``, ``pipefusion_cfg`` and ``pipefusion_knobs``:
+   DistriPixArtPipeline under PipeFusion (parallel/pipefusion.py; the DiT's
+   blocks as 4 or 2 pipeline stages, 4 chunks of 1024 tokens, warmup 1)
+   at sp 4 with the CFG folded, at CFG 2 x sp 2, and at sp 4 with
+   int8_residual hops and the step cache (interval 2, the last stage
+   passing through every other step after the warmup; 6 steps): its ticks
+   run only as captured graphs, so with ranks sharing the card each rank
+   checks that ``use_cuda_graph=True`` is refused for the staging and
+   False by PipeFusion, and runs nothing; over NCCL each rank holds only
+   its stage's blocks (the others freed before the calls), runs the tiny
+   check at this world (a 4-block tiny DiT, graphed on the card and on the
+   CPU), ``prepare``, one untimed call, the graphed call and the same
+   ticks replayed uncaptured (bit for bit, or within 1e-3 relative L2),
+   each with the flash and codec launches and tick passes derived from the
+   config (``pipefusion_counts``), the tick bodies' device ms, peak memory,
+   weight bytes, ``comm_report``, ``comm_plan`` and hop bytes a step.
    ``decode_sp``: the tiny VAE's sequence-parallel decode on the
    card against the CPU at world 4 (relative L2 <= 8e-2), then a 2048x2048
    SDXL latent decoded sequence-parallel at sp 4 and at CFG 2 x sp 2 through
@@ -406,8 +439,25 @@ MULTI_RUNS = {
                  "split_batch": False},
                 [{}, {"ulysses_degree": 1}, {"ulysses_degree": 4, "heads": 4}],
                 {"sync": 2, "stale": 2}, "pixart", PATCH_STEPS),
+    # PixArt-α's DiT as PipeFusion's pipeline stages (parallel/pipefusion.py),
+    # 4 chunks of 1024 tokens, graphed only (its ticks are captured bodies):
+    # sp 4 with the CFG folded; CFG 2 x sp 2; sp 4 with int8_residual hops and
+    # the step cache skipping the last stage every other step after the
+    # warmup; tiny checks on a 4-block tiny DiT (one or two blocks a stage);
+    # steps by phase: each rank's tick passes (``pipefusion_counts``)
+    "pipefusion": ({"parallelism": "pipefusion", "warmup_steps": PATCH_WARMUP,
+                    "split_batch": False, "pipe_patches": 4},
+                   [{"depth": 4}], None, "pixart", PATCH_STEPS),
+    "pipefusion_cfg": ({"parallelism": "pipefusion", "warmup_steps": PATCH_WARMUP,
+                        "pipe_patches": 4}, [{"depth": 4}], None, "pixart", PATCH_STEPS),
+    "pipefusion_knobs": ({"parallelism": "pipefusion", "warmup_steps": PATCH_WARMUP,
+                          "split_batch": False, "pipe_patches": 4,
+                          "comm_compress": "int8_residual", "step_cache_interval": 2,
+                          "step_cache_depth": 1},
+                         [{"depth": 4}], None, "pixart", 6),
 }
 DIT_RUNS = ("dit", "dit_ring", "dit_knobs", "dit_ulysses", "dit_usp")
+PIPEFUSION_RUNS = ("pipefusion", "pipefusion_cfg", "pipefusion_knobs")
 SD3_RUNS = ("sd3", "sd3_ring", "sd3_knobs")
 # the transformer runs whose stale refreshes go through the refresh codec
 TRANSFORMER_KNOB_RUNS = ("dit_knobs", "sd3_knobs")
@@ -435,6 +485,18 @@ PIXART_RING_HOPS = (("dit_ring_hop" + PIXART, 1, 2048, 2048, 16, 72,
                      2 * PIXART_STEPS * PIXART_DEPTH),
                     ("dit_usp_chunk" + PIXART, 2, 2048, 2048, 8, 72,
                      2 * PIXART_STEPS * PIXART_DEPTH))
+# PipeFusion at 1024x1024, 4 chunks of 1024 tokens, warmup 1 of 4 steps
+# (2 mega-patch passes and 8 chunk passes a stage): a chunk's queries
+# against a block's whole cache, K and V strided views of its fused [B,
+# 4096, 2C] rows; B = 2 with the CFG folded (the one-card call, 28 blocks;
+# the "pipefusion" run, 7 a rank), B = 1 under the CFG split
+# ("pipefusion_cfg", 14 blocks a rank, its mega-patch passes at B = 1 too)
+PIPEFUSION_PATCHES = 4
+PIXART_TOKENS, PIXART_HIDDEN = 4096, 1152  # PixArt-α 1024x1024: 64 x 64 tokens of 1152
+PIPEFUSION_SHAPES = (
+    ("pipefusion_chunk" + PIXART, 2, 1024, 4096, 16, 72, 8 * PIXART_DEPTH),
+    ("pipefusion_chunk_cfg" + PIXART, 1, 1024, 4096, 16, 72, 8 * PIXART_DEPTH // 2),
+    ("pipefusion_warm_cfg" + PIXART, 1, 4096, 4096, 16, 72, 2 * PIXART_DEPTH // 2))
 KNOB_RUNS = ("ring", "compress_pcpp", "stepcache_batch")
 # the ring attention's chunk shapes at CFG 2 x sp 2 (B = 1, L / 2 queries
 # against one rank's L / 2 keys), as the flash kernel's log-sum-exp
@@ -480,9 +542,8 @@ SD3_STEPS, SD3_CONTEXT, SD3_T5_TOKENS = 4, 154, 77
 TINY_SD3_HEADS, TINY_SD3_T5_TOKENS = 2, 7  # the tiny MMDiT: 2 heads of SD3's d = 64
 # the published stabilityai/stable-diffusion-3-medium vae/config.json (the
 # fields vae_config_from_json reads, and the two use_*_quant_conv keys: false
-# there, SD3's VAE has no 1x1 quant convs; both packages' readers ignore
-# them and their encode and decode run the convs all the same, so this VAE
-# runs a 1x1 conv on 16 channels that SD3 lacks: ROADMAP queue 3 fault 7)
+# there, SD3's VAE has no 1x1 quant convs, and the port's reader takes them:
+# this VAE has neither conv, and its decode and encode run none)
 SD3_VAE_JSON = {"in_channels": 3, "out_channels": 3, "latent_channels": 16,
                 "block_out_channels": [128, 256, 512, 512], "layers_per_block": 2,
                 "norm_num_groups": 32, "scaling_factor": 1.5305, "shift_factor": 0.0609,
@@ -1036,6 +1097,74 @@ def refresh_codec_phase(rows):
         results.append(line)
         del enc, dec, fns, plains
         torch.cuda.empty_cache()
+    return results
+
+
+def hop_codec_phase():
+    """Both codec kernels at PipeFusion's hop (parallel/pipefusion.py): one
+    chunk [2, 1024, 1152] of the "pipefusion_knobs" run (sp 4, CFG folded,
+    4 chunks) coded with one float32 scale per token row, as the runner
+    codes it: int8 and fp8 from the bf16 chunk, decoded to bf16; and the
+    residual code (int8) of the float32 chunk against a float32 predictor,
+    decoded onto the predictor in float32 (the sender's reconstruction and
+    the receiver's decode).  Each bit for bit with its plain version, timed
+    beside it; bound by bytes; launches a call of one rank of the run: one
+    encode an item sent, one decode an item received and one for the
+    residual's reconstruction."""
+    import torch
+
+    from distrifuser_tpu_torch.ops import quantize as qz
+
+    fields, _, _, _, steps = MULTI_RUNS["pipefusion_knobs"]
+    _, launches = pipefusion_counts(fields, steps, PATCH_WORLD, 0)
+    shape = (2, PIXART_TOKENS // PIPEFUSION_PATCHES, PIXART_HIDDEN)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    results = []
+    for mode, residual in (("int8", False), ("fp8", False), ("int8", True)):
+        src = torch.randn(shape, device="cuda", generator=g)
+        src = src if residual else src.bfloat16()
+        base = torch.randn(shape, device="cuda", generator=g) if residual else None
+        out_dtype = torch.float32 if residual else torch.bfloat16
+        enc = [qz.EncodeSeg(src, base)]
+        (q, sc), = qz.quantize_rows_grouped(enc, mode)
+        wq, ws = qz.quantize_rows_reference(enc[0], mode)
+        dec = [qz.DecodeSeg(q, sc, base)]
+        got = qz.dequantize_rows_grouped(dec, out_dtype)[0]
+        want = qz.dequantize_rows_reference(dec[0], out_dtype)
+        same = [torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                for a, b in ((q, wq), (sc.view(torch.uint8), ws.view(torch.uint8)),
+                             (got.view(torch.uint8), want.view(torch.uint8)))]
+        name = f"hop_pipefusion_{mode}{'_residual' if residual else ''}_" \
+               f"{'x'.join(map(str, shape))}"
+        if not all(same):
+            raise AssertionError(f"{name}: the codec kernels differ from their plain "
+                                 f"versions (payload, scales, decode: {same})")
+        rows, cols = math.prod(shape[:-1]), shape[-1]
+        src_bytes = src.element_size()
+        nbytes = {"quantize_": rows * cols * (src_bytes + (4 if residual else 0) + 1) + 4 * rows,
+                  "dequantize_": rows * cols * (1 + (4 if residual else 0)
+                                                + torch.empty((), dtype=out_dtype)
+                                                .element_size()) + 4 * rows}
+        fns = {"quantize_": lambda: qz.quantize_rows_grouped(enc, mode),
+               "dequantize_": lambda: qz.dequantize_rows_grouped(dec, out_dtype)}
+        plains = {"quantize_": lambda: qz.quantize_rows_reference(enc[0], mode),
+                  "dequantize_": lambda: qz.dequantize_rows_reference(dec[0], out_dtype)}
+        calls = {"quantize_": launches["quantize_rows"] if residual else 0,
+                 "dequantize_": launches["dequantize_rows"] if residual else 0}
+        line = {"shape": name, "mode": mode, "residual": residual,
+                "source": str(src.dtype), "launches_per_call": calls["quantize_"],
+                "dequantize_launches_per_call": calls["dequantize_"]}
+        for prefix, fn in fns.items():
+            bound, by = _bound(0.0, nbytes[prefix])
+            line.update({prefix + "max_abs_err": 0.0,
+                         prefix + "ms": time_ms(fn, target_ms=QUANT_TARGET_MS),
+                         prefix + "device_ms": device_ms(fn, iters=20, attempts=5),
+                         prefix + "plain_ms": time_ms(plains[prefix], target_ms=QUANT_TARGET_MS,
+                                                      max_iters=5),
+                         prefix + "library_ms": None, prefix + "library_device_ms": None,
+                         prefix + "bound_ms": bound, prefix + "bound_by": by})
+        print(json.dumps(line), flush=True)
+        results.append(line)
     return results
 
 
@@ -1700,9 +1829,10 @@ def tiny_check(weight_quant="none", steps=3, model="sdxl", scheduler="ddim", pro
     return result
 
 
-def _tiny_pixart_check(steps, scheduler, prompts, heads=TINY_PIXART_HEADS, **fields):
-    """``tiny_check`` of the tiny PixArt pipeline: a 2-block DiT of ``heads``
-    heads of PixArt's d = 72, the tiny T5, the tiny VAE, bf16 on the card vs
+def _tiny_pixart_check(steps, scheduler, prompts, heads=TINY_PIXART_HEADS, depth=2,
+                       **fields):
+    """``tiny_check`` of the tiny PixArt pipeline: a ``depth``-block DiT of
+    ``heads`` heads of PixArt's d = 72, the tiny T5, the tiny VAE, bf16 on the card vs
     float32 on the CPU from the same weights and latents, relative L2 within
     TINY_REL_L2 (fp8's with fp8 refresh payloads)."""
     import numpy as np
@@ -1713,7 +1843,7 @@ def _tiny_pixart_check(steps, scheduler, prompts, heads=TINY_PIXART_HEADS, **fie
     from distrifuser_tpu_torch.models.unet import cast_params
 
     gen = torch.Generator().manual_seed(0)
-    dcfg = dit.DiTConfig(sample_size=16, hidden_size=72 * heads, depth=2,
+    dcfg = dit.DiTConfig(sample_size=16, hidden_size=72 * heads, depth=depth,
                          num_heads=heads, mlp_ratio=2, caption_dim=32)
     tcfg, vcfg = t5.tiny_t5_config(), vae.tiny_vae_config()
     trees = (dit.init_dit_params(gen, dcfg), vae.init_vae_params(gen, vcfg),
@@ -1734,7 +1864,7 @@ def _tiny_pixart_check(steps, scheduler, prompts, heads=TINY_PIXART_HEADS, **fie
     limit = TINY_REL_L2["fp8" if fields.get("comm_compress") == "fp8" else "none"]
     result = {"phase": "tiny_check", "model": "pixart", "scheduler": scheduler,
               "weight_quant": "none", "steps": steps, "prompts": prompts, **fields,
-              "heads": heads, "head_dim": 72, "rel_l2": rel,
+              "heads": heads, "head_dim": 72, "depth": depth, "rel_l2": rel,
               "max_abs": float(np.abs(got - ref).max()), "limit_rel_l2": limit}
     if not np.isfinite(got).all() or rel > limit:
         raise AssertionError(f"tiny PixArt pipeline ({fields}) bf16/card vs fp32/cpu: "
@@ -2186,8 +2316,15 @@ def pixart_phase():
     weights; one prompt, 4 DPM-solver steps to an image, eagerly and then
     under CUDA graphs (``graphed_runs``), which must agree bit for bit; the
     flash kernel 4 x 28 + 1 times a call (the eager call's launches by head
-    dim: d = 72 112 times, the whole decode's d = 512 once).  Prints the
-    lines and returns (eager line, graphed line)."""
+    dim: d = 72 112 times, the whole decode's d = 512 once).  Then the same
+    trees under PipeFusion at one card (``parallelism="pipefusion"``, one
+    stage of 28 blocks, 4 chunks of 1024 tokens, warmup 1): graphed, the
+    flash kernel 2 x 28 + 8 x 28 + 1 times (2 mega-patch passes, 8 chunk
+    passes, the decode), then its ticks replayed uncaptured, bit for bit
+    (``pipefusion_runs``); its image against the dense call's (relative L2
+    of the latents, information only).  Prints the lines and returns (eager
+    line, graphed line, PipeFusion's graphed line)."""
+    import numpy as np
     import torch
 
     t0 = time.perf_counter()
@@ -2195,7 +2332,7 @@ def pixart_phase():
     trees_s = time.perf_counter() - t0
     pipe, init_s = build_pipeline(trees, "pixart")
     per_call = PIXART_STEPS * trees[0].depth
-    eager, graphed, compare, _ = graphed_runs(
+    eager, graphed, compare, dense_x = graphed_runs(
         pipe, init_s + trees_s, "pixart",
         {"flash_sdpa": per_call + 1, "quant_matmul": 0, "quantize_rows": 0},
         steps=PIXART_STEPS, model="pixart")
@@ -2212,10 +2349,248 @@ def pixart_phase():
     if not (compare["latent_bit_identical"] and compare["image_bit_identical"]):
         raise AssertionError(f"pixart: the graphed call differs from the eager one "
                              f"(latent rel L2 {compare['latent_rel_l2']})")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    fields = {"parallelism": "pipefusion", "pipe_patches": PIPEFUSION_PATCHES,
+              "warmup_steps": PATCH_WARMUP}
+    pipe, pf_init_s = build_pipeline(trees, "pixart", **fields)
+    pf, pf_eager, pf_compare = pipefusion_runs(pipe, "pixart pipefusion", fields)
+    out = pipe(PROMPT, num_inference_steps=PIXART_STEPS, seed=0, output_type="latent")
+    pf_x = np.asarray(out.images[0], np.float32)
+    for line in (pf, pf_eager):
+        line.update({"init_s": pf_init_s, "parameters": params, **pipefusion_line(
+            pipe, PIXART_STEPS)})
+        print(json.dumps(line), flush=True)
+    pf_compare["pipefusion_vs_dense_latent_rel_l2"] = float(
+        np.linalg.norm(pf_x - dense_x.reshape(pf_x.shape))
+        / np.linalg.norm(dense_x))
+    print(json.dumps(pf_compare), flush=True)
+    if not pf_compare["latent_bit_identical"]:
+        raise AssertionError(f"pixart pipefusion: the graphed ticks differ from the "
+                             f"uncaptured ones (latent rel L2 {pf_compare['latent_rel_l2']})")
     del pipe, trees
     gc.collect()
     torch.cuda.empty_cache()
-    return eager, graphed
+    return eager, graphed, pf
+
+
+def pipefusion_counts(fields, steps, stages, stage, depth=PIXART_DEPTH):
+    """(tick passes, kernel launches) of one PipeFusion call on the rank at
+    ``stage`` of ``stages`` with config ``fields`` (parallel/pipefusion.py:
+    one mega-patch pass a synchronous step, one chunk pass an item, a deep
+    stage's shallow items passed through; every item hops once into every
+    stage): the flash kernel depth / stages times a full pass and once for
+    the whole decode; under ``comm_compress`` the encoder once an item sent
+    and the decoder once an item received, the residual code's
+    reconstruction one decode more."""
+    patches = fields.get("pipe_patches") or stages
+    n_sync = min(fields.get("warmup_steps", 4) + 1, steps)
+    items = (steps - n_sync) * patches
+    interval = fields.get("step_cache_interval", 1)
+    shallow = 0
+    if interval > 1 and stage >= stages - fields.get("step_cache_depth", 0):
+        shallow = patches * sum((s - n_sync) % interval < interval - 1
+                                for s in range(n_sync, steps))
+    mode = fields.get("comm_compress", "none")
+    codec = 0 if mode == "none" else items
+    ticks = {"warmup": n_sync, "steady": items - shallow, "pass": shallow}
+    return ticks, {"flash_sdpa": depth // stages * (n_sync + items - shallow) + 1,
+                   "flash_sdpa_lse": 0, "quant_matmul": 0, "quantize_rows": codec,
+                   "dequantize_rows": codec * (2 if mode == "int8_residual" else 1),
+                   "all_to_all": 0}
+
+
+def pipefusion_call(pipe, label, expected, steps=PIXART_STEPS):
+    """One PipeFusion call of ``pipe`` (no step callback: a step is smeared
+    over the pipeline's ticks) with every launch count set to 0 just before
+    it and read just after: a finite image of the config's size and the
+    launches ``expected``; its seconds, peak memory and weight bytes, each
+    tick body's device ms (CUDA events around every replay, no host
+    synchronisation) by kind, and the rank's device ms a step after the
+    warmup (its chunk ticks).  Returns (line, final latent)."""
+    import numpy as np
+    import torch
+
+    from distrifuser_tpu_torch.ops import flash_attention as fa
+
+    runner = pipe.runner
+    events, kept = {}, {}
+    run_tick, generate = runner._run_tick, runner.generate
+
+    def timed_tick(kind, h, step, m):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = run_tick(kind, h, step, m)
+        end.record()
+        events.setdefault(kind, []).append((start, end))
+        return out
+
+    def keep(*args, **kwargs):
+        kept["latent"] = generate(*args, **kwargs)
+        return kept["latent"]
+
+    runner._run_tick, runner.generate = timed_tick, keep
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = pipe([PROMPT], num_inference_steps=steps, seed=0, output_type="np")
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = read_counts()
+        lse512 = fa.flash_sdpa.lse_launches_by_head_dim[512]
+        d512 = {"plain": fa.flash_sdpa.launches_by_head_dim[512] - lse512, "lse": lse512}
+    finally:
+        del runner._run_tick, runner.generate
+    cfg = pipe.distri_config
+    img = out.images[0]
+    if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"{label}: image shape {img.shape}, finite "
+                             f"{np.isfinite(img).all()}")
+    if launches != expected:
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
+    tick_ms = {kind: sorted(a.elapsed_time(b) for a, b in pairs)
+               for kind, pairs in events.items()}
+    chunk_ms = tick_ms.get("steady", []) + tick_ms.get("pass", [])
+    steady_steps = len(chunk_ms) // runner.patches
+    report = pipe.weight_report()
+    pixels = (img * 255).round().astype(np.uint8)
+    line = {
+        "phase": "pipeline", "run": label,
+        "model": MODEL_NAMES["pixart"] + ", random bf16 weights",
+        "scheduler": type(pipe.scheduler).__name__, "height": cfg.height,
+        "width": cfg.width, "steps": steps, "prompts": 1, "total_s": total_s,
+        "use_cuda_graph": cfg.use_cuda_graph,
+        "ticks_captured": runner.capture_ticks, "tick_passes": dict(runner.tick_counts),
+        "tick_device_ms": {kind: {"n": len(ms), "min": ms[0], "median": ms[len(ms) // 2],
+                                  "max": ms[-1], "sum": sum(ms)}
+                           for kind, ms in tick_ms.items()},
+        # this rank's device time in one step after the warmup: its M chunk ticks
+        "steady_step_device_ms": sum(chunk_ms) / steady_steps if steady_steps else None,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+        "weight_bytes": report["per_component_nbytes"],
+        "flash_sdpa_launches": launches["flash_sdpa"],
+        "flash_sdpa_lse_launches": launches["flash_sdpa_lse"],
+        "flash_sdpa_d512_launches": d512,
+        "quantize_rows_launches": launches["quantize_rows"],
+        "dequantize_rows_launches": launches["dequantize_rows"],
+        "pixel_mean": float(pixels.mean()), "image_sha256": image_digest(img),
+    }
+    return line, kept["latent"].float().cpu().numpy()
+
+
+def pipefusion_runs(pipe, label, fields, steps=PIXART_STEPS):
+    """A PipeFusion pipeline's calls: ``prepare`` (the tick bodies' capture,
+    timed), one untimed call, the measured graphed call, then one with the
+    same tick bodies replayed uncaptured (``capture_ticks = False``); each
+    with the launches ``pipefusion_counts`` derives for this rank, its tick
+    passes likewise.  Returns (graphed line, uncaptured line, comparison:
+    bit for bit, or within GRAPH_REL_L2 relative L2 of the latent)."""
+    import numpy as np
+
+    runner = pipe.runner
+    ticks, expected = pipefusion_counts(fields, steps, runner.stages, runner.stage)
+    t0 = time.perf_counter()
+    pipe.prepare(steps)
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe(PROMPT, num_inference_steps=steps, seed=0, output_type="np")
+    first_s = time.perf_counter() - t0
+    graphed, x = pipefusion_call(pipe, label, expected, steps)
+    runner.capture_ticks = False
+    try:
+        eager, eager_x = pipefusion_call(pipe, label + " uncaptured", expected, steps)
+    finally:
+        runner.capture_ticks = True
+    for line in (graphed, eager):
+        if line["tick_passes"] != ticks:
+            raise AssertionError(f"{label}: tick passes {line['tick_passes']}, expected "
+                                 f"{ticks}")
+    graphed.update({"prepare_capture_s": capture_s, "first_graphed_call_s": first_s,
+                    "graphs": sorted(runner.graphs.graphs)})
+    rel = float(np.linalg.norm(x - eager_x) / np.linalg.norm(eager_x))
+    compare = {"phase": "graph_vs_eager", "run": label,
+               "latent_bit_identical": bool(np.array_equal(x, eager_x)),
+               "image_bit_identical": graphed["image_sha256"] == eager["image_sha256"],
+               "latent_rel_l2": rel, "eager_call_s": eager["total_s"],
+               "graphed_call_s": graphed["total_s"], "capture_s": capture_s,
+               "eager_peak_allocated_bytes": eager["max_memory_allocated_bytes"],
+               "graphed_peak_allocated_bytes": graphed["max_memory_allocated_bytes"]}
+    if not (compare["latent_bit_identical"] or rel <= GRAPH_REL_L2):
+        raise AssertionError(f"{label}: graphed latent rel L2 {rel} over {GRAPH_REL_L2}")
+    return graphed, eager, compare
+
+
+def pipefusion_line(pipe, steps):
+    """What a PipeFusion call adds to its line: the runner's stage and
+    ``comm_report`` (the hop bytes of a steady and of a synchronous step,
+    the parameters this rank holds), ``comm_plan``, and the weights it
+    holds (its stage's blocks and the shared parameters)."""
+    runner = pipe.runner
+    rep = runner.comm_report(1)
+    return {"stage": runner.stage, "stages": runner.stages, "patches": runner.patches,
+            "blocks_held": len(runner.params["blocks"]), "comm_report": rep,
+            "comm_plan": pipe.comm_plan(steps),
+            "hop_bytes_per_step": {"sync": rep["sync_step_collective_bytes"],
+                                   "steady": rep["per_step_collective_bytes"]},
+            "denoiser_parameters": _param_count(runner.params)}
+
+
+def _pipefusion_rank(label, rank, world, graphs):
+    """One rank of a PipeFusion run (PIPEFUSION_RUNS).  Ranks that share the
+    card (gloo staging) must be refused: with ``use_cuda_graph=True`` for
+    the staging, with False by PipeFusion itself; nothing runs.  Over NCCL:
+    the tiny checks at this world (graphed on the card and on the CPU),
+    then the full-width pipeline (T5 cut to SPAWN_T5_LAYERS; the DiT's other
+    stages' blocks freed before the calls) through ``pipefusion_runs``."""
+    import torch
+
+    from distrifuser_tpu_torch import DistriConfig
+    from distrifuser_tpu_torch.parallel.pipefusion import PipeFusionRunner
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+
+    fields, tinies, _, model, steps = MULTI_RUNS[label]
+    if not graphs:
+        refused = {}
+        for graph in (True, False):
+            cfg = DistriConfig(height=SIZES[model], width=SIZES[model],
+                               use_cuda_graph=graph, **fields)
+            try:
+                PipeFusionRunner(cfg, model_configs(model)[0], None,
+                                 get_scheduler("dpm-solver"))
+            except ValueError as e:
+                refused[str(graph)] = str(e)
+        if ("share a card" not in refused.get("True", "")
+                or "use_cuda_graph=False" not in refused.get("False", "")):
+            raise AssertionError(f"{label} rank {rank}: PipeFusion on ranks sharing the "
+                                 f"card was not refused as expected: {refused}")
+        return {"lines": [], "tiny": [], "compare": None,
+                "refused": {"phase": f"{label}_shared_card_refused", "rank": rank,
+                            "world": world, **refused}}
+    tiny = [tiny_check(steps=steps, **{"model": model, **fields, **t}) for t in tinies]
+    t0 = time.perf_counter()
+    trees = build_trees(model, t5_layers=SPAWN_T5_LAYERS)
+    trees_s = time.perf_counter() - t0
+    pipe, init_s = build_pipeline(trees, model, **fields)
+    del trees  # the other stages' blocks go
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = f"{label} rank {rank}"
+    graphed, eager, compare = pipefusion_runs(pipe, name, fields, steps)
+    free, total = torch.cuda.mem_get_info()
+    for line in (graphed, eager):
+        line.update({"phase": f"{label}_pipeline", "rank": rank, "world": world,
+                     "init_s": init_s + trees_s,
+                     "parallelism": "pipefusion", "batch_idx": pipe.distri_config.batch_idx(),
+                     "split_idx": pipe.distri_config.split_idx(),
+                     "t5_layers": SPAWN_T5_LAYERS, "card_used_bytes": total - free,
+                     **pipefusion_line(pipe, steps)})
+    del pipe
+    torch.cuda.empty_cache()
+    return {"lines": [graphed, eager], "tiny": tiny, "compare": compare}
 
 
 def _param_count(tree):
@@ -2677,7 +3052,8 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
     try:
         set_precision_flags()
         graphs = backend != "gloo"
-        first = next((label for label in labels if label in MULTI_RUNS), "patch")
+        first = next((label for label in labels
+                      if label in MULTI_RUNS and label not in PIPEFUSION_RUNS), "patch")
         if not graphs and not _refuses_graphs(MULTI_RUNS[first][3]):
             raise AssertionError(f"rank {rank}: use_cuda_graph=True was not refused "
                                  "with ranks sharing a card over gloo")
@@ -2687,6 +3063,11 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
                 trees = {}  # the decode needs the VAE alone
                 torch.cuda.empty_cache()
                 out[label] = _decode_sp_runs(rank, world)
+                continue
+            if label in PIPEFUSION_RUNS:  # its own trees: one stage's blocks
+                trees = {}
+                torch.cuda.empty_cache()
+                out[label] = _pipefusion_rank(label, rank, world, graphs)
                 continue
             fields, tinies, want, model, steps = MULTI_RUNS[label]
             t0 = time.perf_counter()
@@ -3042,7 +3423,8 @@ def patch_phase(dense_latent, out_dir, profile=False, runs=None):
         spawns[0][1].append("tensor")
     else:
         spawns.append((tp_world, ["tensor"]))
-    spawns[0][1].extend(["sd15_patch", "dp", *DIT_RUNS, *SD3_RUNS, "decode_sp"])
+    spawns[0][1].extend(["sd15_patch", "dp", *DIT_RUNS, *SD3_RUNS, "decode_sp",
+                         *PIPEFUSION_RUNS])
     if runs:
         spawns = [(PATCH_WORLD, list(runs))]
     print(json.dumps({"phase": "patch_transport", "world": PATCH_WORLD, **transport,
@@ -3052,6 +3434,9 @@ def patch_phase(dense_latent, out_dir, profile=False, runs=None):
         ranks = _spawn(world, labels, transport["backend"], os.path.join(out_dir, f"w{world}"),
                        profile)
         for label in labels:
+            for r in ranks:
+                if "refused" in r[label]:
+                    print(json.dumps(r[label]["refused"]), flush=True)
             for line in ranks[0][label]["tiny"]:
                 print(json.dumps({**line, "phase": f"{label}_tiny_check", "world": world}),
                       flush=True)
@@ -3507,7 +3892,7 @@ def main(argv) -> int:
         out = {}
         for label, lines in multi_runs.items():
             # the d = 512 and 72 entries', and the SD3 runs' (``sd3_entries``)
-            if label == "decode_sp" or label in DIT_RUNS + SD3_RUNS:
+            if label == "decode_sp" or label in DIT_RUNS + SD3_RUNS + PIPEFUSION_RUNS:
                 continue
             if label in KNOB_RUNS:
                 out[label] = knob_entry(rows, label, lines)
@@ -3558,13 +3943,18 @@ def main(argv) -> int:
                 launches(multi_runs["sd15_patch"][-1]),
                 work="one rank's decode in SD 1.5's 512x512 patch call"))
 
-    def d72_entries(rows, multi_runs, pixart=None):
+    def d72_entries(rows, multi_runs, pixart=None, pipefusion=None):
         """The d = 72 instances (PixArt-α's DiT): the plain one in the dense
         1024x1024 call of the main path (``pixart``: its eager line, launches
         by head dim; without it, one rank of the "dit" run) with one rank of
-        the "dit" run as a path, and the log-sum-exp one in one rank of the
+        the "dit" run as a path, PipeFusion's one-card call (``pipefusion``:
+        its graphed line) and rank 0 of each PipeFusion run that ran (over
+        NCCL) as paths, and the log-sum-exp one in one rank of the
         "dit_ring" run; the decodes' d = 512 launches left out."""
         d512 = lambda line: line["flash_sdpa_d512_launches"]["lse"]  # noqa: E731
+        # PipeFusion's ranks decode whole: the plain d = 512 instance once
+        d72_only = lambda line: (line["flash_sdpa_launches"]  # noqa: E731
+                                 - sum(line["flash_sdpa_d512_launches"].values()))
         dit, ring = multi_runs["dit"][-1], multi_runs["dit_ring"][-1]
         rank = path_entry(rows_of(rows, "patch_dit_self", "pixart"), [("patch_dit_self", 1)],
                           dit["flash_sdpa_launches"] - d512(dit),
@@ -3603,6 +3993,30 @@ def main(argv) -> int:
             work="one rank of the dit_knobs run (int8 refresh of every other row, the step "
                  "cache at interval 2 and depth 14) at CFG 2 x sp 2, 6-step 1024x1024 "
                  "PixArt call: 28 blocks in each of 4 full steps, 14 in each of 2 shallow")
+        if pipefusion is not None:
+            plain["pipefusion"] = path_entry(
+                rows_of(rows, ("dit_self", "pipefusion_chunk@"), "pixart"),
+                [("dit_self", 2 / PIXART_STEPS), ("pipefusion_chunk@", 1)],
+                d72_only(pipefusion),
+                work="PipeFusion's graphed 4-step 1024x1024 PixArt call on one card (one "
+                     "stage, 4 chunks of 1024 tokens, warmup 1): 2 mega-patch passes at "
+                     "the dense call's shape and 8 chunk passes (2, 1024 queries against "
+                     "a block's 4096 cached keys) of 28 blocks")
+        for label, weights, work in (
+                ("pipefusion", [("dit_self", 14 / 112), ("pipefusion_chunk@", 56 / 224)],
+                 "sp 4, CFG folded: 7 blocks in 2 mega-patch and 8 chunk passes"),
+                ("pipefusion_cfg", [("pipefusion_warm_cfg", 1), ("pipefusion_chunk_cfg", 1)],
+                 "CFG 2 x sp 2: 14 blocks in 2 mega-patch and 8 chunk passes at B = 1"),
+                ("pipefusion_knobs", [("dit_self", 14 / 112),
+                                      ("pipefusion_chunk@", 112 / 224)],
+                 "sp 4, int8_residual hops, the step cache on the last stage, 6 steps: "
+                 "7 blocks in 2 mega-patch and 16 chunk passes")):
+            lines = multi_runs.get(label)
+            if lines:
+                plain[label] = path_entry(
+                    rows_of(rows, ("dit_self", "pipefusion_"), "pixart"), weights,
+                    d72_only(lines[0]),
+                    work=f"rank 0 of the {label} run, graphed ({work})")
         plain["dit_ulysses"] = path_entry(
             rows_of(rows, "dit_ulysses_self", "pixart"), [("dit_ulysses_self", 1)],
             ulysses["flash_sdpa_launches"] - d512(ulysses),
@@ -3697,7 +4111,7 @@ def main(argv) -> int:
                              work=f"the d = {d} instance: " + work)
                 for d in SD15_HEAD_DIMS]
 
-    def knob_kernels(lse_rows, refresh_rows, multi_runs):
+    def knob_kernels(lse_rows, refresh_rows, multi_runs, hop_rows=()):
         """The kernels line's entries for the comm-knob runs: the flash
         kernel's log-sum-exp instances (the ring run's chunks), and the
         refresh codec's encoder (quantize_rows) and decoder
@@ -3729,6 +4143,17 @@ def main(argv) -> int:
         labels = ("compress_pcpp", "stepcache_batch", *TRANSFORMER_KNOB_RUNS)
         quant = {label: codec(label, "quantize_") for label in labels}
         dequant = {label: codec(label, "dequantize_") for label in labels}
+        lines = multi_runs.get("pipefusion_knobs")
+        if lines:  # rank 0's hops: the residual code of one chunk an item
+            residual = [r for r in hop_rows if r.get("residual")]
+            work = ("the hops of rank 0 of the pipefusion_knobs run (int8_residual: "
+                    "float32 chunks [2, 1024, 1152] against a float32 predictor)")
+            quant["pipefusion_knobs"] = kernel_entry(
+                residual, lines[0]["quantize_rows_launches"], "quantize_", work=work)
+            dequant["pipefusion_knobs"] = kernel_entry(
+                [{**r, "launches_per_call": r["dequantize_launches_per_call"]}
+                 for r in residual], lines[0]["dequantize_rows_launches"], "dequantize_",
+                work=work)
         dequant = {**dequant.pop("compress_pcpp"), **DEQUANT_ENTRY, **dequant}
         return lse, quant, dequant
 
@@ -3740,10 +4165,11 @@ def main(argv) -> int:
               flush=True)
         return finish(None)
     if args.patch_only:
-        rows = (kernel_phase(multi + vae_rows + list(PIXART_SHAPES[1:3]) + shapes3[1:2],
-                             spills)
+        rows = (kernel_phase(multi + vae_rows + list(PIXART_SHAPES[:3]) + shapes3[1:2]
+                             + list(PIPEFUSION_SHAPES), spills)
                 + lse_kernel_phase(spills, PIXART_RING_HOPS + tuple(hops3)))
         refresh_rows = refresh_codec_phase(refresh_codec_rows(ucfg, 1024, 1024))
+        hop_rows = hop_codec_phase()
         seconds["flash_kernel_multi_rank_shapes"], t0 = (time.perf_counter() - t0,
                                                          time.perf_counter())
         multi_runs = patch_phase(None, os.path.join(args.out_dir, "multi"),
@@ -3752,7 +4178,7 @@ def main(argv) -> int:
         print(json.dumps({"phase": "seconds", **seconds}), flush=True)
         subs = multi_entries(rows, multi_runs)
         lse, refresh, dequant = knob_kernels(rows_of(rows, "ring_hop", "sdxl"), refresh_rows,
-                                             multi_runs)
+                                             multi_runs, hop_rows)
         sd3_plain, sd3_lse = sd3_entries(rows, multi_runs)
         kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs, **sd3_plain},
                    {**lse, **sd3_lse},
@@ -3766,7 +4192,8 @@ def main(argv) -> int:
                    *d72_entries(rows, multi_runs)]
         return finish(kernels)
     rows = kernel_phase(shapes + shapes15 + shapes21 + multi + enc_rows + decode_rows
-                        + list(PIXART_SHAPES) + shapes3, spills) + lse_kernel_phase(
+                        + list(PIXART_SHAPES) + shapes3 + list(PIPEFUSION_SHAPES),
+                        spills) + lse_kernel_phase(
                             spills, PIXART_RING_HOPS + tuple(hops3))
     mrows = rows
     rows = rows_of(mrows, ("unet", "vae_mid"), "sdxl")
@@ -3780,11 +4207,15 @@ def main(argv) -> int:
     qrows = quant_kernel_phase(qshapes + qshapes15 + pixart_quant_shapes()
                                + sd3_quant_shapes())
     refresh_rows = refresh_codec_phase(refresh_codec_rows(ucfg, 1024, 1024))
+    hop_rows = hop_codec_phase()
     seconds["quant_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
     for weight_quant in ("none", "int8", "fp8"):
         print(json.dumps(tiny_check(weight_quant)), flush=True)
     print(json.dumps(tiny_check(model="sd15", scheduler="euler")), flush=True)
     print(json.dumps(tiny_check(model="pixart", scheduler="dpm-solver")), flush=True)
+    print(json.dumps(tiny_check(model="pixart", scheduler="dpm-solver", steps=PIXART_STEPS,
+                                parallelism="pipefusion", pipe_patches=PIPEFUSION_PATCHES,
+                                warmup_steps=PATCH_WARMUP)), flush=True)
     for model, weight_quant in (("sd3", "none"), ("sd3", "int8"), ("sd35m", "none")):
         print(json.dumps(tiny_check(weight_quant, model=model)), flush=True)
     print(json.dumps(stepcache_graph_check()), flush=True)
@@ -3847,7 +4278,7 @@ def main(argv) -> int:
     per_call = ("(per-shape time x launches per call) at weight_quant='int8'; 'fp8' "
                 "holds the same for fp8")
     lse, refresh, dequant = knob_kernels(rows_of(mrows, "ring_hop", "sdxl"), refresh_rows,
-                                         multi_runs)
+                                         multi_runs, hop_rows)
     sd3_plain, sd3_lse = sd3_entries(mrows, multi_runs, sd3[1], sd35m)
     kernels = [
         kernel_entry(rows, runs["dense"]["flash_sdpa_launches"], **FLASH_ENTRY,
@@ -3901,7 +4332,7 @@ def main(argv) -> int:
         dequant,
         {**lse, **sd3_lse},
         d512_entry(mrows, multi_runs),
-        *d72_entries(mrows, multi_runs, pixart[0]),
+        *d72_entries(mrows, multi_runs, pixart[0], pixart[2]),
     ]
     return finish(kernels)
 

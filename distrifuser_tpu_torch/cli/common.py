@@ -15,12 +15,14 @@ refused, before any model loads, with the ROADMAP item that brings it:
   validates them as the JAX package does, and the runners refuse what the
   JAX runners refuse (ulysses and usp outside the DiT); ``--dp_degree``
   too; a float32 ``--dtype`` on the card goes through ``DistriConfig``'s
-  own refusal, ``--parallelism pipefusion`` through the runner's, a
+  own refusal, ``--parallelism pipefusion`` (the DiT's) through the UNet
+  and MMDiT runners', a
   sampler of the other family (``--scheduler flow-euler`` on the UNet,
   anything else on SD3) through ``check_family_scheduler`` and the
   pipelines' own check;
-* ``--pipe_patches`` belongs to the PipeFusion stage ring over the DiT's
-  blocks (ROADMAP queue 1 item 13d);
+* ``--pipe_patches`` sets PipeFusion's token chunks (``--parallelism
+  pipefusion``, cli/dit_example.py) and, as in the JAX scripts, is refused
+  by ``DistriConfig`` under any other parallelism;
 * ``--hybrid_loop`` has nothing to change: the port's loop is always the
   host's, one UNet graph per phase, which is what the flag picks in the
   JAX package (same numerics).
@@ -85,8 +87,8 @@ def add_distri_args(parser: argparse.ArgumentParser) -> None:
                         choices=["patch", "tensor", "naive_patch", "pipefusion"],
                         help="pipefusion is a DiT strategy (refused for the UNet)")
     parser.add_argument("--pipe_patches", type=int, default=None,
-                        help="PipeFusion's token chunks in flight; refused: "
-                        "ROADMAP queue 1 item 13d")
+                        help="with --parallelism pipefusion: token chunks streaming "
+                        "through the pipeline stages (default: one a stage)")
     parser.add_argument("--no_cuda_graph", action="store_true",
                         help="run the UNet eagerly instead of replaying its CUDA graphs")
     parser.add_argument("--split_scheme", type=str, default="row",
@@ -184,9 +186,6 @@ def config_from_args(args, error):
     refuses a flag the port does not run."""
     from ..utils.config import DistriConfig
 
-    if args.pipe_patches is not None:
-        error("--pipe_patches belongs to PipeFusion's stage ring over the DiT's "
-              "blocks, ROADMAP queue 1 item 13d")
     h, w = image_size(args)
     try:
         return DistriConfig(
@@ -196,7 +195,7 @@ def config_from_args(args, error):
             split_batch=not args.no_split_batch, warmup_steps=args.warmup_steps,
             mode=args.sync_mode, use_cuda_graph=not args.no_cuda_graph,
             parallelism=args.parallelism, split_scheme=args.split_scheme,
-            batch_size=args.batch_size, dp_degree=args.dp_degree,
+            pipe_patches=args.pipe_patches, batch_size=args.batch_size, dp_degree=args.dp_degree,
             attn_impl=args.attn_impl, ulysses_degree=args.ulysses_degree,
             comm_batch=args.comm_batch,
             comm_compress=args.comm_compress, refresh_fraction=args.refresh_fraction,

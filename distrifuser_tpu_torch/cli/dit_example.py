@@ -15,8 +15,13 @@ the PixArt-α DiT runs with seeded random weights at its published widths
     torchrun --nproc_per_node 4 -m distrifuser_tpu_torch.cli.dit_example --depth 4
 
 ``--parallelism`` takes "patch" (displaced, the default) or "pipefusion"
-(refused: ROADMAP queue 1 item 13d); ``--init_image`` is refused, as
-diffusers' PixArt is text-to-image only.
+(the DiT's blocks as pipeline stages over the ranks, ``--pipe_patches``
+token chunks streaming through them; it replays captured ticks, so it
+refuses ``--no_cuda_graph``); ``--init_image`` is refused, as diffusers'
+PixArt is text-to-image only.
+
+    python -m distrifuser_tpu_torch.cli.dit_example --device cpu --tiny_model \
+        --parallelism pipefusion --pipe_patches 4 --num_inference_steps 4
 """
 
 import argparse
@@ -80,10 +85,11 @@ def _run_pipeline(args, cfg, error) -> None:
 def _run_random(args, cfg, error) -> None:
     from ..models import dit as dit_mod
     from ..parallel.dit_sp import DiTDenoiseRunner
+    from ..parallel.pipefusion import PipeFusionRunner
     from ..schedulers import get_scheduler
 
     if args.tiny_model:
-        dcfg = dit_mod.tiny_dit_config(depth=args.depth or 2)
+        dcfg = dit_mod.tiny_dit_config(depth=args.depth or 2 * cfg.n_device_per_batch)
     else:
         base = dit_mod.pixart_config()
         dcfg = dataclasses.replace(base, sample_size=cfg.latent_height,
@@ -91,7 +97,8 @@ def _run_random(args, cfg, error) -> None:
     gen = torch.Generator(device=cfg.device).manual_seed(args.seed)
     params = dit_mod.init_dit_params(gen, dcfg, cfg.dtype)
     try:
-        runner = DiTDenoiseRunner(cfg, dcfg, params, get_scheduler(args.scheduler))
+        runner_cls = PipeFusionRunner if cfg.parallelism == "pipefusion" else DiTDenoiseRunner
+        runner = runner_cls(cfg, dcfg, params, get_scheduler(args.scheduler))
     except (ValueError, NotImplementedError) as e:
         error(str(e))
     cpu = torch.Generator().manual_seed(args.seed)

@@ -288,8 +288,12 @@ def dit_block(bp: Dict[str, Any], cfg: DiTConfig, x: torch.Tensor, c6: torch.Ten
     assembled by mode:
 
     * dense (no ``self_kv``, no hooks): attend over ``x``;
-    * cache (``self_kv`` [B, N, 2*hidden] + ``patch_start``): the fresh rows
-      overwrite rows ``patch_start..`` of a copy before attending;
+    * cache (``self_kv`` [B, N, 2*hidden] + ``patch_start``, an int or a
+      0-dim device index): the fresh rows are committed in place into rows
+      ``patch_start..`` of ``self_kv`` (PipeFusion's per-block cache,
+      parallel/pipefusion.py), then attended over with the rest; the JAX
+      package attends over an updated copy and commits the same rows after
+      the block, so the values attended are the same;
     * ``kv_assemble(kv) -> full kv``: any other assembly (the displaced
       runner's fresh gather or stale buffer with a fresh own slot);
     * ``attn_core(q, full_kv) -> [B, Lq, hidden]`` replaces the sdpa call
@@ -306,9 +310,13 @@ def dit_block(bp: Dict[str, Any], cfg: DiTConfig, x: torch.Tensor, c6: torch.Ten
         full_kv = kv_assemble(kv)
     elif self_kv is None:
         full_kv = kv
-    else:
-        full_kv = self_kv.clone()
-        full_kv[:, patch_start:patch_start + kv.shape[1]] = kv
+    else:  # the cache's own storage: the fresh rows land in it for good
+        if isinstance(patch_start, torch.Tensor):
+            rows = patch_start + torch.arange(kv.shape[1], device=kv.device)
+            self_kv.index_copy_(1, rows, kv)
+        else:
+            self_kv[:, patch_start:patch_start + kv.shape[1]] = kv
+        full_kv = self_kv
     if attn_core is None:
         k, v = split_kv(full_kv)
         att = sdpa(q, k, v, heads=cfg.num_heads)

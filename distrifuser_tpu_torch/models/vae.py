@@ -48,6 +48,14 @@ silu = F.silu
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
+    """The VAE's topology and latent scaling.  ``use_quant_conv`` and
+    ``use_post_quant_conv`` (diffusers' config.json keys, true unless a
+    config says otherwise) say whether the encoder's 1x1 moment conv and the
+    decoder's 1x1 input conv exist; SD3's published VAE has neither.  They
+    are instance attributes, not dataclass fields, so that a config still
+    compares field for field with the JAX package's, which has none
+    (``with_quant_convs`` sets them; ``dataclasses.replace`` drops them)."""
+
     in_channels: int = 3
     out_channels: int = 3
     latent_channels: int = 4
@@ -56,6 +64,18 @@ class VAEConfig:
     norm_num_groups: int = 32
     scaling_factor: float = 0.13025  # SDXL; SD 1.x uses 0.18215
     shift_factor: float = 0.0
+    use_quant_conv = True  # not fields: the class docstring
+    use_post_quant_conv = True
+
+
+def with_quant_convs(cfg: VAEConfig, use_quant_conv: bool = True,
+                     use_post_quant_conv: bool = True) -> VAEConfig:
+    """``cfg`` with or without the encoder's ``quant_conv`` and the
+    decoder's ``post_quant_conv``."""
+    out = dataclasses.replace(cfg)
+    object.__setattr__(out, "use_quant_conv", bool(use_quant_conv))
+    object.__setattr__(out, "use_post_quant_conv", bool(use_post_quant_conv))
+    return out
 
 
 def sdxl_vae_config() -> VAEConfig:
@@ -76,10 +96,11 @@ def sd3_vae_config() -> VAEConfig:
 
 def vae_config_from_json(source) -> VAEConfig:
     """A VAEConfig from a diffusers `vae/config.json` (path or dict), with
-    the snapshot's own scaling factor (0.18215 SD, 0.13025 SDXL) and
-    channel layout."""
+    the snapshot's own scaling factor (0.18215 SD, 0.13025 SDXL), channel
+    layout and quant convs (``use_quant_conv`` / ``use_post_quant_conv``,
+    default true)."""
     cfg = load_config_source(source)
-    return VAEConfig(
+    return with_quant_convs(VAEConfig(
         in_channels=cfg.get("in_channels", 3),
         out_channels=cfg.get("out_channels", 3),
         latent_channels=cfg.get("latent_channels", 4),
@@ -88,7 +109,7 @@ def vae_config_from_json(source) -> VAEConfig:
         norm_num_groups=cfg.get("norm_num_groups", 32),
         scaling_factor=cfg.get("scaling_factor", 0.18215),
         shift_factor=cfg.get("shift_factor") or 0.0,
-    )
+    ), cfg.get("use_quant_conv", True), cfg.get("use_post_quant_conv", True))
 
 
 def tiny_vae_config() -> VAEConfig:
@@ -151,11 +172,15 @@ def decode_sp(params, cfg: VAEConfig, latents, n: int, group=None):
     (already divided by scaling_factor; rank i of ``group`` holds the i-th
     row patch) -> its pixel rows [B, 8h/n, 8w, 3] in [-1, 1].  Exact: the
     patches gathered in group order (``collectives.gather_rows``) are the
-    whole decode."""
+    whole decode.  Without ``post_quant_conv`` (the config's flag) the
+    latent goes to ``conv_in`` as it is."""
     p = params["decoder"]
     groups = cfg.norm_num_groups
-    x = conv2d(params["post_quant_conv"],
-               latents.to(params["post_quant_conv"]["kernel"].dtype))
+    if cfg.use_post_quant_conv:
+        x = conv2d(params["post_quant_conv"],
+                   latents.to(params["post_quant_conv"]["kernel"].dtype))
+    else:
+        x = latents.to(p["conv_in"]["kernel"].dtype)
     x = _conv_sp(p["conv_in"], x, n, group)
     x = _vae_resnet(p["mid_block"]["resnets"][0], x, n, group, groups)
     x = _vae_attention(p["mid_block"]["attentions"][0], x, n, group, groups)
@@ -236,7 +261,8 @@ def encode_sp(params, cfg: VAEConfig, images, n: int, group=None, *, generator=N
     rank) mean + std * noise, each rank drawing from a generator of its own
     (``_rank_generator``) at n > 1: statistically equivalent to the whole
     encode's sample, not the same draw.  Local rows must stay even at every
-    downsample (H divisible by 8n)."""
+    downsample (H divisible by 8n).  Without ``quant_conv`` (the config's
+    flag) the moments are ``conv_out``'s output."""
     p = params["encoder"]
     groups = cfg.norm_num_groups
     n_down = sum(1 for d in p["down_blocks"] if "downsamplers" in d)
@@ -256,7 +282,9 @@ def encode_sp(params, cfg: VAEConfig, images, n: int, group=None, *, generator=N
     x = _vae_resnet(p["mid_block"]["resnets"][1], x, n, group, groups)
     x = silu(_group_norm_sp(p["conv_norm_out"], x, n, group, groups=groups, eps=1e-6))
     x = _conv_sp(p["conv_out"], x, n, group)
-    mean, logvar = conv2d(params["quant_conv"], x).chunk(2, dim=-1)  # 1x1: local
+    if cfg.use_quant_conv:
+        x = conv2d(params["quant_conv"], x)  # 1x1: local
+    mean, logvar = x.chunk(2, dim=-1)
     if generator is None:
         return mean
     std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
@@ -276,7 +304,8 @@ def encode(params, cfg: VAEConfig, images, *, generator=None):
 def init_vae_params(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):
     """Random VAE tree on ``gen``'s device, structured like the JAX
     init_vae_params tree: decoder and post_quant_conv (drawn first),
-    encoder and quant_conv."""
+    encoder and quant_conv; a conv the config's flags leave out is not
+    drawn."""
     dev = gen.device
 
     def conv(kh, kw, cin, cout):
@@ -321,10 +350,9 @@ def init_vae_params(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):
         "conv_norm_out": norm(rev[-1]),
         "conv_out": conv(3, 3, rev[-1], cfg.out_channels),
     }
-    params = {
-        "decoder": decoder,
-        "post_quant_conv": conv(1, 1, cfg.latent_channels, cfg.latent_channels),
-    }
+    params = {"decoder": decoder}
+    if cfg.use_post_quant_conv:
+        params["post_quant_conv"] = conv(1, 1, cfg.latent_channels, cfg.latent_channels)
     # encoder: channels ascending, a downsample after every block but the last
     chs = cfg.block_out_channels
     down_blocks, c_prev = [], chs[0]
@@ -342,5 +370,6 @@ def init_vae_params(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):
         "conv_norm_out": norm(chs[-1]),
         "conv_out": conv(3, 3, chs[-1], 2 * cfg.latent_channels),
     }
-    params["quant_conv"] = conv(1, 1, 2 * cfg.latent_channels, 2 * cfg.latent_channels)
+    if cfg.use_quant_conv:
+        params["quant_conv"] = conv(1, 1, 2 * cfg.latent_channels, 2 * cfg.latent_channels)
     return cast_params(params, dtype)

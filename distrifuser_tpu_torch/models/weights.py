@@ -229,7 +229,8 @@ def convert_unet_state_dict(sd, dtype=torch.float32):
 
 def convert_vae_state_dict(sd, dtype=torch.float32):
     """A diffusers AutoencoderKL state dict as the port's VAE tree (encoder,
-    decoder, quant_conv and post_quant_conv); the mid attentions' older
+    decoder, and quant_conv and post_quant_conv where the snapshot has them:
+    SD3's has neither); the mid attentions' older
     names (query, key, value, proj_attn) are renamed, and their to_k / to_v
     stay apart."""
     renames = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out"}

@@ -3,7 +3,8 @@
 Counterpart of distrifuser_tpu/parallel/collectives.py (``all_gather``,
 ``psum_mean``, ``psum``, ``neighbor_perms``, ``exchange_boundary_rows``,
 ``halo_exchange``, ``gather_rows``, ``gather_cols``, ``ring_perm`` and
-``ring_shift``; ``gather_batch`` gathers the image groups' outputs under
+``ring_shift``; ``ring_hop`` is the PipeFusion stage ring's hop, whose
+sides may be idle; ``gather_batch`` gathers the image groups' outputs under
 data parallelism; ``all_to_all`` is the JAX package's tiled
 ``lax.all_to_all`` of the DiT's head-sharded layouts).  Each function takes
 the process group (``None`` for the default one) and, where the patch path
@@ -224,6 +225,31 @@ def ring_shift(x: torch.Tensor, group=None, *, async_op: bool = False):
 
     pending = Pending(works, finish, "ring_shift")
     return pending if async_op else pending.wait()
+
+
+def ring_hop(send, recv, device, group=None):
+    """One hop of a ring where either side may be idle (PipeFusion's stage
+    ring): send the tensors ``send`` (a sequence, or None) to the next rank
+    of ``group`` and receive tensors of the ``(shape, dtype)`` pairs of
+    ``recv`` (or None) on ``device`` from the previous one, wrapping;
+    returns the received tensors as a list, or None.  The two neighbours'
+    calls pair one send with one receive each, as ``ring_shift``'s do, but
+    a rank whose peer is idle issues only its own side."""
+    if stages_through_host(torch.device(device), group):
+        raise ValueError("ring_hop moves card tensors over NCCL or CPU tensors over "
+                         "gloo, not CUDA payloads staged through the host")
+    prev, nxt = ring_perm(group)
+    srcs = [_wire(t.contiguous()) for t in send or ()]
+    bufs = [torch.empty(shape, device=device,
+                        dtype=torch.uint8 if dtype == torch.float8_e4m3fn else dtype)
+            for shape, dtype in recv or ()]
+    ops = ([dist.P2POp(dist.isend, t, nxt, group) for t in srcs]
+           + [dist.P2POp(dist.irecv, t, prev, group) for t in bufs])
+    if ops:
+        Pending(dist.batch_isend_irecv(ops), lambda: None, "ring_hop").wait()
+    if recv is None:
+        return None
+    return [b.view(dtype) for b, (_, dtype) in zip(bufs, recv)]
 
 
 def _by_dtype(items):

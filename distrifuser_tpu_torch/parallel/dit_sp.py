@@ -47,8 +47,9 @@ input, timestep and step are copied into the graph's static inputs before
 each replay, the caption KV and mask once per generation, and the buffers
 of a phase that reads them are copied back after each replay.
 
-PipeFusion (``parallelism="pipefusion"``, ROADMAP queue 1 item 13d) raises
-``NotImplementedError`` naming its item.  What the JAX runner refuses
+PipeFusion (``parallelism="pipefusion"``) is parallel/pipefusion.py's
+runner, which ``DistriPixArtPipeline`` picks; this one refuses it.  What
+the JAX runner refuses
 (``comm_batch``, a knob of the gather refresh in another layout, head or
 token counts the groups do not divide, an image size other than the
 config's) the port refuses with the same exception type.
@@ -105,8 +106,8 @@ def check_refresh_knobs(cfg: DistriConfig, num_tokens: int, what: str) -> None:
 
 
 def check_dit_config(cfg: DistriConfig, dcfg: DiTConfig) -> None:
-    """The JAX runner's refusals (ValueError), then PipeFusion, ROADMAP
-    item 13d (NotImplementedError)."""
+    """The JAX runner's refusals (ValueError), then a parallelism other than
+    displaced patches (PipeFusion has its own runner)."""
     n = cfg.n_device_per_batch
     if cfg.attn_impl == "ulysses" and dcfg.num_heads % n:
         raise ValueError(f"ulysses needs num_heads ({dcfg.num_heads}) divisible by the "
@@ -124,9 +125,9 @@ def check_dit_config(cfg: DistriConfig, dcfg: DiTConfig) -> None:
             f"DistriConfig {cfg.height}x{cfg.width} implies latent {cfg.latent_height}, "
             f"but DiTConfig.sample_size is {dcfg.sample_size}")
     if cfg.parallelism == "pipefusion":
-        raise NotImplementedError(
-            "parallelism='pipefusion' (PipeFusion's patch pipeline over the DiT's "
-            "blocks) is ROADMAP queue 1 item 13d; use parallelism='patch'")
+        raise ValueError(
+            "parallelism='pipefusion' runs the DiT's blocks as pipeline stages in "
+            "PipeFusionRunner (parallel/pipefusion.py), not this displaced patch runner")
     if cfg.parallelism != "patch":
         raise ValueError(f"the DiT runs displaced patch parallelism (parallelism="
                          f"'patch'), not {cfg.parallelism!r}")

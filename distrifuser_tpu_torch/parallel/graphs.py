@@ -58,6 +58,14 @@ eager call counts.
 On the CPU nothing is captured: a replay runs the same static-buffer step
 eagerly and copies its results into the static outputs, so the CPU tests
 exercise the buffers, the state hand-over and the aliasing of a replay.
+
+``TickGraphs`` holds the PipeFusion runner's tick bodies
+(parallel/pipefusion.py) the same way: one ``StepGraph`` each over its own
+``TickInputs`` (the stage's input rows, the tick's step and chunk as device
+scalars), for the warmup's mega-patch pass, the steady chunk pass and a
+deep stage's pass-through; the bodies read and write the runner's
+per-generation buffers in place, and the point-to-point hops between ticks
+stay outside them.
 """
 
 from __future__ import annotations
@@ -293,3 +301,49 @@ class StepGraphs:
 
     def __getitem__(self, phase: str) -> StepGraph:
         return self.graphs[phase]
+
+
+class TickInputs:
+    """The static inputs of one PipeFusion tick body: the stage's input
+    rows ``h`` and the tick's step and chunk indices as device scalars,
+    copied in from device tables before every replay."""
+
+    def __init__(self, rows: torch.Tensor):
+        self.h = torch.zeros_like(rows)
+        self.step = torch.zeros((), dtype=torch.long, device=rows.device)
+        self.chunk = torch.zeros((), dtype=torch.long, device=rows.device)
+
+    def set_tick(self, h, step, chunk) -> None:
+        self.h.copy_(h)
+        self.step.copy_(step)
+        self.chunk.copy_(chunk)
+
+
+class TickGraphs(StepGraphs):
+    """The tick bodies of the PipeFusion runner (parallel/pipefusion.py), one
+    ``StepGraph`` each over its own ``TickInputs``: the warmup's mega-patch
+    pass, the steady full tick and the deep stages' pass-through tick.  The
+    bodies read and write the runner's per-generation buffers (the KV
+    cache, the step cache's deltas, the residual coder's predictors), whose
+    addresses ``key`` fixes: a new key drops the graphs.  Capture, pool and
+    launch counts are ``StepGraphs``'s (the runner resets its buffers after
+    the warm-up runs); on the CPU a replay runs the body eagerly."""
+
+    def begin(self, key, rows: Dict[str, torch.Tensor], tick_fn: Callable) -> None:
+        """Get a graph ready for each body of ``rows`` (kind -> a tensor
+        shaped as its input rows) under ``key``; ``tick_fn(kind, inputs,
+        None)`` is the eager body, returning ``(payload, None)``."""
+        if key != self.key:
+            self.clear()
+            self.key = key
+        graphs = dict(self.graphs)
+        missing = [kind for kind in rows if kind not in graphs]
+        for kind in missing:
+            graphs[kind] = StepGraph(kind, TickInputs(rows[kind]), False, self.device)
+        if missing and self.device.type == "cuda":
+            try:
+                self._capture(graphs, missing, missing, tick_fn)
+            except BaseException:
+                self.clear()
+                raise
+        self.graphs = graphs

@@ -199,7 +199,7 @@ class DenoiseRunner(StepLoop):
                  params, scheduler: BaseScheduler, dispatch=None):
         if distri_config.parallelism == "pipefusion":
             raise ValueError(
-                "pipefusion is a DiT strategy (ROADMAP queue 1 item 13d); the "
+                "pipefusion is a DiT strategy (parallel/pipefusion.py); the "
                 "UNet's heterogeneous stages cannot pipeline — use "
                 "parallelism='patch' here"
             )

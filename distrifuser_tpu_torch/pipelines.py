@@ -456,8 +456,15 @@ class _GenerationMixin:
     def set_stepwise(self, enabled: bool = True) -> None:
         """Run the denoiser eagerly, step by step (``enabled``), or replay its
         captured graphs (JAX ``set_stepwise``: the switch is
-        ``use_cuda_graph``).  Graphs already captured are kept."""
+        ``use_cuda_graph``).  Graphs already captured are kept.  Refused
+        under PipeFusion, as the JAX package refuses it."""
         cfg = self.distri_config
+        if enabled and cfg.parallelism == "pipefusion":
+            raise ValueError(
+                "stepwise fallback does not apply to the PipeFusion patch pipeline: "
+                "PipeFusionRunner has no host-driven stepwise loop, its ticks run "
+                "as the replays of captured bodies (parallel/pipefusion.py); build "
+                "the pipeline with parallelism='patch' to run step by step")
         previous, cfg.use_cuda_graph = cfg.use_cuda_graph, not enabled
         try:
             check_graph_transport(cfg)
@@ -790,6 +797,16 @@ class DistriSDPipeline(_DistriPipelineBase):
 # ---------------------------------------------------------------------------
 
 
+def _stage_blocks(cfg: DistriConfig, dit_config, params):
+    """Under PipeFusion, ``params`` with this rank's stage's blocks only
+    (parallel/pipefusion.py ``stage_params``); else ``params``."""
+    if cfg.parallelism != "pipefusion":
+        return params
+    from .parallel.pipefusion import stage_params
+
+    return stage_params(params, dit_config, cfg.n_device_per_batch, cfg.split_idx())
+
+
 def _t5_tokenizer_or_fallback(path: str, vocab_size: int):
     """The Unigram tokenizer of a snapshot's ``tokenizer/tokenizer.json``,
     else the hash-based SimpleTokenizer (T5's ids: EOS 1, BOS 0) with a
@@ -825,15 +842,20 @@ def _t5_tokenize(tok, texts: List[str], n: int):
 
 class DistriPixArtPipeline(_GenerationMixin):
     """PixArt-α: T5 text encoder, PixArt's DiT driven by the displaced-patch
-    DiT runner (parallel/dit_sp.py), KL VAE (JAX ``DistriPixArtPipeline``).
+    DiT runner (parallel/dit_sp.py) or, under ``parallelism="pipefusion"``,
+    the patch pipeline (parallel/pipefusion.py), KL VAE (JAX
+    ``DistriPixArtPipeline``).
 
     Padded caption tokens are masked out of the cross-attention; the
     1024-class micro-conditioning on (resolution, aspect) is folded into
     the timestep embedding's bias before any quantization
     (``fold_size_condition``, exact).  ``weight_quant`` quantizes the DiT
     with ``quant_compute``; the T5 encoder and the VAE follow
-    ``weight_quant_aux``.  ``parallelism="pipefusion"`` is ROADMAP queue 1
-    item 13d and raises."""
+    ``weight_quant_aux``.  Under ``parallelism="pipefusion"`` each rank keeps
+    only its stage's blocks (with the shared parameters), cut before they are
+    quantized and, from a snapshot, before they reach the card; quantized
+    block by block, they hold the JAX package's depth-leading per-tile
+    payloads and scales."""
 
     # PixArt-α trains with 120 caption tokens
     max_token_length = 120
@@ -841,6 +863,7 @@ class DistriPixArtPipeline(_GenerationMixin):
     def __init__(self, distri_config: DistriConfig, dit_config, dit_params, vae_config,
                  vae_params, scheduler: BaseScheduler, tokenizer, t5_config, t5_params):
         from .parallel.dit_sp import DiTDenoiseRunner
+        from .parallel.pipefusion import PipeFusionRunner
 
         _check_scheduler_family(scheduler, type(self).__name__)
         cfg = distri_config
@@ -857,9 +880,11 @@ class DistriPixArtPipeline(_GenerationMixin):
         # quantizer must see in its final form
         dit_params = dit_mod.fold_size_condition(dit_params, dit_config,
                                                  float(cfg.height), float(cfg.width))
+        dit_params = _stage_blocks(cfg, dit_config, dit_params)
         dit_params = quantize_params(dit_params, cfg.weight_quant,
                                      compute=cfg.quant_compute)
-        self.runner = DiTDenoiseRunner(cfg, dit_config, dit_params, scheduler)
+        runner_cls = PipeFusionRunner if cfg.parallelism == "pipefusion" else DiTDenoiseRunner
+        self.runner = runner_cls(cfg, dit_config, dit_params, scheduler)
         self.vae_decode_parallel, self.vae_decode_tile = decoder_choice(cfg)
 
     @classmethod
@@ -901,8 +926,10 @@ class DistriPixArtPipeline(_GenerationMixin):
                                      vae_mod.sd_vae_config)
         t5cfg = _config_from_snapshot(root, "text_encoder", t5_mod.t5_config_from_json,
                                       t5_mod.t5_v1_1_xxl_config)
-        dit_params = load("transformer", lambda sd: convert_pixart_state_dict(
-            sd, patch_size=dcfg.patch_size, eps_channels=dcfg.out_channels, dtype=dtype))
+        dit_params = load("transformer", lambda sd: _stage_blocks(
+            distri_config, dcfg, convert_pixart_state_dict(
+                sd, patch_size=dcfg.patch_size, eps_channels=dcfg.out_channels,
+                dtype=dtype)))
         vae_params = load("vae", lambda sd: convert_vae_state_dict(sd, dtype))
         t5_params = load("text_encoder", lambda sd: convert_t5_state_dict(sd, dtype))
         tok = _t5_tokenizer_or_fallback(os.path.join(root, "tokenizer"), t5cfg.vocab_size)

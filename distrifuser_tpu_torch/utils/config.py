@@ -28,9 +28,9 @@ Under ``attn_impl="usp"`` each patch group of n ranks is factored as
 its ``r_idx``, the head-sharding all-to-all) and ``sp_r_group`` (the r
 ranks of its ``u_idx``, the ring); a group of one rank is None.
 
-The one knob of the JAX package that the port does not run yet is refused
-with the ROADMAP item that will bring it, never ignored: ``pipe_patches``
-(PipeFusion, item 13d); at its default it does nothing.  The comm knobs of
+``pipe_patches`` (PipeFusion's token chunks, parallel/pipefusion.py) is
+accepted under ``parallelism="pipefusion"`` and refused elsewhere, as the
+JAX package refuses it.  The comm knobs of
 the displaced patch path (``comm_batch``, ``comm_compress``,
 ``refresh_fraction``, the step cache, ``attn_impl`` "ring", "ulysses" and
 "usp" and ``ulysses_degree``) are validated as the JAX package validates
@@ -176,7 +176,10 @@ class DistriConfig:
     patch parallelism, "naive_patch" slices the latent by ``split_scheme``
     ("row", "col", or "alternate" between them by step parity) and runs
     the dense UNet on the slice, "tensor" shards heads and channels
-    (models/unet_tp.py).  ``verbose`` prints the per-layer stale-buffer
+    (models/unet_tp.py), "pipefusion" splits the DiT's blocks into
+    pipeline stages over the patch group with ``pipe_patches`` token
+    chunks (default: one a stage) streaming through them
+    (parallel/pipefusion.py; it needs ``use_cuda_graph``).  ``verbose`` prints the per-layer stale-buffer
     sizes once the first generation has seeded them
     (``DenoiseRunner.comm_volume_report``); ``comm_checkpoint`` is carried
     with no effect (module docstring).
@@ -310,8 +313,6 @@ class DistriConfig:
             raise ValueError(f"dp_degree must be >= 1, got {self.dp_degree}")
         if self.ulysses_degree < 1:
             raise ValueError(f"ulysses_degree must be >= 1, got {self.ulysses_degree}")
-        if self.pipe_patches is not None and self.pipe_patches < 1:
-            raise ValueError(f"pipe_patches must be >= 1, got {self.pipe_patches}")
         validate_weight_mode(self.weight_quant)
         validate_weight_mode(self.weight_quant_aux)
         validate_quant_compute(self.quant_compute, self.weight_quant)
@@ -365,10 +366,13 @@ class DistriConfig:
                 "head-sharding is attn_impl='ulysses')"
             )
         if self.pipe_patches is not None:
-            raise NotImplementedError(
-                f"pipe_patches={self.pipe_patches}: PipeFusion's patch stream over "
-                "the DiT's blocks is ROADMAP queue 1 item 13d"
-            )
+            if self.parallelism != "pipefusion":
+                raise ValueError(
+                    "pipe_patches configures the PipeFusion patch stream "
+                    f"(parallelism='pipefusion'); {self.parallelism!r} has no "
+                    "pipeline to stream patches through")
+            if self.pipe_patches < 1:
+                raise ValueError(f"pipe_patches must be >= 1, got {self.pipe_patches}")
         on_card = self.device is None or torch.device(self.device).type == "cuda"
         if on_card and self.dtype is not None and self.dtype != torch.bfloat16:
             raise ValueError(

@@ -100,7 +100,7 @@ def test_comm_knob_flags_pass_through_as_in_the_jax_scripts(flags):
     (["--dump_hlo", "x.hlo"], "no HLO"),
     (["--attn_impl", "usp", "--ulysses_degree", "2"], "must divide the sp degree"),
     (["--attn_impl", "ulysses"], "DiT strategy"),
-    (["--pipe_patches", "4"], "item 13d"),
+    (["--pipe_patches", "4"], "no pipeline to stream patches through"),
     (["--refresh_fraction", "0.3"], "1/k"),
     (["--comm_batch", "--refresh_fraction", "0.5"], "mutually exclusive"),
     (["--dp_degree", "2"], "must divide world size 1"),

@@ -16,8 +16,8 @@ CPU mesh of as many devices, from the same seeded weights and inputs:
 each latent within 5e-4 of the JAX one's largest value, the same on every
 rank, its ``comm_report`` equal to the JAX one's key for key at batch 1 and
 2, its phase counts and the callback's latent shapes as expected.  The
-refusals (the JAX runner's ValueErrors; PipeFusion, ROADMAP item 13d, as
-NotImplementedError naming the item) run in this process.  The comm knobs
+refusals (the JAX runner's ValueErrors, and ``parallelism="pipefusion"``,
+which parallel/pipefusion.py runs) run in this process.  The comm knobs
 and the head-sharded layouts are held in
 tests/test_torch_port_transformer_knobs.py and _ulysses.py.
 """
@@ -139,7 +139,7 @@ def _cfg(**fields):
     ({"attn_impl": "ulysses", "comm_compress": "int8"}, ValueError, "comm_compress"),
     ({"attn_impl": "usp", "refresh_fraction": 0.5}, ValueError, "refresh_fraction"),
     ({"step_cache_interval": 2, "step_cache_depth": 2}, ValueError, "step_cache_depth"),
-    ({"parallelism": "pipefusion"}, NotImplementedError, "item 13d"),
+    ({"parallelism": "pipefusion"}, ValueError, "PipeFusionRunner"),
 ])
 def test_runner_refusals(fields, exc, match):
     dcfg = port_dit.tiny_dit_config(depth=2)
@@ -149,17 +149,18 @@ def test_runner_refusals(fields, exc, match):
 
 @pytest.mark.parametrize("fields,match", [
     ({"attn_impl": "ulysses"}, None), ({"attn_impl": "usp"}, None),
-    ({"ulysses_degree": 2}, "'usp' only"), ({"pipe_patches": 4}, "item 13d"),
+    ({"ulysses_degree": 2}, "'usp' only"),
+    ({"pipe_patches": 4}, "no pipeline to stream patches through"),
 ])
 def test_config_refuses_later_dit_layouts(fields, match):
     """The head-sharded layouts are accepted (tests/test_torch_port_ulysses.py
-    runs them); a ``ulysses_degree`` outside usp is the JAX config's
-    ValueError; PipeFusion's ``pipe_patches`` stays ROADMAP item 13d."""
+    runs them); a ``ulysses_degree`` outside usp and ``pipe_patches``
+    outside PipeFusion (tests/test_torch_port_pipefusion.py) are the JAX
+    config's ValueErrors."""
     if match is None:
         assert _cfg(**fields).attn_impl == fields["attn_impl"]
         return
-    exc = NotImplementedError if "pipe_patches" in fields else ValueError
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match=match):
         _cfg(**fields)
 
 

@@ -68,16 +68,20 @@ def test_unet_family_decodes_without_vae_shift():
 @pytest.mark.parametrize("field,value,item", [
     ("attn_impl", "usp", None),
     ("attn_impl", "ulysses", None),
-    ("pipe_patches", 4, "item 13d"),
+    ("pipe_patches", 4, "no pipeline to stream patches through"),
 ])
 def test_unported_knobs_refused(field, value, item):
-    """PipeFusion's ``pipe_patches`` is refused naming ROADMAP item 13d;
-    the DiT's head-sharded layouts, ported since, are accepted."""
+    """The DiT's head-sharded layouts and PipeFusion's ``pipe_patches``,
+    ported since, are accepted; ``pipe_patches`` only under
+    ``parallelism="pipefusion"``: at the default "patch" it is the JAX
+    config's ValueError."""
     if item is None:
         assert getattr(DistriConfig(device="cpu", **{field: value}), field) == value
         return
-    with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
+    with pytest.raises(ValueError, match=item):
         DistriConfig(device="cpu", **{field: value})
+    cfg = DistriConfig(device="cpu", parallelism="pipefusion", **{field: value})
+    assert getattr(cfg, field) == value
 
 
 @pytest.mark.parametrize("fields", [
@@ -182,12 +186,16 @@ def test_rank_takes_the_card_of_its_local_rank(monkeypatch, rank, local, cards, 
     {"pipe_patches": None},
     {"pipe_patches": 4},
     {"pipe_patches": 0},
+    {"pipe_patches": 4, "parallelism": "pipefusion"},
+    {"pipe_patches": 0, "parallelism": "pipefusion"},
+    {"parallelism": "pipefusion", "comm_compress": "int8_residual"},
+    {"parallelism": "pipefusion", "step_cache_interval": 2, "step_cache_depth": 1},
 ])
 def test_jax_config_keywords_accepted_or_refused_alike(fields):
     """Each keyword is accepted or refused as the JAX package's DistriConfig
-    accepts or refuses it, with the same exception type; the port refuses
-    ``pipe_patches`` as not ported yet (queue 1 item 13d), and carries
-    ``hybrid_loop`` with no effect."""
+    accepts or refuses it, with the same exception type (``pipe_patches``
+    too, accepted under PipeFusion only), and carries ``hybrid_loop`` with
+    no effect."""
     from distrifuser_tpu.utils.config import DistriConfig as JaxDistriConfig
 
     try:
@@ -202,10 +210,7 @@ def test_jax_config_keywords_accepted_or_refused_alike(fields):
         return
     with pytest.raises((ValueError, NotImplementedError)) as got:
         DistriConfig(device="cpu", **fields)
-    if (fields.get("pipe_patches") or 0) > 0:
-        assert got.type is NotImplementedError and "queue 1 item 13d" in str(got.value)
-    else:
-        assert got.type is jax_error
+    assert got.type is jax_error
     if fields.get("hybrid_loop") and "step_cache_interval" in fields:
         assert "hybrid_loop" in str(got.value)
 

@@ -606,16 +606,24 @@ def test_from_pretrained_matches_jax(tmp_path, devices8):
 
 def test_dit_example_cli(tmp_path, capsys):
     """cli/dit_example.py: random tiny weights on the CPU to a latent file,
-    and the JAX script's refusals (plus the port's for later items)."""
+    displaced and under PipeFusion (4 chunks), and the JAX script's and
+    runners' refusals."""
     from distrifuser_tpu_torch.cli import dit_example
 
     base = ["--device", "cpu", "--tiny_model", "--num_inference_steps", "2"]
     assert dit_example.main(base + ["--output_path", str(tmp_path / "o.png")]) == 0
     latent = np.load(tmp_path / "o.npy")
     assert latent.shape == (1, 16, 16, 4) and np.isfinite(latent).all()
+    assert dit_example.main(base + ["--parallelism", "pipefusion", "--pipe_patches", "4",
+                                    "--output_path", str(tmp_path / "p.png")]) == 0
+    latent = np.load(tmp_path / "p.npy")
+    assert latent.shape == (1, 16, 16, 4) and np.isfinite(latent).all()
     for argv, msg in ((["--parallelism", "tensor"], "UNet strategy"),
                       (["--init_image", "x.png"], "text2img-only"),
-                      (["--parallelism", "pipefusion"], "item 13d"),
+                      (["--parallelism", "pipefusion", "--pipe_patches", "3"],
+                       "divisible by pipe_patches"),
+                      (["--parallelism", "pipefusion", "--no_cuda_graph"],
+                       "use_cuda_graph=False"),
                       (["--attn_impl", "usp", "--ulysses_degree", "2"],
                        "must divide the sp degree")):
         with pytest.raises(SystemExit):

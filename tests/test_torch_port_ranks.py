@@ -527,3 +527,68 @@ def mmdit_worker(rank, world, in_path, out_path):
                   dict(runner.phase_counts), seen)
         out["extra", i] = _transformer_extras(runner, inp["steps"], a2a)
     torch.save(out, f"{out_path}.rank{rank}")
+
+
+def pipefusion_worker(rank, world, in_path, out_path):
+    """The tiny DiT's PipeFusion runner (parallel/pipefusion.py) in each case
+    of ``cases`` (config fields; "depth", "steps", "scheduler", "batch",
+    "gs" and "weight_quant" of the run): the final latent from the same
+    latents, caption states and mask.  Saves {case index: (latent,
+    comm_report(1), comm_report(2), tick counts, the pipelines'
+    ``comm_plan`` of the config)} and {("refusal", i): the exception type
+    name and message of ``refusals[i]`` (config fields, fields replaced in
+    the depth-4 tiny DiT's config), or None}; with ``patch_report`` (a
+    case), {"patch_report": the displaced DiT runner's ``comm_report`` of
+    its config}."""
+    import dataclasses
+    import types
+
+    from distrifuser_tpu_torch.models import dit
+    from distrifuser_tpu_torch.models.weights import quantize_params
+    from distrifuser_tpu_torch.parallel.dit_sp import DiTDenoiseRunner
+    from distrifuser_tpu_torch.parallel.pipefusion import PipeFusionRunner
+    from distrifuser_tpu_torch.pipelines import DistriPixArtPipeline
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+    from distrifuser_tpu_torch.utils.config import DistriConfig
+
+    inp = torch.load(in_path)
+    out = {}
+    for i, case in enumerate(inp["cases"]):
+        fields = dict(case)
+        run = {k: fields.pop(k) for k in ("depth", "steps", "scheduler", "batch", "gs",
+                                          "weight_quant") if k in fields}
+        batch = run.get("batch", 1)
+        cfg = DistriConfig(device="cpu", height=128, width=128, parallelism="pipefusion",
+                           batch_size=batch, weight_quant=run.get("weight_quant", "none"),
+                           **fields)
+        params = inp["params"][run["depth"]]
+        if cfg.weight_quant != "none":
+            params = quantize_params(params, cfg.weight_quant, compute=cfg.quant_compute)
+        runner = PipeFusionRunner(cfg, dit.tiny_dit_config(depth=run["depth"]), params,
+                                  get_scheduler(run["scheduler"]))
+        x = runner.generate(inp["latents"][:batch], inp["enc"][:, :batch],
+                            guidance_scale=run["gs"], num_inference_steps=run["steps"],
+                            cap_mask=inp["mask"][:, :batch])
+        stub = types.SimpleNamespace(distri_config=cfg, runner=runner)
+        out[i] = (x, runner.comm_report(1), runner.comm_report(2), dict(runner.tick_counts),
+                  DistriPixArtPipeline.comm_plan(stub, run["steps"]))
+    if inp.get("patch_report") is not None:
+        fields = {k: v for k, v in inp["patch_report"].items()
+                  if k not in ("depth", "steps", "scheduler", "gs")}
+        cfg = DistriConfig(device="cpu", height=128, width=128, **fields)
+        out["patch_report"] = DiTDenoiseRunner(
+            cfg, dit.tiny_dit_config(depth=4), inp["params"][4],
+            get_scheduler("ddim")).comm_report()
+    for i, (fields, dit_fields) in enumerate(inp.get("refusals", [])):
+        dcfg = dataclasses.replace(dit.tiny_dit_config(depth=4), **dit_fields)
+        try:
+            cfg = DistriConfig(device="cpu", height=fields.pop("height", 128),
+                               width=fields.pop("width", 128), parallelism="pipefusion",
+                               **fields)
+            # a changed DiT has no weights: the runner must refuse it first
+            PipeFusionRunner(cfg, dcfg, None if dit_fields else inp["params"][4],
+                             get_scheduler("ddim"))
+            out["refusal", i] = None
+        except (ValueError, NotImplementedError) as e:
+            out["refusal", i] = (type(e).__name__, str(e))
+    torch.save(out, f"{out_path}.rank{rank}")
