@@ -198,6 +198,25 @@ Phases (any failure raises, and the script exits non-zero):
    benchmark`` at 1024x1024 with random weights (1 untimed, 3 timed 4-step
    calls to latents) prints its trimmed-mean latency, and ``sd_example``
    runs img2img from an image written to a temporary directory;
+5f. the serve plane (``serve_phase``, run after 5a on 5's trees):
+   InferenceServer over ``pipeline_executor_factory`` building
+   DistriSDXLPipeline at batch_size 2 (1024x1024, 4 DDIM steps, CUDA
+   graphs captured at warmup; its flash and quant rows "...@serve": B = 4
+   in the UNet's attention, M doubled in the linears, B = 2 in the
+   decode's); five requests run as batches of 2, 2 and 1 (the last padded),
+   each a cache hit, flash 561 a dispatch, each image equal to the same
+   pipeline's solo call bit for bit; then a second server whose dense
+   executor's first call holds 4 GiB and asks for twice the card: the real
+   ``torch.OutOfMemoryError`` must be an OOM for ``serve.is_oom``, the
+   ladder's weight_quant_on rung builds the int8 key (the dense tree
+   quantized, "pallas", captured), the memory allocated when that build
+   starts must be within SERVE_MEM_MARGIN of the level before the failed
+   call, and three requests run with 2202 launches of each quant kernel a
+   dispatch, each image equal to the int8 pipeline's solo call; one
+   {"serve": ...} line (per-request queue wait, execute and end-to-end
+   seconds, batch sizes, cache hits and misses, the rungs, launches a
+   dispatch, the bit-identity results, warmup seconds, peak memory) before
+   the last three lines;
 6. multi-rank phase, one spawned process a rank: every rank on this one
    card in a gloo group whose CUDA payloads are staged through pinned host
    memory, or one card a rank over NCCL where the machine has four (a line
@@ -310,6 +329,11 @@ kernels' own device time, the share of it that lies under the rank's
 compute kernels and the exposed NCCL time (``stale_step_overlap``).  ``--runs a,b``
 (with ``--patch_only``) runs only those multi-rank runs, without the
 kernel rows and the kernels line.
+``--conv_probe`` runs only ``conv_probe``: why ops/conv.py convolves one
+image a launch on the card, and what it costs.
+``--serve_only`` runs only 5f with its "@serve" kernel rows (a kernels
+line of the flash kernel, quant_matmul and quantize_rows at the serve
+phase's launches).
 ``--quant_device_times`` runs only the device time of the quantized-matmul
 kernel's fp32 contract form and of the per-token quantization kernel at
 every SDXL and SD 1.5 path shape, the latter also with a cold L2 (a 256 MB
@@ -363,6 +387,23 @@ PATCH_MODES = ("full_sync", "corrected_async_gn")
 # the kernel phase carry the suffix "@sd15" or "@sd21" after their shape name
 SIZES = {"sdxl": 1024, "sd15": 512, "sd21": 768, "pixart": 1024, "sd3": 1024}
 SD15, SD21, PIXART, SD3 = "@sd15", "@sd21", "@pixart", "@sd3"
+# the serve phase (``serve_phase``): SDXL at 1024x1024 behind
+# InferenceServer, executors prepared at batch_size SERVE_BATCH (CFG folds
+# the UNet's B to 4; the decode takes both images at once); its kernel-phase
+# rows carry the suffix "@serve".  Five requests (batches of 2, 2 and 1,
+# the last padded), then three through a second server whose dense
+# executor's first call runs out of memory for real: it holds
+# SERVE_HELD_BYTES, then asks for twice the card; the ladder's
+# weight_quant_on rung rebuilds the key as int8, and the memory allocated
+# when the rebuild starts must be within SERVE_MEM_MARGIN of the level
+# before the failed call (the failed call's frames released)
+SERVE = "@serve"
+SERVE_BATCH = 2
+SERVE_REQUESTS = [(f"{PROMPT}, served #{i}", 100 + i) for i in range(5)]
+SERVE_OOM_REQUESTS = 3
+SERVE_HELD_BYTES = 4 << 30
+SERVE_MEM_MARGIN = 256 << 20
+SERVE_WINDOW_S = 0.5  # the batcher holds a leader this long for its follower
 SD15_HEAD_DIMS = (40, 80, 160)
 CODEC_TABLE = 192  # segments a refresh-codec launch takes (ops/quantize.py CAPACITY)
 SPAWN_DEADLINE_S = 720  # one spawn of the multi-rank phase, profiles included
@@ -607,12 +648,13 @@ def device_ms(fn, iters=20, attempts=3):
     return None
 
 
-def attention_shapes(ucfg, vcfg, height, width, unet_evals, suffix=""):
+def attention_shapes(ucfg, vcfg, height, width, unet_evals, suffix="", batch=1):
     """Every (B, Lq, Lk, heads, d) the main path gives the kernel, with its
-    launch count for one pipeline call: per UNet level a self- and a
-    cross-attention for each transformer block (CFG folds B to 2), and the
-    VAE's single-head mid attention at the latent resolution (B = 1).
-    ``suffix`` marks another model family's rows."""
+    launch count for one pipeline call of ``batch`` images: per UNet level a
+    self- and a cross-attention for each transformer block (CFG folds B to
+    2 x batch), and the VAE's single-head mid attention at the latent
+    resolution (B = batch: the decode takes a batch_size chunk at once).
+    ``suffix`` marks another model family's rows (or the serve phase's)."""
     from distrifuser_tpu_torch.models.unet import transformer_blocks_per_level
 
     blocks = transformer_blocks_per_level(ucfg)
@@ -624,18 +666,19 @@ def attention_shapes(ucfg, vcfg, height, width, unet_evals, suffix=""):
         tokens = (lh >> lvl) * (lw >> lvl)
         heads = ucfg.num_attention_heads[lvl]
         d = ucfg.block_out_channels[lvl] // heads
-        shapes.append((f"unet_self_l{lvl}{suffix}", 2, tokens, tokens, heads, d,
+        shapes.append((f"unet_self_l{lvl}{suffix}", 2 * batch, tokens, tokens, heads, d,
                        count * unet_evals))
-        shapes.append((f"unet_cross_l{lvl}{suffix}", 2, tokens, TEXT_LEN, heads, d,
+        shapes.append((f"unet_cross_l{lvl}{suffix}", 2 * batch, tokens, TEXT_LEN, heads, d,
                        count * unet_evals))
     top = vcfg.block_out_channels[-1]
-    shapes.append((f"vae_mid{suffix}", 1, lh * lw, lh * lw, 1, top, 1))
+    shapes.append((f"vae_mid{suffix}", batch, lh * lw, lh * lw, 1, top, 1))
     return shapes
 
 
 def family(name: str) -> str:
     """The model family of a kernel-phase row by its shape name."""
-    for fam, suffix in (("sd15", SD15), ("sd21", SD21), ("pixart", PIXART), ("sd3", SD3)):
+    for fam, suffix in (("sd15", SD15), ("sd21", SD21), ("pixart", PIXART), ("sd3", SD3),
+                        ("serve", SERVE)):
         if name.endswith(suffix):
             return fam
     return "sdxl"
@@ -2861,6 +2904,233 @@ def tiled_decode_phase(trees):
     return lines
 
 
+def serve_phase(trees, steps, expected_flash, expected_quant):
+    """The serve plane on the card (distrifuser_tpu_torch.serve): an
+    InferenceServer over ``pipeline_executor_factory`` building
+    DistriSDXLPipeline at batch_size SERVE_BATCH from ``trees`` (1024x1024,
+    ``steps`` DDIM steps, CUDA graphs captured by ``prepare`` at warmup).
+    Five requests run as batches of 2, 2 and 1 (the last padded), every
+    dispatch a cache hit on warmup's executor, each image bit for bit with
+    the same pipeline's solo call, ``expected_flash`` flash launches a call.
+    A second server's dense executor runs out of memory for real on its
+    first call (``torch.cuda.OutOfMemoryError``, which ``is_oom`` must
+    see); the ladder's weight_quant_on rung builds the int8 key
+    (``apply_key_policy``: the dense tree quantized, re-tagged "pallas",
+    then captured) and the retried batch succeeds, each image bit for bit
+    with the int8 pipeline's solo call, ``expected_quant`` launches of each
+    quant kernel a call.  Returns the phase's result dict (the "serve"
+    line) and the launch totals of both servers' dispatches."""
+    import numpy as np
+    import torch
+
+    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+    from distrifuser_tpu_torch.serve import (InferenceServer, ResilienceConfig, ServeConfig,
+                                             is_oom, pipeline_executor_factory)
+
+    ucfg, unet_p, vcfg, vae_p, tcfgs, text_p = trees
+    size = SIZES["sdxl"]
+
+    def build(key):
+        cfg = DistriConfig(height=key.height, width=key.width, batch_size=SERVE_BATCH,
+                           do_classifier_free_guidance=key.cfg)  # this card, bf16
+        return DistriSDXLPipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p, tcfgs, text_p,
+                                              scheduler=key.scheduler)
+
+    class Counted:
+        """A served executor, each call's launch counts kept (read before
+        and after the call; the dispatches run one at a time)."""
+
+        def __init__(self, ex):
+            self.ex, self.calls = ex, []
+            self.batch_size, self.shallow_steps = ex.batch_size, ex.shallow_steps
+            self.weight_nbytes = ex.weight_nbytes
+
+        def __call__(self, *args):
+            before = read_counts()
+            out = self.ex(*args)
+            after = read_counts()
+            self.calls.append({k: after[k] - before[k] for k in after})
+            return out
+
+    make = pipeline_executor_factory(build)
+    executors = {}
+
+    def factory(key):
+        executors[key.short()] = Counted(make(key))
+        return executors[key.short()]
+
+    config = ServeConfig(
+        buckets=((size, size),), max_batch_size=SERVE_BATCH, cache_capacity=2,
+        default_steps=steps, warmup_buckets=((size, size),), quant_compute="pallas",
+        batch_window_s=SERVE_WINDOW_S,
+        resilience=ResilienceConfig(allow_batch_split=False, allow_stepwise_fallback=False,
+                                    allow_weight_quant_on=True, watchdog_timeout_s=600.0))
+
+    def serve(server, requests):
+        """Submit ``requests`` to the started ``server``; (results, launches
+        while they were served: the dispatches', and a build's if one ran,
+        seconds)."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        futs = [server.submit(p, height=size, width=size, seed=s) for p, s in requests]
+        results = [f.result(timeout=900) for f in futs]
+        torch.cuda.synchronize()
+        return results, read_counts(), time.perf_counter() - t
+
+    def summed(calls):
+        return {k: sum(c[k] for c in calls) for k in calls[0]}
+
+    def solo(pipe, requests, results, label, quant):
+        """Each request alone through ``pipe`` (counted): its image against
+        the served one, bit for bit."""
+        same = []
+        for i, ((prompt, seed), r) in enumerate(zip(requests, results)):
+            out, _, launches = counted_call(
+                lambda: pipe(prompt, seed=seed, num_inference_steps=steps, output_type="np"),
+                f"{label} solo {i}", expected_flash)
+            if launches["quant_matmul"] != quant or launches["quantize_rows"] != quant:
+                raise AssertionError(f"{label} solo {i}: launches {launches}")
+            same.append(bool(np.array_equal(out.images[0], r.output)))
+        if not all(same):
+            raise AssertionError(f"{label}: served images differ from their solo calls {same}")
+        return same
+
+    def check_calls(ex, label, quant):
+        for call in ex.calls:
+            want = {"flash_sdpa": expected_flash, "flash_sdpa_lse": 0, "quant_matmul": quant,
+                    "quantize_rows": quant, "dequantize_rows": 0, "all_to_all": 0}
+            if call != want:
+                raise AssertionError(f"{label}: a dispatch launched {call}, expected {want}")
+
+    def timings(results):
+        return [{"queue_wait_s": r.queue_wait_s, "execute_s": r.execute_s, "e2e_s": r.e2e_s,
+                 "batch_size": r.batch_size, "cache_hit": r.compile_hit,
+                 "degradations": list(r.degradations), "exec_key": r.exec_key}
+                for r in results]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # dense: warmup builds and captures the bucket's executor; every
+    # dispatch after it hits
+    server = InferenceServer(factory, config, model_id="sdxl", scheduler="ddim")
+    t = time.perf_counter()
+    server.start()
+    warmup_s = time.perf_counter() - t
+    try:
+        results, dense_launches, dense_s = serve(server, SERVE_REQUESTS)
+        health, snap = server.health(), server.metrics_snapshot()
+    finally:
+        server.stop()
+    (dense_key, dense), = executors.items()
+    sizes = sorted(r.batch_size for r in results)
+    if sizes != [1, 2, 2, 2, 2] or len(dense.calls) != 3:
+        raise AssertionError(f"serve: batch sizes {sizes}, {len(dense.calls)} dispatches")
+    if (snap["cache"]["misses"], snap["cache"]["hits"]) != (1, 3) or not all(
+            r.compile_hit for r in results):
+        raise AssertionError(f"serve: cache {snap['cache']}, a dispatch built")
+    check_calls(dense, "serve dense", 0)
+    dense_same = solo(dense.ex.pipeline, SERVE_REQUESTS, results, "serve dense", 0)
+
+    # a real OOM: the dense executor's first call holds SERVE_HELD_BYTES, then
+    # asks for twice the card; the ladder answers with the int8 key
+    total = torch.cuda.get_device_properties(0).total_memory
+    state = {}
+
+    class OomOnce:
+        batch_size, shallow_steps = dense.batch_size, dense.shallow_steps
+        weight_nbytes = dense.weight_nbytes
+
+        def __call__(self, *args):
+            if not state.get("raised"):
+                torch.cuda.synchronize()
+                state["allocated_before_bytes"] = torch.cuda.memory_allocated()
+                held = torch.empty(SERVE_HELD_BYTES, dtype=torch.uint8, device="cuda")
+                try:
+                    torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+                except Exception as exc:
+                    state["raised"] = f"{type(exc).__module__}.{type(exc).__qualname__}"
+                    state["cuda_oom"] = isinstance(exc, torch.cuda.OutOfMemoryError)
+                    state["is_oom"] = is_oom(exc)
+                    state["held_bytes"] = held.numel()
+                    raise
+            return dense(*args)
+
+    def oom_factory(key):
+        if key.weight_quant == "none":
+            return OomOnce()
+        torch.cuda.synchronize()
+        state["allocated_at_rebuild_bytes"] = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        ex = factory(key)
+        state["int8_build_s"] = time.perf_counter() - t
+        return ex
+
+    oom_requests = [(f"{PROMPT}, after the OOM #{i}", 200 + i)
+                    for i in range(SERVE_OOM_REQUESTS)]
+    server = InferenceServer(oom_factory, config, model_id="sdxl", scheduler="ddim")
+    server.start()
+    try:
+        oom_results, int8_launches, int8_s = serve(server, oom_requests)
+        oom_health, oom_snap = server.health(), server.metrics_snapshot()
+    finally:
+        server.stop()
+    int8_key = next(k for k in executors if k != dense_key)
+    int8 = executors[int8_key]
+    if not (state.get("cuda_oom") and state.get("is_oom")):
+        raise AssertionError(f"serve: the forced allocation raised {state}")
+    rungs = oom_health["degradations"].get(dense_key, {}).get("rungs")
+    if rungs != ["weight_quant_on"] or not all(
+            r.degradations == ("weight_quant_on",) and r.exec_key == int8_key
+            for r in oom_results):
+        raise AssertionError(f"serve: ladder {oom_health['degradations']}, results "
+                             f"{[(r.degradations, r.exec_key) for r in oom_results]}")
+    if not int8_key.endswith(":wq-int8:qc-pallas"):
+        raise AssertionError(f"serve: degraded key {int8_key}")
+    growth = state["allocated_at_rebuild_bytes"] - state["allocated_before_bytes"]
+    if growth > SERVE_MEM_MARGIN:
+        raise AssertionError(f"serve: {growth} bytes still allocated when the int8 key "
+                             f"rebuilds (margin {SERVE_MEM_MARGIN})")
+    check_calls(int8, "serve int8", expected_quant)
+    int8_same = solo(int8.ex.pipeline, oom_requests, oom_results, "serve int8", expected_quant)
+    line = {
+        "model": MODEL_NAMES["sdxl"] + ", random bf16 weights",
+        "height": size, "width": size, "steps": steps, "executor_batch_size": SERVE_BATCH,
+        "config": {"max_batch_size": config.max_batch_size,
+                   "batch_window_s": config.batch_window_s,
+                   "cache_capacity": config.cache_capacity,
+                   "quant_compute": config.quant_compute},
+        "warmup_build_and_capture_s": warmup_s,
+        "dense": {"requests": timings(results), "seconds": dense_s,
+                  "dispatches": len(dense.calls), "cache": snap["cache"],
+                  "launches_per_call": dense.calls[0], "launches": summed(dense.calls),
+                  "launches_while_serving": dense_launches,
+                  "bit_identical_to_solo": dense_same,
+                  "latency_s": snap["latency_s"], "weight_bytes": dense.weight_nbytes},
+        "oom": {"raised": state["raised"], "is_oom": state["is_oom"],
+                "held_bytes": state["held_bytes"],
+                "allocated_before_bytes": state["allocated_before_bytes"],
+                "allocated_at_rebuild_bytes": state["allocated_at_rebuild_bytes"],
+                "margin_bytes": SERVE_MEM_MARGIN, "ladder_rungs": rungs,
+                "degraded_key": int8_key, "int8_build_and_capture_s": state["int8_build_s"],
+                "requests": timings(oom_results), "seconds": int8_s,
+                "dispatches": len(int8.calls), "cache": oom_snap["cache"],
+                "counters": oom_snap["requests"], "launches_per_call": int8.calls[0],
+                "launches": summed(int8.calls),
+                "launches_while_serving_incl_the_int8_build": int8_launches,
+                "bit_identical_to_solo": int8_same,
+                "health_status": oom_health["status"],
+                "last_error": oom_health["last_errors"][-1]["message"][:300],
+                "weight_bytes": int8.weight_nbytes},
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+    }
+    del dense, int8, executors
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
 def cli_phase():
     """The command-line scripts in this process on the card, with random
     weights: ``run_sdxl --mode benchmark`` at 1024x1024 (1 untimed and 3
@@ -3717,6 +3987,112 @@ def path_entry(rows, weights, launches, **fields):
     return kernel_entry(picked, launches, **fields)
 
 
+CONV_PROBE_SHAPES = ((4, 320, 320, 128), (4, 640, 640, 64), (4, 1280, 1280, 32),
+                     (4, 640, 1280, 32), (4, 4, 320, 128), (2, 320, 320, 128),
+                     (2, 640, 640, 64), (2, 1280, 1280, 32), (2, 512, 512, 128),
+                     (2, 512, 512, 256), (2, 256, 256, 512), (2, 128, 128, 1024))
+
+
+def conv_probe():
+    """Why ops/conv.py convolves one image a launch on the card: for each
+    3x3 conv shape (B, C_in, C_out, H) of SDXL's UNet (B = 4: two requests,
+    CFG folded) and VAE (B = 2), a batch of one image repeated, whether
+    cuDNN's batched call gives every row the same bits (with
+    ``cudnn.deterministic`` off and on) and whether the per-image conv
+    does, and both one's device ms under CUDA-graph replay; then whole
+    graphed SDXL 1024x1024 calls (one and two prompts, 4 steps) with the
+    UNet's and VAE's convs per image and batched, alternated (per image,
+    batched, batched, per image), three timed calls each."""
+    import torch
+    import torch.nn.functional as F
+
+    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+    from distrifuser_tpu_torch.models import unet as unet_mod
+    from distrifuser_tpu_torch.models import vae as vae_mod
+    from distrifuser_tpu_torch.ops import conv as conv_mod
+    from distrifuser_tpu_torch.parallel.compress import asdense
+
+    per_image = conv_mod.conv2d
+
+    def batched(p, x, *, stride=1, padding=None):
+        kh, kw = p["kernel"].shape[2:]
+        if padding is None:
+            padding = ((kh - 1) // 2, (kw - 1) // 2)
+        elif isinstance(padding, int):
+            padding = (padding, padding)
+        y = F.conv2d(x.permute(0, 3, 1, 2), asdense(p["kernel"]), p.get("bias"),
+                     stride=stride, padding=padding)
+        return y.permute(0, 2, 3, 1)
+
+    def graphed_ms(fn, n=20, reps=5):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        best = None
+        for _ in range(reps):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            graph.replay()
+            b.record()
+            torch.cuda.synchronize()
+            best = min(best or 1e9, a.elapsed_time(b) / n)
+        return best
+
+    def rows_equal(y):
+        return all(torch.equal(y[0], y[i]) for i in range(1, y.shape[0]))
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b, cin, cout, h in CONV_PROBE_SHAPES:
+        x = torch.randn(1, h, h, cin, device="cuda", generator=g).bfloat16().expand(
+            b, -1, -1, -1).contiguous()
+        w = (torch.randn(cout, cin, 3, 3, device="cuda", generator=g) / (9 * cin) ** 0.5
+             ).bfloat16().contiguous(memory_format=torch.channels_last)
+        p = {"kernel": w, "bias": torch.zeros(cout, device="cuda").bfloat16()}
+        line = {"phase": "conv_probe", "shape": [b, cin, cout, h],
+                "per_image_rows_equal": rows_equal(per_image(p, x)),
+                "batched_rows_equal": rows_equal(batched(p, x))}
+        torch.backends.cudnn.deterministic = True
+        line["batched_rows_equal_deterministic"] = rows_equal(batched(p, x))
+        torch.backends.cudnn.deterministic = False
+        line.update(per_image_ms=graphed_ms(lambda: per_image(p, x)),
+                    batched_ms=graphed_ms(lambda: batched(p, x)))
+        print(json.dumps(line), flush=True)
+        if not line["per_image_rows_equal"]:
+            raise AssertionError(f"conv_probe {line['shape']}: per-image rows differ")
+    ucfg, unet_p, vcfg, vae_p, tcfgs, text_p = build_trees()
+    try:
+        for bs in (1, 2):
+            for variant in ("per_image", "batched", "batched", "per_image"):
+                unet_mod.conv2d = vae_mod.conv2d = (per_image if variant == "per_image"
+                                                    else batched)
+                cfg = DistriConfig(height=1024, width=1024, batch_size=bs)
+                pipe = DistriSDXLPipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p, tcfgs,
+                                                      text_p)
+                pipe.prepare(4)
+                prompts = [PROMPT] * bs
+                pipe(prompts, num_inference_steps=4, output_type="np")
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    pipe(prompts, num_inference_steps=4, output_type="np")
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t)
+                print(json.dumps({"phase": "conv_probe_call", "prompts": bs, "conv": variant,
+                                  "graphed_call_s": times}), flush=True)
+                del pipe
+                torch.cuda.empty_cache()
+    finally:
+        unet_mod.conv2d = vae_mod.conv2d = per_image
+
+
 def build_kernels():
     """Build every kernel of the path, one nvcc per source, all started
     together; print each build's ptxas register and shared-memory report.
@@ -3780,6 +4156,13 @@ def main(argv) -> int:
                         help="with --patch_only: only these multi-rank runs, comma-"
                              "separated (MULTI_RUNS labels, decode_sp), in one spawn, "
                              "without the kernel rows and the kernels line")
+    parser.add_argument("--serve_only", action="store_true",
+                        help="only the serve phase: its flash and quant kernel rows "
+                             "(\"@serve\") and the SDXL serve plane on the card")
+    parser.add_argument("--conv_probe", action="store_true",
+                        help="only the probe of cuDNN's batch-position dependence at "
+                             "SDXL's conv shapes and the per-image conv's cost "
+                             "(``conv_probe``)")
     parser.add_argument("--quant_device_times", action="store_true",
                         help="only time the quantized-matmul kernel's contract form "
                              "and the per-token quantization on the card at every "
@@ -3821,6 +4204,10 @@ def main(argv) -> int:
                                           suffix=SD15), args.encoder_source)
         return 0
     spills = build_kernels()
+    if args.conv_probe:
+        set_precision_flags()
+        conv_probe()
+        return finish(None)
 
     set_precision_flags()
     if args.profile and not args.patch_only:
@@ -3835,6 +4222,38 @@ def main(argv) -> int:
     expected_quant = steps * per_forward + per_call
     qshapes = quant_shapes(ucfg, 1024, 1024, steps)
     assert sum(s[-1] for s in qshapes) == expected_quant, (qshapes, expected_quant)
+    # the serve phase: the same calls at batch_size SERVE_BATCH ("@serve" rows)
+    serve_shapes = attention_shapes(ucfg, vcfg, 1024, 1024, unet_evals=steps, suffix=SERVE,
+                                    batch=SERVE_BATCH)
+    assert sum(s[-1] for s in serve_shapes) == expected_flash, serve_shapes
+    serve_qshapes = quant_shapes(ucfg, 1024, 1024, steps, batch=2 * SERVE_BATCH, suffix=SERVE)
+    assert sum(s[-1] for s in serve_qshapes) == expected_quant, serve_qshapes
+
+    def serve_kernels(rows, qrows, line):
+        """The serve phase's launches as paths of the kernels line's
+        entries: the dense server's dispatches (flash) and the int8 key's
+        after the OOM (flash, quant_matmul, quantize_rows), each a count of
+        dispatches times the "@serve" rows' launches a call."""
+        frows = rows_of(rows, ("unet", "vae_mid"), "serve")
+        int8_rows = [r for r in qrows if r["mode"] == "int8" and family(r["shape"]) == "serve"]
+        dense, oom = line["dense"], line["oom"]
+        work = ("{n} dispatches of the serve phase's {what} (InferenceServer, executors at "
+                f"batch_size {SERVE_BATCH}, 4-step 1024x1024 SDXL calls)")
+        flash = {"serve": path_entry(
+            frows, [("unet", dense["dispatches"]), ("vae_mid", dense["dispatches"])],
+            dense["launches"]["flash_sdpa"],
+            work=work.format(n=dense["dispatches"], what="dense server")),
+            "serve_int8": path_entry(
+            frows, [("unet", oom["dispatches"]), ("vae_mid", oom["dispatches"])],
+            oom["launches"]["flash_sdpa"],
+            work=work.format(n=oom["dispatches"], what="int8 key after the OOM"))}
+        quant = {name: path_entry(int8_rows, [("", oom["dispatches"])],
+                                  oom["launches"][name], prefix=prefix,
+                                  work=work.format(n=oom["dispatches"],
+                                                   what="int8 key after the OOM"))
+                 for name, prefix in (("quant_matmul", "fused_"),
+                                      ("quantize_rows", "quantize_"))}
+        return flash, quant
     # one prompt under the CFG split: one row a rank, n = world / 2 patches
     pshapes = patch_attention_shapes(shapes, n=PATCH_WORLD // 2, batch=1)
     nshapes = naive_attention_shapes(shapes, n=PATCH_WORLD // 2, batch=1)
@@ -4158,6 +4577,20 @@ def main(argv) -> int:
         return lse, quant, dequant
 
     seconds, t0 = {}, time.perf_counter()
+    if args.serve_only:
+        rows = kernel_phase(serve_shapes, spills)
+        qrows = quant_kernel_phase(serve_qshapes)
+        seconds["serve_kernel_rows"], t0 = time.perf_counter() - t0, time.perf_counter()
+        serve = serve_phase(build_trees(), steps, expected_flash, expected_quant)
+        seconds["serve"] = time.perf_counter() - t0
+        print(json.dumps({"phase": "seconds", **seconds}), flush=True)
+        flash, quant = serve_kernels(rows, qrows, serve)
+        print(json.dumps({"serve": serve}), flush=True)
+        return finish([{**flash.pop("serve"), **FLASH_ENTRY, **flash},
+                       {**quant["quant_matmul"], "name": "quant_matmul", "route": "cuda",
+                        "source": "distrifuser_tpu_torch/csrc/quant_matmul.cu",
+                        "replaces": "distrifuser_tpu/ops/quant_matmul.py:54"},
+                       {**quant["quantize_rows"], **QUANT_ENTRY}])
     if args.patch_only and args.runs:
         patch_phase(None, os.path.join(args.out_dir, "multi"), profile=args.profile,
                     runs=args.runs.split(","))
@@ -4192,8 +4625,8 @@ def main(argv) -> int:
                    *d72_entries(rows, multi_runs)]
         return finish(kernels)
     rows = kernel_phase(shapes + shapes15 + shapes21 + multi + enc_rows + decode_rows
-                        + list(PIXART_SHAPES) + shapes3 + list(PIPEFUSION_SHAPES),
-                        spills) + lse_kernel_phase(
+                        + list(PIXART_SHAPES) + shapes3 + list(PIPEFUSION_SHAPES)
+                        + serve_shapes, spills) + lse_kernel_phase(
                             spills, PIXART_RING_HOPS + tuple(hops3))
     mrows = rows
     rows = rows_of(mrows, ("unet", "vae_mid"), "sdxl")
@@ -4205,7 +4638,7 @@ def main(argv) -> int:
     expected_quant15 = steps * per_forward15 + per_call15
     assert sum(s[-1] for s in qshapes15) == expected_quant15, (qshapes15, expected_quant15)
     qrows = quant_kernel_phase(qshapes + qshapes15 + pixart_quant_shapes()
-                               + sd3_quant_shapes())
+                               + sd3_quant_shapes() + serve_qshapes)
     refresh_rows = refresh_codec_phase(refresh_codec_rows(ucfg, 1024, 1024))
     hop_rows = hop_codec_phase()
     seconds["quant_kernel"], t0 = time.perf_counter() - t0, time.perf_counter()
@@ -4225,8 +4658,10 @@ def main(argv) -> int:
     seconds["pipelines_eager_and_graphed_img2img_handoff"], t0 = (time.perf_counter() - t0,
                                                                   time.perf_counter())
     decodes = tiled_decode_phase(trees)
-    del trees
     seconds["tiled_decode"], t0 = time.perf_counter() - t0, time.perf_counter()
+    serve = serve_phase(trees, steps, expected_flash, expected_quant)
+    del trees
+    seconds["serve"], t0 = time.perf_counter() - t0, time.perf_counter()
     sd_runs = sd_pipeline_phase(by_head_dim15, expected_quant15)
     seconds["sd_pipelines"], t0 = time.perf_counter() - t0, time.perf_counter()
     pixart = pixart_phase()
@@ -4280,6 +4715,7 @@ def main(argv) -> int:
     lse, refresh, dequant = knob_kernels(rows_of(mrows, "ring_hop", "sdxl"), refresh_rows,
                                          multi_runs, hop_rows)
     sd3_plain, sd3_lse = sd3_entries(mrows, multi_runs, sd3[1], sd35m)
+    serve_flash, serve_quant = serve_kernels(mrows, qrows, serve)
     kernels = [
         kernel_entry(rows, runs["dense"]["flash_sdpa_launches"], **FLASH_ENTRY,
                      work="all attention of one 4-step 1024x1024 SDXL pipeline call "
@@ -4292,7 +4728,7 @@ def main(argv) -> int:
                      **multi_entries(mrows, multi_runs),
                      sd15=kernel_entry(rows15, sd_runs["sd15"]["flash_sdpa_launches"]),
                      sd21=kernel_entry(rows21, sd_runs["sd21"]["flash_sdpa_launches"]),
-                     **paths, **sd3_plain),
+                     **paths, **sd3_plain, **serve_flash),
         *instance_entries(rows15, sd_runs["sd15_eager"]["flash_sdpa_launches_by_head_dim"],
                           "all its attention in one 4-step 512x512 SD 1.5 call (launches "
                           "counted in the eager call; the graphed one launches as many)"),
@@ -4311,6 +4747,7 @@ def main(argv) -> int:
                      fp8=kernel_entry(by_mode["fp8"], runs["fp8"]["quant_matmul_launches"],
                                       "fused_"),
                      contract={mode: kernel_entry(by_mode[mode], None) for mode in by_mode},
+                     serve_int8=serve_quant["quant_matmul"],
                      **{f"sd15_{mode}": kernel_entry(
                          by_mode15[mode], sd_runs[f"sd15_{mode}"]["quant_matmul_launches"],
                          "fused_", work=f"one graphed 4-step 512x512 SD 1.5 call at {mode}",
@@ -4324,6 +4761,7 @@ def main(argv) -> int:
                           "version compress.quantize; no single library call",
                      fp8=kernel_entry(by_mode["fp8"], runs["fp8"]["quantize_rows_launches"],
                                       "quantize_"),
+                     serve_int8=serve_quant["quantize_rows"],
                      **{f"sd15_{mode}": kernel_entry(
                          by_mode15[mode], sd_runs[f"sd15_{mode}"]["quantize_rows_launches"],
                          "quantize_", work=f"one graphed 4-step 512x512 SD 1.5 call at {mode}")
@@ -4334,6 +4772,7 @@ def main(argv) -> int:
         d512_entry(mrows, multi_runs),
         *d72_entries(mrows, multi_runs, pixart[0], pixart[2]),
     ]
+    print(json.dumps({"serve": serve}), flush=True)
     return finish(kernels)
 
 

@@ -28,14 +28,27 @@ from ..parallel.context import PatchContext
 
 
 def conv2d(p, x, *, stride: int = 1, padding=None):
-    """Dense NHWC conv; ``padding`` defaults to (k-1)//2 ("same" for odd k)."""
+    """Dense NHWC conv; ``padding`` defaults to (k-1)//2 ("same" for odd k).
+
+    On a card the images of a batch are convolved one at a time: at some
+    shapes (SDXL's 640 -> 640 at 64x64 and 1280 -> 1280 at 32x32, B = 4, on
+    an H100) cuDNN's convolution gives an image bits that depend on its
+    position in the batch, though never on the other images.  One image a
+    launch makes every row's result that of the image alone, so a batched
+    call (the serve plane's coalesced requests) gives each image what a call
+    of its own gives it."""
     kh, kw = p["kernel"].shape[2:]
     if padding is None:
         padding = ((kh - 1) // 2, (kw - 1) // 2)
     elif isinstance(padding, int):
         padding = (padding, padding)
-    y = F.conv2d(x.permute(0, 3, 1, 2), asdense(p["kernel"]), p.get("bias"),
-                 stride=stride, padding=padding)
+    kernel, bias = asdense(p["kernel"]), p.get("bias")
+    xs = x.permute(0, 3, 1, 2)
+    if x.is_cuda and x.shape[0] > 1:
+        y = torch.cat([F.conv2d(xi, kernel, bias, stride=stride, padding=padding)
+                       for xi in xs.split(1)])
+    else:
+        y = F.conv2d(xs, kernel, bias, stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1)
 
 

@@ -207,6 +207,18 @@ def validate_quant_compute(policy: str, weight_quant: str = "int8") -> None:
         )
 
 
+def validate_serve_quant_compute(policy: str, weight_quant: str) -> None:
+    """The serve layer's check of a quantized-compute policy (ServeConfig,
+    ExecKey): on a dense key ("none") only membership, since the policy
+    has no quantized kernel to route there and is kept out of the key's
+    identity; it names how the int8 key of the resilience ladder's
+    ``weight_quant_on`` rung computes (``"pallas"``: the hand-written
+    kernel).  The JAX package's ExecKey documents the same rule but its
+    code refuses "dot"/"pallas" there, so its rung can only land on
+    "auto"/"off" (ROADMAP queue 3).  A quantized key is checked in full."""
+    validate_quant_compute(policy, weight_quant if weight_quant != "none" else "int8")
+
+
 def _axes(ndim: int):
     """(reduction axis of the payload, output axis of the scale): OIHW conv
     kernels reduce over dim 1 and keep O first; linear kernels reduce over

@@ -448,6 +448,36 @@ class _GenerationMixin:
                 "bytes_per_step": per_step,
                 "total_bytes": int(total)}
 
+    def generate_batch(self, prompts, negative_prompts=None, **kwargs) -> PipelineOutput:
+        """The pre-bucketed batched entry (JAX ``generate_batch``; the serve
+        executors' call path, serve/executors.py): EXACTLY
+        ``distri_config.batch_size`` prompts, the batch the pipeline was
+        prepared for, so the call is one chunk with zero padding.  Delegates
+        to ``__call__``, so the one-shot and serving paths share one code
+        path; ``kwargs`` are the ``__call__`` surface (num_inference_steps,
+        guidance_scale, seed, latents, output_type, ...)."""
+        prompts = list(prompts)
+        bs = self.distri_config.batch_size
+        if len(prompts) != bs:
+            raise ValueError(
+                f"generate_batch is the pre-bucketed entry: expected exactly "
+                f"batch_size={bs} prompts, got {len(prompts)} (pad upstream "
+                "— serve.executors.PipelineExecutor does — or call the "
+                "pipeline directly for arbitrary counts)"
+            )
+        if negative_prompts is None or isinstance(negative_prompts, str):
+            negs = negative_prompts or ""  # __call__ broadcasts a str
+        else:
+            negs = list(negative_prompts)
+            if len(negs) != bs:
+                raise ValueError(f"{len(negs)} negative prompts for {bs} prompts")
+        if kwargs.get("num_images_per_prompt", 1) != 1:
+            raise ValueError(
+                "generate_batch batches across requests; "
+                "num_images_per_prompt must stay 1"
+            )
+        return self(prompt=prompts, negative_prompt=negs, **kwargs)
+
     def set_progress_bar_config(self, **kwargs) -> None:
         """Accepted and ignored, as in the JAX package: the reference's
         scripts call it to silence the progress bar, which the port does

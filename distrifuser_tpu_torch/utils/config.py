@@ -49,7 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -439,6 +439,15 @@ class DistriConfig:
     def latent_width(self) -> int:
         return self.width // 8
 
+    @property
+    def mesh_plan(self) -> str:
+        """Compact layout descriptor, e.g. ``"dp1.cfg2.sp4"`` (JAX
+        ``DistriConfig.mesh_plan``): part of the serve layer's executor
+        cache key, since two configs at one resolution on different
+        layouts build different programs."""
+        cfg_dim = self.group_size // self.n_device_per_batch
+        return f"dp{self.dp_degree}.cfg{cfg_dim}.sp{self.n_device_per_batch}"
+
 
 def _world_and_rank() -> Tuple[int, int]:
     """(world size, rank) of the initialised default process group; (1, 0)
@@ -456,3 +465,870 @@ def _world_and_rank() -> Tuple[int, int]:
             "a DistriConfig; the library never picks a backend"
         )
     return 1, 0
+
+
+# ---------------------------------------------------------------------------
+# The serve layer's configuration (serve/), field for field the JAX
+# package's, so that the two compare.  The blocks of subsystems not ported
+# yet (the controller, step batching, staging, tenancy and the gateway, the
+# AOT store) validate as there; `InferenceServer` refuses to run with them
+# switched on, naming the step of ROADMAP item 16 that brings each.
+# ---------------------------------------------------------------------------
+
+# Default resolution bucket table for the serve layer: the SDXL training
+# resolutions ladder up to the repo's benchmarked 2048px high-res point.
+DEFAULT_BUCKETS = (
+    (512, 512),
+    (768, 768),
+    (1024, 1024),
+    (1024, 2048),
+    (2048, 1024),
+    (2048, 2048),
+)
+
+
+@dataclasses.dataclass
+class ObservabilityConfig:
+    """Observability knobs for the serve layer (utils/trace.py +
+    utils/metrics.py; docs/OBSERVABILITY.md); lives beside ServeConfig so
+    one module owns every run-shaping knob.
+
+    * ``trace`` — request-scoped tracing on/off.  Off (the default) the
+      request path executes no tracing code at all (`InferenceServer`
+      holds no Tracer); on, every request records its whole life as
+      spans exportable via ``server.tracer.export(path)`` /
+      ``server.dump_observability(dir)`` as Perfetto-loadable JSON.
+    * ``trace_capacity`` — ring bound on retained trace records (oldest
+      dropped first, drop count reported): bounded memory no matter how
+      long the service runs, same convention as `RingLog`.
+    * ``metrics_port`` — when not None, `server.start()` serves the
+      unified `MetricsRegistry` over stdlib HTTP on this port
+      (``/metrics`` Prometheus text, ``/metrics.json``, ``/healthz``);
+      0 binds an ephemeral port (read ``server.metrics_endpoint.port``).
+    * ``metrics_host`` — bind address for that endpoint.  Loopback by
+      default (a metrics plane should not be world-readable by
+      accident); set "0.0.0.0" for containerized deployments whose
+      scraper lives outside the host.
+    * ``slo_window`` — ring size of the per-SLO-class rolling p50/p99
+      windows (`RollingQuantile`) — the signal ROADMAP item 3's
+      closed-loop controller reads via ``server.slo_snapshot()``.
+    * ``slo_max_age_s`` — maximum age of a sample in those windows
+      (server clock).  Without it the windows are time-blind: completions
+      from minutes ago keep steering the SLO controller long after the
+      load that produced them is gone — an idle server would pin its old
+      p99 forever.  Samples older than this are excluded from every
+      quantile/snapshot read (the ring still holds them; they simply stop
+      counting).  None disables aging.
+    """
+
+    trace: bool = False
+    trace_capacity: int = 8192
+    metrics_port: Optional[int] = None
+    metrics_host: str = "127.0.0.1"
+    slo_window: int = 512
+    slo_max_age_s: Optional[float] = 300.0
+
+    def __post_init__(self) -> None:
+        if self.trace_capacity < 1:
+            raise ValueError(
+                f"trace_capacity must be >= 1, got {self.trace_capacity}"
+            )
+        if self.metrics_port is not None and not (
+                0 <= int(self.metrics_port) <= 65535):
+            raise ValueError(
+                f"metrics_port must be in [0, 65535], got {self.metrics_port}"
+            )
+        if not self.metrics_host:
+            raise ValueError("metrics_host must be a non-empty bind address")
+        if self.slo_window < 1:
+            raise ValueError(
+                f"slo_window must be >= 1, got {self.slo_window}"
+            )
+        if self.slo_max_age_s is not None and self.slo_max_age_s <= 0:
+            raise ValueError(
+                f"slo_max_age_s must be > 0 or None, got {self.slo_max_age_s}"
+            )
+
+
+@dataclasses.dataclass
+class StepBatchConfig:
+    """Step-level continuous batching (serve/stepbatch.py `StepBatcher`);
+    lives beside ServeConfig so one module owns every run-shaping knob.
+
+    With ``enabled``, the server's denoise loop becomes a SLOT POOL of
+    per-request (latent, PRNG, step-index, timestep-schedule) state:
+    between any two denoise steps the scheduler admits queued requests
+    into free slots, retires finished ones, reorders the step cohort by
+    deadline slack (EDF over remaining-steps x calibrated per-step
+    service), and can preempt the slackest running request mid-denoise —
+    its slot state parks and later resumes bit-identically.  Executors
+    run step-granular (``ExecKey.exec_mode="step"``, compile-distinct
+    from the fused loop).  Mutually exclusive with ``pipeline_stages``
+    (the staged pipeline owns whole batches; the slot pool owns steps)
+    and with pipefusion buckets (no host-driven per-step loop exists
+    there).
+
+    Knobs:
+      * ``slots`` — slot-pool capacity: how many requests hold denoise
+        state (latents + patch carry) resident at once.  The HBM analog
+        of ``max_inflight_batches``.
+      * ``step_width`` — max slots advanced per scheduling round (0 =
+        all occupied).  Below ``slots`` it turns EDF from an admission
+        policy into true per-round step reordering: the cohort is the
+        ``step_width`` tightest-slack slots.
+      * ``preview_interval`` — every K steps an occupied slot emits a
+        cheap downsampled-latent preview through the request's
+        ``on_progress`` callback (0 disables).  Previews are host-side
+        (no new compiled program) and traced as their own span.
+      * ``preview_size`` — max edge length of the preview image (the
+        latent decode is downsampled to at most this).
+      * ``allow_preemption`` — let an arriving request that would miss
+        its deadline park the occupied slot with the MOST deadline
+        slack (state resumes bit-identically when a slot frees).
+      * ``preempt_margin_s`` — a victim is only parked when its own
+        slack exceeds the newcomer's shortfall by this margin, so
+        preemption never trades one miss for another.
+      * ``step_service_prior_s`` — per-step service-time estimate used
+        for EDF slack until measured steps calibrate it (the controller's
+        calibrated estimate takes over when the controller is on).
+      * ``export_carries`` — on server stop/drain, serialize each
+        resident request's denoise carry (serve/migration.py) and fail
+        its future with `CarryExportedError` carrying the snapshot, so
+        the fleet router can migrate the request to a healthy replica
+        and resume at the SAME step instead of re-running from step 0.
+        Off, stop falls back to the plain `ServerClosedError` path
+        (every completed step is wasted and re-executed on retry).
+      * ``pack_align`` — when ``step_width`` truncates the cohort, fill
+        it with slots that share the EDF head's compiled step signature
+        (same phase / patch-state stage / shallow flag — the grouping
+        the executor packs into ONE dispatch) before the rest, so the
+        width the round pays for lands in the fewest compiled calls.
+        The tightest-slack request always runs first regardless; off,
+        the cohort is the plain ``step_width`` tightest slots.
+    """
+
+    enabled: bool = False
+    slots: int = 8
+    step_width: int = 0
+    preview_interval: int = 0
+    preview_size: int = 64
+    allow_preemption: bool = True
+    preempt_margin_s: float = 0.0
+    step_service_prior_s: float = 0.01
+    export_carries: bool = True
+    pack_align: bool = True
+
+    def __post_init__(self) -> None:
+        if self.slots < 1:
+            raise ValueError(f"slots must be >= 1, got {self.slots}")
+        if self.step_width < 0:
+            raise ValueError(
+                f"step_width must be >= 0 (0 = all occupied), got "
+                f"{self.step_width}"
+            )
+        if self.preview_interval < 0:
+            raise ValueError(
+                f"preview_interval must be >= 0 (0 disables), got "
+                f"{self.preview_interval}"
+            )
+        if self.preview_size < 1:
+            raise ValueError(
+                f"preview_size must be >= 1, got {self.preview_size}"
+            )
+        if self.preempt_margin_s < 0:
+            raise ValueError(
+                f"preempt_margin_s must be >= 0, got {self.preempt_margin_s}"
+            )
+        if self.step_service_prior_s <= 0:
+            raise ValueError(
+                "step_service_prior_s must be > 0, got "
+                f"{self.step_service_prior_s}"
+            )
+
+
+@dataclasses.dataclass
+class ResilienceConfig:
+    """Failure-handling policy for the serve layer (serve/resilience.py);
+    lives beside ServeConfig so one module owns every run-shaping knob.
+
+    Retry/backoff:
+      * ``max_retries`` — extra attempts per batch dispatch beyond the
+        first (0 disables in-server retries).
+      * ``retry_budget`` — GLOBAL retry token bucket across all requests;
+        when a correlated failure storm empties it, failures surface
+        immediately instead of amplifying load.
+        ``retry_budget_refill_per_s`` trickles tokens back (up to the
+        bucket size) so routine transient blips over days of uptime never
+        permanently strip a long-lived server of retries; 0 makes the
+        budget a strict lifetime cap.
+      * ``backoff_*`` — exponential schedule between attempts:
+        ``min(base * multiplier**n, max)`` with ± ``jitter`` fraction of
+        seeded randomness (``seed``).
+
+    Circuit breaking (per compiled-executor key):
+      * ``breaker_failure_threshold`` consecutive TERMINAL dispatch
+        failures (a batch whose retries were exhausted, a fatal error, a
+        contract violation — never an individual retried attempt) trip
+        the key's breaker OPEN; requests for it shed fast with
+        `CircuitOpenError` (503-style) instead of burning queue time.
+      * ``breaker_cooldown_s`` later the breaker goes HALF_OPEN and lets
+        one probe batch through; success closes it, failure re-opens.
+
+    Watchdog:
+      * ``watchdog_timeout_s`` — wall-time bound on one batch execution;
+        a hung batch fails with `WatchdogTimeoutError` (and is retried)
+        while the scheduler thread keeps serving.  0 disables.
+
+    Degradation ladder (OOM / compile failure, serve/resilience.py):
+      * ``allow_batch_split`` — halve an OOM'd coalesced batch and retry
+        the halves (bit-identical outputs: per-request seeded latents).
+      * ``allow_step_cache_off`` — recompile the bucket without the
+        temporal step-cache cadence.
+      * ``allow_stepwise_fallback`` — swap the fused scan for the
+        host-driven stepwise loop (same numerics, far smaller program).
+      * ``allow_bucket_fallback`` — serve at the next smaller bucket;
+        OFF by default because it changes the output-resolution contract.
+      * ``max_degradations`` — cap on sticky per-key rungs.
+    """
+
+    max_retries: int = 2
+    retry_budget: int = 10_000
+    retry_budget_refill_per_s: float = 1.0
+    backoff_base_s: float = 0.05
+    backoff_multiplier: float = 2.0
+    backoff_max_s: float = 2.0
+    backoff_jitter: float = 0.1
+    breaker_failure_threshold: int = 3
+    breaker_cooldown_s: float = 5.0
+    watchdog_timeout_s: float = 120.0
+    max_degradations: int = 3
+    # LRU bound on per-key resilience state (breakers, degradation rungs):
+    # ExecKey space is request-controlled, so tracked keys — and the
+    # health payload serializing them — must not grow one entry per
+    # distinct key ever seen.  Eviction prefers closed/undegraded state.
+    max_tracked_keys: int = 256
+    allow_batch_split: bool = True
+    # staged servers only (ServeConfig.pipeline_stages): let the ladder
+    # stop pipelining an OOM-ing key's batches — overlap holds up to
+    # max_inflight_batches of residency, the cheapest HBM to give back,
+    # and the rung changes neither the program nor the numerics
+    allow_staging_off: bool = True
+    allow_step_cache_off: bool = True
+    # PipeFusion keys only (ExecKey.parallelism="pipefusion"): on OOM or
+    # compile failure, rebuild the key as displaced patch parallelism
+    # (parallelism="patch", pipe_patches dropped) — the degraded key is
+    # EXACTLY the key a patch-parallel bucket would use, so the rebuild is
+    # bit-identical to a fresh patch executor for the same bucket.  This
+    # replaces stepwise_fallback for pipefusion keys (the fused tick
+    # schedule has no host-driven stepwise loop to fall back to; the
+    # stepwise rung never applies to them).  ON by default: the
+    # alternative for a failing pipefusion key is no program-level rung at
+    # all.  Outputs change only as much as the two parallelization
+    # strategies differ (both are tolerance-pinned against the same
+    # oracles).
+    allow_pipeline_off: bool = True
+    allow_stepwise_fallback: bool = True
+    # OOM/compile ladder rung below stepwise: rebuild the key with int8
+    # quantized weights (ExecKey.weight_quant="int8") — roughly halves the
+    # executor's weight HBM, the biggest single give-back on the ladder.
+    # OFF by default because, unlike the rungs above it, outputs change
+    # (within the pinned parity tolerances, docs/PERF.md "Quantized
+    # weights"); opt in like bucket_fallback when availability under OOM
+    # outranks bit-stability.
+    allow_weight_quant_on: bool = False
+    allow_bucket_fallback: bool = False
+    last_errors_capacity: int = 16
+    seed: int = 0
+
+    def __post_init__(self) -> None:
+        if self.max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {self.max_retries}")
+        if self.retry_budget < 0:
+            raise ValueError(
+                f"retry_budget must be >= 0, got {self.retry_budget}"
+            )
+        if self.retry_budget_refill_per_s < 0:
+            raise ValueError(
+                "retry_budget_refill_per_s must be >= 0, got "
+                f"{self.retry_budget_refill_per_s}"
+            )
+        if self.backoff_base_s < 0 or self.backoff_max_s < self.backoff_base_s:
+            raise ValueError(
+                "need 0 <= backoff_base_s <= backoff_max_s, got "
+                f"base={self.backoff_base_s}, max={self.backoff_max_s}"
+            )
+        if self.backoff_multiplier < 1.0:
+            raise ValueError(
+                f"backoff_multiplier must be >= 1, got {self.backoff_multiplier}"
+            )
+        if not (0.0 <= self.backoff_jitter < 1.0):
+            raise ValueError(
+                f"backoff_jitter must be in [0, 1), got {self.backoff_jitter}"
+            )
+        if self.breaker_failure_threshold < 1:
+            raise ValueError(
+                "breaker_failure_threshold must be >= 1, got "
+                f"{self.breaker_failure_threshold}"
+            )
+        if self.breaker_cooldown_s < 0:
+            raise ValueError(
+                f"breaker_cooldown_s must be >= 0, got {self.breaker_cooldown_s}"
+            )
+        if self.max_degradations < 0:
+            raise ValueError(
+                f"max_degradations must be >= 0, got {self.max_degradations}"
+            )
+        if self.max_tracked_keys < 1:
+            raise ValueError(
+                f"max_tracked_keys must be >= 1, got {self.max_tracked_keys}"
+            )
+        if self.last_errors_capacity < 1:
+            raise ValueError(
+                "last_errors_capacity must be >= 1, got "
+                f"{self.last_errors_capacity}"
+            )
+
+
+@dataclasses.dataclass
+class ControllerConfig:
+    """Closed-loop SLO controller policy (serve/controller.py); lives
+    beside ServeConfig so one module owns every run-shaping knob.
+
+    The controller walks an ordered *tier table* over the quality/cost
+    lattice per SLO class — full quality first, then progressively
+    cheaper compiled programs (step cache, wire compression, PCPP partial
+    refresh, reduced steps), with admission control past the last tier —
+    and dispatches each batch at the least-degraded tier whose PREDICTED
+    latency holds the class's p99 target under the current queue depth
+    and rolling windows (``server.slo_snapshot()``).  All decisions run
+    on the injected server clock, so replayed load produces identical
+    tier walks.
+
+    Knobs:
+      * ``enabled`` — off (default) keeps today's behavior exactly: no
+        controller object is built, no per-dispatch work added.
+      * ``slo_p99_s`` — {slo_class: p99 target seconds}.  Classes absent
+        from the map use the ``"default"`` entry (one is required).
+      * ``tiers`` — the tier table (serve/controller.py TierSpec list);
+        () uses the built-in DEFAULT_TIERS.  Validated: unique names,
+        strictly decreasing predicted-cost multipliers, first tier cost
+        1.0 (the identity/full tier).
+      * ``escalate_cooldown_s`` / ``retract_cooldown_s`` — minimum time
+        between tier moves per class, one rung per move (the hysteresis
+        that keeps a boundary load from flapping).  Retraction (back
+        toward full quality) additionally requires the richer tier's
+        predicted latency to hold with ``retract_margin`` headroom.
+      * ``min_samples`` — observed-p99 breach checks wait for this many
+        live window samples (prediction steers from the first dispatch).
+      * ``service_prior_s`` — per-batch service-time estimate used until
+        real completions calibrate it (``service_window`` ring).
+      * ``encode_share`` — fraction of a batch's service time spent in
+        text-encode: with a prompt cache attached, predicted service
+        scales by ``1 - encode_share * hit_rate`` (a cache hit is a
+        cheaper tier input).
+    """
+
+    enabled: bool = False
+    slo_p99_s: Any = dataclasses.field(
+        default_factory=lambda: {"default": 2.0}
+    )
+    tiers: Sequence[Any] = ()
+    escalate_cooldown_s: float = 0.25
+    retract_cooldown_s: float = 1.0
+    retract_margin: float = 0.6
+    min_samples: int = 4
+    service_prior_s: float = 0.05
+    service_window: int = 32
+    encode_share: float = 0.0
+
+    def __post_init__(self) -> None:
+        slo = dict(self.slo_p99_s or {})
+        if "default" not in slo:
+            raise ValueError(
+                "slo_p99_s needs a 'default' entry — classes absent from "
+                "the map fall back to it"
+            )
+        for cls, target in slo.items():
+            if float(target) <= 0:
+                raise ValueError(
+                    f"slo_p99_s[{cls!r}] must be > 0, got {target}"
+                )
+        self.slo_p99_s = {str(c): float(t) for c, t in slo.items()}
+        if self.escalate_cooldown_s < 0 or self.retract_cooldown_s < 0:
+            raise ValueError(
+                "cooldowns must be >= 0, got escalate="
+                f"{self.escalate_cooldown_s}, retract="
+                f"{self.retract_cooldown_s}"
+            )
+        if not (0.0 < self.retract_margin <= 1.0):
+            raise ValueError(
+                f"retract_margin must be in (0, 1], got {self.retract_margin}"
+            )
+        if self.min_samples < 1:
+            raise ValueError(
+                f"min_samples must be >= 1, got {self.min_samples}"
+            )
+        if self.service_prior_s <= 0:
+            raise ValueError(
+                f"service_prior_s must be > 0, got {self.service_prior_s}"
+            )
+        if self.service_window < 1:
+            raise ValueError(
+                f"service_window must be >= 1, got {self.service_window}"
+            )
+        if not (0.0 <= self.encode_share < 1.0):
+            raise ValueError(
+                f"encode_share must be in [0, 1), got {self.encode_share}"
+            )
+        # Lazy import, same convention as BucketTable below: the serve
+        # package imports this module at load time.  Normalization owns
+        # the tier-table invariants (ordering, knob validity) in ONE place.
+        from ..serve.controller import normalize_tier_table
+
+        self.tiers = normalize_tier_table(self.tiers)
+
+
+@dataclasses.dataclass
+class AotCacheConfig:
+    """Persistent AOT executable store (serve/aotcache.py): compiled
+    denoise programs serialized to a content-addressed on-disk cache so
+    a fresh replica warms from deserialized executables in seconds
+    instead of paying the full XLA compile campaign (the elastic-
+    autoscale gate, ROADMAP item 2).
+
+    * ``dir`` — store directory; None (default) disables the store
+      entirely.  Replicas sharing a config share the directory, which
+      is the point: a scale-up replica warms from an earlier replica's
+      compiles.
+    * ``max_bytes`` — on-disk byte budget; least-recently-LOADED
+      entries evict first once a save pushes the total over.
+    * ``readonly`` — CI/canary mode: loads serve, saves count a skip
+      and write nothing (a test run never grows or reorders the shared
+      store).
+    """
+
+    dir: Optional[str] = None
+    max_bytes: int = 2 * 1024**3
+    readonly: bool = False
+
+    def __post_init__(self) -> None:
+        if self.max_bytes < 1:
+            raise ValueError(
+                f"aot_cache.max_bytes must be >= 1, got {self.max_bytes}"
+            )
+
+
+@dataclasses.dataclass
+
+
+@dataclasses.dataclass
+class TenantConfig:
+    """One tenant's share of the serve plane (serve/tenancy.py).
+
+    * ``weight`` — relative long-run share of scheduler service under
+      contention: the deficit-round-robin queue credits each tenant
+      ``drr_quantum * weight`` denoise steps per round, so a weight-3
+      tenant sustains 3x a weight-1 tenant's step throughput when both
+      are backlogged.  Idle share is never reserved — a lone tenant gets
+      the whole scheduler regardless of weight.
+    * ``rate_rps`` / ``burst`` — token-bucket admission quota: sustained
+      requests/second and the bucket capacity (how large an instant
+      burst admits before the rate limit bites).  ``rate_rps=0`` means
+      unlimited (no bucket); ``burst=0`` with a positive rate defaults
+      the capacity to ``max(1, rate_rps)``.
+    """
+
+    name: str
+    weight: float = 1.0
+    rate_rps: float = 0.0
+    burst: float = 0.0
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.name, str) or not self.name:
+            raise ValueError(
+                f"tenant name must be a non-empty string, got {self.name!r}"
+            )
+        if self.weight <= 0:
+            raise ValueError(
+                f"tenant {self.name!r}: weight must be > 0, got {self.weight}"
+            )
+        if self.rate_rps < 0:
+            raise ValueError(
+                f"tenant {self.name!r}: rate_rps must be >= 0, got "
+                f"{self.rate_rps}"
+            )
+        if self.burst < 0:
+            raise ValueError(
+                f"tenant {self.name!r}: burst must be >= 0, got {self.burst}"
+            )
+        if self.rate_rps > 0 and self.burst == 0:
+            self.burst = max(1.0, float(self.rate_rps))
+
+
+@dataclasses.dataclass
+class GatewayConfig:
+    """HTTP/SSE gateway + multi-tenancy block (serve/gateway.py,
+    serve/tenancy.py; docs/SERVING.md "Gateway & multi-tenancy").
+
+    * ``port`` — gateway listen port (0 = ephemeral); None means no
+      gateway is auto-started (the tenancy knobs still apply to
+      in-process submits).
+    * ``tenants`` — the tenant table.  Empty (default) disables tenant
+      accounting entirely: the queue stays a pure EDF queue.
+      Non-empty activates per-tenant token buckets + weighted DRR; a
+      tenant named ``default_tenant`` is implicitly added (weight 1,
+      unlimited rate) if absent, so untagged requests keep working.
+    * ``drr_quantum`` — denoise-step credit added to a backlogged
+      tenant's deficit per round-robin pass (scaled by its weight).
+      Larger quanta batch a tenant's turns together (fewer executor
+      key switches); smaller quanta interleave tenants more finely.
+    * ``max_events`` — per-request SSE buffer depth; a slow consumer's
+      preview frames drop OLDEST beyond this (counted, never blocking
+      the scheduler thread).  Terminal events are never dropped.
+    * ``max_threads`` — bound on concurrent gateway handler threads
+      (excess connections wait in the listen backlog).
+    * ``max_requests`` — retention bound on the gateway's connection
+      table; oldest FINISHED entries are evicted beyond it (pending
+      entries are never evicted).
+    """
+
+    port: Optional[int] = None
+    host: str = "127.0.0.1"
+    tenants: Sequence["TenantConfig"] = ()
+    default_tenant: str = "default"
+    drr_quantum: float = 8.0
+    max_events: int = 64
+    max_threads: int = 8
+    max_requests: int = 1024
+
+    def __post_init__(self) -> None:
+        if self.port is not None and int(self.port) < 0:
+            raise ValueError(f"gateway port must be >= 0, got {self.port}")
+        seen = set()
+        for t in self.tenants:
+            if not isinstance(t, TenantConfig):
+                raise ValueError(
+                    f"tenants entries must be TenantConfig, got "
+                    f"{type(t).__name__}"
+                )
+            if t.name in seen:
+                raise ValueError(f"duplicate tenant name {t.name!r}")
+            seen.add(t.name)
+        self.tenants = tuple(self.tenants)
+        if not self.default_tenant:
+            raise ValueError("default_tenant must be non-empty")
+        if self.drr_quantum <= 0:
+            raise ValueError(
+                f"drr_quantum must be > 0, got {self.drr_quantum}"
+            )
+        if self.max_events < 2:
+            raise ValueError(
+                f"max_events must be >= 2 (room for one preview plus the "
+                f"terminal event), got {self.max_events}"
+            )
+        if self.max_threads < 1:
+            raise ValueError(
+                f"max_threads must be >= 1, got {self.max_threads}"
+            )
+        if self.max_requests < 1:
+            raise ValueError(
+                f"max_requests must be >= 1, got {self.max_requests}"
+            )
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """Configuration block for ``distrifuser_tpu.serve`` (the long-lived
+    inference service).  Kept here, beside DistriConfig, so one module owns
+    every run-shaping knob; the serve subsystem never invents defaults.
+
+    Admission control:
+      * ``max_queue_depth`` — bound on requests waiting for a batch slot;
+        submissions beyond it are rejected 429-style (QueueFullError), the
+        backpressure signal for upstream load balancers.
+      * ``default_ttl_s`` — per-request deadline when the caller gives none;
+        a request that waits past its deadline is *rejected*, never executed
+        (late work is wasted mesh time).
+
+    Micro-batching:
+      * ``max_batch_size`` — cap on requests coalesced into one invocation.
+      * ``batch_window_s`` — how long the batcher lingers for compatible
+        followers after the first request of a batch arrives.  0 disables
+        coalescing-by-wait (batches still form from a backlog).
+
+    Shape bucketing / compiled cache:
+      * ``buckets`` — (height, width) table; a request snaps to the smallest
+        bucket covering it, so the compiled program for a bucket is reused
+        across nearby resolutions.
+      * ``cache_capacity`` — LRU bound on resident compiled executables.
+      * ``warmup_buckets`` — (height, width[, steps]) tuples compiled at
+        startup so steady-state traffic never pays a request-path retrace;
+        ``warmup_cfg`` is the guidance mode they compile for (match it to
+        your traffic — a CFG-off service warming cfg=True executors buys
+        nothing and burns an LRU slot).
+    """
+
+    max_queue_depth: int = 64
+    default_ttl_s: float = 120.0
+    max_batch_size: int = 8
+    batch_window_s: float = 0.02
+    buckets: Sequence[Sequence[int]] = DEFAULT_BUCKETS
+    cache_capacity: int = 8
+    warmup_buckets: Sequence[Sequence[int]] = ()
+    warmup_cfg: bool = True
+    default_steps: int = 50
+    # Service-wide step-cache cadence (DistriConfig.step_cache_* semantics):
+    # threaded into every ExecKey so a cadence change invalidates compiled
+    # executors, and surfaced as the shallow-step share in serve metrics.
+    # The pipeline build function behind executor_factory must construct its
+    # DistriConfig with the same knobs.
+    step_cache_interval: int = 1
+    step_cache_depth: int = 0
+    # Service-wide stale-refresh compression (DistriConfig.comm_compress
+    # semantics): threaded into every ExecKey — a mode change invalidates
+    # compiled executors, the same contract as the cadence knobs.  The
+    # pipeline build function behind executor_factory must construct its
+    # DistriConfig with the same mode.
+    comm_compress: str = "none"
+    # Service-wide DENOISER weight quantization (DistriConfig.weight_quant
+    # semantics): threaded into every ExecKey — full-precision and
+    # quantized executables are different compiled programs and coexist in
+    # one fleet under distinct keys.  The pipeline build function behind
+    # executor_factory must construct its DistriConfig with the same mode
+    # (serve.executors.apply_key_policy force-quantizes build functions that
+    # ignore the field, so ladder-degraded keys work against any build function).
+    # The aux-model sub-knob (weight_quant_aux) stays a build function decision:
+    # it is fixed per build function, so it needs no per-key identity.
+    weight_quant: str = "none"
+    # Service-wide quantized-COMPUTE policy (DistriConfig.quant_compute
+    # semantics): threaded into every ExecKey — storage-only ("off") and
+    # compute-routed ("auto"/"dot"/"pallas") programs trace different
+    # matmul paths, so they are distinct executables.  "auto" (default)
+    # means the tier ladder's int8 rungs and the fleet inherit the
+    # low-precision execution path with no further serve-layer changes.
+    quant_compute: str = "auto"
+    # Service-wide PCPP partial-refresh fraction (DistriConfig.
+    # refresh_fraction semantics): threaded into every ExecKey — the
+    # strided refresh schedule is traced into the program, so a fraction
+    # change is a different executable.  1.0 (default) is the exact
+    # protocol; the SLO controller's partial_refresh tier overrides this
+    # per dispatch.  The pipeline build function behind executor_factory must
+    # construct its DistriConfig from key.refresh_fraction
+    # (serve.executors.apply_key_policy forces the field pre-prepare).
+    refresh_fraction: float = 1.0
+    # Service-wide parallelization strategy (DistriConfig.parallelism
+    # semantics, "patch" or "pipefusion"): threaded into every ExecKey —
+    # patch-parallel and pipeline-parallel executors are different XLA
+    # programs coexisting in one fleet under distinct keys.  The build function
+    # behind executor_factory must construct its DistriConfig from
+    # key.parallelism (serve.executors.apply_key_policy rejects a
+    # mismatch with a typed error so the ladder can retract).
+    parallelism: str = "patch"
+    # With parallelism="pipefusion": DistriConfig.pipe_patches for the
+    # built pipelines (None = one patch per stage), a compile-identity
+    # field on ExecKey like the cadence knobs.
+    pipe_patches: Optional[int] = None
+    # Per-resolution-bucket strategy overrides: {(height, width):
+    # "patch" | "pipefusion"} keyed by BUCKET (post-snap) resolution.
+    # PipeFusion wins at high resolution and deep meshes (docs/PERF.md
+    # "When pipeline beats displaced patches"); the map lets one fleet
+    # serve small buckets patch-parallel and big buckets
+    # pipeline-parallel simultaneously.  Buckets absent from the map use
+    # the service-wide ``parallelism``.
+    bucket_parallelism: Any = dataclasses.field(default_factory=dict)
+    # Staged pipelining (serve/staging.py, docs/SERVING.md "Staged
+    # pipelining"): overlap text-encode, denoise, and VAE-decode across
+    # micro-batches so batch k+1 encodes and batch k-1 decodes in the
+    # shadow of batch k's denoise.  Off by default: staged and monolithic
+    # execution are bit-identical per request, but staging holds up to
+    # ``max_inflight_batches`` batches of device buffers resident (the
+    # HBM cap) and trades the in-line retry loop for throughput (a stage
+    # failure is one terminal dispatch failure; sticky degradations —
+    # including the staging_off rung — handle repeat offenders).
+    pipeline_stages: bool = False
+    max_inflight_batches: int = 2
+    # Step-level continuous batching (serve/stepbatch.py, docs/SERVING.md
+    # "Step-level continuous batching"): the denoise loop becomes a slot
+    # pool of per-request state — requests join and leave the in-flight
+    # denoise BETWEEN STEPS, the cohort reorders by deadline slack (EDF),
+    # low-slack arrivals can preempt the slackest slot (park + bit-
+    # identical resume), and occupied slots stream cheap latent previews
+    # every K steps.  Executors key at ExecKey.exec_mode="step" (compile-
+    # distinct).  Off by default; see StepBatchConfig above.  Mutually
+    # exclusive with pipeline_stages and with pipefusion parallelism.
+    step_batching: "StepBatchConfig" = dataclasses.field(
+        default_factory=StepBatchConfig
+    )
+    # Prompt/embedding LRU cache in front of the text-encode stage
+    # (serve/promptcache.py): repeated prompts — the dominant production
+    # pattern — skip text-encode entirely.  Keyed by (family, tokenizer
+    # hash, prompt chunk); hit rate lands in the MetricsRegistry
+    # (serve_prompt_cache) and feeds the SLO controller's predicted
+    # service time (ControllerConfig.encode_share).  0 (default) disables.
+    prompt_cache_capacity: int = 0
+    # Closed-loop SLO controller (serve/controller.py, docs/SERVING.md
+    # "Closed-loop SLO control"): load-driven tier selection over the
+    # quality/cost lattice per slo_class, with admission control at the
+    # extreme.  Off by default — see ControllerConfig above.
+    controller: "ControllerConfig" = dataclasses.field(
+        default_factory=ControllerConfig
+    )
+    # Failure handling: retries/backoff, per-key circuit breakers, the
+    # execution watchdog, and the graceful-degradation ladder — see
+    # ResilienceConfig above and docs/SERVING.md "Failure modes & tuning".
+    resilience: ResilienceConfig = dataclasses.field(
+        default_factory=ResilienceConfig
+    )
+    # Tracing + metrics plane: request-scoped spans, the unified
+    # MetricsRegistry HTTP endpoint, and the per-SLO-class rolling
+    # latency windows — see ObservabilityConfig above and
+    # docs/OBSERVABILITY.md.
+    observability: ObservabilityConfig = dataclasses.field(
+        default_factory=ObservabilityConfig
+    )
+    # HTTP/SSE gateway + per-tenant fair queuing (serve/gateway.py,
+    # serve/tenancy.py): the wire front end over submit(), and the
+    # tenant table that turns the request queue into token-bucket +
+    # weighted-DRR fair queuing — see GatewayConfig above and
+    # docs/SERVING.md "Gateway & multi-tenancy".
+    gateway: GatewayConfig = dataclasses.field(default_factory=GatewayConfig)
+    # Persistent AOT executable store (serve/aotcache.py): warmup and
+    # ladder rebuilds consult it before compiling and populate it on
+    # miss, so a fresh replica warms from serialized executables instead
+    # of a compile campaign — see AotCacheConfig above and
+    # docs/SERVING.md "AOT cache & elastic autoscale".  Disabled unless
+    # ``aot_cache.dir`` is set.
+    aot_cache: "AotCacheConfig" = dataclasses.field(
+        default_factory=AotCacheConfig
+    )
+
+    def __post_init__(self) -> None:
+        if self.max_queue_depth < 1:
+            raise ValueError(
+                f"max_queue_depth must be >= 1, got {self.max_queue_depth}"
+            )
+        if self.max_batch_size < 1:
+            raise ValueError(
+                f"max_batch_size must be >= 1, got {self.max_batch_size}"
+            )
+        if self.default_ttl_s <= 0:
+            raise ValueError(
+                f"default_ttl_s must be > 0, got {self.default_ttl_s}"
+            )
+        if self.batch_window_s < 0:
+            raise ValueError(
+                f"batch_window_s must be >= 0, got {self.batch_window_s}"
+            )
+        if self.cache_capacity < 1:
+            raise ValueError(
+                f"cache_capacity must be >= 1, got {self.cache_capacity}"
+            )
+        if self.max_inflight_batches < 1:
+            raise ValueError(
+                "max_inflight_batches must be >= 1, got "
+                f"{self.max_inflight_batches}"
+            )
+        if self.prompt_cache_capacity < 0:
+            raise ValueError(
+                "prompt_cache_capacity must be >= 0, got "
+                f"{self.prompt_cache_capacity}"
+            )
+        validate_step_cache_knobs(self.step_cache_interval,
+                                  self.step_cache_depth)
+        from ..parallel.compress import (
+            validate_mode,
+            validate_refresh_fraction,
+            validate_serve_quant_compute,
+            validate_weight_mode,
+        )
+
+        validate_mode(self.comm_compress)
+        validate_refresh_fraction(self.refresh_fraction)
+        validate_weight_mode(self.weight_quant)
+        validate_serve_quant_compute(self.quant_compute, self.weight_quant)
+        _SERVE_PARALLELISMS = ("patch", "pipefusion")
+        if self.parallelism not in _SERVE_PARALLELISMS:
+            raise ValueError(
+                f"ServeConfig.parallelism must be one of "
+                f"{_SERVE_PARALLELISMS}, got {self.parallelism!r}"
+            )
+        if self.pipe_patches is not None and int(self.pipe_patches) < 1:
+            raise ValueError(
+                f"pipe_patches must be >= 1, got {self.pipe_patches}"
+            )
+        norm_bp = {}
+        for hw, strat in dict(self.bucket_parallelism or {}).items():
+            if strat not in _SERVE_PARALLELISMS:
+                raise ValueError(
+                    f"bucket_parallelism[{tuple(hw)}] must be one of "
+                    f"{_SERVE_PARALLELISMS}, got {strat!r}"
+                )
+            norm_bp[(int(hw[0]), int(hw[1]))] = strat
+        self.bucket_parallelism = norm_bp
+        # BucketTable owns bucket validation and the area-major ordering
+        # invariant ("smallest covering bucket" scans front-to-back) — one
+        # normalization, not a copy here that could drift.  Lazy import:
+        # the serve package imports this module at load time.
+        from ..serve.batcher import BucketTable
+
+        self.buckets = BucketTable(self.buckets).buckets
+        for hw in self.bucket_parallelism:
+            if hw not in self.buckets:
+                raise ValueError(
+                    f"bucket_parallelism key {hw} is not a configured "
+                    f"bucket (buckets: {tuple(self.buckets)}) — the map is "
+                    "keyed by post-snap bucket resolution"
+                )
+        warm = []
+        for b in self.warmup_buckets:
+            if len(b) not in (2, 3):
+                raise ValueError(
+                    f"warmup bucket {tuple(b)}: expected (h, w) or (h, w, steps)"
+                )
+            warm.append(tuple(int(x) for x in b))
+        self.warmup_buckets = tuple(warm)
+        if not isinstance(self.resilience, ResilienceConfig):
+            raise ValueError(
+                "resilience must be a ResilienceConfig, got "
+                f"{type(self.resilience).__name__}"
+            )
+        if not isinstance(self.controller, ControllerConfig):
+            raise ValueError(
+                "controller must be a ControllerConfig, got "
+                f"{type(self.controller).__name__}"
+            )
+        if not isinstance(self.step_batching, StepBatchConfig):
+            raise ValueError(
+                "step_batching must be a StepBatchConfig, got "
+                f"{type(self.step_batching).__name__}"
+            )
+        if self.step_batching.enabled:
+            if self.pipeline_stages:
+                raise ValueError(
+                    "step_batching and pipeline_stages are mutually "
+                    "exclusive: the staged pipeline owns whole batches "
+                    "while the slot pool owns individual steps — pick one "
+                    "dispatch mode per server"
+                )
+            if (self.parallelism == "pipefusion"
+                    or "pipefusion" in set(self.bucket_parallelism.values())):
+                raise ValueError(
+                    "step_batching requires patch-parallel buckets: the "
+                    "PipeFusion tick pipeline has no host-driven per-step "
+                    "loop to schedule at step granularity"
+                )
+        if not isinstance(self.observability, ObservabilityConfig):
+            raise ValueError(
+                "observability must be an ObservabilityConfig, got "
+                f"{type(self.observability).__name__}"
+            )
+        if not isinstance(self.gateway, GatewayConfig):
+            raise ValueError(
+                "gateway must be a GatewayConfig, got "
+                f"{type(self.gateway).__name__}"
+            )
+        if not isinstance(self.aot_cache, AotCacheConfig):
+            raise ValueError(
+                "aot_cache must be an AotCacheConfig, got "
+                f"{type(self.aot_cache).__name__}"
+            )

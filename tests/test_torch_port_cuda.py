@@ -890,3 +890,25 @@ def test_codec_kernel_instances_fit_the_card():
                 v = port_quantize.variant(kind, table, mode)
                 print(kind, table, mode, v)
                 assert v["spill_bytes"] == 0 and v["param_bytes"] <= 32764, (kind, table, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,cin,cout,h", [(4, 640, 640, 64), (4, 1280, 1280, 32),
+                                          (2, 1280, 1280, 32), (2, 512, 512, 128)])
+def test_conv_gives_each_image_what_it_alone_gets_on_card(b, cin, cout, h):
+    """ops/conv.py convolves a batch one image a launch on the card: cuDNN's
+    batched call gives an image bits that depend on its batch position at
+    some of SDXL's shapes, which would make a served image depend on the
+    requests it was coalesced with."""
+    _need_card()
+    from distrifuser_tpu_torch.ops.conv import conv2d
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(b, h, h, cin, device="cuda", generator=g).bfloat16()
+    w = (torch.randn(cout, cin, 3, 3, device="cuda", generator=g) / (9 * cin) ** 0.5
+         ).bfloat16().contiguous(memory_format=torch.channels_last)
+    p = {"kernel": w, "bias": torch.randn(cout, device="cuda", generator=g).bfloat16()}
+    y = conv2d(p, x)
+    assert y.is_contiguous()
+    for i in range(b):
+        assert torch.equal(y[i:i + 1], conv2d(p, x[i:i + 1])), i

@@ -47,6 +47,13 @@ def test_port_has_sources():
             "unet.py", "pipelines.py", "collectives.py", "context.py",
             "graphs.py", "unet_tp.py", "test_torch_port_ranks.py", "safetensors.py",
             "bpe.py", "common.py", "run_sdxl.py", "sd_example.py", "sdxl_example.py"} <= names
+    serve = ROOT / "distrifuser_tpu_torch" / "serve"
+    assert {p.name for p in serve.glob("*.py")} >= {
+        "__init__.py", "__main__.py", "batcher.py", "cache.py", "controller.py",
+        "errors.py", "executors.py", "faults.py", "httpbase.py", "queue.py",
+        "resilience.py", "server.py", "testing.py"}
+    assert {"sync.py", "chaos.py", "metrics.py", "trace.py"} <= {
+        p.name for p in (ROOT / "distrifuser_tpu_torch" / "utils").glob("*.py")}
     for source in ("flash_attention.cu", "quant_matmul.cu", "quantize_rows.cu", "sm90.cuh"):
         assert (ROOT / "distrifuser_tpu_torch" / "csrc" / source).exists()
 
