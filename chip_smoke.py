@@ -182,6 +182,13 @@ Phases (any failure raises, and the script exits non-zero):
    8 chunk passes, the decode; no step callback, each tick body's device
    ms by CUDA events), the same ticks replayed uncaptured, bit for bit;
    its latent against the dense call's (relative L2, information only);
+   then the step drive (``step_drive``) on a stepwise pipeline of the same
+   trees at batch_size 2: two requests' solo step runs, then the same two
+   joined mid-flight, packed (one dispatch of both rows), one parked to the
+   host while the other runs ahead, resumed and packed again at other step
+   indices, every image equal to its solo run and the first to the
+   monolithic call bit for bit, every dispatch 28 d = 72 launches at (4,
+   4096, 4096, 16, 72) (row "step_dit_self@pixart"; a "pixart_step" line);
 5d. SD3: DistriSD3Pipeline at 1024x1024 with the MMDiT of ``sd3_config()``
    (24 joint blocks of 1536, 24 heads of d = 64), CLIP-L (768
    projection), OpenCLIP-bigG and T5-v1.1-XXL whole, the SD3 VAE built by
@@ -193,7 +200,9 @@ Phases (any failure raises, and the script exits non-zero):
    the SD3.5-medium transformer geometry from its published config.json
    (24 blocks, q/k RMSNorm, dual attention in blocks 0-12, a 384-token
    position grid): a finite velocity, flash 24 + 13 launches
-   ("sd35m_geometry");
+   ("sd35m_geometry"); then the step drive of 5c on SD3-medium (24 d = 64
+   launches a dispatch at (4, 4250, 4250, 24, 64), row
+   "step_mmdit_joint@sd3"; a "sd3_step" line);
 5e. the command-line scripts, in this process: ``run_sdxl --mode
    benchmark`` at 1024x1024 with random weights (1 untimed, 3 timed 4-step
    calls to latents) prints its trimmed-mean latency, and ``sd_example``
@@ -217,6 +226,26 @@ Phases (any failure raises, and the script exits non-zero):
    seconds, batch sizes, cache hits and misses, the rungs, launches a
    dispatch, the bit-identity results, warmup seconds, peak memory) before
    the last three lines;
+5g. the staged serve path (``staged_phase``, on 5's trees): the same
+   executors behind ``pipeline_stages`` (encode, denoise, decode workers,
+   each stage on a CUDA stream of its own, at most 2 batches resident) and
+   a prompt cache; six requests as three batches of 2, the third repeating
+   the first's prompts and seeds (one prompt-cache hit), flash 561 a
+   dispatch, each image equal to its solo call; a {"staged": ...} line
+   (per-stage queue wait and service seconds, the denoise-gap fraction,
+   the prompt cache, the memory reserved at warmup);
+5h. step batching (``step_phase``, on 5's trees): the step key
+   (``exec_mode="step"``: the UNet eager) at batch_size 2, 4 slots, a
+   preview every 2 of 6 steps; two requests start together, two join
+   after the first step, a fifth arrives with a deadline only a preemption
+   meets: the metrics must show packed dispatches (rows over dispatches)
+   and one preemption, each round 140 flash launches a dispatch, every
+   image equal to its solo call; a carry exported from a packed round
+   finishes in a fresh executor bit for bit; then the int8 key packs two
+   requests (603 launches of each quant kernel a dispatch: 533 linears and
+   the 70 text-KV projections a step recomputes); a {"step": ...} line
+   (rounds by width with their ms and launches, the counters, previews and
+   time to first preview, the migration, the int8 rounds);
 6. multi-rank phase, one spawned process a rank: every rank on this one
    card in a gloo group whose CUDA payloads are staged through pinned host
    memory, or one card a rank over NCCL where the machine has four (a line
@@ -331,9 +360,9 @@ compute kernels and the exposed NCCL time (``stale_step_overlap``).  ``--runs a,
 kernel rows and the kernels line.
 ``--conv_probe`` runs only ``conv_probe``: why ops/conv.py convolves one
 image a launch on the card, and what it costs.
-``--serve_only`` runs only 5f with its "@serve" kernel rows (a kernels
-line of the flash kernel, quant_matmul and quantize_rows at the serve
-phase's launches).
+``--serve_only`` runs only 5f, 5g and 5h with the "@serve" kernel rows (a
+kernels line of the flash kernel, quant_matmul and quantize_rows at the
+serve phases' launches).
 ``--quant_device_times`` runs only the device time of the quantized-matmul
 kernel's fp32 contract form and of the per-token quantization kernel at
 every SDXL and SD 1.5 path shape, the latter also with a cold L2 (a 256 MB
@@ -404,6 +433,24 @@ SERVE_OOM_REQUESTS = 3
 SERVE_HELD_BYTES = 4 << 30
 SERVE_MEM_MARGIN = 256 << 20
 SERVE_WINDOW_S = 0.5  # the batcher holds a leader this long for its follower
+# the staged phase (``staged_phase``): the serve phase's executors behind the
+# three-stage worker pipeline (pipeline_stages, max_inflight_batches 2) with
+# the prompt cache; six requests as three batches of 2, the last batch the
+# first one again (same prompts and seeds: a prompt-cache hit)
+STAGED_REQUESTS = [(f"{PROMPT}, staged #{i}", 300 + i) for i in range(4)]
+STAGED_REQUESTS += STAGED_REQUESTS[:2]
+STAGED_INFLIGHT, STAGED_PROMPT_CACHE = 2, 8
+# the step phase (``step_phase``): step-level continuous batching over the
+# same trees, executors at batch_size SERVE_BATCH (a packed dispatch carries
+# 2 requests at B = 4 with the CFG folded: the "@serve" rows), STEP_SLOTS
+# slots, a preview every STEP_PREVIEW steps, STEP_STEPS DDIM steps a request
+# (room for a request to join mid-denoise and one to be preempted)
+STEP_SLOTS, STEP_PREVIEW, STEP_STEPS = 4, 2, 6
+STEP_REQUESTS = [(f"{PROMPT}, step #{i}", 400 + i) for i in range(5)]
+STEP_INT8_REQUESTS = [(f"{PROMPT}, step int8 #{i}", 500 + i) for i in range(2)]
+# the transformer families' step drive (``step_drive``): executors at
+# batch_size 2, so a dispatch runs the DiT / MMDiT at B = 4 with the CFG folded
+STEP = "_step"
 SD15_HEAD_DIMS = (40, 80, 160)
 CODEC_TABLE = 192  # segments a refresh-codec launch takes (ops/quantize.py CAPACITY)
 SPAWN_DEADLINE_S = 720  # one spawn of the multi-rank phase, profiles included
@@ -534,6 +581,10 @@ PIXART_RING_HOPS = (("dit_ring_hop" + PIXART, 1, 2048, 2048, 16, 72,
 # ("pipefusion_cfg", 14 blocks a rank, its mega-patch passes at B = 1 too)
 PIPEFUSION_PATCHES = 4
 PIXART_TOKENS, PIXART_HIDDEN = 4096, 1152  # PixArt-α 1024x1024: 64 x 64 tokens of 1152
+# the step drive's dispatches (``step_drive`` in pixart_phase / sd3_phase):
+# every dispatch, solo or packed, at the executor's width 2 with the CFG
+# folded; launches a row are per evaluation
+STEP_DIT_SHAPE = ("step_dit_self" + PIXART, 4, 4096, 4096, 16, 72, PIXART_DEPTH)
 PIPEFUSION_SHAPES = (
     ("pipefusion_chunk" + PIXART, 2, 1024, 4096, 16, 72, 8 * PIXART_DEPTH),
     ("pipefusion_chunk_cfg" + PIXART, 1, 1024, 4096, 16, 72, 8 * PIXART_DEPTH // 2),
@@ -581,6 +632,10 @@ TINY_PIXART_HEADS = 2  # the tiny DiT's 144 columns as 2 heads of PixArt's d = 7
 # (77 CLIP + max_t5_tokens 77) and the 4096 image tokens, 4 flow-euler steps
 SD3_STEPS, SD3_CONTEXT, SD3_T5_TOKENS = 4, 154, 77
 TINY_SD3_HEADS, TINY_SD3_T5_TOKENS = 2, 7  # the tiny MMDiT: 2 heads of SD3's d = 64
+# SD3-medium's joint attention in the step drive: 154 context + 4096 image
+# tokens, 24 heads of 64, B = 4; launches per evaluation (24 joint blocks)
+STEP_MMDIT_SHAPE = ("step_mmdit_joint" + SD3, 4, SD3_CONTEXT + 4096, SD3_CONTEXT + 4096,
+                    24, 64, 24)
 # the published stabilityai/stable-diffusion-3-medium vae/config.json (the
 # fields vae_config_from_json reads, and the two use_*_quant_conv keys: false
 # there, SD3's VAE has no 1x1 quant convs, and the port's reader takes them:
@@ -1368,7 +1423,8 @@ def kernel_phase(shapes, spills):
         g = torch.Generator(device="cuda").manual_seed(len(results))
         q = torch.randn(b, lq, c, device="cuda", generator=g).bfloat16()
         kv_view = None
-        if "vae" in name or name.startswith(("mmdit_joint", "patch_mmdit")):
+        if "vae" in name or name.startswith(("mmdit_joint", "patch_mmdit",
+                                             "step_mmdit_joint")):
             # separate to_q/to_k/to_v projections; the MMDiT's joint K and V
             # are concatenations (context rows, then image rows)
             k = torch.randn(b, lk, c, device="cuda", generator=g).bfloat16()
@@ -2412,10 +2468,15 @@ def pixart_phase():
     if not pf_compare["latent_bit_identical"]:
         raise AssertionError(f"pixart pipefusion: the graphed ticks differ from the "
                              f"uncaptured ones (latent rel L2 {pf_compare['latent_rel_l2']})")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe, _ = build_pipeline(trees, "pixart", batch_size=2, use_cuda_graph=False)
+    step = step_drive(pipe, "pixart", PIXART_STEPS, PIXART_DEPTH)
     del pipe, trees
     gc.collect()
     torch.cuda.empty_cache()
-    return eager, graphed, pf
+    return eager, graphed, pf, step
 
 
 def pipefusion_counts(fields, steps, stages, stage, depth=PIXART_DEPTH):
@@ -2678,10 +2739,15 @@ def sd3_phase():
     if not (compare["latent_bit_identical"] and compare["image_bit_identical"]):
         raise AssertionError(f"sd3: the graphed call differs from the eager one "
                              f"(latent rel L2 {compare['latent_rel_l2']})")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe, _ = build_pipeline(trees, "sd3", batch_size=2, use_cuda_graph=False)
+    step = step_drive(pipe, "sd3", SD3_STEPS, trees[0].depth)
     del pipe, trees
     gc.collect()
     torch.cuda.empty_cache()
-    return eager, graphed
+    return eager, graphed, step
 
 
 def sd35m_phase():
@@ -3129,6 +3195,471 @@ def serve_phase(trees, steps, expected_flash, expected_quant):
     gc.collect()
     torch.cuda.empty_cache()
     return line
+
+def _counted_round(fn):
+    """``fn()`` between two reads of the launch counts, the card
+    synchronised around it: (result, ms, launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = read_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = read_counts()
+    return out, ms, {k: after[k] - before[k] for k in after}
+
+
+def _histograms(snap):
+    """count / mean / p50 / p99 of a LatencyHistogram snapshot."""
+    return {k: snap.get(k) for k in ("count", "mean", "p50", "p99")}
+
+
+def staged_phase(trees, steps, expected_flash):
+    """The staged serve path on the card (serve/staging.py): an
+    InferenceServer with ``pipeline_stages=True``, ``max_inflight_batches``
+    STAGED_INFLIGHT and a prompt cache of STAGED_PROMPT_CACHE entries over
+    ``pipeline_executor_factory`` (the serve phase's DistriSDXLPipeline at
+    batch_size SERVE_BATCH from ``trees``, 1024x1024, ``steps`` DDIM steps,
+    graphs captured at warmup, before the stage workers run).  The six
+    STAGED_REQUESTS run as three batches of 2, the third the first one again
+    (a prompt-cache hit); each image equals the same pipeline's solo call
+    bit for bit; ``expected_flash`` flash launches a dispatch.  Each stage
+    runs on a CUDA stream of its own.  Returns the "staged" line: per-stage
+    queue wait and service seconds, the denoise-gap fraction, the prompt
+    cache, launches a dispatch, memory."""
+    import numpy as np
+    import torch
+
+    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+    from distrifuser_tpu_torch.serve import (InferenceServer, ResilienceConfig, ServeConfig,
+                                             pipeline_executor_factory)
+
+    ucfg, unet_p, vcfg, vae_p, tcfgs, text_p = trees
+    size = SIZES["sdxl"]
+
+    def build(key):
+        cfg = DistriConfig(height=key.height, width=key.width, batch_size=SERVE_BATCH,
+                           do_classifier_free_guidance=key.cfg)  # this card, bf16
+        return DistriSDXLPipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p, tcfgs, text_p,
+                                              scheduler=key.scheduler)
+
+    make, built = pipeline_executor_factory(build), []
+
+    def factory(key):
+        built.append(make(key))
+        return built[-1]
+
+    config = ServeConfig(
+        buckets=((size, size),), max_batch_size=SERVE_BATCH, default_steps=steps,
+        warmup_buckets=((size, size),), batch_window_s=SERVE_WINDOW_S,
+        pipeline_stages=True, max_inflight_batches=STAGED_INFLIGHT,
+        prompt_cache_capacity=STAGED_PROMPT_CACHE,
+        resilience=ResilienceConfig(watchdog_timeout_s=600.0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
+    server = InferenceServer(factory, config, model_id="sdxl", scheduler="ddim")
+    t = time.perf_counter()
+    server.start()
+    warmup_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    reserved_warm = torch.cuda.memory_reserved()
+    try:
+        (results, snap), seconds_ms, launches = _counted_round(lambda: (
+            [f.result(timeout=900) for f in
+             [server.submit(p, height=size, width=size, seed=s)
+              for p, s in STAGED_REQUESTS]],
+            server.metrics_snapshot()))
+        health = server.health()
+    finally:
+        server.stop()
+    (ex,) = built
+    staging = snap["staging"]
+    dispatches = staging["completed"]
+    if (dispatches != len(STAGED_REQUESTS) // SERVE_BATCH or staging["failed"]
+            or staging["submitted"] != dispatches):
+        raise AssertionError(f"staged: {staging['submitted']} submitted, {dispatches} "
+                             f"completed, {staging['failed']} failed")
+    if sorted(r.batch_size for r in results) != [2] * len(STAGED_REQUESTS):
+        raise AssertionError(f"staged: batch sizes {[r.batch_size for r in results]}")
+    want = {"flash_sdpa": dispatches * expected_flash, "flash_sdpa_lse": 0,
+            "quant_matmul": 0, "quantize_rows": 0, "dequantize_rows": 0, "all_to_all": 0}
+    if launches != want:
+        raise AssertionError(f"staged: launches {launches}, expected {want}")
+    cache = snap["prompt_cache"]
+    if (cache["hits"], cache["misses"]) != (1, 2):
+        raise AssertionError(f"staged: prompt cache {cache}")
+    pipe = ex.pipeline
+    same = []
+    for (prompt, seed), r in zip(STAGED_REQUESTS, results):
+        out, _, _ = counted_call(
+            lambda: pipe(prompt, seed=seed, num_inference_steps=steps, output_type="np"),
+            f"staged solo {prompt}", expected_flash)
+        same.append(bool(np.array_equal(out.images[0], r.output)))
+    if not all(same):
+        raise AssertionError(f"staged: served images differ from their solo calls {same}")
+    line = {
+        "model": MODEL_NAMES["sdxl"] + ", random bf16 weights",
+        "height": size, "width": size, "steps": steps, "executor_batch_size": SERVE_BATCH,
+        "config": {"max_batch_size": SERVE_BATCH, "max_inflight_batches": STAGED_INFLIGHT,
+                   "prompt_cache_capacity": STAGED_PROMPT_CACHE,
+                   "batch_window_s": SERVE_WINDOW_S},
+        "streams": "encode, denoise and decode each on a CUDA stream of its own",
+        "warmup_build_and_capture_s": warmup_s,
+        "reserved_growth_at_warmup_bytes": reserved_warm - reserved0,
+        "seconds": seconds_ms / 1e3, "dispatches": dispatches,
+        "flash_launches_per_dispatch": launches["flash_sdpa"] / dispatches,
+        "launches": launches,
+        "stages": {stage: {"queue_wait_s": _histograms(v["queue_wait"]),
+                           "service_s": _histograms(v["service"])}
+                   for stage, v in staging["stages"].items()},
+        "denoise_gap": staging["denoise_gap"],
+        "peak_inflight": staging["peak_inflight"],
+        "prompt_cache": cache, "bit_identical_to_solo": same,
+        "requests": [{"queue_wait_s": r.queue_wait_s, "execute_s": r.execute_s,
+                      "e2e_s": r.e2e_s, "batch_size": r.batch_size} for r in results],
+        "health_status": health["status"],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+    }
+    print(json.dumps({"staged": line}), flush=True)
+    del ex, pipe, built
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+class _RoundLog:
+    """A step executor whose every ``step_run`` is timed and its launches
+    read (``_counted_round``); everything else is the executor's."""
+
+    def __init__(self, ex):
+        self.ex, self.rounds = ex, []
+
+    def __getattr__(self, name):
+        return getattr(self.ex, name)
+
+    def step_run(self, works):
+        _, ms, launches = _counted_round(lambda: self.ex.step_run(works))
+        self.rounds.append({"members": len(works), **self.ex.step_pack_stats,
+                            "ms": ms, "launches": launches})
+
+
+def _rounds_by_width(rounds):
+    """Mean round ms and launches by (members, dispatches) of the rounds."""
+    out = {}
+    for r in rounds:
+        key = f"{r['members']} members in {r['dispatches']} dispatches"
+        e = out.setdefault(key, {"rounds": 0, "ms": [], "launches": r["launches"]})
+        e["rounds"] += 1
+        e["ms"].append(r["ms"])
+    for e in out.values():
+        e["mean_ms"] = sum(e["ms"]) / len(e["ms"])
+    return out
+
+
+def step_phase(trees, steps=STEP_STEPS):
+    """Step-level continuous batching on the card (serve/stepbatch.py): an
+    InferenceServer with ``step_batching`` (STEP_SLOTS slots, a preview
+    every STEP_PREVIEW steps) over ``pipeline_executor_factory`` building
+    the serve phase's SDXL pipeline at batch_size SERVE_BATCH from
+    ``trees``; the key's ``exec_mode="step"`` runs the UNet eagerly, each
+    request's carry held by the executor.  Two requests start together (one
+    packed dispatch a round), two join while they denoise (packed at other
+    step indices), and a fifth arrives with a deadline that only a
+    preemption can meet: the slackest slot parks (its carry to the host)
+    and resumes later.  Every image equals the same pipeline's solo call
+    bit for bit; the metrics must show packing (fewer dispatches than
+    request steps, never a sequential fallback).  Then one carry exported
+    from a packed round is imported into a fresh executor and finished
+    there, bit-equal; and a second server at the int8 key (quantized
+    tree, "pallas") packs two requests: quant_matmul and quantize_rows
+    launches a packed round.  Returns the "step" line."""
+    import numpy as np
+    import torch
+
+    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+    from distrifuser_tpu_torch.models.unet import linear_calls
+    from distrifuser_tpu_torch.serve import (InferenceServer, PipelineExecutor,
+                                             ResilienceConfig, ServeConfig, StepBatchConfig,
+                                             decode_snapshot, encode_snapshot,
+                                             pipeline_executor_factory)
+
+    ucfg, unet_p, vcfg, vae_p, tcfgs, text_p = trees
+    size = SIZES["sdxl"]
+    per_eval = 140  # SDXL: flash launches a UNet evaluation
+
+    def build(key):
+        cfg = DistriConfig(height=key.height, width=key.width, batch_size=SERVE_BATCH,
+                           do_classifier_free_guidance=key.cfg)  # this card, bf16
+        return DistriSDXLPipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p, tcfgs, text_p,
+                                              scheduler=key.scheduler)
+
+    make, built = pipeline_executor_factory(build), []
+
+    def factory(key):
+        built.append(_RoundLog(make(key)))
+        return built[-1]
+
+    def config(**fields):
+        return ServeConfig(
+            buckets=((size, size),), max_batch_size=SERVE_BATCH, default_steps=steps,
+            warmup_buckets=((size, size),), default_ttl_s=600.0,
+            step_batching=StepBatchConfig(enabled=True, slots=STEP_SLOTS,
+                                          preview_interval=STEP_PREVIEW,
+                                          step_service_prior_s=0.5),
+            resilience=ResilienceConfig(watchdog_timeout_s=600.0), **fields)
+
+    def wait(cond, what, timeout=600.0):
+        deadline = time.perf_counter() + timeout
+        while not cond():
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"step: timed out waiting for {what}")
+            time.sleep(0.005)
+
+    previews = {}
+
+    def on_progress(prompt):
+        return lambda step, total, img: previews.setdefault(prompt, []).append(
+            (step, total, tuple(img.shape)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    server = InferenceServer(factory, config(), model_id="sdxl", scheduler="ddim")
+    t = time.perf_counter()
+    server.start()
+    warmup_s = time.perf_counter() - t
+    (log,) = built
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        submit = lambda req, **kw: server.submit(  # noqa: E731
+            req[0], height=size, width=size, seed=req[1], on_progress=on_progress(req[0]),
+            **kw)
+        futs = [submit(r) for r in STEP_REQUESTS[:2]]
+        sb = server.stepbatch
+        wait(lambda: any(s.steps_done >= 1 for s in sb.occupied()), "the first step")
+        futs += [submit(r) for r in STEP_REQUESTS[2:4]]  # join mid-denoise
+        wait(lambda: log.rounds and log.rounds[-1]["members"] == STEP_SLOTS,
+             "a round of the full pool")
+        # a deadline that waiting out the earliest free slot would miss but
+        # admission now meets (serve/server.py _step_preempt), checked after
+        # the round now running: the server's per-step estimate (an EWMA of
+        # the round times, StepBatcher.note_round) will include this round,
+        # about as long as the last one, and the slots' fewest remaining
+        # steps will be one less than now
+        r = log.rounds[-1]["ms"] / 1e3
+        ewma = None
+        for rnd in log.rounds:
+            ewma = rnd["ms"] / 1e3 if ewma is None else 0.8 * ewma + 0.2 * rnd["ms"] / 1e3
+        per_step = 0.8 * ewma + 0.2 * r
+        min_rem = min(s.remaining for s in sb.occupied())
+        ttl = r + (steps + (min_rem - 1) / 2) * per_step
+        futs.append(submit(STEP_REQUESTS[4], ttl_s=ttl))
+        results = [f.result(timeout=900) for f in futs]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+        serve_launches = read_counts()
+        snap, slo = server.metrics_snapshot(), server.slo_snapshot()
+    finally:
+        server.stop()
+    ex = log.ex
+    reqs = snap["requests"]
+    packed = [r for r in log.rounds if r["packed_rows"] > r["dispatches"]]
+    if not packed or reqs["stepbatch_packed_rows"] <= reqs["stepbatch_dispatches"]:
+        raise AssertionError(f"step: no packed dispatch ({reqs})")
+    if reqs["steps_executed"] != steps * len(STEP_REQUESTS):
+        raise AssertionError(f"step: {reqs['steps_executed']} request steps")
+    for r in log.rounds:
+        if r["launches"]["flash_sdpa"] != per_eval * r["dispatches"]:
+            raise AssertionError(f"step: a round launched {r['launches']}")
+    preempts = [r.preempts for r in results]
+    if sum(preempts) != 1 or snap["step_batching"]["preempts"] != 1:
+        raise AssertionError(f"step: preempts {preempts}, "
+                             f"{snap['step_batching']['preempts']} in the pool")
+    pipe = ex.pipeline
+    same = []
+    for (prompt, seed), r in zip(STEP_REQUESTS, results):
+        out, _, _ = counted_call(
+            lambda: pipe(prompt, seed=seed, num_inference_steps=steps, output_type="np"),
+            f"step solo {prompt}", steps * per_eval + 1)
+        same.append(bool(np.array_equal(out.images[0], r.output)))
+    if not all(same):
+        raise AssertionError(f"step: served images differ from their solo calls {same}")
+    want_previews = [(k, steps, None) for k in range(STEP_PREVIEW, steps + 1, STEP_PREVIEW)]
+    for prompt, _ in STEP_REQUESTS:
+        got = [(a, b, None) for a, b, _ in previews.get(prompt, [])]
+        if got != want_previews:
+            raise AssertionError(f"step: previews of {prompt!r}: {previews.get(prompt)}")
+
+    # one carry exported from a packed round, finished in a fresh executor
+    key = ex.key
+    (pa, sa), (pb, sb_) = STEP_REQUESTS[:2]
+    wa, wb = ex.step_begin(pa, "", sa, 5.0), ex.step_begin(pb, "", sb_, 5.0)
+    ex.step_run([wa, wb])
+    ex.step_run([wa, wb])
+    if ex.step_pack_stats != {"dispatches": 1, "packed_rows": 2, "rows_capacity": 2}:
+        raise AssertionError(f"step export: the round was not packed {ex.step_pack_stats}")
+    extra, leaves = ex.step_export(wb)
+    ex.step_abort(wb)
+    data = encode_snapshot(ekey=key, family=extra.pop("family"), step=extra.pop("step"),
+                           steps_total=steps, request_id="export", prompt=pb, seed=sb_,
+                           leaves=leaves, extra=extra)
+    snap_in = decode_snapshot(data)
+    fresh = PipelineExecutor(pipe, steps, key=key)
+    wb2 = fresh.step_import(snap_in.meta, list(snap_in.leaves), pb, "", sb_, 5.0)
+    while not fresh.step_done(wb2):
+        fresh.step_run([wb2])
+    while not ex.step_done(wa):
+        ex.step_run([wa])
+    migrated = {"snapshot_bytes": len(data), "leaves": len(leaves),
+                "imported_equals_served": bool(np.array_equal(fresh.step_finish(wb2),
+                                                              results[1].output)),
+                "exporter_equals_served": bool(np.array_equal(ex.step_finish(wa),
+                                                              results[0].output))}
+    if not (migrated["imported_equals_served"] and migrated["exporter_equals_served"]):
+        raise AssertionError(f"step export: {migrated}")
+    del fresh, wa, wb, wb2
+
+    # the int8 key: quant_matmul and quantize_rows launches a packed round
+    per_forward, per_call = linear_calls(ucfg)
+    server = InferenceServer(factory, config(weight_quant="int8", quant_compute="pallas"),
+                             model_id="sdxl", scheduler="ddim")
+    server.start()
+    try:
+        futs = [server.submit(p, height=size, width=size, seed=s) for p, s in
+                STEP_INT8_REQUESTS]
+        int8_results = [f.result(timeout=900) for f in futs]
+        int8_snap = server.metrics_snapshot()
+    finally:
+        server.stop()
+    int8_log = built[-1]
+    int8_packed = [r for r in int8_log.rounds if r["packed_rows"] == 2 and r["dispatches"] == 1]
+    for r in int8_log.rounds:
+        # an evaluation's linears, and the text KV the step recomputes
+        want = r["dispatches"] * (per_forward + per_call)
+        if (r["launches"]["quant_matmul"], r["launches"]["quantize_rows"]) != (want, want):
+            raise AssertionError(f"step int8: a round launched {r['launches']}")
+    if not int8_packed:
+        raise AssertionError(f"step int8: no packed round {int8_log.rounds}")
+    int8_pipe = int8_log.ex.pipeline
+    int8_same = []
+    for (prompt, seed), r in zip(STEP_INT8_REQUESTS, int8_results):
+        out = int8_pipe(prompt, seed=seed, num_inference_steps=steps, output_type="np")
+        int8_same.append(bool(np.array_equal(out.images[0], r.output)))
+    if not all(int8_same):
+        raise AssertionError(f"step int8: served images differ from solo calls {int8_same}")
+    line = {
+        "model": MODEL_NAMES["sdxl"] + ", random bf16 weights",
+        "height": size, "width": size, "steps": steps, "executor_batch_size": SERVE_BATCH,
+        "config": {"slots": STEP_SLOTS, "preview_interval": STEP_PREVIEW},
+        "eager": "exec_mode='step' runs the UNet eagerly (set_stepwise): no graphs held",
+        "warmup_build_s": warmup_s, "seconds": serve_s,
+        "requests": [{"queue_wait_s": r.queue_wait_s, "execute_s": r.execute_s,
+                      "e2e_s": r.e2e_s, "first_preview_s": r.first_preview_s,
+                      "previews": r.previews, "preempts": r.preempts} for r in results],
+        "counters": {k: reqs.get(k) for k in (
+            "steps_executed", "stepbatch_dispatches", "stepbatch_packed_rows",
+            "step_joins", "step_preempts", "step_resumes", "step_previews")},
+        "pool": snap["step_batching"], "slo_step": slo.get("step"),
+        "first_preview_s": [r.first_preview_s for r in results],
+        "rounds_by_width": _rounds_by_width(log.rounds),
+        "rounds": len(log.rounds), "launches_while_serving": serve_launches,
+        "bit_identical_to_solo": same, "migration": migrated,
+        "dispatches": sum(r["dispatches"] for r in log.rounds),
+        "finishes": len(results),
+        "int8": {"rounds_by_width": _rounds_by_width(int8_log.rounds),
+                 "dispatches": sum(r["dispatches"] for r in int8_log.rounds),
+                 "quant_matmul_launches": sum(r["launches"]["quant_matmul"]
+                                              for r in int8_log.rounds),
+                 "quantize_rows_launches": sum(r["launches"]["quantize_rows"]
+                                               for r in int8_log.rounds),
+                 "counters": {k: int8_snap["requests"].get(k) for k in (
+                     "stepbatch_dispatches", "stepbatch_packed_rows")},
+                 "quant_launches_per_dispatch": per_forward + per_call,
+                 "bit_identical_to_solo": int8_same},
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+    }
+    print(json.dumps({"step": line}), flush=True)
+    del ex, pipe, int8_pipe, built, log, int8_log
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def step_drive(pipe, model, steps, per_eval):
+    """The step contract of the serve plane on one family's full-width
+    pipeline (``pipe`` at batch_size 2, eager): two requests' solo step
+    runs, then the same two joined mid-flight, packed when their next steps
+    share a signature, one parked (carry to the host) while the other runs
+    ahead, resumed and packed again at different step indices; each image
+    equal to its solo run and the first to the monolithic call, bit for
+    bit.  ``per_eval`` flash launches at the model's head dim a dispatch.
+    Returns the "<model>_step" line."""
+    import numpy as np
+
+    from distrifuser_tpu_torch.parallel.rowpack import tree_leaves
+    from distrifuser_tpu_torch.serve import ExecKey, PipelineExecutor
+
+    size = SIZES[model]
+    scheduler = {"pixart": "dpm-solver", "sd3": "flow-euler"}[model]
+    key = ExecKey(model_id=model, scheduler=scheduler, height=size,
+                  width=size, steps=steps, cfg=True, mesh_plan="dp1.cfg1.sp1",
+                  exec_mode="step")
+    log = _RoundLog(PipelineExecutor(pipe, steps, key=key))
+    head_dim = {"pixart": 72, "sd3": 64}[model]
+    a, b = (f"{PROMPT}, {model} step #0", 600), (f"{PROMPT}, {model} step #1", 601)
+
+    def solo(prompt, seed):
+        w = log.step_begin(prompt, "", seed, 5.0)
+        for _ in range(steps):
+            log.step_run([w])
+        return np.asarray(log.step_finish(w))
+
+    t0 = time.perf_counter()
+    ref_a, ref_b = solo(*a), solo(*b)
+    solo_rounds = len(log.rounds)
+    mono = np.asarray(pipe(a[0], seed=a[1], num_inference_steps=steps, guidance_scale=5.0,
+                           output_type="np").images[0])
+    wa = log.step_begin(a[0], "", a[1], 5.0)
+    log.step_run([wa])
+    wb = log.step_begin(b[0], "", b[1], 5.0)  # joins mid-flight
+    log.step_run([wa, wb])
+    log.step_run([wa, wb])
+    log.step_park(wa)
+    parked_on_host = all(leaf.device.type == "cpu" for leaf in tree_leaves(wa["carry"]))
+    log.step_run([wb])
+    log.step_resume(wa)
+    while not (log.step_done(wa) and log.step_done(wb)):
+        log.step_run([w for w in (wa, wb) if not log.step_done(w)])
+    got_a, got_b = np.asarray(log.step_finish(wa)), np.asarray(log.step_finish(wb))
+    seconds = time.perf_counter() - t0
+    checks = {"joined_parked_a_equals_solo": bool(np.array_equal(got_a, ref_a)),
+              "joined_b_equals_solo": bool(np.array_equal(got_b, ref_b)),
+              "solo_equals_monolithic": bool(np.array_equal(ref_a, mono)),
+              "parked_carry_on_host": parked_on_host}
+    if not all(checks.values()):
+        raise AssertionError(f"{model} step drive: {checks}")
+    rounds = log.rounds
+    packed = [r for r in rounds if r["packed_rows"] == 2 and r["dispatches"] == 1]
+    if not packed:
+        raise AssertionError(f"{model} step drive: no packed dispatch {rounds}")
+    for r in rounds:
+        if r["launches"]["flash_sdpa"] != per_eval * r["dispatches"]:
+            raise AssertionError(f"{model} step drive: a round launched {r['launches']}")
+    dispatches = sum(r["dispatches"] for r in rounds)
+    line = {"phase": f"{model}_step", "model": MODEL_NAMES[model] + ", random bf16 weights",
+            "height": size, "width": size, "steps": steps, "executor_batch_size": 2,
+            "head_dim": head_dim, "seconds": seconds, **checks,
+            "solo_rounds": solo_rounds, "rounds_by_width": _rounds_by_width(rounds),
+            "dispatches": dispatches, "packed_dispatches": len(packed),
+            "flash_launches": sum(r["launches"]["flash_sdpa"] for r in rounds)}
+    print(json.dumps(line), flush=True)
+    return line
+
 
 
 def cli_phase():
@@ -4253,6 +4784,44 @@ def main(argv) -> int:
                                                    what="int8 key after the OOM"))
                  for name, prefix in (("quant_matmul", "fused_"),
                                       ("quantize_rows", "quantize_"))}
+        # the fused int8 form has no library call; the torch._int_mm product
+        # alone (the contract rows' library) at the same shapes, a dispatch
+        product = kernel_entry(int8_rows, None)
+        quant["quant_matmul"]["int_mm_product_ms_per_dispatch"] = product["library_ms"]
+        quant["quant_matmul"]["int_mm_product_device_ms_per_dispatch"] = (
+            product["library_device_ms"])
+        return flash, quant
+    def step_serve_kernels(rows, qrows, staged, step):
+        """The staged and step phases' launches as paths of the flash
+        entry (both at the "@serve" rows: executors at batch_size
+        SERVE_BATCH) and the step phase's int8 key as paths of the quant
+        entries: a step dispatch is one UNet evaluation (a fourth of a
+        4-step call's rows) plus, for the int8 key, the text KV the step
+        recomputes."""
+        frows = rows_of(rows, ("unet", "vae_mid"), "serve")
+        n = step["dispatches"]
+        flash = {
+            "serve_staged": path_entry(
+                frows, [("unet", staged["dispatches"]), ("vae_mid", staged["dispatches"])],
+                staged["launches"]["flash_sdpa"],
+                work=f"{staged['dispatches']} dispatches of the staged phase "
+                     "(pipeline_stages, executors at batch_size "
+                     f"{SERVE_BATCH}, 4-step 1024x1024 SDXL calls, graphed)"),
+            "serve_step": path_entry(
+                frows, [("unet", n / 4), ("vae_mid", step["finishes"])],
+                step["launches_while_serving"]["flash_sdpa"],
+                work=f"the step phase's {n} dispatches (eager SDXL evaluations at "
+                     f"B = {2 * SERVE_BATCH}, solo or packed) and {step['finishes']} "
+                     "finishing decodes")}
+        int8_rows = [r for r in qrows if r["mode"] == "int8" and family(r["shape"]) == "serve"]
+        m = step["int8"]["dispatches"]
+        weights = [(f"l{lvl}_text_kv", m) for lvl in range(4)] + [("", m / 4)]
+        work = (f"the step phase's int8 key: {m} dispatches (each an evaluation's "
+                "linears and the text KV it recomputes)")
+        quant = {name: path_entry(int8_rows, weights, step["int8"][name + "_launches"],
+                                  prefix=prefix, work=work)
+                 for name, prefix in (("quant_matmul", "fused_"),
+                                      ("quantize_rows", "quantize_"))}
         return flash, quant
     # one prompt under the CFG split: one row a rank, n = world / 2 patches
     pshapes = patch_attention_shapes(shapes, n=PATCH_WORLD // 2, batch=1)
@@ -4362,7 +4931,7 @@ def main(argv) -> int:
                 launches(multi_runs["sd15_patch"][-1]),
                 work="one rank's decode in SD 1.5's 512x512 patch call"))
 
-    def d72_entries(rows, multi_runs, pixart=None, pipefusion=None):
+    def d72_entries(rows, multi_runs, pixart=None, pipefusion=None, step=None):
         """The d = 72 instances (PixArt-α's DiT): the plain one in the dense
         1024x1024 call of the main path (``pixart``: its eager line, launches
         by head dim; without it, one rank of the "dit" run) with one rank of
@@ -4442,6 +5011,14 @@ def main(argv) -> int:
             work="one rank of the dit_ulysses run at CFG 2 x sp 2, 4-step 1024x1024 "
                  "PixArt call: 8 heads of every token a block, q, k and v views of the "
                  "all-to-all's receive buffer")
+        if step is not None:
+            plain["pixart_step"] = path_entry(
+                rows_of(rows, "step_dit_self", "pixart"), [("step_dit_self", step["dispatches"])],
+                step["flash_launches"],
+                work="the step drive's dispatches on the 1024x1024 PixArt pipeline at "
+                     "batch_size 2 (eager, exec_mode 'step'): solo, joined, packed, parked "
+                     "and resumed requests, every dispatch (4, 4096, 4096, 16, 72) in 28 "
+                     "blocks")
         lse["dit_usp"] = path_entry(
             rows_of(rows, "dit_usp_chunk", "pixart"), [("dit_usp_chunk", 1)],
             usp["flash_sdpa_lse_launches"] - d512(usp),
@@ -4450,7 +5027,7 @@ def main(argv) -> int:
                  "on 8 heads against the own assembly and one hop")
         return [plain, lse]
 
-    def sd3_entries(rows, multi_runs, sd3=None, sd35m=None):
+    def sd3_entries(rows, multi_runs, sd3=None, sd35m=None, step=None):
         """SD3's d = 64 launches as paths of the flash entry: the dense
         1024x1024 call of the main path (``sd3``: its graphed line; the
         decode's d = 512 launch at the SD3 VAE's mid attention), one
@@ -4492,6 +5069,13 @@ def main(argv) -> int:
                 sd35m["flash_sdpa_launches"],
                 work="one evaluation of the SD3.5-medium geometry at 1024x1024: 24 joint "
                      "attentions and 13 image-only dual attentions (2, 4096, 4096, 24, 64)")
+        if step is not None:
+            plain["sd3_step"] = path_entry(
+                rows_of(rows, "step_mmdit_joint", "sd3"),
+                [("step_mmdit_joint", step["dispatches"])], step["flash_launches"],
+                work="the step drive's dispatches on the 1024x1024 SD3-medium pipeline at "
+                     "batch_size 2 (eager, exec_mode 'step'): every dispatch the joint "
+                     "attention (4, 4250, 4250, 24, 64) in 24 blocks")
         lse = path_entry(
             rows_of(rows, "sd3_ring", "sd3") + decode,
             [("sd3_ring", 1), ("vae_ring_1024_sp2", 1)], ring["flash_sdpa_lse_launches"],
@@ -4581,16 +5165,25 @@ def main(argv) -> int:
         rows = kernel_phase(serve_shapes, spills)
         qrows = quant_kernel_phase(serve_qshapes)
         seconds["serve_kernel_rows"], t0 = time.perf_counter() - t0, time.perf_counter()
-        serve = serve_phase(build_trees(), steps, expected_flash, expected_quant)
-        seconds["serve"] = time.perf_counter() - t0
+        trees = build_trees()
+        serve = serve_phase(trees, steps, expected_flash, expected_quant)
+        seconds["serve"], t0 = time.perf_counter() - t0, time.perf_counter()
+        staged = staged_phase(trees, steps, expected_flash)
+        seconds["serve_staged"], t0 = time.perf_counter() - t0, time.perf_counter()
+        step = step_phase(trees)
+        seconds["serve_step"] = time.perf_counter() - t0
+        del trees
         print(json.dumps({"phase": "seconds", **seconds}), flush=True)
         flash, quant = serve_kernels(rows, qrows, serve)
+        sflash, squant = step_serve_kernels(rows, qrows, staged, step)
         print(json.dumps({"serve": serve}), flush=True)
-        return finish([{**flash.pop("serve"), **FLASH_ENTRY, **flash},
+        return finish([{**flash.pop("serve"), **FLASH_ENTRY, **flash, **sflash},
                        {**quant["quant_matmul"], "name": "quant_matmul", "route": "cuda",
                         "source": "distrifuser_tpu_torch/csrc/quant_matmul.cu",
-                        "replaces": "distrifuser_tpu/ops/quant_matmul.py:54"},
-                       {**quant["quantize_rows"], **QUANT_ENTRY}])
+                        "replaces": "distrifuser_tpu/ops/quant_matmul.py:54",
+                        "serve_step_int8": squant["quant_matmul"]},
+                       {**quant["quantize_rows"], **QUANT_ENTRY,
+                        "serve_step_int8": squant["quantize_rows"]}])
     if args.patch_only and args.runs:
         patch_phase(None, os.path.join(args.out_dir, "multi"), profile=args.profile,
                     runs=args.runs.split(","))
@@ -4626,8 +5219,8 @@ def main(argv) -> int:
         return finish(kernels)
     rows = kernel_phase(shapes + shapes15 + shapes21 + multi + enc_rows + decode_rows
                         + list(PIXART_SHAPES) + shapes3 + list(PIPEFUSION_SHAPES)
-                        + serve_shapes, spills) + lse_kernel_phase(
-                            spills, PIXART_RING_HOPS + tuple(hops3))
+                        + serve_shapes + [STEP_DIT_SHAPE, STEP_MMDIT_SHAPE], spills)
+    rows += lse_kernel_phase(spills, PIXART_RING_HOPS + tuple(hops3))
     mrows = rows
     rows = rows_of(mrows, ("unet", "vae_mid"), "sdxl")
     rows15 = rows_of(mrows, ("unet", "vae_mid"), "sd15")
@@ -4660,8 +5253,12 @@ def main(argv) -> int:
     decodes = tiled_decode_phase(trees)
     seconds["tiled_decode"], t0 = time.perf_counter() - t0, time.perf_counter()
     serve = serve_phase(trees, steps, expected_flash, expected_quant)
-    del trees
     seconds["serve"], t0 = time.perf_counter() - t0, time.perf_counter()
+    staged = staged_phase(trees, steps, expected_flash)
+    seconds["serve_staged"], t0 = time.perf_counter() - t0, time.perf_counter()
+    step = step_phase(trees)
+    del trees
+    seconds["serve_step"], t0 = time.perf_counter() - t0, time.perf_counter()
     sd_runs = sd_pipeline_phase(by_head_dim15, expected_quant15)
     seconds["sd_pipelines"], t0 = time.perf_counter() - t0, time.perf_counter()
     pixart = pixart_phase()
@@ -4714,8 +5311,9 @@ def main(argv) -> int:
                 "holds the same for fp8")
     lse, refresh, dequant = knob_kernels(rows_of(mrows, "ring_hop", "sdxl"), refresh_rows,
                                          multi_runs, hop_rows)
-    sd3_plain, sd3_lse = sd3_entries(mrows, multi_runs, sd3[1], sd35m)
+    sd3_plain, sd3_lse = sd3_entries(mrows, multi_runs, sd3[1], sd35m, sd3[2])
     serve_flash, serve_quant = serve_kernels(mrows, qrows, serve)
+    step_flash, step_quant = step_serve_kernels(mrows, qrows, staged, step)
     kernels = [
         kernel_entry(rows, runs["dense"]["flash_sdpa_launches"], **FLASH_ENTRY,
                      work="all attention of one 4-step 1024x1024 SDXL pipeline call "
@@ -4728,7 +5326,7 @@ def main(argv) -> int:
                      **multi_entries(mrows, multi_runs),
                      sd15=kernel_entry(rows15, sd_runs["sd15"]["flash_sdpa_launches"]),
                      sd21=kernel_entry(rows21, sd_runs["sd21"]["flash_sdpa_launches"]),
-                     **paths, **sd3_plain, **serve_flash),
+                     **paths, **sd3_plain, **serve_flash, **step_flash),
         *instance_entries(rows15, sd_runs["sd15_eager"]["flash_sdpa_launches_by_head_dim"],
                           "all its attention in one 4-step 512x512 SD 1.5 call (launches "
                           "counted in the eager call; the graphed one launches as many)"),
@@ -4748,6 +5346,7 @@ def main(argv) -> int:
                                       "fused_"),
                      contract={mode: kernel_entry(by_mode[mode], None) for mode in by_mode},
                      serve_int8=serve_quant["quant_matmul"],
+                     serve_step_int8=step_quant["quant_matmul"],
                      **{f"sd15_{mode}": kernel_entry(
                          by_mode15[mode], sd_runs[f"sd15_{mode}"]["quant_matmul_launches"],
                          "fused_", work=f"one graphed 4-step 512x512 SD 1.5 call at {mode}",
@@ -4762,6 +5361,7 @@ def main(argv) -> int:
                      fp8=kernel_entry(by_mode["fp8"], runs["fp8"]["quantize_rows_launches"],
                                       "quantize_"),
                      serve_int8=serve_quant["quantize_rows"],
+                     serve_step_int8=step_quant["quantize_rows"],
                      **{f"sd15_{mode}": kernel_entry(
                          by_mode15[mode], sd_runs[f"sd15_{mode}"]["quantize_rows_launches"],
                          "quantize_", work=f"one graphed 4-step 512x512 SD 1.5 call at {mode}")
@@ -4770,7 +5370,7 @@ def main(argv) -> int:
         dequant,
         {**lse, **sd3_lse},
         d512_entry(mrows, multi_runs),
-        *d72_entries(mrows, multi_runs, pixart[0], pixart[2]),
+        *d72_entries(mrows, multi_runs, pixart[0], pixart[2], pixart[3]),
     ]
     print(json.dumps({"serve": serve}), flush=True)
     return finish(kernels)

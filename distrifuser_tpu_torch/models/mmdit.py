@@ -235,10 +235,16 @@ def pos_embed_cropped(cfg: MMDiTConfig, dtype=torch.float32, device=None) -> tor
 
 def cond_vec(params, cfg: MMDiTConfig, t, pooled: torch.Tensor) -> torch.Tensor:
     """The conditioning vector [B, hidden] = MLP(timestep features) +
-    MLP(pooled text); ``t`` a scalar or [B] (the flow sigma times 1000)."""
+    MLP(pooled text); ``t`` a scalar or [B] (the flow sigma times 1000).
+    A [B] ``t`` embeds row by row at a scalar's shapes (one-row GEMMs), so
+    each row's vector has the bits a scalar ``t`` of its value gives."""
     t = torch.as_tensor(t, device=pooled.device).float().reshape(-1)
-    f = timestep_embedding(cfg, t).to(params["t_fc1"]["kernel"].dtype)
-    temb = linear(params["t_fc2"], silu(linear(params["t_fc1"], f)))
+
+    def embed(tt):
+        f = timestep_embedding(cfg, tt).to(params["t_fc1"]["kernel"].dtype)
+        return linear(params["t_fc2"], silu(linear(params["t_fc1"], f)))
+
+    temb = embed(t) if t.numel() == 1 else torch.cat([embed(tr[None]) for tr in t])
     p = pooled.to(params["pool_fc1"]["kernel"].dtype)
     pemb = linear(params["pool_fc2"], silu(linear(params["pool_fc1"], p)))
     if temb.shape[0] == 1 and pemb.shape[0] != 1:

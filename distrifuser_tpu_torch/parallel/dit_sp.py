@@ -47,6 +47,15 @@ input, timestep and step are copied into the graph's static inputs before
 each replay, the caption KV and mask once per generation, and the buffers
 of a phase that reads them are copied back after each replay.
 
+The explicit-carry stepwise API (``stepwise_carry_init`` /
+``stepwise_carry_step`` / ``stepwise_carry_latent``; JAX
+``parallel/dit_sp.py:680-808``) runs the same per-step evaluations one
+step at a time on a carry ``(tokens, buffers, scheduler state)`` the
+caller holds, and its rows variants (parallel/runner.py ``StepLoop``)
+advance a carry whose rows belong to different requests: the serve
+plane's step mode.  A packed step's per-row timesteps embed row by row at
+the solo step's shapes (``_t_conditioning``), so each row keeps its bits.
+
 PipeFusion (``parallelism="pipefusion"``) is parallel/pipefusion.py's
 runner, which ``DistriPixArtPipeline`` picks; this one refuses it.  What
 the JAX runner refuses
@@ -62,7 +71,7 @@ from typing import Any, Dict, List
 import torch
 
 from ..models import dit as dit_mod
-from ..models.dit import DiTConfig, unpatchify
+from ..models.dit import DiTConfig, patchify, unpatchify
 from ..ops.attention import displaced_kv
 from ..ops.ring_attention import ring_attend
 from ..ops.ulysses import ulysses_attend, usp_attend
@@ -223,6 +232,9 @@ class TransformerRunner(StepLoop):
             return out_rows, state
         return gather_rows(out_rows, self.cfg.batch_group), state
 
+    def _evaluate_at(self, x_in, t, cond, key, state, step):
+        return self._local(x_in, t, cond, key, state, step)
+
     def _evaluate(self, phase, inputs, state):
         """``_local`` on a graph's static inputs."""
         return self._local(inputs.x_in, inputs.t, (inputs.enc, inputs.added, inputs.text_kv),
@@ -283,27 +295,73 @@ class TransformerRunner(StepLoop):
         graphed = cfg.use_compiled_step
         if graphed:
             self._begin_graphs(x, cond, phases, start_step)
-        timesteps, steps = self._step_tensors(num_inference_steps)
         sstate = sched.init_state(x.shape)
         self.phase_counts = {PHASE_SYNC: 0, PHASE_STALE: 0}
         if cfg.step_cache_enabled:
             self.phase_counts[PHASE_SHALLOW] = 0
         state = None
         for i, phase in enumerate(phases, start=start_step):
-            x_in = self._model_input(x, i)
-            if graphed:
-                graph = self.graphs[phase]
-                graph.inputs.set_step(x_in, timesteps[i], steps[i])
-                if graph.stateful:
-                    graph.load_state(state)
-                out, state = graph.replay(self._evaluate)
-            else:
-                out, state = self._local(x_in, timesteps[i], cond, phase, state, steps[i])
-            x, sstate = self._guided_step(x, out, i, sstate, gs)
+            x, state, sstate = self._advance(x, i, phase, state, sstate, cond, gs, graphed)
             self.phase_counts[phase] += 1
             if callback is not None:
                 callback(i, sched.timesteps()[i], unpatchify(mcfg, x, mcfg.in_channels))
         return unpatchify(mcfg, x, mcfg.in_channels)
+
+    def _advance(self, x, i, phase, state, sstate, cond, gs, graphed):
+        """Step ``i``: the evaluation ``phase`` (a graph replay when
+        ``graphed``), the guidance and the scheduler step: (x, buffers,
+        scheduler state); a replay's buffers are the graph's own."""
+        timesteps, steps = self._step_tensors(self.scheduler.num_inference_steps)
+        x_in = self._model_input(x, i)
+        if graphed:
+            graph = self.graphs[phase]
+            graph.inputs.set_step(x_in, timesteps[i], steps[i])
+            if graph.stateful:
+                graph.load_state(state)
+            out, state = graph.replay(self._evaluate)
+        else:
+            out, state = self._local(x_in, timesteps[i], cond, phase, state, steps[i])
+        x, sstate = self._guided_step(x, out, i, sstate, gs)
+        return x, state, sstate
+
+    # -- the explicit-carry stepwise API -----------------------------------
+
+    def stepwise_carry_init(self, latents, num_steps: int):
+        """Start a denoise whose carry the caller holds: ``(tokens
+        float32 [B, N, D], buffers, scheduler state)``, what one step of
+        ``generate`` hands to the next (JAX ``stepwise_carry_init``)."""
+        self.scheduler.set_timesteps(num_steps)
+        x = patchify(self.mcfg, torch.as_tensor(latents).to(self.cfg.device, torch.float32))
+        return x, None, self.scheduler.init_state(x.shape)
+
+    @torch.inference_mode()
+    def stepwise_carry_step(self, carry, i: int, enc, extra, gs, num_steps: int):
+        """Advance ``carry`` by exactly step ``i`` of a ``num_steps`` run and
+        return the new carry (JAX ``stepwise_carry_step``): ``enc`` and
+        ``extra`` (the DiT's caption mask, the MMDiT's pooled text) as
+        ``generate`` takes them, ``gs`` the guidance scale.  The carry's
+        buffers are consumed.  Under ``use_cuda_graph`` the step replays
+        the run's graphs and the new carry owns copies of the graph's
+        buffers."""
+        x, state, sstate = carry
+        sched = self.scheduler
+        if sched.num_inference_steps != num_steps:
+            sched.set_timesteps(num_steps)
+        phase, shallow = self._stepwise_phase(i, 0, num_steps)
+        key = PHASE_SHALLOW if shallow else phase
+        cond = self._cond_of(enc, extra)
+        gs = torch.as_tensor(gs, dtype=torch.float32).to(self.cfg.device)
+        graphed = self.cfg.use_compiled_step
+        if graphed:
+            self._begin_graphs(x, cond, self._phases(num_steps), i)
+        x, state, sstate = self._advance(x, i, key, state, sstate, cond, gs, graphed)
+        if graphed and state is not None:
+            state = {k: v.clone() for k, v in state.items()}
+        return x, state, sstate
+
+    def stepwise_carry_latent(self, carry):
+        """The carry's current latent [B, H/8, W/8, C] (not consumed)."""
+        return unpatchify(self.mcfg, carry[0], self.mcfg.in_channels)
 
     def comm_report(self, batch_size: int = 1) -> Dict[str, Any]:
         """This rank's stale-state elements and per-step collective volumes
@@ -400,12 +458,26 @@ class DiTDenoiseRunner(TransformerRunner):
                 q, kv, cfg.sp_u_group, cfg.sp_r_group, u, ctx.n // u, heads=heads)}
         return {"kv_assemble": lambda kv: displaced_kv(kv, ctx, name, halves=2)}
 
+    def _t_conditioning(self, t):
+        """(timestep embedding, adaLN table) of ``t``: a scalar gives
+        ([hidden], [6, hidden]); one timestep a row (a packed step) gives
+        ([Bl, hidden], [Bl, 6, hidden]), each row embedded alone at the
+        scalar's shapes, so its values are the solo step's bits."""
+        dcfg, params = self.mcfg, self.params
+        if t.dim() == 0:
+            temb = dit_mod.t_embed(params, dcfg, t)
+            return temb, dit_mod.adaln_table(params, dcfg, temb)
+        rows = [dit_mod.t_embed(params, dcfg, tr) for tr in t]
+        return (torch.stack(rows),
+                torch.stack([dit_mod.adaln_table(params, dcfg, r) for r in rows]))
+
     def _local(self, x_in, t, cond, phase, state, step=None):
         """One DiT evaluation on this rank's token rows of ``x_in`` [Bl, N,
         D] (scaled, the CFG branches folded) from ``cond`` = (caption bias,
         None, the blocks' caption KV) at the absolute step ``step`` (which
-        a partial refresh rotates by): (the whole epsilon [Bl, N, D_out],
-        the next step's buffers)."""
+        a partial refresh rotates by; ``t`` a scalar or one timestep a
+        row): (the whole epsilon [Bl, N, D_out], the next step's
+        buffers)."""
         dcfg, params = self.mcfg, self.params
         cap_bias, _, cap_kv = cond
         dtype = params["proj_in"]["kernel"].dtype
@@ -415,8 +487,7 @@ class DiTDenoiseRunner(TransformerRunner):
         rows = x_in[:, offset:offset + chunk].to(dtype)
         pos = dit_mod.pos_embed_table(dcfg, dtype, x_in.device)[offset:offset + chunk]
         h = dit_mod.embed_tokens(params, dcfg, rows, pos)
-        temb = dit_mod.t_embed(params, dcfg, t)
-        c6 = dit_mod.adaln_table(params, dcfg, temb)
+        temb, c6 = self._t_conditioning(t)
 
         def block(i, h):
             hooks = self._attn_hooks(ctx, f"blocks.{i}") if ctx.n > 1 else {}
@@ -426,21 +497,28 @@ class DiTDenoiseRunner(TransformerRunner):
         h = self._run_blocks(ctx, phase, h, block)
         return self._finish(ctx, phase, dit_mod.final_layer(params, dcfg, h, temb))
 
+    _family = "dit"
+
     def _inputs(self, latents, enc, cap_mask):
-        """(the latent's tokens float32 [B, N, D], (this rank's caption bias
-        [Bl, 1, 1, Lt], None, the blocks' caption KV)) from branch-major
-        ``enc`` [n_br, B, Lt, caption_dim] and ``cap_mask`` [n_br, B, Lt]
-        (None: every token real)."""
+        """(the latent's tokens float32 [B, N, D], ``_cond_of``) from the
+        latents, branch-major ``enc`` and ``cap_mask``."""
+        dev = self.cfg.device
+        x = dit_mod.patchify(self.mcfg, torch.as_tensor(latents).to(dev, torch.float32))
+        return x, self._cond_of(enc, cap_mask)
+
+    def _cond_of(self, enc, cap_mask):
+        """(this rank's caption bias [Bl, 1, 1, Lt], None, the blocks'
+        caption KV) from branch-major ``enc`` [n_br, B, Lt, caption_dim]
+        and ``cap_mask`` [n_br, B, Lt] (None: every token real)."""
         cfg = self.cfg
         dev = cfg.device
-        x = dit_mod.patchify(self.mcfg, torch.as_tensor(latents).to(dev, torch.float32))
         enc = torch.as_tensor(enc).to(dev)
         mask = (torch.ones(enc.shape[:3], device=dev) if cap_mask is None
                 else torch.as_tensor(cap_mask).to(dev).float())
         my_enc, _, _ = branch_select(cfg, self._my_images(enc, dim=1))
         my_mask, _, _ = branch_select(cfg, self._my_images(mask, dim=1))
         cap_kv = dit_mod.precompute_caption_kv(self.params, self.mcfg, my_enc)
-        return x, (dit_mod.caption_mask_bias(my_mask), None, cap_kv)
+        return dit_mod.caption_mask_bias(my_mask), None, cap_kv
 
     @torch.inference_mode()
     def prepare(self, latents, enc, *, num_inference_steps: int = 20,

@@ -161,18 +161,25 @@ class MMDiTDenoiseRunner(TransformerRunner):
             hooks["kv2_assemble"] = lambda kv2: displaced_kv(kv2, ctx, name2, halves=2)
         return hooks
 
+    _family = "mmdit"
+
     def _inputs(self, latents, enc, pooled):
-        """(the latent's tokens float32 [B, N, D], (this rank's projected
-        context [Bl, Lc, hidden], its pooled text [Bl, P], None)) from
-        branch-major ``enc`` [n_br, B, Lc, joint_dim] and ``pooled`` [n_br,
-        B, P]."""
+        """(the latent's tokens float32 [B, N, D], ``_cond_of``) from the
+        latents, branch-major ``enc`` and ``pooled``."""
+        dev = self.cfg.device
+        x = patchify(self.mcfg, torch.as_tensor(latents).to(dev, torch.float32))
+        return x, self._cond_of(enc, pooled)
+
+    def _cond_of(self, enc, pooled):
+        """(this rank's projected context [Bl, Lc, hidden], its pooled
+        text [Bl, P], None) from branch-major ``enc`` [n_br, B, Lc,
+        joint_dim] and ``pooled`` [n_br, B, P]."""
         cfg = self.cfg
         dev = cfg.device
-        x = patchify(self.mcfg, torch.as_tensor(latents).to(dev, torch.float32))
         enc, pooled = (torch.as_tensor(t).to(dev) for t in (enc, pooled))
         my_enc, _, _ = branch_select(cfg, self._my_images(enc, dim=1))
         my_pooled, _, _ = branch_select(cfg, self._my_images(pooled, dim=1))
-        return x, (mm.context_in(self.params, my_enc), my_pooled, None)
+        return mm.context_in(self.params, my_enc), my_pooled, None
 
     @torch.inference_mode()
     def prepare(self, latents, enc, pooled, *, num_inference_steps: int = 20) -> None:

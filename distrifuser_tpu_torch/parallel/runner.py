@@ -46,7 +46,12 @@ which resumes from the deep feature the last full step kept.  The
 explicit-carry API (``stepwise_carry_init`` / ``stepwise_carry_step`` /
 ``stepwise_carry_latent`` / ``stepwise_carry_signature``) runs the same
 per-step evaluations one step at a time on a carry the caller holds, so
-carries interleaved step by step give the latents of contiguous runs.
+carries interleaved step by step give the latents of contiguous runs.  Its
+rows variants (``stepwise_rows_supported`` / ``stepwise_carry_rows_axes``
+/ ``stepwise_carry_step_rows``, shared with the transformer runners
+through ``StepLoop``) advance a carry whose batch rows belong to different
+requests, each at its own step index and guidance scale, in one
+evaluation: the serve plane's packed cohort step (serve/executors.py).
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from ..models.unet import (DenseDispatch, PatchDispatch, UNetConfig,
                            precompute_text_kv, unet_forward)
 from ..schedulers import BaseScheduler
 from ..utils.config import DistriConfig
+from . import rowpack
 from .collectives import gather_batch, gather_cols, gather_rows, stages_through_host
 from .context import PHASE_STALE, PHASE_SYNC, PatchContext
 from .graphs import StepGraphs
@@ -178,11 +184,110 @@ class StepLoop:
         """The CFG combine of the model's output ``out`` (this image
         group's; under data parallelism every group's gathered in batch
         order), then the scheduler's step ``i`` in float32: (x, scheduler
-        state)."""
+        state).  ``i`` may be one index a row and ``gs`` one scale a row
+        (shaped to broadcast along x's batch axis): the packed step."""
         guided = combine_guidance(self.cfg, out, gs, x.shape[0] // self.cfg.dp_degree)
         if self.cfg.dp_degree > 1:
             guided = gather_batch(guided, self.cfg.dp_group)
         return self.scheduler.step(x, guided.float(), i, sstate)
+
+    # -- the explicit-carry API's packed rows (serve/executors.py) ---------
+    #
+    # A subclass gives ``_family`` (the signature's tag), ``_cond_of(*args)``
+    # (the evaluation's conditioning from the stepwise call's conditioning
+    # arguments) and ``_evaluate_at(x_in, t, cond, key, state, step)`` (one
+    # eager evaluation of ``key``).  A carry is ``(x, buffers, scheduler
+    # state)``; every tensor in it holds the batch at axis 0 (the CFG
+    # branches of the buffers folded branch-major), 0-dim leaves are
+    # per-run scheduler scalars.
+
+    _family = "model"
+
+    def stepwise_rows_supported(self) -> bool:
+        """Whether a packed step (one step index and guidance scale a row)
+        gives each row its solo step's bits (JAX
+        ``stepwise_rows_supported``): not under data parallelism (the
+        per-row index does not split with the batch), the partial-refresh
+        rotation or lossy refresh compression (per-tensor scales couple
+        rows), naive patch's alternate scheme, nor under
+        ``use_cuda_graph`` (a replay's timestep is one scalar; the serve
+        plane's step mode runs eagerly)."""
+        cfg = self.cfg
+        return (cfg.dp_degree == 1
+                and cfg.refresh_fraction >= 1
+                and cfg.comm_compress == "none"
+                and not cfg.use_compiled_step
+                and not (cfg.parallelism == "naive_patch"
+                         and cfg.split_scheme == "alternate"))
+
+    def stepwise_carry_signature(self, carry, i: int, num_steps: int):
+        """Which evaluation advancing ``carry`` by step ``i`` runs (JAX
+        ``stepwise_carry_signature``): carries of one signature run the
+        same per-step evaluation and may pack into one dispatch's batch
+        rows when their structures agree (the serve executor also keys
+        its groups by the carry's structure: DPM++ 2M's state holds no
+        history before its first step)."""
+        phase, shallow = self._stepwise_phase(i, 0, num_steps)
+        return (self._family, phase, carry[1] is not None, shallow, num_steps)
+
+    def stepwise_carry_rows_axes(self, carry, num_steps: int):
+        """The per-leaf packing plan (parallel/rowpack.py) of this
+        carry's structure, from its leaf shapes at widths w and 2w."""
+        w = carry[0].shape[0]
+        leaves, structure = rowpack.tree_flatten(carry)
+
+        def shapes(k):
+            return rowpack.tree_unflatten(structure, [
+                torch.empty((leaf.shape[0] * k,) + tuple(leaf.shape[1:])
+                            if leaf.dim() else (), device="meta")
+                for leaf in leaves])
+
+        for leaf in leaves:
+            if leaf.dim() and leaf.shape[0] % w:
+                raise rowpack.AmbiguousPackAxisError(
+                    f"carry leaf {tuple(leaf.shape)} does not hold the batch of "
+                    f"{w} at axis 0")
+        return rowpack.axes_from_shapes(shapes(1), shapes(2))
+
+    @torch.inference_mode()
+    def stepwise_carry_step_rows(self, carry, i_rows, *args):
+        """Advance a PACKED carry: row ``r`` moves by exactly step
+        ``i_rows[r]`` at guidance ``gs_rows[r]`` (JAX
+        ``stepwise_carry_step_rows``); ``args`` are the stepwise step's
+        conditioning arguments, then ``gs_rows`` and ``num_steps``.  Every
+        row must share one signature (`stepwise_carry_signature`).  The
+        evaluation is the solo step's, at the same width, with the
+        timestep, the scheduler's coefficients and the guidance scale
+        taken a row each, so a row gets its solo step's bits."""
+        *cond_args, gs_rows, num_steps = args
+        x, state, sstate = carry
+        rows = [int(i) for i in i_rows]
+        if len(rows) != x.shape[0] or len(gs_rows) != x.shape[0]:
+            raise ValueError(f"{len(rows)} step indices and {len(gs_rows)} scales "
+                             f"for a carry of {x.shape[0]} rows")
+        sigs = {self.stepwise_carry_signature(carry, i, num_steps) for i in rows}
+        if len(sigs) != 1:
+            raise ValueError(f"packed rows span {len(sigs)} step signatures: {sigs}")
+        if self.cfg.use_compiled_step:
+            raise ValueError("a packed step runs eagerly: set_stepwise(True) first")
+        sched = self.scheduler
+        if sched.num_inference_steps != num_steps:
+            sched.set_timesteps(num_steps)
+        phase, shallow = self._stepwise_phase(rows[0], 0, num_steps)
+        key = PHASE_SHALLOW if shallow else phase
+        dev = self.cfg.device
+        timesteps, steps = self._step_tensors(num_steps)
+        idx = torch.tensor(rows, device=dev)
+        x_in = self._model_input(x, rows)
+        t = timesteps[idx]
+        if self.cfg.do_classifier_free_guidance and not self.cfg.cfg_split:
+            t = torch.cat([t, t])
+        gs = torch.tensor([float(g) for g in gs_rows], dtype=torch.float32,
+                          device=dev).reshape((-1,) + (1,) * (x.dim() - 1))
+        out, state = self._evaluate_at(x_in, t, self._cond_of(*cond_args), key, state,
+                                       steps[rows[0]])
+        x, sstate = self._guided_step(x, out, rows, sstate, gs)
+        return x, state, sstate
 
 
 class DenoiseRunner(StepLoop):
@@ -532,11 +637,13 @@ class DenoiseRunner(StepLoop):
         """The carry's current latent [B, H/8, W/8, C] (not consumed)."""
         return carry[0]
 
-    def stepwise_carry_signature(self, carry, i: int, num_steps: int):
-        """Which evaluation advancing ``carry`` by step ``i`` runs: carries
-        of one signature run the same per-step evaluation (graph)."""
-        phase, shallow = self._stepwise_phase(i, 0, num_steps)
-        return ("unet", phase, carry[1] is not None, shallow, num_steps)
+    _family = "unet"
+
+    def _cond_of(self, enc, added):
+        return self._conditioning(enc, added)
+
+    def _evaluate_at(self, x_in, t, cond, key, state, step):
+        return self._unet_local(x_in, t, *cond, key, state, step=step)
 
     # -- observability ----------------------------------------------------
 

@@ -59,6 +59,16 @@ at another batch or image size captures anew.  ``set_stepwise(True)``
 runs the eager loop instead (the reference's ``--no_cuda_graph``).  Over
 NCCL, drop the pipeline before ``destroy_process_group``: its graphs hold
 NCCL work until they are freed.
+
+Every family splits its request path into three stages that ``__call__``
+runs in order and the serve plane's staged executor runs on three workers
+(``prepare_stages`` -> `PipelineStages`: ``_stage_encode``,
+``_denoise_chunk``, ``_decode_to_np``; JAX ``prepare_stages``), so staged
+and monolithic execution are one code path and give the same bits.  The
+``step_carry_*`` hooks (JAX ``step_carry_*``) expose the runner's
+explicit-carry stepwise API to the serve plane's step mode, packed rows
+included; ``attach_step_timeline`` records each generation's per-step wall
+time and wire bytes (utils/trace.py ``StepTimeline``).
 """
 
 from __future__ import annotations
@@ -89,7 +99,7 @@ from .native.safetensors import load_sharded_safetensors
 from .parallel.collectives import gather_batch, gather_rows
 from .parallel.compress import validate_quant_compute, validate_weight_mode
 from .parallel.runner import check_graph_transport, make_runner
-from .parallel.stepcache import phase_step_counts, shallow_step_count
+from .parallel.stepcache import is_shallow_at, phase_step_counts, shallow_step_count
 from .schedulers import BaseScheduler, FlowMatchEulerScheduler, get_scheduler
 from .utils.config import DistriConfig
 
@@ -251,6 +261,54 @@ def _tokenize(tok, texts: List[str]) -> np.ndarray:
 
 
 @dataclasses.dataclass
+class PipelineStages:
+    """The stages of one prepared (pipeline, steps) pair (JAX
+    ``PipelineStages``), the split request path the staged serving
+    executor (serve/staging.py) pipelines across micro-batches:
+
+    * ``encode(prompts, negs) -> embeddings`` -- tokenize + text-encode one
+      batch-width chunk; the returned pair is family-opaque (UNet:
+      (embeds, added_cond); DiT: (embeds, caption_mask); MMDiT: (embeds,
+      pooled)) and is exactly what ``denoise`` consumes;
+    * ``denoise(embeddings, latents, guidance_scale) -> latent`` -- the
+      prepared denoise loop (graph replays on the card);
+    * ``decode(latent) -> np images`` -- chunked VAE decode plus the
+      device->host conversion, float RGB [N, H, W, 3] in [0, 1].
+
+    Every callable is the SAME code ``__call__`` runs (``_stage_encode``
+    / ``_denoise_chunk`` / ``_decode_to_np``), so staged and monolithic
+    execution produce bit-identical images for identical (prompt, seed,
+    steps).  ``steps`` and the guidance mode are baked in: a stage set
+    serves exactly one executor identity (serve ExecKey).
+    """
+
+    steps: int
+    batch_size: int
+    encode: Any
+    denoise: Any
+    decode: Any
+    init_noise_sigma: float
+
+
+def _pack_enc_rows(encs, width):
+    """One packed encoding from each member's SOLO encoding (JAX
+    ``_pack_enc_rows``): every tensor of an encoding carries the batch at
+    axis 1 (branch-major [n_br, B, ...]), and a solo encoding's rows are
+    identical by construction (the executor repeats the one real prompt),
+    so member r's row 0 becomes packed row r, padded to ``width`` by
+    repeating the last member."""
+    from .parallel import rowpack
+
+    flats = [rowpack.tree_flatten(e) for e in encs]
+    out = []
+    for li in range(len(flats[0][0])):
+        blocks = [f[0][li].narrow(1, 0, 1) for f in flats]
+        blocks = blocks + [blocks[-1]] * (width - len(blocks))
+        out.append(torch.cat(blocks, dim=1))
+    return rowpack.tree_unflatten(flats[0][1], out)
+
+
+@dataclasses.dataclass
 class PipelineOutput:
     images: List[Any]
     # set when a tokenizer is the hash-based SimpleTokenizer: image content
@@ -367,6 +425,145 @@ class _GenerationMixin:
     # the SD3 family's latent re-centring at decode (VAEConfig.shift_factor),
     # set by DistriSD3Pipeline; 0 for the other families
     _vae_shift: float = 0.0
+
+    # the per-step denoise timeline (utils/trace.py StepTimeline), attached
+    # by `attach_step_timeline`: None adds nothing to the call path
+    step_timeline = None
+
+    def attach_step_timeline(self, timeline):
+        """Record every generation's per-denoise-step wall time (tagged
+        warmup/full/shallow by the step cache's cadence) and live wire
+        bytes into ``timeline`` (`utils.trace.StepTimeline`; JAX
+        ``attach_step_timeline``).  The byte counter adds each executed
+        step's per-phase bytes from ``comm_plan``'s model, so it equals
+        the closed-form plan exactly iff the loop ran the phases the plan
+        predicts."""
+        self.step_timeline = timeline
+        return timeline
+
+    def _timeline_callback(self, num_inference_steps: int, callback,
+                           start_step: int = 0, end_step=None):
+        """The user's per-step callback composed with the attached
+        timeline's recorder (the callback itself when none is attached).
+        Steps [start, start + n_sync) are warmup, the rest follow the
+        shallow-first cadence, as the denoise loops count them."""
+        tl = self.step_timeline
+        if tl is None:
+            return callback
+        cfg = self.distri_config
+        steps_end = (num_inference_steps if end_step is None
+                     else min(end_step, num_inference_steps))
+        n_sync = min(cfg.warmup_steps + 1, steps_end - start_step)
+        sc = cfg.step_cache_enabled
+        interval = cfg.step_cache_interval
+
+        def phase_of(i: int) -> str:
+            if i < start_step + n_sync:
+                return "warmup"
+            if sc and is_shallow_at(i, start_step + n_sync, interval):
+                return "shallow"
+            return "full"
+
+        try:
+            bytes_per_step = self.comm_plan(num_inference_steps)["bytes_per_step"]
+        except (ValueError, AttributeError, KeyError, RuntimeError):
+            # a runner without a byte model, or the UNet's before its first
+            # generate (its model reads the last run's buffers): timings only
+            bytes_per_step = None
+        tl.begin_run(steps_end - start_step, phase_of, bytes_per_step=bytes_per_step,
+                     meta={"steps": num_inference_steps, "start_step": start_step,
+                           "comm_compress": cfg.comm_compress})
+
+        def cb(i, t, x):
+            tl.on_step(int(i))
+            if callback is not None:
+                callback(i, t, x)
+
+        return cb
+
+    def _timeline_end(self) -> None:
+        if self.step_timeline is not None:
+            self.step_timeline.end_run()
+
+    def _run_denoise(self, enc, latents, guidance_scale, num_inference_steps, *,
+                     start_step=0, end_step=None, callback=None):
+        """``_denoise_chunk`` of one chunk of ``__call__``, bracketed by
+        the attached timeline's run (encode stays outside it)."""
+        cb = self._timeline_callback(num_inference_steps, callback,
+                                     start_step=start_step, end_step=end_step)
+        kw = {"callback": cb}
+        if start_step:
+            kw["start_step"] = start_step
+        if end_step is not None:
+            kw["end_step"] = end_step
+        try:
+            return self._denoise_chunk(enc, latents, guidance_scale,
+                                       num_inference_steps, **kw)
+        finally:
+            self._timeline_end()
+
+    def prepare_stages(self, num_inference_steps: int) -> PipelineStages:
+        """The request path as three separately dispatchable stages
+        (text-encode / denoise / VAE-decode) for the staged serving
+        executor to overlap across micro-batches (JAX ``prepare_stages``).
+        Captures the denoiser's graphs here (the same ``prepare`` the
+        monolithic path uses) and fixes the scheduler's timestep table,
+        OFF the dispatch path: stage invocations never capture and never
+        mutate shared scheduler state.  The callables are the exact
+        functions ``__call__`` runs."""
+        self.scheduler.set_timesteps(num_inference_steps)
+        self.prepare(num_inference_steps)
+        steps = num_inference_steps
+        # __call__ forces guidance_scale to 1 when CFG is off; the staged
+        # denoise applies the same normalization for identity
+        cfg_on = self.distri_config.do_classifier_free_guidance
+
+        def denoise(enc, latents, guidance_scale):
+            return self._denoise_chunk(enc, latents,
+                                       guidance_scale if cfg_on else 1.0, steps)
+
+        return PipelineStages(
+            steps=steps, batch_size=self.distri_config.batch_size,
+            encode=self._stage_encode, denoise=denoise, decode=self._decode_to_np,
+            init_noise_sigma=float(self.scheduler.init_noise_sigma))
+
+    def _stage_encode(self, prompts, negs):
+        """Encode stage: ``_encode`` without micro-conditioning (the serve
+        surface has none), which resolves to the defaults ``__call__``
+        passes -- the same embeddings either way."""
+        return self._encode(prompts, negs)
+
+    # -- the step-granular carry hooks (serve/executors.py step contract) --
+    #
+    # Every family's encoding is a pair (embeddings, the family's second
+    # text input), the runner's stepwise API takes them as two arguments.
+
+    def step_carry_init(self, latents, num_inference_steps):
+        return self.runner.stepwise_carry_init(latents, num_inference_steps)
+
+    def step_carry_step(self, carry, i, enc, guidance_scale, num_inference_steps):
+        return self.runner.stepwise_carry_step(carry, i, *enc, guidance_scale,
+                                               num_inference_steps)
+
+    def step_carry_latent(self, carry):
+        return self.runner.stepwise_carry_latent(carry)
+
+    def step_carry_pack_supported(self) -> bool:
+        fn = getattr(self.runner, "stepwise_rows_supported", None)
+        return bool(fn()) if fn is not None else False
+
+    def step_carry_signature(self, carry, i, num_inference_steps):
+        return self.runner.stepwise_carry_signature(carry, i, num_inference_steps)
+
+    def step_carry_rows_axes(self, carry, enc, num_inference_steps):
+        return self.runner.stepwise_carry_rows_axes(carry, num_inference_steps)
+
+    def step_carry_pack_enc(self, encs, width):
+        return _pack_enc_rows(encs, width)
+
+    def step_carry_step_rows(self, carry, i_rows, enc, gs_rows, num_inference_steps):
+        return self.runner.stepwise_carry_step_rows(carry, i_rows, *enc, gs_rows,
+                                                    num_inference_steps)
 
     def set_weight_quant(self, mode: str) -> None:
         """Quantize the denoiser's weights to ``mode`` after construction.  Only
@@ -645,19 +842,24 @@ class _DistriPipelineBase(_GenerationMixin):
         }
 
         def run_chunk(cp, cn, cl, n_real):
-            embeds, added = self._encode(cp, cn, micro_cond)
-            return self.runner.generate(
-                cl, embeds, guidance_scale=guidance_scale,
-                num_inference_steps=num_inference_steps, added_cond=added,
-                start_step=start_step, end_step=end_step,
-                callback=_wrap_chunk_callback(callback, n_real),
-            )
+            return self._run_denoise(
+                self._encode(cp, cn, micro_cond), cl, guidance_scale,
+                num_inference_steps, start_step=start_step, end_step=end_step,
+                callback=_wrap_chunk_callback(callback, n_real))
 
         latent = _batched_generate(
             cfg, self.scheduler, prompts, negs, num_images_per_prompt, seed,
             latents, self.unet_config.in_channels, run_chunk,
         )
         return self._finalize(latent, output_type)
+
+    def _denoise_chunk(self, enc, latents, guidance_scale, num_inference_steps, *,
+                       start_step=0, end_step=None, callback=None):
+        embeds, added = enc
+        return self.runner.generate(
+            latents, embeds, guidance_scale=guidance_scale,
+            num_inference_steps=num_inference_steps, added_cond=added,
+            start_step=start_step, end_step=end_step, callback=callback)
 
     def _clip(self, which: int, ids):
         ccfg, cparams = self.text_encoders[which]
@@ -1027,16 +1229,21 @@ class DistriPixArtPipeline(_GenerationMixin):
         self.scheduler.set_timesteps(num_inference_steps)
 
         def run_chunk(cp, cn, cl, n_real):
-            emb, mask = self._encode(cp, cn)
-            return self.runner.generate(
-                cl, emb, guidance_scale=guidance_scale,
-                num_inference_steps=num_inference_steps, cap_mask=mask,
-                callback=_wrap_chunk_callback(callback, n_real))
+            return self._run_denoise(self._encode(cp, cn), cl, guidance_scale,
+                                     num_inference_steps,
+                                     callback=_wrap_chunk_callback(callback, n_real))
 
         latent = _batched_generate(cfg, self.scheduler, prompts, negs,
                                    num_images_per_prompt, seed, latents,
                                    self.dit_config.in_channels, run_chunk)
         return self._finalize(latent, output_type)
+
+    def _denoise_chunk(self, enc, latents, guidance_scale, num_inference_steps, *,
+                       callback=None):
+        emb, mask = enc
+        return self.runner.generate(
+            latents, emb, guidance_scale=guidance_scale,
+            num_inference_steps=num_inference_steps, cap_mask=mask, callback=callback)
 
 
 # ---------------------------------------------------------------------------
@@ -1248,13 +1455,19 @@ class DistriSD3Pipeline(_GenerationMixin):
                 num_inference_steps, len(prompts), num_images_per_prompt, seed, _noise)
 
         def run_chunk(cp, cn, cl, n_real):
-            enc, pooled = self._encode(cp, cn)
-            return self.runner.generate(
-                cl, enc, pooled, guidance_scale=guidance_scale,
-                num_inference_steps=num_inference_steps, start_step=start_step,
-                callback=_wrap_chunk_callback(callback, n_real))
+            return self._run_denoise(self._encode(cp, cn), cl, guidance_scale,
+                                     num_inference_steps, start_step=start_step,
+                                     callback=_wrap_chunk_callback(callback, n_real))
 
         latent = _batched_generate(cfg, self.scheduler, prompts, negs,
                                    num_images_per_prompt, seed, latents,
                                    self.mmdit_config.in_channels, run_chunk)
         return self._finalize(latent, output_type)
+
+    def _denoise_chunk(self, enc, latents, guidance_scale, num_inference_steps, *,
+                       start_step=0, callback=None):
+        emb, pooled = enc
+        return self.runner.generate(
+            latents, emb, pooled, guidance_scale=guidance_scale,
+            num_inference_steps=num_inference_steps, start_step=start_step,
+            callback=callback)

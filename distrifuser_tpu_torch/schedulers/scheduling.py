@@ -20,6 +20,18 @@ latent before it is copied into the graph's static input.
 ``FlowMatchEulerScheduler`` ("flow-euler") integrates a rectified-flow
 velocity over shifted sigmas (the SD3 family, ``prediction_type ==
 "flow"``); its ``add_noise`` is the flow interpolant.
+
+``step`` and ``scale_model_input`` take a scalar ``step_index`` or, for
+the packed cohort step of the serve plane (serve/executors.py
+``step_run``), a sequence or 1-D tensor of one index per batch row.  A
+row's coefficients are then computed exactly as the scalar path computes
+them for its own index, stacked into a ``[B, 1, ..., 1]`` tensor, and
+applied by the same elementwise operation, so each row of a packed step is
+bit for bit the row of its solo step.  Where the scalar path divides a
+CUDA tensor by a CPU scalar (which PyTorch carries out as a multiplication
+by the scalar's float32 reciprocal), the per-row path multiplies by the
+rows' reciprocals on the card and divides on the CPU, as the scalar path
+does there.  DPM++ 2M's per-row state holds one ``lambda_prev`` a row.
 """
 
 from __future__ import annotations
@@ -39,6 +51,32 @@ def _per_row(coef, ref):
     if coef.dim() == 0:
         return coef
     return coef.reshape(coef.shape + (1,) * (ref.dim() - 1))
+
+
+def _rows(step_index):
+    """The per-row step indices of a packed step (a list of ints), or
+    None for a scalar index."""
+    if isinstance(step_index, (list, tuple)):
+        return [int(i) for i in step_index]
+    if isinstance(step_index, torch.Tensor) and step_index.dim() > 0:
+        return [int(i) for i in step_index.tolist()]
+    return None
+
+
+def _stack_rows(fn, rows, ref):
+    """``[B, 1, ..., 1]`` on the CPU of ``fn(i)`` (a 0-dim tensor, the
+    scalar path's own arithmetic) for each row's index ``i``."""
+    return _per_row(torch.stack([torch.as_tensor(fn(i)) for i in rows]), ref)
+
+
+def _div_rows(x, coef):
+    """``x / coef`` for a per-row CPU ``coef`` as the scalar path divides
+    by a CPU scalar: on the card a multiplication by the float32
+    reciprocal (PyTorch's CUDA division by a CPU scalar), on the CPU a
+    true division."""
+    if x.is_cuda:
+        return x * (1.0 / coef).to(x.device)
+    return x / coef
 
 
 def _make_alphas_cumprod(
@@ -134,8 +172,13 @@ class DDIMScheduler(BaseScheduler):
 
     def step(self, sample, model_output, step_index, state):
         dev = sample.device
-        a_t = self._alpha_t[step_index].to(dev)
-        a_prev = self._alpha_prev[step_index].to(dev)
+        rows = _rows(step_index)
+        if rows is None:
+            a_t = self._alpha_t[step_index].to(dev)
+            a_prev = self._alpha_prev[step_index].to(dev)
+        else:
+            a_t = _per_row(self._alpha_t[rows], sample).to(dev)
+            a_prev = _per_row(self._alpha_prev[rows], sample).to(dev)
         x = sample.float()
         eps = self._to_epsilon(sample, model_output.float(), a_t)
         x0 = (x - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
@@ -162,8 +205,12 @@ class EulerDiscreteScheduler(BaseScheduler):
         return self._init_noise_sigma
 
     def scale_model_input(self, sample, step_index):
-        sigma = self._sigmas[step_index]
-        return (sample / torch.sqrt(sigma**2 + 1.0)).to(sample.dtype)
+        rows = _rows(step_index)
+        if rows is None:
+            sigma = self._sigmas[step_index]
+            return (sample / torch.sqrt(sigma**2 + 1.0)).to(sample.dtype)
+        den = _stack_rows(lambda i: torch.sqrt(self._sigmas[i]**2 + 1.0), rows, sample)
+        return _div_rows(sample, den).to(sample.dtype)
 
     def add_noise(self, original, noise, step_index):
         """Euler's sigma-space latent x = x0 + sigma * eps."""
@@ -171,11 +218,21 @@ class EulerDiscreteScheduler(BaseScheduler):
         return (original.float() + sigma * noise.float()).to(original.dtype)
 
     def step(self, sample, model_output, step_index, state):
-        sigma, sigma_next = self._sigmas[step_index], self._sigmas[step_index + 1]
         x = sample.float()
-        ac_t = 1.0 / (sigma**2 + 1.0)  # alpha_cumprod of this sigma
-        eps = self._to_epsilon(x * torch.sqrt(ac_t), model_output.float(), ac_t)
-        x_next = x + (sigma_next - sigma) * eps
+        rows = _rows(step_index)
+        if rows is None:
+            sigma, sigma_next = self._sigmas[step_index], self._sigmas[step_index + 1]
+            ac_t = 1.0 / (sigma**2 + 1.0)  # alpha_cumprod of this sigma
+            eps = self._to_epsilon(x * torch.sqrt(ac_t), model_output.float(), ac_t)
+            x_next = x + (sigma_next - sigma) * eps
+            return x_next.to(sample.dtype), state
+        sig = self._sigmas
+        dev = sample.device
+        ac_t = _stack_rows(lambda i: 1.0 / (sig[i]**2 + 1.0), rows, x).to(dev)
+        sq = _stack_rows(lambda i: torch.sqrt(1.0 / (sig[i]**2 + 1.0)), rows, x).to(dev)
+        eps = self._to_epsilon(x * sq, model_output.float(), ac_t)
+        dsig = _stack_rows(lambda i: sig[i + 1] - sig[i], rows, x).to(dev)
+        x_next = x + dsig * eps
         return x_next.to(sample.dtype), state
 
 
@@ -203,6 +260,9 @@ class DPMSolverMultistepScheduler(BaseScheduler):
         return {"x0_prev": None, "lambda_prev": None}
 
     def step(self, sample, model_output, step_index, state):
+        rows = _rows(step_index)
+        if rows is not None:
+            return self._step_rows(sample, model_output, rows, state)
         i = step_index
         a_t, s_t, lam_t = self._alpha[i], self._sigma[i], self._lambda[i]
         a_n, s_n, lam_n = self._alpha[i + 1], self._sigma[i + 1], self._lambda[i + 1]
@@ -219,6 +279,41 @@ class DPMSolverMultistepScheduler(BaseScheduler):
         # and h = inf, so it is a_n D = D
         x_next = (s_n / s_t) * x - a_n * torch.expm1(-h) * d
         return x_next.to(sample.dtype), {"x0_prev": x0, "lambda_prev": lam_t}
+
+    def _step_rows(self, sample, model_output, rows, state):
+        """``step`` with one index a row: every coefficient the scalar
+        path's own 0-dim arithmetic for the row's index, the state's
+        ``lambda_prev`` one entry a row (a 0-dim one serves every row).
+        Rows whose state has no history, or at the last step, take the
+        first-order update, as the scalar path does."""
+        al, sg, lm = self._alpha, self._sigma, self._lambda
+        dev = sample.device
+        x = sample.float()
+        col = lambda fn: _stack_rows(fn, rows, x)  # noqa: E731
+        a_t = col(lambda i: al[i])
+        eps = self._to_epsilon(sample, model_output.float(), (a_t**2).to(dev))
+        x0 = _div_rows(x - col(lambda i: sg[i]).to(dev) * eps, a_t)
+        d = x0
+        if state["x0_prev"] is not None:
+            lp = state["lambda_prev"]
+            lp_of = (lambda r: lp) if lp.dim() == 0 else (lambda r: lp[r])
+
+            def inv2r(r):
+                i = rows[r]
+                h = lm[i + 1] - lm[i]
+                ratio = torch.clamp((lm[i] - lp_of(r)) / torch.clamp(h, min=1e-12),
+                                    min=1e-12)
+                return 1.0 / (2.0 * ratio)
+
+            k = _stack_rows(inv2r, range(len(rows)), x)
+            corr = (1.0 + k).to(dev) * x0 - k.to(dev) * state["x0_prev"]
+            last = torch.tensor([i >= self.num_inference_steps - 1 for i in rows])
+            d = torch.where(_per_row(last, x).to(dev), x0, corr)
+        c_x = col(lambda i: sg[i + 1] / sg[i]).to(dev)
+        c_d = col(lambda i: al[i + 1] * torch.expm1(-(lm[i + 1] - lm[i]))).to(dev)
+        x_next = c_x * x - c_d * d
+        lam = torch.stack([lm[i] for i in rows])
+        return x_next.to(sample.dtype), {"x0_prev": x0, "lambda_prev": lam}
 
 
 @dataclasses.dataclass
@@ -255,6 +350,9 @@ class FlowMatchEulerScheduler(BaseScheduler):
 
     def step(self, sample, model_output, step_index, state):
         """One Euler step of the velocity ``model_output``, in float32."""
+        rows = _rows(step_index)
+        if rows is not None:
+            step_index = torch.tensor(rows)
         s = _per_row(self._sigmas[step_index], sample).to(sample.device)
         s_next = _per_row(self._sigmas[step_index + 1], sample).to(sample.device)
         x = sample.float() + (s_next - s) * model_output.float()

@@ -1,7 +1,7 @@
 """distrifuser_tpu_torch.serve -- the long-lived inference service on one card.
 
-The whole-batch path of the JAX package's serve plane (ROADMAP item 16,
-step 16a), with its module and public names:
+The JAX package's serve plane on one card (ROADMAP item 16, steps
+16a-16c), with its module and public names:
 
 * `RequestQueue` -- bounded admission with deadlines (serve/queue.py);
 * `MicroBatcher` + `BucketTable` -- continuous micro-batching with shape
@@ -16,14 +16,20 @@ step 16a), with its module and public names:
   circuit breakers + execution watchdog + the graceful-degradation ladder
   (serve/resilience.py), and deterministic fault injection
   (serve/faults.py) so all of it is testable on the CPU;
+* `StagePipeline` / `StagedBatch` -- encode, denoise and decode
+  overlapped across micro-batches (serve/staging.py), with `PromptCache`
+  in front of the text encode (serve/promptcache.py);
+* `StepBatcher` / `SlotState` -- step-level continuous batching: requests
+  join, leave, park and pack between denoise steps (serve/stepbatch.py),
+  and their carries migrate between servers (serve/migration.py);
 * `PipelineExecutor` -- adapter from the port's pipelines
   (serve/executors.py); `serve.testing` has the weightless fakes.
 
 ``python -m distrifuser_tpu_torch.serve --demo`` runs a CPU-only
-end-to-end demonstration (serve/__main__.py).  Staging and the prompt
-cache, step batching, the SLO controller, tenancy and the gateway, the
-fleet, carry migration and the AOT store come with later steps of
-ROADMAP item 16; `InferenceServer` refuses their settings until then.
+end-to-end demonstration (serve/__main__.py).  The SLO controller,
+tenancy and the gateway, the fleet, serving over n ranks and the AOT store
+come with later steps of ROADMAP item 16; `InferenceServer` refuses their
+settings until then.
 """
 
 from ..utils.config import (
@@ -62,6 +68,14 @@ from .errors import (
 )
 from .faults import FaultPlan, FaultRule, install_fault_plan
 from .httpbase import HTTPServerHost
+from .migration import (
+    CarrySnapshot,
+    check_identity,
+    check_key_compatible,
+    decode_snapshot,
+    encode_snapshot,
+)
+from .promptcache import PromptCache
 from .queue import Request, RequestQueue, ServeResult
 from .resilience import (
     BackoffPolicy,
@@ -72,6 +86,8 @@ from .resilience import (
     Watchdog,
 )
 from .server import InferenceServer
+from .staging import StagedBatch, StagePipeline
+from .stepbatch import SlotState, StepBatcher
 
 
 def __getattr__(name):
@@ -91,6 +107,7 @@ __all__ = [
     "BucketTable",
     "BuildFailedError",
     "CarryExportedError",
+    "CarrySnapshot",
     "CircuitBreaker",
     "CircuitOpenError",
     "ControllerConfig",
@@ -113,6 +130,7 @@ __all__ = [
     "NoHealthyReplicaError",
     "ObservabilityConfig",
     "PipelineExecutor",
+    "PromptCache",
     "QueueFullError",
     "Request",
     "RequestQueue",
@@ -125,13 +143,21 @@ __all__ = [
     "ServeError",
     "ServeResult",
     "ServerClosedError",
+    "SlotState",
+    "StagePipeline",
+    "StagedBatch",
     "StepBatchConfig",
+    "StepBatcher",
     "TenantConfig",
     "TenantQuotaError",
     "Tracer",
     "Watchdog",
     "WatchdogTimeoutError",
     "apply_key_policy",
+    "check_identity",
+    "check_key_compatible",
+    "decode_snapshot",
+    "encode_snapshot",
     "install_fault_plan",
     "is_oom",
     "pipeline_executor_factory",

@@ -48,9 +48,11 @@ class ExecKey:
     dispatch: "fused" replays the captured CUDA graphs, "stepwise" runs
     step by step eagerly (``set_stepwise``: the same numerics, no graphs
     to capture or hold; the ladder's ``stepwise_fallback`` rung); "step"
-    is the JAX package's step-granular serve mode, which comes with the
-    step-batching step of ROADMAP item 16 and is refused by
-    `InferenceServer` until then.  ``parallelism`` ("patch" |
+    is the step-granular serve mode (serve/stepbatch.py): the same eager
+    per-step evaluations as "stepwise", driven one step at a time by the
+    slot-pool scheduler with each request's carry held outside the
+    pipeline, and kept distinct from "stepwise" so the two dispatch
+    disciplines never share an executor.  ``parallelism`` ("patch" |
     "pipefusion") and ``pipe_patches`` (0 = build_pipeline's default, one
     patch per stage) are identity fields too: displaced patch parallelism
     and PipeFusion are different programs over the same ranks, and the
@@ -175,9 +177,22 @@ class ExecutorCache:
     ``build_fn(key)`` constructs and warms an executor (expected to be
     expensive: it builds a pipeline and captures its graphs);
     ``on_evict(key, executor)`` lets the owner release device buffers when
-    an entry falls out.  (The JAX package's cache also pins entries for
-    its staged pipeline and loads persisted executables from an AOT store;
-    both come with later steps of ROADMAP item 16.)
+    an entry falls out.
+
+    **Pinning** (the staged serving pipeline, serve/staging.py, and the
+    step slot pool, serve/stepbatch.py): a staged batch holds its executor
+    across three asynchronous stage invocations, and a resident step
+    request across many rounds, so the LRU must not free the pipeline a
+    worker is about to run.  ``get(key, pin=True)`` takes a refcount on the
+    returned executor; ``unpin(executor)`` drops it.  Pinned entries are
+    skipped by capacity eviction (capacity may be exceeded while every
+    entry is pinned -- correctness over the memory bound, which
+    `max_inflight_batches` / ``step_batching.slots`` already cap); an entry
+    evicted by ``invalidate`` while pinned leaves the map immediately --
+    the next ``get`` rebuilds -- but its ``on_evict`` release is DEFERRED
+    to the last ``unpin``, so in-flight work never runs against freed
+    buffers.  (The JAX package's cache also loads persisted executables
+    from an AOT store; that comes with step 16g of ROADMAP item 16.)
     """
 
     def __init__(
@@ -197,9 +212,15 @@ class ExecutorCache:
         self.tracer = None
         self._entries: "OrderedDict[ExecKey, Any]" = OrderedDict()
         self._lock = sync.Lock()
+        # refcounts by executor identity (not key: a key may rebuild while
+        # the old instance is still pinned by in-flight staged work)
+        self._pins: Dict[int, int] = {}
+        self._pin_refs: Dict[int, Any] = {}  # id -> executor (keeps id stable)
+        self._deferred: Dict[int, Tuple[ExecKey, Any]] = {}
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.deferred_evictions = 0
         self.build_seconds = 0.0
 
     def __len__(self) -> int:
@@ -210,16 +231,58 @@ class ExecutorCache:
         with self._lock:
             return key in self._entries
 
-    def get(self, key: ExecKey) -> Tuple[Any, bool]:
+    def _pin_locked(self, ex: Any) -> None:
+        i = id(ex)
+        self._pins[i] = self._pins.get(i, 0) + 1
+        self._pin_refs[i] = ex
+
+    def _pinned_locked(self, ex: Any) -> bool:
+        return self._pins.get(id(ex), 0) > 0
+
+    def pin_count(self, ex: Any) -> int:
+        with self._lock:
+            return self._pins.get(id(ex), 0)
+
+    def unpin(self, ex: Any) -> None:
+        """Drop one pin.  If the executor was evicted/invalidated while
+        pinned, the LAST unpin fires its deferred ``on_evict``."""
+        fire: Optional[Tuple[ExecKey, Any]] = None
+        with self._lock:
+            i = id(ex)
+            n = self._pins.get(i, 0) - 1
+            if n > 0:
+                self._pins[i] = n
+                return
+            self._pins.pop(i, None)
+            self._pin_refs.pop(i, None)
+            fire = self._deferred.pop(i, None)
+        if fire is not None and self.on_evict:
+            self.on_evict(*fire)
+
+    def _evict_locked(self, key: ExecKey, ex: Any) -> Optional[Tuple[ExecKey, Any]]:
+        """Entry already removed from the map; returns the (key, ex) pair
+        to release now, or None when the release is deferred to unpin."""
+        self.evictions += 1
+        if self._pinned_locked(ex):
+            self.deferred_evictions += 1
+            self._deferred[id(ex)] = (key, ex)
+            return None
+        return (key, ex)
+
+    def get(self, key: ExecKey, pin: bool = False) -> Tuple[Any, bool]:
         """(executor, hit?) -- builds on miss, evicting LRU entries beyond
-        capacity.  The build runs outside the lock: stats reads never
-        stall behind a build."""
+        capacity (never pinned ones).  The build runs outside the lock:
+        stats reads never stall behind a build.  With ``pin=True`` the
+        returned executor carries a refcount the caller must drop via
+        ``unpin``."""
         hit_ex = None
         with self._lock:
             if key in self._entries:
                 self._entries.move_to_end(key)
                 self.hits += 1
                 hit_ex = self._entries[key]
+                if pin:
+                    self._pin_locked(hit_ex)
             else:
                 self.misses += 1
         if hit_ex is not None:
@@ -251,15 +314,25 @@ class ExecutorCache:
             self.build_seconds += dt
             self._entries[key] = ex
             self._entries.move_to_end(key)
-            # oldest-first victims (never the entry just inserted: it is
-            # the MRU, but a capacity-1 cache makes it the only candidate)
+            if pin:
+                self._pin_locked(ex)
+            over = len(self._entries) - self.capacity
+            # oldest-first victims, skipping pinned entries (and the entry
+            # just inserted: it is the MRU, but a capacity-1 cache makes it
+            # the only candidate)
             for old_key in list(self._entries):
-                if len(self._entries) <= self.capacity:
+                if over <= 0:
                     break
                 if old_key == key:
                     continue
-                evicted.append((old_key, self._entries.pop(old_key)))
-                self.evictions += 1
+                old_ex = self._entries[old_key]
+                if self._pinned_locked(old_ex):
+                    continue
+                del self._entries[old_key]
+                pair = self._evict_locked(old_key, old_ex)
+                if pair is not None:
+                    evicted.append(pair)
+                over -= 1
         if self.on_evict:
             for old_key, old_ex in evicted:
                 self.on_evict(old_key, old_ex)
@@ -267,18 +340,21 @@ class ExecutorCache:
 
     def invalidate(self, key: ExecKey) -> bool:
         """Drop one entry (True if it was resident), firing ``on_evict``
-        so its device buffers can be released.  The resilience layer uses
-        this to evict a poisoned executor before retrying a degraded
-        build -- a cached broken program must not satisfy the retry."""
+        so its device buffers can be released -- DEFERRED to the last
+        ``unpin`` when staged or step work still holds the executor.  The
+        resilience layer uses this to evict a poisoned executor before
+        retrying a degraded build -- a cached broken program must not
+        satisfy the retry."""
+        pair = None
         with self._lock:
             ex = self._entries.pop(key, None)
             if ex is not None:
-                self.evictions += 1
+                pair = self._evict_locked(key, ex)
         if ex is not None and self.tracer is not None:
             self.tracer.event("invalidate", track="cache",
                               args={"key": key.short()})
-        if ex is not None and self.on_evict:
-            self.on_evict(key, ex)
+        if pair is not None and self.on_evict:
+            self.on_evict(*pair)
         return ex is not None
 
     def warmup(self, keys: Iterable[ExecKey]) -> int:
@@ -311,5 +387,7 @@ class ExecutorCache:
                 "misses": self.misses,
                 "hit_rate": (self.hits / total) if total else 0.0,
                 "evictions": self.evictions,
+                "deferred_evictions": self.deferred_evictions,
+                "pinned": sum(1 for n in self._pins.values() if n > 0),
                 "build_seconds": round(self.build_seconds, 6),
             }

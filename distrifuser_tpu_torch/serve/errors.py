@@ -28,9 +28,10 @@ Definitions live here (a leaf module, importable from anywhere in the
 package without cycles); `serve/queue.py` and `serve/batcher.py`
 re-export their historical names so existing imports keep working.  The
 errors of the subsystems that later steps of ROADMAP item 16 bring
-(admission control, tenant quotas, the fleet, carry export) keep the JAX
-package's names and places in the hierarchy, so that callers can catch
-them alike; the whole-batch server raises none of them.
+(admission control, tenant quotas, the fleet) keep the JAX package's names
+and places in the hierarchy, so that callers can catch them alike; the
+server raises none of them.  Carry export (`CarryExportedError`) and a
+rejected import (`MigrationRejectedError`) come from step batching.
 """
 
 from __future__ import annotations

@@ -14,22 +14,69 @@ exactly the noise a solo ``pipe(prompt, seed=seed)`` call draws (a CPU
 scheduler's ``init_noise_sigma``), and batch rows are independent end to
 end, so coalescing never changes a request's image.
 
-The whole-batch contract (``__call__``) is what this step of ROADMAP item
-16 ports; the JAX package's staged contract (``encode_stage`` /
-``denoise_stage`` / ``decode_stage``), its step-granular contract and
-``attach_prompt_cache`` come with later steps.
+Three contracts, as in the JAX package (serve/executors.py):
+
+* whole-batch (``__call__``): one dispatch runs encode, denoise and decode;
+* staged (``encode_stage`` / ``denoise_stage`` / ``decode_stage``, driven
+  by serve/staging.py): the same three stages of the pipeline's
+  ``prepare_stages``, each on a worker thread of its own.  On the card
+  each stage issues its work on a CUDA stream of its own (encode, denoise
+  and decode: the text encoders and the VAE then run beside another
+  batch's graph replays instead of queueing behind them) and synchronises
+  that stream before it returns -- the JAX package's
+  ``block_until_ready`` -- so a stage's service time is its device work
+  and the next stage reads finished tensors.  A stage drops the inputs it
+  consumed only after that synchronise, so the caching allocator never
+  hands their memory out while a kernel still reads it;
+* step-granular (``step_begin`` ... ``step_run`` ... ``step_finish``,
+  driven by serve/stepbatch.py): one request a work, its denoise carry
+  held here and advanced one step at a time on the device's current
+  stream; same-signature works pack into one evaluation
+  (parallel/rowpack.py).
+
+``attach_prompt_cache`` puts serve/promptcache.py's LRU in front of every
+encode; a monolithic dispatch then runs the stages serially, which are
+bit-identical to ``generate_batch``.  Every stage and step call makes the
+pipeline's card current and enters ``torch.inference_mode`` on its own
+thread: the server's watchdog and the stage workers call from threads of
+their own.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from ..parallel import rowpack
 from .cache import ExecKey
-from .errors import DegradationInapplicableError, is_oom
+from .errors import DegradationInapplicableError, MigrationRejectedError, is_oom
 from .faults import FaultPlan
+
+
+def _tokenizer_hash(pipeline) -> int:
+    """Stable identity of a pipeline's tokenizer stack for the prompt
+    cache key (JAX ``_tokenizer_hash``): two executors of the same model
+    share entries; a different vocabulary (or tokenizer implementation)
+    never does."""
+    import zlib
+
+    parts = []
+    toks = getattr(pipeline, "tokenizers", None)
+    if toks is None:
+        toks = [getattr(pipeline, "tokenizer", None)]
+    for tok in toks or ():
+        if tok is None:
+            continue
+        parts.append(type(tok).__name__)
+        vocab = getattr(tok, "vocab_size", None)
+        if vocab is None:
+            enc = getattr(tok, "encoder", None)
+            vocab = len(enc) if hasattr(enc, "__len__") else 0
+        parts.append(str(vocab))
+    return zlib.crc32("|".join(parts).encode())
 
 
 class PipelineExecutor:
@@ -41,6 +88,13 @@ class PipelineExecutor:
     factory in `pipeline_executor_factory` does all of this).  Only a
     pipeline on one rank is served: serving over n ranks needs rank 0 to
     drive the followers' dispatches (ROADMAP item 16, step 16f).
+
+    Besides the monolithic ``__call__`` contract, the executor exposes the
+    three-stage contract the staged serving pipeline (serve/staging.py)
+    drives and the step-granular contract of the slot pool
+    (serve/stepbatch.py), both built on the pipeline's own stage and
+    carry hooks: staged, step and monolithic dispatch produce
+    bit-identical images.
 
     ``fault_plan`` (serve/faults.py) injects at site ``"executor.execute"``
     for direct (server-less) executor use; a server-driven executor gets
@@ -75,6 +129,33 @@ class PipelineExecutor:
         # included -- surfaced per key by ExecutorCache.weight_bytes
         report = getattr(pipeline, "weight_report", None)
         self.weight_nbytes = report()["total_bytes"] if report else None
+        self._stages = None
+        self.device = torch.device(cfg.device)
+        # one CUDA stream a stage on the card (module docstring)
+        self._streams: Dict[str, Any] = {}
+        # prompt/embedding LRU (serve/promptcache.py), attached by the
+        # owning server via attach_prompt_cache: None = encode always runs
+        self.prompt_cache = None
+        self._encode_cache_family = (type(pipeline).__name__,
+                                     _tokenizer_hash(pipeline))
+        # packed cohort dispatch state (step_run): pipeline support flag
+        # (resolved lazily), rowpack plans cached per carry structure
+        # (None = ambiguous -> that structure stays sequential), and the
+        # last step_run's pack-efficiency tallies for the server's
+        # stepbatch_* counters / fill gauge
+        self._pack_supported: Optional[bool] = None
+        self._pack_axes: Dict[Any, Any] = {}
+        self.step_pack_stats = {"dispatches": 0, "packed_rows": 0,
+                                "rows_capacity": 0}
+
+    # -- observability -----------------------------------------------------
+
+    def attach_step_timeline(self, timeline):
+        """Record a per-denoise-step timeline (`utils.trace.StepTimeline`)
+        for every monolithic dispatch through this executor: wall time
+        per step tagged warmup/full/shallow plus live wire-byte counters
+        reconciled against `comm_plan`."""
+        return self.pipeline.attach_step_timeline(timeline)
 
     def comm_plan(self) -> dict:
         """The closed-form wire-byte plan for one dispatch at this
@@ -113,6 +194,51 @@ class PipelineExecutor:
             seeds = list(seeds) + [seeds[-1]] * pad
         return list(prompts), list(negative_prompts), list(seeds), n_real
 
+    @contextlib.contextmanager
+    def _on_card(self, stage: Optional[str] = None):
+        """The pipeline's card current, inference mode on, and on the card
+        ``stage``'s own CUDA stream (the current stream when None): what
+        every stage and step call runs under, on whatever thread calls it."""
+        with torch.inference_mode():
+            if self.device.type != "cuda":
+                yield
+                return
+            with torch.cuda.device(self.device):
+                if stage is None:
+                    yield
+                    return
+                stream = self._streams.get(stage)
+                if stream is None:
+                    stream = self._streams[stage] = torch.cuda.Stream(self.device)
+                with torch.cuda.stream(stream):
+                    yield
+
+    def _sync(self) -> None:
+        """Wait for the work issued on the current stream (JAX
+        ``block_until_ready``): a stage's or step's time is device time."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def attach_prompt_cache(self, cache):
+        """Use ``cache`` (serve/promptcache.py) in front of every encode:
+        repeated prompt chunks skip tokenize + text-encode.  Monolithic
+        dispatch reroutes through the stages (encode -> denoise -> decode
+        run serially), which are bit-identical to `generate_batch` per
+        (prompt, seed, steps), so caching changes latency, never images."""
+        self.prompt_cache = cache
+        return cache
+
+    def _encode_chunk(self, p_chunk, n_chunk):
+        """One batch-width encode, memoized by (family, tokenizer hash,
+        prompt chunk) when a prompt cache is attached.  A cached entry is
+        the encoder's own output, never a graph's static input."""
+        stages = self.prepare_stages()
+        if self.prompt_cache is None:
+            return stages.encode(p_chunk, n_chunk)
+        key = (self._encode_cache_family, tuple(p_chunk), tuple(n_chunk))
+        return self.prompt_cache.get_or_encode(
+            key, lambda: stages.encode(p_chunk, n_chunk))
+
     def __call__(
         self,
         prompts: List[str],
@@ -123,19 +249,22 @@ class PipelineExecutor:
         if self.fault_plan is not None:
             self.fault_plan.check("executor.execute", key=self.key,
                                   batch_size=len(prompts))
+        if self.prompt_cache is not None:
+            # cached-encode path: the stages run serially (see
+            # attach_prompt_cache) so the memoized embeddings slot in
+            work = self.encode_stage(prompts, negative_prompts, seeds)
+            work = self.denoise_stage(work, guidance_scale)
+            return self.decode_stage(work)
         prompts, negative_prompts, seeds, n_real = self._pad_batch(
             prompts, negative_prompts, seeds)
         bs = self.batch_size
-        device = torch.device(self.pipeline.distri_config.device)
-        # the server's watchdog runs each dispatch on a fresh thread: make
-        # this pipeline's card current there, so every launch (and graph
-        # replay) lands on it
-        on_card = (torch.cuda.device(device) if device.type == "cuda"
-                   else contextlib.nullcontext())
         latents = self._draw_latents(seeds)
         images: List[Any] = []
         try:
-            with on_card:
+            # the server's watchdog runs each dispatch on a fresh thread:
+            # make this pipeline's card current there, so every launch (and
+            # graph replay) lands on it
+            with self._on_card():
                 # a batch wider than the prepared width (batcher
                 # max_batch_size > pipeline batch_size) runs as several
                 # exactly-bs calls of the same prepared pipeline
@@ -158,6 +287,412 @@ class PipelineExecutor:
             latents = images = None
             raise exc.with_traceback(None)
         return images[:n_real]
+
+
+    # -- staged contract (serve/staging.py) --------------------------------
+
+    def prepare_stages(self):
+        """The pipeline's stages at this executor's step count (one
+        `PipelineStages` per executor).  `pipeline_executor_factory` builds
+        them with the executor, so the graph capture inside never runs on
+        a stage worker beside another batch's replay."""
+        if self._stages is None:
+            self._stages = self.pipeline.prepare_stages(self.steps)
+        return self._stages
+
+    def encode_stage(self, prompts: List[str], negative_prompts: List[str],
+                     seeds: List[int]) -> Dict[str, Any]:
+        """Stage 1: pad, tokenize + text-encode every batch-width chunk and
+        draw the per-request seeded latents -- encoder/host work that rides
+        in the shadow of another batch's denoise."""
+        prompts, negative_prompts, seeds, n_real = self._pad_batch(
+            prompts, negative_prompts, seeds)
+        bs = self.batch_size
+        latents = self._draw_latents(seeds)
+        with self._on_card("encode"):
+            encoded = [self._encode_chunk(prompts[i:i + bs], negative_prompts[i:i + bs])
+                       for i in range(0, len(prompts), bs)]
+            self._sync()
+        return {"n_real": n_real, "encoded": encoded, "latents": latents,
+                # cached embeddings belong to the cache: the denoise must
+                # not count them as consumed
+                "encode_cached": self.prompt_cache is not None,
+                "latent": None}
+
+    def denoise_stage(self, work: Dict[str, Any],
+                      guidance_scale: float) -> Dict[str, Any]:
+        """Stage 2: the prepared denoise loop -- the card's bottleneck the
+        other stages hide behind.  Its consumed inputs (initial latents,
+        embeddings) are dropped once its stream is synchronised, so the
+        next in-flight batch reuses their memory."""
+        stages = self.prepare_stages()
+        bs = self.batch_size
+        lats = work["latents"]
+        with self._on_card("denoise"):
+            outs = [stages.denoise(enc, lats[i * bs:(i + 1) * bs], guidance_scale)
+                    for i, enc in enumerate(work["encoded"])]
+            latent = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+            self._sync()
+        del work["encoded"], work["latents"]
+        work["latent"] = latent
+        return work
+
+    def decode_stage(self, work: Dict[str, Any]) -> List[Any]:
+        """Stage 3: chunked VAE decode + device->host conversion, padded
+        rows stripped -- per-request np images, as ``__call__`` returns."""
+        stages = self.prepare_stages()
+        with self._on_card("decode"):
+            images = stages.decode(work["latent"])
+            self._sync()
+        del work["latent"]
+        return list(images)[:work["n_real"]]
+
+    # -- step-granular contract (serve/stepbatch.py) -----------------------
+    #
+    # One request a work: the slot pool holds each request's denoise carry
+    # (latent, step-cache / patch buffers, scheduler state) and advances it
+    # one step at a time, so requests join/leave/park between steps.  A solo
+    # step runs the request padded to the prepared batch width alone; batch
+    # rows are independent end to end, so who else occupies the pool can
+    # never touch this request's numerics, and a parked carry resumes
+    # bit-identically: same per-step evaluations, same inputs, same order.
+
+    def step_begin(self, prompt: str, negative_prompt: str, seed: int,
+                   guidance_scale: float) -> Dict[str, Any]:
+        """Admit one request into step-granular execution: encode (via
+        the prompt cache when attached), draw the request's seeded
+        latent, and initialize the explicit denoise carry.  Returns the
+        work dict `step_run`/`step_finish`/`step_preview` consume."""
+        pipe = self.pipeline
+        if not hasattr(getattr(pipe, "runner", None), "stepwise_carry_init"):
+            raise AttributeError(
+                f"{type(pipe).__name__} has no step-granular carry hooks "
+                "(PipeFusion runners have no host-driven per-step loop)")
+        prompts, negs, seeds, _ = self._pad_batch([prompt], [negative_prompt], [seed])
+        bs = self.batch_size
+        latents = self._draw_latents(seeds[:bs])
+        with self._on_card():
+            enc = self._encode_chunk(prompts[:bs], negs[:bs])
+            carry = pipe.step_carry_init(latents, self.steps)
+            self._sync()
+        # __call__ forces guidance_scale to 1 when CFG is off; the step
+        # path applies the same normalization
+        cfg_on = pipe.distri_config.do_classifier_free_guidance
+        return {
+            "carry": carry,
+            "enc": enc,
+            "gs": guidance_scale if cfg_on else 1.0,
+            "i": 0,
+            # which batch row of the carry is this request's REAL row --
+            # 0 in the solo layout; a packed dispatch re-homes it
+            "row": 0,
+            "encode_cached": self.prompt_cache is not None,
+        }
+
+    # -- packed cohort dispatch (parallel/rowpack.py) ----------------------
+
+    def _step_pack_supported(self) -> bool:
+        if self._pack_supported is None:
+            fn = getattr(self.pipeline, "step_carry_pack_supported", None)
+            self._pack_supported = bool(fn()) if fn is not None else False
+        return self._pack_supported
+
+    def step_signature(self, work: Dict[str, Any]):
+        """Hashable pack-compatibility key of this work's NEXT step:
+        works sharing a signature run the same per-step evaluation and
+        may pack into one dispatch's batch rows.  ``None`` = this work
+        can only run sequentially (unsupported pipeline or config).  The
+        executor's identity is part of the key -- packing never spans
+        executors -- and so is the carry's structure, which grows at the
+        first step (buffers, DPM++ 2M's history): carries of one signature
+        but two structures cannot share a packed carry."""
+        if not self._step_pack_supported():
+            return None
+        sig = self.pipeline.step_carry_signature(work["carry"], work["i"], self.steps)
+        return (id(self), sig, rowpack.tree_flatten(work["carry"])[1])
+
+    def _step_axes(self, work: Dict[str, Any]):
+        """The rowpack per-leaf plan for this work's carry structure
+        (cached per structure -- a carry's buffers and scheduler history
+        appear after its first step, so one executor sees more than one).
+        ``None`` = ambiguous layout; that structure stays sequential."""
+        key = rowpack.tree_flatten(work["carry"])[1]
+        if key not in self._pack_axes:
+            try:
+                self._pack_axes[key] = self.pipeline.step_carry_rows_axes(
+                    work["carry"], work["enc"], self.steps)
+            except rowpack.AmbiguousPackAxisError:
+                self._pack_axes[key] = None
+        return self._pack_axes[key]
+
+    def _step_ensure_solo(self, work: Dict[str, Any]) -> None:
+        """Normalize a work back to the SOLO carry layout: its real row
+        extracted from the shared packed carry and tiled across the
+        width -- byte-identical to a never-packed carry (a solo carry's
+        rows are identical by construction).  Park/export/migration and
+        singleton dispatches all run through this, so the snapshot format
+        and the solo per-step evaluations never see packed state."""
+        grp = work.pop("pack", None)
+        if grp is None:
+            return
+        work["carry"] = rowpack.extract_row(
+            work["carry"], work.get("row", 0), grp["axes"], self.batch_size)
+        work["row"] = 0
+
+    def _step_solo_one(self, work: Dict[str, Any]) -> None:
+        """One sequential step: the per-slot dispatch."""
+        self._step_ensure_solo(work)
+        work["carry"] = self.pipeline.step_carry_step(
+            work["carry"], work["i"], work["enc"], work["gs"], self.steps)
+        work["i"] += 1
+        stats = self.step_pack_stats
+        stats["dispatches"] += 1
+        stats["packed_rows"] += 1
+        stats["rows_capacity"] += self.batch_size
+
+    def _step_dispatch_packed(self, members: List[Dict[str, Any]]) -> None:
+        """Advance a same-signature group in ONE evaluation: member r's
+        real row rides batch row r of a shared packed carry, its step
+        index and guidance scale ride [B] vectors.  Fast path: when the
+        whole group is the SAME pack as last round (same shared carry,
+        full membership, rows 0..n-1) the carry re-dispatches as-is --
+        zero repack work in the steady state.  Otherwise the members'
+        rows (solo or previously packed) repack into a fresh shared
+        carry.  Ambiguous layouts fall back to sequential."""
+        pipe = self.pipeline
+        bs = self.batch_size
+        n = len(members)
+        stats = self.step_pack_stats
+        grp0 = members[0].get("pack")
+        fast = (
+            grp0 is not None
+            and grp0.get("n") == n
+            and all(m.get("pack") is grp0 for m in members)
+            and all(m["carry"] is members[0]["carry"] for m in members)
+            and sorted(m.get("row", 0) for m in members) == list(range(n))
+        )
+        if fast:
+            members = sorted(members, key=lambda m: m["row"])
+            carry, enc, grp = members[0]["carry"], grp0["enc"], grp0
+        else:
+            axes = self._step_axes(members[0])
+            if axes is None:
+                for m in members:
+                    self._step_solo_one(m)
+                return
+            try:
+                carry = rowpack.pack_rows(
+                    [m["carry"] for m in members],
+                    [m.get("row", 0) for m in members], axes, bs)
+            except rowpack.AmbiguousPackAxisError:
+                for m in members:
+                    self._step_solo_one(m)
+                return
+            enc = pipe.step_carry_pack_enc([m["enc"] for m in members], bs)
+            grp = {"axes": axes, "n": n, "enc": enc}
+        i_rows = [m["i"] for m in members]
+        gs_rows = [float(m["gs"]) for m in members]
+        i_rows += [i_rows[-1]] * (bs - n)
+        gs_rows += [gs_rows[-1]] * (bs - n)
+        new_carry = pipe.step_carry_step_rows(carry, i_rows, enc, gs_rows, self.steps)
+        # the step may grow the carry (buffers and scheduler history appear
+        # at the first step): the group's plan follows its new structure
+        axes = self._step_axes({"carry": new_carry, "enc": enc})
+        if axes is None:
+            raise rowpack.AmbiguousPackAxisError(
+                "a packed step left a carry whose rows cannot be told apart")
+        grp["axes"] = axes
+        for r, m in enumerate(members):
+            m["carry"] = new_carry
+            m["row"] = r
+            m["pack"] = grp
+            m["i"] += 1
+        stats["dispatches"] += 1
+        stats["packed_rows"] += n
+        stats["rows_capacity"] += bs
+
+    def step_run(self, works: List[Dict[str, Any]]) -> None:
+        """Advance each work by exactly ONE denoise step (its own step
+        index -- cohort members may sit at different timesteps), and wait
+        for the cohort's device work so the step batcher's calibrated
+        per-step service time is honest.
+
+        Cohort members whose next step shares a signature
+        (`step_signature`: same phase / buffers / shallow flag / scheduler
+        history) advance in ONE padded evaluation, each member's real row
+        on its own batch row, bit-identical to its solo step.  Groups form
+        in cohort (EDF) order, at most ``batch_size`` rows each;
+        singleton groups, unsupported configs (`step_signature` -> None)
+        and ambiguous carry layouts run the solo per-slot dispatch.
+        `step_pack_stats` tallies this call's dispatches / real rows /
+        row capacity for the server's pack-efficiency counters."""
+        self.step_pack_stats = {"dispatches": 0, "packed_rows": 0,
+                                "rows_capacity": 0}
+        bs = self.batch_size
+        groups: List[List[Dict[str, Any]]] = []
+        solos: List[Dict[str, Any]] = []
+        open_group: Dict[Any, List[Dict[str, Any]]] = {}
+        for w in works:
+            sig = self.step_signature(w)
+            if sig is None:
+                solos.append(w)
+                continue
+            g = open_group.get(sig)
+            if g is None or len(g) >= bs:
+                g = []
+                open_group[sig] = g
+                groups.append(g)
+            g.append(w)
+        with self._on_card():
+            for w in solos:
+                self._step_solo_one(w)
+            for members in groups:
+                if len(members) == 1:
+                    self._step_solo_one(members[0])
+                else:
+                    self._step_dispatch_packed(members)
+            self._sync()
+
+    def step_done(self, work: Dict[str, Any]) -> bool:
+        return work["i"] >= self.steps
+
+    def step_finish(self, work: Dict[str, Any]):
+        """Decode the finished carry to the request's np image -- the
+        work's own packed row (row 0 in the solo layout).  A packed carry
+        is shared with the group's other members: dropping this work's
+        reference is its release."""
+        stages = self.prepare_stages()
+        with self._on_card():
+            latent = self.pipeline.step_carry_latent(work["carry"])
+            images = stages.decode(latent)
+        row = work.get("row", 0)
+        for k in ("pack", "carry", "enc"):
+            work.pop(k, None)
+        return list(images)[row]
+
+    def step_abort(self, work: Dict[str, Any]) -> None:
+        """Release a work's device buffers without decoding (failed or
+        stopped mid-denoise).  Cached embeddings stay with the prompt
+        cache; a packed (shared) carry is only dereferenced."""
+        for k in ("pack", "carry", "enc"):
+            work.pop(k, None)
+
+    def step_park(self, work: Dict[str, Any]) -> None:
+        """Preemption: pull the carry to HOST memory so the parked request
+        stops holding device residency (the slot it frees goes to the
+        preemptor).  A packed member first extracts back to its solo
+        layout.  device->host->device is an exact byte round-trip, so the
+        resumed denoise is bit-identical."""
+        with self._on_card():
+            self._step_ensure_solo(work)
+            leaves, structure = rowpack.tree_flatten(work["carry"])
+            work["parked_on"] = [leaf.device for leaf in leaves]
+            work["carry"] = rowpack.tree_unflatten(structure, [leaf.cpu() for leaf in leaves])
+
+    def step_resume(self, work: Dict[str, Any]) -> None:
+        """Resume a parked carry: each leaf back where it lived (the
+        scheduler's per-run scalars stay on the CPU, as the solo step
+        keeps them), byte for byte."""
+        devices = work.pop("parked_on", None)
+        if devices is None:
+            return
+        with self._on_card():
+            leaves, structure = rowpack.tree_flatten(work["carry"])
+            work["carry"] = rowpack.tree_unflatten(
+                structure, [leaf.to(d) for leaf, d in zip(leaves, devices)])
+            self._sync()
+
+    def step_export(self, work: Dict[str, Any]):
+        """Carry migration (serve/migration.py): the request's denoise
+        carry as HOST tensors for serialization -- the same device->host
+        round-trip `step_park` makes, so an importing server resumes the
+        identical bytes.  Returns ``(extra_meta, leaves)``: the
+        executor-owned header fields (family, step index, and the carry's
+        structure, which grows after the first step) and the flat leaf
+        list; the work itself is left intact (the caller still releases
+        it via `step_abort`).  A packed member exports its SOLO layout."""
+        with self._on_card():
+            self._step_ensure_solo(work)
+            leaves, structure = rowpack.tree_flatten(work["carry"])
+            leaves = [leaf.cpu() for leaf in leaves]
+        extra = {"family": type(self.pipeline).__name__,
+                 "step": int(work["i"]),
+                 "carry_structure": repr(structure)}
+        return extra, leaves
+
+    def _carry_template(self, work: Dict[str, Any], step: int, structure: str):
+        """A carry of the structure a step-``step`` carry of this request
+        has: the fresh carry, or (when its structure differs from the
+        snapshot's) the carry after one step -- buffers and scheduler
+        history appear at the first step and keep their shapes after."""
+        carry = work["carry"]
+        if step == 0 or repr(rowpack.tree_flatten(carry)[1]) == structure:
+            return carry
+        with self._on_card():
+            return self.pipeline.step_carry_step(carry, 0, work["enc"], work["gs"],
+                                                 self.steps)
+
+    def step_import(self, meta: Dict[str, Any], leaves, prompt: str,
+                    negative_prompt: str, seed: int,
+                    guidance_scale: float) -> Dict[str, Any]:
+        """Adopt an exported carry: rebuild the request's work via
+        `step_begin` (re-encoded embeddings; encode is a pure function of
+        the prompt, so they are bit-identical to the exporter's), validate
+        every snapshot leaf against a template carry's shape and dtype,
+        then graft the snapshot leaves in and resume at the exported step
+        index.  Structure drift rejects TYPED (`MigrationRejectedError`):
+        resuming a mismatched carry would be silent corruption."""
+        family = type(self.pipeline).__name__
+        if meta.get("family") != family:
+            raise MigrationRejectedError(
+                f"carry snapshot family {meta.get('family')!r} cannot "
+                f"import into a {family} executor")
+        step = int(meta["step"])
+        if not (0 <= step <= self.steps):
+            raise MigrationRejectedError(
+                f"carry snapshot step {step} out of range for a "
+                f"{self.steps}-step executor")
+        work = self.step_begin(prompt, negative_prompt, seed, guidance_scale)
+        template = self._carry_template(work, step, str(meta.get("carry_structure")))
+        tmpl_leaves, structure = rowpack.tree_flatten(template)
+        if meta.get("carry_structure") not in (None, repr(structure)):
+            self.step_abort(work)
+            raise MigrationRejectedError(
+                "carry snapshot structure does not match this executor's carry "
+                f"at step {step}")
+        if len(leaves) != len(tmpl_leaves):
+            self.step_abort(work)
+            raise MigrationRejectedError(
+                f"carry snapshot has {len(leaves)} leaves; this "
+                f"executor's carry has {len(tmpl_leaves)}")
+        for i, (got, want) in enumerate(zip(leaves, tmpl_leaves)):
+            if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
+                self.step_abort(work)
+                raise MigrationRejectedError(
+                    f"carry snapshot leaf {i} is {tuple(got.shape)}/{got.dtype}; "
+                    f"this executor's carry wants {tuple(want.shape)}/{want.dtype}")
+        with self._on_card():
+            work["carry"] = rowpack.tree_unflatten(
+                structure, [torch.as_tensor(leaf).to(want.device)
+                            for leaf, want in zip(leaves, tmpl_leaves)])
+            self._sync()
+        work["i"] = step
+        return work
+
+    def step_preview(self, work: Dict[str, Any], max_size: int = 64):
+        """Cheap intermediate preview: the request's CURRENT latent,
+        host-side -- first three latent channels min-max normalized and
+        stride-downsampled to at most ``max_size`` per edge.  No model, no
+        VAE: previews cost O(latent bytes) of copy, never a denoise."""
+        with self._on_card():
+            lat = self.pipeline.step_carry_latent(work["carry"])[work.get("row", 0)]
+            lat = lat.float().cpu().numpy()
+        rgb = (lat[..., :3] if lat.shape[-1] >= 3
+               else np.repeat(lat[..., :1], 3, axis=-1))
+        lo, hi = float(rgb.min()), float(rgb.max())
+        rgb = (rgb - lo) / ((hi - lo) or 1.0)
+        stride = max(1, -(-max(rgb.shape[0], rgb.shape[1]) // int(max_size)))
+        return rgb[::stride, ::stride].astype(np.float32)
 
 
 def apply_key_policy(pipeline, key: ExecKey) -> None:
@@ -254,7 +789,8 @@ def pipeline_executor_factory(
     ``from_params`` / ``from_pretrained`` with key.scheduler.  The factory
     forces the key's policy (`apply_key_policy`) and runs `prepare`, which
     captures the denoiser's CUDA graphs, so cache misses pay the full cost
-    HERE, off the per-request path, and hands back a ready executor.
+    HERE, off the per-request path, and hands back a ready executor with
+    its stages built (`PipelineExecutor.prepare_stages`).
     Before the build it returns the caching allocator's free blocks to the
     card (``torch.cuda.empty_cache``), so a rebuild after an OOM starts
     from what the failed call gave back.  ``fault_plan`` injects at sites
@@ -269,7 +805,10 @@ def pipeline_executor_factory(
         pipe = build_pipeline(key)
         apply_key_policy(pipe, key)
         pipe.prepare(key.steps)
-        return PipelineExecutor(pipe, key.steps, key=key,
-                                fault_plan=fault_plan)
+        ex = PipelineExecutor(pipe, key.steps, key=key, fault_plan=fault_plan)
+        # the stages (and any capture they make) are built here, on the
+        # building thread, before a stage worker can run the executor
+        ex.prepare_stages()
+        return ex
 
     return factory

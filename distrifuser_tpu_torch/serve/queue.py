@@ -14,9 +14,11 @@ systems win throughput at this orchestration layer, not inside the model):
   order, so two requests for the same bucket can never reorder.
 Thread model: producers call `put` from any thread; the single scheduler
 thread (serve/server.py) drains via `wait_nonempty` / `pop_expired` /
-`pop_where`.  All state is guarded by one lock + condition.  (The JAX
-package's queue also takes a tenancy policy and serves the step-granular
-scheduler's EDF peeks; both come with later steps of ROADMAP item 16.)
+`pop_where`; the step-granular scheduler (serve/stepbatch.py) peeks the
+tightest-slack request (`peek_best` / `peek_urgent`) and takes it out
+with `remove`.  All state is guarded by one lock + condition.  (The JAX
+package's queue also takes a tenancy policy; it comes with step 16d of
+ROADMAP item 16.)
 """
 
 from __future__ import annotations
@@ -84,6 +86,18 @@ class Request:
     # tracer-local ids the lifecycle hooks close spans against); None —
     # and completely untouched — when tracing is off
     trace: Any = None
+    # progressive-preview callback (step-level continuous batching,
+    # serve/stepbatch.py): ``on_progress(step, total_steps, preview)``
+    # fires on the SCHEDULER thread every preview_interval steps with a
+    # cheap downsampled-latent image -- keep it fast; a slow callback
+    # stalls the whole step loop.  Set at construction, never mutated.
+    on_progress: Any = None
+    # carry migration (serve/migration.py): the DECODED snapshot
+    # (`CarrySnapshot`) this re-dispatched request resumes from --
+    # validated synchronously at submit, imported at step admission.
+    # None for every fresh (non-migrated) request.  Set at construction,
+    # never mutated.
+    carry_snapshot: Any = None
 
     def expired(self, now: float) -> bool:
         return now >= self.deadline
@@ -229,3 +243,40 @@ class RequestQueue:
             drained, self._items = self._items, []
             self._nonempty.notify_all()
             return drained
+
+    def peek_best(self, score: Callable[[Request], float]) -> Optional[Request]:
+        """The queued request minimizing ``score`` (ties broken by
+        arrival order -- min() returns the first), NOT removed.  The
+        step-granular scheduler's EDF admission: deadline slack
+        deliberately supersedes FIFO there, because a slot pool has no
+        compatibility classes to keep ordered -- fill and preemption peek
+        the tightest-slack candidate, weigh it against parked carries or
+        a potential victim, and only then `remove` it (single consumer:
+        the scheduler thread is the only popper, so peek-then-remove
+        cannot race another taker)."""
+        with self._lock:
+            if not self._items:
+                return None
+            return min(self._items, key=score)
+
+    def peek_urgent(self, score: Callable[[Request], float]
+                    ) -> Optional[Request]:
+        """The globally tightest request by ``score`` (the deadline-rescue
+        path's peek).  Without a tenancy policy it is `peek_best`; the JAX
+        package's queue keeps the two apart because its deficit-round-robin
+        turn can hide another tenant's about-to-miss request from
+        `peek_best`."""
+        with self._lock:
+            if not self._items:
+                return None
+            return min(self._items, key=score)
+
+    def remove(self, req: Request) -> bool:
+        """Remove one specific request (identity match); False if it is
+        no longer queued."""
+        with self._lock:
+            for i, r in enumerate(self._items):
+                if r is req:
+                    del self._items[i]
+                    return True
+            return False

@@ -41,11 +41,25 @@ The executor contract (what `executor_factory(key)` must return):
 `serve/executors.py` adapts the port's pipelines; `serve/testing.py` has
 the deterministic weightless fakes used by tests and the demo.
 
-This is the whole-batch path of the JAX package's server (ROADMAP item 16,
-step 16a).  What switches on over it there comes with later steps, and
-the server refuses it until then with a ``ValueError`` naming the step:
-staging and the prompt cache (16b), step batching (16c), the SLO
-controller, tenancy and the gateway (16d), and the AOT store (16g).
+Over the whole-batch path (ROADMAP item 16, step 16a) two disciplines
+switch on as in the JAX package (steps 16b and 16c):
+
+* ``pipeline_stages``: coalesced batches run through the three-stage
+  worker pipeline of serve/staging.py (encode, denoise, decode overlapped
+  across batches, at most ``max_inflight_batches`` resident), with the
+  ``staging_off`` rung falling a failing key back to this path;
+  ``prompt_cache_capacity`` puts serve/promptcache.py's LRU in front of
+  every executor's text encode;
+* ``step_batching``: the denoise loop becomes the slot pool of
+  serve/stepbatch.py -- requests join, leave, park and pack between
+  denoise steps (``ExecKey.exec_mode="step"``), stream previews, and on
+  stop export their carries for migration (serve/migration.py);
+  ``submit(carry_snapshot=...)`` resumes one.
+
+What the JAX server switches on besides comes with later steps, and this
+server refuses it until then with a ``ValueError`` naming the step: the
+SLO controller, tenancy and the gateway (16d), staging or step batching
+over more than one rank (16f), and the AOT store (16g).
 """
 
 from __future__ import annotations
@@ -64,6 +78,7 @@ from .batcher import BatchKey, BucketTable, MicroBatcher
 from .cache import ExecKey, ExecutorCache
 from .errors import (
     BuildFailedError,
+    CarryExportedError,
     CircuitOpenError,
     DeadlineExceededError,
     DegradationInapplicableError,
@@ -81,16 +96,25 @@ from .errors import (
     is_oom,
 )
 from .faults import FaultPlan
+from .migration import (
+    check_identity,
+    check_key_compatible,
+    decode_snapshot,
+    encode_snapshot,
+)
 from .queue import Request, RequestQueue, ServeResult
-from .resilience import RUNG_SPLIT, ResilienceEngine, failure_kind
+from .resilience import (
+    RUNG_SPLIT,
+    RUNG_STAGING_OFF,
+    ResilienceEngine,
+    failure_kind,
+)
 
 ROADMAP_STEP = {
-    "pipeline_stages": "16b (staging and the prompt cache)",
-    "prompt_cache": "16b (staging and the prompt cache)",
-    "step_batching": "16c (step batching and carry migration)",
     "controller": "16d (the controller, tenancy and the gateway)",
     "tenancy": "16d (the controller, tenancy and the gateway)",
     "gateway": "16d (the controller, tenancy and the gateway)",
+    "ranks": "16f (serving over n ranks)",
     "aot_cache": "16g (the AOT store)",
 }
 
@@ -101,16 +125,27 @@ def _not_ported(what: str, step: str) -> ValueError:
         f"ROADMAP item 16, step {ROADMAP_STEP[step]}")
 
 
-def refuse_unported(config: ServeConfig) -> None:
-    """Raise ``ValueError`` for every setting whose subsystem this step of
-    ROADMAP item 16 does not port.  `ServeConfig` itself accepts them, as
-    the JAX package's does; the server refuses to run with them on."""
-    if config.pipeline_stages:
-        raise _not_ported("ServeConfig(pipeline_stages=True)", "pipeline_stages")
-    if config.prompt_cache_capacity > 0:
-        raise _not_ported("ServeConfig(prompt_cache_capacity > 0)", "prompt_cache")
-    if config.step_batching.enabled:
-        raise _not_ported("step_batching.enabled", "step_batching")
+def _mesh_size(mesh_plan: str) -> int:
+    """Ranks of a `DistriConfig.mesh_plan` tag ("dp1.cfg2.sp2" -> 4)."""
+    size = 1
+    for part in mesh_plan.split("."):
+        digits = "".join(ch for ch in part if ch.isdigit())
+        size *= int(digits) if digits else 1
+    return size
+
+
+def refuse_unported(config: ServeConfig, mesh_plan: str = "dp1.cfg1.sp1") -> None:
+    """Raise ``ValueError`` for every setting whose subsystem the port's
+    serve plane does not carry yet (ROADMAP item 16, steps 16d-16g).
+    `ServeConfig` itself accepts them, as the JAX package's does; the
+    server refuses to run with them on."""
+    if _mesh_size(mesh_plan) > 1:
+        if config.pipeline_stages:
+            raise _not_ported(
+                f"ServeConfig(pipeline_stages=True) over {mesh_plan}", "ranks")
+        if config.step_batching.enabled:
+            raise _not_ported(
+                f"step_batching.enabled over {mesh_plan}", "ranks")
     if config.controller.enabled:
         raise _not_ported("controller.enabled", "controller")
     if config.gateway.tenants:
@@ -147,7 +182,7 @@ class InferenceServer:
         replica_name: Optional[str] = None,
     ):
         self.config = config or ServeConfig()
-        refuse_unported(self.config)
+        refuse_unported(self.config, mesh_plan)
         self.model_id = model_id
         self.scheduler = scheduler
         self.mesh_plan = mesh_plan
@@ -155,15 +190,23 @@ class InferenceServer:
         self.fault_plan = fault_plan
         self.replica_name = replica_name
         self.queue = RequestQueue(self.config.max_queue_depth)
+        # self.prompt_cache is created below (it needs the registry); the
+        # factory wrapper reads the attribute lazily at build time, which
+        # always happens after __init__ completes (warmup/start/dispatch)
+        self.prompt_cache = None
 
         def _factory(key, _inner=executor_factory):
             # the "build" site wraps WHATEVER factory was passed, so fake
-            # and real executors get build faults through one code path
-            if key.exec_mode == "step":
-                raise _not_ported("an ExecKey(exec_mode='step')", "step_batching")
+            # and real executors get build faults through one code path --
+            # and every built executor gets the server's prompt cache
+            # attached when it knows how to use one
             if self.fault_plan is not None:
                 self.fault_plan.check("build", key=key)
-            return _inner(key)
+            ex = _inner(key)
+            if (self.prompt_cache is not None
+                    and hasattr(ex, "attach_prompt_cache")):
+                ex.attach_prompt_cache(self.prompt_cache)
+            return ex
 
         self.cache = ExecutorCache(
             _factory, capacity=self.config.cache_capacity
@@ -231,8 +274,20 @@ class InferenceServer:
             # backoff sleeps become stop-interruptible waits: stop() never
             # waits out a backoff schedule
             sleep=self._stop.wait,
+            staging=self.config.pipeline_stages,
             tracer=self.tracer,
         )
+        # Prompt/embedding LRU cache (serve/promptcache.py): repeated
+        # prompts skip text-encode; the hit rate rides the registry
+        if self.config.prompt_cache_capacity > 0:
+            from .promptcache import PromptCache
+
+            self.prompt_cache = PromptCache(
+                self.config.prompt_cache_capacity,
+                counter=self.registry.counter("serve_prompt_cache"),
+            )
+            self.registry.register("serve_prompt_cache_state",
+                                   self.prompt_cache)
         # the resilience ring log joins the unified registry (JSON render;
         # the Prometheus exposition skips free-text rings by design)
         self.registry.register("serve_last_errors",
@@ -240,6 +295,63 @@ class InferenceServer:
         self.registry.gauge(
             "serve_watchdog_timeouts",
             lambda: float(self.resilience.watchdog.timeouts))
+        # Step-level continuous batching (serve/stepbatch.py): the denoise
+        # loop becomes a slot pool of per-request carries -- requests join
+        # and leave BETWEEN STEPS, EDF reorders the cohort, low-slack
+        # arrivals preempt the slackest slot, and occupied slots stream
+        # progressive previews.  None when off -- the whole-batch dispatch
+        # path runs zero step-pool code, the tracer convention.
+        self.stepbatch = None
+        if self.config.step_batching.enabled:
+            from .stepbatch import StepBatcher
+
+            self.stepbatch = StepBatcher(
+                self.config.step_batching,
+                clock=clock,
+                # pack-compatibility key source for width-truncated
+                # cohorts (StepBatchConfig.pack_align)
+                pack_signature=self._step_pack_signature,
+            )
+            # pack-efficiency: real request rows per dispatched row
+            # capacity across the server lifetime (1.0 = every packed
+            # dispatch full; sequential dispatches drag it toward 1/width)
+            self._pack_rows_total = 0
+            self._pack_capacity_total = 0
+            self.registry.gauge(
+                "serve_stepbatch_pack_fill",
+                lambda: (self._pack_rows_total / self._pack_capacity_total
+                         if self._pack_capacity_total else 0.0))
+            self.hist_first_preview = self.registry.histogram(
+                "serve_latency_seconds", labels={"phase": "first_preview"})
+            self.registry.gauge(
+                "serve_slot_occupied",
+                lambda: float(len(self.stepbatch.occupied())))
+            self.registry.gauge(
+                "serve_slot_parked",
+                lambda: float(len(self.stepbatch.parked)))
+            self.registry.gauge(
+                "serve_slot_capacity",
+                lambda: float(self.config.step_batching.slots))
+        # Staged pipelining (serve/staging.py): three stage workers overlap
+        # text-encode, denoise, and VAE-decode across micro-batches.  The
+        # scheduler thread submits and drains outcome events; futures
+        # resolve from the decode worker.
+        self.staging = None
+        if self.config.pipeline_stages:
+            from .staging import StagePipeline
+
+            self.staging = StagePipeline(
+                max_inflight=self.config.max_inflight_batches,
+                watchdog_timeout_s=self.config.resilience.watchdog_timeout_s,
+                clock=clock,
+                counters=self.counters,
+                on_success=self._staged_success,
+                on_failure=self._staged_failure,
+                on_release=self._staged_release,
+                fault_plan=fault_plan,
+                registry=self.registry,
+                tracer=self.tracer,
+            )
         self._thread: Optional[threading.Thread] = None
         self._started = False
         # guards the two lifecycle cells concurrent stop()/start() callers
@@ -285,7 +397,8 @@ class InferenceServer:
         scheduler join.  Stops admitting, fails every still-queued future
         with `ServerClosedError`, and marks the scheduler so the in-flight
         retry loop fails its batch terminally at the next check.  A later
-        `stop()` completes the shutdown (join, endpoint teardown)."""
+        `stop()` completes the shutdown (join, staging drain, endpoint
+        teardown)."""
         self._stop.set()
         for req in self.queue.close():
             self.counters.inc("rejected_server_closed")
@@ -301,6 +414,12 @@ class InferenceServer:
         bounded by the watchdog), so `stop()` returns within roughly
         ``max(timeout, one batch)`` with no future left unresolved."""
         self.request_stop()
+        if self.staging is not None:
+            # drain the stage queues deterministically: every staged batch
+            # not yet through decode fails with ServerClosedError (the
+            # stage invocation in progress finishes, bounded by its
+            # watchdog), so no staged future is left unresolved either
+            self.staging.stop(timeout)
         with self._lifecycle_lock:
             t = self._thread
         if t is not None:
@@ -379,7 +498,11 @@ class InferenceServer:
                               if parallelism == "patch" else 1.0),
             weight_quant=self.config.weight_quant,
             quant_compute=self.config.quant_compute,
-            exec_mode="fused",
+            # the step-granular dispatch discipline is executor-distinct:
+            # a slot-pool server's executors run the eager per-step
+            # evaluations with an explicit external carry
+            exec_mode=("step" if self.config.step_batching.enabled
+                       else "fused"),
             parallelism=parallelism,
             pipe_patches=pipe_patches,
         )
@@ -420,20 +543,41 @@ class InferenceServer:
 
         ``slo_class`` tags the request for the per-class rolling-latency
         windows (`slo_snapshot`).  ``tenant`` is accepted and carried, as
-        on a JAX server without a tenant table; ``on_progress`` is ignored,
-        as on the JAX package's whole-batch servers (previews need step
-        batching).  ``carry_snapshot`` (carry migration) needs step
-        batching, so it is rejected with `MigrationRejectedError`, as the
-        JAX package rejects it without step batching."""
+        on a JAX server without a tenant table.
+
+        ``on_progress(step, total_steps, preview)`` -- progressive
+        previews (step-level continuous batching only): fires on the
+        scheduler thread every ``step_batching.preview_interval`` steps
+        with a cheap downsampled-latent image.  Keep it fast; ignored on
+        whole-batch servers.
+
+        ``carry_snapshot`` -- carry migration (serve/migration.py): the
+        encoded bytes a stopped server exported for this same request
+        (`CarryExportedError.snapshot`).  Decoded and identity-checked
+        HERE, synchronously -- `MigrationRejectedError` (retryable) means
+        the caller must strip the snapshot and resubmit from step 0;
+        ExecKey compatibility is checked later at step admission, where
+        the executing key is known.  Step-batching servers only."""
         if not self._started or self._stop.is_set():
             raise ServerClosedError("server is not running")
+        snap = None
         if carry_snapshot is not None:
-            raise MigrationRejectedError(
-                "carry import needs step-level continuous batching "
-                "(ServeConfig.step_batching.enabled) on the importing "
-                "replica, which comes with ROADMAP item 16, step "
-                + ROADMAP_STEP["step_batching"]
-            )
+            if self.stepbatch is None:
+                raise MigrationRejectedError(
+                    "carry import needs step-level continuous batching "
+                    "(ServeConfig.step_batching.enabled) on the importing "
+                    "replica"
+                )
+            data = carry_snapshot
+            if self.fault_plan is not None:
+                # chaos site: corruption in flight between servers
+                data = self.fault_plan.mutate("migrate.import", data)
+            try:
+                snap = decode_snapshot(data)
+                check_identity(snap, prompt=prompt, seed=seed)
+            except MigrationRejectedError:
+                self.counters.inc("migrations_rejected")
+                raise
         steps = (self.config.default_steps if num_inference_steps is None
                  else num_inference_steps)
         ttl = self.config.default_ttl_s if ttl_s is None else ttl_s
@@ -449,6 +593,8 @@ class InferenceServer:
             tenant=str(tenant),
             deadline=self.clock() + ttl,
             enqueue_ts=self.clock(),
+            on_progress=on_progress,
+            carry_snapshot=snap,
         )
         if self.tracer is not None:
             self._trace_submit(req, steps)
@@ -530,6 +676,8 @@ class InferenceServer:
             pass  # cancelled/raced future: the caller gave up on it
 
     _OUTCOMES = {
+        "CarryExportedError": "carry_exported",
+        "MigrationRejectedError": "migration_rejected",
         "ServerClosedError": "server_closed",
         "DeadlineExceededError": "deadline_exceeded",
         "CircuitOpenError": "shed_circuit_open",
@@ -562,8 +710,33 @@ class InferenceServer:
         # loudly in metrics and keep serving, never die silently.
         import traceback
 
+        if self.stepbatch is not None:
+            # step-level continuous batching: the slot-pool round loop
+            # replaces whole-batch dispatch entirely for this server
+            try:
+                while not self._stop.is_set():
+                    try:
+                        busy = self._step_round()
+                    except Exception:  # noqa: BLE001
+                        self.counters.inc("scheduler_errors")
+                        traceback.print_exc()
+                        continue
+                    if not busy:
+                        # idle: sleep until an arrival (or the stop flag's
+                        # next check) instead of spinning the pool
+                        self.queue.wait_nonempty(0.05)
+            finally:
+                # deterministic drain on the owner thread: every resident
+                # carry (occupied AND parked) resolves its future -- the
+                # step-mode analog of close() draining the queue
+                self._step_drain()
+            return
+
         while not self._stop.is_set():
             try:
+                # staged outcomes ride an event queue back here: the
+                # breaker/ladder mutating methods are scheduler-thread-only
+                self._drain_staged_outcomes()
                 got = self.batcher.next_batch(timeout=0.05)
             except Exception:  # noqa: BLE001
                 self.counters.inc("scheduler_errors")
@@ -585,8 +758,685 @@ class InferenceServer:
                 traceback.print_exc()
                 self._fail_batch(batch, exc)
 
+    # -- the step-granular scheduling round (serve/stepbatch.py) -----------
+    #
+    # One round = reap -> fill -> preempt -> advance one step -> previews
+    # -> retire.  Everything here runs on the single scheduler thread; the
+    # slot pool is its private state (lock-discipline registry entry).
+
+    def _step_round(self) -> bool:
+        """One slot-pool scheduling round; returns whether any work
+        happened (False lets the loop sleep on the queue condition)."""
+        sb = self.stepbatch
+        now = self.clock()
+        busy = False
+        for req in self.queue.pop_expired(now):
+            self._reject(req, DeadlineExceededError(
+                f"request {req.request_id} expired after "
+                f"{now - req.enqueue_ts:.3f}s in queue"
+            ))
+            busy = True
+        busy = self._step_reap(now) or busy
+        busy = self._step_fill(now) or busy
+        busy = self._step_preempt(now) or busy
+        cohort = sb.cohort(self.clock())
+        if cohort:
+            sb.rounds += 1
+            stepped = self._step_advance(cohort)
+            if stepped:
+                self._step_previews(stepped)
+            self._step_retire_finished()
+            busy = True
+        return busy
+
+    def _step_slack_score(self, now: float):
+        sb = self.stepbatch
+
+        def score(req: Request) -> float:
+            return sb.request_slack(req, now)
+
+        return score
+
+    def _step_release(self, state, *, abort: bool) -> None:
+        """Common teardown for one slot state leaving the pool: buffers,
+        pin, pool membership, inflight gauge."""
+        self.stepbatch.remove(state)
+        self._inflight_c.inc("requests", -1)
+        if abort:
+            try:
+                state.executor.step_abort(state.work)
+            except Exception:  # noqa: BLE001 -- release is best-effort
+                pass
+        self.cache.unpin(state.executor)
+
+    def _step_fail_state(self, state, exc: Exception) -> None:
+        outcome = self._OUTCOMES.get(type(exc).__name__,
+                                     type(exc).__name__)
+        self._step_release(state, abort=True)
+        self._trace_finish(state.request, outcome)
+        self._resolve(state.request.future, exc=exc)
+
+    def _step_fail_group_deferred(self, members, exc: Exception,
+                                  after) -> None:
+        """Fail a watchdog-ABANDONED cohort group: resolve the futures
+        and free the slots NOW, but defer every member's buffer release
+        and executor unpin behind the orphaned worker's done-event with
+        ONE waiter thread -- the staged pipeline's deferral protocol (the
+        abandoned thread still mutates the work dicts and runs the
+        denoiser; freeing either under it would be a
+        use-after-free)."""
+        outcome = self._OUTCOMES.get(type(exc).__name__,
+                                     type(exc).__name__)
+        for m in members:
+            self.stepbatch.remove(m)
+            self._inflight_c.inc("requests", -1)
+            self._trace_finish(m.request, outcome)
+            self._resolve(m.request.future, exc=exc)
+
+        def waiter(_members=list(members), _ev=after):
+            _ev.wait()
+            for m in _members:
+                try:
+                    m.executor.step_abort(m.work)
+                except Exception:  # noqa: BLE001 -- best-effort
+                    pass
+                self.cache.unpin(m.executor)
+
+        sync.Thread(target=waiter, name="serve-step-deferred-release",
+                    daemon=True).start()
+
+    def _step_reap(self, now: float) -> bool:
+        """Drop cancelled futures (client gave up -- free the slot early)
+        and fail PARKED states whose deadline lapsed: a parked request is
+        not on the card, so the in-flight completes-late exemption does
+        not apply to it."""
+        sb = self.stepbatch
+        busy = False
+        for state in list(sb.occupied()) + list(sb.parked):
+            if state.request.future.cancelled():
+                self.counters.inc("step_cancelled")
+                self._step_release(state, abort=True)
+                self._trace_finish(state.request, "cancelled")
+                busy = True
+            elif state.parked and state.request.expired(now):
+                self.counters.inc("rejected_deadline")
+                self._step_fail_state(state, DeadlineExceededError(
+                    f"request {state.request.request_id} expired while "
+                    f"parked at step {state.steps_done}/"
+                    f"{state.steps_total}"
+                ))
+                busy = True
+        return busy
+
+    def _step_fill(self, now: float) -> bool:
+        """Fill free slots in ascending-slack (EDF) order from the parked
+        list and the queue jointly -- a resumed carry competes with fresh
+        arrivals on the same deadline math."""
+        sb = self.stepbatch
+        busy = False
+        score = self._step_slack_score(now)
+        while sb.free_slots() > 0:
+            parked = (min(sb.parked, key=lambda s: sb.state_slack(s, now))
+                      if sb.parked else None)
+            queued = self.queue.peek_best(score)
+            take_parked = parked is not None and (
+                queued is None
+                or sb.state_slack(parked, now) <= score(queued))
+            if take_parked:
+                try:
+                    parked.executor.step_resume(parked.work)
+                except Exception as exc:  # noqa: BLE001 -- typed fail
+                    self.counters.inc("failed_execute")
+                    self._step_fail_state(parked, ExecuteFailedError(
+                        f"step resume failed for {parked.ekey.short()}: "
+                        f"{type(exc).__name__}: {exc}"))
+                    busy = True
+                    continue
+                sb.unpark(parked)
+                self.counters.inc("step_resumes")
+                if self.tracer is not None and parked.request.trace:
+                    rt = parked.request.trace
+                    self.tracer.event("resume", track=rt.track,
+                                      trace=rt.trace_id,
+                                      args={"step": parked.steps_done})
+                busy = True
+            elif queued is not None:
+                if not self.queue.remove(queued):
+                    break  # raced close(); the drain path owns it now
+                self._step_admit(queued, now)
+                busy = True
+            else:
+                break
+        return busy
+
+    def _step_request_key(self, req: Request):
+        """The ONE derivation of a request's admission identity -- bucket
+        snap -> base key -- shared by `_step_admit` and the preemption
+        pre-check so the two can never drift.  Returns ``(bucket,
+        base_key, tier_idx)`` (the JAX package's controller tier; None
+        here); raises `NoBucketError`."""
+        bh, bw = self.batcher.table.snap(req.height, req.width)
+        base_key = self._exec_key_for(bh, bw, req.num_inference_steps,
+                                      cfg=req.guidance_scale > 1.0)
+        return (bh, bw), base_key, None
+
+    def _step_admit(self, req: Request, now: float) -> bool:
+        """Admit one request into a free slot: snap, tier-map, breaker
+        gate, pinned executor fetch, and `step_begin` (encode + seeded
+        latent + carry init).  Failures are ONE terminal dispatch failure
+        (no step-granular retry loop -- the staged-pipeline convention),
+        with the ladder advancing on OOM/compile kinds."""
+        sb = self.stepbatch
+        try:
+            (bh, bw), base_key, tier_idx = self._step_request_key(req)
+        except NoBucketError as exc:
+            self._reject(req, exc)
+            return False
+        if not self.resilience.allow(base_key):
+            self._shed(base_key, [req])
+            return False
+        ekey = self.resilience.degraded_key(base_key)
+        try:
+            executor, hit = self.cache.get(ekey, pin=True)
+        except Exception as exc:  # noqa: BLE001 -- typed below
+            bexc = exc if isinstance(exc, ServeError) else BuildFailedError(
+                f"executor build failed for {ekey.short()}: "
+                f"{type(exc).__name__}: {exc}")
+            self._step_admit_failure(req, base_key, ekey, bexc,
+                                     invalidate=False)
+            return False
+        if not hasattr(executor, "step_begin"):
+            self.cache.unpin(executor)
+            self._step_admit_failure(req, base_key, ekey, BuildFailedError(
+                f"executor for {ekey.short()} has no step-granular "
+                "contract (step_begin/step_run) -- step batching needs a "
+                "patch-parallel pipeline or a step-capable fake"),
+                invalidate=False)
+            return False
+        snap = req.carry_snapshot
+        try:
+            if snap is not None:
+                # carry migration import: the snapshot's envelope and
+                # request identity were validated at submit; HERE the
+                # executing key is known, so compatibility is the last
+                # gate before grafting the leaves into a fresh work dict
+                check_key_compatible(snap, ekey)
+                if not hasattr(executor, "step_import"):
+                    raise MigrationRejectedError(
+                        f"executor for {ekey.short()} has no step_import "
+                        "-- cannot adopt a migrated carry")
+                work = executor.step_import(
+                    snap.meta, list(snap.leaves), req.prompt,
+                    req.negative_prompt, req.seed, req.guidance_scale)
+            else:
+                work = executor.step_begin(req.prompt, req.negative_prompt,
+                                           req.seed, req.guidance_scale)
+        except MigrationRejectedError as exc:
+            # a bad snapshot is the SNAPSHOT's failure, not this
+            # server's: fail typed without feeding the breaker/ladder --
+            # the caller strips the snapshot and retries from step 0
+            self.cache.unpin(executor)
+            self.counters.inc("migrations_rejected")
+            self._fail_batch([req], exc)
+            return False
+        except Exception as exc:  # noqa: BLE001 -- typed below
+            self.cache.unpin(executor)
+            wexc = exc if isinstance(exc, ServeError) else (
+                ResourceExhaustedError(
+                    f"step admit OOM for {ekey.short()}: {exc}")
+                if is_oom(exc) else ExecuteFailedError(
+                    f"step admit failed for {ekey.short()}: "
+                    f"{type(exc).__name__}: {exc}"))
+            self._step_admit_failure(req, base_key, ekey, wexc,
+                                     invalidate=True)
+            return False
+        from .stepbatch import SlotState
+
+        salvaged = snap.step if snap is not None else 0
+        state = SlotState(
+            request=req, work=work, base_key=base_key, ekey=ekey,
+            executor=executor, compile_hit=hit, steps_total=ekey.steps,
+            tier_idx=tier_idx, admit_ts=self.clock(),
+            steps_done=salvaged, steps_salvaged=salvaged,
+            migrations=1 if snap is not None else 0,
+        )
+        slot = sb.admit(state)
+        self._inflight_c.inc("requests", 1)
+        req.bucket = (bh, bw)
+        req.dequeue_ts = state.admit_ts
+        self.counters.inc("step_joins")
+        if snap is not None:
+            self.counters.inc("carries_imported")
+            self.counters.inc("steps_salvaged", salvaged)
+        if self.tracer is not None and req.trace is not None:
+            rt = req.trace
+            if rt.queue_span is not None:
+                self.tracer.end(rt.queue_span, t=state.admit_ts)
+                rt.queue_span = None
+            self.tracer.event("join", track=rt.track, trace=rt.trace_id,
+                              args={"slot": slot, "key": ekey.short(),
+                                    "steps": state.steps_total})
+            if snap is not None:
+                self.tracer.event("migrate_in", track=rt.track,
+                                  trace=rt.trace_id,
+                                  args={"step": salvaged,
+                                        "of": state.steps_total})
+        return True
+
+    def _step_admit_failure(self, req: Request, base_key: ExecKey,
+                            ekey: ExecKey, exc: Exception,
+                            invalidate: bool) -> None:
+        self.resilience.on_failure(base_key, exc)
+        kind = failure_kind(exc)
+        if kind in ("oom", "compile"):
+            rung = self.resilience.degrade(base_key, kind, 1)
+            if rung is not None:
+                self.counters.inc("degraded_" + rung)
+                if invalidate:
+                    self.cache.invalidate(ekey)
+        self.counters.inc("failed_build"
+                          if isinstance(exc, BuildFailedError)
+                          else "failed_execute")
+        self._fail_batch([req], exc)
+
+    def _step_preempt(self, now: float) -> bool:
+        """Deadline-aware preemption: when the pool is full and the
+        tightest queued request would miss its deadline waiting for the
+        earliest natural free slot -- but still makes it if admitted now --
+        park the slackest occupied slot (bit-identical resume later) and
+        admit the newcomer.  At most one preemption per round."""
+        sb = self.stepbatch
+        if (not self.config.step_batching.allow_preemption
+                or sb.free_slots() > 0):
+            return False
+        occupied = sb.occupied()
+        if not occupied:
+            return False
+        # the globally tightest request (the JAX package's policy-blind
+        # peek, which a tenant table's deficit-round-robin turn cannot hide)
+        cand = self.queue.peek_urgent(self._step_slack_score(now))
+        if cand is None:
+            return False
+        slack_now = sb.request_slack(cand, now)
+        if slack_now < 0:
+            return False  # already doomed -- preempting trades a second miss
+        min_remaining = min(s.remaining for s in occupied)
+        waits_out = sb.slack(cand.deadline,
+                             cand.num_inference_steps + min_remaining, now)
+        if waits_out >= 0:
+            return False  # waiting is safe; don't pay the park
+        # cheap admission pre-checks BEFORE touching a victim: a newcomer
+        # its bucket table or circuit breaker would reject anyway must
+        # not cost an innocent slot a carry round-trip and its one-time
+        # no-thrash budget -- SAME derivation as _step_admit, so the two
+        # gates cannot drift
+        try:
+            _, cand_key, _ = self._step_request_key(cand)
+        except NoBucketError:
+            return False  # the regular fill path rejects it typed
+        if not self.resilience.allow(cand_key):
+            return False  # shedding would free no slot for the newcomer
+        victim = sb.pick_victim(slack_now, now)
+        if victim is None:
+            return False
+        try:
+            victim.executor.step_park(victim.work)
+        except Exception as exc:  # noqa: BLE001 -- typed fail, no park
+            self.counters.inc("failed_execute")
+            self._step_fail_state(victim, ExecuteFailedError(
+                f"step park failed for {victim.ekey.short()}: "
+                f"{type(exc).__name__}: {exc}"))
+            return True
+        sb.park(victim)
+        self.counters.inc("step_preempts")
+        if self.tracer is not None and victim.request.trace is not None:
+            rt = victim.request.trace
+            self.tracer.event("preempt", track=rt.track, trace=rt.trace_id,
+                              args={"step": victim.steps_done,
+                                    "by": cand.request_id})
+        admitted = (self.queue.remove(cand)
+                    and self._step_admit(cand, now))
+        if not admitted and sb.free_slots() > 0:
+            # the preemption fizzled past the pre-checks (build/encode
+            # failure, raced close): give the victim its slot -- and its
+            # no-thrash budget -- straight back instead of leaving it
+            # parked for a vacant pool
+            sb.unpark(victim)
+            sb.resumes -= 1
+            sb.preempt_count -= 1
+            victim.preempts -= 1
+            self.counters.inc("step_preempts", -1)
+            try:
+                victim.executor.step_resume(victim.work)
+            except Exception as exc:  # noqa: BLE001 -- typed fail
+                self.counters.inc("failed_execute")
+                self._step_fail_state(victim, ExecuteFailedError(
+                    f"step resume failed for {victim.ekey.short()}: "
+                    f"{type(exc).__name__}: {exc}"))
+        return True
+
+    def _step_pack_signature(self, state):
+        """Pack-compatibility key of a slot's next step for the batcher's
+        width-aligned cohort (`StepBatcher.cohort`): the executor's
+        `step_signature`, None when the executor has no pack support
+        (fakes without the hook, sequential-only configs)."""
+        fn = getattr(state.executor, "step_signature", None)
+        if fn is None:
+            return None
+        try:
+            return fn(state.work)
+        except Exception:  # noqa: BLE001 -- alignment is best-effort
+            return None
+
+    def _step_advance(self, cohort) -> list:
+        """Advance the cohort one denoise step, grouped by executor (a
+        group shares one pipeline; its step is one watchdog-bounded
+        dispatch, packed into as few evaluations as the signatures allow).  A group failure is ONE terminal dispatch
+        failure for every member -- no step-granular retry.  Returns the
+        states that actually stepped."""
+        sb = self.stepbatch
+        stepped = []
+        round_dispatches = 0
+        groups: Dict[int, list] = {}
+        for state in cohort:
+            groups.setdefault(id(state.executor), []).append(state)
+        round_t0 = self.clock()
+        for members in groups.values():
+            executor = members[0].executor
+            ekey = members[0].ekey
+            base_key = members[0].base_key
+            works = [m.work for m in members]
+
+            def call(_ex=executor, _works=works, _ekey=ekey):
+                if self.fault_plan is not None:
+                    self.fault_plan.check("execute", key=_ekey,
+                                          batch_size=len(_works))
+                _ex.step_run(_works)
+
+            wd = self.resilience.watchdog
+            prev_abandoned = wd.abandoned_event
+            try:
+                wd.run(call)
+            except Exception as exc:  # noqa: BLE001 -- typed below
+                # a FRESH abandonment means the watchdog's orphaned
+                # thread is still executing THIS group's step: the
+                # members' buffer release and executor unpin must wait
+                # for it (the staged pipeline's deferral protocol)
+                abandoned = wd.abandoned_event
+                fresh_abandon = (isinstance(exc, WatchdogTimeoutError)
+                                 and abandoned is not None
+                                 and abandoned is not prev_abandoned)
+                if self._stop.is_set() and not fresh_abandon:
+                    # raced a stop/kill mid-round: leave every remaining
+                    # member RESIDENT instead of failing it -- the loop's
+                    # finally-drain exports each carry for migration (the
+                    # dispatch failed before any member's step advanced,
+                    # so the carries are valid at their current step),
+                    # and a dying server must not feed its own breaker
+                    break
+                if isinstance(exc, WatchdogTimeoutError):
+                    self.counters.inc("watchdog_timeouts")
+                    texc = exc
+                elif isinstance(exc, ServeError):
+                    texc = exc
+                elif is_oom(exc):
+                    texc = ResourceExhaustedError(
+                        f"step execute OOM for {ekey.short()} at cohort "
+                        f"{len(works)}: {exc}")
+                else:
+                    texc = ExecuteFailedError(
+                        f"step execute failed for {ekey.short()}: "
+                        f"{type(exc).__name__}: {exc}")
+                # one terminal dispatch failure for the whole group
+                # (members share base_key through the shared executor)
+                self.resilience.on_failure(base_key, texc)
+                kind = failure_kind(texc)
+                if kind in ("oom", "compile"):
+                    rung = self.resilience.degrade(base_key, kind, 1)
+                    if rung is not None:
+                        self.counters.inc("degraded_" + rung)
+                        self.cache.invalidate(ekey)
+                self.counters.inc("failed_execute", len(members))
+                if fresh_abandon:
+                    self._step_fail_group_deferred(members, texc,
+                                                   abandoned)
+                else:
+                    for m in members:
+                        self._step_fail_state(m, texc)
+                continue
+            self.resilience.on_success(base_key)
+            for m in members:
+                m.steps_done += 1
+                stepped.append(m)
+            self.counters.inc("steps_executed", len(members))
+            # pack-efficiency accounting (serve/executors.py step_run):
+            # how many evaluations this group's step cost and how many
+            # real request rows they carried
+            stats = getattr(executor, "step_pack_stats", None)
+            if stats:
+                nd = int(stats.get("dispatches", 0))
+                nr = int(stats.get("packed_rows", 0))
+                round_dispatches += nd
+                self.counters.inc("stepbatch_dispatches", nd)
+                self.counters.inc("stepbatch_packed_rows", nr)
+                self._pack_rows_total += nr
+                self._pack_capacity_total += int(
+                    stats.get("rows_capacity", 0))
+                if (nd < len(members) and self.tracer is not None
+                        and members[0].request.trace is not None):
+                    rt = members[0].request.trace
+                    self.tracer.event(
+                        "packed-step", track=rt.track, trace=rt.trace_id,
+                        args={"members": len(members), "dispatches": nd,
+                              "rows": nr})
+            else:
+                # executors without pack accounting dispatch per member
+                round_dispatches += len(members)
+        if stepped:
+            # calibrate on the WHOLE round, not per executor group: the
+            # EDF clock unit is "one more step for this slot", and a slot
+            # advances once per round -- a round that serially dispatches
+            # three bucket groups costs the sum, and slack math priced at
+            # a single group's time would flatter every deadline
+            round_dt = self.clock() - round_t0
+            sb.note_round(round_dt)
+        return stepped
+
+    def _step_previews(self, stepped) -> None:
+        """Emit progressive previews for stepped slots that are due: a
+        cheap host-side downsampled latent through the request's
+        on_progress callback, traced as its own span.  Callback errors
+        are counted, never fatal -- a client's slow/broken callback must
+        not take down the step loop."""
+        k = self.config.step_batching.preview_interval
+        if not k:
+            return
+        for state in stepped:
+            req = state.request
+            if req.on_progress is None or state.steps_done % k:
+                continue
+            t0 = self.clock()
+            try:
+                img = state.executor.step_preview(
+                    state.work, self.config.step_batching.preview_size)
+                req.on_progress(state.steps_done, state.steps_total, img)
+            except Exception:  # noqa: BLE001 -- counted, never fatal
+                self.counters.inc("preview_errors")
+                continue
+            t1 = self.clock()
+            state.previews += 1
+            self.counters.inc("step_previews")
+            if state.first_preview_s is None:
+                state.first_preview_s = t1 - req.enqueue_ts
+                self.hist_first_preview.observe(state.first_preview_s)
+            if self.tracer is not None and req.trace is not None:
+                rt = req.trace
+                self.tracer.complete("preview", t0, t1, track=rt.track,
+                                     trace=rt.trace_id, parent=rt.root,
+                                     args={"step": state.steps_done,
+                                           "of": state.steps_total})
+
+    def _step_retire_finished(self) -> None:
+        """Decode + resolve every occupied slot whose denoise finished --
+        the leave side of continuous batching, freeing slots for the next
+        round's joiners."""
+        for state in list(self.stepbatch.occupied()):
+            if state.steps_done < state.steps_total:
+                continue
+            try:
+                out = state.executor.step_finish(state.work)
+            except Exception as exc:  # noqa: BLE001 -- typed fail
+                texc = exc if isinstance(exc, ServeError) else (
+                    ExecuteFailedError(
+                        f"step decode failed for {state.ekey.short()}: "
+                        f"{type(exc).__name__}: {exc}"))
+                self.resilience.on_failure(state.base_key, texc)
+                self.counters.inc("failed_execute")
+                self._step_fail_state(state, texc)
+                continue
+            self._step_complete(state, out, self.clock())
+
+    def _step_complete(self, state, out, t1: float) -> None:
+        """Success bookkeeping for one step-granular request -- the
+        request-shaped mirror of `_complete_batch`."""
+        req = state.request
+        queue_wait = state.admit_ts - req.enqueue_ts
+        exec_s = t1 - state.admit_ts
+        e2e = t1 - req.enqueue_ts
+        self.hist_queue_wait.observe(queue_wait)
+        self.hist_execute.observe(exec_s)
+        self.hist_e2e.observe(e2e)
+        self.slo_window(req.slo_class).observe(e2e)
+        self.counters.inc("completed")
+        self.counters.inc("requests_compile_hit" if state.compile_hit
+                          else "requests_compile_miss")
+        self.counters.inc("denoise_steps_total", state.steps_total)
+        if req.expired(t1):
+            self.counters.inc("completed_late")
+        degradations = tuple(
+            self.resilience.key_state(state.base_key).rungs)
+        if req.trace is not None and self.tracer is not None:
+            rt = req.trace
+            self.tracer.complete(
+                "execute", state.admit_ts, t1, track=rt.track,
+                trace=rt.trace_id, parent=rt.root,
+                args={"bucket": f"{state.ekey.height}x{state.ekey.width}",
+                      "steps": state.steps_total,
+                      "preempts": state.preempts,
+                      "compile_hit": state.compile_hit})
+            self._trace_finish(req, "completed", args={
+                "previews": state.previews,
+                "preempts": state.preempts})
+        result = ServeResult(
+            request_id=req.request_id,
+            output=out,
+            bucket=(state.ekey.height, state.ekey.width),
+            requested_size=(req.height, req.width),
+            queue_wait_s=queue_wait,
+            execute_s=exec_s,
+            e2e_s=e2e,
+            batch_size=1,
+            compile_hit=state.compile_hit,
+            retries=0,
+            degradations=degradations,
+            exec_key=state.ekey.short(),
+            replica=self.replica_name,
+            previews=state.previews,
+            first_preview_s=state.first_preview_s,
+            preempts=state.preempts,
+            migrations=state.migrations,
+            steps_salvaged=state.steps_salvaged,
+        )
+        self._step_release(state, abort=False)
+        self._resolve(req.future, result=result)
+
+    def _step_export(self, state) -> Optional[bytes]:
+        """Serialize one resident carry for migration, or None when no
+        snapshot can ride out: export disabled, the executor lacks the
+        hook, the carry is at step 0 (nothing to salvage) or already
+        finished (retire, don't migrate), or the export itself failed --
+        the drain path then falls back to progress-only accounting."""
+        if not self.config.step_batching.export_carries:
+            return None
+        if not (0 < state.steps_done < state.steps_total):
+            return None
+        executor = state.executor
+        if not hasattr(executor, "step_export"):
+            return None
+        try:
+            extra, leaves = executor.step_export(state.work)
+            extra = dict(extra)
+            family = str(extra.pop("family", ""))
+            # the executor's own step index is authoritative -- it and
+            # steps_done advance together, but the carry is what resumes
+            step = int(extra.pop("step", state.steps_done))
+            data = encode_snapshot(
+                ekey=state.ekey, family=family, step=step,
+                steps_total=state.steps_total,
+                request_id=str(state.request.request_id),
+                prompt=state.request.prompt, seed=state.request.seed,
+                leaves=list(leaves), extra=extra or None,
+            )
+        except Exception:  # noqa: BLE001 -- export is best-effort
+            self.counters.inc("carry_export_failed")
+            return None
+        if self.fault_plan is not None:
+            # chaos site: truncation/corruption during the export write
+            data = self.fault_plan.mutate("migrate.export", data,
+                                          key=state.ekey)
+        return data
+
+    def _step_drain(self) -> None:
+        """Deterministic stop: every resident carry (occupied + parked)
+        resolves its future and releases its buffers -- no step-mode
+        future is ever left unresolved.  With ``export_carries`` on, a
+        mid-denoise carry first serializes (serve/migration.py) and
+        rides out on `CarryExportedError.snapshot` so a caller (the JAX
+        package's fleet, a client) resumes it on another server instead of
+        re-running
+        from step 0; a carry that cannot export still reports its
+        ``steps_done`` so the caller can count the steps it is about to
+        re-execute."""
+        sb = self.stepbatch
+        for state in list(sb.occupied()) + list(sb.parked):
+            self.counters.inc("rejected_server_closed")
+            data = self._step_export(state)
+            if data is not None:
+                self.counters.inc("carries_exported")
+                if (self.tracer is not None
+                        and state.request.trace is not None):
+                    rt = state.request.trace
+                    self.tracer.event(
+                        "migrate_out", track=rt.track, trace=rt.trace_id,
+                        args={"step": state.steps_done,
+                              "of": state.steps_total,
+                              "bytes": len(data)})
+                exc: ServerClosedError = CarryExportedError(
+                    f"server stopped at step {state.steps_done}/"
+                    f"{state.steps_total}; carry exported for migration",
+                    snapshot=data, steps_done=state.steps_done)
+            elif (self.config.step_batching.export_carries
+                    and state.steps_done > 0):
+                # export was ON but this carry could not serialize:
+                # progress-only accounting still rides out so the caller
+                # can count the steps it is about to re-execute.  With
+                # export OFF the operator opted out of migration -- the
+                # documented contract is the plain ServerClosedError path
+                exc = CarryExportedError(
+                    f"server stopped at step {state.steps_done}/"
+                    f"{state.steps_total}; carry not exportable",
+                    snapshot=None, steps_done=state.steps_done)
+            else:
+                exc = ServerClosedError("server stopped")
+            self._step_fail_state(state, exc)
+
+    # -- the resilient execute path ---------------------------------------
+
     def _execute(self, key: BatchKey, batch: List[Request]) -> None:
         dispatch_ts = self.clock()
+        # staged outcomes that landed while this batch was forming must
+        # reach the breaker/ladder BEFORE the allow()/routing decisions
+        self._drain_staged_outcomes()
         base_key = self._exec_key_for(key.height, key.width, key.steps,
                                       key.cfg)
         batch_span = None
@@ -604,8 +1454,21 @@ class InferenceServer:
             if self.tracer is not None:
                 self.tracer.end(batch_span, args={"outcome": "shed"})
             return
-        # inflight gauge: dispatched-but-unresolved requests
+        # inflight gauge: dispatched-but-unresolved requests.  Every exit
+        # path below must balance it -- staged submissions hand the
+        # decrement to _staged_release, which fires exactly once per
+        # submitted batch.
         self._inflight_c.inc("requests", len(batch))
+        staged = self._execute_staged(key, base_key, batch, dispatch_ts)
+        if staged == "submitted":
+            if self.tracer is not None:
+                self.tracer.end(batch_span, args={"outcome": "staged"})
+            return
+        if staged == "failed":
+            self._inflight_c.inc("requests", -len(batch))
+            if self.tracer is not None:
+                self.tracer.end(batch_span, args={"outcome": "failed"})
+            return
         try:
             self._execute_resilient(key, base_key, batch, dispatch_ts)
         finally:
@@ -617,6 +1480,132 @@ class InferenceServer:
             self._inflight_c.inc("requests", -len(batch))
 
     # -- resilient dispatch ------------------------------------------------
+
+    # -- the staged execute path -------------------------------------------
+
+    def _drain_staged_outcomes(self) -> None:
+        """Apply finished staged batches' breaker/ladder bookkeeping on
+        the scheduler thread.  A staged failure is ONE terminal dispatch
+        failure (there is no intra-stage retry loop); OOM/compile kinds
+        advance the sticky degradation ladder -- ``staging_off`` first, so
+        a key that cannot afford the overlap's residency falls back to
+        the monolithic path (which still has the full retry machinery)."""
+        if self.staging is None:
+            return
+        for base_key, ekey, exc in self.staging.drain_outcomes():
+            if exc is None:
+                self.resilience.on_success(base_key)
+                continue
+            self.resilience.on_failure(base_key, exc)
+            kind = failure_kind(exc)
+            if kind in ("oom", "compile"):
+                # batch_size=1 deliberately skips RUNG_SPLIT: staged
+                # dispatches never split (splitting is the retry loop's
+                # move), so the ladder advances straight to the key rungs
+                rung = self.resilience.degrade(base_key, kind, 1)
+                if rung is not None:
+                    self.counters.inc("degraded_" + rung)
+                    if rung != RUNG_STAGING_OFF:
+                        # the poisoned executor must not satisfy the next
+                        # dispatch (same contract as the monolithic path)
+                        self.cache.invalidate(ekey)
+
+    def _staging_routed(self, base_key: ExecKey) -> bool:
+        return (self.staging is not None
+                and RUNG_STAGING_OFF
+                not in self.resilience.key_state(base_key).rungs)
+
+    def _execute_staged(self, key: BatchKey, base_key: ExecKey,
+                        batch: List[Request], dispatch_ts: float) -> str:
+        """Submit the batch to the stage pipeline.  Returns
+        ``"submitted"`` (the pipeline owns the batch now -- its inflight
+        decrement rides `_staged_release`), ``"failed"`` (consumed by a
+        terminal failure here), or ``"fallthrough"`` to the monolithic
+        path (staging off/degraded for this key, or an executor without
+        stage programs)."""
+        if not self._staging_routed(base_key):
+            return "fallthrough"
+        from .staging import StagedBatch
+
+        ekey = self.resilience.degraded_key(base_key)
+        try:
+            # pinned for the batch's whole trip: LRU eviction or
+            # invalidate() must never free a pipeline a stage worker is
+            # about to run (ExecutorCache defers the release to unpin)
+            executor, hit = self.cache.get(ekey, pin=True)
+        except Exception as exc:  # noqa: BLE001 -- typed below
+            bexc = exc if isinstance(exc, ServeError) else BuildFailedError(
+                f"executor build failed for {ekey.short()}: "
+                f"{type(exc).__name__}: {exc}"
+            )
+            # one terminal dispatch failure, like a stage failure -- the
+            # ladder may force staging off so the NEXT dispatch retries
+            # through the monolithic machinery
+            self.resilience.on_failure(base_key, bexc)
+            kind = failure_kind(bexc)
+            if kind in ("oom", "compile"):
+                rung = self.resilience.degrade(base_key, kind, 1)
+                if rung is not None:
+                    self.counters.inc("degraded_" + rung)
+            self.counters.inc("failed_build", len(batch))
+            self._fail_batch(batch, bexc)
+            return "failed"
+        if not hasattr(executor, "encode_stage"):
+            # executor has no stage contract (plain fakes, custom
+            # adapters): unpin and run monolithically
+            self.cache.unpin(executor)
+            return "fallthrough"
+        sb = StagedBatch(
+            batch_key=key, base_key=base_key, ekey=ekey, requests=batch,
+            executor=executor, compile_hit=hit, dispatch_ts=dispatch_ts,
+        )
+        if not self.staging.submit(sb):
+            # pipeline is stopping: deterministic close, like the queued
+            # futures stop() drains
+            self.cache.unpin(executor)
+            self.counters.inc("rejected_server_closed", len(batch))
+            self._fail_batch(batch, ServerClosedError("server stopped"))
+            return "failed"
+        return "submitted"
+
+    def _staged_success(self, sb, outputs, t0: float, t1: float) -> None:
+        """Decode-worker callback: resolve and record one completed staged
+        batch (counters/histograms are thread-safe; breaker bookkeeping
+        rides drain_outcomes instead)."""
+        shallow = int(getattr(sb.executor, "shallow_steps", 0))
+        degradations = tuple(self.resilience.key_state(sb.base_key).rungs)
+        self._complete_batch(
+            sb.batch_key, sb.ekey, sb.requests, outputs, sb.dispatch_ts,
+            t0, t1, sb.compile_hit, retries=0, degradations=degradations,
+            shallow_steps=shallow,
+        )
+
+    def _staged_failure(self, sb, exc: Exception) -> None:
+        """Stage-worker callback: fail one staged batch's futures, counted
+        by failure type (mirrors the monolithic counters)."""
+        n = len(sb.requests)
+        if isinstance(exc, ServerClosedError):
+            self.counters.inc("rejected_server_closed", n)
+        elif isinstance(exc, DeadlineExceededError):
+            self.counters.inc("rejected_deadline", n)
+        elif isinstance(exc, WatchdogTimeoutError):
+            self.counters.inc("watchdog_timeouts")
+            self.counters.inc("failed_execute", n)
+        elif isinstance(exc, BuildFailedError):
+            self.counters.inc("failed_build", n)
+        elif isinstance(exc, FatalError):
+            self.counters.inc("failed_fatal", n)
+        else:
+            self.counters.inc("failed_execute", n)
+        self._fail_batch(sb.requests, exc)
+
+    def _staged_release(self, sb) -> None:
+        # fires exactly once per submitted staged batch, on ANY exit path
+        # (success, failure, cancel-drop, stop): the executor unpin and
+        # the inflight decrement both belong to "the batch left the
+        # pipeline"
+        self._inflight_c.inc("requests", -len(sb.requests))
+        self.cache.unpin(sb.executor)
 
     def _shed(self, ekey: ExecKey, batch: List[Request]) -> None:
         """Circuit open: fail fast with the 503-style typed error — the
@@ -901,6 +1890,19 @@ class InferenceServer:
             "slo_window": self._slo_window,
             "classes": classes,
         }
+        if self.stepbatch is not None:
+            # step-granular occupancy block (the JAX package's controller
+            # switches to per-step accounting when this is present):
+            # occupancy is per-step, not per-batch, on a slot-pool server
+            sb = self.stepbatch
+            snap["step"] = {
+                "slots": self.config.step_batching.slots,
+                "occupied": len(sb.occupied()),
+                "parked": len(sb.parked),
+                "remaining_steps_total": sb.remaining_steps_total(),
+                "per_step_s": sb.per_step_s(),
+                "steps_hint": self.config.default_steps,
+            }
         return snap
 
     def metrics_prometheus(self) -> str:
@@ -1035,11 +2037,16 @@ class InferenceServer:
                 "per_executor_nbytes": self.cache.weight_bytes(),
             },
             "resilience": self.resilience.snapshot(),
-            # the subsystems of later steps of ROADMAP item 16: staging,
-            # step batching and tenancy (None on these servers, as on a
-            # JAX server with them off)
-            "staging": None,
-            "step_batching": None,
+            # per-stage queue-wait/service histograms + denoise-gap
+            # fraction (None on monolithic servers)
+            "staging": (self.staging.snapshot()
+                        if self.staging is not None else None),
+            # slot-pool state + join/leave/preempt/resume lifetime
+            # counters (None on whole-batch servers)
+            "step_batching": (self.stepbatch.snapshot()
+                              if self.stepbatch is not None else None),
+            # tenancy comes with step 16d of ROADMAP item 16 (None, as on
+            # a JAX server without a tenant table)
             "tenancy": None,
             # the tracing + SLO plane (docs/OBSERVABILITY.md): trace ring
             # stats (None when tracing is off) and the rolling-window SLO
@@ -1049,9 +2056,12 @@ class InferenceServer:
                           if self.tracer is not None else None),
                 "slo": self.slo_snapshot(),
             },
-            # the SLO controller and the prompt cache (later steps)
+            # the SLO controller comes with step 16d (None, as on a JAX
+            # server with it off)
             "controller": None,
-            "prompt_cache": None,
+            # prompt/embedding cache in front of text-encode (None when off)
+            "prompt_cache": (self.prompt_cache.snapshot()
+                             if self.prompt_cache is not None else None),
         }
 
     def export_metrics(self, path: str) -> Dict[str, Any]:

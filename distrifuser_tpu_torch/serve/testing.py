@@ -18,6 +18,7 @@ import zlib
 from typing import Any, List
 
 import numpy as np
+import torch
 
 from ..utils import sync
 from .cache import ExecKey
@@ -128,6 +129,148 @@ class FakeExecutorFactory:
         return [n for ex in self.executors for n in ex.batch_sizes]
 
 
+def fake_preview(prompt: str, seed: int, key: ExecKey,
+                 step: int) -> np.ndarray:
+    """Deterministic tiny preview for (prompt, seed, key, step): a 4x4x3
+    float array — a pure function, so preview streams replay exactly."""
+    h = zlib.crc32(
+        f"preview|{prompt}|{seed}|{key.height}x{key.width}|{key.steps}|"
+        f"{step}".encode()
+    )
+    rng = np.random.RandomState(h % (2**31))
+    return rng.rand(4, 4, 3).astype(np.float32)
+
+
+class StepFakeExecutor(FakeExecutor):
+    """Serve-executor fake implementing the step-granular contract
+    (serve/stepbatch.py) alongside the monolithic ``__call__``.
+
+    One `step_run` call advances its whole cohort one denoise step and
+    sleeps ONE key-aware step time (``effective_service_s() / steps``)
+    regardless of cohort size — a batched step costs one pass, the same
+    coalescing premise `FakeExecutor.__call__` models for whole batches.
+    That is what makes continuous mode measurably request-shaped on the
+    fakes: a joiner rides the next cohort step instead of waiting out a
+    whole batch.  The real `PipelineExecutor.step_run` now matches this
+    cost model: same-signature cohort members pack into ONE compiled
+    dispatch (parallel/rowpack.py), so fake-measured ratios track the
+    real executor's dispatch shape.  Outputs are `fake_image` either
+    way, so solo, joined, preempted-and-resumed, and monolithic runs are
+    byte-identical by construction — the scheduler behavior is what the
+    tests interrogate.
+
+    ``step_calls`` records every cohort step's size; ``park_calls`` /
+    ``resume_calls`` count the preemption hand-offs; ``step_pack_stats``
+    mirrors the real executor's pack-efficiency tallies (the whole fake
+    cohort is one "dispatch"), so the server's stepbatch_* counters and
+    fill gauge exercise on fakes.
+    """
+
+    def __init__(self, key: ExecKey, batch_size: int = 8,
+                 step_time_s: float = 0.0):
+        super().__init__(key, batch_size=batch_size,
+                         step_time_s=step_time_s)
+        self.step_calls: List[int] = []
+        self.park_calls = 0
+        self.resume_calls = 0
+        self.step_pack_stats = {"dispatches": 0, "packed_rows": 0,
+                                "rows_capacity": 0}
+
+    def step_signature(self, work: dict):
+        """Every fake work at the same step count packs together — the
+        fake's cohort step IS one dispatch (`StepBatcher.cohort`'s
+        pack_align source)."""
+        return (id(self), self.key.steps)
+
+    def step_time_per_step_s(self) -> float:
+        return (self.effective_service_s() / self.key.steps
+                if self.key.steps else 0.0)
+
+    def step_begin(self, prompt: str, negative_prompt: str, seed: int,
+                   guidance_scale: float) -> dict:
+        return {"prompt": prompt, "seed": int(seed), "i": 0}
+
+    def step_run(self, works: List[dict]) -> None:
+        self.step_calls.append(len(works))
+        self.step_pack_stats = {"dispatches": 1,
+                                "packed_rows": len(works),
+                                "rows_capacity": max(self.batch_size,
+                                                     len(works))}
+        if self.step_time_s:
+            time.sleep(self.step_time_per_step_s())
+        for w in works:
+            w["i"] += 1
+
+    def step_done(self, work: dict) -> bool:
+        return work["i"] >= self.key.steps
+
+    def step_finish(self, work: dict):
+        return fake_image(work["prompt"], work["seed"], self.key)
+
+    def step_abort(self, work: dict) -> None:
+        pass  # no device buffers to release
+
+    def step_park(self, work: dict) -> None:
+        self.park_calls += 1
+
+    def step_resume(self, work: dict) -> None:
+        self.resume_calls += 1
+
+    def step_preview(self, work: dict, max_size: int = 64) -> np.ndarray:
+        return fake_preview(work["prompt"], work["seed"], self.key,
+                            work["i"])
+
+    # -- carry migration (serve/migration.py) ------------------------------
+    #
+    # The fake's "carry" is its step index plus the (prompt, seed)
+    # identity, exported as one int32 leaf so the envelope's leaf
+    # machinery (shape/dtype descriptors, checksum over raw bytes) is
+    # exercised end to end even on fakes.
+
+    def step_export(self, work: dict):
+        extra = {"family": type(self).__name__, "step": int(work["i"])}
+        return extra, [torch.tensor([work["i"]], dtype=torch.int32)]
+
+    def step_import(self, meta: dict, leaves, prompt: str,
+                    negative_prompt: str, seed: int,
+                    guidance_scale: float) -> dict:
+        from .errors import MigrationRejectedError
+
+        family = type(self).__name__
+        if meta.get("family") != family:
+            raise MigrationRejectedError(
+                f"carry snapshot family {meta.get('family')!r} cannot "
+                f"import into a {family} executor"
+            )
+        step = int(meta["step"])
+        if not (0 <= step <= self.key.steps):
+            raise MigrationRejectedError(
+                f"carry snapshot step {step} out of range for a "
+                f"{self.key.steps}-step executor"
+            )
+        if (len(leaves) != 1 or tuple(leaves[0].shape) != (1,)
+                or leaves[0].dtype != torch.int32
+                or int(leaves[0][0]) != step):
+            raise MigrationRejectedError(
+                "carry snapshot leaves do not match the fake step "
+                "executor's carry structure"
+            )
+        return {"prompt": prompt, "seed": int(seed), "i": step}
+
+
+class StepFakeExecutorFactory(FakeExecutorFactory):
+    """FakeExecutorFactory building step-granular fakes."""
+
+    def _new_executor(self, key: ExecKey) -> StepFakeExecutor:
+        return StepFakeExecutor(key, batch_size=self.batch_size,
+                                step_time_s=self.step_time_s)
+
+    def step_calls(self) -> List[int]:
+        """Every cohort step's size, across all executors."""
+        return [n for ex in self.executors
+                for n in getattr(ex, "step_calls", ())]
+
+
 class ExecutionLedger:
     """Fleet-wide completed-execution counter keyed by (prompt, seed).
 
@@ -207,3 +350,205 @@ class LedgerFakeExecutorFactory(FakeExecutorFactory):
         return LedgerFakeExecutor(key, self.ledger, replica=self.replica,
                                   batch_size=self.batch_size,
                                   step_time_s=self.step_time_s)
+
+
+class StepLedgerFakeExecutor(StepFakeExecutor):
+    """`StepFakeExecutor` recording every COMPLETED denoise step (and
+    every completed request) in a shared `ExecutionLedger` — the
+    step-granular evidence behind the carry-migration exactly-once gate:
+    replica A records steps 0..k-1, the kill fires before step k
+    records, and the importing replica B records k..N-1, so
+    ``max_step_count() == 1`` proves salvaged steps never re-ran."""
+
+    def __init__(self, key: ExecKey, ledger: ExecutionLedger,
+                 replica: str = "", batch_size: int = 8,
+                 step_time_s: float = 0.0):
+        super().__init__(key, batch_size=batch_size,
+                         step_time_s=step_time_s)
+        self.ledger = ledger
+        self.replica = replica
+
+    def step_run(self, works: List[dict]) -> None:
+        pending = [(w["prompt"], w["seed"], w["i"]) for w in works]
+        super().step_run(works)
+        # record AFTER the step completed — a step killed mid-dispatch
+        # never records, exactly like work that died before output
+        for prompt, seed, step in pending:
+            self.ledger.record_step(prompt, seed, step, self.replica)
+
+    def step_finish(self, work: dict):
+        image = super().step_finish(work)
+        self.ledger.record(work["prompt"], work["seed"], self.replica)
+        return image
+
+
+class StepLedgerFakeExecutorFactory(FakeExecutorFactory):
+    """Per-replica factory building `StepLedgerFakeExecutor`s against
+    one shared ledger; ``replica`` tags which replica executed what."""
+
+    def __init__(self, ledger: ExecutionLedger, replica: str = "",
+                 batch_size: int = 8, build_delay_s: float = 0.0,
+                 step_time_s: float = 0.0):
+        super().__init__(batch_size=batch_size, build_delay_s=build_delay_s,
+                         step_time_s=step_time_s)
+        self.ledger = ledger
+        self.replica = replica
+
+    def _new_executor(self, key: ExecKey) -> StepLedgerFakeExecutor:
+        return StepLedgerFakeExecutor(
+            key, self.ledger, replica=self.replica,
+            batch_size=self.batch_size, step_time_s=self.step_time_s)
+
+    def step_calls(self) -> List[int]:
+        """Every cohort step's size, across all executors."""
+        return [n for ex in self.executors
+                for n in getattr(ex, "step_calls", ())]
+
+
+class StageTracker:
+    """Concurrent-residency probe shared by staged fakes: counts batches
+    between encode-stage entry and decode-stage exit (the window in which
+    a real batch holds device buffers) and records the peak -- what tests
+    assert the ``max_inflight_batches`` memory cap against, independently of
+    the pipeline's own semaphore accounting."""
+
+    def __init__(self):
+
+        self._lock = sync.Lock()
+        self.current = 0
+        self.peak = 0
+
+    def enter(self) -> None:
+        with self._lock:
+            self.current += 1
+            self.peak = max(self.peak, self.current)
+
+    def exit(self) -> None:
+        with self._lock:
+            self.current -= 1
+
+
+class StagedFakeExecutor(FakeExecutor):
+    """Serve-executor fake implementing the three-stage contract
+    (serve/staging.py) alongside the monolithic ``__call__``.
+
+    Per-stage simulated times make overlap measurable without a card:
+    sleeping stages do not compete for CPU, so a pipelined run's
+    steady-state throughput approaches 1/max(stage) while the monolithic
+    run pays 1/sum(stage) — the scheduler behavior under test, isolated
+    from compute.  ``denoise_s`` defaults to ``step_time_s * steps`` so
+    the monolithic path (which sleeps exactly that in ``__call__``) costs
+    the same card time as the staged path.  Outputs are `fake_image`
+    either way: staged and monolithic dispatch are bit-identical.
+
+    ``fail_stage``/``fail_times`` inject ``fail_exc`` (default RuntimeError)
+    into the first N invocations of one stage; ``stage_calls`` counts every
+    stage entry for assertions.
+    """
+
+    def __init__(self, key: ExecKey, batch_size: int = 8,
+                 step_time_s: float = 0.0, encode_s: float = 0.0,
+                 denoise_s: float = None, decode_s: float = 0.0,
+                 tracker: StageTracker = None, fail_stage: str = None,
+                 fail_times: int = 0, fail_exc: Exception = None):
+        super().__init__(key, batch_size=batch_size, step_time_s=step_time_s)
+        self.encode_s = encode_s
+        self.denoise_s = (step_time_s * key.steps if denoise_s is None
+                          else denoise_s)
+        self.decode_s = decode_s
+        self.tracker = tracker
+        self.fail_stage = fail_stage
+        self.fail_times = fail_times
+        self.fail_exc = fail_exc
+        self.stage_calls = {"encode": 0, "denoise": 0, "decode": 0}
+        # serve/promptcache.py contract (the server attaches its cache to
+        # any executor exposing attach_prompt_cache): a hit skips the
+        # simulated encode sleep, mirroring the real executor's skipped
+        # tokenize + text-encode
+        self.prompt_cache = None
+
+    def attach_prompt_cache(self, cache):
+        self.prompt_cache = cache
+        return cache
+
+    def _stage(self, name: str, sleep_s: float) -> None:
+        self.stage_calls[name] += 1
+        if self.fail_stage == name and self.fail_times > 0:
+            self.fail_times -= 1
+            if self.tracker is not None:
+                # a failed batch leaves the pipeline here: balance the
+                # encode-entry so residency probes stay correct under
+                # fault injection.  (Batches DROPPED between stages —
+                # cancel/stop — never re-enter the executor, so the
+                # tracker is only meaningful for runs without drops.)
+                self.tracker.exit()
+            raise (self.fail_exc if self.fail_exc is not None
+                   else RuntimeError(f"injected {name} stage failure"))
+        if sleep_s:
+            time.sleep(sleep_s)
+
+    def __call__(self, prompts: List[str], negative_prompts: List[str],
+                 guidance_scale: float, seeds: List[int]) -> List[Any]:
+        # the monolithic dispatch runs every stage serially: its simulated
+        # cost is the SUM of the stage times, so staged-vs-monolithic
+        # benchmark ratios measure real overlap, not a handicapped baseline
+        assert len(prompts) == len(negative_prompts) == len(seeds)
+        self.batch_sizes.append(len(prompts))
+        total = self.encode_s + self.denoise_s + self.decode_s
+        if total:
+            time.sleep(total)
+        return [fake_image(p, s, self.key) for p, s in zip(prompts, seeds)]
+
+    def encode_stage(self, prompts: List[str], negative_prompts: List[str],
+                     seeds: List[int]):
+        if self.tracker is not None:
+            self.tracker.enter()
+        if self.prompt_cache is not None:
+            key = (("fake", self.key.model_id), tuple(prompts),
+                   tuple(negative_prompts))
+            self.prompt_cache.get_or_encode(
+                key, lambda: self._stage("encode", self.encode_s) or True)
+        else:
+            self._stage("encode", self.encode_s)
+        return {"prompts": list(prompts), "seeds": list(seeds)}
+
+    def denoise_stage(self, work, guidance_scale: float):
+        self._stage("denoise", self.denoise_s)
+        return work
+
+    def decode_stage(self, work) -> List[Any]:
+        self._stage("decode", self.decode_s)
+        out = [fake_image(p, s, self.key)
+               for p, s in zip(work["prompts"], work["seeds"])]
+        if self.tracker is not None:
+            self.tracker.exit()
+        return out
+
+
+class StagedFakeExecutorFactory(FakeExecutorFactory):
+    """FakeExecutorFactory building staged fakes; one shared `StageTracker`
+    across every executor measures whole-service residency."""
+
+    def __init__(self, batch_size: int = 8, build_delay_s: float = 0.0,
+                 step_time_s: float = 0.0, encode_s: float = 0.0,
+                 denoise_s: float = None, decode_s: float = 0.0,
+                 fail_stage: str = None, fail_times: int = 0,
+                 fail_exc: Exception = None):
+        super().__init__(batch_size=batch_size, build_delay_s=build_delay_s,
+                         step_time_s=step_time_s)
+        self.encode_s = encode_s
+        self.denoise_s = denoise_s
+        self.decode_s = decode_s
+        self.fail_stage = fail_stage
+        self.fail_times = fail_times
+        self.fail_exc = fail_exc
+        self.tracker = StageTracker()
+
+    def _new_executor(self, key: ExecKey) -> StagedFakeExecutor:
+        return StagedFakeExecutor(
+            key, batch_size=self.batch_size, step_time_s=self.step_time_s,
+            encode_s=self.encode_s, denoise_s=self.denoise_s,
+            decode_s=self.decode_s, tracker=self.tracker,
+            fail_stage=self.fail_stage, fail_times=self.fail_times,
+            fail_exc=self.fail_exc,
+        )

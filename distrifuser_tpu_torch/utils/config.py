@@ -470,9 +470,9 @@ def _world_and_rank() -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 # The serve layer's configuration (serve/), field for field the JAX
 # package's, so that the two compare.  The blocks of subsystems not ported
-# yet (the controller, step batching, staging, tenancy and the gateway, the
-# AOT store) validate as there; `InferenceServer` refuses to run with them
-# switched on, naming the step of ROADMAP item 16 that brings each.
+# yet (the controller, tenancy and the gateway, the AOT store) validate as
+# there; `InferenceServer` refuses to run with them switched on, naming the
+# step of ROADMAP item 16 that brings each.
 # ---------------------------------------------------------------------------
 
 # Default resolution bucket table for the serve layer: the SDXL training

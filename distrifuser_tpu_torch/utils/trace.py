@@ -3,10 +3,8 @@
 `Tracer` records the life of every request through the serve layer
 (enqueue, queue wait, coalescing into a micro-batch, executor cache
 hit/miss/build, retry attempts, breaker/ladder events, execution,
-completion) as spans and instant events on named tracks.  The JAX
-package's module also holds `StepTimeline`, the per-denoise-step view
-inside one generation; it comes with the step-batching step of ROADMAP
-item 16.
+completion) as spans and instant events on named tracks.
+`StepTimeline` is the per-denoise-step view inside one generation.
 
 Design constraints, in order:
 
@@ -272,3 +270,124 @@ class Tracer:
                           separators=(",", ":"))
                 f.write("\n")
         return payload
+
+
+# StepTimeline phase tags -> pipelines.comm_plan / stepcache phase keys
+PHASE_TO_COMM = {"warmup": "sync", "full": "stale", "shallow": "shallow"}
+
+
+class StepTimeline:
+    """Wall-time and live comm-byte accounting per denoise step.
+
+    Attach to a pipeline (``pipeline.step_timeline = StepTimeline()``) and
+    every generation records one run: per-step wall timings tagged
+    ``warmup``/``full``/``shallow`` (the step-cache cadence phases), plus
+    a live comm-byte counter that adds each *executed* step's wire bytes
+    from the runner's per-phase byte model as the loop advances.  Because
+    the closed-form ``pipelines.comm_plan`` multiplies the same per-step
+    bytes by `stepcache.phase_step_counts`, the two agree exactly iff the
+    loop really executed the phase sequence the plan predicts — the byte
+    model becomes a checked invariant instead of documentation
+    (tests/test_torch_port_stepbatch.py pins it).
+
+    Driven by the per-step callback, which the denoise loop fires after
+    every step (eagerly or between graph replays).  Single writer (the
+    loop thread); ``snapshot()`` is read-anywhere.
+
+    ``tracer``/``track`` optionally mirror every step into a `Tracer` as
+    ``step/<phase>`` spans, putting the denoise micro-timeline on the
+    same Perfetto timeline as the request spans around it.
+    """
+
+    def __init__(self, clock: Callable[[], float] = time.monotonic,
+                 tracer: Optional[Tracer] = None, track: str = "denoise"):
+        self.clock = clock
+        self.tracer = tracer
+        self.track = track
+        self._lock = sync.Lock()
+        self.runs: List[Dict[str, Any]] = []
+        self._cur: Optional[Dict[str, Any]] = None
+        self._phase_of: Optional[Callable[[int], str]] = None
+        self._bytes_per_step: Dict[str, int] = {}
+        self._t_last = 0.0
+
+    def begin_run(self, num_steps: int,
+                  phase_of: Callable[[int], str],
+                  bytes_per_step: Optional[Dict[str, int]] = None,
+                  meta: Optional[dict] = None) -> None:
+        """Start recording one generation: ``phase_of(i)`` tags each step
+        (the pipeline passes the exact cadence arithmetic the loop runs);
+        ``bytes_per_step`` is comm_plan's per-phase wire-byte model keyed
+        ``sync``/``stale``/``shallow`` (None = bytes untracked, e.g. a
+        runner without a byte model)."""
+        with self._lock:
+            self._cur = {
+                "num_steps": int(num_steps),
+                "steps": [],
+                "phase_steps": {"warmup": 0, "full": 0, "shallow": 0},
+                "phase_wall_s": {"warmup": 0.0, "full": 0.0, "shallow": 0.0},
+                "comm_bytes": 0,
+                "comm_bytes_tracked": bytes_per_step is not None,
+                "meta": dict(meta or {}),
+            }
+            self._phase_of = phase_of
+            self._bytes_per_step = dict(bytes_per_step or {})
+            self._t_last = self.clock()
+
+    def on_step(self, i: int) -> None:
+        """Record step ``i`` finishing now (the per-step callback)."""
+        t = self.clock()
+        with self._lock:
+            cur = self._cur
+            if cur is None:
+                return
+            phase = self._phase_of(int(i))
+            dt = t - self._t_last
+            cur["steps"].append(
+                {"step": int(i), "phase": phase, "wall_s": dt}
+            )
+            cur["phase_steps"][phase] += 1
+            cur["phase_wall_s"][phase] += dt
+            cur["comm_bytes"] += int(
+                self._bytes_per_step.get(PHASE_TO_COMM[phase], 0)
+            )
+            t_prev, self._t_last = self._t_last, t
+        if self.tracer is not None:
+            self.tracer.complete(f"step/{phase}", t_prev, t,
+                                 track=self.track, args={"step": int(i)})
+
+    def end_run(self) -> None:
+        with self._lock:
+            if self._cur is not None:
+                self.runs.append(self._cur)
+                self._cur = None
+
+    # -- reads --------------------------------------------------------------
+
+    @property
+    def comm_bytes(self) -> int:
+        """Live wire bytes across every completed run (per device,
+        gathered-buffer convention — the same unit as comm_plan)."""
+        with self._lock:
+            return sum(r["comm_bytes"] for r in self.runs)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """JSON-friendly aggregate: per-phase step counts and wall time
+        across runs, live comm bytes, and the per-run records."""
+        with self._lock:
+            runs = [dict(r) for r in self.runs]
+        agg_steps = {"warmup": 0, "full": 0, "shallow": 0}
+        agg_wall = {"warmup": 0.0, "full": 0.0, "shallow": 0.0}
+        for r in runs:
+            for ph in agg_steps:
+                agg_steps[ph] += r["phase_steps"][ph]
+                agg_wall[ph] += r["phase_wall_s"][ph]
+        return {
+            "runs": len(runs),
+            "phase_steps": agg_steps,
+            "phase_wall_s": agg_wall,
+            "comm_bytes": sum(r["comm_bytes"] for r in runs),
+            "comm_bytes_tracked": all(
+                r["comm_bytes_tracked"] for r in runs) if runs else False,
+            "per_run": runs,
+        }

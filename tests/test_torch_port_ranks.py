@@ -333,6 +333,57 @@ def stepwise_worker(rank, world, in_path, out_path):
     torch.save(out, f"{out_path}.rank{rank}")
 
 
+def transformer_stepwise_worker(rank, world, in_path, out_path):
+    """The transformer runners' explicit-carry API (parallel/dit_sp.py) at
+    sp ``world``, CFG folded, warmup 1: for the tiny DiT (DPM-solver) and
+    the tiny MMDiT (flow-euler), two carries stepped interleaved, the same
+    two stepped one after the other, and ``generate`` of each.  Saves
+    {name: {"interleaved", "contiguous", "generate", "signatures"}}."""
+    import dataclasses
+
+    from distrifuser_tpu_torch.models import dit, mmdit
+    from distrifuser_tpu_torch.parallel.dit_sp import DiTDenoiseRunner
+    from distrifuser_tpu_torch.parallel.mmdit_sp import MMDiTDenoiseRunner
+    from distrifuser_tpu_torch.schedulers import get_scheduler
+    from distrifuser_tpu_torch.utils.config import DistriConfig
+
+    inp = torch.load(in_path, weights_only=False)
+    steps = inp["steps"]
+    out = {}
+    for name, cls, mcfg, sched, hw in (
+            ("dit", DiTDenoiseRunner, dit.tiny_dit_config(depth=2), "dpm-solver", 128),
+            ("mmdit", MMDiTDenoiseRunner,
+             dataclasses.replace(mmdit.tiny_mmdit_config(), depth=2), "flow-euler", 256)):
+        d = inp[name]
+        cfg = DistriConfig(device="cpu", height=hw, width=hw, warmup_steps=1,
+                           split_batch=False, use_cuda_graph=False)
+        runner = cls(cfg, mcfg, d["params"], get_scheduler(sched))
+        enc, extra = torch.from_numpy(d["enc"]), torch.from_numpy(d["extra"])
+        lats = [torch.from_numpy(d["latents"][i:i + 1]) for i in range(2)]
+
+        def run(carry, i):
+            return runner.stepwise_carry_step(carry, i, enc, extra, 4.5, steps)
+
+        carries = [runner.stepwise_carry_init(lat, steps) for lat in lats]
+        signatures = [runner.stepwise_carry_signature(carries[0], i, steps)
+                      for i in range(steps)]
+        for i in range(steps):
+            carries = [run(c, i) for c in carries]
+        interleaved = [runner.stepwise_carry_latent(c) for c in carries]
+        contiguous = []
+        for lat in lats:
+            carry = runner.stepwise_carry_init(lat, steps)
+            for i in range(steps):
+                carry = run(carry, i)
+            contiguous.append(runner.stepwise_carry_latent(carry))
+        second = {"cap_mask": extra} if name == "dit" else {"pooled": extra}
+        generated = [runner.generate(lat, enc, guidance_scale=4.5, num_inference_steps=steps,
+                                     **second) for lat in lats]
+        out[name] = {"interleaved": interleaved, "contiguous": contiguous,
+                     "generate": generated, "signatures": signatures}
+    torch.save(out, f"{out_path}.rank{rank}")
+
+
 def _tiny_sd_pipeline(cfg, vae_params):
     """The tiny SD pipeline (seeded port UNet and CLIP, the given tiny VAE)."""
     from distrifuser_tpu_torch import DistriSDPipeline
