@@ -246,6 +246,46 @@ Phases (any failure raises, and the script exits non-zero):
    the 70 text-KV projections a step recomputes); a {"step": ...} line
    (rounds by width with their ms and launches, the counters, previews and
    time to first preview, the migration, the int8 rounds);
+5i. the SLO controller (``controller_phase``, on 5's trees): an
+   InferenceServer with ``controller.enabled`` over graphed whole-batch
+   executors at batch_size 2 whose build function reads each tier key's
+   step cache, wire compression and refresh fraction (warmup 1), the
+   default class's p99 target 0.05 s (far below a dispatch); every tier key
+   of the default table built before a burst of 12 requests walks the class
+   one rung a dispatch (full, step_cache, comm_compress, partial_refresh,
+   reduced_steps) into admission control, and the next submission raises
+   AdmissionRejectedError; the target relaxed, the idle server retracts to
+   full and serves two more there.  Each dispatch's flash launches against
+   its tier's plan (4 x 140 + 1 at full, 3 x 140 + 20 + 1 with one shallow
+   step, 2 x 140 + 1 at reduced_steps), every image equal to its tier
+   key's solo call; a {"controller": ...} line (the walk, the transitions,
+   each tier's build and dispatch seconds);
+5j. the gateway (``gateway_phase``): a step-batching server (5h's
+   executors, 6 steps, a preview every 2) behind ``gateway.port=0`` on
+   127.0.0.1 with the tenants "interactive" (weight 4) and "bulk" (weight
+   1, a token bucket of 2); one request over the wire (SSE: queued, three
+   previews, final) and the same through ``submit`` (both e2e times), four
+   requests of both tenants together, bulk's third a 429, one cancelled
+   while queued, a status poll; every final image decoded from the wire
+   equal to the in-process result and the solo call; a {"gateway": ...}
+   line;
+5k. the fleet (``fleet_phase``): ``build_fleet`` with two step-batching
+   replicas on this card over the same trees (r0 weight 10, auto_restart);
+   the "replica" fault site kills r0 at its fourth step round, its dying
+   scheduler exports both carries and r1 finishes them, two more requests
+   run on r1 while the tick rebuilds r0, and one runs on the rebuilt r0;
+   then two graphed whole-batch replicas: r0 drained and restarted on a
+   thread (its build and CUDA graph capture) while r1 replays its graphs
+   for four requests, then one on r0 (561 flash launches a dispatch: the
+   capture counts none of r1's launches); every image equal to its solo
+   call; a {"fleet": ...} line (the failover time, the restarts' warm
+   times, r1's rounds and dispatches during them);
+5l. autoscale (``autoscale_phase``): the same replicas, min 1 and max 2,
+   the tick driven by hand: only r0 warms at start, a burst of 8 scales r1
+   up (it builds while r0 serves), two 12-step stragglers, one a replica,
+   leave the pressure low and the tick drains r1 with ``release=True`` and
+   a 0.3 s deadline: its carry finishes on r0, bit for bit with its solo
+   call; an {"autoscale": ...} line (the scale-up's warm time);
 6. multi-rank phase, one spawned process a rank: every rank on this one
    card in a gloo group whose CUDA payloads are staged through pinned host
    memory, or one card a rank over NCCL where the machine has four (a line
@@ -360,9 +400,10 @@ compute kernels and the exposed NCCL time (``stale_step_overlap``).  ``--runs a,
 kernel rows and the kernels line.
 ``--conv_probe`` runs only ``conv_probe``: why ops/conv.py convolves one
 image a launch on the card, and what it costs.
-``--serve_only`` runs only 5f, 5g and 5h with the "@serve" kernel rows (a
-kernels line of the flash kernel, quant_matmul and quantize_rows at the
-serve phases' launches).
+``--serve_only`` runs only 5f-5l with the "@serve" kernel rows (a kernels
+line of the flash kernel, quant_matmul and quantize_rows at the serve
+phases' launches; the flash entry's paths serve_controller, serve_gateway,
+serve_fleet and serve_autoscale).
 ``--quant_device_times`` runs only the device time of the quantized-matmul
 kernel's fp32 contract form and of the per-token quantization kernel at
 every SDXL and SD 1.5 path shape, the latter also with a cold L2 (a 256 MB
@@ -448,6 +489,46 @@ STAGED_INFLIGHT, STAGED_PROMPT_CACHE = 2, 8
 STEP_SLOTS, STEP_PREVIEW, STEP_STEPS = 4, 2, 6
 STEP_REQUESTS = [(f"{PROMPT}, step #{i}", 400 + i) for i in range(5)]
 STEP_INT8_REQUESTS = [(f"{PROMPT}, step int8 #{i}", 500 + i) for i in range(2)]
+# the SLO controller phase (``controller_phase``): whole-batch executors at
+# batch_size SERVE_BATCH, a class target far below a dispatch, so that a burst
+# of CTRL_REQUESTS walks the default tier table one rung a dispatch
+# (escalation cooldown CTRL_COOLDOWN_S, below any dispatch) into admission
+# control; then the operator relaxes the target to CTRL_RELAXED_S and the idle
+# server retracts to full (a target below an idle dispatch could never let it)
+CTRL_REQUESTS = [(f"{PROMPT}, tier #{i}", 600 + i) for i in range(12)]
+CTRL_AFTER = [(f"{PROMPT}, back at full #{i}", 620 + i) for i in range(2)]
+CTRL_TARGET_S, CTRL_COOLDOWN_S, CTRL_RELAXED_S, CTRL_PRIOR_S = 0.05, 0.25, 30.0, 0.74
+CTRL_WARMUP = 1  # the step cache's tiers then run shallow steps at 4 steps
+# the gateway phase (``gateway_phase``): a step-batching server behind the
+# HTTP/SSE gateway on 127.0.0.1, two tenants: "interactive" (weight 4) and
+# "bulk" (weight 1, a token bucket of GATEWAY_BULK_BURST requests refilled at
+# GATEWAY_BULK_RATE a second, so its third request is a 429)
+GATEWAY_ALONE = (f"{PROMPT}, over the wire", 700)
+GATEWAY_REQUESTS = [(f"{PROMPT}, wire #{i}", 710 + i, t)
+                    for i, t in enumerate(("interactive", "bulk", "interactive", "bulk"))]
+GATEWAY_BULK_BURST, GATEWAY_BULK_RATE = 2.0, 0.001
+# the fleet phase (``fleet_phase``): two step-batching replicas on this card
+# over the same trees; the "replica" fault site kills r0 (weight 10, so it
+# takes the first requests) at its FLEET_KILL_AFTER + 1-th step round;
+# auto_restart rebuilds it while r1 serves the migrated carries and
+# FLEET_EXTRA requests sent after the kill
+FLEET_REQUESTS = [(f"{PROMPT}, fleet #{i}", 800 + i) for i in range(2)]
+FLEET_EXTRA = [(f"{PROMPT}, after the kill #{i}", 810 + i) for i in range(2)]
+FLEET_AFTER_RESTART = (f"{PROMPT}, on the restarted replica", 820)
+FLEET_KILL_AFTER = 3
+# then two graphed whole-batch replicas (r0 weight 10): r0 drained and
+# restarted on a thread -- a build and a CUDA graph capture -- while r1
+# replays its graphs for FLEET_GRAPHED; then FLEET_GRAPHED_AFTER on r0
+FLEET_GRAPHED = [(f"{PROMPT}, graphed fleet #{i}", 830 + i) for i in range(4)]
+FLEET_GRAPHED_AFTER = (f"{PROMPT}, on the recaptured replica", 840)
+FLEET_GRAPHED_STEPS = 4
+# the autoscale phase (``autoscale_phase``): the same replicas, min 1, max 2;
+# a burst of AUTO_BURST requests scales r1 up, then two AUTO_LONG_STEPS-step
+# stragglers (one a replica) at low pressure scale it down through a drain
+# of AUTO_DRAIN_S, its straggler's carry migrating to r0
+AUTO_BURST = [(f"{PROMPT}, burst #{i}", 900 + i) for i in range(8)]
+AUTO_LONG = [(f"{PROMPT}, straggler #{i}", 920 + i) for i in range(2)]
+AUTO_LONG_STEPS, AUTO_DRAIN_S = 12, 0.3
 # the transformer families' step drive (``step_drive``): executors at
 # batch_size 2, so a dispatch runs the DiT / MMDiT at B = 4 with the CFG folded
 STEP = "_step"
@@ -2989,18 +3070,10 @@ def serve_phase(trees, steps, expected_flash, expected_quant):
     import numpy as np
     import torch
 
-    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
     from distrifuser_tpu_torch.serve import (InferenceServer, ResilienceConfig, ServeConfig,
                                              is_oom, pipeline_executor_factory)
 
-    ucfg, unet_p, vcfg, vae_p, tcfgs, text_p = trees
     size = SIZES["sdxl"]
-
-    def build(key):
-        cfg = DistriConfig(height=key.height, width=key.width, batch_size=SERVE_BATCH,
-                           do_classifier_free_guidance=key.cfg)  # this card, bf16
-        return DistriSDXLPipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p, tcfgs, text_p,
-                                              scheduler=key.scheduler)
 
     class Counted:
         """A served executor, each call's launch counts kept (read before
@@ -3018,7 +3091,7 @@ def serve_phase(trees, steps, expected_flash, expected_quant):
             self.calls.append({k: after[k] - before[k] for k in after})
             return out
 
-    make = pipeline_executor_factory(build)
+    make = pipeline_executor_factory(_sdxl_build(trees))
     executors = {}
 
     def factory(key):
@@ -3232,20 +3305,12 @@ def staged_phase(trees, steps, expected_flash):
     import numpy as np
     import torch
 
-    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
     from distrifuser_tpu_torch.serve import (InferenceServer, ResilienceConfig, ServeConfig,
                                              pipeline_executor_factory)
 
-    ucfg, unet_p, vcfg, vae_p, tcfgs, text_p = trees
     size = SIZES["sdxl"]
 
-    def build(key):
-        cfg = DistriConfig(height=key.height, width=key.width, batch_size=SERVE_BATCH,
-                           do_classifier_free_guidance=key.cfg)  # this card, bf16
-        return DistriSDXLPipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p, tcfgs, text_p,
-                                              scheduler=key.scheduler)
-
-    make, built = pipeline_executor_factory(build), []
+    make, built = pipeline_executor_factory(_sdxl_build(trees)), []
 
     def factory(key):
         built.append(make(key))
@@ -3380,44 +3445,20 @@ def step_phase(trees, steps=STEP_STEPS):
     import numpy as np
     import torch
 
-    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
     from distrifuser_tpu_torch.models.unet import linear_calls
     from distrifuser_tpu_torch.serve import (InferenceServer, PipelineExecutor,
-                                             ResilienceConfig, ServeConfig, StepBatchConfig,
                                              decode_snapshot, encode_snapshot,
                                              pipeline_executor_factory)
 
-    ucfg, unet_p, vcfg, vae_p, tcfgs, text_p = trees
+    ucfg = trees[0]
     size = SIZES["sdxl"]
     per_eval = 140  # SDXL: flash launches a UNet evaluation
 
-    def build(key):
-        cfg = DistriConfig(height=key.height, width=key.width, batch_size=SERVE_BATCH,
-                           do_classifier_free_guidance=key.cfg)  # this card, bf16
-        return DistriSDXLPipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p, tcfgs, text_p,
-                                              scheduler=key.scheduler)
-
-    make, built = pipeline_executor_factory(build), []
+    make, built = pipeline_executor_factory(_sdxl_build(trees)), []
 
     def factory(key):
         built.append(_RoundLog(make(key)))
         return built[-1]
-
-    def config(**fields):
-        return ServeConfig(
-            buckets=((size, size),), max_batch_size=SERVE_BATCH, default_steps=steps,
-            warmup_buckets=((size, size),), default_ttl_s=600.0,
-            step_batching=StepBatchConfig(enabled=True, slots=STEP_SLOTS,
-                                          preview_interval=STEP_PREVIEW,
-                                          step_service_prior_s=0.5),
-            resilience=ResilienceConfig(watchdog_timeout_s=600.0), **fields)
-
-    def wait(cond, what, timeout=600.0):
-        deadline = time.perf_counter() + timeout
-        while not cond():
-            if time.perf_counter() > deadline:
-                raise AssertionError(f"step: timed out waiting for {what}")
-            time.sleep(0.005)
 
     previews = {}
 
@@ -3427,7 +3468,7 @@ def step_phase(trees, steps=STEP_STEPS):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    server = InferenceServer(factory, config(), model_id="sdxl", scheduler="ddim")
+    server = InferenceServer(factory, _step_config(steps), model_id="sdxl", scheduler="ddim")
     t = time.perf_counter()
     server.start()
     warmup_s = time.perf_counter() - t
@@ -3440,9 +3481,9 @@ def step_phase(trees, steps=STEP_STEPS):
             **kw)
         futs = [submit(r) for r in STEP_REQUESTS[:2]]
         sb = server.stepbatch
-        wait(lambda: any(s.steps_done >= 1 for s in sb.occupied()), "the first step")
+        _wait(lambda: any(s.steps_done >= 1 for s in sb.occupied()), "the first step")
         futs += [submit(r) for r in STEP_REQUESTS[2:4]]  # join mid-denoise
-        wait(lambda: log.rounds and log.rounds[-1]["members"] == STEP_SLOTS,
+        _wait(lambda: log.rounds and log.rounds[-1]["members"] == STEP_SLOTS,
              "a round of the full pool")
         # a deadline that waiting out the earliest free slot would miss but
         # admission now meets (serve/server.py _step_preempt), checked after
@@ -3525,7 +3566,8 @@ def step_phase(trees, steps=STEP_STEPS):
 
     # the int8 key: quant_matmul and quantize_rows launches a packed round
     per_forward, per_call = linear_calls(ucfg)
-    server = InferenceServer(factory, config(weight_quant="int8", quant_compute="pallas"),
+    server = InferenceServer(factory, _step_config(steps, weight_quant="int8",
+                                                   quant_compute="pallas"),
                              model_id="sdxl", scheduler="ddim")
     server.start()
     try:
@@ -3588,6 +3630,755 @@ def step_phase(trees, steps=STEP_STEPS):
     gc.collect()
     torch.cuda.empty_cache()
     return line
+
+
+class _StepRounds:
+    """A step executor whose every ``step_run`` keeps its host-clock start
+    and end and its dispatches; no launch reads (a fleet's other replica
+    launches on its own thread meanwhile).  Everything else is the
+    executor's."""
+
+    def __init__(self, ex):
+        self.ex, self.rounds = ex, []
+
+    def __getattr__(self, name):
+        return getattr(self.ex, name)
+
+    def step_run(self, works):
+        t0 = time.monotonic()
+        self.ex.step_run(works)
+        self.rounds.append({"t0": t0, "t1": time.monotonic(), "members": len(works),
+                            **self.ex.step_pack_stats})
+
+
+def _sdxl_build(trees, tier_knobs=False, **fields):
+    """The serve phases' build function: DistriSDXLPipeline at batch_size
+    SERVE_BATCH from ``trees`` on this card (bf16) at the key's size, CFG
+    and scheduler, with ``fields`` of DistriConfig; with ``tier_knobs`` also
+    the key's step cache, wire compression and refresh fraction (the SLO
+    controller's tiers)."""
+    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+
+    ucfg, unet_p, vcfg, vae_p, tcfgs, text_p = trees
+
+    def build(key):
+        knobs = dict(step_cache_interval=key.step_cache_interval,
+                     step_cache_depth=key.step_cache_depth,
+                     comm_compress=key.comm_compress,
+                     refresh_fraction=key.refresh_fraction) if tier_knobs else {}
+        cfg = DistriConfig(height=key.height, width=key.width, batch_size=SERVE_BATCH,
+                           do_classifier_free_guidance=key.cfg, **fields, **knobs)
+        return DistriSDXLPipeline.from_params(cfg, ucfg, unet_p, vcfg, vae_p, tcfgs, text_p,
+                                              scheduler=key.scheduler)
+
+    return build
+
+
+def _step_config(steps, **fields):
+    """ServeConfig of the step-batching phases: SDXL 1024x1024, executors at
+    batch_size SERVE_BATCH, STEP_SLOTS slots, a preview every STEP_PREVIEW
+    steps, ``steps`` DDIM steps a request, ``fields`` besides."""
+    from distrifuser_tpu_torch.serve import ResilienceConfig, ServeConfig, StepBatchConfig
+
+    size = SIZES["sdxl"]
+    fields.setdefault("resilience", ResilienceConfig(watchdog_timeout_s=600.0))
+    return ServeConfig(
+        buckets=((size, size),), max_batch_size=SERVE_BATCH, default_steps=steps,
+        warmup_buckets=((size, size),), default_ttl_s=600.0,
+        step_batching=StepBatchConfig(enabled=True, slots=STEP_SLOTS,
+                                      preview_interval=STEP_PREVIEW,
+                                      step_service_prior_s=0.5), **fields)
+
+
+def _step_flash(trees, logs, finishes):
+    """(dispatches, the flash launches they and ``finishes`` decodes make)
+    of step executors' round logs: a UNet evaluation's attention a
+    dispatch (140 for SDXL), one launch a decode."""
+    from distrifuser_tpu_torch.models.unet import attention_calls_per_forward
+
+    n = sum(r["dispatches"] for log in logs for r in log.rounds)
+    return n, n * attention_calls_per_forward(trees[0]) + finishes
+
+
+def _solo_same(pipe, requests, outputs, steps):
+    """Each (prompt, seed) alone through ``pipe``: its image against the
+    served one, bit for bit (comparison launches, outside the counts)."""
+    import numpy as np
+
+    return [bool(np.array_equal(pipe(p, seed=s, num_inference_steps=steps,
+                                      output_type="np").images[0], np.asarray(out)))
+            for (p, s), out in zip(requests, outputs)]
+
+
+def _wait(cond, what, timeout=600.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def controller_phase(trees, steps):
+    """The closed-loop SLO controller on the card (serve/controller.py): an
+    InferenceServer with ``controller.enabled`` over whole-batch executors
+    at batch_size SERVE_BATCH (graphed), the default class held to a p99
+    target (CTRL_TARGET_S) far below a dispatch.  The build function reads
+    each tier key's knobs (step cache, wire compression, refresh fraction;
+    warmup CTRL_WARMUP, so the step cache's tiers run shallow steps); every
+    tier key of the default table is built before the burst.  CTRL_REQUESTS
+    walk the class one rung a dispatch to ``reduced_steps`` and on into
+    admission control: the next submission raises AdmissionRejectedError.
+    The operator then relaxes the target; the idle server retracts to full
+    and serves CTRL_AFTER there.  Each dispatch's flash launches against its
+    tier's plan (a full step 140, a shallow step the shallow levels', the
+    decode 1), every image against its tier key's solo call bit for bit.
+    Returns (the "controller" line, the flash path's row weights)."""
+    import dataclasses
+
+    import torch
+
+    from distrifuser_tpu_torch.models.unet import transformer_blocks_per_level
+    from distrifuser_tpu_torch.serve import (ADMISSION, AdmissionRejectedError,
+                                             ControllerConfig, InferenceServer,
+                                             ResilienceConfig, ServeConfig, apply_tier,
+                                             pipeline_executor_factory)
+
+    size = SIZES["sdxl"]
+    blocks = transformer_blocks_per_level(trees[0])
+    levels = len(blocks)
+    calls = []
+
+    class Counted:
+        """A tier key's executor, each call's launches and host seconds kept
+        (the dispatches run one at a time on the scheduler thread)."""
+
+        def __init__(self, ex):
+            self.ex = ex
+            self.batch_size, self.shallow_steps = ex.batch_size, ex.shallow_steps
+            self.weight_nbytes = ex.weight_nbytes
+
+        def __call__(self, *args):
+            before, t = read_counts(), time.perf_counter()
+            out = self.ex(*args)
+            after = read_counts()
+            calls.append({"key": self.ex.key.short(), "s": time.perf_counter() - t,
+                          "launches": {k: after[k] - before[k] for k in after}})
+            return out
+
+    make = pipeline_executor_factory(_sdxl_build(trees, tier_knobs=True,
+                                                 warmup_steps=CTRL_WARMUP))
+    executors = {}
+
+    def factory(key):
+        executors[key.short()] = Counted(make(key))
+        return executors[key.short()]
+
+    config = ServeConfig(
+        buckets=((size, size),), max_batch_size=SERVE_BATCH, cache_capacity=8,
+        default_steps=steps, warmup_buckets=((size, size),), batch_window_s=0.1,
+        default_ttl_s=600.0,
+        controller=ControllerConfig(enabled=True, slo_p99_s={"default": CTRL_TARGET_S},
+                                    escalate_cooldown_s=CTRL_COOLDOWN_S,
+                                    retract_cooldown_s=CTRL_COOLDOWN_S,
+                                    service_prior_s=CTRL_PRIOR_S),
+        resilience=ResilienceConfig(allow_batch_split=False, allow_stepwise_fallback=False,
+                                    watchdog_timeout_s=600.0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    server = InferenceServer(factory, config, model_id="sdxl", scheduler="ddim")
+    t = time.perf_counter()
+    server.start()
+    warmup_s = time.perf_counter() - t
+    ctl = server.controller
+    base = server._exec_key_for(size, size, steps, cfg=True)
+    tier_of, builds = {}, {}
+    try:
+        for tier in ctl.tiers:  # every tier key built (and captured) before the burst
+            key = apply_tier(base, tier)
+            tier_of[key.short()] = tier.name
+            t = time.perf_counter()
+            server.cache.get(key)
+            builds[tier.name] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        futs = [server.submit(p, height=size, width=size, seed=s) for p, s in CTRL_REQUESTS]
+        results = [f.result(timeout=900) for f in futs]
+        burst_s = time.perf_counter() - t
+        at_burst_end = ctl.snapshot()["classes"]["default"]
+        if at_burst_end["tier_name"] != ADMISSION:
+            raise AssertionError(f"controller: the burst ended at {at_burst_end}")
+        try:
+            server.submit(f"{PROMPT}, past the last tier", height=size, width=size, seed=1)
+        except AdmissionRejectedError as exc:
+            rejected = f"{type(exc).__name__}: {exc}"
+        else:
+            raise AssertionError("controller: a submission passed admission control")
+        # the idle spell under the relaxed target: one rung a cooldown to full
+        ctl.config = dataclasses.replace(ctl.config, slo_p99_s={"default": CTRL_RELAXED_S})
+        t = time.perf_counter()
+        _wait(lambda: ctl.snapshot()["classes"]["default"]["tier"] == 0,
+              "the controller's retraction", 60.0)
+        retract_s = time.perf_counter() - t
+        after = [f.result(timeout=900) for f in
+                 [server.submit(p, height=size, width=size, seed=s) for p, s in CTRL_AFTER]]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        snap = server.metrics_snapshot()
+        transitions = server.registry.counter("serve_controller_transitions").snapshot()
+        dispatched = server.registry.counter("serve_controller_dispatches").snapshot()
+    finally:
+        server.stop()
+    walk = [tier_of[c["key"]] for c in calls]
+    order = [t.name for t in ctl.tiers]
+    burst_walk = [order.index(name) for name in walk[:len(walk) - len(after) // SERVE_BATCH]]
+    if walk[0] != "full" or "reduced_steps" not in walk or burst_walk != sorted(burst_walk):
+        raise AssertionError(f"controller: the dispatches walked {walk}")
+    if walk[-1] != "full" or not all(r.tier == "full" for r in after):
+        raise AssertionError(f"controller: after the idle spell {walk}")
+    plans, weights = {}, {}
+    for c in calls:
+        ex = executors[c["key"]].ex
+        key, shallow = ex.key, ex.shallow_steps
+        depth = key.step_cache_depth if shallow else 0
+        evals = [key.steps - shallow + (shallow if lvl < levels - depth else 0)
+                 for lvl in range(levels)]
+        want = sum(2 * blocks[lvl] * evals[lvl] for lvl in range(levels)) + 1
+        plans[tier_of[c["key"]]] = {"steps": key.steps, "shallow_steps": shallow,
+                                    "flash_per_dispatch": want}
+        if c["launches"]["flash_sdpa"] != want or c["launches"]["quant_matmul"]:
+            raise AssertionError(f"controller: a {tier_of[c['key']]} dispatch launched "
+                                 f"{c['launches']}, its plan {want}")
+        for lvl in range(levels):
+            for kind in ("self", "cross"):
+                name = f"unet_{kind}_l{lvl}"
+                weights[name] = weights.get(name, 0) + evals[lvl] / steps
+        weights["vae_mid"] = weights.get("vae_mid", 0) + 1
+    if sum(c["launches"]["flash_sdpa"] for c in calls) != launches["flash_sdpa"]:
+        raise AssertionError(f"controller: {launches} read, the dispatches {calls}")
+    for r in results + after:
+        if r.tier != tier_of[r.exec_key]:
+            raise AssertionError(f"controller: a result at {r.tier}, key {r.exec_key}")
+    same = [_solo_same(executors[r.exec_key].ex.pipeline, [req], [r.output],
+                       executors[r.exec_key].ex.steps)[0]
+            for req, r in zip(CTRL_REQUESTS + CTRL_AFTER, results + after)]
+    if not all(same):
+        raise AssertionError(f"controller: served images differ from their tier key's "
+                             f"solo calls {same}")
+    by_tier = {}
+    for c in calls:
+        by_tier.setdefault(tier_of[c["key"]], []).append(c["s"])
+    line = {
+        "model": MODEL_NAMES["sdxl"] + ", random bf16 weights",
+        "height": size, "width": size, "steps": steps, "executor_batch_size": SERVE_BATCH,
+        "warmup_steps": CTRL_WARMUP,
+        "config": {"slo_p99_s": CTRL_TARGET_S, "relaxed_slo_p99_s": CTRL_RELAXED_S,
+                   "escalate_cooldown_s": CTRL_COOLDOWN_S,
+                   "retract_cooldown_s": CTRL_COOLDOWN_S, "service_prior_s": CTRL_PRIOR_S},
+        "warmup_build_and_capture_s": warmup_s, "tier_build_and_capture_s": builds,
+        "walk": walk, "transitions": transitions, "dispatches_by_tier": dispatched,
+        "dispatch_s_by_tier": by_tier, "plans": plans, "burst_s": burst_s,
+        "at_burst_end": at_burst_end, "admission_rejected": rejected[:200],
+        "retract_to_full_s": retract_s,
+        "service_estimate_s": snap["controller"]["service_estimate_s"],
+        "requests": [{"tier": r.tier, "execute_s": r.execute_s, "e2e_s": r.e2e_s,
+                      "batch_size": r.batch_size} for r in results + after],
+        "dispatches": len(calls), "launches_while_serving": launches,
+        "bit_identical_to_tier_solo": same,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+    }
+    print(json.dumps({"controller": line}), flush=True)
+    del executors, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, weights
+
+
+def _post(url, body, timeout=600):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def _read_sse(url, timeout=600):
+    """One SSE stream drained: [(event, data)]."""
+    import urllib.request
+
+    events, name = [], None
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        for raw in r:
+            text = raw.decode().rstrip("\n")
+            if text.startswith("event: "):
+                name = text[7:]
+            elif text.startswith("data: "):
+                events.append((name, json.loads(text[6:])))
+    return events
+
+
+def gateway_phase(trees, steps=STEP_STEPS):
+    """The HTTP/SSE gateway and tenancy on the card (serve/gateway.py,
+    serve/tenancy.py): a step-batching server (the step phase's executors)
+    behind ``gateway.port=0`` on 127.0.0.1 with two tenants.  One request
+    alone over the wire, its SSE stream read to the end (previews at every
+    STEP_PREVIEW steps, then the final image), then the same request through
+    ``submit`` in process (the two e2e times); four requests of both
+    tenants together, bulk's third refused with a 429 (its token bucket),
+    a fifth cancelled while queued (its stream ends "cancelled"), a status
+    poll.  Every final image decoded from the wire equals the in-process
+    result and the solo call bit for bit.  Returns (the "gateway" line,
+    the flash path's row weights)."""
+    import urllib.error
+
+    import numpy as np
+    import torch
+
+    from distrifuser_tpu_torch.serve import (GatewayConfig, InferenceServer, TenantConfig,
+                                             decode_image, pipeline_executor_factory)
+
+    size = SIZES["sdxl"]
+    make, logs = pipeline_executor_factory(_sdxl_build(trees)), []
+
+    def factory(key):
+        logs.append(_StepRounds(make(key)))
+        return logs[-1]
+
+    tenants = (TenantConfig(name="interactive", weight=4.0),
+               TenantConfig(name="bulk", weight=1.0, rate_rps=GATEWAY_BULK_RATE,
+                            burst=GATEWAY_BULK_BURST))
+    config = _step_config(steps, gateway=GatewayConfig(port=0, host="127.0.0.1",
+                                                       tenants=tenants))
+    server = InferenceServer(factory, config, model_id="sdxl", scheduler="ddim")
+    server.start()
+    gw = server.gateway_endpoint
+    url = gw.url
+
+    def body(prompt, seed, tenant):
+        return {"prompt": prompt, "seed": seed, "steps": steps, "height": size,
+                "width": size, "tenant": tenant}
+
+    try:
+        if not url.startswith("http://127.0.0.1:"):
+            raise AssertionError(f"gateway: bound at {url}")
+        torch.cuda.synchronize()
+        reset_counts()
+        # one request alone over the wire, then the same in process
+        prompt, seed = GATEWAY_ALONE
+        t = time.perf_counter()
+        status, sub = _post(url + "/v1/generate", body(prompt, seed, "interactive"))
+        alone_events = _read_sse(url + sub["events"])
+        wire_s = time.perf_counter() - t
+        alone_inproc = gw._get(sub["id"]).future.result()
+        t = time.perf_counter()
+        ref = server.submit(prompt, height=size, width=size, seed=seed,
+                            tenant="interactive").result(timeout=900)
+        submit_s = time.perf_counter() - t
+        # four of both tenants together, bulk over its quota, one cancelled
+        subs = [_post(url + "/v1/generate", body(p, s, tn))[1] for p, s, tn in GATEWAY_REQUESTS]
+        try:
+            _post(url + "/v1/generate", body(f"{PROMPT}, over the quota", 730, "bulk"))
+        except urllib.error.HTTPError as exc:
+            quota = {"status": exc.code, **json.loads(exc.read())}
+        else:
+            raise AssertionError("gateway: bulk's third request was admitted")
+        _, victim = _post(url + "/v1/generate",
+                          body(f"{PROMPT}, cancelled", 740, "interactive"))
+        _, cancel = _post(url + f"/v1/requests/{victim['id']}/cancel", {})
+        victim_events = _read_sse(url + victim["events"])
+        streams = [_read_sse(url + s["events"]) for s in subs]
+        inproc = [gw._get(s["id"]).future.result() for s in subs]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        import urllib.request
+
+        with urllib.request.urlopen(url + subs[0]["poll"], timeout=60) as r:
+            polled = json.loads(r.read())
+        snap = server.metrics_snapshot()
+    finally:
+        server.stop()
+    if status != 202 or quota["status"] != 429 or quota["error"] != "TenantQuotaError":
+        raise AssertionError(f"gateway: statuses {status}, {quota}")
+    if not cancel["cancelled"] or victim_events[-1][0] != "cancelled":
+        raise AssertionError(f"gateway: cancel {cancel}, {victim_events}")
+    if polled["status"] != "completed":
+        raise AssertionError(f"gateway: status poll {polled}")
+    finals = []
+    for events in [alone_events] + streams:
+        names = [n for n, _ in events]
+        want = ["queued"] + ["preview"] * (steps // STEP_PREVIEW) + ["final"]
+        if names != want:
+            raise AssertionError(f"gateway: a stream's events {names}")
+        finals.append(decode_image(events[-1][1]))
+    inprocs = [alone_inproc.output] + [r.output for r in inproc]
+    wire_same = [bool(a.dtype == np.asarray(b).dtype and a.tobytes() == np.asarray(b).tobytes())
+                 for a, b in zip(finals, inprocs)]
+    ref_same = bool(finals[0].tobytes() == np.asarray(ref.output).tobytes())
+    requests = [GATEWAY_ALONE] + [(p, s) for p, s, _ in GATEWAY_REQUESTS]
+    solo = _solo_same(logs[0].ex.pipeline, requests, finals, steps)
+    if not (all(wire_same) and ref_same and all(solo)):
+        raise AssertionError(f"gateway: wire vs in-process {wire_same}, vs submit {ref_same},"
+                             f" vs solo {solo}")
+    finishes = len(requests) + 1  # and the in-process submit
+    dispatches, flash = _step_flash(trees, logs, finishes)
+    if launches["flash_sdpa"] != flash:
+        raise AssertionError(f"gateway: {launches} read, {dispatches} dispatches and "
+                             f"{finishes} decodes make {flash}")
+    line = {
+        "model": MODEL_NAMES["sdxl"] + ", random bf16 weights",
+        "height": size, "width": size, "steps": steps, "executor_batch_size": SERVE_BATCH,
+        "url": url, "tenants": [t.name for t in tenants],
+        "alone": {"wire_s": wire_s, "submit_s": submit_s,
+                  "wire_server_e2e_s": alone_inproc.e2e_s, "submit_server_e2e_s": ref.e2e_s,
+                  "wire_overhead_s": wire_s - alone_inproc.e2e_s,
+                  "final_event_bytes": len(json.dumps(alone_events[-1][1]))},
+        "quota_rejection": {k: quota[k] for k in ("status", "error", "retryable")},
+        "cancel": cancel, "status_poll": polled["status"],
+        "requests": [{"tenant": tn, "queue_wait_s": r.queue_wait_s, "e2e_s": r.e2e_s,
+                      "previews": r.previews, "first_preview_s": r.first_preview_s}
+                     for (_, _, tn), r in zip(GATEWAY_REQUESTS, inproc)],
+        "tenancy": snap["tenancy"], "gateway_counters": snap.get("gateway_requests"),
+        "dispatches": dispatches, "finishes": finishes, "launches_while_serving": launches,
+        "wire_equals_inprocess": wire_same, "wire_equals_submit": ref_same,
+        "bit_identical_to_solo": solo,
+    }
+    print(json.dumps({"gateway": line}), flush=True)
+    del logs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, [("unet", dispatches / 4), ("vae_mid", finishes)]
+
+
+def fleet_phase(trees, steps=STEP_STEPS):
+    """The replica fleet on the card (serve/replica.py, serve/fleet.py):
+    ``build_fleet`` with two step-batching replicas on this card over the
+    same trees (r0 weight 10, r1 weight 1, auto_restart on).  FLEET_REQUESTS
+    go to r0; the "replica" fault site kills it at its FLEET_KILL_AFTER +
+    1-th step round: its dying scheduler exports both carries, which resume
+    on r1; FLEET_EXTRA arrive after the kill and run on r1 while the tick
+    rebuilds r0 (a new server generation); then FLEET_AFTER_RESTART runs on
+    r0; then ``_graphed_restart``.  Every image equals its solo call bit for
+    bit.  Returns (the "fleet" line, the flash path's row weights)."""
+    import torch
+
+    from distrifuser_tpu_torch.serve import (REPLICA_SERVING, REPLICA_STOPPED, FaultPlan,
+                                             FaultRule, FleetConfig, ResilienceConfig,
+                                             build_fleet, pipeline_executor_factory)
+
+    size = SIZES["sdxl"]
+    make, logs = pipeline_executor_factory(_sdxl_build(trees)), {}
+
+    def factory_for(name):
+        def factory(key):
+            logs.setdefault(name, []).append(_StepRounds(make(key)))
+            return logs[name][-1]
+        return factory
+
+    plan = FaultPlan([FaultRule(site="replica", kind="kill", key_substr="r0", p=1.0,
+                                max_fires=1, after_calls=FLEET_KILL_AFTER)], seed=0)
+    config = _step_config(steps, resilience=ResilienceConfig(max_retries=0,
+                                                             watchdog_timeout_s=600.0))
+    fleet = build_fleet(factory_for, config,
+                        FleetConfig(tick_s=0.05, auto_restart=True, restart_cooldown_s=0.2),
+                        replicas=[("r0", 10.0), ("r1", 1.0)], model_id="sdxl",
+                        scheduler="ddim", fault_plan=plan)
+    t = time.perf_counter()
+    fleet.start()
+    start_s = time.perf_counter() - t
+    r0, r1 = fleet.replica("r0"), fleet.replica("r1")
+    first_warmup = {"r0": r0.last_warmup_s, "r1": r1.last_warmup_s}
+
+    def submit(req):
+        return fleet.submit(req[0], height=size, width=size, seed=req[1])
+
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.monotonic()
+        futs = [submit(r) for r in FLEET_REQUESTS]
+        _wait(lambda: r0.state == REPLICA_STOPPED, "the kill")
+        t_kill = next(t for t, _, to in r0.history if to == REPLICA_STOPPED)
+        extra = [submit(r) for r in FLEET_EXTRA]
+        migrated = [f.result(timeout=900) for f in futs]
+        t_migrated = time.monotonic()
+        extra_results = [f.result(timeout=900) for f in extra]
+        _wait(lambda: r0.generation == 2 and r0.state == REPLICA_SERVING, "r0's restart")
+        again = submit(FLEET_AFTER_RESTART).result(timeout=900)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        snap = fleet.metrics_snapshot()
+        history = r0.history
+    finally:
+        fleet.stop()
+    if plan.fired() != {"replica/kill": 1}:
+        raise AssertionError(f"fleet: fired {plan.fired()}")
+    if not all(r.replica == "r1" and r.migrations == 1
+               and 1 <= r.steps_salvaged <= FLEET_KILL_AFTER for r in migrated):
+        raise AssertionError(f"fleet: migrated {[(r.replica, r.migrations, r.steps_salvaged) for r in migrated]}")
+    if not all(r.replica == "r1" for r in extra_results) or again.replica != "r0":
+        raise AssertionError(f"fleet: routes {[r.replica for r in extra_results]}, "
+                             f"{again.replica}")
+    warm_start = next(t for t, frm, to in history if frm == REPLICA_STOPPED)
+    warm_end = next(t for t, frm, to in history[::-1] if to == REPLICA_SERVING)
+    during = sum(1 for log in logs["r1"] for r in log.rounds
+                 if warm_start <= r["t0"] <= warm_end)
+    requests = FLEET_REQUESTS + FLEET_EXTRA + [FLEET_AFTER_RESTART]
+    outs = [r.output for r in migrated + extra_results + [again]]
+    same = _solo_same(logs["r1"][0].ex.pipeline, requests, outs, steps)
+    if not all(same):
+        raise AssertionError(f"fleet: served images differ from their solo calls {same}")
+    rounds = {name: [len(log.rounds) for log in logs[name]] for name in logs}
+    all_logs = [log for name in logs for log in logs[name]]
+    dispatches, flash = _step_flash(trees, all_logs, len(requests))
+    if launches["flash_sdpa"] != flash:
+        raise AssertionError(f"fleet: {launches} read, {dispatches} dispatches and "
+                             f"{len(requests)} decodes make {flash}")
+    del logs, all_logs
+    gc.collect()
+    torch.cuda.empty_cache()
+    graphed, graphed_dispatches, graphed_flash = _graphed_restart(trees, FLEET_GRAPHED_STEPS)
+    line = {
+        "model": MODEL_NAMES["sdxl"] + ", random bf16 weights",
+        "height": size, "width": size, "steps": steps, "executor_batch_size": SERVE_BATCH,
+        "replicas": {"r0": 10.0, "r1": 1.0}, "start_s": start_s,
+        "first_warmup_s": first_warmup, "kill_after_rounds": FLEET_KILL_AFTER,
+        "kill_to_migrated_done_s": t_migrated - t_kill,
+        "migrated": [{"replica": r.replica, "migrations": r.migrations,
+                      "steps_salvaged": r.steps_salvaged, "queue_wait_s": r.queue_wait_s,
+                      "execute_s": r.execute_s, "e2e_on_r1_s": r.e2e_s} for r in migrated],
+        "failover_s": [(t_migrated - t_kill) - r.e2e_s for r in migrated],
+        "restart": {"warm_s": r0.last_warmup_s, "generation": r0.generation,
+                    "kill_to_warm_start_s": warm_start - t_kill,
+                    "r1_rounds_during_r0_warmup": during},
+        "r0_history": [(frm, to) for _, frm, to in history],
+        "fleet_counters": snap["fleet"]["requests"],
+        "rounds": rounds, "step_dispatches": dispatches,
+        "step_launches_while_serving": launches, "bit_identical_to_solo": same,
+        "graphed": graphed, "graphed_dispatches": graphed_dispatches,
+        "dispatches": dispatches + graphed_dispatches,
+        "launches_while_serving": {"flash_sdpa": launches["flash_sdpa"] + graphed_flash},
+    }
+    print(json.dumps({"fleet": line}), flush=True)
+    return line, [("unet", dispatches / 4 + graphed_dispatches * FLEET_GRAPHED_STEPS / 4),
+                  ("vae_mid", len(requests) + graphed_dispatches)]
+
+
+def _graphed_restart(trees, steps):
+    """The fleet phase's second part: two graphed whole-batch replicas over
+    the same trees (executors at batch_size SERVE_BATCH, captured at
+    warmup; their builds take turns on ``card_build_lock``).  r0 is
+    drained and restarted on a thread -- a new generation, its build and
+    capture -- while r1 replays its graphs for FLEET_GRAPHED; then r0
+    serves FLEET_GRAPHED_AFTER.  Each dispatch 561 flash launches (r0's
+    capture counts none of r1's launches, nor they its), every image equal
+    to its solo call.  Returns (its part of the "fleet" line, dispatches,
+    flash launches read)."""
+    import threading
+
+    import torch
+
+    from distrifuser_tpu_torch.serve import (REPLICA_SERVING, FleetConfig, ResilienceConfig,
+                                             ServeConfig, build_fleet,
+                                             pipeline_executor_factory)
+
+    from distrifuser_tpu_torch.models.unet import attention_calls_per_forward
+
+    size = SIZES["sdxl"]
+    make, calls, executors = pipeline_executor_factory(_sdxl_build(trees)), [], []
+    started = []
+
+    class Timed:
+        """A replica's graphed executor, each call's host-clock span kept."""
+
+        def __init__(self, ex, name):
+            self.ex, self.name = ex, name
+            self.batch_size, self.shallow_steps = ex.batch_size, ex.shallow_steps
+            self.weight_nbytes = ex.weight_nbytes
+
+        def __call__(self, *args):
+            t0 = time.monotonic()
+            started.append(self.name)
+            out = self.ex(*args)
+            calls.append({"replica": self.name, "t0": t0, "t1": time.monotonic()})
+            return out
+
+    def factory_for(name):
+        def factory(key):
+            executors.append(Timed(make(key), name))
+            return executors[-1]
+        return factory
+
+    config = ServeConfig(
+        buckets=((size, size),), max_batch_size=SERVE_BATCH, default_steps=steps,
+        warmup_buckets=((size, size),), batch_window_s=0.05, default_ttl_s=600.0,
+        resilience=ResilienceConfig(allow_batch_split=False, allow_stepwise_fallback=False,
+                                    watchdog_timeout_s=600.0))
+    fleet = build_fleet(factory_for, config, FleetConfig(tick_s=0),
+                        replicas=[("r0", 10.0), ("r1", 1.0)], model_id="sdxl",
+                        scheduler="ddim")
+    t = time.perf_counter()
+    fleet.start()
+    start_s = time.perf_counter() - t
+    r0 = fleet.replica("r0")
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        fleet.drain_replica("r0")
+        futs = [fleet.submit(p, height=size, width=size, seed=s) for p, s in FLEET_GRAPHED]
+        _wait(lambda: bool(started), "r1's first dispatch")  # r1 replaying
+        restart = threading.Thread(target=fleet.restart_replica, args=("r0",))
+        restart.start()
+        results = [f.result(timeout=900) for f in futs]
+        restart.join(timeout=600)
+        if restart.is_alive() or r0.state != REPLICA_SERVING or r0.generation != 2:
+            raise AssertionError(f"fleet graphed: r0 {r0.state}, generation {r0.generation}")
+        after = fleet.submit(FLEET_GRAPHED_AFTER[0], height=size, width=size,
+                             seed=FLEET_GRAPHED_AFTER[1]).result(timeout=900)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        fleet.stop()
+    history = r0.history
+    warm_start = [t for t, frm, to in history if (frm, to) == ("stopped", "warming")][-1]
+    warm_end = [t for t, frm, to in history if (frm, to) == ("warming", "serving")][-1]
+    during = [c for c in calls if c["replica"] == "r1"
+              and c["t0"] < warm_end and c["t1"] > warm_start]
+    if not all(r.replica == "r1" for r in results) or after.replica != "r0":
+        raise AssertionError(f"fleet graphed: routes {[r.replica for r in results]}, "
+                             f"{after.replica}")
+    per_call = steps * attention_calls_per_forward(trees[0]) + 1
+    if launches["flash_sdpa"] != per_call * len(calls):
+        raise AssertionError(f"fleet graphed: {launches} read, {len(calls)} dispatches of "
+                             f"{per_call}")
+    pipe = executors[-1].ex.pipeline
+    same = _solo_same(pipe, FLEET_GRAPHED + [FLEET_GRAPHED_AFTER],
+                      [r.output for r in results + [after]], steps)
+    if not all(same):
+        raise AssertionError(f"fleet graphed: served images differ from their solo calls "
+                             f"{same}")
+    part = {"start_s": start_s, "restart_warm_s": r0.last_warmup_s,
+            "restart_build_and_capture_s": r0.last_warmup_compile_s,
+            "r1_dispatches_during_r0_restart": len(during),
+            "dispatch_s": [c["t1"] - c["t0"] for c in calls],
+            "launches_while_serving": launches, "bit_identical_to_solo": same}
+    del executors, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return part, len(calls), launches["flash_sdpa"]
+
+
+def autoscale_phase(trees, steps=STEP_STEPS):
+    """The elastic pool on the card (serve/autoscale.py): ``build_fleet``
+    with two step-batching slots, ``autoscale`` min 1, max 2, the router's
+    tick driven by hand.  Only r0 warms at start; AUTO_BURST raise the
+    pressure and the tick scales r1 up (it builds and warms while r0
+    serves the burst); then two AUTO_LONG_STEPS-step stragglers, one on
+    each replica, leave the pressure low and the tick drains r1 with
+    ``release=True`` and AUTO_DRAIN_S: its straggler's carry exports and
+    finishes on r0.  The stragglers' and the first burst request's images
+    equal their solo calls bit for bit.  Returns (the "autoscale" line, the
+    flash path's row weights)."""
+    import torch
+
+    from distrifuser_tpu_torch.serve import (REPLICA_SERVING, REPLICA_STARTING,
+                                             REPLICA_STOPPED, AutoscaleConfig, FleetConfig,
+                                             build_fleet, pipeline_executor_factory)
+
+    size = SIZES["sdxl"]
+    make, logs = pipeline_executor_factory(_sdxl_build(trees)), {}
+
+    def factory_for(name):
+        def factory(key):
+            logs.setdefault(name, []).append(_StepRounds(make(key)))
+            return logs[name][-1]
+        return factory
+
+    fc = FleetConfig(tick_s=0.0, autoscale=AutoscaleConfig(
+        enabled=True, min_replicas=1, max_replicas=2, pressure_high=0.8, pressure_low=0.5,
+        up_sustain_s=0.0, down_sustain_s=0.0, cooldown_s=0.0,
+        drain_deadline_s=AUTO_DRAIN_S))
+    router = build_fleet(factory_for, _step_config(steps), fc,
+                         replicas=[("r0", 1.0), ("r1", 1.0)], model_id="sdxl",
+                         scheduler="ddim")
+    router.start()
+    r0, r1 = router.replica("r0"), router.replica("r1")
+    a = router.autoscaler
+    if (r0.state, r1.state) != (REPLICA_SERVING, REPLICA_STARTING):
+        raise AssertionError(f"autoscale: started {r0.state}, {r1.state}")
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        burst = [router.submit(p, height=size, width=size, seed=s) for p, s in AUTO_BURST]
+        pressure_up = a.pressure()
+        t = time.monotonic()
+        router.tick()
+        _wait(lambda: r1.state == REPLICA_SERVING, "the scale-up")
+        up_s = time.monotonic() - t
+        warm_start = next(t for t, _, to in r1.history if to != REPLICA_SERVING)
+        warm_end = next(t for t, _, to in r1.history if to == REPLICA_SERVING)
+        r0_during = sum(1 for log in logs["r0"] for r in log.rounds
+                        if warm_start <= r["t0"] <= warm_end)
+        burst_results = [f.result(timeout=900) for f in burst]
+        longs = [router.submit(p, height=size, width=size, seed=s,
+                               num_inference_steps=AUTO_LONG_STEPS) for p, s in AUTO_LONG]
+        _wait(lambda: all(len(rep.server.stepbatch.occupied()) == 1
+                          and all(st.steps_done >= 2
+                                  for st in rep.server.stepbatch.occupied())
+                          for rep in (r0, r1)), "one straggler on each replica")
+        pressure_down = a.pressure()
+        t = time.monotonic()
+        router.tick()
+        _wait(lambda: r1.state == REPLICA_STOPPED, "the scale-down")
+        down_s = time.monotonic() - t
+        long_results = [f.result(timeout=900) for f in longs]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        counters = a.counters.snapshot()
+        snap = router.metrics_snapshot()
+    finally:
+        router.stop()
+    kept, moved = long_results
+    if (counters.get("scale_ups"), counters.get("scale_downs")) != (1, 1):
+        raise AssertionError(f"autoscale: counters {counters}")
+    if (kept.replica, moved.replica, moved.migrations) != ("r0", "r0", 1) or \
+            moved.steps_salvaged < 2:
+        raise AssertionError(f"autoscale: stragglers {[(r.replica, r.migrations, r.steps_salvaged) for r in long_results]}")
+    checked = [AUTO_BURST[0]] + AUTO_LONG
+    same = (_solo_same(logs["r0"][0].ex.pipeline, checked[:1], [burst_results[0].output],
+                       steps)
+            + _solo_same(logs["r0"][0].ex.pipeline, checked[1:],
+                         [kept.output, moved.output], AUTO_LONG_STEPS))
+    if not all(same):
+        raise AssertionError(f"autoscale: served images differ from their solo calls {same}")
+    finishes = len(AUTO_BURST) + len(AUTO_LONG)
+    all_logs = [log for name in logs for log in logs[name]]
+    dispatches, flash = _step_flash(trees, all_logs, finishes)
+    if launches["flash_sdpa"] != flash:
+        raise AssertionError(f"autoscale: {launches} read, {dispatches} dispatches and "
+                             f"{finishes} decodes make {flash}")
+    line = {
+        "model": MODEL_NAMES["sdxl"] + ", random bf16 weights",
+        "height": size, "width": size, "steps": steps, "executor_batch_size": SERVE_BATCH,
+        "config": {"min_replicas": 1, "max_replicas": 2, "pressure_high": 0.8,
+                   "pressure_low": 0.5, "drain_deadline_s": AUTO_DRAIN_S},
+        "pressure_at_burst": pressure_up, "pressure_with_stragglers": pressure_down,
+        "scale_up_warm_s": r1.last_warmup_s, "scale_up_to_serving_s": up_s,
+        "r0_rounds_during_r1_warmup": r0_during, "scale_down_to_stopped_s": down_s,
+        "burst": [{"replica": r.replica, "e2e_s": r.e2e_s} for r in burst_results],
+        "stragglers": [{"replica": r.replica, "migrations": r.migrations,
+                        "steps_salvaged": r.steps_salvaged, "e2e_s": r.e2e_s}
+                       for r in long_results],
+        "counters": counters, "fleet_counters": snap["fleet"]["requests"],
+        "dispatches": dispatches, "launches_while_serving": launches,
+        "bit_identical_to_solo": same,
+    }
+    print(json.dumps({"autoscale": line}), flush=True)
+    del logs, all_logs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, [("unet", dispatches / 4), ("vae_mid", finishes)]
 
 
 def step_drive(pipe, model, steps, per_eval):
@@ -4688,8 +5479,10 @@ def main(argv) -> int:
                              "separated (MULTI_RUNS labels, decode_sp), in one spawn, "
                              "without the kernel rows and the kernels line")
     parser.add_argument("--serve_only", action="store_true",
-                        help="only the serve phase: its flash and quant kernel rows "
-                             "(\"@serve\") and the SDXL serve plane on the card")
+                        help="only the serve phases: their flash and quant kernel "
+                             "rows (\"@serve\") and the SDXL serve plane on the card "
+                             "(whole-batch, staged, step batching, the SLO controller, "
+                             "the gateway, the fleet and autoscale)")
     parser.add_argument("--conv_probe", action="store_true",
                         help="only the probe of cuDNN's batch-position dependence at "
                              "SDXL's conv shapes and the per-image conv's cost "
@@ -4823,6 +5616,38 @@ def main(argv) -> int:
                  for name, prefix in (("quant_matmul", "fused_"),
                                       ("quantize_rows", "quantize_"))}
         return flash, quant
+    def plane_kernels(rows, paths):
+        """The controller, gateway, fleet and autoscale phases' launches as
+        paths of the flash entry ("@serve" rows: executors at batch_size
+        SERVE_BATCH): ``paths`` maps each path to its phase line and row
+        weights."""
+        frows = rows_of(rows, ("unet", "vae_mid"), "serve")
+        works = {"serve_controller": "the controller phase's {n} whole-batch dispatches, "
+                                     "graphed, each at its tier's steps and shallow steps",
+                 "serve_gateway": "the gateway phase's {n} step dispatches (eager SDXL "
+                                  "evaluations at B = 4) and its finishing decodes",
+                 "serve_fleet": "the fleet phase's {n} step dispatches on both replicas "
+                                "and its finishing decodes",
+                 "serve_autoscale": "the autoscale phase's {n} step dispatches on both "
+                                    "replicas and its finishing decodes"}
+        return {name: path_entry(frows, list(weights.items()) if isinstance(weights, dict)
+                                 else weights, line["launches_while_serving"]["flash_sdpa"],
+                                 work=works[name].format(n=line["dispatches"]))
+                for name, (line, weights) in paths.items()}
+
+    def plane_phases(trees):
+        """Phases 5i-5l on ``trees``: {path: (line, row weights)} and their
+        seconds."""
+        out, secs = {}, {}
+        for name, fn in (("serve_controller", lambda: controller_phase(trees, steps)),
+                         ("serve_gateway", lambda: gateway_phase(trees)),
+                         ("serve_fleet", lambda: fleet_phase(trees)),
+                         ("serve_autoscale", lambda: autoscale_phase(trees))):
+            t = time.perf_counter()
+            out[name] = fn()
+            secs[name] = time.perf_counter() - t
+        return out, secs
+
     # one prompt under the CFG split: one row a rank, n = world / 2 patches
     pshapes = patch_attention_shapes(shapes, n=PATCH_WORLD // 2, batch=1)
     nshapes = naive_attention_shapes(shapes, n=PATCH_WORLD // 2, batch=1)
@@ -5172,12 +5997,15 @@ def main(argv) -> int:
         seconds["serve_staged"], t0 = time.perf_counter() - t0, time.perf_counter()
         step = step_phase(trees)
         seconds["serve_step"] = time.perf_counter() - t0
+        plane, plane_s = plane_phases(trees)
+        seconds.update(plane_s)
         del trees
         print(json.dumps({"phase": "seconds", **seconds}), flush=True)
         flash, quant = serve_kernels(rows, qrows, serve)
         sflash, squant = step_serve_kernels(rows, qrows, staged, step)
+        pflash = plane_kernels(rows, plane)
         print(json.dumps({"serve": serve}), flush=True)
-        return finish([{**flash.pop("serve"), **FLASH_ENTRY, **flash, **sflash},
+        return finish([{**flash.pop("serve"), **FLASH_ENTRY, **flash, **sflash, **pflash},
                        {**quant["quant_matmul"], "name": "quant_matmul", "route": "cuda",
                         "source": "distrifuser_tpu_torch/csrc/quant_matmul.cu",
                         "replaces": "distrifuser_tpu/ops/quant_matmul.py:54",
@@ -5257,8 +6085,11 @@ def main(argv) -> int:
     staged = staged_phase(trees, steps, expected_flash)
     seconds["serve_staged"], t0 = time.perf_counter() - t0, time.perf_counter()
     step = step_phase(trees)
-    del trees
     seconds["serve_step"], t0 = time.perf_counter() - t0, time.perf_counter()
+    plane, plane_s = plane_phases(trees)
+    del trees
+    seconds.update(plane_s)
+    t0 = time.perf_counter()
     sd_runs = sd_pipeline_phase(by_head_dim15, expected_quant15)
     seconds["sd_pipelines"], t0 = time.perf_counter() - t0, time.perf_counter()
     pixart = pixart_phase()
@@ -5314,6 +6145,7 @@ def main(argv) -> int:
     sd3_plain, sd3_lse = sd3_entries(mrows, multi_runs, sd3[1], sd35m, sd3[2])
     serve_flash, serve_quant = serve_kernels(mrows, qrows, serve)
     step_flash, step_quant = step_serve_kernels(mrows, qrows, staged, step)
+    plane_flash = plane_kernels(mrows, plane)
     kernels = [
         kernel_entry(rows, runs["dense"]["flash_sdpa_launches"], **FLASH_ENTRY,
                      work="all attention of one 4-step 1024x1024 SDXL pipeline call "
@@ -5326,7 +6158,7 @@ def main(argv) -> int:
                      **multi_entries(mrows, multi_runs),
                      sd15=kernel_entry(rows15, sd_runs["sd15"]["flash_sdpa_launches"]),
                      sd21=kernel_entry(rows21, sd_runs["sd21"]["flash_sdpa_launches"]),
-                     **paths, **sd3_plain, **serve_flash, **step_flash),
+                     **paths, **sd3_plain, **serve_flash, **step_flash, **plane_flash),
         *instance_entries(rows15, sd_runs["sd15_eager"]["flash_sdpa_launches_by_head_dim"],
                           "all its attention in one 4-step 512x512 SD 1.5 call (launches "
                           "counted in the eager call; the graphed one launches as many)"),

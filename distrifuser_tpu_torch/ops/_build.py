@@ -13,11 +13,16 @@ module is imported.
 Every kernel wrapper counts its launches in its own ``launches``
 attribute and is listed in ``LAUNCH_COUNTERS`` (``counts_launches``), the
 one list that whoever reads or replays the counts (parallel/graphs.py)
-walks.
+walks.  Counts change only through ``add_launches``: under one lock, since
+servers on several threads (replicas sharing a card) launch at once, and
+into a tally of its own on a thread that captures a CUDA graph
+(``launch_tally``), so that a capture records its own launches and no
+other thread's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,6 +39,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCH_COUNTERS: list = []
+_COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()
 
 
 def counts_launches(wrapper):
@@ -42,6 +49,34 @@ def counts_launches(wrapper):
     wrapper.launches = 0
     LAUNCH_COUNTERS.append(wrapper)
     return wrapper
+
+
+def add_launches(counter, n: int = 1, attr: str = "launches", head_dim=None) -> None:
+    """Add ``n`` to ``counter``'s count ``attr`` (a kernel wrapper's, or the
+    all-to-all's), and with ``head_dim`` to ``<attr>_by_head_dim[head_dim]``.
+    Within ``launch_tally`` on this thread the count goes to the tally
+    instead (the by-head-dim one still counts, as an eager call's)."""
+    tally = getattr(_TALLY, "counts", None)
+    with _COUNT_LOCK:
+        if tally is not None:
+            tally[(counter, attr)] = tally.get((counter, attr), 0) + n
+        else:
+            setattr(counter, attr, getattr(counter, attr) + n)
+        if head_dim is not None:
+            getattr(counter, attr + "_by_head_dim")[head_dim] += n
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """Within the block, this thread's launch counts go to the dict it
+    yields, ``{(counter, attr): n}``, not to the counters; other threads
+    keep counting theirs."""
+    outer = getattr(_TALLY, "counts", None)
+    _TALLY.counts = tally = {}
+    try:
+        yield tally
+    finally:
+        _TALLY.counts = outer
 
 
 def _nvcc() -> str:

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from ._build import KernelLibrary, counts_launches
+from ._build import KernelLibrary, add_launches, counts_launches
 
 _NEG_INF = -1e30  # masked-logit convention of the TPU kernel
 # head dims the kernel has an instance for: every d a configuration of the
@@ -157,11 +157,9 @@ def flash_sdpa(q, k, v, *, heads: int, kv_len: int = None, return_lse: bool = Fa
     )
     if rc != 0:
         raise RuntimeError(f"flash_sdpa kernel launch failed: cudaError {rc}")
-    flash_sdpa.launches += 1
-    flash_sdpa.launches_by_head_dim[d] += 1
+    add_launches(flash_sdpa, head_dim=d)
     if return_lse:
-        flash_sdpa.lse_launches += 1
-        flash_sdpa.lse_launches_by_head_dim[d] += 1
+        add_launches(flash_sdpa, attr="lse_launches", head_dim=d)
     return (out, lse) if return_lse else out
 
 

@@ -44,7 +44,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ._build import KernelLibrary, counts_launches, current_stream
+from ._build import KernelLibrary, add_launches, counts_launches, current_stream
 
 _PAYLOAD_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -177,5 +177,5 @@ def quant_matmul(xq, wq, sw, *, sx=None, out_dtype=torch.float32, bias=None):
     )
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: cudaError {rc}")
-    quant_matmul.launches += 1
+    add_launches(quant_matmul)
     return out

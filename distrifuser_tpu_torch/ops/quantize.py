@@ -70,7 +70,7 @@ import torch
 
 from ..parallel.compress import (check_every_kth, dequantize, quantize,
                                  scatter_every_kth, take_every_kth)
-from ._build import KernelLibrary, counts_launches, current_stream
+from ._build import KernelLibrary, add_launches, counts_launches, current_stream
 
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PAYLOADS = {"int8": (0, torch.int8), "fp8": (1, torch.float8_e4m3fn)}
@@ -479,7 +479,7 @@ def quantize_rows(x, mode: str):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"quantize_rows: x on {x.device}; the kernel takes a CUDA tensor")
     (got,), launches = _encode([EncodeSeg(x)], mode)
-    quantize_rows.launches += launches
+    add_launches(quantize_rows, launches)
     return got
 
 
@@ -489,7 +489,7 @@ def quantize_rows_grouped(segments: Sequence[EncodeSeg], mode: str):
     segments on the card; returns each segment's ``(q, s)``.  Counts each
     launch in ``quantize_rows_grouped.launches``."""
     got, launches = _encode(list(segments), mode)
-    quantize_rows_grouped.launches += launches
+    add_launches(quantize_rows_grouped, launches)
     return got
 
 
@@ -500,5 +500,5 @@ def dequantize_rows_grouped(segments: Sequence[DecodeSeg], dtype):
     plain version on the CPU; returns each segment's buffer.
     Counts each launch in ``dequantize_rows_grouped.launches``."""
     got, launches = _decode(list(segments), dtype)
-    dequantize_rows_grouped.launches += launches
+    add_launches(dequantize_rows_grouped, launches)
     return got

@@ -42,6 +42,7 @@ from typing import Callable, List
 import torch
 import torch.distributed as dist
 
+from ..ops._build import add_launches
 from . import overlap
 
 
@@ -117,7 +118,7 @@ def all_to_all(x: torch.Tensor, group=None, *, async_op: bool = False):
     src = _down(x) if staged else x.contiguous()
     out = torch.empty(src.shape, dtype=src.dtype, device=src.device, pin_memory=staged)
     work = dist.all_to_all_single(out, src, group=group, async_op=True)
-    all_to_all.launches += 1
+    add_launches(all_to_all)
 
     def finish():
         return out.to(x.device, non_blocking=True) if staged else out

@@ -52,8 +52,9 @@ captured refuses to replay on the card; nothing retries eagerly.  The
 kernel wrappers (``ops._build.LAUNCH_COUNTERS``) and the all-to-all
 (parallel/collectives.py) count launches only while they run: each graph
 records the launches it captured (the warm-up and the capture itself count
-nothing) and adds them at every replay, so a graphed call counts what an
-eager call counts.
+nothing: the capturing thread's launches go to a tally of their own,
+``ops._build.launch_tally``, while other threads' keep counting) and adds
+them at every replay, so a graphed call counts what an eager call counts.
 
 On the CPU nothing is captured: a replay runs the same static-buffer step
 eagerly and copies its results into the static outputs, so the CPU tests
@@ -74,23 +75,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops._build import LAUNCH_COUNTERS
-from .collectives import all_to_all
-
-
-# the counts a kernel wrapper keeps: every launch, and the flash wrapper's
-# launches of its log-sum-exp instances; the all-to-all's calls likewise
-_COUNTS = ("launches", "lse_launches")
-
-
-def _counts() -> Dict[Tuple[Callable, str], int]:
-    return {(fn, attr): getattr(fn, attr) for fn in [*LAUNCH_COUNTERS, all_to_all]
-            for attr in _COUNTS if hasattr(fn, attr)}
-
-
-def _restore(counts: Dict[Tuple[Callable, str], int]) -> None:
-    for (fn, attr), n in counts.items():
-        setattr(fn, attr, n)
+from ..ops._build import add_launches, launch_tally
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -194,20 +179,17 @@ class StepGraph:
         return step_fn(self.phase, self.inputs, self.state_in if self.stateful else None)
 
     def capture(self, step_fn: Callable, pool, stream: torch.cuda.Stream) -> None:
-        """Record the evaluation into a CUDA graph on ``stream``; restores
-        the launch counters and keeps what the capture added."""
-        before = _counts()
+        """Record the evaluation into a CUDA graph on ``stream``; keeps the
+        launches it captured (this thread's tally: ``launch_tally``) apart
+        from the counters."""
         graph = torch.cuda.CUDAGraph()
-        try:
+        with launch_tally() as counts:
             with torch.cuda.graph(graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 self.out, self.state_out = self.run(step_fn)
-        finally:
-            after = _counts()
-            _restore(before)
-        self.counts = {key: n - before.get(key, 0) for key, n in after.items()}
+        self.counts = {key: n for key, n in counts.items() if n}
         self.launches = {fn: n for (fn, attr), n in self.counts.items()
-                         if attr == "launches" and n}
+                         if attr == "launches"}
         self.graph = graph
 
     def replay(self, step_fn: Callable):
@@ -219,7 +201,7 @@ class StepGraph:
         if self.graph is not None:
             self.graph.replay()
             for (fn, attr), n in self.counts.items():
-                setattr(fn, attr, getattr(fn, attr) + n)
+                add_launches(fn, n, attr)
         elif self.device.type == "cuda":
             raise RuntimeError(
                 f"the {self.phase!r} step graph was never captured; a CUDA "
@@ -281,19 +263,16 @@ class StepGraphs:
     def _capture(self, graphs, phases, missing, step_fn) -> None:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        before = _counts()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         state = None
-        try:  # warm-up: every phase once, eagerly, in step order
-            with torch.cuda.stream(side):
-                for phase in phases:
-                    graph = graphs[phase]
-                    if graph.stateful:
-                        graph.load_state(state)
-                    _, state = graph.run(step_fn)
-        finally:
-            _restore(before)
+        # warm-up: every phase once, eagerly, in step order, uncounted
+        with launch_tally(), torch.cuda.stream(side):
+            for phase in phases:
+                graph = graphs[phase]
+                if graph.stateful:
+                    graph.load_state(state)
+                _, state = graph.run(step_fn)
         torch.cuda.current_stream(self.device).wait_stream(side)
         for phase in missing:
             graphs[phase].capture(step_fn, self.pool, side)

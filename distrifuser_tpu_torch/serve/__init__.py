@@ -1,7 +1,7 @@
 """distrifuser_tpu_torch.serve -- the long-lived inference service on one card.
 
 The JAX package's serve plane on one card (ROADMAP item 16, steps
-16a-16c), with its module and public names:
+16a-16e), with its module and public names:
 
 * `RequestQueue` -- bounded admission with deadlines (serve/queue.py);
 * `MicroBatcher` + `BucketTable` -- continuous micro-batching with shape
@@ -22,19 +22,34 @@ The JAX package's serve plane on one card (ROADMAP item 16, steps
 * `StepBatcher` / `SlotState` -- step-level continuous batching: requests
   join, leave, park and pack between denoise steps (serve/stepbatch.py),
   and their carries migrate between servers (serve/migration.py);
+* `SLOController` -- load-driven tier selection over the quality/cost
+  lattice (`DEFAULT_TIERS`, `apply_tier`) with admission control past the
+  last tier (serve/controller.py);
+* `Gateway` + `TenancyPolicy` -- the streaming HTTP/SSE front end
+  (serve/gateway.py: ``POST /v1/generate``, SSE progress and previews,
+  cancel; images on the wire by `encode_image` / `decode_image`) over
+  per-tenant token-bucket quotas (`TokenBucket`) and weighted
+  deficit-round-robin in the queue (serve/tenancy.py);
+* `Replica` + `FleetRouter` -- lifecycle-managed replicas (starting,
+  warming, serving, draining, stopped) behind a health-scored router
+  with failover, carry migration, auto-drain, half-open probes and
+  auto-restart (serve/replica.py, serve/fleet.py, `build_fleet`), and the
+  elastic pool of serve/autoscale.py (`Autoscaler`, `fleet_pressure`);
 * `PipelineExecutor` -- adapter from the port's pipelines
   (serve/executors.py); `serve.testing` has the weightless fakes.
 
 ``python -m distrifuser_tpu_torch.serve --demo`` runs a CPU-only
-end-to-end demonstration (serve/__main__.py).  The SLO controller,
-tenancy and the gateway, the fleet, serving over n ranks and the AOT store
-come with later steps of ROADMAP item 16; `InferenceServer` refuses their
-settings until then.
+end-to-end demonstration (serve/__main__.py; ``--gateway-port`` runs it
+through the gateway).  Serving over n ranks and the AOT store come with
+later steps of ROADMAP item 16; `InferenceServer` refuses their settings
+until then.
 """
 
 from ..utils.config import (
     DEFAULT_BUCKETS,
+    AutoscaleConfig,
     ControllerConfig,
+    FleetConfig,
     GatewayConfig,
     ObservabilityConfig,
     ResilienceConfig,
@@ -43,9 +58,17 @@ from ..utils.config import (
     TenantConfig,
 )
 from ..utils.metrics import MetricsRegistry
-from ..utils.trace import Tracer
+from ..utils.trace import StepTimeline, Tracer
+from .autoscale import Autoscaler, fleet_pressure
 from .batcher import BatchKey, BucketTable, MicroBatcher
 from .cache import ExecKey, ExecutorCache
+from .controller import (
+    ADMISSION,
+    DEFAULT_TIERS,
+    SLOController,
+    TierSpec,
+    apply_tier,
+)
 from .errors import (
     AdmissionRejectedError,
     BuildFailedError,
@@ -54,6 +77,7 @@ from .errors import (
     DeadlineExceededError,
     ExecuteFailedError,
     FatalError,
+    LifecycleError,
     MigrationRejectedError,
     NoBucketError,
     NoHealthyReplicaError,
@@ -67,6 +91,8 @@ from .errors import (
     is_oom,
 )
 from .faults import FaultPlan, FaultRule, install_fault_plan
+from .fleet import FleetRouter, build_fleet, routing_weight
+from .gateway import Gateway, decode_image, encode_image, sse_format
 from .httpbase import HTTPServerHost
 from .migration import (
     CarrySnapshot,
@@ -77,6 +103,15 @@ from .migration import (
 )
 from .promptcache import PromptCache
 from .queue import Request, RequestQueue, ServeResult
+from .replica import (
+    REPLICA_DRAINING,
+    REPLICA_SERVING,
+    REPLICA_STARTING,
+    REPLICA_STATES,
+    REPLICA_STOPPED,
+    REPLICA_WARMING,
+    Replica,
+)
 from .resilience import (
     BackoffPolicy,
     CircuitBreaker,
@@ -88,6 +123,7 @@ from .resilience import (
 from .server import InferenceServer
 from .staging import StagedBatch, StagePipeline
 from .stepbatch import SlotState, StepBatcher
+from .tenancy import TenancyPolicy, TokenBucket
 
 
 def __getattr__(name):
@@ -101,7 +137,10 @@ def __getattr__(name):
 
 
 __all__ = [
+    "ADMISSION",
     "AdmissionRejectedError",
+    "AutoscaleConfig",
+    "Autoscaler",
     "BackoffPolicy",
     "BatchKey",
     "BucketTable",
@@ -112,6 +151,7 @@ __all__ = [
     "CircuitOpenError",
     "ControllerConfig",
     "DEFAULT_BUCKETS",
+    "DEFAULT_TIERS",
     "DeadlineExceededError",
     "DegradationLadder",
     "ExecKey",
@@ -120,9 +160,13 @@ __all__ = [
     "FatalError",
     "FaultPlan",
     "FaultRule",
+    "FleetConfig",
+    "FleetRouter",
+    "Gateway",
     "GatewayConfig",
     "HTTPServerHost",
     "InferenceServer",
+    "LifecycleError",
     "MetricsRegistry",
     "MicroBatcher",
     "MigrationRejectedError",
@@ -132,6 +176,13 @@ __all__ = [
     "PipelineExecutor",
     "PromptCache",
     "QueueFullError",
+    "REPLICA_DRAINING",
+    "REPLICA_SERVING",
+    "REPLICA_STARTING",
+    "REPLICA_STATES",
+    "REPLICA_STOPPED",
+    "REPLICA_WARMING",
+    "Replica",
     "Request",
     "RequestQueue",
     "ResilienceConfig",
@@ -139,6 +190,7 @@ __all__ = [
     "ResourceExhaustedError",
     "RetryBudget",
     "RetryableError",
+    "SLOController",
     "ServeConfig",
     "ServeError",
     "ServeResult",
@@ -148,17 +200,28 @@ __all__ = [
     "StagedBatch",
     "StepBatchConfig",
     "StepBatcher",
+    "StepTimeline",
+    "TenancyPolicy",
     "TenantConfig",
     "TenantQuotaError",
+    "TierSpec",
+    "TokenBucket",
     "Tracer",
     "Watchdog",
     "WatchdogTimeoutError",
     "apply_key_policy",
+    "apply_tier",
+    "build_fleet",
     "check_identity",
     "check_key_compatible",
+    "decode_image",
     "decode_snapshot",
+    "encode_image",
     "encode_snapshot",
+    "fleet_pressure",
     "install_fault_plan",
     "is_oom",
     "pipeline_executor_factory",
+    "routing_weight",
+    "sse_format",
 ]

@@ -12,8 +12,17 @@ serving invariants the subsystem exists for:
 Exit code 0 only if all three hold — the demo doubles as an end-to-end
 smoke test on any box, no weights or accelerator required.
 
-The JAX package's ``--gateway-port`` / ``--tenants`` demo of its HTTP/SSE
-gateway comes with a later step of ROADMAP item 16.
+``--gateway-port N`` (with ``--demo``) switches to the gateway demo:
+a step-batching server (progressive previews every step) fronted by the
+HTTP/SSE gateway on port N (0 = ephemeral), requests driven THROUGH the
+wire, with ``--tenants`` taking the tenant table as inline JSON, e.g.::
+
+    python -m distrifuser_tpu_torch.serve --demo --gateway-port 8977 \\
+        --tenants '{"bulk": {"weight": 1, "rate_rps": 2, "burst": 4},
+                    "interactive": {"weight": 4}}'
+
+Combine with ``--hold-s`` to keep the gateway live for external curl
+probes.
 """
 
 from __future__ import annotations
@@ -23,9 +32,15 @@ import json
 import sys
 
 from ..utils import sync
-from ..utils.config import ObservabilityConfig, ServeConfig
+from ..utils.config import (
+    GatewayConfig,
+    ObservabilityConfig,
+    ServeConfig,
+    StepBatchConfig,
+    TenantConfig,
+)
 from .server import InferenceServer
-from .testing import FakeExecutorFactory
+from .testing import FakeExecutorFactory, StepFakeExecutorFactory
 
 
 def run_demo(metrics_path: str = None, verbose: bool = True,
@@ -140,6 +155,135 @@ def run_demo(metrics_path: str = None, verbose: bool = True,
     return 0 if ok else 1
 
 
+def parse_tenants(spec: str):
+    """``--tenants`` inline JSON table -> tuple of TenantConfig.
+
+    ``{"name": {"weight": w, "rate_rps": r, "burst": b}, ...}`` — every
+    knob optional (weight 1, unlimited rate by default).
+    """
+    table = json.loads(spec)
+    if not isinstance(table, dict):
+        raise ValueError("--tenants must be a JSON object keyed by "
+                         "tenant name")
+    tenants = []
+    for name, knobs in table.items():
+        knobs = knobs or {}
+        if not isinstance(knobs, dict):
+            raise ValueError(f"tenant {name!r}: knobs must be an object")
+        unknown = set(knobs) - {"weight", "rate_rps", "burst"}
+        if unknown:
+            raise ValueError(f"tenant {name!r}: unknown knobs {unknown}")
+        tenants.append(TenantConfig(
+            name=name,
+            weight=float(knobs.get("weight", 1.0)),
+            rate_rps=float(knobs.get("rate_rps", 0.0)),
+            burst=float(knobs.get("burst", 0.0)),
+        ))
+    return tuple(tenants)
+
+
+def run_gateway_demo(gateway_port: int, tenants_spec: str = None,
+                     metrics_path: str = None, verbose: bool = True,
+                     metrics_port: int = None, hold_s: float = 0.0,
+                     trace_out: str = None) -> int:
+    """Gateway demo: step-batching server behind the HTTP/SSE gateway,
+    every request driven through the wire."""
+    import urllib.error
+    import urllib.request
+
+    from .gateway import decode_image
+
+    say = print if verbose else (lambda *a, **k: None)
+    tenants = parse_tenants(tenants_spec) if tenants_spec else (
+        TenantConfig(name="interactive", weight=4.0),
+        TenantConfig(name="bulk", weight=1.0, rate_rps=50.0, burst=16.0),
+    )
+    config = ServeConfig(
+        max_queue_depth=64,
+        batch_window_s=0.01,
+        buckets=((64, 64),),
+        default_steps=6,
+        step_batching=StepBatchConfig(enabled=True, slots=4,
+                                      preview_interval=1),
+        gateway=GatewayConfig(port=gateway_port, tenants=tenants),
+        observability=ObservabilityConfig(
+            trace=bool(trace_out), metrics_port=metrics_port,
+        ),
+    )
+    factory = StepFakeExecutorFactory(batch_size=4, step_time_s=0.01)
+    server = InferenceServer(factory, config, model_id="demo-sdxl",
+                             scheduler="ddim", mesh_plan="dp1.cfg1.sp1")
+    say("starting step-batching server behind the gateway...")
+    with server:
+        gw = server.gateway_endpoint
+        say(f"gateway: {gw.url}/v1/generate "
+            f"(tenants: {', '.join(t.name for t in tenants)})")
+        if server.metrics_endpoint is not None:
+            say(f"metrics endpoint: {server.metrics_endpoint.url}/metrics")
+
+        def post(path, body):
+            req = urllib.request.Request(
+                gw.url + path, data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=15) as r:
+                return json.loads(r.read())
+
+        # one streamed request per tenant, through the wire
+        finals = {}
+        for i, t in enumerate(tenants):
+            sub = post("/v1/generate", {
+                "prompt": f"a photo of a corgi #{i}", "steps": 6,
+                "seed": i, "height": 64, "width": 64, "tenant": t.name,
+            })
+            names = []
+            with urllib.request.urlopen(gw.url + sub["events"],
+                                        timeout=30) as r:
+                name = None
+                for line in r:
+                    line = line.decode().rstrip("\n")
+                    if line.startswith("event: "):
+                        name = line[7:]
+                    elif line.startswith("data: "):
+                        names.append(name)
+                        if name == "final":
+                            finals[t.name] = json.loads(line[6:])
+            say(f"  {t.name:14s} -> {sub['id']}: {', '.join(names)}")
+        # cancel path: submit then immediately cancel
+        sub = post("/v1/generate", {"prompt": "cancel me", "steps": 6,
+                                    "height": 64, "width": 64})
+        cres = post(f"/v1/requests/{sub['id']}/cancel", {})
+        say(f"  cancel {sub['id']}: cancelled={cres['cancelled']}")
+
+        snap = server.metrics_snapshot()
+        if metrics_path:
+            server.export_metrics(metrics_path)
+            say(f"metrics JSON written to {metrics_path}")
+        if trace_out:
+            server.tracer.export(trace_out)
+            say(f"Perfetto trace written to {trace_out}")
+        if hold_s > 0:
+            say(f"holding {hold_s:.0f}s for external gateway probes...")
+            import time
+
+            time.sleep(hold_s)
+    decoded = {n: decode_image(p).shape for n, p in finals.items()}
+    previews = {n: p["metrics"]["previews"] for n, p in finals.items()}
+    checks = {
+        "every tenant's stream reached final": len(finals) == len(tenants),
+        "progressive previews streamed (>0 each)": all(
+            v > 0 for v in previews.values()) and bool(previews),
+        "final images decode to arrays": all(
+            len(s) == 3 for s in decoded.values()),
+        "tenancy accounting present": snap.get("tenancy") is not None,
+    }
+    say("")
+    ok = True
+    for name, passed in checks.items():
+        say(f"  [{'ok' if passed else 'FAIL'}] {name}")
+        ok = ok and passed
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m distrifuser_tpu_torch.serve",
@@ -163,11 +307,25 @@ def main(argv=None) -> int:
     ap.add_argument("--dump-dir", type=str, default=None,
                     help="write the full observability dump (metrics/"
                          "registry/health/slo/trace) into this directory")
+    ap.add_argument("--gateway-port", type=int, default=None,
+                    help="run the gateway demo instead: step-batching "
+                         "server behind the HTTP/SSE gateway on this port "
+                         "(0 = ephemeral)")
+    ap.add_argument("--tenants", type=str, default=None,
+                    help="inline JSON tenant table for the gateway demo, "
+                         "e.g. '{\"bulk\": {\"weight\": 1, \"rate_rps\": 2"
+                         ", \"burst\": 4}, \"interactive\": {\"weight\": 4"
+                         "}}'")
     args = ap.parse_args(argv)
     if not args.demo:
         ap.error("nothing to do: pass --demo (real serving is wired "
                  "through distrifuser_tpu_torch.serve.InferenceServer + "
                  "pipeline_executor_factory)")
+    if args.gateway_port is not None:
+        return run_gateway_demo(
+            gateway_port=args.gateway_port, tenants_spec=args.tenants,
+            metrics_path=args.metrics_path, metrics_port=args.metrics_port,
+            hold_s=args.hold_s, trace_out=args.trace_out)
     return run_demo(metrics_path=args.metrics_path,
                     metrics_port=args.metrics_port, hold_s=args.hold_s,
                     trace_out=args.trace_out, dump_dir=args.dump_dir)

@@ -27,11 +27,12 @@ the injected fault's RESOURCE_EXHAUSTED-shaped message
 Definitions live here (a leaf module, importable from anywhere in the
 package without cycles); `serve/queue.py` and `serve/batcher.py`
 re-export their historical names so existing imports keep working.  The
-errors of the subsystems that later steps of ROADMAP item 16 bring
-(admission control, tenant quotas, the fleet) keep the JAX package's names
-and places in the hierarchy, so that callers can catch them alike; the
-server raises none of them.  Carry export (`CarryExportedError`) and a
-rejected import (`MigrationRejectedError`) come from step batching.
+errors keep the JAX package's names and places in the hierarchy, so that
+callers can catch them alike: admission control (`AdmissionRejectedError`),
+tenant quotas (`TenantQuotaError`), the fleet (`NoHealthyReplicaError`,
+`LifecycleError`), carry export (`CarryExportedError`) and a rejected
+import (`MigrationRejectedError`).  The AOT store's rejection comes with
+the store.
 """
 
 from __future__ import annotations
@@ -142,6 +143,15 @@ class MigrationRejectedError(RetryableError):
 class ResourceExhaustedError(ExecuteFailedError):
     """OOM-shaped failure (``torch.cuda.OutOfMemoryError`` or injected):
     the trigger for the graceful-degradation ladder."""
+
+
+class LifecycleError(FatalError):
+    """An operator-API call violated a lifecycle state machine: starting
+    an already-started fleet, restarting a replica from a state with no
+    such transition, an illegal replica state-machine edge.  Fatal for
+    the *call* (retrying the same transition verbatim cannot succeed),
+    and still a RuntimeError via ServeError, so operator code catching
+    RuntimeError keeps working."""
 
 
 class ExecutorContractError(RuntimeError):

@@ -45,6 +45,7 @@ their own.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -777,6 +778,18 @@ def apply_key_policy(pipeline, key: ExecKey) -> None:
                 str(exc), rung="stepwise_fallback") from exc
 
 
+# One build at a time in the process.  Several servers may share one card
+# (the replicas of serve/fleet.py, each with its own scheduler thread), and
+# a build returns the caching allocator's free blocks to the card and
+# captures CUDA graphs: two builds at once would free blocks under another
+# build's capture (the allocator refuses to synchronise while one is under
+# way) and interleave two captures' private pools.  A dispatch on another
+# server's thread keeps running while a build holds the lock: a capture in
+# ``thread_local`` mode on its own stream neither waits for it nor is
+# invalidated by it.
+card_build_lock = threading.Lock()
+
+
 def pipeline_executor_factory(
     build_pipeline: Callable[[ExecKey], Any],
     fault_plan: Optional[FaultPlan] = None,
@@ -793,22 +806,26 @@ def pipeline_executor_factory(
     its stages built (`PipelineExecutor.prepare_stages`).
     Before the build it returns the caching allocator's free blocks to the
     card (``torch.cuda.empty_cache``), so a rebuild after an OOM starts
-    from what the failed call gave back.  ``fault_plan`` injects at sites
-    ``"executor.build"`` / ``"executor.execute"``.
+    from what the failed call gave back.  Builds hold `card_build_lock`,
+    so replicas sharing a card build one at a time.  ``fault_plan``
+    injects at sites ``"executor.build"`` / ``"executor.execute"``.
     """
 
     def factory(key: ExecKey) -> PipelineExecutor:
         if fault_plan is not None:
             fault_plan.check("executor.build", key=key)
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
-        pipe = build_pipeline(key)
-        apply_key_policy(pipe, key)
-        pipe.prepare(key.steps)
-        ex = PipelineExecutor(pipe, key.steps, key=key, fault_plan=fault_plan)
-        # the stages (and any capture they make) are built here, on the
-        # building thread, before a stage worker can run the executor
-        ex.prepare_stages()
+        with card_build_lock:
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            pipe = build_pipeline(key)
+            apply_key_policy(pipe, key)
+            pipe.prepare(key.steps)
+            ex = PipelineExecutor(pipe, key.steps, key=key,
+                                  fault_plan=fault_plan)
+            # the stages (and any capture they make) are built here, on
+            # the building thread, before a stage worker can run the
+            # executor
+            ex.prepare_stages()
         return ex
 
     return factory

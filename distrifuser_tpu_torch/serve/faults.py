@@ -16,13 +16,23 @@ Injection sites (the convention: sites are plain strings):
 * ``"execute"`` -- `InferenceServer` inside the watchdog-wrapped batched
   dispatch (so a ``hang`` here is what the watchdog exists to bound);
 * ``"executor.build"`` / ``"executor.execute"`` -- `pipeline_executor_factory`
-  / `PipelineExecutor.__call__` for direct (server-less) executor use.
+  / `PipelineExecutor.__call__` for direct (server-less) executor use;
+* ``"replica"`` -- `serve.replica.Replica` at the top of every monolithic
+  executor dispatch AND every step-granular cohort step (``step_run``).
+  The site's key stringifies to the REPLICA NAME, so ``key_substr``
+  targets a named replica; combined with ``after_calls`` a rule kills /
+  hangs / degrades that replica deterministically mid-load -- under step
+  batching, after an exact number of denoise steps (fleet failover and
+  carry migration are what the site exists to exercise);
+* ``"migrate.export"`` / ``"migrate.import"`` -- the carry-migration wire
+  (serve/migration.py): MUTATION sites consulted through
+  `FaultPlan.mutate` on the encoded snapshot bytes as they leave the
+  stopping server / arrive at the adopting one.  Only the
+  ``snapshot_truncate`` / ``snapshot_corrupt`` kinds apply here.
 
-The JAX package also has ``"runner.compile"``, ``"replica"``,
-``"migrate.*"`` and ``"aotcache.*"`` sites; their subsystems are not
-ported yet (ROADMAP item 16), so nothing here consults them, though the
-kinds that serve them (``kill``, ``snapshot_truncate``,
-``snapshot_corrupt``) are kept so that a plan validates as it does there.
+The JAX package's ``"runner.compile"`` site (its compiled-loop builder) has
+no counterpart here, and its ``"aotcache.*"`` sites come with the AOT
+store.
 
 Fault kinds:
 
@@ -35,8 +45,13 @@ Fault kinds:
   device that eventually recovers.  Under a watchdog the call is abandoned
   at the timeout; the sleeping thread finishes in the background and its
   result is discarded;
-* ``kill`` -- raises `InjectedReplicaKilled` (the JAX package's replica
-  site);
+* ``kill`` -- raises `InjectedReplicaKilled`, modelling a replica process
+  dying mid-dispatch.  Only meaningful at the ``"replica"`` site: the
+  `Replica` catches it in its executor wrapper, transitions to STOPPED,
+  SYNCHRONOUSLY signals the server's shutdown (queued futures fail with
+  `ServerClosedError`; the blocking scheduler join runs in the
+  background), and re-raises so the in-flight batch fails terminally --
+  the fleet router then fails the whole replica's load over;
 * ``snapshot_truncate`` / ``snapshot_corrupt`` -- `FaultPlan.mutate` cuts
   the bytes in half / flips one byte at a deterministic offset.
 
@@ -89,8 +104,9 @@ class InjectedResourceExhausted(RuntimeError, InjectedFault):
 
 
 class InjectedReplicaKilled(RuntimeError, InjectedFault):
-    """The ``kill`` kind (the JAX package's ``"replica"`` site, whose
-    replica handle is not ported yet)."""
+    """The ``kill`` kind at the ``"replica"`` site: the replica process
+    "died" -- its in-flight dispatch fails with this, and the `Replica`
+    handle shuts its server down (see serve/replica.py)."""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,16 +1,15 @@
 """Shared stdlib HTTP server plumbing for the serve plane's front doors.
 
-The metrics exposition (`utils.metrics.MetricsHTTPEndpoint`) faces a
-socket here; the JAX package's generation gateway shares the same host
-and comes with a later step of ROADMAP item 16.  The plumbing that is not
-obvious:
+Two endpoints face sockets: the metrics exposition
+(`utils.metrics.MetricsHTTPEndpoint`) and the generation gateway
+(`serve/gateway.py`).  The plumbing that is not obvious:
 
 * **SO_REUSEADDR** -- a server restarted on the same configured port must
   not fail with ``EADDRINUSE`` while the previous socket sits in
   TIME_WAIT.  `HTTPServerHost` always sets it.
 * **Deterministic shutdown with streams in flight** -- ``shutdown()``
-  only stops the accept loop; a streaming handler holds its connection
-  open.  The host exposes a ``stop_event`` that streaming handlers poll,
+  only stops the accept loop; an SSE handler mid-stream holds its
+  connection open.  The host exposes a ``stop_event`` that streaming handlers poll,
   and `stop` sets it *first*, then drains the bounded handler-slot
   semaphore with a deadline so every in-flight handler is either finished
   or provably abandoned (daemon thread + socket timeout) before the

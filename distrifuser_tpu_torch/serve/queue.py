@@ -16,9 +16,19 @@ Thread model: producers call `put` from any thread; the single scheduler
 thread (serve/server.py) drains via `wait_nonempty` / `pop_expired` /
 `pop_where`; the step-granular scheduler (serve/stepbatch.py) peeks the
 tightest-slack request (`peek_best` / `peek_urgent`) and takes it out
-with `remove`.  All state is guarded by one lock + condition.  (The JAX
-package's queue also takes a tenancy policy; it comes with step 16d of
-ROADMAP item 16.)
+with `remove`.  All state is guarded by one lock + condition; the attached
+policy is only ever called under that lock.
+
+* **tenant-aware fairness (optional)** -- with a `TenancyPolicy`
+  attached (serve/tenancy.py, configured via ``ServeConfig.gateway``),
+  `put` additionally charges the submitting tenant's token bucket
+  (`TenantQuotaError` when exhausted -- the per-tenant 429), and
+  `peek_best` runs weighted deficit-round-robin ACROSS tenant
+  sub-queues before EDF picks WITHIN the winning tenant -- a burst
+  tenant cannot monopolize slots, deadlines still order each tenant's
+  own work.  `remove` commits the DRR charge.  The whole-batch
+  `pop_where` path keeps its FIFO semantics (quotas still apply at
+  `put`; DRR shares are a property of the step-granular scheduler).
 """
 
 from __future__ import annotations
@@ -151,13 +161,17 @@ class ServeResult:
 class RequestQueue:
     """Bounded FIFO with predicate-scoped draining (see module docstring)."""
 
-    def __init__(self, max_depth: int):
+    def __init__(self, max_depth: int, policy=None):
         assert max_depth >= 1, max_depth
         self.max_depth = max_depth
         self._items: List[Request] = []
         self._lock = sync.Lock()
         self._nonempty = sync.Condition(self._lock)
         self._closed = False
+        # optional serve/tenancy.TenancyPolicy -- set once before the
+        # queue is shared (server construction), called ONLY under
+        # self._lock thereafter (the policy owns no lock of its own)
+        self.policy = policy
         self._seq = 0  # bumped on every put; lets waiters sleep until an
         # ARRIVAL rather than mere non-emptiness (batcher linger loop)
 
@@ -181,6 +195,11 @@ class RequestQueue:
         with self._lock:
             if self._closed:
                 raise ServerClosedError("server is stopped")
+            if self.policy is not None:
+                # tenant quota first: a flooding tenant is rejected on
+                # ITS budget (TenantQuotaError) before it can consume
+                # the shared depth other tenants' admission rides on
+                self.policy.admit(req)
             if len(self._items) >= self.max_depth:
                 raise QueueFullError(
                     f"queue at max depth {self.max_depth}; retry later"
@@ -253,19 +272,35 @@ class RequestQueue:
         the tightest-slack candidate, weigh it against parked carries or
         a potential victim, and only then `remove` it (single consumer:
         the scheduler thread is the only popper, so peek-then-remove
-        cannot race another taker)."""
+        cannot race another taker).
+
+        With a tenancy policy attached, deficit-round-robin first picks
+        WHICH tenant's turn it is, then ``score`` (EDF) picks within
+        that tenant's sub-queue; the DRR charge commits at `remove`."""
         with self._lock:
             if not self._items:
                 return None
+            if self.policy is not None:
+                groups: dict = {}
+                for r in self._items:
+                    groups.setdefault(r.tenant, []).append(r)
+                pick = self.policy.select(groups, score)
+                if pick is not None:
+                    return pick
             return min(self._items, key=score)
 
     def peek_urgent(self, score: Callable[[Request], float]
                     ) -> Optional[Request]:
-        """The globally tightest request by ``score`` (the deadline-rescue
-        path's peek).  Without a tenancy policy it is `peek_best`; the JAX
-        package's queue keeps the two apart because its deficit-round-robin
-        turn can hide another tenant's about-to-miss request from
-        `peek_best`."""
+        """Policy-BLIND ``peek_best``: the globally tightest request by
+        ``score``, ignoring any tenancy policy.  The deadline-rescue
+        (preemption) path uses this: DRR's cursor legitimately camps on
+        a backlogged tenant (turn continuity), which would hide another
+        tenant's about-to-miss request from the rescue check entirely —
+        fairness governs throughput shares, not rescues.  Rescue volume
+        is still tenant-bounded upstream (token-bucket admission) and
+        downstream (one preemption per round, one per victim).  The DRR
+        accounting stays correct: `remove` falls back to a plain debit
+        when the dequeued request is not the policy's parked pick."""
         with self._lock:
             if not self._items:
                 return None
@@ -273,10 +308,21 @@ class RequestQueue:
 
     def remove(self, req: Request) -> bool:
         """Remove one specific request (identity match); False if it is
-        no longer queued."""
+        no longer queued.  Commits the pending DRR charge when a
+        tenancy policy is attached."""
         with self._lock:
             for i, r in enumerate(self._items):
                 if r is req:
                     del self._items[i]
+                    if self.policy is not None:
+                        self.policy.charge(req, self._items)
                     return True
             return False
+
+    def tenancy_snapshot(self) -> Optional[dict]:
+        """Per-tenant accounting (tokens, deficits, admit/reject
+        counts), or None when no policy is attached."""
+        with self._lock:
+            if self.policy is None:
+                return None
+            return self.policy.snapshot()

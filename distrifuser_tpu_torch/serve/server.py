@@ -56,10 +56,22 @@ switch on as in the JAX package (steps 16b and 16c):
   stop export their carries for migration (serve/migration.py);
   ``submit(carry_snapshot=...)`` resumes one.
 
-What the JAX server switches on besides comes with later steps, and this
-server refuses it until then with a ``ValueError`` naming the step: the
-SLO controller, tenancy and the gateway (16d), staging or step batching
-over more than one rank (16f), and the AOT store (16g).
+Over either discipline, as in the JAX package (steps 16d and 16e):
+
+* ``controller.enabled``: the closed-loop SLO controller
+  (serve/controller.py) maps each batch's (or step admission's) key
+  through the tier its classes need, and rejects at admission past the
+  last tier (`AdmissionRejectedError`);
+* ``gateway.tenants``: per-tenant token-bucket quotas and weighted
+  deficit-round-robin in the queue (serve/tenancy.py);
+* ``gateway.port``: the HTTP/SSE gateway (serve/gateway.py,
+  `start_gateway`);
+* a server is one replica of a fleet (serve/replica.py, serve/fleet.py,
+  serve/autoscale.py) through ``registry`` / ``replica_name``.
+
+Two settings of the JAX server come with later steps, and this server
+refuses them until then with a ``ValueError`` naming the step: staging or
+step batching over more than one rank (16f) and the AOT store (16g).
 """
 
 from __future__ import annotations
@@ -77,6 +89,7 @@ from ..utils.trace import RequestTrace, Tracer
 from .batcher import BatchKey, BucketTable, MicroBatcher
 from .cache import ExecKey, ExecutorCache
 from .errors import (
+    AdmissionRejectedError,
     BuildFailedError,
     CarryExportedError,
     CircuitOpenError,
@@ -92,6 +105,7 @@ from .errors import (
     RetryableError,
     ServeError,
     ServerClosedError,
+    TenantQuotaError,
     WatchdogTimeoutError,
     is_oom,
 )
@@ -111,9 +125,6 @@ from .resilience import (
 )
 
 ROADMAP_STEP = {
-    "controller": "16d (the controller, tenancy and the gateway)",
-    "tenancy": "16d (the controller, tenancy and the gateway)",
-    "gateway": "16d (the controller, tenancy and the gateway)",
     "ranks": "16f (serving over n ranks)",
     "aot_cache": "16g (the AOT store)",
 }
@@ -136,7 +147,7 @@ def _mesh_size(mesh_plan: str) -> int:
 
 def refuse_unported(config: ServeConfig, mesh_plan: str = "dp1.cfg1.sp1") -> None:
     """Raise ``ValueError`` for every setting whose subsystem the port's
-    serve plane does not carry yet (ROADMAP item 16, steps 16d-16g).
+    serve plane does not carry yet (ROADMAP item 16, steps 16f and 16g).
     `ServeConfig` itself accepts them, as the JAX package's does; the
     server refuses to run with them on."""
     if _mesh_size(mesh_plan) > 1:
@@ -146,12 +157,6 @@ def refuse_unported(config: ServeConfig, mesh_plan: str = "dp1.cfg1.sp1") -> Non
         if config.step_batching.enabled:
             raise _not_ported(
                 f"step_batching.enabled over {mesh_plan}", "ranks")
-    if config.controller.enabled:
-        raise _not_ported("controller.enabled", "controller")
-    if config.gateway.tenants:
-        raise _not_ported("a gateway tenant table (gateway.tenants)", "tenancy")
-    if config.gateway.port is not None:
-        raise _not_ported("the HTTP/SSE gateway (gateway.port)", "gateway")
     if config.aot_cache.dir:
         raise _not_ported("the AOT executable store (aot_cache.dir)", "aot_cache")
 
@@ -190,6 +195,17 @@ class InferenceServer:
         self.fault_plan = fault_plan
         self.replica_name = replica_name
         self.queue = RequestQueue(self.config.max_queue_depth)
+        # Per-tenant fair queuing (serve/tenancy.py): a non-empty tenant
+        # table in ServeConfig.gateway turns the queue tenant-aware --
+        # token-bucket quotas at put(), weighted DRR feeding peek_best().
+        # None when unconfigured: the queue stays pure EDF and the
+        # tenant-off request path runs zero tenancy code.
+        self.tenancy = None
+        if self.config.gateway.tenants:
+            from .tenancy import TenancyPolicy
+
+            self.tenancy = TenancyPolicy(self.config.gateway, clock=clock)
+            self.queue.policy = self.tenancy
         # self.prompt_cache is created below (it needs the registry); the
         # factory wrapper reads the attribute lazily at build time, which
         # always happens after __init__ completes (warmup/start/dispatch)
@@ -218,6 +234,10 @@ class InferenceServer:
         self.tracer = (Tracer(clock=clock, capacity=obs.trace_capacity)
                        if obs.trace else None)
         self.cache.tracer = self.tracer
+        # The AOT executable store comes with step 16g of ROADMAP item 16
+        # (``aot_cache.dir`` is refused until then); a replica reads the
+        # attribute for its warm-up's deserialize seconds.
+        self.aot_store = None
         # Unified metrics plane (utils/metrics.py MetricsRegistry): every
         # Counter/LatencyHistogram/RingLog the server and its sub-pieces
         # mutate is OWNED here under hierarchical names, so /metrics
@@ -254,7 +274,29 @@ class InferenceServer:
         self.registry.gauge(
             "serve_retry_budget_remaining",
             lambda: float(self.resilience.budget.remaining))
+        # per-tenant metrics plane (tenancy on only): admission counters
+        # keyed admitted/rejected_quota/completed, a rolling queue-wait
+        # window per tenant, and a live token gauge read from the policy
+        # snapshot.  Tenant tables are static config, so the label sets
+        # are bounded by construction.
+        self._tenant_counters: Dict[str, Counter] = {}
+        self._tenant_wait = {}
+        if self.tenancy is not None:
+            for tname in self.tenancy.tenant_names:
+                self._tenant_counters[tname] = self.registry.counter(
+                    "serve_tenant_requests", labels={"tenant": tname})
+                self._tenant_wait[tname] = self.registry.rolling(
+                    "serve_tenant_queue_wait_s",
+                    window=obs.slo_window, labels={"tenant": tname},
+                    clock=clock, max_age_s=obs.slo_max_age_s)
+                self.registry.gauge(
+                    "serve_tenant_tokens",
+                    (lambda t=tname: float(
+                        (self.queue.tenancy_snapshot() or {})
+                        .get(t, {}).get("tokens", 0.0))),
+                    labels={"tenant": tname})
         self.metrics_endpoint = None
+        self.gateway_endpoint = None
         self.batcher = MicroBatcher(
             self.queue,
             BucketTable(self.config.buckets),
@@ -295,12 +337,28 @@ class InferenceServer:
         self.registry.gauge(
             "serve_watchdog_timeouts",
             lambda: float(self.resilience.watchdog.timeouts))
+        # Closed-loop SLO controller (serve/controller.py): per-slo_class
+        # tier selection over the quality/cost lattice, admission control
+        # at the extreme.  None when off -- the controller-off dispatch
+        # path runs zero controller code, same convention as the tracer.
+        self.controller = None
+        if self.config.controller.enabled:
+            from .controller import SLOController
+
+            self.controller = SLOController(
+                self.config.controller,
+                clock=clock,
+                batch_hint=self.config.max_batch_size,
+                registry=self.registry,
+                tracer=self.tracer,
+                prompt_cache=self.prompt_cache,
+            )
         # Step-level continuous batching (serve/stepbatch.py): the denoise
         # loop becomes a slot pool of per-request carries -- requests join
         # and leave BETWEEN STEPS, EDF reorders the cohort, low-slack
         # arrivals preempt the slackest slot, and occupied slots stream
         # progressive previews.  None when off -- the whole-batch dispatch
-        # path runs zero step-pool code, the tracer convention.
+        # path runs zero step-pool code, the tracer/controller convention.
         self.stepbatch = None
         if self.config.step_batching.enabled:
             from .stepbatch import StepBatcher
@@ -311,6 +369,11 @@ class InferenceServer:
                 # pack-compatibility key source for width-truncated
                 # cohorts (StepBatchConfig.pack_align)
                 pack_signature=self._step_pack_signature,
+                # calibrated per-step service from the controller when it
+                # is on (EDF's clock unit); the batcher's own EWMA
+                # otherwise
+                step_estimate=(self.controller.step_service_estimate
+                               if self.controller is not None else None),
             )
             # pack-efficiency: real request rows per dispatched row
             # capacity across the server lifetime (1.0 = every packed
@@ -332,6 +395,15 @@ class InferenceServer:
             self.registry.gauge(
                 "serve_slot_capacity",
                 lambda: float(self.config.step_batching.slots))
+            if self.tenancy is not None:
+                # per-tenant slot occupancy: the live fairness picture
+                for tname in self.tenancy.tenant_names:
+                    self.registry.gauge(
+                        "serve_tenant_slot_occupied",
+                        (lambda t=tname: float(
+                            self.stepbatch.occupied_by_tenant()
+                            .get(t, 0))),
+                        labels={"tenant": tname})
         # Staged pipelining (serve/staging.py): three stage workers overlap
         # text-encode, denoise, and VAE-decode across micro-batches.  The
         # scheduler thread submits and drains outcome events; futures
@@ -379,6 +451,9 @@ class InferenceServer:
         if (self.config.observability.metrics_port is not None
                 and self.metrics_endpoint is None):
             self.start_metrics_endpoint()
+        if (self.config.gateway.port is not None
+                and self.gateway_endpoint is None):
+            self.start_gateway()
         self._stop.clear()
         t = sync.Thread(
             target=self._loop, name="distrifuser-serve", daemon=True
@@ -414,6 +489,12 @@ class InferenceServer:
         bounded by the watchdog), so `stop()` returns within roughly
         ``max(timeout, one batch)`` with no future left unresolved."""
         self.request_stop()
+        if self.gateway_endpoint is not None:
+            # first: stop accepting HTTP and resolve every open SSE
+            # stream (closed-mark + wake), so no client socket outlives
+            # the scheduler it was streaming from
+            self.gateway_endpoint.stop()
+            self.gateway_endpoint = None
         if self.staging is not None:
             # drain the stage queues deterministically: every staged batch
             # not yet through decode fails with ServerClosedError (the
@@ -535,15 +616,24 @@ class InferenceServer:
         """Admit one request; returns a Future of `ServeResult`.
 
         Raises `QueueFullError` (backpressure -- retry against another
-        replica or later) or `ServerClosedError` immediately; deadline,
-        bucket, circuit-breaker, and execution failures fail the *future*
+        replica or later), `AdmissionRejectedError` (the SLO controller
+        parked the class past its last tier -- controller on only),
+        `TenantQuotaError` (the submitting tenant's token bucket is empty
+        -- per-tenant 429, tenancy on only) or `ServerClosedError`
+        immediately; deadline, bucket, circuit-breaker, and execution
+        failures fail the *future*
         instead, since they are decided at scheduling time.  Every error
         is a `ServeError`: `RetryableError` means the same request may
         succeed later/elsewhere, `FatalError` means it cannot.
 
         ``slo_class`` tags the request for the per-class rolling-latency
-        windows (`slo_snapshot`).  ``tenant`` is accepted and carried, as
-        on a JAX server without a tenant table.
+        windows (`slo_snapshot`) -- the signal the SLO controller steers
+        on.
+
+        ``tenant`` is the fairness identity (serve/tenancy.py): with a
+        tenant table configured it must name a known tenant (or the
+        implicit default), and the request is held to that tenant's
+        quota and DRR share.  Ignored when tenancy is off.
 
         ``on_progress(step, total_steps, preview)`` -- progressive
         previews (step-level continuous batching only): fires on the
@@ -578,6 +668,17 @@ class InferenceServer:
             except MigrationRejectedError:
                 self.counters.inc("migrations_rejected")
                 raise
+        if self.controller is not None and not self.controller.admit(
+                str(slo_class)):
+            # the controller's extreme rung: even the cheapest tier cannot
+            # hold this class's SLO under the current load -- reject at
+            # admission (typed 429) instead of queueing certain lateness
+            self.counters.inc("rejected_admission")
+            raise AdmissionRejectedError(
+                f"slo_class {slo_class!r} is admission-controlled: the "
+                "cheapest quality tier cannot hold its p99 target at the "
+                "current load; retry later or against another replica"
+            )
         steps = (self.config.default_steps if num_inference_steps is None
                  else num_inference_steps)
         ttl = self.config.default_ttl_s if ttl_s is None else ttl_s
@@ -605,6 +706,16 @@ class InferenceServer:
             self.counters.inc("rejected_queue_full")
             self._trace_finish(req, "queue_full")
             raise
+        except TenantQuotaError:
+            self.counters.inc("rejected_tenant_quota")
+            tc = self._tenant_counters.get(req.tenant)
+            if tc is not None:
+                tc.inc("rejected_quota")
+            self._trace_finish(req, "tenant_quota")
+            raise
+        tc = self._tenant_counters.get(req.tenant)
+        if tc is not None:
+            tc.inc("admitted")
         return req.future
 
     # -- tracing hooks (all no-ops when config.observability.trace is off) --
@@ -716,6 +827,8 @@ class InferenceServer:
             try:
                 while not self._stop.is_set():
                     try:
+                        if self.controller is not None:
+                            self.controller.poll(self.slo_snapshot())
                         busy = self._step_round()
                     except Exception:  # noqa: BLE001
                         self.counters.inc("scheduler_errors")
@@ -737,6 +850,11 @@ class InferenceServer:
                 # staged outcomes ride an event queue back here: the
                 # breaker/ladder mutating methods are scheduler-thread-only
                 self._drain_staged_outcomes()
+                if self.controller is not None:
+                    # one decision tick per scheduler round -- also while
+                    # idle, so an admission-parked class can retract when
+                    # the load that parked it drains away
+                    self.controller.poll(self.slo_snapshot())
                 got = self.batcher.next_batch(timeout=0.05)
             except Exception:  # noqa: BLE001
                 self.counters.inc("scheduler_errors")
@@ -911,14 +1029,19 @@ class InferenceServer:
 
     def _step_request_key(self, req: Request):
         """The ONE derivation of a request's admission identity -- bucket
-        snap -> base key -- shared by `_step_admit` and the preemption
-        pre-check so the two can never drift.  Returns ``(bucket,
-        base_key, tier_idx)`` (the JAX package's controller tier; None
-        here); raises `NoBucketError`."""
+        snap -> base key -> controller tier -- shared by `_step_admit` and
+        the preemption pre-check so the two can never drift.  Returns
+        ``(bucket, base_key, tier_idx)``; raises `NoBucketError`."""
         bh, bw = self.batcher.table.snap(req.height, req.width)
         base_key = self._exec_key_for(bh, bw, req.num_inference_steps,
                                       cfg=req.guidance_scale > 1.0)
-        return (bh, bw), base_key, None
+        tier_idx = None
+        if self.controller is not None:
+            from .controller import apply_tier
+
+            tier_idx, tier = self.controller.tier_for_batch([req.slo_class])
+            base_key = apply_tier(base_key, tier)
+        return (bh, bw), base_key, tier_idx
 
     def _step_admit(self, req: Request, now: float) -> bool:
         """Admit one request into a free slot: snap, tier-map, breaker
@@ -1008,6 +1131,8 @@ class InferenceServer:
         if snap is not None:
             self.counters.inc("carries_imported")
             self.counters.inc("steps_salvaged", salvaged)
+        if tier_idx is not None:
+            self.controller.count_dispatch(tier_idx, 1)
         if self.tracer is not None and req.trace is not None:
             rt = req.trace
             if rt.queue_span is not None:
@@ -1240,6 +1365,19 @@ class InferenceServer:
             # a single group's time would flatter every deadline
             round_dt = self.clock() - round_t0
             sb.note_round(round_dt)
+            if self.controller is not None:
+                costs = [self.controller.tiers[
+                    min(m.tier_idx or 0, len(self.controller.tiers) - 1)
+                ].cost for m in stepped]
+                # per-REQUEST service: a packed dispatch advances several
+                # requests for one evaluation, so the round time is
+                # normalized by the pack factor -- without this the
+                # step-granular occupancy model over-predicts by exactly
+                # how well the executor packs
+                self.controller.observe_step(sum(costs) / len(costs),
+                                             round_dt,
+                                             requests=len(stepped),
+                                             dispatches=round_dispatches)
         return stepped
 
     def _step_previews(self, stepped) -> None:
@@ -1307,12 +1445,16 @@ class InferenceServer:
         self.hist_execute.observe(exec_s)
         self.hist_e2e.observe(e2e)
         self.slo_window(req.slo_class).observe(e2e)
+        self._tenant_observe(req, queue_wait)
         self.counters.inc("completed")
         self.counters.inc("requests_compile_hit" if state.compile_hit
                           else "requests_compile_miss")
         self.counters.inc("denoise_steps_total", state.steps_total)
         if req.expired(t1):
             self.counters.inc("completed_late")
+        tier_name = (self.controller.tiers[state.tier_idx].name
+                     if state.tier_idx is not None
+                     and self.controller is not None else None)
         degradations = tuple(
             self.resilience.key_state(state.base_key).rungs)
         if req.trace is not None and self.tracer is not None:
@@ -1340,6 +1482,7 @@ class InferenceServer:
             retries=0,
             degradations=degradations,
             exec_key=state.ekey.short(),
+            tier=tier_name,
             replica=self.replica_name,
             previews=state.previews,
             first_preview_s=state.first_preview_s,
@@ -1439,12 +1582,26 @@ class InferenceServer:
         self._drain_staged_outcomes()
         base_key = self._exec_key_for(key.height, key.width, key.steps,
                                       key.cfg)
+        # Closed-loop tier selection (serve/controller.py): map the bucket
+        # key through the cheapest tier any member class needs BEFORE the
+        # resilience layer sees it -- breakers and sticky ladder rungs then
+        # track per TIER key, and degraded_key() composes the rungs on top
+        # of the tier's knobs, so ladder rungs always win.
+        tier_idx = None
+        if self.controller is not None:
+            from .controller import apply_tier
+
+            tier_idx, tier = self.controller.tier_for_batch(
+                [r.slo_class for r in batch])
+            base_key = apply_tier(base_key, tier)
         batch_span = None
         if self.tracer is not None:
             targs = {"bucket": f"{key.height}x{key.width}",
                      "n": len(batch), "key": base_key.short(),
                      "traces": [r.trace.trace_id for r in batch
                                 if r.trace is not None]}
+            if tier_idx is not None:
+                targs["tier"] = self.controller.tiers[tier_idx].name
             batch_span = self.tracer.begin(
                 "batch", track="scheduler", t=dispatch_ts, args=targs)
             for req in batch:
@@ -1454,12 +1611,18 @@ class InferenceServer:
             if self.tracer is not None:
                 self.tracer.end(batch_span, args={"outcome": "shed"})
             return
-        # inflight gauge: dispatched-but-unresolved requests.  Every exit
-        # path below must balance it -- staged submissions hand the
-        # decrement to _staged_release, which fires exactly once per
-        # submitted batch.
+        if tier_idx is not None:
+            # counted only past the breaker gate: a shed batch never ran
+            # at the tier, and the per-tier dispatch counters are read as
+            # tier THROUGHPUT exactly when the card is failing
+            self.controller.count_dispatch(tier_idx, len(batch))
+        # inflight gauge: dispatched-but-unresolved requests (the SLO
+        # controller's second queue signal).  Every exit path below must
+        # balance it -- staged submissions hand the decrement to
+        # _staged_release, which fires exactly once per submitted batch.
         self._inflight_c.inc("requests", len(batch))
-        staged = self._execute_staged(key, base_key, batch, dispatch_ts)
+        staged = self._execute_staged(key, base_key, batch, dispatch_ts,
+                                      tier_idx)
         if staged == "submitted":
             if self.tracer is not None:
                 self.tracer.end(batch_span, args={"outcome": "staged"})
@@ -1470,7 +1633,8 @@ class InferenceServer:
                 self.tracer.end(batch_span, args={"outcome": "failed"})
             return
         try:
-            self._execute_resilient(key, base_key, batch, dispatch_ts)
+            self._execute_resilient(key, base_key, batch, dispatch_ts,
+                                    tier_idx)
         finally:
             # batch span first, THEN the inflight decrement: a client
             # observing inflight==0 knows the scheduler has made its
@@ -1516,7 +1680,8 @@ class InferenceServer:
                 not in self.resilience.key_state(base_key).rungs)
 
     def _execute_staged(self, key: BatchKey, base_key: ExecKey,
-                        batch: List[Request], dispatch_ts: float) -> str:
+                        batch: List[Request], dispatch_ts: float,
+                        tier_idx: Optional[int] = None) -> str:
         """Submit the batch to the stage pipeline.  Returns
         ``"submitted"`` (the pipeline owns the batch now -- its inflight
         decrement rides `_staged_release`), ``"failed"`` (consumed by a
@@ -1558,6 +1723,7 @@ class InferenceServer:
         sb = StagedBatch(
             batch_key=key, base_key=base_key, ekey=ekey, requests=batch,
             executor=executor, compile_hit=hit, dispatch_ts=dispatch_ts,
+            tier=tier_idx,
         )
         if not self.staging.submit(sb):
             # pipeline is stopping: deterministic close, like the queued
@@ -1577,7 +1743,7 @@ class InferenceServer:
         self._complete_batch(
             sb.batch_key, sb.ekey, sb.requests, outputs, sb.dispatch_ts,
             t0, t1, sb.compile_hit, retries=0, degradations=degradations,
-            shallow_steps=shallow,
+            shallow_steps=shallow, tier=sb.tier,
         )
 
     def _staged_failure(self, sb, exc: Exception) -> None:
@@ -1683,7 +1849,8 @@ class InferenceServer:
         return outputs, t0, t1
 
     def _execute_resilient(self, key: BatchKey, base_key: ExecKey,
-                           batch: List[Request], dispatch_ts: float) -> None:
+                           batch: List[Request], dispatch_ts: float,
+                           tier_idx: Optional[int] = None) -> None:
         """Bounded retry loop around (build -> dispatch) with the
         degradation ladder on OOM/compile failures.  Splitting recurses
         with fresh attempt budgets (depth is bounded by log2(batch));
@@ -1744,9 +1911,9 @@ class InferenceServer:
                                       "n": len(batch)})
                         mid = (len(batch) + 1) // 2
                         self._execute_resilient(key, base_key, batch[:mid],
-                                                dispatch_ts)
+                                                dispatch_ts, tier_idx)
                         self._execute_resilient(key, base_key, batch[mid:],
-                                                dispatch_ts)
+                                                dispatch_ts, tier_idx)
                         return
                     if rung is not None:
                         self.counters.inc("degraded_" + rung)
@@ -1788,21 +1955,34 @@ class InferenceServer:
                 retries=attempts,
                 degradations=tuple(res.key_state(base_key).rungs),
                 shallow_steps=int(getattr(executor, "shallow_steps", 0)),
+                tier=tier_idx,
             )
             return
 
     def _complete_batch(self, key: BatchKey, ekey: ExecKey,
                         batch: List[Request], outputs, dispatch_ts: float,
                         t0: float, t1: float, hit: bool, *, retries: int,
-                        degradations: tuple, shallow_steps: int) -> None:
-        """Per-request success bookkeeping: counters, latency histograms,
-        and future resolution."""
+                        degradations: tuple, shallow_steps: int,
+                        tier: Optional[int] = None) -> None:
+        """Per-request success bookkeeping shared by the monolithic and
+        staged dispatch paths: counters, latency histograms, and future
+        resolution.  Thread-safe (staged batches complete on the decode
+        worker while the scheduler thread completes monolithic ones)."""
         self.counters.inc("batches")
         ekey_short = ekey.short()
+        # tier pinning (ServeResult audit trail): resolve the tier index
+        # to its name once per batch -- None when the controller is off
+        tier_name = (self.controller.tiers[tier].name
+                     if tier is not None and self.controller is not None
+                     else None)
         self.counters.inc("requests_compile_hit" if hit
                           else "requests_compile_miss", len(batch))
         self._batch_sizes.inc(f"size_{len(batch)}")
         exec_s = t1 - t0
+        if self.controller is not None:
+            # calibrate the controller's forward model: one cost-
+            # normalized batch-service observation per completed batch
+            self.controller.observe_batch(tier, t1 - t0)
         # shallow-step share: how much of the card's time the step cache
         # saved from full network evaluations (0 when the cache is off)
         self.counters.inc("denoise_steps_total", key.steps * len(batch))
@@ -1816,6 +1996,7 @@ class InferenceServer:
             self.hist_execute.observe(exec_s)
             self.hist_e2e.observe(e2e)
             self.slo_window(req.slo_class).observe(e2e)
+            self._tenant_observe(req, queue_wait)
             self.counters.inc("completed")
             if req.expired(t1):
                 # deadline lapsed while IN FLIGHT: deadlines gate
@@ -1851,8 +2032,19 @@ class InferenceServer:
                 retries=retries,
                 degradations=degradations,
                 exec_key=ekey_short,
+                tier=tier_name,
                 replica=self.replica_name,
             ))
+
+    def _tenant_observe(self, req: Request, queue_wait: float) -> None:
+        """Per-tenant completion accounting (no-op when tenancy is off):
+        the rolling queue-wait window, plus the completed count."""
+        tc = self._tenant_counters.get(req.tenant)
+        if tc is not None:
+            tc.inc("completed")
+        w = self._tenant_wait.get(req.tenant)
+        if w is not None:
+            w.observe(queue_wait)
 
     # -- observability -----------------------------------------------------
 
@@ -1874,8 +2066,8 @@ class InferenceServer:
         return len(self.queue) + int(self._inflight_c.get("requests"))
 
     def slo_snapshot(self) -> Dict[str, Any]:
-        """The interface the JAX package's closed-loop SLO controller
-        reads: current queue depth, dispatched-but-unresolved request
+        """The interface the closed-loop SLO controller
+        (serve/controller.py) reads: current queue depth, dispatched-but-unresolved request
         count, and per-SLO-class rolling p50/p99 over the last
         ``observability.slo_window`` completions.  O(classes · window)
         and any-thread-safe — poll it as fast as you like."""
@@ -1891,9 +2083,10 @@ class InferenceServer:
             "classes": classes,
         }
         if self.stepbatch is not None:
-            # step-granular occupancy block (the JAX package's controller
-            # switches to per-step accounting when this is present):
-            # occupancy is per-step, not per-batch, on a slot-pool server
+            # step-granular occupancy block: the controller's forward
+            # model switches to per-step accounting when this is present
+            # (SLOController._step_predictor) -- occupancy is per-step,
+            # not per-batch, on a slot-pool server
             sb = self.stepbatch
             snap["step"] = {
                 "slots": self.config.step_batching.slots,
@@ -1909,6 +2102,27 @@ class InferenceServer:
         """The unified registry in Prometheus text exposition format —
         what the ``--metrics_port`` endpoint serves at ``/metrics``."""
         return self.registry.to_prometheus()
+
+    def start_gateway(self, port: Optional[int] = None):
+        """Serve the generation plane over stdlib HTTP/SSE
+        (serve/gateway.py): ``POST /v1/generate``, SSE progress at
+        ``GET /v1/requests/<id>/events``, result polling, and cancel.
+        Auto-started by `start()` when ``config.gateway.port`` is set;
+        ``port=0`` binds ephemerally (read
+        ``server.gateway_endpoint.port``).  Stopped by `stop()` before
+        the scheduler drains, so every open stream resolves."""
+        from .gateway import Gateway
+
+        if self.gateway_endpoint is not None:
+            return self.gateway_endpoint
+        cfg = self.config.gateway
+        if port is None:
+            port = cfg.port or 0
+        self.gateway_endpoint = Gateway(
+            self, config=cfg, registry=self.registry,
+            tracer=self.tracer, clock=self.clock,
+        ).start(port=int(port))
+        return self.gateway_endpoint
 
     def start_metrics_endpoint(self, port: Optional[int] = None):
         """Serve the metrics plane over stdlib HTTP: ``/metrics``
@@ -2045,9 +2259,9 @@ class InferenceServer:
             # counters (None on whole-batch servers)
             "step_batching": (self.stepbatch.snapshot()
                               if self.stepbatch is not None else None),
-            # tenancy comes with step 16d of ROADMAP item 16 (None, as on
-            # a JAX server without a tenant table)
-            "tenancy": None,
+            # per-tenant fair-queue accounting: token/deficit state plus
+            # admit/reject/dequeue counts (None when tenancy is off)
+            "tenancy": self.queue.tenancy_snapshot(),
             # the tracing + SLO plane (docs/OBSERVABILITY.md): trace ring
             # stats (None when tracing is off) and the rolling-window SLO
             # signals the closed-loop controller reads
@@ -2056,9 +2270,9 @@ class InferenceServer:
                           if self.tracer is not None else None),
                 "slo": self.slo_snapshot(),
             },
-            # the SLO controller comes with step 16d (None, as on a JAX
-            # server with it off)
-            "controller": None,
+            # the closed-loop SLO controller's tier state (None when off)
+            "controller": (self.controller.snapshot()
+                           if self.controller is not None else None),
             # prompt/embedding cache in front of text-encode (None when off)
             "prompt_cache": (self.prompt_cache.snapshot()
                              if self.prompt_cache is not None else None),

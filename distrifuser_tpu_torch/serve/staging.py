@@ -108,8 +108,8 @@ class StagedBatch:
         self.started_ts: Optional[float] = None  # encode-stage entry
         self.stage_ready_ts = dispatch_ts  # when the next stage could start
         self.work: Any = None
-        # the JAX package's SLO-controller tier index (always None here:
-        # the controller comes with step 16d of ROADMAP item 16)
+        # the SLO-controller tier index the batch dispatches at (None
+        # when the controller is off)
         self.tier = tier
 
     @property

@@ -16,8 +16,9 @@ pool of per-request state:
   free slots and retires finished ones -- a request joins the in-flight
   denoise within ~one step of arriving instead of one batch;
 * the step cohort is ordered by **deadline slack** -- EDF over
-  ``remaining_steps x calibrated per-step service`` (a local EWMA of the
-  round time); with ``step_width`` below the pool size this is true
+  ``remaining_steps x calibrated per-step service`` (the SLO
+  controller's calibration when it is on, a local EWMA of the round time
+  otherwise); with ``step_width`` below the pool size this is true
   per-round step reordering, not just admission order;
 * an arriving request that would miss its deadline can **preempt** the
   slackest occupied slot: the victim's carry is parked to HOST memory

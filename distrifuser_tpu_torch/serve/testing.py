@@ -289,9 +289,9 @@ class ExecutionLedger:
     concurrently."""
 
     def __init__(self):
-
         self._lock = sync.Lock()
         self._counts: dict = {}
+        self._steps: dict = {}
 
     def record(self, prompt: str, seed: int, replica: str = "") -> None:
         with self._lock:
@@ -311,6 +311,43 @@ class ExecutionLedger:
         """{(prompt, seed): [replica, ...]} of completed executions."""
         with self._lock:
             return {k: list(v) for k, v in self._counts.items()}
+
+    # -- step-granular records (carry migration) ---------------------------
+    #
+    # The migration invariant is STEP-scoped: a salvaged step is never
+    # re-executed, so across the whole fleet every (request, step index)
+    # pair runs exactly once.  `StepLedgerFakeExecutor` records each
+    # completed denoise step here; ``max_step_count() <= 1`` proves zero
+    # double-executed steps the same way ``max_count()`` proves it for
+    # whole requests.
+
+    def record_step(self, prompt: str, seed: int, step: int,
+                    replica: str = "") -> None:
+        with self._lock:
+            per_req = self._steps.setdefault((prompt, int(seed)), {})
+            per_req.setdefault(int(step), []).append(replica)
+
+    def step_counts(self, prompt: str, seed: int) -> dict:
+        """{step_index: [replica, ...]} of one request's executed steps."""
+        with self._lock:
+            return {i: list(v) for i, v in
+                    self._steps.get((prompt, int(seed)), {}).items()}
+
+    def max_step_count(self) -> int:
+        """Max executions of any single (request, step) pair -- the
+        exactly-once gate asserts this == 1 (0 with no steps)."""
+        with self._lock:
+            return max(
+                (len(v) for per in self._steps.values()
+                 for v in per.values()),
+                default=0,
+            )
+
+    def steps_snapshot(self) -> dict:
+        """{(prompt, seed): {step_index: [replica, ...]}}."""
+        with self._lock:
+            return {k: {i: list(v) for i, v in per.items()}
+                    for k, per in self._steps.items()}
 
 
 class LedgerFakeExecutor(FakeExecutor):

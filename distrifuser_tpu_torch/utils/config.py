@@ -469,10 +469,10 @@ def _world_and_rank() -> Tuple[int, int]:
 
 # ---------------------------------------------------------------------------
 # The serve layer's configuration (serve/), field for field the JAX
-# package's, so that the two compare.  The blocks of subsystems not ported
-# yet (the controller, tenancy and the gateway, the AOT store) validate as
-# there; `InferenceServer` refuses to run with them switched on, naming the
-# step of ROADMAP item 16 that brings each.
+# package's, so that the two compare.  The AOT store's block, whose
+# subsystem is not ported yet, validates as there; `InferenceServer`
+# refuses to run with it switched on, naming the step of ROADMAP item 16
+# that brings it.
 # ---------------------------------------------------------------------------
 
 # Default resolution bucket table for the serve layer: the SDXL training
@@ -919,6 +919,185 @@ class AotCacheConfig:
 
 
 @dataclasses.dataclass
+
+
+@dataclasses.dataclass
+class AutoscaleConfig:
+    """Elastic replica-pool autoscaling (serve/autoscale.py
+    `Autoscaler`, driven from the fleet housekeeping tick).
+
+    Pressure is the fleet's step-granular utilization: (occupied step
+    slots + queued/parked work, weighted by remaining steps) over the
+    SERVING replicas' slot capacity — the occupancy model the SLO
+    controller reads.  Sustained pressure above ``pressure_high`` for
+    ``up_sustain_s`` starts one stopped replica; sustained pressure
+    below ``pressure_low`` for ``down_sustain_s`` drains one (bounded by
+    ``drain_deadline_s`` — the drain rides the carry-migration path, so
+    scale-down discards no steps).
+    ``cooldown_s`` separates consecutive scale actions so one load
+    swing never slams the pool between bounds; ``min_replicas`` /
+    ``max_replicas`` (0 = every configured slot) bound the pool.
+    """
+
+    enabled: bool = False
+    min_replicas: int = 1
+    max_replicas: int = 0
+    pressure_high: float = 0.8
+    pressure_low: float = 0.25
+    up_sustain_s: float = 0.5
+    down_sustain_s: float = 5.0
+    cooldown_s: float = 5.0
+    drain_deadline_s: float = 30.0
+
+    def __post_init__(self) -> None:
+        if self.min_replicas < 1:
+            raise ValueError(
+                f"autoscale.min_replicas must be >= 1, got "
+                f"{self.min_replicas}"
+            )
+        if self.max_replicas < 0:
+            raise ValueError(
+                "autoscale.max_replicas must be >= 0 (0 = all configured "
+                f"replicas), got {self.max_replicas}"
+            )
+        if self.max_replicas and self.max_replicas < self.min_replicas:
+            raise ValueError(
+                f"autoscale.max_replicas ({self.max_replicas}) must be >= "
+                f"min_replicas ({self.min_replicas})"
+            )
+        if self.pressure_high <= 0:
+            raise ValueError(
+                f"autoscale.pressure_high must be > 0, got "
+                f"{self.pressure_high}"
+            )
+        if not (0.0 <= self.pressure_low < self.pressure_high):
+            raise ValueError(
+                "autoscale.pressure_low must be in [0, pressure_high), "
+                f"got {self.pressure_low} (high={self.pressure_high})"
+            )
+        for name in ("up_sustain_s", "down_sustain_s", "cooldown_s"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"autoscale.{name} must be >= 0, got "
+                    f"{getattr(self, name)}"
+                )
+        if self.drain_deadline_s <= 0:
+            raise ValueError(
+                "autoscale.drain_deadline_s must be > 0, got "
+                f"{self.drain_deadline_s}"
+            )
+
+
+@dataclasses.dataclass
+class FleetConfig:
+    """Multi-replica fleet policy (serve/fleet.py `FleetRouter`); lives
+    beside ServeConfig so one module owns every run-shaping knob.
+
+    Routing and health scoring:
+      * Each replica is scored in [0, 1] from its own serve signals
+        (`Replica.health_score`): open-circuit share, SLO-controller tier
+        depth, and rolling p99 vs ``p99_ref_s`` (None skips the latency
+        term).  The router dispatches to the serving replica maximizing
+        ``score * capacity_weight / (1 + queue_depth + inflight)`` —
+        weighted least-degraded, so mixed-capability replicas
+        (``Replica.capacity_weight``) are held to one SLO by steering
+        load toward spare healthy capacity.
+
+    Failover:
+      * A replica's TERMINAL dispatch failure (retries exhausted,
+        circuit open, watchdog, replica killed) re-dispatches the request
+        onto a different replica, at most ``max_failovers`` times per
+        request, each drawing from the fleet-wide `RetryBudget`
+        (``failover_budget`` + ``failover_budget_refill_per_s`` — the
+        same storm-bounding token bucket the in-server retry loop uses).
+        A request is only ever re-dispatched after its prior replica's
+        outcome is terminal, so its result is delivered exactly once and
+        a dispatch that failed before completing never runs twice (a
+        watchdog-ABANDONED dispatch may still finish in the background
+        with its result discarded — the single-server watchdog caveat,
+        unchanged).  When no replica can take the request right now it
+        is PARKED in the router and re-dispatched from the housekeeping
+        tick.
+
+    Fleet-level graceful degradation (the per-key `CircuitBreaker`
+    semantics lifted one level up):
+      * ``health_floor`` — a serving replica whose score reaches this
+        floor is auto-DRAINED (stops admitting, finishes in-flight);
+        so is one that accumulates ``drain_failure_threshold``
+        consecutive terminal failures.
+      * ``probe_cooldown_s`` later the drained replica is probed
+        half-open style: exactly one live request routes to it; success
+        returns it to serving, failure re-drains and re-arms the
+        cooldown.
+      * ``auto_restart`` (+ ``restart_cooldown_s``) — a replica whose
+        server STOPPED (e.g. the ``"replica"`` fault site's kill) is
+        rebuilt and re-warmed in the background instead of probed.
+
+    ``tick_s`` is the housekeeping cadence (auto-drain checks, probe
+    arming, parked re-dispatch); 0 disables the tick thread — tests
+    drive `FleetRouter.tick()` manually on an injected clock.
+    """
+
+    health_floor: float = 0.05
+    drain_failure_threshold: int = 3
+    probe_cooldown_s: float = 5.0
+    max_failovers: int = 3
+    failover_budget: int = 10_000
+    failover_budget_refill_per_s: float = 1.0
+    tick_s: float = 0.05
+    p99_ref_s: Optional[float] = None
+    auto_restart: bool = False
+    restart_cooldown_s: float = 10.0
+    # Elastic pool sizing between min/max bounds from the step-granular
+    # occupancy model, riding drain/warm-up + carry migration so scale
+    # events drop no steps — see AutoscaleConfig above.  Off by default.
+    autoscale: "AutoscaleConfig" = dataclasses.field(
+        default_factory=AutoscaleConfig
+    )
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.autoscale, AutoscaleConfig):
+            raise ValueError(
+                "autoscale must be an AutoscaleConfig, got "
+                f"{type(self.autoscale).__name__}"
+            )
+        if not (0.0 <= self.health_floor < 1.0):
+            raise ValueError(
+                f"health_floor must be in [0, 1), got {self.health_floor}"
+            )
+        if self.drain_failure_threshold < 1:
+            raise ValueError(
+                "drain_failure_threshold must be >= 1, got "
+                f"{self.drain_failure_threshold}"
+            )
+        if self.probe_cooldown_s < 0:
+            raise ValueError(
+                f"probe_cooldown_s must be >= 0, got {self.probe_cooldown_s}"
+            )
+        if self.max_failovers < 0:
+            raise ValueError(
+                f"max_failovers must be >= 0, got {self.max_failovers}"
+            )
+        if self.failover_budget < 0:
+            raise ValueError(
+                f"failover_budget must be >= 0, got {self.failover_budget}"
+            )
+        if self.failover_budget_refill_per_s < 0:
+            raise ValueError(
+                "failover_budget_refill_per_s must be >= 0, got "
+                f"{self.failover_budget_refill_per_s}"
+            )
+        if self.tick_s < 0:
+            raise ValueError(f"tick_s must be >= 0, got {self.tick_s}")
+        if self.p99_ref_s is not None and self.p99_ref_s <= 0:
+            raise ValueError(
+                f"p99_ref_s must be > 0 or None, got {self.p99_ref_s}"
+            )
+        if self.restart_cooldown_s < 0:
+            raise ValueError(
+                "restart_cooldown_s must be >= 0, got "
+                f"{self.restart_cooldown_s}"
+            )
 
 
 @dataclasses.dataclass

@@ -500,22 +500,29 @@ REFUSALS = {
     "pipeline_stages": (lambda c: {"pipeline_stages": True}, None),
     "prompt_cache": (lambda c: {"prompt_cache_capacity": 4}, None),
     "step_batching": (lambda c: {"step_batching": c.StepBatchConfig(enabled=True)}, None),
-    "controller": (lambda c: {"controller": c.ControllerConfig(enabled=True)}, "16d"),
+    "controller": (lambda c: {"controller": c.ControllerConfig(enabled=True)}, None),
     "tenants": (lambda c: {"gateway": c.GatewayConfig(tenants=(c.TenantConfig(name="a"),))},
-                "16d"),
-    "gateway": (lambda c: {"gateway": c.GatewayConfig(port=0)}, "16d"),
+                None),
+    "gateway": (lambda c: {"gateway": c.GatewayConfig(port=0)}, None),
+    "ranks_pipeline_stages": (lambda c: {"pipeline_stages": True}, "16f"),
+    "ranks_step_batching": (lambda c: {"step_batching": c.StepBatchConfig(enabled=True)},
+                            "16f"),
     "aot_cache": (lambda c: {"aot_cache": c.AotCacheConfig(dir="store")}, "16g"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_unported_settings_are_refused(name):
+    """Since steps 16d and 16e the controller, a tenant table and the
+    gateway serve; staging or step batching over more than one rank (16f)
+    and the AOT store (16g) are still refused, naming the step."""
     fields, step = REFUSALS[name]
     serve, testing, cfg_mod = _mods(PACKAGES[1])
     config = cfg_mod.ServeConfig(**fields(cfg_mod))  # accepted, as in the JAX package
+    mesh_plan = "dp1.cfg2.sp2" if name.startswith("ranks_") else "dp1.cfg1.sp1"
     if step is not None:
         with pytest.raises(ValueError, match=f"ROADMAP item 16, step {step}"):
-            serve.InferenceServer(testing.FakeExecutorFactory(), config)
+            serve.InferenceServer(testing.FakeExecutorFactory(), config, mesh_plan=mesh_plan)
         return
     # ported: the server runs with the setting on and serves a request
     factory = (testing.StepFakeExecutorFactory() if name == "step_batching"
@@ -523,10 +530,18 @@ def test_unported_settings_are_refused(name):
     with serve.InferenceServer(factory, config) as server:
         r = server.submit("p", height=512, width=512, seed=3).result(timeout=30)
         snap = server.metrics_snapshot()
+        gateway = server.gateway_endpoint
+        assert (gateway is not None and gateway.port > 0) == (name == "gateway")
     assert np.array_equal(r.output, testing.fake_image("p", 3, factory.built[0]))
+    assert server.aot_store is None
     block = {"pipeline_stages": "staging", "prompt_cache": "prompt_cache",
-             "step_batching": "step_batching"}[name]
+             "step_batching": "step_batching", "controller": "controller",
+             "tenants": "tenancy", "gateway": "requests"}[name]
     assert snap[block] is not None
+    assert (snap["controller"] is None) == (name != "controller")
+    assert (snap["tenancy"] is None) == (name != "tenants")
+    if name == "controller":
+        assert r.tier == "full"
 
 
 def test_step_exec_key_and_carry_import_are_refused():
