@@ -314,7 +314,17 @@ Phases (any failure raises, and the script exits non-zero):
    image on every rank.  ``dp``: data parallelism at world 4, two image
    groups of sp 2 (``dp_degree=2``, ``batch_size=2``, ``split_batch=False``),
    two prompts, a tiny check of two prompts too: both images on every
-   rank.  ``dit`` and ``dit_ring``: DistriPixArtPipeline at world 4 (CFG 2 x
+   rank.  ``serve_ranks``: serving over the spawn's ranks (serve/ranks.py
+   ``serve_over_ranks``; ``_serve_ranks_rank``), SDXL 1024x1024 at CFG 2 x
+   sp 2, warmup 1, executors at batch_size 2 (the "@serve_ranks" rows):
+   rank 0's InferenceServer serves three requests whole-batch (batches of
+   2 and 1), four staged (two batches), three step-batched (one joining
+   late) and a fourth stopped at step 2 whose carry every rank exports and
+   a second server imports, and one at the SLO controller's comm_compress
+   tier (the codec's kernels on every rank); one "serve_ranks" line a part
+   and rank, every rank's launches against the closed form
+   (``serve_ranks_expected``), every image the world-4 solo call's bit for
+   bit.  ``dit`` and ``dit_ring``: DistriPixArtPipeline at world 4 (CFG 2 x
    sp 2, warmup 1: 2 synchronous and 2 stale steps, DPM-solver) through
    ``DiTDenoiseRunner``'s "gather" and "ring" layouts, the DiT whole, T5-XXL
    at full width cut to ``SPAWN_T5_LAYERS`` layers (four copies share the
@@ -528,6 +538,20 @@ FLEET_GRAPHED_STEPS = 4
 # of AUTO_DRAIN_S, its straggler's carry migrating to r0
 AUTO_BURST = [(f"{PROMPT}, burst #{i}", 900 + i) for i in range(8)]
 AUTO_LONG = [(f"{PROMPT}, straggler #{i}", 920 + i) for i in range(2)]
+# the "serve_ranks" multi-rank run (``_serve_ranks_rank``): serving over the
+# world-4 spawn's ranks (serve/ranks.py ``serve_over_ranks``), SDXL at
+# 1024x1024, CFG 2 x sp 2, warmup 1, executors at batch_size SERVE_BATCH:
+# each rank holds 2 rows of one branch (its kernel-phase rows carry the
+# suffix "@serve_ranks"; the decode takes both images).  Rank 0's server
+# serves SERVE_RANKS_REQUESTS[:3] whole-batch (batches of 2 and 1), all four
+# staged (two batches), three step-batched (the third joining late) and the
+# fourth stopped at step SERVE_RANKS_EXPORT_AT, its carry exported from every
+# rank and imported by a second server, and the first at the knobs of the
+# SLO controller's SERVE_RANKS_TIER tier
+SERVE_RANKS = "@serve_ranks"
+SERVE_RANKS_REQUESTS = [(f"{PROMPT}, over ranks #{i}", 1000 + i) for i in range(4)]
+SERVE_RANKS_EXPORT_AT, SERVE_RANKS_SLOTS = 2, 3
+SERVE_RANKS_TIER = "comm_compress"
 AUTO_LONG_STEPS, AUTO_DRAIN_S = 12, 0.3
 # the transformer families' step drive (``step_drive``): executors at
 # batch_size 2, so a dispatch runs the DiT / MMDiT at B = 4 with the CFG folded
@@ -569,6 +593,11 @@ MULTI_RUNS = {
             "warmup_steps": PATCH_WARMUP}, [{"prompts": 2}],
            {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1}, "sdxl",
            PATCH_STEPS),
+    # serving over the ranks (``_serve_ranks_rank``): the patch run's layout
+    # at batch_size 2 behind rank 0's InferenceServer; no tiny check
+    "serve_ranks": ({"warmup_steps": PATCH_WARMUP, "batch_size": SERVE_BATCH}, [],
+                    {"sync": PATCH_WARMUP + 1, "stale": PATCH_STEPS - PATCH_WARMUP - 1},
+                    "sdxl", PATCH_STEPS),
     # PixArt-α's DiT under displaced patch parallelism (parallel/dit_sp.py),
     # its two layouts, DPM-solver as the pipeline's default
     "dit": ({"warmup_steps": PATCH_WARMUP}, [{}, {"mode": "full_sync"}],
@@ -679,8 +708,10 @@ RING_HOPS = (("ring_hop_l1", 1, 2048, 2048, 10, 64), ("ring_hop_l2", 1, 512, 512
 # log-sum-exp instance sees it: one rank's L/n queries against one rank's L/n
 # keys of the VAE mid attention, n launches a decode; (name, B, Lq, Lk, H, d,
 # launches a decode): the multi-rank runs' 1024x1024 SDXL and 512x512 SD 1.5
-# decodes at sp 2, and the 2048x2048 decode at sp 2 and sp 4
+# decodes at sp 2 (the serve_ranks run's of two images at once, B = 2), and
+# the 2048x2048 decode at sp 2 and sp 4
 VAE_RING_HOPS = (("vae_ring_1024_sp2", 1, 8192, 8192, 1, 512, 2),
+                 ("vae_ring_1024_sp2" + SERVE_RANKS, 2, 8192, 8192, 1, 512, 2),
                  ("vae_ring_512_sp2" + SD15, 1, 2048, 2048, 1, 512, 2),
                  ("vae_ring_2048_sp2", 1, 32768, 32768, 1, 512, 2),
                  ("vae_ring_2048_sp4", 1, 16384, 16384, 1, 512, 4))
@@ -814,7 +845,7 @@ def attention_shapes(ucfg, vcfg, height, width, unet_evals, suffix="", batch=1):
 def family(name: str) -> str:
     """The model family of a kernel-phase row by its shape name."""
     for fam, suffix in (("sd15", SD15), ("sd21", SD21), ("pixart", PIXART), ("sd3", SD3),
-                        ("serve", SERVE)):
+                        ("serve", SERVE), ("serve_ranks", SERVE_RANKS)):
         if name.endswith(suffix):
             return fam
     return "sdxl"
@@ -1050,18 +1081,24 @@ def transformer_expected(label, mcfg):
 
 
 def knob_expected(label, ucfg):
-    """The launches one call of a comm-knob run makes on one rank at CFG 2 x
-    sp 2: flash (a ring self-attention launches the log-sum-exp instance
-    once per chunk, n = 2; a shallow step runs only the shallow levels'
-    attention; the decode ``decode_launches``), its log-sum-exp instances,
-    and the refresh codec's encode
-    (quantize_rows) and decode (dequantize_rows) kernels in every stale or
-    shallow step: one launch of each per compressed KV or halo payload, or
-    under ``comm_batch`` one of each per flush (per CODEC_TABLE segments)."""
+    """``knob_counts`` of the comm-knob run ``label``."""
+    fields, _, _, _, steps = MULTI_RUNS[label]
+    return knob_counts(fields, steps, ucfg, label)
+
+
+def knob_counts(fields, steps, ucfg, label=""):
+    """The launches one call of the patch path with the comm knobs
+    ``fields`` makes on one rank at CFG 2 x sp 2: flash (a ring
+    self-attention launches the log-sum-exp instance once per chunk, n = 2;
+    a shallow step runs only the shallow levels' attention; the decode
+    ``decode_launches``), its log-sum-exp instances, and the refresh codec's
+    encode (quantize_rows) and decode (dequantize_rows) kernels in every
+    stale or shallow step: one launch of each per compressed KV or halo
+    payload, or under ``comm_batch`` one of each per flush (per CODEC_TABLE
+    segments)."""
     from distrifuser_tpu_torch.models import unet
     from distrifuser_tpu_torch.parallel.stepcache import phase_step_counts
 
-    fields, _, _, _, steps = MULTI_RUNS[label]
     n = 2
     counts = phase_step_counts(steps, fields["warmup_steps"],
                                fields.get("step_cache_interval", 1))
@@ -1094,7 +1131,8 @@ def refresh_codec_rows(ucfg, height, width):
     decode launch each in every stale step) by source shape, and the
     stepcache_batch flush tables (fp8, every payload of a step in one
     grouped launch of each kernel): the stale step's and the shallow
-    step's."""
+    step's; the transformer runs' KV and the serve_ranks tier's payloads
+    (``transformer_codec_rows``, ``serve_ranks_codec_rows``)."""
     from distrifuser_tpu_torch.parallel.stepcache import phase_step_counts
 
     rows = []
@@ -1114,7 +1152,41 @@ def refresh_codec_rows(ucfg, height, width):
         rows.append({"shape": f"refresh_stepcache_batch_{phase}_table", "mode": "fp8",
                      "k": 1, "sources": sources,
                      "launches_per_call": counts[phase] * -(-len(sources) // CODEC_TABLE)})
-    return rows + transformer_codec_rows()
+    return rows + transformer_codec_rows() + serve_ranks_codec_rows(ucfg, height, width)
+
+
+def serve_ranks_tier():
+    """The DistriConfig knobs of the SLO controller's SERVE_RANKS_TIER tier
+    on a patch key (serve/controller.py ``DEFAULT_TIERS``, ``apply_tier``)."""
+    from distrifuser_tpu_torch.serve import DEFAULT_TIERS
+
+    tier = next(t for t in DEFAULT_TIERS if t.name == SERVE_RANKS_TIER)
+    knobs = {"comm_compress": tier.comm_compress or "none"}
+    if tier.step_cache is not None:
+        knobs["step_cache_interval"], knobs["step_cache_depth"] = tier.step_cache
+    if tier.refresh_fraction is not None:
+        knobs["refresh_fraction"] = tier.refresh_fraction
+    return knobs
+
+
+def serve_ranks_codec_rows(ucfg, height, width):
+    """The refresh payloads of one serve_ranks dispatch at the
+    SERVE_RANKS_TIER tier, one rank's (2 rows of one branch at CFG 2 x sp
+    2), one encode and one decode launch each in every stale step (the
+    whole UNet's) and shallow step (its shallow part's)."""
+    from distrifuser_tpu_torch.parallel.stepcache import phase_step_counts
+
+    knobs = serve_ranks_tier()
+    counts = phase_step_counts(PATCH_STEPS, PATCH_WARMUP, knobs["step_cache_interval"])
+    by_source = {}
+    for phase, depth in (("stale", 0), ("shallow", knobs["step_cache_depth"])):
+        for key, c in refresh_sources(ucfg, height, width, 2, SERVE_BATCH, depth).items():
+            by_source[key] = by_source.get(key, 0) + c * counts[phase]
+    return [{"shape": f"refresh_serve_ranks_{kind}_{'x'.join(map(str, shape))}",
+             "mode": knobs["comm_compress"],
+             "k": round(1 / knobs.get("refresh_fraction", 1.0)),
+             "sources": [(kind, shape)], "launches_per_call": c}
+            for (kind, shape), c in sorted(by_source.items())]
 
 
 def transformer_codec_rows():
@@ -4622,6 +4694,14 @@ def _refuses_graphs(model):
     return False
 
 
+def _progress(rank, what, since):
+    """A rank's progress through the multi-rank phase, on stderr as it
+    happens (the result lines come only when every run is done)."""
+    print(json.dumps({"progress": what, "rank": rank,
+                      "s": round(time.perf_counter() - since, 1)}),
+          file=sys.stderr, flush=True)
+
+
 def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
     """One rank of the multi-rank phase (a spawned process): for each run of
     ``labels`` (MULTI_RUNS), the tiny card-vs-CPU checks at this world, then
@@ -4650,11 +4730,19 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
             raise AssertionError(f"rank {rank}: use_cuda_graph=True was not refused "
                                  "with ranks sharing a card over gloo")
         out, trees = {}, {}
+        t_spawn = time.perf_counter()
         for label in labels:
+            # where a spawn cut at SPAWN_DEADLINE_S had got to
+            _progress(rank, label, t_spawn)
             if label == "decode_sp":
                 trees = {}  # the decode needs the VAE alone
                 torch.cuda.empty_cache()
                 out[label] = _decode_sp_runs(rank, world)
+                continue
+            if label == "serve_ranks":  # the patch runs' SDXL trees
+                if "sdxl" not in trees:
+                    trees = {"sdxl": build_trees("sdxl")}
+                out[label] = _serve_ranks_rank(rank, world, trees["sdxl"], graphs)
                 continue
             if label in PIPEFUSION_RUNS:  # its own trees: one stage's blocks
                 trees = {}
@@ -4746,6 +4834,194 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
         gc.collect()
         torch.cuda.synchronize()
         dist.destroy_process_group()
+
+
+def serve_ranks_expected(part, ucfg):
+    """The launches one rank reads over a part of the serve_ranks run
+    (``part``: its line on rank 0): a whole-batch or staged dispatch is a
+    4-step call (``multi_expected``); a step dispatch one evaluation, an
+    import at a later step one more (the template carry's step,
+    serve/executors.py ``_carry_template``), a finishing decode the
+    decode's (``decode_launches``); a dispatch at the tier
+    ``knob_counts``."""
+    from distrifuser_tpu_torch.models.unet import attention_calls_per_forward
+
+    fields, _, _, model, steps = MULTI_RUNS["serve_ranks"]
+    zero = {"quant_matmul": 0, "quantize_rows": 0, "dequantize_rows": 0, "all_to_all": 0}
+    n = part["dispatches"]
+    if part["part"] in ("whole", "staged"):
+        call = multi_expected("serve_ranks", ucfg)
+        return {**zero, "flash_sdpa": n * call["flash_sdpa"],
+                "flash_sdpa_lse": n * call["flash_sdpa_lse"]}
+    if part["part"] == "comm_compress":
+        call = knob_counts({**fields, **serve_ranks_tier()}, steps, ucfg)
+        return {**zero, **{k: n * call[k] for k in ("flash_sdpa", "flash_sdpa_lse",
+                                                   "quantize_rows", "dequantize_rows")}}
+    _, lse = decode_launches(fields, model)
+    evals = n + part.get("template_steps", 0)
+    return {**zero, "flash_sdpa": evals * attention_calls_per_forward(ucfg)
+            + part["finishes"] * lse, "flash_sdpa_lse": part["finishes"] * lse}
+
+
+def _serve_ranks_rank(rank, world, trees, graphs):
+    """One rank of the "serve_ranks" run: serving over the spawn's ranks
+    (serve/ranks.py ``serve_over_ranks``), SDXL 1024x1024 from ``trees`` at
+    CFG 2 x sp 2, warmup 1, executors at batch_size SERVE_BATCH, graphed over
+    NCCL and eager where the ranks share the card.  Five servers in turn,
+    every rank's launch counts set to 0 just before each and read just
+    after it: ``whole`` serves SERVE_RANKS_REQUESTS[:3] (batches of 2 and
+    1), ``staged`` all four (pipeline_stages: two batches of 2), ``step``
+    three step-batched (the third joining after two rounds) and then the
+    fourth, which stops the server at step SERVE_RANKS_EXPORT_AT (a
+    progress callback) so that its carry is exported from every rank,
+    ``import`` resumes that carry on a second step server, and
+    ``comm_compress`` serves the first at the SERVE_RANKS_TIER tier's knobs
+    (``serve_ranks_tier``: the step cache and int8 refreshes, the refresh
+    codec's kernels on every rank).  Then every rank runs each request's
+    solo call of each key's pipeline, and rank 0 holds every served image
+    to it, bit for bit.  Returns {"lines": one a part, rank 0's with the
+    launches every rank must read (``serve_ranks_expected``), "tiny": []}."""
+    import numpy as np
+    import torch
+
+    from distrifuser_tpu_torch.serve import (CarryExportedError, ResilienceConfig,
+                                             ServeConfig, StepBatchConfig,
+                                             pipeline_executor_factory, serve_over_ranks)
+
+    size, reqs, steps = SIZES["sdxl"], SERVE_RANKS_REQUESTS, PATCH_STEPS
+    fields = {"warmup_steps": PATCH_WARMUP, "use_cuda_graph": graphs}
+    pipes = {}  # key.short() -> this rank's pipeline of the key
+
+    def factory(tier_knobs):
+        build = _sdxl_build(trees, tier_knobs=tier_knobs, **fields)
+
+        def built(key):
+            pipes[key.short()] = pipe = build(key)
+            return pipe
+
+        return pipeline_executor_factory(built)
+
+    base = dict(buckets=((size, size),), max_batch_size=SERVE_BATCH, default_steps=steps,
+                warmup_buckets=((size, size),), batch_window_s=SERVE_WINDOW_S,
+                default_ttl_s=900.0, resilience=ResilienceConfig(watchdog_timeout_s=600.0))
+    step_config = ServeConfig(**base, step_batching=StepBatchConfig(
+        enabled=True, slots=SERVE_RANKS_SLOTS, preview_interval=1,
+        step_service_prior_s=0.5))
+    served = []  # rank 0: (key, request, image) of every served request
+    t_run = time.perf_counter()
+    snapshot = {}
+
+    def part(name, config, drive, tier_knobs=False):
+        _progress(rank, f"serve_ranks/{name}", t_run)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        server = serve_over_ranks(factory(tier_knobs), config, model_id="sdxl",
+                                  scheduler="ddim", mesh_plan=f"dp1.cfg2.sp{world // 2}")
+        line = {"phase": "serve_ranks", "part": name, "rank": rank, "world": world,
+                "use_cuda_graph": graphs}
+        if server is not None:
+            server.start()
+            try:
+                line.update(drive(server))
+                line["health_status"] = server.health()["status"]
+            finally:
+                server.stop()
+        torch.cuda.synchronize()
+        line["seconds"] = time.perf_counter() - t0
+        line["launches"] = read_counts()
+        return line
+
+    def results(server, requests):
+        return collect([server.submit(p, height=size, width=size, seed=s)
+                        for p, s in requests], requests)
+
+    def collect(futs, requests):
+        rs = [f.result(timeout=900) for f in futs]
+        served.extend((r.exec_key, q, r.output) for q, r in zip(requests, rs))
+        return rs
+
+    def record(rs):
+        return {"dispatch_s": [r.execute_s for r in rs], "e2e_s": [r.e2e_s for r in rs],
+                "batch_sizes": [r.batch_size for r in rs],
+                "exec_keys": sorted({r.exec_key for r in rs})}
+
+    def whole(server):
+        rs = results(server, reqs[:3])
+        return {**record(rs), "dispatches": server.metrics_snapshot()["requests"]["batches"]}
+
+    def staged(server):
+        rs = results(server, reqs)
+        snap = server.metrics_snapshot()["staging"]
+        return {**record(rs), "dispatches": snap["completed"],
+                "peak_inflight": snap.get("peak_inflight")}
+
+    def step(server):
+        sb = server.stepbatch
+        futs = [server.submit(p, height=size, width=size, seed=s) for p, s in reqs[:2]]
+        _wait(lambda: sb.rounds >= 2, "serve_ranks: two step rounds")
+        futs.append(server.submit(reqs[2][0], height=size, width=size, seed=reqs[2][1]))
+        rs = collect(futs, reqs[:3])
+
+        def stop_at(i, total, preview):
+            if i == SERVE_RANKS_EXPORT_AT:
+                server.request_stop()
+
+        late = server.submit(reqs[3][0], height=size, width=size, seed=reqs[3][1],
+                             on_progress=stop_at)
+        try:
+            late.result(timeout=900)
+        except CarryExportedError as exc:
+            snapshot.update(data=exc.snapshot, steps_done=exc.steps_done)
+        if snapshot.get("data") is None:
+            raise AssertionError("serve_ranks: the fourth request's carry was not exported")
+        counters = server.metrics_snapshot()["requests"]
+        return {**record(rs), "dispatches": counters.get("stepbatch_dispatches", 0),
+                "finishes": len(rs), "packed_rows": counters.get("stepbatch_packed_rows", 0),
+                "exported_at_step": snapshot["steps_done"],
+                "snapshot_bytes": len(snapshot["data"])}
+
+    def imported(server):
+        r = server.submit(reqs[3][0], height=size, width=size, seed=reqs[3][1],
+                          carry_snapshot=snapshot["data"]).result(timeout=900)
+        served.append((r.exec_key, reqs[3], r.output))
+        counters = server.metrics_snapshot()["requests"]
+        return {**record([r]), "dispatches": counters.get("stepbatch_dispatches", 0),
+                "finishes": 1, "steps_salvaged": r.steps_salvaged,
+                "template_steps": 1 if r.steps_salvaged else 0}
+
+    def comm(server):
+        rs = results(server, reqs[:1])
+        return {**record(rs), "dispatches": server.metrics_snapshot()["requests"]["batches"]}
+
+    lines = [part("whole", ServeConfig(**base), whole),
+             part("staged", ServeConfig(**base, pipeline_stages=True,
+                                        max_inflight_batches=2), staged),
+             part("step", step_config, step),
+             part("import", ServeConfig(**dict(base, warmup_buckets=()),
+                                        step_batching=step_config.step_batching), imported),
+             part("comm_compress", ServeConfig(**base, **serve_ranks_tier()), comm,
+                  tier_knobs=True)]
+    # each key's solo calls, on every rank (each call is collective)
+    solo = {key: [pipe(p, seed=s, num_inference_steps=steps, output_type="np").images[0]
+                  for p, s in (reqs[:1] if ":sc" in key else reqs)]
+            for key, pipe in sorted(pipes.items())}
+    if rank == 0:
+        for line in lines:
+            line["expected"] = serve_ranks_expected(line, trees[0])
+        same = [(key, q, bool(np.array_equal(solo[key][reqs.index(q)], np.asarray(img))))
+                for key, q, img in served]
+        if not all(ok for _, _, ok in same):
+            raise AssertionError(f"serve_ranks: served images differ from the solo calls "
+                                 f"{[(k, q[1], ok) for k, q, ok in same]}")
+        lines[0]["bit_identical_to_solo"] = {
+            key: sum(ok for k, _, ok in same if k == key) for key in sorted(solo)}
+        lines[0]["image_sha256"] = {f"{key}:{q[1]}": image_digest(np.asarray(img))
+                                    for key, q, img in served}
+    del pipes, solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"lines": lines, "tiny": []}
 
 
 def _decode_sp_runs(rank, world):
@@ -5015,8 +5291,8 @@ def patch_phase(dense_latent, out_dir, profile=False, runs=None):
         spawns[0][1].append("tensor")
     else:
         spawns.append((tp_world, ["tensor"]))
-    spawns[0][1].extend(["sd15_patch", "dp", *DIT_RUNS, *SD3_RUNS, "decode_sp",
-                         *PIPEFUSION_RUNS])
+    spawns[0][1].extend(["sd15_patch", "dp", "serve_ranks", *DIT_RUNS, *SD3_RUNS,
+                         "decode_sp", *PIPEFUSION_RUNS])
     if runs:
         spawns = [(PATCH_WORLD, list(runs))]
     print(json.dumps({"phase": "patch_transport", "world": PATCH_WORLD, **transport,
@@ -5026,6 +5302,9 @@ def patch_phase(dense_latent, out_dir, profile=False, runs=None):
         ranks = _spawn(world, labels, transport["backend"], os.path.join(out_dir, f"w{world}"),
                        profile)
         for label in labels:
+            if label == "serve_ranks":
+                results[label] = serve_ranks_report(ranks)
+                continue
             for r in ranks:
                 if "refused" in r[label]:
                     print(json.dumps(r[label]["refused"]), flush=True)
@@ -5072,6 +5351,35 @@ def patch_phase(dense_latent, out_dir, profile=False, runs=None):
             np.linalg.norm(latent - dense_latent) / np.linalg.norm(dense_latent))
     print(json.dumps(info), flush=True)
     return results
+
+
+def serve_ranks_report(ranks):
+    """Print the serve_ranks run's lines, each part's line of every rank,
+    and raise unless every rank read the launches rank 0's closed form says
+    (``serve_ranks_expected``) and the parts served as planned: batches of
+    2 and 1 whole-batch, two staged dispatches, a request joining the step
+    rounds, a carry exported and imported at step SERVE_RANKS_EXPORT_AT.
+    Returns rank 0's lines."""
+    lead = ranks[0]["serve_ranks"]["lines"]
+    for i, line in enumerate(lead):
+        for r in ranks:
+            got = r["serve_ranks"]["lines"][i]
+            if got["launches"] != line["expected"]:
+                raise AssertionError(f"serve_ranks {line['part']} rank {got['rank']}: "
+                                     f"launches {got['launches']}, expected "
+                                     f"{line['expected']}")
+            print(json.dumps(got), flush=True)
+    parts = {line["part"]: line for line in lead}
+    checks = {"whole batches (1, 2)": sorted(set(parts["whole"]["batch_sizes"])) == [1, 2]
+              and parts["whole"]["dispatches"] == 2,
+              "staged dispatches 2": parts["staged"]["dispatches"] == 2,
+              "three step requests": len(parts["step"]["batch_sizes"]) == 3,
+              "export at step": parts["step"]["exported_at_step"] == SERVE_RANKS_EXPORT_AT,
+              "import at step": parts["import"]["steps_salvaged"] == SERVE_RANKS_EXPORT_AT,
+              "codec launches": parts["comm_compress"]["launches"]["quantize_rows"] > 0}
+    if not all(checks.values()):
+        raise AssertionError(f"serve_ranks: {checks}")
+    return lead
 
 
 def _kernel_group(name: str) -> str:
@@ -5307,6 +5615,65 @@ def path_entry(rows, weights, launches, **fields):
         raise AssertionError(f"{fields.get('work')}: {launches} launches read, the "
                              f"shapes account for {want}")
     return kernel_entry(picked, launches, **fields)
+
+
+def serve_ranks_entries(rows, refresh_rows, multi_runs):
+    """The serve_ranks run's launches on rank 0 as paths of the flash
+    entry (its parts: the "@serve_ranks" rows, a dispatch at the tier's
+    knobs with its shallow step like ``knob_entry``'s), of the d = 512
+    entry (every decode of two images) and of the codec entries (the
+    tier's refresh payloads): (flash, d512, quantize, dequantize)."""
+    from distrifuser_tpu_torch.parallel.stepcache import phase_step_counts
+
+    lines = {line["part"]: line for line in multi_runs["serve_ranks"]}
+    frows = [r for r in rows if family(r["shape"]) == "serve_ranks"
+             and r["shape"].startswith(("patch_unet", "vae_ring_1024_sp2"))]
+    decode = "vae_ring_1024_sp2"
+    work = ("rank 0 of the serve_ranks run's {part} part ({what}; SDXL 1024x1024 at "
+            f"CFG 2 x sp 2, executors at batch_size {SERVE_BATCH})")
+    whats = {"whole": "{n} whole-batch dispatches", "staged": "{n} staged dispatches",
+             "step": "{n} step dispatches and {f} finishing decodes",
+             "import": "{n} step dispatches after an imported carry, its template "
+                       "step and {f} finishing decode",
+             "comm_compress": f"{{n}} dispatch at the {SERVE_RANKS_TIER} tier"}
+    flash, decodes = {}, 0
+    for name, line in lines.items():
+        n, f = line["dispatches"], line.get("finishes", 0)
+        if name in ("whole", "staged"):
+            weights, decodes = [("patch_unet", n), (decode, n)], decodes + n
+        elif name == "comm_compress":
+            knobs = serve_ranks_tier()
+            counts = phase_step_counts(PATCH_STEPS, PATCH_WARMUP,
+                                       knobs["step_cache_interval"])
+            full = counts["sync"] + counts["stale"]
+            weights = [("patch_unet_self_l1", n * (full + counts["shallow"]) / 4),
+                       ("patch_unet_cross_l1", n * (full + counts["shallow"]) / 4),
+                       ("patch_unet", n * full / 4), (decode, n)]
+            decodes += n
+        else:
+            evals = n + line.get("template_steps", 0)
+            weights, decodes = [("patch_unet", evals / 4), (decode, f)], decodes + f
+        flash[f"serve_ranks_{name}"] = path_entry(
+            frows, weights, line["launches"]["flash_sdpa"],
+            work=work.format(part=name, what=whats[name].format(n=n, f=f)))
+    d512 = path_entry(
+        [r for r in frows if r["shape"].startswith(decode)], [(decode, decodes)],
+        sum(line["launches"]["flash_sdpa_lse"] for line in lines.values()),
+        work=f"rank 0's {decodes} sequence-parallel decodes of two images in the "
+             "serve_ranks run")
+    comm = lines["comm_compress"]
+    picked = [r for r in refresh_rows if r["shape"].startswith("refresh_serve_ranks_")]
+    codec = {prefix: kernel_entry(
+        picked, comm["launches"][prefix + "rows"], prefix,
+        work=f"the refresh payloads of rank 0's dispatch at the {SERVE_RANKS_TIER} "
+             f"tier in the serve_ranks run ({serve_ranks_tier()}), bf16 sources; no "
+             "library call")
+        for prefix in ("quantize_", "dequantize_")}
+    if sum(r["launches_per_call"] for r in picked) != comm["launches"]["quantize_rows"]:
+        raise AssertionError("serve_ranks: the tier's payload rows account for "
+                             f"{sum(r['launches_per_call'] for r in picked)} codec "
+                             f"launches, {comm['launches']['quantize_rows']} read")
+    return flash, d512, codec["quantize_"], codec["dequantize_"]
 
 
 CONV_PROBE_SHAPES = ((4, 320, 320, 128), (4, 640, 640, 64), (4, 1280, 1280, 32),
@@ -5669,6 +6036,12 @@ def main(argv) -> int:
         by_head_dim15[s[5]] = by_head_dim15.get(s[5], 0) + s[6]
     multi += [s for s in patch_attention_shapes(shapes15, n=PATCH_WORLD // 2, batch=1)
               if s[0].startswith("patch_")]
+    # the serve_ranks run: a rank of the patch path at CFG 2 x sp 2 holding
+    # the 2 rows of one branch ("@serve_ranks" rows; its decode's at B = 2 are
+    # in VAE_RING_HOPS)
+    multi += [(s[0] + SERVE_RANKS, *s[1:])
+              for s in patch_attention_shapes(shapes, n=PATCH_WORLD // 2, batch=SERVE_BATCH)
+              if s[0].startswith("patch_")]
     # img2img's VAE encoder: its mid attention at the decoder's shape, once
     # a call; the whole-latent decode of a 2048x2048 latent, once
     enc_rows = [("i2i_vae_encoder_mid" + row[0][len("vae_mid"):], *row[1:])
@@ -5704,8 +6077,10 @@ def main(argv) -> int:
                     "sd15_patch": "patch_", "dp": "dp_"}
         out = {}
         for label, lines in multi_runs.items():
-            # the d = 512 and 72 entries', and the SD3 runs' (``sd3_entries``)
-            if label == "decode_sp" or label in DIT_RUNS + SD3_RUNS + PIPEFUSION_RUNS:
+            # the d = 512 and 72 entries', the SD3 runs' (``sd3_entries``) and
+            # the serve plane's over the ranks (``serve_ranks_entries``)
+            if label in ("decode_sp", "serve_ranks") or label in (
+                    DIT_RUNS + SD3_RUNS + PIPEFUSION_RUNS):
                 continue
             if label in KNOB_RUNS:
                 out[label] = knob_entry(rows, label, lines)
@@ -6034,10 +6409,14 @@ def main(argv) -> int:
         lse, refresh, dequant = knob_kernels(rows_of(rows, "ring_hop", "sdxl"), refresh_rows,
                                              multi_runs, hop_rows)
         sd3_plain, sd3_lse = sd3_entries(rows, multi_runs)
-        kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs, **sd3_plain},
+        sr_flash, sr_d512, sr_quant, sr_dequant = serve_ranks_entries(rows, refresh_rows,
+                                                                      multi_runs)
+        kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs, **sd3_plain, **sr_flash},
                    {**lse, **sd3_lse},
-                   d512_entry(rows, multi_runs),
-                   {**refresh.pop("compress_pcpp"), **QUANT_ENTRY, **refresh}, dequant,
+                   {**d512_entry(rows, multi_runs), "serve_ranks": sr_d512},
+                   {**refresh.pop("compress_pcpp"), **QUANT_ENTRY, **refresh,
+                    "serve_ranks_comm_compress": sr_quant},
+                   {**dequant, "serve_ranks_comm_compress": sr_dequant},
                    *instance_entries(rows_of(rows, "patch_", "sd15"),
                                      multi_runs["sd15_patch"][0]
                                      ["flash_sdpa_launches_by_head_dim"],
@@ -6146,6 +6525,8 @@ def main(argv) -> int:
     serve_flash, serve_quant = serve_kernels(mrows, qrows, serve)
     step_flash, step_quant = step_serve_kernels(mrows, qrows, staged, step)
     plane_flash = plane_kernels(mrows, plane)
+    sr_flash, sr_d512, sr_quant, sr_dequant = serve_ranks_entries(mrows, refresh_rows,
+                                                                  multi_runs)
     kernels = [
         kernel_entry(rows, runs["dense"]["flash_sdpa_launches"], **FLASH_ENTRY,
                      work="all attention of one 4-step 1024x1024 SDXL pipeline call "
@@ -6158,7 +6539,8 @@ def main(argv) -> int:
                      **multi_entries(mrows, multi_runs),
                      sd15=kernel_entry(rows15, sd_runs["sd15"]["flash_sdpa_launches"]),
                      sd21=kernel_entry(rows21, sd_runs["sd21"]["flash_sdpa_launches"]),
-                     **paths, **sd3_plain, **serve_flash, **step_flash, **plane_flash),
+                     **paths, **sd3_plain, **serve_flash, **step_flash, **plane_flash,
+                     **sr_flash),
         *instance_entries(rows15, sd_runs["sd15_eager"]["flash_sdpa_launches_by_head_dim"],
                           "all its attention in one 4-step 512x512 SD 1.5 call (launches "
                           "counted in the eager call; the graphed one launches as many)"),
@@ -6198,10 +6580,10 @@ def main(argv) -> int:
                          by_mode15[mode], sd_runs[f"sd15_{mode}"]["quantize_rows_launches"],
                          "quantize_", work=f"one graphed 4-step 512x512 SD 1.5 call at {mode}")
                         for mode in by_mode15},
-                     **refresh),
-        dequant,
+                     **refresh, serve_ranks_comm_compress=sr_quant),
+        {**dequant, "serve_ranks_comm_compress": sr_dequant},
         {**lse, **sd3_lse},
-        d512_entry(mrows, multi_runs),
+        {**d512_entry(mrows, multi_runs), "serve_ranks": sr_d512},
         *d72_entries(mrows, multi_runs, pixart[0], pixart[2], pixart[3]),
     ]
     print(json.dumps({"serve": serve}), flush=True)

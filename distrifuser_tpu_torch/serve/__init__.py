@@ -1,7 +1,7 @@
-"""distrifuser_tpu_torch.serve -- the long-lived inference service on one card.
+"""distrifuser_tpu_torch.serve -- the long-lived inference service.
 
-The JAX package's serve plane on one card (ROADMAP item 16, steps
-16a-16e), with its module and public names:
+The JAX package's serve plane (ROADMAP item 16, steps 16a-16f), on one
+card or over n ranks, with its module and public names:
 
 * `RequestQueue` -- bounded admission with deadlines (serve/queue.py);
 * `MicroBatcher` + `BucketTable` -- continuous micro-batching with shape
@@ -36,13 +36,17 @@ The JAX package's serve plane on one card (ROADMAP item 16, steps
   auto-restart (serve/replica.py, serve/fleet.py, `build_fleet`), and the
   elastic pool of serve/autoscale.py (`Autoscaler`, `fleet_pressure`);
 * `PipelineExecutor` -- adapter from the port's pipelines
-  (serve/executors.py); `serve.testing` has the weightless fakes.
+  (serve/executors.py); `serve.testing` has the weightless fakes;
+* `serve_over_ranks` -- serving a pipeline over n ranks: rank 0's
+  `InferenceServer` drives every other rank's executors over a control
+  channel of its own (serve/ranks.py: `RankLeader`, `RankFollower`,
+  `RankedExecutor`, `RankFailedError`).
 
 ``python -m distrifuser_tpu_torch.serve --demo`` runs a CPU-only
 end-to-end demonstration (serve/__main__.py; ``--gateway-port`` runs it
-through the gateway).  Serving over n ranks and the AOT store come with
-later steps of ROADMAP item 16; `InferenceServer` refuses their settings
-until then.
+through the gateway).  The AOT store comes with a later step of ROADMAP
+item 16 (16g), and a fleet of replicas that span ranks with another
+(16h); `InferenceServer` and `Replica` refuse them until then.
 """
 
 from ..utils.config import (
@@ -103,6 +107,14 @@ from .migration import (
 )
 from .promptcache import PromptCache
 from .queue import Request, RequestQueue, ServeResult
+from .ranks import (
+    RankedExecutor,
+    RankFailedError,
+    RankFollower,
+    RankLeader,
+    current_command,
+    serve_over_ranks,
+)
 from .replica import (
     REPLICA_DRAINING,
     REPLICA_SERVING,
@@ -176,6 +188,10 @@ __all__ = [
     "PipelineExecutor",
     "PromptCache",
     "QueueFullError",
+    "RankFailedError",
+    "RankFollower",
+    "RankLeader",
+    "RankedExecutor",
     "REPLICA_DRAINING",
     "REPLICA_SERVING",
     "REPLICA_STARTING",
@@ -214,6 +230,7 @@ __all__ = [
     "build_fleet",
     "check_identity",
     "check_key_compatible",
+    "current_command",
     "decode_image",
     "decode_snapshot",
     "encode_image",
@@ -223,5 +240,6 @@ __all__ = [
     "is_oom",
     "pipeline_executor_factory",
     "routing_weight",
+    "serve_over_ranks",
     "sse_format",
 ]

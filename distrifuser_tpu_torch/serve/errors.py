@@ -202,8 +202,12 @@ def is_oom(exc: BaseException) -> bool:
     """OOM detector spanning the typed error, the caching allocator's
     ``torch.cuda.OutOfMemoryError`` (older PyTorch raised a plain
     ``RuntimeError`` saying ``CUDA out of memory``) and injected faults
-    (``RESOURCE_EXHAUSTED: ...``, serve/faults.py)."""
+    (``RESOURCE_EXHAUSTED: ...``, serve/faults.py), and another rank's OOM
+    as rank 0 raises it over n ranks (``oom`` set: serve/ranks.py
+    `RankFailedError`)."""
     if isinstance(exc, (ResourceExhaustedError, torch.cuda.OutOfMemoryError)):
+        return True
+    if getattr(exc, "oom", False) is True:
         return True
     msg = str(exc)
     return "CUDA out of memory" in msg or "RESOURCE_EXHAUSTED" in msg

@@ -86,9 +86,10 @@ class PipelineExecutor:
     ``pipeline`` must match the key it serves: built at (key.height,
     key.width) with do_classifier_free_guidance == key.cfg and the key's
     scheduler family; ``prepare(key.steps)`` should already have run (the
-    factory in `pipeline_executor_factory` does all of this).  Only a
-    pipeline on one rank is served: serving over n ranks needs rank 0 to
-    drive the followers' dispatches (ROADMAP item 16, step 16f).
+    factory in `pipeline_executor_factory` does all of this).  A pipeline
+    over n ranks has one executor a rank: serve/ranks.py runs each of
+    their operations on every rank at once (rank 0's server drives the
+    others), and only rank 0's images are served.
 
     Besides the monolithic ``__call__`` contract, the executor exposes the
     three-stage contract the staged serving pipeline (serve/staging.py)
@@ -106,13 +107,10 @@ class PipelineExecutor:
                  key: Optional[ExecKey] = None,
                  fault_plan: Optional[FaultPlan] = None):
         cfg = pipeline.distri_config
-        if cfg.world_size > 1:
-            raise ValueError(
-                f"PipelineExecutor serves a pipeline on one rank; this one "
-                f"runs on {cfg.world_size} ranks.  Serving over n ranks needs "
-                "rank 0 to drive the followers' dispatches, which comes with "
-                "ROADMAP item 16, step 16f")
         self.pipeline = pipeline
+        # ranks the pipeline spans (serve/replica.py refuses a replica
+        # whose executor spans more than one)
+        self.world_size = cfg.world_size
         self.steps = steps
         self.key = key
         self.fault_plan = fault_plan
@@ -512,42 +510,51 @@ class PipelineExecutor:
         stats["packed_rows"] += n
         stats["rows_capacity"] += bs
 
-    def step_run(self, works: List[Dict[str, Any]]) -> None:
-        """Advance each work by exactly ONE denoise step (its own step
-        index -- cohort members may sit at different timesteps), and wait
-        for the cohort's device work so the step batcher's calibrated
-        per-step service time is honest.
-
-        Cohort members whose next step shares a signature
+    def step_plan(self, works: List[Dict[str, Any]]) -> List[List[int]]:
+        """The dispatches of one round, as lists of indices into ``works``:
+        cohort members whose next step shares a signature
         (`step_signature`: same phase / buffers / shallow flag / scheduler
-        history) advance in ONE padded evaluation, each member's real row
-        on its own batch row, bit-identical to its solo step.  Groups form
-        in cohort (EDF) order, at most ``batch_size`` rows each;
-        singleton groups, unsupported configs (`step_signature` -> None)
-        and ambiguous carry layouts run the solo per-slot dispatch.
-        `step_pack_stats` tallies this call's dispatches / real rows /
-        row capacity for the server's pack-efficiency counters."""
-        self.step_pack_stats = {"dispatches": 0, "packed_rows": 0,
-                                "rows_capacity": 0}
+        history) form one group, in cohort (EDF) order, at most
+        ``batch_size`` rows each; works with no signature (unsupported
+        configs) come first, one a dispatch.  Over n ranks rank 0 plans
+        and every rank runs the plan (serve/ranks.py)."""
         bs = self.batch_size
-        groups: List[List[Dict[str, Any]]] = []
-        solos: List[Dict[str, Any]] = []
-        open_group: Dict[Any, List[Dict[str, Any]]] = {}
-        for w in works:
+        groups: List[List[int]] = []
+        solos: List[List[int]] = []
+        open_group: Dict[Any, List[int]] = {}
+        for i, w in enumerate(works):
             sig = self.step_signature(w)
             if sig is None:
-                solos.append(w)
+                solos.append([i])
                 continue
             g = open_group.get(sig)
             if g is None or len(g) >= bs:
                 g = []
                 open_group[sig] = g
                 groups.append(g)
-            g.append(w)
+            g.append(i)
+        return solos + groups
+
+    def step_run(self, works: List[Dict[str, Any]],
+                 plan: Optional[List[List[int]]] = None) -> None:
+        """Advance each work by exactly ONE denoise step (its own step
+        index -- cohort members may sit at different timesteps), and wait
+        for the cohort's device work so the step batcher's calibrated
+        per-step service time is honest.
+
+        Each group of ``plan`` (default `step_plan`) advances in ONE
+        padded evaluation, each member's real row on its own batch row,
+        bit-identical to its solo step; a group of one and ambiguous
+        carry layouts run the solo per-slot dispatch.  `step_pack_stats`
+        tallies this call's dispatches / real rows / row capacity for the
+        server's pack-efficiency counters."""
+        self.step_pack_stats = {"dispatches": 0, "packed_rows": 0,
+                                "rows_capacity": 0}
+        if plan is None:
+            plan = self.step_plan(works)
         with self._on_card():
-            for w in solos:
-                self._step_solo_one(w)
-            for members in groups:
+            for group in plan:
+                members = [works[i] for i in group]
                 if len(members) == 1:
                     self._step_solo_one(members[0])
                 else:

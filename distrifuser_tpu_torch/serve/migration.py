@@ -34,6 +34,11 @@ are CPU tensors.  A 0-dim tensor (DPM++ 2M's ``lambda_prev``) keeps its
 shape ``[]``; a numpy leaf goes through ``np.ascontiguousarray`` as in the
 JAX package, which writes a 0-dim array as shape ``[1]``.
 
+Over n ranks (serve/ranks.py) one envelope holds every rank's leaves,
+rank 0's first, and its header's ``rank_leaves`` counts each rank's; the
+`ExecKey`'s ``mesh_plan`` makes an envelope of another layout fail
+`check_key_compatible`, typed, before any executor sees it.
+
 Every validation failure -- truncation, bad magic, version skew,
 checksum mismatch, malformed header, leaf-descriptor drift, ExecKey or
 identity incompatibility -- raises `MigrationRejectedError` (typed,

@@ -56,7 +56,10 @@ Several replicas may share one card, each with its own scheduler thread;
 what a build on one thread must not do to another thread's dispatch is the
 executor layer's business (serve/executors.py `card_build_lock`), not this
 module's.  ``server.aot_store`` is None until the AOT store is ported, so
-a warm-up's deserialize seconds are 0.
+a warm-up's deserialize seconds are 0.  A replica spans one rank:
+`refuse_ranked_replica` refuses a ``mesh_plan`` or an executor over more
+(ROADMAP item 16, step 16h); a pipeline over n ranks is served by one
+`InferenceServer` (serve/ranks.py).
 """
 
 from __future__ import annotations
@@ -131,6 +134,32 @@ class _FaultGuardedExecutor:
         return self._inner.step_run(works)
 
 
+def _mesh_size(mesh_plan: str) -> int:
+    """Ranks of a `DistriConfig.mesh_plan` tag ("dp1.cfg2.sp2" -> 4)."""
+    size = 1
+    for part in mesh_plan.split("."):
+        digits = "".join(ch for ch in part if ch.isdigit())
+        size *= int(digits) if digits else 1
+    return size
+
+
+def refuse_ranked_replica(mesh_plan: str = "dp1.cfg1.sp1", world_size: int = 1) -> None:
+    """A replica is one server on one rank: a fleet whose replicas each
+    span n ranks needs 2·n processes and a design of its own (a control
+    channel a replica, failover that stops a whole world), which comes
+    with ROADMAP item 16, step 16h.  Raise ``ValueError`` naming it for a
+    ``mesh_plan`` of more than one rank or an executor over more than one
+    (`PipelineExecutor.world_size`, `serve.ranks.RankedExecutor`)."""
+    ranks = max(_mesh_size(mesh_plan), int(world_size))
+    if ranks > 1:
+        raise ValueError(
+            f"a fleet replica spans one rank; this one would span {ranks} "
+            f"({mesh_plan if _mesh_size(mesh_plan) > 1 else 'its executor'}).  "
+            "Replicas that span ranks come with ROADMAP item 16, step 16h "
+            "(a fleet of replicas over n ranks); serve over n ranks with "
+            "serve.ranks.serve_over_ranks and one InferenceServer instead")
+
+
 class Replica:
     """Handle for one fleet replica; see the module docstring.
 
@@ -161,6 +190,7 @@ class Replica:
     ):
         if not name:
             raise ValueError("replica name must be non-empty")
+        refuse_ranked_replica(mesh_plan=mesh_plan)
         if capacity_weight <= 0:
             raise ValueError(
                 f"capacity_weight must be > 0, got {capacity_weight}"
@@ -421,6 +451,7 @@ class Replica:
 
     def _build_executor(self, key):
         ex = self.executor_factory(key)
+        refuse_ranked_replica(world_size=getattr(ex, "world_size", 1))
         if self.fault_plan is not None:
             return _FaultGuardedExecutor(ex, self)
         return ex

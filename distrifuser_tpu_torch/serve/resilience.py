@@ -1,6 +1,7 @@
 """Retry/backoff, circuit breaking, watchdog, and the degradation ladder.
 
-The serve scheduler (serve/server.py) is one thread driving one card; a
+The serve scheduler (serve/server.py) is one thread driving one pipeline
+(on one card, or over n ranks from rank 0: serve/ranks.py); a
 failed compile, a transient execute error, a hung device, or an OOM must
 cost bounded time and never kill that thread.  This module holds the
 policy pieces, all clock-injectable so the math is testable without
@@ -255,6 +256,16 @@ class Watchdog:
     call's device work, and at most ONE abandoned worker exists at a
     time.  One worker is spawned per call: the abandoned thread cannot be
     reused, which rules out a single-worker pool.
+
+    Over n ranks (serve/ranks.py) a timeout is fatal to the server, which
+    differs from the JAX package: the abandoned call may sit inside a
+    collective the other ranks entered (or wait for a rank that hangs in
+    one, or that left the operation between two collectives, as a rank
+    does on an OOM of its own), and no rank can abandon it, so the
+    server stops for good -- ``health()`` reports ``"fatal"`` with the
+    reason, the followers are told to stop, and every later command
+    raises `ServerClosedError` (`InferenceServer._ranks_fatal`).  The JAX
+    package's single controller abandons its program and keeps serving.
 
     Single-consumer by design (the scheduler thread); ``timeouts`` is
     observability."""

@@ -1,6 +1,7 @@
 """The long-lived inference server: admission -> micro-batch -> execute.
 
-`InferenceServer` ties the serve pieces together around ONE card:
+`InferenceServer` ties the serve pieces together around one pipeline,
+which spans one card or, through serve/ranks.py, n ranks:
 
 * `submit()` (any thread) runs admission control and returns a
   `concurrent.futures.Future` resolving to a `ServeResult`;
@@ -12,8 +13,8 @@
   execute and end-to-end latency) lands in streaming histograms
   (utils/metrics.py) exported as one JSON artifact.
 
-One scheduler thread is deliberate: the service owns one card, and the
-card runs one program at a time -- extra dispatch threads would only
+One scheduler thread is deliberate: the service owns one pipeline, and
+its card runs one program at a time -- extra dispatch threads would only
 interleave builds with execution.  Concurrency lives in the *queue*
 (callers block on futures, not on the card) and in the batcher that turns
 queue depth into batch width.
@@ -69,9 +70,15 @@ Over either discipline, as in the JAX package (steps 16d and 16e):
 * a server is one replica of a fleet (serve/replica.py, serve/fleet.py,
   serve/autoscale.py) through ``registry`` / ``replica_name``.
 
-Two settings of the JAX server come with later steps, and this server
-refuses them until then with a ``ValueError`` naming the step: staging or
-step batching over more than one rank (16f) and the AOT store (16g).
+Over n ranks (step 16f, serve/ranks.py ``serve_over_ranks``) the server
+runs on rank 0 and its executors are `RankedExecutor` s: every build,
+dispatch, stage and step operation runs as a command on every rank, the
+followers' failures come back typed, and a watchdog timeout is fatal to
+the server (``health()["ranks"]["fatal"]``): a collective that hangs on one
+rank cannot be abandoned on the others.  Everything else -- whole-batch,
+staging, step batching, the controller, tenancy, the gateway -- runs as
+on one card.  The AOT store (16g) comes with a later step, and this
+server refuses it until then with a ``ValueError`` naming the step.
 """
 
 from __future__ import annotations
@@ -125,7 +132,6 @@ from .resilience import (
 )
 
 ROADMAP_STEP = {
-    "ranks": "16f (serving over n ranks)",
     "aot_cache": "16g (the AOT store)",
 }
 
@@ -136,33 +142,19 @@ def _not_ported(what: str, step: str) -> ValueError:
         f"ROADMAP item 16, step {ROADMAP_STEP[step]}")
 
 
-def _mesh_size(mesh_plan: str) -> int:
-    """Ranks of a `DistriConfig.mesh_plan` tag ("dp1.cfg2.sp2" -> 4)."""
-    size = 1
-    for part in mesh_plan.split("."):
-        digits = "".join(ch for ch in part if ch.isdigit())
-        size *= int(digits) if digits else 1
-    return size
-
-
-def refuse_unported(config: ServeConfig, mesh_plan: str = "dp1.cfg1.sp1") -> None:
+def refuse_unported(config: ServeConfig) -> None:
     """Raise ``ValueError`` for every setting whose subsystem the port's
-    serve plane does not carry yet (ROADMAP item 16, steps 16f and 16g).
-    `ServeConfig` itself accepts them, as the JAX package's does; the
-    server refuses to run with them on."""
-    if _mesh_size(mesh_plan) > 1:
-        if config.pipeline_stages:
-            raise _not_ported(
-                f"ServeConfig(pipeline_stages=True) over {mesh_plan}", "ranks")
-        if config.step_batching.enabled:
-            raise _not_ported(
-                f"step_batching.enabled over {mesh_plan}", "ranks")
+    serve plane does not carry yet (ROADMAP item 16, step 16g).
+    `ServeConfig` itself accepts it, as the JAX package's does; the server
+    refuses to run with it on.  Every discipline serves over any
+    ``mesh_plan`` since step 16f."""
     if config.aot_cache.dir:
         raise _not_ported("the AOT executable store (aot_cache.dir)", "aot_cache")
 
 
 class InferenceServer:
-    """Async request scheduler with continuous micro-batching over one card.
+    """Async request scheduler with continuous micro-batching over one
+    pipeline.
 
     ``executor_factory(key: ExecKey)`` builds (and prepares) the executor
     for a bucket; ``model_id``/``scheduler``/``mesh_plan`` identify the
@@ -170,7 +162,11 @@ class InferenceServer:
     wrapping real pipelines so a layout change invalidates the cache keys.
     ``fault_plan`` (chaos/testing) injects failures at sites ``"build"``
     (around the factory) and ``"execute"`` (inside the watchdog-bounded
-    dispatch).
+    dispatch).  ``ranks`` is rank 0's `serve.ranks.RankLeader` when the
+    executors span n ranks (`serve.ranks.serve_over_ranks` builds the
+    server so): evicted executors and dropped staged works are released
+    on the followers, a watchdog timeout is fatal, and ``stop()`` stops
+    the followers.
     """
 
     def __init__(
@@ -185,9 +181,13 @@ class InferenceServer:
         fault_plan: Optional[FaultPlan] = None,
         registry: Optional[MetricsRegistry] = None,
         replica_name: Optional[str] = None,
+        ranks: Any = None,
     ):
         self.config = config or ServeConfig()
-        refuse_unported(self.config, mesh_plan)
+        refuse_unported(self.config)
+        self.ranks = ranks
+        # why the server over n ranks stopped for good (None: it did not)
+        self._fatal: Optional[str] = None
         self.model_id = model_id
         self.scheduler = scheduler
         self.mesh_plan = mesh_plan
@@ -225,7 +225,8 @@ class InferenceServer:
             return ex
 
         self.cache = ExecutorCache(
-            _factory, capacity=self.config.cache_capacity
+            _factory, capacity=self.config.cache_capacity,
+            on_evict=self._on_evict if ranks is not None else None,
         )
         obs = self.config.observability
         # Request-scoped tracing (utils/trace.py): None when off -- every
@@ -518,8 +519,38 @@ class InferenceServer:
         if self.metrics_endpoint is not None:
             self.metrics_endpoint.stop()
             self.metrics_endpoint = None
+        if self.ranks is not None:
+            # the scheduler and the stage workers have posted their last
+            # command: the followers' loops end
+            self.ranks.close()
         with self._lifecycle_lock:
             self._started = False
+
+    def _on_evict(self, key: ExecKey, executor) -> None:
+        """Cache release hook over n ranks: the followers drop their
+        executor of an evicted (or invalidated) key."""
+        release = getattr(executor, "evict_on_followers", None)
+        if release is not None:
+            release()
+
+    def _ranks_fatal(self, exc: Exception) -> None:
+        """A watchdog timeout over n ranks: the timed-out call may sit
+        inside a collective that the other ranks entered, and no rank can
+        abandon it, so the server stops for good -- ``health()`` reports
+        the reason, the followers are told to stop, and every later
+        command raises `ServerClosedError` (the JAX package's server,
+        whose abandoned program holds no peer, keeps serving)."""
+        if self.ranks is None:
+            return
+        with self._lifecycle_lock:
+            first = self._fatal is None
+            if first:
+                self._fatal = (f"watchdog timeout over {self.ranks.world} ranks: "
+                               f"{exc}")
+        if first:
+            self.counters.inc("ranks_fatal")
+            self.ranks.close(self._fatal)
+            self.request_stop()
 
     def __enter__(self) -> "InferenceServer":
         return self.start()
@@ -1301,6 +1332,7 @@ class InferenceServer:
                     break
                 if isinstance(exc, WatchdogTimeoutError):
                     self.counters.inc("watchdog_timeouts")
+                    self._ranks_fatal(exc)
                     texc = exc
                 elif isinstance(exc, ServeError):
                     texc = exc
@@ -1757,6 +1789,7 @@ class InferenceServer:
         elif isinstance(exc, WatchdogTimeoutError):
             self.counters.inc("watchdog_timeouts")
             self.counters.inc("failed_execute", n)
+            self._ranks_fatal(exc)
         elif isinstance(exc, BuildFailedError):
             self.counters.inc("failed_build", n)
         elif isinstance(exc, FatalError):
@@ -1771,6 +1804,9 @@ class InferenceServer:
         # the inflight decrement both belong to "the batch left the
         # pipeline"
         self._inflight_c.inc("requests", -len(sb.requests))
+        drop = getattr(sb.executor, "drop_work_on_followers", None)
+        if drop is not None and sb.work is not None:
+            drop(sb.work)
         self.cache.unpin(sb.executor)
 
     def _shed(self, ekey: ExecKey, batch: List[Request]) -> None:
@@ -1816,8 +1852,9 @@ class InferenceServer:
 
         try:
             outputs = self.resilience.watchdog.run(call)
-        except WatchdogTimeoutError:
+        except WatchdogTimeoutError as exc:
             self.counters.inc("watchdog_timeouts")
+            self._ranks_fatal(exc)
             raise
         except ServeError:
             raise
@@ -2186,8 +2223,9 @@ class InferenceServer:
         c = self.counters.snapshot()
         degraded = bool(res["open_circuits"] or res["degradations"])
         t = self._thread  # one read: a concurrent stop may None the attr
-        return {
-            "status": "degraded" if degraded else "ok",
+        status = "fatal" if self._fatal else "degraded" if degraded else "ok"
+        snap = {
+            "status": status,
             "queue_depth": len(self.queue),
             "scheduler_alive": bool(t is not None and t.is_alive()),
             "requests": {
@@ -2199,6 +2237,12 @@ class InferenceServer:
             },
             **res,
         }
+        if self.ranks is not None:
+            # over n ranks: the world, why the server stopped for good
+            # (None while it serves) and the commands posted so far
+            snap["ranks"] = {"world": self.ranks.world, "fatal": self._fatal,
+                             "commands": self.ranks.commands}
+        return snap
 
     def metrics_snapshot(self) -> Dict[str, Any]:
         """JSON-friendly service metrics — the serve artifact schema

@@ -589,3 +589,120 @@ class StagedFakeExecutorFactory(FakeExecutorFactory):
             fail_stage=self.fail_stage, fail_times=self.fail_times,
             fail_exc=self.fail_exc,
         )
+
+
+class CollectiveFakeExecutor(StagedFakeExecutor, StepFakeExecutor):
+    """The staged and step fakes over n ranks (serve/ranks.py): every
+    operation first all-reduces the sequence number and op code of the
+    command it runs in (`serve.ranks.current_command`) over a gloo group
+    of the world and fails unless every rank runs the same command.  Every
+    operation that issues collectives in the real executor (a whole-batch
+    call, the denoise and decode stages, the step contract) checks the
+    ``data`` group; an encode checks a group of its own (``encode``).  So
+    a command one rank missed, two commands with collectives running at
+    once (ranks pairing a denoise with a decode), or an operation that ran
+    outside a command fails (or hangs, which the tests bound).  ``log``
+    (shared with the factory) records each ``(seq, op)`` run."""
+
+    def __init__(self, key: ExecKey, groups, log: List[Any], **kw):
+        super().__init__(key, **kw)
+        self.groups = groups
+        self.log = log
+
+    def _collective(self, lane: str) -> None:
+        import torch.distributed as dist
+
+        from .ranks import OPS, current_command
+
+        cmd = current_command()
+        if cmd is None:
+            raise AssertionError(
+                "a collective fake operation ran outside a command of serve/ranks.py")
+        seq, op = cmd
+        code = OPS.index(op)
+        got = torch.tensor([seq, code, -seq, -code], dtype=torch.int64)
+        dist.all_reduce(got, op=dist.ReduceOp.MAX, group=self.groups[lane])
+        if got.tolist() != [seq, code, -seq, -code]:
+            raise AssertionError(
+                f"rank {dist.get_rank()} ran command {seq} ({op}) on the {lane} group "
+                f"while a peer ran another: max/min {got.tolist()}")
+        self.log.append((seq, op))
+
+    def __call__(self, prompts, negative_prompts, guidance_scale, seeds):
+        self._collective("data")
+        return super().__call__(prompts, negative_prompts, guidance_scale, seeds)
+
+    def encode_stage(self, prompts, negative_prompts, seeds):
+        self._collective("encode")
+        return super().encode_stage(prompts, negative_prompts, seeds)
+
+    def denoise_stage(self, work, guidance_scale: float):
+        self._collective("data")
+        return super().denoise_stage(work, guidance_scale)
+
+    def decode_stage(self, work):
+        self._collective("data")
+        return super().decode_stage(work)
+
+    def step_begin(self, prompt, negative_prompt, seed, guidance_scale):
+        self._collective("data")
+        return super().step_begin(prompt, negative_prompt, seed, guidance_scale)
+
+    def step_run(self, works):
+        self._collective("data")
+        return super().step_run(works)
+
+    def step_finish(self, work):
+        self._collective("data")
+        return super().step_finish(work)
+
+    def step_abort(self, work):
+        self._collective("data")
+        return super().step_abort(work)
+
+    def step_park(self, work):
+        self._collective("data")
+        return super().step_park(work)
+
+    def step_resume(self, work):
+        self._collective("data")
+        return super().step_resume(work)
+
+    def step_export(self, work):
+        self._collective("data")
+        return super().step_export(work)
+
+    def step_import(self, meta, leaves, prompt, negative_prompt, seed, guidance_scale):
+        self._collective("data")
+        return super().step_import(meta, leaves, prompt, negative_prompt, seed,
+                                   guidance_scale)
+
+
+def fake_groups():
+    """The collective fakes' gloo groups over the world, ``data`` and
+    ``encode``: call it on every rank in the same place of the order of
+    groups."""
+    import torch.distributed as dist
+
+    world = list(range(dist.get_world_size()))
+    return {lane: dist.new_group(world, backend="gloo")
+            for lane in ("data", "encode")}
+
+
+class CollectiveFakeExecutorFactory(StagedFakeExecutorFactory):
+    """Builds `CollectiveFakeExecutor` s over ``groups`` (`fake_groups`: the
+    fakes' two gloo groups over the world).  ``log`` holds every ``(seq,
+    op)`` its executors ran on this rank."""
+
+    def __init__(self, groups, **kw):
+        super().__init__(**kw)
+        self.groups = groups
+        self.log: List[Any] = []
+
+    def _new_executor(self, key: ExecKey) -> CollectiveFakeExecutor:
+        return CollectiveFakeExecutor(
+            key, self.groups, self.log, batch_size=self.batch_size,
+            step_time_s=self.step_time_s, encode_s=self.encode_s,
+            denoise_s=self.denoise_s, decode_s=self.decode_s, tracker=self.tracker,
+            fail_stage=self.fail_stage, fail_times=self.fail_times,
+            fail_exc=self.fail_exc)

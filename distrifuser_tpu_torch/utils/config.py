@@ -20,7 +20,8 @@ original DistriFusion:
   the ranks at the same place of every image group, which gather the
   groups' images.  Rank r has ``dp_idx = r // group_size``, ``batch_idx =
   (r % group_size) // n`` and ``split_idx = r % n``, the JAX mesh's
-  ``reshape(dp, cfg, n)`` order.
+  ``reshape(dp, cfg, n)`` order.  The serve plane's commands over n ranks
+  ride one more gloo group, ``control_group()`` (serve/ranks.py).
 
 Under ``attn_impl="usp"`` each patch group of n ranks is factored as
 ``ulysses_degree`` x r (the JAX ``usp_mesh``): the rank at patch index
@@ -117,6 +118,28 @@ def _process_groups(world: int, n: int, rank: int, dp: int = 1):
         image, place = rank // size, rank % size
         _GROUPS[key] = (batch[rank // n], split[image * n + place % n] if n < size else None,
                         dp_groups[place])
+    return _GROUPS[key]
+
+
+def control_group():
+    """The serve plane's control channel over the world (serve/ranks.py):
+    one gloo group, whatever backend the data groups use, that carries
+    nothing but rank 0's commands to the other ranks and their statuses
+    back.  Created once, on every rank, before any executor is built (so
+    in the same place of every rank's order of groups); its timeout is a
+    week, because a follower waits on it for the next command while the
+    server idles.  None at world 1."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    world = dist.get_world_size()
+    if world == 1:
+        return None
+    key = ("control", dist.group.WORLD, world)
+    if key not in _GROUPS:
+        import datetime
+
+        _GROUPS[key] = dist.new_group(list(range(world)), backend="gloo",
+                                      timeout=datetime.timedelta(days=7))
     return _GROUPS[key]
 
 

@@ -11,7 +11,9 @@ runs many cases in one spawn, because a spawn of four ranks costs seconds.
 """
 
 import os
+import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -642,4 +644,449 @@ def pipefusion_worker(rank, world, in_path, out_path):
             out["refusal", i] = None
         except (ValueError, NotImplementedError) as e:
             out["refusal", i] = (type(e).__name__, str(e))
+    torch.save(out, f"{out_path}.rank{rank}")
+
+
+# -- serving over n ranks (serve/ranks.py) -------------------------------------
+
+
+class _deadline:
+    """A case's own time limit on one rank: past ``seconds`` the rank says
+    which case hung and exits, so a deadlock fails the spawn instead of
+    hanging the test run."""
+
+    def __init__(self, seconds, what):
+        import threading
+
+        self.timer = threading.Timer(seconds, self._expire, args=(what, seconds))
+        self.timer.daemon = True
+
+    @staticmethod
+    def _expire(what, seconds):
+        import sys
+
+        print(f"{what} did not finish within {seconds} s", file=sys.stderr, flush=True)
+        os._exit(3)
+
+    def __enter__(self):
+        self.timer.start()
+
+    def __exit__(self, *exc):
+        self.timer.cancel()
+
+
+def _fake_config(**kw):
+    from distrifuser_tpu_torch.serve import ServeConfig
+
+    kw.setdefault("buckets", ((64, 64),))
+    kw.setdefault("warmup_buckets", ((64, 64),))
+    kw.setdefault("max_batch_size", 2)
+    kw.setdefault("batch_window_s", 0.05)
+    kw.setdefault("default_steps", 4)
+    return ServeConfig(**kw)
+
+
+def _fake_serve(groups, world, config, requests, *, fault_plan=None, factory_kw=None,
+                during=None):
+    """One fake-executor server over the ranks: rank 0 submits ``requests``
+    ((prompt, seed, submit keywords)) and returns its results' records and
+    health; every rank returns its log and built keys.  ``during(server)``
+    runs on rank 0 after the submissions and returns more (prompt, seed,
+    future) triples."""
+    from distrifuser_tpu_torch.serve import serve_over_ranks
+    from distrifuser_tpu_torch.serve.testing import CollectiveFakeExecutorFactory, fake_image
+
+    fac = CollectiveFakeExecutorFactory(groups, **(factory_kw or {}))
+    server = serve_over_ranks(fac, config, fault_plan=fault_plan,
+                              mesh_plan=f"dp1.cfg1.sp{world}")
+    out = {}
+    if server is not None:
+        with server:
+            subs = [(prompt, seed, server.submit(prompt, height=64, width=64, seed=seed,
+                                                 **kw))
+                    for prompt, seed, kw in requests]
+            if during is not None:
+                subs += during(server)
+            records = []
+            for prompt, seed, fut in subs:
+                try:
+                    r = fut.result(timeout=60)
+                except Exception as exc:  # noqa: BLE001 -- the record says which
+                    records.append({"error": type(exc).__name__, "text": str(exc)})
+                    continue
+                key = next(k for k in fac.built if k.short() == r.exec_key)
+                records.append({"ok": bool(np.array_equal(r.output,
+                                                          fake_image(prompt, seed, key))),
+                                "batch_size": r.batch_size, "exec_key": r.exec_key,
+                                "retries": r.retries, "preempts": r.preempts,
+                                "degradations": list(r.degradations)})
+            out["health"] = server.health()
+            out["metrics"] = {k: v for k, v in server.metrics_snapshot().items()
+                              if k in ("requests", "staging", "step_batching")}
+        out["records"] = records
+        out["health_after"] = server.health()
+        out["peak"] = fac.tracker.peak
+    out["log"] = sorted(fac.log)
+    out["built"] = [k.short() for k in fac.built]
+    return out
+
+
+def _evict_drop_case(rank, world, groups):
+    """A cache of one executor serving two buckets in turn (each eviction
+    a one-way command: every follower drops its executor), then a staged
+    batch whose denoise fails on rank 0 after the followers ran it (the
+    followers drop its work when it leaves rank 0's pipeline), then one
+    whose encode fails on rank 0 after the followers ran it (they drop the
+    work that rank 0 never got)."""
+    from distrifuser_tpu_torch.serve import RankFollower, serve_over_ranks
+    from distrifuser_tpu_torch.serve.testing import CollectiveFakeExecutorFactory, fake_image
+    from distrifuser_tpu_torch.utils.config import control_group
+
+    staged = _fake_config(pipeline_stages=True, max_batch_size=1)
+    cases = ((_fake_config(buckets=((64, 64), (128, 128)), warmup_buckets=(),
+                           cache_capacity=1), [64, 128, 64], {}),
+             (staged, [64, 64], {"fail_stage": "denoise", "fail_times": 1}),
+             (staged, [64, 64], {"fail_stage": "encode", "fail_times": 1}))
+    out = {"evicted": 0, "dropped": 0, "records": []}
+    for config, hw, fail in cases:
+        fac = CollectiveFakeExecutorFactory(groups, **(fail if rank == 0 else {}))
+        if rank:
+            follower = RankFollower(control_group(), fac)
+            follower.run()
+            out["evicted"] += follower.evicted
+            out["dropped"] += follower.dropped
+            continue
+        server = serve_over_ranks(fac, config, mesh_plan=f"dp1.cfg1.sp{world}")
+        with server:
+            for i, size in enumerate(hw):
+                fut = server.submit(f"e{i}", height=size, width=size, seed=i)
+                try:
+                    r = fut.result(timeout=60)
+                    key = next(k for k in fac.built if k.short() == r.exec_key)
+                    out["records"].append(
+                        np.array_equal(r.output, fake_image(f"e{i}", i, key)))
+                except Exception as exc:  # noqa: BLE001 -- the record says which
+                    out["records"].append(type(exc).__name__)
+        out.setdefault("evictions", []).append(server.cache.stats()["evictions"])
+    return out
+
+
+def _serve_fake_cases(rank, world, groups):
+    from distrifuser_tpu_torch.serve import (FaultPlan, FaultRule, ResilienceConfig,
+                                             StepBatchConfig)
+
+    out = {}
+    reqs = [(f"p{i}", i, {}) for i in range(3)]
+    with _deadline(60, f"whole-batch at world {world}"):
+        out["whole"] = _fake_serve(groups, world, _fake_config(), reqs)
+    with _deadline(60, f"staged at world {world}"):
+        out["staged"] = _fake_serve(
+            groups, world, _fake_config(pipeline_stages=True, max_inflight_batches=2,
+                                        max_batch_size=1),
+            [(f"s{i}", 10 + i, {}) for i in range(5)],
+            factory_kw={"encode_s": 0.01, "denoise_s": 0.04, "decode_s": 0.04})
+
+    def join_late(server):
+        # the second request joins the first's cohort a few rounds in
+        while server.stepbatch.rounds < 3:
+            time.sleep(0.002)
+        return [("late", 9, server.submit("late", height=64, width=64, seed=9))]
+
+    step_cfg = _fake_config(default_steps=8, step_batching=StepBatchConfig(
+        enabled=True, slots=2, preview_interval=0))
+    with _deadline(60, f"step rounds with a join at world {world}"):
+        res = _fake_serve(groups, world, step_cfg, [("early", 8, {})],
+                          factory_kw={"step_time_s": 0.005}, during=join_late)
+        out["step_join"] = res
+    # a preemption: one slot, a slack request running, a tight one arriving
+    # whose time to live fits its own steps at the calibrated per-step
+    # estimate but not those plus half the slack one's rest (the window in
+    # the middle, whatever the ranks' step time on a loaded machine)
+    pre_cfg = _fake_config(default_steps=16, step_batching=StepBatchConfig(
+        enabled=True, slots=1, preview_interval=0))
+
+    def tight_arrives(server):
+        sb = server.stepbatch
+        while sb.rounds < 3:
+            time.sleep(0.002)
+        (state,) = sb.occupied()
+        ttl = sb.per_step_s() * (16 + state.remaining / 2)
+        return [("tight", 2, server.submit("tight", height=64, width=64, seed=2,
+                                           ttl_s=ttl))]
+
+    with _deadline(60, f"step rounds with a preemption at world {world}"):
+        out["step_preempt"] = _fake_serve(groups, world, pre_cfg, [("slack", 1, {})],
+                                          factory_kw={"step_time_s": 0.02},
+                                          during=tight_arrives)
+    if world != 2:
+        return out
+    with _deadline(60, f"evictions and dropped works at world {world}"):
+        out["evict_drop"] = _evict_drop_case(rank, world, groups)
+    # a failure on rank 1 only: retryable (one retry), then OOM-like (the
+    # ladder's weight_quant_on rung rebuilds the int8 key on every rank)
+    res_cfg = ResilienceConfig(allow_batch_split=False, allow_stepwise_fallback=False,
+                               allow_weight_quant_on=True, backoff_base_s=0.001,
+                               backoff_max_s=0.01)
+    for name, kind in (("follower_execute_error", "execute_error"),
+                       ("follower_oom", "oom")):
+        plan = (FaultPlan([FaultRule(site="execute", kind=kind, at_calls=(0,))])
+                if rank == 1 else None)
+        with _deadline(60, f"{name} at world {world}"):
+            out[name] = _fake_serve(groups, world, _fake_config(resilience=res_cfg),
+                                    [("f", 5, {})], fault_plan=plan)
+    # a hang on rank 1 past rank 0's watchdog: fatal to the server
+    plan = (FaultPlan([FaultRule(site="execute", kind="hang", at_calls=(0,), hang_s=1.0)])
+            if rank == 1 else None)
+    with _deadline(60, f"follower hang at world {world}"):
+        out["follower_hang"] = _fake_serve(
+            groups, world, _fake_config(resilience=ResilienceConfig(
+                watchdog_timeout_s=0.3, max_retries=0)), [("h", 6, {})], fault_plan=plan)
+    return out
+
+
+def _seeded_latents(seeds, shape=(1, 16, 16, 4)):
+    """Every request's initial latent from numpy seeded by its seed: what
+    the tests hand the port's executors and the JAX package's alike."""
+    return torch.from_numpy(np.concatenate(
+        [np.random.RandomState(int(s)).randn(*shape).astype(np.float32) for s in seeds]))
+
+
+def _ranked_factory(build, pipes):
+    """`pipeline_executor_factory` over ``build(key)`` whose executors draw
+    `_seeded_latents`; ``pipes`` keeps each key's pipeline."""
+    from distrifuser_tpu_torch.serve import pipeline_executor_factory
+
+    inner = pipeline_executor_factory(lambda key: pipes.setdefault(key, build(key)))
+
+    def factory(key):
+        ex = inner(key)
+        ex._draw_latents = _seeded_latents
+        return ex
+
+    return factory
+
+
+def _tiny_sdxl_pipeline(inp, **fields):
+    from distrifuser_tpu_torch import DistriConfig, DistriSDXLPipeline
+    from distrifuser_tpu_torch.models import clip, unet, vae
+
+    tcfgs = [clip.tiny_clip_config(hidden=16),
+             clip.CLIPTextConfig(vocab_size=1000, hidden_size=16, num_hidden_layers=2,
+                                 num_attention_heads=4, intermediate_size=32,
+                                 projection_dim=32)]
+    cfg = DistriConfig(device="cpu", height=128, width=128, warmup_steps=1, batch_size=2,
+                       **fields)
+    return DistriSDXLPipeline.from_params(
+        cfg, unet.tiny_config(cross_attention_dim=32, sdxl=True), inp["unet"],
+        vae.tiny_vae_config(), inp["vae"], tcfgs, inp["text"])
+
+
+def _serve_sdxl_cases(rank, world, inp):
+    """The tiny SDXL pipeline at sp ``world`` (CFG folded, warmup 1, 3 DDIM
+    steps) behind a server over the ranks: whole-batch, staged, and step
+    batching whose server stops at step 1 and exports its carry, imported
+    by a second server; then every rank's solo calls."""
+    from distrifuser_tpu_torch.serve import (CarryExportedError, InferenceServer,
+                                             ServeConfig, StepBatchConfig,
+                                             serve_over_ranks)
+    from distrifuser_tpu_torch.serve.testing import StepFakeExecutorFactory
+
+    steps, requests = inp["steps"], inp["requests"]
+    pipes = {}
+    factory = _ranked_factory(lambda key: _tiny_sdxl_pipeline(inp, split_batch=False),
+                              pipes)
+    mesh = f"dp1.cfg1.sp{world}"
+    base = dict(buckets=((128, 128),), max_batch_size=2, batch_window_s=0.3,
+                default_steps=steps, warmup_buckets=((128, 128),))
+    out = {}
+    for name, fields in (("sdxl_whole", {}),
+                         ("sdxl_staged", {"pipeline_stages": True,
+                                          "max_inflight_batches": 2})):
+        with _deadline(120, f"tiny SDXL {name} at world {world}"):
+            server = serve_over_ranks(factory, ServeConfig(**base, **fields), mesh_plan=mesh)
+            if server is not None:
+                with server:
+                    futs = [server.submit(p, height=128, width=128, seed=s)
+                            for p, s in requests]
+                    res = [f.result(timeout=120) for f in futs]
+                out[name] = {"images": [r.output for r in res],
+                             "batch_sizes": [r.batch_size for r in res],
+                             "staging": server.metrics_snapshot()["staging"]}
+    # step batching: the first server stops itself at step 1 (a preview
+    # callback on its scheduler thread), exporting the carry from every rank
+    step_cfg = ServeConfig(**dict(base, warmup_buckets=()), step_batching=StepBatchConfig(
+        enabled=True, slots=2, preview_interval=1))
+    prompt, seed = requests[0]
+    with _deadline(120, f"tiny SDXL carry export at world {world}"):
+        server = serve_over_ranks(factory, step_cfg, mesh_plan=mesh)
+        if server is not None:
+            def stop_at_step_one(step, total, preview):
+                if step == 1:
+                    server.request_stop()
+
+            with server:
+                fut = server.submit(prompt, height=128, width=128, seed=seed,
+                                    on_progress=stop_at_step_one)
+                try:
+                    fut.result(timeout=120)
+                    snapshot = None
+                except CarryExportedError as exc:
+                    snapshot = exc.snapshot
+                    out["exported_at"] = exc.steps_done
+    with _deadline(120, f"tiny SDXL carry import at world {world}"):
+        server = serve_over_ranks(factory, step_cfg, mesh_plan=mesh)
+        if server is not None:
+            from distrifuser_tpu_torch.serve import decode_snapshot
+
+            out["snapshot_meta"] = {k: v for k, v in decode_snapshot(snapshot).meta.items()
+                                    if k in ("step", "rank_leaves", "exec_key")}
+            with server:
+                r = server.submit(prompt, height=128, width=128, seed=seed,
+                                  carry_snapshot=snapshot).result(timeout=120)
+            out["migrated"] = {"image": r.output, "migrations": r.migrations,
+                               "steps_salvaged": r.steps_salvaged}
+            # a server on one rank refuses the envelope of two, typed
+            one = InferenceServer(StepFakeExecutorFactory(), step_cfg)
+            with one:
+                fut = one.submit(prompt, height=128, width=128, seed=seed,
+                                 carry_snapshot=snapshot)
+                try:
+                    fut.result(timeout=60)
+                    out["one_rank"] = None
+                except Exception as exc:  # noqa: BLE001 -- the record says which
+                    out["one_rank"] = (type(exc).__name__, str(exc))
+    # the SLO controller's tiers over the ranks: each tier's key (its step
+    # cache, wire compression, partial refresh, steps) built by a function
+    # that reads the knobs, one request at 4 steps
+    from distrifuser_tpu_torch.serve import DEFAULT_TIERS, ExecKey, apply_tier
+
+    tier_pipes = {}
+    tier_factory = _ranked_factory(lambda key: _tiny_sdxl_pipeline(
+        inp, split_batch=False, step_cache_interval=key.step_cache_interval,
+        step_cache_depth=key.step_cache_depth, comm_compress=key.comm_compress,
+        refresh_fraction=key.refresh_fraction), tier_pipes)
+    base_key = ExecKey(model_id="model", scheduler="ddim", height=128, width=128,
+                       steps=4, cfg=True, mesh_plan=mesh)
+    tiers = {}
+    for tier in DEFAULT_TIERS:
+        key = apply_tier(base_key, tier)
+        knobs = {f: getattr(key, f) for f in ("step_cache_interval", "step_cache_depth",
+                                              "comm_compress", "refresh_fraction")}
+        with _deadline(120, f"tiny SDXL tier {tier.name} at world {world}"):
+            server = serve_over_ranks(tier_factory, ServeConfig(
+                **dict(base, default_steps=key.steps), **knobs), mesh_plan=mesh)
+            if server is not None:
+                with server:
+                    r = server.submit(prompt, height=128, width=128,
+                                      seed=seed).result(timeout=120)
+                tiers[tier.name] = {"image": r.output, "exec_key": r.exec_key}
+        with _deadline(120, f"tiny SDXL tier {tier.name} solo call at world {world}"):
+            pipe = tier_pipes[key]
+            solo_image = pipe(prompt, latents=_seeded_latents([seed]),
+                              num_inference_steps=key.steps, output_type="np").images[0]
+            if tier.name in tiers:
+                tiers[tier.name]["solo"] = solo_image
+                if tier.name in ("full", "comm_compress", "partial_refresh"):
+                    # the wire bytes a step by phase (every phase ran)
+                    tiers[tier.name]["comm_plan"] = pipe.comm_plan(key.steps)
+    out["tiers"] = tiers
+    # the solo calls, on every rank (each is collective)
+    with _deadline(120, f"tiny SDXL solo calls at world {world}"):
+        solo = {}
+        for key, pipe in pipes.items():
+            mode = key.exec_mode
+            solo[mode] = [pipe(p, latents=_seeded_latents([s]), num_inference_steps=steps,
+                               output_type="np").images[0] for p, s in requests]
+        out["solo"] = solo
+    return out
+
+
+def serve_ranks_worker(rank, world, in_path, out_path):
+    """Serving over the ranks: the collective fakes' cases
+    (``_serve_fake_cases``), then the tiny SDXL pipeline's
+    (``_serve_sdxl_cases``).  Saves {case: record} (rank 0's records hold
+    its outputs)."""
+    from distrifuser_tpu_torch.serve.testing import fake_groups
+
+    inp = torch.load(in_path)
+    groups = fake_groups()
+    out = _serve_fake_cases(rank, world, groups)
+    out.update(_serve_sdxl_cases(rank, world, inp))
+    torch.save(out, f"{out_path}.rank{rank}")
+
+
+def _tiny_sd_stepwise(inp, world):
+    """The tiny SD pipeline (the JAX package's ``build_sd_pipeline``
+    shapes) at ``world`` ranks, CFG split x sp world/2, warmup 1, batch_size
+    2, from the input's trees."""
+    from distrifuser_tpu_torch import DistriConfig, DistriSDPipeline
+    from distrifuser_tpu_torch.models import clip, unet, vae
+
+    cfg = DistriConfig(device="cpu", height=128, width=128, warmup_steps=1, batch_size=2)
+    return DistriSDPipeline.from_params(
+        cfg, unet.tiny_config(cross_attention_dim=32), inp["unet"], vae.tiny_vae_config(),
+        inp["vae"], [clip.tiny_clip_config(hidden=32)], [inp["text"]])
+
+
+def _mixed_signature_drive(rank, world, inp):
+    """tests/test_stepbatch.py ``test_real_pipeline_mixed_signature_groups``
+    through a `RankedExecutor` on rank 0 (every other rank a `RankFollower`):
+    three requests' solo step runs, then a at step 2 (its next step stale)
+    stepped together with the fresh b and c (two dispatches, three packed
+    rows), then b and c packed twice more."""
+    from distrifuser_tpu_torch.serve import ExecKey, RankFollower, RankLeader
+    from distrifuser_tpu_torch.utils.config import control_group
+
+    steps, pipes = inp["steps"], {}
+    factory = _ranked_factory(lambda key: _tiny_sd_stepwise(inp, world), pipes)
+    group = control_group()
+    if rank:
+        RankFollower(group, factory).run()
+        return {}
+    leader = RankLeader(group, world)
+    key = ExecKey(model_id="tiny-sd", scheduler="ddim", height=128, width=128, steps=steps,
+                  cfg=True, mesh_plan="dp1.cfg2.sp2", exec_mode="step")
+    ex = leader.factory(factory)(key)
+    out = {"is_sp": pipes[key].distri_config.is_sp}
+
+    def solo_image(prompt, seed):
+        w = ex.step_begin(prompt, "", seed, 5.0)
+        for _ in range(steps):
+            ex.step_run([w])
+        return np.asarray(ex.step_finish(w))
+
+    out["refs"] = [solo_image(p, s) for p, s in inp["requests"]]
+    (pa, sa), (pb, sb), (pc, sc) = inp["requests"]
+    wa = ex.step_begin(pa, "", sa, 5.0)
+    ex.step_run([wa])
+    ex.step_run([wa])
+    wb, wc = ex.step_begin(pb, "", sb, 5.0), ex.step_begin(pc, "", sc, 5.0)
+    out["signatures"] = [ex.step_signature(w) is not None for w in (wa, wb, wc)]
+    out["sig_a_differs"] = ex.step_signature(wa) != ex.step_signature(wb)
+    out["sig_bc_equal"] = ex.step_signature(wb) == ex.step_signature(wc)
+    ex.step_run([wa, wb, wc])
+    out["stats_mixed"] = dict(ex.step_pack_stats)
+    out["bc_shared"] = wb["carry"] is wc["carry"] and wa["carry"] is not wb["carry"]
+    img_a = np.asarray(ex.step_finish(wa))
+    ex.step_run([wb, wc])
+    out["stats_2"] = dict(ex.step_pack_stats)
+    ex.step_run([wb, wc])
+    out["stats_3"] = dict(ex.step_pack_stats)
+    out["images"] = [img_a, np.asarray(ex.step_finish(wb)), np.asarray(ex.step_finish(wc))]
+    out["commands"] = leader.commands
+    leader.close()
+    return out
+
+
+def step_ranks_worker(rank, world, in_path, out_path):
+    """Serving over four ranks: the collective fakes' order cases, then the
+    mixed-signature step drive of the tiny SD pipeline
+    (``_mixed_signature_drive``).  Saves {case: record}."""
+    from distrifuser_tpu_torch.serve.testing import fake_groups
+
+    inp = torch.load(in_path)
+    groups = fake_groups()
+    out = _serve_fake_cases(rank, world, groups)
+    with _deadline(180, f"the mixed-signature step drive at world {world}"):
+        out["mixed"] = _mixed_signature_drive(rank, world, inp)
     torch.save(out, f"{out_path}.rank{rank}")

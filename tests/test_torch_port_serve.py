@@ -495,7 +495,7 @@ def test_watchdog_never_dispatches_over_an_abandoned_worker():
 
 
 # the settings of later steps of ROADMAP item 16: refused naming the step
-# until it is ported; None once it is (16b and 16c: accepted, and run)
+# until it is ported; None once it is (16b to 16f: accepted, and run)
 REFUSALS = {
     "pipeline_stages": (lambda c: {"pipeline_stages": True}, None),
     "prompt_cache": (lambda c: {"prompt_cache_capacity": 4}, None),
@@ -504,9 +504,9 @@ REFUSALS = {
     "tenants": (lambda c: {"gateway": c.GatewayConfig(tenants=(c.TenantConfig(name="a"),))},
                 None),
     "gateway": (lambda c: {"gateway": c.GatewayConfig(port=0)}, None),
-    "ranks_pipeline_stages": (lambda c: {"pipeline_stages": True}, "16f"),
+    "ranks_pipeline_stages": (lambda c: {"pipeline_stages": True}, None),
     "ranks_step_batching": (lambda c: {"step_batching": c.StepBatchConfig(enabled=True)},
-                            "16f"),
+                            None),
     "aot_cache": (lambda c: {"aot_cache": c.AotCacheConfig(dir="store")}, "16g"),
 }
 
@@ -514,8 +514,9 @@ REFUSALS = {
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_unported_settings_are_refused(name):
     """Since steps 16d and 16e the controller, a tenant table and the
-    gateway serve; staging or step batching over more than one rank (16f)
-    and the AOT store (16g) are still refused, naming the step."""
+    gateway serve, and since 16f staging and step batching serve over a
+    ``mesh_plan`` of more than one rank; the AOT store (16g) is still
+    refused, naming the step."""
     fields, step = REFUSALS[name]
     serve, testing, cfg_mod = _mods(PACKAGES[1])
     config = cfg_mod.ServeConfig(**fields(cfg_mod))  # accepted, as in the JAX package
@@ -525,9 +526,9 @@ def test_unported_settings_are_refused(name):
             serve.InferenceServer(testing.FakeExecutorFactory(), config, mesh_plan=mesh_plan)
         return
     # ported: the server runs with the setting on and serves a request
-    factory = (testing.StepFakeExecutorFactory() if name == "step_batching"
+    factory = (testing.StepFakeExecutorFactory() if name.endswith("step_batching")
                else testing.StagedFakeExecutorFactory())
-    with serve.InferenceServer(factory, config) as server:
+    with serve.InferenceServer(factory, config, mesh_plan=mesh_plan) as server:
         r = server.submit("p", height=512, width=512, seed=3).result(timeout=30)
         snap = server.metrics_snapshot()
         gateway = server.gateway_endpoint
@@ -536,7 +537,10 @@ def test_unported_settings_are_refused(name):
     assert server.aot_store is None
     block = {"pipeline_stages": "staging", "prompt_cache": "prompt_cache",
              "step_batching": "step_batching", "controller": "controller",
-             "tenants": "tenancy", "gateway": "requests"}[name]
+             "tenants": "tenancy", "gateway": "requests",
+             "ranks_pipeline_stages": "staging",
+             "ranks_step_batching": "step_batching"}[name]
+    assert factory.built[0].mesh_plan == mesh_plan
     assert snap[block] is not None
     assert (snap["controller"] is None) == (name != "controller")
     assert (snap["tenancy"] is None) == (name != "tenants")
@@ -567,12 +571,18 @@ def test_step_exec_key_and_carry_import_are_refused():
 
 
 def test_staging_and_step_batching_above_one_rank_are_refused():
+    """Refused until step 16f; since then accepted over a layout of four
+    ranks, each serving a request (tests/test_torch_port_serve_ranks.py and
+    _step_ranks.py serve them over real gloo ranks)."""
     serve, testing, cfg_mod = _mods(PACKAGES[1])
-    for fields in ({"pipeline_stages": True},
-                   {"step_batching": cfg_mod.StepBatchConfig(enabled=True)}):
-        with pytest.raises(ValueError, match="ROADMAP item 16, step 16f"):
-            serve.InferenceServer(testing.FakeExecutorFactory(), _config(cfg_mod, **fields),
-                                  mesh_plan="dp2.cfg1.sp2")
+    for fields, factory in (({"pipeline_stages": True}, testing.StagedFakeExecutorFactory()),
+                            ({"step_batching": cfg_mod.StepBatchConfig(enabled=True)},
+                             testing.StepFakeExecutorFactory())):
+        with serve.InferenceServer(factory, _config(cfg_mod, **fields),
+                                   mesh_plan="dp2.cfg1.sp2") as server:
+            r = server.submit("p", height=512, width=512, seed=4).result(timeout=30)
+        assert "dp2.cfg1.sp2" in r.exec_key.split(":")
+        assert np.array_equal(r.output, testing.fake_image("p", 4, factory.built[0]))
 
 
 def test_demo_runs():

@@ -168,6 +168,8 @@ def test_int8_key_executor_serves_bit_for_bit_with_its_solo_calls(sdxl_trees):
 
 
 def test_executor_draws_the_solo_noise_and_refuses_ranks(sdxl_trees):
+    """The executor draws the solo call's noise; a pipeline whose config
+    spans ranks, refused until step 16f, is accepted and serves."""
     pipe = _port_sdxl(sdxl_trees)
     ex = PipelineExecutor(pipe, STEPS)
     lat = ex._draw_latents([3, 4])
@@ -175,14 +177,19 @@ def test_executor_draws_the_solo_noise_and_refuses_ranks(sdxl_trees):
         want = torch.randn((1, 16, 16, 4), generator=torch.Generator().manual_seed(seed))
         torch.testing.assert_close(row[None], want * pipe.scheduler.init_noise_sigma,
                                    rtol=0, atol=0)
-    ranked = copy.copy(pipe.distri_config)
-    ranked.world_size = 2
-
-    class Ranked:
-        distri_config = ranked
-
-    with pytest.raises(ValueError, match="ROADMAP item 16, step 16f"):
-        PipelineExecutor(Ranked(), STEPS)
+    # refused until step 16f: a pipeline over ranks now gets an executor
+    # (the one-rank pipeline under a config that says two ranks serves as
+    # itself; tests/test_torch_port_serve_ranks.py serves over real ranks)
+    ranked = copy.copy(pipe)
+    ranked.distri_config = copy.copy(pipe.distri_config)
+    ranked.distri_config.world_size = 2
+    ex_ranked = PipelineExecutor(ranked, STEPS)
+    assert ex_ranked.world_size == 2 and ex_ranked.batch_size == 2
+    lat = ex_ranked._draw_latents([3])
+    np.testing.assert_array_equal(
+        ex_ranked(["a lighthouse"], [""], 5.0, [3])[0],
+        pipe("a lighthouse", latents=lat, num_inference_steps=STEPS,
+             output_type="np").images[0])
     step_key = ExecKey(model_id="m", scheduler="ddim", height=128, width=128, steps=2,
                        cfg=True, mesh_plan="dp1.cfg1.sp1", exec_mode="stepwise")
     factory = pipeline_executor_factory(lambda key: _port_sdxl(sdxl_trees))
