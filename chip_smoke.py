@@ -152,7 +152,17 @@ Phases (any failure raises, and the script exits non-zero):
    eager bit for bit), and the handoff, a call to ``denoising_end=0.5``
    then one from ``denoising_start=0.5``, equal to one full call bit for
    bit; then a refiner-layout UNet (SDXL's widths, 5 time ids) resumes the
-   base latent to a finite image that ``aesthetic_score`` changes;
+   base latent to a finite image that ``aesthetic_score`` changes.  Each
+   quantized pipeline's UNet tree is saved (``models.weights.save_params``,
+   one .npz under build/save_load/), loaded back (``load_params``), moved to
+   the card and given to a fresh pipeline, whose graphed call must give the
+   saved pipeline's latent and image bit for bit with 4*533 + 70 launches
+   of each quant kernel; a "save_load" line a mode (archive bytes, save,
+   load, move, build and capture seconds);
+5m. the FLOP count (``flops_phase``): ``comm_volume_report(per_phase=True)``
+   "flops" of an eager SDXL 1024x1024 pipeline under the step cache
+   (interval 2, depth 1) after one 4-step call, and ``cli/profile_macs.py``'s
+   line of the SDXL preset at 1024x1024, both counted on fake tensors;
 5a. the row-tiled decode: on the card against the CPU at the tiny size,
    then a 2048x2048 SDXL latent decoded in 5 tiles of 64 rows and whole
    (flash at (1, 65536, 65536, 1, 512), a row of the kernel phase), each
@@ -324,7 +334,21 @@ Phases (any failure raises, and the script exits non-zero):
    tier (the codec's kernels on every rank); one "serve_ranks" line a part
    and rank, every rank's launches against the closed form
    (``serve_ranks_expected``), every image the world-4 solo call's bit for
-   bit.  ``dit`` and ``dit_ring``: DistriPixArtPipeline at world 4 (CFG 2 x
+   bit.  ``ranks_recover`` (queue 3 fault 9; ``_ranks_recover_rank``, a
+   spawn of its own before the others; over NCCL the transformer runs and
+   the decode take a spawn of their own too, each spawn bounded by
+   SPAWN_DEADLINE_S): the serve_ranks layout behind
+   ``serve_over_ranks`` with a watchdog bound of RECOVER_WATCHDOG_S; rank 1
+   alone first raises a real out-of-memory in the middle of a denoise (4
+   GiB held, twice the card asked for, at its second scheduler step), then
+   hangs there RECOVER_HANG_S: each time every rank aborts its data groups
+   and rebuilds them and its executors, the ladder walks to weight_quant_on
+   (the int8 key, "pallas") after the out-of-memory and retries after the
+   hang, the server never turns "fatal", and both requests of each part
+   equal the solo calls at the rebuilt key bit for bit; a "ranks_recover"
+   line a part and rank (the seconds from the abort to the first image,
+   the rebuild's and the executors' build and capture seconds, the second
+   dispatch's launches against the closed form).  ``dit`` and ``dit_ring``: DistriPixArtPipeline at world 4 (CFG 2 x
    sp 2, warmup 1: 2 synchronous and 2 stale steps, DPM-solver) through
    ``DiTDenoiseRunner``'s "gather" and "ring" layouts, the DiT whole, T5-XXL
    at full width cut to ``SPAWN_T5_LAYERS`` layers (four copies share the
@@ -552,6 +576,13 @@ SERVE_RANKS = "@serve_ranks"
 SERVE_RANKS_REQUESTS = [(f"{PROMPT}, over ranks #{i}", 1000 + i) for i in range(4)]
 SERVE_RANKS_EXPORT_AT, SERVE_RANKS_SLOTS = 2, 3
 SERVE_RANKS_TIER = "comm_compress"
+# the ranks_recover run (``_ranks_recover_rank``): a failure on rank 1 alone
+# inside a denoise of the serve_ranks layout, first a real out-of-memory at
+# its RECOVER_FAULT_STEP-th scheduler step (SERVE_HELD_BYTES held, twice the
+# card asked for), then a hang there of RECOVER_HANG_S, past the watchdog
+# bound RECOVER_WATCHDOG_S; two requests a part
+RECOVER_REQUESTS = [(f"{PROMPT}, recovered #{i}", 1100 + i) for i in range(2)]
+RECOVER_WATCHDOG_S, RECOVER_HANG_S, RECOVER_FAULT_STEP = 30.0, 45.0, 2
 AUTO_LONG_STEPS, AUTO_DRAIN_S = 12, 0.3
 # the transformer families' step drive (``step_drive``): executors at
 # batch_size 2, so a dispatch runs the DiT / MMDiT at B = 4 with the CFG folded
@@ -2530,9 +2561,11 @@ def pipeline_phase(trees, expected_flash, expected_quant):
     (UNet and aux models) and fp8 (UNet), the quantized runs through the
     quantized-matmul kernel; each eagerly and under CUDA graphs, which must
     agree bit for bit; on the dense pipeline also img2img, the handoff and
-    the refiner (``img2img_handoff_phase``).  Returns the result lines by
-    run and the dense call's final latent."""
+    the refiner (``img2img_handoff_phase``), on each quantized one the save
+    and load of its UNet tree (``save_load_check``).  Returns the result
+    lines by run and the dense call's final latent."""
     import numpy as np
+    import torch
 
     runs = (("dense", {}, 0),
             ("int8", {"weight_quant": "int8", "weight_quant_aux": "int8",
@@ -2557,8 +2590,99 @@ def pipeline_phase(trees, expected_flash, expected_quant):
         results[label] = graphed
         if label == "dense":
             results.update(img2img_handoff_phase(pipe, trees))
+        else:
+            results["save_load_" + label] = save_load_check(
+                pipe, trees, label, quant, {"flash_sdpa": expected_flash,
+                                            "quant_matmul": n_quant,
+                                            "quantize_rows": n_quant}, graphed, latent)
         del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
     return results, dense_latent
+
+
+def save_load_check(pipe, trees, label, quant, expected, graphed, latent):
+    """ROADMAP item 12 on the card: the quantized UNet tree of ``pipe`` (the
+    main path's ``label`` run) saved with ``models.weights.save_params`` to
+    build/save_load/, loaded back with ``load_params``, moved to the card
+    (``models.unet.cast_params``) and given to a fresh pipeline of the same
+    fields (``from_params``); its graphed call (``prepare``, then the
+    measured one) must give the main path's graphed latent and image bit
+    for bit, through the quantized-matmul kernel (``expected`` launches).
+    Prints and returns a "save_load" line: the archive's bytes, the save,
+    load, move and build seconds, the capture and the call."""
+    import numpy as np
+    import torch
+
+    from distrifuser_tpu_torch.models.unet import cast_params
+    from distrifuser_tpu_torch.models.weights import load_params, save_params
+
+    folder = os.path.join("build", "save_load")
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, f"sdxl_unet_{label}.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_params(path, pipe.runner.params)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = load_params(path)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = cast_params(tree, torch.bfloat16, torch.device("cuda"))
+    torch.cuda.synchronize()
+    to_card_s = time.perf_counter() - t0
+    ucfg, _, vcfg, vae_p, tcfgs, text_p = trees
+    fresh, init_s = build_pipeline((ucfg, tree, vcfg, vae_p, tcfgs, text_p), **quant)
+    t0 = time.perf_counter()
+    fresh.prepare(4)
+    capture_s = time.perf_counter() - t0
+    line, got = pipeline_run(fresh, init_s, f"{label} reloaded", expected)
+    out = {"phase": "save_load", "mode": label, "archive": path,
+           "archive_bytes": os.path.getsize(path), "save_s": save_s, "load_s": load_s,
+           "to_card_s": to_card_s, "build_s": init_s, "capture_s": capture_s,
+           "call_s": line["total_s"], "launches": {k: line[k + "_launches"]
+                                                   for k in expected},
+           "latent_bit_identical": bool(np.array_equal(got, latent)),
+           "image_bit_identical": line["image_sha256"] == graphed["image_sha256"]}
+    print(json.dumps(out), flush=True)
+    os.remove(path)
+    if not (out["latent_bit_identical"] and out["image_bit_identical"]):
+        raise AssertionError(f"save_load {label}: the reloaded pipeline's call differs "
+                             "from the saved one's")
+    del fresh, tree
+    return out
+
+
+def flops_phase(trees):
+    """ROADMAP item 10 on the card: ``comm_volume_report(per_phase=True)``'s
+    "flops" of the SDXL 1024x1024 pipeline under the step cache (interval
+    2, depth 1; one eager 4-step call first, which the report reads), and
+    the ``cli/profile_macs.py`` line of the SDXL preset at 1024x1024.  Both
+    count on fake tensors (nothing runs on the card).  Prints and returns a
+    "flops" line."""
+    import torch
+
+    from distrifuser_tpu_torch.cli.profile_macs import unet_flops
+
+    pipe, _ = build_pipeline(trees, step_cache_interval=2, step_cache_depth=1,
+                             warmup_steps=1, use_cuda_graph=False)
+    pipe(PROMPT, num_inference_steps=4, seed=0, output_type="latent")
+    t0 = time.perf_counter()
+    report = pipe.runner.comm_volume_report(per_phase=True)
+    count_s = time.perf_counter() - t0
+    del pipe
+    t0 = time.perf_counter()
+    flops, nbytes, n_params = unet_flops("sdxl", SIZES["sdxl"], 1, torch.bfloat16)
+    cli_s = time.perf_counter() - t0
+    size = SIZES["sdxl"]
+    out = {"phase": "flops", "config": "SDXL 1024x1024, CFG, step cache interval 2 depth 1",
+           "flops": report["flops"], "count_s": count_s,
+           "profile_macs": f"sdxl @ {size}x{size}: {flops / 1e9:.2f} GFLOPs "
+                           f"(~{flops / 2e9:.2f} GMACs), {nbytes / 1e9:.2f} GB of weights, "
+                           f"{n_params / 1e6:.1f}M params",
+           "profile_macs_flops": flops, "profile_macs_s": cli_s}
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def pixart_phase():
@@ -4739,10 +4863,11 @@ def _multi_rank(rank, world, backend, port, out_dir, profile, labels):
                 torch.cuda.empty_cache()
                 out[label] = _decode_sp_runs(rank, world)
                 continue
-            if label == "serve_ranks":  # the patch runs' SDXL trees
+            if label in ("serve_ranks", "ranks_recover"):  # the patch runs' SDXL trees
                 if "sdxl" not in trees:
                     trees = {"sdxl": build_trees("sdxl")}
-                out[label] = _serve_ranks_rank(rank, world, trees["sdxl"], graphs)
+                run = _serve_ranks_rank if label == "serve_ranks" else _ranks_recover_rank
+                out[label] = run(rank, world, trees["sdxl"], graphs)
                 continue
             if label in PIPEFUSION_RUNS:  # its own trees: one stage's blocks
                 trees = {}
@@ -5024,6 +5149,175 @@ def _serve_ranks_rank(rank, world, trees, graphs):
     return {"lines": lines, "tiny": []}
 
 
+def _ranks_recover_rank(rank, world, trees, graphs):
+    """One rank of the "ranks_recover" run (queue 3 fault 9): serving over
+    the spawn's ranks (``serve_over_ranks``), SDXL 1024x1024 from ``trees``
+    at CFG 2 x sp 2, warmup 1, executors at batch_size SERVE_BATCH, graphed
+    over NCCL and eager where the ranks share the card, a watchdog bound of
+    RECOVER_WATCHDOG_S.  Two parts, a server each, two requests each:
+
+    * ``oom``: rank 1 alone holds SERVE_HELD_BYTES and asks for twice the
+      card at the RECOVER_FAULT_STEP-th scheduler step of the first
+      dispatch, a real ``torch.OutOfMemoryError`` between two steps'
+      collectives while its peers run on into the next; every rank aborts
+      its data groups, the ranks rebuild them and their executors, and the
+      ladder's weight_quant_on rung builds the int8 key (quant_compute
+      "pallas") on every rank, which serves both requests;
+    * ``hang``: rank 1 alone sleeps RECOVER_HANG_S at that step; rank 0's
+      watchdog (over NCCL) or its data groups' timeout (over gloo) ends the
+      dispatch, the groups are aborted and rebuilt, the retry builds the
+      dense key anew and serves both requests.
+
+    Each part's line: rank 0's health (never "fatal"), the data groups'
+    generation before and after, the aborts and rebuilds, the seconds from
+    the abort to the first image, the rebuild's and the executors' build
+    and capture seconds, and the launches of the second request's dispatch
+    (counts set to 0 just before it).  After each part every rank runs each
+    request's solo call at the rebuilt key (before the next part's fault
+    retires its groups), and rank 0 holds each served image to it, bit for
+    bit.  Returns {"lines": one a part, "tiny": []}."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distrifuser_tpu_torch.serve import (ResilienceConfig, ServeConfig,
+                                             pipeline_executor_factory, serve_over_ranks)
+    from distrifuser_tpu_torch.utils.config import (data_group_generation,
+                                                    rebuild_data_groups,
+                                                    set_data_group_watchdog)
+
+    # the data groups made so far take the run's timeout now, on every rank,
+    # so that each part's generations count its fault's rebuild alone
+    if set_data_group_watchdog(RECOVER_WATCHDOG_S):
+        rebuild_data_groups()
+    size, reqs, steps = SIZES["sdxl"], RECOVER_REQUESTS, PATCH_STEPS
+    build = _sdxl_build(trees, warmup_steps=PATCH_WARMUP, use_cuda_graph=graphs)
+    pipes = {}  # key.short() -> this rank's last pipeline of the key
+    fault = {}  # the fault rank 1 injects into the next pipeline it builds
+    held = []
+    fired = []  # time.monotonic() of each fault rank 1 injected
+
+    def inject(pipe, kind):
+        """Rank 1's fault at its RECOVER_FAULT_STEP-th scheduler step."""
+        sched, calls = pipe.runner.scheduler, [0]
+        real = sched.step
+
+        def step(*a, **kw):
+            out = real(*a, **kw)
+            calls[0] += 1
+            if calls[0] == RECOVER_FAULT_STEP:
+                fired.append(time.monotonic())
+                if kind == "oom":
+                    try:
+                        held.append(torch.empty(SERVE_HELD_BYTES, dtype=torch.uint8,
+                                                device="cuda"))
+                        total = torch.cuda.get_device_properties(
+                            torch.cuda.current_device()).total_memory
+                        torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+                    finally:
+                        fired.append(time.monotonic())  # raised
+                time.sleep(RECOVER_HANG_S)
+            return out
+
+        sched.step = step
+
+    def built(key):
+        pipes[key.short()] = pipe = build(key)
+        if rank == 1 and fault:
+            inject(pipe, fault.pop("kind"))
+        return pipe
+
+    config = ServeConfig(
+        buckets=((size, size),), max_batch_size=SERVE_BATCH, default_steps=steps,
+        warmup_buckets=((size, size),), batch_window_s=SERVE_WINDOW_S, default_ttl_s=900.0,
+        quant_compute="pallas",
+        resilience=ResilienceConfig(allow_batch_split=False, allow_stepwise_fallback=False,
+                                    allow_weight_quant_on=True, max_retries=2,
+                                    backoff_base_s=0.01,
+                                    watchdog_timeout_s=RECOVER_WATCHDOG_S))
+    t_run = time.perf_counter()
+
+    def part(kind):
+        _progress(rank, f"ranks_recover/{kind}", t_run)
+        fault["kind"] = kind
+        torch.cuda.synchronize()
+        before = data_group_generation()
+        t0, m0 = time.perf_counter(), time.monotonic()
+        fired.clear()
+        server = serve_over_ranks(pipeline_executor_factory(built), config, model_id="sdxl",
+                                  scheduler="ddim", mesh_plan=f"dp1.cfg2.sp{world // 2}")
+        line = {"phase": "ranks_recover", "part": kind, "rank": rank, "world": world,
+                "use_cuda_graph": graphs}
+        served = []  # rank 0: (key, request, image)
+        if server is not None:
+            server.start()
+            try:
+                builds0 = server.cache.build_seconds
+                p, s = reqs[0]
+                first = server.submit(p, height=size, width=size, seed=s).result(timeout=900)
+                t_first = time.monotonic()
+                health = server.health()
+                torch.cuda.synchronize()
+                reset_counts()
+                p, s = reqs[1]
+                second = server.submit(p, height=size, width=size, seed=s).result(timeout=900)
+                torch.cuda.synchronize()
+                line["launches"] = read_counts()
+                served.extend((r.exec_key, q, r.output)
+                              for q, r in zip(reqs, (first, second)))
+                ranks = health["ranks"]
+                abort_t = server.ranks.last_abort_t
+                line.update({
+                    "status": health["status"], "status_after": server.health()["status"],
+                    "aborts": ranks["aborts"], "rebuilds": ranks["rebuilds"],
+                    "rebuild_s": ranks["rebuild_s"],
+                    "build_and_capture_s": server.cache.build_seconds - builds0,
+                    "abort_to_first_image_s": (t_first - abort_t) if abort_t else None,
+                    "abort_at_s": (abort_t - m0) if abort_t else None,
+                    "abort_reason": (server.ranks.last_abort_reason or "")[:300],
+                    "errors": [e["message"][:200] for e in health["last_errors"]],
+                    "exec_keys": [first.exec_key, second.exec_key],
+                    "degradations": list(first.degradations),
+                    "retries": [first.retries, second.retries],
+                    "dispatch_s": [first.execute_s, second.execute_s],
+                    "e2e_s": [first.e2e_s, second.e2e_s],
+                    "watchdog_timeouts": health["requests"]["watchdog_timeouts"],
+                    "last_error": (health["last_errors"][-1]["message"][:300]
+                                   if health["last_errors"] else None)})
+            finally:
+                server.stop()
+        held.clear()
+        torch.cuda.synchronize()
+        line["generations"] = [before, data_group_generation()]
+        line["seconds"] = time.perf_counter() - t0
+        if fired:  # rank 1: when its fault fired, and how long the OOM took to raise
+            line["fault_at_s"] = fired[0] - m0
+            if len(fired) > 1:
+                line["oom_raised_after_s"] = fired[1] - fired[0]
+        # each served key's solo calls at its rebuilt pipeline, on every
+        # rank, before the next part's fault retires these groups
+        box = [sorted({key for key, _, _ in served}) if rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        solo = {key: [pipes[key](p, seed=s, num_inference_steps=steps,
+                                 output_type="np").images[0] for p, s in reqs]
+                for key in box[0]}
+        if rank == 0:
+            line["bit_identical_to_solo"] = [
+                bool(np.array_equal(solo[key][reqs.index(q)], np.asarray(img)))
+                for key, q, img in served]
+            if not all(line["bit_identical_to_solo"]):
+                raise AssertionError(f"ranks_recover {kind}: served images differ from "
+                                     f"the solo calls at the rebuilt keys "
+                                     f"{line['bit_identical_to_solo']}")
+        pipes.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return line
+
+    lines = [part("oom"), part("hang")]
+    return {"lines": lines, "tiny": []}
+
+
 def _decode_sp_runs(rank, world):
     """One rank of the sequence-parallel decode at ``world`` ranks
     (``pipelines.decode_latents``, which the pipelines call): the tiny VAE
@@ -5291,19 +5585,34 @@ def patch_phase(dense_latent, out_dir, profile=False, runs=None):
         spawns[0][1].append("tensor")
     else:
         spawns.append((tp_world, ["tensor"]))
-    spawns[0][1].extend(["sd15_patch", "dp", "serve_ranks", *DIT_RUNS, *SD3_RUNS,
-                         "decode_sp", *PIPEFUSION_RUNS])
+    spawns[0][1].extend(["sd15_patch", "dp", "serve_ranks"])
+    later = [*DIT_RUNS, *SD3_RUNS, "decode_sp", *PIPEFUSION_RUNS]
+    if transport["cards"] > 1:
+        # over NCCL each run is eager and graphed: the transformer runs and
+        # the decode take a spawn of their own (and its SPAWN_DEADLINE_S)
+        spawns.append((PATCH_WORLD, later))
+    else:
+        spawns[0][1].extend(later)
+    # fault 9's run first, in a spawn of its own: its aborted communicators
+    # and abandoned threads end with its processes
+    spawns.insert(0, (PATCH_WORLD, ["ranks_recover"]))
     if runs:
         spawns = [(PATCH_WORLD, list(runs))]
     print(json.dumps({"phase": "patch_transport", "world": PATCH_WORLD, **transport,
                       "tensor_parallel": {"world": tp_world, "n": tp_n}}), flush=True)
     results = {}
     for world, labels in spawns:
-        ranks = _spawn(world, labels, transport["backend"], os.path.join(out_dir, f"w{world}"),
+        # a folder a spawn: each clears its own at the start (the patch run's
+        # latent stays in w<world> for the comparison below)
+        sub = f"w{world}" if "patch" in labels else f"w{world}_{labels[0]}"
+        ranks = _spawn(world, labels, transport["backend"], os.path.join(out_dir, sub),
                        profile)
         for label in labels:
             if label == "serve_ranks":
                 results[label] = serve_ranks_report(ranks)
+                continue
+            if label == "ranks_recover":
+                results[label] = ranks_recover_report(ranks)
                 continue
             for r in ranks:
                 if "refused" in r[label]:
@@ -5379,6 +5688,46 @@ def serve_ranks_report(ranks):
               "codec launches": parts["comm_compress"]["launches"]["quantize_rows"] > 0}
     if not all(checks.values()):
         raise AssertionError(f"serve_ranks: {checks}")
+    return lead
+
+
+def ranks_recover_report(ranks):
+    """Print the ranks_recover run's lines (each part's line of every rank)
+    and raise unless, on rank 0, no part left the server "fatal", each
+    aborted and rebuilt the data groups once on every rank (one generation
+    more), the out-of-memory reached weight_quant_on and served at the int8
+    key, and the second request's dispatch launched on rank 0 what a 4-step
+    call of its key launches (``serve_ranks_expected``; the int8 key's
+    quantized linears too).  Returns rank 0's lines."""
+    from distrifuser_tpu_torch.models import unet
+
+    ucfg = unet.sdxl_config()
+    per_forward, per_call = unet.linear_calls(ucfg)
+    lead = ranks[0]["ranks_recover"]["lines"]
+    for i, line in enumerate(lead):
+        want = serve_ranks_expected({"part": "whole", "dispatches": 1}, ucfg)
+        if line["exec_keys"][1].endswith(":wq-int8:qc-pallas"):
+            want.update(quant_matmul=PATCH_STEPS * per_forward + per_call,
+                        quantize_rows=PATCH_STEPS * per_forward + per_call)
+        line["expected"] = want
+        if line["launches"] != want:
+            raise AssertionError(f"ranks_recover {line['part']}: rank 0's launches "
+                                 f"{line['launches']}, expected {want}")
+        for r in ranks:
+            got = r["ranks_recover"]["lines"][i]
+            print(json.dumps(got), flush=True)
+            if got["generations"][1] != got["generations"][0] + 1:
+                raise AssertionError(f"ranks_recover {line['part']} rank {got['rank']}: "
+                                     f"data group generations {got['generations']}")
+    parts = {line["part"]: line for line in lead}
+    checks = {part: line["status"] != "fatal" and line["status_after"] != "fatal"
+              and line["aborts"] == 1 and line["rebuilds"] == 1
+              and all(line["bit_identical_to_solo"]) for part, line in parts.items()}
+    checks["oom to weight_quant_on"] = (parts["oom"]["degradations"] == ["weight_quant_on"]
+                                        and parts["oom"]["exec_keys"][1].endswith(
+                                            ":wq-int8:qc-pallas"))
+    if not all(checks.values()):
+        raise AssertionError(f"ranks_recover: {checks}")
     return lead
 
 
@@ -5674,6 +6023,22 @@ def serve_ranks_entries(rows, refresh_rows, multi_runs):
                              f"{sum(r['launches_per_call'] for r in picked)} codec "
                              f"launches, {comm['launches']['quantize_rows']} read")
     return flash, d512, codec["quantize_"], codec["dequantize_"]
+
+
+def ranks_recover_entries(rows, multi_runs):
+    """The ranks_recover run's second dispatch of each part on rank 0 (a
+    4-step 1024x1024 call at CFG 2 x sp 2 on the rebuilt groups: the int8
+    key after the out-of-memory, the dense key after the hang) as paths of
+    the flash entry, at the "@serve_ranks" rows."""
+    frows = [r for r in rows if family(r["shape"]) == "serve_ranks"
+             and r["shape"].startswith(("patch_unet", "vae_ring_1024_sp2"))]
+    return {f"ranks_recover_{line['part']}": path_entry(
+        frows, [("patch_unet", 1), ("vae_ring_1024_sp2", 1)],
+        line["launches"]["flash_sdpa"],
+        work=f"rank 0's dispatch of the ranks_recover run's {line['part']} part after the "
+             f"rebuild of the data groups ({line['exec_keys'][1]}; SDXL 1024x1024 at CFG 2 "
+             f"x sp 2, executors at batch_size {SERVE_BATCH})")
+        for line in multi_runs["ranks_recover"]}
 
 
 CONV_PROBE_SHAPES = ((4, 320, 320, 128), (4, 640, 640, 64), (4, 1280, 1280, 32),
@@ -6079,7 +6444,7 @@ def main(argv) -> int:
         for label, lines in multi_runs.items():
             # the d = 512 and 72 entries', the SD3 runs' (``sd3_entries``) and
             # the serve plane's over the ranks (``serve_ranks_entries``)
-            if label in ("decode_sp", "serve_ranks") or label in (
+            if label in ("decode_sp", "serve_ranks", "ranks_recover") or label in (
                     DIT_RUNS + SD3_RUNS + PIPEFUSION_RUNS):
                 continue
             if label in KNOB_RUNS:
@@ -6411,7 +6776,8 @@ def main(argv) -> int:
         sd3_plain, sd3_lse = sd3_entries(rows, multi_runs)
         sr_flash, sr_d512, sr_quant, sr_dequant = serve_ranks_entries(rows, refresh_rows,
                                                                       multi_runs)
-        kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs, **sd3_plain, **sr_flash},
+        kernels = [{**subs.pop("patch"), **FLASH_ENTRY, **subs, **sd3_plain, **sr_flash,
+                    **ranks_recover_entries(rows, multi_runs)},
                    {**lse, **sd3_lse},
                    {**d512_entry(rows, multi_runs), "serve_ranks": sr_d512},
                    {**refresh.pop("compress_pcpp"), **QUANT_ENTRY, **refresh,
@@ -6455,8 +6821,10 @@ def main(argv) -> int:
     seconds["tiny_checks"], t0 = time.perf_counter() - t0, time.perf_counter()
     trees = build_trees()
     runs, dense_latent = pipeline_phase(trees, expected_flash, expected_quant)
-    seconds["pipelines_eager_and_graphed_img2img_handoff"], t0 = (time.perf_counter() - t0,
-                                                                  time.perf_counter())
+    seconds["pipelines_eager_and_graphed_img2img_handoff_save_load"], t0 = (
+        time.perf_counter() - t0, time.perf_counter())
+    flops_phase(trees)
+    seconds["flops"], t0 = time.perf_counter() - t0, time.perf_counter()
     decodes = tiled_decode_phase(trees)
     seconds["tiled_decode"], t0 = time.perf_counter() - t0, time.perf_counter()
     serve = serve_phase(trees, steps, expected_flash, expected_quant)
@@ -6540,7 +6908,7 @@ def main(argv) -> int:
                      sd15=kernel_entry(rows15, sd_runs["sd15"]["flash_sdpa_launches"]),
                      sd21=kernel_entry(rows21, sd_runs["sd21"]["flash_sdpa_launches"]),
                      **paths, **sd3_plain, **serve_flash, **step_flash, **plane_flash,
-                     **sr_flash),
+                     **sr_flash, **ranks_recover_entries(mrows, multi_runs)),
         *instance_entries(rows15, sd_runs["sd15_eager"]["flash_sdpa_launches_by_head_dim"],
                           "all its attention in one 4-step 512x512 SD 1.5 call (launches "
                           "counted in the eager call; the graphed one launches as many)"),

@@ -35,11 +35,21 @@ from ``[out, in]`` to ``[in, out]``, and the UNet's attention ``to_k`` and
 
 The rest is the counterpart of the quantized-tree functions of
 distrifuser_tpu/models/weights.py (``quantize_params``,
-``set_quant_compute``, ``dequantize_params``, ``params_nbytes``).  The
-quantized ``.npz`` save and load is ROADMAP queue 1 item 12.
+``set_quant_compute``, ``dequantize_params``, ``params_nbytes``) and of
+its on-disk cache of converted trees, ``save_params`` / ``load_params``:
+one flat ``.npz`` written with numpy, whose leaves follow the JAX
+archive's rules (bf16 and fp8 leaves as raw bytes beside their dtype's
+name, a ``QuantizedTensor`` as payload, float32 scale and the record of
+compute dtype, payload dtype and ``channel_tile``) in the port's layout.
+A reloaded tree feeds a pipeline as any tree does
+(``DistriSDXLPipeline.from_params(cfg, unet_config, load_params(path),
+...)``, with ``cfg.weight_quant`` the archive's mode and
+``cfg.quant_compute`` the policy the leaves then take).
 """
 
 from __future__ import annotations
+
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -567,3 +577,147 @@ def params_nbytes(tree) -> int:
         else:
             total += leaf.numel() * leaf.element_size()
     return total
+
+
+# ---------------------------------------------------------------------------
+# on-disk cache of converted trees (JAX weights.py save_params / load_params)
+# ---------------------------------------------------------------------------
+
+# the archive's reserved leaf names, the JAX package's: a QuantizedTensor's
+# payload, float32 scale and (compute dtype, payload dtype, channel_tile)
+# record; a bf16 or fp8 leaf's raw bytes and dtype name (numpy has neither
+# dtype, so both are stored as uint8 bytes and viewed back on load)
+_QT_PAYLOAD, _QT_SCALE, _QT_DTYPES = "__wq__", "__wqs__", "__wqd__"
+_RAW_VALUE, _RAW_DTYPE = "__wqr__", "__wqrd__"
+_RAW_DTYPES = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn}
+_LOAD_DTYPES = {**_TORCH_DTYPES, "float8_e4m3fn": torch.float8_e4m3fn,
+                "int8": torch.int8}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _host_array(t: torch.Tensor):
+    """``(array, raw dtype name or None)``: a CPU tensor as numpy in logical
+    C order, a bf16 or fp8 one as its uint8 bytes (the last axis holds each
+    element's bytes, as numpy's ``view(np.uint8)`` of the JAX package)."""
+    t = t.detach().cpu().clone(memory_format=torch.contiguous_format)
+    if t.dtype in _RAW_DTYPES.values():
+        return t.view(torch.uint8).numpy(), _dtype_name(t.dtype)
+    return t.numpy(), None
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    flat: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat.update(_flatten(v, f"{prefix}{k}."))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            flat.update(_flatten(v, f"{prefix}{i}."))
+    elif isinstance(tree, QuantizedTensor):
+        payload, _ = _host_array(tree.payload)
+        flat[f"{prefix}{_QT_PAYLOAD}"] = payload
+        flat[f"{prefix}{_QT_SCALE}"] = _host_array(tree.scale.float())[0]
+        flat[f"{prefix}{_QT_DTYPES}"] = np.array(
+            [_dtype_name(tree.dtype), _dtype_name(tree.payload.dtype),
+             str(tree.channel_tile)])
+    else:
+        v, raw = _host_array(torch.as_tensor(tree))
+        if raw is not None:
+            flat[f"{prefix}{_RAW_VALUE}"] = v
+            flat[f"{prefix}{_RAW_DTYPE}"] = np.array(raw)
+        else:
+            flat[prefix[:-1]] = v
+    return flat
+
+
+def save_params(path: str, tree) -> None:
+    """Cache a port tree as one flat ``.npz`` -- quantized trees included
+    (int8 / fp8 payloads and float32 scales in the same archive), so that
+    conversion and quantization run once.  A leaf's compute policy is not
+    saved, as in the JAX package: ``set_quant_compute`` (or the pipeline's
+    ``quant_compute``) applies one after the load."""
+    np.savez(path, **_flatten(tree))
+
+
+def _restore(tree, dtype: torch.dtype):
+    """Nested archive dicts -> the port's tree in its memory layout, the
+    one ``params_from_jax`` gives: a conv payload or kernel (4-D) in
+    channels_last, a linear payload column-major, everything else
+    contiguous; dense leaves cast to ``dtype``, a quantized leaf's payload
+    and scale kept."""
+    if isinstance(tree, list):
+        return [_restore(v, dtype) for v in tree]
+    if isinstance(tree, dict):
+        if _QT_PAYLOAD in tree:
+            names = [str(x) for x in tree[_QT_DTYPES]]
+            payload = torch.from_numpy(np.array(tree[_QT_PAYLOAD]))
+            pdt = _LOAD_DTYPES[names[1]]
+            if payload.dtype != pdt:  # fp8: its uint8 bytes
+                payload = payload.view(pdt)
+            scale = torch.from_numpy(np.array(tree[_QT_SCALE], np.float32))
+            if payload.dim() == 4:  # the scale [O, kh, kw] from its [kh, kw, O] copy
+                payload = _conv_layout(payload)
+                scale = _c_order(scale.permute(1, 2, 0)).permute(2, 0, 1).contiguous()
+            else:
+                payload = payload.t().contiguous().t()
+            return QuantizedTensor(payload, scale, _LOAD_DTYPES[names[0]],
+                                   channel_tile=int(names[2]) if len(names) > 2 else 1)
+        if _RAW_VALUE in tree:
+            raw = torch.from_numpy(np.array(tree[_RAW_VALUE]))
+            return _conv_layout(raw.view(_RAW_DTYPES[str(tree[_RAW_DTYPE])]).to(dtype))
+        return {k: _restore(v, dtype) for k, v in tree.items()}
+    return _conv_layout(torch.from_numpy(np.array(tree)).to(dtype))
+
+
+def _conv_layout(t: torch.Tensor) -> torch.Tensor:
+    """A reloaded leaf in the layout ``params_from_jax`` gives it: a 4-D
+    one (a conv kernel or payload, OIHW) channels_last from its HWIO copy,
+    whose strides a kernel of 1 x 1 keeps; anything else contiguous."""
+    if t.dim() != 4:
+        return t.contiguous()
+    return _layout(_c_order(t.permute(2, 3, 1, 0)).permute(3, 2, 0, 1))
+
+
+def _c_order(t: torch.Tensor) -> torch.Tensor:
+    """A copy with the strides numpy gives a C-order array (its size-1 dims
+    included, which ``contiguous`` leaves as they were)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def load_params(path: str, dtype=None):
+    """Load a `save_params` archive back into a port tree.
+
+    A dense archive casts to ``dtype`` (default float32).  A quantized
+    archive's compute dtype comes from the archive -- the scales were
+    baked against it -- and the whole tree (norms, biases, embeddings
+    included) takes it; an explicit ``dtype`` that disagrees raises, and so
+    does an archive that mixes compute dtypes, as the JAX package's
+    ``load_params`` refuses them.  Leaves land on the CPU in the port's
+    layout; stacked layers come back as lists."""
+    tree: Dict[str, Any] = {}
+    recorded = set()
+    with np.load(path) as data:
+        for key in data.files:
+            parts = key.split(".")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[key]
+            if parts[-1] == _QT_DTYPES:
+                recorded.add(str(data[key][0]))
+    if recorded:
+        if len(recorded) > 1:
+            raise ValueError(
+                f"quantized archive {path!r} mixes compute dtypes {sorted(recorded)}")
+        archived = _LOAD_DTYPES[recorded.pop()]
+        if dtype is not None and dtype != archived:
+            raise ValueError(
+                f"load_params(dtype={_dtype_name(dtype)!r}) on a quantized archive "
+                f"with compute dtype {_dtype_name(archived)!r}: the per-tile scales "
+                "were baked against the archived dtype — rebuild from the dense "
+                "weights to change compute dtype")
+        dtype = archived
+    return _restore(_listify(tree), dtype or torch.float32)

@@ -90,10 +90,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+LIBRARIES: list = []  # every KernelLibrary, in the order the modules made them
+
+
+def build_all() -> None:
+    """Build (or load) every kernel library of the package now, one
+    ``nvcc`` a source, all at once: what a caller does before the first
+    collective when no rank may compile while its peers wait
+    (serve/ranks.py)."""
+    from . import flash_attention, quant_matmul, quantize  # noqa: F401 -- their libraries
+
+    threads = [threading.Thread(target=lib.build, daemon=True) for lib in LIBRARIES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for lib in LIBRARIES:
+        lib.lib  # noqa: B018 -- raises here if a build failed
+
+
 class KernelLibrary:
     """One ``csrc/`` source, built once per process and loaded."""
 
     def __init__(self, source: str, bind):
+        LIBRARIES.append(self)
         self.source = CSRC / source
         self._bind = bind
         self._lib = None

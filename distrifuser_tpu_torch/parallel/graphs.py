@@ -74,6 +74,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops._build import add_launches, launch_tally
 
@@ -147,7 +148,10 @@ class StepGraph:
     its graphs (a graph holding NCCL work must be freed before its process
     group is destroyed).  A stateful graph (the stale phase) reads
     ``state_in``, which ``load_state`` fills; a stateless one is given
-    None."""
+    None.  A graph captured over n ranks keeps the generation of the data
+    groups it captured (``utils.config``) and refuses to replay once they
+    were aborted or rebuilt: its collectives would run on communicators
+    that are gone (serve/ranks.py)."""
 
     def __init__(self, phase: str, inputs: StepInputs, stateful: bool,
                  device: torch.device):
@@ -159,6 +163,7 @@ class StepGraph:
         self.out: Optional[torch.Tensor] = None
         self.state_out = None
         self.graph = None
+        self.generation: Optional[int] = None  # of the data groups captured over
         # launches of each kernel wrapper that launched during the capture,
         # and every count a replay adds (the log-sum-exp launches too)
         self.launches: Dict[Callable, int] = {}
@@ -182,6 +187,10 @@ class StepGraph:
         """Record the evaluation into a CUDA graph on ``stream``; keeps the
         launches it captured (this thread's tally: ``launch_tally``) apart
         from the counters."""
+        from ..utils.config import data_group_generation
+
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            self.generation = data_group_generation()
         graph = torch.cuda.CUDAGraph()
         with launch_tally() as counts:
             with torch.cuda.graph(graph, pool=pool, stream=stream,
@@ -199,6 +208,12 @@ class StepGraph:
         refreshes in).  On the card a graph that was never captured
         raises."""
         if self.graph is not None:
+            from ..utils.config import data_groups_live
+
+            if self.generation is not None and not data_groups_live(self.generation):
+                raise RuntimeError(
+                    f"the {self.phase!r} step graph was captured over data groups that "
+                    "were aborted or rebuilt since; build the pipeline anew")
             self.graph.replay()
             for (fn, attr), n in self.counts.items():
                 add_launches(fn, n, attr)

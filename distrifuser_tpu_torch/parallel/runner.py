@@ -688,7 +688,7 @@ class DenoiseRunner(StepLoop):
     def _comm_volume_per_phase(self) -> Dict[str, Any]:
         cfg = self.cfg
         if cfg.parallelism != "patch":
-            return {"phases": {}, "bytes": {}}
+            return {"phases": {}, "bytes": {}, "flops": None}
         one_phase = cfg.mode == "full_sync" or not cfg.is_sp
         wanted = [PHASE_SYNC] + ([] if one_phase else [PHASE_STALE])
         if cfg.step_cache_enabled:
@@ -706,7 +706,60 @@ class DenoiseRunner(StepLoop):
                 phases[phase][kind] = phases[phase].get(kind, 0) + numel
                 nbytes[phase][kind] = nbytes[phase].get(kind, 0) + wire
         return {"phases": phases, "bytes": nbytes,
-                "refresh_fraction": cfg.refresh_fraction}
+                "refresh_fraction": cfg.refresh_fraction,
+                "flops": self._flop_estimate()}
+
+    def _flop_estimate(self) -> Optional[Dict[str, float]]:
+        """``{"full", "shallow", "shallow_ratio"}``: the floating-point
+        operations of one steady full evaluation of this rank and of one
+        shallow evaluation under the step cache (JAX ``_flop_estimate``);
+        None with the cache off.  Counted by ``FlopCounterMode`` over the
+        dense UNet on fake CPU tensors (``FakeTensorMode``: shapes, no
+        memory) through the plain version of every op (a quantized kernel
+        as a dense one of its shape): nothing executes, and the count is the
+        same whichever kernel runs the work on the card.  The
+        dense evaluation covers the image group's batch (both CFG
+        branches) over the whole latent; under displaced patch parallelism
+        every rank computes its rows of each conv and GEMM and its query
+        rows of each attention, so a rank's count is that over the group's
+        ``group_size`` ranks.  Convolutions, GEMMs and the attention's two
+        products count (2 x multiply-adds), elementwise work does not,
+        where the JAX package's count (XLA's cost analysis) has it too.
+        The text KV is computed once a generation, outside the step."""
+        cfg = self.cfg
+        if not cfg.step_cache_enabled:
+            return None
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from ..models.weights import _map_leaves
+
+        ucfg, dtype = self.ucfg, cfg.dtype
+        b = (cfg.batch_size // cfg.dp_degree) * (2 if cfg.do_classifier_free_guidance else 1)
+        out: Dict[str, float] = {}
+        with FakeTensorMode():  # CPU tensors of shapes alone: the plain ops
+            params = _map_leaves(lambda leaf: torch.empty(leaf.shape, dtype=leaf.dtype),
+                                 self.params)
+            sample = torch.empty((b, cfg.latent_height, cfg.latent_width, ucfg.in_channels),
+                                 dtype=dtype)
+            enc = torch.empty((b, 77, ucfg.cross_attention_dim), dtype=dtype)
+            added = None
+            if ucfg.addition_embed_type == "text_time":
+                pooled = (ucfg.projection_class_embeddings_input_dim
+                          - 6 * ucfg.addition_time_embed_dim)
+                added = {"text_embeds": torch.empty((b, pooled), dtype=dtype),
+                         "time_ids": torch.empty((b, 6))}
+            dispatch = self.dispatch(precompute_text_kv(params, enc))
+            deep = None
+            for name in ("full", "shallow"):
+                with FlopCounterMode(display=False) as counter:
+                    res = unet_forward(params, ucfg, sample, torch.zeros(()), enc,
+                                       dispatch=dispatch, added_cond=added,
+                                       cache_depth=self._cache_depth, deep_cache=deep)
+                deep = res[1] if deep is None else deep
+                out[name] = counter.get_total_flops() / cfg.group_size
+        out["shallow_ratio"] = out["shallow"] / out["full"]
+        return out
 
 
 def make_runner(distri_config: DistriConfig, unet_config: UNetConfig, params,

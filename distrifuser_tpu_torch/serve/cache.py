@@ -357,6 +357,12 @@ class ExecutorCache:
             self.on_evict(*pair)
         return ex is not None
 
+    def invalidate_all(self) -> int:
+        """`invalidate` every entry (oldest first); returns how many."""
+        with self._lock:
+            keys = list(self._entries)
+        return sum(self.invalidate(k) for k in keys)
+
     def warmup(self, keys: Iterable[ExecKey]) -> int:
         """Prefetch executors for the given keys (startup path).  Returns
         how many were newly built.  Warmup misses are intentional -- they

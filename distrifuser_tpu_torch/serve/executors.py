@@ -806,7 +806,9 @@ def pipeline_executor_factory(
     ``build_pipeline(key)`` constructs the pipeline for a bucket -- e.g. a
     DistriConfig at (key.height, key.width) with
     do_classifier_free_guidance=key.cfg and the serving batch width, then
-    ``from_params`` / ``from_pretrained`` with key.scheduler.  The factory
+    ``from_params`` / ``from_pretrained`` with key.scheduler.  Over n ranks
+    it makes its DistriConfig anew at each build: after a rebuild of the
+    data groups (serve/ranks.py) the next build must take the new ones.  The factory
     forces the key's policy (`apply_key_policy`) and runs `prepare`, which
     captures the denoiser's CUDA graphs, so cache misses pay the full cost
     HERE, off the per-request path, and hands back a ready executor with

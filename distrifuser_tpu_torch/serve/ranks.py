@@ -63,16 +63,55 @@ ladder, controller, tenancy, gateway, metrics) and the other ranks, the
   another layout is refused typed before it reaches an executor.
 * **Outputs.** Only rank 0 returns images; followers drop theirs after
   the decode.
-* **Failures the protocol cannot bound.** A rank that hangs inside a
-  collective, or fails inside an operation between two of its
-  collectives, leaves its peers waiting in the next one: a real
+* **A failure inside an operation** (queue 3 fault 9, repaired).  A rank
+  that fails between two collectives of an operation, or hangs inside
+  one, leaves its peers waiting in the next collective: a real
   `torch.cuda.OutOfMemoryError` on one rank alone in the middle of a
-  denoise, a step or a decode is such a failure, and it never reaches the
-  ladder.  Rank 0's watchdog cannot abandon such a call (unlike the JAX
-  package's, whose abandoned program holds no peer), so over n ranks a
-  watchdog timeout is fatal to the server: `InferenceServer.health` says
-  so, the followers are told to stop, and every later command raises
-  `ServerClosedError`.
+  denoise, a step or a decode is such a failure.  The data groups carry
+  the generation of `utils.config` (``rebuild_data_groups``), so they can
+  be given up and made anew:
+
+  1. *Abort.*  The first failure after the go of a command with
+     collectives -- rank 0's own, a follower's status, or rank 0's
+     watchdog timing the command out (`RankLeader.abort`) -- aborts the
+     data groups: rank 0 aborts its own and posts ``abort``, which each
+     follower's dispatcher thread (not a lane) applies at once.  On NCCL
+     every rank aborts its communicators (``_abort_process_group``), so a
+     collective waiting on the card for a peer that left ends; gloo has
+     no abort, and a rank waiting in a gloo collective leaves it through
+     the group's timeout, which `utils.config.data_group_timeout` derives
+     from the watchdog bound (so rank 0's watchdog may fire first: it
+     then reads the failure that aborted the groups, `abort_cause`).
+     Commands with collectives posted after the abort raise
+     `RanksAbortedError` until the rebuild.
+  2. *Abandon.*  A follower's dispatcher abandons each lane thread still
+     inside a command with collectives, as the server's watchdog abandons
+     its worker: it sends rank 0 the reports the command still owes
+     (failed), the lane's own result is discarded when it ends, and a new
+     lane thread takes the lane's next command.
+  3. *Rebuild.*  Rank 0's command returns only when every rank has left
+     it: rank 0's own operation ended and every follower reported (or was
+     abandoned).  Its error is an out-of-memory if any rank reported one,
+     else the first failure seen, so a follower's out-of-memory, not the
+     timeout it caused on its peers, is what the ladder reads.  Before the next command the server drops every
+     executor (their CUDA graphs hold the aborted communicators) and
+     `RankLeader.rebuild` posts ``rebuild``: every rank drops its
+     executors and makes the data groups of the next generation, in one
+     order; the control group is never aborted nor rebuilt.  A command
+     still in flight -- a rank 0 operation that has not left, a hang the
+     abort cannot end -- holds the rebuild back, and the server sheds with
+     `WatchdogTimeoutError` after another watchdog bound, as the JAX
+     package's watchdog sheds behind an abandoned worker that still runs.
+  4. *Ladder.*  The error then walks the ladder as on one card: an OOM
+     to ``weight_quant_on`` built on every rank, a watchdog timeout or an
+     execute failure against the retry budget and the breaker.  Step
+     works that did not fail keep their carries (resident or parked) and
+     move to the rebuilt executor of their key.
+
+  Works stay with their rank across a rebuild; executors do not.  A hang
+  that never ends (a kernel that never returns, a rank that is gone) keeps
+  its command in flight, so every later command sheds after the bound
+  until it ends; the server itself never stops for it.
 
 `serve_over_ranks` is the launcher every rank calls with its own local
 executor factory: rank 0 gets the server, followers run the loop until
@@ -84,9 +123,11 @@ it).
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import pickle
 import threading
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -97,8 +138,10 @@ from . import errors as errors_mod
 from .errors import (
     DegradationInapplicableError,
     MigrationRejectedError,
+    RetryableError,
     ServeError,
     ServerClosedError,
+    WatchdogTimeoutError,
     is_oom,
 )
 
@@ -106,11 +149,12 @@ from .errors import (
 # fake all-reduces the code beside the sequence number)
 OPS = ("build", "evict", "call", "encode", "denoise", "decode", "step_begin",
        "step_run", "step_finish", "step_abort", "step_park", "step_resume",
-       "step_export", "step_import", "drop", "stop")
+       "step_export", "step_import", "drop", "stop", "abort", "rebuild")
 # where a follower runs each op; None: its dispatcher applies it at once
 # (one-way commands: nothing collective, nothing to report)
 LANES = {"build": "main", "call": "main", "encode": "encode", "denoise": "denoise",
          "decode": "decode", "evict": None, "drop": None, "stop": None,
+         "abort": None, "rebuild": None,
          **{op: "main" for op in OPS if op.startswith("step_")}}
 # the lanes whose commands issue collectives: rank 0 runs one at a time
 # (module docstring)
@@ -192,6 +236,13 @@ class RankFailedError(RuntimeError):
         self.oom = bool(oom)
 
 
+class RanksAbortedError(RetryableError):
+    """A command over the ranks that could not run because the data groups
+    were aborted after a failure inside an operation (module docstring):
+    refused before its go until the rebuild, or a follower's lane that was
+    abandoned.  Retryable: the retry runs after the rebuild."""
+
+
 def _status(exc: BaseException) -> Dict[str, Any]:
     return {"ok": False, "type": type(exc).__name__, "text": str(exc),
             "oom": is_oom(exc), "rung": getattr(exc, "rung", None)}
@@ -200,6 +251,8 @@ def _status(exc: BaseException) -> Dict[str, Any]:
 def _rebuild(rank: int, st: Dict[str, Any]) -> Exception:
     """The exception rank 0 raises for follower ``rank``'s status."""
     text = f"rank {rank}: {st['text']}"
+    if st["type"] == RanksAbortedError.__name__:
+        return RanksAbortedError(text)
     if st.get("rung") is not None:
         return DegradationInapplicableError(text, rung=st["rung"])
     cls = getattr(errors_mod, st["type"], None)
@@ -217,10 +270,22 @@ class RankLeader:
         self.followers = list(range(1, world))
         self._send_lock = sync.Lock()
         self._collective_lock = sync.Lock()
+        self._abort_lock = sync.Lock()
         self._xids = itertools.count(1)
         self._wids = itertools.count(1)
         self.closed: Optional[str] = None
+        # why the data groups were aborted (None: they serve); cleared by
+        # the rebuild
+        self.aborted: Optional[str] = None
         self.commands = 0  # observability: two-phase commands posted
+        self.aborts = self.rebuilds = 0
+        # time.monotonic() of the last abort, and why
+        self.last_abort_t: Optional[float] = None
+        self.last_abort_reason: Optional[str] = None
+        # the rank's failure that aborted the data groups (an out-of-memory
+        # if one was seen), until the rebuild: what a watchdog timeout of
+        # the command reads
+        self.abort_cause: Optional[BaseException] = None
         # builds run on the server's scheduler thread: on this rank's card
         self._card = _current_card()
 
@@ -236,8 +301,8 @@ class RankLeader:
 
     def post(self, op: str, *, xid: Optional[int] = None,
              wid: Optional[int] = None) -> None:
-        """A one-way command (``evict``, ``drop``): no reply, nothing
-        collective; dropped silently once the channel is closed."""
+        """A one-way command (``evict``, ``drop``, ``abort``): no reply,
+        nothing collective; dropped silently once the channel is closed."""
         with self._send_lock:
             if self.closed is None:
                 self._post_locked({"seq": next(_SEQ), "op": op, "xid": xid, "wid": wid,
@@ -253,20 +318,81 @@ class RankLeader:
             self._post_locked({"seq": next(_SEQ), "op": "stop", "xid": None, "wid": None,
                                "args": {}})
 
+    def abort(self, reason: str, cause: Optional[BaseException] = None) -> bool:
+        """Abort the data groups on every rank (module docstring, step 1):
+        the followers' by their dispatchers, told first, then this rank's.
+        ``cause`` is the rank's failure behind it, kept as `abort_cause`
+        (an out-of-memory wins over any other).  Idempotent until the
+        rebuild; returns whether this call aborted."""
+        from ..utils.config import abort_data_groups
+
+        with self._abort_lock:
+            if cause is not None and (self.abort_cause is None or (
+                    is_oom(cause) and not is_oom(self.abort_cause))):
+                self.abort_cause = cause
+            if self.aborted is not None:
+                return False
+            self.aborted = reason
+            self.aborts += 1
+            self.last_abort_t = time.monotonic()
+            self.last_abort_reason = reason
+        self.post("abort")
+        abort_data_groups()
+        return True
+
+    def rebuild(self, timeout_s: float) -> int:
+        """Make the data groups of the next generation on every rank
+        (module docstring, step 3), once no command with collectives is in
+        flight: waits up to ``timeout_s`` (<= 0: without bound) for the
+        aborted command to end, else raises `WatchdogTimeoutError`.  The
+        caller has dropped its executors.  Returns the new generation."""
+        from ..utils.config import rebuild_data_groups
+
+        if not self._collective_lock.acquire(timeout=timeout_s if timeout_s > 0 else -1):
+            raise WatchdogTimeoutError(
+                f"the aborted operation over {self.world} ranks still runs after a further "
+                f"{timeout_s:.3f}s; shedding this dispatch")
+        try:
+            with self._send_lock:
+                if self.closed is not None:
+                    raise ServerClosedError(
+                        f"the ranks' control channel is closed ({self.closed})")
+                self._post_locked({"seq": next(_SEQ), "op": "rebuild", "xid": None,
+                                   "wid": None, "args": {}})
+            with _on_card(self._card):
+                generation = rebuild_data_groups()
+            with self._abort_lock:
+                self.aborted = self.abort_cause = None
+                self.rebuilds += 1
+            return generation
+        finally:
+            self._collective_lock.release()
+
+    def _refuse_if_aborted(self, collective: bool) -> None:
+        if collective and self.aborted is not None:
+            raise RanksAbortedError(
+                f"the data groups over {self.world} ranks were aborted "
+                f"({self.aborted}); the next dispatch rebuilds them")
+
     def command(self, op: str, run: Callable[[], Any], *, xid: Optional[int] = None,
                 wid: Optional[int] = None, args: Optional[Dict[str, Any]] = None,
                 per_rank: Optional[Dict[int, Dict[str, Any]]] = None):
         """Run ``op`` on every rank: post it, wait for every follower's
         ready, say go, run ``run`` here, collect every follower's status.
-        Returns ``(rank 0's value, [each follower's result])``; raises rank
-        0's own error, else the first follower's."""
-        lock = (self._collective_lock if LANES[op] in COLLECTIVE_LANES
-                else contextlib.nullcontext())
+        Returns ``(rank 0's value, [each follower's result])``; raises an
+        out-of-memory if any rank reported one, else the first failure seen,
+        rank 0's or a follower's.  A failure after the
+        go of a command with collectives aborts the data groups at once,
+        and the command returns only when every rank has left it."""
+        collective = LANES[op] in COLLECTIVE_LANES
+        self._refuse_if_aborted(collective)
+        lock = self._collective_lock if collective else contextlib.nullcontext()
         with lock:
             with self._send_lock:
                 if self.closed is not None:
                     raise ServerClosedError(
                         f"the ranks' control channel is closed ({self.closed})")
+                self._refuse_if_aborted(collective)
                 seq = next(_SEQ)
                 self.commands += 1
                 self._post_locked({"seq": seq, "op": op, "xid": xid, "wid": wid,
@@ -274,24 +400,50 @@ class RankLeader:
             ready = [_recv(r, _tag(seq, _READY), self.group) for r in self.followers]
             failed = next(((r, st) for r, st in zip(self.followers, ready)
                            if not st["ok"]), None)
+            go = failed is None and not (collective and self.aborted is not None)
             for r in self.followers:
-                _send(failed is None, r, _tag(seq, _GO), self.group)
+                _send(go, r, _tag(seq, _GO), self.group)
             if failed is not None:
                 raise _rebuild(*failed)
-            value, err = None, None
+            self._refuse_if_aborted(collective)
+            failures: list = []  # (rank, error) in the order seen
+            noted = threading.Lock()
+
+            def note(rank: int, exc: BaseException) -> None:
+                with noted:
+                    failures.append((rank, exc))
+                if collective:
+                    self.abort(f"rank {rank} failed inside {op} {seq}: "
+                               f"{type(exc).__name__}: {exc}", cause=exc)
+
+            done: Dict[int, Dict[str, Any]] = {}
+
+            def collect(r: int) -> None:
+                st = _recv(r, _tag(seq, _DONE), self.group)
+                done[r] = st
+                if not st["ok"]:
+                    note(r, _rebuild(r, st))
+
+            # one receiver a follower: a failure is seen as soon as it is
+            # reported, whichever follower's status comes first
+            collectors = [sync.Thread(target=collect, args=(r,), daemon=True,
+                                      name=f"serve-rank-status-{r}")
+                          for r in self.followers]
+            for t in collectors:
+                t.start()
+            value = None
             with _running(seq, op):
                 try:
                     value = run()
                 except BaseException as exc:  # noqa: BLE001 -- raised below
-                    err = exc
-            done = [_recv(r, _tag(seq, _DONE), self.group) for r in self.followers]
-            if err is not None:
-                raise err
-            failed = next(((r, st) for r, st in zip(self.followers, done)
-                           if not st["ok"]), None)
-            if failed is not None:
-                raise _rebuild(*failed)
-            return value, [st.get("result") for st in done]
+                    note(0, exc)
+            for t in collectors:
+                t.join()
+            if failures:
+                # an out-of-memory causes the failures it leaves on its
+                # peers (a gloo timeout), whichever was seen first
+                raise next((exc for _, exc in failures if is_oom(exc)), failures[0][1])
+            return value, [done[r].get("result") for r in self.followers]
 
     def factory(self, local_factory: Callable[[Any], Any]) -> Callable[[Any], Any]:
         """The executor factory of rank 0's server: each build is a
@@ -435,8 +587,17 @@ class RankedExecutor:
         return image
 
     def _step_abort(self, work):
-        self._command("step_abort", lambda: self._local.step_abort(work), work)
-        self._live.pop(work[WORK_ID], None)
+        wid = work[WORK_ID]
+        try:
+            self._command("step_abort", lambda: self._local.step_abort(work), work)
+        except BaseException:
+            # (data groups aborted, an executor dropped by a rebuild) the
+            # work is released here and dropped on the followers
+            self._local.step_abort(work)
+            self._leader.post("drop", wid=wid)
+            raise
+        finally:
+            self._live.pop(wid, None)
 
     def _step_park(self, work):
         self._command("step_park", lambda: self._local.step_park(work), work)
@@ -481,6 +642,35 @@ _STOP = object()
 _LANE_JOIN_S = 60.0  # how long a stopping follower waits for each lane's thread
 
 
+class _InFlight:
+    """One command on a follower's lane, from its post to its last
+    report: ``owes`` is the report rank 0 still waits for ("ready", "go"
+    -- the lane waits for rank 0's go --, "done" or None).  Whoever takes
+    a report under ``lock`` sends it: the lane, or the dispatcher when it
+    abandons the lane (`RankFollower._abandon`)."""
+
+    def __init__(self, cmd: Dict[str, Any]):
+        self.cmd = cmd
+        self.owes: Optional[str] = "ready"
+        self.abandoned = False
+        self.lock = threading.Lock()
+
+    def take(self, owed: str, then: Optional[str]) -> bool:
+        """The lane's turn to send the ``owed`` report: False (send
+        nothing) once the dispatcher abandoned the command."""
+        with self.lock:
+            if self.abandoned:
+                return False
+            assert self.owes == owed, (self.owes, owed)
+            self.owes = then
+            return True
+
+
+def _abandoned_status(rank: int) -> Dict[str, Any]:
+    return {"ok": False, "type": RanksAbortedError.__name__, "oom": False, "rung": None,
+            "text": f"rank {rank} abandoned its lane: the data groups were aborted"}
+
+
 class RankFollower:
     """A follower's end: the dispatcher loop on the calling thread and one
     thread a lane (module docstring).  ``executor_factory(key)`` builds
@@ -502,7 +692,12 @@ class RankFollower:
         self._lock = sync.Lock()
         self._executors: Dict[int, Tuple[Any, Any]] = {}  # xid -> (key, executor)
         self._works: Dict[int, Any] = {}  # wid -> this rank's work
-        self.evicted = self.dropped = 0  # one-way releases applied
+        self._inflight: Dict[int, _InFlight] = {}  # seq -> its command, until reported
+        # executors released (an ``evict``, or a rebuild) and works
+        # dropped so far
+        self.evicted = self.dropped = 0
+        self.aborts = self.rebuilds = self.abandoned = 0
+        self._aborting = None  # the thread aborting this generation's groups
         self._card = _current_card()  # the lanes' card: the caller's
 
     def run(self) -> None:
@@ -522,14 +717,19 @@ class RankFollower:
                     with self._lock:
                         self.dropped += self._works.pop(cmd["wid"], None) is not None
                     continue
+                if op == "abort":
+                    self._abort(lanes)
+                    continue
+                if op == "rebuild":
+                    self._rebuild()
+                    continue
                 lane = LANES[op]
                 if lane not in lanes:
-                    q = sync.Queue()
-                    t = sync.Thread(target=self._lane, args=(q,),
-                                    name=f"serve-rank{self.rank}-{lane}", daemon=True)
-                    t.start()
-                    lanes[lane] = (q, t)
-                lanes[lane][0].put(cmd)
+                    lanes[lane] = self._new_lane(lane)
+                item = _InFlight(cmd)
+                with self._lock:
+                    self._inflight[cmd["seq"]] = item
+                lanes[lane][0].put(item)
         finally:
             for q, _ in lanes.values():
                 q.put(_STOP)
@@ -539,31 +739,123 @@ class RankFollower:
                 self._works.clear()
                 self._executors.clear()
 
+    def _new_lane(self, lane: str):
+        q = sync.Queue()
+        t = sync.Thread(target=self._lane, args=(q,), name=f"serve-rank{self.rank}-{lane}",
+                        daemon=True)
+        t.start()
+        return q, t
+
+    def _abort(self, lanes) -> None:
+        """Rank 0's ``abort`` (module docstring, steps 1-2): abort this
+        rank's data groups, then abandon every command with collectives
+        still in flight, each lane that held one replaced by a new thread."""
+        from ..utils.config import abort_data_groups
+
+        self.aborts += 1
+        # on its own thread: the dispatcher reports for the stuck lanes now
+        self._aborting = sync.Thread(target=abort_data_groups, daemon=True,
+                                     name=f"serve-rank{self.rank}-abort")
+        self._aborting.start()
+        with self._lock:
+            stuck = [item for item in self._inflight.values()
+                     if LANES[item.cmd["op"]] in COLLECTIVE_LANES]
+        for lane in {LANES[item.cmd["op"]] for item in stuck}:
+            if lane in lanes:
+                old_q, _ = lanes[lane]
+                old_q.put(_STOP)  # the old thread ends after its command
+                lanes[lane] = self._new_lane(lane)
+        for item in stuck:
+            self._abandon(item)
+
+    def _abandon(self, item: _InFlight) -> None:
+        """Send rank 0 what ``item``'s command still owes, as failed; the
+        lane's own reports and result are discarded.  A lane waiting for
+        rank 0's go receives it itself (and reports, failed, if it is a
+        go)."""
+        seq = item.cmd["seq"]
+        with item.lock:
+            owes = item.owes
+            if item.abandoned or owes is None:
+                return
+            item.abandoned = True
+            if owes != "go":
+                item.owes = None
+        self.abandoned += 1
+        if owes == "go":  # the lane's receive is posted: it reports itself
+            return
+        self._forget(seq)
+        if owes == "ready":
+            _send(_abandoned_status(self.rank), 0, _tag(seq, _READY), self.group)
+            _recv(0, _tag(seq, _GO), self.group)  # a failed ready: never a go
+        else:
+            _send(_abandoned_status(self.rank), 0, _tag(seq, _DONE), self.group)
+
+    def _rebuild(self) -> None:
+        """Rank 0's ``rebuild`` (module docstring, step 3): drop every
+        executor (their graphs hold the aborted communicators), then make
+        the next generation of data groups, at the point of the order of
+        groups rank 0 makes them.  Works stay."""
+        from ..utils.config import rebuild_data_groups
+
+        if self._aborting is not None:  # this generation's aborts first
+            self._aborting.join(_LANE_JOIN_S)
+            self._aborting = None
+        with self._lock:
+            self.evicted += len(self._executors)
+            self._executors.clear()
+        gc.collect()
+        with _on_card(self._card):
+            if self._card is not None:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            rebuild_data_groups()
+        self.rebuilds += 1
+
     def _lane(self, q) -> None:
         if self._card is not None:
             torch.cuda.set_device(self._card)
         while True:
-            cmd = q.get()
-            if cmd is _STOP:
+            item = q.get()
+            if item is _STOP:
                 return
-            self._execute(cmd)
+            self._execute(item)
 
-    def _execute(self, cmd: Dict[str, Any]) -> None:
+    def _execute(self, item: _InFlight) -> None:
+        cmd = item.cmd
         seq, op = cmd["seq"], cmd["op"]
+        if item.abandoned:
+            return
         try:
             fn = self._prepare(cmd)
             ready: Dict[str, Any] = {"ok": True}
         except BaseException as exc:  # noqa: BLE001 -- reported to rank 0
             fn, ready = None, _status(exc)
+        if not item.take("ready", "go"):
+            return
         _send(ready, 0, _tag(seq, _READY), self.group)
-        if not _recv(0, _tag(seq, _GO), self.group):
+        go = _recv(0, _tag(seq, _GO), self.group)
+        with item.lock:
+            abandoned = item.abandoned
+            item.owes = "done" if go and not abandoned else None
+        if not go or abandoned:
+            self._forget(seq)
+            if go:  # abandoned while it waited for the go: report, do not run
+                _send(_abandoned_status(self.rank), 0, _tag(seq, _DONE), self.group)
             return
         with _running(seq, op):
             try:
                 done = {"ok": True, "result": fn()}
             except BaseException as exc:  # noqa: BLE001 -- reported to rank 0
                 done = _status(exc)
+        if not item.take("done", None):
+            return
+        self._forget(seq)
         _send(done, 0, _tag(seq, _DONE), self.group)
+
+    def _forget(self, seq: int) -> None:
+        with self._lock:
+            self._inflight.pop(seq, None)
 
     def _executor(self, xid):
         with self._lock:
@@ -647,15 +939,21 @@ def serve_over_ranks(executor_factory: Callable[[Any], Any], config=None, *,
                      fault_plan=None, **server_kwargs):
     """The launcher every rank calls, after ``init_process_group``, with
     its own ``executor_factory`` (e.g. `pipeline_executor_factory` over a
-    build function whose `DistriConfig` spans the world): on rank 0 it
-    returns an `InferenceServer` (not started) whose executors span the
-    ranks, and whose ``stop()`` releases the followers; on every other
-    rank it runs the follower loop until then and returns None.
-    ``fault_plan`` is this rank's (rank 0's goes to its server);
-    ``server_kwargs`` are rank 0's `InferenceServer` keywords (pass
-    ``mesh_plan=distri_config.mesh_plan``).  At world 1 it returns a plain
-    server."""
-    from ..utils.config import ServeConfig, control_group
+    build function whose `DistriConfig` spans the world and is made anew
+    at each build, so a rebuild's executors hold the new generation's
+    groups) and the same ``config``: on rank 0 it returns an
+    `InferenceServer` (not started) whose executors span the ranks, and
+    whose ``stop()`` releases the followers; on every other rank it runs
+    the follower loop until then and returns None.  Before either, every
+    rank derives the data groups' timeout from the watchdog bound (and
+    makes the existing data groups anew if it changed), and on the card
+    builds every kernel library, so that no rank compiles a kernel while
+    its peers wait in a collective.  ``fault_plan`` is this rank's (rank
+    0's goes to its server); ``server_kwargs`` are rank 0's
+    `InferenceServer` keywords (pass ``mesh_plan=distri_config.mesh_plan``).
+    At world 1 it returns a plain server."""
+    from ..utils.config import (ServeConfig, control_group, rebuild_data_groups,
+                                set_data_group_watchdog)
     from .server import InferenceServer
 
     config = config or ServeConfig()
@@ -663,6 +961,12 @@ def serve_over_ranks(executor_factory: Callable[[Any], Any], config=None, *,
     if group is None:
         return InferenceServer(executor_factory, config, fault_plan=fault_plan,
                                **server_kwargs)
+    if torch.cuda.is_available():
+        from ..ops._build import build_all
+
+        build_all()
+    if set_data_group_watchdog(config.resilience.watchdog_timeout_s):
+        rebuild_data_groups()
     world, rank = dist.get_world_size(), dist.get_rank()
     if rank == 0:
         leader = RankLeader(group, world)

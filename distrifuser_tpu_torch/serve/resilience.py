@@ -257,15 +257,18 @@ class Watchdog:
     time.  One worker is spawned per call: the abandoned thread cannot be
     reused, which rules out a single-worker pool.
 
-    Over n ranks (serve/ranks.py) a timeout is fatal to the server, which
-    differs from the JAX package: the abandoned call may sit inside a
-    collective the other ranks entered (or wait for a rank that hangs in
-    one, or that left the operation between two collectives, as a rank
-    does on an OOM of its own), and no rank can abandon it, so the
-    server stops for good -- ``health()`` reports ``"fatal"`` with the
-    reason, the followers are told to stop, and every later command
-    raises `ServerClosedError` (`InferenceServer._ranks_fatal`).  The JAX
-    package's single controller abandons its program and keeps serving.
+    Over n ranks (serve/ranks.py) the abandoned call is a command that may
+    sit inside a collective the other ranks entered (or wait for a rank
+    that hangs in one, or that left the operation between two
+    collectives, as a rank does on an OOM of its own).  So a timeout there
+    also aborts the data groups on every rank (`RankLeader.abort`): on
+    NCCL the waiting collectives end, on gloo they leave through the
+    groups' timeout, and each follower abandons its lane as this watchdog
+    abandons its worker.  The next dispatch rebuilds the groups once the
+    abandoned command has ended, and sheds with `WatchdogTimeoutError`
+    after another ``timeout_s`` while it still runs -- the bound above,
+    held over the ranks (`InferenceServer._ranks_rebuild`).  The server
+    keeps serving, as the JAX package's does.
 
     Single-consumer by design (the scheduler thread); ``timeouts`` is
     observability."""

@@ -72,10 +72,13 @@ Over either discipline, as in the JAX package (steps 16d and 16e):
 
 Over n ranks (step 16f, serve/ranks.py ``serve_over_ranks``) the server
 runs on rank 0 and its executors are `RankedExecutor` s: every build,
-dispatch, stage and step operation runs as a command on every rank, the
-followers' failures come back typed, and a watchdog timeout is fatal to
-the server (``health()["ranks"]["fatal"]``): a collective that hangs on one
-rank cannot be abandoned on the others.  Everything else -- whole-batch,
+dispatch, stage and step operation runs as a command on every rank, and
+the followers' failures come back typed.  A failure or a hang on one rank
+inside an operation aborts the data groups on every rank; before the next
+command the server drops every executor and the ranks make the data
+groups anew (``_ranks_rebuild``), and the error walks the ladder as on one
+card (``health()["ranks"]``: the generation, aborts, rebuilds).
+Everything else -- whole-batch,
 staging, step batching, the controller, tenancy, the gateway -- runs as
 on one card.  The AOT store (16g) comes with a later step, and this
 server refuses it until then with a ``ValueError`` naming the step.
@@ -165,8 +168,9 @@ class InferenceServer:
     dispatch).  ``ranks`` is rank 0's `serve.ranks.RankLeader` when the
     executors span n ranks (`serve.ranks.serve_over_ranks` builds the
     server so): evicted executors and dropped staged works are released
-    on the followers, a watchdog timeout is fatal, and ``stop()`` stops
-    the followers.
+    on the followers, a watchdog timeout aborts the data groups on every
+    rank, the next dispatch rebuilds them (``_ranks_rebuild``), and
+    ``stop()`` stops the followers.
     """
 
     def __init__(
@@ -186,8 +190,8 @@ class InferenceServer:
         self.config = config or ServeConfig()
         refuse_unported(self.config)
         self.ranks = ranks
-        # why the server over n ranks stopped for good (None: it did not)
-        self._fatal: Optional[str] = None
+        # the last rebuild of the data groups over n ranks: its seconds
+        self._ranks_rebuild_s: Optional[float] = None
         self.model_id = model_id
         self.scheduler = scheduler
         self.mesh_plan = mesh_plan
@@ -533,24 +537,55 @@ class InferenceServer:
         if release is not None:
             release()
 
-    def _ranks_fatal(self, exc: Exception) -> None:
-        """A watchdog timeout over n ranks: the timed-out call may sit
-        inside a collective that the other ranks entered, and no rank can
-        abandon it, so the server stops for good -- ``health()`` reports
-        the reason, the followers are told to stop, and every later
-        command raises `ServerClosedError` (the JAX package's server,
-        whose abandoned program holds no peer, keeps serving)."""
+    def _ranks_aborted(self) -> bool:
+        """Over n ranks: the data groups were aborted and wait for the
+        rebuild, so no command with collectives may run."""
+        return self.ranks is not None and self.ranks.aborted is not None
+
+    def _ranks_abort(self, exc: Exception) -> Optional[BaseException]:
+        """A watchdog timeout over n ranks: the timed-out command may sit
+        inside a collective that the other ranks entered, so the data
+        groups are aborted on every rank (serve/ranks.py, step 1) and the
+        next dispatch rebuilds them.  The watchdog has abandoned the
+        command's worker, as the JAX package's abandons its program.
+        Returns the rank's failure that had already aborted the groups
+        (`RankLeader.abort_cause`: rank 0 was still inside a gloo
+        collective, which only its timeout ends), which the caller reads in
+        place of the timeout; None without one."""
         if self.ranks is None:
+            return None
+        cause = self.ranks.abort_cause
+        self.ranks.abort(f"watchdog timeout over {self.ranks.world} ranks: {exc}")
+        return cause
+
+    def _ranks_rebuild(self) -> None:
+        """Over n ranks, once the data groups were aborted: drop every
+        executor (their graphs hold the aborted communicators), make the
+        data groups anew on every rank (`RankLeader.rebuild`; it sheds with
+        `WatchdogTimeoutError` while the aborted command still runs after
+        another watchdog bound) and move each step work that did not fail
+        onto the rebuilt executor of its key.  Scheduler thread only."""
+        ranks = self.ranks
+        if ranks is None or ranks.aborted is None:
             return
-        with self._lifecycle_lock:
-            first = self._fatal is None
-            if first:
-                self._fatal = (f"watchdog timeout over {self.ranks.world} ranks: "
-                               f"{exc}")
-        if first:
-            self.counters.inc("ranks_fatal")
-            self.ranks.close(self._fatal)
-            self.request_stop()
+        t0 = time.monotonic()
+        self.cache.invalidate_all()
+        ranks.rebuild(self.config.resilience.watchdog_timeout_s)
+        self._ranks_rebuild_s = time.monotonic() - t0
+        self.counters.inc("ranks_rebuilds")
+        if self.stepbatch is None:
+            return
+        for state in list(self.stepbatch.occupied()) + list(self.stepbatch.parked):
+            try:
+                executor, _ = self.cache.get(state.ekey, pin=True)
+            except Exception as exc:  # noqa: BLE001 -- typed below
+                self.counters.inc("failed_build")
+                self._step_fail_state(state, BuildFailedError(
+                    f"executor rebuild failed for {state.ekey.short()}: "
+                    f"{type(exc).__name__}: {exc}"))
+                continue
+            self.cache.unpin(state.executor)
+            state.executor = executor
 
     def __enter__(self) -> "InferenceServer":
         return self.start()
@@ -917,6 +952,13 @@ class InferenceServer:
         """One slot-pool scheduling round; returns whether any work
         happened (False lets the loop sleep on the queue condition)."""
         sb = self.stepbatch
+        try:
+            self._ranks_rebuild()
+        except WatchdogTimeoutError:
+            # the aborted command still runs: nothing over the ranks can
+            # run before it ends (its works wait, their deadlines run)
+            self.counters.inc("watchdog_timeouts")
+            return True
         now = self.clock()
         busy = False
         for req in self.queue.pop_expired(now):
@@ -928,12 +970,16 @@ class InferenceServer:
         busy = self._step_reap(now) or busy
         busy = self._step_fill(now) or busy
         busy = self._step_preempt(now) or busy
+        if self._ranks_aborted():
+            return True  # a failed admission aborted: rebuild first
         cohort = sb.cohort(self.clock())
         if cohort:
             sb.rounds += 1
             stepped = self._step_advance(cohort)
             if stepped:
                 self._step_previews(stepped)
+            if self._ranks_aborted():
+                return True  # the next round rebuilds before it retires
             self._step_retire_finished()
             busy = True
         return busy
@@ -1024,7 +1070,7 @@ class InferenceServer:
         sb = self.stepbatch
         busy = False
         score = self._step_slack_score(now)
-        while sb.free_slots() > 0:
+        while sb.free_slots() > 0 and not self._ranks_aborted():
             parked = (min(sb.parked, key=lambda s: sb.state_slack(s, now))
                       if sb.parked else None)
             queued = self.queue.peek_best(score)
@@ -1203,7 +1249,7 @@ class InferenceServer:
         admit the newcomer.  At most one preemption per round."""
         sb = self.stepbatch
         if (not self.config.step_batching.allow_preemption
-                or sb.free_slots() > 0):
+                or sb.free_slots() > 0 or self._ranks_aborted()):
             return False
         occupied = sb.occupied()
         if not occupied:
@@ -1252,11 +1298,12 @@ class InferenceServer:
                                     "by": cand.request_id})
         admitted = (self.queue.remove(cand)
                     and self._step_admit(cand, now))
-        if not admitted and sb.free_slots() > 0:
+        if not admitted and sb.free_slots() > 0 and not self._ranks_aborted():
             # the preemption fizzled past the pre-checks (build/encode
             # failure, raced close): give the victim its slot -- and its
             # no-thrash budget -- straight back instead of leaving it
-            # parked for a vacant pool
+            # parked for a vacant pool (over n ranks, after an abort, it
+            # stays parked: the fill resumes it after the rebuild)
             sb.unpark(victim)
             sb.resumes -= 1
             sb.preempt_count -= 1
@@ -1332,9 +1379,8 @@ class InferenceServer:
                     break
                 if isinstance(exc, WatchdogTimeoutError):
                     self.counters.inc("watchdog_timeouts")
-                    self._ranks_fatal(exc)
-                    texc = exc
-                elif isinstance(exc, ServeError):
+                    exc = self._ranks_abort(exc) or exc
+                if isinstance(exc, ServeError):
                     texc = exc
                 elif is_oom(exc):
                     texc = ResourceExhaustedError(
@@ -1360,6 +1406,9 @@ class InferenceServer:
                 else:
                     for m in members:
                         self._step_fail_state(m, texc)
+                if self._ranks_aborted():
+                    # the other groups step after the rebuild, next round
+                    break
                 continue
             self.resilience.on_success(base_key)
             for m in members:
@@ -1573,6 +1622,10 @@ class InferenceServer:
         ``steps_done`` so the caller can count the steps it is about to
         re-execute."""
         sb = self.stepbatch
+        try:
+            self._ranks_rebuild()  # the exports are commands over the ranks
+        except Exception:  # noqa: BLE001 -- the exports then fail typed
+            pass
         for state in list(sb.occupied()) + list(sb.parked):
             self.counters.inc("rejected_server_closed")
             data = self._step_export(state)
@@ -1726,6 +1779,7 @@ class InferenceServer:
 
         ekey = self.resilience.degraded_key(base_key)
         try:
+            self._ranks_rebuild()
             # pinned for the batch's whole trip: LRU eviction or
             # invalidate() must never free a pipeline a stage worker is
             # about to run (ExecutorCache defers the release to unpin)
@@ -1789,7 +1843,7 @@ class InferenceServer:
         elif isinstance(exc, WatchdogTimeoutError):
             self.counters.inc("watchdog_timeouts")
             self.counters.inc("failed_execute", n)
-            self._ranks_fatal(exc)
+            self._ranks_abort(exc)
         elif isinstance(exc, BuildFailedError):
             self.counters.inc("failed_build", n)
         elif isinstance(exc, FatalError):
@@ -1854,25 +1908,14 @@ class InferenceServer:
             outputs = self.resilience.watchdog.run(call)
         except WatchdogTimeoutError as exc:
             self.counters.inc("watchdog_timeouts")
-            self._ranks_fatal(exc)
-            raise
+            cause = self._ranks_abort(exc)
+            if cause is None:
+                raise
+            raise self._execute_error(ekey, batch, cause) from exc
         except ServeError:
             raise
         except Exception as exc:
-            if is_oom(exc):
-                # the failed call's frames (and the device memory their
-                # tensors hold) are reachable through this traceback, and
-                # the chained error outlives the ladder's rebuild: keep
-                # the exception and its text, drop the frames
-                exc.__traceback__ = None
-                raise ResourceExhaustedError(
-                    f"batched execute OOM for {ekey.short()} at batch "
-                    f"{len(batch)}: {exc}"
-                ) from exc
-            raise ExecuteFailedError(
-                f"batched execute failed for {ekey.short()}: "
-                f"{type(exc).__name__}: {exc}"
-            ) from exc
+            raise self._execute_error(ekey, batch, exc) from exc
         t1 = self.clock()
         if len(outputs) != len(batch):
             # contract violation, NOT a transient fault: the typed escape
@@ -1884,6 +1927,26 @@ class InferenceServer:
                 f"{len(batch)}"
             )
         return outputs, t0, t1
+
+    @staticmethod
+    def _execute_error(ekey: ExecKey, batch: List[Request],
+                       exc: BaseException) -> Exception:
+        """A batched execute failure, typed: itself if a `ServeError`,
+        `ResourceExhaustedError` for OOM shapes, else `ExecuteFailedError`."""
+        if isinstance(exc, ServeError):
+            return exc
+        if is_oom(exc):
+            # the failed call's frames (and the device memory their
+            # tensors hold) are reachable through this traceback, and
+            # the chained error outlives the ladder's rebuild: keep
+            # the exception and its text, drop the frames
+            exc.__traceback__ = None
+            return ResourceExhaustedError(
+                f"batched execute OOM for {ekey.short()} at batch "
+                f"{len(batch)}: {exc}")
+        return ExecuteFailedError(
+            f"batched execute failed for {ekey.short()}: "
+            f"{type(exc).__name__}: {exc}")
 
     def _execute_resilient(self, key: BatchKey, base_key: ExecKey,
                            batch: List[Request], dispatch_ts: float,
@@ -1902,6 +1965,7 @@ class InferenceServer:
                 return
             ekey = res.degraded_key(base_key)
             try:
+                self._ranks_rebuild()
                 executor, hit = self._get_executor(ekey)
                 outputs, t0, t1 = self._dispatch(ekey, key, executor, batch)
             except FatalError as exc:
@@ -2223,7 +2287,9 @@ class InferenceServer:
         c = self.counters.snapshot()
         degraded = bool(res["open_circuits"] or res["degradations"])
         t = self._thread  # one read: a concurrent stop may None the attr
-        status = "fatal" if self._fatal else "degraded" if degraded else "ok"
+        if self._ranks_aborted():
+            degraded = True  # the data groups wait for their rebuild
+        status = "degraded" if degraded else "ok"
         snap = {
             "status": status,
             "queue_depth": len(self.queue),
@@ -2238,10 +2304,17 @@ class InferenceServer:
             **res,
         }
         if self.ranks is not None:
-            # over n ranks: the world, why the server stopped for good
-            # (None while it serves) and the commands posted so far
-            snap["ranks"] = {"world": self.ranks.world, "fatal": self._fatal,
-                             "commands": self.ranks.commands}
+            # over n ranks: the world, the data groups' generation, why
+            # they were aborted (None while they serve), the aborts and
+            # rebuilds so far, the last rebuild's seconds and the commands
+            # posted so far
+            from ..utils.config import data_group_generation
+
+            r = self.ranks
+            snap["ranks"] = {"world": r.world, "generation": data_group_generation(),
+                             "aborted": r.aborted, "aborts": r.aborts,
+                             "rebuilds": r.rebuilds, "rebuild_s": self._ranks_rebuild_s,
+                             "commands": r.commands}
         return snap
 
     def metrics_snapshot(self) -> Dict[str, Any]:

@@ -593,21 +593,30 @@ class StagedFakeExecutorFactory(FakeExecutorFactory):
 
 class CollectiveFakeExecutor(StagedFakeExecutor, StepFakeExecutor):
     """The staged and step fakes over n ranks (serve/ranks.py): every
-    operation first all-reduces the sequence number and op code of the
-    command it runs in (`serve.ranks.current_command`) over a gloo group
-    of the world and fails unless every rank runs the same command.  Every
-    operation that issues collectives in the real executor (a whole-batch
-    call, the denoise and decode stages, the step contract) checks the
-    ``data`` group; an encode checks a group of its own (``encode``).  So
-    a command one rank missed, two commands with collectives running at
-    once (ranks pairing a denoise with a decode), or an operation that ran
-    outside a command fails (or hangs, which the tests bound).  ``log``
-    (shared with the factory) records each ``(seq, op)`` run."""
+    operation issues two group operations over a gloo group of the world,
+    as a real operation issues several collectives.  The first all-reduces
+    the sequence number and op code of the command it runs in
+    (`serve.ranks.current_command`) and fails unless every rank runs the
+    same command; the second all-reduces the sequence number again.
+    Between the two, ``fault_plan`` (this rank's) is consulted at site
+    ``"collective"``: a fault there fires on one rank alone inside the
+    operation, after its peers entered it, so they wait in the second
+    group operation until the data groups' timeout or abort frees them
+    (the failure a real out-of-memory between two collectives makes).
+    Every operation that issues collectives in the real executor (a
+    whole-batch call, the denoise and decode stages, the step contract)
+    checks the ``data`` group; an encode checks a group of its own
+    (``encode``).  So a command one rank missed, two commands with
+    collectives running at once (ranks pairing a denoise with a decode),
+    or an operation that ran outside a command fails (or hangs, which the
+    tests bound).  ``log`` (shared with the factory) records each ``(seq,
+    op)`` run."""
 
-    def __init__(self, key: ExecKey, groups, log: List[Any], **kw):
+    def __init__(self, key: ExecKey, groups, log: List[Any], fault_plan=None, **kw):
         super().__init__(key, **kw)
         self.groups = groups
         self.log = log
+        self.fault_plan = fault_plan
 
     def _collective(self, lane: str) -> None:
         import torch.distributed as dist
@@ -620,12 +629,16 @@ class CollectiveFakeExecutor(StagedFakeExecutor, StepFakeExecutor):
                 "a collective fake operation ran outside a command of serve/ranks.py")
         seq, op = cmd
         code = OPS.index(op)
+        group = self.groups[lane]
         got = torch.tensor([seq, code, -seq, -code], dtype=torch.int64)
-        dist.all_reduce(got, op=dist.ReduceOp.MAX, group=self.groups[lane])
+        dist.all_reduce(got, op=dist.ReduceOp.MAX, group=group)
         if got.tolist() != [seq, code, -seq, -code]:
             raise AssertionError(
                 f"rank {dist.get_rank()} ran command {seq} ({op}) on the {lane} group "
                 f"while a peer ran another: max/min {got.tolist()}")
+        if self.fault_plan is not None:
+            self.fault_plan.check("collective", key=self.key)
+        dist.all_reduce(torch.tensor([seq], dtype=torch.int64), group=group)
         self.log.append((seq, op))
 
     def __call__(self, prompts, negative_prompts, guidance_scale, seeds):
@@ -678,30 +691,46 @@ class CollectiveFakeExecutor(StagedFakeExecutor, StepFakeExecutor):
                                    guidance_scale)
 
 
-def fake_groups():
+class FakeGroups:
     """The collective fakes' gloo groups over the world, ``data`` and
-    ``encode``: call it on every rank in the same place of the order of
-    groups."""
-    import torch.distributed as dist
+    ``encode``, by lane: each a data group of `utils.config` (so
+    ``rebuild_data_groups`` makes them anew with the others), read at
+    every operation, so an executor built before a rebuild uses the new
+    generation's."""
 
-    world = list(range(dist.get_world_size()))
-    return {lane: dist.new_group(world, backend="gloo")
-            for lane in ("data", "encode")}
+    LANES = ("data", "encode")
+
+    def __getitem__(self, lane: str):
+        from ..utils.config import named_data_group
+
+        return named_data_group("fake-" + lane, backend="gloo")
+
+
+def fake_groups() -> FakeGroups:
+    """The collective fakes' groups (`FakeGroups`), made now: call it on
+    every rank in the same place of the order of groups."""
+    groups = FakeGroups()
+    for lane in FakeGroups.LANES:
+        groups[lane]
+    return groups
 
 
 class CollectiveFakeExecutorFactory(StagedFakeExecutorFactory):
     """Builds `CollectiveFakeExecutor` s over ``groups`` (`fake_groups`: the
-    fakes' two gloo groups over the world).  ``log`` holds every ``(seq,
-    op)`` its executors ran on this rank."""
+    fakes' two gloo groups over the world) with this rank's ``fault_plan``
+    at site ``"collective"``.  ``log`` holds every ``(seq, op)`` its
+    executors ran on this rank."""
 
-    def __init__(self, groups, **kw):
+    def __init__(self, groups, fault_plan=None, **kw):
         super().__init__(**kw)
         self.groups = groups
+        self.fault_plan = fault_plan
         self.log: List[Any] = []
 
     def _new_executor(self, key: ExecKey) -> CollectiveFakeExecutor:
         return CollectiveFakeExecutor(
-            key, self.groups, self.log, batch_size=self.batch_size,
+            key, self.groups, self.log, fault_plan=self.fault_plan,
+            batch_size=self.batch_size,
             step_time_s=self.step_time_s, encode_s=self.encode_s,
             denoise_s=self.denoise_s, decode_s=self.decode_s, tracker=self.tracker,
             fail_stage=self.fail_stage, fail_times=self.fail_times,

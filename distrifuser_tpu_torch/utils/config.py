@@ -20,8 +20,13 @@ original DistriFusion:
   the ranks at the same place of every image group, which gather the
   groups' images.  Rank r has ``dp_idx = r // group_size``, ``batch_idx =
   (r % group_size) // n`` and ``split_idx = r % n``, the JAX mesh's
-  ``reshape(dp, cfg, n)`` order.  The serve plane's commands over n ranks
-  ride one more gloo group, ``control_group()`` (serve/ranks.py).
+  ``reshape(dp, cfg, n)`` order.  Each of these is a *data group* of its
+  own, the whole world's too (never the default group): the serve plane
+  over n ranks aborts them after a failure inside an operation and makes
+  them anew (``abort_data_groups``, ``rebuild_data_groups``), with a
+  timeout it derives from its watchdog bound (``set_data_group_watchdog``);
+  its commands ride one more gloo group, ``control_group()``, which it
+  never aborts (serve/ranks.py).
 
 Under ``attn_impl="usp"`` each patch group of n ranks is factored as
 ``ulysses_degree`` x r (the JAX ``usp_mesh``): the rank at patch index
@@ -50,7 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -87,38 +92,184 @@ def validate_step_cache_knobs(interval: int, depth: int) -> None:
             f"depth={depth})"
         )
 
-# process groups already built, keyed by (default group, world, dp, n) and
-# ("usp", default group, world, n, ulysses_degree): every config of a run
-# shares them, and every rank builds them in one order
-_GROUPS: Dict[Tuple[Any, ...], Tuple[Any, ...]] = {}
+# Process groups already built, keyed by (kind, default group, generation,
+# *shape): every config of a run shares them, and every rank builds them in
+# one order.  The *data* groups (every group a collective of the model
+# runs on: batch, split, dp, usp's two, the serve fakes' named ones) carry
+# the generation of the data groups, ``_GENERATION``; the serve plane's
+# control group does not.  ``rebuild_data_groups`` starts the next
+# generation: it makes every data group of the last one anew, in the order
+# they were first made, so a group that timed out or was aborted is never
+# used again (serve/ranks.py).
+_GROUPS: Dict[Tuple[Any, ...], Any] = {}
+_GENERATION = 0
+# the calls that made this generation's data groups, in order: (kind,
+# shape, fn, args), as `_remember` took them
+_MADE: List[Tuple[str, Tuple[Any, ...], Callable[..., Any], Tuple[Any, ...]]] = []
+# the data groups of this generation this rank belongs to (to abort), and
+# whether they were aborted
+_MEMBER_GROUPS: List[Any] = []
+_ABORTED = False
+# the watchdog bound the data groups' timeout derives from (seconds);
+# None: torch's default timeout (every path but serving over ranks)
+_WATCHDOG_S: Optional[float] = None
+_ABORT_WAIT_S = 2.0  # how long `abort_data_groups` waits for its aborts
+
+
+def data_group_timeout(watchdog_s: float, backend: str) -> float:
+    """The timeout a data group gets under a server whose watchdog bound is
+    ``watchdog_s`` (serve/ranks.py).  On NCCL twice the bound: rank 0
+    aborts the groups at the latest when its watchdog fires, before NCCL's
+    own timeout would tear the process down.  On gloo, which cannot abort,
+    the bound itself: ranks that share a card start cold at times that
+    differ by many seconds, and a wait that long must not read as a
+    failure; a rank left waiting by a peer that failed leaves at the latest
+    one bound after it entered, so the command it holds ends within the
+    bound the server's rebuild then waits (its watchdog, firing first,
+    reads the peer's failure: `RankLeader.abort_cause`)."""
+    return (2.0 if "nccl" in backend else 1.0) * watchdog_s
+
+
+def set_data_group_watchdog(watchdog_s: Optional[float]) -> bool:
+    """Derive the data groups' timeout from a server's watchdog bound
+    (``ResilienceConfig.watchdog_timeout_s``; <= 0 or None: torch's
+    default).  Returns whether the bound changed while data groups exist,
+    in which case the caller rebuilds them on every rank
+    (`serve.ranks.serve_over_ranks` does)."""
+    global _WATCHDOG_S
+    bound = float(watchdog_s) if watchdog_s and watchdog_s > 0 else None
+    changed = bound != _WATCHDOG_S
+    _WATCHDOG_S = bound
+    return changed and bool(_MADE)
+
+
+def _data_group(ranks: Sequence[int], backend: Optional[str] = None):
+    """``dist.new_group`` for a data group of this generation, with the
+    timeout `set_data_group_watchdog` derived (torch's default without
+    one).  Collective over the world, as every ``new_group``."""
+    kw: Dict[str, Any] = {}
+    if backend is not None:
+        kw["backend"] = backend
+    if _WATCHDOG_S is not None:
+        import datetime
+
+        name = backend or dist.get_backend()
+        kw["timeout"] = datetime.timedelta(
+            seconds=data_group_timeout(_WATCHDOG_S, str(name)))
+    group = dist.new_group(list(ranks), **kw)
+    if dist.is_initialized() and dist.get_rank() in ranks:
+        _MEMBER_GROUPS.append(group)
+    return group
+
+
+def _remember(kind: str, shape: Tuple[Any, ...], fn: Callable[..., Any],
+              args: Tuple[Any, ...]):
+    """The data groups of ``kind`` at ``shape`` of this generation, made
+    by ``fn(*args)`` on first use and recorded, so that
+    ``rebuild_data_groups`` can make them anew."""
+    key = (kind, dist.group.WORLD, _GENERATION, *shape)
+    if key not in _GROUPS:
+        _GROUPS[key] = fn(*args)
+        _MADE.append((kind, shape, fn, args))
+    return _GROUPS[key]
+
+
+def data_group_generation() -> int:
+    """The generation of the data groups: 0, one more after each
+    `rebuild_data_groups`."""
+    return _GENERATION
+
+
+def data_groups_live(generation: int) -> bool:
+    """Are the data groups of ``generation`` still the ones to use (the
+    current generation, not aborted)?  A CUDA graph captured over them
+    replays only while they are (parallel/graphs.py)."""
+    return generation == _GENERATION and not _ABORTED
+
+
+def abort_data_groups() -> int:
+    """Abort this rank's NCCL data groups of the current generation
+    (``_abort_process_group``), so that no later work of this generation
+    can wait on one: a collective waiting on the card for a peer that left
+    ends.  The groups are aborted together, a daemon thread each, and this
+    waits at most ``_ABORT_WAIT_S`` in all: a group's own abort call may not
+    return before the group's timeout (seen on H100s with NCCL 2.28, which
+    then log that it timed out), and nothing here needs it to.  Gloo has no
+    abort: a rank waiting in a gloo collective leaves it through the
+    group's timeout.  Returns the number of groups aborted."""
+    import threading
+    import time
+
+    from torch.distributed.distributed_c10d import _abort_process_group
+
+    global _ABORTED
+    _ABORTED = True
+    groups = [g for g in _MEMBER_GROUPS if "nccl" in str(dist.get_backend(g))]
+    threads = [threading.Thread(target=_abort_process_group, args=(g,), daemon=True,
+                                name="abort-data-group") for g in groups]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + _ABORT_WAIT_S
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    return len(groups)
+
+
+def rebuild_data_groups() -> int:
+    """Start the next generation of data groups: make every data group of
+    the last one anew, in the order they were first made.  Collective over
+    the world (``dist.new_group``): every rank calls it at the same point
+    of its order of groups, after every rank has left the operations of
+    the last generation.  The old groups are left to the references that
+    still hold them (an abandoned thread may still be inside one of them),
+    never used again.  Returns the new generation."""
+    global _GENERATION, _ABORTED
+    made = list(_MADE)
+    stale = [k for k in _GROUPS if k[0] != "control"]
+    for k in stale:
+        del _GROUPS[k]
+    _MADE.clear()
+    _MEMBER_GROUPS.clear()
+    _GENERATION += 1
+    _ABORTED = False
+    for kind, shape, fn, args in made:
+        _remember(kind, shape, fn, args)
+    return _GENERATION
+
+
+def named_data_group(name: str, backend: Optional[str] = None):
+    """A data group over the whole world under ``name`` (the serve
+    plane's collective fakes hold theirs so): made once a generation, on
+    every rank in one order, and anew by ``rebuild_data_groups``."""
+    world = dist.get_world_size()
+    return _remember("named", (world, name, backend), _data_group, (range(world), backend))
 
 
 def _process_groups(world: int, n: int, rank: int, dp: int = 1):
     """(batch_group, split_group, dp_group) of this rank, after the
     reference's utils.py:84-96 within each of the ``dp`` image groups of
     world / dp consecutive ranks; ``split_group`` is None without the CFG
-    split (n is the image group), ``dp_group`` None at dp 1.
+    split (n is the image group), ``dp_group`` None at dp 1.  Every group
+    is a data group of its own, the whole world's too: never the default
+    group, which an abort would take down with every later ``new_group``.
     ``dist.new_group`` is collective over the world: every rank creates
     every group, in the same order, including the groups it is not in."""
-    key = (dist.group.WORLD, world, dp, n)
-    if key not in _GROUPS:
-        size = world // dp  # ranks of an image group
-        if n == world:
-            batch = [dist.group.WORLD]
-        else:
-            batch = [dist.new_group(list(range(b * n, (b + 1) * n)))
-                     for b in range(world // n)]
-        split = [None] * (world // n)
-        if n < size:  # two branches an image group
-            split = [dist.new_group([g * size + s, g * size + s + n])
-                     for g in range(dp) for s in range(n)]
-        dp_groups = [None] * size
-        if dp > 1:
-            dp_groups = [dist.new_group(list(range(p, world, size))) for p in range(size)]
-        image, place = rank // size, rank % size
-        _GROUPS[key] = (batch[rank // n], split[image * n + place % n] if n < size else None,
-                        dp_groups[place])
-    return _GROUPS[key]
+    return _remember("patch", (world, dp, n), _make_process_groups, (world, n, rank, dp))
+
+
+def _make_process_groups(world: int, n: int, rank: int, dp: int):
+    size = world // dp  # ranks of an image group
+    batch = [_data_group(range(b * n, (b + 1) * n)) for b in range(world // n)]
+    split = [None] * (world // n)
+    if n < size:  # two branches an image group
+        split = [_data_group([g * size + s, g * size + s + n])
+                 for g in range(dp) for s in range(n)]
+    dp_groups = [None] * size
+    if dp > 1:
+        dp_groups = [_data_group(range(p, world, size)) for p in range(size)]
+    image, place = rank // size, rank % size
+    return (batch[rank // n], split[image * n + place % n] if n < size else None,
+            dp_groups[place])
 
 
 def control_group():
@@ -128,7 +279,7 @@ def control_group():
     back.  Created once, on every rank, before any executor is built (so
     in the same place of every rank's order of groups); its timeout is a
     week, because a follower waits on it for the next command while the
-    server idles.  None at world 1."""
+    server idles.  Never aborted nor rebuilt.  None at world 1."""
     if not (dist.is_available() and dist.is_initialized()):
         return None
     world = dist.get_world_size()
@@ -153,16 +304,18 @@ def _usp_groups(world: int, n: int, rank: int, u: int, batch_group):
     r = n // u
     if u == 1 or r == 1:
         return (batch_group, None) if r == 1 else (None, batch_group)
-    key = ("usp", dist.group.WORLD, world, n, u)
-    if key not in _GROUPS:
-        u_groups = [dist.new_group([g + ui * r + ri for ui in range(u)])
-                    for g in range(0, world, n) for ri in range(r)]
-        r_groups = [dist.new_group([g + ui * r + ri for ri in range(r)])
-                    for g in range(0, world, n) for ui in range(u)]
-        _GROUPS[key] = (u_groups, r_groups)
-    u_groups, r_groups = _GROUPS[key]
+    u_groups, r_groups = _remember("usp", (world, n, u), _make_usp_groups, (world, n, u))
     g, s = rank // n, rank % n
     return u_groups[g * r + s % r], r_groups[g * u + s // r]
+
+
+def _make_usp_groups(world: int, n: int, u: int):
+    r = n // u
+    u_groups = [_data_group([g + ui * r + ri for ui in range(u)])
+                for g in range(0, world, n) for ri in range(r)]
+    r_groups = [_data_group([g + ui * r + ri for ri in range(r)])
+                for g in range(0, world, n) for ui in range(u)]
+    return u_groups, r_groups
 
 
 @dataclasses.dataclass

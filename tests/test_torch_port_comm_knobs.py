@@ -270,11 +270,10 @@ def runs(devices8, tmp_path_factory):
     jax_runs = {}
     for case in KNOBS:
         # the JAX package runs its fused loop (use_cuda_graph is its
-        # compiled step) and has no FLOP counterpart in the port to price
+        # compiled step)
         jcfg = JaxDistriConfig(devices=devices8[:WORLD], height=128, width=128,
                                **{**BASE, **case, "use_cuda_graph": True})
         jrunner = make_jax_runner(jcfg, ucfg, params, get_scheduler("ddim"))
-        jrunner._flop_estimate = lambda *a, **k: None
         x = None
         if _key(case) in LATENT_RUNS:
             x = np.asarray(jrunner.generate(latents, enc, added_cond=added,
@@ -300,6 +299,12 @@ def test_runner_knob_matches_jax(runs, case):
     assert rep["phases"] == want_rep["phases"]
     assert rep["bytes"] == want_rep["bytes"]
     assert rep["refresh_fraction"] == want_rep["refresh_fraction"]
+    # the FLOP counts: the port's convs, GEMMs and attention products, XLA's
+    # everything (tests/test_torch_port_flops.py RATIO_TOL)
+    if want_rep["flops"] is None:
+        assert rep["flops"] is None
+    else:
+        assert abs(rep["flops"]["shallow_ratio"] - want_rep["flops"]["shallow_ratio"]) <= 0.02
     assert plan == {k: want_plan[k] for k in plan}
     assert plan["total_bytes"] == want_plan["total_bytes"]
     if want_x is not None:

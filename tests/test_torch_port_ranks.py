@@ -750,6 +750,18 @@ def _evict_drop_case(rank, world, groups):
     out = {"evicted": 0, "dropped": 0, "records": []}
     for config, hw, fail in cases:
         fac = CollectiveFakeExecutorFactory(groups, **(fail if rank == 0 else {}))
+        if fail and rank == 0:
+            # only the first executor fails: a denoise that fails on rank 0
+            # after its go aborts the data groups, and the executor their
+            # rebuild makes serves the next batch
+            make = fac._new_executor
+
+            def first_fails(key, _make=make, _fac=fac):
+                ex = _make(key)
+                _fac.fail_stage = None
+                return ex
+
+            fac._new_executor = first_fails
         if rank:
             follower = RankFollower(control_group(), fac)
             follower.run()
@@ -798,10 +810,12 @@ def _serve_fake_cases(rank, world, groups):
         res = _fake_serve(groups, world, step_cfg, [("early", 8, {})],
                           factory_kw={"step_time_s": 0.005}, during=join_late)
         out["step_join"] = res
-    # a preemption: one slot, a slack request running, a tight one arriving
-    # whose time to live fits its own steps at the calibrated per-step
-    # estimate but not those plus half the slack one's rest (the window in
-    # the middle, whatever the ranks' step time on a loaded machine)
+    # a preemption: one slot, a slack request of SLACK_STEPS running, a
+    # tight one of 16 arriving whose time to live fits its own steps at the
+    # calibrated per-step estimate but not those plus half the slack one's
+    # rest (the window in the middle, whatever the ranks' step time on a
+    # loaded machine: the slack one's length keeps the estimate free to
+    # move by -34% to +110% between the arrival and the round that preempts)
     pre_cfg = _fake_config(default_steps=16, step_batching=StepBatchConfig(
         enabled=True, slots=1, preview_interval=0))
 
@@ -815,7 +829,8 @@ def _serve_fake_cases(rank, world, groups):
                                            ttl_s=ttl))]
 
     with _deadline(60, f"step rounds with a preemption at world {world}"):
-        out["step_preempt"] = _fake_serve(groups, world, pre_cfg, [("slack", 1, {})],
+        slack = [("slack", 1, {"num_inference_steps": SLACK_STEPS})]
+        out["step_preempt"] = _fake_serve(groups, world, pre_cfg, slack,
                                           factory_kw={"step_time_s": 0.02},
                                           during=tight_arrives)
     if world != 2:
@@ -834,13 +849,82 @@ def _serve_fake_cases(rank, world, groups):
         with _deadline(60, f"{name} at world {world}"):
             out[name] = _fake_serve(groups, world, _fake_config(resilience=res_cfg),
                                     [("f", 5, {})], fault_plan=plan)
-    # a hang on rank 1 past rank 0's watchdog: fatal to the server
-    plan = (FaultPlan([FaultRule(site="execute", kind="hang", at_calls=(0,), hang_s=1.0)])
-            if rank == 1 else None)
-    with _deadline(60, f"follower hang at world {world}"):
-        out["follower_hang"] = _fake_serve(
-            groups, world, _fake_config(resilience=ResilienceConfig(
-                watchdog_timeout_s=0.3, max_retries=0)), [("h", 6, {})], fault_plan=plan)
+    out.update(_fault9_cases(rank, world, groups))
+    return out
+
+
+# the preempted request's steps in the step_preempt case (the tight one runs 16)
+SLACK_STEPS = 40
+
+# the watchdog bound of the fault-9 cases: their gloo data groups time out
+# after as long (utils.config.data_group_timeout)
+WATCHDOG_S = 2.0
+
+
+def _after_rebuild(prompt, seed):
+    """A ``during`` of `_fake_serve`: one more request, submitted once the
+    server over the ranks has rebuilt its data groups (or its first
+    request failed for good)."""
+
+    def during(server):
+        deadline = time.monotonic() + 30
+        while (server.health()["ranks"]["rebuilds"] < 1
+               and server.health()["requests"]["failed_execute"] < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        return [(prompt, seed, server.submit(prompt, height=64, width=64, seed=seed))]
+
+    return during
+
+
+def _fault9_cases(rank, world, groups):
+    """A failure on rank 1 alone inside an operation (queue 3 fault 9):
+    the collective fake raises (or sleeps) on rank 1 between its two group
+    operations, while rank 0 waits in the second (gloo: until the data
+    groups' timeout, the watchdog bound); and a hang on rank 1 before
+    the go, past rank 0's watchdog.  Each case records every rank's data
+    group generation before and after (every case at one watchdog bound,
+    whose data groups are made first, so that only a fault rebuilds)."""
+    from distrifuser_tpu_torch.serve import FaultPlan, FaultRule, ResilienceConfig
+    from distrifuser_tpu_torch.utils.config import (data_group_generation,
+                                                    rebuild_data_groups,
+                                                    set_data_group_watchdog)
+
+    if set_data_group_watchdog(WATCHDOG_S):
+        rebuild_data_groups()
+
+    def in_op(kind, **rule):
+        return {"fault_plan": FaultPlan([FaultRule(site="collective", kind=kind,
+                                                   at_calls=(0,), **rule)])
+                if rank == 1 else None}
+
+    res = dict(allow_batch_split=False, allow_stepwise_fallback=False,
+               allow_weight_quant_on=True, backoff_base_s=0.001, backoff_max_s=0.01)
+    cases = (
+        # an error between the two group operations: retried after the rebuild
+        ("inop_error", ResilienceConfig(watchdog_timeout_s=WATCHDOG_S, **res),
+         in_op("execute_error"), None),
+        # an out-of-memory there: the ladder's weight_quant_on on every rank
+        ("inop_oom", ResilienceConfig(watchdog_timeout_s=WATCHDOG_S, **res),
+         in_op("oom"), None),
+        # a hang there past the watchdog bound: rank 0 leaves its collective
+        # through the group's timeout, rank 1's lane is abandoned
+        ("inop_hang", ResilienceConfig(watchdog_timeout_s=WATCHDOG_S, **res),
+         in_op("hang", hang_s=1.5 * WATCHDOG_S), None),
+        # a hang before the go, past rank 0's watchdog: the watchdog
+        # abandons the command, the server keeps serving
+        ("follower_hang", ResilienceConfig(watchdog_timeout_s=WATCHDOG_S, max_retries=0),
+         {}, FaultPlan([FaultRule(site="execute", kind="hang", at_calls=(0,),
+                                  hang_s=1.5 * WATCHDOG_S)]) if rank == 1 else None),
+    )
+    out = {}
+    for name, res_cfg, factory_kw, plan in cases:
+        before = data_group_generation()
+        with _deadline(60, f"{name} at world {world}"):
+            out[name] = _fake_serve(groups, world, _fake_config(resilience=res_cfg),
+                                    [("f", 5, {})], fault_plan=plan,
+                                    factory_kw=factory_kw, during=_after_rebuild("g", 6))
+        out[name]["generations"] = (before, data_group_generation())
     return out
 
 
@@ -853,10 +937,15 @@ def _seeded_latents(seeds, shape=(1, 16, 16, 4)):
 
 def _ranked_factory(build, pipes):
     """`pipeline_executor_factory` over ``build(key)`` whose executors draw
-    `_seeded_latents`; ``pipes`` keeps each key's pipeline."""
+    `_seeded_latents`; ``pipes`` keeps each key's last pipeline (a rebuild
+    of the data groups builds the key's pipeline anew, on the new groups)."""
     from distrifuser_tpu_torch.serve import pipeline_executor_factory
 
-    inner = pipeline_executor_factory(lambda key: pipes.setdefault(key, build(key)))
+    def build_kept(key):
+        pipes[key] = build(key)
+        return pipes[key]
+
+    inner = pipeline_executor_factory(build_kept)
 
     def factory(key):
         ex = inner(key)
@@ -912,6 +1001,8 @@ def _serve_sdxl_cases(rank, world, inp):
                 out[name] = {"images": [r.output for r in res],
                              "batch_sizes": [r.batch_size for r in res],
                              "staging": server.metrics_snapshot()["staging"]}
+    with _deadline(120, f"tiny SDXL with a failure inside a call at world {world}"):
+        out["sdxl_inop"] = _sdxl_failure_inside_a_call(rank, world, inp, factory, base)
     # step batching: the first server stops itself at step 1 (a preview
     # callback on its scheduler thread), exporting the carry from every rank
     step_cfg = ServeConfig(**dict(base, warmup_buckets=()), step_batching=StepBatchConfig(
@@ -999,6 +1090,77 @@ def _serve_sdxl_cases(rank, world, inp):
                                output_type="np").images[0] for p, s in requests]
         out["solo"] = solo
     return out
+
+
+class _FailsOnce:
+    """An executor whose first whole-batch call raises on this rank after
+    the pipeline issued ``after`` all-gathers, between two collectives of
+    its denoise (``torch.distributed.all_gather`` patched for that call);
+    anything else is the wrapped executor's."""
+
+    armed = True
+
+    def __init__(self, ex, after):
+        self._ex = ex
+        self._after = after
+
+    def __getattr__(self, name):
+        return getattr(self._ex, name)
+
+    def __call__(self, *args):
+        if not _FailsOnce.armed:
+            return self._ex(*args)
+        _FailsOnce.armed = False
+        real, seen = dist.all_gather, [0]
+
+        def all_gather(*a, **kw):
+            seen[0] += 1
+            if seen[0] > self._after:
+                raise RuntimeError("injected failure between two collectives")
+            return real(*a, **kw)
+
+        dist.all_gather = all_gather
+        try:
+            return self._ex(*args)
+        finally:
+            dist.all_gather = real
+
+
+def _sdxl_failure_inside_a_call(rank, world, inp, factory, base):
+    """The tiny SDXL pipeline over the ranks, whole-batch, at a watchdog
+    bound of ``SDXL_WATCHDOG_S``: the first call raises on rank 1 alone in
+    the middle of its denoise, after three all-gathers, while rank 0 runs on
+    into the next collective.  The server aborts and rebuilds the data
+    groups on both ranks, the retry builds the key's pipeline anew, and the
+    two requests' images come back (test: the solo call's bits)."""
+    from distrifuser_tpu_torch.serve import ResilienceConfig, ServeConfig, serve_over_ranks
+    from distrifuser_tpu_torch.utils.config import (data_group_generation,
+                                                    rebuild_data_groups,
+                                                    set_data_group_watchdog)
+
+    if set_data_group_watchdog(SDXL_WATCHDOG_S):
+        rebuild_data_groups()
+    before = data_group_generation()
+    wrapped = factory if rank != 1 else (lambda key: _FailsOnce(factory(key), after=3))
+    server = serve_over_ranks(wrapped, ServeConfig(**dict(base, max_batch_size=1),
+                                                   resilience=ResilienceConfig(
+                                                       watchdog_timeout_s=SDXL_WATCHDOG_S)),
+                              mesh_plan=f"dp1.cfg1.sp{world}")
+    out = {}
+    if server is not None:
+        with server:
+            res = [server.submit(p, height=128, width=128, seed=s).result(timeout=120)
+                   for p, s in inp["requests"][:2]]
+            out = {"images": [r.output for r in res], "retries": [r.retries for r in res],
+                   "health": server.health()}
+    out["generations"] = (before, data_group_generation())
+    return out
+
+
+# the watchdog bound of the tiny SDXL failure case: a healthy call takes a
+# fraction of it on a loaded CPU, and rank 0 waits as long in the
+# collective rank 1 never enters
+SDXL_WATCHDOG_S = 8.0
 
 
 def serve_ranks_worker(rank, world, in_path, out_path):
@@ -1089,4 +1251,44 @@ def step_ranks_worker(rank, world, in_path, out_path):
     out = _serve_fake_cases(rank, world, groups)
     with _deadline(180, f"the mixed-signature step drive at world {world}"):
         out["mixed"] = _mixed_signature_drive(rank, world, inp)
+    with _deadline(60, f"a parked carry across a rebuild at world {world}"):
+        out["step_fault"] = _parked_carry_across_rebuild(rank, world, groups)
     torch.save(out, f"{out_path}.rank{rank}")
+
+
+def _parked_carry_across_rebuild(rank, world, groups):
+    """Step batching over the ranks, one slot: a slack request runs, a
+    tight one of 12 steps preempts it (its carry parks) and fails on rank
+    1 alone between the two group operations of its ``step_begin``; the
+    data groups are aborted and rebuilt on every rank, and the parked
+    carry resumes on its key's rebuilt executor and finishes."""
+    from distrifuser_tpu_torch.serve import (FaultPlan, FaultRule, ResilienceConfig,
+                                             StepBatchConfig)
+    from distrifuser_tpu_torch.utils.config import (data_group_generation,
+                                                    rebuild_data_groups,
+                                                    set_data_group_watchdog)
+
+    if set_data_group_watchdog(WATCHDOG_S):
+        rebuild_data_groups()
+    plan = (FaultPlan([FaultRule(site="collective", kind="execute_error", p=1.0,
+                                 max_fires=1, key_substr="@12st")])
+            if rank == 1 else None)
+    cfg = _fake_config(default_steps=16, step_batching=StepBatchConfig(
+        enabled=True, slots=1, preview_interval=0),
+        resilience=ResilienceConfig(watchdog_timeout_s=WATCHDOG_S))
+
+    def tight_arrives(server):
+        sb = server.stepbatch
+        while sb.rounds < 3:
+            time.sleep(0.002)
+        (state,) = sb.occupied()
+        ttl = sb.per_step_s() * (12 + state.remaining / 2)
+        return [("tight", 2, server.submit("tight", height=64, width=64, seed=2,
+                                           num_inference_steps=12, ttl_s=ttl))]
+
+    before = data_group_generation()
+    out = _fake_serve(groups, world, cfg, [("slack", 1, {})],
+                      factory_kw={"step_time_s": 0.02, "fault_plan": plan},
+                      during=tight_arrives)
+    out["generations"] = (before, data_group_generation())
+    return out

@@ -14,7 +14,13 @@ One spawn of four ranks (tests/test_torch_port_ranks.py
   two dispatches with three packed rows, and every image equals its solo
   run's bit for bit, and is within ``SDXL_TOL`` of the JAX package's step
   run over a 4-device fake mesh on the same weights and latents (its solo
-  runs: the JAX test holds its packed runs to them bit for bit).
+  runs: the JAX test holds its packed runs to them bit for bit);
+* a step carry across a rebuild of the data groups (queue 3 fault 9): one
+  slot, a slack request preempted (its carry parked) by a tight one whose
+  ``step_begin`` fails on rank 1 alone between the collective fake's two
+  group operations; every rank makes the data groups anew, and the parked
+  carry resumes on its key's rebuilt executor and finishes at its solo
+  bits.
 """
 
 import numpy as np
@@ -112,3 +118,20 @@ def test_mixed_signature_groups_over_four_ranks_match_jax(ranked):
     ranks, jax_images = ranked
     for image, want in zip(ranks[0]["mixed"]["images"], jax_images):
         np.testing.assert_allclose(image, want, rtol=0, atol=SDXL_TOL)
+
+
+def test_parked_carry_resumes_bit_for_bit_after_a_follower_failure(ranked):
+    ranks, _ = ranked
+    lead = ranks[0]["step_fault"]
+    slack, tight = lead["records"]
+    assert slack["ok"] and slack["preempts"] == 1, slack
+    assert tight["error"] == "ExecuteFailedError" and "rank 1" in tight["text"]
+    health = lead["health"]
+    assert health["status"] != "fatal" and health["ranks"]["aborted"] is None
+    assert health["ranks"]["aborts"] == 1 and health["ranks"]["rebuilds"] == 1
+    assert {"step_park", "step_resume"} <= {op for _, op in lead["log"]}
+    for other in ranks:
+        before, after = other["step_fault"]["generations"]
+        assert after == before + 1
+        assert other["step_fault"]["log"] == lead["log"]
+        assert other["step_fault"]["built"] == lead["built"]
